@@ -1,0 +1,22 @@
+"""dmclock-tpu on PyTorch and CUDA: the dmClock batch engine for one
+NVIDIA Hopper card.
+
+A port of the JAX package ``dmclock_tpu`` (which stays the reference):
+the same int64-nanosecond tag algebra, the same SoA client state and
+the same decision streams, bit for bit.  Plain tensor code is PyTorch;
+each kernel the JAX package wrote in Pallas for the TPU is a kernel
+written by hand for Hopper under ``engine/csrc/``.
+
+Layers (each mirrors its counterpart in ``dmclock_tpu``):
+  core    -- the int64-ns time/tag constants
+  engine  -- SoA client state, the exact serial engine, the prefix-
+             commit fast path and its ring-window kernel
+  obs     -- the on-device metrics vector
+  serve   -- the serving entry point (``serve_only``)
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``; the CPU
+is used only when the caller asks for it, and asking for CUDA on a
+machine without it raises (``device.resolve_device``).
+"""
+
+__version__ = "0.1.0"

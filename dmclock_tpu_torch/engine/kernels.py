@@ -1,0 +1,321 @@
+"""dmClock tag algebra and the exact serial engine, on tensors.
+
+Counterpart of ``dmclock_tpu/engine/kernels.py`` (tag algebra and
+``engine_step``/``engine_run``):
+
+- ``_make_tag``   = RequestTag recurrence / ``tag_calc``
+                    (dmclock_server.h:145-183, :246-259)
+- ``engine_step`` = ``do_next_request`` (:1115-1186) +
+                    ``pop_process_request``/``update_next_tag``
+                    (:1021-1073) + ``reduce_reservation_tags``
+                    (:1077-1111): the three heap tops are masked
+                    lexicographic argmins over (tag, creation order).
+- ``engine_run``  = ``steps`` decisions; the JAX ``lax.scan`` is a
+                    Python loop here.
+
+All arithmetic is int64 ns.  The serial engine is the exactness
+reference the prefix-commit fast path is held against.  Scalars stay
+0-d device tensors (reads and writes at the winner go through
+``index_select``/``index_copy``), so no step waits on the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core.timebase import (MAX_CHARGE_UNITS, MAX_TAG, MIN_TAG,
+                             ORGANIC_TAG_CAP, TIME_MAX)
+from ..obs import device as obsdev
+from .state import EngineState
+
+# Masking sentinel for argmin keys: strictly above every legal key.
+KEY_INF = (1 << 63) - 1
+
+# Decision type codes (== core.scheduler.NextReqType values)
+RETURNING = 0
+FUTURE = 1
+NONE = 2
+
+
+class Decision(NamedTuple):
+    """One scheduling decision (or a stack of them)."""
+
+    type: torch.Tensor         # int32: RETURNING/FUTURE/NONE
+    slot: torch.Tensor         # int32: winning client slot (-1 if none)
+    phase: torch.Tensor        # int32: 0 reservation, 1 priority
+    cost: torch.Tensor         # int64: served request cost
+    when: torch.Tensor         # int64: FUTURE wake-up time (ns)
+    limit_break: torch.Tensor  # bool: served via AtLimit::Allow
+
+
+def as_scalar(now, device: torch.device) -> torch.Tensor:
+    """``now`` (int or tensor) as a 0-d int64 tensor on ``device``; an
+    int is written with a fill, not copied from the host."""
+    if torch.is_tensor(now):
+        return now.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), int(now), dtype=torch.int64, device=device)
+
+
+# ----------------------------------------------------------------------
+# tag algebra
+# ----------------------------------------------------------------------
+
+def _tag_axis(time_ns, prev, inv, dist, extreme_is_high: bool, cost):
+    """One tag axis (reference tag_calc, dmclock_server.h:246-259)."""
+    units = torch.clamp(dist + cost, max=MAX_CHARGE_UNITS)
+    organic = torch.clamp(torch.maximum(time_ns, prev + inv * units),
+                          max=ORGANIC_TAG_CAP)
+    sentinel = MAX_TAG if extreme_is_high else MIN_TAG
+    return torch.where(inv == 0, sentinel, organic)
+
+
+def _make_tag(prev_r, prev_p, prev_l, prev_arrival,
+              r_inv, w_inv, l_inv, delta, rho, time_ns, cost,
+              anticipation_ns: int):
+    """The RequestTag recurrence (reference :145-183): reservation uses
+    rho, proportion/limit use delta; anticipation backdates arrivals
+    within the window of the previous arrival (:159-161)."""
+    backdate = (time_ns - anticipation_ns) < prev_arrival
+    max_time = torch.where(backdate, time_ns - anticipation_ns, time_ns)
+    r = _tag_axis(max_time, prev_r, r_inv, rho, True, cost)
+    p = _tag_axis(max_time, prev_p, w_inv, delta, True, cost)
+    l = _tag_axis(max_time, prev_l, l_inv, delta, False, cost)
+    return r, p, l
+
+
+def _fold_prev(prev, tag):
+    """prev_tag update skips pinned sentinels (reference :399-412)."""
+    pinned = (tag == MAX_TAG) | (tag == MIN_TAG)
+    return torch.where(pinned, prev, tag)
+
+
+def _min_not_0(current, possible):
+    """min where 0 means "no time" (reference :1192-1195)."""
+    return torch.where(possible == 0, current,
+                       torch.minimum(current, possible))
+
+
+# ----------------------------------------------------------------------
+# selection: masked lexicographic argmin = a heap top
+# ----------------------------------------------------------------------
+
+def _masked_argmin(mask, key, order):
+    """Top of a 'heap' ordered by (mask desc, key asc, order asc).
+
+    Returns (valid, index, min_key) as 0-d tensors; ``index`` is int64
+    (a gather index).  ``torch.argmin`` returns the first minimum, as
+    ``jnp.argmin`` does, so creation-order ties resolve identically."""
+    k = torch.where(mask, key, KEY_INF)
+    min_key = torch.min(k)
+    tie = k == min_key
+    idx = torch.argmin(torch.where(tie, order, KEY_INF))
+    return torch.any(mask), idx, min_key
+
+
+def _at(arr, w):
+    """``arr[w]`` for a 0-d index tensor, as a device gather (indexing
+    with a 0-d tensor would read it back to the host)."""
+    return arr.index_select(0, w.reshape(1)).reshape(arr.shape[1:])
+
+
+def _set(arr, w, value):
+    """``arr`` with row ``w`` replaced by ``value`` (out of place)."""
+    return arr.index_copy(0, w.reshape(1),
+                          value.to(arr.dtype).reshape(1))
+
+
+# ----------------------------------------------------------------------
+# one scheduling decision (fused select + pop + retag)
+# ----------------------------------------------------------------------
+
+def engine_step(state: EngineState, now, *, allow_limit_break: bool,
+                anticipation_ns: int):
+    """One ``do_next_request`` + serve.  Mirrors the oracle's decision
+    order exactly: reservation phase, ready promotion, weight phase,
+    optional Allow limit-break, else future/none (reference
+    :1115-1186)."""
+    now = as_scalar(now, state.device)
+    has_req = state.active & (state.depth > 0)
+    eff_prop = state.head_prop + state.prop_delta
+
+    # reservation heap top; constraint phase (:1124-1128)
+    resv_valid, resv_idx, resv_min = _masked_argmin(
+        has_req, state.head_resv, state.order)
+    serve_resv = resv_valid & (resv_min <= now)
+
+    # promote newly within-limit heads to ready (:1135-1144), only when
+    # the reservation phase does not serve (the oracle returns first)
+    head_ready = torch.where(
+        serve_resv, state.head_ready,
+        state.head_ready | (has_req & ~state.head_ready &
+                            (state.head_limit <= now)))
+
+    # ready heap top; weight phase (:1146-1151)
+    ready_mask = has_req & head_ready
+    rdy_valid, rdy_idx, _ = _masked_argmin(ready_mask, eff_prop,
+                                           state.order)
+    serve_ready = (~serve_resv) & rdy_valid & \
+        (_at(state.head_prop, rdy_idx) < MAX_TAG)
+
+    # overall ready-heap top (ready before non-ready), for Allow
+    nonready_mask = has_req & ~head_ready
+    nr_valid, nr_idx, _ = _masked_argmin(nonready_mask, eff_prop,
+                                         state.order)
+    overall_idx = torch.where(rdy_valid, rdy_idx, nr_idx)
+    overall_valid = rdy_valid | nr_valid
+    if allow_limit_break:
+        undecided = ~serve_resv & ~serve_ready
+        lb_ready_ok = overall_valid & \
+            (_at(state.head_prop, overall_idx) < MAX_TAG)
+        lb_serve_ready = undecided & lb_ready_ok
+        lb_serve_resv = undecided & ~lb_ready_ok & resv_valid & \
+            (resv_min < MAX_TAG)
+    else:
+        lb_serve_ready = torch.zeros_like(serve_resv)
+        lb_serve_resv = torch.zeros_like(serve_resv)
+
+    # nothing eligible: earliest future time (:1170-1185); the limit
+    # heap top orders non-ready before ready
+    l_nr_valid, l_nr_idx, _ = _masked_argmin(
+        nonready_mask, state.head_limit, state.order)
+    l_r_valid, l_r_idx, _ = _masked_argmin(
+        ready_mask, state.head_limit, state.order)
+    lim_idx = torch.where(l_nr_valid, l_nr_idx, l_r_idx)
+    lim_valid = l_nr_valid | l_r_valid
+    next_call = torch.full_like(now, TIME_MAX)
+    next_call = torch.where(resv_valid, _min_not_0(next_call, resv_min),
+                            next_call)
+    next_call = torch.where(
+        lim_valid, _min_not_0(next_call, _at(state.head_limit, lim_idx)),
+        next_call)
+
+    serving = serve_resv | serve_ready | lb_serve_ready | lb_serve_resv
+    phase_is_ready = serve_ready | lb_serve_ready
+    w = torch.where(serve_resv | lb_serve_resv, resv_idx, overall_idx)
+    limit_break = lb_serve_ready | lb_serve_resv
+
+    # serve winner w (pop_process_request :1046-1073 + update_next_tag
+    # :1021-1036 + reduce_reservation_tags :1077-1111)
+    served_r = _at(state.head_resv, w)
+    served_p = _at(state.head_prop, w)
+    served_l = _at(state.head_limit, w)
+    served_arr = _at(state.head_arrival, w)
+    served_cost = _at(state.head_cost, w)
+    served_rho = _at(state.head_rho, w)
+
+    new_depth = _at(state.depth, w) - 1
+    has_more = new_depth > 0
+
+    # pop the oldest tail element as the new head
+    rq = _at(state.q_head, w)
+    flat = w * state.ring_capacity + rq.to(torch.int64)
+    narr = _at(state.q_arrival.reshape(-1), flat)
+    ncost = _at(state.q_cost.reshape(-1), flat)
+
+    resv_inv_w = _at(state.resv_inv, w)
+    cur_rho_w = _at(state.cur_rho, w)
+    nr_tag, np_tag, nl_tag = _make_tag(
+        served_r, served_p, served_l, served_arr,
+        resv_inv_w, _at(state.weight_inv, w), _at(state.limit_inv, w),
+        _at(state.cur_delta, w), cur_rho_w, narr, ncost,
+        anticipation_ns)
+
+    # weight-phase service pays reservation debt (:1077-1111)
+    offset = torch.where(phase_is_ready,
+                         resv_inv_w * (served_cost + served_rho),
+                         torch.zeros_like(served_cost))
+
+    # prev_tag folds in the new head tag, then the reservation offset
+    prev_r_w = _at(state.prev_resv, w)
+    prev_p_w = _at(state.prev_prop, w)
+    prev_l_w = _at(state.prev_limit, w)
+    new_prev_r = torch.where(has_more, _fold_prev(prev_r_w, nr_tag),
+                             prev_r_w) - offset
+    new_prev_p = torch.where(has_more, _fold_prev(prev_p_w, np_tag),
+                             prev_p_w)
+    new_prev_l = torch.where(has_more, _fold_prev(prev_l_w, nl_tag),
+                             prev_l_w)
+    new_prev_arr = torch.where(has_more, narr,
+                               _at(state.prev_arrival, w))
+
+    def upd(arr, value, pred):
+        return _set(arr, w, torch.where(serving & pred,
+                                        value.to(arr.dtype), _at(arr, w)))
+
+    true1 = torch.ones_like(serving)
+    state = state._replace(
+        depth=upd(state.depth, new_depth, true1),
+        q_head=upd(state.q_head, (rq + 1) % state.ring_capacity,
+                   has_more),
+        head_resv=upd(state.head_resv, nr_tag - offset, has_more),
+        head_prop=upd(state.head_prop, np_tag, has_more),
+        head_limit=upd(state.head_limit, nl_tag, has_more),
+        head_arrival=upd(state.head_arrival, narr, has_more),
+        head_cost=upd(state.head_cost, ncost, has_more),
+        head_rho=upd(state.head_rho, cur_rho_w, has_more),
+        head_ready=_set(head_ready, w, torch.where(
+            serving, torch.zeros_like(serving), _at(head_ready, w))),
+        prev_resv=upd(state.prev_resv, new_prev_r, true1),
+        prev_prop=upd(state.prev_prop, new_prev_p, true1),
+        prev_limit=upd(state.prev_limit, new_prev_l, true1),
+        prev_arrival=upd(state.prev_arrival, new_prev_arr, true1),
+    )
+
+    decision = Decision(
+        type=torch.where(serving, RETURNING,
+                         torch.where(next_call < TIME_MAX, FUTURE, NONE)
+                         ).to(torch.int32),
+        slot=torch.where(serving, w, -1).to(torch.int32),
+        phase=phase_is_ready.to(torch.int32),
+        cost=torch.where(serving, served_cost, 0),
+        when=next_call,
+        limit_break=limit_break,
+    )
+    return state, decision
+
+
+def engine_run(state: EngineState, now, steps: int, *,
+               allow_limit_break: bool, anticipation_ns: int,
+               advance_now: bool = False, with_metrics: bool = False):
+    """``steps`` scheduling decisions.
+
+    With a fixed ``now`` this equals ``steps`` successive pulls at the
+    same instant.  With ``advance_now`` the virtual clock jumps to each
+    FUTURE's wake-up time (an infinitely fast server).  Returns
+    ``(state, now, decisions)`` with ``decisions`` a ``Decision`` of
+    ``[steps]`` tensors, plus the ``obs.device`` metrics vector when
+    ``with_metrics`` (which touches nothing else: the decision stream
+    and state are identical either way)."""
+    dev = state.device
+    t = as_scalar(now, dev)
+    met = obsdev.metrics_zero(dev)
+    decs = []
+    for _ in range(steps):
+        state, dec = engine_step(state, t,
+                                 allow_limit_break=allow_limit_break,
+                                 anticipation_ns=anticipation_ns)
+        if with_metrics:
+            served1 = (dec.type == RETURNING).to(torch.int64)
+            is_resv = served1 * (dec.phase == 0)
+            met = obsdev.metrics_combine(met, obsdev.metrics_delta(
+                device=dev, decisions=served1, resv=is_resv,
+                prop=served1 - is_resv,
+                limit_break=dec.limit_break.to(torch.int64),
+                stalls=(dec.type == FUTURE).to(torch.int64),
+                ring_hwm=torch.max(state.depth).to(torch.int64)))
+        if advance_now:
+            t = torch.where(dec.type == FUTURE, dec.when, t)
+        decs.append(dec)
+    if decs:
+        decisions = Decision(*(torch.stack(col) for col in zip(*decs)))
+    else:
+        decisions = Decision(
+            *(torch.zeros((0,), dtype=d, device=dev) for d in
+              (torch.int32, torch.int32, torch.int32, torch.int64,
+               torch.int64, torch.bool)))
+    out = (state, t, decisions)
+    if with_metrics:
+        out = out + (met,)
+    return out

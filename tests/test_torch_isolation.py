@@ -1,0 +1,64 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no
+silent fallback from CUDA to the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from dmclock_tpu_torch import serve as tserve
+from dmclock_tpu_torch.engine import state as tstate
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "dmclock_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_serve_profile.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "dmclock_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__"):
+            bad += [a.value for a in node.args
+                    if isinstance(a, ast.Constant)
+                    and isinstance(a.value, str) and _forbidden(a.value)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_serve_leaves_jax_unloaded():
+    code = ("import sys\n"
+            "from dmclock_tpu_torch.serve import serve_only\n"
+            "r = serve_only(64, 8, 32, 2, 1, device='cpu')\n"
+            "assert int(r.count.sum()) > 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tstate.init_state(4, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.serve_only(8, 4, 4, 1, 1)
