@@ -5,17 +5,31 @@
 Phases (any failure raises and the exit code is not 0):
 
 1. the card: name and power limit (``nvidia-smi``), device name;
-2. build the port's CUDA kernel from the source in this checkout;
+2. build the port's CUDA kernels (K1, K2) from the sources in this
+   checkout, with one ``nvcc`` call;
 3. hold kernel K1 (the ring window) bit for bit against its plain
-   PyTorch version at the serve shape and odd shapes, and time it beside
-   its memory bound, the plain version and ``torch.gather``;
-4. exactness: at a small shape the prefix-commit epochs' decision
+   PyTorch version at the serve and cfg4 shapes and odd shapes, and time
+   it beside its memory bound, the plain version and ``torch.gather``;
+4. hold kernel K2 (the timer-wheel scan) bit for bit against its plain
+   version at both cfg4 shapes (the wheel build, N=100000 and 768
+   buckets, on real entry keys; the stop wheel, 256 buckets, on stop
+   packs with KEY_INF) and odd shapes, and time it beside its bound, the
+   plain version and the library calls;
+5. exactness: at a small shape the prefix-commit epochs' decision
    stream and final state equal the port's own serial engine;
-5. the main path: ``serve_only`` at the ``serve`` workload's full width
+6. the ``serve`` path: ``serve_only`` at the workload's full width
    (100,000 clients, a 320-slot ring, m=32 batches of up to k=65536
-   decisions), with K1's launch count reset just before and read just
-   after; its first decisions are held against the serial engine at
-   full width; then the epochs are timed on the card.
+   decisions), launch counts reset just before and read just after; its
+   first decisions are held against the serial engine at full width;
+   then the epochs are timed on the card;
+7. calendar exactness: at a small shape the wheel epoch's per-client
+   counts and final state equal the serial engine's, the wheel equals
+   the bucketed ladder, and one ladder level equals minstop;
+8. the ``cfg4`` path: ``serve_cfg4`` rounds at full width (100,000
+   clients, ring 128, 64 waves, m=3 batches, 64 steps, 8 levels, the
+   wheel), launch counts reset just before and read just after (K1
+   24 and K2 27 per round); one full-width round of the wheel equals the
+   bucketed ladder's; then rounds are timed, ingest included.
 
 Prints the kernel table as one JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -31,15 +45,23 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_SERVE, DEPTH, K_SERVE, M_SERVE, EPOCHS = 100_000, 320, 65536, 32, 3
 TIMED_EPOCHS = 5
 SERIAL_CHECK_STEPS = 512
-RW_SHAPES = [(100_000, 320, 32), (700, 16, 5), (2500, 128, 32),
-             (100, 64, 64), (1000, 320, 320), (333, 48, 17)]
+RW_SHAPES = [(100_000, 320, 32), (100_000, 128, 64), (700, 16, 5),
+             (2500, 128, 32), (100, 64, 64), (1000, 320, 320),
+             (333, 48, 17)]
 K1_SOURCE = "dmclock_tpu_torch/engine/csrc/ring_window.cu"
 K1_REPLACES = "dmclock_tpu/engine/fastpath.py:156"
+K2_SOURCE = "dmclock_tpu_torch/engine/csrc/wheel_scan.cu"
+K2_REPLACES = "dmclock_tpu/engine/kernels_pallas.py:59"
+N_CFG4 = 100_000
+CFG4_ROUNDS = 2          # main-path rounds, launch-counted
+CFG4_TIMED = 3           # timed rounds after them
+KEY_INF = (1 << 63) - 1
 
 # device-memory rate of the H100 SXM (bytes/s, NVIDIA's data sheet),
 # for the bound of a data-movement kernel
@@ -50,8 +72,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def host_paced_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean time of ``fn`` over ``iters`` back-to-back calls between
+    CUDA events: where the host enqueues slower than the card runs,
+    this is the host's rate, not the card's."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -63,6 +87,34 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3, replays: int = 5) -> float:
+    """Mean device time of one ``fn`` call: ``iters`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events, so
+    the host's launch cost is not in the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def phase_card() -> str:
@@ -113,32 +165,151 @@ def phase_k1(fp, card: str) -> dict:
         max_err = max(max_err, err)
         log(f"[k1] N={n} Q={q} w={w}: bit-identical to the plain version")
 
-    n, q, w = RW_SHAPES[0]
-    arr = torch.randint(0, 1 << 40, (n, q), generator=gen, device=dev,
-                        dtype=torch.int64)
-    cost = torch.randint(1, 4, (n, q), generator=gen, device=dev,
-                         dtype=torch.int64)
-    q0 = torch.randint(0, q, (n,), generator=gen, device=dev,
-                       dtype=torch.int32)
-    idx_t = torch.remainder(
-        q0.to(torch.int64)[None, :]
-        + torch.arange(w, device=dev, dtype=torch.int64)[:, None], q)
-    k_ms = cuda_ms(lambda: fp.ring_window_rows(arr, cost, q0, w), 50)
-    p_ms = cuda_ms(lambda: (fp._ring_window_torch(arr, q0, w),
-                            fp._ring_window_torch(cost, q0, w)), 20)
-    # the library yardstick: torch.gather on the transposed ring views
-    # with a precomputed [w, N] index, once per ring
-    l_ms = cuda_ms(lambda: (torch.gather(arr.T, 0, idx_t),
-                            torch.gather(cost.T, 0, idx_t)), 20)
-    nbytes = 2 * (2 * n * w * 8) + 4 * n
-    bound_ms = nbytes / MEM_RATE * 1e3
-    log(f"[k1] N={n} Q={q} w={w} on {card}: kernel {k_ms:.6f} ms, "
-        f"bound {bound_ms:.6f} ms ({nbytes} bytes), plain {p_ms:.6f} ms, "
-        f"torch.gather x2 {l_ms:.6f} ms")
-    return dict(name="ring_window", route="cuda", source=K1_SOURCE,
-                replaces=K1_REPLACES, launches=None, max_abs_err=max_err,
-                ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=l_ms)
+    # time at the two main-path shapes: serve (reported in the kernel
+    # table) and cfg4
+    out = None
+    for n, q, w in RW_SHAPES[:2]:
+        arr = torch.randint(0, 1 << 40, (n, q), generator=gen, device=dev,
+                            dtype=torch.int64)
+        cost = torch.randint(1, 4, (n, q), generator=gen, device=dev,
+                             dtype=torch.int64)
+        q0 = torch.randint(0, q, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        idx_t = torch.remainder(
+            q0.to(torch.int64)[None, :]
+            + torch.arange(w, device=dev, dtype=torch.int64)[:, None], q)
+        k_ms = cuda_ms(lambda: fp.ring_window_rows(arr, cost, q0, w), 50)
+        p_ms = cuda_ms(lambda: (fp._ring_window_torch(arr, q0, w),
+                                fp._ring_window_torch(cost, q0, w)), 20)
+        # the library yardstick: torch.gather on the transposed ring
+        # views with a precomputed [w, N] index, once per ring
+        l_ms = cuda_ms(lambda: (torch.gather(arr.T, 0, idx_t),
+                                torch.gather(cost.T, 0, idx_t)), 20)
+        nbytes = 2 * (2 * n * w * 8) + 4 * n
+        bound_ms = nbytes / MEM_RATE * 1e3
+        h_ms = host_paced_ms(lambda: fp.ring_window_rows(arr, cost, q0, w),
+                             50)
+        log(f"[k1] N={n} Q={q} w={w} on {card}: device time per call "
+            f"(CUDA graph replay): kernel {k_ms:.6f} ms, bound "
+            f"{bound_ms:.6f} ms ({nbytes} bytes), plain {p_ms:.6f} ms, "
+            f"torch.gather x2 {l_ms:.6f} ms; back-to-back wrapper calls "
+            f"{h_ms:.6f} ms each (host-paced)")
+        if out is None:
+            out = dict(name="ring_window", route="cuda", source=K1_SOURCE,
+                       replaces=K1_REPLACES, launches=None,
+                       max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                       bound_ms=bound_ms, bound_by="bytes",
+                       library_ms=l_ms)
+    return out
+
+
+def _k2_inputs(serve, fp, kernels, gen):
+    """(label, keys, slot, nb) on the card: the two cfg4 shapes and the
+    odd ones.  The wheel-build case is real: the entry keys and slots of
+    a full-width cfg4 state after one round's ingest."""
+    dev = torch.device("cuda")
+    st, draws = serve.cfg4_setup(N_CFG4, 1, device="cuda")
+    c = serve.CFG4
+    ones = torch.ones((N_CFG4,), dtype=torch.int64, device=dev)
+    wave_times = torch.arange(c["waves"], dtype=torch.int64, device=dev) \
+        * (c["dt_round_ns"] // c["waves"])
+    st = kernels.ingest_superwave(st, draws[0], wave_times, ones, ones,
+                                  ones, anticipation_ns=0)
+    now = kernels.as_scalar(c["dt_round_ns"], dev)
+    cls, key = fp._classify(st, now, False)
+    slot = fp._wheel_slots(cls, key,
+                           now - ((fp._WHEEL_BUCKETS // 2) << fp._WHEEL_SHIFT))
+    cases = [("cfg4 wheel build: entry keys", key, slot,
+              3 * fp._WHEEL_BUCKETS)]
+
+    def rand(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    # stop packs: class bits at 58, most in a few 2^52 buckets, 20% KEY_INF
+    n = N_CFG4
+    pk = (rand(0, 3, n) << 58) | ((1 << 57) + rand(0, 1 << 40, n))
+    pk = torch.where(rand(0, 5, n) == 0, KEY_INF, pk)
+    cases.append(("cfg4 stop wheel: stop packs", pk,
+                  torch.where(pk < KEY_INF,
+                              kernels.wheel_slot(pk, 0, 52, 256), 256)
+                  .to(torch.int32), 256))
+    for n, nb in ((1, 768), (129, 256), (333, 768), (1000, 256)):
+        keys = rand(-(1 << 62), 1 << 62, n)
+        keys[::7] = KEY_INF
+        cases.append((f"random N={n}", keys,
+                      rand(0, nb + 1, n).to(torch.int32), nb))
+    cases.append(("all lanes masked", rand(-9, 9, 500),
+                  torch.full((500,), 768, dtype=torch.int32, device=dev),
+                  768))
+    cases.append(("all lanes in one bucket, negative keys",
+                  -rand(1, 1 << 62, 777),
+                  torch.full((777,), 5, dtype=torch.int32, device=dev), 256))
+    return cases
+
+
+def phase_k2(serve, fp, kernels, card: str) -> dict:
+    """K2 against its plain version; time at both cfg4 shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = _k2_inputs(serve, fp, kernels, gen)
+    max_err = 0
+    for label, keys, slot, nb in cases:
+        got = kernels.wheel_scan(keys, slot, nb)
+        want = kernels._wheel_scan_torch(keys, slot, nb)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("cnt", "bmin", "val", "found"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"K2 {name} has dtype/shape "
+                                     f"{g.dtype}{tuple(g.shape)}, plain "
+                                     f"{w.dtype}{tuple(w.shape)}: {label}")
+            # exact in Python ints: KEY_INF minus a negative key would
+            # wrap in int64
+            bad = (g != w).reshape(-1)
+            err = max((abs(int(a) - int(b)) for a, b in zip(
+                g.reshape(-1)[bad].tolist(), w.reshape(-1)[bad].tolist())),
+                default=0)
+            if err:
+                raise AssertionError(f"K2 {name} differs from its plain "
+                                     f"version: {label}, nb={nb}: max err "
+                                     f"{err}")
+            max_err = max(max_err, err)
+        log(f"[k2] {label} (N={keys.shape[0]}, nb={nb}): bit-identical to "
+            f"the plain version; occupied buckets "
+            f"{int((got[0] > 0).sum())}, found {bool(got[3])}")
+    out = None
+    for label, keys, slot, nb in cases[:2]:
+        n = keys.shape[0]
+        slot64 = slot.to(torch.int64)
+        ones = torch.ones_like(slot)
+        k_ms = cuda_ms(lambda: kernels.wheel_scan(keys, slot, nb), 50)
+        p_ms = cuda_ms(lambda: kernels._wheel_scan_torch(keys, slot, nb), 20)
+
+        def library():
+            # one call each: the count, the bucket min, the masked min
+            torch.zeros((nb + 1,), dtype=torch.int32,
+                        device="cuda").index_add_(0, slot64, ones)
+            torch.full((nb + 1,), KEY_INF, dtype=torch.int64,
+                       device="cuda").scatter_reduce_(0, slot64, keys,
+                                                      "amin")
+            torch.min(torch.where(slot < nb, keys, KEY_INF))
+        l_ms = cuda_ms(library, 20)
+        # each input read once (8 + 4 bytes a lane), each output written
+        # once: counts, minima, the value and the flag
+        nbytes = n * 12 + nb * 12 + 9
+        bound_ms = nbytes / MEM_RATE * 1e3
+        h_ms = host_paced_ms(lambda: kernels.wheel_scan(keys, slot, nb), 50)
+        log(f"[k2] {label} N={n} nb={nb} on {card}: device time per call "
+            f"(CUDA graph replay): kernel with its two fills {k_ms:.6f} "
+            f"ms, bound {bound_ms:.6f} ms ({nbytes} bytes), plain "
+            f"{p_ms:.6f} ms, library (index_add_ + scatter_reduce_ amin + "
+            f"masked min) {l_ms:.6f} ms; back-to-back wrapper calls "
+            f"{h_ms:.6f} ms each (host-paced)")
+        # the kernel table reports the stop wheel: 24 of 27 launches
+        out = dict(name="wheel_scan", route="cuda", source=K2_SOURCE,
+                   replaces=K2_REPLACES, launches=None,
+                   max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                   bound_ms=bound_ms, bound_by="bytes", library_ms=l_ms)
+    return out
 
 
 def _serial_matches(kernels, st0, now, slots, phases, costs, what: str,
@@ -194,9 +365,9 @@ def phase_serve(serve, kernels, ext, obsdev, card: str) -> int:
     torch.cuda.synchronize()
     launches = dict(ext.LAUNCHES)
     log(f"[serve] kernel launches on the main path: {launches}")
-    if launches["ring_window"] != EPOCHS:
-        raise AssertionError(f"K1 launched {launches['ring_window']} "
-                             f"times over {EPOCHS} epochs")
+    if launches != {"ring_window": EPOCHS, "wheel_scan": 0}:
+        raise AssertionError(f"serve launched {launches} over {EPOCHS} "
+                             f"epochs (want K1 once per epoch, no K2)")
     total = int(res.count.sum())
     met = obsdev.metrics_dict(res.metrics)
     if not bool(res.guards_ok.all()):
@@ -261,6 +432,165 @@ def phase_serve(serve, kernels, ext, obsdev, card: str) -> int:
     return launches["ring_window"]
 
 
+# metric rows only the wheel writes (wheel_bucket_occupancy_hwm,
+# wheel_reslots_total): left out where the wheel meets another scheme
+WHEEL_ROWS = (17, 18)
+
+
+def _equal_tuples(a, b, what: str) -> None:
+    """Every field of two result NamedTuples (a state field by field;
+    metrics without the wheel's own rows)."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "state":
+            _equal_tuples(x, y, f"{what} state")
+            continue
+        if f == "metrics":
+            keep = torch.ones(x.shape[-1], dtype=torch.bool, device=x.device)
+            keep[list(WHEEL_ROWS)] = False
+            x, y = x[..., keep], y[..., keep]
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: field {f} differs")
+
+
+def phase_calendar_exact(serve, fp, kernels) -> None:
+    """Small cfg4-like state on the card (Zipf weights, reservations,
+    ingested tails): the wheel epoch against the serial engine, wheel ==
+    bucketed, and one ladder level == minstop."""
+    dev = torch.device("cuda")
+    n, ring, depth0 = 48, 16, 8
+    rates = np.full(n, 1200.0)
+    rates[::5] = 0.0
+    st = serve._sustained_setup(n, ring, depth0, rates,
+                                serve._zipf_weights(n), device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    counts = torch.minimum(
+        torch.randint(0, 9, (n,), generator=gen, device=dev,
+                      dtype=torch.int32),
+        (ring - st.depth).to(torch.int32))
+    ones = torch.ones((n,), dtype=torch.int64, device=dev)
+    st = kernels.ingest_superwave(
+        st, counts, torch.arange(8, dtype=torch.int64, device=dev)
+        * 6_250_000, ones, ones, ones, anticipation_ns=0)
+    now = 50_000_000
+    kw = dict(steps=6, with_metrics=True)
+    ep = {impl: fp.scan_calendar_epoch(st, now, 2, calendar_impl=impl,
+                                       ladder_levels=3, **kw)
+          for impl in ("wheel", "bucketed")}
+    _equal_tuples(ep["wheel"], ep["bucketed"], "wheel vs bucketed epoch")
+    total = int(ep["wheel"].count.sum())
+    resv = int(ep["wheel"].resv_count.sum())
+    if not (0 < resv < total) or not bool(ep["wheel"].progress_ok.all()):
+        raise AssertionError(f"calendar exactness: {total} decisions, "
+                             f"{resv} reservation, or a stalled batch")
+    ser_st, _, ser = kernels.engine_run(st, now, total,
+                                        allow_limit_break=False,
+                                        anticipation_ns=0)
+    served = torch.bincount(ser.slot.to(torch.int64),
+                            minlength=n).to(torch.int32)
+    if not bool((ser.type == kernels.RETURNING).all()) or \
+            not torch.equal(served, ep["wheel"].served):
+        raise AssertionError("calendar exactness: per-client counts "
+                             "differ from the serial engine")
+    _equal_tuples(ep["wheel"].state, ser_st, "wheel epoch vs serial")
+    one = fp.scan_calendar_epoch(st, now, 3, calendar_impl="wheel",
+                                 ladder_levels=1, **kw)
+    mins = fp.scan_calendar_epoch(st, now, 3, calendar_impl="minstop", **kw)
+    for f in ("count", "resv_count", "progress_ok", "served",
+              "level_count"):
+        if not torch.equal(getattr(one, f), getattr(mins, f)):
+            raise AssertionError(f"wheel L=1 vs minstop: {f} differs")
+    _equal_tuples(one.state, mins.state, "wheel L=1 vs minstop")
+    log(f"[cal-exact] {n} clients, ring {ring}: wheel epoch ({total} "
+        f"decisions, {resv} reservation) equals the serial engine's "
+        f"counts and state, equals bucketed on every output, and one "
+        f"ladder level equals minstop ({int(mins.count.sum())} decisions)")
+
+
+def phase_cfg4(serve, ext, obsdev, card: str) -> dict:
+    """The cfg4 path at full width: launch-counted rounds, wheel ==
+    bucketed over one round, then timed rounds."""
+    c = serve.CFG4
+    levels = c["ladder_levels"]
+    state0, draws = serve.cfg4_setup(N_CFG4, CFG4_ROUNDS + CFG4_TIMED,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    res = serve.cfg4_rounds(state0, draws[:CFG4_ROUNDS])
+    torch.cuda.synchronize()
+    launches = dict(ext.LAUNCHES)
+    log(f"[cfg4] kernel launches on the main path over {CFG4_ROUNDS} "
+        f"rounds: {launches}")
+    want = {"ring_window": CFG4_ROUNDS * c["m"] * levels,
+            "wheel_scan": CFG4_ROUNDS * c["m"] * (1 + levels)}
+    if launches != want:
+        raise AssertionError(f"cfg4 launches {launches}, want {want}")
+    met = obsdev.metrics_dict(res.metrics)
+    total = int(res.count.sum())
+    if not bool(res.progress_ok.all()):
+        raise AssertionError("cfg4: a batch made no progress")
+    if met["decisions_total"] != total or total <= 0:
+        raise AssertionError(f"cfg4: metrics say {met['decisions_total']}"
+                             f" decisions, counts say {total}")
+    if int(res.served.sum()) != total or \
+            int(res.level_count.sum()) != total or \
+            res.served.shape != (CFG4_ROUNDS, N_CFG4):
+        raise AssertionError("cfg4: per-client or per-level counts "
+                             "disagree with the batch counts")
+    st = res.state
+    if int(st.depth.min()) < 0 or int(st.depth.max()) > c["ring"]:
+        raise AssertionError("cfg4: a queue depth outside [0, ring]")
+    log(f"[cfg4] {CFG4_ROUNDS} rounds: {total} decisions, per-batch "
+        f"counts {res.count.tolist()}, metrics {json.dumps(met)}")
+
+    # one full-width round, wheel against bucketed, from the same state
+    # and draws; the wheel round also equals the main path's round 0
+    rw = serve.cfg4_rounds(state0, draws[:1], calendar_impl="wheel")
+    rb = serve.cfg4_rounds(state0, draws[:1], calendar_impl="bucketed")
+    _equal_tuples(rw, rb, "full-width round, wheel vs bucketed")
+    for f in ("count", "resv_count", "progress_ok", "served",
+              "level_count"):
+        if not torch.equal(getattr(rw, f)[0], getattr(res, f)[0]):
+            raise AssertionError(f"cfg4 round 0: {f} differs on a rerun")
+    log(f"[cfg4] full-width round: wheel equals bucketed on every output "
+        f"and the final state ({int(rw.count.sum())} decisions)")
+    del rw, rb, state0
+
+    # timed rounds: CUDA events around each round, ingest inside
+    ms, decisions, host = [], [], []
+    met_t = obsdev.metrics_zero("cuda")
+    for r in range(CFG4_ROUNDS, CFG4_ROUNDS + CFG4_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = serve.cfg4_rounds(st, draws[r:r + 1],
+                                t0=r * c["dt_round_ns"])
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        st = out.state
+        ms.append(start.elapsed_time(end))
+        decisions.append(int(out.count.sum()))
+        met_t = obsdev.metrics_combine(met_t, out.metrics)
+        if not bool(out.progress_ok.all()):
+            raise AssertionError("cfg4: a timed batch made no progress")
+        log(f"[cfg4] round {r}: {decisions[-1]} decisions in "
+            f"{ms[-1]:.3f} ms (events), {host[-1]:.3f} ms (host clock)")
+    mt = obsdev.metrics_dict(met_t)
+    if mt["decisions_total"] != sum(decisions):
+        raise AssertionError("cfg4: timed metrics disagree with counts")
+    rate = sum(decisions) / (sum(ms) / 1e3)
+    log(f"[cfg4] on {card}: N={N_CFG4} ring={c['ring']} waves={c['waves']}"
+        f" m={c['m']} steps={c['steps']} levels={levels}: median round "
+        f"{statistics.median(ms):.3f} ms over {CFG4_TIMED}, "
+        f"{sum(decisions) / CFG4_TIMED:.1f} decisions per round, "
+        f"{rate:.1f} decisions/s, ingest_drops {mt['ingest_drops']}, "
+        f"reservation share "
+        f"{mt['decisions_reservation'] / mt['decisions_total']:.6f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -271,12 +601,19 @@ def main() -> int:
     from dmclock_tpu_torch.engine import _ext, fastpath, kernels
     from dmclock_tpu_torch.obs import device as obsdev
 
+    assert (obsdev.MET_WHEEL_OCC_HWM, obsdev.MET_WHEEL_RESLOTS) == WHEEL_ROWS
     card = phase_card()
     phase_build(_ext)
     k1 = phase_k1(fastpath, card)
+    k2 = phase_k2(serve, fastpath, kernels, card)
     phase_exact(serve, fastpath, kernels)
-    k1["launches"] = phase_serve(serve, kernels, _ext, obsdev, card)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    serve_k1 = phase_serve(serve, kernels, _ext, obsdev, card)
+    phase_calendar_exact(serve, fastpath, kernels)
+    cfg4 = phase_cfg4(serve, _ext, obsdev, card)
+    # launches: each path's count, read right after that path's run
+    k1["launches"] = serve_k1 + cfg4["ring_window"]
+    k2["launches"] = cfg4["wheel_scan"]
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

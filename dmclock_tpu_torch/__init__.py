@@ -9,10 +9,11 @@ written by hand for Hopper under ``engine/csrc/``.
 
 Layers (each mirrors its counterpart in ``dmclock_tpu``):
   core    -- the int64-ns time/tag constants
-  engine  -- SoA client state, the exact serial engine, the prefix-
-             commit fast path and its ring-window kernel
-  obs     -- the on-device metrics vector
-  serve   -- the serving entry point (``serve_only``)
+  engine  -- SoA client state, the exact serial engine, superwave
+             ingest, the prefix-commit and calendar fast paths, and
+             their kernels (ring window, timer-wheel scan)
+  obs     -- the on-device metrics vector and the admission clamp
+  serve   -- the serving entry points (``serve_only``, ``serve_cfg4``)
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; the CPU
 is used only when the caller asks for it, and asking for CUDA on a

@@ -1,7 +1,8 @@
 """The dmClock batch engine on PyTorch: SoA client state (``state``),
-the numpy bridge (``bridge``), tag algebra and the exact serial engine
-(``kernels``), the prefix-commit fast path (``fastpath``) and the build
-of its CUDA kernels (``_ext``)."""
+the numpy bridge (``bridge``), tag algebra, the exact serial engine,
+superwave ingest and the timer-wheel scan (``kernels``), the prefix and
+calendar fast paths (``fastpath``) and the build of the CUDA kernels
+(``_ext``)."""
 
 from .state import EngineState, grow_state, init_state
 from .kernels import engine_run, engine_step

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernel (plain C interface, ctypes).
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
 
-``csrc/ring_window.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
-shared library under ``dmclock_tpu_torch/_build/`` (listed in
+Every source under ``csrc/`` (``ring_window.cu`` = K1,
+``wheel_scan.cu`` = K2) compiles with ONE ``nvcc`` call for ``sm_90a``
+into one shared library under ``dmclock_tpu_torch/_build/`` (listed in
 ``.gitignore``), at first use.  The library's file name carries a hash
-of its source, so an edited source never loads a stale build; a build
-writes to a temporary name and renames it into place, so concurrent
-builders never load a half-written file.
+of all the sources and the flags, so an edited source never loads a
+stale build; a build writes to a temporary name and renames it into
+place, so concurrent builders never load a half-written file.
 
 ``LAUNCHES`` holds one plain integer per kernel: each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that
@@ -28,18 +29,26 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCE = _CSRC / "ring_window.cu"
-ENTRY = "ring_window_launch"
+SOURCES = (_CSRC / "ring_window.cu", _CSRC / "wheel_scan.cu")
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-ARGTYPES = [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP]
+# kernel name -> (C entry point, argtypes)
+ENTRIES = {
+    # ring_window_launch(arr, cost, q_head, out_arr, out_cost, n, q, w,
+    #                    stream)
+    "ring_window": ("ring_window_launch",
+                    [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP]),
+    # wheel_scan_launch(keys, slot, cnt, bmin, val, found, n, nb, stream)
+    "wheel_scan": ("wheel_scan_launch",
+                   [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP]),
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"ring_window": 0}
+LAUNCHES = {name: 0 for name in ENTRIES}
 
-_loaded = None
+_loaded: dict = {}
 
 
 def reset_launches() -> None:
@@ -59,9 +68,10 @@ def _nvcc() -> str:
 
 
 def _lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libring_window-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libdmclock_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -73,7 +83,8 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+                           *map(str, SOURCES)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"kernel build failed: nvcc exit "
@@ -82,13 +93,13 @@ def build() -> Path:
     return out
 
 
-def kernel():
-    """The C entry point of the ring-window kernel, building its library
-    at first use."""
-    global _loaded
-    if _loaded is None:
-        fn = getattr(ctypes.CDLL(str(build())), ENTRY)
-        fn.argtypes = ARGTYPES
+def kernel(name: str):
+    """The C entry point of kernel ``name`` (a key of ``ENTRIES``),
+    building the library at first use."""
+    if name not in _loaded:
+        entry, argtypes = ENTRIES[name]
+        fn = getattr(ctypes.CDLL(str(build())), entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded = fn
-    return _loaded
+        _loaded[name] = fn
+    return _loaded[name]

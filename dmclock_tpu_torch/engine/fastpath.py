@@ -1,18 +1,21 @@
-"""Prefix-commit speculative serving: thousands of decisions per O(N)
-pass, on tensors.
+"""Speculative serving: thousands of decisions per O(N) pass, on
+tensors.
 
-Counterpart of ``dmclock_tpu/engine/fastpath.py`` (the flat prefix
-path: ring window, classification, serve chains, sort selection,
-``speculate_prefix_batch`` and ``scan_prefix_epoch``).  The exactness
-argument is the JAX module's: at a fixed ``now`` the serial engine
-serves the minimum of one unified (class, key, creation order) key
-space; one sort of the packed keys gives the whole candidate service
-order, and the longest prefix whose served clients re-enter strictly
-after it is exactly what the serial engine would serve.
+Counterpart of ``dmclock_tpu/engine/fastpath.py``: the flat prefix path
+(ring window, classification, serve chains, sort selection,
+``speculate_prefix_batch``, ``scan_prefix_epoch``) and the calendar
+engine (``calendar_batch``, the bucketed ladder, the timer wheel,
+``scan_calendar_epoch``).  The exactness arguments are the JAX
+module's: at a fixed ``now`` the serial engine serves the minimum of
+one unified (class, key, creation order) key space; the prefix path
+sorts the packed keys and commits the longest prefix whose served
+clients re-enter strictly after it, and the calendar path follows every
+client through its own serves and commits those below the first stop.
 
-The ring window is kernel K1 (``csrc/ring_window.cu``) on a CUDA state
-and its plain PyTorch version on a CPU state.  Everything else is
-PyTorch.  The epoch is a Python loop over batches; counts, guards and
+The ring window is kernel K1 (``csrc/ring_window.cu``) and the wheel's
+bucket scan kernel K2 (``csrc/wheel_scan.cu``) on a CUDA state, and
+their plain PyTorch versions on a CPU state.  Everything else is
+PyTorch.  Epochs are Python loops over batches; counts, guards and
 metrics stay on the device and are stacked once at the end.
 """
 
@@ -26,7 +29,8 @@ from ..core.timebase import MAX_TAG
 from ..obs import device as obsdev
 from . import _ext
 from .kernels import (KEY_INF, NONE, RETURNING, Decision, _fold_prev,
-                      _make_tag, as_scalar)
+                      _make_tag, as_scalar, wheel_nearest, wheel_scan,
+                      wheel_slot)
 from .state import EngineState
 
 # Packed unified key: 2 class bits | 32-bit rebased tag | 28-bit
@@ -110,7 +114,7 @@ def ring_window_rows(q_arrival, q_cost, q0, wsize: int):
         raise ValueError("ring_window: inputs must be contiguous")
     if wsize > 65535:
         raise ValueError(f"ring_window: window {wsize} > 65535 rows")
-    launch = _ext.kernel()
+    launch = _ext.kernel("ring_window")
     out_arr = torch.empty((wsize, n), dtype=torch.int64, device=dev)
     out_cost = torch.empty((wsize, n), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
@@ -578,10 +582,22 @@ class PrefixEpoch(NamedTuple):
     #                        with_metrics)
 
 
+# State fields no epoch writes: rings are popped through q_head only,
+# and QoS, identity and ingest-time fields change only at ingest, which
+# cannot run mid-epoch.  The epochs return these tensors untouched.
+_EPOCH_INVARIANT = ("active", "idle", "order", "resv_inv", "weight_inv",
+                    "limit_inv", "prop_delta", "cur_rho", "cur_delta",
+                    "q_arrival", "q_cost")
+
+
 def _batch_metrics(met, st: EngineState, *, count, resv, prop, lb,
-                   guards_ok):
+                   guards_ok, ladder_levels_used=0, ladder_base_decisions=0,
+                   ladder_fallbacks=0, wheel_occ_hwm=0, wheel_reslots=0):
     """Fold one batch's contribution into the epoch metrics vector.  A
-    stall is a batch that committed nothing while work sat queued."""
+    stall is a batch that committed nothing while work sat queued.  The
+    ladder and wheel rows are 0-d tensors or ints, added as they are.
+    The ``rebase_fallbacks`` and ``wheel_pallas_fallbacks`` rows stay 0:
+    the port has no int32 tag carry yet and no kernel fallback."""
     queued = torch.any(st.active & (st.depth > 0))
     stall = (count == 0) & queued
     return obsdev.metrics_combine(met, obsdev.metrics_delta(
@@ -590,7 +606,11 @@ def _batch_metrics(met, st: EngineState, *, count, resv, prop, lb,
         prop=prop.to(torch.int64), limit_break=lb.to(torch.int64),
         stalls=stall.to(torch.int64),
         ring_hwm=torch.max(st.depth).to(torch.int64),
-        guard_trips=(~guards_ok).to(torch.int64)))
+        guard_trips=(~guards_ok).to(torch.int64),
+        cal_ladder_levels_used=ladder_levels_used,
+        cal_ladder_base_decisions=ladder_base_decisions,
+        cal_ladder_fallbacks=ladder_fallbacks,
+        wheel_occ_hwm=wheel_occ_hwm, wheel_reslots=wheel_reslots))
 
 
 def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
@@ -662,3 +682,620 @@ def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
                        slot=torch.stack(slots), phase=torch.stack(phases),
                        cost=torch.stack(costs), lb=torch.stack(lbs),
                        metrics=met)
+
+
+# ----------------------------------------------------------------------
+# calendar commits (the cfg4 engine): no sort, per-client counts
+# ----------------------------------------------------------------------
+#
+# The JAX module's calendar section gives the exactness argument: at a
+# fixed ``now`` each client is followed through its own serve sequence
+# (up to ``steps`` serves) while its unit entry packs increase; a client
+# that cannot be followed further contributes its first unfollowable
+# entry pack as a STOP, and every serve whose unit entry pack lies
+# strictly below B_eff = min(stops) is exactly the serial engine's.  Two
+# dense passes (measure the stops, then commit below B_eff) give the
+# committed SET plus the final state; the batch emits per-client counts,
+# not an ordered stream.  Packs are 2 class bits | a 58-bit per-class
+# rebased key (clamping is monotone, hence only conservative).
+
+_CAL_BIAS = 1 << 57
+_CAL_MASK = (1 << 58) - 1
+_CAL_IMPLS = ("minstop", "bucketed", "wheel")
+
+
+class CalendarBatch(NamedTuple):
+    """Result of one calendar-commit batch."""
+
+    state: EngineState
+    count: torch.Tensor        # int32 committed decisions
+    resv_count: torch.Tensor   # int32 constraint-phase decisions
+    units: torch.Tensor        # int32[N] committed units per client
+    served: torch.Tensor       # int32[N] committed decisions per client
+    served_resv: torch.Tensor  # int32[N] constraint decisions
+    lb: torch.Tensor           # int32[N] limit-break entries (Allow)
+    progress_ok: torch.Tensor  # bool: count > 0 or no candidate existed
+    served_cost: torch.Tensor  # int64[N] delivered cost per client
+    margin: torch.Tensor       # int64[N] B_eff minus the client's last
+    #                            unit-entry pack (-1: not served or no
+    #                            finite boundary)
+
+
+def _check_steps(state: EngineState, steps: int) -> None:
+    if not 0 < steps <= state.ring_capacity:
+        raise ValueError(f"calendar steps {steps} not in (0, ring "
+                         f"capacity {state.ring_capacity}]")
+
+
+def _cal_pack(cls, key, kresv, kprop1, kprop2):
+    """(class, key) as one pack rebased on the class origin.  ``key -
+    origin`` is computed in every branch, also where the origin is
+    KEY_INF; int64 wraps there and the branch is discarded (the JAX
+    module does the same), so no branch waits on the host."""
+    origin = torch.where(cls == CLS_RESV, kresv,
+                         torch.where(cls == CLS_WEIGHT, kprop1, kprop2))
+    rel = torch.clamp(key - origin + _CAL_BIAS, 0, _CAL_MASK)
+    return torch.where(cls == CLS_NONE, KEY_INF,
+                       (cls.to(torch.int64) << 58) | rel)
+
+
+def _calendar_pass(state: EngineState, now, arr_rows, cost_rows,
+                   allow: bool, anticipation_ns: int,
+                   kresv, kprop1, kprop2, b_eff):
+    """One dense pass of per-client serve iteration over the window rows
+    (the JAX ``lax.scan`` over steps is a Python loop here).
+
+    With ``b_eff`` None: measure mode -- serve everything followable and
+    return the per-client STOP pack (KEY_INF when the client ran out of
+    work).  With ``b_eff`` a 0-d tensor: commit mode -- serves gate on
+    the unit entry pack being strictly below it; returns the final dense
+    state fields and the per-client counters.
+
+    Readiness is ``limit <= now`` at every step: under monotonic now a
+    stored ready flag implies it, so the stored bit adds nothing."""
+    n = state.capacity
+    dev = state.device
+    measure = b_eff is None
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    h_resv, h_prop, h_limit = (state.head_resv, state.head_prop,
+                               state.head_limit)
+    h_arr, h_cost, h_rho = (state.head_arrival, state.head_cost,
+                            state.head_rho)
+    p_resv, p_prop, p_limit, p_arr = (state.prev_resv, state.prev_prop,
+                                      state.prev_limit,
+                                      state.prev_arrival)
+    depth = state.depth
+    qadv = torch.zeros((n,), **i32)
+    cost = torch.zeros_like(h_cost)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    in_unit = torch.zeros((n,), dtype=torch.bool, device=dev)
+    stop_pk = torch.full((n,), KEY_INF, dtype=torch.int64, device=dev)
+    prev_pk = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    unit_cls = torch.zeros((n,), **i32)
+    units = torch.zeros((n,), **i32)
+    served = torch.zeros((n,), **i32)
+    served_resv = torch.zeros((n,), **i32)
+    lb = torch.zeros((n,), **i32)
+
+    for narr, ncost in zip(arr_rows, cost_rows):
+        has = state.active & (depth > 0)
+        cls, key = _unified_class(now, has, h_resv, h_limit <= now,
+                                  h_prop, h_prop + state.prop_delta, allow)
+        pk = _cal_pack(cls, key, kresv, kprop1, kprop2)
+
+        at_boundary = ~in_unit
+        cand = cls != CLS_NONE
+        nonmono = alive & at_boundary & cand & (pk < prev_pk)
+        if measure:
+            stop_pk = torch.where(nonmono, torch.minimum(stop_pk, prev_pk),
+                                  stop_pk)
+        alive = alive & ~(at_boundary & (~cand | nonmono))
+        start = alive & at_boundary & cand
+        if not measure:
+            start = start & (pk < b_eff)
+            alive = alive & ~(at_boundary & ~start)
+
+        serve = start | (in_unit & alive)
+        phase1 = start & (cls >= CLS_WEIGHT)
+
+        nr, np_, nl = _make_tag(
+            h_resv, h_prop, h_limit, h_arr,
+            state.resv_inv, state.weight_inv, state.limit_inv,
+            state.cur_delta, state.cur_rho, narr, ncost, anticipation_ns)
+        off = torch.where(phase1, state.resv_inv * (h_cost + h_rho), 0)
+        new_depth = depth - 1
+        has_more = new_depth > 0
+        updh = serve & has_more
+        new_h_resv = nr - off
+        pr = torch.where(has_more, _fold_prev(p_resv, nr), p_resv) - off
+        pp = torch.where(has_more, _fold_prev(p_prop, np_), p_prop)
+        pl_ = torch.where(has_more, _fold_prev(p_limit, nl), p_limit)
+
+        unit_cls = torch.where(start, cls, unit_cls)
+        cont_cls = (unit_cls == CLS_WEIGHT) | (unit_cls == CLS_LB)
+
+        # counters first: they read the pre-step head cost and unit flag
+        # (the head served at this step is the current one)
+        cost = cost + torch.where(serve, h_cost, 0)
+        served_resv = served_resv + ((start & (cls == CLS_RESV))
+                                     | (serve & in_unit))
+        units = units + start
+        served = served + serve
+        lb = lb + (start & (cls >= CLS_LB))
+        prev_pk = torch.where(start, pk, prev_pk)
+        in_unit = serve & cont_cls & has_more & (new_h_resv <= now)
+
+        h_resv = torch.where(updh, new_h_resv, h_resv)
+        h_prop = torch.where(updh, np_, h_prop)
+        h_limit = torch.where(updh, nl, h_limit)
+        h_arr = torch.where(updh, narr, h_arr)
+        h_cost = torch.where(updh, ncost, h_cost)
+        h_rho = torch.where(updh, state.cur_rho, h_rho)
+        p_resv = torch.where(serve, pr, p_resv)
+        p_prop = torch.where(serve, pp, p_prop)
+        p_limit = torch.where(serve, pl_, p_limit)
+        p_arr = torch.where(updh, narr, p_arr)
+        depth = torch.where(serve, new_depth, depth).to(torch.int32)
+        qadv = (qadv + updh).to(torch.int32)
+
+    if measure:
+        # post-loop stops: a chain still mid-unit cannot be followed
+        # (exclude its whole unit); an alive client at a unit boundary
+        # stops at its NEXT entry key
+        stop_pk = torch.where(in_unit, torch.minimum(stop_pk, prev_pk),
+                              stop_pk)
+        has = state.active & (depth > 0)
+        cls, key = _unified_class(now, has, h_resv, h_limit <= now,
+                                  h_prop, h_prop + state.prop_delta, allow)
+        pk = _cal_pack(cls, key, kresv, kprop1, kprop2)
+        boundary_stop = alive & ~in_unit & (cls != CLS_NONE)
+        nonmono_next = boundary_stop & (pk < prev_pk)
+        return torch.where(
+            boundary_stop,
+            torch.minimum(stop_pk, torch.where(nonmono_next, prev_pk, pk)),
+            stop_pk)
+
+    fields = dict(head_resv=h_resv, head_prop=h_prop, head_limit=h_limit,
+                  head_arrival=h_arr, head_cost=h_cost, head_rho=h_rho,
+                  prev_resv=p_resv, prev_prop=p_prop, prev_limit=p_limit,
+                  prev_arrival=p_arr, depth=depth)
+    return (fields, qadv, units, served, served_resv, lb, prev_pk,
+            unit_cls, cost)
+
+
+def _calendar_batch_core(state: EngineState, now, arr_rows, cost_rows, *,
+                         anticipation_ns: int, allow_limit_break: bool,
+                         origins=None, stop_min=None):
+    """Measure + boundary + commit + promote of one calendar batch, given
+    the window rows.  ``origins`` injects the ``(kresv, kprop1, kprop2,
+    any_cand)`` pack origins (the wheel reads them from its bucket
+    index); ``stop_min`` replaces the dense ``torch.min`` boundary (the
+    wheel's stop-key scan).  Both must equal the dense reductions they
+    replace bit for bit.  Returns ``(CalendarBatch, b_eff)``."""
+    if origins is None:
+        cls0, key0 = _classify(state, now, allow_limit_break)
+
+        def class_min(c):
+            return torch.min(torch.where(cls0 == c, key0, KEY_INF))
+
+        kresv, kprop1, kprop2 = (class_min(CLS_RESV),
+                                 class_min(CLS_WEIGHT), class_min(CLS_LB))
+        any_cand = torch.any(cls0 != CLS_NONE)
+    else:
+        kresv, kprop1, kprop2, any_cand = origins
+
+    stop_pk = _calendar_pass(state, now, arr_rows, cost_rows,
+                             allow_limit_break, anticipation_ns,
+                             kresv, kprop1, kprop2, None)
+    b_eff = torch.min(stop_pk) if stop_min is None else stop_min(stop_pk)
+    (fields, qadv, units, served, served_resv, lb, last_pk,
+     last_cls, cost_pc) = _calendar_pass(
+         state, now, arr_rows, cost_rows, allow_limit_break,
+         anticipation_ns, kresv, kprop1, kprop2, b_eff)
+
+    did = served > 0
+    popped = did & (qadv > 0)
+    pick = torch.where
+    new_state = state._replace(
+        depth=pick(did, fields["depth"], state.depth),
+        q_head=pick(popped, (state.q_head + qadv) % state.ring_capacity,
+                    state.q_head).to(torch.int32),
+        head_resv=pick(popped, fields["head_resv"], state.head_resv),
+        head_prop=pick(popped, fields["head_prop"], state.head_prop),
+        head_limit=pick(popped, fields["head_limit"], state.head_limit),
+        head_arrival=pick(popped, fields["head_arrival"],
+                          state.head_arrival),
+        head_cost=pick(popped, fields["head_cost"], state.head_cost),
+        head_rho=pick(popped, fields["head_rho"], state.head_rho),
+        head_ready=state.head_ready & ~did,
+        prev_resv=pick(did, fields["prev_resv"], state.prev_resv),
+        prev_prop=pick(did, fields["prev_prop"], state.prev_prop),
+        prev_limit=pick(did, fields["prev_limit"], state.prev_limit),
+        prev_arrival=pick(popped, fields["prev_arrival"],
+                          state.prev_arrival),
+    )
+
+    # stored-flag parity (promote loop): the batch's LAST serial decision
+    # is the unit with the max entry pack (ties by creation order: the
+    # first maximal index, as torch.argmax returns it); if its class is
+    # >= 1, its entry ran the final promote pass, whose only unseen head
+    # is the one that unit's own chain popped into place
+    lp = torch.where(did, last_pk, -1)
+    tied = did & (lp == torch.max(lp))
+    excl = torch.argmax(torch.where(tied, state.order, -1)).to(torch.int32)
+    cls_last = torch.max(torch.where(tied, last_cls, -1))
+    do_promote = torch.any(did) & (cls_last >= CLS_WEIGHT)
+    has_req_after = new_state.active & (new_state.depth > 0)
+    promoted = new_state.head_ready | \
+        (has_req_after & (new_state.head_limit <= now))
+    promoted = promoted & (
+        torch.arange(state.capacity, dtype=torch.int32, device=state.device)
+        != excl)
+    new_state = new_state._replace(head_ready=torch.where(
+        do_promote, promoted, new_state.head_ready))
+
+    count = torch.sum(served).to(torch.int32)
+    batch = CalendarBatch(
+        state=new_state, count=count,
+        resv_count=torch.sum(served_resv).to(torch.int32),
+        units=units, served=served, served_resv=served_resv, lb=lb,
+        progress_ok=(count > 0) | ~any_cand,
+        served_cost=torch.where(did, cost_pc, 0),
+        margin=torch.where(did & (b_eff < KEY_INF), b_eff - last_pk, -1))
+    return batch, b_eff
+
+
+def calendar_batch(state: EngineState, now, *, steps: int,
+                   anticipation_ns: int = 0,
+                   allow_limit_break: bool = False) -> CalendarBatch:
+    """One calendar-commit batch (``calendar_impl="minstop"``): up to
+    ``steps`` decisions PER CLIENT in two dense passes, no sort.  The
+    committed set is exactly the serial engine's next ``count``
+    decisions.  ``progress_ok`` False (count 0 with candidates present)
+    means the very first serial unit is unfollowable within ``steps``:
+    the caller falls back to the serial engine."""
+    _check_steps(state, steps)
+    now = as_scalar(now, state.device)
+    win = ring_window(state, steps)
+    arr_rows, cost_rows = _heads_rows((win.arr, win.cost), steps)
+    batch, _ = _calendar_batch_core(
+        state, now, arr_rows, cost_rows, anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break)
+    return batch
+
+
+# ----------------------------------------------------------------------
+# the timer wheel: a maintained bucket index over the entry keys
+# ----------------------------------------------------------------------
+#
+# calendar_impl="wheel" keeps the bucketed ladder's commit structure and
+# reads each level's origins and boundary from bucket wheels instead of
+# dense [N] reductions: three per-class wheels (count + exact min per
+# bucket) built once per batch and adjusted in place between levels
+# (only the clients a commit served re-slot), and a transient stop-key
+# wheel per level, scanned for its first occupied bucket.  Both scans
+# are kernel K2 on the card.  Every wheel read equals the dense
+# reduction it replaces (kernels.py, wheel section), so the committed
+# set, state and counters equal the bucketed ladder's.  The in-place
+# adjust is exact because at a fixed now an unserved client's (class,
+# key) cannot change across a commit.
+
+_WHEEL_BUCKETS = 256
+_WHEEL_SHIFT = 20        # 2^20 ns ~ 1 ms fine buckets, ~268 ms span
+_WHEEL_STOP_SHIFT = 52   # stop packs live in [0, 2^60): 256 buckets
+
+
+class WheelIndex(NamedTuple):
+    """Three class wheels of ``_WHEEL_BUCKETS`` buckets on one axis
+    (slot = cls * B + bucket; 3B = unslotted), plus the per-client
+    slot/key mirror the in-place adjust needs."""
+
+    origin: torch.Tensor   # int64 bucket-0 left edge (all 3 wheels)
+    cnt: torch.Tensor      # int32[3B] occupancy per (class, bucket)
+    bmin: torch.Tensor     # int64[3B] exact min key per bucket
+    slot: torch.Tensor     # int32[N] current slot (3B = unslotted)
+    key: torch.Tensor      # int64[N] slotted key (where slot < 3B)
+    reslots: torch.Tensor  # int64 in-place re-slots since build
+    hwm: torch.Tensor      # int64 bucket-occupancy high-water mark
+
+
+def _wheel_slots(cls, key, origin):
+    """(class, key) -> wheel slot; non-candidates unslot (3B)."""
+    b = wheel_slot(key, origin, _WHEEL_SHIFT, _WHEEL_BUCKETS)
+    return torch.where(cls == CLS_NONE, 3 * _WHEEL_BUCKETS,
+                       cls * _WHEEL_BUCKETS + b).to(torch.int32)
+
+
+def wheel_build(state: EngineState, now, allow: bool) -> WheelIndex:
+    """Full bucket-scatter of the entry classification (one K2 launch on
+    the card), once per batch; levels adjust in place from here."""
+    now = as_scalar(now, state.device)
+    cls, key = _classify(state, now, allow)
+    origin = now - ((_WHEEL_BUCKETS // 2) << _WHEEL_SHIFT)
+    slot = _wheel_slots(cls, key, origin)
+    cnt, bmin, _val, _found = wheel_scan(key, slot, 3 * _WHEEL_BUCKETS)
+    return WheelIndex(origin=origin, cnt=cnt, bmin=bmin, slot=slot,
+                      key=key,
+                      reslots=torch.zeros((), dtype=torch.int64,
+                                          device=state.device),
+                      hwm=torch.max(cnt).to(torch.int64))
+
+
+def wheel_origins(w: WheelIndex):
+    """Batch-entry pack origins read from the wheel: per class, the
+    first occupied bucket's stored min, equal to the dense masked min.
+    Returns ``(kresv, kprop1, kprop2, any_cand)``."""
+    b = _WHEEL_BUCKETS
+    vals, _b0, found = wheel_nearest(w.cnt.reshape(3, b),
+                                     w.bmin.reshape(3, b))
+    return vals[0], vals[1], vals[2], torch.any(found)
+
+
+def _with_drop_bucket(x, fill):
+    """``x`` with one more bucket, the target of masked lanes."""
+    return torch.cat([x, x.new_full((1,), fill)])
+
+
+def wheel_adjust(w: WheelIndex, state: EngineState, now, allow: bool,
+                 moved) -> WheelIndex:
+    """In-place re-slot of exactly the ``moved`` clients: decrement their
+    old buckets, increment the new ones, and recompute the min of only
+    the touched buckets from the stored keys.  Equals
+    :func:`wheel_build` of the new state whenever ``moved`` covers every
+    client whose (class, key) changed.  The three drop-mode scatters of
+    the JAX module write ``nb + 1`` buckets here; the last takes the
+    masked lanes and is cut off."""
+    nb = 3 * _WHEEL_BUCKETS
+    now = as_scalar(now, state.device)
+    cls, key = _classify(state, now, allow)
+    new_slot = _wheel_slots(cls, key, w.origin)
+    slot2 = torch.where(moved, new_slot, w.slot)
+    key2 = torch.where(moved, key, w.key)
+    out_s = torch.where(moved, w.slot, nb).to(torch.int64)
+    in_s = torch.where(moved, slot2, nb).to(torch.int64)
+    ones = torch.ones_like(w.slot)
+    cnt2 = _with_drop_bucket(w.cnt, 0).index_add_(0, out_s, -ones) \
+        .index_add_(0, in_s, ones)[:nb]
+    touched = torch.zeros((nb + 1,), dtype=torch.bool, device=key.device) \
+        .index_fill_(0, out_s, True).index_fill_(0, in_s, True)[:nb]
+    fresh = torch.full((nb + 1,), KEY_INF, dtype=torch.int64,
+                       device=key.device) \
+        .scatter_reduce_(0, slot2.to(torch.int64), key2, "amin")[:nb]
+    changed = moved & ((slot2 != w.slot) | (key2 != w.key))
+    return WheelIndex(
+        origin=w.origin, cnt=cnt2,
+        bmin=torch.where(touched, fresh, w.bmin), slot=slot2, key=key2,
+        reslots=w.reslots + torch.sum(changed),
+        hwm=torch.maximum(w.hwm, torch.max(cnt2).to(torch.int64)))
+
+
+def _wheel_stop_min(stop_pk):
+    """The level boundary B_eff as the stop wheel's bucket-scatter +
+    first-occupied scan (one K2 launch on the card), equal to
+    ``torch.min(stop_pk)``: stop packs are non-negative and below 2^60,
+    so 256 buckets of 2^52 cover them, and an all-KEY_INF distribution
+    returns KEY_INF like the dense min."""
+    slot = torch.where(stop_pk < KEY_INF,
+                       wheel_slot(stop_pk, 0, _WHEEL_STOP_SHIFT,
+                                  _WHEEL_BUCKETS),
+                       _WHEEL_BUCKETS).to(torch.int32)
+    _cnt, _bmin, val, _found = wheel_scan(stop_pk, slot, _WHEEL_BUCKETS)
+    return val
+
+
+# ----------------------------------------------------------------------
+# the bucketed ladder: L refreshed-budget boundaries per batch
+# ----------------------------------------------------------------------
+#
+# The minstop boundary lets the single most conservative client truncate
+# the whole batch (on a Zipf population the heavy client exhausts its
+# ``steps`` budget at a low key).  The ladder runs L levels per batch:
+# each re-prefetches the ring window from the committed state (a fresh
+# per-client budget), measures fresh stops, and commits the exact serial
+# prefix below its own boundary, so the concatenated levels are one
+# serial prefix.
+
+class CalendarLadderBatch(NamedTuple):
+    """Result of one bucketed (or wheel) calendar batch of L levels; the
+    committed set is one serial prefix of ``count`` decisions."""
+
+    state: EngineState
+    count: torch.Tensor        # int32 committed decisions (all levels)
+    resv_count: torch.Tensor   # int32 constraint-phase decisions
+    units: torch.Tensor        # int32[N] committed units per client
+    served: torch.Tensor       # int32[N] committed decisions per client
+    served_resv: torch.Tensor  # int32[N] constraint decisions
+    lb: torch.Tensor           # int32[N] limit-break entries (Allow)
+    progress_ok: torch.Tensor  # bool: level 0 committed or had no
+    #                            candidate
+    level_count: torch.Tensor  # int32[L] decisions per level
+    level_bound: torch.Tensor  # int64[L] committed boundary per level
+    level_stall: torch.Tensor  # bool[L] committed 0 with candidates
+    served_cost: torch.Tensor  # int64[N] delivered cost (all levels)
+
+
+def _calendar_ladder(state: EngineState, now, *, steps: int, levels: int,
+                     anticipation_ns: int, allow: bool, wheel: bool):
+    """L ladder levels, each a window prefetch (K1 on the card) + measure
+    + boundary + commit from the previous level's committed state.  With
+    ``wheel`` the origins and boundaries come from the wheel index (one
+    K2 launch to build it, one per level for the stop wheel).  Returns
+    ``(CalendarLadderBatch, wheel_stats)`` with ``wheel_stats`` the
+    ``(reslots, occupancy hwm)`` int64 pair, or None."""
+    _check_steps(state, steps)
+    if levels < 1:
+        raise ValueError("the ladder needs at least one level")
+    now = as_scalar(now, state.device)
+    w = wheel_build(state, now, allow) if wheel else None
+    zeros = torch.zeros((state.capacity,), dtype=torch.int32,
+                        device=state.device)
+    units = served = served_resv = lb = zeros
+    cost = torch.zeros_like(state.head_cost)
+    counts, resvs, bounds, stalls = [], [], [], []
+    st = state
+    for _ in range(levels):
+        win = ring_window(st, steps)
+        arr_rows, cost_rows = _heads_rows((win.arr, win.cost), steps)
+        batch, b_eff = _calendar_batch_core(
+            st, now, arr_rows, cost_rows,
+            anticipation_ns=anticipation_ns, allow_limit_break=allow,
+            origins=None if w is None else wheel_origins(w),
+            stop_min=None if w is None else _wheel_stop_min)
+        if w is not None:
+            # fixed-now commit: exactly the served clients moved
+            w = wheel_adjust(w, batch.state, now, allow, batch.served > 0)
+        units = units + batch.units
+        served = served + batch.served
+        served_resv = served_resv + batch.served_resv
+        lb = lb + batch.lb
+        cost = cost + batch.served_cost
+        counts.append(batch.count)
+        resvs.append(batch.resv_count)
+        bounds.append(b_eff)
+        # a level that commits nothing with candidates present is a
+        # ladder stall (later levels repeat it: same state, same bound)
+        stalls.append(~batch.progress_ok)
+        st = batch.state
+    count = torch.stack(counts)
+    stall = torch.stack(stalls)
+    ladder = CalendarLadderBatch(
+        state=st, count=torch.sum(count).to(torch.int32),
+        resv_count=torch.sum(torch.stack(resvs)).to(torch.int32),
+        units=units, served=served, served_resv=served_resv, lb=lb,
+        progress_ok=~stall[0], level_count=count,
+        level_bound=torch.stack(bounds), level_stall=stall,
+        served_cost=cost)
+    return ladder, (None if w is None else (w.reslots, w.hwm))
+
+
+def calendar_batch_bucketed(state: EngineState, now, *, steps: int,
+                            levels: int, anticipation_ns: int = 0,
+                            allow_limit_break: bool = False
+                            ) -> CalendarLadderBatch:
+    """One bucketed calendar batch: ``levels`` ladder levels, each
+    committing the exact serial prefix below its own refreshed stop-key
+    boundary.  With ``levels=1`` it equals :func:`calendar_batch`."""
+    return _calendar_ladder(state, now, steps=steps, levels=levels,
+                            anticipation_ns=anticipation_ns,
+                            allow=allow_limit_break, wheel=False)[0]
+
+
+def calendar_batch_wheel(state: EngineState, now, *, steps: int,
+                         levels: int, anticipation_ns: int = 0,
+                         allow_limit_break: bool = False
+                         ) -> CalendarLadderBatch:
+    """One wheel calendar batch: the bucketed ladder driven by the
+    maintained bucket index, equal to :func:`calendar_batch_bucketed`
+    at the same ``levels`` on every field and the state.  On the card
+    every wheel scan is kernel K2."""
+    return _calendar_ladder(state, now, steps=steps, levels=levels,
+                            anticipation_ns=anticipation_ns,
+                            allow=allow_limit_break, wheel=True)[0]
+
+
+class CalendarEpoch(NamedTuple):
+    """M calendar batches' output, stacked on the device."""
+
+    state: EngineState
+    count: torch.Tensor        # int32[M] decisions per batch
+    resv_count: torch.Tensor   # int32[M]
+    progress_ok: torch.Tensor  # bool[M]
+    served: torch.Tensor       # int32[N] per-client decisions (epoch)
+    metrics: torch.Tensor      # int64[NUM_METRICS] (zeros unless
+    #                            with_metrics)
+    level_count: torch.Tensor  # int32[M, L] decisions per ladder level
+    #                            (L = 1 for "minstop")
+
+
+def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
+                        anticipation_ns: int = 0,
+                        allow_limit_break: bool = False,
+                        with_metrics: bool = False,
+                        tag_width: int = 64,
+                        calendar_impl: str = "minstop",
+                        ladder_levels: int = 8,
+                        hists=None, ledger=None, flight=None, slo=None,
+                        prov=None) -> CalendarEpoch:
+    """Run m calendar batches, each prefetching its own ``steps``-row ring
+    window.  ``calendar_impl`` picks the commit boundary: "minstop" (one
+    global min-stop per batch), "bucketed" (``ladder_levels`` refreshed
+    boundaries per batch) or "wheel" (the bucketed ladder on the wheel
+    index).  All commit exact serial prefixes; ``ladder_levels=1``
+    equals "minstop".
+
+    The device picks the wheel's scan, as it picks K1's: a CUDA state
+    launches kernel K2 (or raises), a CPU state runs its plain version;
+    there is no switch and no fallback, so the ``pallas_fallbacks``
+    metric row, kept for parity with the JAX package, is always 0.
+
+    ``tag_width=32`` and the telemetry accumulators (``hists``,
+    ``ledger``, ``flight``, ``slo``, ``prov``) are later slices of the
+    port and raise NotImplementedError."""
+    if tag_width != 64:
+        raise NotImplementedError(f"tag_width={tag_width} is {_LATER}")
+    tele = dict(hists=hists, ledger=ledger, flight=flight, slo=slo,
+                prov=prov)
+    on = sorted(name for name, v in tele.items() if v is not None)
+    if on:
+        raise NotImplementedError(f"telemetry accumulators {on} are "
+                                  f"{_LATER}")
+    if calendar_impl not in _CAL_IMPLS:
+        raise ValueError(f"calendar_impl {calendar_impl!r} not in "
+                         f"{_CAL_IMPLS}")
+    wheel = calendar_impl == "wheel"
+    bucketed = calendar_impl == "bucketed" or wheel
+    dev = state.device
+    now = as_scalar(now, dev)
+    met = obsdev.metrics_zero(dev)
+    served_acc = torch.zeros((state.capacity,), dtype=torch.int32,
+                             device=dev)
+    counts, resvs, oks, lvls = [], [], [], []
+    st = state
+    for _ in range(m):
+        w_reslots = w_hwm = 0
+        if bucketed:
+            lad, wstats = _calendar_ladder(
+                st, now, steps=steps, levels=int(ladder_levels),
+                anticipation_ns=anticipation_ns, allow=allow_limit_break,
+                wheel=wheel)
+            if wstats is not None:
+                w_reslots, w_hwm = wstats
+            batch_state, count, resv_count = (lad.state, lad.count,
+                                              lad.resv_count)
+            progress, served, lb = lad.progress_ok, lad.served, lad.lb
+            lvl_count = lad.level_count
+            levels_used = torch.sum(lvl_count > 0)
+            ladder_fb = torch.any(lad.level_stall).to(torch.int64)
+            base_decs = lvl_count[0].to(torch.int64)
+        else:
+            batch = calendar_batch(st, now, steps=steps,
+                                   anticipation_ns=anticipation_ns,
+                                   allow_limit_break=allow_limit_break)
+            batch_state, count, resv_count = (batch.state, batch.count,
+                                              batch.resv_count)
+            progress, served, lb = batch.progress_ok, batch.served, batch.lb
+            lvl_count = count.reshape(1)
+            levels_used = (count > 0).to(torch.int64)
+            ladder_fb = 0
+            base_decs = count.to(torch.int64)
+        if with_metrics:
+            # a batch with candidates that cannot make progress is the
+            # guard-trip analog (serial fallback)
+            met = _batch_metrics(
+                met, batch_state, count=count, resv=resv_count,
+                prop=count - resv_count, lb=torch.sum(lb),
+                guards_ok=progress, ladder_levels_used=levels_used,
+                ladder_base_decisions=base_decs,
+                ladder_fallbacks=ladder_fb, wheel_occ_hwm=w_hwm,
+                wheel_reslots=w_reslots)
+        counts.append(count)
+        resvs.append(resv_count)
+        oks.append(progress)
+        lvls.append(lvl_count)
+        served_acc = served_acc + served
+        st = batch_state
+    return CalendarEpoch(state=st, count=torch.stack(counts),
+                         resv_count=torch.stack(resvs),
+                         progress_ok=torch.stack(oks), served=served_acc,
+                         metrics=met, level_count=torch.stack(lvls))

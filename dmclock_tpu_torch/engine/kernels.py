@@ -12,6 +12,10 @@ Counterpart of ``dmclock_tpu/engine/kernels.py`` (tag algebra and
                     lexicographic argmins over (tag, creation order).
 - ``engine_run``  = ``steps`` decisions; the JAX ``lax.scan`` is a
                     Python loop here.
+- the timer-wheel primitives (``wheel_slot``, ``wheel_scatter``,
+  ``wheel_nearest``) and ``wheel_scan``, the wrapper of kernel K2
+  (``csrc/wheel_scan.cu``);
+- ``ingest_superwave``: W ingest waves in one ring pass.
 
 All arithmetic is int64 ns.  The serial engine is the exactness
 reference the prefix-commit fast path is held against.  Scalars stay
@@ -25,9 +29,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.timebase import (MAX_CHARGE_UNITS, MAX_TAG, MIN_TAG,
-                             ORGANIC_TAG_CAP, TIME_MAX)
+from ..core.timebase import (LOWEST_PROP_TAG_TRIGGER, MAX_CHARGE_UNITS,
+                             MAX_TAG, MIN_TAG, ORGANIC_TAG_CAP, TIME_MAX)
 from ..obs import device as obsdev
+from . import _ext
 from .state import EngineState
 
 # Masking sentinel for argmin keys: strictly above every legal key.
@@ -95,6 +100,114 @@ def _min_not_0(current, possible):
     """min where 0 means "no time" (reference :1192-1195)."""
     return torch.where(possible == 0, current,
                        torch.minimum(current, possible))
+
+
+# ----------------------------------------------------------------------
+# timer wheel (kernel K2)
+# ----------------------------------------------------------------------
+#
+# Keys scatter into a fixed grid of buckets (count + exact per-bucket
+# minimum); the nearest deadline is the first occupied bucket's stored
+# minimum.  ``wheel_slot`` is monotone nondecreasing in the key for any
+# origin and shift (out-of-span keys clamp to the edge buckets), so the
+# first occupied bucket holds the global masked minimum, and its stored
+# min -- a scatter-min of the actual keys -- IS that minimum, bit for
+# bit.  Geometry only decides how many keys share a bucket.
+
+# the kernel's shared-memory cap: 12 bytes per bucket per block
+WHEEL_MAX_BUCKETS = 2048
+
+
+def wheel_slot(key, origin, shift: int, nb: int):
+    """Bucket index of ``key`` on a wheel of ``nb`` buckets of width
+    ``2**shift`` ns starting at ``origin``; out-of-span keys clamp to
+    the edge buckets."""
+    return torch.clamp((key - origin) >> shift, 0, nb - 1).to(torch.int32)
+
+
+def wheel_scatter(keys, slot, nb: int):
+    """Per-bucket occupancy count and exact minimum key of ``keys``
+    scattered by ``slot`` (int32, in ``[0, nb]``); ``slot == nb`` masks
+    a lane out: both scatters write ``nb + 1`` buckets and the last is
+    cut off.  Returns ``(cnt int32[nb], bmin int64[nb])``, KEY_INF in
+    empty buckets."""
+    idx = slot.to(torch.int64)
+    cnt = torch.zeros((nb + 1,), dtype=torch.int32, device=keys.device)
+    cnt.index_add_(0, idx, torch.ones_like(slot))
+    bmin = torch.full((nb + 1,), KEY_INF, dtype=torch.int64,
+                      device=keys.device)
+    bmin.scatter_reduce_(0, idx, keys, "amin")
+    return cnt[:nb], bmin[:nb]
+
+
+def wheel_nearest(cnt, bmin):
+    """The first occupied bucket along the last axis and its stored
+    minimum: ``(val, b0, found)`` with ``val = KEY_INF`` and ``b0 = nb``
+    where every bucket is empty.  The JAX package finds the bucket by a
+    grouped occupancy scan and a dynamic slice; here it is the minimum
+    of the occupied bucket indices, the same number, with no read back
+    to the host."""
+    nb = cnt.shape[-1]
+    idx = torch.arange(nb, dtype=torch.int32, device=cnt.device)
+    b0 = torch.min(torch.where(cnt > 0, idx, nb), dim=-1).values
+    found = b0 < nb
+    at = torch.clamp(b0, max=nb - 1).to(torch.int64).unsqueeze(-1)
+    val = torch.where(found, torch.gather(bmin, -1, at).squeeze(-1),
+                      KEY_INF)
+    return val, b0, found
+
+
+def _wheel_scan_torch(keys, slot, nb: int):
+    """Plain version of K2: ``wheel_scatter`` then ``wheel_nearest``."""
+    cnt, bmin = wheel_scatter(keys, slot, nb)
+    val, _b0, found = wheel_nearest(cnt, bmin)
+    return cnt, bmin, val, found
+
+
+def wheel_scan(keys, slot, nb: int):
+    """K2's wrapper: scatter int64 ``keys[N]`` by int32 ``slot[N]`` into
+    ``nb`` buckets (``slot == nb`` masks a lane out) and find the first
+    occupied bucket.  Returns ``(cnt int32[nb], bmin int64[nb], val
+    int64, found bool)``, equal to the JAX package's ``wheel_scan``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (building it at first use) or raises -- there is no
+    fallback.  Checks dtypes, shapes, contiguity, device and
+    ``0 < nb <= WHEEL_MAX_BUCKETS``."""
+    if keys.dtype != torch.int64 or slot.dtype != torch.int32:
+        raise TypeError(f"wheel_scan: keys must be int64 and slot int32, "
+                        f"got {keys.dtype}/{slot.dtype}")
+    if keys.dim() != 1 or slot.shape != keys.shape:
+        raise ValueError(f"wheel_scan: shapes {tuple(keys.shape)}, "
+                         f"{tuple(slot.shape)} are not [N], [N]")
+    if not 0 < nb <= WHEEL_MAX_BUCKETS:
+        raise ValueError(f"wheel_scan: {nb} buckets not in "
+                         f"(0, {WHEEL_MAX_BUCKETS}]")
+    dev = keys.device
+    if slot.device != dev:
+        raise ValueError("wheel_scan: tensors on different devices")
+    if dev.type == "cpu":
+        return _wheel_scan_torch(keys, slot, nb)
+    if dev.type != "cuda":
+        raise ValueError(f"wheel_scan: unsupported device {dev}")
+    if not (keys.is_contiguous() and slot.is_contiguous()):
+        raise ValueError("wheel_scan: inputs must be contiguous")
+    launch = _ext.kernel("wheel_scan")
+    # word nb of the counts is the kernel's block ticket
+    cnt = torch.zeros((nb + 1,), dtype=torch.int32, device=dev)
+    bmin = torch.full((nb,), KEY_INF, dtype=torch.int64, device=dev)
+    val = torch.empty((), dtype=torch.int64, device=dev)
+    found = torch.empty((), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(keys.data_ptr(), slot.data_ptr(), cnt.data_ptr(),
+                     bmin.data_ptr(), val.data_ptr(), found.data_ptr(),
+                     keys.shape[0], nb, stream)
+    if err != 0:
+        raise RuntimeError(f"wheel_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    _ext.LAUNCHES["wheel_scan"] += 1
+    return cnt[:nb], bmin, val, found
 
 
 # ----------------------------------------------------------------------
@@ -319,3 +432,92 @@ def engine_run(state: EngineState, now, steps: int, *,
     if with_metrics:
         out = out + (met,)
     return out
+
+
+# ----------------------------------------------------------------------
+# ingest
+# ----------------------------------------------------------------------
+
+def ingest_superwave(state: EngineState, counts, wave_times, cost, rho,
+                     delta, *, anticipation_ns: int) -> EngineState:
+    """W consecutive ingest waves fused into ONE ring pass (reference
+    ``add_request``, dmclock_server.h:913-1018, once per arrival).
+
+    Client ``i`` receives ``counts[i]`` (int32, ``0 <= counts <= W``)
+    arrivals at times ``wave_times[0 .. counts[i]-1]`` (int64[W],
+    ascending), each with the client's ``cost``/``rho``/``delta``
+    (int64[N]).  Equal to W sequential single-arrival waves with
+    ``requesting_w = counts > w``: idle reactivation can fire only at
+    wave 0, against the pre-superwave state (the batch-synchronous
+    semantics of the JAX package's ``ingest_wave``), the wave-0 arrival
+    becomes the head of an empty queue, and the rest land in
+    consecutive ring slots.
+
+    Caller contract: ``depth + counts <= ring capacity``."""
+    st = state
+    n = st.capacity
+    q = st.ring_capacity
+    w_waves = wave_times.shape[0]
+    requesting = counts > 0
+    t0 = wave_times[0].expand(n)
+
+    # idle reactivation at wave 0, against the pre-superwave state
+    others = st.active & ~st.idle
+    eff = torch.where(st.depth > 0, st.head_prop, st.prev_prop) \
+        + st.prop_delta
+    lowest = torch.min(torch.where(others, eff, KEY_INF))
+    do_shift = requesting & st.idle & torch.any(others) & \
+        (lowest < LOWEST_PROP_TAG_TRIGGER)
+    prop_delta = torch.where(do_shift, lowest - t0, st.prop_delta)
+    idle = st.idle & ~requesting
+
+    # the wave-0 arrival becomes the head of an empty queue
+    empty = st.depth == 0
+    tag_it = requesting & empty
+    r, p, l = _make_tag(
+        st.prev_resv, st.prev_prop, st.prev_limit, st.prev_arrival,
+        st.resv_inv, st.weight_inv, st.limit_inv,
+        delta, rho, t0, cost, anticipation_ns)
+
+    def hset(new, old, pred=tag_it):
+        return torch.where(pred, new, old)
+
+    # ring multi-append: arrivals h .. counts-1 land at consecutive ring
+    # positions from base (h = 1 when the head took wave 0).  For ring
+    # column c the wave index is (c - base) mod Q + h, written when
+    # below counts.  base is floor-mod: q_head + depth + h - 1 is -1 for
+    # an empty client that receives nothing.
+    h = tag_it.to(torch.int32)
+    ring_count = torch.clamp(counts.to(torch.int32) - h, min=0)
+    base = torch.remainder(st.q_head + st.depth + h - 1, q)
+    col = torch.arange(q, dtype=torch.int32, device=st.device)
+    jrel = torch.remainder(col[None, :] - base[:, None], q)
+    writem = jrel < ring_count[:, None]
+    widx = jrel + h[:, None]
+    # one gather in place of the JAX package's W-1 unrolled selects:
+    # under ``writem`` the wave index is below counts <= W, so the
+    # clamp changes only lanes the mask discards
+    val = wave_times[torch.clamp(widx, max=w_waves - 1).to(torch.int64)]
+    q_arrival = torch.where(writem, val, st.q_arrival)
+    q_cost = torch.where(writem, cost[:, None], st.q_cost)
+
+    return st._replace(
+        idle=idle,
+        prop_delta=prop_delta,
+        head_resv=hset(r, st.head_resv),
+        head_prop=hset(p, st.head_prop),
+        head_limit=hset(l, st.head_limit),
+        head_arrival=hset(t0, st.head_arrival),
+        head_cost=hset(cost, st.head_cost),
+        head_rho=hset(rho, st.head_rho),
+        head_ready=st.head_ready & ~tag_it,
+        prev_resv=hset(_fold_prev(st.prev_resv, r), st.prev_resv),
+        prev_prop=hset(_fold_prev(st.prev_prop, p), st.prev_prop),
+        prev_limit=hset(_fold_prev(st.prev_limit, l), st.prev_limit),
+        prev_arrival=hset(t0, st.prev_arrival),
+        q_arrival=q_arrival,
+        q_cost=q_cost,
+        depth=(st.depth + counts.to(torch.int32)),
+        cur_rho=hset(rho, st.cur_rho, requesting),
+        cur_delta=hset(delta, st.cur_delta, requesting),
+    )

@@ -1,2 +1,2 @@
 """Scheduling observability for the PyTorch port: the on-device metrics
-vector (``obs.device``)."""
+vector and the admission clamp (``obs.device``)."""

@@ -111,6 +111,16 @@ def metrics_delta(*, device: str | torch.device, **rows) -> torch.Tensor:
     return out
 
 
+def admission_clamp(counts: torch.Tensor, headroom: torch.Tensor):
+    """Clamp per-client arrival counts to ring headroom (the AtLimit
+    Reject/EAGAIN analog applied before ``ingest_superwave``); returns
+    ``(clamped, dropped_total)`` with the int64 drop count for the
+    ``ingest_drops`` row."""
+    clamped = torch.minimum(counts, headroom)
+    dropped = torch.sum((counts - clamped).to(torch.int64))
+    return clamped, dropped
+
+
 def metrics_dict(vec) -> dict:
     """Name the rows of a metrics vector (host side)."""
     if torch.is_tensor(vec):

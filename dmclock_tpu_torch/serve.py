@@ -1,4 +1,4 @@
-"""The serving entry point: the ``serve`` workload's shape.
+"""The serving entry points: the ``serve`` and ``cfg4`` workloads.
 
 ``serve_only`` builds a preloaded steady-state backlog (every client
 queued ``depth`` deep, weights 1..4, a reservation of 100 ops/s, no
@@ -8,9 +8,22 @@ shape of the JAX package's ``bench.py`` ``serve`` workload
 of up to k=65536 decisions per epoch, sorted selection, int64 tags,
 metrics on.
 
-Run it (on the card; ``device="cpu"`` for a small CPU run)::
+``serve_cfg4`` runs the ``cfg4`` closed loop (``bench.py`` cfg4 mode,
+``bench_sustained``): 100,000 clients with Zipf weights and a
+reservation of 1200 ops/s each, a 128-slot ring preloaded 64 deep, and
+50 ms rounds.  Each round (``calendar_round``) clamps the Poisson
+arrivals to ring headroom, ingests 64 waves in one ring pass, and runs
+m=3 calendar batches of 64 serve steps per client per level, 8 ladder
+levels, on the timer wheel.  The bench's calibration loop, which
+retunes the arrival and reservation rates toward a 0.5 reservation
+share, is load-generator logic and is not ported: the rounds run at the
+bench's starting values.
+
+Run it (on the card; ``--device cpu`` for a small CPU run)::
 
     python -m dmclock_tpu_torch.serve --n 100000 --epochs 3
+    python -m dmclock_tpu_torch.serve --workload cfg4 --rounds 3
+    python -m dmclock_tpu_torch.serve --workload cfg4 --n 256 --device cpu
 """
 
 from __future__ import annotations
@@ -22,12 +35,25 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .core.timebase import rate_to_inv_ns
+from .core.timebase import MAX_TAG, rate_to_inv_ns
 from .device import DEFAULT_DEVICE, resolve_device
 from .engine.bridge import state_from_numpy
-from .engine.fastpath import scan_prefix_epoch
-from .engine.state import EngineState, _FRESH_FILLS
+from .engine.fastpath import (CalendarEpoch, scan_calendar_epoch,
+                              scan_prefix_epoch)
+from .engine.kernels import as_scalar, ingest_superwave
+from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS
 from .obs import device as obsdev
+
+_NP_DTYPES = {torch.int64: np.int64, torch.int32: np.int32,
+              torch.bool: np.bool_}
+
+
+def _fresh_arrays(n: int, ring: int) -> dict:
+    """Every state field as a numpy array holding ``init_state``'s fill,
+    with the field's dtype (the rings [n, ring], the rest [n])."""
+    return {f: np.full((n, ring) if f in ("q_arrival", "q_cost") else (n,),
+                       fill, dtype=_NP_DTYPES[FIELD_DTYPES[f]])
+            for f, fill in _FRESH_FILLS.items()}
 
 
 def _preloaded_state(n_clients: int, depth: int, ring: int = 64, *,
@@ -49,8 +75,7 @@ def _preloaded_state(n_clients: int, depth: int, ring: int = 64, *,
     jitter = (phase * 2.0 * winv).astype(np.int64)
     q_arr = np.zeros((n, ring), dtype=np.int64)
     q_arr[:, :depth - 1] = np.arange(1, depth, dtype=np.int64)
-    arrays = {f: np.full((n,), fill, dtype=np.int64)
-              for f, fill in _FRESH_FILLS.items()}
+    arrays = _fresh_arrays(n, ring)
     arrays.update(
         active=np.ones(n, dtype=bool), idle=np.zeros(n, dtype=bool),
         head_ready=np.zeros(n, dtype=bool),
@@ -113,21 +138,183 @@ def serve_only(n: int = 100_000, depth: int = 320, k: int = 65536,
     return serve_epochs(state, epochs, k=k, m=m)
 
 
+# ----------------------------------------------------------------------
+# the cfg4 closed loop
+# ----------------------------------------------------------------------
+
+# the cfg4 workload's shape (bench.py cfg4 mode) at its starting values
+CFG4 = dict(ring=128, depth0=64, resv_rate=1200.0, waves=64,
+            dt_round_ns=50_000_000, m=3, steps=64, ladder_levels=8,
+            calendar_impl="wheel")
+
+
+def _zipf_weights(n: int, s: float = 1.1, lo: float = 0.5,
+                  hi: float = 64.0) -> np.ndarray:
+    """Zipf-by-rank weights, clipped to a sane QoS range and shuffled
+    (seed 7) so slot order does not correlate with weight (the port's
+    copy of ``bench._zipf_weights``)."""
+    w = 1.0 / np.arange(1, n + 1) ** s
+    w = np.clip(w / w[n // 2], lo, hi)
+    rng = np.random.default_rng(7)
+    rng.shuffle(w)
+    return w
+
+
+def _sustained_setup(n: int, ring: int, depth0: int,
+                     resv_rates: np.ndarray, weights: np.ndarray, *,
+                     device: str | torch.device = DEFAULT_DEVICE
+                     ) -> EngineState:
+    """Preload ``depth0``-deep queues for a mixed-QoS population (the
+    port's copy of ``bench._sustained_setup``, with its per-client
+    reservation-phase stagger).  A zero rate or weight disables that
+    axis for the client (ClientInfo 0 -> 0) and pins its head tag to
+    MAX_TAG.  Built in numpy, copied to ``device`` once."""
+    c = np.arange(n)
+    rinv = np.asarray([rate_to_inv_ns(r) for r in resv_rates],
+                      dtype=np.int64)
+    winv = np.asarray([rate_to_inv_ns(w) for w in weights],
+                      dtype=np.int64)
+    phase = ((c * 2654435761) & 0xFFFFF) / float(1 << 20)
+    jitter = (phase * 2.0 * winv).astype(np.int64)
+    rjit = (phase * 2.0 * rinv).astype(np.int64)
+    q_arr = np.zeros((n, ring), dtype=np.int64)
+    q_arr[:, :depth0 - 1] = np.arange(1, depth0, dtype=np.int64)
+    arrays = _fresh_arrays(n, ring)
+    arrays.update(
+        active=np.ones(n, dtype=bool), idle=np.zeros(n, dtype=bool),
+        order=c.astype(np.int64), resv_inv=rinv, weight_inv=winv,
+        head_resv=np.where(rinv == 0, np.int64(MAX_TAG), rinv + rjit),
+        head_prop=np.where(winv == 0, np.int64(MAX_TAG), winv + jitter),
+        head_limit=np.full(n, -(1 << 62), dtype=np.int64),
+        depth=np.full(n, depth0, dtype=np.int32),
+        q_arrival=q_arr, q_cost=np.ones((n, ring), dtype=np.int64))
+    return state_from_numpy(arrays, device)
+
+
+def calendar_round(state: EngineState, counts: torch.Tensor, t_base, *,
+                   m: int, steps: int, ladder_levels: int, waves: int,
+                   dt_round_ns: int, calendar_impl: str) -> CalendarEpoch:
+    """One closed-loop round (``bench_sustained``'s round body): clamp
+    the int32 ``counts[N]`` to ring headroom, ingest them as ``waves``
+    waves spread over the round (cost = rho = delta = 1), then run
+    ``m`` calendar batches at ``now = t_base + dt_round_ns``.  The
+    epoch's metrics include the round's ``ingest_drops``."""
+    dev = state.device
+    t_base = as_scalar(t_base, dev)
+    headroom = torch.clamp(state.ring_capacity - state.depth,
+                           min=0).to(torch.int32)
+    counts, dropped = obsdev.admission_clamp(counts, headroom)
+    wave_times = t_base + torch.arange(waves, dtype=torch.int64,
+                                       device=dev) * (dt_round_ns // waves)
+    ones = torch.ones((state.capacity,), dtype=torch.int64, device=dev)
+    st = ingest_superwave(state, counts, wave_times, ones, ones, ones,
+                          anticipation_ns=0)
+    ep = scan_calendar_epoch(st, t_base + dt_round_ns, m, steps=steps,
+                             with_metrics=True, calendar_impl=calendar_impl,
+                             ladder_levels=ladder_levels)
+    return ep._replace(metrics=obsdev.metrics_combine(
+        ep.metrics, obsdev.metrics_delta(device=dev, ingest_drops=dropped)))
+
+
+def cfg4_setup(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
+               device: str | torch.device = DEFAULT_DEVICE):
+    """The cfg4 state and every round's arrival counts, both on
+    ``device``: ``(state, draws int32[rounds, n])``.  Arrivals are
+    ``numpy.random.default_rng(seed).poisson(lam)`` clipped to
+    ``waves``, with ``lam`` the bench's starting guess (the reservation
+    floor plus the weight share of the surplus, clipped to ``waves -
+    1``); all draws are made and uploaded here, before any round."""
+    dev = resolve_device(device)
+    c = CFG4
+    weights = _zipf_weights(n)
+    resv_rates = np.full(n, c["resv_rate"])
+    state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
+                             weights, device=dev)
+    round_s = c["dt_round_ns"] / 1e9
+    serve_per_round = c["m"] * n * c["steps"]
+    surplus = max(serve_per_round - float(resv_rates.sum()) * round_s, 0.0)
+    lam = np.minimum(resv_rates * round_s
+                     + surplus * (weights / weights.sum()),
+                     c["waves"] - 1.0)
+    rng = np.random.default_rng(seed)
+    draws = np.stack([np.minimum(rng.poisson(lam), c["waves"])
+                      .astype(np.int32) for _ in range(rounds)])
+    return state, torch.from_numpy(draws).to(dev)
+
+
+class Cfg4Result(NamedTuple):
+    """``rounds`` cfg4 rounds' output (stacked on the device)."""
+
+    state: EngineState         # after the last round
+    count: torch.Tensor        # int32[R, m] decisions per batch
+    resv_count: torch.Tensor   # int32[R, m]
+    progress_ok: torch.Tensor  # bool[R, m]
+    served: torch.Tensor       # int32[R, N] per-client decisions
+    level_count: torch.Tensor  # int32[R, m, L]
+    metrics: torch.Tensor      # int64[NUM_METRICS], merged over rounds
+
+
+def cfg4_rounds(state: EngineState, draws: torch.Tensor, *,
+                t0: int = 0, calendar_impl: str = CFG4["calendar_impl"]
+                ) -> Cfg4Result:
+    """Round ``r`` ingests ``draws[r]`` at ``t_base = t0 + r * 50 ms``;
+    no host synchronisation between rounds."""
+    c = CFG4
+    met = obsdev.metrics_zero(state.device)
+    eps = []
+    for r in range(draws.shape[0]):
+        ep = calendar_round(state, draws[r], t0 + r * c["dt_round_ns"],
+                            m=c["m"], steps=c["steps"],
+                            ladder_levels=c["ladder_levels"],
+                            waves=c["waves"], dt_round_ns=c["dt_round_ns"],
+                            calendar_impl=calendar_impl)
+        state = ep.state
+        met = obsdev.metrics_combine(met, ep.metrics)
+        eps.append(ep)
+    return Cfg4Result(
+        state=state, metrics=met,
+        **{f: torch.stack([getattr(ep, f) for ep in eps])
+           for f in ("count", "resv_count", "progress_ok", "served",
+                     "level_count")})
+
+
+def serve_cfg4(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
+               device: str | torch.device = DEFAULT_DEVICE) -> Cfg4Result:
+    """The ``cfg4`` workload: ``n`` clients, ``rounds`` closed-loop
+    rounds from virtual time 0.  Callers check every ``progress_ok``
+    (False: the serial engine must take that batch)."""
+    state, draws = cfg4_setup(n, rounds, seed, device=device)
+    return cfg4_rounds(state, draws)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=("serve", "cfg4"),
+                    default="serve")
     ap.add_argument("--n", type=int, default=100_000)
-    ap.add_argument("--depth", type=int, default=320)
-    ap.add_argument("--k", type=int, default=65536)
-    ap.add_argument("--m", type=int, default=32)
-    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--depth", type=int, default=320,
+                    help="serve: queue depth and ring size")
+    ap.add_argument("--k", type=int, default=65536,
+                    help="serve: decisions per batch")
+    ap.add_argument("--m", type=int, default=32,
+                    help="serve: batches per epoch")
+    ap.add_argument("--epochs", type=int, default=3, help="serve")
+    ap.add_argument("--rounds", type=int, default=3, help="cfg4")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     a = ap.parse_args(argv)
-    res = serve_only(a.n, a.depth, a.k, a.m, a.epochs, device=a.device)
+    if a.workload == "serve":
+        res = serve_only(a.n, a.depth, a.k, a.m, a.epochs, device=a.device)
+        ok = {"guards_ok": bool(res.guards_ok.all())}
+    else:
+        res = serve_cfg4(a.n, a.rounds, device=a.device)
+        ok = {"progress_ok": bool(res.progress_ok.all())}
+    met = obsdev.metrics_dict(res.metrics)
     print(json.dumps({
-        "device": str(res.state.device),
-        "decisions": int(res.count.sum()),
-        "guards_ok": bool(res.guards_ok.all()),
-        "metrics": obsdev.metrics_dict(res.metrics)}))
+        "workload": a.workload, "device": str(res.state.device),
+        "decisions": int(res.count.sum()), **ok,
+        "reservation_share": met["decisions_reservation"]
+        / max(met["decisions_total"], 1),
+        "metrics": met}))
     return 0
 
 

@@ -1,14 +1,20 @@
-"""Where the time of one ``serve`` epoch goes on the card (PyTorch port).
+"""Where the time of a ``serve`` epoch or a ``cfg4`` round goes on the
+card (PyTorch port).
 
     python3 scripts/torch_serve_profile.py [--n 100000] [--epochs 1]
+    python3 scripts/torch_serve_profile.py --workload cfg4 [--rounds 1]
 
-Builds the ``serve`` workload's preloaded state (``dmclock_tpu_torch.
-serve``), runs one warm-up epoch, then traces ``--epochs`` epochs with
-``torch.profiler`` (CPU and CUDA activities).  Prints, on the card it
-ran on: the host wall time, the device busy time (the union of kernel
-intervals) and so the device idle share, the number of kernel launches,
-and the operators that take most device time.  The full table goes to
-``chiprun_out/serve_profile.txt``.  Needs CUDA; exits non-zero without.
+Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
+``serve`` backlog, or the ``cfg4`` state with its arrival draws
+uploaded), runs one warm-up epoch or round, then traces ``--epochs``
+epochs or ``--rounds`` rounds with ``torch.profiler`` (CPU and CUDA
+activities).  Prints, on the card it ran on: the host wall time, the
+device busy time (the union of kernel intervals) and so the device idle
+share, the number of kernel launches, the device time of the port's
+kernels (K1 ``ring_window``, K2 ``wheel_scan``) and their share, and
+the operators that take most device time.  The full table goes to
+``chiprun_out/<workload>_profile.txt``.  Needs CUDA; exits non-zero
+without.
 """
 
 from __future__ import annotations
@@ -42,14 +48,19 @@ def _busy_us(intervals) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=("serve", "cfg4"),
+                    default="serve")
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--depth", type=int, default=320)
     ap.add_argument("--k", type=int, default=65536)
     ap.add_argument("--m", type=int, default=32)
-    ap.add_argument("--epochs", type=int, default=1)
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
-                                                  "serve_profile.txt"))
+    ap.add_argument("--epochs", type=int, default=1, help="serve")
+    ap.add_argument("--rounds", type=int, default=1, help="cfg4")
+    ap.add_argument("--out", default=None,
+                    help="table file (chiprun_out/<workload>_profile.txt)")
     a = ap.parse_args(argv)
+    out = a.out or os.path.join(ROOT, "chiprun_out",
+                                f"{a.workload}_profile.txt")
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs CUDA", file=sys.stderr)
         return 2
@@ -61,13 +72,27 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    st = serve._preloaded_state(a.n, a.depth, ring=a.depth, device="cuda")
-    st = serve.serve_epochs(st, 1, k=a.k, m=a.m).state
+    if a.workload == "serve":
+        shape = dict(n=a.n, k=a.k, m=a.m, epochs=a.epochs)
+        st = serve._preloaded_state(a.n, a.depth, ring=a.depth,
+                                    device="cuda")
+        st = serve.serve_epochs(st, 1, k=a.k, m=a.m).state
+
+        def run():
+            return serve.serve_epochs(st, a.epochs, k=a.k, m=a.m)
+    else:
+        shape = dict(n=a.n, rounds=a.rounds, **serve.CFG4)
+        st, draws = serve.cfg4_setup(a.n, 1 + a.rounds, device="cuda")
+        st = serve.cfg4_rounds(st, draws[:1]).state
+
+        def run():
+            return serve.cfg4_rounds(st, draws[1:],
+                                     t0=serve.CFG4["dt_round_ns"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = serve.serve_epochs(st, a.epochs, k=a.k, m=a.m)
+        res = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     decisions = int(res.count.sum())
@@ -75,20 +100,28 @@ def main(argv=None) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us((e.time_range.start, e.time_range.end)
                     for e in kernels)
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=40)
-    os.makedirs(os.path.dirname(a.out), exist_ok=True)
-    with open(a.out, "w") as f:
+    port_us = {name: sum(e.time_range.end - e.time_range.start
+                         for e in kernels if name in e.name)
+               for name in ("ring_window", "wheel_scan")}
+    port_n = {name: sum(1 for e in kernels if name in e.name)
+              for name in port_us}
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         f.write(f"{card}\n{table}\n")
-    top = sorted(prof.key_averages(),
-                 key=lambda e: -e.self_device_time_total)[:12]
+    top = sorted(averages, key=lambda e: -e.self_device_time_total)[:12]
     print(table)
     print(json.dumps({
-        "card": card, "n": a.n, "k": a.k, "m": a.m, "epochs": a.epochs,
+        "card": card, "workload": a.workload, **shape,
         "decisions": decisions, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "kernel_launches": len(kernels),
+        "port_kernels": {name: {"launches": port_n[name],
+                                "device_ms": port_us[name] / 1e3,
+                                "share_of_busy": port_us[name] / busy}
+                         for name in port_us},
         "top_device_ms": {e.key: e.self_device_time_total / 1e3
                           for e in top}}))
     return 0

@@ -1,0 +1,72 @@
+"""Inputs for the timer-wheel scan (kernel K2) tests, made with numpy
+from a seed (no tests of its own).
+
+This module imports neither ``jax`` nor ``torch``: the card-only tests
+(``test_torch_cuda.py``) use it on a machine without JAX, and the CPU
+tests hand the same arrays to the JAX package and to the port.
+"""
+
+import numpy as np
+
+KEY_INF = (1 << 63) - 1
+
+# (name, n, nb): both calendar bucket counts, n = 1, and lane counts
+# that are not multiples of 128
+WHEEL_CASES = [
+    ("random", 1000, 256), ("entry_keys", 1000, 768),
+    ("stop_packs", 700, 256), ("key_inf", 300, 256),
+    ("all_masked", 200, 768), ("one_bucket", 333, 256),
+    ("single_lane", 1, 768), ("lanes_129", 129, 256),
+]
+
+
+def wheel_case(name: str, n: int, nb: int, seed: int = 0):
+    """``(keys int64[n], slot int32[n])`` with ``slot`` in ``[0, nb]``
+    (``nb`` masks a lane out)."""
+    rng = np.random.default_rng(seed + n + nb)
+    slot = rng.integers(0, nb + 1, n).astype(np.int32)
+    if name == "random":
+        # both signs, full range
+        keys = rng.integers(-(1 << 62), 1 << 62, n)
+    elif name == "entry_keys":
+        # the wheel build's shape: keys near now, some below it (negative
+        # after the weight-phase debt), bucketed as wheel_build does
+        now = 50_000_000_000
+        keys = now + rng.integers(-(1 << 28), 1 << 28, n)
+        keys[: n // 4] = -rng.integers(1, 1 << 40, n // 4)
+        cls = rng.integers(0, 4, n)
+        b = np.clip((keys - (now - (128 << 20))) >> 20, 0, 255)
+        slot = np.where(cls == 3, nb, cls * 256 + b).astype(np.int32)
+    elif name == "stop_packs":
+        # _wheel_stop_min's shape: class bits at 58, most packs in a few
+        # buckets of 2^52, some KEY_INF (masked)
+        cls = rng.integers(0, 3, n)
+        keys = (cls << 58) | ((1 << 57) + rng.integers(0, 1 << 30, n))
+        keys[rng.random(n) < 0.2] = KEY_INF
+        slot = np.where(keys < KEY_INF, np.clip(keys >> 52, 0, nb - 1),
+                        nb).astype(np.int32)
+    elif name == "key_inf":
+        # KEY_INF keys inside real buckets count and min as themselves
+        keys = np.full(n, KEY_INF)
+        keys[::3] = rng.integers(0, 1 << 40, len(keys[::3]))
+    elif name == "all_masked":
+        keys = rng.integers(-(1 << 40), 1 << 40, n)
+        slot[:] = nb
+    elif name == "one_bucket":
+        keys = -rng.integers(1, 1 << 62, n)
+        slot[:] = 17
+    else:
+        keys = rng.integers(-(1 << 40), 1 << 40, n)
+    return keys.astype(np.int64), slot
+
+
+def plain_wheel_scan(keys, slot, nb):
+    """A straight numpy statement of the function K2 computes."""
+    cnt = np.zeros(nb, np.int32)
+    bmin = np.full(nb, KEY_INF, np.int64)
+    live = slot < nb
+    np.add.at(cnt, slot[live], 1)
+    np.minimum.at(bmin, slot[live], keys[live])
+    occ = np.flatnonzero(cnt)
+    found = occ.size > 0
+    return cnt, bmin, (bmin[occ[0]] if found else KEY_INF), found

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Marked ``cuda``: every test skips where CUDA is unavailable.
+"""The port's CUDA kernels (K1 ring window, K2 wheel scan) against their
+plain PyTorch versions, and a cfg4 round on the card against the CPU.
+Marked ``cuda``: every test skips where CUDA is unavailable.
 
 This file imports neither ``jax`` nor the JAX package, so it also runs
 on a machine with the card and no JAX, without the repo's conftest:
@@ -13,6 +14,9 @@ import torch
 
 from dmclock_tpu_torch.engine import _ext
 from dmclock_tpu_torch.engine import fastpath as tfp
+from dmclock_tpu_torch.engine import kernels as tk
+
+from test_torch_cases import WHEEL_CASES, plain_wheel_scan, wheel_case
 
 # the ring-window shapes of tests/test_torch_ring_window.py and the
 # serve shape (N=100000, Q=320, w=32)
@@ -51,3 +55,69 @@ def test_ring_window_kernel_rejects_strided_input(cuda):
     q0 = torch.zeros((8,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         tfp.ring_window_rows(ring[:, ::2], ring[:, ::2], q0, 4)
+
+
+# the wheel-scan cases of tests/test_torch_wheel.py and the two cfg4
+# shapes: the wheel build (N=100000, nb=768) and the stop wheel
+# (N=100000, nb=256)
+K2_CASES = WHEEL_CASES + [("entry_keys", 100_000, 768),
+                          ("stop_packs", 100_000, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, n, nb", K2_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in K2_CASES])
+def test_wheel_scan_kernel_matches_plain(cuda, name, n, nb):
+    keys, slot = wheel_case(name, n, nb)
+    tkeys, tslot = torch.from_numpy(keys).to(cuda), \
+        torch.from_numpy(slot).to(cuda)
+    before = _ext.LAUNCHES["wheel_scan"]
+    got = tk.wheel_scan(tkeys, tslot, nb)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["wheel_scan"] == before + 1
+    want = tk._wheel_scan_torch(tkeys, tslot, nb)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    cnt, bmin, val, found = plain_wheel_scan(keys, slot, nb)
+    assert np.array_equal(got[0].cpu().numpy(), cnt)
+    assert np.array_equal(got[1].cpu().numpy(), bmin)
+    assert int(got[2]) == val and bool(got[3]) == found
+
+
+@pytest.mark.cuda
+def test_wheel_scan_kernel_rejects_bad_input(cuda):
+    keys = torch.zeros((64,), dtype=torch.int64, device=cuda)
+    slot = torch.zeros((64,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.wheel_scan(keys[::2], slot[::2], 8)
+    with pytest.raises(TypeError):
+        tk.wheel_scan(keys.to(torch.int32), slot, 8)
+    with pytest.raises(TypeError):
+        tk.wheel_scan(keys, slot.to(torch.int64), 8)
+
+
+@pytest.mark.cuda
+def test_wheel_round_on_the_card_equals_cpu(cuda):
+    """One cfg4 round at 512 clients: on the card (K1 and K2 launched)
+    equal to the same round on the CPU, every output and the state."""
+    from dmclock_tpu_torch import serve
+
+    st, draws = serve.cfg4_setup(512, 1, device="cpu")
+    want = serve.cfg4_rounds(st, draws)
+    before = dict(_ext.LAUNCHES)
+    got = serve.cfg4_rounds(
+        st._replace(**{f: getattr(st, f).to(cuda) for f in st._fields}),
+        draws.to(cuda))
+    torch.cuda.synchronize()
+    c = serve.CFG4
+    assert _ext.LAUNCHES["ring_window"] - before["ring_window"] \
+        == c["m"] * c["ladder_levels"]
+    assert _ext.LAUNCHES["wheel_scan"] - before["wheel_scan"] \
+        == c["m"] * (1 + c["ladder_levels"])
+    for f in ("count", "resv_count", "progress_ok", "served",
+              "level_count", "metrics"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f, a, b in zip(want.state._fields, got.state, want.state):
+        assert torch.equal(a.cpu(), b), f
+    assert int(want.count.sum()) > 0

@@ -62,3 +62,19 @@ def test_default_device_is_cuda_and_never_falls_back():
         tstate.init_state(4, 4)
     with pytest.raises(RuntimeError, match="cuda"):
         tserve.serve_only(8, 4, 4, 1, 1)
+
+
+def test_cfg4_leaves_jax_unloaded():
+    code = ("import sys\n"
+            "from dmclock_tpu_torch.serve import serve_cfg4\n"
+            "r = serve_cfg4(32, 1, device='cpu')\n"
+            "assert int(r.count.sum()) > 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tserve.serve_cfg4(8, 1)
