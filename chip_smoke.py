@@ -8,13 +8,18 @@ Phases (any failure raises and the exit code is not 0):
 2. build the port's CUDA kernels (K1, K2) from the sources in this
    checkout, with one ``nvcc`` call;
 3. hold kernel K1 (the ring window) bit for bit against its plain
-   PyTorch version at the serve and cfg4 shapes and odd shapes, and time
-   it beside its memory bound, the plain version and ``torch.gather``;
+   PyTorch version at every shape of ``RING_SHAPES`` and both main-path
+   shapes (``tests/test_torch_cases.py``), with ``q_head`` in [0, Q) and
+   in [-2Q, 2Q), and time it at the serve and cfg4 shapes beside its
+   memory bound, a device ``copy_`` of the same byte count (the card's
+   practical streaming rate), the plain version and ``torch.gather``;
 4. hold kernel K2 (the timer-wheel scan) bit for bit against its plain
    version at both cfg4 shapes (the wheel build, N=100000 and 768
    buckets, on real entry keys; the stop wheel, 256 buckets, on stop
-   packs with KEY_INF) and odd shapes, and time it beside its bound, the
-   plain version and the library calls;
+   packs with KEY_INF) and odd shapes, and through a sequence of calls
+   that shows its workspace is left clean (build, every lane masked,
+   stop wheel, build); time it beside its bound, the launch floor (a
+   one-element ``fill_``), the plain version and the library calls;
 5. exactness: at a small shape the prefix-commit epochs' decision
    stream and final state equal the port's own serial engine;
 6. the ``serve`` path: ``serve_only`` at the workload's full width
@@ -51,9 +56,6 @@ import torch
 N_SERVE, DEPTH, K_SERVE, M_SERVE, EPOCHS = 100_000, 320, 65536, 32, 3
 TIMED_EPOCHS = 5
 SERIAL_CHECK_STEPS = 512
-RW_SHAPES = [(100_000, 320, 32), (100_000, 128, 64), (700, 16, 5),
-             (2500, 128, 32), (100, 64, 64), (1000, 320, 320),
-             (333, 48, 17)]
 K1_SOURCE = "dmclock_tpu_torch/engine/csrc/ring_window.cu"
 K1_REPLACES = "dmclock_tpu/engine/fastpath.py:156"
 K2_SOURCE = "dmclock_tpu_torch/engine/csrc/wheel_scan.cu"
@@ -140,35 +142,39 @@ def phase_build(ext) -> None:
         f"{time.perf_counter() - t0:.3f} s")
 
 
-def phase_k1(fp, card: str) -> dict:
-    """K1 against its plain version; time at the serve shape."""
+def phase_k1(fp, cases, card: str) -> dict:
+    """K1 against its plain version; time at both main-path shapes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = 0
-    for n, q, w in RW_SHAPES:
+    for n, q, w in cases.RING_SHAPES + cases.RING_MAIN_SHAPES:
         arr = torch.randint(-(1 << 50), 1 << 50, (n, q), generator=gen,
                             device=dev, dtype=torch.int64)
         cost = torch.randint(1, 1 << 20, (n, q), generator=gen,
                              device=dev, dtype=torch.int64)
-        q0 = torch.randint(0, q, (n,), generator=gen, device=dev,
-                           dtype=torch.int32)
-        q0[: min(n, 3)] = q - 1                      # the wrap edge
-        ka, kc = fp.ring_window_rows(arr, cost, q0, w)
-        pa = fp._ring_window_torch(arr, q0, w)
-        pc = fp._ring_window_torch(cost, q0, w)
-        torch.cuda.synchronize()
-        err = max(int((ka - pa).abs().max()), int((kc - pc).abs().max()))
-        if ka.shape != (w, n) or not (torch.equal(ka, pa)
-                                      and torch.equal(kc, pc)):
-            raise AssertionError(f"K1 differs from its plain version at "
-                                 f"N={n} Q={q} w={w}: max err {err}")
-        max_err = max(max_err, err)
-        log(f"[k1] N={n} Q={q} w={w}: bit-identical to the plain version")
+        for lo, hi in ((0, q), (-2 * q, 2 * q)):
+            q0 = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                               dtype=torch.int32)
+            q0[: min(n, 3)] = q - 1                  # the wrap edge
+            ka, kc = fp.ring_window_rows(arr, cost, q0, w)
+            pa = fp._ring_window_torch(arr, q0, w)
+            pc = fp._ring_window_torch(cost, q0, w)
+            torch.cuda.synchronize()
+            err = max(int((ka - pa).abs().max()),
+                      int((kc - pc).abs().max()))
+            if ka.shape != (w, n) or not (torch.equal(ka, pa)
+                                          and torch.equal(kc, pc)):
+                raise AssertionError(f"K1 differs from its plain version "
+                                     f"at N={n} Q={q} w={w}, q_head in "
+                                     f"[{lo}, {hi}): max err {err}")
+            max_err = max(max_err, err)
+        log(f"[k1] N={n} Q={q} w={w}: bit-identical to the plain version "
+            f"(q_head in [0, Q) and in [-2Q, 2Q))")
 
     # time at the two main-path shapes: serve (reported in the kernel
     # table) and cfg4
     out = None
-    for n, q, w in RW_SHAPES[:2]:
+    for n, q, w in cases.RING_MAIN_SHAPES:
         arr = torch.randint(0, 1 << 40, (n, q), generator=gen, device=dev,
                             dtype=torch.int64)
         cost = torch.randint(1, 4, (n, q), generator=gen, device=dev,
@@ -178,20 +184,29 @@ def phase_k1(fp, card: str) -> dict:
         idx_t = torch.remainder(
             q0.to(torch.int64)[None, :]
             + torch.arange(w, device=dev, dtype=torch.int64)[:, None], q)
+        # the streaming yardstick: one device copy that reads and writes
+        # as many window bytes as K1 does
+        src = torch.ones((2 * n * w,), dtype=torch.int64, device=dev)
+        dst = torch.empty_like(src)
         k_ms = cuda_ms(lambda: fp.ring_window_rows(arr, cost, q0, w), 50)
+        c_ms = cuda_ms(lambda: dst.copy_(src), 50)
         p_ms = cuda_ms(lambda: (fp._ring_window_torch(arr, q0, w),
                                 fp._ring_window_torch(cost, q0, w)), 20)
         # the library yardstick: torch.gather on the transposed ring
         # views with a precomputed [w, N] index, once per ring
         l_ms = cuda_ms(lambda: (torch.gather(arr.T, 0, idx_t),
                                 torch.gather(cost.T, 0, idx_t)), 20)
+        del src, dst
         nbytes = 2 * (2 * n * w * 8) + 4 * n
         bound_ms = nbytes / MEM_RATE * 1e3
         h_ms = host_paced_ms(lambda: fp.ring_window_rows(arr, cost, q0, w),
                              50)
         log(f"[k1] N={n} Q={q} w={w} on {card}: device time per call "
-            f"(CUDA graph replay): kernel {k_ms:.6f} ms, bound "
-            f"{bound_ms:.6f} ms ({nbytes} bytes), plain {p_ms:.6f} ms, "
+            f"(CUDA graph replay): kernel {k_ms:.6f} ms = "
+            f"{k_ms / bound_ms:.3f}x its bound {bound_ms:.6f} ms "
+            f"({nbytes} bytes); copy_ of the same window bytes "
+            f"{c_ms:.6f} ms = {c_ms / bound_ms:.3f}x the bound (kernel "
+            f"{k_ms / c_ms:.3f}x the copy); plain {p_ms:.6f} ms, "
             f"torch.gather x2 {l_ms:.6f} ms; back-to-back wrapper calls "
             f"{h_ms:.6f} ms each (host-paced)")
         if out is None:
@@ -248,34 +263,52 @@ def _k2_inputs(serve, fp, kernels, gen):
     return cases
 
 
+def _k2_check(kernels, keys, slot, nb, label: str) -> int:
+    """One K2 call against its plain version, exactly; returns the max
+    abs error (0) or raises."""
+    got = kernels.wheel_scan(keys, slot, nb)
+    want = kernels._wheel_scan_torch(keys, slot, nb)
+    torch.cuda.synchronize()
+    worst = 0
+    for name, g, w in zip(("cnt", "bmin", "val", "found"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"K2 {name} has dtype/shape "
+                                 f"{g.dtype}{tuple(g.shape)}, plain "
+                                 f"{w.dtype}{tuple(w.shape)}: {label}")
+        # exact in Python ints: KEY_INF minus a negative key would wrap
+        # in int64
+        bad = (g != w).reshape(-1)
+        err = max((abs(int(a) - int(b)) for a, b in zip(
+            g.reshape(-1)[bad].tolist(), w.reshape(-1)[bad].tolist())),
+            default=0)
+        if err:
+            raise AssertionError(f"K2 {name} differs from its plain "
+                                 f"version: {label}, nb={nb}: max err "
+                                 f"{err}")
+        worst = max(worst, err)
+    log(f"[k2] {label} (N={keys.shape[0]}, nb={nb}): bit-identical to the "
+        f"plain version; occupied buckets {int((got[0] > 0).sum())}, "
+        f"found {bool(got[3])}")
+    return worst
+
+
 def phase_k2(serve, fp, kernels, card: str) -> dict:
-    """K2 against its plain version; time at both cfg4 shapes."""
+    """K2 against its plain version, then a call sequence that would
+    show a workspace left dirty; time at both cfg4 shapes."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = _k2_inputs(serve, fp, kernels, gen)
-    max_err = 0
-    for label, keys, slot, nb in cases:
-        got = kernels.wheel_scan(keys, slot, nb)
-        want = kernels._wheel_scan_torch(keys, slot, nb)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("cnt", "bmin", "val", "found"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise AssertionError(f"K2 {name} has dtype/shape "
-                                     f"{g.dtype}{tuple(g.shape)}, plain "
-                                     f"{w.dtype}{tuple(w.shape)}: {label}")
-            # exact in Python ints: KEY_INF minus a negative key would
-            # wrap in int64
-            bad = (g != w).reshape(-1)
-            err = max((abs(int(a) - int(b)) for a, b in zip(
-                g.reshape(-1)[bad].tolist(), w.reshape(-1)[bad].tolist())),
-                default=0)
-            if err:
-                raise AssertionError(f"K2 {name} differs from its plain "
-                                     f"version: {label}, nb={nb}: max err "
-                                     f"{err}")
-            max_err = max(max_err, err)
-        log(f"[k2] {label} (N={keys.shape[0]}, nb={nb}): bit-identical to "
-            f"the plain version; occupied buckets "
-            f"{int((got[0] > 0).sum())}, found {bool(got[3])}")
+    max_err = max(_k2_check(kernels, keys, slot, nb, label)
+                  for label, keys, slot, nb in cases)
+    build, stop = cases[0], cases[1]
+    masked = ("stop wheel, every lane masked", stop[1],
+              torch.full_like(stop[2], 256), 256)
+    for label, keys, slot, nb in (build, masked, stop, build):
+        max_err = max(max_err, _k2_check(kernels, keys, slot, nb,
+                                         f"sequence: {label}"))
+    one = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    floor_ms = cuda_ms(lambda: one.fill_(1), 50)
+    log(f"[k2] launch floor on {card}: a one-element fill_ takes "
+        f"{floor_ms:.6f} ms per call (CUDA graph replay)")
     out = None
     for label, keys, slot, nb in cases[:2]:
         n = keys.shape[0]
@@ -299,11 +332,12 @@ def phase_k2(serve, fp, kernels, card: str) -> dict:
         bound_ms = nbytes / MEM_RATE * 1e3
         h_ms = host_paced_ms(lambda: kernels.wheel_scan(keys, slot, nb), 50)
         log(f"[k2] {label} N={n} nb={nb} on {card}: device time per call "
-            f"(CUDA graph replay): kernel with its two fills {k_ms:.6f} "
-            f"ms, bound {bound_ms:.6f} ms ({nbytes} bytes), plain "
-            f"{p_ms:.6f} ms, library (index_add_ + scatter_reduce_ amin + "
-            f"masked min) {l_ms:.6f} ms; back-to-back wrapper calls "
-            f"{h_ms:.6f} ms each (host-paced)")
+            f"(CUDA graph replay): kernel (one launch) {k_ms:.6f} ms = "
+            f"{k_ms / bound_ms:.3f}x its bound {bound_ms:.6f} ms ({nbytes} "
+            f"bytes), {k_ms / floor_ms:.3f}x the launch floor "
+            f"{floor_ms:.6f} ms; plain {p_ms:.6f} ms, library (index_add_ "
+            f"+ scatter_reduce_ amin + masked min) {l_ms:.6f} ms; "
+            f"back-to-back wrapper calls {h_ms:.6f} ms each (host-paced)")
         # the kernel table reports the stop wheel: 24 of 27 launches
         out = dict(name="wheel_scan", route="cuda", source=K2_SOURCE,
                    replaces=K2_REPLACES, launches=None,
@@ -600,11 +634,14 @@ def main() -> int:
     from dmclock_tpu_torch import serve
     from dmclock_tpu_torch.engine import _ext, fastpath, kernels
     from dmclock_tpu_torch.obs import device as obsdev
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import test_torch_cases as cases
 
     assert (obsdev.MET_WHEEL_OCC_HWM, obsdev.MET_WHEEL_RESLOTS) == WHEEL_ROWS
     card = phase_card()
     phase_build(_ext)
-    k1 = phase_k1(fastpath, card)
+    k1 = phase_k1(fastpath, cases, card)
     k2 = phase_k2(serve, fastpath, kernels, card)
     phase_exact(serve, fastpath, kernels)
     serve_k1 = phase_serve(serve, kernels, _ext, obsdev, card)

@@ -38,9 +38,11 @@ ENTRIES = {
     #                    stream)
     "ring_window": ("ring_window_launch",
                     [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP]),
-    # wheel_scan_launch(keys, slot, cnt, bmin, val, found, n, nb, stream)
+    # wheel_scan_launch(keys, slot, ws_cnt, ws_min, cnt, bmin, val,
+    #                   found, n, nb, stream)
     "wheel_scan": ("wheel_scan_launch",
-                   [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP]),
+                   [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                    _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -15,36 +15,44 @@
 // A lane with slot outside [0, nb) -- the callers use slot == nb -- is
 // masked out.
 //
-// Design (simple and right first):
-// - Each block keeps cnt[nb] (int32) and bmin[nb] (int64) in shared
-//   memory (12*nb bytes: 9 KB at nb = 768), walks its grid-stride lanes
-//   and does shared atomicAdd / atomicMin.  Then it merges its non-empty
-//   buckets into the global cnt / bmin with global atomics.  The wrapper
-//   pre-fills those as 0 and KEY_INF.
-// - The scan for the first occupied bucket runs in the LAST block to
-//   finish, found with a ticket: every block fences its merge
-//   (__threadfence) and takes a ticket from an atomic counter; the block
-//   that draws gridDim.x - 1 sees every merge and scans.  One launch
-//   instead of a second one-block launch, and the scan reads buckets that
-//   are still in L2.  The ticket word is cnt[nb], zeroed by the wrapper
-//   with the counts, so no state survives a call.
-// - The min is SIGNED: atomicMin(long long*, long long).  Entry keys can
-//   be negative, and the unsigned overload would order them wrongly.
-// - Exactness does not depend on the order of the atomics: integer add
-//   and integer min are commutative and associative, so every run gives
-//   the plain version's result bit for bit.
-//
 // Bound: it reads N*(8 + 4) bytes (1.2 MB at N = 100,000, about 0.36 us
-// at 3.35 TB/s) and writes 12*nb + 9 bytes, so at the calendar's shapes
-// it is launch-latency bound.  Stop packs pile into a few buckets (class
-// bits at bit 58, bucket shift 52), so most lanes of a block hit the same
-// shared counters; that costs time, not correctness.  Warp-aggregated
-// atomics are the next step.
+// at 3.35 TB/s) and writes 12*nb + 9 bytes.  At the calendar's shapes
+// that is below the cost of one launch, so what a call costs is its
+// launches and its serial tail.  The design keeps both to the least:
+// - One launch per call, nothing around it.  Blocks merge into a
+//   persistent workspace (kMaxBuckets + 1 int32 counts, the last word
+//   the block ticket, and kMaxBuckets int64 minima) that is clean
+//   between calls: counts 0, minima KEY_INF, ticket 0.  The wrapper
+//   fills it once per device; every call leaves it so, since the last
+//   block resets the nb buckets it used.  So the outputs need no
+//   pre-fill, and calls on one device must be ordered (one stream).
+// - Stop packs pile into a few buckets (class bits at bit 58, bucket
+//   shift 52), so most lanes of a warp share a bucket.  The lanes are
+//   grouped by bucket with __match_any_sync; each group's lowest lane
+//   adds the group's size and, only if it lowers the bucket's shared
+//   minimum, issues one signed atomicMin of the group's minimum (taken
+//   with two 32-bit warp reductions: signed high word, then unsigned low
+//   word among the lanes that hold the least high word).  So a warp
+//   issues one shared atomic per distinct bucket, not one per lane.
+// - The serial tail is a chain of memory round trips, so each is cut to
+//   one: a lane loads its slot and key together (the key load does not
+//   wait on the slot); the block's merge atomics need no fence of their
+//   own, because thread 0 draws the block ticket with one acq_rel atomic
+//   after a barrier; the last block (the one that draws gridDim.x - 1)
+//   copies the merged buckets into the outputs and its own shared
+//   memory, resets the workspace, and finds the first occupied bucket
+//   from shared memory.
+// - The min is SIGNED: entry keys can be negative, and the unsigned
+//   overload would order them wrongly.  Integer add and min are
+//   commutative and associative, so every run gives the plain version's
+//   result bit for bit, whatever the order of the atomics.
 //
 // Plain C interface, loaded with ctypes (dmclock_tpu_torch/engine/_ext.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include <cuda/atomic>
 
 namespace {
 
@@ -56,6 +64,7 @@ constexpr int kMaxBuckets = 2048;   // 24 KB of shared memory per block
 __global__ void __launch_bounds__(kThreads)
 wheel_scan_kernel(const long long* __restrict__ keys,
                   const int32_t* __restrict__ slot, int n, int nb,
+                  int* __restrict__ ws_cnt, long long* __restrict__ ws_min,
                   int* __restrict__ cnt, long long* __restrict__ bmin,
                   long long* __restrict__ val, bool* __restrict__ found) {
   extern __shared__ long long smem[];
@@ -63,6 +72,7 @@ wheel_scan_kernel(const long long* __restrict__ keys,
   int* s_cnt = reinterpret_cast<int*>(smem + nb);
   __shared__ bool s_last;
   __shared__ int s_first[kWarps];
+  const unsigned lane = threadIdx.x % 32;
 
   for (int b = threadIdx.x; b < nb; b += blockDim.x) {
     s_min[b] = kKeyInf;
@@ -70,12 +80,33 @@ wheel_scan_kernel(const long long* __restrict__ keys,
   }
   __syncthreads();
 
+  // grid-stride over whole warps, so every lane takes part in the warp
+  // collectives; lanes past n or masked out carry the group id ~0u
   const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const unsigned s = static_cast<unsigned>(slot[i]);
-    if (s < static_cast<unsigned>(nb)) {
-      atomicAdd(&s_cnt[s], 1);
-      atomicMin(&s_min[s], keys[i]);
+  for (int base = blockIdx.x * blockDim.x + threadIdx.x - lane; base < n;
+       base += stride) {
+    const int i = base + lane;
+    unsigned s = ~0u;
+    long long k = kKeyInf;
+    if (i < n) {   // both loads issue at once: the key does not wait
+      const unsigned si = static_cast<unsigned>(__ldg(slot + i));
+      const long long ki = __ldg(keys + i);
+      if (si < static_cast<unsigned>(nb)) {
+        s = si;
+        k = ki;
+      }
+    }
+    const unsigned group = __match_any_sync(0xffffffffu, s);
+    const int hi = static_cast<int>(k >> 32);
+    const unsigned lo = static_cast<unsigned>(k);
+    const int mhi = __reduce_min_sync(group, hi);
+    const unsigned mlo = __reduce_min_sync(group, hi == mhi ? lo : ~0u);
+    if (s != ~0u && lane == static_cast<unsigned>(__ffs(group) - 1)) {
+      const long long m = static_cast<long long>(
+          (static_cast<unsigned long long>(static_cast<unsigned>(mhi))
+           << 32) | mlo);
+      atomicAdd(&s_cnt[s], __popc(group));
+      if (m < s_min[s]) atomicMin(&s_min[s], m);
     }
   }
   __syncthreads();
@@ -83,50 +114,61 @@ wheel_scan_kernel(const long long* __restrict__ keys,
   for (int b = threadIdx.x; b < nb; b += blockDim.x) {
     const int c = s_cnt[b];
     if (c != 0) {
-      atomicAdd(&cnt[b], c);
-      atomicMin(&bmin[b], s_min[b]);
+      atomicAdd(&ws_cnt[b], c);
+      atomicMin(&ws_min[b], s_min[b]);
     }
   }
-  __threadfence();
+  // the ticket: the barrier orders the block's merges before thread 0's
+  // release, and the last block's acquire (then its barrier) orders
+  // every block's merges before its reads
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned* ticket = reinterpret_cast<unsigned*>(cnt + nb);
-    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> ticket(
+        *reinterpret_cast<unsigned*>(ws_cnt + kMaxBuckets));
+    s_last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) ==
+             gridDim.x - 1;
   }
   __syncthreads();
   if (!s_last) return;
-  __threadfence();
 
-  // first occupied bucket: each thread's first hit on its strided
-  // buckets, then a block-wide min.  __ldcg reads L2, where the other
-  // blocks' atomics landed.
+  // the last block: every merge is visible.  __ldcg reads L2, where the
+  // other blocks' atomics landed.  Copy out, reset, and note each
+  // thread's first occupied bucket (its buckets ascend).
   int first = nb;
   for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    if (__ldcg(&cnt[b]) > 0) {
-      first = b;
-      break;
-    }
+    const int c = __ldcg(&ws_cnt[b]);
+    const long long m = __ldcg(&ws_min[b]);
+    cnt[b] = c;
+    bmin[b] = m;
+    s_min[b] = m;
+    ws_cnt[b] = 0;
+    ws_min[b] = kKeyInf;
+    if (c > 0 && first == nb) first = b;
   }
   first = __reduce_min_sync(0xffffffffu, first);
-  if (threadIdx.x % 32 == 0) s_first[threadIdx.x / 32] = first;
+  if (lane == 0) s_first[threadIdx.x / 32] = first;
   __syncthreads();
   if (threadIdx.x == 0) {
     int b0 = nb;
     for (int w = 0; w < kWarps; ++w) b0 = min(b0, s_first[w]);
     *found = b0 < nb;
-    *val = b0 < nb ? __ldcg(&bmin[b0]) : kKeyInf;
+    *val = b0 < nb ? s_min[b0] : kKeyInf;
+    ws_cnt[kMaxBuckets] = 0;
   }
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a bucket count outside (0, kMaxBuckets].
-// `cnt` holds nb + 1 int32 words, all 0 (word nb is the block ticket);
-// `bmin` holds nb int64 words, all KEY_INF.
+// cudaErrorInvalidValue for a bucket count outside (0, kMaxBuckets] or a
+// negative n.  `ws_cnt` (kMaxBuckets + 1 int32) and `ws_min`
+// (kMaxBuckets int64) are the clean workspace, left clean; `cnt` (nb
+// int32), `bmin` (nb int64), `val` (int64) and `found` (bool) are written
+// whole.
 extern "C" int wheel_scan_launch(const void* keys, const void* slot,
-                                 void* cnt, void* bmin, void* val,
-                                 void* found, int n, int nb, void* stream) {
+                                 void* ws_cnt, void* ws_min, void* cnt,
+                                 void* bmin, void* val, void* found, int n,
+                                 int nb, void* stream) {
   if (nb <= 0 || nb > kMaxBuckets || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 132;
@@ -139,7 +181,8 @@ extern "C" int wheel_scan_launch(const void* keys, const void* slot,
                                                   sizeof(int));
   wheel_scan_kernel<<<blocks, kThreads, shmem, (cudaStream_t)stream>>>(
       static_cast<const long long*>(keys),
-      static_cast<const int32_t*>(slot), n, nb, static_cast<int*>(cnt),
+      static_cast<const int32_t*>(slot), n, nb, static_cast<int*>(ws_cnt),
+      static_cast<long long*>(ws_min), static_cast<int*>(cnt),
       static_cast<long long*>(bmin), static_cast<long long*>(val),
       static_cast<bool*>(found));
   return static_cast<int>(cudaGetLastError());

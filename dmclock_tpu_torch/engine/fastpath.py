@@ -112,8 +112,6 @@ def ring_window_rows(q_arrival, q_cost, q0, wsize: int):
     if not (q_arrival.is_contiguous() and q_cost.is_contiguous()
             and q0.is_contiguous()):
         raise ValueError("ring_window: inputs must be contiguous")
-    if wsize > 65535:
-        raise ValueError(f"ring_window: window {wsize} > 65535 rows")
     launch = _ext.kernel("ring_window")
     out_arr = torch.empty((wsize, n), dtype=torch.int64, device=dev)
     out_cost = torch.empty((wsize, n), dtype=torch.int64, device=dev)

@@ -114,7 +114,8 @@ def _min_not_0(current, possible):
 # min -- a scatter-min of the actual keys -- IS that minimum, bit for
 # bit.  Geometry only decides how many keys share a bucket.
 
-# the kernel's shared-memory cap: 12 bytes per bucket per block
+# the kernel's cap: 12 bytes of shared memory per bucket per block, and
+# the size of its per-device workspace
 WHEEL_MAX_BUCKETS = 2048
 
 
@@ -164,6 +165,33 @@ def _wheel_scan_torch(keys, slot, nb: int):
     return cnt, bmin, val, found
 
 
+# K2's merge workspace on each CUDA device (index -> (counts, minima)):
+# WHEEL_MAX_BUCKETS + 1 int32 counts, the last word the kernel's block
+# ticket, and WHEEL_MAX_BUCKETS int64 minima.  Clean between calls (0,
+# KEY_INF, ticket 0): the kernel's last block resets what it used.
+_WHEEL_WORKSPACE: dict = {}
+
+
+def _wheel_workspace(dev: torch.device):
+    """K2's workspace on ``dev``, allocated and filled at first use.  A
+    first use under CUDA-graph capture raises: the buffer must not come
+    from a graph's private pool, which the graph may free."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    ws = _WHEEL_WORKSPACE.get(index)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("wheel_scan: the first call on a device "
+                               "must come before any CUDA-graph capture")
+        dev = torch.device("cuda", index)
+        ws = (torch.zeros((WHEEL_MAX_BUCKETS + 1,), dtype=torch.int32,
+                          device=dev),
+              torch.full((WHEEL_MAX_BUCKETS,), KEY_INF, dtype=torch.int64,
+                         device=dev))
+        _WHEEL_WORKSPACE[index] = ws
+    return ws
+
+
 def wheel_scan(keys, slot, nb: int):
     """K2's wrapper: scatter int64 ``keys[N]`` by int32 ``slot[N]`` into
     ``nb`` buckets (``slot == nb`` masks a lane out) and find the first
@@ -173,7 +201,13 @@ def wheel_scan(keys, slot, nb: int):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (building it at first use) or raises -- there is no
     fallback.  Checks dtypes, shapes, contiguity, device and
-    ``0 < nb <= WHEEL_MAX_BUCKETS``."""
+    ``0 < nb <= WHEEL_MAX_BUCKETS``.
+
+    On the card a call is one launch and nothing else: the kernel merges
+    into a per-device workspace that it leaves clean, so calls on one
+    device must be ordered on one stream, as the whole port's are.  The
+    first call on a device allocates the workspace and must not be
+    inside a CUDA-graph capture; later calls may be captured."""
     if keys.dtype != torch.int64 or slot.dtype != torch.int32:
         raise TypeError(f"wheel_scan: keys must be int64 and slot int32, "
                         f"got {keys.dtype}/{slot.dtype}")
@@ -193,21 +227,22 @@ def wheel_scan(keys, slot, nb: int):
     if not (keys.is_contiguous() and slot.is_contiguous()):
         raise ValueError("wheel_scan: inputs must be contiguous")
     launch = _ext.kernel("wheel_scan")
-    # word nb of the counts is the kernel's block ticket
-    cnt = torch.zeros((nb + 1,), dtype=torch.int32, device=dev)
-    bmin = torch.full((nb,), KEY_INF, dtype=torch.int64, device=dev)
+    ws_cnt, ws_min = _wheel_workspace(dev)
+    cnt = torch.empty((nb,), dtype=torch.int32, device=dev)
+    bmin = torch.empty((nb,), dtype=torch.int64, device=dev)
     val = torch.empty((), dtype=torch.int64, device=dev)
     found = torch.empty((), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(keys.data_ptr(), slot.data_ptr(), cnt.data_ptr(),
-                     bmin.data_ptr(), val.data_ptr(), found.data_ptr(),
-                     keys.shape[0], nb, stream)
+        err = launch(keys.data_ptr(), slot.data_ptr(), ws_cnt.data_ptr(),
+                     ws_min.data_ptr(), cnt.data_ptr(), bmin.data_ptr(),
+                     val.data_ptr(), found.data_ptr(), keys.shape[0], nb,
+                     stream)
     if err != 0:
         raise RuntimeError(f"wheel_scan kernel launch failed: CUDA error "
                            f"{err}")
     _ext.LAUNCHES["wheel_scan"] += 1
-    return cnt[:nb], bmin, val, found
+    return cnt, bmin, val, found
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Inputs for the timer-wheel scan (kernel K2) tests, made with numpy
-from a seed (no tests of its own).
+"""Shapes and inputs for the ring-window (kernel K1) and timer-wheel scan
+(kernel K2) tests, made with numpy from a seed (no tests of its own).
 
 This module imports neither ``jax`` nor ``torch``: the card-only tests
 (``test_torch_cuda.py``) use it on a machine without JAX, and the CPU
@@ -9,6 +9,33 @@ tests hand the same arrays to the JAX package and to the port.
 import numpy as np
 
 KEY_INF = (1 << 63) - 1
+
+# (n, q, w) for the ring window: tests/test_prefix.py's rotate cases,
+# Q = 320 (the serve ring, not a power of two) and Q = 48, each with
+# w < Q and w == Q; and the edges of K1's tiling (32 clients a block, 64
+# window rows a chunk): a part tile (N = 31), one past a tile (33, 97),
+# one client, w = 1, one past a chunk (65, 129), and five chunks (320)
+RING_SHAPES = [
+    (700, 16, 5), (2500, 128, 32), (100, 64, 64), (300, 320, 32),
+    (50, 320, 320), (200, 48, 7), (64, 48, 48),
+    (31, 64, 1), (33, 128, 65), (97, 256, 129), (33, 320, 320), (1, 8, 8),
+]
+
+# K1 at the two main-path shapes: serve (N=100000, Q=320, w=32) and cfg4
+# (N=100000, Q=128, w=64)
+RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64)]
+
+
+def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):
+    """``(ring int64[n, q], q_head int32[n])`` with ``q_head`` in
+    ``[lo, hi)`` (default ``[0, q)``, whose wrap edges 0 and q - 1 lead
+    the vector)."""
+    rng = np.random.default_rng(seed)
+    ring = rng.integers(-(1 << 50), 1 << 50, (n, q)).astype(np.int64)
+    q0 = rng.integers(lo, q if hi is None else hi, n).astype(np.int32)
+    if hi is None:
+        q0[:4] = [0, q - 1, q - 1, 0][:min(4, n)]
+    return ring, q0
 
 # (name, n, nb): both calendar bucket counts, n = 1, and lane counts
 # that are not multiples of 128

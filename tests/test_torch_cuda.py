@@ -16,12 +16,8 @@ from dmclock_tpu_torch.engine import _ext
 from dmclock_tpu_torch.engine import fastpath as tfp
 from dmclock_tpu_torch.engine import kernels as tk
 
-from test_torch_cases import WHEEL_CASES, plain_wheel_scan, wheel_case
-
-# the ring-window shapes of tests/test_torch_ring_window.py and the
-# serve shape (N=100000, Q=320, w=32)
-SHAPES = [(700, 16, 5), (2500, 128, 32), (100, 64, 64), (300, 320, 32),
-          (50, 320, 320), (200, 48, 7), (64, 48, 48), (100_000, 320, 32)]
+from test_torch_cases import (RING_MAIN_SHAPES, RING_SHAPES, WHEEL_CASES,
+                              plain_wheel_scan, ring_case, wheel_case)
 
 
 @pytest.fixture
@@ -31,13 +27,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n, q, w", SHAPES)
-def test_ring_window_kernel_matches_plain(cuda, n, q, w):
-    rng = np.random.default_rng(n + q + w)
-    ring = rng.integers(-(1 << 50), 1 << 50, (n, q)).astype(np.int64)
-    q0 = rng.integers(0, q, n).astype(np.int32)
-    q0[:4] = [0, q - 1, q - 1, 0][:min(4, n)]       # the wrap edges
+def _ring_window_matches_plain(cuda, n, q, w, ring, q0):
     ta, tc, tq = (torch.from_numpy(x).to(cuda)
                   for x in (ring, np.roll(ring, 1, axis=1), q0))
     before = _ext.LAUNCHES["ring_window"]
@@ -47,6 +37,21 @@ def test_ring_window_kernel_matches_plain(cuda, n, q, w):
     assert ga.shape == gc.shape == (w, n)
     assert torch.equal(ga, tfp._ring_window_torch(ta, tq, w))
     assert torch.equal(gc, tfp._ring_window_torch(tc, tq, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, q, w", RING_SHAPES + RING_MAIN_SHAPES)
+def test_ring_window_kernel_matches_plain(cuda, n, q, w):
+    _ring_window_matches_plain(cuda, n, q, w, *ring_case(n, q, n + q + w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, q, w", RING_SHAPES)
+def test_ring_window_kernel_floor_mod_of_any_head(cuda, n, q, w):
+    """``q_head`` from [-2Q, 2Q): the kernel's 32-bit floored modulo
+    equals the plain version's ``torch.remainder``."""
+    _ring_window_matches_plain(cuda, n, q, w,
+                               *ring_case(n, q, 3 * n + w, -2 * q, 2 * q))
 
 
 @pytest.mark.cuda
@@ -64,6 +69,13 @@ K2_CASES = WHEEL_CASES + [("entry_keys", 100_000, 768),
                           ("stop_packs", 100_000, 256)]
 
 
+def _assert_scan_matches_plain(got, keys, slot, nb):
+    want = tk._wheel_scan_torch(keys, slot, nb)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name, n, nb", K2_CASES,
                          ids=[f"{c[0]}-{c[1]}" for c in K2_CASES])
@@ -75,14 +87,72 @@ def test_wheel_scan_kernel_matches_plain(cuda, name, n, nb):
     got = tk.wheel_scan(tkeys, tslot, nb)
     torch.cuda.synchronize()
     assert _ext.LAUNCHES["wheel_scan"] == before + 1
-    want = tk._wheel_scan_torch(tkeys, tslot, nb)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(g, w)
+    _assert_scan_matches_plain(got, tkeys, tslot, nb)
     cnt, bmin, val, found = plain_wheel_scan(keys, slot, nb)
     assert np.array_equal(got[0].cpu().numpy(), cnt)
     assert np.array_equal(got[1].cpu().numpy(), bmin)
     assert int(got[2]) == val and bool(got[3]) == found
+
+
+@pytest.mark.cuda
+def test_wheel_scan_kernel_leaves_its_workspace_clean(cuda):
+    """Calls in sequence at both bucket counts, one with every lane
+    masked: each equals the plain version, so no call sees what the one
+    before it merged."""
+    seq = [("entry_keys", 100_000, 768), ("all_masked", 100_000, 256),
+           ("stop_packs", 100_000, 256), ("entry_keys", 100_000, 768)]
+    for k, (name, n, nb) in enumerate(seq):
+        keys, slot = (torch.from_numpy(x).to(cuda)
+                      for x in wheel_case(name, n, nb, seed=k))
+        before = _ext.LAUNCHES["wheel_scan"]
+        got = tk.wheel_scan(keys, slot, nb)
+        torch.cuda.synchronize()
+        assert _ext.LAUNCHES["wheel_scan"] == before + 1
+        _assert_scan_matches_plain(got, keys, slot, nb)
+        assert bool(got[3]) == (name != "all_masked")
+
+
+@pytest.mark.cuda
+def test_wheel_scan_kernel_replays_in_a_cuda_graph(cuda):
+    """One call captured in a CUDA graph, replayed with the inputs
+    changed in place between replays: each replay equals the plain
+    version on the inputs it read."""
+    n, nb = 1000, 256
+    keys, slot = (torch.from_numpy(x).to(cuda)
+                  for x in wheel_case("random", n, nb))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.wheel_scan(keys, slot, nb)           # workspace, build, warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tk.wheel_scan(keys, slot, nb)
+    for name in ("stop_packs", "one_bucket", "all_masked"):
+        k2, s2 = wheel_case(name, n, nb, seed=5)
+        keys.copy_(torch.from_numpy(k2))
+        slot.copy_(torch.from_numpy(s2))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_scan_matches_plain(got, keys, slot, nb)
+        cnt, bmin, val, found = plain_wheel_scan(k2, s2, nb)
+        assert np.array_equal(got[0].cpu().numpy(), cnt)
+        assert int(got[2]) == val and bool(got[3]) == found
+
+
+@pytest.mark.cuda
+def test_wheel_scan_first_call_under_capture_raises(cuda, monkeypatch):
+    """The workspace must not come from a graph's private pool: a first
+    call on a device inside a capture raises, and allocates nothing."""
+    keys, slot = (torch.from_numpy(x).to(cuda)
+                  for x in wheel_case("random", 64, 8))
+    tk.wheel_scan(keys, slot, 8)                # builds the kernel
+    monkeypatch.setattr(tk, "_WHEEL_WORKSPACE", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            tk.wheel_scan(keys, slot, 8)
+    assert tk._WHEEL_WORKSPACE == {}
 
 
 @pytest.mark.cuda

@@ -15,26 +15,14 @@ from dmclock_tpu.engine import fastpath as jfp
 from dmclock_tpu_torch.engine import _ext
 from dmclock_tpu_torch.engine import fastpath as tfp
 
+from test_torch_cases import RING_SHAPES, ring_case
 from test_torch_support import (assert_np_equal, random_state, to_jax,
                                 to_torch)
 
-# tests/test_prefix.py's rotate cases, Q = 320 (the serve ring, not a
-# power of two) and Q = 48, each with w < Q and w == Q
-SHAPES = [(700, 16, 5), (2500, 128, 32), (100, 64, 64), (300, 320, 32),
-          (50, 320, 320), (200, 48, 7), (64, 48, 48)]
 
-
-def _inputs(n, q, seed):
-    rng = np.random.default_rng(seed)
-    ring = rng.integers(-(1 << 50), 1 << 50, (n, q)).astype(np.int64)
-    q0 = rng.integers(0, q, n).astype(np.int32)
-    q0[:4] = [0, q - 1, q - 1, 0][:min(4, n)]       # the wrap edges
-    return ring, q0
-
-
-@pytest.mark.parametrize("n, q, w", SHAPES)
+@pytest.mark.parametrize("n, q, w", RING_SHAPES)
 def test_plain_window_matches_xla_rotate(n, q, w):
-    ring, q0 = _inputs(n, q, n + q + w)
+    ring, q0 = ring_case(n, q, n + q + w)
     got = tfp._ring_window_torch(torch.from_numpy(ring),
                                  torch.from_numpy(q0), w)
     want = jfp._rotate_rows_xla(jnp.asarray(ring), jnp.asarray(q0), w)
@@ -45,7 +33,7 @@ def test_plain_window_matches_xla_rotate(n, q, w):
 @pytest.mark.parametrize("n, q, w", [(700, 16, 5), (100, 64, 64),
                                      (300, 320, 32), (64, 48, 48)])
 def test_plain_window_matches_pallas_interpret(n, q, w):
-    ring, q0 = _inputs(n, q, 7 * n + w)
+    ring, q0 = ring_case(n, q, 7 * n + w)
     got = tfp._ring_window_torch(torch.from_numpy(ring),
                                  torch.from_numpy(q0), w)
     want = jfp._rotate_rows_pallas(jnp.asarray(ring), jnp.asarray(q0), w,
