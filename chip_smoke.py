@@ -8,11 +8,12 @@ Phases (any failure raises and the exit code is not 0):
 2. build the port's CUDA kernels (K1, K2) from the sources in this
    checkout, with one ``nvcc`` call;
 3. hold kernel K1 (the ring window) bit for bit against its plain
-   PyTorch version at every shape of ``RING_SHAPES`` and both main-path
-   shapes (``tests/test_torch_cases.py``), with ``q_head`` in [0, Q) and
-   in [-2Q, 2Q), and time it at the serve and cfg4 shapes beside its
-   memory bound, a device ``copy_`` of the same byte count (the card's
-   practical streaming rate), the plain version and ``torch.gather``;
+   PyTorch version at every shape of ``RING_SHAPES`` and every shape the
+   main paths give it (``RING_MAIN_SHAPES``, ``tests/test_torch_cases.py``),
+   with ``q_head`` in [0, Q) and in [-2Q, 2Q), and time it at each
+   main-path shape beside its memory bound, a device ``copy_`` of the
+   same byte count (the card's practical streaming rate), the plain
+   version and ``torch.gather``;
 4. hold kernel K2 (the timer-wheel scan) bit for bit against its plain
    version at both cfg4 shapes (the wheel build, N=100000 and 768
    buckets, on real entry keys; the stop wheel, 256 buckets, on stop
@@ -34,15 +35,44 @@ Phases (any failure raises and the exit code is not 0):
    clients, ring 128, 64 waves, m=3 batches, 64 steps, 8 levels, the
    wheel), launch counts reset just before and read just after (K1
    24 and K2 27 per round); one full-width round of the wheel equals the
-   bucketed ladder's; then rounds are timed, ingest included.
+   bucketed ladder's; then rounds are timed, ingest included;
+9. knob exactness at small shapes: radix epochs equal sort epochs;
+   ``tag_width=32`` prefix (sort and radix), chain and calendar epochs
+   (all three schemes) equal ``tag_width=64`` on a high-rate state; a
+   chain epoch on a variable-cost stream (chains fire) equals the
+   serial engine, stream and final state;
+10. the ``serve_radix`` path: the serve shape with radix selection, K1
+    once per epoch, every output and the state equal to the sort serve
+    of phase 6; then timed;
+11. the ``tag_width=32`` path on the high-rate state (rates x1000,
+    N=100,000, ring 128 preloaded 128 deep): every output equals
+    ``tag_width=64``, no fallback, the first 512 decisions equal the
+    serial engine's, both widths timed side by side; then one
+    default-rate serve epoch at ``tag_width=32``, whose carry trips: one
+    fallback, every batch from the trip on empty, the committed batches
+    equal the int64 run's and the state equals that run's after them;
+12. the ``chain`` paths (chain depth 4, m=8, k=65536), K1 once per
+    batch, the first 512 expanded decisions equal to the serial
+    engine's, the unit-length histogram, timed: on the serve state at
+    20 ms (every unit one decision long: each request costs 1), then
+    ``chain_vc`` on the same backlog with per-request costs 1..4
+    (``serve.variable_cost_state``) at 0 ms, where units of two
+    decisions occur among the checked ones;
+13. the planner view: ``calendar_stop_ladder`` at the cfg4 shape after
+    one round's ingest (8 levels) equals numpy's quantiles of the finite
+    stop packs, is nondecreasing, and its rank-1 key is the minimum.
 
-Prints the kernel table as one JSON line, then as the last line
+K1's ``launches`` in the kernel table is the sum over the paths that
+launch it (phases 6, 8, 10, 11, 12, 13), each count read right after
+that path's run.  Prints the kernel table as one JSON line, then as the
+last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when CUDA is unavailable or the package is missing.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -64,6 +94,10 @@ N_CFG4 = 100_000
 CFG4_ROUNDS = 2          # main-path rounds, launch-counted
 CFG4_TIMED = 3           # timed rounds after them
 KEY_INF = (1 << 63) - 1
+RING_HIGH = 128          # the high-rate state's ring, preloaded full
+TIMED_WIDTHS = 3         # timed epochs of each tag width
+M_CHAIN, CHAIN_DEPTH, CHAIN_NOW = 8, 4, 20_000_000
+TIMED_CHAIN = 3
 
 # device-memory rate of the H100 SXM (bytes/s, NVIDIA's data sheet),
 # for the bound of a data-movement kernel
@@ -143,7 +177,7 @@ def phase_build(ext) -> None:
 
 
 def phase_k1(fp, cases, card: str) -> dict:
-    """K1 against its plain version; time at both main-path shapes."""
+    """K1 against its plain version; time at each main-path shape."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = 0
@@ -171,8 +205,8 @@ def phase_k1(fp, cases, card: str) -> dict:
         log(f"[k1] N={n} Q={q} w={w}: bit-identical to the plain version "
             f"(q_head in [0, Q) and in [-2Q, 2Q))")
 
-    # time at the two main-path shapes: serve (reported in the kernel
-    # table) and cfg4
+    # time at each main-path shape; the kernel table reports the first,
+    # serve's
     out = None
     for n, q, w in cases.RING_MAIN_SHAPES:
         arr = torch.randint(0, 1 << 40, (n, q), generator=gen, device=dev,
@@ -392,7 +426,120 @@ def phase_exact(serve, fp, kernels) -> None:
                         final_state=ep.state)
 
 
-def phase_serve(serve, kernels, ext, obsdev, card: str) -> int:
+def _variable_cost_state(serve, kernels, n: int = 32, waves: int = 60,
+                         seed: int = 99):
+    """A variable-cost stream on the card (rho, delta and cost drawn per
+    client per wave, about 30% of clients arriving each wave): weight
+    serves whose reservation debt pulls the next head under ``now``
+    chain into constraint serves.  Returns ``(state, now)``."""
+    from dmclock_tpu_torch.core.timebase import rate_to_inv_ns
+    from dmclock_tpu_torch.engine import bridge
+
+    rng = np.random.default_rng(seed)
+    arrays = serve._fresh_arrays(n, 64)
+    c = np.arange(n)
+    arrays.update(
+        active=np.ones(n, dtype=bool), idle=np.zeros(n, dtype=bool),
+        order=c.astype(np.int64),
+        resv_inv=np.asarray([rate_to_inv_ns(1.0 + i % 3) for i in c],
+                            dtype=np.int64),
+        weight_inv=np.asarray([rate_to_inv_ns(1.0 + i % 4) for i in c],
+                              dtype=np.int64))
+    st = bridge.state_from_numpy(arrays, "cuda")
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x)).to("cuda")
+
+    t = 1_000_000_000
+    for _ in range(waves):
+        t += int(rng.integers(0, 200_000_000))
+        counts = (rng.random(n) < 0.3).astype(np.int32)
+        delta = rng.integers(1, 5, n)
+        rho = np.minimum(rng.integers(1, 5, n), delta)
+        cost = rng.integers(1, 4, n)
+        st = kernels.ingest_superwave(st, dev(counts), dev([t]), dev(cost),
+                                      dev(rho), dev(delta),
+                                      anticipation_ns=0)
+    return st, t
+
+
+def phase_exact_knobs(serve, fp, kernels) -> None:
+    """Small shapes on the card: radix == sort; tag32 == tag64 on a
+    high-rate state for every epoch engine; a chain epoch on a
+    variable-cost stream == the serial engine."""
+    st0 = serve._preloaded_state(256, 8, ring=8, device="cuda")
+    for now in (0, 20_000_000):
+        kw = dict(anticipation_ns=0, with_metrics=True)
+        a = fp.scan_prefix_epoch(st0, now, 4, 64, **kw)
+        b = fp.scan_prefix_epoch(st0, now, 4, 64, select_impl="radix", **kw)
+        _equal_tuples(b, a, f"radix vs sort epoch, now={now}")
+        ca = fp.scan_chain_epoch(st0, now, 4, 64, chain_depth=4, **kw)
+        cb = fp.scan_chain_epoch(st0, now, 4, 64, chain_depth=4,
+                                 select_impl="radix", **kw)
+        _equal_tuples(cb, ca, f"radix vs sort chain epoch, now={now}")
+    log("[knobs] 256 clients: radix prefix and chain epochs equal sort "
+        "epochs at now 0 and 20 ms (every output and the state)")
+
+    hi = serve.high_rate_state(256, 128, device="cuda")
+    now = 20_000       # every high-rate reservation tag (10 us) eligible
+    runs = {
+        "prefix sort": lambda w: fp.scan_prefix_epoch(
+            hi, now, 4, 64, anticipation_ns=0, with_metrics=True,
+            tag_width=w),
+        "prefix radix": lambda w: fp.scan_prefix_epoch(
+            hi, now, 4, 64, anticipation_ns=0, with_metrics=True,
+            tag_width=w, select_impl="radix", window_m=2),
+        "chain": lambda w: fp.scan_chain_epoch(
+            hi, now, 4, 64, chain_depth=4, anticipation_ns=0,
+            with_metrics=True, tag_width=w),
+    }
+    for impl in ("minstop", "bucketed", "wheel"):
+        runs[f"calendar {impl}"] = functools.partial(
+            lambda w, impl: fp.scan_calendar_epoch(
+                hi, now, 2, steps=8, with_metrics=True, tag_width=w,
+                calendar_impl=impl, ladder_levels=3), impl=impl)
+    for name, run in runs.items():
+        e32, e64 = run(32), run(64)
+        if int(e32.metrics[MET_REBASE_FALLBACKS]) != 0 or \
+                int(e32.count.sum()) == 0:
+            raise AssertionError(f"tag32 {name}: tripped or served nothing")
+        _equal_tuples(e32, e64, f"tag32 vs tag64 {name}")
+    log(f"[knobs] high-rate 256 clients: tag_width=32 equals 64 for "
+        f"{', '.join(runs)} (every output, metrics and the state)")
+
+    st, now = _variable_cost_state(serve, kernels)
+    m, k = 8, 16
+    ep = fp.scan_chain_epoch(st, now, m, k, chain_depth=4,
+                             anticipation_ns=0, with_metrics=True)
+    cur, slots, phases, costs = st, [], [], []
+    for i in range(m):
+        b = fp.speculate_chain_batch(cur, now, k, chain_depth=4,
+                                     anticipation_ns=0)
+        if not (torch.equal(b.slot, ep.slot[i])
+                and torch.equal(b.length.to(torch.int8), ep.length[i])):
+            raise AssertionError(f"chain epoch batch {i} differs from "
+                                 f"speculate_chain_batch")
+        s, p, c, _ = fp.expand_units(b.slot, b.cls, b.length, cur)
+        slots.append(s)
+        phases.append(p)
+        costs.append(c)
+        cur = b.state
+    total = int(ep.count.sum())
+    lens = ep.length[ep.slot >= 0].to(torch.int64)
+    dev = torch.device("cuda")
+    _serial_matches(kernels, st, now,
+                    torch.from_numpy(np.concatenate(slots)).to(dev),
+                    torch.from_numpy(np.concatenate(phases)).to(dev),
+                    torch.from_numpy(np.concatenate(costs)).to(dev),
+                    f"chain epoch, variable-cost stream, {total} decisions, "
+                    f"unit lengths {torch.bincount(lens).tolist()}",
+                    final_state=ep.state)
+
+
+def phase_serve(serve, kernels, ext, obsdev, card: str):
+    """The sort serve at full width; returns ``(K1 launches, the
+    result, the median epoch ms)``: later phases hold the radix serve
+    and the int32 carry's trip against this result."""
     ext.reset_launches()
     res = serve.serve_only(N_SERVE, DEPTH, K_SERVE, M_SERVE, EPOCHS,
                            device="cuda")
@@ -429,7 +576,7 @@ def phase_serve(serve, kernels, ext, obsdev, card: str) -> int:
                     res.phase[0][served][:steps],
                     res.cost[0][served][:steps],
                     f"full width N={N_SERVE}, first {steps} decisions")
-    del res, st0
+    del st0
 
     # timing: each epoch between CUDA events, state built beforehand
     st = serve._preloaded_state(N_SERVE, DEPTH, ring=DEPTH, device="cuda")
@@ -463,12 +610,279 @@ def phase_serve(serve, kernels, ext, obsdev, card: str) -> int:
     log(f"[serve] on {card}: N={N_SERVE} Q={DEPTH} k={K_SERVE} "
         f"m={M_SERVE}: median epoch {med:.3f} ms over {TIMED_EPOCHS}, "
         f"{rate:.1f} decisions/s")
+    return launches["ring_window"], res, med
+
+
+def _timed_epoch(run, st):
+    """One ``run(st)`` between CUDA events: ``(result, event ms, host
+    ms)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    r = run(st)
+    end.record()
+    torch.cuda.synchronize()
+    return r, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def _launch_counted(ext, run, want: dict, what: str):
+    """``run()`` with the launch counts set to 0 just before and read
+    just after; raises unless they equal ``want``."""
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    res = run()
+    torch.cuda.synchronize()
+    launches = dict(ext.LAUNCHES)
+    log(f"[{what}] kernel launches on the path: {launches}")
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, want {want}")
+    return res, launches
+
+
+def phase_serve_radix(serve, ext, obsdev, sort_res, sort_med: float,
+                      card: str) -> int:
+    """The serve shape with radix selection: K1 once per epoch, every
+    output and the state equal to the sort serve; then timed."""
+    res, launches = _launch_counted(
+        ext, lambda: serve.serve_only(N_SERVE, DEPTH, K_SERVE, M_SERVE,
+                                      EPOCHS, select_impl="radix",
+                                      device="cuda"),
+        {"ring_window": EPOCHS, "wheel_scan": 0}, "serve_radix")
+    if not bool(res.guards_ok.all()):
+        raise AssertionError("serve_radix: a rebase guard tripped")
+    _equal_tuples(res, sort_res, "serve_radix vs the sort serve")
+    total = int(res.count.sum())
+    log(f"[serve_radix] {EPOCHS} epochs: {total} decisions; slot, phase, "
+        f"cost, count, guards, metrics and the final state equal the sort "
+        f"serve's")
+    st = serve._preloaded_state(N_SERVE, DEPTH, ring=DEPTH, device="cuda")
+    st = serve.serve_epochs(st, 1, k=K_SERVE, m=M_SERVE,
+                            select_impl="radix").state      # warm
+    ms, decisions = [], []
+    for _ in range(TIMED_EPOCHS):
+        r, ev, host = _timed_epoch(
+            lambda s: serve.serve_epochs(s, 1, k=K_SERVE, m=M_SERVE,
+                                         select_impl="radix"), st)
+        st = r.state
+        ms.append(ev)
+        decisions.append(int(r.count.sum()))
+        if not bool(r.guards_ok.all()) or decisions[-1] < K_SERVE or \
+                obsdev.metrics_dict(r.metrics)["decisions_total"] \
+                != decisions[-1]:
+            raise AssertionError("serve_radix: a bad timed epoch")
+        log(f"[serve_radix] epoch: {decisions[-1]} decisions in {ev:.3f} "
+            f"ms (events), {host:.3f} ms (host clock)")
+    med = statistics.median(ms)
+    log(f"[serve_radix] on {card}: median epoch {med:.3f} ms over "
+        f"{TIMED_EPOCHS} ({med / sort_med:.3f}x the sort serve's "
+        f"{sort_med:.3f} ms), "
+        f"{sum(decisions) / (sum(ms) / 1e3):.1f} decisions/s")
+    return launches["ring_window"]
+
+
+def phase_tag32(serve, fp, kernels, ext, obsdev, sort_res,
+                card: str) -> int:
+    """``tag_width=32`` on the high-rate state equals ``tag_width=64``
+    and never trips, and the first 512 decisions equal the serial
+    engine's; both widths timed side by side; then the carry's trip on
+    the default-rate serve state falls back exactly."""
+    hi0 = serve.high_rate_state(N_SERVE, RING_HIGH, device="cuda")
+    r32, launches = _launch_counted(
+        ext, lambda: serve.serve_epochs(hi0, EPOCHS, k=K_SERVE, m=M_SERVE,
+                                        tag_width=32),
+        {"ring_window": EPOCHS, "wheel_scan": 0}, "serve tag32")
+    r64 = serve.serve_epochs(hi0, EPOCHS, k=K_SERVE, m=M_SERVE)
+    met = obsdev.metrics_dict(r32.metrics)
+    if met["rebase_fallbacks"] != 0 or not bool(r32.guards_ok.all()):
+        raise AssertionError(f"tag32 on the high-rate state tripped: "
+                             f"{met}")
+    _equal_tuples(r32, r64, "high-rate serve, tag32 vs tag64")
+    served = r64.slot[0] >= 0
+    steps = SERIAL_CHECK_STEPS
+    _serial_matches(kernels, hi0, 0, r64.slot[0][served][:steps],
+                    r64.phase[0][served][:steps],
+                    r64.cost[0][served][:steps],
+                    f"high-rate N={N_SERVE}, first {steps} decisions")
+    log(f"[tag32] high-rate N={N_SERVE} ring {RING_HIGH}: {EPOCHS} epochs, "
+        f"{int(r32.count.sum())} decisions; every output, the metrics and "
+        f"the final state equal tag_width=64; rebase_fallbacks 0")
+    del hi0
+    st = {64: r64.state, 32: r32.state}
+    ms = {64: [], 32: []}
+    for _ in range(TIMED_WIDTHS):
+        for width in (64, 32):
+            r, ev, host = _timed_epoch(
+                lambda s: serve.serve_epochs(s, 1, k=K_SERVE, m=M_SERVE,
+                                             tag_width=width), st[width])
+            st[width] = r.state
+            ms[width].append(ev)
+            if not bool(r.guards_ok.all()) or \
+                    obsdev.metrics_dict(r.metrics)["rebase_fallbacks"]:
+                raise AssertionError(f"tag{width}: a timed epoch tripped")
+            log(f"[tag32] tag_width={width} epoch: {int(r.count.sum())} "
+                f"decisions in {ev:.3f} ms (events), {host:.3f} ms (host "
+                f"clock)")
+    med = {w: statistics.median(v) for w, v in ms.items()}
+    log(f"[tag32] on {card}: high-rate median epoch tag_width=64 "
+        f"{med[64]:.3f} ms, tag_width=32 {med[32]:.3f} ms "
+        f"({med[32] / med[64]:.3f}x) over {TIMED_WIDTHS} each, alternated")
+    del st, r32, r64
+
+    # the default-rate serve state: tags advance 0.25-1 s a serve, so the
+    # carry trips inside the epoch
+    st0 = serve._preloaded_state(N_SERVE, DEPTH, ring=DEPTH, device="cuda")
+    ep = fp.scan_prefix_epoch(st0, 0, M_SERVE, K_SERVE, anticipation_ns=0,
+                              with_metrics=True, tag_width=32)
+    guards = ep.guards_ok.cpu()
+    if bool(guards.all()):
+        raise AssertionError("tag32 trip: the default-rate epoch never "
+                             "tripped")
+    g = int(torch.argmax((~guards).to(torch.int32)))
+    met = obsdev.metrics_dict(ep.metrics)
+    if met["rebase_fallbacks"] != 1:
+        raise AssertionError(f"tag32 trip: rebase_fallbacks "
+                             f"{met['rebase_fallbacks']}, want 1")
+    if bool(guards[g:].any()) or int(ep.count[g:].abs().sum()) or \
+            not bool((ep.slot[g:] == -1).all()):
+        raise AssertionError("tag32 trip: a batch after the trip "
+                             "committed or kept its guard")
+    for f in ("count", "guards_ok", "slot", "phase", "cost"):
+        a, b = getattr(ep, f)[:g], getattr(sort_res, f)[0][:g]
+        if not torch.equal(a, b):
+            raise AssertionError(f"tag32 trip: {f} of the {g} good batches "
+                                 f"differs from the int64 run")
+    if g:
+        ref = fp.scan_prefix_epoch(st0, 0, g, K_SERVE, anticipation_ns=0)
+        _equal_tuples(ep.state, ref.state, f"tag32 trip: state vs the "
+                      f"int64 run after {g} batches")
+    else:
+        _equal_tuples(ep.state, st0, "tag32 trip: state vs the input")
+    log(f"[tag32] default-rate serve state, one epoch at tag_width=32: "
+        f"the carry tripped at batch {g} of {M_SERVE}; rebase_fallbacks 1, "
+        f"batches {g}..{M_SERVE - 1} committed nothing, the {g} good "
+        f"batches ({int(ep.count.sum())} decisions) equal the int64 run's "
+        f"and the state equals that run's after {g} batches")
+    return launches["ring_window"]
+
+
+def phase_chain(serve, fp, kernels, ext, obsdev, card: str, *, tag: str,
+                st0, now: int, chains: bool) -> int:
+    """The chain engine at full width from ``st0`` at ``now``: K1 once
+    per batch, guards, both phases, the first 512 expanded decisions
+    against the serial engine, the unit-length histogram (with
+    ``chains``: units of 2 or more decisions, some among the checked
+    ones); then timed epochs."""
+    res, launches = _launch_counted(
+        ext, lambda: serve.chain_epochs(st0, 1, k=K_SERVE, m=M_CHAIN,
+                                        chain_depth=CHAIN_DEPTH,
+                                        now_ns=now),
+        {"ring_window": M_CHAIN, "wheel_scan": 0}, tag)
+    met = obsdev.metrics_dict(res.metrics)
+    total = int(res.count.sum())
+    if not bool(res.guards_ok.all()):
+        raise AssertionError(f"{tag}: a rebase guard tripped")
+    if met["decisions_total"] != total or \
+            int(res.count[0, 0]) < SERIAL_CHECK_STEPS or \
+            not met["decisions_reservation"] or not met["decisions_priority"]:
+        raise AssertionError(f"{tag}: {total} decisions, batch 0 "
+                             f"{int(res.count[0, 0])}, metrics {met}")
+    units = res.slot >= 0
+    if int(res.unit_count.sum()) != int(units.sum()) or \
+            int(res.length[units].to(torch.int64).sum()) != total:
+        raise AssertionError(f"{tag}: units and lengths disagree with "
+                             f"counts")
+    hist = torch.bincount(res.length[units].to(torch.int64)).tolist()
+    # the first units of batch 0 cover the first 512 decisions
+    lens = res.length[0, 0].to(torch.int64).cpu()
+    u = int(torch.searchsorted(torch.cumsum(lens, 0),
+                               SERIAL_CHECK_STEPS)) + 1
+    if chains and (len(hist) < 3 or int(lens[:u].max()) < 2):
+        raise AssertionError(f"{tag}: no unit of 2 or more decisions among "
+                             f"the checked ones (histogram {hist})")
+    slots, phases, costs, _ = fp.expand_units(
+        res.slot[0, 0, :u], res.cls[0, 0, :u], res.length[0, 0, :u], st0)
+    dev = torch.device("cuda")
+    steps = SERIAL_CHECK_STEPS
+    _serial_matches(kernels, st0, now,
+                    torch.from_numpy(slots[:steps]).to(dev),
+                    torch.from_numpy(phases[:steps]).to(dev),
+                    torch.from_numpy(costs[:steps]).to(dev),
+                    f"{tag}, full width N={N_SERVE}, first {steps} expanded "
+                    f"decisions ({u} units, longest "
+                    f"{int(lens[:u].max())})")
+    log(f"[{tag}] N={N_SERVE} depth {DEPTH} k={K_SERVE} m={M_CHAIN} chain "
+        f"depth {CHAIN_DEPTH} now={now}: {total} decisions in "
+        f"{int(units.sum())} units, per-batch counts {res.count[0].tolist()};"
+        f" unit-length histogram (index = length) {hist}; metrics "
+        f"{json.dumps(met)}")
+    st = res.state
+    ms, decisions = [], []
+    for _ in range(TIMED_CHAIN):
+        r, ev, host = _timed_epoch(
+            lambda s: serve.chain_epochs(s, 1, k=K_SERVE, m=M_CHAIN,
+                                         chain_depth=CHAIN_DEPTH,
+                                         now_ns=now), st)
+        st = r.state
+        ms.append(ev)
+        decisions.append(int(r.count.sum()))
+        if not bool(r.guards_ok.all()):
+            raise AssertionError(f"{tag}: a timed epoch tripped a guard")
+        log(f"[{tag}] epoch: {decisions[-1]} decisions in {ev:.3f} ms "
+            f"(events), {host:.3f} ms (host clock)")
+    rate = sum(decisions) / max(sum(ms) / 1e3, 1e-9)
+    log(f"[{tag}] on {card}: median epoch {statistics.median(ms):.3f} ms "
+        f"over {TIMED_CHAIN}, {rate:.1f} decisions/s")
+    return launches["ring_window"]
+
+
+def phase_stop_ladder(serve, fp, kernels, ext, card: str) -> int:
+    """The planner view at the cfg4 shape after one round's ingest."""
+    dev = torch.device("cuda")
+    c = serve.CFG4
+    levels = c["ladder_levels"]
+    st, draws = serve.cfg4_setup(N_CFG4, 1, device="cuda")
+    ones = torch.ones((N_CFG4,), dtype=torch.int64, device=dev)
+    wave_times = torch.arange(c["waves"], dtype=torch.int64, device=dev) \
+        * (c["dt_round_ns"] // c["waves"])
+    st = kernels.ingest_superwave(st, draws[0], wave_times, ones, ones,
+                                  ones, anticipation_ns=0)
+    now = c["dt_round_ns"]
+    (lad, stop), launches = _launch_counted(
+        ext, lambda: fp.calendar_stop_ladder(st, now, steps=c["steps"],
+                                             levels=levels),
+        {"ring_window": 1, "wheel_scan": 0}, "stop ladder")
+    stop_np = stop.cpu().numpy()
+    fin = np.sort(stop_np[stop_np < KEY_INF])
+    if fin.size == 0:
+        raise AssertionError("stop ladder: no finite stop pack")
+    ranks = [max(-(-i * fin.size // levels), 1) for i in
+             range(1, levels + 1)]
+    want = fin[[r - 1 for r in ranks]]
+    got = lad.cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"stop ladder {got.tolist()} != numpy "
+                             f"quantiles {want.tolist()}")
+    if (np.diff(got) < 0).any():
+        raise AssertionError("stop ladder: not nondecreasing")
+    kth1 = int(kernels.radix_kth_key(stop, 1))
+    if kth1 != int(fin[0]) or kth1 != int(stop.min()):
+        raise AssertionError("stop ladder: the rank-1 key is not the min")
+    ms = host_paced_ms(lambda: fp.calendar_stop_ladder(
+        st, now, steps=c["steps"], levels=levels), 3, warmup=1)
+    log(f"[ladder] cfg4 shape N={N_CFG4} steps {c['steps']} levels "
+        f"{levels} after one round's ingest: {fin.size} finite stop packs;"
+        f" the ladder equals numpy's quantiles at ranks {ranks}, is "
+        f"nondecreasing; min(stop_pk) = rank-1 key = {kth1}, B_1 = "
+        f"{int(got[0])}; {ms:.3f} ms a call on {card} (host-paced)")
     return launches["ring_window"]
 
 
 # metric rows only the wheel writes (wheel_bucket_occupancy_hwm,
 # wheel_reslots_total): left out where the wheel meets another scheme
 WHEEL_ROWS = (17, 18)
+MET_REBASE_FALLBACKS = 8
 
 
 def _equal_tuples(a, b, what: str) -> None:
@@ -639,16 +1053,39 @@ def main() -> int:
     import test_torch_cases as cases
 
     assert (obsdev.MET_WHEEL_OCC_HWM, obsdev.MET_WHEEL_RESLOTS) == WHEEL_ROWS
+    assert obsdev.MET_REBASE_FALLBACKS == MET_REBASE_FALLBACKS
     card = phase_card()
     phase_build(_ext)
     k1 = phase_k1(fastpath, cases, card)
     k2 = phase_k2(serve, fastpath, kernels, card)
     phase_exact(serve, fastpath, kernels)
-    serve_k1 = phase_serve(serve, kernels, _ext, obsdev, card)
+    phase_exact_knobs(serve, fastpath, kernels)
+    serve_k1, sort_res, sort_med = phase_serve(serve, kernels, _ext, obsdev,
+                                               card)
+    radix_k1 = phase_serve_radix(serve, _ext, obsdev, sort_res, sort_med,
+                                 card)
+    tag32_k1 = phase_tag32(serve, fastpath, kernels, _ext, obsdev,
+                           sort_res, card)
+    del sort_res
+    chain_k1 = phase_chain(
+        serve, fastpath, kernels, _ext, obsdev, card, tag="chain",
+        st0=serve._preloaded_state(N_SERVE, DEPTH, ring=DEPTH,
+                                   device="cuda"),
+        now=CHAIN_NOW, chains=False)
+    chain_vc_k1 = phase_chain(
+        serve, fastpath, kernels, _ext, obsdev, card, tag="chain_vc",
+        st0=serve.variable_cost_state(N_SERVE, DEPTH, device="cuda"),
+        now=0, chains=True)
     phase_calendar_exact(serve, fastpath, kernels)
+    ladder_k1 = phase_stop_ladder(serve, fastpath, kernels, _ext, card)
     cfg4 = phase_cfg4(serve, _ext, obsdev, card)
     # launches: each path's count, read right after that path's run
-    k1["launches"] = serve_k1 + cfg4["ring_window"]
+    k1["launches"] = (serve_k1 + radix_k1 + tag32_k1 + chain_k1
+                      + chain_vc_k1 + ladder_k1 + cfg4["ring_window"])
+    log(f"[k1] launches by path: serve {serve_k1}, serve_radix {radix_k1}, "
+        f"serve tag32 {tag32_k1}, chain {chain_k1}, chain_vc "
+        f"{chain_vc_k1}, stop ladder {ladder_k1}, cfg4 "
+        f"{cfg4['ring_window']}")
     k2["launches"] = cfg4["wheel_scan"]
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {

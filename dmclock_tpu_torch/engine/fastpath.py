@@ -1,16 +1,20 @@
 """Speculative serving: thousands of decisions per O(N) pass, on
 tensors.
 
-Counterpart of ``dmclock_tpu/engine/fastpath.py``: the flat prefix path
-(ring window, classification, serve chains, sort selection,
-``speculate_prefix_batch``, ``scan_prefix_epoch``) and the calendar
-engine (``calendar_batch``, the bucketed ladder, the timer wheel,
-``scan_calendar_epoch``).  The exactness arguments are the JAX
-module's: at a fixed ``now`` the serial engine serves the minimum of
-one unified (class, key, creation order) key space; the prefix path
-sorts the packed keys and commits the longest prefix whose served
-clients re-enter strictly after it, and the calendar path follows every
-client through its own serves and commits those below the first stop.
+Counterpart of ``dmclock_tpu/engine/fastpath.py``: the prefix path
+(ring window, classification, serve chains, sort or radix selection,
+``speculate_prefix_batch``, ``speculate_chain_batch``,
+``scan_prefix_epoch``, ``scan_chain_epoch``, ``make_prefix_runner``),
+the calendar engine (``calendar_batch``, the bucketed ladder, the timer
+wheel, ``calendar_stop_ladder``, ``scan_calendar_epoch``), the int32
+tag carry the three epoch scans share (``tag_width=32``) and the
+epoch-engine registry (``epoch_scan_fn``, ``epoch_scan_kwargs``).  The
+exactness arguments are the JAX module's: at a fixed ``now`` the
+serial engine serves the minimum of one unified (class, key, creation
+order) key space; the prefix path sorts the packed keys and commits the
+longest prefix whose served clients re-enter strictly after it, and the
+calendar path follows every client through its own serves and commits
+those below the first stop.
 
 The ring window is kernel K1 (``csrc/ring_window.cu``) and the wheel's
 bucket scan kernel K2 (``csrc/wheel_scan.cu``) on a CUDA state, and
@@ -23,15 +27,17 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..core.timebase import MAX_TAG
+from ..core.timebase import MAX_TAG, MIN_TAG
 from ..obs import device as obsdev
 from . import _ext
 from .kernels import (KEY_INF, NONE, RETURNING, Decision, _fold_prev,
-                      _make_tag, as_scalar, wheel_nearest, wheel_scan,
-                      wheel_slot)
-from .state import EngineState
+                      _make_tag, as_scalar, engine_run,
+                      radix_quantile_ladder, rebase32, restore64,
+                      wheel_nearest, wheel_scan, wheel_slot)
+from .state import TAG_I64_FIELDS, EngineState
 
 # Packed unified key: 2 class bits | 32-bit rebased tag | 28-bit
 # rebased creation order (see the JAX module for the window argument).
@@ -355,6 +361,9 @@ def _pack(cls, krel, o):
     return ((cls.to(torch.int64) << 60) | (krel << 28) | (o & _O_MASK))
 
 
+_SELECT_IMPLS = ("sort", "radix")
+
+
 class _Selection(NamedTuple):
     """Everything a caller needs to commit + emit a unified prefix."""
 
@@ -376,10 +385,11 @@ def _unified_prefix(state: EngineState, now, k: int, *,
                     chain_depth: int, anticipation_ns: int,
                     allow: bool, heads, max_count,
                     select_impl: str = "sort") -> _Selection:
-    """Classify, chain, sort, and commit the longest exact prefix."""
-    if select_impl != "sort":
-        raise NotImplementedError(
-            f"select_impl={select_impl!r} is {_LATER}; use 'sort'")
+    """Classify, chain, select (full sort or k-selection,
+    ``select_impl``), and commit the longest exact prefix."""
+    if select_impl not in _SELECT_IMPLS:
+        raise ValueError(f"select_impl {select_impl!r} not in "
+                         f"{_SELECT_IMPLS}")
     dev = state.device
     now = as_scalar(now, dev)
     if heads is None:
@@ -436,13 +446,21 @@ def _unified_prefix(state: EngineState, now, k: int, *,
                                          device=dev)])
         return a
 
-    # packed keys are unique among candidates (creation order is in
-    # them); ties exist only among KEY_INF sentinel rows, whose
-    # payloads are masked past the committed count
-    pks, perm = torch.sort(pk_dense, stable=True)
+    # the kk smallest packed keys in order.  While the guards hold they
+    # are unique among candidates (creation order is in them); ties exist
+    # only among KEY_INF sentinel rows and, past a guard trip, among
+    # wrapped orders -- lanes that every reader masks (count 0 on a trip)
+    if select_impl == "radix":
+        # k-selection without ordering the other N - kk keys (the JAX
+        # package's histogram walk; on the card torch.topk is a radix
+        # select)
+        pks, perm = torch.topk(pk_dense, kk, largest=False, sorted=True)
+    else:
+        pks, perm = torch.sort(pk_dense, stable=True)
+        pks, perm = pks[:kk], perm[:kk]
     idxs = perm.to(torch.int32)
     rpk = epk[perm]
-    costs = state.head_cost.to(torch.int32)[perm]
+    costs = state.head_cost[perm].to(torch.int32)
     if chain_depth == 1:
         lens = torch.ones((k,), dtype=torch.int32, device=dev)
     else:
@@ -563,6 +581,96 @@ def speculate_prefix_batch(state: EngineState, now, k: int, *,
 
 
 # ----------------------------------------------------------------------
+# chained batches: one sort unit = up to chain_depth decisions
+# ----------------------------------------------------------------------
+
+class ChainBatch(NamedTuple):
+    """Result of one chained prefix-commit attempt, in unit form: the
+    decision stream is ``slot[q]`` repeated ``length[q]`` times for each
+    committed unit q in order, the first serve in the unit's entry phase
+    (class >= 1: weight) and the rest constraint serves
+    (``expand_units``)."""
+
+    state: EngineState
+    count: torch.Tensor       # int32 committed DECISIONS
+    unit_count: torch.Tensor  # int32 committed sort units
+    guards_ok: torch.Tensor   # bool
+    slot: torch.Tensor        # int32[k] unit client (-1 pad)
+    cls: torch.Tensor         # int32[k] unit entry class (CLS_NONE pad)
+    length: torch.Tensor      # int32[k] unit decisions (0 pad)
+    cost_pc: torch.Tensor     # int64[N] delivered cost per client
+    margins: torch.Tensor     # int64[k] per-unit winner margin, ns
+
+
+def speculate_chain_batch(state: EngineState, now, k: int, *,
+                          chain_depth: int, anticipation_ns: int,
+                          heads=None, allow_limit_break: bool = False,
+                          select_impl: str = "sort") -> ChainBatch:
+    """One prefix-commit batch with serve chains: each sort unit serves
+    a client up to ``chain_depth`` times -- a weight serve plus the
+    constraint serves its reservation-debt reduction induces -- so
+    streams whose phase flips every few decisions commit long
+    prefixes.  ``heads`` is a ``(arr, cost)`` pair of [w, N] window rows
+    with w >= ``chain_depth`` (None: prefetch them here)."""
+    s = _unified_prefix(state, now, k, chain_depth=chain_depth,
+                        anticipation_ns=anticipation_ns,
+                        allow=allow_limit_break, heads=heads,
+                        max_count=None, select_impl=select_impl)
+    j = torch.arange(k, dtype=torch.int32, device=state.device)
+    served = j < s.count_units
+    return ChainBatch(
+        state=s.state, count=s.count, unit_count=s.count_units,
+        guards_ok=s.guards_ok,
+        slot=torch.where(served, s.idxs, -1).to(torch.int32),
+        cls=torch.where(served, s.cls_s, CLS_NONE).to(torch.int32),
+        length=torch.where(served, s.len_s, 0).to(torch.int32),
+        cost_pc=s.cost_pc, margins=s.margin_s)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def expand_units(slot, cls, length, pre_state, *,
+                 limit_break: bool = False):
+    """Host-side expansion of committed units into the flat serial
+    decision stream ``(slots, phases, costs, limit_breaks)`` (numpy),
+    for differential checks.  ``pre_state`` is the state BEFORE the
+    batch -- a port ``EngineState`` or a dict of numpy arrays
+    (``bridge.state_to_numpy``); its rings give the induced serves'
+    costs.  ``slot``/``cls``/``length`` may be any prefix of a batch's
+    units."""
+    def field(name):
+        v = pre_state[name] if isinstance(pre_state, dict) \
+            else getattr(pre_state, name)
+        return _host(v)
+
+    slot, cls, length = _host(slot), _host(cls), _host(length)
+    head_cost = field("head_cost")
+    q_head = field("q_head")
+    q_cost = field("q_cost")
+    ring = q_cost.shape[1]
+    slots, phases, costs, lbs = [], [], [], []
+    for u in range(slot.shape[0]):
+        c = int(slot[u])
+        if c < 0 or length[u] == 0:
+            continue
+        for step in range(int(length[u])):
+            slots.append(c)
+            phases.append(1 if (step == 0 and cls[u] >= CLS_WEIGHT)
+                          else 0)
+            lbs.append(bool(limit_break and step == 0
+                            and cls[u] >= CLS_LB))
+            if step == 0:
+                costs.append(int(head_cost[c]))
+            else:
+                costs.append(int(q_cost[c, (q_head[c] + step - 1)
+                                        % ring]))
+    return (np.asarray(slots, np.int32), np.asarray(phases, np.int32),
+            np.asarray(costs, np.int64), np.asarray(lbs, bool))
+
+
+# ----------------------------------------------------------------------
 # epochs
 # ----------------------------------------------------------------------
 
@@ -586,25 +694,188 @@ class PrefixEpoch(NamedTuple):
 _EPOCH_INVARIANT = ("active", "idle", "order", "resv_inv", "weight_inv",
                     "limit_inv", "prop_delta", "cur_rho", "cur_delta",
                     "q_arrival", "q_cost")
+_EPOCH_MUTABLE = tuple(f for f in EngineState._fields
+                       if f not in _EPOCH_INVARIANT)
+
+
+# ----------------------------------------------------------------------
+# int32 epoch tag carry (tag_width=32)
+#
+# The 10 int64 tag/arrival/cost fields the epochs carry
+# (state.TAG_I64_FIELDS) are held between batches as int32 offsets from
+# per-field epoch origins (kernels.rebase32).  Batches still compute in
+# int64, so decisions equal tag_width=64 whenever the window holds.  A
+# batch whose post-state no longer fits the +-2^31 ns window commits
+# NOTHING: its outputs are zeroed, the carry keeps the last good state,
+# and the rebase_fallbacks metric bumps once; every later batch of the
+# epoch is dead the same way.  The caller reruns the remaining batches
+# at tag_width=64 from the returned state, as after a sort-key guard
+# trip.  Dead batches still run (from the frozen carry, their outputs
+# zeroed on the device): the epoch never reads a flag back to the host.
+# ----------------------------------------------------------------------
+
+class _TagCarry32:
+    """The int32 tag carry shared by the three epoch scans: per-field
+    origins, narrowing, widening, the per-batch gate and the exit
+    restore (the JAX package's ``_TagCarry32``).
+
+    Origins are the centre of each field's organic (non-sentinel) span
+    at epoch entry over the LIVE lanes only (active with work queued).
+    Lanes that cannot serve this epoch are carried as zero offsets:
+    every read of their tag fields is masked by candidacy, and the exit
+    restore puts their exact entry values back, so one stale idle lane
+    with an ancient tag cannot disable the carry."""
+
+    def __init__(self, state: EngineState):
+        self.live0 = state.active & (state.depth > 0)
+
+        def organic_center(v):
+            fin = self.live0 & (v > MIN_TAG) & (v < MAX_TAG)
+            lo = torch.min(torch.where(fin, v, MAX_TAG))
+            hi = torch.max(torch.where(fin, v, MIN_TAG))
+            # both branches are computed: with no organic lane hi - lo
+            # is MIN_TAG - MAX_TAG, and that branch is discarded
+            return torch.where(lo > hi, 0, lo + (hi - lo) // 2)
+
+        self.origins = {f: organic_center(getattr(state, f))
+                        for f in TAG_I64_FIELDS}
+
+    def narrow(self, mut: dict):
+        """The int64 fields of a mutable-field dict as int32 offsets;
+        returns ``(narrowed dict, every window held)``.  Dead lanes
+        narrow as zero offsets and never affect the fit."""
+        ok = None
+        out = dict(mut)
+        for f in TAG_I64_FIELDS:
+            v = torch.where(self.live0, mut[f], self.origins[f])
+            out[f], o = rebase32(v, self.origins[f])
+            ok = o if ok is None else ok & o
+        return out, ok
+
+    def widen(self, mut32: dict) -> dict:
+        """Inverse of :meth:`narrow` for live lanes; dead lanes widen to
+        their origin (masked by every consumer, put back by
+        :meth:`restore`)."""
+        out = dict(mut32)
+        for f in TAG_I64_FIELDS:
+            out[f] = restore64(mut32[f], self.origins[f])
+        return out
+
+    def gate(self, dead, mut: dict, new_mut: dict, outs):
+        """The per-batch gate: narrow the post-batch fields; when they do
+        not fit (or an earlier batch tripped) zero the batch's outputs
+        and keep the carry.  ``outs`` is a sequence of ``(value, fill)``
+        pairs; returns ``(mut, dead, good, trip, gated values)``, all on
+        the device."""
+        new32, fit = self.narrow(new_mut)
+        good = ~dead & fit
+        trip = ~dead & ~fit
+        vals = tuple(_gated(good, v, f) for v, f in outs)
+        mut = {f: torch.where(good, new32[f], mut[f]) for f in new32}
+        return mut, dead | ~fit, good, trip, vals
+
+    def restore(self, mut32: dict, mut0_64: dict, ok0) -> dict:
+        """Exit fields: widened live lanes, the exact entry values of
+        dead lanes, and the whole entry state when it did not narrow."""
+        out = self.widen(mut32)
+        for f in out:
+            keep = (self.live0 & ok0) if f in TAG_I64_FIELDS else ok0
+            out[f] = torch.where(keep, out[f], mut0_64[f])
+        return out
+
+
+def _gated(good, v, fill):
+    """``v`` where ``good``, else ``fill``.  A Python int ``v`` is a
+    row the batch's scheme does not write (0, its own fill)."""
+    return torch.where(good, v, fill) if torch.is_tensor(v) else v
+
+
+class _EpochCarry:
+    """What an epoch carries from batch to batch: the state itself at
+    ``tag_width=64``, the narrowed mutable fields at ``tag_width=32``.
+    At 64 nothing is gated, and ``good``/``trip`` are the Python
+    constants True/False, so the int64 epochs run no extra op."""
+
+    def __init__(self, state: EngineState, tag_width: int):
+        if tag_width not in (32, 64):
+            raise ValueError(f"tag_width {tag_width} not in (32, 64)")
+        self.st = state
+        self.tc = None
+        if tag_width == 32:
+            self.invariant = {f: getattr(state, f)
+                              for f in _EPOCH_INVARIANT}
+            self.mut0 = {f: getattr(state, f) for f in _EPOCH_MUTABLE}
+            self.tc = _TagCarry32(state)
+            self.mut, self.ok0 = self.tc.narrow(self.mut0)
+            self.dead = ~self.ok0
+
+    def metrics0(self, with_metrics: bool):
+        """The epoch's starting metrics vector: zeros, plus the entry
+        misfit's ``rebase_fallbacks`` bump at ``tag_width=32`` when
+        metrics are on."""
+        met = obsdev.metrics_zero(self.st.device)
+        if self.tc is None or not with_metrics:
+            return met
+        return obsdev.metrics_combine(met, obsdev.metrics_delta(
+            device=met.device,
+            rebase_fallbacks=(~self.ok0).to(torch.int64)))
+
+    def state(self) -> EngineState:
+        """The state the next batch starts from."""
+        if self.tc is None:
+            return self.st
+        return EngineState(**self.invariant, **self.tc.widen(self.mut))
+
+    def commit(self, new_state: EngineState, outs):
+        """Take a batch's post-state; ``outs`` is a sequence of
+        ``(value, fill)`` pairs.  Returns ``(values, good, trip)``."""
+        if self.tc is None:
+            self.st = new_state
+            return tuple(v for v, _ in outs), True, False
+        new_mut = {f: getattr(new_state, f) for f in _EPOCH_MUTABLE}
+        self.mut, self.dead, good, trip, vals = self.tc.gate(
+            self.dead, self.mut, new_mut, outs)
+        return vals, good, trip
+
+    def final(self) -> EngineState:
+        if self.tc is None:
+            return self.st
+        return EngineState(**self.invariant, **self.tc.restore(
+            self.mut, self.mut0, self.ok0))
 
 
 def _batch_metrics(met, st: EngineState, *, count, resv, prop, lb,
-                   guards_ok, ladder_levels_used=0, ladder_base_decisions=0,
+                   guards_ok, rebase_fallback=False, live=True,
+                   ladder_levels_used=0, ladder_base_decisions=0,
                    ladder_fallbacks=0, wheel_occ_hwm=0, wheel_reslots=0):
     """Fold one batch's contribution into the epoch metrics vector.  A
     stall is a batch that committed nothing while work sat queued.  The
     ladder and wheel rows are 0-d tensors or ints, added as they are.
-    The ``rebase_fallbacks`` and ``wheel_pallas_fallbacks`` rows stay 0:
-    the port has no int32 tag carry yet and no kernel fallback."""
+    ``rebase_fallback`` marks an int32 tag-carry window trip;
+    ``live`` is False for the dead batches after it: their forced-zero
+    counts are no stall, their discarded state feeds no high-water mark
+    and their guards trip nothing.  Both are 0-d tensors under
+    ``tag_width=32`` and the constants False/True otherwise, which add
+    no op.  The ``wheel_pallas_fallbacks`` row stays 0: the device picks
+    the route, so there is no kernel fallback."""
     queued = torch.any(st.active & (st.depth > 0))
     stall = (count == 0) & queued
+    hwm = torch.max(st.depth)
+    trips = ~guards_ok
+    if live is not True:
+        stall = stall & live
+        hwm = torch.where(live, hwm, 0)
+        trips = trips & live
+    fallback = rebase_fallback.to(torch.int64) \
+        if torch.is_tensor(rebase_fallback) else int(rebase_fallback)
     return obsdev.metrics_combine(met, obsdev.metrics_delta(
         device=st.device,
         decisions=count.to(torch.int64), resv=resv.to(torch.int64),
         prop=prop.to(torch.int64), limit_break=lb.to(torch.int64),
         stalls=stall.to(torch.int64),
-        ring_hwm=torch.max(st.depth).to(torch.int64),
-        guard_trips=(~guards_ok).to(torch.int64),
+        ring_hwm=hwm.to(torch.int64),
+        guard_trips=trips.to(torch.int64),
+        rebase_fallbacks=fallback,
         cal_ladder_levels_used=ladder_levels_used,
         cal_ladder_base_decisions=ladder_base_decisions,
         cal_ladder_fallbacks=ladder_fallbacks,
@@ -625,61 +896,167 @@ def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
     Every batch commits its own exact prefix, so the concatenated
     per-batch prefixes are the serial decision stream at ``now``.
     Callers must check ``guards_ok``: a guard failure zeroes that
-    batch without committing.  ``window_m`` (must divide m) refreshes
-    the ring window every ``window_m`` batches; None = one m-row window.
-    ``with_metrics`` accumulates the ``obs.device`` vector; decisions
-    and state are identical either way.
+    batch without committing (rerun from the returned state through
+    ``make_prefix_runner``'s serial path).  ``window_m`` (must divide
+    m) refreshes the ring window every ``window_m`` batches; None = one
+    m-row window.  ``with_metrics`` accumulates the ``obs.device``
+    vector; decisions and state are identical either way.
 
-    ``select_impl="radix"``, ``tag_width=32`` and the telemetry
-    accumulators (``hists``, ``ledger``, ``flight``, ``slo``, ``prov``)
-    are later slices of the port and raise NotImplementedError."""
-    if select_impl != "sort":
-        raise NotImplementedError(
-            f"select_impl={select_impl!r} is {_LATER}")
-    if tag_width != 64:
-        raise NotImplementedError(f"tag_width={tag_width} is {_LATER}")
+    ``select_impl`` picks the selection backend: "sort" (one full
+    stable sort) or "radix" (a k-selection, ``torch.topk``); the
+    two give identical decision streams and states.  ``tag_width=32``
+    carries the tag fields as int32 epoch offsets between batches; a
+    window trip makes that batch and every later one commit 0 with
+    ``guards_ok`` False and bumps ``rebase_fallbacks`` once -- the same
+    caller contract as the sort-key guard.
+
+    The telemetry accumulators (``hists``, ``ledger``, ``flight``,
+    ``slo``, ``prov``) are a later slice of the port and raise
+    NotImplementedError."""
+    _refuse_telemetry(hists, ledger, flight, slo, prov)
+    w = m if window_m is None else min(int(window_m), m)
+    if not (w > 0 and m % w == 0):
+        raise ValueError("window_m must divide m")
+    dev = state.device
+    now = as_scalar(now, dev)
+    carry = _EpochCarry(state, tag_width)
+    met = carry.metrics0(with_metrics)
+    outs = []
+    for _chunk in range(m // w):
+        st = carry.state()
+        window = ring_window(st, w)
+        for j in range(w):
+            if j:
+                st = carry.state()
+            batch = speculate_prefix_batch(
+                st, now, k, anticipation_ns=anticipation_ns,
+                heads=_window_heads(st, window),
+                allow_limit_break=allow_limit_break,
+                select_impl=select_impl)
+            dec = batch.decisions
+            (count, guards, slot, phase, cost, lb), good, trip = \
+                carry.commit(batch.state, [
+                    (batch.count, 0), (batch.guards_ok, False),
+                    (dec.slot, -1), (dec.phase.to(torch.int8), 0),
+                    (dec.cost.to(torch.int32), 0),
+                    (dec.limit_break, False)])
+            outs.append((count, guards, slot, phase, cost, lb))
+            if with_metrics:
+                resv = torch.sum((slot >= 0) & (phase == 0))
+                met = _batch_metrics(
+                    met, batch.state, count=count, resv=resv,
+                    prop=count - resv, lb=torch.sum(lb),
+                    guards_ok=batch.guards_ok, rebase_fallback=trip,
+                    live=good)
+    count, guards, slot, phase, cost, lb = (torch.stack(c)
+                                            for c in zip(*outs))
+    return PrefixEpoch(state=carry.final(), count=count, guards_ok=guards,
+                       slot=slot, phase=phase, cost=cost, lb=lb,
+                       metrics=met)
+
+
+def _refuse_telemetry(hists, ledger, flight, slo, prov) -> None:
     tele = dict(hists=hists, ledger=ledger, flight=flight, slo=slo,
                 prov=prov)
     on = sorted(name for name, v in tele.items() if v is not None)
     if on:
         raise NotImplementedError(f"telemetry accumulators {on} are "
                                   f"{_LATER}")
-    w = m if window_m is None else min(int(window_m), m)
-    if not (w > 0 and m % w == 0):
-        raise ValueError("window_m must divide m")
+
+
+class ChainEpoch(NamedTuple):
+    """M chained prefix batches' output, compact for one readback."""
+
+    state: EngineState
+    count: torch.Tensor       # int32[M] decisions committed per batch
+    unit_count: torch.Tensor  # int32[M]
+    guards_ok: torch.Tensor   # bool[M]
+    slot: torch.Tensor        # int32[M, k] unit clients (-1 pad)
+    cls: torch.Tensor         # int8[M, k]  unit entry class
+    length: torch.Tensor      # int8[M, k]  unit decisions
+    metrics: torch.Tensor     # int64[NUM_METRICS] (zeros unless
+    #                           with_metrics)
+
+
+def scan_chain_epoch(state: EngineState, now, m: int, k: int, *,
+                     chain_depth: int, anticipation_ns: int,
+                     allow_limit_break: bool = False,
+                     with_metrics: bool = False,
+                     select_impl: str = "sort",
+                     tag_width: int = 64,
+                     hists=None, ledger=None, flight=None, slo=None,
+                     prov=None) -> ChainEpoch:
+    """Run m chained prefix batches.  Each batch prefetches its own
+    ``chain_depth``-row ring window (one K1 launch per batch on the
+    card).  ``select_impl``, ``tag_width`` and ``with_metrics`` as in
+    :func:`scan_prefix_epoch`; the telemetry accumulators raise
+    NotImplementedError.  The JAX package's ``use_pallas`` switch has
+    no counterpart: the device picks K1's route."""
+    _refuse_telemetry(hists, ledger, flight, slo, prov)
+    if not 0 < chain_depth <= state.ring_capacity:
+        raise ValueError(f"chain_depth {chain_depth} not in (0, ring "
+                         f"capacity {state.ring_capacity}]")
     dev = state.device
     now = as_scalar(now, dev)
-    met = obsdev.metrics_zero(dev)
-    counts, guards, slots, phases, costs, lbs = [], [], [], [], [], []
-    st = state
-    for _chunk in range(m // w):
-        window = ring_window(st, w)
-        for _ in range(w):
-            batch = speculate_prefix_batch(
-                st, now, k, anticipation_ns=anticipation_ns,
-                heads=_window_heads(st, window),
-                allow_limit_break=allow_limit_break)
-            st = batch.state
-            dec = batch.decisions
-            phase = dec.phase.to(torch.int8)
-            counts.append(batch.count)
-            guards.append(batch.guards_ok)
-            slots.append(dec.slot)
-            phases.append(phase)
-            costs.append(dec.cost.to(torch.int32))
-            lbs.append(dec.limit_break)
-            if with_metrics:
-                resv = torch.sum((dec.slot >= 0) & (phase == 0))
-                met = _batch_metrics(
-                    met, st, count=batch.count, resv=resv,
-                    prop=batch.count - resv,
-                    lb=torch.sum(dec.limit_break),
-                    guards_ok=batch.guards_ok)
-    return PrefixEpoch(state=st, count=torch.stack(counts),
-                       guards_ok=torch.stack(guards),
-                       slot=torch.stack(slots), phase=torch.stack(phases),
-                       cost=torch.stack(costs), lb=torch.stack(lbs),
-                       metrics=met)
+    carry = _EpochCarry(state, tag_width)
+    met = carry.metrics0(with_metrics)
+    outs = []
+    for _ in range(m):
+        st = carry.state()
+        win = ring_window(st, chain_depth)
+        batch = speculate_chain_batch(
+            st, now, k, chain_depth=chain_depth,
+            anticipation_ns=anticipation_ns, heads=(win.arr, win.cost),
+            allow_limit_break=allow_limit_break, select_impl=select_impl)
+        vals, good, trip = carry.commit(batch.state, [
+            (batch.count, 0), (batch.unit_count, 0),
+            (batch.guards_ok, False), (batch.slot, -1),
+            (batch.cls.to(torch.int8), CLS_NONE),
+            (batch.length.to(torch.int8), 0)])
+        outs.append(vals)
+        if with_metrics:
+            count, _u, _g, slot, cls, _len = vals
+            units = slot >= 0
+            # a unit's entry serve is weight-phase iff class >= 1; its
+            # induced serves are all constraint-phase
+            prop = torch.sum(units & (cls >= CLS_WEIGHT), dtype=torch.int64)
+            met = _batch_metrics(
+                met, batch.state, count=count,
+                resv=count.to(torch.int64) - prop, prop=prop,
+                lb=torch.sum(units & (cls >= CLS_LB)),
+                guards_ok=batch.guards_ok, rebase_fallback=trip,
+                live=good)
+    count, units, guards, slot, cls, length = (torch.stack(c)
+                                               for c in zip(*outs))
+    return ChainEpoch(state=carry.final(), count=count, unit_count=units,
+                      guards_ok=guards, slot=slot, cls=cls, length=length,
+                      metrics=met)
+
+
+def make_prefix_runner(k: int, *, anticipation_ns: int = 0,
+                       allow_limit_break: bool = False,
+                       select_impl: str = "sort"):
+    """Host-orchestrated prefix runner: ``(state, now) -> (state,
+    decisions, n_committed)``.  One host read of ``guards_ok`` per call
+    is its contract: when the global rebase guards fail
+    (creation-order spread or a served cost past 2^31) the batch is
+    rerun by the serial engine (``engine_run``, k steps at ``now``);
+    a zero count with the guards intact means nothing is eligible at
+    ``now``.  Both paths run on the state's device: the serial path is
+    the JAX package's semantics, not a device fallback."""
+
+    def run(state: EngineState, now):
+        batch = speculate_prefix_batch(
+            state, now, k, anticipation_ns=anticipation_ns,
+            allow_limit_break=allow_limit_break, select_impl=select_impl)
+        if not bool(batch.guards_ok):
+            st, _, decs = engine_run(
+                state, now, k, allow_limit_break=allow_limit_break,
+                anticipation_ns=anticipation_ns, advance_now=False)
+            return st, decs, int((decs.type == RETURNING).sum())
+        return batch.state, batch.decisions, int(batch.count)
+
+    return run
 
 
 # ----------------------------------------------------------------------
@@ -1227,17 +1604,15 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
     there is no switch and no fallback, so the ``pallas_fallbacks``
     metric row, kept for parity with the JAX package, is always 0.
 
-    ``tag_width=32`` and the telemetry accumulators (``hists``,
-    ``ledger``, ``flight``, ``slo``, ``prov``) are later slices of the
-    port and raise NotImplementedError."""
-    if tag_width != 64:
-        raise NotImplementedError(f"tag_width={tag_width} is {_LATER}")
-    tele = dict(hists=hists, ledger=ledger, flight=flight, slo=slo,
-                prov=prov)
-    on = sorted(name for name, v in tele.items() if v is not None)
-    if on:
-        raise NotImplementedError(f"telemetry accumulators {on} are "
-                                  f"{_LATER}")
+    ``tag_width=32`` carries the tag fields as int32 epoch offsets, as
+    in :func:`scan_prefix_epoch`: a window trip reports
+    ``progress_ok=False`` and zero counts for that batch and every later
+    one, and the ladder and wheel rows of dead batches are 0.
+
+    The telemetry accumulators (``hists``, ``ledger``, ``flight``,
+    ``slo``, ``prov``) are a later slice of the port and raise
+    NotImplementedError."""
+    _refuse_telemetry(hists, ledger, flight, slo, prov)
     if calendar_impl not in _CAL_IMPLS:
         raise ValueError(f"calendar_impl {calendar_impl!r} not in "
                          f"{_CAL_IMPLS}")
@@ -1245,12 +1620,13 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
     bucketed = calendar_impl == "bucketed" or wheel
     dev = state.device
     now = as_scalar(now, dev)
-    met = obsdev.metrics_zero(dev)
+    carry = _EpochCarry(state, tag_width)
+    met = carry.metrics0(with_metrics)
     served_acc = torch.zeros((state.capacity,), dtype=torch.int32,
                              device=dev)
     counts, resvs, oks, lvls = [], [], [], []
-    st = state
     for _ in range(m):
+        st = carry.state()
         w_reslots = w_hwm = 0
         if bucketed:
             lad, wstats = _calendar_ladder(
@@ -1277,13 +1653,23 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
             levels_used = (count > 0).to(torch.int64)
             ladder_fb = 0
             base_decs = count.to(torch.int64)
+        lb_total = torch.sum(lb) if with_metrics else 0
+        (count, resv_count, progress, served, lb_total, lvl_count,
+         levels_used, ladder_fb, base_decs, w_reslots, w_hwm), good, trip = \
+            carry.commit(batch_state, [
+                (count, 0), (resv_count, 0), (progress, False),
+                (served, 0), (lb_total, 0), (lvl_count, 0),
+                (levels_used, 0), (ladder_fb, 0), (base_decs, 0),
+                (w_reslots, 0), (w_hwm, 0)])
         if with_metrics:
             # a batch with candidates that cannot make progress is the
-            # guard-trip analog (serial fallback)
+            # guard-trip analog (serial fallback); a dead batch's
+            # progress is False and its live gate clears the trip
             met = _batch_metrics(
                 met, batch_state, count=count, resv=resv_count,
-                prop=count - resv_count, lb=torch.sum(lb),
-                guards_ok=progress, ladder_levels_used=levels_used,
+                prop=count - resv_count, lb=lb_total,
+                guards_ok=progress, rebase_fallback=trip, live=good,
+                ladder_levels_used=levels_used,
                 ladder_base_decisions=base_decs,
                 ladder_fallbacks=ladder_fb, wheel_occ_hwm=w_hwm,
                 wheel_reslots=w_reslots)
@@ -1292,8 +1678,93 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
         oks.append(progress)
         lvls.append(lvl_count)
         served_acc = served_acc + served
-        st = batch_state
-    return CalendarEpoch(state=st, count=torch.stack(counts),
+    return CalendarEpoch(state=carry.final(), count=torch.stack(counts),
                          resv_count=torch.stack(resvs),
                          progress_ok=torch.stack(oks), served=served_acc,
                          metrics=met, level_count=torch.stack(lvls))
+
+
+def calendar_stop_ladder(state: EngineState, now, *, steps: int,
+                         levels: int, anticipation_ns: int = 0,
+                         allow_limit_break: bool = False, heads=None):
+    """The planner view of the ladder: one measure pass, then
+    the stop-key CDF quantiles B_1 <= ... <= B_levels of the finite stop
+    packs (``kernels.radix_quantile_ladder``).  B_1 is exactly the
+    minstop boundary; the higher quantiles predict where successive
+    refreshed-budget levels land on a skewed stop distribution (a
+    diagnostic: the commit path re-measures per level).  ``heads`` is a
+    ``(arr, cost)`` pair of [w, N] window rows with w >= ``steps`` (None:
+    one K1 prefetch here).  Returns ``(ladder int64[levels], stop_pk
+    int64[N])``."""
+    _check_steps(state, steps)
+    now = as_scalar(now, state.device)
+    if heads is None:
+        win = ring_window(state, steps)
+        heads = (win.arr, win.cost)
+    arr_rows, cost_rows = _heads_rows(heads, steps)
+    cls0, key0 = _classify(state, now, allow_limit_break)
+
+    def class_min(c):
+        return torch.min(torch.where(cls0 == c, key0, KEY_INF))
+
+    stop_pk = _calendar_pass(state, now, arr_rows, cost_rows,
+                             allow_limit_break, anticipation_ns,
+                             class_min(CLS_RESV), class_min(CLS_WEIGHT),
+                             class_min(CLS_LB), None)
+    return radix_quantile_ladder(stop_pk, levels), stop_pk
+
+
+# ----------------------------------------------------------------------
+# epoch-engine dispatch: the one registry + kwargs normalization
+# ----------------------------------------------------------------------
+#
+# Every later plane (the queue, the stream chunk, the guarded runner,
+# the supervisor, the mesh) resolves "engine name -> scan function + the
+# kwargs that engine takes" here, so a knob cannot reach one loop and
+# miss another.
+
+EPOCH_ENGINES = ("prefix", "chain", "calendar")
+
+# Decision-stream fields by layout, for a client-id-space digest: SLOT
+# fields hold client slot indices (-1 pads); CAPACITY fields are
+# per-slot arrays over the whole [capacity] axis.
+DECISION_SLOT_FIELDS = {"prefix": ("slot",), "chain": ("slot",),
+                        "calendar": ()}
+DECISION_CAPACITY_FIELDS = {"prefix": (), "chain": (),
+                            "calendar": ("served",)}
+
+
+def epoch_scan_fn(engine: str):
+    """The epoch-scan function of ``engine`` (KeyError on an unknown
+    name)."""
+    return {"prefix": scan_prefix_epoch, "chain": scan_chain_epoch,
+            "calendar": scan_calendar_epoch}[engine]
+
+
+def epoch_scan_kwargs(engine: str, *, k: int = 0, chain_depth: int = 4,
+                      select_impl: str = "sort", tag_width: int = 64,
+                      window_m: int | None = None,
+                      calendar_impl: str = "minstop",
+                      ladder_levels: int = 8,
+                      anticipation_ns: int = 0,
+                      allow_limit_break: bool = False,
+                      with_metrics: bool = False) -> dict:
+    """The shared knob set as the kwargs ``engine``'s scan takes: prefix
+    reads k/select_impl/window_m, chain reads k/select_impl/chain_depth,
+    and the calendar engine has no [k] cap -- k is its per-client
+    serve-step budget (``steps``).  The JAX package's ``wheel_kernel``
+    knob has no counterpart: the device picks K2's route."""
+    if engine not in EPOCH_ENGINES:
+        raise ValueError(f"unknown epoch engine {engine!r} "
+                         f"(one of {EPOCH_ENGINES})")
+    kw = dict(anticipation_ns=anticipation_ns,
+              allow_limit_break=allow_limit_break,
+              with_metrics=with_metrics, tag_width=tag_width)
+    if engine == "prefix":
+        kw.update(k=k, select_impl=select_impl, window_m=window_m)
+    elif engine == "chain":
+        kw.update(k=k, select_impl=select_impl, chain_depth=chain_depth)
+    else:
+        kw.update(steps=max(k, 1), calendar_impl=calendar_impl,
+                  ladder_levels=ladder_levels)
+    return kw

@@ -12,6 +12,10 @@ Counterpart of ``dmclock_tpu/engine/kernels.py`` (tag algebra and
                     lexicographic argmins over (tag, creation order).
 - ``engine_run``  = ``steps`` decisions; the JAX ``lax.scan`` is a
                     Python loop here.
+- ``rebase32``/``restore64``: the int32 epoch tag rebase of the
+  ``tag_width=32`` carry;
+- ``radix_kth_key``/``radix_quantile_ladder``: exact order statistics
+  of an int64 key vector (one sort and one gather);
 - the timer-wheel primitives (``wheel_slot``, ``wheel_scatter``,
   ``wheel_nearest``) and ``wheel_scan``, the wrapper of kernel K2
   (``csrc/wheel_scan.cu``);
@@ -100,6 +104,79 @@ def _min_not_0(current, possible):
     """min where 0 means "no time" (reference :1192-1195)."""
     return torch.where(possible == 0, current,
                        torch.minimum(current, possible))
+
+
+# ----------------------------------------------------------------------
+# int32 epoch tag rebase
+# ----------------------------------------------------------------------
+#
+# Within one epoch the organic values of each tag field move a few ms
+# of virtual time, so they fit an int32 offset from a per-field origin.
+# Sentinels (MAX_TAG/MIN_TAG) map to reserved int32 codes; an organic
+# value outside the window fails the check and the conversion must be
+# discarded.
+
+I32_MAX_TAG = (1 << 31) - 1     # reserved code for MAX_TAG
+I32_MIN_TAG = -(1 << 31)        # reserved code for MIN_TAG
+# organic window: strictly inside the reserved codes, with a margin so
+# clamped garbage never aliases a sentinel
+_I32_WINDOW = (1 << 31) - 8
+
+
+def rebase32(vals, origin):
+    """Rebase int64 tags to int32 around ``origin`` (a 0-d tensor or an
+    int).  Returns ``(vals32, ok)`` with ``ok`` a 0-d bool tensor, False
+    when any organic value lies outside +-(2^31 - 8) of ``origin``."""
+    is_max = vals == MAX_TAG
+    is_min = vals == MIN_TAG
+    rel = vals - origin
+    in_win = (rel > -_I32_WINDOW) & (rel < _I32_WINDOW)
+    ok = torch.all(is_max | is_min | in_win)
+    v32 = torch.where(is_max, I32_MAX_TAG,
+                      torch.where(is_min, I32_MIN_TAG,
+                                  torch.clamp(rel, -_I32_WINDOW,
+                                              _I32_WINDOW)))
+    return v32.to(torch.int32), ok
+
+
+def restore64(vals32, origin):
+    """Exact inverse of :func:`rebase32` for in-window conversions."""
+    v = vals32.to(torch.int64)
+    return torch.where(vals32 == I32_MAX_TAG, MAX_TAG,
+                       torch.where(vals32 == I32_MIN_TAG, MIN_TAG,
+                                   v + origin))
+
+
+# ----------------------------------------------------------------------
+# order statistics of a key vector
+# ----------------------------------------------------------------------
+#
+# The JAX package finds the kk-th smallest int64 key without a sort (16
+# rounds of 4-bit dense histograms, masked reductions only).  Here one
+# sort (a radix sort on the card) and one gather give the same exact
+# values, every rank at once, in two calls instead of about a hundred
+# small ones; the ranks stay on the device.
+
+
+def radix_kth_key(pk, kk):
+    """Exact value of the ``kk``-th smallest element of the int64 vector
+    ``pk`` (1-indexed, duplicates counted).  ``kk`` is an int or an
+    integer tensor of any shape, one rank per element; ranks outside
+    [1, N] clamp to it.  Returns int64 of ``kk``'s shape."""
+    ranks = torch.as_tensor(kk, device=pk.device).to(torch.int64)
+    return torch.sort(pk).values[torch.clamp(ranks - 1, 0,
+                                             pk.shape[0] - 1)]
+
+
+def radix_quantile_ladder(pk, levels: int):
+    """CDF quantile ladder of the finite entries of ``pk``: boundary i
+    (1-indexed) is the ``ceil(i * C / levels)``-th smallest key, C the
+    count of entries below KEY_INF.  Returns a nondecreasing
+    int64[levels] (all KEY_INF when nothing is finite)."""
+    fin = torch.sum(pk < KEY_INF, dtype=torch.int32)
+    lv = torch.arange(1, levels + 1, dtype=torch.int32, device=pk.device)
+    ranks = torch.clamp((lv * fin + levels - 1) // levels, min=1)
+    return radix_kth_key(pk, ranks)
 
 
 # ----------------------------------------------------------------------
@@ -424,26 +501,55 @@ def engine_step(state: EngineState, now, *, allow_limit_break: bool,
     return state, decision
 
 
+def _tag_horizon(st: EngineState, t):
+    """The earliest reservation or non-ready limit tag strictly past
+    ``t`` among the queued heads (TIME_MAX when there is none)."""
+    has_req = st.active & (st.depth > 0)
+    hr = torch.min(torch.where(has_req & (st.head_resv > t),
+                               st.head_resv, TIME_MAX))
+    nonready = has_req & ~st.head_ready & (st.head_limit > t)
+    hl = torch.min(torch.where(nonready, st.head_limit, TIME_MAX))
+    return torch.minimum(hr, hl)
+
+
 def engine_run(state: EngineState, now, steps: int, *,
                allow_limit_break: bool, anticipation_ns: int,
-               advance_now: bool = False, with_metrics: bool = False):
+               advance_now: bool = False, with_horizon: bool = False,
+               with_metrics: bool = False):
     """``steps`` scheduling decisions.
 
     With a fixed ``now`` this equals ``steps`` successive pulls at the
     same instant.  With ``advance_now`` the virtual clock jumps to each
     FUTURE's wake-up time (an infinitely fast server).  Returns
     ``(state, now, decisions)`` with ``decisions`` a ``Decision`` of
-    ``[steps]`` tensors, plus the ``obs.device`` metrics vector when
-    ``with_metrics`` (which touches nothing else: the decision stream
-    and state are identical either way)."""
+    ``[steps]`` tensors.
+
+    ``with_horizon`` appends the earliest reservation or non-ready
+    limit tag strictly past ``now`` in any intermediate state of the run
+    (a 0-d int64 tensor): decisions depend on ``now`` only through the
+    tests ``resv <= now`` and ``limit <= now``, so pulls at any t in
+    [now, horizon) would make this same sequence.  ``with_metrics``
+    appends the ``obs.device`` metrics vector.  Neither touches the
+    decision stream or the state."""
     dev = state.device
     t = as_scalar(now, dev)
     met = obsdev.metrics_zero(dev)
+    h = _tag_horizon(state, t) if with_horizon else None
     decs = []
     for _ in range(steps):
         state, dec = engine_step(state, t,
                                  allow_limit_break=allow_limit_break,
                                  anticipation_ns=anticipation_ns)
+        if with_horizon:
+            # the served client's fresh head tags are the only tags not
+            # in the previous state; fold them in (a 0-d gather index)
+            w = torch.clamp(dec.slot, min=0).to(torch.int64)
+            nr = _at(state.head_resv, w)
+            nl = _at(state.head_limit, w)
+            served = dec.slot >= 0
+            h = torch.where(served & (nr > t), torch.minimum(h, nr), h)
+            h = torch.where(served & ~_at(state.head_ready, w) & (nl > t),
+                            torch.minimum(h, nl), h)
         if with_metrics:
             served1 = (dec.type == RETURNING).to(torch.int64)
             is_resv = served1 * (dec.phase == 0)
@@ -464,6 +570,8 @@ def engine_run(state: EngineState, now, steps: int, *,
               (torch.int32, torch.int32, torch.int32, torch.int64,
                torch.int64, torch.bool)))
     out = (state, t, decisions)
+    if with_horizon:
+        out = out + (h,)
     if with_metrics:
         out = out + (met,)
     return out

@@ -69,7 +69,7 @@ class EngineState(NamedTuple):
 
 
 # The int64 per-client fields the epoch scans mutate batch to batch
-# (the fields a ``tag_width=32`` carry would narrow).
+# (the fields the ``tag_width=32`` carry narrows to int32 offsets).
 TAG_I64_FIELDS = (
     "head_resv", "head_prop", "head_limit", "head_arrival",
     "head_cost", "head_rho",

@@ -1,12 +1,21 @@
-"""The serving entry points: the ``serve`` and ``cfg4`` workloads.
+"""The serving entry points: the ``serve``, ``chain`` and ``cfg4``
+workloads.
 
 ``serve_only`` builds a preloaded steady-state backlog (every client
 queued ``depth`` deep, weights 1..4, a reservation of 100 ops/s, no
 limit) and runs prefix-commit epochs over it at ``now = 0`` -- the
 shape of the JAX package's ``bench.py`` ``serve`` workload
 (``bench_serve_only``): 100,000 clients, a 320-slot ring, m=32 batches
-of up to k=65536 decisions per epoch, sorted selection, int64 tags,
-metrics on.
+of up to k=65536 decisions per epoch, metrics on, with its knobs:
+``select_impl`` ("sort" or "radix"), ``tag_width`` (64 or 32) and
+``window_m``.  ``high_rate_state`` is the same backlog at 1000x the
+rates, the shape on which the int32 tag carry never trips.
+
+``serve_chain`` runs the chain engine (``scan_chain_epoch``) on the same
+backlog at ``now = 20 ms``, where every reservation tag is eligible; its
+units are one decision long there, since every request costs the same.
+``variable_cost_state`` is the backlog with per-request costs, on which
+``chain_epochs`` commits longer units.
 
 ``serve_cfg4`` runs the ``cfg4`` closed loop (``bench.py`` cfg4 mode,
 ``bench_sustained``): 100,000 clients with Zipf weights and a
@@ -22,6 +31,8 @@ bench's starting values.
 Run it (on the card; ``--device cpu`` for a small CPU run)::
 
     python -m dmclock_tpu_torch.serve --n 100000 --epochs 3
+    python -m dmclock_tpu_torch.serve --select-impl radix --tag-width 32
+    python -m dmclock_tpu_torch.serve --workload chain --epochs 1
     python -m dmclock_tpu_torch.serve --workload cfg4 --rounds 3
     python -m dmclock_tpu_torch.serve --workload cfg4 --n 256 --device cpu
 """
@@ -39,7 +50,7 @@ from .core.timebase import MAX_TAG, rate_to_inv_ns
 from .device import DEFAULT_DEVICE, resolve_device
 from .engine.bridge import state_from_numpy
 from .engine.fastpath import (CalendarEpoch, scan_calendar_epoch,
-                              scan_prefix_epoch)
+                              scan_chain_epoch, scan_prefix_epoch)
 from .engine.kernels import as_scalar, ingest_superwave
 from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS
 from .obs import device as obsdev
@@ -104,15 +115,56 @@ class ServeResult(NamedTuple):
     metrics: torch.Tensor   # int64[NUM_METRICS], merged over epochs
 
 
+def high_rate_state(n: int, ring: int = 128, *,
+                    device: str | torch.device = DEFAULT_DEVICE
+                    ) -> EngineState:
+    """The preloaded backlog, ``ring`` deep in a ``ring``-slot ring, with
+    every client's rates x1000 (weights 1000..4000 ops/s, reservation
+    100,000 ops/s): each serve advances a tag by about 1e6 ns, so a
+    whole serve epoch's drift fits the int32 carry's window and
+    ``tag_width=32`` never trips.  The port's copy of the JAX package's
+    ``profile_fastpath._high_rate_state``, which preloads 128 deep (the
+    same state at its ring of 128).  At the default rates a tag moves
+    0.25-1 s a serve and the carry trips inside the first epoch."""
+    st = _preloaded_state(n, ring, ring=ring, device=device)
+    return st._replace(resv_inv=st.resv_inv // 1000,
+                       weight_inv=st.weight_inv // 1000,
+                       head_resv=st.head_resv // 1000,
+                       head_prop=st.head_prop // 1000)
+
+
+def variable_cost_state(n: int, depth: int, seed: int = 5, *,
+                        device: str | torch.device = DEFAULT_DEVICE
+                        ) -> EngineState:
+    """The preloaded backlog (``depth`` deep in a ``depth``-slot ring)
+    with every request's cost drawn from 1..4
+    (``numpy.random.default_rng(seed)``), the head tags as in the
+    uniform backlog.  A weight serve pays its reservation debt with the
+    served request's cost and tags the next request with that one's, so
+    where the next cost is lower the reservation tag falls to ``now`` or
+    below and the chain engine serves the client again in the same unit:
+    at ``now = 0`` units of length 2 occur from the first batch."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1, 5, n, dtype=np.int64)
+    ring = rng.integers(1, 5, (n, depth), dtype=np.int64)
+    st = _preloaded_state(n, depth, ring=depth, device=device)
+    return st._replace(head_cost=torch.from_numpy(head).to(st.device),
+                       q_cost=torch.from_numpy(ring).to(st.device))
+
+
 def serve_epochs(state: EngineState, epochs: int, *, k: int = 65536,
-                 m: int = 32) -> ServeResult:
-    """Run ``epochs`` prefix epochs at ``now = 0`` from ``state``; no
-    host synchronisation between epochs."""
+                 m: int = 32, select_impl: str = "sort",
+                 tag_width: int = 64, window_m: int | None = None,
+                 now_ns: int = 0) -> ServeResult:
+    """Run ``epochs`` prefix epochs at ``now_ns`` from ``state``; no host
+    synchronisation between epochs.  ``select_impl``, ``tag_width`` and
+    ``window_m`` as in ``scan_prefix_epoch``."""
     met = obsdev.metrics_zero(state.device)
     counts, guards, slots, phases, costs = [], [], [], [], []
     for _ in range(epochs):
-        ep = scan_prefix_epoch(state, 0, m, k, anticipation_ns=0,
-                               with_metrics=True)
+        ep = scan_prefix_epoch(state, now_ns, m, k, anticipation_ns=0,
+                               with_metrics=True, select_impl=select_impl,
+                               tag_width=tag_width, window_m=window_m)
         state = ep.state
         counts.append(ep.count)
         guards.append(ep.guards_ok)
@@ -127,15 +179,75 @@ def serve_epochs(state: EngineState, epochs: int, *, k: int = 65536,
 
 
 def serve_only(n: int = 100_000, depth: int = 320, k: int = 65536,
-               m: int = 32, epochs: int = 3, *,
+               m: int = 32, epochs: int = 3, *, select_impl: str = "sort",
+               tag_width: int = 64, window_m: int | None = None,
                device: str | torch.device = DEFAULT_DEVICE
                ) -> ServeResult:
     """The ``serve`` workload: ``n`` clients preloaded ``depth`` deep in
     a ``depth``-slot ring, then ``epochs`` epochs of ``m`` batches of up
-    to ``k`` decisions.  Callers check every ``guards_ok``."""
+    to ``k`` decisions (the knobs of ``bench_serve_only``).  Callers
+    check every ``guards_ok``: under ``tag_width=32`` a carry trip
+    clears it for the rest of that epoch."""
     state = _preloaded_state(n, depth, ring=depth,
                              device=resolve_device(device))
-    return serve_epochs(state, epochs, k=k, m=m)
+    return serve_epochs(state, epochs, k=k, m=m, select_impl=select_impl,
+                        tag_width=tag_width, window_m=window_m)
+
+
+class ChainResult(NamedTuple):
+    """``epochs`` chained epochs' output (stacked on the device)."""
+
+    state: EngineState        # after the last epoch
+    count: torch.Tensor       # int32[E, m] decisions per batch
+    unit_count: torch.Tensor  # int32[E, m] committed units per batch
+    guards_ok: torch.Tensor   # bool[E, m]
+    slot: torch.Tensor        # int32[E, m, k] unit clients
+    cls: torch.Tensor         # int8[E, m, k] unit entry classes
+    length: torch.Tensor      # int8[E, m, k] unit decisions
+    metrics: torch.Tensor     # int64[NUM_METRICS], merged over epochs
+
+
+def chain_epochs(state: EngineState, epochs: int, *, k: int = 65536,
+                 m: int = 8, chain_depth: int = 4,
+                 now_ns: int = 20_000_000, select_impl: str = "sort",
+                 tag_width: int = 64) -> ChainResult:
+    """Run ``epochs`` chained epochs at ``now_ns`` from ``state``; no
+    host synchronisation between epochs."""
+    met = obsdev.metrics_zero(state.device)
+    eps = []
+    for _ in range(epochs):
+        ep = scan_chain_epoch(state, now_ns, m, k, chain_depth=chain_depth,
+                              anticipation_ns=0, with_metrics=True,
+                              select_impl=select_impl, tag_width=tag_width)
+        state = ep.state
+        met = obsdev.metrics_combine(met, ep.metrics)
+        eps.append(ep)
+    return ChainResult(
+        state=state, metrics=met,
+        **{f: torch.stack([getattr(ep, f) for ep in eps])
+           for f in ("count", "unit_count", "guards_ok", "slot", "cls",
+                     "length")})
+
+
+def serve_chain(n: int = 100_000, depth: int = 320, k: int = 65536,
+                m: int = 8, epochs: int = 1, *, chain_depth: int = 4,
+                now_ns: int = 20_000_000, select_impl: str = "sort",
+                tag_width: int = 64,
+                device: str | torch.device = DEFAULT_DEVICE
+                ) -> ChainResult:
+    """The chain engine on the ``serve`` backlog: ``n`` clients
+    preloaded ``depth`` deep, ``epochs`` epochs of ``m`` chained batches
+    of up to ``k`` units of up to ``chain_depth`` decisions, at
+    ``now_ns``.  At the default 20 ms every client's 10 ms reservation
+    tag is eligible, so both phases occur: constraint serves first, then
+    weight serves.  Every request costs 1, so a weight serve's
+    reservation debt cancels its tag advance exactly and no unit grows
+    past one decision (``variable_cost_state`` makes them grow)."""
+    state = _preloaded_state(n, depth, ring=depth,
+                             device=resolve_device(device))
+    return chain_epochs(state, epochs, k=k, m=m, chain_depth=chain_depth,
+                        now_ns=now_ns, select_impl=select_impl,
+                        tag_width=tag_width)
 
 
 # ----------------------------------------------------------------------
@@ -289,22 +401,38 @@ def serve_cfg4(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("serve", "cfg4"),
+    ap.add_argument("--workload", choices=("serve", "chain", "cfg4"),
                     default="serve")
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--depth", type=int, default=320,
-                    help="serve: queue depth and ring size")
+                    help="serve, chain: queue depth and ring size")
     ap.add_argument("--k", type=int, default=65536,
-                    help="serve: decisions per batch")
-    ap.add_argument("--m", type=int, default=32,
-                    help="serve: batches per epoch")
-    ap.add_argument("--epochs", type=int, default=3, help="serve")
+                    help="serve, chain: decisions (units) per batch")
+    ap.add_argument("--m", type=int, default=None,
+                    help="serve, chain: batches per epoch (32; chain 8)")
+    ap.add_argument("--epochs", type=int, default=3, help="serve, chain")
     ap.add_argument("--rounds", type=int, default=3, help="cfg4")
+    ap.add_argument("--select-impl", choices=("sort", "radix"),
+                    default="sort", help="serve, chain: selection backend")
+    ap.add_argument("--tag-width", type=int, choices=(64, 32), default=64,
+                    help="serve, chain: epoch tag carry width")
+    ap.add_argument("--window-m", type=int, default=None,
+                    help="serve: batches per ring-window prefetch")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     a = ap.parse_args(argv)
+    knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
     if a.workload == "serve":
-        res = serve_only(a.n, a.depth, a.k, a.m, a.epochs, device=a.device)
-        ok = {"guards_ok": bool(res.guards_ok.all())}
+        res = serve_only(a.n, a.depth, a.k, 32 if a.m is None else a.m,
+                         a.epochs, window_m=a.window_m, device=a.device,
+                         **knobs)
+        ok = {"guards_ok": bool(res.guards_ok.all()), **knobs}
+    elif a.workload == "chain":
+        res = serve_chain(a.n, a.depth, a.k, 8 if a.m is None else a.m,
+                          a.epochs, device=a.device, **knobs)
+        committed = res.length[res.slot >= 0].to(torch.int64)
+        ok = {"guards_ok": bool(res.guards_ok.all()), **knobs,
+              "units": int(res.unit_count.sum()),
+              "unit_lengths": torch.bincount(committed).tolist()}
     else:
         res = serve_cfg4(a.n, a.rounds, device=a.device)
         ok = {"progress_ok": bool(res.progress_ok.all())}

@@ -1,19 +1,25 @@
-"""Where the time of a ``serve`` epoch or a ``cfg4`` round goes on the
-card (PyTorch port).
+"""Where the time of a ``serve`` or ``chain`` epoch or a ``cfg4`` round
+goes on the card (PyTorch port).
 
     python3 scripts/torch_serve_profile.py [--n 100000] [--epochs 1]
+    python3 scripts/torch_serve_profile.py --select-impl radix
+    python3 scripts/torch_serve_profile.py --tag-width 32 --high-rate
+    python3 scripts/torch_serve_profile.py --workload chain [--m 8]
     python3 scripts/torch_serve_profile.py --workload cfg4 [--rounds 1]
 
 Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
-``serve`` backlog, or the ``cfg4`` state with its arrival draws
-uploaded), runs one warm-up epoch or round, then traces ``--epochs``
-epochs or ``--rounds`` rounds with ``torch.profiler`` (CPU and CUDA
-activities).  Prints, on the card it ran on: the host wall time, the
+``serve`` backlog, with ``--high-rate`` the same backlog at 1000x the
+rates in a 128-slot ring, the shape on which ``--tag-width 32`` never
+trips; or the ``cfg4`` state with its arrival draws uploaded), runs one
+warm-up epoch or round, then traces ``--epochs`` epochs or ``--rounds``
+rounds with ``torch.profiler`` (CPU and CUDA activities).  ``serve``
+runs at ``now = 0`` and ``chain`` at 20 ms (every reservation tag
+eligible), each with its ``--select-impl`` and ``--tag-width``.  Prints, on the card it ran on: the host wall time, the
 device busy time (the union of kernel intervals) and so the device idle
 share, the number of kernel launches, the device time of the port's
 kernels (K1 ``ring_window``, K2 ``wheel_scan``) and their share, and
 the operators that take most device time.  The full table goes to
-``chiprun_out/<workload>_profile.txt``.  Needs CUDA; exits non-zero
+``chiprun_out/<workload>[_<knobs>]_profile.txt``.  Needs CUDA; exits non-zero
 without.
 """
 
@@ -48,24 +54,38 @@ def _busy_us(intervals) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("serve", "cfg4"),
+    ap.add_argument("--workload", choices=("serve", "chain", "cfg4"),
                     default="serve")
     ap.add_argument("--n", type=int, default=100_000)
-    ap.add_argument("--depth", type=int, default=320)
+    ap.add_argument("--depth", type=int, default=320,
+                    help="serve, chain: queue depth and ring size")
     ap.add_argument("--k", type=int, default=65536)
-    ap.add_argument("--m", type=int, default=32)
-    ap.add_argument("--epochs", type=int, default=1, help="serve")
+    ap.add_argument("--m", type=int, default=None,
+                    help="batches per epoch (serve 32, chain 8)")
+    ap.add_argument("--epochs", type=int, default=1, help="serve, chain")
     ap.add_argument("--rounds", type=int, default=1, help="cfg4")
+    ap.add_argument("--select-impl", choices=("sort", "radix"),
+                    default="sort", help="serve, chain")
+    ap.add_argument("--tag-width", type=int, choices=(64, 32), default=64,
+                    help="serve, chain")
+    ap.add_argument("--high-rate", action="store_true",
+                    help="serve: the backlog at 1000x the rates, ring 128")
     ap.add_argument("--out", default=None,
-                    help="table file (chiprun_out/<workload>_profile.txt)")
+                    help="table file (chiprun_out/<workload>[_<knobs>]"
+                    "_profile.txt)")
     a = ap.parse_args(argv)
+    knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
+    tag = "".join([f"_{a.select_impl}" if a.select_impl != "sort" else "",
+                   f"_tag{a.tag_width}" if a.tag_width != 64 else "",
+                   "_high_rate" if a.high_rate else ""])
     out = a.out or os.path.join(ROOT, "chiprun_out",
-                                f"{a.workload}_profile.txt")
+                                f"{a.workload}{tag}_profile.txt")
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs CUDA", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs import device as obsdev
     from torch.profiler import ProfilerActivity, profile
 
     card = subprocess.run(
@@ -73,13 +93,28 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     if a.workload == "serve":
-        shape = dict(n=a.n, k=a.k, m=a.m, epochs=a.epochs)
-        st = serve._preloaded_state(a.n, a.depth, ring=a.depth,
-                                    device="cuda")
-        st = serve.serve_epochs(st, 1, k=a.k, m=a.m).state
+        m = 32 if a.m is None else a.m
+        if a.high_rate:
+            st = serve.high_rate_state(a.n, 128, device="cuda")
+        else:
+            st = serve._preloaded_state(a.n, a.depth, ring=a.depth,
+                                        device="cuda")
+        shape = dict(n=a.n, ring=st.ring_capacity, k=a.k, m=m,
+                     epochs=a.epochs, high_rate=a.high_rate, **knobs)
+        st = serve.serve_epochs(st, 1, k=a.k, m=m, **knobs).state
 
         def run():
-            return serve.serve_epochs(st, a.epochs, k=a.k, m=a.m)
+            return serve.serve_epochs(st, a.epochs, k=a.k, m=m, **knobs)
+    elif a.workload == "chain":
+        m = 8 if a.m is None else a.m
+        shape = dict(n=a.n, ring=a.depth, k=a.k, m=m, epochs=a.epochs,
+                     chain_depth=4, now_ns=20_000_000, **knobs)
+        st = serve._preloaded_state(a.n, a.depth, ring=a.depth,
+                                    device="cuda")
+        st = serve.chain_epochs(st, 1, k=a.k, m=m, **knobs).state
+
+        def run():
+            return serve.chain_epochs(st, a.epochs, k=a.k, m=m, **knobs)
     else:
         shape = dict(n=a.n, rounds=a.rounds, **serve.CFG4)
         st, draws = serve.cfg4_setup(a.n, 1 + a.rounds, device="cuda")
@@ -114,7 +149,9 @@ def main(argv=None) -> int:
     print(table)
     print(json.dumps({
         "card": card, "workload": a.workload, **shape,
-        "decisions": decisions, "wall_ms": wall_us / 1e3,
+        "decisions": decisions,
+        "metrics": obsdev.metrics_dict(res.metrics),
+        "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "kernel_launches": len(kernels),

@@ -14,16 +14,21 @@ KEY_INF = (1 << 63) - 1
 # Q = 320 (the serve ring, not a power of two) and Q = 48, each with
 # w < Q and w == Q; and the edges of K1's tiling (32 clients a block, 64
 # window rows a chunk): a part tile (N = 31), one past a tile (33, 97),
-# one client, w = 1, one past a chunk (65, 129), and five chunks (320)
+# one client, w = 1, one past a chunk (65, 129), and five chunks (320);
+# and the chain engine's window at the serve ring (w = chain_depth = 4)
 RING_SHAPES = [
     (700, 16, 5), (2500, 128, 32), (100, 64, 64), (300, 320, 32),
     (50, 320, 320), (200, 48, 7), (64, 48, 48),
     (31, 64, 1), (33, 128, 65), (97, 256, 129), (33, 320, 320), (1, 8, 8),
+    (1000, 320, 4),
 ]
 
-# K1 at the two main-path shapes: serve (N=100000, Q=320, w=32) and cfg4
-# (N=100000, Q=128, w=64)
-RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64)]
+# K1 at every main-path shape: serve and serve_radix (N=100000, Q=320,
+# w=32), cfg4 and the stop ladder (N=100000, Q=128, w=64), the chain
+# paths (Q=320, w=chain_depth=4) and tag32 on the high-rate state
+# (Q=128, w=32)
+RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64),
+                    (100_000, 320, 4), (100_000, 128, 32)]
 
 
 def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):

@@ -15,6 +15,7 @@ import torch
 from dmclock_tpu_torch.engine import _ext
 from dmclock_tpu_torch.engine import fastpath as tfp
 from dmclock_tpu_torch.engine import kernels as tk
+from dmclock_tpu_torch.obs.device import MET_REBASE_FALLBACKS
 
 from test_torch_cases import (RING_MAIN_SHAPES, RING_SHAPES, WHEEL_CASES,
                               plain_wheel_scan, ring_case, wheel_case)
@@ -191,3 +192,96 @@ def test_wheel_round_on_the_card_equals_cpu(cuda):
     for f, a, b in zip(want.state._fields, got.state, want.state):
         assert torch.equal(a.cpu(), b), f
     assert int(want.count.sum()) > 0
+
+
+def _assert_results_equal(a, b, what=""):
+    """Every field of two result NamedTuples, a state field by field."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, tuple):
+            _assert_results_equal(x, y, f"{what}.{f}")
+            continue
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), \
+            f"{what}.{f}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("now", [0, 20_000_000])
+def test_radix_on_the_card_equals_sort(cuda, now):
+    """4096 clients at the serve ring (320 deep), weight phase only and
+    both phases: radix selection equals sort on every output, the
+    metrics and the state, in prefix and chain epochs; K1 once per
+    prefix epoch and once per chain batch."""
+    from dmclock_tpu_torch import serve
+
+    st = serve._preloaded_state(4096, 320, ring=320, device=cuda)
+    runs = {}
+    for impl in ("sort", "radix"):
+        before = _ext.LAUNCHES["ring_window"]
+        runs[impl] = (
+            serve.serve_epochs(st, 2, k=1024, m=8, now_ns=now,
+                               select_impl=impl),
+            serve.chain_epochs(st, 1, k=1024, m=4, now_ns=now,
+                               select_impl=impl))
+        torch.cuda.synchronize()
+        assert _ext.LAUNCHES["ring_window"] - before == 2 + 4
+    for a, b in zip(runs["radix"], runs["sort"]):
+        _assert_results_equal(a, b, "radix vs sort")
+    assert bool(runs["radix"][0].guards_ok.all())
+    assert int(runs["radix"][0].count.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_tag32_on_the_card_equals_tag64(cuda):
+    """4096 clients of the high-rate backlog (rates x1000, ring 128):
+    ``tag_width=32`` equals 64 in the prefix (sort and radix), chain and
+    calendar (all three schemes) epochs, every output, the metrics and
+    the state, and never trips."""
+    from dmclock_tpu_torch import serve
+
+    hi = serve.high_rate_state(4096, 128, device=cuda)
+    now = 20_000        # every high-rate reservation tag (10 us) eligible
+    runs = {
+        "prefix sort": lambda w: tfp.scan_prefix_epoch(
+            hi, now, 8, 1024, anticipation_ns=0, with_metrics=True,
+            tag_width=w),
+        "prefix radix": lambda w: tfp.scan_prefix_epoch(
+            hi, now, 8, 1024, anticipation_ns=0, with_metrics=True,
+            tag_width=w, select_impl="radix", window_m=4),
+        "chain": lambda w: tfp.scan_chain_epoch(
+            hi, now, 4, 1024, chain_depth=4, anticipation_ns=0,
+            with_metrics=True, tag_width=w),
+    }
+    for impl in ("minstop", "bucketed", "wheel"):
+        runs[f"calendar {impl}"] = (
+            lambda w, impl=impl: tfp.scan_calendar_epoch(
+                hi, now, 2, steps=8, with_metrics=True, tag_width=w,
+                calendar_impl=impl, ladder_levels=3))
+    for name, run in runs.items():
+        e32, e64 = run(32), run(64)
+        assert int(e32.metrics[MET_REBASE_FALLBACKS]) == 0, name
+        assert int(e32.count.sum()) > 0, name
+        _assert_results_equal(e32, e64, name)
+
+
+@pytest.mark.cuda
+def test_chain_epoch_on_the_card_equals_cpu(cuda):
+    """A chain epoch at 512 clients on the card (K1 once per batch)
+    equals the same epoch on the CPU, at both tag widths."""
+    from dmclock_tpu_torch import serve
+
+    st = serve._preloaded_state(512, 16, ring=16, device="cpu")
+    gpu = st._replace(**{f: getattr(st, f).to(cuda) for f in st._fields})
+    for width in (64, 32):
+        want = tfp.scan_chain_epoch(st, 20_000_000, 4, 256, chain_depth=4,
+                                    anticipation_ns=0, with_metrics=True,
+                                    tag_width=width)
+        before = _ext.LAUNCHES["ring_window"]
+        got = tfp.scan_chain_epoch(gpu, 20_000_000, 4, 256, chain_depth=4,
+                                   anticipation_ns=0, with_metrics=True,
+                                   tag_width=width)
+        torch.cuda.synchronize()
+        assert _ext.LAUNCHES["ring_window"] - before == 4
+        _assert_results_equal(got, want, f"tag{width}")
+        if width == 64:
+            assert int(want.count.sum()) > 0

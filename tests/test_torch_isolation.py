@@ -78,3 +78,26 @@ def test_cfg4_leaves_jax_unloaded():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tserve.serve_cfg4(8, 1)
+
+
+def test_chain_and_knobs_leave_jax_unloaded():
+    """The chain entry point and the radix / int32-carry knobs load no
+    JAX either, and default to the card."""
+    code = ("import sys\n"
+            "from dmclock_tpu_torch import serve\n"
+            "r = serve.serve_chain(64, 8, 32, 2, 1, device='cpu')\n"
+            "assert int(r.count.sum()) > 0\n"
+            "r = serve.serve_only(64, 8, 32, 2, 1, select_impl='radix',\n"
+            "                     tag_width=32, device='cpu')\n"
+            "assert int(r.count.sum()) > 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tserve.serve_chain(8, 4, 4, 1, 1)
+        with pytest.raises(RuntimeError, match="cuda"):
+            tserve.high_rate_state(8, 4)

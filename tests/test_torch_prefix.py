@@ -147,11 +147,22 @@ def test_scan_prefix_epoch_equals_port_serial_engine():
 
 
 def test_later_slices_raise_not_implemented():
+    """The telemetry accumulators are still to come; radix selection
+    and the int32 tag carry are ported, and unknown values of those
+    knobs are refused."""
     st = tserve._preloaded_state(8, 4, ring=4, device="cpu")
-    for kw in (dict(select_impl="radix"), dict(tag_width=32),
-               dict(hists=object()), dict(prov=object())):
+    for kw in (dict(hists=object()), dict(prov=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfp.scan_prefix_epoch(st, 0, 2, 4, anticipation_ns=0, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfp.scan_chain_epoch(st, 0, 2, 4, chain_depth=2,
+                                 anticipation_ns=0, **kw)
+    for kw in (dict(select_impl="bitonic"), dict(tag_width=16)):
+        with pytest.raises(ValueError):
+            tfp.scan_prefix_epoch(st, 0, 2, 4, anticipation_ns=0, **kw)
+    for kw in (dict(select_impl="radix"), dict(tag_width=32)):
+        ep = tfp.scan_prefix_epoch(st, 0, 2, 4, anticipation_ns=0, **kw)
+        assert int(ep.count.sum()) > 0
 
 
 def test_serve_only_matches_jax_serve():
