@@ -60,12 +60,33 @@ Phases (any failure raises and the exit code is not 0):
     decisions occur among the checked ones;
 13. the planner view: ``calendar_stop_ladder`` at the cfg4 shape after
     one round's ingest (8 levels) equals numpy's quantiles of the finite
-    stop packs, is nondecreasing, and its rank-1 key is the minimum.
+    stop packs, is nondecreasing, and its rank-1 key is the minimum;
+14. the ``queue`` path: ``serve.serve_queue`` at full width (10,000
+    clients behind ``TpuPullPriorityQueue(speculative_batch=64)``: a
+    240,000-add bulk load, ``pull_batch``, ``pull_batch_stream``,
+    ``pull_request`` with adds interleaved, client updates, removals,
+    ``do_clean`` with erases and recycled slots), launch counts reset just
+    before and read just after (it launches neither K1 nor K2), held
+    against the same sequence on the CPU: every ``PullReq``, counter,
+    ledger, SLO and departed row and the final state field by field
+    must be equal;
+15. the ``push`` path: ``serve.virtual_server`` (1,000 clients, 32
+    service slots, the virtual-time embedding): the push queue on the
+    card dispatches in the order the pull queue does on the CPU on the
+    same arrivals, sched-ahead wakeups among them; then a threaded push
+    queue whose sched-ahead thread dispatches a limit-deferred request.
+
+The CPU runs of phases 14 and 15 run beside the card's, in a child
+process on four CPU threads (``start_cpu_twins``) started only then, so
+the earlier phases' host-paced timings have no CPU load beside them;
+the card runs both phases before either is held against its twin, so
+the twins have that time to finish.  The script stops the child on any
+failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8, 10, 11, 12, 13), each count read right after
-that path's run.  Prints the kernel table as one JSON line, then as the
-last line
+that path's run; the queue paths (14, 15) add none.  Prints the kernel
+table as one JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when CUDA is unavailable or the package is missing.
 """
@@ -78,6 +99,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -98,6 +120,7 @@ RING_HIGH = 128          # the high-rate state's ring, preloaded full
 TIMED_WIDTHS = 3         # timed epochs of each tag width
 M_CHAIN, CHAIN_DEPTH, CHAIN_NOW = 8, 4, 20_000_000
 TIMED_CHAIN = 3
+N_QUEUE, N_PUSH = 10_000, 1_000
 
 # device-memory rate of the H100 SXM (bytes/s, NVIDIA's data sheet),
 # for the bound of a data-movement kernel
@@ -1039,12 +1062,153 @@ def phase_cfg4(serve, ext, obsdev, card: str) -> dict:
     return launches
 
 
+def start_cpu_twins(root: str, out: str) -> subprocess.Popen:
+    """The CPU twins of phases 14 and 15 in a child process on four CPU
+    threads, with CUDA hidden from it: the whole ``serve_queue`` sequence
+    and the pull queue behind ``virtual_server``, started as the card
+    begins phase 14; the results go to ``out`` (``torch.save``)."""
+    code = (
+        "import sys, time, torch\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "torch.set_num_threads(4)\n"
+        "from dmclock_tpu_torch import serve\n"
+        "t0 = time.perf_counter()\n"
+        f"run = serve.serve_queue({N_QUEUE}, device='cpu')\n"
+        "secs = time.perf_counter() - t0\n"
+        f"pull = serve.virtual_server('pull', {N_PUSH}, device='cpu')\n"
+        "torch.save(dict(queue=run._asdict(), queue_s=secs, pull=pull),\n"
+        f"           {out!r})\n")
+    with open(out + ".err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.DEVNULL,
+            stderr=err, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def collect_cpu_twins(proc: subprocess.Popen, out: str) -> dict:
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        with open(out + ".err") as f:
+            raise RuntimeError(f"the CPU twins failed (rc {rc}):\n"
+                               f"{f.read()[-4000:]}")
+    log(f"[twins] CPU twins collected (waited {waited:.3f} s for them)")
+    return torch.load(out, weights_only=False)
+
+
+def phase_queue(serve, ext):
+    """The pull queue at full width on the card, launch-counted; held
+    against its CPU twin by ``check_queue``."""
+    run, _ = _launch_counted(
+        ext, lambda: serve.serve_queue(N_QUEUE, device="cuda"),
+        {"ring_window": 0, "wheel_scan": 0}, "queue")
+    return run
+
+
+def check_queue(serve, run, card: str, twin) -> None:
+    """Everything the card's queue run observed must equal the CPU
+    twin's (``twin()``)."""
+    cpu = serve.QueueRun(**twin()["queue"])
+    for f in ("pulls", "removed", "counters", "ledger", "slo", "rolled",
+              "departed", "stats"):
+        a, b = getattr(run, f), getattr(cpu, f)
+        if f == "stats":
+            a, b = dict(a, device_mb=0), dict(b, device_mb=0)
+        if a != b:
+            raise AssertionError(f"queue: {f} on the card differs from the "
+                                 f"CPU run")
+    for f, a, b in zip(run.state._fields, run.state, cpu.state):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"queue: state field {f} on the card "
+                                 f"differs from the CPU run")
+    st, c, sec = run.stats, run.counters, run.seconds
+    g = st["growth"]
+    if (g["capacity"], g["ring"]) != (16384, 32) or st["decisions"] <= 0 \
+            or min(c["spec_hits"], c["spec_refills"], c["spec_replays"],
+                   c["slot_recycles"]) <= 0 or not run.departed:
+        raise AssertionError(f"queue: growth {g}, counters {c}")
+    batch_s = sec["pull_batch_0"] + sec["pull_batch_1"]
+    log(f"[queue] N={N_QUEUE} on {card}: {st['adds']} adds, capacity "
+        f"{g['capacity']}, ring {g['ring']}, {g['segments']} ingest "
+        f"segments in the bulk load ({c['ingest_segments']} in all); "
+        f"{len(run.pulls)} PullReqs ({st['decisions']} decisions), "
+        f"counters {json.dumps(c)}; every PullReq, counter, ledger/SLO/"
+        f"departed row and the final state equal the CPU run "
+        f"({twin()['queue_s']:.3f} s on four CPU threads)")
+    log(f"[queue] on {card}, host-paced wall time (each launch reads "
+        f"back): bulk load {sec['bulk_load']:.3f} s = "
+        f"{st['adds'] / sec['bulk_load']:.1f} adds/s (flush included); "
+        f"pull_batch {batch_s:.3f} s for {st['batch_decisions']} = "
+        f"{st['batch_decisions'] / batch_s:.1f} decisions/s; stream "
+        f"{sec['stream']:.3f} s; pull_request {sec['pull_request']:.3f} s ="
+        f" {serve.QUEUE['pulls'] / sec['pull_request']:.1f} pulls/s, spec "
+        f"hit share {st['hit_share']:.6f} (1,000 adds interleaved); admin "
+        f"{sec['admin']:.3f} s, clean {sec['clean']:.3f} s; state "
+        f"{st['device_mb']:.3f} MB on the card; CPU run stages "
+        f"{json.dumps({k: round(v, 6) for k, v in cpu.seconds.items()})}")
+
+
+def phase_push(serve, ext):
+    """The push queue on the card in virtual time, launch-counted; held
+    against the pull queue on the CPU by ``check_push``.  Then a
+    sched-ahead wakeup on a real thread."""
+    import threading
+
+    from dmclock_tpu_torch.core.qos import ClientInfo
+    from dmclock_tpu_torch.core.recs import ReqParams
+    from dmclock_tpu_torch.core.timebase import sec_to_ns
+    from dmclock_tpu_torch.engine.push_queue import TpuPushPriorityQueue
+
+    t0 = time.perf_counter()
+    (push, woke), _ = _launch_counted(
+        ext, lambda: serve.virtual_server("push", N_PUSH, device="cuda"),
+        {"ring_window": 0, "wheel_scan": 0}, "push")
+    secs = time.perf_counter() - t0
+    handled = []
+    q = TpuPushPriorityQueue(
+        lambda c: ClientInfo(0, 1, 10), lambda: True,
+        lambda c, r, p, cost: handled.append(
+            (r, threading.current_thread().name)), device="cuda")
+    try:
+        now = sec_to_ns(time.time())
+        q.add_request("a", 1, ReqParams(), time_ns=now)
+        q.add_request("b", 1, ReqParams(), time_ns=now)
+        deadline = time.monotonic() + 30
+        while len(handled) < 2 and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        q.shutdown()
+    if [r for r, _ in handled] != ["a", "b"] or \
+            handled[1][1] != q._sched_thd.name:
+        raise AssertionError(f"push: threaded run handled {handled}")
+    log(f"[push] threaded: limit 10/s, the second request was dispatched "
+        f"by {handled[1][1]!r} after its wakeup; thread joined")
+    return push, woke, secs
+
+
+def check_push(push, woke: int, secs: float, card: str, twin) -> None:
+    """The push queue's dispatches on the card must equal the pull
+    queue's on the CPU (``twin()``), on the same arrivals."""
+    pull, pull_woke = twin()["pull"]
+    phases = [sum(1 for d in push if d[3] == p) for p in (0, 1)]
+    if push != pull or woke != pull_woke or len(push) != N_PUSH or \
+            woke <= 0 or min(phases) <= 0:
+        raise AssertionError(f"push: {len(push)} vs {len(pull)} dispatches,"
+                             f" equal {push == pull}, wakeups {woke}/"
+                             f"{pull_woke}, phases {phases}")
+    log(f"[push] N={N_PUSH}, 32 slots, virtual time: {len(push)} "
+        f"dispatches (reservation {phases[0]}, priority {phases[1]}), "
+        f"{woke} sched-ahead wakeups; the push queue on {card} dispatches "
+        f"in the order the pull queue does on the CPU; {secs:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
     from dmclock_tpu_torch import serve
     from dmclock_tpu_torch.engine import _ext, fastpath, kernels
     from dmclock_tpu_torch.obs import device as obsdev
@@ -1060,6 +1224,7 @@ def main() -> int:
     k2 = phase_k2(serve, fastpath, kernels, card)
     phase_exact(serve, fastpath, kernels)
     phase_exact_knobs(serve, fastpath, kernels)
+    t_serve = time.perf_counter()
     serve_k1, sort_res, sort_med = phase_serve(serve, kernels, _ext, obsdev,
                                                card)
     radix_k1 = phase_serve_radix(serve, _ext, obsdev, sort_res, sort_med,
@@ -1079,6 +1244,23 @@ def main() -> int:
     phase_calendar_exact(serve, fastpath, kernels)
     ladder_k1 = phase_stop_ladder(serve, fastpath, kernels, _ext, card)
     cfg4 = phase_cfg4(serve, _ext, obsdev, card)
+    t_queue = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "twins.pt")
+        twins = start_cpu_twins(root, out)
+        try:
+            twin = functools.cache(lambda: collect_cpu_twins(twins, out))
+            # both card runs first, so the twins have their time to finish
+            run = phase_queue(serve, _ext)
+            push = phase_push(serve, _ext)
+            check_queue(serve, run, card, twin)
+            check_push(*push, card, twin)
+        finally:
+            if twins.poll() is None:
+                twins.kill()
+            twins.wait()
+    log(f"[time] phases 6-13 took {t_queue - t_serve:.3f} s, the queue "
+        f"and push phases {time.perf_counter() - t_queue:.3f} s")
     # launches: each path's count, read right after that path's run
     k1["launches"] = (serve_k1 + radix_k1 + tag32_k1 + chain_k1
                       + chain_vc_k1 + ladder_k1 + cfg4["ring_window"])

@@ -19,7 +19,10 @@ Counterpart of ``dmclock_tpu/engine/kernels.py`` (tag algebra and
 - the timer-wheel primitives (``wheel_slot``, ``wheel_scatter``,
   ``wheel_nearest``) and ``wheel_scan``, the wrapper of kernel K2
   (``csrc/wheel_scan.cu``);
-- ``ingest_superwave``: W ingest waves in one ring pass.
+- ``ingest`` (``IngestOps`` rows of creates and adds, applied in
+  segments of dense passes), ``ingest_wave`` (one arrival per client)
+  and ``ingest_superwave`` (W waves in one ring pass);
+- ``mark_idle``/``deactivate``, the queue's GC scatters.
 
 All arithmetic is int64 ns.  The serial engine is the exactness
 reference the prefix-commit fast path is held against.  Scalars stay
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.timebase import (LOWEST_PROP_TAG_TRIGGER, MAX_CHARGE_UNITS,
@@ -664,3 +668,378 @@ def ingest_superwave(state: EngineState, counts, wave_times, cost, rho,
         cur_rho=hset(rho, st.cur_rho, requesting),
         cur_delta=hset(delta, st.cur_delta, requesting),
     )
+
+
+# ----------------------------------------------------------------------
+# ingest: batched add_request (+ client creation)
+# ----------------------------------------------------------------------
+
+OP_NOP = 0
+OP_ADD = 1
+OP_CREATE = 2
+
+
+class IngestOps(NamedTuple):
+    """A batch of queue mutations, one row per op, applied in row order.
+    Every field is a 1-d numpy array or tensor of the batch length."""
+
+    kind: object        # OP_NOP / OP_ADD / OP_CREATE
+    slot: object
+    time: object        # arrival ns (ADD)
+    cost: object
+    rho: object
+    delta: object
+    resv_inv: object    # ns per unit cost (CREATE)
+    weight_inv: object
+    limit_inv: object
+    order: object       # creation index (CREATE)
+
+
+def _wrap64(x: int) -> int:
+    """A Python int reduced to int64, wrapping as the device does."""
+    return (x + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def ingest_segments(kind: np.ndarray, slot: np.ndarray) -> list:
+    """Row ranges ``[lo, hi)`` that ``ingest`` applies one dense pass
+    each: within a segment every slot has at most one CREATE, ahead of
+    its other rows, so a new segment starts at a CREATE whose slot
+    already has a row in the current one (a slot re-created in the same
+    batch).  NOP rows are skipped; an all-NOP batch has no segment."""
+    live = np.flatnonzero(kind != OP_NOP)
+    if live.size == 0:
+        return []
+    _, first = np.unique(slot[live], return_index=True)
+    repeat = np.ones(live.size, dtype=bool)
+    repeat[first] = False
+    if not np.any(repeat & (kind[live] == OP_CREATE)):
+        return [(0, len(kind))]
+    segs, lo, seen = [], 0, set()
+    for i in live.tolist():
+        s = int(slot[i])
+        if kind[i] == OP_CREATE and s in seen:
+            segs.append((lo, i))
+            lo, seen = i, set()
+        seen.add(s)
+    segs.append((lo, len(kind)))
+    return segs
+
+
+def ingest(state: EngineState, ops: IngestOps, *, anticipation_ns: int,
+           idle=None) -> EngineState:
+    """Apply a batch of creates and adds in row order, equal to the JAX
+    package's ``ingest`` scan (the oracle's ``_do_add_request`` per row,
+    reference :913-1018) bit for bit.
+
+    The scan's rows are coupled in two ways: several rows may touch one
+    slot, and an ADD to an idle slot (idle reactivation, :937-985) reads
+    every other client's effective proportion tag at its moment.  Here
+    the batch splits on the host into segments (``ingest_segments``),
+    each applied as one set of dense passes over the slots it touches:
+    the creates scatter first; each slot's first ADD tags an empty head,
+    its later ADDs append to consecutive ring positions; depth, idle and
+    cur rho/delta are written once per slot.  Tags never depend on
+    ``prop_delta``, so only the reactivations remain: their ``lowest``
+    is a scalar recurrence along the segment's reactivating rows (each
+    one joins the set the next one scans).  The device computes, for
+    every reactivating row, the minimum over the clients that were
+    already scheduling at segment entry as it stands at that row (prefix
+    and suffix minima over the rows that change one of them); the host
+    runs the recurrence on those values -- one read back of
+    ``[5, reactivations]`` int64 -- and the shifts scatter back.  A
+    segment without a reactivation reads nothing back.
+
+    ``ops``: numpy arrays are uploaded in one copy per segment; tensors
+    are read to the host first.  ``idle``: an optional host bool[N]
+    equal to ``state.idle`` (the caller's mirror); without it ``idle``
+    is read back once.  Caller contract, as for the other ingest paths:
+    no queue grows past the ring capacity.  Out of place: ``state`` is
+    never written."""
+    rows = np.stack([(c.detach().cpu().numpy() if torch.is_tensor(c)
+                      else np.asarray(c)).astype(np.int64).reshape(-1)
+                     for c in ops])
+    segs = ingest_segments(rows[0], rows[1])
+    if not segs:
+        return state
+    idle = (state.idle.cpu().numpy() if idle is None
+            else np.asarray(idle, dtype=bool)).copy()
+    for lo, hi in segs:
+        state = _ingest_segment(state, rows[:, lo:hi], idle,
+                                anticipation_ns)
+    return state
+
+
+def _ingest_segment(st: EngineState, rows: np.ndarray, idle: np.ndarray,
+                    anticipation_ns: int) -> EngineState:
+    """One segment of ``ingest``; ``idle`` (host mirror of ``st.idle``)
+    is updated in place to the segment's exit value."""
+    kind, slot, time, cost, rho, delta, rinv, winv, linv, order = rows
+    n, q, dev = st.capacity, st.ring_capacity, st.device
+
+    # host: creates; adds grouped by slot in row order (rank = the add's
+    # index among its slot's adds); each slot's first and last add
+    cr = np.flatnonzero(kind == OP_CREATE)
+    ar = np.flatnonzero(kind == OP_ADD)
+    srt = ar[np.argsort(slot[ar], kind="stable")]
+    ss = slot[srt]
+    starts = np.flatnonzero(np.r_[True, ss[1:] != ss[:-1]]) \
+        if srt.size else np.zeros(0, dtype=np.int64)
+    count = np.diff(np.r_[starts, srt.size])
+    rank = np.arange(srt.size) - np.repeat(starts, count)
+    first = srt[starts]
+    last = srt[starts + count - 1]
+    created = np.zeros(n, dtype=bool)
+    created[slot[cr]] = True
+    # reactivating rows: first adds to a slot idle at that moment (created
+    # in this segment, or idle at entry), in row order
+    react = np.flatnonzero(created[slot[first]] | idle[slot[first]])
+    react = react[np.argsort(first[react])]
+    # rows that may change a scheduling client's effective tag: creates
+    # and the first adds of slots not created here, in row order
+    keep = ~created[slot[first]]
+    cand_rows = np.r_[cr, first[keep]]
+    cand_fi = np.r_[np.full(cr.size, -1), np.flatnonzero(keep)]
+    co = np.argsort(cand_rows, kind="stable")
+    cand_rows, cand_fi = cand_rows[co], cand_fi[co]
+    nbefore = np.searchsorted(cand_rows, first[react])
+
+    parts = [slot[cr], order[cr], rinv[cr], winv[cr], linv[cr],
+             slot[first], time[first], cost[first], rho[first],
+             delta[first], rho[last], delta[last], count,
+             ss, rank, time[srt], cost[srt],
+             react, nbefore, slot[cand_rows], cand_fi]
+    buf = torch.from_numpy(np.concatenate(parts).astype(np.int64)).to(dev)
+    (c_slot, c_order, c_r, c_w, c_l, f_slot, f_time, f_cost, f_rho,
+     f_delta, l_rho, l_delta, f_count, a_slot, a_rank, a_time, a_cost,
+     r_idx, r_nb, k_slot, k_fi) = torch.split(buf, [p.size for p in parts])
+
+    def full(v, dtype):
+        return torch.full((), v, dtype=dtype, device=dev)
+
+    st0 = st
+    if cr.size:
+        def cset(arr, v):
+            if not torch.is_tensor(v):
+                v = full(v, arr.dtype)
+            return arr.index_put((c_slot,), v.to(arr.dtype))
+
+        st = st._replace(
+            active=cset(st.active, True), idle=cset(st.idle, True),
+            order=cset(st.order, c_order), resv_inv=cset(st.resv_inv, c_r),
+            weight_inv=cset(st.weight_inv, c_w),
+            limit_inv=cset(st.limit_inv, c_l),
+            prop_delta=cset(st.prop_delta, 0),
+            prev_resv=cset(st.prev_resv, 0), prev_prop=cset(st.prev_prop, 0),
+            prev_limit=cset(st.prev_limit, 0),
+            prev_arrival=cset(st.prev_arrival, 0),
+            cur_rho=cset(st.cur_rho, 1), cur_delta=cset(st.cur_delta, 1),
+            depth=cset(st.depth, 0), q_head=cset(st.q_head, 0),
+            head_ready=cset(st.head_ready, False))
+    if not srt.size:
+        idle[slot[cr]] = True
+        return st
+
+    # each slot's first add, against the post-create state: a real tag
+    # only when it lands at the head of an empty queue (:878-893)
+    g = {f: getattr(st, f)[f_slot] for f in (
+        "active", "depth", "q_head", "prop_delta", "resv_inv",
+        "weight_inv", "limit_inv", "prev_resv", "prev_prop", "prev_limit",
+        "prev_arrival", "head_resv", "head_prop", "head_limit",
+        "head_arrival", "head_cost", "head_rho", "head_ready")}
+    tag = g["depth"] == 0
+    r, p, l = _make_tag(g["prev_resv"], g["prev_prop"], g["prev_limit"],
+                        g["prev_arrival"], g["resv_inv"], g["weight_inv"],
+                        g["limit_inv"], f_delta, f_rho, f_time, f_cost,
+                        anticipation_ns)
+
+    # ring: add of rank j lands at q_head + depth + j - 1 (the head takes
+    # rank 0 of an empty queue; its lane rewrites the value it reads)
+    d0 = st.depth[a_slot].to(torch.int64)
+    pos = torch.remainder(st.q_head[a_slot].to(torch.int64) + d0 + a_rank
+                          - 1, q)
+    push = (a_rank > 0) | (d0 > 0)
+    flat = a_slot * q + pos
+
+    def ring(arr, v):
+        a = arr.reshape(-1)
+        return a.index_put((flat,), torch.where(push, v, a[flat])
+                           ).reshape(n, q)
+
+    def fset(arr, v):
+        return arr.index_put((f_slot,), v.to(arr.dtype))
+
+    def on_tag(new, old):
+        return fset(getattr(st, old), torch.where(tag, new, g[old]))
+
+    prop_delta = st.prop_delta
+    if react.size:
+        prop_delta = prop_delta.index_put(
+            (f_slot[r_idx],), _reactivation_shifts(
+                st0, g, tag, p, r_idx, r_nb, k_slot, k_fi,
+                time[first[react]]))
+    idle[slot[cr]] = True
+    idle[slot[first]] = False
+    return st._replace(
+        idle=fset(st.idle, torch.zeros_like(tag)),
+        prop_delta=prop_delta,
+        head_resv=on_tag(r, "head_resv"),
+        head_prop=on_tag(p, "head_prop"),
+        head_limit=on_tag(l, "head_limit"),
+        head_arrival=on_tag(f_time, "head_arrival"),
+        head_cost=on_tag(f_cost, "head_cost"),
+        head_rho=on_tag(f_rho, "head_rho"),
+        head_ready=fset(st.head_ready, g["head_ready"] & ~tag),
+        prev_resv=on_tag(_fold_prev(g["prev_resv"], r), "prev_resv"),
+        prev_prop=on_tag(_fold_prev(g["prev_prop"], p), "prev_prop"),
+        prev_limit=on_tag(_fold_prev(g["prev_limit"], l), "prev_limit"),
+        prev_arrival=on_tag(f_time, "prev_arrival"),
+        q_arrival=ring(st.q_arrival, a_time),
+        q_cost=ring(st.q_cost, a_cost),
+        depth=fset(st.depth, g["depth"] + f_count),
+        cur_rho=fset(st.cur_rho, l_rho),
+        cur_delta=fset(st.cur_delta, l_delta),
+    )
+
+
+def _reactivation_shifts(st0, g, tag, p, r_idx, r_nb, k_slot, k_fi,
+                         r_time: np.ndarray) -> torch.Tensor:
+    """``prop_delta`` of each reactivating row (in row order).
+
+    Its ``lowest`` is the minimum effective proportion tag over the
+    clients scheduling (active, not idle) just before it: (a) those
+    scheduling at segment entry, whose tag changes at most once in the
+    segment -- a CREATE drops it, a first add to an empty queue retags
+    it -- so at row r it is the entry value before that row and the new
+    one after (``k_*``: those rows in row order; ``r_nb``: how many come
+    before each reactivating row); and (b) the earlier reactivating
+    rows' own clients, whose tag is fixed once they join.  (a) is
+    vectorized here; (b) is the recurrence, run on the host."""
+    dev = st0.device
+    inf1 = torch.full((1,), KEY_INF, dtype=torch.int64, device=dev)
+    others0 = st0.active & ~st0.idle
+    eff0 = torch.where(st0.depth > 0, st0.head_prop, st0.prev_prop) \
+        + st0.prop_delta
+    in0 = others0[k_slot]
+    e_k = eff0[k_slot]
+    fi = torch.clamp(k_fi, min=0)
+    is_cr = k_fi < 0
+    old = torch.where(in0, e_k, KEY_INF)
+    new = torch.where(in0 & ~is_cr,
+                      torch.where(tag[fi], p[fi] + st0.prop_delta[k_slot],
+                                  e_k), KEY_INF)
+    moving = torch.zeros_like(others0).index_put(
+        (k_slot,), torch.ones((), dtype=torch.bool, device=dev))
+    still = torch.min(torch.where(others0 & ~moving, eff0, KEY_INF))
+    after = torch.cat([torch.flip(torch.cummin(torch.flip(old, (0,)), 0)
+                                  .values, (0,)), inf1])
+    before = torch.cat([inf1, torch.cummin(new, 0).values])
+    gone = torch.cat([torch.zeros_like(inf1), torch.cumsum(
+        (is_cr & in0).to(torch.int64), 0)])
+    m = torch.minimum(still, torch.minimum(after[r_nb], before[r_nb]))
+    any0 = others0.sum() - gone[r_nb] > 0
+    base = torch.where(tag[r_idx], p[r_idx], g["head_prop"][r_idx])
+    vals = torch.stack([m, any0.to(torch.int64), base,
+                        g["prop_delta"][r_idx],
+                        g["active"][r_idx].to(torch.int64)]).cpu()
+    low_p, any_r, out = KEY_INF, False, []
+    for (mk, a0, b, pd, act), t in zip(vals.T.tolist(), r_time.tolist()):
+        low = min(mk, low_p)
+        if (a0 or any_r) and low < LOWEST_PROP_TAG_TRIGGER:
+            pd = _wrap64(low - t)
+        out.append(pd)
+        if act:
+            low_p = min(low_p, _wrap64(b + pd))
+            any_r = True
+    return torch.tensor(out, dtype=torch.int64).to(dev)
+
+
+def ingest_wave(state: EngineState, requesting, time_ns, cost, rho,
+                delta, *, anticipation_ns: int) -> EngineState:
+    """One arrival for each ``requesting`` client (bool[N]), all applied
+    in one dense pass (the JAX package's ``ingest_wave``): ``time_ns``
+    an int, a 0-d or an int64[N] tensor; ``cost``/``rho``/``delta``
+    int64[N].  Idle reactivation reads the pre-wave state for every
+    reactivating client (the batch-synchronous model), so it equals the
+    sequential ``ingest`` when each wave's reactivator, if any, is its
+    lowest slot.  The ring append is a ``where`` over [N, Q]."""
+    st = state
+    n = st.capacity
+    if torch.is_tensor(time_ns) and time_ns.dim() == 1:
+        t_arr = time_ns
+    else:
+        t_arr = as_scalar(time_ns, st.device).expand(n)
+
+    others = st.active & ~st.idle
+    eff = torch.where(st.depth > 0, st.head_prop, st.prev_prop) \
+        + st.prop_delta
+    lowest = torch.min(torch.where(others, eff, KEY_INF))
+    do_shift = requesting & st.idle & torch.any(others) & \
+        (lowest < LOWEST_PROP_TAG_TRIGGER)
+    prop_delta = torch.where(do_shift, lowest - t_arr, st.prop_delta)
+
+    empty = st.depth == 0
+    tag_it = requesting & empty
+    r, p, l = _make_tag(
+        st.prev_resv, st.prev_prop, st.prev_limit, st.prev_arrival,
+        st.resv_inv, st.weight_inv, st.limit_inv,
+        delta, rho, t_arr, cost, anticipation_ns)
+
+    def hset(new, old, pred=tag_it):
+        return torch.where(pred, new, old)
+
+    push_it = requesting & ~empty
+    wpos = torch.remainder(st.q_head + st.depth - 1, st.ring_capacity)
+    col = torch.arange(st.ring_capacity, dtype=torch.int32,
+                       device=st.device)
+    write = push_it[:, None] & (col[None, :] == wpos[:, None])
+    return st._replace(
+        idle=st.idle & ~requesting,
+        prop_delta=prop_delta,
+        head_resv=hset(r, st.head_resv),
+        head_prop=hset(p, st.head_prop),
+        head_limit=hset(l, st.head_limit),
+        head_arrival=hset(t_arr, st.head_arrival),
+        head_cost=hset(cost, st.head_cost),
+        head_rho=hset(rho, st.head_rho),
+        head_ready=st.head_ready & ~tag_it,
+        prev_resv=hset(_fold_prev(st.prev_resv, r), st.prev_resv),
+        prev_prop=hset(_fold_prev(st.prev_prop, p), st.prev_prop),
+        prev_limit=hset(_fold_prev(st.prev_limit, l), st.prev_limit),
+        prev_arrival=hset(t_arr, st.prev_arrival),
+        q_arrival=torch.where(write, t_arr[:, None], st.q_arrival),
+        q_cost=torch.where(write, cost[:, None], st.q_cost),
+        depth=torch.where(requesting, st.depth + 1, st.depth),
+        cur_rho=hset(rho, st.cur_rho, requesting),
+        cur_delta=hset(delta, st.cur_delta, requesting),
+    )
+
+
+# ----------------------------------------------------------------------
+# GC scatters (host-driven do_clean)
+# ----------------------------------------------------------------------
+
+def _slot_index(slots, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(slots, dtype=np.int64)
+                           if not torch.is_tensor(slots) else slots,
+                           device=device).to(torch.int64)
+
+
+def mark_idle(state: EngineState, slots) -> EngineState:
+    """Mark ``slots`` idle (oracle do_clean's idle branch; reference
+    :1206-1255).  Out of place."""
+    idx = _slot_index(slots, state.device)
+    return state._replace(idle=state.idle.index_put(
+        (idx,), torch.ones((), dtype=torch.bool, device=state.device)))
+
+
+def deactivate(state: EngineState, slots) -> EngineState:
+    """Erase the clients at ``slots`` (the host recycles the slots).
+    Out of place."""
+    idx = _slot_index(slots, state.device)
+    return state._replace(
+        active=state.active.index_put(
+            (idx,), torch.zeros((), dtype=torch.bool,
+                                device=state.device)),
+        depth=state.depth.index_put(
+            (idx,), torch.zeros((), dtype=torch.int32,
+                                device=state.device)))

@@ -1,5 +1,5 @@
-"""The serving entry points: the ``serve``, ``chain`` and ``cfg4``
-workloads.
+"""The serving entry points: the ``serve``, ``chain``, ``cfg4`` and
+``queue`` workloads.
 
 ``serve_only`` builds a preloaded steady-state backlog (every client
 queued ``depth`` deep, weights 1..4, a reservation of 100 ops/s, no
@@ -28,6 +28,11 @@ retunes the arrival and reservation rates toward a 0.5 reservation
 share, is load-generator logic and is not ported: the rounds run at the
 bench's starting values.
 
+``serve_queue`` drives the pull queue API (``engine.queue``) at cfg3's
+population, 10,000 clients, through the exact serial engine (no K1 or
+K2 launch); ``virtual_server`` runs the push queue in the virtual-time
+embedding, or the pull queue, behind a simulated server.
+
 Run it (on the card; ``--device cpu`` for a small CPU run)::
 
     python -m dmclock_tpu_torch.serve --n 100000 --epochs 3
@@ -35,23 +40,31 @@ Run it (on the card; ``--device cpu`` for a small CPU run)::
     python -m dmclock_tpu_torch.serve --workload chain --epochs 1
     python -m dmclock_tpu_torch.serve --workload cfg4 --rounds 3
     python -m dmclock_tpu_torch.serve --workload cfg4 --n 256 --device cpu
+    python -m dmclock_tpu_torch.serve --workload queue [--n 10000]
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import heapq
 import json
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .core.qos import ClientInfo
+from .core.recs import ReqParams
 from .core.timebase import MAX_TAG, rate_to_inv_ns
 from .device import DEFAULT_DEVICE, resolve_device
 from .engine.bridge import state_from_numpy
 from .engine.fastpath import (CalendarEpoch, scan_calendar_epoch,
                               scan_chain_epoch, scan_prefix_epoch)
 from .engine.kernels import as_scalar, ingest_superwave
+from .engine.push_queue import TpuPushPriorityQueue
+from .engine.queue import TpuPullPriorityQueue
 from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS
 from .obs import device as obsdev
 
@@ -399,11 +412,319 @@ def serve_cfg4(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
     return cfg4_rounds(state, draws)
 
 
+# ----------------------------------------------------------------------
+# the pull and push queue API at full width
+# ----------------------------------------------------------------------
+
+# the queue workload's shape: cfg3's sustained population (bench.py
+# cfg3 mode, 10,000 clients) behind the pull queue, one 100 ms round of
+# arrivals (cfg3's dt_round_ns) loaded through add_request
+QUEUE = dict(adds_per_client=24, dt_round_ns=100_000_000, spec=64,
+             batch=2048, stream_chunks=4, stream_dt_ns=1_000_000,
+             stream_batch=256, pulls=512, pull_dt_ns=2_000,
+             interleaved_adds=1000, updates=100, removes=10,
+             final_batch=128)
+
+
+def queue_classes(n: int, seed: int = 3) -> list:
+    """``n`` ``ClientInfo``s, a seeded third of each class: cfg3's
+    (reservation 100 ops/s, weight 1, no limit), the acceptance
+    config's (``configs/dmc_sim_100th.conf``: reservation 20, weight 1,
+    limit 60 ops/s), and best effort (weight 2-4, no reservation, no
+    limit)."""
+    rng = np.random.default_rng(seed)
+    cls = rng.permutation(np.arange(n) % 3)
+    weight = rng.integers(2, 5, n)
+    return [ClientInfo(100.0, 1.0, 0.0) if c == 0
+            else ClientInfo(20.0, 1.0, 60.0) if c == 1
+            else ClientInfo(0.0, float(w), 0.0)
+            for c, w in zip(cls.tolist(), weight.tolist())]
+
+
+def queue_bulk_load(q, n: int, seed: int = 3) -> int:
+    """Add the bulk load to the pull queue ``q`` without a flush: 24
+    requests per client at seeded times over one 100 ms round, in time
+    order; client ``c``'s ``j``-th is request ``(c, j)``.  Returns the
+    number of adds."""
+    k = QUEUE["adds_per_client"]
+    rng = np.random.default_rng(seed + 1)
+    t_add = rng.integers(0, QUEUE["dt_round_ns"], (n, k))
+    order = np.argsort(t_add, axis=None, kind="stable")
+    seq = np.zeros(n, dtype=np.int64)
+    for c, t in zip((order // k).tolist(), t_add.reshape(-1)[order].tolist()):
+        q.add_request((c, int(seq[c])), c, ReqParams(), time_ns=t)
+        seq[c] += 1
+    return n * k
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def pullreq_row(pr) -> tuple:
+    """A ``PullReq`` as a comparable tuple (phase by value)."""
+    return (pr.type.value, pr.client, pr.request,
+            None if pr.phase is None else int(pr.phase), pr.cost,
+            pr.when_ready)
+
+
+class QueueRun(NamedTuple):
+    """Everything ``serve_queue`` observed, for exact comparison between
+    devices, plus the host wall time of each stage."""
+
+    pulls: list        # every PullReq handed out, as pullreq_row tuples
+    removed: list      # requests remove_by_client handed back
+    counters: dict     # scheduling, speculative-buffer and GC counters
+    ledger: dict       # client -> ledger row (list)
+    slo: dict          # client -> open SLO window row (list)
+    rolled: list       # roll_slo_windows() rows
+    departed: list     # departed_report() rows
+    state: EngineState
+    seconds: dict      # stage -> host wall seconds
+    stats: dict        # adds, decisions, segments, ...
+
+
+def serve_queue(n: int = 10_000, seed: int = 3, *,
+                device: str | torch.device = DEFAULT_DEVICE) -> QueueRun:
+    """The ``queue`` workload: ``n`` clients behind one
+    ``TpuPullPriorityQueue(speculative_batch=64)`` on ``device``.
+
+    Bulk load: 24 ``add_request``s per client at seeded times over one
+    100 ms round, in time order (capacity grows 128 -> n's power of two,
+    the ring 16 -> 32), then a flush.  Serving, in order: two
+    ``pull_batch(100 ms, 2048)``; ``pull_batch_stream`` of 4 windows of
+    256 at 1 ms spacing; 512 ``pull_request``s at an advancing now with
+    1,000 adds interleaved (a tenth to new clients); ``update_client_info``
+    for 100 clients; ``remove_by_client`` for 10; one
+    ``remove_by_req_filter``; ``do_clean`` under an injected monotonic
+    clock past the idle and the erase age (idle marks, erases, recycled
+    slots, a reactivation); a last ``pull_batch``.  Every stage's wall
+    time is host-paced: each launch reads its decisions back."""
+    dev = resolve_device(device)
+    c = QUEUE
+    infos = queue_classes(n + c["interleaved_adds"] + 100, seed)
+    clock = [0.0]
+    q = TpuPullPriorityQueue(lambda cid: infos[cid],
+                             speculative_batch=c["spec"],
+                             monotonic_clock=lambda: clock[0], device=dev)
+    rng = np.random.default_rng(seed + 2)
+    pulls, seconds = [], {}
+    nxt = {cid: c["adds_per_client"] for cid in range(n)}
+
+    def add(cid, t):
+        seq = nxt.get(cid, 0)
+        nxt[cid] = seq + 1
+        return q.add_request((cid, seq), cid, ReqParams(), time_ns=t)
+
+    def stage(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def bulk():
+        adds = queue_bulk_load(q, n, seed)
+        q.flush()
+        return adds
+
+    adds = stage("bulk_load", bulk)
+    t = c["dt_round_ns"]
+    growth = dict(capacity=q.state.capacity, ring=q.state.ring_capacity,
+                  segments=q.ingest_segments)
+    for i in range(2):
+        pulls += stage(f"pull_batch_{i}", lambda: [
+            pullreq_row(p) for p in q.pull_batch(t, c["batch"])])
+    t += c["stream_dt_ns"]
+    pulls += stage("stream", lambda: [
+        pullreq_row(p) for w in q.pull_batch_stream(
+            t, c["stream_dt_ns"], c["stream_chunks"], c["stream_batch"])
+        for p in w])
+    t += c["stream_chunks"] * c["stream_dt_ns"]
+    add_at = np.sort(rng.integers(0, c["pulls"], c["interleaved_adds"]))
+    targets = rng.integers(0, n, c["interleaved_adds"])
+    fresh = n
+
+    def interleaved():
+        nonlocal t, fresh
+        out, j = [], 0
+        for i in range(c["pulls"]):
+            t += c["pull_dt_ns"]
+            while j < add_at.size and add_at[j] == i:
+                if j % 10 == 0:
+                    cid, fresh = fresh, fresh + 1
+                else:
+                    cid = int(targets[j])
+                add(cid, t)
+                j += 1
+            out.append(pullreq_row(q.pull_request(t)))
+        return out
+
+    hits0 = q.spec_hits
+    pulls += stage("pull_request", interleaved)
+    hit_share = (q.spec_hits - hits0) / c["pulls"]
+
+    removed = []
+
+    def admin():
+        for cid in rng.choice(n, c["updates"], replace=False).tolist():
+            infos[cid].update(50.0, 2.0, 0.0)
+            q.update_client_info(cid)
+        for cid in rng.choice(n, c["removes"], replace=False).tolist():
+            q.remove_by_client(cid, accum=removed.append)
+        q.remove_by_req_filter(
+            lambda r: r[0] % 50 == 7 and r[1] % 3 == 0)
+
+    stage("admin", admin)
+
+    def clean():
+        nonlocal t, fresh
+        q.do_clean()                       # mark point 0
+        t += c["pull_dt_ns"]
+        out = [pullreq_row(p) for p in q.pull_batch(t, 64)]
+        for cid in range(0, n, 20):
+            add(cid, t)
+        clock[0] = q.idle_age_s + 100.0
+        q.do_clean()                       # idle marks
+        clock[0] = q.erase_age_s + 100.0
+        q.do_clean()                       # erases, up to erase_max
+        for _ in range(100):               # new tenants on freed slots
+            add(fresh, t)
+            fresh += 1
+        idle = sorted(q._host_idle)
+        if idle:                           # an idle client reactivates
+            add(q._client_of[idle[0]], t)
+        t += c["pull_dt_ns"]
+        return out + [pullreq_row(p) for p in
+                      q.pull_batch(t, c["final_batch"])]
+
+    pulls += stage("clean", clean)
+    departed = [(cid, row.tolist()) for cid, row in q.departed_report()]
+    rolled = q.roll_slo_windows()
+    q.settle()
+    counters = dict(
+        reservation=q.reserv_sched_count, priority=q.prop_sched_count,
+        limit_break=q.limit_break_sched_count, spec_hits=q.spec_hits,
+        spec_refills=q.spec_refills, spec_settles=q.spec_settles,
+        spec_replays=q.spec_replays, slot_recycles=q.slot_recycles,
+        ingest_segments=q.ingest_segments, clients=q.client_count(),
+        requests=q.request_count())
+    decisions = sum(1 for p in pulls if p[0] == 0)
+    stats = dict(
+        n=n, adds=adds, growth=growth, decisions=decisions,
+        batch_decisions=sum(1 for p in pulls[:2 * c["batch"]]
+                            if p[0] == 0),
+        hit_share=hit_share,
+        device_mb=sum(x.numel() * x.element_size()
+                      for x in q.state) / 1e6)
+    return QueueRun(
+        pulls=pulls, removed=removed, counters=counters,
+        ledger={cid: r.tolist() for cid, r in q.ledger_rows().items()},
+        slo={cid: r.tolist() for cid, r in q.slo_window_rows().items()},
+        rolled=rolled, departed=departed, state=q.state, seconds=seconds,
+        stats=stats)
+
+
+# the push check's server: 32 service slots at 640 us an op (50,000
+# ops/s), arrivals within 5 ms, so a backlog forms and limited clients
+# wait
+PUSH = dict(threads=32, op_ns=640_000, window_ns=5_000_000)
+
+
+def virtual_server(mode: str, n: int = 1000, seed: int = 5, *,
+                   device: str | torch.device = DEFAULT_DEVICE):
+    """A server of ``PUSH["threads"]`` service slots in virtual time,
+    fed by ``n`` clients (``queue_classes``) sending one request each at
+    seeded times within ``PUSH["window_ns"]``.  ``mode="push"``: a
+    ``TpuPushPriorityQueue`` in the virtual-time embedding dispatches
+    through ``handle_f``, sized by ``capacity_f`` (the free slots), and
+    arms its wakeups through ``sched_at_f``.  ``mode="pull"``: the
+    server pulls ``pull_batch(now, free)`` from a
+    ``TpuPullPriorityQueue`` on each arrival, completion and wakeup.
+    The two make the same decisions.  Returns ``(dispatch order,
+    wakeups fired)``, the order a list of ``(virtual ns, client,
+    request, phase)``."""
+    if mode not in ("push", "pull"):
+        raise ValueError(f"mode {mode!r} is not push or pull")
+    dev = resolve_device(device)
+    infos = queue_classes(n, seed)
+    rng = np.random.default_rng(seed)
+    threads = PUSH["threads"]
+    events, order = [], []
+    st = dict(now=0, busy=0, seq=0, armed=None, woke=0)
+
+    def at(when, fn):
+        heapq.heappush(events, (when, st["seq"], fn))
+        st["seq"] += 1
+
+    def start(client, request, phase, cost):
+        st["busy"] += 1
+        order.append((st["now"], client, request, int(phase)))
+        at(st["now"] + PUSH["op_ns"] * cost, complete)
+
+    def complete():
+        st["busy"] -= 1
+        if mode == "push":
+            q.request_completed()
+        else:
+            dispatch()
+
+    def fire():
+        st["armed"] = None
+        st["woke"] += 1
+        if mode == "push":
+            q.sched_ahead_fire()
+        else:
+            dispatch()
+
+    def sched_at(when):
+        if st["armed"] is None or when < st["armed"]:
+            st["armed"] = when
+            at(max(when, st["now"]), fire)
+
+    def dispatch():
+        while st["busy"] < threads:
+            done = False
+            for pr in q.pull_batch(st["now"], threads - st["busy"]):
+                if pr.is_retn():
+                    start(pr.client, pr.request, pr.phase, pr.cost)
+                else:
+                    if pr.is_future():
+                        sched_at(pr.when_ready)
+                    done = True
+            if done:
+                break
+
+    def arrive(cid, j):
+        q.add_request((cid, j), cid, ReqParams(), time_ns=st["now"])
+        if mode == "pull":
+            dispatch()
+
+    if mode == "push":
+        q = TpuPushPriorityQueue(
+            lambda cid: infos[cid], lambda: st["busy"] < threads, start,
+            capacity_f=lambda: threads - st["busy"],
+            now_ns_f=lambda: st["now"], sched_at_f=sched_at, device=dev)
+    else:
+        q = TpuPullPriorityQueue(lambda cid: infos[cid], device=dev)
+    for when, cid in sorted((int(rng.integers(0, PUSH["window_ns"])), cid)
+                            for cid in range(n)):
+        at(when, functools.partial(arrive, cid, 0))
+    while events:
+        st["now"], _, fn = heapq.heappop(events)
+        fn()
+    q.shutdown()
+    return order, st["woke"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("serve", "chain", "cfg4"),
-                    default="serve")
-    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--workload", choices=("serve", "chain", "cfg4",
+                                           "queue"), default="serve")
+    ap.add_argument("--n", type=int, default=None,
+                    help="clients (100000; queue 10000)")
     ap.add_argument("--depth", type=int, default=320,
                     help="serve, chain: queue depth and ring size")
     ap.add_argument("--k", type=int, default=65536,
@@ -420,6 +741,19 @@ def main(argv=None) -> int:
                     help="serve: batches per ring-window prefetch")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     a = ap.parse_args(argv)
+    if a.workload == "queue":
+        r = serve_queue(10_000 if a.n is None else a.n, device=a.device)
+        sec = r.seconds
+        print(json.dumps({
+            "workload": "queue", "device": str(r.state.device),
+            **r.stats, "counters": r.counters,
+            "bulk_adds_per_s": r.stats["adds"] / sec["bulk_load"],
+            "pull_batch_decisions_per_s": r.stats["batch_decisions"]
+            / (sec["pull_batch_0"] + sec["pull_batch_1"]),
+            "pull_request_per_s": QUEUE["pulls"] / sec["pull_request"],
+            "seconds": sec}))
+        return 0
+    a.n = 100_000 if a.n is None else a.n
     knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
     if a.workload == "serve":
         res = serve_only(a.n, a.depth, a.k, 32 if a.m is None else a.m,

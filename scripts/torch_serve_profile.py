@@ -6,6 +6,7 @@ goes on the card (PyTorch port).
     python3 scripts/torch_serve_profile.py --tag-width 32 --high-rate
     python3 scripts/torch_serve_profile.py --workload chain [--m 8]
     python3 scripts/torch_serve_profile.py --workload cfg4 [--rounds 1]
+    python3 scripts/torch_serve_profile.py --workload queue [--n 10000]
 
 Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
 ``serve`` backlog, with ``--high-rate`` the same backlog at 1000x the
@@ -18,7 +19,10 @@ eligible), each with its ``--select-impl`` and ``--tag-width``.  Prints, on the 
 device busy time (the union of kernel intervals) and so the device idle
 share, the number of kernel launches, the device time of the port's
 kernels (K1 ``ring_window``, K2 ``wheel_scan``) and their share, and
-the operators that take most device time.  The full table goes to
+the operators that take most device time.  ``queue`` profiles two
+windows of the pull queue at the chip shape (``serve.serve_queue``):
+the flush that ingests the bulk load's last rows, and one
+``pull_batch(100 ms, 2048)`` (with its launches per decision).  The full table goes to
 ``chiprun_out/<workload>[_<knobs>]_profile.txt``.  Needs CUDA; exits non-zero
 without.
 """
@@ -54,9 +58,10 @@ def _busy_us(intervals) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("serve", "chain", "cfg4"),
-                    default="serve")
-    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--workload", choices=("serve", "chain", "cfg4",
+                                           "queue"), default="serve")
+    ap.add_argument("--n", type=int, default=None,
+                    help="clients (100000; queue 10000)")
     ap.add_argument("--depth", type=int, default=320,
                     help="serve, chain: queue depth and ring size")
     ap.add_argument("--k", type=int, default=65536)
@@ -74,24 +79,28 @@ def main(argv=None) -> int:
                     help="table file (chiprun_out/<workload>[_<knobs>]"
                     "_profile.txt)")
     a = ap.parse_args(argv)
+    if a.n is None:
+        a.n = 10_000 if a.workload == "queue" else 100_000
     knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
     tag = "".join([f"_{a.select_impl}" if a.select_impl != "sort" else "",
                    f"_tag{a.tag_width}" if a.tag_width != 64 else "",
                    "_high_rate" if a.high_rate else ""])
     out = a.out or os.path.join(ROOT, "chiprun_out",
                                 f"{a.workload}{tag}_profile.txt")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs CUDA", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from dmclock_tpu_torch import serve
     from dmclock_tpu_torch.obs import device as obsdev
-    from torch.profiler import ProfilerActivity, profile
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    if a.workload == "queue":
+        return _profile_queue(serve, a.n, card, out)
     if a.workload == "serve":
         m = 32 if a.m is None else a.m
         if a.high_rate:
@@ -123,6 +132,26 @@ def main(argv=None) -> int:
         def run():
             return serve.cfg4_rounds(st, draws[1:],
                                      t0=serve.CFG4["dt_round_ns"])
+    res, prof = _profiled(run)
+    table = prof.pop("table")
+    with open(out, "w") as f:
+        f.write(f"{card}\n{table}\n")
+    print(table)
+    print(json.dumps({
+        "card": card, "workload": a.workload, **shape,
+        "decisions": int(res.count.sum()),
+        "metrics": obsdev.metrics_dict(res.metrics), **prof}))
+    return 0
+
+
+def _profiled(run):
+    """``run()`` under ``torch.profiler`` (CPU and CUDA activities):
+    ``(result, stats)``, stats with the host wall time, the device busy
+    time (the union of kernel intervals), the idle share, the launches,
+    the port kernels' time and share, the top operators by device time,
+    and the operator table under ``"table"``."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -130,7 +159,6 @@ def main(argv=None) -> int:
         res = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    decisions = int(res.count.sum())
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us((e.time_range.start, e.time_range.end)
@@ -141,26 +169,49 @@ def main(argv=None) -> int:
     port_n = {name: sum(1 for e in kernels if name in e.name)
               for name in port_us}
     averages = prof.key_averages()
-    table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(out, "w") as f:
-        f.write(f"{card}\n{table}\n")
     top = sorted(averages, key=lambda e: -e.self_device_time_total)[:12]
-    print(table)
-    print(json.dumps({
-        "card": card, "workload": a.workload, **shape,
-        "decisions": decisions,
-        "metrics": obsdev.metrics_dict(res.metrics),
+    return res, {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "kernel_launches": len(kernels),
         "port_kernels": {name: {"launches": port_n[name],
                                 "device_ms": port_us[name] / 1e3,
-                                "share_of_busy": port_us[name] / busy}
+                                "share_of_busy": port_us[name]
+                                / max(busy, 1e-9)}
                          for name in port_us},
         "top_device_ms": {e.key: e.self_device_time_total / 1e3
-                          for e in top}}))
+                          for e in top},
+        "table": averages.table(sort_by="self_cuda_time_total",
+                                row_limit=40)}
+
+
+def _profile_queue(serve, n: int, card: str, out: str) -> int:
+    """The pull queue at the chip shape: the bulk load's last flush and
+    one ``pull_batch(100 ms, 2048)``, each profiled."""
+    from dmclock_tpu_torch.engine.queue import TpuPullPriorityQueue
+
+    c = serve.QUEUE
+    infos = serve.queue_classes(n)
+    q = TpuPullPriorityQueue(lambda cid: infos[cid],
+                             speculative_batch=c["spec"], device="cuda")
+    adds = serve.queue_bulk_load(q, n)
+    rows = len(q._pending)
+    _, flush = _profiled(q.flush)
+    q.pull_batch(c["dt_round_ns"], 8)                      # warm
+    batch, pull = _profiled(lambda: q.pull_batch(c["dt_round_ns"],
+                                                 c["batch"]))
+    decisions = sum(1 for p in batch if p.is_retn())
+    with open(out, "w") as f:
+        f.write(f"{card}\n[flush of {rows} rows]\n{flush.pop('table')}\n"
+                f"[pull_batch {c['batch']}]\n{pull.pop('table')}\n")
+    pull["launches_per_decision"] = pull["kernel_launches"] / decisions
+    print(json.dumps({
+        "card": card, "workload": "queue", "n": n, "adds": adds,
+        "capacity": q.state.capacity, "ring": q.state.ring_capacity,
+        "flush": dict(flush, rows=rows,
+                      launches_per_row=flush["kernel_launches"] / rows),
+        "pull_batch": dict(pull, decisions=decisions)}))
     return 0
 
 

@@ -285,3 +285,81 @@ def test_chain_epoch_on_the_card_equals_cpu(cuda):
         _assert_results_equal(got, want, f"tag{width}")
         if width == 64:
             assert int(want.count.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_ingest_on_the_card_equals_cpu(cuda):
+    """A batch of creates, repeated adds and reactivating adds, ingested
+    on the card and on the CPU: the same state, field by field."""
+    from dmclock_tpu_torch.engine.state import init_state
+
+    rng = np.random.default_rng(61)
+    n, q = 256, 16
+    rows, made, depth = [], 0, np.zeros(n, dtype=np.int64)
+    for i in range(3000):
+        if made < n and (made == 0 or rng.random() < 0.1):
+            rows.append((tk.OP_CREATE, made, 0, 0, 0, 0,
+                         int(rng.integers(10**6, 10**9)),
+                         int(rng.integers(10**6, 10**9)), 0, made))
+            made += 1
+            continue
+        s = int(rng.integers(0, made))
+        if depth[s] < q:
+            depth[s] += 1
+            rows.append((tk.OP_ADD, s, 10**9 + i * 1000, 1, 1, 1, 0, 0, 0,
+                         0))
+    rows = np.asarray(rows, dtype=np.int64).T
+    want = tk.ingest(init_state(n, q, device="cpu"), tk.IngestOps(*rows),
+                     anticipation_ns=0)
+    got = tk.ingest(init_state(n, q, device=cuda), tk.IngestOps(*rows),
+                    anticipation_ns=0)
+    for f, a, b in zip(want._fields, got, want):
+        assert torch.equal(a.cpu(), b), f
+
+
+@pytest.mark.cuda
+def test_queue_on_the_card_equals_cpu(cuda):
+    """The pull queue's API at 300 clients (bulk load with growth,
+    pull_batch, a stream, buffered pulls with adds between, do_clean with
+    erases), and the push queue behind the virtual server at 100: on the
+    card equal to the CPU, and no K1 or K2 launch."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.core.recs import ReqParams
+    from dmclock_tpu_torch.engine.queue import TpuPullPriorityQueue
+
+    def run(device):
+        infos = serve.queue_classes(400)
+        clock = [0.0]
+        q = TpuPullPriorityQueue(lambda c: infos[c], speculative_batch=16,
+                                 monotonic_clock=lambda: clock[0],
+                                 device=device)
+        serve.queue_bulk_load(q, 300)
+        t = serve.QUEUE["dt_round_ns"]
+        out = [serve.pullreq_row(p) for p in q.pull_batch(t, 128)]
+        out += [serve.pullreq_row(p) for w in
+                q.pull_batch_stream(t, 10**6, 2, 32) for p in w]
+        for i in range(64):
+            t += 2000
+            if i % 4 == 0:
+                q.add_request(("x", i), 300 + i // 4, ReqParams(), time_ns=t)
+            out.append(serve.pullreq_row(q.pull_request(t)))
+        q.do_clean()
+        clock[0] = 1000.0
+        q.do_clean()
+        q.settle()
+        return out, q.ledger_rows(), q.departed_report(), q.state
+
+    before = dict(_ext.LAUNCHES)
+    got = run(cuda)
+    assert dict(_ext.LAUNCHES) == before
+    want = run("cpu")
+    assert got[0] == want[0]
+    assert {k: v.tolist() for k, v in got[1].items()} == \
+        {k: v.tolist() for k, v in want[1].items()}
+    assert [(c, r.tolist()) for c, r in got[2]] == \
+        [(c, r.tolist()) for c, r in want[2]]
+    for f, a, b in zip(want[3]._fields, got[3], want[3]):
+        assert torch.equal(a.cpu(), b), f
+    push, woke = serve.virtual_server("push", 100, device=cuda)
+    assert (push, woke) == serve.virtual_server("pull", 100, device="cpu")
+    assert len(push) == 100 and woke > 0

@@ -101,3 +101,47 @@ def test_chain_and_knobs_leave_jax_unloaded():
             tserve.serve_chain(8, 4, 4, 1, 1)
         with pytest.raises(RuntimeError, match="cuda"):
             tserve.high_rate_state(8, 4)
+
+
+def test_queue_api_leaves_jax_unloaded():
+    """The pull and push queues and the queue workload load no JAX, and
+    default to the card."""
+    code = ("import sys\n"
+            "from dmclock_tpu_torch.core.qos import ClientInfo\n"
+            "from dmclock_tpu_torch.core.recs import ReqParams\n"
+            "from dmclock_tpu_torch.engine.queue import "
+            "TpuPullPriorityQueue\n"
+            "from dmclock_tpu_torch.engine.push_queue import "
+            "TpuPushPriorityQueue\n"
+            "q = TpuPullPriorityQueue(lambda c: ClientInfo(1, 1, 0),\n"
+            "                         speculative_batch=4, device='cpu')\n"
+            "for i in range(8):\n"
+            "    q.add_request(i, i % 3, ReqParams(), time_ns=10**9)\n"
+            "assert q.pull_request(2 * 10**9).is_retn()\n"
+            "assert len(q.pull_batch(2 * 10**9, 4)) == 4\n"
+            "got = []\n"
+            "p = TpuPushPriorityQueue(lambda c: ClientInfo(0, 1, 0),\n"
+            "                         lambda: True,\n"
+            "                         lambda *a: got.append(a),\n"
+            "                         now_ns_f=lambda: 10**9,\n"
+            "                         sched_at_f=lambda t: None,\n"
+            "                         device='cpu')\n"
+            "p.add_request('r', 1, ReqParams())\n"
+            "assert len(got) == 1\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if not torch.cuda.is_available():
+        from dmclock_tpu_torch.core.qos import ClientInfo
+        from dmclock_tpu_torch.engine.push_queue import TpuPushPriorityQueue
+
+        with pytest.raises(RuntimeError, match="cuda"):
+            TpuPushPriorityQueue(lambda c: ClientInfo(0, 1, 0),
+                                 lambda: True, lambda *a: None)
+        with pytest.raises(RuntimeError, match="cuda"):
+            tserve.serve_queue(8)
+        with pytest.raises(RuntimeError, match="cuda"):
+            tserve.virtual_server("push", 8)
