@@ -31,11 +31,14 @@ Phases (any failure raises and the exit code is not 0):
 7. calendar exactness: at a small shape the wheel epoch's per-client
    counts and final state equal the serial engine's, the wheel equals
    the bucketed ladder, and one ladder level equals minstop;
-8. the ``cfg4`` path: ``serve_cfg4`` rounds at full width (100,000
-   clients, ring 128, 64 waves, m=3 batches, 64 steps, 8 levels, the
-   wheel), launch counts reset just before and read just after (K1
-   24 and K2 27 per round); one full-width round of the wheel equals the
-   bucketed ladder's; then rounds are timed, ingest included;
+8. the ``cfg4_wheel`` path (bench's ``cfg4_wheel`` row):
+   ``serve.cfg4_rounds(calendar_impl="wheel")`` at full width (100,000
+   clients, ring 128, 64 waves, m=3 batches, 64 steps, 8 levels), launch
+   counts reset just before and read just after (K1 24 and K2 27 per
+   round); one full-width round with telemetry, SLO and provenance on,
+   wheel equal to the bucketed ladder on every output, the state and
+   the four accumulators, its decisions equal to the telemetry-off
+   round's; then rounds are timed, ingest included;
 9. knob exactness at small shapes: radix epochs equal sort epochs;
    ``tag_width=32`` prefix (sort and radix), chain and calendar epochs
    (all three schemes) equal ``tag_width=64`` on a high-rate state; a
@@ -61,22 +64,45 @@ Phases (any failure raises and the exit code is not 0):
 13. the planner view: ``calendar_stop_ladder`` at the cfg4 shape after
     one round's ingest (8 levels) equals numpy's quantiles of the finite
     stop packs, is nondecreasing, and its rank-1 key is the minimum;
-14. the ``queue`` path: ``serve.serve_queue`` at full width (10,000
+14. the ``cfg3`` path (bench's ``cfg3`` row): ``serve.cfg3_rounds`` at
+    full width (10,000 clients, weights 1-4, reservation 100 ops/s, ring
+    256 preloaded 128 deep, 32 waves in 100 ms rounds, m=32 prefix
+    batches of k=4096) with telemetry, SLO and provenance on, launch
+    counts reset just before and read just after (K1 once a round);
+    every round's guards, its metrics' decision row, and the growth of
+    the ledger's and the SLO block's ops against its counts; timed
+    rounds (median, mean and median-based rates); bench's derived
+    scalars; then telemetry on against off, rounds alternated from one
+    state: decisions, state and metrics equal, the time ratio printed;
+15. the ``cfg3_stream`` path: one stream chunk of 8 rounds
+    (``engine.stream``), launch-counted (K1 once an epoch), equal to the
+    8 rounds of the round loop in the state, every per-round output and
+    the four accumulators (the metrics but for ``ingest_drops``, which
+    the chunk does not count); chunk and round loop timed from the same
+    state; one chunk run under ``torch.cuda.set_sync_debug_mode("warn")``
+    and its synchronizing operations counted;
+16. the ``cfg4`` path (bench's ``cfg4`` row, minstop): rounds at full
+    width with telemetry, SLO and provenance on, launch-counted (K1 3 a
+    round, K2 none), each checked as in phase 14; a stream chunk of 2
+    (``cfg4_stream``) equal to the 2 rounds; timed rounds; the derived
+    scalars; telemetry on against off over a round;
+17. the ``queue`` path: ``serve.serve_queue`` at full width (10,000
     clients behind ``TpuPullPriorityQueue(speculative_batch=64)``: a
     240,000-add bulk load, ``pull_batch``, ``pull_batch_stream``,
     ``pull_request`` with adds interleaved, client updates, removals,
-    ``do_clean`` with erases and recycled slots), launch counts reset just
-    before and read just after (it launches neither K1 nor K2), held
-    against the same sequence on the CPU: every ``PullReq``, counter,
-    ledger, SLO and departed row and the final state field by field
-    must be equal;
-15. the ``push`` path: ``serve.virtual_server`` (1,000 clients, 32
+    ``do_clean`` with erases and recycled slots, and a weight-phase
+    window at 1 ms, before every queued reservation tag), launch counts
+    reset just before and read just after (it launches neither K1 nor
+    K2), held against the same sequence on the CPU: every ``PullReq``,
+    counter, ledger, SLO and departed row and the final state field by
+    field must be equal;
+18. the ``push`` path: ``serve.virtual_server`` (1,000 clients, 32
     service slots, the virtual-time embedding): the push queue on the
     card dispatches in the order the pull queue does on the CPU on the
     same arrivals, sched-ahead wakeups among them; then a threaded push
     queue whose sched-ahead thread dispatches a limit-deferred request.
 
-The CPU runs of phases 14 and 15 run beside the card's, in a child
+The CPU runs of phases 17 and 18 run beside the card's, in a child
 process on four CPU threads (``start_cpu_twins``) started only then, so
 the earlier phases' host-paced timings have no CPU load beside them;
 the card runs both phases before either is held against its twin, so
@@ -84,11 +110,14 @@ the twins have that time to finish.  The script stops the child on any
 failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
-launch it (phases 6, 8, 10, 11, 12, 13), each count read right after
-that path's run; the queue paths (14, 15) add none.  Prints the kernel
-table as one JSON line, then as the last line
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result
-when CUDA is unavailable or the package is missing.
+launch it (phases 6, 8, 10-16), each count read right after that path's
+run; K2's is the ``cfg4_wheel`` path's; the queue paths (17, 18) add
+none.  Each kernel's entry also carries ``launches_by_path``.  Serve's
+and the rows' rates are printed both as the mean (summed decisions over
+summed event ms) and median-based (one epoch's or round's decisions
+over the median ms).  Prints the kernel table as one JSON line, then as
+the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
+without a result when CUDA is unavailable or the package is missing.
 """
 
 from __future__ import annotations
@@ -121,6 +150,13 @@ TIMED_WIDTHS = 3         # timed epochs of each tag width
 M_CHAIN, CHAIN_DEPTH, CHAIN_NOW = 8, 4, 20_000_000
 TIMED_CHAIN = 3
 N_QUEUE, N_PUSH = 10_000, 1_000
+N_CFG3 = 10_000
+CFG3_ROUNDS = 4          # cfg3 main-path rounds, launch-counted
+CFG3_TIMED = 4           # timed rounds of each of telemetry on and off
+CFG4M_ROUNDS = 2         # cfg4 (minstop) main-path rounds
+CFG4M_TIMED = 3          # timed minstop rounds with telemetry
+CFG4M_ON_OFF = 3         # minstop rounds of each of telemetry on and off
+MET_INGEST_DROPS = 7
 
 # device-memory rate of the H100 SXM (bytes/s, NVIDIA's data sheet),
 # for the bound of a data-movement kernel
@@ -629,11 +665,21 @@ def phase_serve(serve, kernels, ext, obsdev, card: str):
         log(f"[serve] epoch: {decisions[-1]} decisions in {ms[-1]:.3f} ms "
             f"(events), {host_ms:.3f} ms (host clock)")
     med = statistics.median(ms)
-    rate = sum(decisions) / (sum(ms) / 1e3)
     log(f"[serve] on {card}: N={N_SERVE} Q={DEPTH} k={K_SERVE} "
-        f"m={M_SERVE}: median epoch {med:.3f} ms over {TIMED_EPOCHS}, "
-        f"{rate:.1f} decisions/s")
+        f"m={M_SERVE}: median epoch {med:.3f} ms over {TIMED_EPOCHS}; "
+        f"{_rates(decisions, ms)}")
     return launches["ring_window"], res, med
+
+
+def _rates(decisions, ms) -> str:
+    """Both rates of a run of timed epochs or rounds: the mean (summed
+    decisions over summed event ms) and the median-based one (the
+    decisions of one epoch over the median epoch ms)."""
+    med = statistics.median(ms)
+    return (f"mean rate {sum(decisions) / (sum(ms) / 1e3):.1f} decisions/s "
+            f"(summed decisions over summed ms), median-based rate "
+            f"{statistics.median(decisions) / (med / 1e3):.1f} decisions/s "
+            f"(median decisions of one over the median {med:.3f} ms)")
 
 
 def _timed_epoch(run, st):
@@ -700,8 +746,7 @@ def phase_serve_radix(serve, ext, obsdev, sort_res, sort_med: float,
     med = statistics.median(ms)
     log(f"[serve_radix] on {card}: median epoch {med:.3f} ms over "
         f"{TIMED_EPOCHS} ({med / sort_med:.3f}x the sort serve's "
-        f"{sort_med:.3f} ms), "
-        f"{sum(decisions) / (sum(ms) / 1e3):.1f} decisions/s")
+        f"{sort_med:.3f} ms); {_rates(decisions, ms)}")
     return launches["ring_window"]
 
 
@@ -913,8 +958,13 @@ def _equal_tuples(a, b, what: str) -> None:
     metrics without the wheel's own rows)."""
     for f in a._fields:
         x, y = getattr(a, f), getattr(b, f)
-        if f == "state":
-            _equal_tuples(x, y, f"{what} state")
+        if x is None or y is None:   # an accumulator that was off
+            if not (x is None and y is None):
+                raise AssertionError(f"{what}: field {f} is None on one "
+                                     f"side only")
+            continue
+        if isinstance(x, tuple):
+            _equal_tuples(x, y, f"{what} {f}")
             continue
         if f == "metrics":
             keep = torch.ones(x.shape[-1], dtype=torch.bool, device=x.device)
@@ -978,53 +1028,70 @@ def phase_calendar_exact(serve, fp, kernels) -> None:
         f"ladder level equals minstop ({int(mins.count.sum())} decisions)")
 
 
-def phase_cfg4(serve, ext, obsdev, card: str) -> dict:
-    """The cfg4 path at full width: launch-counted rounds, wheel ==
-    bucketed over one round, then timed rounds."""
+def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
+    """The ``cfg4_wheel`` path at full width: launch-counted rounds, wheel
+    == bucketed over one round with telemetry on (all four of bench's
+    accumulators equal, and the decisions equal the counted round 0's,
+    which ran with telemetry off), then timed rounds."""
     c = serve.CFG4
     levels = c["ladder_levels"]
     state0, draws = serve.cfg4_setup(N_CFG4, CFG4_ROUNDS + CFG4_TIMED,
                                      device="cuda")
     torch.cuda.synchronize()
     ext.reset_launches()
-    res = serve.cfg4_rounds(state0, draws[:CFG4_ROUNDS])
+    res = serve.cfg4_rounds(state0, draws[:CFG4_ROUNDS],
+                            calendar_impl="wheel")
     torch.cuda.synchronize()
     launches = dict(ext.LAUNCHES)
-    log(f"[cfg4] kernel launches on the main path over {CFG4_ROUNDS} "
-        f"rounds: {launches}")
+    log(f"[cfg4_wheel] kernel launches on the main path over {CFG4_ROUNDS}"
+        f" rounds: {launches}")
     want = {"ring_window": CFG4_ROUNDS * c["m"] * levels,
             "wheel_scan": CFG4_ROUNDS * c["m"] * (1 + levels)}
     if launches != want:
-        raise AssertionError(f"cfg4 launches {launches}, want {want}")
+        raise AssertionError(f"cfg4_wheel launches {launches}, want {want}")
     met = obsdev.metrics_dict(res.metrics)
     total = int(res.count.sum())
     if not bool(res.progress_ok.all()):
-        raise AssertionError("cfg4: a batch made no progress")
+        raise AssertionError("cfg4_wheel: a batch made no progress")
     if met["decisions_total"] != total or total <= 0:
-        raise AssertionError(f"cfg4: metrics say {met['decisions_total']}"
-                             f" decisions, counts say {total}")
+        raise AssertionError(f"cfg4_wheel: metrics say "
+                             f"{met['decisions_total']} decisions, counts "
+                             f"say {total}")
     if int(res.served.sum()) != total or \
             int(res.level_count.sum()) != total or \
             res.served.shape != (CFG4_ROUNDS, N_CFG4):
-        raise AssertionError("cfg4: per-client or per-level counts "
+        raise AssertionError("cfg4_wheel: per-client or per-level counts "
                              "disagree with the batch counts")
     st = res.state
     if int(st.depth.min()) < 0 or int(st.depth.max()) > c["ring"]:
-        raise AssertionError("cfg4: a queue depth outside [0, ring]")
-    log(f"[cfg4] {CFG4_ROUNDS} rounds: {total} decisions, per-batch "
+        raise AssertionError("cfg4_wheel: a queue depth outside [0, ring]")
+    log(f"[cfg4_wheel] {CFG4_ROUNDS} rounds: {total} decisions, per-batch "
         f"counts {res.count.tolist()}, metrics {json.dumps(met)}")
 
-    # one full-width round, wheel against bucketed, from the same state
-    # and draws; the wheel round also equals the main path's round 0
-    rw = serve.cfg4_rounds(state0, draws[:1], calendar_impl="wheel")
-    rb = serve.cfg4_rounds(state0, draws[:1], calendar_impl="bucketed")
-    _equal_tuples(rw, rb, "full-width round, wheel vs bucketed")
+    # one full-width round with telemetry on, wheel against bucketed,
+    # from the same state and draws; the decisions equal the main path's
+    # round 0 (telemetry off there)
+    plane = serve.slo_plane("cfg4", N_CFG4)
+    tele = serve.tele_zero(N_CFG4, plane=plane, device="cuda")
+    rw = serve.cfg4_rounds(state0, draws[:1], calendar_impl="wheel",
+                           tele=tele)
+    rb = serve.cfg4_rounds(state0, draws[:1], calendar_impl="bucketed",
+                           tele=tele)
+    _equal_tuples(rw, rb, "full-width round with telemetry, wheel vs "
+                  "bucketed")
     for f in ("count", "resv_count", "progress_ok", "served",
               "level_count"):
         if not torch.equal(getattr(rw, f)[0], getattr(res, f)[0]):
-            raise AssertionError(f"cfg4 round 0: {f} differs on a rerun")
-    log(f"[cfg4] full-width round: wheel equals bucketed on every output "
-        f"and the final state ({int(rw.count.sum())} decisions)")
+            raise AssertionError(f"cfg4_wheel round 0: {f} differs with "
+                                 f"telemetry on")
+    led = int(rw.tele.ledger[:, 0].sum())
+    if led != int(rw.count.sum()):
+        raise AssertionError("cfg4_wheel: the ledger's ops disagree")
+    log(f"[cfg4_wheel] full-width round with telemetry, SLO and provenance "
+        f"on: wheel equals bucketed on every output, the final state and "
+        f"the histograms, ledger, SLO window and provenance blocks "
+        f"({int(rw.count.sum())} decisions, ledger ops {led}), and its "
+        f"decisions equal the telemetry-off round's")
     del rw, rb, state0
 
     # timed rounds: CUDA events around each round, ingest inside
@@ -1035,7 +1102,7 @@ def phase_cfg4(serve, ext, obsdev, card: str) -> dict:
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = serve.cfg4_rounds(st, draws[r:r + 1],
+        out = serve.cfg4_rounds(st, draws[r:r + 1], calendar_impl="wheel",
                                 t0=r * c["dt_round_ns"])
         end.record()
         torch.cuda.synchronize()
@@ -1045,28 +1112,326 @@ def phase_cfg4(serve, ext, obsdev, card: str) -> dict:
         decisions.append(int(out.count.sum()))
         met_t = obsdev.metrics_combine(met_t, out.metrics)
         if not bool(out.progress_ok.all()):
-            raise AssertionError("cfg4: a timed batch made no progress")
-        log(f"[cfg4] round {r}: {decisions[-1]} decisions in "
+            raise AssertionError("cfg4_wheel: a timed batch made no "
+                                 "progress")
+        log(f"[cfg4_wheel] round {r}: {decisions[-1]} decisions in "
             f"{ms[-1]:.3f} ms (events), {host[-1]:.3f} ms (host clock)")
     mt = obsdev.metrics_dict(met_t)
     if mt["decisions_total"] != sum(decisions):
-        raise AssertionError("cfg4: timed metrics disagree with counts")
-    rate = sum(decisions) / (sum(ms) / 1e3)
-    log(f"[cfg4] on {card}: N={N_CFG4} ring={c['ring']} waves={c['waves']}"
-        f" m={c['m']} steps={c['steps']} levels={levels}: median round "
-        f"{statistics.median(ms):.3f} ms over {CFG4_TIMED}, "
-        f"{sum(decisions) / CFG4_TIMED:.1f} decisions per round, "
-        f"{rate:.1f} decisions/s, ingest_drops {mt['ingest_drops']}, "
+        raise AssertionError("cfg4_wheel: timed metrics disagree with "
+                             "counts")
+    log(f"[cfg4_wheel] on {card}: N={N_CFG4} ring={c['ring']} "
+        f"waves={c['waves']} m={c['m']} steps={c['steps']} levels={levels}"
+        f": median round {statistics.median(ms):.3f} ms over {CFG4_TIMED},"
+        f" {sum(decisions) / CFG4_TIMED:.1f} decisions per round; "
+        f"{_rates(decisions, ms)}; ingest_drops {mt['ingest_drops']}, "
         f"reservation share "
         f"{mt['decisions_reservation'] / mt['decisions_total']:.6f}")
     return launches
 
 
+# ----------------------------------------------------------------------
+# the sustained rows with telemetry: cfg3, cfg3_stream, cfg4 (minstop)
+# ----------------------------------------------------------------------
+
+def _sustained_rounds(serve, workload: str, st, draws, tele, r0: int,
+                      rounds: int, **kw):
+    """``rounds`` rounds from round ``r0``, one call each (so each
+    round's accumulators are kept): ``(results, final state, final
+    tele)``."""
+    run = serve.cfg3_rounds if workload == "cfg3" else serve.cfg4_rounds
+    dt = (serve.CFG3 if workload == "cfg3" else serve.CFG4)["dt_round_ns"]
+    out = []
+    for r in range(r0, r0 + rounds):
+        res = run(st, draws[r:r + 1], t0=r * dt, tele=tele, **kw)
+        st, tele = res.state, res.tele
+        out.append(res)
+    return out, st, tele
+
+
+def _check_rounds(obsdev, what: str, results, tele0, guard: str) -> list:
+    """Every round: the guards (or progress) hold, the metrics' decision
+    row equals the counts, and the ledger's and the SLO block's ops
+    grow by the round's decisions.  Returns the per-round decisions."""
+    prev_led = int(tele0.ledger[:, 0].sum())
+    prev_slo = int(tele0.slo[:, 0].sum())
+    out = []
+    for i, res in enumerate(results):
+        total = int(res.count.sum())
+        met = obsdev.metrics_dict(res.metrics)
+        led = int(res.tele.ledger[:, 0].sum())
+        slo = int(res.tele.slo[:, 0].sum())
+        if not bool(getattr(res, guard).all()) or total <= 0 or \
+                met["decisions_total"] != total or \
+                led - prev_led != total or slo - prev_slo != total:
+            raise AssertionError(
+                f"{what} round {i}: {guard} {getattr(res, guard).tolist()},"
+                f" {total} decisions, metrics {met['decisions_total']}, "
+                f"ledger ops +{led - prev_led}, SLO ops +{slo - prev_slo}")
+        prev_led, prev_slo = led, slo
+        out.append(total)
+    return out
+
+
+def _timed_rounds(serve, workload: str, st, draws, tele, r0: int,
+                  rounds: int, **kw):
+    """``rounds`` rounds between CUDA events, one each: ``(ms, host ms,
+    decisions, state, tele)``."""
+    run = serve.cfg3_rounds if workload == "cfg3" else serve.cfg4_rounds
+    dt = (serve.CFG3 if workload == "cfg3" else serve.CFG4)["dt_round_ns"]
+    ms, host, decisions = [], [], []
+    for r in range(r0, r0 + rounds):
+        res, ev, h = _timed_epoch(
+            lambda s: run(s, draws[r:r + 1], t0=r * dt, tele=tele, **kw), st)
+        st, tele = res.state, res.tele
+        ms.append(ev)
+        host.append(h)
+        decisions.append(int(res.count.sum()))
+    return ms, host, decisions, st, tele
+
+
+def _on_off(serve, obsdev, workload: str, st, draws, tele, r0: int,
+            rounds: int, what: str, **kw):
+    """Telemetry on against off at full width: ``rounds`` rounds of each
+    from the same state, alternated, each between CUDA events; every
+    round's decisions, state and metrics equal.  Returns the on/off
+    ratio of the median round times."""
+    st_on = st_off = st
+    tele_off = serve.Tele()
+    ms_on, ms_off = [], []
+    for r in range(r0, r0 + rounds):
+        a = _timed_rounds(serve, workload, st_on, draws, tele, r, 1, **kw)
+        b = _timed_rounds(serve, workload, st_off, draws, tele_off, r, 1,
+                          **kw)
+        ms_on += a[0]
+        ms_off += b[0]
+        if a[2] != b[2]:
+            raise AssertionError(f"{what}: round {r} decisions {a[2]} with "
+                                 f"telemetry, {b[2]} without")
+        _equal_tuples(a[3], b[3], f"{what} round {r}: state, telemetry on "
+                      f"vs off")
+        st_on, tele, st_off = a[3], a[4], b[3]
+    # the decision outputs and the metrics, over one more round each
+    run = serve.cfg3_rounds if workload == "cfg3" else serve.cfg4_rounds
+    dt = (serve.CFG3 if workload == "cfg3" else serve.CFG4)["dt_round_ns"]
+    r = r0 + rounds
+    on = run(st_on, draws[r:r + 1], t0=r * dt, tele=tele, **kw)
+    off = run(st_off, draws[r:r + 1], t0=r * dt, **kw)
+    _equal_tuples(on._replace(tele=None), off._replace(tele=None),
+                  f"{what}: telemetry on vs off")
+    ratio = statistics.median(ms_on) / statistics.median(ms_off)
+    log(f"[{what}] telemetry, SLO and provenance on against off, "
+        f"{rounds + 1} full-width rounds each from the same state: "
+        f"decisions, state and metrics equal; median round "
+        f"{statistics.median(ms_on):.3f} ms on, "
+        f"{statistics.median(ms_off):.3f} ms off (ratio {ratio:.3f}; "
+        f"rounds on {[round(x, 3) for x in ms_on]}, off "
+        f"{[round(x, 3) for x in ms_off]})")
+    return ratio
+
+
+def _scalars_line(serve, tele, st, t_end: int, dt: int) -> str:
+    sc = serve.row_scalars(tele, st, t_end, dt)
+    keys = ("tardiness_p50_ns", "tardiness_p90_ns", "tardiness_p99_ns",
+            "tardiness_mean_ns", "tardiness_max_ns", "margin_p50_ns",
+            "margin_p99_ns", "starvation_max_ns", "limit_gate_share",
+            "starved_clients", "slo_window_totals")
+    return json.dumps({k: sc[k] for k in keys})
+
+
+def phase_cfg3(serve, ext, obsdev, card: str):
+    """Bench's cfg3 row at full width with telemetry, SLO and provenance
+    on: launch-counted rounds (K1 once a round), every round checked,
+    timed rounds, bench's derived scalars; then telemetry on against off.
+    Returns ``(K1 launches, state, tele, draws, next round)``."""
+    c = serve.CFG3
+    n_draws = CFG3_ROUNDS + CFG3_TIMED + max(CFG3_TIMED + 1,
+                                             serve.STREAM_CHUNK)
+    t_phase = time.perf_counter()
+    state0, draws = serve.cfg3_setup(N_CFG3, n_draws, device="cuda")
+    plane = serve.slo_plane("cfg3", N_CFG3)
+    tele0 = serve.tele_zero(N_CFG3, plane=plane, device="cuda")
+    (results, st, tele), launches = _launch_counted(
+        ext, lambda: _sustained_rounds(serve, "cfg3", state0, draws, tele0,
+                                       0, CFG3_ROUNDS),
+        {"ring_window": CFG3_ROUNDS, "wheel_scan": 0}, "cfg3")
+    decisions = _check_rounds(obsdev, "cfg3", results, tele0, "guards_ok")
+    met = obsdev.metrics_dict(results[-1].metrics)
+    log(f"[cfg3] N={N_CFG3} ring={c['ring']} depth0={c['depth0']} "
+        f"waves={c['waves']} m={c['m']} k={c['k']}: {CFG3_ROUNDS} rounds, "
+        f"decisions {decisions}; every guard held, each round's metrics "
+        f"decision row, ledger ops and SLO ops equal its counts; last "
+        f"round's metrics {json.dumps(met)}")
+    r = CFG3_ROUNDS
+    ms, host, dec, st, tele = _timed_rounds(serve, "cfg3", st, draws, tele,
+                                            r, CFG3_TIMED)
+    r += CFG3_TIMED
+    for i, (a, b, d) in enumerate(zip(ms, host, dec)):
+        log(f"[cfg3] round {CFG3_ROUNDS + i}: {d} decisions in {a:.3f} ms "
+            f"(events), {b:.3f} ms (host clock)")
+    log(f"[cfg3] on {card}: median round {statistics.median(ms):.3f} ms "
+        f"over {CFG3_TIMED} (telemetry, SLO and provenance on); "
+        f"{_rates(dec, ms)}; K1 {launches['ring_window'] // CFG3_ROUNDS} a "
+        f"round")
+    log(f"[cfg3] bench's derived scalars after {r} rounds: "
+        + _scalars_line(serve, tele, st, r * c["dt_round_ns"],
+                        c["dt_round_ns"]))
+    ratio = _on_off(serve, obsdev, "cfg3", st, draws, tele, r, CFG3_TIMED,
+                    "cfg3")
+    log(f"[time] cfg3 phase {time.perf_counter() - t_phase:.3f} s")
+    return launches["ring_window"], st, tele, draws, r, ratio
+
+
+def _capture_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: returns
+    ``(result, the synchronizing operations reported)``.  PyTorch's
+    one-time notice that the mode is a prototype is not one of them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return res, syncs
+
+
+def phase_cfg3_stream(serve, ext, obsdev, card: str, st, tele, draws,
+                      r0: int) -> int:
+    """``cfg3_stream``: one chunk of 8 rounds (launch-counted, K1 once an
+    epoch) equals the 8 rounds of the round loop bit for bit (state,
+    per-round outputs, histograms, ledger, SLO block, provenance; the
+    metrics but for ``ingest_drops``, which the chunk does not count);
+    the chunk and the round loop timed from the same state; then one
+    chunk under the sync debug mode, its synchronizing operations
+    counted.  Returns the chunk's K1 launches."""
+    c = serve.CFG3
+    chunk = serve.STREAM_CHUNK
+    t_phase = time.perf_counter()
+    dr = draws[r0:r0 + chunk]
+    t0 = r0 * c["dt_round_ns"]
+    stream, launches = _launch_counted(
+        ext, lambda: serve.cfg3_stream(st, dr, t0=t0, tele=tele),
+        {"ring_window": chunk, "wheel_scan": 0}, "cfg3_stream")
+    rounds = serve.cfg3_rounds(st, dr, t0=t0, tele=tele)
+    def no_drops(res):
+        met = res.metrics.clone()
+        met[MET_INGEST_DROPS] = 0
+        return res._replace(metrics=met)
+
+    _equal_tuples(no_drops(stream), no_drops(rounds),
+                  "cfg3_stream chunk vs the round loop")
+    drops = obsdev.metrics_dict(rounds.metrics)["ingest_drops"]
+    log(f"[cfg3_stream] one chunk of {chunk} rounds equals the {chunk} "
+        f"rounds of the round loop: state, count/guards/slot/phase/cost/lb "
+        f"of every round, histograms, ledger, SLO window and provenance "
+        f"blocks, and the metrics but ingest_drops (the round loop's "
+        f"{drops}); {int(stream.count.sum())} decisions")
+    ms_s, ms_r = [], []
+    for _ in range(3):
+        _, ev, _ = _timed_epoch(
+            lambda s: serve.cfg3_stream(s, dr, t0=t0, tele=tele), st)
+        ms_s.append(ev)
+        _, ev, _ = _timed_epoch(
+            lambda s: serve.cfg3_rounds(s, dr, t0=t0, tele=tele), st)
+        ms_r.append(ev)
+    dec = int(stream.count.sum())
+    log(f"[cfg3_stream] on {card}: a chunk of {chunk} rounds "
+        f"{[round(x, 3) for x in ms_s]} ms (events), the round loop over "
+        f"the same rounds {[round(x, 3) for x in ms_r]} ms; median chunk "
+        f"{statistics.median(ms_s):.3f} ms = "
+        f"{statistics.median(ms_s) / chunk:.3f} ms a round "
+        f"({statistics.median(ms_s) / statistics.median(ms_r):.3f}x the "
+        f"round loop), {dec / (statistics.median(ms_s) / 1e3):.1f} "
+        f"decisions/s")
+    # the detector's control: one read back must be reported
+    _, control = _capture_syncs(lambda: int(stream.count.sum()))
+    if not control:
+        raise AssertionError("cfg3_stream: the sync debug mode reported "
+                             "no sync for a read back")
+    again, syncs = _capture_syncs(
+        lambda: serve.cfg3_stream(st, dr, t0=t0, tele=tele))
+    if not torch.equal(again.count, stream.count):
+        raise AssertionError("cfg3_stream: a rerun of the chunk differs")
+    log(f"[cfg3_stream] synchronizing operations in one chunk under "
+        f"torch.cuda.set_sync_debug_mode('warn'): {len(syncs)}"
+        + (f": {sorted(set(syncs))}" if syncs else "")
+        + f" (the control, one read back, reported {len(control)})")
+    log(f"[time] cfg3_stream phase {time.perf_counter() - t_phase:.3f} s")
+    return launches["ring_window"]
+
+
+def phase_cfg4(serve, ext, obsdev, card: str):
+    """Bench's ``cfg4`` row (minstop) at full width with telemetry, SLO
+    and provenance on: launch-counted rounds (K1 3 a round, no K2),
+    every round checked; a stream chunk of 2 equals the 2 rounds; timed
+    rounds; bench's derived scalars; telemetry on against off over a
+    round.  Returns ``(K1 launches of the rounds, of the chunk, ratio)``."""
+    c = serve.CFG4
+    kw = dict(calendar_impl="minstop")
+    t_phase = time.perf_counter()
+    n_draws = CFG4M_ROUNDS + CFG4M_TIMED + CFG4M_ON_OFF + 1
+    state0, draws = serve.cfg4_setup(N_CFG4, n_draws, device="cuda")
+    plane = serve.slo_plane("cfg4", N_CFG4)
+    tele0 = serve.tele_zero(N_CFG4, plane=plane, device="cuda")
+    (results, st, tele), launches = _launch_counted(
+        ext, lambda: _sustained_rounds(serve, "cfg4", state0, draws, tele0,
+                                       0, CFG4M_ROUNDS, **kw),
+        {"ring_window": CFG4M_ROUNDS * c["m"], "wheel_scan": 0}, "cfg4")
+    decisions = _check_rounds(obsdev, "cfg4", results, tele0, "progress_ok")
+    log(f"[cfg4] minstop N={N_CFG4} ring={c['ring']} waves={c['waves']} "
+        f"m={c['m']} steps={c['steps']}: {CFG4M_ROUNDS} rounds, decisions "
+        f"{decisions}; every batch made progress, each round's metrics "
+        f"decision row, ledger ops and SLO ops equal its counts; last "
+        f"round's metrics "
+        f"{json.dumps(obsdev.metrics_dict(results[-1].metrics))}")
+    stream, slaunch = _launch_counted(
+        ext, lambda: serve.cfg4_stream(state0, draws[:CFG4M_ROUNDS],
+                                       tele=tele0, chunk=CFG4M_ROUNDS, **kw),
+        {"ring_window": CFG4M_ROUNDS * c["m"], "wheel_scan": 0},
+        "cfg4_stream")
+    for f in ("count", "resv_count", "progress_ok", "served",
+              "level_count"):
+        if not torch.equal(getattr(stream, f),
+                           torch.cat([getattr(x, f) for x in results])):
+            raise AssertionError(f"cfg4_stream: {f} differs from the "
+                                 f"rounds")
+    _equal_tuples(stream.state, st, "cfg4_stream state vs the rounds")
+    _equal_tuples(stream.tele, tele, "cfg4_stream telemetry vs the rounds")
+    log(f"[cfg4_stream] one chunk of {CFG4M_ROUNDS} rounds equals the "
+        f"{CFG4M_ROUNDS} rounds: every per-round output, the state, the "
+        f"histograms, ledger, SLO window and provenance blocks")
+    r = CFG4M_ROUNDS
+    ms, host, dec, st, tele = _timed_rounds(serve, "cfg4", st, draws, tele,
+                                            r, CFG4M_TIMED, **kw)
+    r += CFG4M_TIMED
+    for i, (a, b, d) in enumerate(zip(ms, host, dec)):
+        log(f"[cfg4] minstop round {CFG4M_ROUNDS + i}: {d} decisions in "
+            f"{a:.3f} ms (events), {b:.3f} ms (host clock)")
+    log(f"[cfg4] on {card}: minstop, telemetry, SLO and provenance on: "
+        f"median round {statistics.median(ms):.3f} ms over {CFG4M_TIMED}, "
+        f"{sum(dec) / len(dec):.1f} decisions per round; {_rates(dec, ms)};"
+        f" K1 {launches['ring_window'] // CFG4M_ROUNDS} a round, K2 0")
+    log(f"[cfg4] bench's derived scalars after {r} rounds: "
+        + _scalars_line(serve, tele, st, r * c["dt_round_ns"],
+                        c["dt_round_ns"]))
+    ratio = _on_off(serve, obsdev, "cfg4", st, draws, tele, r, CFG4M_ON_OFF,
+                    "cfg4", **kw)
+    log(f"[time] cfg4 (minstop) phase {time.perf_counter() - t_phase:.3f} s")
+    return launches["ring_window"], slaunch["ring_window"], ratio
+
+
 def start_cpu_twins(root: str, out: str) -> subprocess.Popen:
-    """The CPU twins of phases 14 and 15 in a child process on four CPU
+    """The CPU twins of phases 17 and 18 in a child process on four CPU
     threads, with CUDA hidden from it: the whole ``serve_queue`` sequence
     and the pull queue behind ``virtual_server``, started as the card
-    begins phase 14; the results go to ``out`` (``torch.save``)."""
+    begins phase 17; the results go to ``out`` (``torch.save``)."""
     code = (
         "import sys, time, torch\n"
         f"sys.path.insert(0, {root!r})\n"
@@ -1125,8 +1490,10 @@ def check_queue(serve, run, card: str, twin) -> None:
     g = st["growth"]
     if (g["capacity"], g["ring"]) != (16384, 32) or st["decisions"] <= 0 \
             or min(c["spec_hits"], c["spec_refills"], c["spec_replays"],
-                   c["slot_recycles"]) <= 0 or not run.departed:
-        raise AssertionError(f"queue: growth {g}, counters {c}")
+                   c["slot_recycles"], st["weight_phase"]) <= 0 \
+            or not run.departed:
+        raise AssertionError(f"queue: growth {g}, counters {c}, weight "
+                             f"phase {st['weight_phase']}")
     batch_s = sec["pull_batch_0"] + sec["pull_batch_1"]
     log(f"[queue] N={N_QUEUE} on {card}: {st['adds']} adds, capacity "
         f"{g['capacity']}, ring {g['ring']}, {g['segments']} ingest "
@@ -1143,7 +1510,11 @@ def check_queue(serve, run, card: str, twin) -> None:
         f"{sec['stream']:.3f} s; pull_request {sec['pull_request']:.3f} s ="
         f" {serve.QUEUE['pulls'] / sec['pull_request']:.1f} pulls/s, spec "
         f"hit share {st['hit_share']:.6f} (1,000 adds interleaved); admin "
-        f"{sec['admin']:.3f} s, clean {sec['clean']:.3f} s; state "
+        f"{sec['admin']:.3f} s, clean {sec['clean']:.3f} s; the "
+        f"weight-phase window (pull_batch of 256 at 1 ms, before every "
+        f"queued reservation tag): {st['weight_window']} PullReqs, "
+        f"{st['weight_phase']} weight-phase decisions, {sec['weight']:.3f}"
+        f" s, equal to the CPU run's; state "
         f"{st['device_mb']:.3f} MB on the card; CPU run stages "
         f"{json.dumps({k: round(v, 6) for k, v in cpu.seconds.items()})}")
 
@@ -1218,6 +1589,8 @@ def main() -> int:
 
     assert (obsdev.MET_WHEEL_OCC_HWM, obsdev.MET_WHEEL_RESLOTS) == WHEEL_ROWS
     assert obsdev.MET_REBASE_FALLBACKS == MET_REBASE_FALLBACKS
+    assert obsdev.MET_INGEST_DROPS == MET_INGEST_DROPS
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build(_ext)
     k1 = phase_k1(fastpath, cases, card)
@@ -1243,7 +1616,14 @@ def main() -> int:
         now=0, chains=True)
     phase_calendar_exact(serve, fastpath, kernels)
     ladder_k1 = phase_stop_ladder(serve, fastpath, kernels, _ext, card)
-    cfg4 = phase_cfg4(serve, _ext, obsdev, card)
+    wheel = phase_cfg4_wheel(serve, _ext, obsdev, card)
+    t_rows = time.perf_counter()
+    cfg3_k1, st3, tele3, draws3, r3, _ = phase_cfg3(serve, _ext, obsdev,
+                                                     card)
+    stream_k1 = phase_cfg3_stream(serve, _ext, obsdev, card, st3, tele3,
+                                  draws3, r3)
+    del st3, tele3, draws3
+    cfg4_k1, cfg4_stream_k1, _ = phase_cfg4(serve, _ext, obsdev, card)
     t_queue = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "twins.pt")
@@ -1259,16 +1639,23 @@ def main() -> int:
             if twins.poll() is None:
                 twins.kill()
             twins.wait()
-    log(f"[time] phases 6-13 took {t_queue - t_serve:.3f} s, the queue "
-        f"and push phases {time.perf_counter() - t_queue:.3f} s")
+    t_end = time.perf_counter()
+    log(f"[time] phases 6-13 took {t_rows - t_serve:.3f} s, the cfg3, "
+        f"cfg3_stream and cfg4 (minstop) phases {t_queue - t_rows:.3f} s, "
+        f"the queue and push phases {t_end - t_queue:.3f} s; the whole "
+        f"script {t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
-    k1["launches"] = (serve_k1 + radix_k1 + tag32_k1 + chain_k1
-                      + chain_vc_k1 + ladder_k1 + cfg4["ring_window"])
-    log(f"[k1] launches by path: serve {serve_k1}, serve_radix {radix_k1}, "
-        f"serve tag32 {tag32_k1}, chain {chain_k1}, chain_vc "
-        f"{chain_vc_k1}, stop ladder {ladder_k1}, cfg4 "
-        f"{cfg4['ring_window']}")
-    k2["launches"] = cfg4["wheel_scan"]
+    by_path = dict(serve=serve_k1, serve_radix=radix_k1,
+                   serve_tag32=tag32_k1, chain=chain_k1,
+                   chain_vc=chain_vc_k1, stop_ladder=ladder_k1,
+                   cfg4_wheel=wheel["ring_window"], cfg3=cfg3_k1,
+                   cfg3_stream=stream_k1, cfg4=cfg4_k1,
+                   cfg4_stream=cfg4_stream_k1)
+    k1["launches"] = sum(by_path.values())
+    k1["launches_by_path"] = by_path
+    k2["launches"] = wheel["wheel_scan"]
+    # minstop, cfg3, the stream chunks and the queue launch no K2
+    k2["launches_by_path"] = dict(cfg4_wheel=k2["launches"])
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

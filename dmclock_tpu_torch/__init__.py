@@ -10,10 +10,14 @@ written by hand for Hopper under ``engine/csrc/``.
 Layers (each mirrors its counterpart in ``dmclock_tpu``):
   core    -- the int64-ns time/tag constants
   engine  -- SoA client state, the exact serial engine, superwave
-             ingest, the prefix-commit and calendar fast paths, and
-             their kernels (ring window, timer-wheel scan)
-  obs     -- the on-device metrics vector and the admission clamp
-  serve   -- the serving entry points (``serve_only``, ``serve_cfg4``)
+             ingest, the prefix-commit and calendar fast paths, the
+             stream chunk, and their kernels (ring window, timer-wheel
+             scan)
+  obs     -- the on-device metrics vector, the admission clamp and the
+             telemetry accumulators (histograms, ledger, SLO windows,
+             provenance, flight ring)
+  serve   -- the serving entry points (``serve_only``, ``serve_cfg3``,
+             ``serve_cfg4``, the queues)
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; the CPU
 is used only when the caller asks for it, and asking for CUDA on a

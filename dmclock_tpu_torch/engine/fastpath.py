@@ -32,6 +32,10 @@ import torch
 
 from ..core.timebase import MAX_TAG, MIN_TAG
 from ..obs import device as obsdev
+from ..obs import flight as obsflight
+from ..obs import histograms as obshist
+from ..obs import provenance as obsprov
+from ..obs import slo as obsslo
 from . import _ext
 from .kernels import (KEY_INF, NONE, RETURNING, Decision, _fold_prev,
                       _make_tag, as_scalar, engine_run,
@@ -52,8 +56,6 @@ CLS_RESV = 0      # reservation-eligible: constraint phase
 CLS_WEIGHT = 1    # effective-ready: weight phase
 CLS_LB = 2        # AtLimit::Allow limit-break: weight phase + flag
 CLS_NONE = 3      # non-candidate sentinel (sorts after every class)
-
-_LATER = "a later slice of the port (ROADMAP.md, 'Modules to port')"
 
 
 def _ready_now(state: EngineState, now):
@@ -379,6 +381,8 @@ class _Selection(NamedTuple):
     cost_pc: torch.Tensor     # int64[N] delivered cost per client
     margin_s: torch.Tensor    # int64[k] winner margin over the
     #                           runner-up per committed unit (-1 none)
+    entry_cls: torch.Tensor   # int32[N] batch-entry class per client
+    entry_key: torch.Tensor   # int64[N] batch-entry unified key
 
 
 def _unified_prefix(state: EngineState, now, k: int, *,
@@ -531,7 +535,7 @@ def _unified_prefix(state: EngineState, now, k: int, *,
                       guards_ok=guards_ok, state=new_state,
                       last_client=last_client,
                       cost_pc=torch.where(sel, chain.cost_acc, 0),
-                      margin_s=margin_s)
+                      margin_s=margin_s, entry_cls=cls, entry_key=key)
 
 
 # ----------------------------------------------------------------------
@@ -559,6 +563,19 @@ def speculate_prefix_batch(state: EngineState, now, k: int, *,
     """One prefix-commit batch over the unified candidate order.
     ``max_count`` (int or int32 0-d tensor) caps the committed prefix;
     a shorter prefix of an exact prefix is still exact."""
+    return _prefix_batch(state, now, k, anticipation_ns=anticipation_ns,
+                         heads=heads, max_count=max_count,
+                         allow_limit_break=allow_limit_break,
+                         select_impl=select_impl)[0]
+
+
+def _prefix_batch(state: EngineState, now, k: int, *, anticipation_ns: int,
+                  heads=None, max_count=None,
+                  allow_limit_break: bool = False,
+                  select_impl: str = "sort"):
+    """:func:`speculate_prefix_batch` and its selection (whose batch-entry
+    classification the telemetry reuses): ``(PrefixBatch,
+    _Selection)``."""
     s = _unified_prefix(state, now, k, chain_depth=1,
                         anticipation_ns=anticipation_ns,
                         allow=allow_limit_break, heads=heads,
@@ -577,7 +594,7 @@ def speculate_prefix_batch(state: EngineState, now, k: int, *,
     )
     return PrefixBatch(state=s.state, count=s.count,
                        guards_ok=s.guards_ok, decisions=decisions,
-                       cost_pc=s.cost_pc, margins=s.margin_s)
+                       cost_pc=s.cost_pc, margins=s.margin_s), s
 
 
 # ----------------------------------------------------------------------
@@ -612,6 +629,18 @@ def speculate_chain_batch(state: EngineState, now, k: int, *,
     streams whose phase flips every few decisions commit long
     prefixes.  ``heads`` is a ``(arr, cost)`` pair of [w, N] window rows
     with w >= ``chain_depth`` (None: prefetch them here)."""
+    return _chain_batch(state, now, k, chain_depth=chain_depth,
+                        anticipation_ns=anticipation_ns, heads=heads,
+                        allow_limit_break=allow_limit_break,
+                        select_impl=select_impl)[0]
+
+
+def _chain_batch(state: EngineState, now, k: int, *, chain_depth: int,
+                 anticipation_ns: int, heads=None,
+                 allow_limit_break: bool = False,
+                 select_impl: str = "sort"):
+    """:func:`speculate_chain_batch` and its selection: ``(ChainBatch,
+    _Selection)``."""
     s = _unified_prefix(state, now, k, chain_depth=chain_depth,
                         anticipation_ns=anticipation_ns,
                         allow=allow_limit_break, heads=heads,
@@ -624,7 +653,7 @@ def speculate_chain_batch(state: EngineState, now, k: int, *,
         slot=torch.where(served, s.idxs, -1).to(torch.int32),
         cls=torch.where(served, s.cls_s, CLS_NONE).to(torch.int32),
         length=torch.where(served, s.len_s, 0).to(torch.int32),
-        cost_pc=s.cost_pc, margins=s.margin_s)
+        cost_pc=s.cost_pc, margins=s.margin_s), s
 
 
 def _host(x) -> np.ndarray:
@@ -686,6 +715,12 @@ class PrefixEpoch(NamedTuple):
     lb: torch.Tensor       # bool[M, k]  limit-break serves (Allow)
     metrics: torch.Tensor  # int64[NUM_METRICS] (zeros unless
     #                        with_metrics)
+    # the telemetry accumulators (None unless the caller passed one)
+    hists: object = None   # int64[NUM_HISTS, NUM_BUCKETS + 1]
+    ledger: object = None  # int64[N, LED_COLS]
+    flight: object = None  # obs.flight.FlightState
+    slo: object = None     # int64[N, W_FIELDS] window block
+    prov: object = None    # obs.provenance.ProvBlock
 
 
 # State fields no epoch writes: rings are popped through q_head only,
@@ -882,6 +917,164 @@ def _batch_metrics(met, st: EngineState, *, count, resv, prop, lb,
         wheel_occ_hwm=wheel_occ_hwm, wheel_reslots=wheel_reslots))
 
 
+# ----------------------------------------------------------------------
+# the telemetry accumulators (obs.histograms / flight / slo / provenance)
+#
+# The JAX package's helpers of the same names: pure reductions over the
+# batch-entry classification and the committed counts, folded per batch
+# (per ladder level for the calendar engine) gated on the tag32
+# liveness ``good`` -- a 0-d tensor under tag_width=32, the constant
+# True otherwise, which adds no op.  The accumulators ride a dict keyed
+# "h" (histograms), "l" (ledger), "f" (flight), "s" (SLO window block)
+# and "p" (provenance); a key's presence is the on-flag.
+# ----------------------------------------------------------------------
+
+def _telemetry_delta(st_post: EngineState, now, cls, key, served_pc,
+                     resv_pc, lb_pc, count, with_hists: bool,
+                     with_ledger: bool, cost_pc=None,
+                     with_slo: bool = False):
+    """One batch/level's telemetry contribution: ``(hist delta | None,
+    ledger delta | None, window delta | None)``.  Tardiness and latency
+    are entry-head observations ``max(now - key, 0)`` against the
+    committed unit's entry key; the stall observation is the time until
+    the earliest queued head of the post-batch state becomes
+    eligible."""
+    m = served_pc > 0
+    tard = torch.clamp(now - key, min=0)
+    resv_entry = m & (cls == CLS_RESV)
+    hd = ld = sd = None
+    if with_hists:
+        w_entry = m & (cls >= CLS_WEIGHT) & (cls < CLS_NONE)
+        queued = st_post.active & (st_post.depth > 0)
+        stalled = (count == 0) & torch.any(queued)
+        next_elig = torch.min(torch.where(
+            queued, torch.minimum(st_post.head_resv, st_post.head_limit),
+            MAX_TAG))
+        hd = torch.stack([
+            obshist._hist_row(tard, w_entry),
+            obshist._hist_row(tard, resv_entry),
+            obshist._scalar_row(torch.clamp(next_elig - now, min=0),
+                                stalled),
+            obshist._scalar_row(count.to(torch.int64), 1)])
+    if with_ledger or with_slo:
+        t = torch.where(resv_entry, tard, 0)
+    if with_ledger:
+        ld = torch.stack([served_pc.to(torch.int64),
+                          resv_pc.to(torch.int64), lb_pc.to(torch.int64),
+                          t, t], dim=1)
+    if with_slo:
+        if cost_pc is None:
+            raise ValueError("the SLO window block needs the per-client "
+                             "delivered cost")
+        sd = obsslo.window_delta(served_pc, cost_pc, resv_pc,
+                                 resv_entry & (tard > 0), lb_pc, t)
+    return hd, ld, sd
+
+
+def _tele_init(state: EngineState, hists, ledger, flight, slo=None,
+               prov=None) -> dict:
+    """The optional accumulators as the telemetry dict, shapes and
+    devices checked."""
+    tele = {}
+    n = state.capacity
+    dev = state.device
+    for key, val, shape in (
+            ("h", hists, (obshist.NUM_HISTS, obshist.NUM_BUCKETS + 1)),
+            ("l", ledger, (n, obshist.LED_COLS)),
+            ("s", slo, (n, obsslo.W_FIELDS))):
+        if val is None:
+            continue
+        if not torch.is_tensor(val) or val.dtype != torch.int64 or \
+                tuple(val.shape) != shape or val.device != dev:
+            raise ValueError(f"telemetry accumulator {key!r} must be an "
+                             f"int64 {shape} tensor on {dev}")
+        tele[key] = val
+    if flight is not None:
+        if not isinstance(flight, obsflight.FlightState) or \
+                flight.buf.device != dev:
+            raise ValueError(f"telemetry accumulator 'f' must be a "
+                             f"FlightState on {dev}")
+        tele["f"] = flight
+    if prov is not None:
+        if not isinstance(prov, obsprov.ProvBlock) or \
+                tuple(prov.last_served.shape) != (n,) or \
+                prov.last_served.device != dev:
+            raise ValueError(f"telemetry accumulator 'p' must be a "
+                             f"ProvBlock over [{n}] clients on {dev}")
+        tele["p"] = prov
+    return tele
+
+
+def _tele_fold(tele: dict, hd, ld, live, sd=None) -> dict:
+    """Fold one batch's histogram/ledger/window deltas, gated on
+    liveness."""
+    out = dict(tele)
+    if "h" in tele:
+        out["h"] = obshist.hist_fold(tele["h"], hd, live)
+    if "l" in tele:
+        out["l"] = obshist.ledger_fold(tele["l"], ld, live)
+    if "s" in tele:
+        out["s"] = obsslo.window_fold(tele["s"], sd, live)
+    return out
+
+
+def _entry_gate(st: EngineState, cls_e):
+    """The batch entry's candidates and its queued-but-limit-blocked
+    clients: ``(elig, gated)`` bool masks."""
+    elig = cls_e != CLS_NONE
+    return elig, st.active & (st.depth > 0) & ~elig
+
+
+def _prov_observe(prov, now, cls_e, elig, gated, served_pc, margins):
+    return obsprov.prov_observe(
+        prov, now=now, elig=elig, gated=gated,
+        win_cls=torch.min(torch.where(elig, cls_e, CLS_NONE)),
+        served_pc=served_pc, margins=margins)
+
+
+def _tele_entry_fold(tele: dict, st: EngineState, batch, sel, now, live):
+    """The shared prefix/chain fold: depth-delta served counts, the
+    entry-head reservation/limit-break derivation and the gated
+    histogram/ledger/window/provenance fold.  ``batch`` is the
+    speculated batch (its count, delivered cost and margins are reused,
+    as is the entry classification of its selection ``sel``).  Returns
+    ``(tele, gate_n)``."""
+    cls_e = sel.entry_cls
+    served_pc = (st.depth - batch.state.depth).to(torch.int32)
+    srv = served_pc > 0
+    w_entry = srv & (cls_e >= CLS_WEIGHT) & (cls_e < CLS_NONE)
+    hd, ld, sd = _telemetry_delta(
+        batch.state, now, cls_e, sel.entry_key, served_pc,
+        served_pc - w_entry.to(torch.int32),
+        (srv & (cls_e == CLS_LB)).to(torch.int32), batch.count,
+        "h" in tele, "l" in tele, cost_pc=batch.cost_pc,
+        with_slo="s" in tele)
+    out = _tele_fold(tele, hd, ld, live, sd)
+    elig, gated = _entry_gate(st, cls_e)
+    if "p" in tele:
+        newp = _prov_observe(tele["p"], now, cls_e, elig, gated, served_pc,
+                             batch.margins)
+        out["p"] = obsprov.prov_select(live, newp, tele["p"])
+    return out, torch.sum(gated, dtype=torch.int64)
+
+
+def _tele_flight(tele: dict, slot, cls, tag, cost, live, margin=None,
+                 gate=None) -> dict:
+    if "f" not in tele:
+        return tele
+    out = dict(tele)
+    out["f"] = obsflight.flight_record(tele["f"], slot, cls, tag, cost,
+                                       live=live, margin=margin,
+                                       gate=gate)
+    return out
+
+
+def _tele_result(tele: dict) -> dict:
+    return dict(hists=tele.get("h"), ledger=tele.get("l"),
+                flight=tele.get("f"), slo=tele.get("s"),
+                prov=tele.get("p"))
+
+
 def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
                       anticipation_ns: int,
                       allow_limit_break: bool = False,
@@ -910,10 +1103,14 @@ def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
     ``guards_ok`` False and bumps ``rebase_fallbacks`` once -- the same
     caller contract as the sort-key guard.
 
-    The telemetry accumulators (``hists``, ``ledger``, ``flight``,
-    ``slo``, ``prov``) are a later slice of the port and raise
-    NotImplementedError."""
-    _refuse_telemetry(hists, ledger, flight, slo, prov)
+    ``hists`` / ``ledger`` / ``flight`` / ``slo`` / ``prov`` (each None
+    = off) are initial telemetry accumulators
+    (``obs.histograms.hist_zero()``, ``ledger_zero(N)``,
+    ``obs.flight.flight_init(R)``, ``obs.slo.window_zero(N)``,
+    ``obs.provenance.prov_init(N)``, or the previous epoch's outputs);
+    they come back as the result's fields of the same names.  Flight
+    records are one per decision.  Decisions, state and metrics are
+    identical with telemetry on or off."""
     w = m if window_m is None else min(int(window_m), m)
     if not (w > 0 and m % w == 0):
         raise ValueError("window_m must divide m")
@@ -921,6 +1118,7 @@ def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
     now = as_scalar(now, dev)
     carry = _EpochCarry(state, tag_width)
     met = carry.metrics0(with_metrics)
+    tele = _tele_init(state, hists, ledger, flight, slo, prov)
     outs = []
     for _chunk in range(m // w):
         st = carry.state()
@@ -928,7 +1126,7 @@ def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
         for j in range(w):
             if j:
                 st = carry.state()
-            batch = speculate_prefix_batch(
+            batch, sel = _prefix_batch(
                 st, now, k, anticipation_ns=anticipation_ns,
                 heads=_window_heads(st, window),
                 allow_limit_break=allow_limit_break,
@@ -948,20 +1146,18 @@ def scan_prefix_epoch(state: EngineState, now, m: int, k: int, *,
                     prop=count - resv, lb=torch.sum(lb),
                     guards_ok=batch.guards_ok, rebase_fallback=trip,
                     live=good)
+            if tele:
+                tele, gate_n = _tele_entry_fold(tele, st, batch, sel, now,
+                                                good)
+                tele = _tele_flight(
+                    tele, slot, phase.to(torch.int64) + lb,
+                    sel.entry_key[torch.clamp(slot, min=0)], cost, good,
+                    margin=batch.margins, gate=gate_n)
     count, guards, slot, phase, cost, lb = (torch.stack(c)
                                             for c in zip(*outs))
     return PrefixEpoch(state=carry.final(), count=count, guards_ok=guards,
                        slot=slot, phase=phase, cost=cost, lb=lb,
-                       metrics=met)
-
-
-def _refuse_telemetry(hists, ledger, flight, slo, prov) -> None:
-    tele = dict(hists=hists, ledger=ledger, flight=flight, slo=slo,
-                prov=prov)
-    on = sorted(name for name, v in tele.items() if v is not None)
-    if on:
-        raise NotImplementedError(f"telemetry accumulators {on} are "
-                                  f"{_LATER}")
+                       metrics=met, **_tele_result(tele))
 
 
 class ChainEpoch(NamedTuple):
@@ -976,6 +1172,11 @@ class ChainEpoch(NamedTuple):
     length: torch.Tensor      # int8[M, k]  unit decisions
     metrics: torch.Tensor     # int64[NUM_METRICS] (zeros unless
     #                           with_metrics)
+    hists: object = None      # telemetry accumulators, as PrefixEpoch
+    ledger: object = None
+    flight: object = None
+    slo: object = None
+    prov: object = None
 
 
 def scan_chain_epoch(state: EngineState, now, m: int, k: int, *,
@@ -989,10 +1190,10 @@ def scan_chain_epoch(state: EngineState, now, m: int, k: int, *,
     """Run m chained prefix batches.  Each batch prefetches its own
     ``chain_depth``-row ring window (one K1 launch per batch on the
     card).  ``select_impl``, ``tag_width`` and ``with_metrics`` as in
-    :func:`scan_prefix_epoch`; the telemetry accumulators raise
-    NotImplementedError.  The JAX package's ``use_pallas`` switch has
-    no counterpart: the device picks K1's route."""
-    _refuse_telemetry(hists, ledger, flight, slo, prov)
+    :func:`scan_prefix_epoch`, and so are the telemetry accumulators
+    (flight records are one per unit, the cost column carrying the
+    unit's decision count).  The JAX package's ``use_pallas`` switch
+    has no counterpart: the device picks K1's route."""
     if not 0 < chain_depth <= state.ring_capacity:
         raise ValueError(f"chain_depth {chain_depth} not in (0, ring "
                          f"capacity {state.ring_capacity}]")
@@ -1000,11 +1201,12 @@ def scan_chain_epoch(state: EngineState, now, m: int, k: int, *,
     now = as_scalar(now, dev)
     carry = _EpochCarry(state, tag_width)
     met = carry.metrics0(with_metrics)
+    tele = _tele_init(state, hists, ledger, flight, slo, prov)
     outs = []
     for _ in range(m):
         st = carry.state()
         win = ring_window(st, chain_depth)
-        batch = speculate_chain_batch(
+        batch, sel = _chain_batch(
             st, now, k, chain_depth=chain_depth,
             anticipation_ns=anticipation_ns, heads=(win.arr, win.cost),
             allow_limit_break=allow_limit_break, select_impl=select_impl)
@@ -1014,8 +1216,8 @@ def scan_chain_epoch(state: EngineState, now, m: int, k: int, *,
             (batch.cls.to(torch.int8), CLS_NONE),
             (batch.length.to(torch.int8), 0)])
         outs.append(vals)
+        count, _u, _g, slot, cls, length = vals
         if with_metrics:
-            count, _u, _g, slot, cls, _len = vals
             units = slot >= 0
             # a unit's entry serve is weight-phase iff class >= 1; its
             # induced serves are all constraint-phase
@@ -1026,11 +1228,16 @@ def scan_chain_epoch(state: EngineState, now, m: int, k: int, *,
                 lb=torch.sum(units & (cls >= CLS_LB)),
                 guards_ok=batch.guards_ok, rebase_fallback=trip,
                 live=good)
+        if tele:
+            tele, gate_n = _tele_entry_fold(tele, st, batch, sel, now, good)
+            tele = _tele_flight(
+                tele, slot, cls, sel.entry_key[torch.clamp(slot, min=0)],
+                length, good, margin=batch.margins, gate=gate_n)
     count, units, guards, slot, cls, length = (torch.stack(c)
                                                for c in zip(*outs))
     return ChainEpoch(state=carry.final(), count=count, unit_count=units,
                       guards_ok=guards, slot=slot, cls=cls, length=length,
-                      metrics=met)
+                      metrics=met, **_tele_result(tele))
 
 
 def make_prefix_runner(k: int, *, anticipation_ns: int = 0,
@@ -1241,15 +1448,18 @@ def _calendar_pass(state: EngineState, now, arr_rows, cost_rows,
 
 def _calendar_batch_core(state: EngineState, now, arr_rows, cost_rows, *,
                          anticipation_ns: int, allow_limit_break: bool,
-                         origins=None, stop_min=None):
+                         origins=None, stop_min=None, entry=None):
     """Measure + boundary + commit + promote of one calendar batch, given
     the window rows.  ``origins`` injects the ``(kresv, kprop1, kprop2,
     any_cand)`` pack origins (the wheel reads them from its bucket
     index); ``stop_min`` replaces the dense ``torch.min`` boundary (the
     wheel's stop-key scan).  Both must equal the dense reductions they
-    replace bit for bit.  Returns ``(CalendarBatch, b_eff)``."""
+    replace bit for bit.  ``entry`` is the batch-entry ``(cls, key)``
+    when the caller already classified the state.  Returns
+    ``(CalendarBatch, b_eff)``."""
     if origins is None:
-        cls0, key0 = _classify(state, now, allow_limit_break)
+        cls0, key0 = entry if entry is not None \
+            else _classify(state, now, allow_limit_break)
 
         def class_min(c):
             return torch.min(torch.where(cls0 == c, key0, KEY_INF))
@@ -1491,32 +1701,47 @@ class CalendarLadderBatch(NamedTuple):
 
 
 def _calendar_ladder(state: EngineState, now, *, steps: int, levels: int,
-                     anticipation_ns: int, allow: bool, wheel: bool):
+                     anticipation_ns: int, allow: bool, wheel: bool,
+                     tele: dict | None = None):
     """L ladder levels, each a window prefetch (K1 on the card) + measure
     + boundary + commit from the previous level's committed state.  With
     ``wheel`` the origins and boundaries come from the wheel index (one
     K2 launch to build it, one per level for the stop wheel).  Returns
-    ``(CalendarLadderBatch, wheel_stats)`` with ``wheel_stats`` the
-    ``(reslots, occupancy hwm)`` int64 pair, or None."""
+    ``(CalendarLadderBatch, wheel_stats, tele_out)`` with ``wheel_stats``
+    the ``(reslots, occupancy hwm)`` int64 pair, or None.
+
+    ``tele`` (the epoch's telemetry dict, or None) turns on the per-LEVEL
+    telemetry of the JAX package's ``_calendar_ladder_scan``: each level
+    classifies its own entry state, so a level observes what one minstop
+    batch would.  ``tele_out`` is then a dict of the zero-based
+    histogram/ledger/window deltas summed over the levels, the
+    provenance block threaded through the levels as full state (the
+    caller selects it on liveness), ``"margin"`` with a flight ring (each
+    client's newest boundary margin, -1 = none) and ``"entry"`` (level
+    0's ``(cls, key)``, the batch entry's); else None."""
     _check_steps(state, steps)
     if levels < 1:
         raise ValueError("the ladder needs at least one level")
-    now = as_scalar(now, state.device)
+    dev = state.device
+    now = as_scalar(now, dev)
     w = wheel_build(state, now, allow) if wheel else None
-    zeros = torch.zeros((state.capacity,), dtype=torch.int32,
-                        device=state.device)
+    zeros = torch.zeros((state.capacity,), dtype=torch.int32, device=dev)
     units = served = served_resv = lb = zeros
     cost = torch.zeros_like(state.head_cost)
+    tacc = None
+    if tele is not None:
+        tacc = {"p": tele["p"]} if "p" in tele else {}
     counts, resvs, bounds, stalls = [], [], [], []
     st = state
-    for _ in range(levels):
+    for lvl in range(levels):
         win = ring_window(st, steps)
         arr_rows, cost_rows = _heads_rows((win.arr, win.cost), steps)
+        entry = _classify(st, now, allow) if tele is not None else None
         batch, b_eff = _calendar_batch_core(
             st, now, arr_rows, cost_rows,
             anticipation_ns=anticipation_ns, allow_limit_break=allow,
             origins=None if w is None else wheel_origins(w),
-            stop_min=None if w is None else _wheel_stop_min)
+            stop_min=None if w is None else _wheel_stop_min, entry=entry)
         if w is not None:
             # fixed-now commit: exactly the served clients moved
             w = wheel_adjust(w, batch.state, now, allow, batch.served > 0)
@@ -1525,6 +1750,10 @@ def _calendar_ladder(state: EngineState, now, *, steps: int, levels: int,
         served_resv = served_resv + batch.served_resv
         lb = lb + batch.lb
         cost = cost + batch.served_cost
+        if tacc is not None:
+            _ladder_level_tele(tacc, tele, st, batch, now, entry)
+            if lvl == 0:
+                tacc["entry"] = entry
         counts.append(batch.count)
         resvs.append(batch.resv_count)
         bounds.append(b_eff)
@@ -1541,7 +1770,33 @@ def _calendar_ladder(state: EngineState, now, *, steps: int, levels: int,
         progress_ok=~stall[0], level_count=count,
         level_bound=torch.stack(bounds), level_stall=stall,
         served_cost=cost)
-    return ladder, (None if w is None else (w.reslots, w.hwm))
+    return ladder, (None if w is None else (w.reslots, w.hwm)), tacc
+
+
+def _ladder_level_tele(tacc: dict, tele: dict, st: EngineState, batch,
+                       now, entry) -> None:
+    """Accumulate one ladder level's telemetry into ``tacc`` in place:
+    the level's deltas combine (hists and windows add, the ledger's max
+    column maxes), provenance observes, and the newest margin wins."""
+    cls_e, key_e = entry
+    hd, ld, sd = _telemetry_delta(
+        batch.state, now, cls_e, key_e, batch.served, batch.served_resv,
+        batch.lb, batch.count, "h" in tele, "l" in tele,
+        cost_pc=batch.served_cost, with_slo="s" in tele)
+    for key, delta, combine in (("h", hd, obshist.hist_combine),
+                                ("l", ld, obshist.ledger_combine),
+                                ("s", sd, obsslo.window_combine)):
+        if delta is not None:
+            tacc[key] = delta if key not in tacc \
+                else combine(tacc[key], delta)
+    if "p" in tacc:
+        tacc["p"] = _prov_observe(tacc["p"], now, cls_e,
+                                  *_entry_gate(st, cls_e), batch.served,
+                                  batch.margin)
+    if "f" in tele:
+        prev = tacc.get("margin")
+        tacc["margin"] = batch.margin if prev is None else \
+            torch.where(batch.margin >= 0, batch.margin, prev)
 
 
 def calendar_batch_bucketed(state: EngineState, now, *, steps: int,
@@ -1581,6 +1836,11 @@ class CalendarEpoch(NamedTuple):
     #                            with_metrics)
     level_count: torch.Tensor  # int32[M, L] decisions per ladder level
     #                            (L = 1 for "minstop")
+    hists: object = None       # telemetry accumulators, as PrefixEpoch
+    ledger: object = None
+    flight: object = None
+    slo: object = None
+    prov: object = None
 
 
 def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
@@ -1609,10 +1869,11 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
     ``progress_ok=False`` and zero counts for that batch and every later
     one, and the ladder and wheel rows of dead batches are 0.
 
-    The telemetry accumulators (``hists``, ``ledger``, ``flight``,
-    ``slo``, ``prov``) are a later slice of the port and raise
-    NotImplementedError."""
-    _refuse_telemetry(hists, ledger, flight, slo, prov)
+    The telemetry accumulators as in :func:`scan_prefix_epoch`.
+    Histogram, ledger, window and provenance observations are per LEVEL
+    (a ladder level is one minstop batch, so bucketed-L telemetry equals
+    the L-batch minstop composition); flight records are one per client
+    per batch, the cost column carrying the client's decisions."""
     if calendar_impl not in _CAL_IMPLS:
         raise ValueError(f"calendar_impl {calendar_impl!r} not in "
                          f"{_CAL_IMPLS}")
@@ -1622,6 +1883,7 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
     now = as_scalar(now, dev)
     carry = _EpochCarry(state, tag_width)
     met = carry.metrics0(with_metrics)
+    tele = _tele_init(state, hists, ledger, flight, slo, prov)
     served_acc = torch.zeros((state.capacity,), dtype=torch.int32,
                              device=dev)
     counts, resvs, oks, lvls = [], [], [], []
@@ -1629,10 +1891,10 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
         st = carry.state()
         w_reslots = w_hwm = 0
         if bucketed:
-            lad, wstats = _calendar_ladder(
+            lad, wstats, tacc = _calendar_ladder(
                 st, now, steps=steps, levels=int(ladder_levels),
                 anticipation_ns=anticipation_ns, allow=allow_limit_break,
-                wheel=wheel)
+                wheel=wheel, tele=tele or None)
             if wstats is not None:
                 w_reslots, w_hwm = wstats
             batch_state, count, resv_count = (lad.state, lad.count,
@@ -1643,9 +1905,22 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
             ladder_fb = torch.any(lad.level_stall).to(torch.int64)
             base_decs = lvl_count[0].to(torch.int64)
         else:
-            batch = calendar_batch(st, now, steps=steps,
-                                   anticipation_ns=anticipation_ns,
-                                   allow_limit_break=allow_limit_break)
+            tacc = None
+            if tele:
+                # one level: the batch-entry classification is shared
+                # by the boundary origins and the telemetry
+                tacc = {"p": tele["p"]} if "p" in tele else {}
+                tacc["entry"] = _classify(st, now, allow_limit_break)
+            win = ring_window(st, steps)
+            arr_rows, cost_rows = _heads_rows((win.arr, win.cost), steps)
+            batch, _ = _calendar_batch_core(
+                st, now, arr_rows, cost_rows,
+                anticipation_ns=anticipation_ns,
+                allow_limit_break=allow_limit_break,
+                entry=None if tacc is None else tacc["entry"])
+            if tacc is not None:
+                _ladder_level_tele(tacc, tele, st, batch, now,
+                                   tacc["entry"])
             batch_state, count, resv_count = (batch.state, batch.count,
                                               batch.resv_count)
             progress, served, lb = batch.progress_ok, batch.served, batch.lb
@@ -1673,6 +1948,22 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
                 ladder_base_decisions=base_decs,
                 ladder_fallbacks=ladder_fb, wheel_occ_hwm=w_hwm,
                 wheel_reslots=w_reslots)
+        if tele:
+            tele = _tele_fold(tele, tacc.get("h"), tacc.get("l"), good,
+                              tacc.get("s"))
+            if "p" in tele:
+                tele["p"] = obsprov.prov_select(good, tacc["p"], tele["p"])
+            if "f" in tele:
+                # one record per served client (gated counts, so a dead
+                # batch records nothing), classed by the batch entry
+                cls_e, key_e = tacc["entry"]
+                gate_n = torch.sum(_entry_gate(st, cls_e)[1],
+                                   dtype=torch.int64)
+                iota = torch.arange(st.capacity, dtype=torch.int32,
+                                    device=dev)
+                tele = _tele_flight(
+                    tele, torch.where(served > 0, iota, -1), cls_e, key_e,
+                    served, good, margin=tacc["margin"], gate=gate_n)
         counts.append(count)
         resvs.append(resv_count)
         oks.append(progress)
@@ -1681,7 +1972,8 @@ def scan_calendar_epoch(state: EngineState, now, m: int, *, steps: int,
     return CalendarEpoch(state=carry.final(), count=torch.stack(counts),
                          resv_count=torch.stack(resvs),
                          progress_ok=torch.stack(oks), served=served_acc,
-                         metrics=met, level_count=torch.stack(lvls))
+                         metrics=met, level_count=torch.stack(lvls),
+                         **_tele_result(tele))
 
 
 def calendar_stop_ladder(state: EngineState, now, *, steps: int,

@@ -1,4 +1,6 @@
 """Scheduling observability for the PyTorch port: the on-device metrics
-vector and the admission clamp (``obs.device``), and the column layouts
-of the conformance ledger (``obs.histograms``) and the SLO window
-(``obs.slo``) that the pull queue's host mirrors use."""
+vector and the admission clamp (``obs.device``), and the telemetry
+accumulators that ride the epoch loops: log2 histograms and the
+per-client conformance ledger (``obs.histograms``), the SLO window block
+and its host plane (``obs.slo``), the provenance block
+(``obs.provenance``) and the flight ring (``obs.flight``)."""

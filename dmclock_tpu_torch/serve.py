@@ -1,5 +1,5 @@
-"""The serving entry points: the ``serve``, ``chain``, ``cfg4`` and
-``queue`` workloads.
+"""The serving entry points: the ``serve``, ``chain``, ``cfg3``,
+``cfg4`` and ``queue`` workloads.
 
 ``serve_only`` builds a preloaded steady-state backlog (every client
 queued ``depth`` deep, weights 1..4, a reservation of 100 ops/s, no
@@ -17,16 +17,26 @@ units are one decision long there, since every request costs the same.
 ``variable_cost_state`` is the backlog with per-request costs, on which
 ``chain_epochs`` commits longer units.
 
-``serve_cfg4`` runs the ``cfg4`` closed loop (``bench.py`` cfg4 mode,
-``bench_sustained``): 100,000 clients with Zipf weights and a
-reservation of 1200 ops/s each, a 128-slot ring preloaded 64 deep, and
-50 ms rounds.  Each round (``calendar_round``) clamps the Poisson
-arrivals to ring headroom, ingests 64 waves in one ring pass, and runs
-m=3 calendar batches of 64 serve steps per client per level, 8 ladder
-levels, on the timer wheel.  The bench's calibration loop, which
-retunes the arrival and reservation rates toward a 0.5 reservation
-share, is load-generator logic and is not ported: the rounds run at the
-bench's starting values.
+``serve_cfg3`` and ``serve_cfg4`` run bench's sustained closed loops
+(``bench.py`` ``bench_sustained``), named by bench's row keys.  ``cfg3``:
+10,000 clients, weights 1..4, a reservation of 100 ops/s each, a
+256-slot ring preloaded 128 deep, 100 ms rounds of 32 waves, each round
+(``prefix_round``) m=32 flat prefix batches of up to k=4096 decisions.
+``cfg4``: 100,000 clients with Zipf weights and a reservation of 1200
+ops/s each, a 128-slot ring preloaded 64 deep, 50 ms rounds of 64 waves,
+each round (``calendar_round``) m=3 calendar batches of 64 serve steps
+per client on the ``calendar_impl`` scheme: "minstop" is bench's
+``cfg4`` row, "wheel" (8 ladder levels on the timer wheel) its
+``cfg4_wheel``.  Every round clamps the Poisson arrivals to ring
+headroom and ingests them in one ring pass.  The telemetry
+accumulators (histograms, ledger, SLO window block, provenance) ride
+the rounds, on by default as in bench; ``row_scalars`` reads bench's
+derived scalars from them.  ``engine_loop="stream"`` runs the rounds
+as stream chunks of 8 (``engine.stream``; bench's ``cfg3_stream`` and
+``cfg4_stream``).  The bench's calibration loop, which retunes the
+arrival and reservation rates toward a 0.5 reservation share, is
+load-generator logic and is not ported: the rounds run at the bench's
+starting values.
 
 ``serve_queue`` drives the pull queue API (``engine.queue``) at cfg3's
 population, 10,000 clients, through the exact serial engine (no K1 or
@@ -38,7 +48,10 @@ Run it (on the card; ``--device cpu`` for a small CPU run)::
     python -m dmclock_tpu_torch.serve --n 100000 --epochs 3
     python -m dmclock_tpu_torch.serve --select-impl radix --tag-width 32
     python -m dmclock_tpu_torch.serve --workload chain --epochs 1
+    python -m dmclock_tpu_torch.serve --workload cfg3 --rounds 8
+    python -m dmclock_tpu_torch.serve --workload cfg3 --engine-loop stream
     python -m dmclock_tpu_torch.serve --workload cfg4 --rounds 3
+    python -m dmclock_tpu_torch.serve --workload cfg4 --calendar-impl wheel
     python -m dmclock_tpu_torch.serve --workload cfg4 --n 256 --device cpu
     python -m dmclock_tpu_torch.serve --workload queue [--n 10000]
 """
@@ -60,13 +73,19 @@ from .core.recs import ReqParams
 from .core.timebase import MAX_TAG, rate_to_inv_ns
 from .device import DEFAULT_DEVICE, resolve_device
 from .engine.bridge import state_from_numpy
-from .engine.fastpath import (CalendarEpoch, scan_calendar_epoch,
-                              scan_chain_epoch, scan_prefix_epoch)
+from .engine.fastpath import (CalendarEpoch, PrefixEpoch,
+                              scan_calendar_epoch, scan_chain_epoch,
+                              scan_prefix_epoch)
 from .engine.kernels import as_scalar, ingest_superwave
 from .engine.push_queue import TpuPushPriorityQueue
 from .engine.queue import TpuPullPriorityQueue
 from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS
+from .engine.stream import STREAM_OUT_FIELDS, build_stream_chunk
 from .obs import device as obsdev
+from .obs import histograms as obshist
+from .obs import provenance as obsprov
+from .obs import slo as obsslo
+from .obs.slo import SloPlane
 
 _NP_DTYPES = {torch.int64: np.int64, torch.int32: np.int32,
               torch.bool: np.bool_}
@@ -264,13 +283,23 @@ def serve_chain(n: int = 100_000, depth: int = 320, k: int = 65536,
 
 
 # ----------------------------------------------------------------------
-# the cfg4 closed loop
+# the sustained closed loops: cfg3 (prefix engine) and cfg4 (calendar)
 # ----------------------------------------------------------------------
 
-# the cfg4 workload's shape (bench.py cfg4 mode) at its starting values
+# bench.py's cfg3 row (bench_sustained with the cfg3 shape): 10,000
+# clients (the ``n`` argument), weights 1 + i % 4, 100 ops/s
+# reservations, 100 ms rounds, the flat prefix engine at k=4096, m=32
+CFG3 = dict(ring=256, depth0=128, resv_rate=100.0, waves=32,
+            dt_round_ns=100_000_000, m=32, k=4096, select_impl="sort")
+
+# the cfg4 workload's shape (bench.py cfg4 mode) at its starting values;
+# the calendar scheme is an argument: bench's ``cfg4`` row is "minstop",
+# ``cfg4_wheel`` is "wheel"
 CFG4 = dict(ring=128, depth0=64, resv_rate=1200.0, waves=64,
-            dt_round_ns=50_000_000, m=3, steps=64, ladder_levels=8,
-            calendar_impl="wheel")
+            dt_round_ns=50_000_000, m=3, steps=64, ladder_levels=8)
+
+STREAM_CHUNK = 8     # bench's --stream-chunk default
+SLO_RING_DEPTH = 32  # bench's SLO plane ring (bench_sustained)
 
 
 def _zipf_weights(n: int, s: float = 1.1, lo: float = 0.5,
@@ -316,14 +345,114 @@ def _sustained_setup(n: int, ring: int, depth0: int,
     return state_from_numpy(arrays, device)
 
 
-def calendar_round(state: EngineState, counts: torch.Tensor, t_base, *,
-                   m: int, steps: int, ladder_levels: int, waves: int,
-                   dt_round_ns: int, calendar_impl: str) -> CalendarEpoch:
-    """One closed-loop round (``bench_sustained``'s round body): clamp
-    the int32 ``counts[N]`` to ring headroom, ingest them as ``waves``
-    waves spread over the round (cost = rho = delta = 1), then run
-    ``m`` calendar batches at ``now = t_base + dt_round_ns``.  The
-    epoch's metrics include the round's ``ingest_drops``."""
+def sustained_qos(workload: str, n: int):
+    """``(reservation rates, weights)`` of ``workload`` ("cfg3" or
+    "cfg4") at ``n`` clients, as bench configures them."""
+    if workload == "cfg3":
+        return (np.full(n, CFG3["resv_rate"]),
+                np.asarray([1.0 + (i % 4) for i in range(n)]))
+    if workload == "cfg4":
+        return np.full(n, CFG4["resv_rate"]), _zipf_weights(n)
+    raise ValueError(f"unknown sustained workload {workload!r}")
+
+
+def _sustained_draws(cfg: dict, resv_rates, weights, serve_per_round,
+                     rounds: int, seed: int, dev) -> torch.Tensor:
+    """Every round's arrival counts, ``int32[rounds, n]`` on ``dev``:
+    ``numpy.random.default_rng(seed).poisson(lam)`` clipped to the
+    waves, ``lam`` the bench's starting guess (the reservation floor
+    plus the weight share of the surplus, clipped to ``waves - 1``)."""
+    round_s = cfg["dt_round_ns"] / 1e9
+    surplus = max(serve_per_round - float(resv_rates.sum()) * round_s, 0.0)
+    lam = np.minimum(resv_rates * round_s
+                     + surplus * (weights / weights.sum()),
+                     cfg["waves"] - 1.0)
+    rng = np.random.default_rng(seed)
+    draws = np.stack([np.minimum(rng.poisson(lam), cfg["waves"])
+                      .astype(np.int32) for _ in range(rounds)])
+    return torch.from_numpy(draws).to(dev)
+
+
+def cfg3_setup(n: int = 10_000, rounds: int = 3, seed: int = 11, *,
+               device: str | torch.device = DEFAULT_DEVICE):
+    """The cfg3 state and every round's arrival counts, both on
+    ``device``: ``(state, draws int32[rounds, n])``.  Bench's cfg3 row
+    runs no calibration of the reservation share (its target is 0), so
+    the draws use the starting guess throughout."""
+    dev = resolve_device(device)
+    c = CFG3
+    resv_rates, weights = sustained_qos("cfg3", n)
+    state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
+                             weights, device=dev)
+    return state, _sustained_draws(c, resv_rates, weights, c["m"] * c["k"],
+                                   rounds, seed, dev)
+
+
+def cfg4_setup(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
+               device: str | torch.device = DEFAULT_DEVICE):
+    """The cfg4 state and every round's arrival counts, both on
+    ``device``: ``(state, draws int32[rounds, n])``; all draws are made
+    and uploaded here, before any round."""
+    dev = resolve_device(device)
+    c = CFG4
+    resv_rates, weights = sustained_qos("cfg4", n)
+    state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
+                             weights, device=dev)
+    return state, _sustained_draws(c, resv_rates, weights,
+                                   c["m"] * n * c["steps"], rounds, seed,
+                                   dev)
+
+
+class Tele(NamedTuple):
+    """The telemetry accumulators a sustained row carries from round to
+    round (bench's ``tele``): histograms and ledger (``--telemetry``),
+    the provenance block (``--provenance``) and the SLO window block
+    (``--slo``); None where off."""
+
+    hists: object = None
+    ledger: object = None
+    slo: object = None
+    prov: object = None
+
+
+def slo_plane(workload: str, n: int) -> SloPlane:
+    """The row's SLO plane (host data): every client registered from the
+    configured rates (no limit), ring depth 32, as ``bench_sustained``
+    builds it."""
+    resv_rates, weights = sustained_qos(workload, n)
+    cfg = CFG3 if workload == "cfg3" else CFG4
+    plane = SloPlane(n, dt_epoch_ns=cfg["dt_round_ns"],
+                     ring_depth=SLO_RING_DEPTH)
+    for c in range(n):
+        plane.register(c, float(resv_rates[c]), float(weights[c]), 0.0)
+    return plane
+
+
+def tele_zero(n: int, *, telemetry: bool = True, provenance: bool = True,
+              plane: SloPlane | None = None, t0: int = 0,
+              device: str | torch.device = DEFAULT_DEVICE) -> Tele:
+    """Fresh accumulators (bench's ``tele_zero``): ``t0`` is the
+    provenance watermark's baseline; the SLO block is stamped from
+    ``plane`` (None: SLO off)."""
+    dev = resolve_device(device)
+    return Tele(
+        hists=obshist.hist_zero(dev) if telemetry else None,
+        ledger=obshist.ledger_zero(n, dev) if telemetry else None,
+        slo=None if plane is None else plane.stamp(obsslo.window_zero(n,
+                                                                      dev)),
+        prov=obsprov.prov_init(n, t0, dev) if provenance else None)
+
+
+def _tele_of(ep) -> Tele:
+    return Tele(hists=ep.hists, ledger=ep.ledger, slo=ep.slo, prov=ep.prov)
+
+
+def _round_ingest(state: EngineState, counts: torch.Tensor, t_base, *,
+                  waves: int, dt_round_ns: int):
+    """A round's ingest (``bench_sustained``'s round body): clamp
+    ``counts[N]`` to ring headroom, ingest them as ``waves`` waves spread
+    over the round (cost = rho = delta = 1).  Returns ``(state, t_base
+    0-d, dropped 0-d)``."""
     dev = state.device
     t_base = as_scalar(t_base, dev)
     headroom = torch.clamp(state.ring_capacity - state.depth,
@@ -334,37 +463,61 @@ def calendar_round(state: EngineState, counts: torch.Tensor, t_base, *,
     ones = torch.ones((state.capacity,), dtype=torch.int64, device=dev)
     st = ingest_superwave(state, counts, wave_times, ones, ones, ones,
                           anticipation_ns=0)
+    return st, t_base, dropped
+
+
+def _with_drops(ep, dropped):
+    return ep._replace(metrics=obsdev.metrics_combine(
+        ep.metrics, obsdev.metrics_delta(device=ep.metrics.device,
+                                         ingest_drops=dropped)))
+
+
+def prefix_round(state: EngineState, counts: torch.Tensor, t_base, *,
+                 m: int, k: int, waves: int, dt_round_ns: int,
+                 select_impl: str = "sort", tele: Tele | None = None
+                 ) -> PrefixEpoch:
+    """One closed-loop round of the prefix engine (bench's round body
+    for the cfg3 row): ingest, then ``m`` prefix batches of up to ``k``
+    decisions at ``now = t_base + dt_round_ns``, the accumulators of
+    ``tele`` riding them.  The epoch's metrics include the round's
+    ``ingest_drops``."""
+    st, t_base, dropped = _round_ingest(state, counts, t_base, waves=waves,
+                                        dt_round_ns=dt_round_ns)
+    ep = scan_prefix_epoch(st, t_base + dt_round_ns, m, k, anticipation_ns=0,
+                           with_metrics=True, select_impl=select_impl,
+                           **(tele or Tele())._asdict())
+    return _with_drops(ep, dropped)
+
+
+def calendar_round(state: EngineState, counts: torch.Tensor, t_base, *,
+                   m: int, steps: int, ladder_levels: int, waves: int,
+                   dt_round_ns: int, calendar_impl: str,
+                   tele: Tele | None = None) -> CalendarEpoch:
+    """One closed-loop round of the calendar engine (the cfg4 row's
+    round body): ingest, then ``m`` calendar batches at ``now = t_base +
+    dt_round_ns``, the accumulators of ``tele`` riding them.  The
+    epoch's metrics include the round's ``ingest_drops``."""
+    st, t_base, dropped = _round_ingest(state, counts, t_base, waves=waves,
+                                        dt_round_ns=dt_round_ns)
     ep = scan_calendar_epoch(st, t_base + dt_round_ns, m, steps=steps,
                              with_metrics=True, calendar_impl=calendar_impl,
-                             ladder_levels=ladder_levels)
-    return ep._replace(metrics=obsdev.metrics_combine(
-        ep.metrics, obsdev.metrics_delta(device=dev, ingest_drops=dropped)))
+                             ladder_levels=ladder_levels,
+                             **(tele or Tele())._asdict())
+    return _with_drops(ep, dropped)
 
 
-def cfg4_setup(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
-               device: str | torch.device = DEFAULT_DEVICE):
-    """The cfg4 state and every round's arrival counts, both on
-    ``device``: ``(state, draws int32[rounds, n])``.  Arrivals are
-    ``numpy.random.default_rng(seed).poisson(lam)`` clipped to
-    ``waves``, with ``lam`` the bench's starting guess (the reservation
-    floor plus the weight share of the surplus, clipped to ``waves -
-    1``); all draws are made and uploaded here, before any round."""
-    dev = resolve_device(device)
-    c = CFG4
-    weights = _zipf_weights(n)
-    resv_rates = np.full(n, c["resv_rate"])
-    state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
-                             weights, device=dev)
-    round_s = c["dt_round_ns"] / 1e9
-    serve_per_round = c["m"] * n * c["steps"]
-    surplus = max(serve_per_round - float(resv_rates.sum()) * round_s, 0.0)
-    lam = np.minimum(resv_rates * round_s
-                     + surplus * (weights / weights.sum()),
-                     c["waves"] - 1.0)
-    rng = np.random.default_rng(seed)
-    draws = np.stack([np.minimum(rng.poisson(lam), c["waves"])
-                      .astype(np.int32) for _ in range(rounds)])
-    return state, torch.from_numpy(draws).to(dev)
+class Cfg3Result(NamedTuple):
+    """``rounds`` cfg3 rounds' output (stacked on the device)."""
+
+    state: EngineState        # after the last round
+    count: torch.Tensor       # int32[R, m] decisions per batch
+    guards_ok: torch.Tensor   # bool[R, m]
+    slot: torch.Tensor        # int32[R, m, k] serial-order winners
+    phase: torch.Tensor       # int8[R, m, k]
+    cost: torch.Tensor        # int32[R, m, k]
+    lb: torch.Tensor          # bool[R, m, k]
+    metrics: torch.Tensor     # int64[NUM_METRICS], merged over rounds
+    tele: Tele                # the accumulators after the last round
 
 
 class Cfg4Result(NamedTuple):
@@ -377,14 +530,45 @@ class Cfg4Result(NamedTuple):
     served: torch.Tensor       # int32[R, N] per-client decisions
     level_count: torch.Tensor  # int32[R, m, L]
     metrics: torch.Tensor      # int64[NUM_METRICS], merged over rounds
+    tele: Tele = Tele()        # the accumulators after the last round
+
+
+_CFG3_FIELDS = STREAM_OUT_FIELDS["prefix"]
+_CFG4_FIELDS = STREAM_OUT_FIELDS["calendar"]
+
+
+def cfg3_rounds(state: EngineState, draws: torch.Tensor, *, t0: int = 0,
+                tele: Tele | None = None) -> Cfg3Result:
+    """Round ``r`` ingests ``draws[r]`` at ``t_base = t0 + r * 100 ms``
+    and serves at the end of the round; no host synchronisation between
+    rounds."""
+    c = CFG3
+    tele = tele or Tele()
+    met = obsdev.metrics_zero(state.device)
+    eps = []
+    for r in range(draws.shape[0]):
+        ep = prefix_round(state, draws[r], t0 + r * c["dt_round_ns"],
+                          m=c["m"], k=c["k"], waves=c["waves"],
+                          dt_round_ns=c["dt_round_ns"],
+                          select_impl=c["select_impl"], tele=tele)
+        state, tele = ep.state, _tele_of(ep)
+        met = obsdev.metrics_combine(met, ep.metrics)
+        eps.append(ep)
+    return Cfg3Result(
+        state=state, metrics=met, tele=tele,
+        **{f: torch.stack([getattr(ep, f) for ep in eps])
+           for f in _CFG3_FIELDS})
 
 
 def cfg4_rounds(state: EngineState, draws: torch.Tensor, *,
-                t0: int = 0, calendar_impl: str = CFG4["calendar_impl"]
-                ) -> Cfg4Result:
-    """Round ``r`` ingests ``draws[r]`` at ``t_base = t0 + r * 50 ms``;
-    no host synchronisation between rounds."""
+                calendar_impl: str, t0: int = 0,
+                tele: Tele | None = None) -> Cfg4Result:
+    """Round ``r`` ingests ``draws[r]`` at ``t_base = t0 + r * 50 ms``
+    and runs the ``calendar_impl`` scheme ("minstop" is bench's ``cfg4``
+    row, "wheel" its ``cfg4_wheel``); no host synchronisation between
+    rounds."""
     c = CFG4
+    tele = tele or Tele()
     met = obsdev.metrics_zero(state.device)
     eps = []
     for r in range(draws.shape[0]):
@@ -392,24 +576,164 @@ def cfg4_rounds(state: EngineState, draws: torch.Tensor, *,
                             m=c["m"], steps=c["steps"],
                             ladder_levels=c["ladder_levels"],
                             waves=c["waves"], dt_round_ns=c["dt_round_ns"],
-                            calendar_impl=calendar_impl)
-        state = ep.state
+                            calendar_impl=calendar_impl, tele=tele)
+        state, tele = ep.state, _tele_of(ep)
         met = obsdev.metrics_combine(met, ep.metrics)
         eps.append(ep)
     return Cfg4Result(
-        state=state, metrics=met,
+        state=state, metrics=met, tele=tele,
         **{f: torch.stack([getattr(ep, f) for ep in eps])
-           for f in ("count", "resv_count", "progress_ok", "served",
-                     "level_count")})
+           for f in _CFG4_FIELDS})
+
+
+def _stream_rounds(state, draws, *, cfg: dict, engine: str, t0: int,
+                   tele: Tele | None, chunk: int, **kw):
+    """The rounds as stream chunks of ``chunk`` rounds (the last one
+    shorter): ``build_stream_chunk`` per chunk length, epochs numbered
+    from ``t0 / dt``.  Returns ``(state, tele, metrics merged over the
+    rounds, per-round outs)``."""
+    dt = cfg["dt_round_ns"]
+    if t0 % dt:
+        raise ValueError(f"stream rounds start on the round grid: t0 {t0} "
+                         f"is not a multiple of {dt}")
+    tele = tele or Tele()
+    chunks, outs = {}, []
+    r, rounds = 0, draws.shape[0]
+    while r < rounds:
+        c = min(chunk, rounds - r)
+        if c not in chunks:
+            chunks[c] = build_stream_chunk(
+                engine=engine, epochs=c, m=cfg["m"], dt_epoch_ns=dt,
+                waves=cfg["waves"], with_metrics=True, **kw)
+        ch = chunks[c](state, t0 // dt + r, draws[r:r + c], tele.hists,
+                       tele.ledger, None, tele.slo, tele.prov)
+        state = ch.state
+        tele = Tele(hists=ch.hists, ledger=ch.ledger, slo=ch.slo,
+                    prov=ch.prov)
+        outs.append(ch.outs)
+        r += c
+    outs = {f: torch.cat([o[f] for o in outs]) for f in outs[0]}
+    met = obsdev.metrics_zero(state.device)
+    for row in outs.pop("metrics"):
+        met = obsdev.metrics_combine(met, row)
+    return state, tele, met, outs
+
+
+def cfg3_stream(state: EngineState, draws: torch.Tensor, *, t0: int = 0,
+                tele: Tele | None = None, chunk: int = STREAM_CHUNK
+                ) -> Cfg3Result:
+    """The cfg3 rounds as stream chunks (bench's ``cfg3_stream`` row):
+    equal to :func:`cfg3_rounds` in every output except the metrics'
+    ``ingest_drops`` row, which the chunk does not count."""
+    c = CFG3
+    state, tele, met, outs = _stream_rounds(
+        state, draws, cfg=c, engine="prefix", t0=t0, tele=tele,
+        chunk=chunk, k=c["k"], select_impl=c["select_impl"])
+    return Cfg3Result(state=state, metrics=met, tele=tele, **outs)
+
+
+def cfg4_stream(state: EngineState, draws: torch.Tensor, *,
+                calendar_impl: str, t0: int = 0, tele: Tele | None = None,
+                chunk: int = STREAM_CHUNK) -> Cfg4Result:
+    """The cfg4 rounds as stream chunks (bench's ``cfg4_stream`` row for
+    ``calendar_impl``); as :func:`cfg3_stream`, no ``ingest_drops``."""
+    c = CFG4
+    state, tele, met, outs = _stream_rounds(
+        state, draws, cfg=c, engine="calendar", t0=t0, tele=tele,
+        chunk=chunk, k=c["steps"], calendar_impl=calendar_impl,
+        ladder_levels=c["ladder_levels"])
+    return Cfg4Result(state=state, metrics=met, tele=tele, **outs)
+
+
+def _sustained_run(workload: str, n: int, rounds: int, seed: int, *,
+                   telemetry: bool, slo: bool, provenance: bool,
+                   engine_loop: str, stream_chunk: int, device, **kw):
+    if engine_loop not in ("round", "stream"):
+        raise ValueError(f"engine_loop {engine_loop!r} is not round or "
+                         f"stream")
+    dev = resolve_device(device)
+    setup = cfg3_setup if workload == "cfg3" else cfg4_setup
+    state, draws = setup(n, rounds, seed, device=dev)
+    plane = slo_plane(workload, n) if slo else None
+    tele = tele_zero(n, telemetry=telemetry, provenance=provenance,
+                     plane=plane, device=dev)
+    if engine_loop == "stream":
+        run = cfg3_stream if workload == "cfg3" else cfg4_stream
+        kw["chunk"] = stream_chunk
+    else:
+        run = cfg3_rounds if workload == "cfg3" else cfg4_rounds
+    return run(state, draws, tele=tele, **kw)
+
+
+def serve_cfg3(n: int = 10_000, rounds: int = 3, seed: int = 11, *,
+               telemetry: bool = True, slo: bool = True,
+               provenance: bool = True, engine_loop: str = "round",
+               stream_chunk: int = STREAM_CHUNK,
+               device: str | torch.device = DEFAULT_DEVICE) -> Cfg3Result:
+    """The ``cfg3`` workload (bench's ``cfg3`` row, ``cfg3_stream`` with
+    ``engine_loop="stream"``): ``n`` clients, ``rounds`` closed-loop
+    rounds from virtual time 0, telemetry, SLO window and provenance
+    on by default as in bench.  Callers check every ``guards_ok``."""
+    return _sustained_run("cfg3", n, rounds, seed,
+                          telemetry=telemetry, slo=slo,
+                          provenance=provenance, engine_loop=engine_loop,
+                          stream_chunk=stream_chunk, device=device)
 
 
 def serve_cfg4(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
+               calendar_impl: str = "minstop", telemetry: bool = True,
+               slo: bool = True, provenance: bool = True,
+               engine_loop: str = "round",
+               stream_chunk: int = STREAM_CHUNK,
                device: str | torch.device = DEFAULT_DEVICE) -> Cfg4Result:
     """The ``cfg4`` workload: ``n`` clients, ``rounds`` closed-loop
-    rounds from virtual time 0.  Callers check every ``progress_ok``
-    (False: the serial engine must take that batch)."""
-    state, draws = cfg4_setup(n, rounds, seed, device=device)
-    return cfg4_rounds(state, draws)
+    rounds from virtual time 0 on the ``calendar_impl`` scheme (bench's
+    ``cfg4`` is "minstop", ``cfg4_wheel`` "wheel"), telemetry, SLO
+    window and provenance on by default as in bench.  Callers check
+    every ``progress_ok`` (False: the serial engine must take that
+    batch)."""
+    return _sustained_run("cfg4", n, rounds, seed,
+                          calendar_impl=calendar_impl, telemetry=telemetry,
+                          slo=slo, provenance=provenance,
+                          engine_loop=engine_loop,
+                          stream_chunk=stream_chunk, device=device)
+
+
+def row_scalars(tele: Tele, state: EngineState, t_end: int,
+                dt_round_ns: int) -> dict:
+    """Bench's derived scalars of a sustained row, read back once from
+    the accumulators: reservation tardiness p50/p90/p99 (log2 bucket
+    upper bounds), mean (histogram) and max (ledger); winner margin
+    p50/p99, the starvation watermark, the limit-gate share and the
+    clients a starvation monitor (8 rounds of virtual time) flags at
+    ``t_end``; and the SLO window block's column totals.  The burn-rate
+    verdict over the windows is ROADMAP.md item 7."""
+    out = {}
+    if tele.hists is not None:
+        h = tele.hists
+        for q, key in ((0.50, "tardiness_p50_ns"),
+                       (0.90, "tardiness_p90_ns"),
+                       (0.99, "tardiness_p99_ns")):
+            out[key] = obshist.hist_percentile(
+                h, obshist.HIST_RESV_TARDINESS, q)
+        out["tardiness_mean_ns"] = obshist.hist_mean(
+            h, obshist.HIST_RESV_TARDINESS)
+        lt = obshist.ledger_totals(tele.ledger)
+        out["tardiness_max_ns"] = float(lt["tardiness_max_ns"])
+        out["ledger_totals"] = lt
+    if tele.prov is not None:
+        pd = obsprov.prov_dict(tele.prov)
+        out["margin_p50_ns"] = pd["margin_p50_ns"]
+        out["margin_p99_ns"] = pd["margin_p99_ns"]
+        out["starvation_max_ns"] = pd["starvation_max_ns"]
+        out["limit_gate_share"] = round(pd["limit_gate_share"], 4)
+        mon = obsprov.StarvationMonitor(8 * dt_round_ns,
+                                        log=lambda _line: None)
+        mon.observe(tele.prov, int(t_end), backlog=state.depth)
+        out["starved_clients"] = len(mon.fired)
+    if tele.slo is not None:
+        out["slo_window_totals"] = obsslo.window_totals(tele.slo)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -423,7 +747,7 @@ QUEUE = dict(adds_per_client=24, dt_round_ns=100_000_000, spec=64,
              batch=2048, stream_chunks=4, stream_dt_ns=1_000_000,
              stream_batch=256, pulls=512, pull_dt_ns=2_000,
              interleaved_adds=1000, updates=100, removes=10,
-             final_batch=128)
+             final_batch=128, weight_now_ns=1_000_000, weight_batch=256)
 
 
 def queue_classes(n: int, seed: int = 3) -> list:
@@ -499,8 +823,10 @@ def serve_queue(n: int = 10_000, seed: int = 3, *,
     for 100 clients; ``remove_by_client`` for 10; one
     ``remove_by_req_filter``; ``do_clean`` under an injected monotonic
     clock past the idle and the erase age (idle marks, erases, recycled
-    slots, a reactivation); a last ``pull_batch``.  Every stage's wall
-    time is host-paced: each launch reads its decisions back."""
+    slots, a reactivation); a last ``pull_batch``; then a ``pull_batch``
+    of 256 at 1 ms, before every queued reservation tag, so its
+    decisions are weight-phase.  Every stage's wall time is host-paced:
+    each launch reads its decisions back."""
     dev = resolve_device(device)
     c = QUEUE
     infos = queue_classes(n + c["interleaved_adds"] + 100, seed)
@@ -601,6 +927,14 @@ def serve_queue(n: int = 10_000, seed: int = 3, *,
                       q.pull_batch(t, c["final_batch"])]
 
     pulls += stage("clean", clean)
+    # the weight phase at full width: a window at 1 ms, before every
+    # queued reservation tag (the first of each client lies at or past
+    # its arrival plus its reservation interval), so every decision is
+    # a weight-phase one among the ready clients
+    weight = stage("weight", lambda: [
+        pullreq_row(p) for p in q.pull_batch(c["weight_now_ns"],
+                                             c["weight_batch"])])
+    pulls += weight
     departed = [(cid, row.tolist()) for cid, row in q.departed_report()]
     rolled = q.roll_slo_windows()
     q.settle()
@@ -617,6 +951,8 @@ def serve_queue(n: int = 10_000, seed: int = 3, *,
         batch_decisions=sum(1 for p in pulls[:2 * c["batch"]]
                             if p[0] == 0),
         hit_share=hit_share,
+        weight_window=len(weight),
+        weight_phase=sum(1 for p in weight if p[0] == 0 and p[3] == 1),
         device_mb=sum(x.numel() * x.element_size()
                       for x in q.state) / 1e6)
     return QueueRun(
@@ -721,10 +1057,11 @@ def virtual_server(mode: str, n: int = 1000, seed: int = 5, *,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("serve", "chain", "cfg4",
-                                           "queue"), default="serve")
+    ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
+                                           "cfg4", "queue"),
+                    default="serve")
     ap.add_argument("--n", type=int, default=None,
-                    help="clients (100000; queue 10000)")
+                    help="clients (100000; cfg3 and queue 10000)")
     ap.add_argument("--depth", type=int, default=320,
                     help="serve, chain: queue depth and ring size")
     ap.add_argument("--k", type=int, default=65536,
@@ -732,7 +1069,21 @@ def main(argv=None) -> int:
     ap.add_argument("--m", type=int, default=None,
                     help="serve, chain: batches per epoch (32; chain 8)")
     ap.add_argument("--epochs", type=int, default=3, help="serve, chain")
-    ap.add_argument("--rounds", type=int, default=3, help="cfg4")
+    ap.add_argument("--rounds", type=int, default=3, help="cfg3, cfg4")
+    ap.add_argument("--engine-loop", choices=("round", "stream"),
+                    default="round",
+                    help="cfg3, cfg4: one call per round, or stream "
+                    "chunks of --stream-chunk rounds")
+    ap.add_argument("--stream-chunk", type=int, default=STREAM_CHUNK,
+                    help="cfg3, cfg4: rounds per stream chunk")
+    ap.add_argument("--calendar-impl",
+                    choices=("minstop", "bucketed", "wheel"),
+                    default="minstop",
+                    help="cfg4: the calendar scheme (bench's cfg4 row is "
+                    "minstop, cfg4_wheel is wheel)")
+    for name in ("telemetry", "slo", "provenance"):
+        ap.add_argument(f"--{name}", choices=("on", "off"), default="on",
+                        help=f"cfg3, cfg4: the {name} accumulators")
     ap.add_argument("--select-impl", choices=("sort", "radix"),
                     default="sort", help="serve, chain: selection backend")
     ap.add_argument("--tag-width", type=int, choices=(64, 32), default=64,
@@ -753,6 +1104,8 @@ def main(argv=None) -> int:
             "pull_request_per_s": QUEUE["pulls"] / sec["pull_request"],
             "seconds": sec}))
         return 0
+    if a.workload in ("cfg3", "cfg4"):
+        return _main_sustained(a)
     a.n = 100_000 if a.n is None else a.n
     knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
     if a.workload == "serve":
@@ -767,15 +1120,46 @@ def main(argv=None) -> int:
         ok = {"guards_ok": bool(res.guards_ok.all()), **knobs,
               "units": int(res.unit_count.sum()),
               "unit_lengths": torch.bincount(committed).tolist()}
-    else:
-        res = serve_cfg4(a.n, a.rounds, device=a.device)
-        ok = {"progress_ok": bool(res.progress_ok.all())}
     met = obsdev.metrics_dict(res.metrics)
     print(json.dumps({
         "workload": a.workload, "device": str(res.state.device),
         "decisions": int(res.count.sum()), **ok,
         "reservation_share": met["decisions_reservation"]
         / max(met["decisions_total"], 1),
+        "metrics": met}))
+    return 0
+
+
+def _main_sustained(a) -> int:
+    """The cfg3 and cfg4 rows: decisions, the guards, bench's derived
+    scalars and the metrics vector as one JSON line."""
+    flags = {name: getattr(a, name) == "on"
+             for name in ("telemetry", "slo", "provenance")}
+    kw = dict(engine_loop=a.engine_loop, stream_chunk=a.stream_chunk,
+              device=a.device, **flags)
+    if a.workload == "cfg3":
+        n = 10_000 if a.n is None else a.n
+        res = serve_cfg3(n, a.rounds, **kw)
+        ok = {"guards_ok": bool(res.guards_ok.all())}
+        dt = CFG3["dt_round_ns"]
+        key = "cfg3"
+    else:
+        n = 100_000 if a.n is None else a.n
+        res = serve_cfg4(n, a.rounds, calendar_impl=a.calendar_impl, **kw)
+        ok = {"progress_ok": bool(res.progress_ok.all()),
+              "calendar_impl": a.calendar_impl}
+        dt = CFG4["dt_round_ns"]
+        key = "cfg4" if a.calendar_impl == "minstop" \
+            else f"cfg4_{a.calendar_impl}"
+    if a.engine_loop == "stream":
+        key += "_stream"
+    met = obsdev.metrics_dict(res.metrics)
+    print(json.dumps({
+        "workload": key, "device": str(res.state.device), "n": n,
+        "rounds": a.rounds, "decisions": int(res.count.sum()), **ok,
+        **flags, "reservation_share": met["decisions_reservation"]
+        / max(met["decisions_total"], 1),
+        **row_scalars(res.tele, res.state, a.rounds * dt, dt),
         "metrics": met}))
     return 0
 

@@ -1,21 +1,25 @@
-"""Where the time of a ``serve`` or ``chain`` epoch or a ``cfg4`` round
-goes on the card (PyTorch port).
+"""Where the time of a ``serve`` or ``chain`` epoch or a ``cfg3`` or
+``cfg4`` round goes on the card (PyTorch port).
 
     python3 scripts/torch_serve_profile.py [--n 100000] [--epochs 1]
     python3 scripts/torch_serve_profile.py --select-impl radix
     python3 scripts/torch_serve_profile.py --tag-width 32 --high-rate
     python3 scripts/torch_serve_profile.py --workload chain [--m 8]
     python3 scripts/torch_serve_profile.py --workload cfg4 [--rounds 1]
+        [--calendar-impl minstop] [--telemetry on]
+    python3 scripts/torch_serve_profile.py --workload cfg3 [--telemetry on]
     python3 scripts/torch_serve_profile.py --workload queue [--n 10000]
 
 Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
 ``serve`` backlog, with ``--high-rate`` the same backlog at 1000x the
 rates in a 128-slot ring, the shape on which ``--tag-width 32`` never
-trips; or the ``cfg4`` state with its arrival draws uploaded), runs one
-warm-up epoch or round, then traces ``--epochs`` epochs or ``--rounds``
-rounds with ``torch.profiler`` (CPU and CUDA activities).  ``serve``
-runs at ``now = 0`` and ``chain`` at 20 ms (every reservation tag
-eligible), each with its ``--select-impl`` and ``--tag-width``.  Prints, on the card it ran on: the host wall time, the
+trips; or the ``cfg3`` or ``cfg4`` state with its arrival draws
+uploaded, with ``--telemetry on`` bench's accumulators riding the
+rounds), runs one warm-up epoch or round, then traces ``--epochs``
+epochs or ``--rounds`` rounds with ``torch.profiler`` (CPU and CUDA
+activities).  ``serve`` runs at ``now = 0`` and ``chain`` at 20 ms
+(every reservation tag eligible), each with its ``--select-impl`` and
+``--tag-width``.  Prints, on the card it ran on: the host wall time, the
 device busy time (the union of kernel intervals) and so the device idle
 share, the number of kernel launches, the device time of the port's
 kernels (K1 ``ring_window``, K2 ``wheel_scan``) and their share, and
@@ -58,17 +62,27 @@ def _busy_us(intervals) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("serve", "chain", "cfg4",
-                                           "queue"), default="serve")
+    ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
+                                           "cfg4", "queue"),
+                    default="serve")
     ap.add_argument("--n", type=int, default=None,
-                    help="clients (100000; queue 10000)")
+                    help="clients (100000; cfg3 and queue 10000)")
     ap.add_argument("--depth", type=int, default=320,
                     help="serve, chain: queue depth and ring size")
     ap.add_argument("--k", type=int, default=65536)
     ap.add_argument("--m", type=int, default=None,
                     help="batches per epoch (serve 32, chain 8)")
     ap.add_argument("--epochs", type=int, default=1, help="serve, chain")
-    ap.add_argument("--rounds", type=int, default=1, help="cfg4")
+    ap.add_argument("--rounds", type=int, default=1, help="cfg3, cfg4")
+    ap.add_argument("--telemetry", choices=("on", "off"), default="off",
+                    help="cfg3, cfg4: the histograms, ledger, SLO window "
+                    "and provenance accumulators (bench's defaults are "
+                    "on)")
+    ap.add_argument("--calendar-impl",
+                    choices=("minstop", "bucketed", "wheel"),
+                    default="wheel",
+                    help="cfg4: the calendar scheme (wheel: bench's "
+                    "cfg4_wheel row; minstop: its cfg4 row)")
     ap.add_argument("--select-impl", choices=("sort", "radix"),
                     default="sort", help="serve, chain")
     ap.add_argument("--tag-width", type=int, choices=(64, 32), default=64,
@@ -80,11 +94,15 @@ def main(argv=None) -> int:
                     "_profile.txt)")
     a = ap.parse_args(argv)
     if a.n is None:
-        a.n = 10_000 if a.workload == "queue" else 100_000
+        a.n = 10_000 if a.workload in ("queue", "cfg3") else 100_000
     knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
     tag = "".join([f"_{a.select_impl}" if a.select_impl != "sort" else "",
                    f"_tag{a.tag_width}" if a.tag_width != 64 else "",
-                   "_high_rate" if a.high_rate else ""])
+                   "_high_rate" if a.high_rate else "",
+                   f"_{a.calendar_impl}" if a.workload == "cfg4"
+                   and a.calendar_impl != "wheel" else "",
+                   "_telemetry" if a.telemetry == "on"
+                   and a.workload in ("cfg3", "cfg4") else ""])
     out = a.out or os.path.join(ROOT, "chiprun_out",
                                 f"{a.workload}{tag}_profile.txt")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -125,13 +143,24 @@ def main(argv=None) -> int:
         def run():
             return serve.chain_epochs(st, a.epochs, k=a.k, m=m, **knobs)
     else:
-        shape = dict(n=a.n, rounds=a.rounds, **serve.CFG4)
-        st, draws = serve.cfg4_setup(a.n, 1 + a.rounds, device="cuda")
-        st = serve.cfg4_rounds(st, draws[:1]).state
+        cfg3 = a.workload == "cfg3"
+        cfg = serve.CFG3 if cfg3 else serve.CFG4
+        kw = {} if cfg3 else dict(calendar_impl=a.calendar_impl)
+        shape = dict(n=a.n, rounds=a.rounds, **cfg, **kw,
+                     telemetry=a.telemetry)
+        setup = serve.cfg3_setup if cfg3 else serve.cfg4_setup
+        rounds = serve.cfg3_rounds if cfg3 else serve.cfg4_rounds
+        st, draws = setup(a.n, 1 + a.rounds, device="cuda")
+        tele = serve.Tele()
+        if a.telemetry == "on":
+            tele = serve.tele_zero(a.n, plane=serve.slo_plane(
+                a.workload, a.n), device="cuda")
+        warm = rounds(st, draws[:1], tele=tele, **kw)
+        st, tele = warm.state, warm.tele
 
         def run():
-            return serve.cfg4_rounds(st, draws[1:],
-                                     t0=serve.CFG4["dt_round_ns"])
+            return rounds(st, draws[1:], t0=cfg["dt_round_ns"], tele=tele,
+                          **kw)
     res, prof = _profiled(run)
     table = prof.pop("table")
     with open(out, "w") as f:

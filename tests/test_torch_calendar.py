@@ -123,11 +123,11 @@ def test_wheel_epoch_matches_jax_pallas_interpret(monkeypatch):
 
 
 def test_calendar_epoch_later_slices_raise():
-    """The telemetry accumulators are still to come; ``tag_width=32``
-    is ported and other widths are refused."""
+    """The telemetry accumulators and ``tag_width=32`` are ported: an
+    accumulator that is not one is refused, and so are other widths."""
     st = tserve._preloaded_state(8, 4, ring=4, device="cpu")
     for kw in (dict(hists=object()), dict(flight=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="telemetry accumulator"):
             tfp.scan_calendar_epoch(st, 0, 1, steps=2, **kw)
     with pytest.raises(ValueError):
         tfp.scan_calendar_epoch(st, 0, 1, steps=2, calendar_impl="radix")

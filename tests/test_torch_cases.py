@@ -25,10 +25,11 @@ RING_SHAPES = [
 
 # K1 at every main-path shape: serve and serve_radix (N=100000, Q=320,
 # w=32), cfg4 and the stop ladder (N=100000, Q=128, w=64), the chain
-# paths (Q=320, w=chain_depth=4) and tag32 on the high-rate state
-# (Q=128, w=32)
+# paths (Q=320, w=chain_depth=4), tag32 on the high-rate state
+# (Q=128, w=32) and cfg3 (N=10000, Q=256, w=32)
 RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64),
-                    (100_000, 320, 4), (100_000, 128, 32)]
+                    (100_000, 320, 4), (100_000, 128, 32),
+                    (10_000, 256, 32)]
 
 
 def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):

@@ -175,11 +175,11 @@ def test_wheel_round_on_the_card_equals_cpu(cuda):
     from dmclock_tpu_torch import serve
 
     st, draws = serve.cfg4_setup(512, 1, device="cpu")
-    want = serve.cfg4_rounds(st, draws)
+    want = serve.cfg4_rounds(st, draws, calendar_impl="wheel")
     before = dict(_ext.LAUNCHES)
     got = serve.cfg4_rounds(
         st._replace(**{f: getattr(st, f).to(cuda) for f in st._fields}),
-        draws.to(cuda))
+        draws.to(cuda), calendar_impl="wheel")
     torch.cuda.synchronize()
     c = serve.CFG4
     assert _ext.LAUNCHES["ring_window"] - before["ring_window"] \
@@ -198,6 +198,9 @@ def _assert_results_equal(a, b, what=""):
     """Every field of two result NamedTuples, a state field by field."""
     for f in a._fields:
         x, y = getattr(a, f), getattr(b, f)
+        if x is None:       # a telemetry accumulator that was off
+            assert y is None, f"{what}.{f}"
+            continue
         if isinstance(x, tuple):
             _assert_results_equal(x, y, f"{what}.{f}")
             continue
@@ -262,6 +265,54 @@ def test_tag32_on_the_card_equals_tag64(cuda):
         assert int(e32.metrics[MET_REBASE_FALLBACKS]) == 0, name
         assert int(e32.count.sum()) > 0, name
         _assert_results_equal(e32, e64, name)
+
+
+def _to(res, dev):
+    """A result NamedTuple (nested ones and None fields included) on
+    ``dev``."""
+    return type(res)(*(None if x is None else _to(x, dev)
+                       if isinstance(x, tuple) else x.to(dev)
+                       for x in res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["cfg3", "cfg4"])
+def test_stream_and_telemetry_on_the_card(cuda, workload):
+    """Four rounds of the row at a small width on the card (cfg3: 1024
+    clients; cfg4 minstop: 512): with telemetry, SLO and provenance on
+    they equal the same rounds on the CPU, accumulators included; the
+    stream loop (chunks of 2) equals the rounds except the ingest_drops
+    row; telemetry off moves no decision, state or metric."""
+    from dmclock_tpu_torch import serve
+
+    n = 1024 if workload == "cfg3" else 512
+    setup = serve.cfg3_setup if workload == "cfg3" else serve.cfg4_setup
+    kw = {} if workload == "cfg3" else dict(calendar_impl="minstop")
+    rounds = serve.cfg3_rounds if workload == "cfg3" else serve.cfg4_rounds
+    stream = serve.cfg3_stream if workload == "cfg3" else serve.cfg4_stream
+    runs = {}
+    for dev in ("cpu", cuda):
+        st, draws = setup(n, 4, device=dev)
+        tele = serve.tele_zero(n, plane=serve.slo_plane(workload, n),
+                               device=dev)
+        runs[dev] = (rounds(st, draws, tele=tele, **kw),
+                     stream(st, draws, tele=tele, chunk=2, **kw),
+                     rounds(st, draws, **kw))
+    torch.cuda.synchronize()
+    on, streamed, off = runs[cuda]
+    _assert_results_equal(_to(on, "cpu"), runs["cpu"][0], "card vs cpu")
+    assert int(on.count.sum()) > 0
+    keep = torch.ones(on.metrics.shape[-1], dtype=torch.bool, device=cuda)
+    keep[7] = False                            # ingest_drops
+    for res, what in ((streamed, "stream"), (off, "telemetry off")):
+        _assert_results_equal(res.state, on.state, f"{what}.state")
+        for f in res._fields[1:]:
+            if f not in ("tele", "metrics"):
+                assert torch.equal(getattr(res, f), getattr(on, f)), \
+                    f"{what}.{f}"
+        assert torch.equal(res.metrics[keep], on.metrics[keep]), what
+    assert torch.equal(off.metrics, on.metrics)
+    _assert_results_equal(streamed.tele, on.tele, "stream telemetry")
 
 
 @pytest.mark.cuda

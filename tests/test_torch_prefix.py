@@ -147,16 +147,21 @@ def test_scan_prefix_epoch_equals_port_serial_engine():
 
 
 def test_later_slices_raise_not_implemented():
-    """The telemetry accumulators are still to come; radix selection
-    and the int32 tag carry are ported, and unknown values of those
-    knobs are refused."""
+    """The telemetry accumulators, radix selection and the int32 tag
+    carry are ported: an accumulator that is not one is refused, and so
+    are unknown values of those knobs."""
     st = tserve._preloaded_state(8, 4, ring=4, device="cpu")
-    for kw in (dict(hists=object()), dict(prov=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(hists=object()),
+               dict(ledger=torch.zeros((8, 5), dtype=torch.int32))):
+        with pytest.raises(ValueError, match="telemetry accumulator"):
             tfp.scan_prefix_epoch(st, 0, 2, 4, anticipation_ns=0, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="telemetry accumulator"):
             tfp.scan_chain_epoch(st, 0, 2, 4, chain_depth=2,
                                  anticipation_ns=0, **kw)
+    ep = tfp.scan_prefix_epoch(
+        st, 0, 2, 4, anticipation_ns=0,
+        ledger=torch.zeros((8, 5), dtype=torch.int64))
+    assert int(ep.ledger[:, 0].sum()) == int(ep.count.sum()) > 0
     for kw in (dict(select_impl="bitonic"), dict(tag_width=16)):
         with pytest.raises(ValueError):
             tfp.scan_prefix_epoch(st, 0, 2, 4, anticipation_ns=0, **kw)
