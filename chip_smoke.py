@@ -100,24 +100,43 @@ Phases (any failure raises and the exit code is not 0):
     service slots, the virtual-time embedding): the push queue on the
     card dispatches in the order the pull queue does on the CPU on the
     same arrivals, sched-ahead wakeups among them; then a threaded push
-    queue whose sched-ahead thread dispatches a limit-deferred request.
+    queue whose sched-ahead thread dispatches a limit-deferred request;
+19. the ``churn_flash_crowd`` path (bench's churn row,
+    ``serve.churn_row``): 4,096 client ids on the flash_crowd scenario,
+    64 epochs with a lifecycle boundary every 4 (capacity from 1,024,
+    growing on demand), guarded prefix epochs of m=4 batches of k=256 in
+    a 32-slot ring, 8 waves of 50 ms epochs, SLO windows and the burn-rate
+    evaluator on, the admin API on a live HTTP endpoint and a real
+    ``PUT /clients/{id}/qos`` at the halfway boundary; launch counts reset
+    just before and read just after (K1 once an epoch, no K2), a span
+    tracer beside it for the boundaries' wall share; held against the same
+    row on the CPU (every output key but the wall clock); then its static
+    variant on the card, and the row with SLO off: the same digest and
+    decisions, the wall times side by side.  Then the ``churn_storm``
+    scenario at the same shape, launch-counted and span-traced, so that
+    idle eviction, the evicted clients' ledger read and compaction run on
+    the card at full width (flash_crowd evicts and compacts nothing at
+    this shape): it must evict and compact, equal its CPU twin on every
+    output but the wall clock, and give its static variant's digest and
+    decisions.
 
-The CPU runs of phases 17 and 18 run beside the card's, in a child
-process on four CPU threads (``start_cpu_twins``) started only then, so
-the earlier phases' host-paced timings have no CPU load beside them;
-the card runs both phases before either is held against its twin, so
+The CPU runs of phases 17-19 run beside the card's, in a child process
+on four CPU threads (``start_cpu_twins``) started only then, so the
+earlier phases' host-paced timings have no CPU load beside them; the
+card runs phases 17 and 18 before either is held against its twin, so
 the twins have that time to finish.  The script stops the child on any
 failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
-launch it (phases 6, 8, 10-16), each count read right after that path's
-run; K2's is the ``cfg4_wheel`` path's; the queue paths (17, 18) add
-none.  Each kernel's entry also carries ``launches_by_path``.  Serve's
-and the rows' rates are printed both as the mean (summed decisions over
-summed event ms) and median-based (one epoch's or round's decisions
-over the median ms).  Prints the kernel table as one JSON line, then as
-the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
-without a result when CUDA is unavailable or the package is missing.
+launch it (phases 6, 8, 10-16 and both runs of 19), each count read
+right after that path's run; K2's is the ``cfg4_wheel`` path's; the
+queue paths (17, 18) add none. Each kernel's entry also carries
+``launches_by_path``. Serve's and the rows' rates are printed both as
+the mean (summed decisions over summed event ms) and median-based (one
+epoch's or round's decisions over the median ms). Prints the kernel
+table as one JSON line, then as the last line ``{"ok": true, "device":
+{...}}``. Exits non-zero without a result when CUDA is unavailable or
+the package is missing.
 """
 
 from __future__ import annotations
@@ -151,6 +170,8 @@ M_CHAIN, CHAIN_DEPTH, CHAIN_NOW = 8, 4, 20_000_000
 TIMED_CHAIN = 3
 N_QUEUE, N_PUSH = 10_000, 1_000
 N_CFG3 = 10_000
+CHURN_SCENARIO = "flash_crowd"
+STORM_SCENARIO = "churn_storm"   # the churn run that evicts and compacts
 CFG3_ROUNDS = 4          # cfg3 main-path rounds, launch-counted
 CFG3_TIMED = 4           # timed rounds of each of telemetry on and off
 CFG4M_ROUNDS = 2         # cfg4 (minstop) main-path rounds
@@ -1428,10 +1449,11 @@ def phase_cfg4(serve, ext, obsdev, card: str):
 
 
 def start_cpu_twins(root: str, out: str) -> subprocess.Popen:
-    """The CPU twins of phases 17 and 18 in a child process on four CPU
-    threads, with CUDA hidden from it: the whole ``serve_queue`` sequence
-    and the pull queue behind ``virtual_server``, started as the card
-    begins phase 17; the results go to ``out`` (``torch.save``)."""
+    """The CPU twins of phases 17-19 in a child process on four CPU
+    threads, with CUDA hidden from it: the whole ``serve_queue`` sequence,
+    the pull queue behind ``virtual_server`` and both churn rows, started
+    as the card begins phase 17; the results go to ``out``
+    (``torch.save``)."""
     code = (
         "import sys, time, torch\n"
         f"sys.path.insert(0, {root!r})\n"
@@ -1441,8 +1463,10 @@ def start_cpu_twins(root: str, out: str) -> subprocess.Popen:
         f"run = serve.serve_queue({N_QUEUE}, device='cpu')\n"
         "secs = time.perf_counter() - t0\n"
         f"pull = serve.virtual_server('pull', {N_PUSH}, device='cpu')\n"
-        "torch.save(dict(queue=run._asdict(), queue_s=secs, pull=pull),\n"
-        f"           {out!r})\n")
+        f"churn = serve.churn_row({CHURN_SCENARIO!r}, device='cpu')\n"
+        f"storm = serve.churn_row({STORM_SCENARIO!r}, device='cpu')\n"
+        "torch.save(dict(queue=run._asdict(), queue_s=secs, pull=pull,\n"
+        f"                churn=churn, storm=storm), {out!r})\n")
     with open(out + ".err", "w") as err:
         return subprocess.Popen(
             [sys.executable, "-c", code], stdout=subprocess.DEVNULL,
@@ -1573,6 +1597,134 @@ def check_push(push, woke: int, secs: float, card: str, twin) -> None:
         f"in the order the pull queue does on the CPU; {secs:.3f} s")
 
 
+def phase_churn(serve, ext, card: str):
+    """Bench's churn row at its accelerator shape on the card,
+    launch-counted (K1 once an epoch, no K2) with a span tracer beside
+    it; then its static variant and the row with SLO off on the card,
+    which must give the same digest and decisions.  Returns ``(row, K1
+    launches)``."""
+    from dmclock_tpu_torch.obs.spans import SpanTracer
+
+    t_phase = time.perf_counter()
+    epochs = serve.CHURN["epochs"]
+    tracer = SpanTracer()
+    row, launches = _launch_counted(
+        ext, lambda: serve.churn_row(CHURN_SCENARIO, tracer=tracer,
+                                     device="cuda"),
+        {"ring_window": epochs, "wheel_scan": 0}, "churn_flash_crowd")
+    boost = row["boost"]
+    if boost is None or boost["http"] is not True \
+            or not boost["share_gain"] > 1:
+        raise AssertionError(f"churn: the live PUT failed: {boost}")
+    span_s = {f"{name}|{cat}": v[1] / 1e9
+              for (name, cat), v in tracer.name_stats().items()}
+    bound_s = span_s.get("lifecycle.boundary|host_prep", 0.0)
+    wait_s = span_s.get("guarded.device_wait|device_compute", 0.0)
+    log(f"[churn] {CHURN_SCENARIO} on {card}: {row['decisions']} "
+        f"decisions in {epochs} epochs, wall {row['wall_s']:.3f} s, "
+        f"{row['dps']:.1f} decisions/s, {epochs / row['wall_s']:.2f} "
+        f"epochs/s; peak clients {row['peak_clients']}, live "
+        f"{row['live_clients']}, capacity {row['capacity']}, grows "
+        f"{row['grows']}, compactions {row['compactions']}, evictions "
+        f"{row['evictions']}, slot recycles {row['slot_recycles']}; "
+        f"boost.http {boost['http']}, client {boost['client']} weight "
+        f"{boost['weight_before']} -> {boost['weight_after']}, "
+        f"share_gain {boost['share_gain']:.6f}; SLO violations "
+        f"{row['slo_violations_total']}, windows closed "
+        f"{row['slo_windows_closed']}; tardiness p99 "
+        f"{row['tardiness_p99_ns']} ns")
+    log(f"[churn] spans: lifecycle boundaries {bound_s:.6f} s = "
+        f"{bound_s / row['wall_s']:.4f} of the row's wall; guarded "
+        f"device waits {wait_s:.6f} s; every span total (s): "
+        f"{json.dumps(span_s, sort_keys=True)}")
+    static = serve.churn_row(CHURN_SCENARIO, static=True, device="cuda")
+    if (static["digest"], static["decisions"]) != (row["digest"],
+                                                   row["decisions"]):
+        raise AssertionError(
+            f"churn: the static variant differs: digest "
+            f"{static['digest']} vs {row['digest']}, decisions "
+            f"{static['decisions']} vs {row['decisions']}")
+    log(f"[churn] static variant on the card: digest {row['digest']}, "
+        f"{row['decisions']} decisions, equal to the dynamic run's "
+        f"(static wall {static['wall_s']:.3f} s)")
+    # the SLO windows and the evaluator only observe: the decisions are
+    # the same without them, and the wall difference is their cost
+    off = serve.churn_row(CHURN_SCENARIO, slo=False, device="cuda")
+    if (off["digest"], off["decisions"]) != (row["digest"],
+                                             row["decisions"]):
+        raise AssertionError("churn: SLO off changed the decisions")
+    log(f"[churn] SLO off on the card: the same digest and decisions, "
+        f"wall {off['wall_s']:.3f} s against {row['wall_s']:.3f} s on "
+        f"({row['wall_s'] / off['wall_s']:.3f}x)")
+    log(f"[time] churn phase {time.perf_counter() - t_phase:.3f} s")
+    return row, launches["ring_window"]
+
+
+def phase_churn_storm(serve, ext, card: str):
+    """The churn row on ``churn_storm`` at the same shape, launch-counted
+    with a span tracer beside it for the boundaries' wall share:
+    generations of clients register, idle out and are evicted, and the
+    slots are compacted, all on the card at full width.  Its static
+    variant on the card must give the same digest and decisions.
+    Returns ``(row, K1 launches)``."""
+    from dmclock_tpu_torch.obs.spans import SpanTracer
+
+    t_phase = time.perf_counter()
+    epochs = serve.CHURN["epochs"]
+    tracer = SpanTracer()
+    row, launches = _launch_counted(
+        ext, lambda: serve.churn_row(STORM_SCENARIO, tracer=tracer,
+                                     device="cuda"),
+        {"ring_window": epochs, "wheel_scan": 0}, "churn_storm")
+    if row["boost"] is None or row["boost"]["http"] is not True:
+        raise AssertionError(f"churn_storm: the live PUT did not go over "
+                             f"HTTP: {row['boost']}")
+    if not (row["evictions"] > 0 and row["compactions"] > 0):
+        raise AssertionError(
+            f"churn_storm evicted {row['evictions']} and compacted "
+            f"{row['compactions']} times; the run must do both")
+    log(f"[storm] {STORM_SCENARIO} on {card}: {row['decisions']} decisions "
+        f"in {epochs} epochs, wall {row['wall_s']:.3f} s, "
+        f"{row['dps']:.1f} decisions/s; peak clients "
+        f"{row['peak_clients']}, live {row['live_clients']}, capacity "
+        f"{row['capacity']}, grows {row['grows']}, compactions "
+        f"{row['compactions']}, evictions {row['evictions']}, slot "
+        f"recycles {row['slot_recycles']}")
+    stats = tracer.name_stats()
+    bound_s = stats[("lifecycle.boundary", "host_prep")][1] / 1e9
+    log(f"[storm] spans: lifecycle boundaries {bound_s:.6f} s = "
+        f"{bound_s / row['wall_s']:.4f} of the row's wall")
+    static = serve.churn_row(STORM_SCENARIO, static=True, device="cuda")
+    if (static["digest"], static["decisions"]) != (row["digest"],
+                                                   row["decisions"]):
+        raise AssertionError(
+            f"churn_storm: the static variant differs: digest "
+            f"{static['digest']} vs {row['digest']}, decisions "
+            f"{static['decisions']} vs {row['decisions']}")
+    log(f"[storm] static variant on the card: digest {row['digest']}, "
+        f"{row['decisions']} decisions, equal to the dynamic run's")
+    log(f"[time] churn_storm phase {time.perf_counter() - t_phase:.3f} s")
+    return row, launches["ring_window"]
+
+
+def check_churn(row: dict, card: str, twin, key: str = "churn") -> None:
+    """The card's churn row against the CPU twin's (``twin()[key]``):
+    every key but the wall clock (decisions, snapshot counters, the boost
+    record, the conformance table, tardiness, the SLO block, the
+    histogram block, the digest)."""
+    want = twin()[key]
+    for k in sorted(set(want) | set(row)):
+        if k in ("wall_s", "dps"):
+            continue
+        if row.get(k) != want.get(k):
+            raise AssertionError(f"{key}: {k} on the card differs from "
+                                 f"the CPU: {str(row.get(k))[:300]} vs "
+                                 f"{str(want.get(k))[:300]}")
+    log(f"[{key}] equal to the CPU twin on every output but the wall "
+        f"clock ({len(want) - 2} keys; CPU wall {want['wall_s']:.3f} s, "
+        f"card {row['wall_s']:.3f} s on {card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1635,6 +1787,11 @@ def main() -> int:
             push = phase_push(serve, _ext)
             check_queue(serve, run, card, twin)
             check_push(*push, card, twin)
+            t_churn = time.perf_counter()
+            churn, churn_k1 = phase_churn(serve, _ext, card)
+            storm, storm_k1 = phase_churn_storm(serve, _ext, card)
+            check_churn(churn, card, twin)
+            check_churn(storm, card, twin, "storm")
         finally:
             if twins.poll() is None:
                 twins.kill()
@@ -1642,19 +1799,21 @@ def main() -> int:
     t_end = time.perf_counter()
     log(f"[time] phases 6-13 took {t_rows - t_serve:.3f} s, the cfg3, "
         f"cfg3_stream and cfg4 (minstop) phases {t_queue - t_rows:.3f} s, "
-        f"the queue and push phases {t_end - t_queue:.3f} s; the whole "
-        f"script {t_end - t_start:.3f} s after its imports")
+        f"the queue and push phases {t_churn - t_queue:.3f} s, the churn "
+        f"phases {t_end - t_churn:.3f} s; the whole script "
+        f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
                    serve_tag32=tag32_k1, chain=chain_k1,
                    chain_vc=chain_vc_k1, stop_ladder=ladder_k1,
                    cfg4_wheel=wheel["ring_window"], cfg3=cfg3_k1,
                    cfg3_stream=stream_k1, cfg4=cfg4_k1,
-                   cfg4_stream=cfg4_stream_k1)
+                   cfg4_stream=cfg4_stream_k1,
+                   churn_flash_crowd=churn_k1, churn_storm=storm_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     k2["launches"] = wheel["wheel_scan"]
-    # minstop, cfg3, the stream chunks and the queue launch no K2
+    # minstop, cfg3, the stream chunks, the queue and churn launch no K2
     k2["launches_by_path"] = dict(cfg4_wheel=k2["launches"])
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,7 @@ from ..core.timebase import MAX_TAG, MIN_TAG, sec_to_ns
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..obs import histograms as _led
 from ..obs import slo as _W
+from ..obs import spans as _spans
 from ..robust.guarded import RECOVERABLE_ERRORS, retry_with_backoff
 from . import kernels
 from .kernels import (FUTURE, OP_ADD, OP_CREATE, RETURNING, IngestOps)
@@ -91,15 +92,13 @@ class TpuPullPriorityQueue:
                  retry_sleep: Callable[[float], None] = None,
                  monotonic_clock: Callable[[], float] =
                  _walltime.monotonic,
-                 # host span tracing is not ported yet (obs.spans)
+                 # obs.spans.SpanTracer: host spans around launches,
+                 # adds, fetches and folds (None = off)
                  tracer=None,
                  device: str | torch.device = DEFAULT_DEVICE):
         if not delayed_tag_calc:
             raise ValueError("the device engine is DelayedTagCalc by "
                              "construction")
-        if tracer is not None:
-            raise NotImplementedError(
-                "span tracing (obs.spans) is not ported yet")
         # a bare number passed for at_limit is a RejectThreshold and
         # implies AtLimit.Reject (reference AtLimitParam :89-93)
         if isinstance(at_limit, AtLimit):
@@ -109,7 +108,7 @@ class TpuPullPriorityQueue:
             self.at_limit = AtLimit.REJECT
             self.reject_threshold_ns = int(at_limit)
         self.client_info_f = client_info_f
-        self.tracer = None
+        self.tracer = tracer
         self.anticipation_timeout_ns = int(anticipation_timeout_ns)
         self._allow = self.at_limit is AtLimit.ALLOW
         # host immediate-mode limit mirror (REJECT admission)
@@ -216,10 +215,17 @@ class TpuPullPriorityQueue:
         ``launch_failures`` before re-raising."""
         def on_retry(_attempt, _exc):
             self.guard_retries += 1
+            _spans.instant(self.tracer, "queue.retry", "retry",
+                           error=type(_exc).__name__)
+
+        def one_attempt():
+            # one attempt's call, never the backoff sleeps between them
+            with _spans.span(self.tracer, "queue.launch", "dispatch"):
+                return fn(*args)
 
         try:
             return retry_with_backoff(
-                lambda: fn(*args), retries=self.device_retries,
+                one_attempt, retries=self.device_retries,
                 base_s=self.retry_base_s, on_retry=on_retry,
                 sleep=self._retry_sleep)
         except RECOVERABLE_ERRORS:
@@ -232,7 +238,8 @@ class TpuPullPriorityQueue:
         pending either, no launch).  A failed launch restores the
         drained rows, so a later attempt still applies them."""
         rows = self._pending
-        ops = self._build_ops()
+        with _spans.span(self.tracer, "queue.pack_ops", "host_prep"):
+            ops = self._build_ops()
         if ops is None and serve_fn is None:
             return None
 
@@ -333,7 +340,8 @@ class TpuPullPriorityQueue:
             return errno.EINVAL
         if time_ns is None:
             time_ns = sec_to_ns(_walltime.time())
-        with self.data_mtx:
+        with _spans.span(self.tracer, "queue.add", "ingest"), \
+                self.data_mtx:
             self.tick += 1
             slot = self._slot_of.get(client_id)
             created = slot is None
@@ -429,10 +437,22 @@ class TpuPullPriorityQueue:
             return PullReq(NextReqType.FUTURE, when_ready=dwhen)
         return PullReq(NextReqType.NONE)
 
-    @staticmethod
-    def _fetch(packed: torch.Tensor) -> List[Tuple[int, ...]]:
+    def _traced_copy(self, packed: torch.Tensor) -> list:
+        """``packed`` copied to the host as nested lists.  With a tracer
+        the wait for the device and the copy are separate spans
+        (``queue.device_wait``, ``queue.fetch``); without one this is
+        the plain copy."""
+        if self.tracer is None:
+            return packed.cpu().tolist()
+        with self.tracer.span("queue.device_wait", "device_compute"):
+            if packed.device.type == "cuda":
+                torch.cuda.synchronize(packed.device)
+        with self.tracer.span("queue.fetch", "fetch"):
+            return packed.cpu().tolist()
+
+    def _fetch(self, packed: torch.Tensor) -> List[Tuple[int, ...]]:
         """One device->host copy; the decisions as Python int tuples."""
-        return list(zip(*packed.cpu().tolist()))
+        return list(zip(*self._traced_copy(packed)))
 
     def pull_request(self, now_ns: Optional[int] = None) -> PullReq:
         if now_ns is None:
@@ -441,7 +461,9 @@ class TpuPullPriorityQueue:
             if self._spec:
                 return self._pull_spec(now_ns)
             self.state, dec = self._drain_and_launch(self._run, now_ns, 1)
-            return self._decision_to_pullreq(*self._fetch(dec)[0])
+            d = self._fetch(dec)[0]
+            with _spans.span(self.tracer, "queue.fold", "drain"):
+                return self._decision_to_pullreq(*d)
 
     # ------------------------------------------------------------------
     # speculative decision buffer
@@ -501,7 +523,7 @@ class TpuPullPriorityQueue:
 
         st, packed = self._launch(run_h, pre)
         self.state = st
-        flat = packed.cpu().tolist()
+        flat = self._traced_copy(packed)
         horizon = flat.pop()
         d = list(zip(*(flat[i * size:(i + 1) * size] for i in range(6))))
         first = d[0]
@@ -614,7 +636,7 @@ class TpuPullPriorityQueue:
             self._settle_spec()
             self.state, packs = self._drain_and_launch(windows)
             out: List[List[PullReq]] = []
-            for win in packs.cpu().tolist():     # [chunks][6][steps]
+            for win in self._traced_copy(packs):  # [chunks][6][steps]
                 rows: List[PullReq] = []
                 for d in zip(*win):
                     pr = self._decision_to_pullreq(*d)
@@ -631,7 +653,8 @@ class TpuPullPriorityQueue:
         """Expose the scheduling counters and the speculative-buffer
         telemetry as callback gauges on ``registry`` (anything with a
         ``gauge(name, help, labels=...)`` returning an object with
-        ``set_function``), under the JAX package's metric names."""
+        ``set_function``), under the JAX package's metric names and
+        help texts, so the exposition is the JAX queue's."""
         rows = (
             ("dmclock_sched_reservation_total", "reserv_sched_count",
              "scheduling decisions by phase"),
@@ -648,15 +671,19 @@ class TpuPullPriorityQueue:
             ("dmclock_spec_replays_total", "spec_replays",
              "settle replays (incl. mixed-drain)"),
             ("dmclock_guard_retries_total", "guard_retries",
-             "device launches retried after a transient failure"),
+             "device launches retried after a transient failure "
+             "(guarded-commit contract, docs/ROBUSTNESS.md)"),
             ("dmclock_launch_failures_total", "launch_failures",
-             "device launches that exhausted their bounded retries"),
+             "device launches that exhausted their bounded retries "
+             "(degradation-ladder escalation signal)"),
             ("dmclock_invalid_cost_rejects_total",
              "invalid_cost_rejects",
              "adds rejected for a non-positive cost (EINVAL, "
              "nothing committed)"),
             ("dmclock_slot_recycles_total", "slot_recycles",
-             "client slots erased and freed for a future tenant"),
+             "client slots erased and freed for a future tenant "
+             "(do_clean erase; the final ledger row folds into the "
+             "departed-clients report before it is zeroed)"),
         )
         for name, attr, help_text in rows:
             registry.gauge(name, help_text, labels=labels).set_function(
@@ -668,7 +695,9 @@ class TpuPullPriorityQueue:
                            (_led.LED_RESV_OPS, "resv_ops"),
                            (_led.LED_LIMIT_BREAKS, "limit_breaks")):
             registry.gauge(f"dmclock_ledger_{cname}",
-                           "host conformance-ledger column total",
+                           "host conformance-ledger column total "
+                           "(pull-queue mirror of the device ledger "
+                           "schema; docs/OBSERVABILITY.md)",
                            labels=labels).set_function(
                 lambda c=col: self._ledger_total(c))
 

@@ -1,9 +1,17 @@
-"""Bounded retry with exponential backoff (the port's copy of
-``retry_with_backoff`` from ``dmclock_tpu/robust/guarded.py``).
+"""The guarded-commit contract: trip -> commit nothing -> resume
+(the port of ``dmclock_tpu/robust/guarded.py``'s ``retry_with_backoff``,
+``GuardedEpoch`` and ``run_epoch_guarded``).
 
-The pull queue wraps every device launch in :func:`retry_with_backoff`.
-Launches are pure (state rebinds only from a returned value), so a
-failed attempt commits nothing.
+1. **Device side**: an epoch batch that trips a guard (the int32 tag
+   window, the creation-order/cost rebase guard, calendar no-progress)
+   commits nothing; the epoch keeps the last good state and reports the
+   trip in ``guards_ok``/``progress_ok``.  :func:`run_epoch_guarded` is
+   the host half that resumes the remaining batches on the exact path.
+2. **Host side**: transient host-side failures around a launch retry
+   with bounded exponential backoff (:func:`retry_with_backoff`; the
+   pull queue wraps every launch in it).  Launches are pure (state
+   rebinds only from a returned value), so a failed attempt commits
+   nothing.
 
 Only transport-level failures are retried: ``OSError`` (which covers
 ``ConnectionError``) and ``TimeoutError``.  The JAX set adds its device
@@ -12,12 +20,19 @@ sticky in a process -- every later call on that context fails too -- so
 a retry cannot clear it: it is never caught here, and nothing falls
 back to the CPU.  Plain ``RuntimeError`` is not retried either: a
 generic host error is a caller bug.
+
+The JAX package's per-configuration jit caches (``_jit_epoch``,
+``_jit_serial``) have no counterpart: nothing is compiled per shape.
+``DegradationLadder`` and ``run_stream_chunk_guarded`` are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import time as _time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
+
+import torch
 
 RECOVERABLE_ERRORS = (OSError, TimeoutError)
 
@@ -66,3 +81,187 @@ def retry_with_backoff(fn: Callable, *, retries: int = 3,
                 delay = min(delay, max(deadline_s - (clock() - t0), 0.0))
             sleep(delay)
             attempt += 1
+
+
+class GuardedEpoch(NamedTuple):
+    """Result of :func:`run_epoch_guarded`."""
+
+    state: object            # EngineState after every committed batch
+    count: int               # decisions committed (the resumes included)
+    results: tuple           # the raw epoch result(s), in run order
+    rebase_fallbacks: int    # tag32 window trips resumed on int64
+    serial_fallbacks: int    # order/cost guard trips resumed serially
+    retries: int             # transient errors retried
+    # telemetry accumulators after the LAST scan attempt (pass-through
+    # state: a tag32 resume continues from the first attempt's outputs;
+    # the serial fallback's decisions are not telemetered).  None when
+    # the caller passed none in.
+    hists: object = None
+    ledger: object = None
+    flight: object = None
+    slo: object = None
+    prov: object = None
+
+
+def _device_wait(state) -> None:
+    """Wait for the state's device (the JAX ``block_until_ready``)."""
+    if state.device.type == "cuda":
+        torch.cuda.synchronize(state.device)
+
+
+def _count_and_guards(engine: str, result):
+    """``(count, guard vector)`` of an epoch result in one copy to the
+    host: the epoch's only read back."""
+    ok = result.progress_ok if engine == "calendar" else result.guards_ok
+    m = ok.shape[0]
+    both = torch.cat([result.count.reshape(-1).to(torch.int64),
+                      ok.reshape(-1).to(torch.int64)]).cpu().numpy()
+    return int(both[:-m].sum()), both[-m:].astype(bool)
+
+
+def run_epoch_guarded(state, now, *, engine: str = "prefix",
+                      m: int, k: int = 0, chain_depth: int = 4,
+                      anticipation_ns: int = 0,
+                      allow_limit_break: bool = False,
+                      with_metrics: bool = False,
+                      select_impl: str = "sort",
+                      tag_width: int = 64,
+                      window_m: Optional[int] = None,
+                      calendar_impl: str = "minstop",
+                      ladder_levels: int = 8,
+                      skew_ns: int = 0,
+                      hists=None, ledger=None, flight=None, slo=None,
+                      prov=None,
+                      retries: int = 3, base_s: float = 0.05,
+                      sleep: Callable[[float], None] = _time.sleep,
+                      on_retry=None, tracer=None) -> GuardedEpoch:
+    """Run one epoch of any of the three epoch engines under the
+    guarded-commit contract, host side included.
+
+    The epoch itself commits nothing on a trip; this wrapper (a) retries
+    transient failures with bounded backoff, (b) on a tag32 window trip
+    resumes the remaining batches from the returned last-good state on
+    the int64 path, and (c) on an order/cost guard trip (or calendar
+    no-progress) on the exact path resumes on the serial engine,
+    ``max(remaining, 1) * max(k, 1)`` steps at the same ``now``.
+    ``skew_ns`` is a fault-injection hook: the epoch sees ``now +
+    skew_ns``.  With ``skew_ns=0`` the first attempt is the plain epoch
+    call, bit-identical to no wrapper.
+
+    ``hists`` / ``ledger`` / ``flight`` / ``slo`` / ``prov`` (None =
+    off) are the telemetry accumulators of ``fastpath.scan_*_epoch``,
+    threaded through: a tag32 resume continues accumulating from the
+    first attempt's outputs, and the serial fallback passes them through
+    untouched (its decisions are not telemetered).
+
+    ``tracer`` (``obs.spans.SpanTracer`` or None) records
+    ``guarded.dispatch`` around each call and ``guarded.device_wait``
+    around the wait for the state's device, plus ``guarded.retry``,
+    ``guarded.rebase_resume`` and ``guarded.serial_resume`` instants.
+    The JAX package's ``wheel_kernel`` knob has no counterpart: the
+    device picks kernel K2's route."""
+    from ..engine import fastpath, kernels
+    from ..engine.kernels import as_scalar
+    from ..obs import spans as _spans
+
+    if engine not in fastpath.EPOCH_ENGINES:
+        raise ValueError(f"unknown epoch engine {engine!r}")
+    kw = fastpath.epoch_scan_kwargs(
+        engine, k=k, chain_depth=chain_depth, select_impl=select_impl,
+        tag_width=tag_width, window_m=window_m,
+        calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+        anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break,
+        with_metrics=with_metrics)
+    fn = fastpath.epoch_scan_fn(engine)
+    retry_count = [0]
+
+    def count_retry(attempt, exc):
+        retry_count[0] += 1
+        _spans.instant(tracer, "guarded.retry", "retry",
+                       error=type(exc).__name__)
+        if on_retry is not None:
+            on_retry(attempt, exc)
+
+    tele = {name: v for name, v in (("hists", hists), ("ledger", ledger),
+                                    ("flight", flight), ("slo", slo),
+                                    ("prov", prov)) if v is not None}
+    tele_sig = tuple(sorted(tele))
+
+    def guarded(one):
+        return retry_with_backoff(one, retries=retries, base_s=base_s,
+                                  sleep=sleep, on_retry=count_retry)
+
+    def attempt(st, t, m_run, width):
+        def one():
+            with _spans.span(tracer, "guarded.dispatch", "dispatch",
+                             engine=engine, m=m_run):
+                out = fn(st, t, m=m_run, **{**kw, "tag_width": width},
+                         **tele)
+            with _spans.span(tracer, "guarded.device_wait",
+                             "device_compute"):
+                _device_wait(out.state)
+            return out
+
+        return guarded(one)
+
+    def take_tele(ep):
+        for name in tele_sig:
+            tele[name] = getattr(ep, name)
+
+    t = as_scalar(now, state.device) + int(skew_ns)
+    results = []
+    rebase_fb = serial_fb = 0
+    ep = attempt(state, t, m, tag_width)
+    results.append(ep)
+    take_tele(ep)
+    total, guards = _count_and_guards(engine, ep)
+    state = ep.state
+    if not guards.all():
+        remaining = int(m - guards.sum())
+        if tag_width == 32:
+            # tag32 window trip: the batch committed nothing; resume the
+            # remaining batches on the int64 path
+            rebase_fb = 1
+            _spans.instant(tracer, "guarded.rebase_resume", "retry",
+                           remaining=remaining)
+            ep2 = attempt(state, t, remaining, 64)
+            results.append(ep2)
+            take_tele(ep2)
+            c2, guards = _count_and_guards(engine, ep2)
+            total += c2
+            state = ep2.state
+            remaining = int(remaining - guards.sum())
+        if not guards.all():
+            # order/cost guard (or calendar no-progress) on the exact
+            # path: the serial engine for the rest
+            serial_fb = 1
+            _spans.instant(tracer, "guarded.serial_resume", "retry",
+                           remaining=remaining)
+            steps = max(remaining, 1) * max(k, 1)
+            st0 = state
+
+            def serial_one():
+                with _spans.span(tracer, "guarded.dispatch", "dispatch",
+                                 engine="serial"):
+                    out = kernels.engine_run(
+                        st0, t, steps, allow_limit_break=allow_limit_break,
+                        anticipation_ns=anticipation_ns, advance_now=False)
+                with _spans.span(tracer, "guarded.device_wait",
+                                 "device_compute"):
+                    _device_wait(out[0])
+                return out
+
+            state, _, decs = guarded(serial_one)
+            total += int((decs.type == kernels.RETURNING).sum())
+            results.append(decs)
+    return GuardedEpoch(state=state, count=total,
+                        results=tuple(results),
+                        rebase_fallbacks=rebase_fb,
+                        serial_fallbacks=serial_fb,
+                        retries=retry_count[0],
+                        hists=tele.get("hists"),
+                        ledger=tele.get("ledger"),
+                        flight=tele.get("flight"),
+                        slo=tele.get("slo"),
+                        prov=tele.get("prov"))

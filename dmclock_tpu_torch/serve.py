@@ -43,6 +43,11 @@ population, 10,000 clients, through the exact serial engine (no K1 or
 K2 launch); ``virtual_server`` runs the push queue in the virtual-time
 embedding, or the pull queue, behind a simulated server.
 
+``churn_row`` is bench's ``churn_<scenario>`` row: an open population
+(4,096 ids on ``flash_crowd``) driven by the lifecycle plane over
+guarded prefix epochs (m=4, k=256, ring 32) with the admin API on a
+live HTTP endpoint and a real ``PUT /clients/{id}/qos`` halfway.
+
 Run it (on the card; ``--device cpu`` for a small CPU run)::
 
     python -m dmclock_tpu_torch.serve --n 100000 --epochs 3
@@ -54,15 +59,20 @@ Run it (on the card; ``--device cpu`` for a small CPU run)::
     python -m dmclock_tpu_torch.serve --workload cfg4 --calendar-impl wheel
     python -m dmclock_tpu_torch.serve --workload cfg4 --n 256 --device cpu
     python -m dmclock_tpu_torch.serve --workload queue [--n 10000]
+    python -m dmclock_tpu_torch.serve --workload churn
+    python -m dmclock_tpu_torch.serve --workload churn --n 512 \
+        --epochs 32 --k 64 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import heapq
 import json
 import time
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -79,13 +89,21 @@ from .engine.fastpath import (CalendarEpoch, PrefixEpoch,
 from .engine.kernels import as_scalar, ingest_superwave
 from .engine.push_queue import TpuPushPriorityQueue
 from .engine.queue import TpuPullPriorityQueue
-from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS
-from .engine.stream import STREAM_OUT_FIELDS, build_stream_chunk
+from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS, init_state
+from .engine.stream import STREAM_OUT_FIELDS, build_stream_chunk, ingest_step
+from .lifecycle import (LifecyclePlane, SlotMap, lam_vector, make_spec,
+                        mount_admin_api, static_variant)
+from .lifecycle.plane import canon_results
 from .obs import device as obsdev
 from .obs import histograms as obshist
 from .obs import provenance as obsprov
 from .obs import slo as obsslo
+from .obs import spans as obsspans
+from .obs.alerts import SloEvaluator
+from .obs.registry import MetricsHTTPServer, MetricsRegistry
 from .obs.slo import SloPlane
+from .robust.digest import DIGEST_FIELDS, digest_update
+from .robust.guarded import run_epoch_guarded
 
 _NP_DTYPES = {torch.int64: np.int64, torch.int32: np.int32,
               torch.bool: np.bool_}
@@ -1055,20 +1073,280 @@ def virtual_server(mode: str, n: int = 1000, seed: int = 5, *,
     return order, st["woke"]
 
 
+# ----------------------------------------------------------------------
+# the churn row: bench's open-population workload
+# ----------------------------------------------------------------------
+
+# bench's accelerator shape of the row (bench.py ``--mode all``)
+CHURN = dict(total_ids=4096, epochs=64, every=4, engine="prefix", m=4,
+             k=256, ring=32, waves=8, base_lam=2.0,
+             dt_epoch_ns=50_000_000, seed=11, boost_factor=8.0)
+
+
+def _slo_result_block(out: dict, slo_eval) -> None:
+    """Fold the burn-rate evaluator's verdict into a row (bench's
+    ``_slo_result_block``): the ``slo`` block and its flat scalars."""
+    s = slo_eval.summary()
+    out["slo"] = s
+    out["slo_violations_total"] = s["violations_total"]
+    out["slo_worst_share_err"] = s["worst_window_share_err"]
+    out["slo_window_tardiness_p99_ns"] = s["window_tardiness_p99_ns"]
+    out["slo_windows_closed"] = s["windows_closed"]
+
+
+def _digest_fields(results) -> tuple:
+    """The digest-relevant tensors of an epoch's results, kept (without
+    the state) until the run's digest is taken after the timed loop."""
+    return tuple(SimpleNamespace(**{
+        name: getattr(r, name) for name in DIGEST_FIELDS
+        if getattr(r, name, None) is not None}) for r in results)
+
+
+def churn_row(scenario: str = "flash_crowd", *,
+              total_ids: int = CHURN["total_ids"],
+              epochs: int = CHURN["epochs"], every: int = CHURN["every"],
+              engine: str = CHURN["engine"], m: int = CHURN["m"],
+              k: int = CHURN["k"], ring: int = CHURN["ring"],
+              waves: int = CHURN["waves"],
+              base_lam: float = CHURN["base_lam"],
+              dt_epoch_ns: int = CHURN["dt_epoch_ns"],
+              seed: int = CHURN["seed"], boost_client: int = None,
+              boost_factor: float = CHURN["boost_factor"],
+              slo: bool = True, tracer=None, static: bool = False,
+              device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Bench's ``churn_<scenario>`` row (``bench.py`` ``bench_churn``) on
+    the port: the lifecycle plane drives a ``lifecycle.churn`` scenario
+    (flash crowds arriving and departing, idle eviction recycling slots,
+    grow-on-demand capacity, compaction every 2nd boundary) over an
+    ingest + guarded-epoch loop, with the admin API mounted on a live
+    scrape endpoint.  At the halfway boundary the row sends a real
+    ``PUT /clients/{id}/qos`` over HTTP that boosts ``boost_client``'s
+    weight by ``boost_factor`` (``boost.http`` says whether it went over
+    HTTP or, when the bind failed, in process); the conformance table
+    reports delivered shares in the windows before and after it.
+
+    The loop is bench's, line for line, and so are the output keys,
+    but for the capacity record (``_capacity_row``: no capacity plane
+    in the port).  ``slo`` (bench's default ``--slo on``) rolls the SLO
+    windows on the boundary grid and judges them with the burn-rate
+    evaluator.  Added: ``digest``, the canonical client-id-space chain
+    digest of the decisions (taken after the timed loop, from the
+    per-epoch results and slot maps), which equals the ``static=True``
+    run's (the spec's ``static_variant``)."""
+    import urllib.request
+
+    dev = resolve_device(device)
+    spec = make_spec(scenario, total_ids=total_ids, seed=seed,
+                     base_lam=base_lam, compact_every=2)
+    if static:
+        spec = static_variant(spec)
+    plane = LifecyclePlane(spec, tracer=tracer)
+    state = init_state(spec["capacity0"], ring, device=dev)
+    hists = obshist.hist_zero(dev)
+    ledger = obshist.ledger_zero(spec["capacity0"], dev)
+    slo_block = slo_plane = slo_eval = None
+    slo_w0 = 0
+    if slo:
+        slo_plane = SloPlane(spec["capacity0"], dt_epoch_ns=dt_epoch_ns,
+                             ring_depth=max(epochs // every, 8))
+        slo_eval = SloEvaluator(slo_plane, log=lambda _line: None)
+        slo_block = obsslo.window_zero(spec["capacity0"], dev)
+        plane.attach_slo(slo_plane)
+    rng = np.random.Generator(np.random.PCG64(seed))
+    boost_at = max((epochs // 2 // every) * every, every)
+
+    def ops_by_cid(led) -> np.ndarray:
+        """Cumulative delivered ops per client id (evicted clients are
+        out of scope for the shares)."""
+        col = led[:, obshist.LED_OPS].cpu().numpy()
+        return plane.slots.scatter_by_cid(col, total_ids)
+
+    # the control endpoint for the live PUT (fail-soft: a refused bind
+    # falls back to the in-process handler)
+    server = None
+    try:
+        server = MetricsHTTPServer(MetricsRegistry(), port=0)
+    except OSError:
+        pass
+    if server is not None:
+        mount_admin_api(server, plane, slo=slo_plane)
+
+    def live_put(cid: int, r: float, w: float, l: float,
+                 apply_at: int) -> bool:
+        body = json.dumps({"reservation": r, "weight": w, "limit": l,
+                           "apply_at": apply_at}).encode()
+        if server is not None:
+            req = urllib.request.Request(
+                f"http://{server.host}:{server.port}/clients/{cid}/qos",
+                data=body, method="PUT")
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                if resp.status != 202:
+                    raise RuntimeError(f"PUT /clients/{cid}/qos answered "
+                                       f"{resp.status}")
+            return True
+        plane.accept({"op": "update", "cid": cid, "r": r, "w": w,
+                      "l": l, "apply_at": apply_at})
+        return False
+
+    decisions = 0
+    ops_mid = None
+    boosted = None
+    kept = []          # per epoch: (digest fields, cid_of_slot)
+    t0 = time.perf_counter()
+    try:
+        for e in range(epochs):
+            if e % every == 0:
+                if slo_plane is not None and e > 0:
+                    slo_block, closed = slo_plane.roll(
+                        slo_block, slo_w0, e,
+                        cid_of_slot=plane.slots.cid_of_slot,
+                        depth=state.depth)
+                    slo_w0 = e
+                    slo_eval.observe_roll(closed)
+                if e == boost_at:
+                    if boost_client is None or \
+                            boost_client not in plane.qos:
+                        # the lowest live client id: a fixed pick may
+                        # have been evicted by now
+                        boost_client = min(plane.slots.slot_of)
+                    r0, w0, l0 = plane.qos[boost_client]
+                    boosted = {"client": boost_client,
+                               "weight_before": w0,
+                               "weight_after": w0 * boost_factor,
+                               "boundary": e,
+                               "http": live_put(
+                                   boost_client, r0,
+                                   w0 * boost_factor, l0, e)}
+                    ops_mid = ops_by_cid(ledger)
+                with obsspans.span(tracer, "lifecycle.boundary",
+                                   "host_prep", epoch=e):
+                    if slo_block is not None:
+                        state, ledger, slo_block = plane.boundary(
+                            state, e, every, ledger=ledger,
+                            slo_block=slo_block)
+                    else:
+                        state, ledger = plane.boundary(
+                            state, e, every, ledger=ledger)
+            t_base = e * dt_epoch_ns
+            raw = rng.poisson(lam_vector(spec, e)).astype(np.int32)
+            with obsspans.span(tracer, "bench.round", "dispatch"):
+                counts = torch.from_numpy(plane.map_counts(raw)).to(dev)
+                state = ingest_step(state, counts, t_base,
+                                    dt_epoch_ns=dt_epoch_ns, waves=waves)
+                ep = run_epoch_guarded(
+                    state, t_base + dt_epoch_ns, engine=engine, m=m,
+                    k=k, with_metrics=True, hists=hists,
+                    ledger=ledger, slo=slo_block, tracer=tracer)
+            state, hists, ledger = ep.state, ep.hists, ep.ledger
+            if slo_block is not None:
+                slo_block = ep.slo
+            decisions += ep.count
+            kept.append((_digest_fields(ep.results),
+                         plane.slots.cid_of_slot.copy()))
+        _sync(dev)
+        wall_s = time.perf_counter() - t0
+        if slo_plane is not None:
+            slo_block, closed = slo_plane.roll(
+                slo_block, slo_w0, epochs,
+                cid_of_slot=plane.slots.cid_of_slot, depth=state.depth)
+            slo_eval.observe_roll(closed)
+        ops_end = ops_by_cid(ledger)
+    finally:
+        if server is not None:
+            server.close()
+
+    # conformance: delivered throughput shares in the windows before
+    # and after the live update, among the clients holding work in both
+    conf = None
+    if boosted is not None:
+        before = ops_mid
+        # a client evicted after the boost has its cumulative row folded
+        # into the departed report and zeroed: its after-share is zero
+        after = np.maximum(ops_end - ops_mid, 0)
+        sb, sa = max(before.sum(), 1), max(after.sum(), 1)
+        bc = boost_client
+        rows = sorted(set(range(min(6, total_ids))) | {bc})
+        conf = [{"client": c,
+                 "weight": plane.qos.get(c, (0.0, 0.0, 0.0))[1],
+                 "ops_before": int(before[c]),
+                 "ops_after": int(after[c]),
+                 "share_before": float(before[c] / sb),
+                 "share_after": float(after[c] / sa)} for c in rows]
+        boosted["share_before"] = float(before[bc] / sb)
+        boosted["share_after"] = float(after[bc] / sa)
+        boosted["share_gain"] = boosted["share_after"] \
+            / max(boosted["share_before"], 1e-12)
+
+    snap = plane.snapshot()
+    h_np = hists.cpu().numpy().astype(np.int64)
+    out = {"dps": decisions / max(wall_s, 1e-9),
+           "decisions": decisions, "wall_s": wall_s,
+           "scenario": scenario, "engine": engine,
+           "total_ids": total_ids, "epochs": epochs,
+           "boundary_every": every,
+           "peak_clients": snap["peak_clients"],
+           "live_clients": snap["live_clients"],
+           "capacity": snap["capacity"],
+           "registrations": snap["registrations"],
+           "evictions": snap["evictions"],
+           "compactions": snap["compactions"],
+           "qos_updates": snap["qos_updates"],
+           "slot_recycles": snap["slot_recycles"],
+           "grows": snap["grows"],
+           "boost": boosted, "conformance": conf}
+    for q, key in ((0.50, "tardiness_p50_ns"),
+                   (0.90, "tardiness_p90_ns"),
+                   (0.99, "tardiness_p99_ns")):
+        out[key] = obshist.hist_percentile(
+            h_np, obshist.HIST_RESV_TARDINESS, q)
+    out["tardiness_mean_ns"] = obshist.hist_mean(
+        h_np, obshist.HIST_RESV_TARDINESS)
+    out["tardiness_max_ns"] = float(obshist.ledger_totals(
+        ledger)["tardiness_max_ns"])
+    if slo_plane is not None:
+        _slo_result_block(out, slo_eval)
+        if boosted is not None:
+            # the boosted client's closed windows report against their
+            # own contract versions: the PUT lands in a fresh one
+            out["slo_boost_windows"] = [
+                {"window": [w.e0, w.e1],
+                 "contract_epoch": w.cepoch, "ops": w.ops}
+                for w in slo_plane.ring_rows(boost_client)]
+    out["_hist_block"] = h_np.tolist()
+    digest = b"\x00" * 32
+    for fields, cids in kept:
+        view = SlotMap.load({"lc_cids": cids,
+                             "lc_ever": np.zeros(cids.shape, dtype=bool),
+                             "lc_next_order": 0})
+        digest = digest_update(digest,
+                               canon_results(fields, view, total_ids))
+    out["digest"] = hashlib.sha256(digest).hexdigest()
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
-                                           "cfg4", "queue"),
+                                           "cfg4", "queue", "churn"),
                     default="serve")
     ap.add_argument("--n", type=int, default=None,
-                    help="clients (100000; cfg3 and queue 10000)")
+                    help="clients (100000; cfg3 and queue 10000; churn: "
+                    "the id space, 4096)")
     ap.add_argument("--depth", type=int, default=320,
                     help="serve, chain: queue depth and ring size")
-    ap.add_argument("--k", type=int, default=65536,
-                    help="serve, chain: decisions (units) per batch")
+    ap.add_argument("--k", type=int, default=None,
+                    help="serve, chain, churn: decisions (units) per "
+                    "batch (65536; churn 256)")
     ap.add_argument("--m", type=int, default=None,
-                    help="serve, chain: batches per epoch (32; chain 8)")
-    ap.add_argument("--epochs", type=int, default=3, help="serve, chain")
+                    help="serve, chain, churn: batches per epoch (32; "
+                    "chain 8; churn 4)")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="serve, chain, churn (3; churn 64)")
+    ap.add_argument("--churn-scenario", default="flash_crowd",
+                    choices=("flash_crowd", "diurnal", "churn_storm",
+                             "limit_thrash", "shard_skew"),
+                    help="churn: the lifecycle scenario")
     ap.add_argument("--rounds", type=int, default=3, help="cfg3, cfg4")
     ap.add_argument("--engine-loop", choices=("round", "stream"),
                     default="round",
@@ -1083,7 +1361,8 @@ def main(argv=None) -> int:
                     "minstop, cfg4_wheel is wheel)")
     for name in ("telemetry", "slo", "provenance"):
         ap.add_argument(f"--{name}", choices=("on", "off"), default="on",
-                        help=f"cfg3, cfg4: the {name} accumulators")
+                        help=f"cfg3, cfg4 (churn: slo): the {name} "
+                        "accumulators")
     ap.add_argument("--select-impl", choices=("sort", "radix"),
                     default="sort", help="serve, chain: selection backend")
     ap.add_argument("--tag-width", type=int, choices=(64, 32), default=64,
@@ -1106,7 +1385,19 @@ def main(argv=None) -> int:
         return 0
     if a.workload in ("cfg3", "cfg4"):
         return _main_sustained(a)
+    if a.workload == "churn":
+        res = churn_row(
+            a.churn_scenario, total_ids=a.n or CHURN["total_ids"],
+            epochs=a.epochs or CHURN["epochs"], m=a.m or CHURN["m"],
+            k=a.k or CHURN["k"], slo=a.slo == "on", device=a.device)
+        res.pop("_hist_block")
+        print(json.dumps({"workload": f"churn_{a.churn_scenario}",
+                          "device": str(resolve_device(a.device)),
+                          **res}))
+        return 0
     a.n = 100_000 if a.n is None else a.n
+    a.k = 65536 if a.k is None else a.k
+    a.epochs = 3 if a.epochs is None else a.epochs
     knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
     if a.workload == "serve":
         res = serve_only(a.n, a.depth, a.k, 32 if a.m is None else a.m,

@@ -9,6 +9,7 @@
         [--calendar-impl minstop] [--telemetry on]
     python3 scripts/torch_serve_profile.py --workload cfg3 [--telemetry on]
     python3 scripts/torch_serve_profile.py --workload queue [--n 10000]
+    python3 scripts/torch_serve_profile.py --workload churn [--epochs 64]
 
 Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
 ``serve`` backlog, with ``--high-rate`` the same backlog at 1000x the
@@ -26,7 +27,14 @@ kernels (K1 ``ring_window``, K2 ``wheel_scan``) and their share, and
 the operators that take most device time.  ``queue`` profiles two
 windows of the pull queue at the chip shape (``serve.serve_queue``):
 the flush that ingests the bulk load's last rows, and one
-``pull_batch(100 ms, 2048)`` (with its launches per decision).  The full table goes to
+``pull_batch(100 ms, 2048)`` (with its launches per decision).
+``churn`` profiles bench's churn row (``serve.churn_row``, flash_crowd,
+4,096 ids, SLO on) over ``--epochs`` epochs (64, the row's own), with a
+span tracer beside it for the wall share of the lifecycle boundaries;
+it prints launches per epoch, counting only the epoch loop's (a
+``churn.loop_end`` profiler range marks where the loop ends, after its
+last round, so the final SLO roll, the read-backs and the digest's
+copies that follow are counted apart).  The full table goes to
 ``chiprun_out/<workload>[_<knobs>]_profile.txt``.  Needs CUDA; exits non-zero
 without.
 """
@@ -63,7 +71,7 @@ def _busy_us(intervals) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
-                                           "cfg4", "queue"),
+                                           "cfg4", "queue", "churn"),
                     default="serve")
     ap.add_argument("--n", type=int, default=None,
                     help="clients (100000; cfg3 and queue 10000)")
@@ -72,7 +80,8 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=65536)
     ap.add_argument("--m", type=int, default=None,
                     help="batches per epoch (serve 32, chain 8)")
-    ap.add_argument("--epochs", type=int, default=1, help="serve, chain")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="serve, chain (1); churn (64)")
     ap.add_argument("--rounds", type=int, default=1, help="cfg3, cfg4")
     ap.add_argument("--telemetry", choices=("on", "off"), default="off",
                     help="cfg3, cfg4: the histograms, ledger, SLO window "
@@ -119,6 +128,9 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     if a.workload == "queue":
         return _profile_queue(serve, a.n, card, out)
+    if a.workload == "churn":
+        return _profile_churn(serve, a.epochs or 64, card, out)
+    a.epochs = a.epochs or 1
     if a.workload == "serve":
         m = 32 if a.m is None else a.m
         if a.high_rate:
@@ -173,12 +185,15 @@ def main(argv=None) -> int:
     return 0
 
 
-def _profiled(run):
+def _profiled(run, mark: str | None = None):
     """``run()`` under ``torch.profiler`` (CPU and CUDA activities):
     ``(result, stats)``, stats with the host wall time, the device busy
     time (the union of kernel intervals), the idle share, the launches,
     the port kernels' time and share, the top operators by device time,
-    and the operator table under ``"table"``."""
+    and the operator table under ``"table"``.  With ``mark``, the name of
+    a profiler range that ``run`` opens once after a synchronize, stats
+    also split the launches into those that started on the card before
+    that range (``launches_before_mark``) and after it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -197,9 +212,18 @@ def _profiled(run):
                for name in ("ring_window", "wheel_scan")}
     port_n = {name: sum(1 for e in kernels if name in e.name)
               for name in port_us}
+    split = {}
+    if mark is not None:
+        marks = [e.time_range.start for e in prof.events()
+                 if e.name == mark]
+        if len(marks) != 1:
+            raise RuntimeError(f"{len(marks)} {mark!r} ranges, want 1")
+        before = sum(1 for e in kernels if e.time_range.start < marks[0])
+        split = {"launches_before_mark": before,
+                 "launches_after_mark": len(kernels) - before}
     averages = prof.key_averages()
     top = sorted(averages, key=lambda e: -e.self_device_time_total)[:12]
-    return res, {
+    return res, {**split,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
@@ -213,6 +237,50 @@ def _profiled(run):
                           for e in top},
         "table": averages.table(sort_by="self_cuda_time_total",
                                 row_limit=40)}
+
+
+def _profile_churn(serve, epochs: int, card: str, out: str) -> int:
+    """Bench's churn row at its accelerator shape over ``epochs``
+    epochs (one short warm-up run first), profiled, with a span tracer
+    for the boundaries' and the guarded epochs' wall shares."""
+    from torch.profiler import record_function
+
+    from dmclock_tpu_torch.obs.spans import SpanTracer
+
+    class LoopEndTracer(SpanTracer):
+        """Opens the ``churn.loop_end`` range, after a synchronize, when
+        the loop's last ``bench.round`` span closes: the loop launches
+        nothing after that span, and every launch before it has run."""
+        rounds = 0
+
+        def _record(self, name, *rest) -> None:
+            super()._record(name, *rest)
+            if name == "bench.round":
+                self.rounds += 1
+                if self.rounds == epochs:
+                    torch.cuda.synchronize()
+                    with record_function("churn.loop_end"):
+                        pass
+
+    serve.churn_row(epochs=8, device="cuda")                 # warm
+    tracer = LoopEndTracer()
+    res, prof = _profiled(lambda: serve.churn_row(
+        epochs=epochs, tracer=tracer, device="cuda"),
+        mark="churn.loop_end")
+    with open(out, "w") as f:
+        f.write(f"{card}\n{prof.pop('table')}\n")
+    stats = tracer.name_stats()
+    span_ms = {f"{name}|{cat}": v[1] / 1e6
+               for (name, cat), v in stats.items()}
+    wall_ms = res["wall_s"] * 1e3
+    boundary_ms = span_ms.get("lifecycle.boundary|host_prep", 0.0)
+    print(json.dumps({
+        "card": card, "workload": "churn_flash_crowd", "epochs": epochs,
+        "decisions": res["decisions"], "row_wall_s": res["wall_s"],
+        "launches_per_epoch": prof["launches_before_mark"] / epochs,
+        "boundary_share_of_row_wall": boundary_ms / wall_ms,
+        "span_total_ms": span_ms, **prof}))
+    return 0
 
 
 def _profile_queue(serve, n: int, card: str, out: str) -> int:

@@ -21,15 +21,19 @@ RING_SHAPES = [
     (50, 320, 320), (200, 48, 7), (64, 48, 48),
     (31, 64, 1), (33, 128, 65), (97, 256, 129), (33, 320, 320), (1, 8, 8),
     (1000, 320, 4),
+    # the churn row's ring and window at capacities that are not a
+    # multiple of K1's 32-client tile (a spec's capacity0 doubled)
+    (250, 32, 4), (1000, 32, 4),
 ]
 
 # K1 at every main-path shape: serve and serve_radix (N=100000, Q=320,
 # w=32), cfg4 and the stop ladder (N=100000, Q=128, w=64), the chain
 # paths (Q=320, w=chain_depth=4), tag32 on the high-rate state
-# (Q=128, w=32) and cfg3 (N=10000, Q=256, w=32)
+# (Q=128, w=32), cfg3 (N=10000, Q=256, w=32) and the churn row
+# (ring 32, w=m=4) at the capacities flash_crowd grows through
 RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64),
                     (100_000, 320, 4), (100_000, 128, 32),
-                    (10_000, 256, 32)]
+                    (10_000, 256, 32), (2048, 32, 4), (4096, 32, 4)]
 
 
 def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):

@@ -414,3 +414,27 @@ def test_queue_on_the_card_equals_cpu(cuda):
     push, woke = serve.virtual_server("push", 100, device=cuda)
     assert (push, woke) == serve.virtual_server("pull", 100, device="cpu")
     assert len(push) == 100 and woke > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario, total_ids", [("flash_crowd", 200),
+                                                 ("churn_storm", 96)])
+def test_churn_row_on_the_card_equals_the_cpu(cuda, scenario, total_ids):
+    """Bench's churn row at a small shape whose capacities (50 or 24
+    doubling) are not multiples of K1's tile: K1 launches once per
+    epoch, and every output but the wall clock equals the CPU run's;
+    the static variant gives the same digest."""
+    from dmclock_tpu_torch import serve
+
+    kw = dict(total_ids=total_ids, epochs=16, k=32)
+    _ext.reset_launches()
+    got = serve.churn_row(scenario, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["ring_window"] == kw["epochs"]
+    assert _ext.LAUNCHES["wheel_scan"] == 0
+    want = serve.churn_row(scenario, device="cpu", **kw)
+    for key in want:
+        if key not in ("wall_s", "dps"):
+            assert got[key] == want[key], key
+    static = serve.churn_row(scenario, device=cuda, static=True, **kw)
+    assert static["digest"] == got["digest"]

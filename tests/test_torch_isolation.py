@@ -145,3 +145,27 @@ def test_queue_api_leaves_jax_unloaded():
             tserve.serve_queue(8)
         with pytest.raises(RuntimeError, match="cuda"):
             tserve.virtual_server("push", 8)
+
+
+def test_churn_row_leaves_jax_unloaded():
+    """Bench's churn row on the port (the lifecycle plane, the guarded
+    epoch, the registry and its HTTP endpoint, the SLO evaluator) loads
+    no JAX, and defaults to the card."""
+    code = ("import sys\n"
+            "from dmclock_tpu_torch.serve import churn_row\n"
+            "r = churn_row(total_ids=32, epochs=8, k=16, device='cpu')\n"
+            "assert r['decisions'] > 0 and r['boost']['http']\n"
+            "import dmclock_tpu_torch.lifecycle, dmclock_tpu_torch.utils\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if not torch.cuda.is_available():
+        from dmclock_tpu_torch.lifecycle import run_serial_churn
+
+        with pytest.raises(RuntimeError, match="cuda"):
+            tserve.churn_row(total_ids=8, epochs=1)
+        with pytest.raises(RuntimeError, match="cuda"):
+            run_serial_churn({"capacity0": 2}, epochs=1)

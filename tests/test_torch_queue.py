@@ -25,11 +25,14 @@ from dmclock_tpu.core.scheduler import AtLimit as JaxAtLimit
 from dmclock_tpu.core.scheduler import PullPriorityQueue
 from dmclock_tpu.engine import TpuPullPriorityQueue as JaxQueue
 from dmclock_tpu.obs.registry import MetricsRegistry
+from dmclock_tpu.obs.spans import SpanTracer as JaxSpanTracer
 from dmclock_tpu_torch.core.qos import ClientInfo
 from dmclock_tpu_torch.core.recs import Phase, ReqParams
 from dmclock_tpu_torch.core.scheduler import AtLimit
 from dmclock_tpu_torch.engine import bridge
 from dmclock_tpu_torch.engine.queue import TpuPullPriorityQueue
+from dmclock_tpu_torch.obs.registry import MetricsRegistry as PortRegistry
+from dmclock_tpu_torch.obs.spans import SpanTracer
 
 from test_torch_support import S, assert_np_equal, jax_to_np
 
@@ -620,6 +623,53 @@ def test_register_metrics_with_the_jax_registry():
     assert snaps[0]["dmclock_ledger_ops"][0][2] > 0
 
 
+def test_register_metrics_with_the_port_registry():
+    """The port's own MetricsRegistry takes the port queue's gauges, and
+    its exposition equals the JAX registry's over the JAX queue's."""
+    texts = []
+    for b, registry in ((PORT, PortRegistry), (JAX, MetricsRegistry)):
+        q, _ = sc_random_workload(b, 4, True, 0.0, spec=4, steps=80)
+        reg = registry()
+        q.register_metrics(reg, labels={"server": "0"})
+        texts.append(reg.prometheus())
+    assert texts[0] == texts[1]
+    assert "dmclock_ledger_ops" in texts[0]
+
+
+def _traced_run(b, tracer_cls, **kw):
+    """A short queue run under a tracer on a clock that ticks once per
+    read: adds that grow the capacity and the ring, a pull, a batch, a
+    stream of windows, then adds and pulls interleaved."""
+    clock = iter(range(0, 10 ** 9, 7))
+    tr = tracer_cls(clock_ns=lambda: next(clock))
+    q = b.make(lambda c: b.ClientInfo(1, 1 + c % 3, 0), capacity=4,
+               ring_capacity=2, tracer=tr, **kw)
+    for i in range(12):
+        q.add_request(i, i % 5, b.ReqParams(), time_ns=S)
+    q.pull_request(2 * S)
+    q.pull_batch(2 * S, 3)
+    q.pull_batch_stream(2 * S, S // 10, 2, 2)
+    for i in range(4):
+        q.add_request(100 + i, i, b.ReqParams(), time_ns=2 * S)
+    out = [norm(q.pull_request(3 * S)) for _ in range(3)]
+    return ([(r["name"], r["cat"], r["depth"], r["dur"]) for r in tr.rows()],
+            tr.summary(), out)
+
+
+@pytest.mark.parametrize("spec", [0, 4])
+def test_queue_spans_equal_jax(spec):
+    """With one injected clock the port's queue emits the JAX queue's
+    spans (queue.add, queue.pack_ops, queue.launch, queue.device_wait,
+    queue.fetch, queue.fold) in the same order, nesting and durations,
+    and serves the same decisions."""
+    got = _traced_run(PORT, SpanTracer, speculative_batch=spec)
+    want = _traced_run(JAX, JaxSpanTracer, speculative_batch=spec)
+    assert got == want
+    names = {r[0] for r in got[0]}
+    assert {"queue.add", "queue.pack_ops", "queue.launch",
+            "queue.device_wait", "queue.fetch"} <= names
+
+
 def test_slo_windows_roll_like_jax():
     def run(b):
         q, _ = sc_update_client_info(b)
@@ -637,9 +687,11 @@ def test_cuda_default_raises_without_a_card():
         pytest.skip("this check needs a machine without CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
         TpuPullPriorityQueue(lambda c: ClientInfo(0, 1, 0))
-    with pytest.raises(NotImplementedError):
-        TpuPullPriorityQueue(lambda c: ClientInfo(0, 1, 0), device="cpu",
-                             tracer=object())
+    # the tracer is taken (it was refused before obs.spans was ported)
+    tracer = SpanTracer()
+    q = TpuPullPriorityQueue(lambda c: ClientInfo(0, 1, 0), device="cpu",
+                             tracer=tracer)
+    assert q.tracer is tracer
 
 
 def test_phase_is_an_int_enum():
