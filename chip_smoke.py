@@ -120,17 +120,48 @@ Phases (any failure raises and the exit code is not 0):
     output but the wall clock, and give its static variant's digest and
     decisions.
 
-The CPU runs of phases 17-19 run beside the card's, in a child process
+20. supervised epoch jobs (``robust.supervisor``) at full width, each
+    in-process run launch-counted: ``supervised_prefix`` (N=100,000,
+    ring 128 preloaded 64 deep, 4 epochs of m=8 prefix batches of
+    k=65,536, 8 waves, a checkpoint every 2 epochs, histograms, ledger,
+    a 1,024-row flight ring, provenance and SLO on; about 0.22 GB of
+    state and a snapshot as large, up to 4 kept): the bare run, the
+    empty plan bit-identical to it, a sampled plan (two kills, a torn
+    save, a rotted snapshot) crash-equivalent, and the stream loop's
+    digest equal to the round loop's; ``supervised_prefix_short``, the
+    same job cut to 2 epochs with a snapshot after each, held against
+    its CPU twin on every field; ``supervised_spawn``, that short job in
+    spawn mode with its child SIGKILLed just past half its decisions and
+    resumed from a rotation snapshot, the resumed child's start (the
+    parent's spawn to its initial state, its ``supervisor.child_start``
+    span), the restore and the replay timed; ``supervised_ladder`` (the
+    short job at tag32, client 0's tag 2^31 + 1 ns ahead, the ladder at
+    threshold 1): one step to tag64, kept by a killed and resumed run;
+    ``supervised_wheel`` (the wheel calendar at N=100,000, ring 128, m=3,
+    k=64, 8 levels, 2 epochs) killed after epoch 1's snapshot, so K2 runs
+    after a resume; ``supervised_churn`` (the churn row's shape as a
+    stream job, a checkpoint every 4 epochs) killed at half and equal to
+    its CPU twin.  The checkpoint saves' wall share and the replay come
+    from the supervisor's span log.  The SLO evaluator logs one line per
+    alert to stderr, some 10^5 a roll at this width: the phase sends
+    fd 2 to a file and prints the count (and the file's tail on a
+    failure).
+
+The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
 earlier phases' host-paced timings have no CPU load beside them; the
 card runs phases 17 and 18 before either is held against its twin, so
-the twins have that time to finish.  The script stops the child on any
+the twins have that time to finish.  The CPU twin of
+``supervised_prefix_short`` runs in a second child, started as phase 20
+begins (``start_cpu_sup_twin``).  The script stops the children on any
 failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
-launch it (phases 6, 8, 10-16 and both runs of 19), each count read
-right after that path's run; K2's is the ``cfg4_wheel`` path's; the
-queue paths (17, 18) add none. Each kernel's entry also carries
+launch it (phases 6, 8, 10-16, both runs of 19 and the in-process runs
+of 20), each count read right after that path's run; K2's is the
+``cfg4_wheel`` path's and phase 20's wheel runs'; the queue paths (17,
+18) add none, and the spawn children's launches are not counted
+(``LAUNCHES`` is per process). Each kernel's entry also carries
 ``launches_by_path``. Serve's and the rows' rates are printed both as
 the mean (summed decisions over summed event ms) and median-based (one
 epoch's or round's decisions over the median ms). Prints the kernel
@@ -141,9 +172,11 @@ the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -178,6 +211,25 @@ CFG4M_ROUNDS = 2         # cfg4 (minstop) main-path rounds
 CFG4M_TIMED = 3          # timed minstop rounds with telemetry
 CFG4M_ON_OFF = 3         # minstop rounds of each of telemetry on and off
 MET_INGEST_DROPS = 7
+# phase 20: supervised epoch jobs (robust.supervisor.EpochJob kwargs)
+SUP_PREFIX = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=4,
+                  m=8, k=65536, waves=8, arrival_lam=2.0, ckpt_every=2,
+                  with_hists=True, with_ledger=True, flight_records=1024,
+                  with_prov=True, with_slo=True)
+# the spawn job and the twin of a CPU run: supervised_prefix cut to 2
+# epochs with a snapshot after each
+SUP_SHORT = dict(SUP_PREFIX, epochs=2, ckpt_every=1)
+SUP_LADDER = dict(SUP_SHORT, tag_width=32, tag_spread_ns=2 ** 31 + 1,
+                  ladder=True, ladder_threshold=1)
+SUP_WHEEL = dict(engine="calendar", calendar_impl="wheel", n=100_000,
+                 ring=128, depth=64, m=3, k=64, ladder_levels=8, epochs=2,
+                 ckpt_every=1)
+SUP_CHURN = dict(engine="prefix", n=4096, ring=32, epochs=64, m=4, k=256,
+                 waves=8, dt_epoch_ns=50_000_000, seed=11, ckpt_every=4,
+                 with_slo=True, engine_loop="stream")
+SUP_CHURN_SPEC = dict(total_ids=4096, seed=11, base_lam=2.0,
+                      compact_every=2)
+MET_LADDER_STEPS, MET_SUPERVISOR_RESUMES = 15, 16
 
 # device-memory rate of the H100 SXM (bytes/s, NVIDIA's data sheet),
 # for the bound of a data-movement kernel
@@ -1448,10 +1500,20 @@ def phase_cfg4(serve, ext, obsdev, card: str):
     return launches["ring_window"], slaunch["ring_window"], ratio
 
 
+def _cpu_child(code: str, out: str) -> subprocess.Popen:
+    """``code`` in a child process with CUDA hidden from it, its stderr
+    to ``out.err``."""
+    with open(out + ".err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.DEVNULL,
+            stderr=err, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
 def start_cpu_twins(root: str, out: str) -> subprocess.Popen:
-    """The CPU twins of phases 17-19 in a child process on four CPU
+    """The CPU twins of phases 17-20 in a child process on four CPU
     threads, with CUDA hidden from it: the whole ``serve_queue`` sequence,
-    the pull queue behind ``virtual_server`` and both churn rows, started
+    the pull queue behind ``virtual_server``, both churn rows and the
+    supervised churn job of phase 20, started
     as the card begins phase 17; the results go to ``out``
     (``torch.save``)."""
     code = (
@@ -1465,12 +1527,35 @@ def start_cpu_twins(root: str, out: str) -> subprocess.Popen:
         f"pull = serve.virtual_server('pull', {N_PUSH}, device='cpu')\n"
         f"churn = serve.churn_row({CHURN_SCENARIO!r}, device='cpu')\n"
         f"storm = serve.churn_row({STORM_SCENARIO!r}, device='cpu')\n"
+        "from dmclock_tpu_torch.lifecycle import make_spec\n"
+        "from dmclock_tpu_torch.robust import supervisor as TS\n"
+        f"spec = make_spec({CHURN_SCENARIO!r}, **{SUP_CHURN_SPEC!r})\n"
+        f"sup = TS.run_job(TS.EpochJob(churn=spec, **{SUP_CHURN!r}),\n"
+        "                 device='cpu')\n"
         "torch.save(dict(queue=run._asdict(), queue_s=secs, pull=pull,\n"
-        f"                churn=churn, storm=storm), {out!r})\n")
-    with open(out + ".err", "w") as err:
-        return subprocess.Popen(
-            [sys.executable, "-c", code], stdout=subprocess.DEVNULL,
-            stderr=err, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        "                churn=churn, storm=storm,\n"
+        f"                sup_churn=sup._asdict()), {out!r})\n")
+    return _cpu_child(code, out)
+
+
+def start_cpu_sup_twin(root: str, out: str) -> subprocess.Popen:
+    """The CPU twin of phase 20's ``supervised_prefix_short`` (bare, at
+    full width) in a child process on four CPU threads; its result goes
+    to ``out`` (``torch.save``)."""
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "torch.set_num_threads(4)\n"
+        "from dmclock_tpu_torch.robust import supervisor as TS\n"
+        f"res = TS.run_job(TS.EpochJob(**{SUP_SHORT!r}), device='cpu')\n"
+        f"torch.save(res._asdict(), {out!r})\n")
+    return _cpu_child(code, out)
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
 
 
 def collect_cpu_twins(proc: subprocess.Popen, out: str) -> dict:
@@ -1481,7 +1566,8 @@ def collect_cpu_twins(proc: subprocess.Popen, out: str) -> dict:
         with open(out + ".err") as f:
             raise RuntimeError(f"the CPU twins failed (rc {rc}):\n"
                                f"{f.read()[-4000:]}")
-    log(f"[twins] CPU twins collected (waited {waited:.3f} s for them)")
+    log(f"[twins] CPU twins in {os.path.basename(out)} collected (waited "
+        f"{waited:.3f} s for them)")
     return torch.load(out, weights_only=False)
 
 
@@ -1725,6 +1811,306 @@ def check_churn(row: dict, card: str, twin, key: str = "churn") -> None:
         f"card {row['wall_s']:.3f} s on {card})")
 
 
+# ----------------------------------------------------------------------
+# phase 20: supervised epoch jobs
+# ----------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _stderr_to(path: str):
+    """fd 2, this process's and its children's, to ``path``."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 2)
+    os.close(fd)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def _sup_run(ext, what: str, fn, k2: bool = False):
+    """``fn()`` launch-counted (K1 must launch; K2 exactly when ``k2``)
+    and wall-timed: ``(result, launches, wall s)``."""
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ext.LAUNCHES)
+    if launches["ring_window"] <= 0 or \
+            (launches["wheel_scan"] > 0) != k2:
+        raise AssertionError(f"{what} launched {launches}")
+    log(f"[{what}] {res.decisions} decisions, {res.epochs} epochs, "
+        f"restarts {res.restarts}, resumed from "
+        f"{os.path.basename(res.resumed_from or '-')}, wall {wall:.3f} s, "
+        f"kernel launches {launches}")
+    return res, launches, wall
+
+
+def _same_result(a, b, what: str, skip=("restarts", "resumed_from")):
+    """Every field of two supervised results, arrays by dtype and
+    value."""
+    for f in a._fields:
+        if f in skip:
+            continue
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            same = (x is None) == (y is None) and (x is None or (
+                np.asarray(x).dtype == np.asarray(y).dtype
+                and np.array_equal(x, y)))
+        else:
+            same = x == y
+        if not same:
+            raise AssertionError(f"{what}: {f} differs: {str(x)[:200]} "
+                                 f"vs {str(y)[:200]}")
+
+
+def _spans(path: str) -> list:
+    with open(path) as fh:
+        return [json.loads(ln) for ln in fh if ln.strip()]
+
+
+def _span_s(rows, name: str) -> float:
+    return sum(r["dur"] for r in rows if r["name"] == name) / 1e9
+
+
+def _replay_s(rows, kill_epoch: int):
+    """The resumed incarnation's restore (its ``supervisor.resume``
+    span) and the epochs it re-ran up to the one the kill ended
+    (``supervisor.epoch`` spans after the resume)."""
+    i = max(j for j, r in enumerate(rows) if r["name"] == "supervisor.resume")
+    after = rows[i + 1:]
+    epochs = [r for r in after if r["name"] == "supervisor.epoch"
+              and r["args"]["epoch"] <= kill_epoch]
+    return (rows[i]["dur"] / 1e9, sum(r["dur"] for r in epochs) / 1e9,
+            [r["args"]["epoch"] for r in epochs])
+
+
+def _ckpt_bytes(wd: str) -> int:
+    paths = [os.path.join(wd, "ckpt", f)
+             for f in os.listdir(os.path.join(wd, "ckpt"))
+             if f.startswith("ckpt-") and not f.endswith(".sha256")]
+    return max(os.path.getsize(p) for p in paths)
+
+
+def phase_supervised(ext, card: str, tmp: str):
+    """Phase 20: supervised jobs at full width (``robust.supervisor``).
+    Returns ``({path: K1 launches}, {path: K2 launches}, the supervised
+    churn result)`` over the in-process runs."""
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    t_phase = time.perf_counter()
+    by_path = {}
+
+    def job(kw, **extra):
+        return TS.EpochJob(**dict(kw, **extra))
+
+    def wd(name):
+        path = os.path.join(tmp, name)
+        os.makedirs(path)
+        return path
+
+    # supervised_prefix: bare, zero plan, sampled plan, stream
+    spans0 = os.path.join(tmp, "spans_zero.jsonl")
+    ref, l_ref, w_ref = _sup_run(
+        ext, "supervised_prefix bare", lambda: TS.run_job(
+            job(SUP_PREFIX), device="cuda"))
+    # every epoch commits as many decisions (the backlog outlasts the
+    # run), which places the spawn kill below in a known epoch
+    per = ref.decisions // SUP_PREFIX["epochs"]
+    if per <= 0 or ref.decisions != SUP_PREFIX["epochs"] * per \
+            or ref.metrics[MET_LADDER_STEPS] != 0:
+        raise AssertionError(f"supervised_prefix: {ref.decisions} "
+                             f"decisions in {SUP_PREFIX['epochs']} epochs, "
+                             f"ladder steps {ref.metrics[MET_LADDER_STEPS]}")
+    st_bytes = sum(t.numel() * t.element_size() for t in
+                   TS._job_state(job(SUP_PREFIX), "cuda"))
+    w0 = wd("zero")
+    zero, l_zero, w_zero = _sup_run(
+        ext, "supervised_prefix zero plan", lambda: TS.run_supervised(
+            job(SUP_PREFIX, span_log=spans0), w0, TH.zero_host_plan(),
+            device="cuda"))
+    _same_result(zero, ref, "supervised_prefix zero plan")
+    if not np.array_equal(zero.metrics, ref.metrics) or zero.restarts:
+        raise AssertionError("supervised_prefix: the zero plan moved the "
+                             "metrics or restarted")
+    rows = _spans(spans0)
+    save_s = _span_s(rows, "supervisor.checkpoint_save")
+    log(f"[supervised_prefix] state {st_bytes / 1e9:.4f} GB, snapshot "
+        f"{_ckpt_bytes(w0) / 1e9:.4f} GB on disk, keep "
+        f"{SUP_PREFIX.get('keep', 4)}; zero plan bit-identical to the bare "
+        f"run (metrics included); checkpoint saves "
+        f"{save_s:.3f} s = {save_s / w_zero:.4f} of the supervised wall "
+        f"({w_zero:.3f} s; bare {w_ref:.3f} s, "
+        f"{w_zero / w_ref:.3f}x) over "
+        f"{sum(r['name'] == 'supervisor.checkpoint_save' for r in rows)} "
+        f"saves on {card}")
+    shutil.rmtree(w0)
+    plan = TH.sample_host_plan(20, epochs=SUP_PREFIX["epochs"],
+                               est_decisions=ref.decisions, kills=2,
+                               save_kills=1, corrupt_saves=1)
+    w1 = wd("plan")
+    res, l_plan, w_plan = _sup_run(
+        ext, "supervised_prefix sampled plan", lambda: TS.run_supervised(
+            job(SUP_PREFIX), w1, plan, device="cuda"))
+    TS.assert_crash_equivalent(res, ref)
+    if res.restarts != TH.host_plan_events(plan)["restarts"]:
+        raise AssertionError(f"supervised_prefix: {res.restarts} restarts "
+                             f"under {TH.describe_host(plan)}")
+    log(f"[supervised_prefix] plan {TH.describe_host(plan)} {tuple(plan)}: "
+        f"crash-equivalent, {res.restarts} restarts, "
+        f"{res.metrics[MET_SUPERVISOR_RESUMES]} resumes, wall "
+        f"{w_plan:.3f} s")
+    shutil.rmtree(w1)
+    stream, l_stream, w_stream = _sup_run(
+        ext, "supervised_prefix stream", lambda: TS.run_job(
+            job(SUP_PREFIX, engine_loop="stream"), device="cuda"))
+    TS.assert_crash_equivalent(stream, ref)
+    log(f"[supervised_prefix] stream loop: digest {stream.digest[:16]} "
+        f"equal to the round loop's, state and planes too (wall "
+        f"{w_stream:.3f} s against {w_ref:.3f} s)")
+    by_path.update(supervised_prefix=l_ref["ring_window"],
+                   supervised_prefix_zero=l_zero["ring_window"],
+                   supervised_prefix_plan=l_plan["ring_window"],
+                   supervised_prefix_stream=l_stream["ring_window"])
+
+    # supervised_prefix_short (held against its CPU twin after the
+    # phase), then supervised_spawn: its child SIGKILLed at half
+    short, l_short, w_short = _sup_run(
+        ext, "supervised_prefix_short bare", lambda: TS.run_job(
+            job(SUP_SHORT), device="cuda"))
+    if short.decisions != SUP_SHORT["epochs"] * per:
+        raise AssertionError(f"supervised_prefix_short: {short.decisions} "
+                             f"decisions, want {per} an epoch")
+    spans1 = os.path.join(tmp, "spans_spawn.jsonl")
+    w2 = wd("spawn")
+    # just past half: the child dies after epoch 1, before its snapshot,
+    # and the next resumes from epoch 0's
+    kill = short.decisions // 2 + 1
+    t0 = time.perf_counter()
+    sp = TS.run_supervised(job(SUP_SHORT, span_log=spans1), w2,
+                           TH.HostFaultPlan(kill_at_decisions=(kill,)),
+                           mode="spawn", device="cuda")
+    w_spawn = time.perf_counter() - t0
+    TS.assert_crash_equivalent(sp, short)
+    if sp.restarts != 1 or not sp.resumed_from.endswith("ckpt-00000001") \
+            or sp.metrics[MET_SUPERVISOR_RESUMES] != 1:
+        raise AssertionError(f"supervised_spawn: restarts {sp.restarts}, "
+                             f"resumed from {sp.resumed_from}")
+    kill_epoch = -(-kill // per) - 1
+    rows = _spans(spans1)
+    starts = [r["args"]["start_s"] for r in rows
+              if r["name"] == "supervisor.child_start"]
+    restore_s, replay_s, replayed = _replay_s(rows, kill_epoch)
+    log(f"[supervised_spawn] child SIGKILLed at {kill} decisions (after "
+        f"epoch {kill_epoch}), resumed from "
+        f"{os.path.basename(sp.resumed_from)}: crash-equivalent; wall "
+        f"{w_spawn:.3f} s (the same job bare in process {w_short:.3f} s); "
+        f"the children's starts (spawn to initial state) "
+        f"{', '.join(f'{x:.3f}' for x in starts)} s; the resumed child's "
+        f"restore {restore_s:.3f} s and replay of epochs {replayed} "
+        f"{replay_s:.3f} s (span tracer)")
+    log("[supervised_spawn] the children's kernel launches are not "
+        "counted: LAUNCHES is per process and the parent cannot see them")
+    shutil.rmtree(w2)
+
+    # supervised_ladder: tag32 -> tag64 once, kept across a resume
+    lref, l_lad, w_lad = _sup_run(
+        ext, "supervised_ladder bare", lambda: TS.run_job(
+            job(SUP_LADDER), device="cuda"))
+    want_step = [{"knob": "tag_width", "from": 32, "to": 64}]
+    if lref.metrics[MET_LADDER_STEPS] != 1 or \
+            [{k: s[k] for k in ("knob", "from", "to")}
+             for s in lref.ladder_steps] != want_step:
+        raise AssertionError(f"supervised_ladder: steps "
+                             f"{lref.ladder_steps}")
+    w3 = wd("ladder")
+    # killed after epoch 1, before its snapshot: the resume restores
+    # epoch 0's, which holds the step
+    lres, l_lad2, _ = _sup_run(
+        ext, "supervised_ladder killed", lambda: TS.run_supervised(
+            job(SUP_LADDER), w3, TH.HostFaultPlan(
+                kill_at_decisions=(3 * lref.decisions // 4,)),
+            device="cuda"))
+    TS.assert_crash_equivalent(lres, lref)
+    if lres.restarts != 1 or lres.ladder_steps != [
+            dict(want_step[0], reason="resumed")] \
+            or not lres.resumed_from.endswith("ckpt-00000001"):
+        raise AssertionError(f"supervised_ladder: resumed run "
+                             f"{lres.restarts} restarts, steps "
+                             f"{lres.ladder_steps}")
+    log(f"[supervised_ladder] stepped tag32 -> tag64 once "
+        f"({lref.ladder_steps[0]['reason']}); the killed run resumed at "
+        f"tag64 and is crash-equivalent")
+    shutil.rmtree(w3)
+    by_path.update(supervised_prefix_short=l_short["ring_window"],
+                   supervised_ladder=l_lad["ring_window"],
+                   supervised_ladder_killed=l_lad2["ring_window"])
+
+    # supervised_wheel: K2 carried through a resume
+    wref, l_wh, _ = _sup_run(
+        ext, "supervised_wheel bare", lambda: TS.run_job(
+            job(SUP_WHEEL), device="cuda"), k2=True)
+    w4 = wd("wheel")
+    wres, l_wh2, _ = _sup_run(
+        ext, "supervised_wheel killed", lambda: TS.run_supervised(
+            job(SUP_WHEEL), w4,
+            TH.HostFaultPlan(kill_at_save=((0, "done"),)), device="cuda"),
+        k2=True)
+    TS.assert_crash_equivalent(wres, wref)
+    if wres.restarts != 1 or \
+            not wres.resumed_from.endswith("ckpt-00000001"):
+        raise AssertionError(f"supervised_wheel: {wres.restarts} restarts "
+                             f"from {wres.resumed_from}")
+    log("[supervised_wheel] killed after epoch 1's snapshot, resumed from "
+        "ckpt-00000001: crash-equivalent")
+    shutil.rmtree(w4)
+    by_path.update(supervised_wheel=l_wh["ring_window"],
+                   supervised_wheel_killed=l_wh2["ring_window"])
+    k2 = dict(supervised_wheel=l_wh["wheel_scan"],
+              supervised_wheel_killed=l_wh2["wheel_scan"])
+
+    # supervised_churn: the churn row's shape as a stream job
+    from dmclock_tpu_torch.lifecycle import make_spec
+    spec = make_spec(CHURN_SCENARIO, **SUP_CHURN_SPEC)
+    cref, l_ch, w_ch = _sup_run(
+        ext, "supervised_churn bare", lambda: TS.run_job(
+            job(SUP_CHURN, churn=spec), device="cuda"))
+    w5 = wd("churn")
+    cres, l_ch2, w_ch2 = _sup_run(
+        ext, "supervised_churn killed", lambda: TS.run_supervised(
+            job(SUP_CHURN, churn=spec), w5,
+            TH.HostFaultPlan(kill_at_decisions=(cref.decisions // 2,)),
+            device="cuda"))
+    TS.assert_crash_equivalent(cres, cref)
+    if cres.restarts != 1:
+        raise AssertionError(f"supervised_churn: {cres.restarts} restarts")
+    log(f"[supervised_churn] {CHURN_SCENARIO} stream job: lifecycle "
+        f"{cref.lifecycle}; killed at half and crash-equivalent (wall "
+        f"{w_ch2:.3f} s against {w_ch:.3f} s bare)")
+    shutil.rmtree(w5)
+    by_path.update(supervised_churn=l_ch["ring_window"],
+                   supervised_churn_killed=l_ch2["ring_window"])
+    log(f"[time] supervised phase {time.perf_counter() - t_phase:.3f} s")
+    return by_path, k2, cref, short
+
+
+def check_supervised(res, card: str, twin, what: str) -> None:
+    """A supervised job on the card against its CPU twin's run."""
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    _same_result(res, TS.SupervisedResult(**twin),
+                 f"{what} against the CPU twin")
+    log(f"[{what}] equal to the CPU twin on every field (digest "
+        f"{res.digest[:16]}, state digest {res.state_digest[:16]}, "
+        f"{res.decisions} decisions) on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1780,6 +2166,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "twins.pt")
         twins = start_cpu_twins(root, out)
+        sup_twin = None
         try:
             twin = functools.cache(lambda: collect_cpu_twins(twins, out))
             # both card runs first, so the twins have their time to finish
@@ -1792,15 +2179,37 @@ def main() -> int:
             storm, storm_k1 = phase_churn_storm(serve, _ext, card)
             check_churn(churn, card, twin)
             check_churn(storm, card, twin, "storm")
+            t_sup = time.perf_counter()
+            out2 = os.path.join(tmp, "sup_twin.pt")
+            sup_twin = start_cpu_sup_twin(root, out2)
+            err = os.path.join(tmp, "supervised.err")
+            try:
+                with _stderr_to(err):
+                    sup_k1, sup_k2, sup_churn, sup_short = \
+                        phase_supervised(_ext, card, tmp)
+            except BaseException:
+                with open(err, errors="replace") as f:
+                    sys.stderr.write(f.read()[-6000:])
+                raise
+            with open(err, errors="replace") as f:
+                alerts = sum(ln.startswith("# slo:") for ln in f)
+            log(f"[supervised] {alerts} SLO alert lines went to stderr "
+                f"(kept in a file)")
+            check_supervised(sup_churn, card, twin()["sup_churn"],
+                             "supervised_churn")
+            check_supervised(sup_short, card,
+                             collect_cpu_twins(sup_twin, out2),
+                             "supervised_prefix_short")
         finally:
-            if twins.poll() is None:
-                twins.kill()
-            twins.wait()
+            for proc in (twins, sup_twin):
+                if proc is not None:
+                    _stop(proc)
     t_end = time.perf_counter()
     log(f"[time] phases 6-13 took {t_rows - t_serve:.3f} s, the cfg3, "
         f"cfg3_stream and cfg4 (minstop) phases {t_queue - t_rows:.3f} s, "
         f"the queue and push phases {t_churn - t_queue:.3f} s, the churn "
-        f"phases {t_end - t_churn:.3f} s; the whole script "
+        f"phases {t_sup - t_churn:.3f} s, the supervised phase "
+        f"{t_end - t_sup:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -1809,12 +2218,14 @@ def main() -> int:
                    cfg4_wheel=wheel["ring_window"], cfg3=cfg3_k1,
                    cfg3_stream=stream_k1, cfg4=cfg4_k1,
                    cfg4_stream=cfg4_stream_k1,
-                   churn_flash_crowd=churn_k1, churn_storm=storm_k1)
+                   churn_flash_crowd=churn_k1, churn_storm=storm_k1,
+                   **sup_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
-    k2["launches"] = wheel["wheel_scan"]
     # minstop, cfg3, the stream chunks, the queue and churn launch no K2
-    k2["launches_by_path"] = dict(cfg4_wheel=k2["launches"])
+    k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2)
+    k2["launches"] = sum(k2_paths.values())
+    k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

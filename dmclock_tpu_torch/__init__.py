@@ -16,6 +16,9 @@ Layers (each mirrors its counterpart in ``dmclock_tpu``):
   obs     -- the on-device metrics vector, the admission clamp and the
              telemetry accumulators (histograms, ledger, SLO windows,
              provenance, flight ring)
+  robust  -- the guarded epoch and stream chunk, the degradation
+             ladder, host fault plans and the crash-equivalent
+             supervisor (with ``utils.checkpoint``)
   serve   -- the serving entry points (``serve_only``, ``serve_cfg3``,
              ``serve_cfg4``, the queues)
 

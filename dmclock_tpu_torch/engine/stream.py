@@ -20,8 +20,9 @@ the rounds it fuses bit for bit.
 The JAX package's ``jit_stream_chunk`` compile cache and its ``donate``
 switch have no counterpart (nothing is compiled per shape), and neither
 has ``wheel_kernel``: the device picks kernel K2's route.  The guarded
-chunk runner (``robust.guarded.run_stream_chunk_guarded``) is ROADMAP.md
-item 8.
+chunk runner is ``robust.guarded.run_stream_chunk_guarded``; the
+supervisor's stream loop (``robust.supervisor``) runs one chunk per
+checkpoint interval through it.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Client lifecycle plane of the PyTorch port: dynamic slot management,
 live ClientInfo control over HTTP and the churn scenario suite (the
-counterpart of ``dmclock_tpu/lifecycle``, placement aside)."""
+counterpart of ``dmclock_tpu/lifecycle``; of its placement module only
+the spec parsing the supervisor validates jobs with)."""
 
 from .api import AdminAPI, mount_admin_api
 from .churn import (SCENARIOS, events, init_qos, lam_vector, make_spec,

@@ -70,6 +70,10 @@ _DELTA_ROWS = {
     "pallas_fallbacks": MET_PALLAS_FALLBACKS,
 }
 
+# the rows a killed-and-resumed run legitimately grows (the supervisor's
+# crash-equivalence gate zeroes them on both sides before comparing)
+RESUME_ROWS = (MET_SUPERVISOR_RESUMES,)
+
 # the max-accumulated rows (everything else adds)
 _HWM_ROWS = (MET_RING_HWM, MET_WHEEL_OCC_HWM)
 _HWM_MASK = np.zeros((NUM_METRICS,), dtype=bool)
@@ -92,6 +96,20 @@ def metrics_combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Merge two metric vectors: counters add, high-water marks max.
     Associative and commutative."""
     return torch.where(_hwm_mask(a.device), torch.maximum(a, b), a + b)
+
+
+def metrics_combine_np(acc, *vecs) -> np.ndarray:
+    """Host mirror of :func:`metrics_combine` over numpy vectors (or
+    tensors, read back): the supervisor folds each epoch's vector into
+    its running total with it.  The max rows come from the same
+    ``_HWM_MASK`` as the device merge."""
+    acc = np.asarray(acc, dtype=np.int64)
+    for v in vecs:
+        if torch.is_tensor(v):
+            v = v.detach().cpu().numpy()
+        v = np.asarray(v)
+        acc = np.where(_HWM_MASK, np.maximum(acc, v), acc + v)
+    return acc
 
 
 def metrics_delta(*, device: str | torch.device, **rows) -> torch.Tensor:

@@ -1,3 +1,5 @@
-"""Robustness helpers for the PyTorch port: bounded retry of transient
-host-side failures around device launches and the guarded epoch runner
-(``guarded``), and the chain digest of a decision stream (``digest``)."""
+"""The robustness plane of the PyTorch port: bounded retry of transient
+host-side failures, the guarded epoch and stream-chunk runners and the
+degradation ladder (``guarded``), the chain digest of a decision stream
+(``digest``), host fault plans (``host_faults``) and the crash-equivalent
+supervisor of resumable epoch jobs (``supervisor``)."""

@@ -21,10 +21,17 @@ a retry cannot clear it: it is never caught here, and nothing falls
 back to the CPU.  Plain ``RuntimeError`` is not retried either: a
 generic host error is a caller bug.
 
+The same contract at stream-chunk granularity is
+:func:`run_stream_chunk_guarded`: a chunk that trips a guard anywhere is
+discarded and its epochs re-run one by one on the round path.  Above
+both sits the :class:`DegradationLadder`: repeated guard trips step a
+job down to an exact twin of its fast path (wheel -> bucketed ->
+minstop, radix -> sort, tag32 -> tag64).  The ladder never sees a CUDA
+error: those are not in :data:`RECOVERABLE_ERRORS`, so they propagate
+out of the job and nothing steps down for them.
+
 The JAX package's per-configuration jit caches (``_jit_epoch``,
 ``_jit_serial``) have no counterpart: nothing is compiled per shape.
-``DegradationLadder`` and ``run_stream_chunk_guarded`` are not ported
-yet.
 """
 
 from __future__ import annotations
@@ -265,3 +272,289 @@ def run_epoch_guarded(state, now, *, engine: str = "prefix",
                         flight=tele.get("flight"),
                         slo=tele.get("slo"),
                         prov=tele.get("prov"))
+
+
+class StreamGuarded(NamedTuple):
+    """Result of :func:`run_stream_chunk_guarded`: one stream chunk,
+    drained to per-epoch rows, so the caller runs the round loop's
+    digest, metric-fold and ladder bookkeeping over it unchanged."""
+
+    state: object            # EngineState after the whole chunk
+    epochs: tuple            # per epoch, the tuple of raw results (what
+    #                          GuardedEpoch.results holds)
+    counts: tuple            # per-epoch decisions committed
+    guard_trips: tuple       # per-epoch rebase + serial fallbacks
+    stream_fallback: int     # 1 when the chunk tripped and re-ran on
+    #                          the round path
+    retries: int             # transient errors retried
+    hists: object = None     # telemetry accumulators after the chunk
+    ledger: object = None
+    flight: object = None
+    slo: object = None
+    prov: object = None
+
+
+def run_stream_chunk_guarded(state, epoch0: int, counts, *,
+                             engine: str, epochs: int, m: int,
+                             k: int = 0, chain_depth: int = 4,
+                             dt_epoch_ns: int, waves: int,
+                             anticipation_ns: int = 0,
+                             allow_limit_break: bool = False,
+                             with_metrics: bool = True,
+                             select_impl: str = "sort",
+                             tag_width: int = 64,
+                             window_m: Optional[int] = None,
+                             calendar_impl: str = "minstop",
+                             ladder_levels: int = 8,
+                             hists=None, ledger=None, flight=None,
+                             slo=None, prov=None,
+                             retries: int = 3, base_s: float = 0.05,
+                             sleep: Callable[[float], None] =
+                             _time.sleep,
+                             on_retry=None, tracer=None,
+                             overlap: Optional[Callable[[], None]]
+                             = None) -> StreamGuarded:
+    """Run one fused ingest + serve stream chunk (``engine.stream``)
+    under the guarded-commit contract, at chunk granularity.
+
+    - The chunk launch retries transient host errors with bounded
+      backoff, like the per-epoch launches.
+    - ``overlap()`` (idempotent; may be None) runs after the chunk is
+      enqueued and before the host waits on it: the double-buffer seam
+      where the caller draws chunk T+1's arrivals while the card runs
+      chunk T.
+    - A guard trip anywhere in the chunk (tag32 window, order/cost
+      rebase, calendar no-progress) discards the whole chunk and re-runs
+      its epochs one by one through ``stream.ingest_step`` and
+      :func:`run_epoch_guarded`, from the entry state and the entry
+      telemetry, which the chunk never writes in place.
+      ``stream_fallback`` reports it.
+
+    ``counts`` is ``int32[epochs, N]`` of raw Poisson draws (numpy or a
+    tensor), or None for a chunk without ingest; the chunk clamps them
+    on the device.  The chunk reads back once, its stacked outputs with
+    the guard row among them.  ``tracer`` records ``stream.dispatch``,
+    ``stream.device_wait``, ``stream.retry`` and ``stream.fallback``."""
+    import numpy as np
+
+    from ..engine import stream as stream_mod
+    from ..obs import spans as _spans
+
+    epochs = int(epochs)
+    do_ingest = counts is not None
+    fn = stream_mod.build_stream_chunk(
+        engine=engine, epochs=epochs, m=m, k=k, chain_depth=chain_depth,
+        dt_epoch_ns=dt_epoch_ns, waves=waves,
+        anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, with_metrics=with_metrics,
+        select_impl=select_impl, tag_width=tag_width, window_m=window_m,
+        calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+        ingest=do_ingest)
+    retry_count = [0]
+
+    def count_retry(attempt, exc):
+        retry_count[0] += 1
+        _spans.instant(tracer, "stream.retry", "retry",
+                       error=type(exc).__name__)
+        if on_retry is not None:
+            on_retry(attempt, exc)
+
+    counts_dev = None
+    if do_ingest:
+        counts_dev = counts.to(state.device, torch.int32) \
+            if torch.is_tensor(counts) else torch.from_numpy(
+                np.ascontiguousarray(counts, dtype=np.int32)).to(
+                    state.device)
+
+    def one():
+        with _spans.span(tracer, "stream.dispatch", "dispatch",
+                         engine=engine, epochs=epochs):
+            out = fn(state, int(epoch0), counts_dev, hists, ledger,
+                     flight, slo, prov)
+        if overlap is not None:
+            overlap()     # the host's draws ride the chunk's device time
+        with _spans.span(tracer, "stream.device_wait",
+                         "device_compute"):
+            _device_wait(out.state)
+        return out
+
+    out = retry_with_backoff(one, retries=retries, base_s=base_s,
+                             sleep=sleep, on_retry=count_retry)
+
+    # the chunk's one read back: every stacked output, the guard row
+    # among them
+    fetched = {name: v.cpu() for name, v in out.outs.items()}
+    if bool(fetched[stream_mod.STREAM_GUARD_FIELD[engine]].all()):
+        return StreamGuarded(
+            state=out.state,
+            epochs=tuple((stream_mod.epoch_view(engine, fetched, i),)
+                         for i in range(epochs)),
+            counts=tuple(stream_mod.epoch_decisions(engine, fetched, i)
+                         for i in range(epochs)),
+            guard_trips=(0,) * epochs, stream_fallback=0,
+            retries=retry_count[0], hists=out.hists, ledger=out.ledger,
+            flight=out.flight, slo=out.slo, prov=out.prov)
+
+    # a guard tripped in the chunk: the chunk cannot resume mid-run, so
+    # its outputs are dropped and its epochs replay on the round path
+    # from the entry state; the epochs before the trip recompute bit
+    # for bit, the tripped one resumes as the round loop would
+    _spans.instant(tracer, "stream.fallback", "retry", engine=engine,
+                   epochs=epochs)
+    st = state
+    cur = {"hists": hists, "ledger": ledger, "flight": flight,
+           "slo": slo, "prov": prov}
+    ep_rows, count_rows, trip_rows = [], [], []
+    for i in range(epochs):
+        t_base = (int(epoch0) + i) * int(dt_epoch_ns)
+        if do_ingest:
+            st = stream_mod.ingest_step(st, counts_dev[i], t_base,
+                                        dt_epoch_ns=dt_epoch_ns,
+                                        waves=waves)
+        ep = run_epoch_guarded(
+            st, t_base + int(dt_epoch_ns), engine=engine, m=m, k=k,
+            chain_depth=chain_depth, anticipation_ns=anticipation_ns,
+            allow_limit_break=allow_limit_break,
+            with_metrics=with_metrics, select_impl=select_impl,
+            tag_width=tag_width, window_m=window_m,
+            calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+            retries=retries, base_s=base_s, sleep=sleep,
+            on_retry=on_retry, tracer=tracer, **cur)
+        st = ep.state
+        for name in cur:
+            if cur[name] is not None:
+                cur[name] = getattr(ep, name)
+        retry_count[0] += ep.retries
+        ep_rows.append(ep.results)
+        count_rows.append(ep.count)
+        trip_rows.append(ep.rebase_fallbacks + ep.serial_fallbacks)
+    return StreamGuarded(
+        state=st, epochs=tuple(ep_rows), counts=tuple(count_rows),
+        guard_trips=tuple(trip_rows), stream_fallback=1,
+        retries=retry_count[0], **cur)
+
+
+# ----------------------------------------------------------------------
+# the degradation ladder
+# ----------------------------------------------------------------------
+
+# Cheapest concession first: each (knob, fast, safe) rung trades a fast
+# path for its exact twin, so a degraded run is slower, never divergent.
+# The two calendar rungs share a knob and chain (wheel -> bucketed, then
+# bucketed -> minstop): a rung is keyed by (knob, fast), not knob alone.
+LADDER_RUNGS = (
+    ("calendar_impl", "wheel", "bucketed"),
+    ("calendar_impl", "bucketed", "minstop"),
+    ("select_impl", "radix", "sort"),
+    ("tag_width", 32, 64),
+)
+
+
+class LadderStep(NamedTuple):
+    """One recorded step-down."""
+
+    knob: str
+    from_value: object
+    to_value: object
+    reason: str     # "guard_trips" | "launch_failures" | "resumed"
+
+
+class DegradationLadder:
+    """Escalation policy over the guarded-commit contract: when an epoch
+    loop trips guards (or exhausts its transient-error retries) for
+    ``threshold`` consecutive epochs, step down one rung of
+    :data:`LADDER_RUNGS` (the first still engaged in the caller's
+    config) and keep serving.  Disabled, it is inert: ``apply`` is the
+    identity and ``note_epoch`` never steps.
+
+    :meth:`encode` / :meth:`load` round-trip the engaged rungs and the
+    trip counter through an int64 vector, so a resumed run keeps
+    serving at the same degraded operating point.  A CUDA error never
+    reaches the ladder: it is not recoverable and propagates."""
+
+    def __init__(self, enabled: bool = True, threshold: int = 2,
+                 tracer=None):
+        self.enabled = bool(enabled)
+        self.threshold = max(int(threshold), 1)
+        self.steps: list = []       # LadderStep, in engagement order
+        self._consecutive = 0
+        # optional obs.spans.SpanTracer: each step-down records a
+        # "ladder.step" instant
+        self.tracer = tracer
+
+    @property
+    def steps_taken(self) -> int:
+        return len(self.steps)
+
+    def _engaged(self, knob: str, fast) -> bool:
+        return any(s.knob == knob and s.from_value == fast
+                   for s in self.steps)
+
+    def apply(self, cfg: dict) -> dict:
+        """Map a config through the engaged rungs; rung order chains the
+        two calendar rungs (wheel -> bucketed -> minstop)."""
+        out = dict(cfg)
+        for knob, fast, safe in LADDER_RUNGS:
+            if self._engaged(knob, fast) and out.get(knob) == fast:
+                out[knob] = safe
+        return out
+
+    def can_step(self, cfg: dict) -> bool:
+        """True while a rung is still engageable for ``cfg``: a failure
+        with nothing left to concede must surface, not spin."""
+        return self.enabled and any(
+            cfg.get(knob) == fast and not self._engaged(knob, fast)
+            for knob, fast, _safe in LADDER_RUNGS)
+
+    def note_epoch(self, cfg: dict, *, guard_trips: int = 0,
+                   launch_failures: int = 0) -> int:
+        """Observe one epoch's fault counts (``cfg`` after ``apply``).
+        Returns the step-downs taken (0 or 1); a clean epoch resets the
+        consecutive-trip counter."""
+        if not self.enabled:
+            return 0
+        if not (guard_trips or launch_failures):
+            self._consecutive = 0
+            return 0
+        self._consecutive += 1
+        if self._consecutive < self.threshold:
+            return 0
+        self._consecutive = 0
+        for knob, fast, safe in LADDER_RUNGS:
+            if cfg.get(knob) == fast and not self._engaged(knob, fast):
+                reason = "guard_trips" if guard_trips \
+                    else "launch_failures"
+                self.steps.append(LadderStep(knob, fast, safe, reason))
+                if self.tracer is not None:
+                    self.tracer.instant("ladder.step", "retry",
+                                        knob=knob, to=str(safe),
+                                        reason=reason)
+                return 1
+        return 0    # fully degraded already
+
+    def describe(self) -> list:
+        """JSON-able step list."""
+        return [{"knob": s.knob, "from": s.from_value,
+                 "to": s.to_value, "reason": s.reason}
+                for s in self.steps]
+
+    def encode(self):
+        """``int64[len(LADDER_RUNGS) + 1]``: engaged flags, then the
+        consecutive-trip counter."""
+        import numpy as np
+        vec = [1 if self._engaged(knob, fast) else 0
+               for knob, fast, _ in LADDER_RUNGS]
+        return np.asarray(vec + [self._consecutive], dtype=np.int64)
+
+    def load(self, vec) -> None:
+        import numpy as np
+        if torch.is_tensor(vec):
+            vec = vec.cpu().numpy()
+        vec = np.asarray(vec, dtype=np.int64)
+        if vec.shape != (len(LADDER_RUNGS) + 1,):
+            raise ValueError(f"ladder vector of shape {vec.shape}, want "
+                             f"({len(LADDER_RUNGS) + 1},)")
+        self.steps = [LadderStep(knob, fast, safe, "resumed")
+                      for flag, (knob, fast, safe)
+                      in zip(vec[:-1], LADDER_RUNGS) if flag]
+        self._consecutive = int(vec[-1])

@@ -1,5 +1,5 @@
 """Host utilities of the PyTorch port: the profiling accumulators
-(``profile``)."""
+(``profile``) and crash-safe checkpoints (``checkpoint``)."""
 
 from .profile import ProfileCombiner, ProfileTimer
 

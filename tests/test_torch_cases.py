@@ -29,11 +29,13 @@ RING_SHAPES = [
 # K1 at every main-path shape: serve and serve_radix (N=100000, Q=320,
 # w=32), cfg4 and the stop ladder (N=100000, Q=128, w=64), the chain
 # paths (Q=320, w=chain_depth=4), tag32 on the high-rate state
-# (Q=128, w=32), cfg3 (N=10000, Q=256, w=32) and the churn row
-# (ring 32, w=m=4) at the capacities flash_crowd grows through
+# (Q=128, w=32), cfg3 (N=10000, Q=256, w=32), the churn row (ring 32,
+# w=m=4) at the capacities flash_crowd grows through, and the
+# supervised prefix jobs (Q=128, w=m=8)
 RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64),
                     (100_000, 320, 4), (100_000, 128, 32),
-                    (10_000, 256, 32), (2048, 32, 4), (4096, 32, 4)]
+                    (10_000, 256, 32), (2048, 32, 4), (4096, 32, 4),
+                    (100_000, 128, 8)]
 
 
 def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):

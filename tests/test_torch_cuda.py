@@ -438,3 +438,73 @@ def test_churn_row_on_the_card_equals_the_cpu(cuda, scenario, total_ids):
             assert got[key] == want[key], key
     static = serve.churn_row(scenario, device=cuda, static=True, **kw)
     assert static["digest"] == got["digest"]
+
+
+def _supervised_job(loop: str):
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    return TS.EpochJob(engine="calendar", calendar_impl="wheel",
+                       ladder_levels=2, n=512, depth=8, ring=16, epochs=4,
+                       m=2, k=8, ckpt_every=2, with_hists=True,
+                       with_ledger=True, flight_records=16, with_prov=True,
+                       with_slo=True, engine_loop=loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["round", "stream"])
+def test_supervised_job_on_the_card_equals_cpu(cuda, tmp_path, loop):
+    """A wheel job with every plane on: the card's bare run equals the
+    CPU's field by field (K1 and K2 launched), and a killed and resumed
+    run on the card is crash-equivalent to it."""
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    job = _supervised_job(loop)
+    want = TS.run_job(job, device="cpu")
+    _ext.reset_launches()
+    got = TS.run_job(job, device=cuda)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["ring_window"] > 0
+    assert _ext.LAUNCHES["wheel_scan"] > 0
+    for f in got._fields:
+        x, y = getattr(got, f), getattr(want, f)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and np.array_equal(x, y), f
+        else:
+            assert x == y, f
+    # killed after the last epoch, before its save: the resume lands on
+    # the epoch-2 snapshot and replays epochs 2 and 3
+    res = TS.run_supervised(
+        job, tmp_path, TH.HostFaultPlan(
+            kill_at_decisions=(want.decisions - 1,)), device=cuda)
+    TS.assert_crash_equivalent(res, want)
+    assert res.restarts == 1 and res.resumed_from is not None
+
+
+@pytest.mark.cuda
+def test_cuda_error_is_not_retried_or_restarted(cuda, tmp_path,
+                                                monkeypatch):
+    """The class a CUDA error raises (``torch.AcceleratorError``, a
+    RuntimeError) leaves the trampoline at once: no retry, no ladder
+    step, no restart.  The error is raised by hand: a real one would
+    poison this process's context for the tests after it."""
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    err = getattr(torch, "AcceleratorError", RuntimeError)
+    calls = [0]
+
+    def broken(engine):
+        def scan(*a, **k):
+            calls[0] += 1
+            raise err("CUDA error: an illegal memory access was "
+                      "encountered")
+        return scan
+
+    monkeypatch.setattr(tfp, "epoch_scan_fn", broken)
+    job = TS.EpochJob(n=64, depth=4, ring=8, epochs=2, m=2, k=8,
+                      select_impl="radix", ladder=True, ladder_threshold=1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        TS.run_supervised(job, tmp_path, TH.zero_host_plan(), device=cuda,
+                          sleep=lambda s: None)
+    assert calls[0] == 1

@@ -169,3 +169,47 @@ def test_churn_row_leaves_jax_unloaded():
             tserve.churn_row(total_ids=8, epochs=1)
         with pytest.raises(RuntimeError, match="cuda"):
             run_serial_churn({"capacity0": 2}, epochs=1)
+
+
+def test_supervisor_and_spawn_child_leave_jax_unloaded(tmp_path):
+    """A supervised job in spawn mode loads no JAX in the parent, and the
+    child's entry point (``_child_main``, what ``python -m
+    dmclock_tpu_torch.robust.supervisor <workdir>`` runs) loads none
+    either; the supervisor defaults to the card."""
+    job = ("EpochJob(n=32, depth=4, ring=8, epochs=2, m=2, k=8, "
+           "ckpt_every=1, with_hists=True, with_slo=True)")
+    check = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+             "assert not bad, bad\n")
+    parent = ("import sys\n"
+              "from dmclock_tpu_torch.robust.supervisor import (\n"
+              "    EpochJob, run_supervised)\n"
+              "from dmclock_tpu_torch.robust.host_faults import "
+              "HostFaultPlan\n"
+              f"r = run_supervised({job}, {str(tmp_path / 'a')!r},\n"
+              "    HostFaultPlan(kill_at_decisions=(1,)), mode='spawn',\n"
+              "    device='cpu')\n"
+              "assert r.restarts == 1 and r.decisions > 0\n" + check)
+    out = subprocess.run([sys.executable, "-c", parent], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    wd = tmp_path / "b"
+    child = ("import json, os, sys\n"
+             "from dmclock_tpu_torch.robust import supervisor as S\n"
+             f"os.makedirs({str(wd)!r})\n"
+             f"json.dump(dict(job=S.{job}.to_json(), plan={{}}, "
+             "device='cpu'),\n"
+             f"          open(os.path.join({str(wd)!r}, S.JOB_FILE), 'w'))\n"
+             f"assert S._child_main({str(wd)!r}) == 0\n" + check)
+    out = subprocess.run([sys.executable, "-c", child], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert (wd / "result.json").exists()
+    if not torch.cuda.is_available():
+        from dmclock_tpu_torch.robust import supervisor as S
+
+        with pytest.raises(RuntimeError, match="cuda"):
+            S.run_job(S.EpochJob(n=8, depth=2, ring=4, epochs=1))
+        with pytest.raises(RuntimeError, match="cuda"):
+            S.run_supervised(S.EpochJob(n=8, depth=2, ring=4, epochs=1),
+                             tmp_path / "c")
