@@ -146,6 +146,29 @@ Phases (any failure raises and the exit code is not 0):
     alert to stderr, some 10^5 a roll at this width: the phase sends
     fd 2 to a file and prints the count (and the file's tail on a
     failure).
+21. the simulators.  The device sim's closed-loop headline
+    (``sim.device_sim.headline_setup``, ``benchmark/run_sweeps.py:356-443``
+    with nothing cut: 100,000 clients in two halves of weight 1 and 3,
+    reservation 2 ops/s, no limit, 80 ops/s goal, window 32, select range
+    8, random selection; 8 servers at 500,000 iops with 2 threads, so
+    8,192 serves a server a slice of 16.384 ms; a 64-slot ring, prefix
+    serve, sort): its first 2 slices launch-counted (K1 once a prefix
+    batch at w=1, no K2) and held against a CPU twin on every
+    ``DeviceSim`` field; K1 at w=1 and w=8 on that state against its
+    plain version; 2 slices with ``calendar_impl="minstop"`` (K1 at w=8)
+    and 2 with ``"wheel"`` (4 levels; K1 and K2), launch-counted and
+    equal to the prefix run on every field; then the headline timed
+    (ops per wall second differenced over chains of 4 and 10 launches of
+    2 slices, ms and read backs a slice, the weight 3:1 ratio, the
+    virtual seconds, 0 guard trips).  Then ``dmc_sim`` on the card:
+    ``configs/dmc_sim_example.conf`` in pull mode and
+    ``configs/dmc_sim_8_6.conf`` in push mode, each cut to 500
+    ``client_total_ops`` (nothing else changed: whole, they took 165
+    and 65 s on the card), with ``--model dmclock-torch --ledger-check
+    --slo-check`` (exit 0), each decision trace equal byte for byte to a
+    CPU twin's; the reports, the wall and the decisions per second
+    printed.  The twins (the device sim on four threads, each dmc_sim on
+    one) start as the phase begins.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -157,10 +180,11 @@ begins (``start_cpu_sup_twin``).  The script stops the children on any
 failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
-launch it (phases 6, 8, 10-16, both runs of 19 and the in-process runs
-of 20), each count read right after that path's run; K2's is the
-``cfg4_wheel`` path's and phase 20's wheel runs'; the queue paths (17,
-18) add none, and the spawn children's launches are not counted
+launch it (phases 6, 8, 10-16, both runs of 19, the in-process runs
+of 20 and the device sim's four runs in 21), each count read right
+after that path's run; K2's is the ``cfg4_wheel`` path's, phase 20's
+wheel runs' and the device sim's wheel run's; the queue paths (17, 18)
+and ``dmc_sim`` add none, and the spawn children's launches are not counted
 (``LAUNCHES`` is per process). Each kernel's entry also carries
 ``launches_by_path``. Serve's and the rows' rates are printed both as
 the mean (summed decisions over summed event ms) and median-based (one
@@ -2111,6 +2135,261 @@ def check_supervised(res, card: str, twin, what: str) -> None:
         f"{res.decisions} decisions) on {card}")
 
 
+# ----------------------------------------------------------------------
+# phase 21: the simulators
+# ----------------------------------------------------------------------
+
+DS_N = 100_000           # the device sim headline's clients (8 servers)
+DS_TWIN_SLICES = 2       # slices held against the CPU twin, and per
+#                          calendar run
+# (mode, config, client_total_ops): each config cut in client_total_ops
+# alone (2,000 and 1,000 in the files) to fit the phase's time: the
+# card's serial engine takes 10-21 ms a decision here (PERF.md section 5)
+SIM_RUNS = (("pull", "configs/dmc_sim_example.conf", 500),
+            ("push", "configs/dmc_sim_8_6.conf", 500))
+
+
+def _cut_conf(root: str, conf: str, total_ops: int, tmp: str) -> str:
+    """``conf`` with every ``client_total_ops`` set to ``total_ops`` and
+    nothing else changed, written under ``tmp``."""
+    with open(os.path.join(root, conf)) as f:
+        lines = f.read().splitlines()
+    out = [f"client_total_ops = {total_ops}"
+           if ln.split("=")[0].strip() == "client_total_ops" else ln
+           for ln in lines]
+    if out == lines:
+        raise ValueError(f"{conf} sets no client_total_ops")
+    path = os.path.join(tmp, f"cut_{total_ops}_" + os.path.basename(conf))
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return path
+
+
+def start_cpu_sim_twins(root: str, tmp: str) -> dict:
+    """Phase 21's CPU twins, with CUDA hidden from them: the device sim
+    headline's first ``DS_TWIN_SLICES`` slices at full width on four
+    threads (its fields to ``ds_twin.pt``), and ``dmc_sim`` on each of
+    ``SIM_RUNS`` on one thread (its decision trace and stdout beside
+    it).  Returns ``{name: (process, output path)}``."""
+    out = os.path.join(tmp, "ds_twin.pt")
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "torch.set_num_threads(4)\n"
+        "from dmclock_tpu_torch.sim import device_sim as DS\n"
+        f"_, sim, spec = DS.headline_setup({DS_N}, device='cpu')\n"
+        f"sim = DS.device_sim_step(sim, spec, {DS_TWIN_SLICES})\n"
+        f"torch.save(DS.device_sim_to_numpy(sim), {out!r})\n")
+    procs = {"device_sim": (_cpu_child(code, out), out)}
+    for mode, conf, total_ops in SIM_RUNS:
+        trace = os.path.join(tmp, f"dmc_sim_{mode}_cpu.jsonl")
+        with open(trace + ".out", "w") as so, \
+                open(trace + ".err", "w") as se:
+            procs[f"dmc_sim_{mode}"] = (subprocess.Popen(
+                [sys.executable, "-m", "dmclock_tpu_torch.sim.dmc_sim",
+                 "-c", _cut_conf(root, conf, total_ops, tmp),
+                 "--server-mode", mode,
+                 "--device", "cpu", "--trace", trace, "--ledger-check",
+                 "--slo-check"], cwd=root, stdout=so, stderr=se,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                         OMP_NUM_THREADS="1")), trace)
+    return procs
+
+
+def _collect(proc: subprocess.Popen, out: str, what: str) -> float:
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    if rc != 0:
+        with open(out + ".err") as f:
+            raise RuntimeError(f"the CPU twin {what} failed (rc {rc}):\n"
+                               f"{f.read()[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _sim_numpy_equal(a: dict, b: dict, what: str, path: str = "sim"):
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: {path} fields {sorted(a)} vs "
+                             f"{sorted(b)}")
+    for k in a:
+        if isinstance(a[k], dict):
+            _sim_numpy_equal(a[k], b[k], what, f"{path}.{k}")
+        elif a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {path}.{k} differs "
+                                 f"({a[k].dtype} vs {b[k].dtype})")
+
+
+def _nbytes(sim) -> int:
+    return sum(t.numel() * t.element_size()
+               for part in sim for t in (part if isinstance(part, tuple)
+                                         else (part,)))
+
+
+def phase_device_sim(ext, fp, card: str):
+    """The device sim at the headline's full width on the card: the
+    prefix run's first slices launch-counted (K1 once a prefix batch at
+    w=1, no K2) and kept for the twin; K1 at w=1 and w=8 on that state
+    against its plain version; minstop and wheel runs, launch-counted,
+    equal to the prefix run on every field; then the headline timed.
+    Returns ``(prefix fields, launches by path, headline row)``."""
+    from dmclock_tpu_torch.sim import device_sim as DS
+
+    t_phase = time.perf_counter()
+    by_path = {}
+
+    def counted(impl):
+        _, sim, spec = DS.headline_setup(DS_N, calendar_impl=impl,
+                                         device="cuda")
+        counts = DS.StepCounts()
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        t0 = time.perf_counter()
+        sim = DS.device_sim_step(sim, spec, DS_TWIN_SLICES, counts=counts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(ext.LAUNCHES)
+        levels = spec.ladder_levels if impl == "wheel" else 1
+        want_k1 = counts.prefix_batches + counts.calendar_batches * levels
+        want_k2 = counts.calendar_batches * (levels + 1) \
+            if impl == "wheel" else 0
+        what = f"device_sim{'_' + impl if impl else ''}"
+        log(f"[{what}] {DS_TWIN_SLICES} slices in {secs:.3f} s: "
+            f"{counts.prefix_batches} prefix and "
+            f"{counts.calendar_batches} calendar batches, "
+            f"{counts.read_backs} read backs; kernel launches {launches}")
+        if launches != {"ring_window": want_k1, "wheel_scan": want_k2}:
+            raise AssertionError(f"{what} launched {launches}, want K1 "
+                                 f"{want_k1}, K2 {want_k2}")
+        by_path[what] = launches
+        return sim, spec, counts
+
+    sim, spec, counts = counted(None)
+    DS.check_guard_trips(sim)
+    prefix = DS.device_sim_to_numpy(sim)
+    ops = int(prefix["served_resv"].sum() + prefix["served_prop"].sum())
+    log(f"[device_sim] headline on {card}: {DS_N} clients, "
+        f"{spec.n_servers} servers, ring {sim.engine.ring_capacity}, "
+        f"q {spec.q_per_slice} a slice of {spec.slice_ns} ns, "
+        f"{spec.max_sends} sends a client a slice at most; state "
+        f"{_nbytes(sim) / 1e9:.4f} GB on the card; {ops} ops in "
+        f"{DS_TWIN_SLICES} slices, 0 guard trips")
+    eng = DS.server_view(sim.engine, 0)
+    for w in (1, 8):
+        ka, kc = fp.ring_window_rows(eng.q_arrival, eng.q_cost,
+                                     eng.q_head, w)
+        pa = fp._ring_window_torch(eng.q_arrival, eng.q_head, w)
+        pc = fp._ring_window_torch(eng.q_cost, eng.q_head, w)
+        torch.cuda.synchronize()
+        if not (torch.equal(ka, pa) and torch.equal(kc, pc)):
+            raise AssertionError(f"K1 on the device sim state (w={w}) "
+                                 "differs from its plain version")
+    log("[device_sim] K1 at (100000, 64, 1) and (100000, 64, 8) on "
+        "server 0's state after the slices: bit-identical to its plain "
+        "version")
+    del sim, eng, ka, kc, pa, pc
+    for impl in ("minstop", "wheel"):
+        cal, _, _ = counted(impl)
+        _sim_numpy_equal(DS.device_sim_to_numpy(cal), prefix,
+                         f"device_sim {impl} vs the prefix run")
+        log(f"[device_sim_{impl}] equal to the prefix run on every "
+            f"DeviceSim field")
+        del cal
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    row = DS.device_sim_headline(DS_N, device="cuda")
+    torch.cuda.synchronize()
+    by_path["device_sim_headline"] = dict(ext.LAUNCHES)
+    if row["guard_trips"] != 0:
+        raise AssertionError(f"device_sim_headline: {row['guard_trips']} "
+                             "guard trips")
+    log(f"[device_sim_headline] on {card}: {row['ops_per_sec']:.1f} ops "
+        f"per wall second (differenced over chains of {DS.HEADLINE_LO} "
+        f"and {DS.HEADLINE_HI} launches of {DS.HEADLINE_SLICES} slices), "
+        f"{row['ms_per_slice']:.3f} ms a slice, "
+        f"{row['ops_per_slice']:.1f} ops a slice, "
+        f"{row['read_backs_per_slice']:.3f} read backs a slice, K1 "
+        f"{by_path['device_sim_headline']['ring_window'] / row['slices']:.3f}"
+        f" launches a slice; weight 3:1 ratio "
+        f"{row['weight_ratio_3_1']:.6f}; {row['total_ops']} ops in "
+        f"{row['virtual_s']:.6f} virtual s; guard trips "
+        f"{row['guard_trips']}")
+    log(f"[time] device_sim phase {time.perf_counter() - t_phase:.3f} s")
+    return prefix, by_path, row
+
+
+def phase_dmc_sim(ext, card: str, tmp: str) -> dict:
+    """``dmc_sim`` on the card, in process: each of ``SIM_RUNS`` (its
+    config cut in ``client_total_ops``) with ``--model dmclock-torch
+    --ledger-check --slo-check`` and its decision trace; prints the
+    reports, the wall and decisions per second.  Returns ``{mode:
+    (trace path, launches)}``."""
+    import contextlib
+    import io
+
+    from dmclock_tpu_torch.sim import dmc_sim
+
+    out = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for mode, conf, total_ops in SIM_RUNS:
+        trace = os.path.join(tmp, f"dmc_sim_{mode}_card.jsonl")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = dmc_sim.main(["-c", _cut_conf(root, conf, total_ops,
+                                               tmp),
+                               "--model", "dmclock-torch",
+                               "--server-mode", mode, "--device", "cuda",
+                               "--trace", trace, "--ledger-check",
+                               "--slo-check"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"[dmc_sim {mode}] {line}")
+        if rc != 0:
+            raise AssertionError(f"dmc_sim {mode} on {conf}: rc {rc}")
+        with open(trace) as f:
+            rows = sum(1 for _ in f)
+        launches = dict(ext.LAUNCHES)
+        log(f"[dmc_sim {mode}] {conf} (client_total_ops {total_ops}) on "
+            f"{card}: {rows} decisions in "
+            f"{secs:.3f} s wall, {rows / secs:.3f} decisions/s; kernel "
+            f"launches {launches} (the serial engine: no K1 or K2)")
+        if any(launches.values()):
+            raise AssertionError(f"dmc_sim {mode} launched {launches}")
+        out[mode] = (trace, launches)
+    return out
+
+
+def check_sim_twins(procs: dict, prefix: dict, dmc: dict,
+                    card: str) -> None:
+    """Phase 21's card runs against their CPU twins: the device sim's
+    every field, and each dmc_sim trace byte for byte."""
+    proc, path = procs["device_sim"]
+    waited = _collect(proc, path, "device_sim")
+    twin = torch.load(path, weights_only=False)
+    _sim_numpy_equal(prefix, twin, "device_sim vs the CPU twin")
+    log(f"[device_sim] the first {DS_TWIN_SLICES} slices equal the CPU "
+        f"twin on every DeviceSim field (waited {waited:.3f} s for it)")
+    for mode, conf, _ in SIM_RUNS:
+        proc, trace = procs[f"dmc_sim_{mode}"]
+        waited = _collect(proc, trace, f"dmc_sim {mode}")
+        with open(trace, "rb") as f:
+            want = f.read()
+        with open(dmc[mode][0], "rb") as f:
+            got = f.read()
+        if got != want:
+            raise AssertionError(f"dmc_sim {mode} on {conf}: the card's "
+                                 "trace differs from the CPU twin's")
+        with open(trace + ".out") as f:
+            wall = [ln for ln in f if "wall:" in ln]
+        log(f"[dmc_sim {mode}] the card's trace equals the CPU twin's, "
+            f"{want.count(b'{')} rows byte for byte (the twin's "
+            f"{wall[0].strip() if wall else 'wall not printed'}; waited "
+            f"{waited:.3f} s for it) on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2166,7 +2445,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "twins.pt")
         twins = start_cpu_twins(root, out)
-        sup_twin = None
+        sup_twin = sim_twins = None
         try:
             twin = functools.cache(lambda: collect_cpu_twins(twins, out))
             # both card runs first, so the twins have their time to finish
@@ -2200,16 +2479,26 @@ def main() -> int:
             check_supervised(sup_short, card,
                              collect_cpu_twins(sup_twin, out2),
                              "supervised_prefix_short")
+            # phase 21: the simulators; their CPU twins start first
+            t_sims = time.perf_counter()
+            sim_twins = start_cpu_sim_twins(root, tmp)
+            ds_prefix, ds_by_path, _ = phase_device_sim(_ext, fastpath,
+                                                        card)
+            dmc = phase_dmc_sim(_ext, card, tmp)
+            check_sim_twins(sim_twins, ds_prefix, dmc, card)
         finally:
             for proc in (twins, sup_twin):
                 if proc is not None:
                     _stop(proc)
+            for proc, _ in (sim_twins or {}).values():
+                _stop(proc)
     t_end = time.perf_counter()
     log(f"[time] phases 6-13 took {t_rows - t_serve:.3f} s, the cfg3, "
         f"cfg3_stream and cfg4 (minstop) phases {t_queue - t_rows:.3f} s, "
         f"the queue and push phases {t_churn - t_queue:.3f} s, the churn "
         f"phases {t_sup - t_churn:.3f} s, the supervised phase "
-        f"{t_end - t_sup:.3f} s; the whole script "
+        f"{t_sims - t_sup:.3f} s, the simulators' phase "
+        f"{t_end - t_sims:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -2219,11 +2508,15 @@ def main() -> int:
                    cfg3_stream=stream_k1, cfg4=cfg4_k1,
                    cfg4_stream=cfg4_stream_k1,
                    churn_flash_crowd=churn_k1, churn_storm=storm_k1,
-                   **sup_k1)
+                   **sup_k1, **{p: n["ring_window"]
+                                for p, n in ds_by_path.items()})
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
-    # minstop, cfg3, the stream chunks, the queue and churn launch no K2
-    k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2)
+    # minstop, cfg3, the stream chunks, the queue and churn, and the
+    # device sim but for its wheel run launch no K2
+    k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2,
+                    device_sim_wheel=ds_by_path["device_sim_wheel"][
+                        "wheel_scan"])
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

@@ -21,6 +21,10 @@ Layers (each mirrors its counterpart in ``dmclock_tpu``):
              supervisor (with ``utils.checkpoint``)
   serve   -- the serving entry points (``serve_only``, ``serve_cfg3``,
              ``serve_cfg4``, the queues)
+  sim     -- the simulators: the discrete-event harness, ``dmc_sim`` /
+             ``ssched_sim`` over the model registry (``models``), and
+             the device-resident multi-server closed loop
+             (``device_sim``, with ``parallel.tracker``)
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; the CPU
 is used only when the caller asks for it, and asking for CUDA on a

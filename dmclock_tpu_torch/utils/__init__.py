@@ -1,5 +1,6 @@
 """Host utilities of the PyTorch port: the profiling accumulators
-(``profile``) and crash-safe checkpoints (``checkpoint``)."""
+(``profile``), crash-safe checkpoints (``checkpoint``) and the
+periodic job thread (``periodic``)."""
 
 from .profile import ProfileCombiner, ProfileTimer
 

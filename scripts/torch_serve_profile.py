@@ -10,6 +10,8 @@
     python3 scripts/torch_serve_profile.py --workload cfg3 [--telemetry on]
     python3 scripts/torch_serve_profile.py --workload queue [--n 10000]
     python3 scripts/torch_serve_profile.py --workload churn [--epochs 64]
+    python3 scripts/torch_serve_profile.py --workload device_sim
+        [--rounds 2] [--calendar-impl minstop]
 
 Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
 ``serve`` backlog, with ``--high-rate`` the same backlog at 1000x the
@@ -34,7 +36,13 @@ span tracer beside it for the wall share of the lifecycle boundaries;
 it prints launches per epoch, counting only the epoch loop's (a
 ``churn.loop_end`` profiler range marks where the loop ends, after its
 last round, so the final SLO roll, the read-backs and the digest's
-copies that follow are counted apart).  The full table goes to
+copies that follow are counted apart).  ``device_sim`` profiles the
+device sim's closed-loop headline (``sim.device_sim.headline_setup``:
+100,000 clients on 8 servers, ring 64, 8,192 serves a server a slice)
+over ``--rounds`` slices after one warm-up launch of 2 slices, and
+prints launches, read backs and serve batches per slice (with
+``--calendar-impl`` the slices front-load calendar batches).  The full
+table goes to
 ``chiprun_out/<workload>[_<knobs>]_profile.txt``.  Needs CUDA; exits non-zero
 without.
 """
@@ -71,7 +79,8 @@ def _busy_us(intervals) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
-                                           "cfg4", "queue", "churn"),
+                                           "cfg4", "queue", "churn",
+                                           "device_sim"),
                     default="serve")
     ap.add_argument("--n", type=int, default=None,
                     help="clients (100000; cfg3 and queue 10000)")
@@ -82,16 +91,19 @@ def main(argv=None) -> int:
                     help="batches per epoch (serve 32, chain 8)")
     ap.add_argument("--epochs", type=int, default=None,
                     help="serve, chain (1); churn (64)")
-    ap.add_argument("--rounds", type=int, default=1, help="cfg3, cfg4")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="cfg3, cfg4 (1); device_sim: slices (2)")
     ap.add_argument("--telemetry", choices=("on", "off"), default="off",
                     help="cfg3, cfg4: the histograms, ledger, SLO window "
                     "and provenance accumulators (bench's defaults are "
                     "on)")
     ap.add_argument("--calendar-impl",
                     choices=("minstop", "bucketed", "wheel"),
-                    default="wheel",
-                    help="cfg4: the calendar scheme (wheel: bench's "
-                    "cfg4_wheel row; minstop: its cfg4 row)")
+                    default=None,
+                    help="cfg4: the calendar scheme (wheel, the "
+                    "default: bench's cfg4_wheel row; minstop: its cfg4 "
+                    "row); device_sim: front-load the slices with "
+                    "calendar batches (default none)")
     ap.add_argument("--select-impl", choices=("sort", "radix"),
                     default="sort", help="serve, chain")
     ap.add_argument("--tag-width", type=int, choices=(64, 32), default=64,
@@ -102,14 +114,20 @@ def main(argv=None) -> int:
                     help="table file (chiprun_out/<workload>[_<knobs>]"
                     "_profile.txt)")
     a = ap.parse_args(argv)
+    if a.calendar_impl is None and a.workload == "cfg4":
+        a.calendar_impl = "wheel"
+    if a.rounds is None:
+        a.rounds = 2 if a.workload == "device_sim" else 1
     if a.n is None:
         a.n = 10_000 if a.workload in ("queue", "cfg3") else 100_000
     knobs = dict(select_impl=a.select_impl, tag_width=a.tag_width)
     tag = "".join([f"_{a.select_impl}" if a.select_impl != "sort" else "",
                    f"_tag{a.tag_width}" if a.tag_width != 64 else "",
                    "_high_rate" if a.high_rate else "",
-                   f"_{a.calendar_impl}" if a.workload == "cfg4"
-                   and a.calendar_impl != "wheel" else "",
+                   f"_{a.calendar_impl}" if (
+                       a.workload == "cfg4" and a.calendar_impl != "wheel"
+                       or a.workload == "device_sim" and a.calendar_impl)
+                   else "",
                    "_telemetry" if a.telemetry == "on"
                    and a.workload in ("cfg3", "cfg4") else ""])
     out = a.out or os.path.join(ROOT, "chiprun_out",
@@ -130,6 +148,9 @@ def main(argv=None) -> int:
         return _profile_queue(serve, a.n, card, out)
     if a.workload == "churn":
         return _profile_churn(serve, a.epochs or 64, card, out)
+    if a.workload == "device_sim":
+        return _profile_device_sim(a.n, a.rounds, a.calendar_impl, card,
+                                   out)
     a.epochs = a.epochs or 1
     if a.workload == "serve":
         m = 32 if a.m is None else a.m
@@ -280,6 +301,41 @@ def _profile_churn(serve, epochs: int, card: str, out: str) -> int:
         "launches_per_epoch": prof["launches_before_mark"] / epochs,
         "boundary_share_of_row_wall": boundary_ms / wall_ms,
         "span_total_ms": span_ms, **prof}))
+    return 0
+
+
+def _profile_device_sim(n: int, slices: int, calendar_impl, card: str,
+                        out: str) -> int:
+    """The device sim's headline shape: one warm-up launch of 2 slices,
+    then ``slices`` slices profiled, with the host loop's serve batches
+    and read backs counted (``StepCounts``)."""
+    from dmclock_tpu_torch.engine import _ext
+    from dmclock_tpu_torch.sim import device_sim as DS
+
+    _, sim, spec = DS.headline_setup(n, calendar_impl=calendar_impl,
+                                     device="cuda")
+    sim = DS.device_sim_step(sim, spec, 2)                  # warm
+    counts = DS.StepCounts()
+    k0 = dict(_ext.LAUNCHES)
+    before = DS.served_total(sim)
+    res, prof = _profiled(lambda: DS.device_sim_step(sim, spec, slices,
+                                                     counts=counts))
+    ops = DS.served_total(res) - before
+    DS.check_guard_trips(res)
+    with open(out, "w") as f:
+        f.write(f"{card}\n{prof.pop('table')}\n")
+    print(json.dumps({
+        "card": card, "workload": "device_sim", "n": n,
+        "servers": spec.n_servers, "q_per_slice": spec.q_per_slice,
+        "ring": sim.engine.ring_capacity, "slices": slices,
+        "calendar_impl": calendar_impl, "ops": ops,
+        "ops_per_slice": ops / slices,
+        "launches_per_slice": prof["kernel_launches"] / slices,
+        "read_backs_per_slice": counts.read_backs / slices,
+        "prefix_batches_per_slice": counts.prefix_batches / slices,
+        "calendar_batches_per_slice": counts.calendar_batches / slices,
+        "k1_k2_launches": {k: _ext.LAUNCHES[k] - k0[k] for k in k0},
+        **prof}))
     return 0
 
 

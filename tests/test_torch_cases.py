@@ -31,11 +31,13 @@ RING_SHAPES = [
 # paths (Q=320, w=chain_depth=4), tag32 on the high-rate state
 # (Q=128, w=32), cfg3 (N=10000, Q=256, w=32), the churn row (ring 32,
 # w=m=4) at the capacities flash_crowd grows through, and the
-# supervised prefix jobs (Q=128, w=m=8)
+# supervised prefix jobs (Q=128, w=m=8), and the device sim's headline
+# (8 servers of N=100000, Q=64): the prefix batches' head read (w=1) and
+# the minstop calendar batches (w=calendar_steps=8)
 RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64),
                     (100_000, 320, 4), (100_000, 128, 32),
                     (10_000, 256, 32), (2048, 32, 4), (4096, 32, 4),
-                    (100_000, 128, 8)]
+                    (100_000, 128, 8), (100_000, 64, 1), (100_000, 64, 8)]
 
 
 def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):

@@ -508,3 +508,78 @@ def test_cuda_error_is_not_retried_or_restarted(cuda, tmp_path,
         TS.run_supervised(job, tmp_path, TH.zero_host_plan(), device=cuda,
                           sleep=lambda s: None)
     assert calls[0] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("calendar_impl", [None, "minstop", "wheel"])
+def test_device_sim_on_the_card_equals_cpu(cuda, calendar_impl):
+    """The device sim's headline construction at 512 clients, 8 servers,
+    ring 64: two slices on the card equal the CPU on every field, with
+    K1 launched at w=1 (prefix batches) or w=8 (calendar batches) and
+    K2 on the wheel; a calendar run equals the prefix run."""
+    from dmclock_tpu_torch.sim import device_sim as TDS
+
+    def run(device, impl):
+        _, sim, spec = TDS.headline_setup(512, calendar_impl=impl,
+                                          device=device)
+        counts = TDS.StepCounts()
+        sim = TDS.device_sim_step(sim, spec, 2, counts=counts)
+        return TDS.device_sim_to_numpy(sim), counts
+
+    before = dict(_ext.LAUNCHES)
+    got, counts = run(cuda, calendar_impl)
+    k1 = _ext.LAUNCHES["ring_window"] - before["ring_window"]
+    k2 = _ext.LAUNCHES["wheel_scan"] - before["wheel_scan"]
+    assert k1 == counts.prefix_batches + (
+        counts.calendar_batches * (4 if calendar_impl == "wheel" else 1)
+        if calendar_impl else 0)
+    assert (k2 > 0) == (calendar_impl == "wheel")
+    want, _ = run("cpu", calendar_impl)
+    base, _ = run("cpu", None)
+
+    def same(a, b, path="sim"):
+        for k in a:
+            if isinstance(a[k], dict):
+                same(a[k], b[k], f"{path}.{k}")
+            else:
+                assert a[k].dtype == b[k].dtype and \
+                    np.array_equal(a[k], b[k]), f"{path}.{k}"
+    same(got, want)
+    same(want, base)
+    assert int(got["served_resv"].sum() + got["served_prop"].sum()) > 0
+    assert int(got["guard_trips"]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pull", "push"])
+def test_dmc_sim_on_the_card_equals_cpu(cuda, mode):
+    """The harness over the dmclock-torch model on the card: the trace
+    and the per-client phase split equal the CPU run's."""
+    from dmclock_tpu_torch.sim import config as tcfg
+    from dmclock_tpu_torch.sim.dmc_sim import run_sim
+
+    cfg = tcfg.SimConfig(
+        client_groups=2, server_groups=1, server_soft_limit=True,
+        cli_group=[tcfg.ClientGroup(client_count=3, client_total_ops=40,
+                                    client_iops_goal=120,
+                                    client_outstanding_ops=8,
+                                    client_reservation=15.0,
+                                    client_limit=0.0,
+                                    client_server_select_range=2),
+                   tcfg.ClientGroup(client_count=2, client_total_ops=30,
+                                    client_iops_goal=100,
+                                    client_outstanding_ops=8,
+                                    client_reservation=0.0,
+                                    client_limit=40.0, client_weight=2.0,
+                                    client_req_cost=2,
+                                    client_server_select_range=2)],
+        srv_group=[tcfg.ServerGroup(server_count=2, server_iops=80)])
+    got = run_sim(cfg, seed=7, record_trace=True, server_mode=mode,
+                  device=cuda)
+    want = run_sim(cfg, seed=7, record_trace=True, server_mode=mode,
+                   device="cpu")
+    assert got.trace == want.trace and len(got.trace) == 180
+    for cid in want.clients:
+        a, b = got.clients[cid].stats, want.clients[cid].stats
+        assert (a.reservation_ops, a.priority_ops) == \
+            (b.reservation_ops, b.priority_ops)

@@ -213,3 +213,65 @@ def test_supervisor_and_spawn_child_leave_jax_unloaded(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             S.run_supervised(S.EpochJob(n=8, depth=2, ring=4, epochs=1),
                              tmp_path / "c")
+
+
+_SMALL_CONF = ("[global]\nclient_groups = 1\nserver_groups = 1\n"
+               "server_random_selection = true\n"
+               "[client.0]\nclient_count = 4\nclient_total_ops = 20\n"
+               "client_iops_goal = 100\nclient_outstanding_ops = 8\n"
+               "client_reservation = 10.0\nclient_limit = 0.0\n"
+               "client_server_select_range = 2\n"
+               "[server.0]\nserver_count = 2\nserver_iops = 160\n")
+
+
+def _imported(stderr: str) -> set:
+    """Module names from ``python -X importtime``'s report."""
+    out = set()
+    for line in stderr.splitlines():
+        if line.startswith("import time:") and "|" in line:
+            out.add(line.rsplit("|", 1)[1].strip())
+    return out
+
+
+@pytest.mark.parametrize("module, extra", [
+    ("dmclock_tpu_torch.sim.dmc_sim", ["--ledger-check", "--slo-check"]),
+    ("dmclock_tpu_torch.sim.dmc_sim", ["--server-mode", "push"]),
+    ("dmclock_tpu_torch.sim.ssched_sim", []),
+    ("dmclock_tpu_torch.sim.device_sim", ["--slices-per-launch", "16"]),
+], ids=["dmc_sim", "dmc_sim_push", "ssched_sim", "device_sim"])
+def test_sim_clis_leave_jax_unloaded(tmp_path, module, extra):
+    """``python -m`` of each simulator CLI on the CPU runs to its report
+    and imports no JAX and nothing of the JAX package (the interpreter's
+    own import report, ``-X importtime``, lists every module loaded)."""
+    conf = tmp_path / "small.conf"
+    conf.write_text(_SMALL_CONF)
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", module, "-c", str(conf),
+         "--device", "cpu"] + extra,
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "total ops: 80" in out.stdout
+    mods = _imported(out.stderr)
+    assert module in mods or "dmclock_tpu_torch.sim" in mods
+    bad = sorted(m for m in mods if _forbidden(m))
+    assert not bad, bad
+
+
+def test_sim_entry_points_default_to_the_card(tmp_path):
+    """Without a card, every simulator entry point's default device
+    raises; none moves to the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from dmclock_tpu_torch.sim import device_sim, dmc_sim, ssched_sim
+    from dmclock_tpu_torch.sim.config import parse_config_file
+
+    conf = tmp_path / "small.conf"
+    conf.write_text(_SMALL_CONF)
+    for main in (dmc_sim.main, ssched_sim.main, device_sim.main):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["-c", str(conf)])
+    cfg = parse_config_file(str(conf))
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmc_sim.run_sim(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        device_sim.run_device_sim(cfg)
