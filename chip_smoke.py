@@ -169,6 +169,31 @@ Phases (any failure raises and the exit code is not 0):
     CPU twin's; the reports, the wall and the decisions per second
     printed.  The twins (the device sim on four threads, each dmc_sim on
     one) start as the phase begins.
+22. the multi-server mesh (``parallel.mesh``, ``parallel.cluster``,
+    ``robust.cluster``, ``obs.capacity``): (a) bench's mesh row
+    (``serve.mesh_row``) at its shape, 100,000 clients over 8 shards
+    stacked on the card (12,500 a shard; the prefix engine at m=4,
+    k=256, ring 16 preloaded 12 deep, Poisson(2) in 4 waves, 100 ms
+    epochs, chunks of 8: 8 warm epochs, 24 timed, metrics and the SLO
+    block on) at ``counter_sync_every`` 1 and 4, launch-counted (K1 once
+    a shard-epoch), aggregate and per-shard decisions/s and the counter
+    plane's syncs and bytes printed, the same decisions at both K, and
+    the first chunk held against a CPU twin on every field; (b) the row
+    under the fault plan ``MESH_FAULT_SPEC``, whose per-shard dropout
+    and resync counts read off the device metric rows must equal
+    ``plan_shard_events``; (c) one mesh chunk at 100,000 clients x 1
+    shard equal to ``build_stream_chunk`` field by field; (d) a wheel
+    calendar chunk at 2 shards x 10,000 clients (K1 and K2 per shard)
+    equal to its CPU twin; (e) the cluster dry run (``serve.
+    multichip_row``) at its width, 8 servers x 10,000 clients under both
+    trackers, cut in depth (``MULTICHIP_CUT``), each round's decisions
+    held against a CPU twin by digest, and ``robust_cluster_step`` under
+    a single outage (``serve.cluster_outage``) equal to its twin (no K1
+    or K2: the serial engine); (f) the capacity plane: the card's budget,
+    ``plan_capacity`` and ``plan_mesh_shards`` for (a), and one shard's
+    ``projected_hbm`` within 10% of the resident growth of its state,
+    accumulators and one chunk's outputs (peak printed).  The twins run
+    in a child process on four threads, started as the phase begins.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -181,10 +206,11 @@ failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8, 10-16, both runs of 19, the in-process runs
-of 20 and the device sim's four runs in 21), each count read right
-after that path's run; K2's is the ``cfg4_wheel`` path's, phase 20's
-wheel runs' and the device sim's wheel run's; the queue paths (17, 18)
-and ``dmc_sim`` add none, and the spawn children's launches are not counted
+of 20, the device sim's four runs in 21 and the mesh runs of 22), each
+count read right after that path's run; K2's is the ``cfg4_wheel``
+path's, phase 20's wheel runs', the device sim's wheel run's and the
+mesh wheel chunk's; the queue paths (17, 18), ``dmc_sim`` and the
+cluster runs of 22 add none, and the spawn children's launches are not counted
 (``LAUNCHES`` is per process). Each kernel's entry also carries
 ``launches_by_path``. Serve's and the rows' rates are printed both as
 the mean (summed decisions over summed event ms) and median-based (one
@@ -198,6 +224,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import shutil
@@ -1821,7 +1848,7 @@ def check_churn(row: dict, card: str, twin, key: str = "churn") -> None:
     """The card's churn row against the CPU twin's (``twin()[key]``):
     every key but the wall clock (decisions, snapshot counters, the boost
     record, the conformance table, tardiness, the SLO block, the
-    histogram block, the digest)."""
+    histogram block, the digest, the capacity record)."""
     want = twin()[key]
     for k in sorted(set(want) | set(row)):
         if k in ("wall_s", "dps"):
@@ -2390,6 +2417,335 @@ def check_sim_twins(procs: dict, prefix: dict, dmc: dict,
             f"{waited:.3f} s for it) on {card}")
 
 
+# ----------------------------------------------------------------------
+# phase 22: the multi-server mesh
+# ----------------------------------------------------------------------
+
+MESH_SHARDS = 8          # bench's mesh row: 100,000 clients over 8 shards
+MESH_FAULT_SPEC = "seed=7,p_dropout=0.05,mean_outage_steps=2,p_dup=0.1"
+MESH_S1_EPOCHS = 2       # the S=1 identity chunk at 100,000 clients
+# the wheel on the mesh: 2 shards x 10,000 clients, 2 epochs of m=2
+# calendar batches of 4 steps on 4 ladder levels
+MESH_WHEEL = dict(n=10_000, shards=2, epochs=2, m=2, k=4, levels=4)
+# the cluster dry run at its width (8 servers x 10,000 clients), cut in
+# depth: 64 decisions a step (1024), 2 closed-loop rounds (2 + 6) and 1
+# drain round (4); its QoS assertions need the full depth and run in the
+# CPU tests
+MULTICHIP_CUT = dict(n_servers=8, n_clients=10_000, decisions_per_step=64,
+                     warmup=1, rounds=1, drain_rounds=1, check_qos=False)
+OUTAGE = dict(n_servers=8, n_clients=10_000, steps=3, decisions_per_step=64)
+
+
+def chunk_numpy(out) -> dict:
+    """A MeshChunk (or StreamChunk) as a flat dict of host numpy."""
+    host = {}
+    for f in out._fields:
+        v = getattr(out, f)
+        if isinstance(v, dict):
+            host.update({f"{f}.{k}": x.cpu().numpy() for k, x in v.items()})
+        elif isinstance(v, tuple):
+            host.update({f"{f}.{k}": x.cpu().numpy()
+                         for k, x in zip(v._fields, v)})
+        elif v is not None:
+            host[f] = v.cpu().numpy()
+    return host
+
+
+def mesh_chunk_run(device, job, shards: int, epochs: int, **cfg):
+    """One mesh chunk of ``shards`` copies of ``job``'s preloaded state
+    from epoch 0 with the mesh row's draws (``serve.mesh_start``,
+    ``serve.mesh_draws`` from PCG64(29)); returns the MeshChunk."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.parallel import mesh as TM
+
+    fn = TM.build_mesh_chunk(
+        TM.make_mesh(shards, device), engine=job.engine, epochs=epochs,
+        m=job.m, k=job.k, dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
+        calendar_impl=job.calendar_impl, ladder_levels=job.ladder_levels,
+        **cfg)
+    rng = np.random.Generator(np.random.PCG64(serve.MESH_SEED))
+    state, cd, cr, vd, vr, slo = serve.mesh_start(job, shards, device)
+    return fn(state, cd, cr, vd, vr, 0,
+              serve.mesh_draws(rng, shards, job.n, epochs,
+                               job.arrival_lam, device), slo=slo)
+
+
+def mesh_wheel_job():
+    from dmclock_tpu_torch import serve
+
+    c = MESH_WHEEL
+    return serve.mesh_job(c["n"], engine="calendar", calendar_impl="wheel",
+                          m=c["m"], k=c["k"], ladder_levels=c["levels"])
+
+
+def mesh_twins(out: str) -> None:
+    """Phase 22's CPU runs (in a child process): (a)'s first chunk at
+    8 x 12,500, (d)'s wheel chunk, the cut dry run under both trackers
+    and the outage run; saved to ``out``."""
+    from dmclock_tpu_torch import serve
+
+    torch.set_num_threads(4)
+    first = chunk_numpy(mesh_chunk_run(
+        "cpu", serve.mesh_job(serve.MESH["clients"] // MESH_SHARDS),
+        MESH_SHARDS, serve.MESH["chunk"]))
+    wheel = chunk_numpy(mesh_chunk_run(
+        "cpu", mesh_wheel_job(), MESH_WHEEL["shards"],
+        MESH_WHEEL["epochs"]))
+    mc = serve.multichip_row(**MULTICHIP_CUT, device="cpu")
+    outage = serve.cluster_outage(**OUTAGE, device="cpu")
+    torch.save(dict(first=first, wheel=wheel, multichip=mc,
+                    outage=outage), out)
+
+
+def start_mesh_twins(root: str, out: str) -> subprocess.Popen:
+    code = ("import sys\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.mesh_twins({out!r})\n")
+    return _cpu_child(code, out)
+
+
+def _same_numpy(got: dict, want: dict, what: str) -> None:
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: fields {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for k in want:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def _row_line(row: dict) -> str:
+    return (f"{row['dps']:.1f} decisions/s ({row['decisions']} decisions "
+            f"over {row['epochs']} epochs in {row['wall_s']:.6f} s wall); "
+            f"per shard mean {row['dps_per_shard_mean']:.1f}, min "
+            f"{row['dps_per_shard_min']:.1f}, max "
+            f"{row['dps_per_shard_max']:.1f}; counter syncs "
+            f"{row['counter_syncs']}, {row['counter_bytes_per_sync']} "
+            f"bytes a sync, {row['counter_bytes_per_epoch']:.1f} bytes an "
+            f"epoch executed ({row['counter_view_bytes_per_epoch']:.1f} "
+            f"view bytes an epoch), collective skipping "
+            f"{row['collective_skipping']}")
+
+
+def capacity_probe() -> dict:
+    """Phase 22 (f)'s measurement on the card: the growth of the
+    allocator's requested bytes (``requested_bytes.all.current``, the
+    sum of the live allocations' own sizes, whatever blocks earlier
+    phases left cached) over one mesh shard's state, its histograms,
+    ledger and SLO block and one chunk's outputs; beside it the
+    ``memory_allocated`` growth (whole blocks, cached overhead included),
+    the tensors' own bytes and the peak over the chunk."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.engine import stream as tstream
+    from dmclock_tpu_torch.obs import capacity as obscap
+    from dmclock_tpu_torch.obs import histograms as obshist
+    from dmclock_tpu_torch.obs import slo as obsslo
+    from dmclock_tpu_torch.robust.supervisor import _job_state
+
+    c = serve.MESH
+    n = c["clients"] // MESH_SHARDS
+    job = serve.mesh_job(n)
+    draws = torch.from_numpy(np.random.default_rng(5).poisson(
+        2.0, (c["chunk"], n)).astype(np.int32)).cuda()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    req0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    st, h, led, win = (_job_state(job, "cuda"), obshist.hist_zero("cuda"),
+                       obshist.ledger_zero(n, "cuda"),
+                       obsslo.window_zero(n, "cuda"))
+    res = tstream.build_stream_chunk(
+        engine=job.engine, epochs=c["chunk"], m=job.m, k=job.k,
+        dt_epoch_ns=job.dt_epoch_ns, waves=job.waves)(
+            st, 0, draws, hists=h, ledger=led, slo=win)
+    del st, h, led, win
+    gc.collect()
+    torch.cuda.synchronize()
+    return {"grown": torch.cuda.memory_allocated() - base,
+            "requested": torch.cuda.memory_stats()[
+                "requested_bytes.all.current"] - req0,
+            "live": obscap.tree_bytes([res.state, res.outs, res.hists,
+                                       res.ledger, res.slo]),
+            "peak": torch.cuda.max_memory_allocated() - base}
+
+
+def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
+    """Phase 22 (a)-(f) on the card; returns ``(K1 launches by path, K2
+    launches by path)``."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.engine import stream as tstream
+    from dmclock_tpu_torch.obs import capacity as obscap
+    from dmclock_tpu_torch.obs import slo as obsslo
+    from dmclock_tpu_torch.obs.registry import MetricsRegistry
+    from dmclock_tpu_torch.robust import faults as TF
+    from dmclock_tpu_torch.robust.supervisor import _job_state
+
+    t_phase = time.perf_counter()
+    k1, k2 = {}, {}
+    c = serve.MESH
+    n_shard = c["clients"] // MESH_SHARDS
+    epochs_run = (c["warmup_epochs"] // c["chunk"]
+                  + c["epochs"] // c["chunk"]) * c["chunk"]
+
+    def counted(path, fn, want_k1, want_k2=0):
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(ext.LAUNCHES)
+        if got != {"ring_window": want_k1, "wheel_scan": want_k2}:
+            raise AssertionError(f"{path} launched {got}, want K1 "
+                                 f"{want_k1}, K2 {want_k2}")
+        k1[path], k2[path] = want_k1, want_k2
+        log(f"[{path}] {secs:.3f} s; kernel launches {got}")
+        return res
+
+    # (a) the mesh row at bench's shape, counter_sync_every 1 then 4
+    rows = {}
+    for every in (1, 4):
+        path = "mesh" if every == 1 else "mesh_k4"
+        rows[every] = row = counted(
+            path, lambda: serve.mesh_row(
+                c["clients"], n_shards=MESH_SHARDS,
+                counter_sync_every=every, registry=MetricsRegistry(),
+                device="cuda"), MESH_SHARDS * epochs_run)
+        log(f"[{path}] bench's mesh row on {card}: {c['clients']} clients "
+            f"over {row['n_shards']} shards ({row['clients_per_shard']} a "
+            f"shard), counter_sync_every {every}: {_row_line(row)}; "
+            f"per-shard decisions/s {row['dps_per_shard']}")
+    # the views are the counter plane's bookkeeping: the superwave
+    # ingest carries unit rho/delta, so K moves no decision
+    if rows[4]["decisions"] != rows[1]["decisions"]:
+        raise AssertionError(f"mesh_k4: {rows[4]['decisions']} decisions, "
+                             f"K=1 {rows[1]['decisions']}")
+    first = chunk_numpy(mesh_chunk_run(
+        "cuda", serve.mesh_job(n_shard), MESH_SHARDS, c["chunk"]))
+
+    # (b) chaos: the same row with the fault plan inside the chunks
+    spec = TF.parse_fault_spec(MESH_FAULT_SPEC)
+    chaos = counted("mesh_chaos", lambda: serve.mesh_row(
+        c["clients"], n_shards=MESH_SHARDS, fault_spec=spec,
+        registry=MetricsRegistry(), device="cuda"),
+        MESH_SHARDS * epochs_run)
+    ev = TF.plan_shard_events(TF.plan_from_spec(spec, epochs_run,
+                                                MESH_SHARDS))
+    if chaos["fault_dropouts_per_shard"] != \
+            ev["server_dropouts"].tolist() or \
+            chaos["fault_resyncs_per_shard"] != \
+            ev["tracker_resyncs"].tolist() or \
+            chaos["faults_injected_total"] != \
+            int(ev["faults_injected"].sum()):
+        raise AssertionError(f"mesh_chaos: device fault rows "
+                             f"{chaos['fault_dropouts_per_shard']} / "
+                             f"{chaos['fault_resyncs_per_shard']} != plan "
+                             f"{ev}")
+    log(f"[mesh_chaos] {chaos['fault_plan']} on {card}: {_row_line(chaos)};"
+        f" dropouts per shard {chaos['fault_dropouts_per_shard']}, "
+        f"resyncs per shard {chaos['fault_resyncs_per_shard']}, "
+        f"{chaos['faults_injected_total']} faults injected: equal to "
+        f"plan_shard_events")
+
+    # (c) S=1 identity at 100,000 clients against the stream chunk
+    job1 = serve.mesh_job(c["clients"])
+    one = counted("mesh_s1", lambda: chunk_numpy(mesh_chunk_run(
+        "cuda", job1, 1, MESH_S1_EPOCHS)), MESH_S1_EPOCHS)
+    rng = np.random.Generator(np.random.PCG64(serve.MESH_SEED))
+    counts = np.stack([rng.poisson(job1.arrival_lam, (1, job1.n))
+                       .astype(np.int32)[0]
+                       for _ in range(MESH_S1_EPOCHS)])
+    ref = tstream.build_stream_chunk(
+        engine=job1.engine, epochs=MESH_S1_EPOCHS, m=job1.m, k=job1.k,
+        dt_epoch_ns=job1.dt_epoch_ns, waves=job1.waves)(
+            _job_state(job1, "cuda"), 0, torch.from_numpy(counts).cuda(),
+            slo=obsslo.window_zero(job1.n, "cuda"))
+    ref = chunk_numpy(ref)
+    for key, want in ref.items():
+        got = one[key][0]
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"mesh_s1: {key} differs from the "
+                                 "stream chunk")
+    if not np.array_equal(one["slo_merged"], ref["slo"]):
+        raise AssertionError("mesh_s1: slo_merged differs")
+    log(f"[mesh_s1] one mesh chunk of {MESH_S1_EPOCHS} epochs at "
+        f"{c['clients']} clients x 1 shard equals build_stream_chunk on "
+        f"the card field by field ({int(one['outs.count'].sum())} "
+        f"decisions)")
+
+    # (d) the wheel on the mesh: K2 per shard
+    w = MESH_WHEEL
+    per = w["shards"] * w["epochs"] * w["m"]
+    wheel = counted("mesh_wheel", lambda: chunk_numpy(mesh_chunk_run(
+        "cuda", mesh_wheel_job(), w["shards"], w["epochs"])),
+        per * w["levels"], per * (w["levels"] + 1))
+
+    # (e) the cluster dry run (cut) and the outage, on cluster_step
+    mc = counted("multichip", lambda: serve.multichip_row(
+        **MULTICHIP_CUT, device="cuda"), 0)
+    outage = counted("cluster_outage", lambda: serve.cluster_outage(
+        **OUTAGE, device="cuda"), 0)
+
+    # (f) capacity
+    budget = obscap.device_hbm_budget()
+    cap_cfg = dict(ring=c["ring"], engine=c["engine"], m=c["m"], k=c["k"],
+                   telemetry=True, slo=True, stream_chunk=c["chunk"])
+    cap = obscap.plan_capacity(budget, **cap_cfg)
+    plan = serve.plan_mesh_shards(c["clients"], device="cuda")
+    proj = obscap.projected_hbm(n_shard, **cap_cfg)
+    probe = capacity_probe()
+    req = probe["requested"]
+    log(f"[capacity] on {card}: device_hbm_budget {budget} bytes; "
+        f"plan_capacity for the mesh row's shard configuration: "
+        f"max_clients {cap['max_clients']} "
+        f"({cap['bytes_per_client']:.3f} bytes a client, "
+        f"{cap['fixed_bytes']:.1f} fixed); plan_mesh_shards({c['clients']})"
+        f": shards_planned {plan['shards_planned']}; projected_hbm for one "
+        f"shard ({n_shard} clients) {proj} bytes; the allocator's "
+        f"requested bytes grew {req} over its state, accumulators and one "
+        f"chunk's outputs ({req / proj:.4f}x; the live tensors' own bytes "
+        f"{probe['live']}); memory_allocated growth {probe['grown']} "
+        f"({probe['grown'] / proj:.4f}x, cached blocks reused whole), "
+        f"peak {probe['peak']} bytes")
+    if abs(req - proj) > 0.1 * proj:
+        raise AssertionError(f"capacity: projected {proj} bytes, resident "
+                             f"growth {req}: off by more than 10%")
+
+    # the card's runs against the CPU twin
+    want = collect_cpu_twins(twins, twin_path)
+    _same_numpy(first, want["first"], "mesh chunk vs the CPU twin")
+    log(f"[mesh] the first chunk at {MESH_SHARDS} x {n_shard} equals the "
+        f"CPU twin on every field (state, outs, counters, views, "
+        f"slo_merged; {int(first['outs.count'].sum())} decisions)")
+    _same_numpy(wheel, want["wheel"], "mesh_wheel vs the CPU twin")
+    log(f"[mesh_wheel] {w['shards']} x {w['n']} clients, {w['epochs']} "
+        f"epochs: equal to the CPU twin on every field "
+        f"({int(wheel['outs.count'].sum())} decisions)")
+    for a, b in zip(mc["policies"], want["multichip"]["policies"]):
+        if a != b:
+            raise AssertionError(f"multichip {a['tracker']}: {a} != {b}")
+        log(f"[multichip] {a['tracker']} on {card}: {a['servers']} servers"
+            f" x {a['clients']} clients, {a['decisions_per_step']} "
+            f"decisions a step, {a['rounds']} + {a['drain_rounds']} rounds:"
+            f" {a['served']} served, class service {a['class_service']}, "
+            f"drain shares {[round(x, 4) for x in a['weight_shares']]}; "
+            f"digest {a['digest'][:16]} equal to the CPU twin's")
+    _same_numpy({k: v for k, v in outage.items() if isinstance(v, np.ndarray)},
+                {k: v for k, v in want["outage"].items()
+                 if isinstance(v, np.ndarray)}, "cluster_outage")
+    for key in ("digest", "metrics", "served"):
+        if outage[key] != want["outage"][key]:
+            raise AssertionError(f"cluster_outage: {key} differs")
+    log(f"[cluster_outage] single_outage_plan on {card}: {outage['served']}"
+        f" served, dropouts {outage['metrics']['server_dropouts']}, "
+        f"resyncs {outage['metrics']['tracker_resyncs']}: equal to the CPU "
+        f"twin (digest, metrics, views, clocks)")
+    log(f"[time] mesh phase {time.perf_counter() - t_phase:.3f} s")
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2445,7 +2801,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "twins.pt")
         twins = start_cpu_twins(root, out)
-        sup_twin = sim_twins = None
+        sup_twin = sim_twins = mesh_twin = None
         try:
             twin = functools.cache(lambda: collect_cpu_twins(twins, out))
             # both card runs first, so the twins have their time to finish
@@ -2486,8 +2842,13 @@ def main() -> int:
                                                         card)
             dmc = phase_dmc_sim(_ext, card, tmp)
             check_sim_twins(sim_twins, ds_prefix, dmc, card)
+            # phase 22: the multi-server mesh; its CPU twins start first
+            t_mesh = time.perf_counter()
+            mesh_out = os.path.join(tmp, "mesh_twins.pt")
+            mesh_twin = start_mesh_twins(root, mesh_out)
+            mesh_k1, mesh_k2 = phase_mesh(_ext, card, mesh_out, mesh_twin)
         finally:
-            for proc in (twins, sup_twin):
+            for proc in (twins, sup_twin, mesh_twin):
                 if proc is not None:
                     _stop(proc)
             for proc, _ in (sim_twins or {}).values():
@@ -2498,7 +2859,8 @@ def main() -> int:
         f"the queue and push phases {t_churn - t_queue:.3f} s, the churn "
         f"phases {t_sup - t_churn:.3f} s, the supervised phase "
         f"{t_sims - t_sup:.3f} s, the simulators' phase "
-        f"{t_end - t_sims:.3f} s; the whole script "
+        f"{t_mesh - t_sims:.3f} s, the mesh phase {t_end - t_mesh:.3f} s; "
+        f"the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -2509,14 +2871,16 @@ def main() -> int:
                    cfg4_stream=cfg4_stream_k1,
                    churn_flash_crowd=churn_k1, churn_storm=storm_k1,
                    **sup_k1, **{p: n["ring_window"]
-                                for p, n in ds_by_path.items()})
+                                for p, n in ds_by_path.items()},
+                   **{p: n for p, n in mesh_k1.items() if n})
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     # minstop, cfg3, the stream chunks, the queue and churn, and the
     # device sim but for its wheel run launch no K2
     k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2,
                     device_sim_wheel=ds_by_path["device_sim_wheel"][
-                        "wheel_scan"])
+                        "wheel_scan"],
+                    **{p: n for p, n in mesh_k2.items() if n})
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

@@ -3,7 +3,11 @@
 A scheduler has no weights; its "weights carried across" are the SoA
 state.  ``state_from_numpy`` takes a dict of numpy arrays (e.g. the
 JAX package's ``EngineState`` fetched field by field) and builds the
-port's state on ``device``; ``state_to_numpy`` is the inverse.  Dtypes
+port's state on ``device``; ``state_to_numpy`` is the inverse.  Both
+take a stacked ``[S, ...]`` state (a mesh's shards) as well.
+``cluster_from_numpy`` / ``cluster_to_numpy`` carry a whole
+``parallel.cluster.ClusterState`` (stacked engine, ``[S, C]`` tracker of
+either policy, ``[S]`` clocks).  Dtypes
 are kept exactly and checked against the field table (the device sim's
 ``sim.device_sim.device_sim_from_numpy`` reuses the checks).
 """
@@ -53,3 +57,32 @@ def _tensor_from_numpy(a, dtype: torch.dtype, dev: torch.device,
     if t.dtype != dtype:
         raise ValueError(f"{what}: dtype {a.dtype} != {dtype}")
     return t.to(dev)
+
+
+def cluster_from_numpy(arrays, device: str | torch.device = DEFAULT_DEVICE):
+    """A ``ClusterState`` from ``{"engine": {field: array}, "tracker":
+    {field: array}, "now": array}``; the tracker's fields pick its
+    policy (``TrackerState`` or ``BorrowTrackerState``)."""
+    from ..parallel.cluster import ClusterState
+    from ..parallel.tracker import (TRACKER_DTYPES, BorrowTrackerState,
+                                    TrackerState)
+
+    dev = resolve_device(device)
+    trk = arrays["tracker"]
+    cls = BorrowTrackerState if "borrow_delta" in trk else TrackerState
+    _check_fields(trk, cls._fields, "tracker")
+    tracker = cls(**{f: _tensor_from_numpy(
+        trk[f], TRACKER_DTYPES.get(f, torch.int64), dev, f"tracker {f}")
+        for f in cls._fields})
+    return ClusterState(
+        engine=state_from_numpy(arrays["engine"], dev), tracker=tracker,
+        now=_tensor_from_numpy(arrays["now"], torch.int64, dev, "now"))
+
+
+def cluster_to_numpy(cluster) -> dict:
+    """A ``ClusterState`` as ``{"engine": ..., "tracker": ..., "now":
+    ...}`` of host numpy arrays."""
+    return {"engine": state_to_numpy(cluster.engine),
+            "tracker": {f: getattr(cluster.tracker, f).detach().cpu()
+                        .numpy() for f in cluster.tracker._fields},
+            "now": cluster.now.detach().cpu().numpy()}

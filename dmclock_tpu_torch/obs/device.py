@@ -129,6 +129,21 @@ def metrics_delta(*, device: str | torch.device, **rows) -> torch.Tensor:
     return out
 
 
+def metrics_combine_axis(mat: torch.Tensor) -> torch.Tensor:
+    """Reduce a stacked ``[S, NUM_METRICS]`` matrix along its leading
+    axis with the vector's merge (counters add, high-water marks max)."""
+    return torch.where(_hwm_mask(mat.device), mat.max(dim=0).values,
+                       mat.sum(dim=0))
+
+
+def metrics_mesh_reduce(mat: torch.Tensor) -> torch.Tensor:
+    """The JAX package's mesh merge of per-shard metric vectors (counter
+    rows ``psum``, high-water rows ``pmax`` over the servers axis).  On
+    one card the shards are the leading axis of one stacked tensor, so
+    the collective is :func:`metrics_combine_axis` over it."""
+    return metrics_combine_axis(mat)
+
+
 def admission_clamp(counts: torch.Tensor, headroom: torch.Tensor):
     """Clamp per-client arrival counts to ring headroom (the AtLimit
     Reject/EAGAIN analog applied before ``ingest_superwave``); returns
@@ -145,3 +160,44 @@ def metrics_dict(vec) -> dict:
         vec = vec.detach().cpu().numpy()
     v = np.asarray(vec).reshape(-1)
     return {name: int(v[i]) for i, name in enumerate(METRIC_NAMES)}
+
+
+FAULT_FAMILIES = (
+    ("dmclock_fault_server_dropouts_total", MET_SERVER_DROPOUTS,
+     "up -> down shard transitions injected by the fault plan "
+     "(docs/ROBUSTNESS.md 'Degraded-mode mesh')"),
+    ("dmclock_fault_tracker_resyncs_total", MET_TRACKER_RESYNCS,
+     "down -> up restarts that re-synced the shard's held counter "
+     "view / tracker marks from the monotone global counters"),
+    ("dmclock_fault_injected_total", MET_FAULTS_INJECTED,
+     "total injected fault events (dropouts, restarts, delayed "
+     "counters, duplicated completions, nonzero clock skew)"),
+)
+
+
+def publish_shard_faults(registry, per_shard, labels=None) -> None:
+    """Register the ``shard``-labelled ``dmclock_fault_*`` families from
+    a ``[S, NUM_METRICS]`` per-shard metric matrix (or a ``[S, 3]``
+    dropouts/resyncs/injected matrix, e.g. ``robust.faults.
+    plan_shard_events`` stacked column-wise): one gauge per family per
+    shard plus a ``shard="all"`` total."""
+    mat = _np_metrics(per_shard)
+    if mat.ndim != 2:
+        raise ValueError(f"expected a [S, cols] matrix, got {mat.shape}")
+    for j, (name, row, help_text) in enumerate(FAULT_FAMILIES):
+        col = row if mat.shape[1] == NUM_METRICS else j
+        for s in range(mat.shape[0]):
+            registry.gauge(
+                name, help_text,
+                labels={**(labels or {}), "shard": str(s)}
+            ).set(int(mat[s, col]))
+        registry.gauge(
+            name, help_text,
+            labels={**(labels or {}), "shard": "all"}
+        ).set(int(mat[:, col].sum()))
+
+
+def _np_metrics(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.int64)

@@ -11,8 +11,10 @@ shows as a seq gap), ``batch`` (the recording batch's index), ``client``
 (slot), ``cls`` (0 reservation / 1 weight / 2 limit-break), ``tag``
 (unified entry key), ``cost``, ``margin`` (winner margin over the
 runner-up, ns; -1 = none) and ``gate`` (clients queued but limit-blocked
-at the batch's entry).  Unwritten rows carry seq -1.  The stacked
-per-shard variants are for the mesh (ROADMAP.md item 11).
+at the batch's entry).  Unwritten rows carry seq -1.  A mesh chunk
+stacks one ring per shard (``buf`` ``[S, R, COLS]``);
+:func:`flight_merge_stacked` and :func:`flight_drain_stacked` read such
+a stack back in shard order.
 """
 
 from __future__ import annotations
@@ -108,11 +110,49 @@ def flight_drain(fl: FlightState) -> list:
 
 def flight_dump(fl: FlightState, path: str) -> int:
     """Drain the ring to a JSONL file; returns the record count."""
-    records = flight_drain(fl)
+    return _write_jsonl(flight_drain(fl), path)
+
+
+def _write_jsonl(records: list, path: str) -> int:
     with open(path, "w") as fh:
         for rec in records:
             fh.write(json.dumps(rec) + "\n")
     return len(records)
+
+
+def flight_merge_stacked(fl: FlightState):
+    """Shard-order merge of a mesh job's stacked per-shard rings
+    (``buf`` int64[S, R, COLS], ``seq`` int64[S]): each shard's valid
+    rows in its own seq order, shards concatenated 0..S-1.  Returns
+    ``(rows int64[V, COLS], total_seq int)``."""
+    buf = _np64(fl.buf)
+    if buf.ndim != 3:
+        raise ValueError(f"expected a stacked [S, R, COLS] ring, got "
+                         f"{buf.shape}")
+    parts = [_ring_rows(buf[s]) for s in range(buf.shape[0])]
+    merged = np.concatenate(parts, axis=0) if parts else \
+        np.zeros((0, FLIGHT_COLS), dtype=np.int64)
+    return merged, int(_np64(fl.seq).sum())
+
+
+def flight_drain_stacked(fl: FlightState) -> list:
+    """Host drain of a stacked per-shard ring: dict records with a
+    ``shard`` key, in the :func:`flight_merge_stacked` order."""
+    buf = _np64(fl.buf)
+    out = []
+    for s in range(buf.shape[0]):
+        for row in _ring_rows(buf[s]):
+            rec = dict(zip(FLIGHT_FIELDS, (int(x) for x in row)))
+            rec["shard"] = s
+            out.append(rec)
+    return out
+
+
+def flight_dump_any(fl: FlightState, path: str) -> int:
+    """:func:`flight_dump` that takes a single or a stacked ring."""
+    if fl.buf.dim() == 3:
+        return _write_jsonl(flight_drain_stacked(fl), path)
+    return flight_dump(fl, path)
 
 
 def flight_from_arrays(buf, seq, batch, *,

@@ -139,6 +139,13 @@ def hist_fold(h, delta, live):
     return h + torch.where(live, delta, 0)
 
 
+def hist_mesh_reduce(h: torch.Tensor) -> torch.Tensor:
+    """The JAX package's mesh merge of per-shard histogram blocks (one
+    ``psum``: every cell is a counter), over the leading shard axis of
+    a stacked ``[S, NUM_HISTS, NUM_BUCKETS + 1]`` block."""
+    return h.sum(dim=0)
+
+
 def hist_dict(h) -> dict:
     """Name a fetched histogram block (host side): per family the
     bucket counts, count, and sum."""
@@ -232,6 +239,16 @@ def ledger_fold(led, delta, live):
     if live is not True:
         delta = torch.where(live, delta, 0)
     return ledger_combine(led, delta)
+
+
+def ledger_mesh_reduce(led: torch.Tensor) -> torch.Tensor:
+    """The JAX package's mesh merge for replicated client sets (every
+    shard holds rows for the same ``[N]`` clients): counter columns
+    ``psum``, the max column ``pmax``, over the leading shard axis of a
+    stacked ``[S, N, LED_COLS]`` ledger.  Sharded-client layouts
+    concatenate instead."""
+    mask = col_mask(LED_COLS, (LED_TARD_MAX,), led.device)
+    return torch.where(mask, led.max(dim=0).values, led.sum(dim=0))
 
 
 def ledger_combine_np(acc, *ledgers):

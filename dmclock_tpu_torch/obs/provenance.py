@@ -140,6 +140,18 @@ def prov_combine(a: ProvBlock, b: ProvBlock) -> ProvBlock:
                                                b.last_served))
 
 
+def prov_mesh_reduce(p: ProvBlock) -> ProvBlock:
+    """The JAX package's mesh merge for replicated client sets over a
+    stacked block (every leaf with a leading shard axis): histogram and
+    counter rows sum, ``*_MAX`` rows and ``last_served`` max."""
+    mask = obshist.col_mask(PS_FIELDS, _PS_MAX_ROWS, p.scal.device)
+    return ProvBlock(
+        margin_hist=p.margin_hist.sum(dim=0),
+        scal=torch.where(mask, p.scal.max(dim=0).values,
+                         p.scal.sum(dim=0)),
+        last_served=p.last_served.max(dim=0).values)
+
+
 def prov_from_arrays(margin_hist, scal, last_served, *,
                      device: str | torch.device = DEFAULT_DEVICE
                      ) -> ProvBlock:
@@ -269,6 +281,46 @@ def pressure_vec(engine_state, now) -> torch.Tensor:
     return torch.stack([elig, backlog, elig, wait])
 
 
+_PRESS_MAX_ROWS = (PRESS_ELIG_PEAK, PRESS_WAIT_WM)
+
+
+def pressure_combine_axis(mat: torch.Tensor) -> torch.Tensor:
+    """Reduce stacked ``[S, PRESS_FIELDS]`` vectors along the leading
+    axis (counters add, peaks max)."""
+    mask = obshist.col_mask(PRESS_FIELDS, _PRESS_MAX_ROWS, mat.device)
+    return torch.where(mask, mat.max(dim=0).values, mat.sum(dim=0))
+
+
+def pressure_mesh_reduce(mat: torch.Tensor) -> torch.Tensor:
+    """The JAX package's mesh merge of per-shard pressure vectors
+    (counters ``psum``, peaks ``pmax``): on one card,
+    :func:`pressure_combine_axis` over the stacked shards."""
+    return pressure_combine_axis(mat)
+
+
 def pressure_dict(vec) -> dict:
     v = obshist._np64(vec).reshape(-1)
     return {name: int(v[i]) for i, name in enumerate(PRESS_NAMES)}
+
+
+def publish_shard_pressure(registry, per_shard, merged=None) -> None:
+    """Publish a ``[S, PRESS_FIELDS]`` per-shard matrix (plus the
+    optional merged total) as ``dmclock_shard_pressure_*`` gauges
+    labelled by shard."""
+    mat = obshist._np64(per_shard)
+    if mat.ndim == 1:
+        mat = mat[None]
+    for s in range(mat.shape[0]):
+        for i, name in enumerate(PRESS_NAMES):
+            registry.gauge(
+                f"dmclock_shard_pressure_{name}",
+                "per-shard scheduling pressure (provenance plane; "
+                "docs/OBSERVABILITY.md)",
+                labels={"shard": str(s)}).set(float(mat[s, i]))
+    if merged is not None:
+        vec = obshist._np64(merged).reshape(-1)
+        for i, name in enumerate(PRESS_NAMES):
+            registry.gauge(
+                f"dmclock_shard_pressure_{name}",
+                "mesh-merged scheduling pressure (provenance plane)",
+                labels={"shard": "all"}).set(float(vec[i]))

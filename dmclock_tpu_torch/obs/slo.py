@@ -86,6 +86,21 @@ def window_fold(w, delta, live):
     return window_combine(w, delta)
 
 
+def window_combine_axis(mat: torch.Tensor) -> torch.Tensor:
+    """Reduce a stacked ``[S, N, W_FIELDS]`` block along its leading
+    shard axis (counter columns sum, the contract-epoch column max)."""
+    mask = col_mask(W_FIELDS, (W_CEPOCH,), mat.device)
+    return torch.where(mask, mat.max(dim=0).values, mat.sum(dim=0))
+
+
+def window_mesh_reduce(mat: torch.Tensor) -> torch.Tensor:
+    """The JAX package's mesh merge of per-shard window blocks (counter
+    columns ``psum``, the contract-epoch column ``pmax``; every shard
+    stamps the same epochs).  On one card the shards are the leading
+    axis of one stacked block, so it is :func:`window_combine_axis`."""
+    return window_combine_axis(mat)
+
+
 def window_combine_np(acc, *blocks):
     """Host-side mirror of :func:`window_combine` over numpy blocks."""
     acc = _np64(acc)
@@ -93,6 +108,35 @@ def window_combine_np(acc, *blocks):
         b = _np64(b)
         acc = np.where(_W_MAX_MASK, np.maximum(acc, b), acc + b)
     return acc
+
+
+def publish_shard_windows(registry, blocks, merged=None,
+                          workload: Optional[str] = None) -> None:
+    """Publish per-shard window-block totals as ``dmclock_slo_window_*``
+    gauges labelled by ``shard``, plus the merged cluster total under
+    ``shard="all"``.  ``blocks`` is ``[S, N, W_FIELDS]`` (stacked) or an
+    iterable of per-shard blocks; ``merged`` defaults to the host
+    combine of the shards."""
+    blocks = [_np64(b) for b in blocks]
+    if merged is None and blocks:
+        merged = window_combine_np(np.zeros_like(blocks[0]), *blocks)
+
+    def emit(block, shard: str) -> None:
+        labels = {"shard": shard}
+        if workload is not None:
+            labels["workload"] = workload
+        for name, val in window_totals(block).items():
+            registry.gauge(
+                f"dmclock_slo_window_{name}",
+                "cluster-wide windowed conformance column, per shard "
+                "(docs/OBSERVABILITY.md SLO plane; shard=all is the "
+                "window_mesh_reduce merge)",
+                labels=labels).set(float(val))
+
+    for s, block in enumerate(blocks):
+        emit(block, str(s))
+    if merged is not None:
+        emit(_np64(merged), "all")
 
 
 def stamp_cepoch(block: torch.Tensor, cepochs) -> torch.Tensor:

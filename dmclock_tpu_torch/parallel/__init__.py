@@ -7,8 +7,9 @@ The reference's entire inter-node mechanism is four piggybacked scalars:
 completion counters per server.  ``parallel.tracker`` keeps the same
 contract on tensors: per-(server, client) counters on a leading server
 axis, the global counters a sum over it (the JAX package's ``psum`` over
-its mesh; the mesh itself, ``parallel/cluster.py`` and
-``parallel/mesh.py``, is not ported yet).
+its mesh).  ``parallel.cluster`` is the multi-server cluster on the
+serial engine and ``parallel.mesh`` the mesh serving plane's fused
+chunk, both with the servers stacked on one card.
 """
 
 from .tracker import (BorrowTrackerState, TrackerState,

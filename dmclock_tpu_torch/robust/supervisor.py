@@ -132,9 +132,9 @@ class EpochJob:
     #                                 checkpoint commits
     with_prov: bool = False         # the provenance block
     # "round": ingest and one guarded epoch per epoch; "stream": one
-    # fused chunk per checkpoint interval; "mesh" is ROADMAP.md item 11
+    # fused chunk per checkpoint interval; "mesh" is ROADMAP.md item 11b
     engine_loop: str = "round"
-    # mesh-only knobs (ROADMAP.md item 11), kept for the JSON
+    # mesh-only knobs (ROADMAP.md item 11b), kept for the JSON
     n_shards: int = 1
     counter_sync_every: int = 1
     placement: object = "static"
@@ -247,19 +247,21 @@ def _check_job(job: EpochJob) -> None:
 
     if job.engine_loop == "mesh":
         raise NotImplementedError(
-            "EpochJob(engine_loop='mesh') is the mesh serving plane, "
-            "ROADMAP.md item 11: not ported yet")
+            "EpochJob(engine_loop='mesh') is the supervised mesh "
+            "(ROADMAP.md item 11b): not ported yet; the mesh chunk "
+            "itself is parallel.mesh")
     if job.engine_loop not in ("round", "stream"):
         raise ValueError(f"unknown engine_loop {job.engine_loop!r} "
                          "(one of 'round', 'stream')")
     if job.fault_plan is not None:
         raise ValueError(
-            "EpochJob(fault_plan=...) is the in-chunk mesh fault model "
-            "(engine_loop='mesh', ROADMAP.md item 11): not ported yet")
+            "EpochJob(fault_plan=...) is the supervised mesh's fault "
+            "model (engine_loop='mesh', ROADMAP.md item 11b): not ported "
+            "yet")
     if parse_placement(job.placement)[0] != "static":
         raise ValueError(
             "EpochJob(placement='p2c') is the mesh churn placement "
-            "plane (ROADMAP.md item 11): not ported yet")
+            "plane (ROADMAP.md item 11b): not ported yet")
     if job.controller not in (None, False):
         raise NotImplementedError(
             "EpochJob(controller=...) is the closed-loop controller, "

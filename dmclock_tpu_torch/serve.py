@@ -48,6 +48,15 @@ embedding, or the pull queue, behind a simulated server.
 guarded prefix epochs (m=4, k=256, ring 32) with the admin API on a
 live HTTP endpoint and a real ``PUT /clients/{id}/qos`` halfway.
 
+``mesh_row`` is bench's ``mesh`` row: 100,000 clients over S shards
+stacked on one card (``parallel.mesh``), each a full prefix engine on
+its own partition, coordinated by the delta/rho counter sum at epoch
+boundaries; ``fault_spec`` makes it a chaos run.  ``multichip_row`` is
+the cluster dry run (``__graft_entry__.dryrun_multichip``) on
+``parallel.cluster.cluster_step`` under both trackers, with its QoS
+assertions; ``cluster_outage`` runs ``robust_cluster_step`` under a
+single outage.
+
 Run it (on the card; ``--device cpu`` for a small CPU run)::
 
     python -m dmclock_tpu_torch.serve --n 100000 --epochs 3
@@ -62,6 +71,10 @@ Run it (on the card; ``--device cpu`` for a small CPU run)::
     python -m dmclock_tpu_torch.serve --workload churn
     python -m dmclock_tpu_torch.serve --workload churn --n 512 \
         --epochs 32 --k 64 --device cpu
+    python -m dmclock_tpu_torch.serve --workload mesh --n-shards 8
+    python -m dmclock_tpu_torch.serve --workload mesh --n-shards 4 \
+        --clients 2048 --device cpu
+    python -m dmclock_tpu_torch.serve --workload multichip
 """
 
 from __future__ import annotations
@@ -94,6 +107,7 @@ from .engine.stream import STREAM_OUT_FIELDS, build_stream_chunk, ingest_step
 from .lifecycle import (LifecyclePlane, SlotMap, lam_vector, make_spec,
                         mount_admin_api, static_variant)
 from .lifecycle.plane import canon_results
+from .obs import capacity as obscap
 from .obs import device as obsdev
 from .obs import histograms as obshist
 from .obs import provenance as obsprov
@@ -1125,9 +1139,11 @@ def churn_row(scenario: str = "flash_crowd", *,
     HTTP or, when the bind failed, in process); the conformance table
     reports delivered shares in the windows before and after it.
 
-    The loop is bench's, line for line, and so are the output keys,
-    but for the capacity record (``_capacity_row``: no capacity plane
-    in the port).  ``slo`` (bench's default ``--slo on``) rolls the SLO
+    The loop is bench's, line for line, and so are the output keys;
+    the capacity record (``obs.capacity.capacity_row``) has bench's
+    ``projected_hbm_bytes`` but not its compile-plane fields (nothing
+    is compiled per shape) or its roofline verdict (no row of the port
+    records operation counts).  ``slo`` (bench's default ``--slo on``) rolls the SLO
     windows on the boundary grid and judges them with the burn-rate
     evaluator.  Added: ``digest``, the canonical client-id-space chain
     digest of the decisions (taken after the timed loop, from the
@@ -1321,15 +1337,512 @@ def churn_row(scenario: str = "flash_crowd", *,
         digest = digest_update(digest,
                                canon_results(fields, view, total_ids))
     out["digest"] = hashlib.sha256(digest).hexdigest()
+    # the capacity record: the open population sized for the full id
+    # space landing at once, lifecycle slot map included
+    obscap.capacity_row(out, dict(n=total_ids, ring=ring, engine=engine,
+                                  m=m, k=k, telemetry=True, slo=slo,
+                                  lifecycle=True))
     return out
 
+
+
+# ----------------------------------------------------------------------
+# the mesh row (bench.py --mode mesh) and the cluster dry run
+# ----------------------------------------------------------------------
+
+# bench's mesh row shape (bench_mesh): 100,000 clients, the prefix
+# engine at m=4, k=256, ring 16 preloaded 12 deep, Poisson(2) in 4
+# waves, 100 ms epochs, chunks of 8; 8 warm epochs, 24 timed
+MESH = dict(clients=100_000, engine="prefix", epochs=24, warmup_epochs=8,
+            chunk=8, m=4, k=256, ring=16, depth=12, arrival_lam=2.0,
+            waves=4, dt_epoch_ns=10 ** 8)
+MESH_SEED = 29       # bench_mesh's arrival RNG (PCG64)
+
+
+def mesh_job(n: int, **over):
+    """The mesh row's per-shard job (bench_mesh's ``EpochJob``): the
+    ``MESH`` shape at ``n`` clients a shard, ``over`` replacing fields.
+    Its ``_job_state`` is every shard's starting state."""
+    from .robust.supervisor import EpochJob
+
+    kw = dict(engine=MESH["engine"], n=n, depth=MESH["depth"],
+              ring=MESH["ring"], m=MESH["m"], k=MESH["k"],
+              arrival_lam=MESH["arrival_lam"], waves=MESH["waves"],
+              dt_epoch_ns=MESH["dt_epoch_ns"])
+    kw.update(over)
+    return EpochJob(**kw)
+
+
+def mesh_start(job, n_shards: int, device):
+    """``(state, cd, cr, view_d, view_r, slo)``: ``job``'s preloaded
+    state stacked ``n_shards`` times, the counter plane at the protocol
+    origin and a zero SLO window block, on ``device``."""
+    from .parallel import mesh as mesh_mod
+    from .robust.supervisor import _job_state
+
+    state = mesh_mod.stack_shards(_job_state(job, device), n_shards)
+    return (state,) + mesh_mod.counter_init(n_shards, job.n,
+                                            device=device) \
+        + (mesh_mod.stack_shards(obsslo.window_zero(job.n, device),
+                                 n_shards),)
+
+
+def mesh_draws(rng: np.random.Generator, n_shards: int, n: int,
+               epochs: int, lam: float, device) -> torch.Tensor:
+    """``epochs`` epochs of the mesh row's Poisson arrivals, drawn
+    ``[S, n]`` an epoch as bench draws them, as int32 ``[S, E, n]`` on
+    ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(np.swapaxes(np.stack(
+        [rng.poisson(lam, (n_shards, n)).astype(np.int32)
+         for _ in range(epochs)]), 0, 1))).to(device)
+
+
+def plan_mesh_shards(clients: int, n_shards=None, *, ring: int = 16,
+                     engine: str = "prefix", m: int = 4, k: int = 256,
+                     telemetry: bool = True, slo: bool = True,
+                     stream_chunk: int = 8,
+                     device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Shard planning for the mesh row (bench.py ``plan_mesh_shards``):
+    without ``n_shards`` the count comes from the client target by
+    inverting the capacity ledger against the card's budget
+    (``obs.capacity.plan_capacity`` over ``device_hbm_budget``).  The
+    shards share one card, so an explicit ``n_shards`` is not capped at
+    a device count; ``over_budget`` is set as bench sets it, when a
+    shard's partition exceeds the planned per-shard maximum.  Without a
+    budget (the CPU) and without ``n_shards``, one shard."""
+    cap_cfg = dict(ring=ring, engine=engine, m=m, k=k,
+                   telemetry=telemetry, slo=slo,
+                   stream_chunk=stream_chunk)
+    budget = obscap.device_hbm_budget(resolve_device(device))
+    shards_planned = max_per_shard = None
+    if budget is not None:
+        cap = obscap.plan_capacity(budget, **cap_cfg)
+        max_per_shard = max(int(cap["max_clients"]), 1)
+        shards_planned = max(1, -(-int(clients) // max_per_shard))
+    eff = int(n_shards) if n_shards else (shards_planned or 1)
+    per_shard = -(-int(clients) // eff)
+    plan = {
+        "clients_total": int(clients),
+        "n_shards": eff,
+        "clients_per_shard": per_shard,
+        "shards_planned": shards_planned,
+        "max_clients_per_shard": max_per_shard,
+        "hbm_budget_bytes": budget,
+        "projected_hbm_bytes_per_shard":
+            int(obscap.projected_hbm(per_shard, **cap_cfg)),
+    }
+    if max_per_shard is not None and per_shard > max_per_shard:
+        plan["over_budget"] = True
+    return plan
+
+
+def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
+             counter_sync_every: int = 1, engine: str = MESH["engine"],
+             epochs: int = MESH["epochs"],
+             warmup_epochs: int = MESH["warmup_epochs"],
+             chunk: int = MESH["chunk"], m: int = MESH["m"],
+             k: int = MESH["k"], ring: int = MESH["ring"],
+             depth: int = MESH["depth"],
+             arrival_lam: float = MESH["arrival_lam"],
+             waves: int = MESH["waves"],
+             dt_epoch_ns: int = MESH["dt_epoch_ns"],
+             with_metrics: bool = True, slo: bool = True, tracer=None,
+             fault_spec=None, registry=None,
+             device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Bench's mesh row (bench.py ``bench_mesh``): S full per-shard
+    engines, each one server owning a distinct ``clients / S``
+    partition with its own queue state and Poisson arrival stream,
+    advance whole chunks of fused ingest + serve epochs
+    (``parallel.mesh``) with the ``[clients / S]``-sized delta/rho
+    counter sum at epoch boundaries (views refresh on the
+    ``counter_sync_every`` grid).  The chunks are bench's: warm chunks
+    untimed, then every timed chunk's draws (and fault slices) made and
+    put on the card before the clock starts, the chunks chained, one
+    synchronize at the end.
+
+    ``fault_spec`` (a parsed ``robust.faults.parse_fault_spec`` dict)
+    makes it a chaos run: one plan over every epoch (warm ones too)
+    runs inside the chunks, and the row records the plan tag and the
+    per-shard dropout and resync counts read off the device metric rows
+    (their totals equal ``plan_events``).  The row's keys are bench's;
+    ``registry`` (default: the process registry) gets the per-shard
+    window and fault gauges."""
+    from .obs.registry import default_registry
+    from .parallel import mesh as mesh_mod
+    from .parallel import tracker as trk
+    from .robust import faults as faults_mod
+
+    dev = resolve_device(device)
+    plan = plan_mesh_shards(clients, n_shards, ring=ring, engine=engine,
+                            m=m, k=k, slo=slo, stream_chunk=chunk,
+                            device=dev)
+    S = plan["n_shards"]
+    n = plan["clients_per_shard"]
+    every = int(max(counter_sync_every, 1))
+    if plan.pop("over_budget", False):
+        return {"workload": "mesh", "engine": engine,
+                "engine_loop": "mesh", "dps": 0.0, "decisions": 0,
+                "capacity_skipped": True,
+                "projected_hbm_bytes":
+                    plan["projected_hbm_bytes_per_shard"],
+                "counter_sync_every": every,
+                **{key: val for key, val in plan.items()
+                   if val is not None}}
+    job = mesh_job(n, engine=engine, depth=depth, ring=ring, m=m, k=k,
+                   arrival_lam=arrival_lam, waves=waves,
+                   dt_epoch_ns=dt_epoch_ns)
+    mesh = mesh_mod.make_mesh(S, dev)
+    state, cd, cr, vd, vr, wblock = mesh_start(job, S, dev)
+    warm_chunks = max(1, warmup_epochs // chunk)
+    n_chunks = max(1, epochs // chunk)
+    fplan = None
+    if fault_spec is not None:
+        fplan = faults_mod.plan_from_spec(
+            fault_spec, (warm_chunks + n_chunks) * chunk, S)
+    # chunks start at multiples of chunk, so chunk % K == 0 keeps every
+    # group head on the sync grid
+    skipping = fplan is None and every > 1 and chunk % every == 0
+    fn = mesh_mod.build_mesh_chunk(
+        mesh, engine=engine, epochs=chunk, m=m, k=k,
+        dt_epoch_ns=dt_epoch_ns, waves=waves, with_metrics=with_metrics,
+        counter_sync_every=counter_sync_every, ingest=True,
+        with_faults=fplan is not None, collective_skipping=skipping)
+    rng = np.random.Generator(np.random.PCG64(MESH_SEED))
+
+    def draw(e):
+        return mesh_draws(rng, S, n, e, arrival_lam, dev)
+
+    def fault_chunk(e0):
+        if fplan is None:
+            return None
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in faults_mod.plan_chunk(fplan, e0, e0 + chunk))
+
+    fault_mets = []
+
+    def launch(out, e0, counts, fc):
+        with obsspans.span(tracer, "mesh.bench_chunk", "dispatch",
+                           epoch0=e0, shards=S, chaos=fplan is not None):
+            out = fn(out.state, out.cd, out.cr, out.view_d, out.view_r,
+                     e0, counts, None, None, out.slo, None, None, fc)
+        if fplan is not None:
+            fault_mets.append(out.outs["metrics"])
+        return out
+
+    out = mesh_mod.MeshChunk(state=state, outs={}, cd=cd, cr=cr,
+                             view_d=vd, view_r=vr, slo=wblock)
+    e0 = 0
+    for _ in range(warm_chunks):
+        out = launch(out, e0, draw(chunk), fault_chunk(e0))
+        e0 += chunk
+    pregen = [(draw(chunk), fault_chunk(e0 + i * chunk))
+              for i in range(n_chunks)]
+    _sync(dev)
+    timed = []
+    t0 = time.perf_counter()
+    for counts_c, fc in pregen:
+        out = launch(out, e0, counts_c, fc)
+        timed.append(out.outs["count"])
+        e0 += chunk
+    _sync(dev)
+    wall = time.perf_counter() - t0
+
+    per_shard = np.zeros(S, dtype=np.int64)
+    for counts_arr in timed:
+        per_shard += counts_arr.cpu().numpy().reshape(S, -1).sum(axis=1)
+    total = int(per_shard.sum())
+    shard_dps = per_shard / wall
+    sched = trk.exchange_schedule(n_chunks * chunk, counter_sync_every,
+                                  start=warm_chunks * chunk)
+    bytes_per_sync = trk.counter_view_bytes(n)
+    row = {
+        "workload": "mesh", "engine": engine, "engine_loop": "mesh",
+        "dps": total / wall,
+        "dps_per_shard_mean": float(shard_dps.mean()),
+        "dps_per_shard_min": float(shard_dps.min()),
+        "dps_per_shard_max": float(shard_dps.max()),
+        "dps_per_shard": [float(x) for x in shard_dps],
+        "decisions": total, "wall_s": wall,
+        "epochs": n_chunks * chunk, "stream_chunk": chunk,
+        "counter_sync_every": every,
+        "counter_syncs": sched["syncs"],
+        "counter_bytes_per_sync": bytes_per_sync,
+        "collective_skipping": bool(skipping),
+        # with collective skipping the sum runs once per K-epoch group
+        "counter_bytes_per_epoch":
+            float(bytes_per_sync / every if skipping else bytes_per_sync),
+        "counter_view_bytes_per_epoch":
+            bytes_per_sync * sched["syncs"] / max(sched["epochs"], 1),
+        **{key: val for key, val in plan.items() if val is not None},
+    }
+    reg = registry if registry is not None else default_registry()
+    row["fault_plan"] = faults_mod.describe(fplan)
+    if fplan is not None:
+        mets = np.zeros((S, obsdev.NUM_METRICS), dtype=np.int64)
+        for mchunk in fault_mets:
+            a = mchunk.cpu().numpy()
+            for s in range(S):
+                mets[s] = obsdev.metrics_combine_np(mets[s], *a[s])
+        row["fault_dropouts_per_shard"] = [
+            int(x) for x in mets[:, obsdev.MET_SERVER_DROPOUTS]]
+        row["fault_resyncs_per_shard"] = [
+            int(x) for x in mets[:, obsdev.MET_TRACKER_RESYNCS]]
+        row["faults_injected_total"] = int(
+            mets[:, obsdev.MET_FAULTS_INJECTED].sum())
+        obsdev.publish_shard_faults(reg, mets,
+                                    labels={"workload": "mesh"})
+    obsslo.publish_shard_windows(reg, out.slo.cpu().numpy(),
+                                 merged=out.slo_merged.cpu().numpy(),
+                                 workload="mesh")
+    return row
+
+
+def _multichip_qos(n_clients: int, n_servers: int):
+    """The dry run's contracts: reservation 1 op/s, weights 1:2:3 by
+    slot, no limit, costs 1 + slot % 2, and the staggered tag phases."""
+    rinv = np.full(n_clients, rate_to_inv_ns(1.0), dtype=np.int64)
+    winv = np.asarray([rate_to_inv_ns(1.0 + (i % 3))
+                       for i in range(n_clients)], dtype=np.int64)
+    costs = np.asarray([1 + (i % 2) for i in range(n_clients)],
+                       dtype=np.int64)
+    phase = ((np.arange(n_clients) * 2654435761) & 0xFFFFF) \
+        / float(1 << 20)
+    return rinv, winv, costs, phase
+
+
+def multichip_cluster(n_servers: int, n_clients: int, tracker_kind: str,
+                      device: str | torch.device = DEFAULT_DEVICE):
+    """The dry run's cluster (``__graft_entry__._dryrun_policy``): every
+    server installs the same population, the clock starts at 1 s, and
+    every client's previous tags are staggered across its own serve
+    period.  Returns ``(mesh, cluster, costs)``."""
+    from .parallel import cluster as CL
+
+    dev = resolve_device(device)
+    mesh = CL.make_mesh(n_servers, dev)
+    cl = CL.init_cluster(n_servers, n_clients, tracker_kind=tracker_kind,
+                         device=dev)
+    rinv, winv, costs, phase = _multichip_qos(n_clients, n_servers)
+    cl = CL.install_clients(cl, rinv, winv,
+                            np.zeros(n_clients, dtype=np.int64))
+    t0 = 10 ** 9
+    u_est = n_servers + 1.5
+    stag_w = (phase * 2.0 * winv * u_est).astype(np.int64)
+    per_r = (rinv * u_est).astype(np.int64)
+    stag_r = (phase * per_r).astype(np.int64)
+
+    def bcast(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(a, (n_servers,) + np.shape(a)))).to(dev)
+
+    cl = cl._replace(
+        engine=cl.engine._replace(prev_prop=bcast(t0 + stag_w),
+                                  prev_resv=bcast(t0 - per_r + stag_r)),
+        now=torch.full((n_servers,), t0, dtype=torch.int64, device=dev))
+    return mesh, CL.shard_cluster(cl, mesh), costs
+
+
+def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
+                     tracker_kind: str = "orig", *, warmup: int = 2,
+                     rounds: int = 6, decisions_per_step: int = 1024,
+                     max_arrivals: int = 3, drain_rounds: int = 4,
+                     check_qos: bool = True,
+                     device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """One accounting policy of the cluster dry run
+    (``__graft_entry__._dryrun_policy``) on ``cluster_step``: a closed
+    loop of ``warmup + rounds`` rounds (every completion triggers the
+    client's next request to that server, windows of 4), then a deep
+    preloaded backlog drained with no arrivals.  ``check_qos`` runs the
+    dry run's assertions: a mostly busy cluster, every class's service
+    over its reservation floor, a pure weight-phase drain and
+    cost-weighted drain shares within 10% of 1:2:3 (they need the dry
+    run's depth).  Returns the served totals, the class service, the
+    shares and ``digest``, the ``robust.cluster.decision_digest`` of
+    every round's decisions."""
+    from .parallel import cluster as CL
+    from .robust.cluster import decision_digest
+
+    mesh, cl, costs = multichip_cluster(n_servers, n_clients,
+                                        tracker_kind, device)
+    dev = cl.now.device
+    k = decisions_per_step
+    dt_round = 50_000_000
+    _, winv, _, phase = _multichip_qos(n_clients, n_servers)
+
+    def step(cl, arr):
+        cl, decs = CL.cluster_step(
+            cl, arr, costs, mesh, decisions_per_step=k,
+            max_arrivals=max_arrivals, advance_ns=dt_round)
+        return cl, CL.decisions_to_numpy(decs)
+
+    total = 0
+    class_of = np.arange(n_clients) % 3
+    resv_by_class = np.zeros(3, dtype=np.int64)
+    prio_by_class = np.zeros(3, dtype=np.int64)
+    outstanding = 4
+    arrivals_np = np.full((n_servers, n_clients), outstanding,
+                          dtype=np.int64)
+    owed = np.zeros((n_servers, n_clients), dtype=np.int64)
+    seq = []
+    for r in range(warmup + rounds):
+        send = np.minimum(arrivals_np + owed, max_arrivals)
+        owed = arrivals_np + owed - send
+        cl, decs = step(cl, send.astype(np.int32))
+        seq.append(decs)
+        served = int((decs.type == 0).sum())
+        if check_qos and served <= 0.6 * n_servers * k:
+            raise AssertionError(
+                f"round {r}: {served} served of {n_servers * k} slots: "
+                "the load should keep the cluster mostly busy")
+        total += served
+        arrivals_np = np.zeros((n_servers, n_clients), dtype=np.int64)
+        for s in range(n_servers):
+            np.add.at(arrivals_np[s], decs.slot[s][decs.type[s] == 0], 1)
+        if r < warmup:
+            continue
+        mask = decs.type == 0
+        cls = class_of[decs.slot[mask]]
+        ph = decs.phase[mask]
+        np.add.at(resv_by_class, cls[ph == 0], 1)
+        np.add.at(prio_by_class, cls[ph == 1], 1)
+    backlog = int(cl.engine.depth.sum())
+    t_virtual = rounds * dt_round / 1e9
+    floor_per_class = (n_clients / 3) * 1.0 * t_virtual
+    total_by_class = resv_by_class + prio_by_class
+    if check_qos:
+        if backlog <= 0:
+            raise AssertionError("expected residual backlog")
+        if not (resv_by_class.sum() > 0 and prio_by_class.sum() > 0):
+            raise AssertionError(f"both phases must be exercised: "
+                                 f"resv={resv_by_class} "
+                                 f"prio={prio_by_class}")
+        if not np.all(total_by_class >= 0.8 * floor_per_class):
+            raise AssertionError(
+                f"reservation floors violated: {total_by_class.tolist()}"
+                f" < {floor_per_class:.0f} per class")
+
+    # the contended backlog: uniform deltas, staggered tag phases, no
+    # arrivals; cost-weighted service per class must split 1:2:3
+    depth0 = 16
+    ring = cl.engine.q_arrival.shape[-1]
+    q_arr = np.zeros((n_clients, ring), dtype=np.int64)
+    q_arr[:, :depth0 - 1] = np.tile(np.arange(1, depth0), (n_clients, 1))
+    adv = winv * (1 + costs)
+    stag = (phase * 2.0 * adv).astype(np.int64)
+    t1 = int(cl.now.max()) + 10 ** 9
+
+    def bcast(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(a, (n_servers,) + np.shape(a)))).to(dev)
+
+    i64 = np.int64
+    eng = cl.engine._replace(
+        idle=bcast(np.zeros(n_clients, dtype=bool)),
+        head_resv=bcast(np.full(n_clients, 1 << 60, dtype=i64)),
+        prev_resv=bcast(np.full(n_clients, 1 << 60, dtype=i64)),
+        head_prop=bcast(t1 + stag), prev_prop=bcast(t1 + stag),
+        head_limit=bcast(np.full(n_clients, -(1 << 62), dtype=i64)),
+        head_arrival=bcast(np.full(n_clients, t1, dtype=i64)),
+        head_cost=bcast(costs), head_rho=bcast(np.ones(n_clients, i64)),
+        head_ready=bcast(np.zeros(n_clients, dtype=bool)),
+        cur_rho=bcast(np.ones(n_clients, i64)),
+        cur_delta=bcast(np.ones(n_clients, i64)),
+        depth=bcast(np.full(n_clients, depth0, dtype=np.int32)),
+        q_head=bcast(np.zeros(n_clients, dtype=np.int32)),
+        q_arrival=bcast(q_arr),
+        q_cost=bcast(np.tile(costs[:, None], (1, ring))))
+    cl = cl._replace(engine=eng, now=torch.full(
+        (n_servers,), t1, dtype=torch.int64, device=dev))
+    cost_units = np.zeros(3, dtype=np.int64)
+    zero_arr = np.zeros((n_servers, n_clients), dtype=np.int32)
+    for _ in range(drain_rounds):
+        cl, decs = step(cl, zero_arr)
+        seq.append(decs)
+        m = decs.type == 0
+        if check_qos and not (decs.phase[m] == 1).all():
+            raise AssertionError("drain phase must be pure weight-phase "
+                                 "service")
+        np.add.at(cost_units, class_of[decs.slot[m]], decs.cost[m])
+    w = np.array([1.0, 2.0, 3.0])
+    u_share = cost_units / max(cost_units.sum(), 1)
+    expect = w / w.sum()
+    if check_qos and not np.all(np.abs(u_share - expect) < 0.10 * expect):
+        raise AssertionError(f"weight shares violated: "
+                             f"{u_share.tolist()} vs 1:2:3")
+    return {"tracker": tracker_kind, "servers": n_servers,
+            "clients": n_clients, "decisions_per_step": k,
+            "rounds": warmup + rounds, "drain_rounds": drain_rounds,
+            "served": total, "backlog": backlog,
+            "class_service": total_by_class.tolist(),
+            "floor_per_class": floor_per_class,
+            "cost_units": cost_units.tolist(),
+            "weight_shares": u_share.tolist(),
+            "qos_checked": bool(check_qos),
+            "digest": decision_digest(seq)}
+
+
+def multichip_row(n_servers: int = 8, n_clients: int = 10_000, *,
+                  tracker_kinds=("orig", "borrowing"), **kw) -> dict:
+    """The cluster dry run (``__graft_entry__.dryrun_multichip``) under
+    both accounting policies, OrigTracker and BorrowingTracker: one
+    :func:`multichip_policy` record per policy."""
+    return {"workload": "multichip", "servers": n_servers,
+            "clients": n_clients,
+            "policies": [multichip_policy(n_servers, n_clients, kind,
+                                          **kw)
+                         for kind in tracker_kinds]}
+
+
+def cluster_outage(n_servers: int = 8, n_clients: int = 10_000, *,
+                   steps: int = 3, decisions_per_step: int = 64,
+                   server: int = 1, down_from: int = 1,
+                   down_until: int = 2,
+                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """``robust_cluster_step`` on the dry run's cluster under a
+    ``single_outage_plan`` (``server`` down for ``[down_from,
+    down_until)``), each server sent a window of 4 a step: the decision
+    digest, the merged metrics, and the final held views and clocks as
+    host numpy."""
+    from .robust import cluster as RC
+    from .robust import faults as faults_mod
+
+    mesh, cl, costs = multichip_cluster(n_servers, n_clients, "orig",
+                                        device)
+    plan = faults_mod.single_outage_plan(
+        steps, n_servers, server=server, down_from=down_from,
+        down_until=down_until)
+    arrivals = np.full((steps, n_servers, n_clients), 4, dtype=np.int32)
+    rc, seq = RC.run_with_plan(
+        RC.init_robust(cl), arrivals, costs, mesh, plan,
+        decisions_per_step=decisions_per_step, max_arrivals=3,
+        advance_ns=50_000_000)
+    return {"digest": RC.decision_digest(seq),
+            "metrics": RC.metrics_totals(rc),
+            "events": faults_mod.plan_events(plan),
+            "view_delta": rc.view_delta.cpu().numpy(),
+            "view_rho": rc.view_rho.cpu().numpy(),
+            "now": rc.cluster.now.cpu().numpy(),
+            "served": int(sum((d.type == 0).sum() for d in seq))}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
-                                           "cfg4", "queue", "churn"),
+                                           "cfg4", "queue", "churn",
+                                           "mesh", "multichip"),
                     default="serve")
+    ap.add_argument("--clients", type=int, default=None,
+                    help="mesh: clients over all shards (100000); "
+                    "multichip: clients per server (10000)")
+    ap.add_argument("--n-shards", type=int, default=None,
+                    help="mesh: shards on the card (planned from the "
+                    "memory budget when absent); multichip: servers (8)")
+    ap.add_argument("--counter-sync-every", type=int, default=1,
+                    help="mesh: epochs between counter-view refreshes")
+    ap.add_argument("--fault-plan", default=None,
+                    help="mesh: a fault spec, e.g. 'seed=7,p_dropout="
+                    "0.05,mean_outage_steps=2,p_dup=0.1' (a plain label "
+                    "or 'none' runs no faults)")
     ap.add_argument("--n", type=int, default=None,
                     help="clients (100000; cfg3 and queue 10000; churn: "
                     "the id space, 4096)")
@@ -1385,6 +1898,23 @@ def main(argv=None) -> int:
         return 0
     if a.workload in ("cfg3", "cfg4"):
         return _main_sustained(a)
+    if a.workload == "mesh":
+        from .robust.faults import parse_fault_spec
+
+        row = mesh_row(a.clients or MESH["clients"], n_shards=a.n_shards,
+                       counter_sync_every=a.counter_sync_every,
+                       fault_spec=parse_fault_spec(a.fault_plan),
+                       device=a.device)
+        print(json.dumps({"device": str(resolve_device(a.device)),
+                          **row}))
+        return 0
+    if a.workload == "multichip":
+        row = multichip_row(a.n_shards or 8, a.clients or 10_000,
+                            decisions_per_step=a.k or 1024,
+                            device=a.device)
+        print(json.dumps({"device": str(resolve_device(a.device)),
+                          **row}))
+        return 0
     if a.workload == "churn":
         res = churn_row(
             a.churn_scenario, total_ids=a.n or CHURN["total_ids"],

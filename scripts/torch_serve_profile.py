@@ -12,6 +12,8 @@
     python3 scripts/torch_serve_profile.py --workload churn [--epochs 64]
     python3 scripts/torch_serve_profile.py --workload device_sim
         [--rounds 2] [--calendar-impl minstop]
+    python3 scripts/torch_serve_profile.py --workload mesh [--n-shards 8]
+        [--counter-sync-every 4]
 
 Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
 ``serve`` backlog, with ``--high-rate`` the same backlog at 1000x the
@@ -41,7 +43,12 @@ device sim's closed-loop headline (``sim.device_sim.headline_setup``:
 100,000 clients on 8 servers, ring 64, 8,192 serves a server a slice)
 over ``--rounds`` slices after one warm-up launch of 2 slices, and
 prints launches, read backs and serve batches per slice (with
-``--calendar-impl`` the slices front-load calendar batches).  The full
+``--calendar-impl`` the slices front-load calendar batches).  ``mesh``
+profiles one chunk of bench's mesh row (``serve.mesh_row``'s shape:
+100,000 clients over ``--n-shards`` shards on the card, 8 epochs) after
+one warm chunk, and prints launches per shard-epoch and the counter
+sum's share: its device time (CUDA events over repeated sums of the
+chunk's counters) and launches per epoch against the chunk's.  The full
 table goes to
 ``chiprun_out/<workload>[_<knobs>]_profile.txt``.  Needs CUDA; exits non-zero
 without.
@@ -80,7 +87,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
                                            "cfg4", "queue", "churn",
-                                           "device_sim"),
+                                           "device_sim", "mesh"),
                     default="serve")
     ap.add_argument("--n", type=int, default=None,
                     help="clients (100000; cfg3 and queue 10000)")
@@ -110,6 +117,9 @@ def main(argv=None) -> int:
                     help="serve, chain")
     ap.add_argument("--high-rate", action="store_true",
                     help="serve: the backlog at 1000x the rates, ring 128")
+    ap.add_argument("--n-shards", type=int, default=8, help="mesh")
+    ap.add_argument("--counter-sync-every", type=int, default=1,
+                    help="mesh")
     ap.add_argument("--out", default=None,
                     help="table file (chiprun_out/<workload>[_<knobs>]"
                     "_profile.txt)")
@@ -151,6 +161,9 @@ def main(argv=None) -> int:
     if a.workload == "device_sim":
         return _profile_device_sim(a.n, a.rounds, a.calendar_impl, card,
                                    out)
+    if a.workload == "mesh":
+        return _profile_mesh(serve, a.n, a.n_shards, a.counter_sync_every,
+                             card, out)
     a.epochs = a.epochs or 1
     if a.workload == "serve":
         m = 32 if a.m is None else a.m
@@ -365,6 +378,72 @@ def _profile_queue(serve, n: int, card: str, out: str) -> int:
         "flush": dict(flush, rows=rows,
                       launches_per_row=flush["kernel_launches"] / rows),
         "pull_batch": dict(pull, decisions=decisions)}))
+    return 0
+
+
+
+def _profile_mesh(serve, clients: int, n_shards: int, every: int,
+                  card: str, out: str) -> int:
+    """One chunk of the mesh row's shape after one warm chunk, profiled;
+    the counter sum (``parallel.tracker.global_counters_from`` over the
+    stacked per-shard counters, once an epoch) timed apart."""
+    import numpy as np
+
+    from dmclock_tpu_torch.parallel import mesh as TM
+    from dmclock_tpu_torch.parallel.tracker import global_counters_from
+
+    c = serve.MESH
+    n, chunk = clients // n_shards, c["chunk"]
+    job = serve.mesh_job(n)
+    fn = TM.build_mesh_chunk(
+        TM.make_mesh(n_shards, "cuda"), engine=job.engine, epochs=chunk,
+        m=job.m, k=job.k, dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
+        with_metrics=True, counter_sync_every=every, ingest=True)
+    rng = np.random.Generator(np.random.PCG64(serve.MESH_SEED))
+
+    def draw():
+        return serve.mesh_draws(rng, n_shards, n, chunk, job.arrival_lam,
+                                "cuda")
+
+    state, cd, cr, vd, vr, slo = serve.mesh_start(job, n_shards, "cuda")
+    warm = fn(state, cd, cr, vd, vr, 0, draw(), slo=slo)
+    counts = draw()
+    res, prof = _profiled(lambda: fn(
+        warm.state, warm.cd, warm.cr, warm.view_d, warm.view_r, chunk,
+        counts, slo=warm.slo))
+    cds = [res.cd[s] for s in range(n_shards)]
+    crs = [res.cr[s] for s in range(n_shards)]
+
+    def counter_sum():
+        return global_counters_from(torch.stack(cds), torch.stack(crs))
+
+    for _ in range(3):
+        counter_sum()
+    reps = 200
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        counter_sum()
+    end.record()
+    torch.cuda.synchronize()
+    sum_ms = start.elapsed_time(end) / reps
+    sums = chunk if every == 1 else chunk // every
+    shard_epochs = n_shards * chunk
+    with open(out, "w") as f:
+        f.write(f"{card}\n{prof.pop('table')}\n")
+    print(json.dumps({
+        "card": card, "workload": "mesh", "clients": clients,
+        "n_shards": n_shards, "counter_sync_every": every, "epochs": chunk,
+        "decisions": int(res.outs["count"].sum()),
+        "launches_per_shard_epoch": prof["kernel_launches"] / shard_epochs,
+        "counter_sum_ms": sum_ms, "counter_sums": sums,
+        "counter_sum_share_of_busy": sum_ms * sums
+        / max(prof["device_busy_ms"], 1e-9),
+        "counter_sum_share_of_wall": sum_ms * sums
+        / max(prof["wall_ms"], 1e-9),
+        **prof}))
     return 0
 
 

@@ -436,6 +436,7 @@ def test_churn_row_on_the_card_equals_the_cpu(cuda, scenario, total_ids):
     for key in want:
         if key not in ("wall_s", "dps"):
             assert got[key] == want[key], key
+    assert got.keys() == want.keys()
     static = serve.churn_row(scenario, device=cuda, static=True, **kw)
     assert static["digest"] == got["digest"]
 
@@ -583,3 +584,74 @@ def test_dmc_sim_on_the_card_equals_cpu(cuda, mode):
         a, b = got.clients[cid].stats, want.clients[cid].stats
         assert (a.reservation_ops, a.priority_ops) == \
             (b.reservation_ops, b.priority_ops)
+
+
+def _mesh_chunk(device, *, engine, n, s, epochs, seed, **kw):
+    """One mesh chunk of ``s`` shards of ``n`` clients (the EpochJob
+    preload, ring 16 preloaded 12 deep, Poisson(2) arrivals in 4 waves,
+    100 ms epochs) on ``device``; returns the chunk as host numpy."""
+    from dmclock_tpu_torch.obs import slo as TSLO
+    from dmclock_tpu_torch.parallel import mesh as TM
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    job = TS.EpochJob(engine=engine, n=n, depth=12, ring=16, m=2,
+                      k=64 if engine == "prefix" else 4, waves=4, **kw)
+    mesh = TM.make_mesh(s, device)
+    fn = TM.build_mesh_chunk(
+        mesh, engine=engine, epochs=epochs, m=job.m, k=job.k,
+        dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
+        calendar_impl=job.calendar_impl, ladder_levels=job.ladder_levels,
+        counter_sync_every=1)
+    state = TM.stack_shards(TS._job_state(job, device), s)
+    cd, cr, vd, vr = TM.counter_init(s, n, device=device)
+    counts = np.random.default_rng(seed).poisson(
+        2.0, (s, epochs, n)).astype(np.int32)
+    out = fn(state, cd, cr, vd, vr, 0, torch.from_numpy(counts).to(device),
+             slo=TM.stack_shards(TSLO.window_zero(n, device), s))
+    host = {}
+    for f in TM.MeshChunk._fields:
+        v = getattr(out, f)
+        if isinstance(v, dict):
+            host.update({f"outs.{k}": x.cpu().numpy() for k, x in v.items()})
+        elif isinstance(v, tuple):
+            host.update({f"{f}.{k}": x.cpu().numpy()
+                         for k, x in zip(v._fields, v)})
+        elif v is not None:
+            host[f] = v.cpu().numpy()
+    return host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine, kw, k2", [
+    ("prefix", {}, False),
+    ("calendar", dict(calendar_impl="wheel", ladder_levels=4), True)])
+def test_mesh_chunk_on_the_card_equals_cpu(cuda, engine, kw, k2):
+    """A mesh chunk of 4 shards x 1,000 clients (the prefix engine, and
+    the wheel calendar, on which K2 runs per shard) equals the CPU on
+    every field of the chunk, with K1 (and K2) launched."""
+    before = dict(_ext.LAUNCHES)
+    got = _mesh_chunk(cuda, engine=engine, n=1000, s=4, epochs=2, seed=3,
+                      **kw)
+    assert _ext.LAUNCHES["ring_window"] > before["ring_window"]
+    assert (_ext.LAUNCHES["wheel_scan"] > before["wheel_scan"]) == k2
+    want = _mesh_chunk("cpu", engine=engine, n=1000, s=4, epochs=2, seed=3,
+                       **kw)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype and \
+            np.array_equal(got[key], want[key]), key
+    assert int(got["outs.count"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_device_hbm_budget_on_the_card(cuda, monkeypatch):
+    from dmclock_tpu_torch.obs import capacity as TC
+
+    monkeypatch.delenv("DMCLOCK_HBM_BUDGET_BYTES", raising=False)
+    budget = TC.device_hbm_budget()
+    assert budget == torch.cuda.get_device_properties(cuda).total_memory
+    plan = TC.plan_capacity(ring=16, engine="prefix", m=4, k=256,
+                            telemetry=True, slo=True, stream_chunk=8)
+    assert plan["budget_bytes"] == budget and plan["max_clients"] > 10 ** 6
+    assert TC.device_peaks()["label"].startswith("H100") or \
+        "H100" not in torch.cuda.get_device_name(cuda)

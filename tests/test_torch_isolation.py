@@ -275,3 +275,41 @@ def test_sim_entry_points_default_to_the_card(tmp_path):
         dmc_sim.run_sim(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         device_sim.run_device_sim(cfg)
+
+
+def test_mesh_row_and_cluster_leave_jax_unloaded():
+    code = ("import sys\n"
+            "from dmclock_tpu_torch import serve\n"
+            "r = serve.mesh_row(128, n_shards=2, epochs=2, warmup_epochs=2,"
+            " chunk=2, fault_spec={'seed': 3, 'p_dropout': 0.3},"
+            " device='cpu')\n"
+            "assert r['decisions'] > 0\n"
+            "o = serve.cluster_outage(2, 12, steps=2, decisions_per_step=4,"
+            " device='cpu')\n"
+            "assert o['served'] > 0\n"
+            "from dmclock_tpu_torch.obs import capacity\n"
+            "assert capacity.projected_hbm(256, ring=16, engine='prefix',"
+            " m=2, k=8) > 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_mesh_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from dmclock_tpu_torch.parallel import cluster as TCL
+    from dmclock_tpu_torch.parallel import mesh as TM
+
+    for call in (lambda: TCL.make_mesh(2),
+                 lambda: TCL.init_cluster(2, 4),
+                 lambda: TCL.init_mesh_views(2, 4),
+                 lambda: TM.counter_init(2, 4),
+                 lambda: tserve.mesh_row(64, n_shards=2),
+                 lambda: tserve.multichip_policy(2, 6),
+                 lambda: tserve.cluster_outage(2, 6)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
