@@ -31,11 +31,16 @@ Phases (any failure raises and the exit code is not 0):
 7. calendar exactness: at a small shape the wheel epoch's per-client
    counts and final state equal the serial engine's, the wheel equals
    the bucketed ladder, and one ladder level equals minstop;
-8. the ``cfg4_wheel`` path (bench's ``cfg4_wheel`` row):
+8. the ``cfg4_wheel`` path (bench's ``cfg4_wheel`` row): bench's
+   calibration on the wheel (``serve.cfg4_setup``: the warm round and 5
+   iterations of 2 rounds toward a 0.5 reservation share) and then
    ``serve.cfg4_rounds(calendar_impl="wheel")`` at full width (100,000
    clients, ring 128, 64 waves, m=3 batches, 64 steps, 8 levels), launch
-   counts reset just before and read just after (K1 24 and K2 27 per
-   round); one full-width round with telemetry, SLO and provenance on,
+   counts reset just before the calibration and read after the rounds
+   (K1 24 and K2 27 per round, the 11 calibration rounds included); the
+   calibrated rates' sum, the ``resv_inv`` digest and the measured
+   reservation share printed; one full-width round with telemetry, SLO
+   and provenance on,
    wheel equal to the bucketed ladder on every output, the state and
    the four accumulators, its decisions equal to the telemetry-off
    round's; then rounds are timed, ingest included;
@@ -64,11 +69,18 @@ Phases (any failure raises and the exit code is not 0):
 13. the planner view: ``calendar_stop_ladder`` at the cfg4 shape after
     one round's ingest (8 levels) equals numpy's quantiles of the finite
     stop packs, is nondecreasing, and its rank-1 key is the minimum;
-14. the ``cfg3`` path (bench's ``cfg3`` row): ``serve.cfg3_rounds`` at
-    full width (10,000 clients, weights 1-4, reservation 100 ops/s, ring
-    256 preloaded 128 deep, 32 waves in 100 ms rounds, m=32 prefix
-    batches of k=4096) with telemetry, SLO and provenance on, launch
-    counts reset just before and read just after (K1 once a round);
+14. the ``cfg3`` path (bench's ``cfg3`` row): bench's calibration (the
+    warm round and one iteration of 2 rounds; ``serve.cfg3_setup``), then
+    ``serve.cfg3_rounds`` from the calibrated state and time at full
+    width (10,000 clients, weights 1-4, reservation 100 ops/s, ring 256
+    preloaded 128 deep, 32 waves in 100 ms rounds, m=32 prefix batches
+    of k=4096) with telemetry, SLO (its contracts re-registered from the
+    calibrated state) and provenance on, launch counts reset just before
+    the calibration and read after the rounds (K1 once a round); the
+    calibration and the first timed round held against a CPU twin
+    (``sustained_twins``, a child process started as the phase begins,
+    collected at the end: the calibrated rates, state and draws, every
+    output, the state and the accumulators after the round);
     every round's guards, its metrics' decision row, and the growth of
     the ledger's and the SLO block's ops against its counts; timed
     rounds (median, mean and median-based rates); bench's derived
@@ -81,9 +93,12 @@ Phases (any failure raises and the exit code is not 0):
     the chunk does not count); chunk and round loop timed from the same
     state; one chunk run under ``torch.cuda.set_sync_debug_mode("warn")``
     and its synchronizing operations counted;
-16. the ``cfg4`` path (bench's ``cfg4`` row, minstop): rounds at full
-    width with telemetry, SLO and provenance on, launch-counted (K1 3 a
-    round, K2 none), each checked as in phase 14; a stream chunk of 2
+16. the ``cfg4`` path (bench's ``cfg4`` row, minstop): bench's
+    calibration (11 rounds, as phase 8's) and the rounds after it at
+    full width with telemetry, SLO and provenance on, launch-counted
+    together (K1 3 a round, K2 none), each checked as in phase 14, the
+    calibration and first timed round held against the CPU twin, the
+    measured reservation share printed; a stream chunk of 2
     (``cfg4_stream``) equal to the 2 rounds; timed rounds; the derived
     scalars; telemetry on against off over a round;
 17. the ``queue`` path: ``serve.serve_queue`` at full width (10,000
@@ -194,6 +209,29 @@ Phases (any failure raises and the exit code is not 0):
     ``projected_hbm`` within 10% of the resident growth of its state,
     accumulators and one chunk's outputs (peak printed).  The twins run
     in a child process on four threads, started as the phase begins.
+23. the supervised mesh (``robust.supervisor``, ``engine_loop="mesh"``)
+    at the mesh row's width (``SUP_MESH``: 8 shards x 12,500, ring 16
+    preloaded 12 deep, prefix m=4, k=256, Poisson(2) in 4 waves, 100 ms
+    epochs, 16 epochs, a checkpoint every 4, histograms, ledger and SLO
+    on), each in-process run launch-counted (K1 once a shard-epoch on
+    the fused chunk): (a) ``supervised_mesh`` bare, then in spawn mode
+    SIGKILLed at 0.35 and at 0.75 of its decisions, each crash-equivalent
+    to the bare run, and its first chunk (4 epochs) equal to a CPU twin;
+    (b) ``supervised_mesh_chaos``, (a) under ``MESH_FAULT_SPEC``, killed
+    once and crash-equivalent, its dropout, resync and fault rows equal
+    to ``plan_shard_events``; (c) ``supervised_mesh_trip``, (a) cut to 8
+    epochs at ``tag_width=32`` with client 0's tag 2^31 + 1 ns ahead:
+    every chunk trips, is discarded and replays on the host loop on the
+    card, and every result field equals the ``tag_width=64`` job's but
+    the digest (the tripped epochs also hash their discarded attempt),
+    the rebase-fallback row and ``mesh_fallbacks``; (d)
+    ``supervised_mesh_churn``, ``churn_storm`` (4,096 ids, capacity
+    1,024 a shard, growing) over 4 shards with ``placement="p2c"`` under
+    ``MESH_FAULT_SPEC``, 32 epochs, killed at half and crash-equivalent,
+    equal to a CPU twin, and at S=1 p2c equal to static.  Each job's wall,
+    restarts, resumes, ``mesh_fallbacks`` and K1 launches are printed.
+    The twins run in a child process on four threads, started as the
+    phase begins; the SLO evaluator's alert lines go to a file.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -205,10 +243,11 @@ begins (``start_cpu_sup_twin``).  The script stops the children on any
 failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
-launch it (phases 6, 8, 10-16, both runs of 19, the in-process runs
-of 20, the device sim's four runs in 21 and the mesh runs of 22), each
-count read right after that path's run; K2's is the ``cfg4_wheel``
-path's, phase 20's wheel runs', the device sim's wheel run's and the
+launch it (phases 6, 8 and 14-16 with their calibration rounds, 10-13,
+both runs of 19, the in-process runs of 20 and 23, the device sim's four
+runs in 21 and the mesh runs of 22), each count read right after that
+path's run; K2's is the ``cfg4_wheel`` path's (its calibration
+included), phase 20's wheel runs', the device sim's wheel run's and the
 mesh wheel chunk's; the queue paths (17, 18), ``dmc_sim`` and the
 cluster runs of 22 add none, and the spawn children's launches are not counted
 (``LAUNCHES`` is per process). Each kernel's entry also carries
@@ -435,12 +474,24 @@ def phase_k1(fp, cases, card: str) -> dict:
     return out
 
 
+def _cfg4_start(serve):
+    """The cfg4 state before calibration and bench's warm-round draw
+    (``default_rng(11)`` from the starting guess), both on the card:
+    ``(state, draws int32[1, N])``."""
+    c = serve.CFG4
+    lam = serve.sustained_lam0("cfg4", N_CFG4)
+    draw = np.minimum(np.random.default_rng(11).poisson(lam),
+                      c["waves"]).astype(np.int32)
+    return (serve.sustained_start("cfg4", N_CFG4, device="cuda"),
+            torch.from_numpy(draw[None]).cuda())
+
+
 def _k2_inputs(serve, fp, kernels, gen):
     """(label, keys, slot, nb) on the card: the two cfg4 shapes and the
     odd ones.  The wheel-build case is real: the entry keys and slots of
     a full-width cfg4 state after one round's ingest."""
     dev = torch.device("cuda")
-    st, draws = serve.cfg4_setup(N_CFG4, 1, device="cuda")
+    st, draws = _cfg4_start(serve)
     c = serve.CFG4
     ones = torch.ones((N_CFG4,), dtype=torch.int64, device=dev)
     wave_times = torch.arange(c["waves"], dtype=torch.int64, device=dev) \
@@ -1034,7 +1085,7 @@ def phase_stop_ladder(serve, fp, kernels, ext, card: str) -> int:
     dev = torch.device("cuda")
     c = serve.CFG4
     levels = c["ladder_levels"]
-    st, draws = serve.cfg4_setup(N_CFG4, 1, device="cuda")
+    st, draws = _cfg4_start(serve)
     ones = torch.ones((N_CFG4,), dtype=torch.int64, device=dev)
     wave_times = torch.arange(c["waves"], dtype=torch.int64, device=dev) \
         * (c["dt_round_ns"] // c["waves"])
@@ -1152,25 +1203,48 @@ def phase_calendar_exact(serve, fp, kernels) -> None:
         f"ladder level equals minstop ({int(mins.count.sum())} decisions)")
 
 
+def _calibration_line(what: str, prep, t_cal: float) -> str:
+    """What bench's calibration settled on, for the log."""
+    import hashlib
+
+    inv = prep.state.resv_inv.cpu().numpy()
+    return (f"[{what}] bench's calibration on the card: {prep.cal_rounds} "
+            f"rounds (the warm round, then "
+            f"{(prep.cal_rounds - 1) // 2} x 2 calibration rounds) in "
+            f"{t_cal:.3f} s; calibrated lam sum "
+            f"{float(prep.lam.sum())!r}, resv_inv sha256 "
+            f"{hashlib.sha256(inv.tobytes()).hexdigest()[:16]} (mean "
+            f"{float(inv.mean())!r} ns), measured reservation share of "
+            f"the last iteration {prep.resv_share!r}; timed rounds from "
+            f"t0 {prep.t0}")
+
+
 def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
-    """The ``cfg4_wheel`` path at full width: launch-counted rounds, wheel
+    """The ``cfg4_wheel`` path at full width: bench's calibration (11
+    wheel rounds) and the rounds after it, launch-counted together; wheel
     == bucketed over one round with telemetry on (all four of bench's
     accumulators equal, and the decisions equal the counted round 0's,
     which ran with telemetry off), then timed rounds."""
     c = serve.CFG4
     levels = c["ladder_levels"]
-    state0, draws = serve.cfg4_setup(N_CFG4, CFG4_ROUNDS + CFG4_TIMED,
-                                     device="cuda")
     torch.cuda.synchronize()
     ext.reset_launches()
+    t_cal = time.perf_counter()
+    prep = serve.cfg4_setup(N_CFG4, CFG4_ROUNDS + CFG4_TIMED,
+                            calendar_impl="wheel", device="cuda")
+    t_cal = time.perf_counter() - t_cal
+    state0, draws, base = prep.state, prep.draws, prep.t0
     res = serve.cfg4_rounds(state0, draws[:CFG4_ROUNDS],
-                            calendar_impl="wheel")
+                            calendar_impl="wheel", t0=base)
     torch.cuda.synchronize()
     launches = dict(ext.LAUNCHES)
-    log(f"[cfg4_wheel] kernel launches on the main path over {CFG4_ROUNDS}"
-        f" rounds: {launches}")
-    want = {"ring_window": CFG4_ROUNDS * c["m"] * levels,
-            "wheel_scan": CFG4_ROUNDS * c["m"] * (1 + levels)}
+    rounds = prep.cal_rounds + CFG4_ROUNDS
+    log(f"[cfg4_wheel] kernel launches on the main path over "
+        f"{prep.cal_rounds} calibration and {CFG4_ROUNDS} rounds: "
+        f"{launches}")
+    log(_calibration_line("cfg4_wheel", prep, t_cal))
+    want = {"ring_window": rounds * c["m"] * levels,
+            "wheel_scan": rounds * c["m"] * (1 + levels)}
     if launches != want:
         raise AssertionError(f"cfg4_wheel launches {launches}, want {want}")
     met = obsdev.metrics_dict(res.metrics)
@@ -1195,12 +1269,12 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
     # one full-width round with telemetry on, wheel against bucketed,
     # from the same state and draws; the decisions equal the main path's
     # round 0 (telemetry off there)
-    plane = serve.slo_plane("cfg4", N_CFG4)
-    tele = serve.tele_zero(N_CFG4, plane=plane, device="cuda")
+    plane = serve.slo_plane("cfg4", N_CFG4, state=state0)
+    tele = serve.tele_zero(N_CFG4, plane=plane, t0=base, device="cuda")
     rw = serve.cfg4_rounds(state0, draws[:1], calendar_impl="wheel",
-                           tele=tele)
+                           tele=tele, t0=base)
     rb = serve.cfg4_rounds(state0, draws[:1], calendar_impl="bucketed",
-                           tele=tele)
+                           tele=tele, t0=base)
     _equal_tuples(rw, rb, "full-width round with telemetry, wheel vs "
                   "bucketed")
     for f in ("count", "resv_count", "progress_ok", "served",
@@ -1227,7 +1301,7 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
         t0 = time.perf_counter()
         start.record()
         out = serve.cfg4_rounds(st, draws[r:r + 1], calendar_impl="wheel",
-                                t0=r * c["dt_round_ns"])
+                                t0=base + r * c["dt_round_ns"])
         end.record()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
@@ -1259,15 +1333,16 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
 # ----------------------------------------------------------------------
 
 def _sustained_rounds(serve, workload: str, st, draws, tele, r0: int,
-                      rounds: int, **kw):
-    """``rounds`` rounds from round ``r0``, one call each (so each
+                      rounds: int, base: int = 0, **kw):
+    """``rounds`` rounds from round ``r0`` (timed round ``r`` at ``base +
+    r * dt``, ``base`` where calibration ended), one call each (so each
     round's accumulators are kept): ``(results, final state, final
     tele)``."""
     run = serve.cfg3_rounds if workload == "cfg3" else serve.cfg4_rounds
     dt = (serve.CFG3 if workload == "cfg3" else serve.CFG4)["dt_round_ns"]
     out = []
     for r in range(r0, r0 + rounds):
-        res = run(st, draws[r:r + 1], t0=r * dt, tele=tele, **kw)
+        res = run(st, draws[r:r + 1], t0=base + r * dt, tele=tele, **kw)
         st, tele = res.state, res.tele
         out.append(res)
     return out, st, tele
@@ -1298,7 +1373,7 @@ def _check_rounds(obsdev, what: str, results, tele0, guard: str) -> list:
 
 
 def _timed_rounds(serve, workload: str, st, draws, tele, r0: int,
-                  rounds: int, **kw):
+                  rounds: int, base: int = 0, **kw):
     """``rounds`` rounds between CUDA events, one each: ``(ms, host ms,
     decisions, state, tele)``."""
     run = serve.cfg3_rounds if workload == "cfg3" else serve.cfg4_rounds
@@ -1306,7 +1381,8 @@ def _timed_rounds(serve, workload: str, st, draws, tele, r0: int,
     ms, host, decisions = [], [], []
     for r in range(r0, r0 + rounds):
         res, ev, h = _timed_epoch(
-            lambda s: run(s, draws[r:r + 1], t0=r * dt, tele=tele, **kw), st)
+            lambda s: run(s, draws[r:r + 1], t0=base + r * dt, tele=tele,
+                          **kw), st)
         st, tele = res.state, res.tele
         ms.append(ev)
         host.append(h)
@@ -1315,7 +1391,7 @@ def _timed_rounds(serve, workload: str, st, draws, tele, r0: int,
 
 
 def _on_off(serve, obsdev, workload: str, st, draws, tele, r0: int,
-            rounds: int, what: str, **kw):
+            rounds: int, what: str, base: int = 0, **kw):
     """Telemetry on against off at full width: ``rounds`` rounds of each
     from the same state, alternated, each between CUDA events; every
     round's decisions, state and metrics equal.  Returns the on/off
@@ -1324,9 +1400,10 @@ def _on_off(serve, obsdev, workload: str, st, draws, tele, r0: int,
     tele_off = serve.Tele()
     ms_on, ms_off = [], []
     for r in range(r0, r0 + rounds):
-        a = _timed_rounds(serve, workload, st_on, draws, tele, r, 1, **kw)
-        b = _timed_rounds(serve, workload, st_off, draws, tele_off, r, 1,
+        a = _timed_rounds(serve, workload, st_on, draws, tele, r, 1, base,
                           **kw)
+        b = _timed_rounds(serve, workload, st_off, draws, tele_off, r, 1,
+                          base, **kw)
         ms_on += a[0]
         ms_off += b[0]
         if a[2] != b[2]:
@@ -1339,8 +1416,8 @@ def _on_off(serve, obsdev, workload: str, st, draws, tele, r0: int,
     run = serve.cfg3_rounds if workload == "cfg3" else serve.cfg4_rounds
     dt = (serve.CFG3 if workload == "cfg3" else serve.CFG4)["dt_round_ns"]
     r = r0 + rounds
-    on = run(st_on, draws[r:r + 1], t0=r * dt, tele=tele, **kw)
-    off = run(st_off, draws[r:r + 1], t0=r * dt, **kw)
+    on = run(st_on, draws[r:r + 1], t0=base + r * dt, tele=tele, **kw)
+    off = run(st_off, draws[r:r + 1], t0=base + r * dt, **kw)
     _equal_tuples(on._replace(tele=None), off._replace(tele=None),
                   f"{what}: telemetry on vs off")
     ratio = statistics.median(ms_on) / statistics.median(ms_off)
@@ -1363,22 +1440,121 @@ def _scalars_line(serve, tele, st, t_end: int, dt: int) -> str:
     return json.dumps({k: sc[k] for k in keys})
 
 
+def _prepared_rounds(serve, workload: str, n: int, n_draws: int,
+                     rounds: int, **kw):
+    """Bench's calibration, fresh accumulators at the calibrated time
+    with the SLO contracts re-registered from the calibrated state, then
+    ``rounds`` rounds: ``(prep, tele0, calibration s, (results, state,
+    tele))``."""
+    t_cal = time.perf_counter()
+    setup = serve.cfg3_setup if workload == "cfg3" else serve.cfg4_setup
+    prep = setup(n, n_draws, device="cuda", **kw)
+    t_cal = time.perf_counter() - t_cal
+    tele0 = serve.tele_zero(n, plane=serve.slo_plane(workload, n,
+                                                     state=prep.state),
+                            t0=prep.t0, device="cuda")
+    return prep, tele0, t_cal, _sustained_rounds(
+        serve, workload, prep.state, prep.draws, tele0, 0, rounds,
+        prep.t0, **kw)
+
+
+def sustained_twins(out: str) -> None:
+    """The CPU twins of phases 14 and 16 (in a child process): each row's
+    calibration at full width and its first timed round with telemetry,
+    SLO and provenance on; saved to ``out``."""
+    from dmclock_tpu_torch import serve
+
+    torch.set_num_threads(2)
+    rows = {}
+    for workload, n, kw in (("cfg3", N_CFG3, {}),
+                            ("cfg4", N_CFG4,
+                             dict(calendar_impl="minstop"))):
+        setup = serve.cfg3_setup if workload == "cfg3" \
+            else serve.cfg4_setup
+        prep = setup(n, 1, device="cpu", **kw)
+        tele = serve.tele_zero(n, plane=serve.slo_plane(workload, n,
+                                                        state=prep.state),
+                               t0=prep.t0, device="cpu")
+        run = serve.cfg3_rounds if workload == "cfg3" \
+            else serve.cfg4_rounds
+        rows[workload] = _sustained_numpy(
+            prep, run(prep.state, prep.draws, t0=prep.t0, tele=tele, **kw))
+    torch.save(rows, out)
+
+
+def start_sustained_twins(root: str, out: str) -> subprocess.Popen:
+    code = ("import sys\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.sustained_twins({out!r})\n")
+    return _cpu_child(code, out)
+
+
+def _sustained_numpy(prep, first) -> dict:
+    """A calibrated row (its calibrated rates, state and first timed
+    round's draws) and its first timed round, as host numpy."""
+    out = {"lam": np.asarray(prep.lam), "t0": np.asarray(prep.t0),
+           "draw0": prep.draws[0].cpu().numpy()}
+    out.update({f"prep.state.{f}": getattr(prep.state, f).cpu().numpy()
+                for f in prep.state._fields})
+    for f in first._fields:
+        v = getattr(first, f)
+        if torch.is_tensor(v):
+            out[f"round0.{f}"] = v.cpu().numpy()
+        elif f == "state":
+            out.update({f"round0.state.{g}": getattr(v, g).cpu().numpy()
+                        for g in v._fields})
+        elif f == "tele":
+            for g in v._fields:
+                x = getattr(v, g)
+                if torch.is_tensor(x):
+                    out[f"round0.tele.{g}"] = x.cpu().numpy()
+                elif x is not None:
+                    out.update({f"round0.tele.{g}.{h}":
+                                getattr(x, h).cpu().numpy()
+                                for h in x._fields})
+    return out
+
+
+def check_sustained_twins(proc, out: str, rows: dict) -> None:
+    """Phases 14 and 16's calibrated rows on the card against the CPU
+    twins."""
+    want = collect_cpu_twins(proc, out)
+    for workload, got in rows.items():
+        _same_numpy(got, want[workload], f"{workload} vs its CPU twin")
+        log(f"[{workload}] the calibrated rates, state and first timed "
+            f"round's draws, and the first timed round (every output, the "
+            f"state and the four accumulators) equal the CPU twin's")
+
+
+def _resv_share(obsdev, results) -> float:
+    """The reservation-phase share of ``results``' decisions (their
+    metrics rows)."""
+    met = obsdev.metrics_zero("cuda")
+    for res in results:
+        met = obsdev.metrics_combine(met, res.metrics)
+    md = obsdev.metrics_dict(met)
+    return md["decisions_reservation"] / max(md["decisions_total"], 1)
+
+
 def phase_cfg3(serve, ext, obsdev, card: str):
     """Bench's cfg3 row at full width with telemetry, SLO and provenance
-    on: launch-counted rounds (K1 once a round), every round checked,
-    timed rounds, bench's derived scalars; then telemetry on against off.
-    Returns ``(K1 launches, state, tele, draws, next round)``."""
+    on: bench's calibration (3 rounds) and the rounds after it,
+    launch-counted together (K1 once a round), every timed round
+    checked, timed rounds, bench's derived scalars; then telemetry on
+    against off.  Returns ``(K1 launches, state, tele, draws, next round,
+    ratio, the calibrated t0, the twin's numpy)``."""
     c = serve.CFG3
     n_draws = CFG3_ROUNDS + CFG3_TIMED + max(CFG3_TIMED + 1,
                                              serve.STREAM_CHUNK)
     t_phase = time.perf_counter()
-    state0, draws = serve.cfg3_setup(N_CFG3, n_draws, device="cuda")
-    plane = serve.slo_plane("cfg3", N_CFG3)
-    tele0 = serve.tele_zero(N_CFG3, plane=plane, device="cuda")
-    (results, st, tele), launches = _launch_counted(
-        ext, lambda: _sustained_rounds(serve, "cfg3", state0, draws, tele0,
-                                       0, CFG3_ROUNDS),
-        {"ring_window": CFG3_ROUNDS, "wheel_scan": 0}, "cfg3")
+    (prep, tele0, t_cal, (results, st, tele)), launches = _launch_counted(
+        ext, lambda: _prepared_rounds(serve, "cfg3", N_CFG3, n_draws,
+                                      CFG3_ROUNDS),
+        {"ring_window": 3 + CFG3_ROUNDS, "wheel_scan": 0}, "cfg3")
+    log(_calibration_line("cfg3", prep, t_cal))
+    base, draws = prep.t0, prep.draws
+    twin = _sustained_numpy(prep, results[0])
     decisions = _check_rounds(obsdev, "cfg3", results, tele0, "guards_ok")
     met = obsdev.metrics_dict(results[-1].metrics)
     log(f"[cfg3] N={N_CFG3} ring={c['ring']} depth0={c['depth0']} "
@@ -1388,22 +1564,22 @@ def phase_cfg3(serve, ext, obsdev, card: str):
         f"round's metrics {json.dumps(met)}")
     r = CFG3_ROUNDS
     ms, host, dec, st, tele = _timed_rounds(serve, "cfg3", st, draws, tele,
-                                            r, CFG3_TIMED)
+                                            r, CFG3_TIMED, base)
     r += CFG3_TIMED
     for i, (a, b, d) in enumerate(zip(ms, host, dec)):
         log(f"[cfg3] round {CFG3_ROUNDS + i}: {d} decisions in {a:.3f} ms "
             f"(events), {b:.3f} ms (host clock)")
     log(f"[cfg3] on {card}: median round {statistics.median(ms):.3f} ms "
         f"over {CFG3_TIMED} (telemetry, SLO and provenance on); "
-        f"{_rates(dec, ms)}; K1 {launches['ring_window'] // CFG3_ROUNDS} a "
-        f"round")
-    log(f"[cfg3] bench's derived scalars after {r} rounds: "
-        + _scalars_line(serve, tele, st, r * c["dt_round_ns"],
+        f"{_rates(dec, ms)}; K1 once a round "
+        f"({launches['ring_window']} over {3 + CFG3_ROUNDS})")
+    log(f"[cfg3] bench's derived scalars after {r} timed rounds: "
+        + _scalars_line(serve, tele, st, base + r * c["dt_round_ns"],
                         c["dt_round_ns"]))
     ratio = _on_off(serve, obsdev, "cfg3", st, draws, tele, r, CFG3_TIMED,
-                    "cfg3")
+                    "cfg3", base)
     log(f"[time] cfg3 phase {time.perf_counter() - t_phase:.3f} s")
-    return launches["ring_window"], st, tele, draws, r, ratio
+    return launches["ring_window"], st, tele, draws, r, ratio, base, twin
 
 
 def _capture_syncs(fn):
@@ -1427,7 +1603,7 @@ def _capture_syncs(fn):
 
 
 def phase_cfg3_stream(serve, ext, obsdev, card: str, st, tele, draws,
-                      r0: int) -> int:
+                      r0: int, base: int) -> int:
     """``cfg3_stream``: one chunk of 8 rounds (launch-counted, K1 once an
     epoch) equals the 8 rounds of the round loop bit for bit (state,
     per-round outputs, histograms, ledger, SLO block, provenance; the
@@ -1439,7 +1615,7 @@ def phase_cfg3_stream(serve, ext, obsdev, card: str, st, tele, draws,
     chunk = serve.STREAM_CHUNK
     t_phase = time.perf_counter()
     dr = draws[r0:r0 + chunk]
-    t0 = r0 * c["dt_round_ns"]
+    t0 = base + r0 * c["dt_round_ns"]
     stream, launches = _launch_counted(
         ext, lambda: serve.cfg3_stream(st, dr, t0=t0, tele=tele),
         {"ring_window": chunk, "wheel_scan": 0}, "cfg3_stream")
@@ -1493,21 +1669,24 @@ def phase_cfg3_stream(serve, ext, obsdev, card: str, st, tele, draws,
 
 def phase_cfg4(serve, ext, obsdev, card: str):
     """Bench's ``cfg4`` row (minstop) at full width with telemetry, SLO
-    and provenance on: launch-counted rounds (K1 3 a round, no K2),
-    every round checked; a stream chunk of 2 equals the 2 rounds; timed
-    rounds; bench's derived scalars; telemetry on against off over a
-    round.  Returns ``(K1 launches of the rounds, of the chunk, ratio)``."""
+    and provenance on: bench's calibration (11 rounds toward a 0.5
+    reservation share) and the rounds after it, launch-counted together
+    (K1 3 a round, no K2), every timed round checked; a stream chunk of
+    2 equals the 2 rounds; timed rounds; bench's derived scalars;
+    telemetry on against off over a round.  Returns ``(K1 launches of
+    the rounds, of the chunk, ratio, the twin's numpy)``."""
     c = serve.CFG4
     kw = dict(calendar_impl="minstop")
     t_phase = time.perf_counter()
     n_draws = CFG4M_ROUNDS + CFG4M_TIMED + CFG4M_ON_OFF + 1
-    state0, draws = serve.cfg4_setup(N_CFG4, n_draws, device="cuda")
-    plane = serve.slo_plane("cfg4", N_CFG4)
-    tele0 = serve.tele_zero(N_CFG4, plane=plane, device="cuda")
-    (results, st, tele), launches = _launch_counted(
-        ext, lambda: _sustained_rounds(serve, "cfg4", state0, draws, tele0,
-                                       0, CFG4M_ROUNDS, **kw),
-        {"ring_window": CFG4M_ROUNDS * c["m"], "wheel_scan": 0}, "cfg4")
+    (prep, tele0, t_cal, (results, st, tele)), launches = _launch_counted(
+        ext, lambda: _prepared_rounds(serve, "cfg4", N_CFG4, n_draws,
+                                      CFG4M_ROUNDS, **kw),
+        {"ring_window": (11 + CFG4M_ROUNDS) * c["m"], "wheel_scan": 0},
+        "cfg4")
+    log(_calibration_line("cfg4", prep, t_cal))
+    state0, draws, base = prep.state, prep.draws, prep.t0
+    twin = _sustained_numpy(prep, results[0])
     decisions = _check_rounds(obsdev, "cfg4", results, tele0, "progress_ok")
     log(f"[cfg4] minstop N={N_CFG4} ring={c['ring']} waves={c['waves']} "
         f"m={c['m']} steps={c['steps']}: {CFG4M_ROUNDS} rounds, decisions "
@@ -1517,7 +1696,8 @@ def phase_cfg4(serve, ext, obsdev, card: str):
         f"{json.dumps(obsdev.metrics_dict(results[-1].metrics))}")
     stream, slaunch = _launch_counted(
         ext, lambda: serve.cfg4_stream(state0, draws[:CFG4M_ROUNDS],
-                                       tele=tele0, chunk=CFG4M_ROUNDS, **kw),
+                                       tele=tele0, chunk=CFG4M_ROUNDS,
+                                       t0=base, **kw),
         {"ring_window": CFG4M_ROUNDS * c["m"], "wheel_scan": 0},
         "cfg4_stream")
     for f in ("count", "resv_count", "progress_ok", "served",
@@ -1533,7 +1713,7 @@ def phase_cfg4(serve, ext, obsdev, card: str):
         f"histograms, ledger, SLO window and provenance blocks")
     r = CFG4M_ROUNDS
     ms, host, dec, st, tele = _timed_rounds(serve, "cfg4", st, draws, tele,
-                                            r, CFG4M_TIMED, **kw)
+                                            r, CFG4M_TIMED, base, **kw)
     r += CFG4M_TIMED
     for i, (a, b, d) in enumerate(zip(ms, host, dec)):
         log(f"[cfg4] minstop round {CFG4M_ROUNDS + i}: {d} decisions in "
@@ -1541,14 +1721,16 @@ def phase_cfg4(serve, ext, obsdev, card: str):
     log(f"[cfg4] on {card}: minstop, telemetry, SLO and provenance on: "
         f"median round {statistics.median(ms):.3f} ms over {CFG4M_TIMED}, "
         f"{sum(dec) / len(dec):.1f} decisions per round; {_rates(dec, ms)};"
-        f" K1 {launches['ring_window'] // CFG4M_ROUNDS} a round, K2 0")
-    log(f"[cfg4] bench's derived scalars after {r} rounds: "
-        + _scalars_line(serve, tele, st, r * c["dt_round_ns"],
+        f" K1 3 a round ({launches['ring_window']} over "
+        f"{11 + CFG4M_ROUNDS}), K2 0; the measured reservation share of "
+        f"the rounds after calibration {_resv_share(obsdev, results)!r}")
+    log(f"[cfg4] bench's derived scalars after {r} timed rounds: "
+        + _scalars_line(serve, tele, st, base + r * c["dt_round_ns"],
                         c["dt_round_ns"]))
     ratio = _on_off(serve, obsdev, "cfg4", st, draws, tele, r, CFG4M_ON_OFF,
-                    "cfg4", **kw)
+                    "cfg4", base, **kw)
     log(f"[time] cfg4 (minstop) phase {time.perf_counter() - t_phase:.3f} s")
-    return launches["ring_window"], slaunch["ring_window"], ratio
+    return launches["ring_window"], slaunch["ring_window"], ratio, twin
 
 
 def _cpu_child(code: str, out: str) -> subprocess.Popen:
@@ -2746,6 +2928,217 @@ def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
     return k1, k2
 
 
+# ----------------------------------------------------------------------
+# phase 23: the supervised mesh
+# ----------------------------------------------------------------------
+
+# serve.mesh_job's shape (the mesh row's per-shard job: ring 16 preloaded
+# 12 deep, prefix m=4, k=256, Poisson(2) in 4 waves, 100 ms epochs) over
+# 8 shards of 12,500, supervised: 16 epochs, a checkpoint every 4,
+# histograms, ledger and SLO windows on
+SUP_MESH = dict(engine="prefix", n=12_500, depth=12, ring=16, m=4, k=256,
+                arrival_lam=2.0, waves=4, dt_epoch_ns=10 ** 8, epochs=16,
+                ckpt_every=4, engine_loop="mesh", n_shards=MESH_SHARDS,
+                with_hists=True, with_ledger=True, with_slo=True)
+SUP_MESH_FIRST = dict(SUP_MESH, epochs=SUP_MESH["ckpt_every"])
+# the trip: client 0's tag 2^31 + 1 ns ahead blows the tag32 window in
+# every chunk (2 chunks)
+SUP_MESH_TRIP = dict(SUP_MESH, epochs=8, tag_width=32,
+                     tag_spread_ns=2 ** 31 + 1)
+# the churn row's population (churn_storm, 4,096 ids, capacity 1,024 a
+# shard, growing) over 4 shards with p2c placement under the mesh row's
+# fault plan; 32 epochs of 50 ms, a boundary every 4
+SUP_MESH_CHURN = dict(engine="prefix", n=4096, ring=32, epochs=32, m=4,
+                      k=256, waves=8, dt_epoch_ns=50_000_000, seed=11,
+                      ckpt_every=4, engine_loop="mesh", n_shards=4,
+                      placement="p2c", fault_plan=MESH_FAULT_SPEC)
+SUP_MESH_CHURN_SPEC = dict(total_ids=4096, seed=11, base_lam=2.0,
+                           compact_every=2)
+
+
+def sup_mesh_twins(out: str) -> None:
+    """Phase 23's CPU runs (in a child process): the supervised mesh
+    job's first chunk and the churn job; saved to ``out``."""
+    from dmclock_tpu_torch.lifecycle import make_spec
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    torch.set_num_threads(4)
+    first = TS.run_job(TS.EpochJob(**SUP_MESH_FIRST), device="cpu")
+    spec = make_spec(STORM_SCENARIO, **SUP_MESH_CHURN_SPEC)
+    churn = TS.run_job(TS.EpochJob(churn=spec, **SUP_MESH_CHURN),
+                       device="cpu")
+    torch.save(dict(first=first._asdict(), churn=churn._asdict()), out)
+
+
+def start_sup_mesh_twins(root: str, out: str) -> subprocess.Popen:
+    code = ("import sys\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.sup_mesh_twins({out!r})\n")
+    return _cpu_child(code, out)
+
+
+def _mesh_line(what: str, res, wall: float, launches) -> None:
+    log(f"[{what}] wall {wall:.3f} s, {res.decisions} decisions, "
+        f"restarts {res.restarts}, resumes "
+        f"{res.metrics[MET_SUPERVISOR_RESUMES]}, mesh_fallbacks "
+        f"{res.mesh_fallbacks} (chaos {res.mesh_chaos_fallbacks}), K1 "
+        + ("not counted (spawn children)" if launches is None
+           else f"{launches['ring_window']}"))
+
+
+def phase_supervised_mesh(ext, card: str, tmp: str, twin_path: str,
+                          twin_proc: subprocess.Popen):
+    """Phase 23: the supervised mesh (``EpochJob(engine_loop="mesh")``)
+    at the mesh row's width.  Returns ``{path: K1 launches}`` over the
+    in-process runs (no K2: the prefix engine)."""
+    from dmclock_tpu_torch.lifecycle import make_spec
+    from dmclock_tpu_torch.obs import device as obsdev
+    from dmclock_tpu_torch.robust import faults as TF
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    shard_epochs = SUP_MESH["epochs"] * SUP_MESH["n_shards"]
+
+    def wd(name):
+        path = os.path.join(tmp, name)
+        os.makedirs(path)
+        return path
+
+    def run(path, fn, exact=None):
+        res, launches, wall = _sup_run(ext, path, fn)
+        if exact is not None and launches["ring_window"] != exact:
+            raise AssertionError(f"{path}: K1 {launches['ring_window']}, "
+                                 f"want {exact} (once a shard-epoch)")
+        by_path[path] = launches["ring_window"]
+        _mesh_line(path, res, wall, launches)
+        return res
+
+    def spawn_killed(path, job, ref, frac):
+        w = wd(path)
+        kill = int(ref.decisions * frac)
+        t0 = time.perf_counter()
+        res = TS.run_supervised(job, w, TH.HostFaultPlan(
+            kill_at_decisions=(kill,)), mode="spawn", device="cuda")
+        wall = time.perf_counter() - t0
+        TS.assert_crash_equivalent(res, ref)
+        if res.restarts != 1:
+            raise AssertionError(f"{path}: {res.restarts} restarts")
+        _mesh_line(path, res, wall, None)
+        log(f"[{path}] SIGKILLed at {kill} of {ref.decisions} decisions "
+            f"({frac}), resumed from "
+            f"{os.path.basename(res.resumed_from or '-')}: "
+            f"crash-equivalent to the bare run")
+        shutil.rmtree(w)
+
+    def killed(path, job, ref, frac):
+        w = wd(path)
+        res = run(path, lambda: TS.run_supervised(
+            job, w, TH.HostFaultPlan(
+                kill_at_decisions=(int(ref.decisions * frac),)),
+            device="cuda"))
+        TS.assert_crash_equivalent(res, ref)
+        if res.restarts != 1:
+            raise AssertionError(f"{path}: {res.restarts} restarts")
+        log(f"[{path}] killed at {frac} of its decisions, resumed: "
+            f"crash-equivalent to the bare run")
+        shutil.rmtree(w)
+        return res
+
+    # (a) supervised_mesh: bare, SIGKILLed at 0.35 and 0.75, first chunk
+    job = TS.EpochJob(**SUP_MESH)
+    ref = run("supervised_mesh", lambda: TS.run_job(job, device="cuda"),
+              shard_epochs)
+    if ref.mesh_fallbacks or ref.decisions <= 0:
+        raise AssertionError(f"supervised_mesh: {ref.decisions} decisions,"
+                             f" {ref.mesh_fallbacks} fallbacks")
+    for frac in (0.35, 0.75):
+        spawn_killed(f"supervised_mesh_kill{int(frac * 100)}", job, ref,
+                     frac)
+    first = run("supervised_mesh_first", lambda: TS.run_job(
+        TS.EpochJob(**SUP_MESH_FIRST), device="cuda"),
+        SUP_MESH_FIRST["epochs"] * SUP_MESH["n_shards"])
+
+    # (b) supervised_mesh_chaos: the fault plan inside the chunks
+    chaos_job = TS.EpochJob(**dict(SUP_MESH, fault_plan=MESH_FAULT_SPEC))
+    chaos = run("supervised_mesh_chaos", lambda: TS.run_job(
+        chaos_job, device="cuda"), shard_epochs)
+    killed("supervised_mesh_chaos_killed", chaos_job, chaos, 0.5)
+    plan = TF.plan_from_spec(TF.parse_fault_spec(MESH_FAULT_SPEC),
+                             SUP_MESH["epochs"], SUP_MESH["n_shards"])
+    ev = TF.plan_shard_events(plan)
+    md = obsdev.metrics_dict(chaos.metrics)
+    for key in ("server_dropouts", "tracker_resyncs", "faults_injected"):
+        if md[key] != int(ev[key].sum()):
+            raise AssertionError(f"supervised_mesh_chaos: {key} {md[key]},"
+                                 f" plan {int(ev[key].sum())}")
+    if not 0 < chaos.decisions < ref.decisions:
+        raise AssertionError("supervised_mesh_chaos: decisions "
+                             f"{chaos.decisions} vs clean {ref.decisions}")
+    log(f"[supervised_mesh_chaos] {MESH_FAULT_SPEC}: dropouts "
+        f"{md['server_dropouts']}, resyncs {md['tracker_resyncs']}, faults "
+        f"{md['faults_injected']} equal plan_shard_events (per shard "
+        f"{ev['server_dropouts'].tolist()} / "
+        f"{ev['tracker_resyncs'].tolist()}); {chaos.decisions} decisions "
+        f"against {ref.decisions} clean")
+
+    # (c) supervised_mesh_trip: tag32 trips, replays on the host loop
+    trip = run("supervised_mesh_trip", lambda: TS.run_job(
+        TS.EpochJob(**SUP_MESH_TRIP), device="cuda"))
+    wide = run("supervised_mesh_trip64", lambda: TS.run_job(
+        TS.EpochJob(**dict(SUP_MESH_TRIP, tag_width=64)), device="cuda"),
+        SUP_MESH_TRIP["epochs"] * SUP_MESH["n_shards"])
+    if trip.mesh_fallbacks < 1:
+        raise AssertionError("supervised_mesh_trip: no fallback")
+    a = trip.metrics.copy()
+    b = wide.metrics.copy()
+    a[MET_REBASE_FALLBACKS] = b[MET_REBASE_FALLBACKS] = 0
+    _same_result(trip._replace(metrics=a), wide._replace(metrics=b),
+                 "supervised_mesh_trip vs tag_width=64",
+                 skip=("restarts", "resumed_from", "digest",
+                       "mesh_fallbacks"))
+    log(f"[supervised_mesh_trip] tag_width=32 with client 0's tag 2^31 + 1"
+        f" ns ahead: {trip.mesh_fallbacks} chunks discarded and replayed "
+        f"on the host loop on the card ({trip.metrics[MET_REBASE_FALLBACKS]}"
+        f" rebase resumes); every result field equals the tag_width=64 "
+        f"job's but the digest (the tripped epochs also hash their "
+        f"discarded attempt), that metric row and mesh_fallbacks")
+
+    # (d) supervised_mesh_churn: p2c under the fault plan, killed at half
+    spec = make_spec(STORM_SCENARIO, **SUP_MESH_CHURN_SPEC)
+    cjob = TS.EpochJob(churn=spec, **SUP_MESH_CHURN)
+    cref = run("supervised_mesh_churn", lambda: TS.run_job(
+        cjob, device="cuda"),
+        SUP_MESH_CHURN["epochs"] * SUP_MESH_CHURN["n_shards"])
+    killed("supervised_mesh_churn_killed", cjob, cref, 0.5)
+    log(f"[supervised_mesh_churn] {STORM_SCENARIO} over "
+        f"{SUP_MESH_CHURN['n_shards']} shards, p2c under {MESH_FAULT_SPEC}:"
+        f" placement counters {cref.placement_counters}; lifecycle "
+        f"{ {k: v for k, v in cref.lifecycle.items() if k != 'shards'} }")
+    s1 = dict(SUP_MESH_CHURN, n_shards=1, fault_plan=None)
+    st1 = run("supervised_mesh_churn_s1", lambda: TS.run_job(
+        TS.EpochJob(churn=spec, **dict(s1, placement="static")),
+        device="cuda"))
+    p1 = run("supervised_mesh_churn_s1_p2c", lambda: TS.run_job(
+        TS.EpochJob(churn=spec, **s1), device="cuda"))
+    if (st1.digest, st1.state_digest, st1.lifecycle) != \
+            (p1.digest, p1.state_digest, p1.lifecycle) or \
+            not np.array_equal(st1.metrics, p1.metrics):
+        raise AssertionError("supervised_mesh_churn: S=1 p2c differs from "
+                             "S=1 static")
+    log("[supervised_mesh_churn] S=1 p2c equals S=1 static on the card "
+        "(digest, state, metrics, lifecycle): loop-neutral")
+
+    want = collect_cpu_twins(twin_proc, twin_path)
+    check_supervised(first, card, want["first"], "supervised_mesh_first")
+    check_supervised(cref, card, want["churn"], "supervised_mesh_churn")
+    log(f"[time] supervised mesh phase {time.perf_counter() - t_phase:.3f}"
+        f" s")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2791,18 +3184,21 @@ def main() -> int:
     ladder_k1 = phase_stop_ladder(serve, fastpath, kernels, _ext, card)
     wheel = phase_cfg4_wheel(serve, _ext, obsdev, card)
     t_rows = time.perf_counter()
-    cfg3_k1, st3, tele3, draws3, r3, _ = phase_cfg3(serve, _ext, obsdev,
-                                                     card)
-    stream_k1 = phase_cfg3_stream(serve, _ext, obsdev, card, st3, tele3,
-                                  draws3, r3)
-    del st3, tele3, draws3
-    cfg4_k1, cfg4_stream_k1, _ = phase_cfg4(serve, _ext, obsdev, card)
-    t_queue = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "twins.pt")
-        twins = start_cpu_twins(root, out)
-        sup_twin = sim_twins = mesh_twin = None
+        sust_out = os.path.join(tmp, "sustained_twins.pt")
+        sust_twin = start_sustained_twins(root, sust_out)
+        twins = sup_twin = sim_twins = mesh_twin = sup_mesh_twin = None
         try:
+            cfg3_k1, st3, tele3, draws3, r3, _, base3, cfg3_np = \
+                phase_cfg3(serve, _ext, obsdev, card)
+            stream_k1 = phase_cfg3_stream(serve, _ext, obsdev, card, st3,
+                                          tele3, draws3, r3, base3)
+            del st3, tele3, draws3
+            cfg4_k1, cfg4_stream_k1, _, cfg4_np = phase_cfg4(
+                serve, _ext, obsdev, card)
+            t_queue = time.perf_counter()
+            out = os.path.join(tmp, "twins.pt")
+            twins = start_cpu_twins(root, out)
             twin = functools.cache(lambda: collect_cpu_twins(twins, out))
             # both card runs first, so the twins have their time to finish
             run = phase_queue(serve, _ext)
@@ -2847,8 +3243,24 @@ def main() -> int:
             mesh_out = os.path.join(tmp, "mesh_twins.pt")
             mesh_twin = start_mesh_twins(root, mesh_out)
             mesh_k1, mesh_k2 = phase_mesh(_ext, card, mesh_out, mesh_twin)
+            # phase 23: the supervised mesh; its CPU twins start first
+            t_sup_mesh = time.perf_counter()
+            sm_out = os.path.join(tmp, "sup_mesh_twins.pt")
+            sup_mesh_twin = start_sup_mesh_twins(root, sm_out)
+            err = os.path.join(tmp, "supervised_mesh.err")
+            try:
+                with _stderr_to(err):
+                    sup_mesh_k1 = phase_supervised_mesh(
+                        _ext, card, tmp, sm_out, sup_mesh_twin)
+            except BaseException:
+                with open(err, errors="replace") as f:
+                    sys.stderr.write(f.read()[-6000:])
+                raise
+            check_sustained_twins(sust_twin, sust_out,
+                                  dict(cfg3=cfg3_np, cfg4=cfg4_np))
         finally:
-            for proc in (twins, sup_twin, mesh_twin):
+            for proc in (sust_twin, twins, sup_twin, mesh_twin,
+                         sup_mesh_twin):
                 if proc is not None:
                     _stop(proc)
             for proc, _ in (sim_twins or {}).values():
@@ -2859,8 +3271,9 @@ def main() -> int:
         f"the queue and push phases {t_churn - t_queue:.3f} s, the churn "
         f"phases {t_sup - t_churn:.3f} s, the supervised phase "
         f"{t_sims - t_sup:.3f} s, the simulators' phase "
-        f"{t_mesh - t_sims:.3f} s, the mesh phase {t_end - t_mesh:.3f} s; "
-        f"the whole script "
+        f"{t_mesh - t_sims:.3f} s, the mesh phase "
+        f"{t_sup_mesh - t_mesh:.3f} s, the supervised mesh phase "
+        f"{t_end - t_sup_mesh:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -2872,7 +3285,8 @@ def main() -> int:
                    churn_flash_crowd=churn_k1, churn_storm=storm_k1,
                    **sup_k1, **{p: n["ring_window"]
                                 for p, n in ds_by_path.items()},
-                   **{p: n for p, n in mesh_k1.items() if n})
+                   **{p: n for p, n in mesh_k1.items() if n},
+                   **sup_mesh_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     # minstop, cfg3, the stream chunks, the queue and churn, and the

@@ -31,11 +31,15 @@ Pieces:
   registration timing, slot recycling, growth and compaction leave the
   digest unchanged.
 
-Not ported yet: the per-shard plane (the JAX plane's ``shard=(s,
-n_shards)`` routing filters) and the live-migration halves
-(``migrate_out`` / ``migrate_in``), which the supervisor's mesh loop
-drives, and the placement map (``lifecycle/placement.py``);
-:meth:`LifecyclePlane.attach_placement` keeps the hook.
+- per-shard routing: ``shard=(s, n_shards)`` makes a plane one shard's
+  of a mesh job (the supervisor's mesh loop builds one per shard); it
+  sees only the scripted events and control ops of the client ids its
+  shard owns (the attached ``placement.PlacementMap``, else
+  ``slots.owner_shard``) and refuses a control op for another shard's id.
+
+Not ported yet: the live-migration halves (``migrate_out`` /
+``migrate_in``), which only the closed-loop controller fires (ROADMAP.md
+item 12).
 """
 
 from __future__ import annotations
@@ -223,10 +227,17 @@ class LifecyclePlane:
     """
 
     def __init__(self, spec: dict, *, workdir: Optional[str] = None,
-                 tracer=None):
+                 tracer=None, shard: Optional[Tuple[int, int]] = None):
+        """``shard=(s, n_shards)`` makes this shard ``s``'s plane of a
+        mesh job: scripted events and control ops are filtered to the
+        client ids shard ``s`` owns (:meth:`_owner_of`), so its slot map
+        covers only that partition.  ``shard=None`` is the single-shard
+        plane of the round and stream loops."""
         self.spec = dict(spec)
         self.static = bool(spec["static"])
         self.total = int(spec["total_ids"])
+        self.shard = None if shard is None \
+            else (int(shard[0]), int(shard[1]))
         self.slots = SlotMap(int(spec["capacity0"]))
         self.streak = np.zeros(self.total, dtype=np.int64)
         self.qos: Dict[int, Tuple[float, float, float]] = {}
@@ -244,8 +255,10 @@ class LifecyclePlane:
         # closed conformance windows attribute to exactly one
         # (client, contract_version) pair
         self._slo = None
-        # optional placement map (anything with ``shard_of(cid)``):
-        # when attached, registration ``order`` becomes the client id
+        # optional placement.PlacementMap, shared by every shard of a
+        # mesh job: when attached it is the routing contract
+        # (``_owner_of``) and registration ``order`` becomes the client
+        # id
         self.placement = None
 
     def attach_placement(self, pm) -> None:
@@ -286,6 +299,12 @@ class LifecyclePlane:
             raise ValueError(
                 f"client id {cid} outside the churn spec's id space "
                 f"[0, {self.total})")
+        if not self._owns(cid):
+            raise ValueError(
+                f"client id {cid} is owned by shard "
+                f"{self._owner_of(cid)}, not this plane's shard "
+                f"{self.shard[0]} (route by the placement map when "
+                f"attached, else slots.owner_shard)")
         if kind in ("register", "update"):
             validate_client_info(
                 (op["r"], op["w"], op["l"]), name=cid)
@@ -371,18 +390,34 @@ class LifecyclePlane:
             return out
 
     # -- scripted + pending op resolution ------------------------------
+    def _owner_of(self, cid: int) -> int:
+        """The routing contract in one place: the shared placement map
+        when one is attached, else the static ``slots.owner_shard``."""
+        if self.placement is not None:
+            return int(self.placement.shard_of(cid))
+        from .slots import owner_shard
+
+        return int(owner_shard(cid, self.shard[1]))
+
+    def _owns(self, cid: int) -> bool:
+        return self.shard is None or \
+            self._owner_of(cid) == self.shard[0]
+
     def _due_scripted(self, b: int, every: int) -> List[dict]:
         if self.static:
             out = []
             if b == 0:
                 for cid in range(self.total):
+                    if not self._owns(cid):
+                        continue
                     r, w, l = churn_mod.init_qos(self.spec, cid)
                     out.append({"op": "register", "cid": cid,
                                 "r": r, "w": w, "l": l})
             out += [e for e in churn_mod.events(self.spec, b, every)
-                    if e["op"] == "update"]
+                    if e["op"] == "update" and self._owns(e["cid"])]
             return out
-        return churn_mod.events(self.spec, b, every)
+        return [e for e in churn_mod.events(self.spec, b, every)
+                if self._owns(e["cid"])]
 
     # -- the boundary --------------------------------------------------
     def boundary(self, state: EngineState, b: int, every: int, *,
@@ -847,8 +882,10 @@ class LifecyclePlane:
     @classmethod
     def load(cls, payload: dict, spec: dict, *,
              workdir: Optional[str] = None,
-             tracer=None) -> "LifecyclePlane":
-        p = cls(spec, workdir=workdir, tracer=tracer)
+             tracer=None,
+             shard: Optional[Tuple[int, int]] = None
+             ) -> "LifecyclePlane":
+        p = cls(spec, workdir=workdir, tracer=tracer, shard=shard)
         p.slots = SlotMap.load(payload)
         p.streak = np.asarray(payload["lc_streak"],
                               dtype=np.int64).copy()

@@ -20,8 +20,9 @@ Counter rows add, ``*_MAX`` rows and ``last_served`` max; a dead tag32
 batch's observations never land (:func:`prov_select`).  Host side:
 :class:`StarvationMonitor` and the per-shard pressure vector
 (:func:`pressure_vec`, read by the stream chunk's ``with_pressure``
-probe).  The registry export is ROADMAP.md item 7; the mesh and
-shard helpers are item 11.
+probe), and the mesh's shard helpers (:func:`prov_mesh_reduce`, the
+pressure merges, :func:`publish_shard_pressure`).  The registry export
+is ROADMAP.md item 7.
 """
 
 from __future__ import annotations

@@ -16,8 +16,10 @@ the design).  Two halves:
    data, encoded into flat ``slo_*`` leaves and loaded back.
 
 The burn-rate evaluator (``obs/alerts.py``'s ``SloEvaluator``) and the
-registry export are ROADMAP.md item 7; the mesh merges (``*_mesh_reduce``,
-``window_combine_axis``, ``publish_shard_windows``) are item 11.
+registry export are ROADMAP.md item 7.  The mesh merges
+(``window_mesh_reduce``, ``window_combine_axis``, ``window_combine_np``,
+``publish_shard_windows``) serve the mesh chunk, its host replay and the
+supervised mesh.
 """
 
 from __future__ import annotations

@@ -31,8 +31,10 @@ stream: kernel K2 merges through one workspace per device
 (``engine/kernels.py``), so shards on separate streams would race.
 
 S=1 is bit-identical to the stream chunk by construction: both run
-``engine.stream.make_epoch_step``.  The supervised mesh (the guarded
-mesh chunk, the supervisor's mesh loop) is ROADMAP.md item 11b.
+``engine.stream.make_epoch_step``.  The guarded chunk and its host
+replay are ``robust.guarded.run_mesh_chunk_guarded`` and
+``mesh_chunk_host_replay``; the supervisor's mesh loop runs one chunk per
+checkpoint interval through them (``EpochJob(engine_loop="mesh")``).
 """
 
 from __future__ import annotations

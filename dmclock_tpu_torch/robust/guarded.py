@@ -558,3 +558,453 @@ class DegradationLadder:
                       for flag, (knob, fast, safe)
                       in zip(vec[:-1], LADDER_RUNGS) if flag]
         self._consecutive = int(vec[-1])
+
+
+# ----------------------------------------------------------------------
+# the guarded mesh chunk
+# ----------------------------------------------------------------------
+
+class MeshGuarded(NamedTuple):
+    """Result of :func:`run_mesh_chunk_guarded`: one mesh chunk of epochs
+    across all shards, drained to per-epoch rows.  Each row is a tuple of
+    per-shard result tuples in shard order (flatten a row for the chain
+    digest; the grouping lets a churn job apply each shard's canonical
+    slot->cid view to that shard's results).  At S=1 a flattened row is
+    the stream loop's."""
+
+    state: object            # stacked EngineState [S, ...]
+    cd: object               # int64[S, N] completion counters
+    cr: object
+    view_d: object           # int64[S, N] held counter views
+    view_r: object
+    epochs: tuple            # per-epoch tuples of per-shard tuples
+    counts: tuple            # per-epoch decisions over all shards (int)
+    guard_trips: tuple       # per-epoch rebase + serial fallbacks
+    mesh_fallback: int       # 1 when the chunk tripped a guard and was
+    #                          discarded and replayed on the host loop
+    retries: int
+    hists: object = None     # stacked telemetry accumulators
+    ledger: object = None
+    slo: object = None       # int64[S, N, W_FIELDS] per-shard blocks
+    prov: object = None
+    slo_merged: object = None  # int64[N, W_FIELDS] cluster-wide block
+    flight: object = None    # stacked per-shard flight rings
+    press: object = None     # int64[S, PRESS_FIELDS] per-shard peaks of
+    #                          the mid-epoch pressure probe over the chunk
+    #                          (with_pressure; down epochs read zeros on
+    #                          both legs)
+
+
+def _neutral_fields(engine: str, m: int, kw: dict, capacity: int) -> dict:
+    """Shapes and dtypes of one epoch's :data:`stream.STREAM_OUT_FIELDS`
+    as the epoch scans return them: ``[m]`` per-batch vectors, ``[m,
+    k]`` prefix and chain rows (``k`` padded, never cut to the
+    population), the calendar's ``served[capacity]`` and ``level_count[m,
+    L]`` (``L = 1`` for minstop, else the ladder's levels)."""
+    i8, i32, b = torch.int8, torch.int32, torch.bool
+    if engine == "prefix":
+        k = int(kw["k"])
+        return {"count": ((m,), i32), "guards_ok": ((m,), b),
+                "slot": ((m, k), i32), "phase": ((m, k), i8),
+                "cost": ((m, k), i32), "lb": ((m, k), b)}
+    if engine == "chain":
+        k = int(kw["k"])
+        return {"count": ((m,), i32), "unit_count": ((m,), i32),
+                "guards_ok": ((m,), b), "slot": ((m, k), i32),
+                "cls": ((m, k), i8), "length": ((m, k), i8)}
+    levels = 1 if kw["calendar_impl"] == "minstop" \
+        else int(kw["ladder_levels"])
+    return {"count": ((m,), i32), "resv_count": ((m,), i32),
+            "progress_ok": ((m,), b), "served": ((capacity,), i32),
+            "level_count": ((m, levels), i32)}
+
+
+def neutral_epoch_view(engine: str, state_slice, m: int, kw: dict,
+                       fault_met=None):
+    """The committed-nothing epoch result of a down shard, on the
+    shard's device as a live shard's row is: guard vectors True, slots
+    -1, every count, cost and class 0, metrics the epoch's fault-event
+    delta -- equal in dtype, shape and values to
+    ``parallel.mesh.mask_epoch_outs``'s masks of a real epoch, which is
+    what makes the host chaos replay digest-equal to the fused chaos
+    chunk.  The JAX package takes the shapes from ``eval_shape`` of the
+    epoch program; here they come from the epoch scans' output layout
+    (:func:`_neutral_fields`), nothing runs."""
+    from ..engine import fastpath
+    from ..obs import device as obsdev
+
+    dev = state_slice.device
+    fields = {}
+    for name, (shape, dtype) in _neutral_fields(
+            engine, m, kw, int(state_slice.capacity)).items():
+        if name in ("guards_ok", "progress_ok"):
+            fields[name] = torch.ones(shape, dtype=dtype, device=dev)
+        elif name == "slot":
+            fields[name] = torch.full(shape, -1, dtype=dtype, device=dev)
+        else:
+            fields[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    metrics = torch.zeros(obsdev.NUM_METRICS, dtype=torch.int64, device=dev)
+    if fault_met is not None:
+        metrics = metrics + torch.as_tensor(fault_met, dtype=torch.int64,
+                                            device=dev)
+    cls = {"prefix": fastpath.PrefixEpoch, "chain": fastpath.ChainEpoch,
+           "calendar": fastpath.CalendarEpoch}[engine]
+    return cls(state=None, metrics=metrics, **fields)
+
+
+def _fault_met_vec(dropout: bool, restart: bool, perturb: int):
+    """Host twin of the fused chunk's per-epoch fault metric delta (rows
+    9-11 of the metrics vector)."""
+    import numpy as np
+
+    from ..obs import device as obsdev
+
+    v = np.zeros(obsdev.NUM_METRICS, dtype=np.int64)
+    v[obsdev.MET_SERVER_DROPOUTS] = int(dropout)
+    v[obsdev.MET_TRACKER_RESYNCS] = int(restart)
+    v[obsdev.MET_FAULTS_INJECTED] = \
+        int(dropout) + int(restart) + int(perturb)
+    return v
+
+
+def _zero_window_stack(cd):
+    """A throwaway stacked zero window block for a caller whose SLO plane
+    is off: the counter plane diffs the block's delivered columns, and
+    only ``cd``/``cr`` persist."""
+    from ..obs import slo as obsslo
+    from ..parallel import mesh as mesh_mod
+
+    return mesh_mod.stack_shards(
+        obsslo.window_zero(int(cd.shape[1]), cd.device), int(cd.shape[0]))
+
+
+def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
+                           epoch0: int, counts, *, mesh,
+                           engine: str, epochs: int, m: int,
+                           k: int = 0, chain_depth: int = 4,
+                           dt_epoch_ns: int, waves: int,
+                           anticipation_ns: int = 0,
+                           allow_limit_break: bool = False,
+                           with_metrics: bool = True,
+                           select_impl: str = "sort",
+                           tag_width: int = 64,
+                           window_m: Optional[int] = None,
+                           calendar_impl: str = "minstop",
+                           ladder_levels: int = 8,
+                           counter_sync_every: int = 1,
+                           collective_skipping: Optional[bool] = None,
+                           with_pressure: bool = False,
+                           hists=None, ledger=None, slo=None,
+                           prov=None, flight=None, faults=None,
+                           retries: int = 3, base_s: float = 0.05,
+                           sleep: Callable[[float], None] = _time.sleep,
+                           on_retry=None, tracer=None) -> MeshGuarded:
+    """Run one fused mesh chunk (``parallel.mesh.build_mesh_chunk``)
+    under the guarded-commit contract at chunk granularity: bounded retry
+    around the one call and, on a guard trip anywhere in the chunk on any
+    shard, the whole chunk is discarded and its epochs replay epoch-major
+    and shard-minor on the host loop (:func:`mesh_chunk_host_replay`),
+    which reproduces the chunk's lockstep sync semantics: epoch e's views
+    on every shard read the cluster counters as of the end of epoch
+    e - 1.  The chunk never writes its inputs in place, so the replay
+    starts from the entry state.
+
+    ``counts`` is ``int32[S, E, N]`` raw draws (numpy or a tensor) or
+    None for serve-only chunks; ``slo`` a stacked window block or None
+    (a throwaway zero block rides then).  ``faults`` (a
+    ``robust.faults.FaultChunk`` or None) runs the fault model inside
+    the chunk, and the replay carries the same schedule.
+
+    ``collective_skipping=None`` resolves per chunk from the host-side
+    ``epoch0``: the grouped program only for a fault-free chunk whose
+    ``epochs`` divides by ``counter_sync_every`` > 1 and whose
+    ``epoch0`` lies on the sync grid (the bit-identity condition).  The
+    JAX package's ``wheel_kernel`` knob has no counterpart: the device
+    picks kernel K2's route, and every shard runs on the current
+    stream."""
+    import numpy as np
+
+    from ..engine import stream as stream_mod
+    from ..obs import spans as _spans
+    from ..parallel import mesh as mesh_mod
+
+    epochs = int(epochs)
+    n_shards = int(cd.shape[0])
+    if slo is None:
+        slo = _zero_window_stack(cd)
+    every = max(int(counter_sync_every), 1)
+    if collective_skipping is None:
+        collective_skipping = (faults is None and every > 1
+                               and epochs % every == 0
+                               and int(epoch0) % every == 0)
+    fn = mesh_mod.build_mesh_chunk(
+        mesh, engine=engine, epochs=epochs, m=m, k=k,
+        chain_depth=chain_depth, dt_epoch_ns=dt_epoch_ns, waves=waves,
+        anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, with_metrics=with_metrics,
+        select_impl=select_impl, tag_width=tag_width, window_m=window_m,
+        calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+        counter_sync_every=counter_sync_every,
+        collective_skipping=collective_skipping,
+        ingest=counts is not None, with_faults=faults is not None,
+        with_pressure=with_pressure)
+    retry_count = [0]
+
+    def count_retry(attempt, exc):
+        retry_count[0] += 1
+        _spans.instant(tracer, "mesh.retry", "retry",
+                       error=type(exc).__name__)
+        if on_retry is not None:
+            on_retry(attempt, exc)
+
+    counts_dev = None
+    if counts is not None:
+        counts_dev = counts.to(cd.device, torch.int32) \
+            if torch.is_tensor(counts) else torch.from_numpy(
+                np.ascontiguousarray(counts, dtype=np.int32)).to(cd.device)
+
+    def one():
+        with _spans.span(tracer, "mesh.dispatch", "dispatch",
+                         engine=engine, epochs=epochs, shards=n_shards,
+                         chaos=faults is not None):
+            out = fn(state, cd, cr, view_d, view_r, int(epoch0),
+                     counts_dev, hists, ledger, slo, prov, flight, faults)
+        with _spans.span(tracer, "mesh.device_wait", "device_compute"):
+            _device_wait(out.cd)
+        return out
+
+    out = retry_with_backoff(one, retries=retries, base_s=base_s,
+                             sleep=sleep, on_retry=count_retry)
+    # the chunk's one read back: every stacked output, the guard rows
+    # among them
+    fetched = {name: v.cpu() for name, v in out.outs.items()}
+    if bool(fetched[stream_mod.STREAM_GUARD_FIELD[engine]].all()):
+        press = None
+        if with_pressure:
+            # per-shard chunk peaks: the max over the epoch axis (down
+            # epochs read zeros, a no-op on the nonnegative fields)
+            press = fetched["pressure"].numpy().astype(np.int64).max(
+                axis=1)
+        return MeshGuarded(
+            state=out.state, cd=out.cd, cr=out.cr, view_d=out.view_d,
+            view_r=out.view_r,
+            epochs=tuple(mesh_mod.mesh_epoch_results(engine, fetched, i)
+                         for i in range(epochs)),
+            counts=tuple(mesh_mod.mesh_epoch_decisions(engine, fetched, i)
+                         for i in range(epochs)),
+            guard_trips=(0,) * epochs, mesh_fallback=0,
+            retries=retry_count[0], hists=out.hists, ledger=out.ledger,
+            slo=out.slo, prov=out.prov, slo_merged=out.slo_merged,
+            flight=out.flight, press=press)
+
+    _spans.instant(tracer, "mesh.fallback", "retry", engine=engine,
+                   epochs=epochs, shards=n_shards,
+                   chaos=faults is not None)
+    return mesh_chunk_host_replay(
+        state, cd, cr, view_d, view_r, epoch0, counts_dev,
+        engine=engine, epochs=epochs, m=m, k=k, chain_depth=chain_depth,
+        dt_epoch_ns=dt_epoch_ns, waves=waves,
+        anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, with_metrics=with_metrics,
+        select_impl=select_impl, tag_width=tag_width, window_m=window_m,
+        calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+        counter_sync_every=counter_sync_every,
+        with_pressure=with_pressure, hists=hists, ledger=ledger,
+        slo=slo, prov=prov, flight=flight, faults=faults,
+        retries=retries, base_s=base_s, sleep=sleep, on_retry=on_retry,
+        tracer=tracer, _retries_so_far=retry_count[0])
+
+
+def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
+                           epoch0: int, counts, *,
+                           engine: str, epochs: int, m: int,
+                           k: int = 0, chain_depth: int = 4,
+                           dt_epoch_ns: int, waves: int,
+                           anticipation_ns: int = 0,
+                           allow_limit_break: bool = False,
+                           with_metrics: bool = True,
+                           select_impl: str = "sort",
+                           tag_width: int = 64,
+                           window_m: Optional[int] = None,
+                           calendar_impl: str = "minstop",
+                           ladder_levels: int = 8,
+                           counter_sync_every: int = 1,
+                           with_pressure: bool = False,
+                           hists=None, ledger=None, slo=None,
+                           prov=None, flight=None, faults=None,
+                           retries: int = 3, base_s: float = 0.05,
+                           sleep: Callable[[float], None] = _time.sleep,
+                           on_retry=None, tracer=None,
+                           _retries_so_far: int = 0) -> MeshGuarded:
+    """The host loop: one mesh chunk's epochs epoch-major and shard-minor
+    on the per-epoch path (``stream.ingest_step`` and
+    :func:`run_epoch_guarded` on each shard's view ``x[s]``), with the
+    counter-view sum taken on the host on the same global sync grid and,
+    with ``faults``, the in-chunk fault semantics of
+    ``parallel.mesh.build_mesh_chunk``: a down shard runs nothing and
+    contributes a :func:`neutral_epoch_view` row, its state, telemetry
+    and counters frozen; a restart re-syncs its views off the grid; dup
+    doubles the completion fold; skew lenses the shard's clock; fault
+    events patch the epoch's metrics rows.
+
+    It is both the guard-trip fallback of :func:`run_mesh_chunk_guarded`
+    and the reference the chaos chunk is held to.  Every launch runs on
+    the current stream on the card the state lies on, as the fused chunk
+    does, and launches the same kernels.  The views ``x[s]`` are read,
+    never written: every step returns new tensors, and the restack at
+    the end copies."""
+    import numpy as np
+
+    from ..engine import fastpath
+    from ..engine import stream as stream_mod
+    from ..obs import slo as obsslo
+    from ..parallel.cluster import shard_view, stack_trees
+    from ..parallel.tracker import global_counters_from
+
+    epochs = int(epochs)
+    n_shards = int(cd.shape[0])
+    dev = cd.device
+    if slo is None:
+        slo = _zero_window_stack(cd)
+    if counts is not None and not torch.is_tensor(counts):
+        counts = torch.from_numpy(
+            np.ascontiguousarray(counts, dtype=np.int32)).to(dev)
+    every = max(int(counter_sync_every), 1)
+    retry_count = [_retries_so_far]
+    sts = [shard_view(state, s) for s in range(n_shards)]
+    cur = {name: [shard_view(acc, s) for s in range(n_shards)]
+           for name, acc in (("hists", hists), ("ledger", ledger),
+                             ("slo", slo), ("prov", prov),
+                             ("flight", flight))}
+    cd_np = cd.cpu().numpy().astype(np.int64)
+    cr_np = cr.cpu().numpy().astype(np.int64)
+    vd_np = view_d.cpu().numpy().astype(np.int64)
+    vr_np = view_r.cpu().numpy().astype(np.int64)
+    if faults is not None:
+        f_up, f_skew, f_delay, f_dup, up_prev = (
+            (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a))
+            .astype(dt) for a, dt in zip(faults, (bool, np.int64, bool,
+                                                  bool, bool)))
+        up_prev = up_prev.copy()
+    neutral_kw = fastpath.epoch_scan_kwargs(
+        engine, k=k, chain_depth=chain_depth, select_impl=select_impl,
+        tag_width=tag_width, window_m=window_m,
+        calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+        anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, with_metrics=with_metrics)
+    press_np = None
+    if with_pressure:
+        from ..obs import provenance as obsprov
+        press_np = np.zeros((n_shards, obsprov.PRESS_FIELDS),
+                            dtype=np.int64)
+    dt = int(dt_epoch_ns)
+    ep_rows, count_rows, trip_rows = [], [], []
+    for i in range(epochs):
+        t_base = (int(epoch0) + i) * dt
+        sync = (int(epoch0) + i) % every == 0
+        # the epoch-entry sum, from the counters as of the end of epoch
+        # i - 1; taken only when some shard can refresh this epoch (a
+        # sync epoch, or an off-grid restart)
+        may_refresh = sync or (
+            faults is not None and bool((f_up[:, i] & ~up_prev).any()))
+        g_d = g_r = None
+        if may_refresh:
+            g_d, g_r = global_counters_from(cd_np, cr_np,
+                                            lambda x: x.sum(axis=0))
+        row, n_dec, trips = [], 0, 0
+        for s in range(n_shards):
+            if faults is not None:
+                up, skew = bool(f_up[s, i]), int(f_skew[s, i])
+                delay, dup = bool(f_delay[s, i]), bool(f_dup[s, i])
+                restart = up and not up_prev[s]
+                dropout = (not up) and up_prev[s]
+                refresh = (sync and up and not delay) or restart
+                perturb = (int(dup and up) + int(delay and up)
+                           + int(skew != 0 and up))
+            else:
+                up, skew, dup = True, 0, False
+                restart = dropout = False
+                perturb = 0
+                refresh = sync
+            if refresh:
+                vd_np[s] = g_d
+                vr_np[s] = g_r
+            if not up:
+                # down this epoch: nothing runs or commits (arrivals
+                # posted to it are lost); the row reads the neutrals
+                row.append((neutral_epoch_view(
+                    engine, sts[s], m, neutral_kw,
+                    _fault_met_vec(dropout, restart, perturb)),))
+                continue
+            if counts is not None:
+                sts[s] = stream_mod.ingest_step(
+                    sts[s], counts[s, i], t_base + skew, dt_epoch_ns=dt,
+                    waves=waves)
+            if press_np is not None:
+                # the fused chunk's probe: post-ingest, pre-serve, at
+                # the shard's (skewed) serve time
+                press_np[s] = np.maximum(press_np[s], obsprov.pressure_vec(
+                    sts[s], t_base + skew + dt).cpu().numpy())
+            w_prev = cur["slo"][s]
+            ep = run_epoch_guarded(
+                sts[s], t_base + dt, engine=engine, m=m, k=k,
+                chain_depth=chain_depth, anticipation_ns=anticipation_ns,
+                allow_limit_break=allow_limit_break,
+                with_metrics=with_metrics, select_impl=select_impl,
+                tag_width=tag_width, window_m=window_m,
+                calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+                skew_ns=skew, hists=cur["hists"][s],
+                ledger=cur["ledger"][s], flight=cur["flight"][s],
+                slo=w_prev, prov=cur["prov"][s], retries=retries,
+                base_s=base_s, sleep=sleep, on_retry=on_retry,
+                tracer=tracer)
+            sts[s] = ep.state
+            for name in cur:
+                if cur[name][s] is not None:
+                    cur[name][s] = getattr(ep, name)
+            cols = [obsslo.W_OPS, obsslo.W_RESV_OPS]
+            delta = (ep.slo[:, cols] - w_prev[:, cols]).cpu().numpy() \
+                .astype(np.int64) * (2 if dup else 1)
+            cd_np[s] += delta[:, 0]
+            cr_np[s] += delta[:, 1]
+            retry_count[0] += ep.retries
+            results = ep.results
+            if restart or perturb:
+                # the fused chunk folds the epoch's fault-event delta
+                # into its metrics row; patch the first result so the
+                # metric totals match
+                fv = torch.from_numpy(_fault_met_vec(False, restart,
+                                                     perturb))
+                r0 = results[0]
+                results = (r0._replace(
+                    metrics=r0.metrics + fv.to(r0.metrics.device)),) \
+                    + results[1:]
+            row.append(tuple(results))
+            n_dec += ep.count
+            trips += ep.rebase_fallbacks + ep.serial_fallbacks
+        if faults is not None:
+            up_prev = f_up[:, i].copy()
+        ep_rows.append(tuple(row))
+        count_rows.append(n_dec)
+        trip_rows.append(trips)
+
+    def restack(parts):
+        return None if any(p is None for p in parts) \
+            else stack_trees(parts)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    slo_stacked = restack(cur["slo"])
+    return MeshGuarded(
+        state=restack(sts), cd=put(cd_np), cr=put(cr_np),
+        view_d=put(vd_np), view_r=put(vr_np), epochs=tuple(ep_rows),
+        counts=tuple(count_rows), guard_trips=tuple(trip_rows),
+        mesh_fallback=1, retries=retry_count[0],
+        hists=restack(cur["hists"]), ledger=restack(cur["ledger"]),
+        slo=slo_stacked, prov=restack(cur["prov"]),
+        flight=restack(cur["flight"]),
+        slo_merged=put(obsslo.window_combine_np(
+            np.zeros(tuple(slo_stacked.shape[1:]), dtype=np.int64),
+            *slo_stacked.cpu().numpy())),
+        press=press_np)

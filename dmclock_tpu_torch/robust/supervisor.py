@@ -35,10 +35,22 @@ spawn child reads it from ``job.json``.
 checkpoint interval through ``robust.guarded.run_stream_chunk_guarded``,
 drawing chunk T+1's arrivals while the card runs chunk T.
 
-Not here yet, and refused rather than run another way: the mesh loop
-(``engine_loop="mesh"``), its device fault plans (``fault_plan``) and
-shard placement (``placement="p2c"``) are ROADMAP.md item 11; the
-closed-loop controller (``controller``) is item 12.
+``engine_loop="mesh"`` runs ``n_shards`` full engines, stacked as a
+leading axis on one card (``parallel.mesh``), one fused mesh chunk per
+checkpoint interval through ``robust.guarded.run_mesh_chunk_guarded``
+(a chunk that trips a guard replays on the host loop:
+``mesh_fallbacks``).  The delta/rho counter plane rides the snapshots
+as the ``mesh_*`` leaves.  ``fault_plan`` samples a ``FaultPlan`` over
+(epochs, shards) from its spec at every incarnation and runs it inside
+the chunks; ``churn`` runs per-shard lifecycle planes, routed by
+``cid % n_shards`` or, with ``placement="p2c"``, by a checkpointed
+``lifecycle.placement.PlacementMap``.  S=1 equals the stream loop bit
+for bit.  Unlike the JAX loop, which needs one device a shard, any
+``n_shards`` runs on the one card.
+
+Refused rather than run another way: the closed-loop controller
+(``controller``) and the live migrations it fires are ROADMAP.md item
+12.
 
 Kernel launches are counted per process (``engine._ext.LAUNCHES``), so a
 spawn child's launches are not visible to its parent.
@@ -132,12 +144,19 @@ class EpochJob:
     #                                 checkpoint commits
     with_prov: bool = False         # the provenance block
     # "round": ingest and one guarded epoch per epoch; "stream": one
-    # fused chunk per checkpoint interval; "mesh" is ROADMAP.md item 11b
+    # fused chunk per checkpoint interval; "mesh": one fused mesh chunk
+    # of n_shards engines per checkpoint interval
     engine_loop: str = "round"
-    # mesh-only knobs (ROADMAP.md item 11b), kept for the JSON
+    # mesh knobs: shard count and the counter-exchange grid (views
+    # refresh on epochs where epoch % counter_sync_every == 0)
     n_shards: int = 1
     counter_sync_every: int = 1
+    # "static" (cid % n_shards, no map built), "p2c" or {"mode": "p2c",
+    # "overrides": {cid: shard}}: placement of a mesh churn job's
+    # registrations (lifecycle.placement)
     placement: object = "static"
+    # a fault-plan spec (dict, or the "seed=..,p_dropout=.." string) of
+    # a mesh job, sampled per incarnation and run inside the chunks
     fault_plan: object = None
     # the closed-loop controller, ROADMAP.md item 12 (None/False = off)
     controller: object = None
@@ -153,8 +172,8 @@ class EpochJob:
 
 class SupervisedResult(NamedTuple):
     """What a completed (bare or supervised) run reports: the JAX
-    package's fields.  The mesh, controller and placement fields stay
-    at their defaults until ROADMAP.md items 11 and 12 land."""
+    package's fields.  The controller fields stay at their defaults
+    until ROADMAP.md item 12 lands, and ``migrations`` at 0."""
 
     digest: str         # hex decision-stream chain digest
     state_digest: str   # sha256 over the final engine state leaves
@@ -242,26 +261,60 @@ def assert_crash_equivalent(interrupted: SupervisedResult,
 # ----------------------------------------------------------------------
 
 def _check_job(job: EpochJob) -> None:
-    """Refuse what the port does not run yet, by name."""
+    """The JAX loop's composition checks, and a refusal by name of what
+    the port does not run yet.  Not checked: ``n_shards`` against the
+    device count (the shards share the one card)."""
     from ..lifecycle.placement import parse_placement
+    from .faults import parse_fault_spec
 
-    if job.engine_loop == "mesh":
-        raise NotImplementedError(
-            "EpochJob(engine_loop='mesh') is the supervised mesh "
-            "(ROADMAP.md item 11b): not ported yet; the mesh chunk "
-            "itself is parallel.mesh")
-    if job.engine_loop not in ("round", "stream"):
+    if job.engine_loop not in ("round", "stream", "mesh"):
         raise ValueError(f"unknown engine_loop {job.engine_loop!r} "
-                         "(one of 'round', 'stream')")
-    if job.fault_plan is not None:
-        raise ValueError(
-            "EpochJob(fault_plan=...) is the supervised mesh's fault "
-            "model (engine_loop='mesh', ROADMAP.md item 11b): not ported "
-            "yet")
-    if parse_placement(job.placement)[0] != "static":
+                         "(one of 'round', 'stream', 'mesh')")
+    pl_mode, _ = parse_placement(job.placement)   # validates the spec
+    if pl_mode != "static" and (job.engine_loop != "mesh"
+                                or job.churn is None):
         raise ValueError(
             "EpochJob(placement='p2c') is the mesh churn placement "
-            "plane (ROADMAP.md item 11b): not ported yet")
+            "plane (engine_loop='mesh' + churn=...): power-of-two-"
+            "choices needs per-shard pressure to choose between and "
+            "an open population to place")
+    if job.engine_loop == "mesh":
+        if job.churn is not None and job.with_slo:
+            raise ValueError(
+                "EpochJob(engine_loop='mesh', churn=...) does not "
+                "compose with with_slo: the cluster-wide window table "
+                "is slot-indexed, and per-shard slot layouts diverge "
+                "under churn")
+        if job.churn is not None and job.fault_plan is not None \
+                and pl_mode == "static":
+            raise ValueError(
+                "EpochJob(engine_loop='mesh') does not compose churn "
+                "with fault_plan under placement='static': a static "
+                "map has no answer for a registration routed to a "
+                "DOWN shard.  placement='p2c' does (re-route to the "
+                "live sampled choice, defer one boundary when both "
+                "are down) -- pass placement='p2c'")
+        if job.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, "
+                             f"got {job.n_shards}")
+        if job.churn is not None and \
+                job.churn.get("scenario") == "shard_skew" and \
+                int(job.churn.get("n_shards", 0)) != job.n_shards:
+            raise ValueError(
+                f"shard_skew spec was built for "
+                f"n_shards={job.churn.get('n_shards')} but the job "
+                f"runs {job.n_shards} shards -- pass "
+                f"make_spec('shard_skew', n_shards={job.n_shards})")
+    if job.fault_plan is not None:
+        if job.engine_loop != "mesh":
+            raise ValueError(
+                "EpochJob(fault_plan=...) is the in-chunk mesh fault "
+                "model (engine_loop='mesh'); the round and stream loops "
+                "take faults through robust.cluster")
+        if parse_fault_spec(job.fault_plan) is None:
+            raise ValueError(f"fault_plan spec did not parse: "
+                             f"{job.fault_plan!r} (expected keys like "
+                             f"seed=.., p_dropout=..)")
     if job.controller not in (None, False):
         raise NotImplementedError(
             "EpochJob(controller=...) is the closed-loop controller, "
@@ -273,11 +326,18 @@ def _check_job(job: EpochJob) -> None:
 def _job_state(job: EpochJob, device):
     """The preloaded engine state (staggered proportion tags, ``depth``
     queued ops per client), or for a churn job an empty state at the
-    spec's initial capacity."""
+    spec's initial capacity.  A mesh job's is the stacked ``[S, ...]``
+    layout: every shard owns a distinct ``n``-client partition with this
+    same contract layout."""
     from ..core.timebase import rate_to_inv_ns
     from ..engine.state import init_state
 
     dev = resolve_device(device)
+    if job.engine_loop == "mesh":
+        from ..parallel import mesh as mesh_mod
+
+        single = dataclasses.replace(job, engine_loop="stream")
+        return mesh_mod.stack_shards(_job_state(single, dev), job.n_shards)
     if job.churn is not None:
         return init_state(int(job.churn["capacity0"]), job.ring,
                           device=dev)
@@ -342,32 +402,32 @@ def _host64(x) -> np.ndarray:
     return np.asarray(x, dtype=np.int64)
 
 
-# the mesh counter plane's and the controller's zero-size leaves
-# (ROADMAP.md items 11 and 12): every payload carries them, so its
-# structure is the JAX package's whatever the job
+# the mesh counter plane's leaves (zero-size off the mesh) and the
+# controller's zero-size leaves (ROADMAP.md item 12): every payload
+# carries them, so its structure is the JAX package's whatever the job
 _MESH_KEYS = ("mesh_cd", "mesh_cr", "mesh_vd", "mesh_vr")
 _CTL_KNOBS, _CTL_RULES = 5, 8
 
 
-def _absent_plane_leaves() -> dict:
-    from ..lifecycle import placement as placement_mod
-
-    return {**{k: np.zeros((0,), dtype=np.int64) for k in _MESH_KEYS},
-            "ctl_cursor": np.zeros((), dtype=np.int64),
+def _absent_ctl_leaves() -> dict:
+    return {"ctl_cursor": np.zeros((), dtype=np.int64),
             "ctl_knobs": np.zeros((_CTL_KNOBS,), dtype=np.int64),
-            "ctl_policy": np.zeros((2 * _CTL_RULES,), dtype=np.int64),
-            **placement_mod.empty_leaves()}
+            "ctl_policy": np.zeros((2 * _CTL_RULES,), dtype=np.int64)}
 
 
 def _payload(job: EpochJob, state, rng, met, digest: bytes,
              epoch: int, decisions: int, ladder_vec, hists=None,
              ledger=None, flight=None, plane=None, slo=None,
-             prov=None) -> dict:
+             prov=None, mesh=None, pm=None) -> dict:
     """The snapshot: the JAX package's leaves, key for key.  Every leaf
     is present whatever the job (zero-size when off), so the restore
     template's structure depends on the config only.  ``rng`` is the
-    live generator (round loop) or a state array (stream loop, whose
-    double buffer has drawn past the boundary)."""
+    live generator (round loop) or a state array (stream and mesh
+    loops, whose draws run ahead of the boundary).  A mesh churn job's
+    ``plane`` is the list of per-shard planes, each encoded under
+    ``lc_s{s}_*``; ``mesh`` is its ``(cd, cr, vd, vr)`` counter plane
+    and ``pm`` its placement map."""
+    from ..lifecycle import placement as placement_mod
     from ..lifecycle.plane import LifecyclePlane
     from ..obs import flight as obsflight
     from ..obs.alerts import SloEvaluator
@@ -375,8 +435,18 @@ def _payload(job: EpochJob, state, rng, met, digest: bytes,
     z = np.zeros((0,), dtype=np.int64)
     rng_arr = np.asarray(rng, dtype=np.uint64) \
         if isinstance(rng, np.ndarray) else _rng_state_array(rng)
-    lc = plane.encode() if plane is not None \
-        else LifecyclePlane.empty_leaves()
+    if isinstance(plane, (list, tuple)):
+        lc = dict(LifecyclePlane.empty_leaves())
+        for s, pl in enumerate(plane):
+            lc.update({f"lc_s{s}{k[2:]}": v
+                       for k, v in pl.encode().items()})
+    elif plane is not None:
+        lc = plane.encode()
+    else:
+        lc = LifecyclePlane.empty_leaves()
+    mz = {k: z if mesh is None else _host64(v)
+          for k, v in zip(_MESH_KEYS, mesh or (None,) * 4)}
+    pmz = pm.encode() if pm is not None else placement_mod.empty_leaves()
     if slo is not None:
         sl = {"slo_window": _host64(slo[0]), **slo[1].encode(),
               **slo[2].encode()}
@@ -385,7 +455,7 @@ def _payload(job: EpochJob, state, rng, met, digest: bytes,
                                      dtype=np.int64),
               **obsslo.SloPlane.empty_leaves(),
               **SloEvaluator.empty_leaves()}
-    return {**lc, **sl, **_absent_plane_leaves(),
+    return {**lc, **sl, **mz, **_absent_ctl_leaves(), **pmz,
             "digest": np.frombuffer(digest, dtype=np.uint8).copy(),
             "decisions": np.int64(decisions),
             "engine": state,
@@ -422,24 +492,94 @@ def _tele_init(job: EpochJob, device):
     flight = obsflight.flight_init(job.flight_records, device) \
         if job.flight_records else None
     prov = obsprov.prov_init(n, device=device) if job.with_prov else None
+    if job.engine_loop == "mesh":
+        # per-shard stacks: each shard's epochs carry their own
+        from ..parallel import mesh as mesh_mod
+
+        hists, ledger, flight, prov = (
+            None if acc is None else mesh_mod.stack_shards(acc,
+                                                           job.n_shards)
+            for acc in (hists, ledger, flight, prov))
     return hists, ledger, flight, prov
+
+
+def _placement_map(job: EpochJob, *, payload=None):
+    """The shared ``lifecycle.placement.PlacementMap`` of a mesh churn
+    job with ``placement != "static"``, None otherwise (the static path
+    builds no map).  Pins and overrides re-derive from the job; the
+    assignment, RNG, counters and deferrals restore from the ``pm_*``
+    leaves of ``payload``."""
+    from ..lifecycle import placement as placement_mod
+
+    mode, overrides = placement_mod.parse_placement(job.placement)
+    if mode == "static" or job.churn is None \
+            or job.engine_loop != "mesh":
+        return None
+    pm = placement_mod.PlacementMap(
+        job.n_shards, int(job.churn["total_ids"]), mode=mode,
+        seed=job.seed,
+        pins=placement_mod.placement_pins(job.churn, job.n_shards),
+        overrides=overrides)
+    if payload is not None:
+        pm.load(payload)
+    return pm
+
+
+def _mesh_planes(job: EpochJob, *, tracer=None, payload=None, pm=None):
+    """The per-shard lifecycle planes of a mesh churn job (ids routed by
+    ``pm`` when there is one, else by ``cid % n_shards``), fresh or
+    restored from the ``lc_s{s}_*`` leaves.  They run without a workdir:
+    mesh churn is scripted events only (the admin API and its WAL are a
+    single plane's)."""
+    from ..lifecycle.plane import LifecyclePlane
+
+    planes = []
+    for s in range(job.n_shards):
+        if payload is not None:
+            pre = f"lc_s{s}_"
+            sub = {"lc_" + k[len(pre):]: v
+                   for k, v in payload.items() if k.startswith(pre)}
+            planes.append(LifecyclePlane.load(
+                sub, job.churn, tracer=tracer, shard=(s, job.n_shards)))
+        else:
+            planes.append(LifecyclePlane(job.churn, tracer=tracer,
+                                         shard=(s, job.n_shards)))
+        if pm is not None:
+            planes[-1].attach_placement(pm)
+    return planes
 
 
 def _payload_like(job: EpochJob, device) -> dict:
     """The restore template.  Its SLO leaves stay the empty-leaf shapes
     even for SLO jobs: their axis 0 is runtime state, so such jobs
-    restore with the axis-0 relaxation."""
+    restore with the axis-0 relaxation (a mesh job's stacked window
+    block keeps its rank and trailing dims)."""
     from ..lifecycle.plane import LifecyclePlane
     from ..obs import device as obsdev
+    from ..obs import slo as obsslo
 
     hists, ledger, flight, prov = _tele_init(job, device)
-    plane = LifecyclePlane(job.churn) if job.churn is not None else None
-    return _payload(job, _job_state(job, device),
+    mesh = plane = None
+    pm = _placement_map(job)
+    if job.engine_loop == "mesh":
+        from ..parallel import mesh as mesh_mod
+
+        n0 = int(job.churn["capacity0"]) if job.churn is not None \
+            else job.n
+        mesh = mesh_mod.counter_init(job.n_shards, n0, device=device)
+    if job.churn is not None:
+        plane = _mesh_planes(job, pm=pm) if job.engine_loop == "mesh" \
+            else LifecyclePlane(job.churn)
+    tmpl = _payload(job, _job_state(job, device),
                     np.random.Generator(np.random.PCG64(job.seed)),
                     np.zeros(obsdev.NUM_METRICS, dtype=np.int64),
                     b"\x00" * 32, 0, 0, DegradationLadder().encode(),
                     hists=hists, ledger=ledger, flight=flight,
-                    prov=prov, plane=plane)
+                    prov=prov, plane=plane, mesh=mesh, pm=pm)
+    if job.engine_loop == "mesh" and job.with_slo:
+        tmpl["slo_window"] = np.zeros((0, job.n, obsslo.W_FIELDS),
+                                      dtype=np.int64)
+    return tmpl
 
 
 def _slo_log_flush(slo_plane, slo_log, closed) -> None:
@@ -549,14 +689,14 @@ def _boundary_with_prov(plane, state, b, every, ledger, slo_block,
 
 
 def _crash_dump(job: EpochJob, flight) -> None:
-    """The crash hook: dump the flight ring before the incarnation dies
-    (best effort: it must never mask the original error).  No span
-    flush: spans since the last boundary describe epochs a resume will
-    replay."""
+    """The crash hook: dump the flight ring (a mesh job's per-shard
+    rings with a shard column) before the incarnation dies (best effort:
+    it must never mask the original error).  No span flush: spans since
+    the last boundary describe epochs a resume will replay."""
     if job.flight_dump and flight is not None:
         from ..obs import flight as obsflight
         try:
-            n = obsflight.flight_dump(flight, job.flight_dump)
+            n = obsflight.flight_dump_any(flight, job.flight_dump)
             print(f"# supervisor: dumped {n} flight records to "
                   f"{job.flight_dump}", file=sys.stderr)
         except Exception:
@@ -616,8 +756,29 @@ class _Run:
                 payload = None
         if payload is not None:
             self._resume(payload, workdir)
+        self.mesh_ctrs = self.planes = self.pm = None
+        self.mesh_fallbacks = self.mesh_chaos_fallbacks = 0
+        if job.engine_loop == "mesh":
+            from ..parallel import mesh as mesh_mod
+
+            if payload is not None:
+                self.mesh_ctrs = tuple(
+                    torch.from_numpy(np.ascontiguousarray(
+                        payload[k], dtype=np.int64)).to(dev)
+                    for k in _MESH_KEYS)
+            else:
+                # per-slot counters follow the slot layout: a churn
+                # job's start at the spec's capacity0
+                n0 = int(job.churn["capacity0"]) \
+                    if job.churn is not None else job.n
+                self.mesh_ctrs = mesh_mod.counter_init(job.n_shards, n0,
+                                                       device=dev)
         self.plane = None
-        if job.churn is not None:
+        if job.churn is not None and job.engine_loop == "mesh":
+            self.pm = _placement_map(job, payload=payload)
+            self.planes = _mesh_planes(job, tracer=self.tracer,
+                                       payload=payload, pm=self.pm)
+        elif job.churn is not None:
             from ..lifecycle.plane import LifecyclePlane
             self.plane = LifecyclePlane.load(
                 payload, job.churn, workdir=workdir,
@@ -693,11 +854,21 @@ class _Run:
             self.slo_block = obsslo.window_zero(n0, self.dev)
             if job.churn is None:
                 # closed population: every slot a client with a fixed
-                # contract, registered once from the device's rates
+                # contract, registered once from the device's rates (a
+                # mesh job reads shard 0: every partition shares one
+                # contract layout, and the rolled table sums the S
+                # like-contracted clients of a slot)
                 st = self.state
+                if job.engine_loop == "mesh":
+                    from ..parallel import mesh as mesh_mod
+                    st = mesh_mod.unstack_shard(st)
                 self.slo_plane.register_from_inv(
                     st.resv_inv, st.weight_inv, st.limit_inv)
                 self.slo_block = self.slo_plane.stamp(self.slo_block)
+            if job.engine_loop == "mesh":
+                from ..parallel import mesh as mesh_mod
+                self.slo_block = mesh_mod.stack_shards(self.slo_block,
+                                                       job.n_shards)
             self.slo_eval = SloEvaluator(self.slo_plane)
         if self.plane is not None:
             self.plane.attach_slo(self.slo_plane)
@@ -809,9 +980,11 @@ class _Run:
                 job, self.state, rng, self.met, self.digest, epoch,
                 self.decisions, self.ladder.encode(), hists=self.hists,
                 ledger=self.ledger, flight=self.flight, prov=self.prov,
-                plane=self.plane,
+                plane=self.planes if self.planes is not None
+                else self.plane,
                 slo=None if self.slo_plane is None
-                else (self.slo_block, self.slo_plane, self.slo_eval))
+                else (self.slo_block, self.slo_plane, self.slo_eval),
+                mesh=self.mesh_ctrs, pm=self.pm)
 
             def save():
                 return ckpt_mod.save_pytree_rotating(
@@ -828,34 +1001,81 @@ class _Run:
 
     def result(self) -> SupervisedResult:
         job = self.job
+        state, hists, ledger, prov, flight, slo_block = (
+            self.state, self.hists, self.ledger, self.prov, self.flight,
+            self.slo_block)
         kw = {}
-        if self.prov is not None:
-            kw.update(prov_margin_hist=_host64(self.prov.margin_hist),
-                      prov_scal=_host64(self.prov.scal),
-                      prov_last_served=_host64(self.prov.last_served))
+        if self.pm is not None:
+            kw.update(placement=self.pm.mode,
+                      migrations=int(self.pm.counters["migrations"]),
+                      migration_log=[],
+                      placement_counters={
+                          k: int(v) for k, v in self.pm.counters.items()})
+        if self.mesh_ctrs is not None and job.n_shards == 1:
+            # S=1 canonical form: a 1-shard mesh is a single engine, so
+            # the result drops the unit shard axis and compares like
+            # for like with the round and stream loops
+            from ..parallel import mesh as mesh_mod
+
+            state = mesh_mod.unstack_shard(state)
+            hists = None if hists is None else hists[0]
+            ledger = None if ledger is None else ledger[0]
+            prov = None if prov is None else mesh_mod.unstack_shard(prov)
+            flight = None if flight is None \
+                else mesh_mod.unstack_shard(flight)
+            slo_block = None if slo_block is None else slo_block[0]
+        elif self.mesh_ctrs is not None and flight is not None:
+            # S > 1: the per-shard rings merged in shard order
+            from ..obs import flight as obsflight
+
+            buf, seq = obsflight.flight_merge_stacked(flight)
+            flight = obsflight.FlightState(
+                buf=buf, seq=seq, batch=int(_host64(flight.batch).sum()))
+        if self.mesh_ctrs is not None:
+            cd, cr, vd, vr = (_host64(x) for x in self.mesh_ctrs)
+            kw.update(mesh_counters=np.stack([cd, cr]),
+                      mesh_views=np.stack([vd, vr]),
+                      mesh_fallbacks=self.mesh_fallbacks,
+                      mesh_chaos_fallbacks=self.mesh_chaos_fallbacks)
+        if prov is not None:
+            kw.update(prov_margin_hist=_host64(prov.margin_hist),
+                      prov_scal=_host64(prov.scal),
+                      prov_last_served=_host64(prov.last_served))
         if self.slo_plane is not None:
             enc = self.slo_plane.encode()
-            kw.update(slo_window=_host64(self.slo_block),
+            kw.update(slo_window=_host64(slo_block),
                       slo_ring=enc["slo_ring"],
                       slo_cepoch=enc["slo_cepoch"],
                       slo=self.slo_eval.summary())
+        if self.planes is not None:
+            # one snapshot a shard, and the cluster's rollup
+            shots = [p.snapshot() for p in self.planes]
+            lifecycle = {
+                "live_clients": sum(x["live_clients"] for x in shots),
+                "peak_clients": sum(x["peak_clients"] for x in shots),
+                "capacity": sum(x["capacity"] for x in shots),
+                **{key: sum(x[key] for x in shots) for key in shots[0]
+                   if key not in ("live_clients", "peak_clients",
+                                  "capacity", "pending_ops")},
+                "pending_ops": sum(x["pending_ops"] for x in shots),
+                "shards": shots}
+        else:
+            lifecycle = self.plane.snapshot() if self.plane is not None \
+                else None
         return SupervisedResult(
             **kw,
-            lifecycle=self.plane.snapshot() if self.plane is not None
-            else None,
+            lifecycle=lifecycle,
             digest=hashlib.sha256(self.digest).hexdigest(),
-            state_digest=ckpt_mod.tree_digest(self.state),
+            state_digest=ckpt_mod.tree_digest(state),
             decisions=self.decisions, epochs=job.epochs,
             metrics=self.met, restarts=0,
             ladder_steps=self.ladder.describe(),
             scrape_rebinds=self.scr.rebinds,
             resumed_from=self.resumed_from,
-            hists=None if self.hists is None else _host64(self.hists),
-            ledger=None if self.ledger is None else _host64(self.ledger),
-            flight_buf=None if self.flight is None
-            else _host64(self.flight.buf),
-            flight_seq=0 if self.flight is None
-            else int(self.flight.seq),
+            hists=None if hists is None else _host64(hists),
+            ledger=None if ledger is None else _host64(ledger),
+            flight_buf=None if flight is None else _host64(flight.buf),
+            flight_seq=0 if flight is None else int(flight.seq),
             stream_fallbacks=self.stream_fallbacks)
 
 
@@ -870,7 +1090,9 @@ def _job_loop(job: EpochJob, workdir: Optional[str],
     _check_job(job)
     run = _Run(job, workdir, injector, device, spawned_ns)
     try:
-        if job.engine_loop == "stream":
+        if job.engine_loop == "mesh":
+            _mesh_epochs(run)
+        elif job.engine_loop == "stream":
             _stream_epochs(run)
         else:
             _round_epochs(run)
@@ -1055,6 +1277,194 @@ def _stream_epochs(run: _Run) -> None:
         rng_ckpt = nxt["rng"]
 
 
+def _draw_counts_mesh(rng: np.random.Generator, job: EpochJob,
+                      epochs: int) -> np.ndarray:
+    """Raw per-epoch per-shard Poisson draws ``int32[S, epochs, N]``.
+    Drawn epoch-major, ``(S, N)`` an epoch: at S=1 the generator yields
+    the stream loop's :func:`_draw_counts` variates (numpy fills C
+    order), so the S=1 mesh digest equals the stream digest arrival
+    stream included."""
+    draws = np.stack([rng.poisson(job.arrival_lam, (job.n_shards, job.n))
+                      .astype(np.int32) for _ in range(epochs)])
+    return np.swapaxes(draws, 0, 1)
+
+
+def _mesh_boundary(job: EpochJob, planes, state, ledger, ctrs, b: int,
+                   prov=None, pm=None, up=None):
+    """One mesh churn job's lifecycle boundary: every shard's plane
+    applies its own due ops to its own slice, the counter plane's
+    ``cd``/``cr`` (fill 0) and held views (fill 1) and the provenance
+    watermark (fill 0) riding each shard's grow/evict/compact transforms
+    as boundary extras; then every shard grows to the largest capacity,
+    so the stacked layout stays rectangular, and the slices restack (a
+    copy).
+
+    With a placement map ``pm`` the p2c routing pass runs first: every
+    registration due here -- last boundary's deferrals first, then this
+    cohort in ascending id order -- gets its shard against the current
+    per-shard backlog and the boundary's liveness row ``up`` before any
+    plane filters its due ops.  A deferral placed now re-enters as a
+    pending op of its shard's plane (its scripted event fired at the
+    earlier boundary).  Returns ``(state, ledger, ctrs, prov)``."""
+    from ..lifecycle import churn as churn_mod
+    from ..parallel.cluster import shard_view, stack_trees
+
+    S = job.n_shards
+    if pm is not None:
+        deferred = pm.take_deferred()
+        if job.churn.get("static") and b == 0:
+            due = list(range(int(job.churn["total_ids"])))
+        else:
+            due = [int(e["cid"]) for e in churn_mod.events(
+                job.churn, b, job.ckpt_every) if e["op"] == "register"]
+        cohort = [cid for cid in due if pm.shard_of(cid) < 0]
+        if deferred or cohort:
+            backlog = _host64(state.depth).sum(axis=-1)
+            placed = pm.place_batch(deferred + cohort, backlog=backlog,
+                                    up=up)
+            for cid in placed:
+                if cid in deferred:
+                    r, w, l = churn_mod.init_qos(job.churn, cid)
+                    planes[pm.shard_of(cid)].pending.append(
+                        {"op": "register", "cid": cid, "r": r, "w": w,
+                         "l": l, "apply_at": b})
+    sts, leds, exs = [], [], []
+    for s in range(S):
+        extras = [(c[s], fill) for c, fill in zip(ctrs, (0, 0, 1, 1))]
+        if prov is not None:
+            extras.append((prov.last_served[s], 0))
+        st_s, led_s, extras = planes[s].boundary(
+            shard_view(state, s), b, job.ckpt_every,
+            ledger=None if ledger is None else ledger[s], extras=extras)
+        sts.append(st_s)
+        leds.append(led_s)
+        exs.append(extras)
+    cap = max(int(st.capacity) for st in sts)
+    for s in range(S):
+        out = planes[s].ensure_capacity(cap, sts[s], ledger=leds[s],
+                                        extras=exs[s])
+        sts[s], leds[s], exs[s] = out[0], out[1], out[-1]
+    state = stack_trees(sts)
+    ledger = None if ledger is None else torch.stack(leds)
+    ctrs = tuple(torch.stack([exs[s][j][0] for s in range(S)])
+                 for j in range(4))
+    if prov is not None:
+        from ..obs.provenance import ProvBlock
+
+        prov = ProvBlock(prov.margin_hist, prov.scal,
+                         torch.stack([exs[s][4][0] for s in range(S)]))
+    return state, ledger, ctrs, prov
+
+
+def _mesh_epochs(run: _Run) -> None:
+    """The mesh loop: ``n_shards`` engines stacked on the card advance a
+    whole checkpoint interval in one fused mesh chunk, the delta/rho
+    views exchanged on the global ``counter_sync_every`` grid and the
+    per-shard SLO blocks merged into one cluster-wide table that the SLO
+    plane rolls.
+
+    - ``fault_plan`` samples a ``FaultPlan`` over (epochs, shards), and
+      each chunk runs its slice; a chunk that trips a guard replays the
+      same schedule on the host loop (``mesh_chaos_fallbacks``).
+    - mesh churn runs every shard's lifecycle boundary before the chunk,
+      on the chunk grid; one id-space draw an epoch is mapped onto each
+      shard's post-boundary slot layout, and the digest hashes each
+      shard's results through that shard's canonical slot->cid view.
+    - the chunk's draws are taken right before the launch and the
+      snapshot carries the RNG as it is after them; the counter plane
+      rides the snapshots, and the fault plan is recomputed from its
+      spec.  The drain is the stream loop's, so S=1 equals it bit for
+      bit."""
+    from ..engine import stream as stream_mod
+    from ..obs import spans as _spans
+    from ..parallel import mesh as mesh_mod
+    from .faults import parse_fault_spec, plan_chunk, plan_from_spec
+    from .guarded import run_mesh_chunk_guarded
+
+    job, planes, tracer = run.job, run.planes, run.tracer
+    mesh = mesh_mod.make_mesh(job.n_shards, run.dev)
+    plan = None
+    if job.fault_plan is not None:
+        plan = plan_from_spec(parse_fault_spec(job.fault_plan),
+                              job.epochs, job.n_shards)
+    do_ingest = job.arrival_lam > 0 or planes is not None
+    for e0, b in stream_mod.chunk_bounds(run.start_epoch, job.epochs,
+                                         job.ckpt_every):
+        run.scr.tick(e0, run.injector)
+        up_row = None if plan is None \
+            else plan.up[min(e0, plan.up.shape[0] - 1)]
+        if planes is not None:
+            with _spans.span(tracer, "lifecycle.boundary", "host_prep",
+                             epoch=e0):
+                run.state, run.ledger, run.mesh_ctrs, run.prov = \
+                    _mesh_boundary(job, planes, run.state, run.ledger,
+                                   run.mesh_ctrs, e0, run.prov,
+                                   pm=run.pm, up=up_row)
+        counts = None
+        if do_ingest:
+            with _spans.span(tracer, "mesh.pregen", "host_prep"):
+                if planes is not None:
+                    raw = _draw_counts_churn(run.rng, job.churn, e0, b)
+                    counts = np.stack([pl.map_counts(raw)
+                                       for pl in planes])
+                else:
+                    counts = _draw_counts_mesh(run.rng, job, b - e0)
+        rng_ckpt = _rng_state_array(run.rng)
+        faults = plan_chunk(plan, e0, b) if plan is not None else None
+
+        def launch(cfg, e0=e0, b=b, counts=counts, faults=faults):
+            cd, cr, vd, vr = run.mesh_ctrs
+            return run_mesh_chunk_guarded(
+                run.state, cd, cr, vd, vr, e0, counts, mesh=mesh,
+                engine=job.engine, epochs=b - e0, m=job.m, k=job.k,
+                chain_depth=job.chain_depth, dt_epoch_ns=job.dt_epoch_ns,
+                waves=job.waves, with_metrics=True,
+                select_impl=cfg["select_impl"],
+                tag_width=cfg["tag_width"],
+                calendar_impl=cfg["calendar_impl"],
+                ladder_levels=job.ladder_levels,
+                counter_sync_every=job.counter_sync_every,
+                hists=run.hists, ledger=run.ledger, slo=run.slo_block,
+                prov=run.prov, flight=run.flight, faults=faults,
+                tracer=tracer)
+
+        g, cfg = run.guarded(launch)
+        run.state = g.state
+        run.mesh_ctrs = (g.cd, g.cr, g.view_d, g.view_r)
+        run.take_tele(g)
+        run.mesh_fallbacks += g.mesh_fallback
+        if plan is not None:
+            # the fallback carried the same fault schedule: on plan,
+            # only slower
+            run.mesh_chaos_fallbacks += g.mesh_fallback
+        with _spans.span(tracer, "mesh.drain", "drain", chunk=b - e0,
+                         shards=job.n_shards):
+            for i in range(b - e0):
+                run.scr.tick(e0 + i, run.injector)
+                if planes is not None:
+                    flat = tuple(r for s, grp in enumerate(g.epochs[i])
+                                 for r in planes[s].canon_results(grp))
+                else:
+                    flat = tuple(r for grp in g.epochs[i] for r in grp)
+                run.drain_epoch(flat, g.counts[i], cfg, g.guard_trips[i])
+        _spans.instant(tracer, "mesh.heartbeat", "drain", epoch=b)
+        closed = None
+        if run.slo_plane is not None:
+            # roll the cluster-wide merged table; the fresh stamped
+            # block goes back to every shard.  The starvation backlog is
+            # the cluster total (at S=1 the stream loop's depth)
+            merged, closed = run.slo_plane.roll(
+                g.slo_merged, run.slo_w0, b,
+                depth=run.state.depth.to(torch.int64).sum(dim=0))
+            run.slo_w0 = b
+            run.slo_eval.observe_roll(closed)
+            run.slo_block = mesh_mod.stack_shards(merged, job.n_shards)
+        if run.ckpt_dir is not None:
+            run.save(b, b - 1, rng_ckpt)
+        run.flush_spans()
+        _slo_log_flush(run.slo_plane, job.slo_log, closed)
+
+
 def run_job(job: EpochJob, *, device=DEFAULT_DEVICE) -> SupervisedResult:
     """The bare runner: the uninterrupted, unsupervised reference.
     ``run_supervised(job, wd, zero_host_plan())`` is bit-identical to
@@ -1150,7 +1560,12 @@ _JSON_ARRAYS = {"hists": None, "ledger": None, "flight_buf": None,
                 "slo_window": obsslo.W_FIELDS,
                 "slo_ring": obsslo.RING_COLS, "slo_cepoch": 2,
                 "prov_margin_hist": None, "prov_scal": None,
-                "prov_last_served": None}
+                "prov_last_served": None, "mesh_counters": None,
+                "mesh_views": None}
+# plain result fields that travel through result.json as they are
+_JSON_VALUES = ("flight_seq", "stream_fallbacks", "mesh_fallbacks",
+                "mesh_chaos_fallbacks", "placement", "migrations",
+                "migration_log", "placement_counters")
 
 
 def _spawn_once(job: EpochJob, workdir: str,
@@ -1196,9 +1611,9 @@ def _spawn_once(job: EpochJob, workdir: str,
         restarts=0, ladder_steps=obj["ladder_steps"],
         scrape_rebinds=int(obj["scrape_rebinds"]),
         resumed_from=obj.get("resumed_from"),
-        flight_seq=int(obj.get("flight_seq", 0)),
-        stream_fallbacks=int(obj.get("stream_fallbacks", 0)),
-        lifecycle=obj.get("lifecycle"), slo=obj.get("slo"), **arrays)
+        lifecycle=obj.get("lifecycle"), slo=obj.get("slo"),
+        **{key: obj[key] for key in _JSON_VALUES if key in obj},
+        **arrays)
 
 
 def _child_main(workdir: str) -> int:
@@ -1223,8 +1638,7 @@ def _child_main(workdir: str) -> int:
            "ladder_steps": result.ladder_steps,
            "scrape_rebinds": result.scrape_rebinds,
            "resumed_from": result.resumed_from,
-           "flight_seq": result.flight_seq,
-           "stream_fallbacks": result.stream_fallbacks,
+           **{key: getattr(result, key) for key in _JSON_VALUES},
            "lifecycle": result.lifecycle, "slo": result.slo,
            **{key: lst(getattr(result, key)) for key in _JSON_ARRAYS}}
     res_path = os.path.join(workdir, RESULT_FILE)

@@ -28,15 +28,19 @@ each round (``calendar_round``) m=3 calendar batches of 64 serve steps
 per client on the ``calendar_impl`` scheme: "minstop" is bench's
 ``cfg4`` row, "wheel" (8 ladder levels on the timer wheel) its
 ``cfg4_wheel``.  Every round clamps the Poisson arrivals to ring
-headroom and ingests them in one ring pass.  The telemetry
+headroom and ingests them in one ring pass.  Before the timed rounds,
+``sustained_prepare`` (``cfg3_setup``, ``cfg4_setup``) runs bench's
+calibration on the same ``default_rng(11)`` stream: a warm round, then
+one calibration iteration of two rounds for cfg3 and five for cfg4,
+which set each client's arrival rate to its measured service (with a
+load probe and an overload back-off) and, for cfg4, retune the
+reservations toward a 0.5 reservation share; the timed rounds then draw
+from the calibrated rates, all before the first of them.  The telemetry
 accumulators (histograms, ledger, SLO window block, provenance) ride
-the rounds, on by default as in bench; ``row_scalars`` reads bench's
-derived scalars from them.  ``engine_loop="stream"`` runs the rounds
-as stream chunks of 8 (``engine.stream``; bench's ``cfg3_stream`` and
-``cfg4_stream``).  The bench's calibration loop, which retunes the
-arrival and reservation rates toward a 0.5 reservation share, is
-load-generator logic and is not ported: the rounds run at the bench's
-starting values.
+the timed rounds, on by default as in bench; ``row_scalars`` reads
+bench's derived scalars from them.  ``engine_loop="stream"`` runs the
+rounds as stream chunks of 8 (``engine.stream``; bench's
+``cfg3_stream`` and ``cfg4_stream``).
 
 ``serve_queue`` drives the pull queue API (``engine.queue``) at cfg3's
 population, 10,000 clients, through the exact serial engine (no K1 or
@@ -320,15 +324,19 @@ def serve_chain(n: int = 100_000, depth: int = 320, k: int = 65536,
 
 # bench.py's cfg3 row (bench_sustained with the cfg3 shape): 10,000
 # clients (the ``n`` argument), weights 1 + i % 4, 100 ops/s
-# reservations, 100 ms rounds, the flat prefix engine at k=4096, m=32
+# reservations, 100 ms rounds, the flat prefix engine at k=4096, m=32;
+# no reservation-share target, so one calibration iteration
 CFG3 = dict(ring=256, depth0=128, resv_rate=100.0, waves=32,
-            dt_round_ns=100_000_000, m=32, k=4096, select_impl="sort")
+            dt_round_ns=100_000_000, m=32, k=4096, select_impl="sort",
+            zipf=False, target_resv_share=0.0)
 
-# the cfg4 workload's shape (bench.py cfg4 mode) at its starting values;
-# the calendar scheme is an argument: bench's ``cfg4`` row is "minstop",
+# the cfg4 workload's shape (bench.py cfg4 mode) at its starting values,
+# calibrated toward a 0.5 reservation share over five iterations; the
+# calendar scheme is an argument: bench's ``cfg4`` row is "minstop",
 # ``cfg4_wheel`` is "wheel"
 CFG4 = dict(ring=128, depth0=64, resv_rate=1200.0, waves=64,
-            dt_round_ns=50_000_000, m=3, steps=64, ladder_levels=8)
+            dt_round_ns=50_000_000, m=3, steps=64, ladder_levels=8,
+            zipf=True, target_resv_share=0.5)
 
 STREAM_CHUNK = 8     # bench's --stream-chunk default
 SLO_RING_DEPTH = 32  # bench's SLO plane ring (bench_sustained)
@@ -377,62 +385,175 @@ def _sustained_setup(n: int, ring: int, depth0: int,
     return state_from_numpy(arrays, device)
 
 
+def _row_cfg(workload: str) -> dict:
+    if workload not in ("cfg3", "cfg4"):
+        raise ValueError(f"unknown sustained workload {workload!r}")
+    return CFG3 if workload == "cfg3" else CFG4
+
+
 def sustained_qos(workload: str, n: int):
     """``(reservation rates, weights)`` of ``workload`` ("cfg3" or
     "cfg4") at ``n`` clients, as bench configures them."""
-    if workload == "cfg3":
-        return (np.full(n, CFG3["resv_rate"]),
-                np.asarray([1.0 + (i % 4) for i in range(n)]))
-    if workload == "cfg4":
-        return np.full(n, CFG4["resv_rate"]), _zipf_weights(n)
-    raise ValueError(f"unknown sustained workload {workload!r}")
+    c = _row_cfg(workload)
+    weights = _zipf_weights(n) if c["zipf"] \
+        else np.asarray([1.0 + (i % 4) for i in range(n)])
+    return np.full(n, c["resv_rate"]), weights
 
 
-def _sustained_draws(cfg: dict, resv_rates, weights, serve_per_round,
-                     rounds: int, seed: int, dev) -> torch.Tensor:
-    """Every round's arrival counts, ``int32[rounds, n]`` on ``dev``:
-    ``numpy.random.default_rng(seed).poisson(lam)`` clipped to the
-    waves, ``lam`` the bench's starting guess (the reservation floor
-    plus the weight share of the surplus, clipped to ``waves - 1``)."""
-    round_s = cfg["dt_round_ns"] / 1e9
+def sustained_start(workload: str, n: int, *,
+                    device: str | torch.device = DEFAULT_DEVICE
+                    ) -> EngineState:
+    """The row's state before calibration (bench's
+    ``_sustained_setup``), on ``device``."""
+    c = _row_cfg(workload)
+    resv_rates, weights = sustained_qos(workload, n)
+    return _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
+                            weights, device=device)
+
+
+def sustained_lam0(workload: str, n: int) -> np.ndarray:
+    """Bench's starting guess of the per-client arrival rate a round:
+    the reservation floor plus the weight share of the surplus (the
+    calendar's serve budget is ``m * n * steps``, the prefix engine's
+    ``m * k``), clipped to ``waves - 1``.  The warm round draws from
+    it."""
+    c = _row_cfg(workload)
+    resv_rates, weights = sustained_qos(workload, n)
+    serve_per_round = c["m"] * (n * c["steps"] if workload == "cfg4"
+                                else c["k"])
+    round_s = c["dt_round_ns"] / 1e9
     surplus = max(serve_per_round - float(resv_rates.sum()) * round_s, 0.0)
-    lam = np.minimum(resv_rates * round_s
-                     + surplus * (weights / weights.sum()),
-                     cfg["waves"] - 1.0)
+    return np.minimum(resv_rates * round_s
+                      + surplus * (weights / weights.sum()),
+                      c["waves"] - 1.0)
+
+
+class Sustained(NamedTuple):
+    """A sustained row ready for its timed rounds (``sustained_prepare``):
+    the calibrated state, the timed rounds' arrival counts and where they
+    start, and what calibration measured."""
+
+    state: EngineState      # after the warm and calibration rounds
+    draws: torch.Tensor     # int32[rounds, n] timed arrival counts
+    t0: int                 # t_base of the first timed round
+    lam: np.ndarray         # float64[n] calibrated arrival rates
+    resv_share: float       # reservation share of the last calibration
+    #                         iteration's decisions
+    cal_rounds: int         # warm + calibration rounds run
+
+
+def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
+                      *, calendar_impl: str = "minstop",
+                      device: str | torch.device = DEFAULT_DEVICE
+                      ) -> Sustained:
+    """Bench's calibration (``bench_sustained``, in its order), then every
+    timed round's draws, all on ``device`` before the first timed round.
+
+    One ``numpy.random.default_rng(seed)`` stream feeds everything: the
+    warm round at ``t = 0`` draws from the starting guess (the
+    reservation floor plus the weight share of the surplus); then
+    ``cal_iters`` iterations (1, or 5 with a calendar or a reservation-
+    share target) of two rounds each, ``t_base`` advancing a round at a
+    time.  Each iteration gathers per-client service (the calendar's
+    ``served`` vector; the prefix rounds' committed slots) and sets
+    ``lam = min(served / 2, waves - 1)``, raised by the load probe when
+    the queues drained below 0.75 ``depth0`` and cut by the overload
+    back-off above 1.5 ``depth0`` (neither in the last iteration); a
+    reservation-share target rescales the reservation rates by
+    ``clip((target / share) ** 0.6, 0.33, 3)`` and writes their inverses
+    into the state.  The timed rounds' draws come next on the same
+    stream, from the calibrated ``lam``.  The calibration rounds read
+    their decisions back (untimed); no telemetry rides them, as bench
+    discards it.  ``calendar_impl`` picks cfg4's scheme."""
+    from .core.timebase import MAX_INV_NS, NS_PER_SEC
+
+    dev = resolve_device(device)
+    c = _row_cfg(workload)
+    resv_rates, weights = sustained_qos(workload, n)
+    state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
+                             weights, device=dev)
+    calendar = workload == "cfg4"
+    dt, waves = c["dt_round_ns"], c["waves"]
+    lam = sustained_lam0(workload, n)
     rng = np.random.default_rng(seed)
-    draws = np.stack([np.minimum(rng.poisson(lam), cfg["waves"])
-                      .astype(np.int32) for _ in range(rounds)])
-    return torch.from_numpy(draws).to(dev)
+
+    def draw():
+        return np.minimum(rng.poisson(lam), waves).astype(np.int32)
+
+    def one_round(st, t_base):
+        counts = torch.from_numpy(draw()).to(dev)
+        if calendar:
+            return calendar_round(
+                st, counts, t_base, m=c["m"], steps=c["steps"],
+                ladder_levels=c["ladder_levels"], waves=waves,
+                dt_round_ns=dt, calendar_impl=calendar_impl)
+        return prefix_round(st, counts, t_base, m=c["m"], k=c["k"],
+                            waves=waves, dt_round_ns=dt,
+                            select_impl=c["select_impl"])
+
+    state = one_round(state, 0).state
+    t_base = dt
+    target = float(c["target_resv_share"])
+    cal_iters = 5 if (calendar or target) else 1
+    share = 0.0
+    for it in range(cal_iters):
+        served = np.zeros(n, dtype=np.int64)
+        resv_total = 0
+        for _ in range(2):
+            ep = one_round(state, t_base)
+            state = ep.state
+            t_base += dt
+            if calendar:
+                resv_total += int(ep.resv_count.sum())
+                served += ep.served.cpu().numpy().astype(np.int64)
+            else:
+                slots = ep.slot.cpu().numpy().ravel()
+                phase = ep.phase.cpu().numpy().ravel()
+                ok = slots >= 0
+                resv_total += int((ok & (phase == 0)).sum())
+                np.add.at(served, slots[ok], 1)
+        total = int(served.sum())
+        share = resv_total / max(total, 1)
+        lam = np.minimum(served / 2, waves - 1.0)
+        depth_mean = float(state.depth.cpu().numpy().mean())
+        if depth_mean < 0.75 * c["depth0"] and it < cal_iters - 1:
+            lam = np.minimum(np.maximum(lam * 1.4, lam + 0.5), waves - 1.0)
+        elif depth_mean > 1.5 * c["depth0"] and it < cal_iters - 1:
+            lam = lam * 0.85
+        if target and total:
+            adj = float(np.clip((target / max(share, 1e-3)) ** 0.6,
+                                0.33, 3.0))
+            resv_rates = resv_rates * adj
+            # the vectorized rate_to_inv_ns: same rounding and sentinels
+            with np.errstate(divide="ignore"):
+                rinv = np.where(
+                    resv_rates <= 0, 0,
+                    np.minimum(np.rint(NS_PER_SEC
+                                       / np.maximum(resv_rates, 1e-12)),
+                               MAX_INV_NS)).astype(np.int64)
+            state = state._replace(resv_inv=torch.from_numpy(rinv).to(dev))
+    draws = torch.from_numpy(np.stack([draw() for _ in range(rounds)])) \
+        .to(dev)
+    return Sustained(state=state, draws=draws, t0=int(t_base), lam=lam,
+                     resv_share=share, cal_rounds=1 + 2 * cal_iters)
 
 
 def cfg3_setup(n: int = 10_000, rounds: int = 3, seed: int = 11, *,
-               device: str | torch.device = DEFAULT_DEVICE):
-    """The cfg3 state and every round's arrival counts, both on
-    ``device``: ``(state, draws int32[rounds, n])``.  Bench's cfg3 row
-    runs no calibration of the reservation share (its target is 0), so
-    the draws use the starting guess throughout."""
-    dev = resolve_device(device)
-    c = CFG3
-    resv_rates, weights = sustained_qos("cfg3", n)
-    state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
-                             weights, device=dev)
-    return state, _sustained_draws(c, resv_rates, weights, c["m"] * c["k"],
-                                   rounds, seed, dev)
+               device: str | torch.device = DEFAULT_DEVICE) -> Sustained:
+    """The cfg3 row calibrated as bench calibrates it (one iteration of
+    two rounds after the warm round), with ``rounds`` timed rounds'
+    draws: :func:`sustained_prepare`."""
+    return sustained_prepare("cfg3", n, rounds, seed, device=device)
 
 
 def cfg4_setup(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
-               device: str | torch.device = DEFAULT_DEVICE):
-    """The cfg4 state and every round's arrival counts, both on
-    ``device``: ``(state, draws int32[rounds, n])``; all draws are made
-    and uploaded here, before any round."""
-    dev = resolve_device(device)
-    c = CFG4
-    resv_rates, weights = sustained_qos("cfg4", n)
-    state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
-                             weights, device=dev)
-    return state, _sustained_draws(c, resv_rates, weights,
-                                   c["m"] * n * c["steps"], rounds, seed,
-                                   dev)
+               calendar_impl: str = "minstop",
+               device: str | torch.device = DEFAULT_DEVICE) -> Sustained:
+    """The cfg4 row calibrated on ``calendar_impl`` as bench calibrates
+    it (five iterations toward a 0.5 reservation share), with
+    ``rounds`` timed rounds' draws: :func:`sustained_prepare`."""
+    return sustained_prepare("cfg4", n, rounds, seed,
+                             calendar_impl=calendar_impl, device=device)
 
 
 class Tele(NamedTuple):
@@ -447,16 +568,22 @@ class Tele(NamedTuple):
     prov: object = None
 
 
-def slo_plane(workload: str, n: int) -> SloPlane:
+def slo_plane(workload: str, n: int,
+              state: EngineState | None = None) -> SloPlane:
     """The row's SLO plane (host data): every client registered from the
     configured rates (no limit), ring depth 32, as ``bench_sustained``
-    builds it."""
+    builds it; given the calibrated ``state``, every contract is then
+    re-registered from its inverse-rate arrays, as bench does before the
+    timed rounds."""
+    cfg = _row_cfg(workload)
     resv_rates, weights = sustained_qos(workload, n)
-    cfg = CFG3 if workload == "cfg3" else CFG4
     plane = SloPlane(n, dt_epoch_ns=cfg["dt_round_ns"],
                      ring_depth=SLO_RING_DEPTH)
     for c in range(n):
         plane.register(c, float(resv_rates[c]), float(weights[c]), 0.0)
+    if state is not None:
+        plane.register_from_inv(state.resv_inv, state.weight_inv,
+                                state.limit_inv)
     return plane
 
 
@@ -680,21 +807,25 @@ def cfg4_stream(state: EngineState, draws: torch.Tensor, *,
 def _sustained_run(workload: str, n: int, rounds: int, seed: int, *,
                    telemetry: bool, slo: bool, provenance: bool,
                    engine_loop: str, stream_chunk: int, device, **kw):
+    """The row: calibration, fresh accumulators at the calibrated time
+    and the SLO contracts re-registered from the calibrated state, then
+    the timed rounds.  Returns ``(prep, result)``."""
     if engine_loop not in ("round", "stream"):
         raise ValueError(f"engine_loop {engine_loop!r} is not round or "
                          f"stream")
     dev = resolve_device(device)
-    setup = cfg3_setup if workload == "cfg3" else cfg4_setup
-    state, draws = setup(n, rounds, seed, device=dev)
-    plane = slo_plane(workload, n) if slo else None
+    prep = sustained_prepare(workload, n, rounds, seed,
+                             calendar_impl=kw.get("calendar_impl", "minstop"),
+                             device=dev)
+    plane = slo_plane(workload, n, state=prep.state) if slo else None
     tele = tele_zero(n, telemetry=telemetry, provenance=provenance,
-                     plane=plane, device=dev)
+                     plane=plane, t0=prep.t0, device=dev)
     if engine_loop == "stream":
         run = cfg3_stream if workload == "cfg3" else cfg4_stream
         kw["chunk"] = stream_chunk
     else:
         run = cfg3_rounds if workload == "cfg3" else cfg4_rounds
-    return run(state, draws, tele=tele, **kw)
+    return prep, run(prep.state, prep.draws, t0=prep.t0, tele=tele, **kw)
 
 
 def serve_cfg3(n: int = 10_000, rounds: int = 3, seed: int = 11, *,
@@ -703,13 +834,14 @@ def serve_cfg3(n: int = 10_000, rounds: int = 3, seed: int = 11, *,
                stream_chunk: int = STREAM_CHUNK,
                device: str | torch.device = DEFAULT_DEVICE) -> Cfg3Result:
     """The ``cfg3`` workload (bench's ``cfg3`` row, ``cfg3_stream`` with
-    ``engine_loop="stream"``): ``n`` clients, ``rounds`` closed-loop
-    rounds from virtual time 0, telemetry, SLO window and provenance
-    on by default as in bench.  Callers check every ``guards_ok``."""
+    ``engine_loop="stream"``): ``n`` clients calibrated as bench does,
+    then ``rounds`` timed closed-loop rounds, telemetry, SLO window and
+    provenance on by default as in bench.  Callers check every
+    ``guards_ok``."""
     return _sustained_run("cfg3", n, rounds, seed,
                           telemetry=telemetry, slo=slo,
                           provenance=provenance, engine_loop=engine_loop,
-                          stream_chunk=stream_chunk, device=device)
+                          stream_chunk=stream_chunk, device=device)[1]
 
 
 def serve_cfg4(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
@@ -718,17 +850,17 @@ def serve_cfg4(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
                engine_loop: str = "round",
                stream_chunk: int = STREAM_CHUNK,
                device: str | torch.device = DEFAULT_DEVICE) -> Cfg4Result:
-    """The ``cfg4`` workload: ``n`` clients, ``rounds`` closed-loop
-    rounds from virtual time 0 on the ``calendar_impl`` scheme (bench's
-    ``cfg4`` is "minstop", ``cfg4_wheel`` "wheel"), telemetry, SLO
-    window and provenance on by default as in bench.  Callers check
-    every ``progress_ok`` (False: the serial engine must take that
-    batch)."""
+    """The ``cfg4`` workload: ``n`` clients calibrated as bench does,
+    then ``rounds`` timed closed-loop rounds on the ``calendar_impl``
+    scheme (bench's ``cfg4`` is "minstop", ``cfg4_wheel`` "wheel"),
+    telemetry, SLO window and provenance on by default as in bench.
+    Callers check every ``progress_ok`` (False: the serial engine must
+    take that batch)."""
     return _sustained_run("cfg4", n, rounds, seed,
                           calendar_impl=calendar_impl, telemetry=telemetry,
                           slo=slo, provenance=provenance,
                           engine_loop=engine_loop,
-                          stream_chunk=stream_chunk, device=device)
+                          stream_chunk=stream_chunk, device=device)[1]
 
 
 def row_scalars(tele: Tele, state: EngineState, t_end: int,
@@ -1960,13 +2092,14 @@ def _main_sustained(a) -> int:
               device=a.device, **flags)
     if a.workload == "cfg3":
         n = 10_000 if a.n is None else a.n
-        res = serve_cfg3(n, a.rounds, **kw)
+        prep, res = _sustained_run("cfg3", n, a.rounds, 11, **kw)
         ok = {"guards_ok": bool(res.guards_ok.all())}
         dt = CFG3["dt_round_ns"]
         key = "cfg3"
     else:
         n = 100_000 if a.n is None else a.n
-        res = serve_cfg4(n, a.rounds, calendar_impl=a.calendar_impl, **kw)
+        prep, res = _sustained_run("cfg4", n, a.rounds, 11,
+                                   calendar_impl=a.calendar_impl, **kw)
         ok = {"progress_ok": bool(res.progress_ok.all()),
               "calendar_impl": a.calendar_impl}
         dt = CFG4["dt_round_ns"]
@@ -1978,9 +2111,11 @@ def _main_sustained(a) -> int:
     print(json.dumps({
         "workload": key, "device": str(res.state.device), "n": n,
         "rounds": a.rounds, "decisions": int(res.count.sum()), **ok,
-        **flags, "reservation_share": met["decisions_reservation"]
+        **flags, "calibration_rounds": prep.cal_rounds,
+        "calibrated_lam_sum": float(prep.lam.sum()),
+        "reservation_share": met["decisions_reservation"]
         / max(met["decisions_total"], 1),
-        **row_scalars(res.tele, res.state, a.rounds * dt, dt),
+        **row_scalars(res.tele, res.state, prep.t0 + a.rounds * dt, dt),
         "metrics": met}))
     return 0
 

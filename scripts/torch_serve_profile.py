@@ -196,17 +196,19 @@ def main(argv=None) -> int:
                      telemetry=a.telemetry)
         setup = serve.cfg3_setup if cfg3 else serve.cfg4_setup
         rounds = serve.cfg3_rounds if cfg3 else serve.cfg4_rounds
-        st, draws = setup(a.n, 1 + a.rounds, device="cuda")
+        # bench's calibration, then one warm timed round
+        prep = setup(a.n, 1 + a.rounds, device="cuda", **kw)
+        st, draws, t0 = prep.state, prep.draws, prep.t0
         tele = serve.Tele()
         if a.telemetry == "on":
             tele = serve.tele_zero(a.n, plane=serve.slo_plane(
-                a.workload, a.n), device="cuda")
-        warm = rounds(st, draws[:1], tele=tele, **kw)
+                a.workload, a.n, state=st), t0=t0, device="cuda")
+        warm = rounds(st, draws[:1], t0=t0, tele=tele, **kw)
         st, tele = warm.state, warm.tele
 
         def run():
-            return rounds(st, draws[1:], t0=cfg["dt_round_ns"], tele=tele,
-                          **kw)
+            return rounds(st, draws[1:], t0=t0 + cfg["dt_round_ns"],
+                          tele=tele, **kw)
     res, prof = _profiled(run)
     table = prof.pop("table")
     with open(out, "w") as f:

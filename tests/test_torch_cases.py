@@ -35,12 +35,14 @@ RING_SHAPES = [
 # (8 servers of N=100000, Q=64): the prefix batches' head read (w=1) and
 # the minstop calendar batches (w=calendar_steps=8), and the mesh row
 # (ring 16, w=m=4) per shard at 8 x 12,500 clients and at 1 x 100,000,
-# and its wheel chunk (10,000 clients a shard, w=calendar_steps=4)
+# and its wheel chunk (10,000 clients a shard, w=calendar_steps=4), and
+# the supervised churn mesh (ring 32, w=m=4) at 1,024 slots a shard
 RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64),
                     (100_000, 320, 4), (100_000, 128, 32),
                     (10_000, 256, 32), (2048, 32, 4), (4096, 32, 4),
                     (100_000, 128, 8), (100_000, 64, 1), (100_000, 64, 8),
-                    (12_500, 16, 4), (100_000, 16, 4), (10_000, 16, 4)]
+                    (12_500, 16, 4), (100_000, 16, 4), (10_000, 16, 4),
+                    (1024, 32, 4)]
 
 
 def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):

@@ -174,12 +174,13 @@ def test_wheel_round_on_the_card_equals_cpu(cuda):
     equal to the same round on the CPU, every output and the state."""
     from dmclock_tpu_torch import serve
 
-    st, draws = serve.cfg4_setup(512, 1, device="cpu")
-    want = serve.cfg4_rounds(st, draws, calendar_impl="wheel")
+    prep = serve.cfg4_setup(512, 1, calendar_impl="wheel", device="cpu")
+    st, draws = prep.state, prep.draws
+    want = serve.cfg4_rounds(st, draws, calendar_impl="wheel", t0=prep.t0)
     before = dict(_ext.LAUNCHES)
     got = serve.cfg4_rounds(
         st._replace(**{f: getattr(st, f).to(cuda) for f in st._fields}),
-        draws.to(cuda), calendar_impl="wheel")
+        draws.to(cuda), calendar_impl="wheel", t0=prep.t0)
     torch.cuda.synchronize()
     c = serve.CFG4
     assert _ext.LAUNCHES["ring_window"] - before["ring_window"] \
@@ -292,9 +293,11 @@ def test_stream_and_telemetry_on_the_card(cuda, workload):
     stream = serve.cfg3_stream if workload == "cfg3" else serve.cfg4_stream
     runs = {}
     for dev in ("cpu", cuda):
-        st, draws = setup(n, 4, device=dev)
-        tele = serve.tele_zero(n, plane=serve.slo_plane(workload, n),
-                               device=dev)
+        prep = setup(n, 4, device=dev)
+        st, draws, kw["t0"] = prep.state, prep.draws, prep.t0
+        tele = serve.tele_zero(n, plane=serve.slo_plane(workload, n,
+                                                        state=st),
+                               t0=prep.t0, device=dev)
         runs[dev] = (rounds(st, draws, tele=tele, **kw),
                      stream(st, draws, tele=tele, chunk=2, **kw),
                      rounds(st, draws, **kw))
@@ -655,3 +658,150 @@ def test_device_hbm_budget_on_the_card(cuda, monkeypatch):
     assert plan["budget_bytes"] == budget and plan["max_clients"] > 10 ** 6
     assert TC.device_peaks()["label"].startswith("H100") or \
         "H100" not in torch.cuda.get_device_name(cuda)
+
+
+@pytest.mark.cuda
+def test_supervised_mesh_job_on_the_card_equals_cpu(cuda, tmp_path):
+    """A supervised mesh job (4 shards x 1,000 clients, a fault plan,
+    histograms, ledger and SLO on) on the card, bare and killed once and
+    resumed, equals the same job on the CPU on every result field, with
+    K1 launched once a shard-epoch on the card."""
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    job = TS.EpochJob(engine="prefix", n=1000, depth=12, ring=16, m=2,
+                      k=64, waves=4, epochs=4, ckpt_every=2,
+                      engine_loop="mesh", n_shards=4, with_hists=True,
+                      with_ledger=True, with_slo=True,
+                      fault_plan="seed=7,p_dropout=0.2,p_dup=0.1")
+    before = _ext.LAUNCHES["ring_window"]
+    got = TS.run_job(job, device=cuda)
+    launched = _ext.LAUNCHES["ring_window"] - before
+    want = TS.run_job(job, device="cpu")
+    assert 0 < launched <= job.epochs * job.n_shards
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
+        else:
+            assert a == b, f
+    plan = TH.HostFaultPlan(kill_at_decisions=(got.decisions // 2,))
+    sup = TS.run_supervised(job, tmp_path / "wd", plan, device=cuda)
+    assert sup.restarts == 1
+    TS.assert_crash_equivalent(sup, got)
+
+
+def _mesh_replay_chunk(device, *, trip):
+    """One chunk of 4 shards x 1,000 clients x 4 epochs under a sampled
+    fault plan that takes shards down: the guarded fused chunk (at
+    ``tag_width=32`` with client 0's tag 2^33 ns ahead when ``trip``,
+    so the chunk is discarded and replays on the host loop) and the host
+    replay itself, each drained as the supervisor drains it: the row
+    digest, the metric fold, the counters, views, state and SLO blocks,
+    as host numpy."""
+    import hashlib
+
+    from dmclock_tpu_torch.obs import device as tobs
+    from dmclock_tpu_torch.parallel import mesh as TM
+    from dmclock_tpu_torch.robust import faults as TF
+    from dmclock_tpu_torch.robust import guarded as TG
+    from dmclock_tpu_torch.robust import supervisor as TS
+    from dmclock_tpu_torch.robust.digest import digest_update
+
+    s, e, n = 4, 4, 1000
+    tag = dict(tag_width=32, tag_spread_ns=1 << 33) if trip else {}
+    job = TS.EpochJob(engine="prefix", n=n, depth=12, ring=16, m=2, k=64,
+                      waves=4, **tag)
+    plan = TF.sample_plan(11, e, s, p_dropout=0.3, mean_outage_steps=2.0,
+                          p_delay=0.2, p_dup=0.2, max_skew_ns=1000)
+    fc = TF.plan_chunk(plan, 0, e)
+    assert not fc.up.all()
+    kw = dict(engine="prefix", epochs=e, m=job.m, k=job.k,
+              dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
+              with_metrics=True, tag_width=job.tag_width,
+              counter_sync_every=2, faults=fc)
+    state = TM.stack_shards(TS._job_state(job, device), s)
+    ctrs = TM.counter_init(s, n, device=device)
+    counts = torch.from_numpy(np.random.default_rng(3).poisson(
+        2.0, (s, e, n)).astype(np.int32)).to(device)
+    legs = {
+        "fused": TG.run_mesh_chunk_guarded(state, *ctrs, 0, counts,
+                                           mesh=TM.make_mesh(s, device),
+                                           **kw),
+        "host": TG.mesh_chunk_host_replay(state, *ctrs, 0, counts, **kw)}
+    # the host replay's rows, live and down, stay on the state's device
+    # (the fused leg's rows are its one read back)
+    for row in legs["host"].epochs:
+        for grp in row:
+            for r in grp:
+                assert r.metrics.device.type == torch.device(device).type
+    out = {}
+    for leg, g in legs.items():
+        d, met = b"\x00" * 32, np.zeros(tobs.NUM_METRICS, dtype=np.int64)
+        for row in g.epochs:
+            flat = tuple(r for grp in row for r in grp)
+            for r in flat:
+                met = tobs.metrics_combine_np(met, r.metrics)
+            d = digest_update(d, flat)
+        out[leg] = {"digest": hashlib.sha256(d).hexdigest(),
+                    "counts": tuple(g.counts), "metrics": met,
+                    "mesh_fallback": g.mesh_fallback,
+                    **{f: getattr(g, f).cpu().numpy()
+                       for f in ("cd", "cr", "view_d", "view_r", "slo",
+                                 "slo_merged")},
+                    **{f"state.{f}": x.cpu().numpy()
+                       for f, x in zip(g.state._fields, g.state)}}
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trip", [False, True], ids=["clean", "tag32-trip"])
+def test_mesh_host_replay_with_down_shards_on_the_card(cuda, trip):
+    """The host replay of a chunk with shards down on the card: the down
+    shards' neutral rows lie on the card beside the live shards' rows
+    (the fused leg's rows are its one read back to the host),
+    and the drained chunk (row digest, metric fold, counters, views,
+    state, SLO blocks) equals the fused chunk on the card and both legs
+    on the CPU.  With the tag32 trip the fused leg is itself the host
+    replay (``mesh_fallback`` 1), with K1 launched on the card."""
+    before = _ext.LAUNCHES["ring_window"]
+    got = _mesh_replay_chunk(cuda, trip=trip)
+    assert _ext.LAUNCHES["ring_window"] > before
+    want = _mesh_replay_chunk("cpu", trip=trip)
+    assert got["fused"]["mesh_fallback"] == int(trip)
+    assert got["host"]["mesh_fallback"] == 1
+    assert sum(got["host"]["counts"]) > 0
+    for a, b in ((got["fused"], got["host"]), (got["fused"], want["fused"]),
+                 (got["host"], want["host"])):
+        assert a.keys() == b.keys()
+        for key in b:
+            if isinstance(b[key], np.ndarray):
+                assert a[key].dtype == b[key].dtype and \
+                    np.array_equal(a[key], b[key]), key
+            elif key != "mesh_fallback":
+                assert a[key] == b[key], key
+
+
+@pytest.mark.cuda
+def test_supervised_mesh_chaos_trip_on_the_card_equals_cpu(cuda):
+    """A supervised mesh job at ``tag_width=32`` under a fault plan with
+    shards down: its chunks trip and replay on the host loop on the card
+    (chaos fallbacks), and the job equals the same job on the CPU on
+    every result field."""
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    job = TS.EpochJob(engine="prefix", n=1000, depth=12, ring=16, m=2,
+                      k=64, waves=4, epochs=4, ckpt_every=2,
+                      engine_loop="mesh", n_shards=4, with_hists=True,
+                      with_ledger=True, with_slo=True, tag_width=32,
+                      tag_spread_ns=1 << 33,
+                      fault_plan="seed=7,p_dropout=0.3,p_dup=0.1")
+    got = TS.run_job(job, device=cuda)
+    want = TS.run_job(job, device="cpu")
+    assert got.mesh_chaos_fallbacks > 0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
+        else:
+            assert a == b, f

@@ -116,14 +116,18 @@ def test_sustained_setup_matches_bench(n, ring, depth0):
 
 def test_cfg4_setup_shape():
     """The cfg4 set-up at a small width: bench's state at the cfg4 ring
-    and depth, and one int32 draw per round, clipped to the waves."""
+    and depth before calibration, and after it one int32 draw per timed
+    round, clipped to the waves, from the 11 calibration rounds' end."""
     n, rounds = 128, 3
-    st, draws = tserve.cfg4_setup(n, rounds, device="cpu")
     c = tserve.CFG4
     want = bench._sustained_setup(n, c["ring"], c["depth0"],
                                   np.full(n, c["resv_rate"]),
                                   bench._zipf_weights(n))
-    assert_state_matches(st, want)
+    assert_state_matches(tserve.sustained_start("cfg4", n, device="cpu"),
+                         want)
+    prep = tserve.cfg4_setup(n, rounds, device="cpu")
+    draws = prep.draws
+    assert prep.cal_rounds == 11 and prep.t0 == 11 * c["dt_round_ns"]
     assert draws.shape == (rounds, n) and draws.dtype == torch.int32
     assert 0 <= int(draws.min()) and int(draws.max()) <= c["waves"]
     assert not torch.equal(draws[0], draws[1])

@@ -313,3 +313,39 @@ def test_mesh_entry_points_default_to_cuda():
                  lambda: tserve.cluster_outage(2, 6)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_supervised_mesh_leaves_jax_unloaded():
+    code = ("import sys\n"
+            "from dmclock_tpu_torch.robust import supervisor as TS\n"
+            "from dmclock_tpu_torch.lifecycle import make_spec\n"
+            "job = TS.EpochJob(engine_loop='mesh', n_shards=2, n=64,"
+            " epochs=4, ckpt_every=2, fault_plan='seed=7,p_dropout=0.2')\n"
+            "r = TS.run_job(job, device='cpu')\n"
+            "assert r.decisions > 0 and r.mesh_counters.shape[1] == 2\n"
+            "spec = make_spec('flash_crowd', total_ids=32)\n"
+            "r = TS.run_job(TS.EpochJob(engine_loop='mesh', n_shards=2,"
+            " n=64, epochs=4, ckpt_every=2, churn=spec, placement='p2c'),"
+            " device='cpu')\n"
+            "assert r.placement == 'p2c'\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_supervised_mesh_and_calibration_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    job = TS.EpochJob(engine_loop="mesh", n_shards=2, n=64, epochs=2)
+    for call in (lambda: TS.run_job(job),
+                 lambda: TS.run_supervised(job, tmp_path / "wd"),
+                 lambda: tserve.sustained_prepare("cfg3", 64, 1),
+                 lambda: tserve.cfg4_setup(64, 1),
+                 lambda: tserve.sustained_start("cfg3", 64)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

@@ -278,37 +278,39 @@ def _bench_round(engine, **kw):
     return _JIT[key]
 
 
-def _jax_tele(n, plane):
+def _jax_tele(n, plane, t0=0):
     return (jhist.hist_zero(), jhist.ledger_zero(n),
             jslo.window_zero(n).at[:, jslo.W_CEPOCH].set(
                 jnp.asarray(plane.cepoch_vector())),
-            jprov.prov_init(n, 0))
+            jprov.prov_init(n, t0))
 
 
 @pytest.mark.parametrize("workload", ["cfg3", "cfg4"])
 def test_sustained_rounds_match_bench_composition(workload):
-    """Two rounds of the row at a reduced width (cfg3: 96 clients at its
-    ring, waves, k and m; cfg4 minstop: 64 clients) with telemetry, SLO
-    and provenance on, against bench's round function on the JAX
-    package; the stream loop (chunk 2) equals the rounds except the
+    """Two timed rounds of the row at a reduced width (cfg3: 96 clients
+    at its ring, waves, k and m; cfg4 minstop: 64 clients), after bench's
+    calibration, with telemetry, SLO and provenance on, against bench's
+    round function on the JAX package from the same calibrated state and
+    time; the stream loop (chunk 2) equals the rounds except the
     ingest_drops row the chunk does not count; telemetry off moves
     nothing; and bench's derived scalars come out."""
     n, rounds = (96, 2) if workload == "cfg3" else (64, 2)
     setup = tserve.cfg3_setup if workload == "cfg3" else tserve.cfg4_setup
-    st0, draws = setup(n, rounds, device="cpu")
-    plane = tserve.slo_plane(workload, n)
-    tele = tserve.tele_zero(n, plane=plane, device="cpu")
+    prep = setup(n, rounds, device="cpu")
+    st0, draws, t0 = prep.state, prep.draws, prep.t0
+    plane = tserve.slo_plane(workload, n, state=st0)
+    tele = tserve.tele_zero(n, plane=plane, t0=t0, device="cpu")
     if workload == "cfg3":
         c = tserve.CFG3
-        got = tserve.cfg3_rounds(st0, draws, tele=tele)
-        stream = tserve.cfg3_stream(st0, draws, tele=tele, chunk=2)
-        off = tserve.cfg3_rounds(st0, draws)
+        got = tserve.cfg3_rounds(st0, draws, t0=t0, tele=tele)
+        stream = tserve.cfg3_stream(st0, draws, t0=t0, tele=tele, chunk=2)
+        off = tserve.cfg3_rounds(st0, draws, t0=t0)
         run = _bench_round("prefix", m=c["m"], k=c["k"], waves=c["waves"],
                            dt_round_ns=c["dt_round_ns"])
         fields = ("count", "guards_ok", "slot", "phase", "cost", "lb")
     else:
         c = tserve.CFG4
-        kw = dict(calendar_impl="minstop")
+        kw = dict(calendar_impl="minstop", t0=t0)
         got = tserve.cfg4_rounds(st0, draws, tele=tele, **kw)
         stream = tserve.cfg4_stream(st0, draws, tele=tele, chunk=2, **kw)
         off = tserve.cfg4_rounds(st0, draws, **kw)
@@ -318,11 +320,11 @@ def test_sustained_rounds_match_bench_composition(workload):
         fields = ("count", "resv_count", "progress_ok", "served",
                   "level_count")
     jst = to_jax(bridge.state_to_numpy(st0))
-    jt = _jax_tele(n, plane)
+    jt = _jax_tele(n, plane, t0)
     met = jobs.metrics_zero()
     for r in range(rounds):
         ep = run(jst, jnp.asarray(_np(draws[r])),
-                 jnp.int64(r * c["dt_round_ns"]), *jt)
+                 jnp.int64(t0 + r * c["dt_round_ns"]), *jt)
         for f in fields:
             assert_np_equal(f, _np(getattr(got, f)[r]),
                             _np(getattr(ep, f)))
@@ -348,8 +350,8 @@ def test_sustained_rounds_match_bench_composition(workload):
         assert torch.equal(a, b)
     for a, b in zip(stream.tele.prov, got.tele.prov):
         assert torch.equal(a, b)
-    sc = tserve.row_scalars(got.tele, got.state, rounds * c["dt_round_ns"],
-                            c["dt_round_ns"])
+    sc = tserve.row_scalars(got.tele, got.state,
+                            t0 + rounds * c["dt_round_ns"], c["dt_round_ns"])
     assert sc["ledger_totals"]["ops"] == int(got.count.sum()) > 0
     assert sc["slo_window_totals"]["ops"] == int(got.count.sum())
     for key in ("tardiness_p50_ns", "tardiness_p99_ns", "margin_p50_ns",
