@@ -100,7 +100,22 @@ Phases (any failure raises and the exit code is not 0):
     calibration and first timed round held against the CPU twin, the
     measured reservation share printed; a stream chunk of 2
     (``cfg4_stream``) equal to the 2 rounds; timed rounds; the derived
-    scalars; telemetry on against off over a round;
+    scalars; telemetry on against off over a round.  Then bench's rows
+    whole (``serve.sustained_row``) at full width, cut in depth to
+    ``ROW_CUT`` (cfg3: 12 rounds after 4 in 2 pairs; cfg4: 6 after 2 in
+    2 pairs and 16 latency rounds; 2 conformance rounds each), with host
+    spans and a watchdog (bench's: 2 s polls, a 60 s stall):
+    launch-counted (K1 once a prefix round or a calendar batch, the
+    calibration, conformance and latency rounds included; no K2); the
+    SLO block rolled once a chain (``2 * reps`` rolls),
+    ``latency_samples == latency_rounds``, a conformance-table line a
+    client whose ops sum to the conformance rounds' decisions, the
+    registry's warning counter equal to the watchdog's warnings; prints
+    ``dps``, ``fill``, ``bounded_by``, the verdict, the latency keys and
+    the warnings.  Then the cfg4 frontier (``serve.frontier``) at m = 2
+    and 3 (``FRONTIER_CUT``: 4 rounds after 2 in 1 pair, 8 latency
+    rounds a point), launch-counted (K1 m a round), with a
+    ``FRONTIER_TARGET_MS`` pick;
 17. the ``queue`` path: ``serve.serve_queue`` at full width (10,000
     clients behind ``TpuPullPriorityQueue(speculative_batch=64)``: a
     240,000-add bulk load, ``pull_batch``, ``pull_batch_stream``,
@@ -182,7 +197,10 @@ Phases (any failure raises and the exit code is not 0):
     and 65 s on the card), with ``--model dmclock-torch --ledger-check
     --slo-check`` (exit 0), each decision trace equal byte for byte to a
     CPU twin's; the reports, the wall and the decisions per second
-    printed.  The twins (the device sim on four threads, each dmc_sim on
+    printed; the pull run's trace equal op for op (time, server, client,
+    phase, cost) to the host oracle's, ``--model dmclock-delayed`` run
+    in process on the same cut config, and so each client's phase
+    split.  The twins (the device sim on four threads, each dmc_sim on
     one) start as the phase begins.
 22. the multi-server mesh (``parallel.mesh``, ``parallel.cluster``,
     ``robust.cluster``, ``obs.capacity``): (a) bench's mesh row
@@ -301,6 +319,17 @@ CFG4M_ROUNDS = 2         # cfg4 (minstop) main-path rounds
 CFG4M_TIMED = 3          # timed minstop rounds with telemetry
 CFG4M_ON_OFF = 3         # minstop rounds of each of telemetry on and off
 MET_INGEST_DROPS = 7
+# bench's timed structure of the sustained rows (serve.sustained_row) at
+# full width, cut in depth: pairs of timed chains, 2 conformance rounds,
+# cfg4's windowed latency rounds
+ROW_CUT = {"cfg3": dict(rounds_lo=4, rounds=12, reps=2, latency_rounds=0),
+           "cfg4": dict(rounds_lo=2, rounds=6, reps=2, latency_rounds=16)}
+ROW_CAL = {"cfg3": 3, "cfg4": 11}        # bench's calibration rounds
+# the frontier (serve.frontier) at cfg4's width over two of bench's
+# points, each cut in depth, with a target-latency pick
+FRONTIER_CUT = dict(points=((2, 64), (3, 64)), rounds_lo=2, rounds=4,
+                    reps=1, latency_rounds=8)
+FRONTIER_TARGET_MS = 400.0
 # phase 20: supervised epoch jobs (robust.supervisor.EpochJob kwargs)
 SUP_PREFIX = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=4,
                   m=8, k=65536, waves=8, arrival_lam=2.0, ckpt_every=2,
@@ -1437,7 +1466,8 @@ def _scalars_line(serve, tele, st, t_end: int, dt: int) -> str:
             "tardiness_mean_ns", "tardiness_max_ns", "margin_p50_ns",
             "margin_p99_ns", "starvation_max_ns", "limit_gate_share",
             "starved_clients", "slo_window_totals")
-    return json.dumps({k: sc[k] for k in keys})
+    return json.dumps({k: sc.get(k, []) if k == "starved_clients"
+                       else sc[k] for k in keys})
 
 
 def _prepared_rounds(serve, workload: str, n: int, n_draws: int,
@@ -1535,6 +1565,136 @@ def _resv_share(obsdev, results) -> float:
         met = obsdev.metrics_combine(met, res.metrics)
     md = obsdev.metrics_dict(met)
     return md["decisions_reservation"] / max(md["decisions_total"], 1)
+
+
+def _row_k1(workload: str, cut: dict, window: int, m: int) -> int:
+    """K1 launches of a sustained row: once a calendar batch (m a round)
+    or once a prefix round, over the calibration, the timed chains, the
+    conformance rounds and the latency rounds with their window."""
+    n_pre = cut["reps"] * (cut["rounds_lo"] + cut["rounds"]) \
+        if cut["rounds_lo"] else cut["rounds"]
+    rounds = ROW_CAL[workload] + n_pre + 2 + (
+        cut["latency_rounds"] + window if cut["latency_rounds"] else 0)
+    return rounds * m
+
+
+def phase_row(serve, ext, card: str, workload: str, n: int, tmp: str) -> int:
+    """Bench's sustained row whole at full width (``serve.sustained_row``,
+    cut in depth to ``ROW_CUT``): calibration, ``reps`` pairs of timed
+    chains with the SLO block rolled once a chain, 2 conformance rounds
+    with the per-client table, cfg4's latency rounds, the verdict and
+    the tails; host spans on, watched by a watchdog with bench's
+    settings.  Launch-counted (K1 once a prefix round or a calendar
+    batch, no K2).  Checks: the SLO block rolled once a chain
+    (``2 * reps``), ``latency_samples == latency_rounds``, the table has
+    a line a client whose ``ops`` sum to the conformance rounds'
+    decisions, the registry's warning counter equals the watchdog's
+    warnings.  Returns the K1 launches."""
+    from dmclock_tpu_torch.obs.registry import MetricsRegistry
+    from dmclock_tpu_torch.obs.spans import SpanTracer
+    from dmclock_tpu_torch.obs.watchdog import Watchdog
+
+    cut = ROW_CUT[workload]
+    m = serve.CFG4["m"] if workload == "cfg4" else 1   # K1 a round
+    t_phase = time.perf_counter()
+    tracer = SpanTracer()
+    reg = MetricsRegistry()
+    lines = []
+    watchdog = Watchdog(tracer, interval_s=2.0, stall_after_s=60.0,
+                        registry=reg, log=lines.append).start()
+    path = os.path.join(tmp, f"{workload}_conformance.jsonl")
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    try:
+        row = serve.sustained_row(workload, n, **cut, conformance_rounds=2,
+                                  conformance_out=path, tracer=tracer,
+                                  watchdog=watchdog, device="cuda")
+    finally:
+        watchdog.close()
+    torch.cuda.synchronize()
+    launches = dict(ext.LAUNCHES)
+    want = {"ring_window": _row_k1(workload, cut,
+                                   row.get("latency_window", 0), m),
+            "wheel_scan": 0}
+    log(f"[{workload} row] kernel launches on the path: {launches}")
+    if launches != want:
+        raise AssertionError(f"{workload} row launched {launches}, want "
+                             f"{want}")
+    if row["slo"]["rolls"] != 2 * cut["reps"]:
+        raise AssertionError(f"{workload} row: {row['slo']['rolls']} SLO "
+                             f"rolls, want one a chain ({2 * cut['reps']})")
+    if row.get("latency_samples", 0) != cut["latency_rounds"]:
+        raise AssertionError(f"{workload} row: {row.get('latency_samples')}"
+                             f" latency samples, want "
+                             f"{cut['latency_rounds']}")
+    with open(path) as f:
+        table = [json.loads(ln) for ln in f]
+    ops = sum(r["ops"] for r in table)
+    if len(table) != n or ops != row["conformance_decisions"] or ops <= 0:
+        raise AssertionError(f"{workload} row: the conformance table has "
+                             f"{len(table)} lines (want {n}) and {ops} ops "
+                             f"(the rounds' decisions "
+                             f"{row['conformance_decisions']})")
+    counted = reg.counter("dmclock_watchdog_warnings_total").value
+    if counted != len(watchdog.warnings):
+        raise AssertionError(f"{workload} row: the registry counts "
+                             f"{counted} watchdog warnings, the watchdog "
+                             f"holds {len(watchdog.warnings)}")
+    keys = ("dps", "decisions", "fill", "resv_phase_frac", "mean_depth",
+            "bounded_by", "decisions_per_launch", "decisions_per_pass",
+            "chain_ms", "sync_latency_ms", "event_round_ms_median",
+            "event_round_ms_mean", "dispatch_ms_per_launch",
+            "host_overhead_frac", "slo_violations_total",
+            "slo_worst_share_err", "slo_window_tardiness_p99_ns",
+            "slo_windows_closed", "conformance", "conformance_decisions",
+            "latency_samples", "latency_window", "round_ms_p50",
+            "round_ms_p99", "round_ms_mean", "tardiness_p50_ns",
+            "tardiness_p99_ns", "margin_p50_ns", "margin_p99_ns",
+            "starvation_max_ns", "limit_gate_share")
+    log(f"[{workload} row] bench's timed structure at N={n} "
+        f"({json.dumps(cut)}, 2 conformance rounds) on {card}: "
+        + json.dumps({k: row[k] for k in keys if k in row}))
+    log(f"[{workload} row] the SLO verdict {json.dumps(row['slo'])}; "
+        f"starved_clients {len(row.get('starved_clients', []))} shown; "
+        f"the watchdog {len(watchdog.warnings)} warnings ("
+        f"{sorted(set(w['kind'] for w in watchdog.warnings))}), the "
+        f"registry's counter {counted}; the last: "
+        f"{json.dumps(watchdog.warnings[-3:])}")
+    log(f"[time] {workload} row {time.perf_counter() - t_phase:.3f} s")
+    return launches["ring_window"]
+
+
+def phase_frontier(serve, ext, card: str) -> int:
+    """The cfg4 frontier (``serve.frontier``) at full width over
+    ``FRONTIER_CUT``'s points, each row cut in depth, with a
+    ``FRONTIER_TARGET_MS`` pick; launch-counted (K1 m a round).  Returns
+    the K1 launches."""
+    cut = dict(FRONTIER_CUT)
+    points = cut.pop("points")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    pick, rows = serve.frontier(points, n=N_CFG4, **cut,
+                                target_latency_ms=FRONTIER_TARGET_MS,
+                                device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(ext.LAUNCHES)
+    window = 4     # latency_rounds 8 < 20: the window is 4
+    want = {"ring_window": sum(_row_k1("cfg4", cut, window, m)
+                               for m, _ in points), "wheel_scan": 0}
+    log(f"[frontier] kernel launches on the path: {launches}")
+    if launches != want:
+        raise AssertionError(f"frontier launched {launches}, want {want}")
+    if [(r["m"], r["steps"]) for r in rows] != list(points) or \
+            pick is None or any(r["decisions"] <= 0 for r in rows):
+        raise AssertionError(f"frontier: rows {rows}, pick {pick}")
+    for r in rows:
+        log(f"[frontier] m={r['m']} steps={r['steps']} on {card}: "
+            + json.dumps(r))
+    log(f"[frontier] --target-latency {FRONTIER_TARGET_MS} ms pick: "
+        f"{json.dumps(pick)}")
+    log(f"[time] frontier phase {time.perf_counter() - t_phase:.3f} s")
+    return launches["ring_window"]
 
 
 def phase_cfg3(serve, ext, obsdev, card: str):
@@ -2571,6 +2731,53 @@ def phase_dmc_sim(ext, card: str, tmp: str) -> dict:
     return out
 
 
+def phase_oracle_trace(dmc: dict, card: str, tmp: str) -> None:
+    """``dmc_sim`` with ``--model dmclock-delayed`` (the host oracle) on
+    the pull run's cut config: its trace equals the card's
+    ``dmclock-torch`` trace op for op (time, server, client, phase,
+    cost; the oracle's rows also carry its tags), and so each client's
+    phase split."""
+    import contextlib
+    import io
+
+    from dmclock_tpu_torch.sim import dmc_sim
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    mode, conf, total_ops = SIM_RUNS[0]
+    trace = os.path.join(tmp, "dmc_sim_oracle.jsonl")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = dmc_sim.main(["-c", _cut_conf(root, conf, total_ops, tmp),
+                           "--model", "dmclock-delayed", "--server-mode",
+                           mode, "--device", "cpu", "--trace", trace])
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"dmc_sim dmclock-delayed: rc {rc}")
+
+    def rows(path):
+        with open(path) as f:
+            out = [json.loads(ln) for ln in f]
+        return [(r["t"], r["server"], r["client"], r["phase"], r["cost"])
+                for r in out], sum(r["tag"] is not None for r in out)
+
+    want, tagged = rows(trace)
+    got, _ = rows(dmc[mode][0])
+    if got != want or not want:
+        diff = next((i for i, (a, b) in enumerate(zip(got, want))
+                     if a != b), min(len(got), len(want)))
+        raise AssertionError(f"dmclock-torch on the card diverges from "
+                             f"the oracle at op {diff} of {len(want)}")
+    split = {}
+    for _, _, client, phase, _ in want:
+        split.setdefault(client, {"reservation": 0, "priority": 0})[
+            phase] += 1
+    log(f"[dmc_sim oracle] {conf} (client_total_ops {total_ops}): the "
+        f"host oracle (dmclock-delayed, {secs:.3f} s, {tagged} rows with "
+        f"their tags) and dmclock-torch on {card} serve the same "
+        f"{len(want)} ops op for op; each client's phase split "
+        f"{json.dumps(split)}")
+
+
 def check_sim_twins(procs: dict, prefix: dict, dmc: dict,
                     card: str) -> None:
     """Phase 21's card runs against their CPU twins: the device sim's
@@ -3196,6 +3403,10 @@ def main() -> int:
             del st3, tele3, draws3
             cfg4_k1, cfg4_stream_k1, _, cfg4_np = phase_cfg4(
                 serve, _ext, obsdev, card)
+            t_row = time.perf_counter()
+            cfg3_row_k1 = phase_row(serve, _ext, card, "cfg3", N_CFG3, tmp)
+            cfg4_row_k1 = phase_row(serve, _ext, card, "cfg4", N_CFG4, tmp)
+            frontier_k1 = phase_frontier(serve, _ext, card)
             t_queue = time.perf_counter()
             out = os.path.join(tmp, "twins.pt")
             twins = start_cpu_twins(root, out)
@@ -3237,6 +3448,7 @@ def main() -> int:
             ds_prefix, ds_by_path, _ = phase_device_sim(_ext, fastpath,
                                                         card)
             dmc = phase_dmc_sim(_ext, card, tmp)
+            phase_oracle_trace(dmc, card, tmp)
             check_sim_twins(sim_twins, ds_prefix, dmc, card)
             # phase 22: the multi-server mesh; its CPU twins start first
             t_mesh = time.perf_counter()
@@ -3267,7 +3479,8 @@ def main() -> int:
                 _stop(proc)
     t_end = time.perf_counter()
     log(f"[time] phases 6-13 took {t_rows - t_serve:.3f} s, the cfg3, "
-        f"cfg3_stream and cfg4 (minstop) phases {t_queue - t_rows:.3f} s, "
+        f"cfg3_stream and cfg4 (minstop) phases {t_row - t_rows:.3f} s, "
+        f"the sustained rows and the frontier {t_queue - t_row:.3f} s, "
         f"the queue and push phases {t_churn - t_queue:.3f} s, the churn "
         f"phases {t_sup - t_churn:.3f} s, the supervised phase "
         f"{t_sims - t_sup:.3f} s, the simulators' phase "
@@ -3281,7 +3494,8 @@ def main() -> int:
                    chain_vc=chain_vc_k1, stop_ladder=ladder_k1,
                    cfg4_wheel=wheel["ring_window"], cfg3=cfg3_k1,
                    cfg3_stream=stream_k1, cfg4=cfg4_k1,
-                   cfg4_stream=cfg4_stream_k1,
+                   cfg4_stream=cfg4_stream_k1, cfg3_row=cfg3_row_k1,
+                   cfg4_row=cfg4_row_k1, frontier=frontier_k1,
                    churn_flash_crowd=churn_k1, churn_storm=storm_k1,
                    **sup_k1, **{p: n["ring_window"]
                                 for p, n in ds_by_path.items()},

@@ -8,19 +8,23 @@ each kernel the JAX package wrote in Pallas for the TPU is a kernel
 written by hand for Hopper under ``engine/csrc/``.
 
 Layers (each mirrors its counterpart in ``dmclock_tpu``):
-  core    -- the int64-ns time/tag constants
+  core    -- the int64-ns time/tag algebra, the QoS records, the host
+             oracle queues and the client trackers
   engine  -- SoA client state, the exact serial engine, superwave
              ingest, the prefix-commit and calendar fast paths, the
              stream chunk, and their kernels (ring window, timer-wheel
              scan)
   obs     -- the on-device metrics vector, the admission clamp and the
              telemetry accumulators (histograms, ledger, SLO windows,
-             provenance, flight ring)
+             provenance, flight ring); spans, the registry and its
+             publishers, the burn-rate evaluator and the watchdog
   robust  -- the guarded epoch and stream chunk, the degradation
              ladder, host fault plans and the crash-equivalent
              supervisor (with ``utils.checkpoint``)
-  serve   -- the serving entry points (``serve_only``, ``serve_cfg3``,
-             ``serve_cfg4``, the queues)
+  serve   -- the serving entry points (``serve_only``, bench's
+             sustained rows ``sustained_row`` and ``frontier``, the
+             queues, churn and the mesh)
+  native  -- the ctypes binding of the C++ runtime under ``native/``
   sim     -- the simulators: the discrete-event harness, ``dmc_sim`` /
              ``ssched_sim`` over the model registry (``models``), and
              the device-resident multi-server closed loop

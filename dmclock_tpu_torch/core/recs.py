@@ -10,6 +10,12 @@ import enum
 from dataclasses import dataclass
 
 
+# Counter: monotone completion counters (dmclock_recs.h:25); Cost: a
+# request's service cost (dmclock_recs.h:31)
+Counter = int
+Cost = int
+
+
 class Phase(enum.IntEnum):
     """Which scheduling phase served a request (dmclock_recs.h:33).
     An ``IntEnum``: callers may compare it with a phase of another

@@ -41,6 +41,10 @@ def sec_to_ns(t: float) -> int:
     return round(t * NS_PER_SEC)
 
 
+def ns_to_sec(t_ns: int) -> float:
+    return t_ns / NS_PER_SEC
+
+
 def rate_to_inv_ns(rate: float) -> int:
     """QoS rate (ops/sec) -> nanoseconds of virtual time per unit cost,
     with the 0 -> 0 "axis disabled" sentinel (``ClientInfo::update``,
@@ -48,3 +52,22 @@ def rate_to_inv_ns(rate: float) -> int:
     if rate == 0.0:
         return 0
     return min(round(NS_PER_SEC / rate), MAX_INV_NS)
+
+
+def min_not_0_time(current: int, possible: int) -> int:
+    """Minimum of two times where TIME_ZERO means "no time"
+    (``min_not_0_time``, dmclock_server.h:1192-1195)."""
+    if possible == TIME_ZERO:
+        return current
+    return min(current, possible)
+
+
+def format_tag(value_ns: int, modulo: int = 1_000_000) -> str:
+    """Human-readable tag: 'max' / 'min' sentinels, else seconds modulo
+    ``modulo`` (``RequestTag::format_tag``, dmclock_server.h:234-242)."""
+    if value_ns >= MAX_TAG:
+        return "max"
+    if value_ns <= MIN_TAG:
+        return "min"
+    sec = value_ns / NS_PER_SEC
+    return f"{sec % modulo:0.6f}"

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import fastpath
+from ..obs.device import metrics_combine, metrics_delta
 from .kernels import as_scalar, ingest_superwave
 from .state import EngineState
 
@@ -67,15 +68,20 @@ STREAM_GUARD_FIELD = {"prefix": "guards_ok", "chain": "guards_ok",
                       "calendar": "progress_ok"}
 
 
+def admission(state: EngineState, counts, waves: int) -> torch.Tensor:
+    """The admission clamp over the carried depth: ``min(raw, min(ring -
+    depth, waves))``."""
+    headroom = torch.clamp(state.ring_capacity - state.depth, max=waves)
+    return torch.minimum(counts, headroom)
+
+
 def clamped_ingest(state: EngineState, counts, t_base, *, waves: int,
                    dt_wave: int) -> EngineState:
-    """The admission clamp + superwave ingest on the device: ``min(raw,
-    min(ring - depth, waves))`` over the carried depth, then
-    :func:`kernels.ingest_superwave` at wave times ``t_base + j *
+    """The admission clamp (:func:`admission`) + superwave ingest on the
+    device: :func:`kernels.ingest_superwave` at wave times ``t_base + j *
     dt_wave`` (cost = rho = delta = 1)."""
     dev = state.device
-    headroom = torch.clamp(state.ring_capacity - state.depth, max=waves)
-    c = torch.minimum(counts, headroom)
+    c = admission(state, counts, waves)
     wave_times = as_scalar(t_base, dev) + torch.arange(
         waves, dtype=torch.int64, device=dev) * dt_wave
     ones = torch.ones((state.capacity,), dtype=torch.int64, device=dev)
@@ -93,10 +99,15 @@ def ingest_step(state: EngineState, counts, t_base, *, dt_epoch_ns: int,
 
 
 def make_epoch_step(*, engine: str, m: int, kw: dict, dt_epoch_ns: int,
-                    waves: int, ingest: bool, with_pressure: bool = False):
+                    waves: int, ingest: bool, with_pressure: bool = False,
+                    count_drops: bool = False):
     """The one per-epoch step of a chunk: clamped superwave ingest at
     ``t_base`` (when ``ingest``) and one epoch of ``engine`` serving at
     ``t_base + dt`` with the telemetry accumulators riding it.
+
+    ``count_drops`` adds the arrivals the clamp refused to the epoch's
+    ``ingest_drops`` metric row, as the sustained rows' round body does
+    (off: the JAX package's chunk, which does not count them).
 
     ``with_pressure`` adds a mid-epoch probe,
     ``obs.provenance.pressure_vec`` on the post-ingest, pre-serve state
@@ -114,6 +125,9 @@ def make_epoch_step(*, engine: str, m: int, kw: dict, dt_epoch_ns: int,
         from ..obs.provenance import pressure_vec
 
     def step(st, t_base, counts_e, h, l, f, s, p):
+        if count_drops:
+            dropped = torch.sum(
+                (counts_e - admission(st, counts_e, waves)).to(torch.int64))
         if ingest:
             st = clamped_ingest(st, counts_e, t_base, waves=waves,
                                 dt_wave=dt_wave)
@@ -124,6 +138,9 @@ def make_epoch_step(*, engine: str, m: int, kw: dict, dt_epoch_ns: int,
                 prov=p)
         outs = {name: getattr(ep, name) for name in fields}
         outs["metrics"] = ep.metrics
+        if count_drops:
+            outs["metrics"] = metrics_combine(ep.metrics, metrics_delta(
+                device=ep.metrics.device, ingest_drops=dropped))
         if with_pressure:
             outs["pressure"] = press
         return (ep.state, ep.hists, ep.ledger, ep.flight, ep.slo,
@@ -141,7 +158,8 @@ def build_stream_chunk(*, engine: str, epochs: int, m: int, k: int = 0,
                        window_m: Optional[int] = None,
                        calendar_impl: str = "minstop",
                        ladder_levels: int = 8, ingest: bool = True,
-                       with_pressure: bool = False):
+                       with_pressure: bool = False,
+                       count_drops: bool = False):
     """The chunk function ``(state, epoch0, counts, hists, ledger,
     flight, slo, prov) -> StreamChunk`` of one configuration.
 
@@ -149,7 +167,9 @@ def build_stream_chunk(*, engine: str, epochs: int, m: int, k: int = 0,
     ``counts`` is ``int32[epochs, N]`` of raw arrival draws (None with
     ``ingest=False``).  Epoch ``i`` ingests at ``t_base = (epoch0 + i) *
     dt_epoch_ns`` (waves ``dt_epoch_ns // waves`` apart) and serves at
-    ``t_base + dt_epoch_ns``: the round loop's schedule."""
+    ``t_base + dt_epoch_ns``: the round loop's schedule.
+    ``count_drops`` counts the clamp's refusals in ``ingest_drops``
+    (:func:`make_epoch_step`)."""
     if engine not in fastpath.EPOCH_ENGINES:
         raise ValueError(f"unknown epoch engine {engine!r}")
     epochs = int(epochs)
@@ -164,7 +184,8 @@ def build_stream_chunk(*, engine: str, epochs: int, m: int, k: int = 0,
     dt = int(dt_epoch_ns)
     epoch_step = make_epoch_step(engine=engine, m=m, kw=kw,
                                  dt_epoch_ns=dt, waves=waves,
-                                 ingest=ingest, with_pressure=with_pressure)
+                                 ingest=ingest, with_pressure=with_pressure,
+                                 count_drops=count_drops)
 
     def chunk(state: EngineState, epoch0, counts=None, hists=None,
               ledger=None, flight=None, slo=None, prov=None

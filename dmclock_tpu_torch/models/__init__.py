@@ -6,23 +6,30 @@ binds a queue factory + tracker factory pair for the sim harness
 (the reference's type-glue headers ``sim/src/test_dmclock.h:33-62`` and
 ``sim/src/test_ssched.h``):
 
-  dmclock-torch -- the device-engine queues (``engine.queue``,
-                   ``engine.push_queue``) + ``OrigTracker``; the JAX
-                   package's ``dmclock-tpu``
-  ssched        -- FIFO baseline + no-op tracker
+  dmclock         -- the oracle queues (``core.scheduler``) +
+                     ``OrigTracker``, immediate tags (pull and push)
+  dmclock-delayed -- the same with delayed tag calculation
+  dmclock-torch   -- the device-engine queues (``engine.queue``,
+                     ``engine.push_queue``) + ``OrigTracker``; the JAX
+                     package's ``dmclock-tpu``
+  dmclock-native  -- the C++ runtime via ctypes (``native``), delayed
+                     tags (pull)
+  ssched          -- FIFO baseline + no-op tracker
 
-Every queue factory takes ``device=`` (default ``"cuda"``); the sim
-passes the device it was given.  The JAX package's ``dmclock`` and
-``dmclock-delayed`` (the oracle queues of its ``core/scheduler.py``)
-and ``dmclock-native`` (the ctypes binding of ``native/``) are not
-ported yet: :func:`get` refuses them by name (:data:`NOT_PORTED`).
+``dmclock``, ``dmclock-delayed`` and ``dmclock-native`` are host
+reference models by design, as in the JAX package: they hold the
+reference's semantics the device engine is compared against, and run
+no tensor.  Every queue factory takes ``device=`` (default ``"cuda"``)
+for the registry's uniform signature; the sim passes the device it was
+given and the host models ignore it.  :data:`NOT_PORTED` (the JAX
+package's models the port does not carry) is empty.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-from ..core.scheduler import AtLimit
+from ..core.scheduler import AtLimit, PullPriorityQueue, PushPriorityQueue
 from ..core.tracker import ServiceTracker
 from ..device import DEFAULT_DEVICE
 from ..sim.ssched import NullServiceTracker, SimpleQueue
@@ -30,16 +37,13 @@ from ..sim.ssched import NullServiceTracker, SimpleQueue
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
 _PUSH_REGISTRY: Dict[str, Callable] = {}
 
-# the JAX package's models this port does not carry yet, with the reason
-NOT_PORTED = {
-    "dmclock": "needs the oracle queues of core/scheduler.py, which the "
-               "port has not ported yet (a later slice)",
-    "dmclock-delayed": "needs the oracle queues of core/scheduler.py, "
-                       "which the port has not ported yet (a later slice)",
-    "dmclock-native": "needs the ctypes binding of the native runtime "
-                      "(native/__init__.py), which the port has not "
-                      "ported yet (a later slice)",
-}
+# the JAX package's models this port does not carry, with the reason
+NOT_PORTED: Dict[str, str] = {}
+
+# the native model's optional prop heap (the reference USE_PROP_HEAP
+# build flag made runtime; behaviorally invisible), set by dmc_sim
+# --use-prop-heap
+USE_PROP_HEAP = False
 
 
 def register(name: str, queue_factory: Callable,
@@ -95,6 +99,41 @@ def _dmclock_tracker():
     return ServiceTracker(run_gc_thread=False)
 
 
+def _dmclock_queue(delayed: bool):
+    def factory(server_id, client_info_f, anticipation_ns, soft_limit, *,
+                device=DEFAULT_DEVICE):
+        return PullPriorityQueue(
+            client_info_f, delayed_tag_calc=delayed,
+            at_limit=_at_limit(soft_limit),
+            anticipation_timeout_ns=anticipation_ns, run_gc_thread=False)
+    return factory
+
+
+def _dmclock_push_queue(delayed: bool):
+    def factory(server_id, client_info_f, anticipation_ns, soft_limit, *,
+                can_handle_f, handle_f, now_ns_f, sched_at_f,
+                capacity_f=None, device=DEFAULT_DEVICE):
+        # the host queue consults can_handle before every dispatch (the
+        # reference's pacing); the free-slot count is unused
+        return PushPriorityQueue(
+            client_info_f, can_handle_f, handle_f,
+            now_ns_f=now_ns_f, sched_at_f=sched_at_f,
+            delayed_tag_calc=delayed, at_limit=_at_limit(soft_limit),
+            anticipation_timeout_ns=anticipation_ns, run_gc_thread=False)
+    return factory
+
+
+def _dmclock_native_queue(server_id, client_info_f, anticipation_ns,
+                          soft_limit, *, device=DEFAULT_DEVICE):
+    # imported lazily; raises with a clear message without the library
+    from ..native import NativePullPriorityQueue
+    return NativePullPriorityQueue(
+        client_info_f, delayed_tag_calc=True,
+        at_limit=_at_limit(soft_limit),
+        anticipation_timeout_ns=anticipation_ns,
+        use_prop_heap=USE_PROP_HEAP)
+
+
 def _dmclock_torch_queue(server_id, client_info_f, anticipation_ns,
                          soft_limit, *, device=DEFAULT_DEVICE):
     # speculative_batch: the sim pulls one decision per service event,
@@ -136,7 +175,12 @@ def _ssched_push_queue(server_id, client_info_f, anticipation_ns,
     return SimpleQueue(can_handle_f=can_handle_f, handle_f=handle_f)
 
 
+register("dmclock", _dmclock_queue(delayed=False), _dmclock_tracker)
+register("dmclock-delayed", _dmclock_queue(delayed=True), _dmclock_tracker)
 register("dmclock-torch", _dmclock_torch_queue, _dmclock_tracker)
+register("dmclock-native", _dmclock_native_queue, _dmclock_tracker)
 register("ssched", _ssched_queue, NullServiceTracker)
+register_push("dmclock", _dmclock_push_queue(delayed=False))
+register_push("dmclock-delayed", _dmclock_push_queue(delayed=True))
 register_push("dmclock-torch", _dmclock_torch_push_queue)
 register_push("ssched", _ssched_push_queue)

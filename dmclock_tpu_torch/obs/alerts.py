@@ -17,9 +17,11 @@ on the rising edge (fast and slow windows in violation), re-armed by a
 clean fast window.  A re-registered client or a live QoS update opens a
 new contract epoch, whose burn is a new episode.  Warnings are one JSON
 line each (prefix ``# slo:``), a ``dmclock_slo_*`` registry bump, and a
-row of :attr:`SloEvaluator.fired`; the evaluator's state encodes into
-flat ``slo_alert_*`` leaves and loads back.  The JAX package's watchdog
-routing has no counterpart yet (``obs/watchdog.py`` is not ported).
+row of :attr:`SloEvaluator.fired`; with ``watchdog=`` (an
+``obs.watchdog.Watchdog``) each fired rule goes through its
+``external_warning`` instead of the ``# slo:`` line, one warning stream
+for the run.  The evaluator's state encodes into flat ``slo_alert_*``
+leaves and loads back.
 """
 
 from __future__ import annotations

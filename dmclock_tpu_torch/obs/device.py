@@ -197,6 +197,18 @@ def publish_shard_faults(registry, per_shard, labels=None) -> None:
         ).set(int(mat[:, col].sum()))
 
 
+def publish(registry, vec, prefix: str = "dmclock_engine",
+            labels=None) -> None:
+    """Fold a metrics vector (read back once) into a host
+    ``MetricsRegistry``: every row becomes a gauge (the vector is itself
+    cumulative per run; the hwm rows are maxima)."""
+    for name, value in metrics_dict(vec).items():
+        registry.gauge(f"{prefix}_{name}",
+                       "on-device scheduling metric (see "
+                       "docs/OBSERVABILITY.md)",
+                       labels=labels).set(value)
+
+
 def _np_metrics(x) -> np.ndarray:
     if torch.is_tensor(x):
         x = x.detach().cpu().numpy()

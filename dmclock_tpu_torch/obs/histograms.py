@@ -18,9 +18,8 @@ the JAX package.  Merge is elementwise add.
 reservation-phase ops, limit-break serves, reservation-tardiness sum
 and max.  Counter columns add, the max column maxes.
 
-The registry export (``publish_*``) and the mesh reductions
-(``*_mesh_reduce``) are later slices of the port (ROADMAP.md items 7
-and 11).
+The registry export (:func:`publish_hists`, :func:`publish_ledger`)
+reads a block back once and writes it into a host registry.
 """
 
 from __future__ import annotations
@@ -191,6 +190,24 @@ def _np64(x) -> np.ndarray:
     return np.asarray(x, dtype=np.int64)
 
 
+def publish_hists(registry, h, prefix: str = "dmclock",
+                  labels=None) -> None:
+    """Expose a histogram block (a tensor on any device, read back once)
+    as Prometheus histogram families (``_bucket``/``_sum``/``_count``)
+    through the host registry: get-or-create a fixed-bucket histogram per
+    family at the log2 bounds and overwrite its counts (the block is
+    itself cumulative per run, so set-not-add is the correct drain)."""
+    a = _np64(h)
+    for i, name in enumerate(HIST_NAMES):
+        m = registry.histogram(
+            f"{prefix}_{name}",
+            "on-device log2-bucketed QoS histogram "
+            "(docs/OBSERVABILITY.md)",
+            labels=labels, buckets=BUCKET_BOUNDS)
+        m.set_counts(a[i, :NUM_BUCKETS].tolist(),
+                     float(a[i, HIST_SUM_COL]))
+
+
 # ----------------------------------------------------------------------
 # per-client conformance ledger
 # ----------------------------------------------------------------------
@@ -283,3 +300,15 @@ def ledger_rows(led, limit: int = None) -> list:
                                   / max(int(a[c, LED_RESV_OPS]), 1))
         rows.append(r)
     return rows
+
+
+def publish_ledger(registry, led, prefix: str = "dmclock_ledger",
+                   labels=None) -> None:
+    """Fold a ledger's column totals (read back once) into a host
+    registry as gauges (per-client series would explode the scrape; the
+    full table drains through the JSON paths instead)."""
+    for name, value in ledger_totals(led).items():
+        registry.gauge(f"{prefix}_{name}",
+                       "device conformance-ledger column total "
+                       "(docs/OBSERVABILITY.md)",
+                       labels=labels).set(value)

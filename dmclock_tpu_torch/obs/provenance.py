@@ -20,9 +20,9 @@ Counter rows add, ``*_MAX`` rows and ``last_served`` max; a dead tag32
 batch's observations never land (:func:`prov_select`).  Host side:
 :class:`StarvationMonitor` and the per-shard pressure vector
 (:func:`pressure_vec`, read by the stream chunk's ``with_pressure``
-probe), and the mesh's shard helpers (:func:`prov_mesh_reduce`, the
-pressure merges, :func:`publish_shard_pressure`).  The registry export
-is ROADMAP.md item 7.
+probe), the mesh's shard helpers (:func:`prov_mesh_reduce`, the
+pressure merges, :func:`publish_shard_pressure`) and the registry export
+(:func:`publish_provenance`).
 """
 
 from __future__ import annotations
@@ -209,25 +209,69 @@ def stale_clients(prov, now_ns: int, threshold_ns: int,
     return rows
 
 
+def publish_provenance(registry, prov, labels=None) -> None:
+    """Fold a block (read back once) into a host registry:
+    ``dmclock_provenance_*`` gauges (margin percentiles, gate share,
+    eligible depth, phase wins) and the ``dmclock_starvation_max_ns``
+    watermark."""
+    d = prov_dict(prov)
+    for key in ("margin_p50_ns", "margin_p99_ns", "limit_gate_share",
+                "eligible_depth_mean", "eligible_depth_max",
+                "phase_wins_reservation", "phase_wins_weight",
+                "phase_wins_limit_break"):
+        registry.gauge(f"dmclock_provenance_{key}",
+                       "decision provenance plane scalar "
+                       "(docs/OBSERVABILITY.md)",
+                       labels=labels).set(float(d[key]))
+    registry.gauge("dmclock_starvation_max_ns",
+                   "max time-since-service over backlogged clients "
+                   "observed at any batch entry (provenance plane)",
+                   labels=labels).set(float(d["starvation_max_ns"]))
+
+
 def _stderr_log(line: str) -> None:
     print(line, file=sys.stderr)
 
 
 class StarvationMonitor:
     """Once-per-episode ``client_starved`` warnings over the provenance
-    watermark (the JAX package's monitor, without its registry and
-    watchdog hooks, which are ROADMAP.md item 7): fires on the rising
-    edge of ``now - last_served > threshold_ns`` per backlogged client
-    and re-arms when the client is served again.  Warnings go to
-    ``log`` as ``# starvation:`` JSON lines."""
+    watermark: fires on the rising edge of ``now - last_served >
+    threshold_ns`` per backlogged client and re-arms when the client is
+    served again.  Warnings route through a watchdog's
+    ``external_warning`` hook when one is attached (one warning stream
+    and counter for the run), else ``log`` gets a ``# starvation:`` JSON
+    line.  With a registry (``registry=`` or :meth:`attach_registry`)
+    the episodes count in ``dmclock_starvation_episodes_total`` and each
+    pass sets the worst staleness and the stale-client gauges."""
 
-    def __init__(self, threshold_ns: int, *,
+    def __init__(self, threshold_ns: int, *, watchdog=None,
+                 registry=None,
                  log: Callable[[str], None] = _stderr_log):
         self.threshold_ns = int(threshold_ns)
+        self._watchdog = watchdog
         self._log = log
         self.active: Set[int] = set()
         self.fired: List[dict] = []
         self.episodes_total = 0
+        self._counter = None
+        self._max_gauge = None
+        self._stale_gauge = None
+        if registry is not None:
+            self.attach_registry(registry)
+
+    def attach_registry(self, registry) -> None:
+        self._counter = registry.counter(
+            "dmclock_starvation_episodes_total",
+            "client_starved episodes fired (once per episode; "
+            "provenance plane, docs/OBSERVABILITY.md)")
+        self._max_gauge = registry.gauge(
+            "dmclock_starvation_max_ns",
+            "max time-since-service over backlogged clients "
+            "(provenance plane)")
+        self._stale_gauge = registry.gauge(
+            "dmclock_starvation_stale_clients",
+            "backlogged clients currently past the starvation "
+            "threshold (provenance plane)")
 
     def observe(self, prov, now_ns: int, backlog=None) -> List[dict]:
         """One drain-point pass; returns the warnings fired."""
@@ -245,8 +289,17 @@ class StarvationMonitor:
             out.append(w)
             self.fired.append(w)
             self.episodes_total += 1
-            self._log("# starvation: "
-                      + json.dumps(w, separators=(",", ":")))
+            if self._counter is not None:
+                self._counter.inc()
+            if self._watchdog is not None:
+                self._watchdog.external_warning(w)
+            else:
+                self._log("# starvation: "
+                          + json.dumps(w, separators=(",", ":")))
+        if self._max_gauge is not None:
+            worst = rows[0]["stale_ns"] if rows else 0
+            self._max_gauge.set(float(worst))
+            self._stale_gauge.set(float(len(over)))
         return out
 
 

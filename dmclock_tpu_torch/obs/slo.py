@@ -15,8 +15,8 @@ the design).  Two halves:
    pair, and per-window delivered-vs-contract conformance rows.  Plain
    data, encoded into flat ``slo_*`` leaves and loaded back.
 
-The burn-rate evaluator (``obs/alerts.py``'s ``SloEvaluator``) and the
-registry export are ROADMAP.md item 7.  The mesh merges
+The burn-rate evaluator, with its registry counters and its watchdog
+routing, is ``obs/alerts.py``'s ``SloEvaluator``.  The mesh merges
 (``window_mesh_reduce``, ``window_combine_axis``, ``window_combine_np``,
 ``publish_shard_windows``) serve the mesh chunk, its host replay and the
 supervised mesh.

@@ -40,7 +40,13 @@ accumulators (histograms, ledger, SLO window block, provenance) ride
 the timed rounds, on by default as in bench; ``row_scalars`` reads
 bench's derived scalars from them.  ``engine_loop="stream"`` runs the
 rounds as stream chunks of 8 (``engine.stream``; bench's
-``cfg3_stream`` and ``cfg4_stream``).
+``cfg3_stream`` and ``cfg4_stream``).  ``sustained_row`` is bench's row
+whole, key for key: timed chain pairs with the differenced ``dps``, the
+SLO block rolled once a chain into the burn-rate verdict, the derived
+scalars, the conformance rounds and table, the windowed latency rounds
+and the telemetry and provenance tails; ``frontier`` sweeps cfg4 over
+its batch count with bench's ``--target-latency`` pick
+(``frontier_pick``).
 
 ``serve_queue`` drives the pull queue API (``engine.queue``) at cfg3's
 population, 10,000 clients, through the exact serial engine (no K1 or
@@ -66,11 +72,14 @@ Run it (on the card; ``--device cpu`` for a small CPU run)::
     python -m dmclock_tpu_torch.serve --n 100000 --epochs 3
     python -m dmclock_tpu_torch.serve --select-impl radix --tag-width 32
     python -m dmclock_tpu_torch.serve --workload chain --epochs 1
-    python -m dmclock_tpu_torch.serve --workload cfg3 --rounds 8
+    python -m dmclock_tpu_torch.serve --workload cfg3 --spans
     python -m dmclock_tpu_torch.serve --workload cfg3 --engine-loop stream
-    python -m dmclock_tpu_torch.serve --workload cfg4 --rounds 3
-    python -m dmclock_tpu_torch.serve --workload cfg4 --calendar-impl wheel
-    python -m dmclock_tpu_torch.serve --workload cfg4 --n 256 --device cpu
+    python -m dmclock_tpu_torch.serve --workload cfg4 --conformance-out f
+    python -m dmclock_tpu_torch.serve --workload cfg4 --calendar-impl wheel \
+        --rounds 6 --rounds-lo 2 --reps 2 --latency-rounds 16
+    python -m dmclock_tpu_torch.serve --workload frontier --target-latency 1000
+    python -m dmclock_tpu_torch.serve --workload cfg4 --n 256 --rounds 3 \
+        --rounds-lo 0 --latency-rounds 8 --device cpu
     python -m dmclock_tpu_torch.serve --workload queue [--n 10000]
     python -m dmclock_tpu_torch.serve --workload churn
     python -m dmclock_tpu_torch.serve --workload churn --n 512 \
@@ -88,6 +97,7 @@ import functools
 import hashlib
 import heapq
 import json
+import sys
 import time
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -107,7 +117,8 @@ from .engine.kernels import as_scalar, ingest_superwave
 from .engine.push_queue import TpuPushPriorityQueue
 from .engine.queue import TpuPullPriorityQueue
 from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS, init_state
-from .engine.stream import STREAM_OUT_FIELDS, build_stream_chunk, ingest_step
+from .engine.stream import (STREAM_GUARD_FIELD, STREAM_OUT_FIELDS,
+                            build_stream_chunk, ingest_step)
 from .lifecycle import (LifecyclePlane, SlotMap, lam_vector, make_spec,
                         mount_admin_api, static_variant)
 from .lifecycle.plane import canon_results
@@ -385,10 +396,15 @@ def _sustained_setup(n: int, ring: int, depth0: int,
     return state_from_numpy(arrays, device)
 
 
-def _row_cfg(workload: str) -> dict:
+def _row_cfg(workload: str, m: int | None = None,
+             steps: int | None = None) -> dict:
+    """The row's shape; ``m`` and ``steps`` override its batches a round
+    and calendar steps (the frontier's points)."""
     if workload not in ("cfg3", "cfg4"):
         raise ValueError(f"unknown sustained workload {workload!r}")
-    return CFG3 if workload == "cfg3" else CFG4
+    c = CFG3 if workload == "cfg3" else CFG4
+    over = {k: v for k, v in (("m", m), ("steps", steps)) if v is not None}
+    return dict(c, **over) if over else c
 
 
 def sustained_qos(workload: str, n: int):
@@ -411,13 +427,14 @@ def sustained_start(workload: str, n: int, *,
                             weights, device=device)
 
 
-def sustained_lam0(workload: str, n: int) -> np.ndarray:
+def sustained_lam0(workload: str, n: int, *, m: int | None = None,
+                   steps: int | None = None) -> np.ndarray:
     """Bench's starting guess of the per-client arrival rate a round:
     the reservation floor plus the weight share of the surplus (the
     calendar's serve budget is ``m * n * steps``, the prefix engine's
     ``m * k``), clipped to ``waves - 1``.  The warm round draws from
     it."""
-    c = _row_cfg(workload)
+    c = _row_cfg(workload, m, steps)
     resv_rates, weights = sustained_qos(workload, n)
     serve_per_round = c["m"] * (n * c["steps"] if workload == "cfg4"
                                 else c["k"])
@@ -440,10 +457,14 @@ class Sustained(NamedTuple):
     resv_share: float       # reservation share of the last calibration
     #                         iteration's decisions
     cal_rounds: int         # warm + calibration rounds run
+    resv_rates: np.ndarray  # float64[n] calibrated reservation rates
+    rng: np.random.Generator  # the arrival stream after the timed draws
 
 
 def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
                       *, calendar_impl: str = "minstop",
+                      m: int | None = None, steps: int | None = None,
+                      tracer=None,
                       device: str | torch.device = DEFAULT_DEVICE
                       ) -> Sustained:
     """Bench's calibration (``bench_sustained``, in its order), then every
@@ -464,32 +485,31 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
     into the state.  The timed rounds' draws come next on the same
     stream, from the calibrated ``lam``.  The calibration rounds read
     their decisions back (untimed); no telemetry rides them, as bench
-    discards it.  ``calendar_impl`` picks cfg4's scheme."""
+    discards it.  ``calendar_impl`` picks cfg4's scheme; ``m`` and
+    ``steps`` override the row's shape (:func:`_row_cfg`).  With a span
+    ``tracer`` every round is a ``serve.round`` dispatch span.  Later
+    draws (the conformance and latency rounds) continue on ``rng``."""
     from .core.timebase import MAX_INV_NS, NS_PER_SEC
 
     dev = resolve_device(device)
-    c = _row_cfg(workload)
+    c = _row_cfg(workload, m, steps)
     resv_rates, weights = sustained_qos(workload, n)
     state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
                              weights, device=dev)
     calendar = workload == "cfg4"
     dt, waves = c["dt_round_ns"], c["waves"]
-    lam = sustained_lam0(workload, n)
+    lam = sustained_lam0(workload, n, m=m, steps=steps)
     rng = np.random.default_rng(seed)
 
     def draw():
         return np.minimum(rng.poisson(lam), waves).astype(np.int32)
 
+    round_fn, eng_kw = _round_body(workload, c, calendar_impl)
+
     def one_round(st, t_base):
         counts = torch.from_numpy(draw()).to(dev)
-        if calendar:
-            return calendar_round(
-                st, counts, t_base, m=c["m"], steps=c["steps"],
-                ladder_levels=c["ladder_levels"], waves=waves,
-                dt_round_ns=dt, calendar_impl=calendar_impl)
-        return prefix_round(st, counts, t_base, m=c["m"], k=c["k"],
-                            waves=waves, dt_round_ns=dt,
-                            select_impl=c["select_impl"])
+        with obsspans.span(tracer, "serve.round", "dispatch"):
+            return round_fn(st, counts, t_base, **eng_kw)
 
     state = one_round(state, 0).state
     t_base = dt
@@ -535,7 +555,20 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
     draws = torch.from_numpy(np.stack([draw() for _ in range(rounds)])) \
         .to(dev)
     return Sustained(state=state, draws=draws, t0=int(t_base), lam=lam,
-                     resv_share=share, cal_rounds=1 + 2 * cal_iters)
+                     resv_share=share, cal_rounds=1 + 2 * cal_iters,
+                     resv_rates=resv_rates, rng=rng)
+
+
+def _round_body(workload: str, c: dict, calendar_impl: str):
+    """``(round function, its keywords)`` of the row's shape ``c``:
+    :func:`calendar_round` on ``calendar_impl`` for cfg4,
+    :func:`prefix_round` for cfg3."""
+    base = dict(m=c["m"], waves=c["waves"], dt_round_ns=c["dt_round_ns"])
+    if workload == "cfg4":
+        return calendar_round, dict(base, steps=c["steps"],
+                                    ladder_levels=c["ladder_levels"],
+                                    calendar_impl=calendar_impl)
+    return prefix_round, dict(base, k=c["k"], select_impl=c["select_impl"])
 
 
 def cfg3_setup(n: int = 10_000, rounds: int = 3, seed: int = 11, *,
@@ -863,41 +896,529 @@ def serve_cfg4(n: int = 100_000, rounds: int = 3, seed: int = 11, *,
                           stream_chunk=stream_chunk, device=device)[1]
 
 
-def row_scalars(tele: Tele, state: EngineState, t_end: int,
-                dt_round_ns: int) -> dict:
-    """Bench's derived scalars of a sustained row, read back once from
-    the accumulators: reservation tardiness p50/p90/p99 (log2 bucket
-    upper bounds), mean (histogram) and max (ledger); winner margin
-    p50/p99, the starvation watermark, the limit-gate share and the
-    clients a starvation monitor (8 rounds of virtual time) flags at
-    ``t_end``; and the SLO window block's column totals.  The burn-rate
-    verdict over the windows is ROADMAP.md item 7."""
-    out = {}
+def _stderr_log(line: str) -> None:
+    print(line, file=sys.stderr)
+
+
+def row_tail(out: dict, tele: Tele, state: EngineState, t_end: int,
+             dt_round_ns: int, *, watchdog=None, log=_stderr_log) -> dict:
+    """Bench's telemetry and provenance scalars of a sustained row
+    (``bench_sustained``'s tail), read back once from the accumulators
+    into ``out``: reservation tardiness p50/p90/p99 (log2 bucket upper
+    bounds), mean (histogram) and max (ledger), the ``telemetry`` block
+    and the raw histogram block (``_hist_block``, the registry feed);
+    the ``provenance`` block, winner margin p50/p99, the starvation
+    watermark and the limit-gate share; and, from a starvation monitor
+    at 8 rounds of virtual time observing at ``t_end`` (routed through
+    ``watchdog`` when one is given, else ``log``), the first 8 clients
+    it flags as ``starved_clients``."""
     if tele.hists is not None:
-        h = tele.hists
+        h_np = obshist._np64(tele.hists)
+        lt = obshist.ledger_totals(tele.ledger)
         for q, key in ((0.50, "tardiness_p50_ns"),
                        (0.90, "tardiness_p90_ns"),
                        (0.99, "tardiness_p99_ns")):
             out[key] = obshist.hist_percentile(
-                h, obshist.HIST_RESV_TARDINESS, q)
+                h_np, obshist.HIST_RESV_TARDINESS, q)
         out["tardiness_mean_ns"] = obshist.hist_mean(
-            h, obshist.HIST_RESV_TARDINESS)
-        lt = obshist.ledger_totals(tele.ledger)
+            h_np, obshist.HIST_RESV_TARDINESS)
         out["tardiness_max_ns"] = float(lt["tardiness_max_ns"])
-        out["ledger_totals"] = lt
+        out["telemetry"] = {"histograms": obshist.hist_dict(h_np),
+                            "ledger_totals": lt}
+        out["_hist_block"] = h_np.tolist()
     if tele.prov is not None:
         pd = obsprov.prov_dict(tele.prov)
+        out["provenance"] = pd
         out["margin_p50_ns"] = pd["margin_p50_ns"]
         out["margin_p99_ns"] = pd["margin_p99_ns"]
         out["starvation_max_ns"] = pd["starvation_max_ns"]
         out["limit_gate_share"] = round(pd["limit_gate_share"], 4)
-        mon = obsprov.StarvationMonitor(8 * dt_round_ns,
-                                        log=lambda _line: None)
+        mon = obsprov.StarvationMonitor(8 * dt_round_ns, watchdog=watchdog,
+                                        log=log)
         mon.observe(tele.prov, int(t_end), backlog=state.depth)
-        out["starved_clients"] = len(mon.fired)
+        if mon.fired:
+            out["starved_clients"] = mon.fired[:8]
+    return out
+
+
+def row_scalars(tele: Tele, state: EngineState, t_end: int,
+                dt_round_ns: int) -> dict:
+    """:func:`row_tail` of the accumulators at ``t_end`` (its monitor
+    silent), with the ledger's column totals and the SLO window block's
+    column totals beside it."""
+    out = row_tail({}, tele, state, t_end, dt_round_ns,
+                   log=lambda _line: None)
+    out.pop("_hist_block", None)
+    if tele.ledger is not None:
+        out["ledger_totals"] = obshist.ledger_totals(tele.ledger)
     if tele.slo is not None:
         out["slo_window_totals"] = obsslo.window_totals(tele.slo)
     return out
+
+
+# bench's accelerator depth of each sustained row (bench.py main: cfg3
+# 60 rounds after 20 in 3 pairs, cfg4 40 after 12 in 4 pairs and 100
+# latency rounds) and its population
+ROW_DEPTH = {"cfg3": dict(rounds=60, rounds_lo=20, reps=3, latency_rounds=0),
+             "cfg4": dict(rounds=40, rounds_lo=12, reps=4,
+                          latency_rounds=100)}
+ROW_N = {"cfg3": 10_000, "cfg4": 100_000}
+# bench_frontier: cfg4 over (m, steps) points, each row at this depth
+FRONTIER = dict(points=((2, 64), (3, 64), (6, 64), (12, 64)), rounds=24,
+                rounds_lo=8, reps=2, latency_rounds=60)
+
+
+def scalar_latency(device: str | torch.device = DEFAULT_DEVICE,
+                   reps: int = 5) -> float:
+    """Seconds of one tiny device op and its read back, averaged over
+    ``reps`` (the port's ``profile_util.scalar_latency``): the floor a
+    timed chain's single synchronisation adds."""
+    dev = resolve_device(device)
+    x = torch.tensor(3, dtype=torch.int64, device=dev)
+    int(x * 2 + 1)
+    t0 = time.perf_counter()
+    v = x
+    for _ in range(reps):
+        v = v * 2 + 1
+        int(v)
+    return (time.perf_counter() - t0) / reps
+
+
+def _per_pass_cap(n: int, k: int, calendar_steps: int, calendar_impl: str,
+                  ladder_levels: int) -> int:
+    """Most decisions one batch can commit, the ``fill`` denominator
+    (bench's ``_per_pass_cap``): ``k`` for the prefix engine,
+    ``n * steps`` a calendar batch, times ``ladder_levels`` for the
+    bucketed and wheel schemes, which refresh the step budget at every
+    level."""
+    if not calendar_steps:
+        return k
+    levels = ladder_levels \
+        if calendar_impl in ("bucketed", "wheel") else 1
+    return n * calendar_steps * levels
+
+
+def _span_summary(tracer, window, wall_s: float, launches: int):
+    """The span window over the timed chains (bench's ``_span_summary``):
+    per-category self-time deltas, the per-launch dispatch/device split
+    and the host-overhead share of the chains' wall."""
+    if tracer is None or window is None:
+        return None
+    now = tracer.category_totals()
+    d = {c: now.get(c, 0) - window.get(c, 0) for c in obsspans.CATEGORIES}
+    wall_ns = max(wall_s * 1e9, 1.0)
+    host_ns = d["ingest"] + d["host_prep"] + d["dispatch"] + \
+        d["fetch"] + d["drain"]
+    covered = host_ns + d["device_compute"] + d["checkpoint"]
+    launches = max(launches, 1)
+    return {
+        "launches": launches,
+        "dispatch_ms_per_launch": d["dispatch"] / launches / 1e6,
+        "device_ms_per_launch": d["device_compute"] / launches / 1e6,
+        "host_overhead_frac": host_ns / wall_ns,
+        "covered_frac": covered / wall_ns,
+        "wall_ms": wall_ns / 1e6,
+        "categories_ms": {c: v / 1e6 for c, v in d.items() if v},
+    }
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def sustained_row(workload: str, n: int | None = None, *,
+                  rounds: int | None = None, rounds_lo: int | None = None,
+                  reps: int | None = None,
+                  latency_rounds: int | None = None,
+                  conformance_rounds: int = 2, conformance_out=None,
+                  calendar_impl: str = "minstop", m: int | None = None,
+                  steps: int | None = None, telemetry: bool = True,
+                  slo: bool = True, provenance: bool = True,
+                  engine_loop: str = "round",
+                  stream_chunk: int = STREAM_CHUNK, seed: int = 11,
+                  tracer=None, watchdog=None,
+                  device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Bench's sustained row whole (``bench_sustained``, in its order):
+    the row's keys as one dict.
+
+    After :func:`sustained_prepare` has calibrated the row and drawn
+    every timed round: ``reps`` pairs of timed chains of ``rounds_lo``
+    then ``rounds`` rounds (one chain of ``rounds`` when ``rounds_lo`` is
+    0).  A chain's wall runs from its first launch to one synchronisation
+    at its end; ``dps`` is the median over the valid differenced pairs
+    (a pair is skipped when ``t_hi <= t_lo`` or ``t_lo < 1.2 *``
+    :func:`scalar_latency`; none valid raises), with one chain ``d / (t
+    - lat)``.  The SLO window block rolls once a chain (idle windows
+    skipped) into a burn-rate evaluator.  Then ``fill``,
+    ``resv_phase_frac``, ``mean_depth``, ``decisions_per_launch``,
+    ``decisions_per_pass`` (cfg4), ``device_metrics`` and ``bounded_by``;
+    ``conformance_rounds`` untimed rounds judge each client's delivered
+    rate against its floor and weight share (``conformance``, their
+    decisions ``conformance_decisions``; one JSON line a client into
+    ``conformance_out``); ``latency_rounds`` rounds
+    with a window of ``w`` in flight sample each round's completion
+    interval (``round_ms_p50``/``p99``; a CUDA event a round, the oldest
+    synchronised, so a sample waits for that round only); then the
+    verdict (``slo``, ``slo_*``) and :func:`row_tail`.  Every round
+    after calibration carries the accumulators.  On the card the chains'
+    rounds are also timed by CUDA events (``event_round_ms_*``).
+
+    ``engine_loop="stream"`` runs the chains as stream chunks of
+    ``stream_chunk`` rounds.  Depth defaults to bench's accelerator
+    depth (:data:`ROW_DEPTH`); ``m``/``steps`` override the shape (the
+    frontier)."""
+    if engine_loop not in ("round", "stream"):
+        raise ValueError(f"engine_loop {engine_loop!r} is not round or "
+                         f"stream")
+    c = _row_cfg(workload, m, steps)
+    depth = ROW_DEPTH[workload]
+    rounds = depth["rounds"] if rounds is None else rounds
+    rounds_lo = depth["rounds_lo"] if rounds_lo is None else rounds_lo
+    reps = depth["reps"] if reps is None else reps
+    latency_rounds = depth["latency_rounds"] if latency_rounds is None \
+        else latency_rounds
+    n = ROW_N[workload] if n is None else n
+    dev = resolve_device(device)
+    calendar = workload == "cfg4"
+    engine = "calendar" if calendar else "prefix"
+    dt, waves, mb = c["dt_round_ns"], c["waves"], c["m"]
+    stream_on = engine_loop == "stream"
+    stream_chunk = max(int(stream_chunk), 1)
+    rlo = max(rounds_lo, 0)
+    n_pre = reps * (rlo + rounds) if rlo else rounds
+
+    prep = sustained_prepare(workload, n, n_pre, seed,
+                             calendar_impl=calendar_impl, m=m, steps=steps,
+                             tracer=tracer, device=dev)
+    state, draws, t_base = prep.state, prep.draws, prep.t0
+    resv_rates, weights = prep.resv_rates, sustained_qos(workload, n)[1]
+    round_fn, eng_kw = _round_body(workload, c, calendar_impl)
+
+    def draw():
+        return np.minimum(prep.rng.poisson(prep.lam), waves) \
+            .astype(np.int32)
+
+    plane = slo_plane(workload, n, state=state) if slo else None
+    slo_eval = SloEvaluator(plane, log=lambda _line: None) if slo else None
+    tele = tele_zero(n, telemetry=telemetry, provenance=provenance,
+                     plane=plane, t0=t_base, device=dev)
+
+    chunks = {}
+
+    def chunk_fn(length):
+        if length not in chunks:
+            chunks[length] = build_stream_chunk(
+                engine=engine, epochs=length, m=mb, dt_epoch_ns=dt,
+                waves=waves, with_metrics=True, count_drops=True,
+                **({"k": c["steps"], "calendar_impl": calendar_impl,
+                    "ladder_levels": c["ladder_levels"]} if calendar
+                   else {"k": c["k"], "select_impl": c["select_impl"]}))
+        return chunks[length]
+
+    def resv_of(slot, phase):
+        return torch.sum((slot >= 0) & (phase == 0), dim=-1)
+
+    met_acc = np.zeros(obsdev.NUM_METRICS, dtype=np.int64)
+    span_win = None if tracer is None else tracer.category_totals()
+    chain_walls, chain_launches, event_ms = [], [0], []
+    slo_round0 = [0]
+    on_card = dev.type == "cuda"
+
+    def chain(lo, hi):
+        nonlocal state, t_base, tele, met_acc
+        cnts, rss, guards, mets, evs = [], [], [], [], []
+        launches = 0
+        if on_card:
+            evs.append(torch.cuda.Event(enable_timing=True))
+            evs[-1].record()
+        t0 = time.perf_counter()
+        pos = lo
+        while pos < hi:
+            if stream_on:
+                cl = min(stream_chunk, hi - pos)
+                with obsspans.span(tracer, "serve.chunk", "dispatch",
+                                   rounds=cl):
+                    ch = chunk_fn(cl)(state, t_base // dt,
+                                      draws[pos:pos + cl], tele.hists,
+                                      tele.ledger, None, tele.slo,
+                                      tele.prov)
+                    state = ch.state
+                    tele = Tele(hists=ch.hists, ledger=ch.ledger,
+                                slo=ch.slo, prov=ch.prov)
+                    o = ch.outs
+                    cnts.append(o["count"])
+                    rss.append(o["resv_count"] if calendar
+                               else resv_of(o["slot"], o["phase"]))
+                    guards.append(o[STREAM_GUARD_FIELD[engine]])
+                    mets.append(o["metrics"])
+            else:
+                cl = 1
+                with obsspans.span(tracer, "serve.round", "dispatch"):
+                    ep = round_fn(state, draws[pos], t_base, tele=tele,
+                                  **eng_kw)
+                    state, tele = ep.state, _tele_of(ep)
+                    cnts.append(ep.count)
+                    rss.append(ep.resv_count if calendar
+                               else resv_of(ep.slot, ep.phase))
+                    guards.append(ep.progress_ok if calendar
+                                  else ep.guards_ok)
+                    mets.append(ep.metrics)
+            if on_card:
+                evs.append(torch.cuda.Event(enable_timing=True))
+                evs[-1].record()
+            t_base += cl * dt
+            launches += 1
+            pos += cl
+        with obsspans.span(tracer, "serve.sync", "device_compute"):
+            _sync(dev)
+        wall = time.perf_counter() - t0
+        chain_walls.append(wall)
+        chain_launches[0] += launches
+        per = (hi - lo) / launches
+        event_ms.extend(a.elapsed_time(b) / per
+                        for a, b in zip(evs, evs[1:]))
+        if not all(bool(g.all()) for g in guards):
+            raise AssertionError(f"{workload}: a guard tripped in a timed "
+                                 f"chain -- its counts are not "
+                                 f"trustworthy")
+        cn = np.concatenate([_np(x).ravel() for x in cnts])
+        rs = np.concatenate([_np(x).ravel() for x in rss])
+        met_acc = obsdev.metrics_combine_np(
+            met_acc, *[row for mv in mets
+                       for row in np.atleast_2d(_np(mv))])
+        if slo:
+            fresh, closed = plane.roll(tele.slo, slo_round0[0],
+                                       slo_round0[0] + hi - lo,
+                                       skip_idle=True)
+            slo_round0[0] += hi - lo
+            slo_eval.observe_roll(closed)
+            tele = tele._replace(slo=fresh)
+        return int(cn.sum()), wall, cn, rs
+
+    cap = _per_pass_cap(n, c.get("k", 0), c.get("steps", 0), calendar_impl,
+                        c.get("ladder_levels", 0))
+    lat = scalar_latency(dev)
+    if rlo:
+        rates, all_cnts, all_rs, total = [], [], [], 0
+        pos = 0
+        for _ in range(max(reps, 1)):
+            d_lo, t_lo, cnts_lo, rs_lo = chain(pos, pos + rlo)
+            d_hi, t_hi, cnts_hi, rs_hi = chain(pos + rlo,
+                                               pos + rlo + rounds)
+            pos += rlo + rounds
+            total += d_lo + d_hi
+            all_cnts += [cnts_lo, cnts_hi]
+            all_rs += [rs_lo, rs_hi]
+            if t_hi <= t_lo or t_lo < 1.2 * lat:
+                continue
+            rates.append((d_hi - d_lo) / (t_hi - t_lo))
+        if not rates:
+            raise AssertionError("no valid pair of timed chains: the "
+                                 "chains are too short for the "
+                                 "synchronisation floor")
+        dps = float(np.median(rates))
+        cnts = np.concatenate(all_cnts)
+        rs = np.concatenate(all_rs)
+    else:
+        total, t_hi, cnts, rs = chain(0, rounds)
+        dps = total / (t_hi - lat)
+    denom = n_pre * mb * cap
+
+    mean_depth = float(_np(state.depth).mean())
+    out = {"dps": dps, "decisions": total,
+           "fill": total / denom,
+           "resv_phase_frac": float(rs.sum()) / max(cnts.sum(), 1),
+           "mean_depth": mean_depth,
+           "select_impl": c.get("select_impl", "sort"),
+           "engine_loop": engine_loop,
+           "provenance_on": bool(provenance),
+           "chain_ms": [w * 1e3 for w in chain_walls],
+           "sync_latency_ms": lat * 1e3}
+    if event_ms:
+        out["event_round_ms_median"] = float(np.median(event_ms))
+        out["event_round_ms_mean"] = float(np.mean(event_ms))
+    out["decisions_per_launch"] = total / max(chain_launches[0], 1)
+    if stream_on:
+        out["stream_chunk"] = stream_chunk
+    sp = _span_summary(tracer, span_win, sum(chain_walls),
+                       chain_launches[0])
+    if sp is not None:
+        out["spans"] = sp
+        out["dispatch_ms_per_launch"] = sp["dispatch_ms_per_launch"]
+        out["host_overhead_frac"] = sp["host_overhead_frac"]
+        sp["decisions_per_launch"] = out["decisions_per_launch"]
+        out["dispatch_ns_per_decision"] = sp["dispatch_ns_per_decision"] = \
+            sp["dispatch_ms_per_launch"] * 1e6 \
+            / max(out["decisions_per_launch"], 1e-9)
+    if calendar:
+        out["calendar_impl"] = calendar_impl
+        out["decisions_per_pass"] = total / max(n_pre * mb, 1)
+        if calendar_impl in ("bucketed", "wheel"):
+            out["ladder_levels"] = c["ladder_levels"]
+    md = obsdev.metrics_dict(met_acc)
+    out["device_metrics"] = md
+    if md.get("limit_stalls", 0):
+        out["bounded_by"] = "scheduler_stalled"
+    elif mean_depth < 0.75 * c["depth0"] and not md.get("ingest_drops", 0):
+        out["bounded_by"] = "load_generator_capped"
+    else:
+        out["bounded_by"] = "engine_throughput"
+
+    def untimed_round(counts):
+        nonlocal state, t_base, tele
+        with obsspans.span(tracer, "serve.round", "dispatch"):
+            ep = round_fn(state, counts, t_base, tele=tele, **eng_kw)
+            state, tele = ep.state, _tele_of(ep)
+        t_base += dt
+        return ep
+
+    if conformance_rounds:
+        served_c = np.zeros(n, dtype=np.int64)
+        conf_decisions = 0
+        for _ in range(conformance_rounds):
+            ep = untimed_round(torch.from_numpy(draw()).to(dev))
+            conf_decisions += int(ep.count.sum())
+            if calendar:
+                served_c += _np(ep.served).astype(np.int64)
+            else:
+                slots = _np(ep.slot).ravel()
+                np.add.at(served_c, slots[slots >= 0], 1)
+        out["conformance"] = conformance_block(
+            served_c, conformance_rounds * dt / 1e9, resv_rates, weights,
+            conformance_out)
+        out["conformance_decisions"] = conf_decisions
+
+    if latency_rounds:
+        lat_rt = scalar_latency(dev)
+        round_est = (total / max(n_pre, 1)) / max(dps, 1.0)
+        w = max(4, int(np.ceil(2.0 * lat_rt / max(round_est, 1e-4))))
+        w = min(w, max(latency_rounds // 4, 4))
+        n_rounds = latency_rounds + w
+        pre2 = torch.from_numpy(np.stack([draw() for _ in range(n_rounds)])) \
+            .to(dev)
+        _sync(dev)
+        pending, marks = [], []
+        for i in range(n_rounds):
+            untimed_round(pre2[i])
+            ev = None
+            if on_card:
+                ev = torch.cuda.Event()
+                ev.record()
+            pending.append(ev)
+            if len(pending) >= w:
+                ev = pending.pop(0)
+                if ev is not None:
+                    ev.synchronize()
+                marks.append(time.perf_counter())
+        _sync(dev)
+        samples_ms = np.diff(np.asarray(marks)) * 1e3
+        out["latency_samples"] = int(samples_ms.size)
+        out["latency_window"] = w
+        out["round_ms_p50"] = float(np.percentile(samples_ms, 50))
+        out["round_ms_p99"] = float(np.percentile(samples_ms, 99))
+        out["round_ms_mean"] = round_est * 1e3
+
+    if slo:
+        _slo_result_block(out, slo_eval)
+    return row_tail(out, tele, state, t_base, dt, watchdog=watchdog)
+
+
+def conformance_block(served: np.ndarray, window_s: float,
+                      resv_rates: np.ndarray, weights: np.ndarray,
+                      path=None) -> dict:
+    """Bench's end-of-run conformance table: each client's delivered rate
+    over ``window_s`` against its reservation floor (met at 0.95 of it)
+    and its expected rate (floor plus its weight share of the surplus);
+    with ``path``, one JSON line a client in bench's key order (a write
+    error is reported on stderr, not raised)."""
+    rate_c = served / window_s
+    total_rate = rate_c.sum()
+    has_resv = resv_rates > 0
+    resv_met = rate_c >= 0.95 * resv_rates
+    surplus = max(total_rate - float(resv_rates.sum()), 0.0)
+    w_share = np.where(weights.sum() > 0,
+                       weights / max(weights.sum(), 1e-12), 0.0)
+    expect = resv_rates + surplus * w_share
+    has_w = weights > 0
+    share_err = np.abs(rate_c - expect) / np.maximum(expect, 1e-9)
+    block = {
+        "window_s": window_s,
+        "clients": int(served.size),
+        "resv_clients": int(has_resv.sum()),
+        "resv_met_frac": float(resv_met[has_resv].mean())
+        if has_resv.any() else 1.0,
+        "share_err_mean": float(share_err[has_w].mean())
+        if has_w.any() else 0.0,
+        "delivered_rate_total": float(total_rate),
+    }
+    if path:
+        try:
+            with open(path, "w") as fh:
+                for i in range(served.size):
+                    fh.write(json.dumps({
+                        "client": i,
+                        "reservation": float(resv_rates[i]),
+                        "weight": float(weights[i]),
+                        "ops": int(served[i]),
+                        "rate": float(rate_c[i]),
+                        "expected_rate": float(expect[i]),
+                        "resv_met": bool(resv_met[i])
+                        if has_resv[i] else True,
+                    }) + "\n")
+        except OSError as e:
+            _stderr_log(f"# conformance-out write failed: {e}")
+    return block
+
+
+def frontier_pick(rows: list, target_latency_ms: float) -> dict:
+    """Bench's ``--target-latency`` pick over frontier rows: among the
+    points that hold the 0.5 reservation share (within 0.1), the one
+    with the most ``dps`` whose ``round_ms_mean`` fits the budget; with
+    none fitting, the on-mix point with the shortest mean round (the
+    first row when no point is on the mix).  ``met_budget`` says which."""
+    fits = [x for x in rows
+            if x["round_ms_mean"] <= target_latency_ms
+            and abs(x["resv_phase_frac"] - 0.5) <= 0.1]
+    pick = max(fits, key=lambda x: x["dps"]) if fits else \
+        min((x for x in rows if abs(x["resv_phase_frac"] - 0.5) <= 0.1),
+            key=lambda x: x["round_ms_mean"], default=rows[0])
+    pick = dict(pick)
+    pick["met_budget"] = bool(fits)
+    return pick
+
+
+def frontier(points=FRONTIER["points"], *, n: int = ROW_N["cfg4"],
+             target_latency_ms: float = 0.0,
+             rounds: int = FRONTIER["rounds"],
+             rounds_lo: int = FRONTIER["rounds_lo"],
+             reps: int = FRONTIER["reps"],
+             latency_rounds: int = FRONTIER["latency_rounds"],
+             tracer=None, watchdog=None,
+             device: str | torch.device = DEFAULT_DEVICE):
+    """The cfg4 throughput/latency frontier (bench's ``bench_frontier``):
+    the cfg4 row at each ``(m, steps)`` point, SLO off, each reduced to
+    ``m``, ``steps``, ``dps``, the round times, ``resv_phase_frac`` and
+    ``decisions``.  Returns ``(pick, rows)``: :func:`frontier_pick` with
+    a ``target_latency_ms``, else None."""
+    rows = []
+    for m, steps in points:
+        r = sustained_row("cfg4", n, rounds=rounds, rounds_lo=rounds_lo,
+                          reps=reps, latency_rounds=latency_rounds, m=m,
+                          steps=steps, slo=False, tracer=tracer,
+                          watchdog=watchdog, device=device)
+        rows.append({"m": m, "steps": steps, "dps": r["dps"],
+                     "round_ms_mean": r.get("round_ms_mean", 0.0),
+                     "round_ms_p50": r.get("round_ms_p50", 0.0),
+                     "round_ms_p99": r.get("round_ms_p99", 0.0),
+                     "resv_phase_frac": r["resv_phase_frac"],
+                     "decisions": r["decisions"]})
+        _stderr_log(f"# frontier m={m} steps={steps}: "
+                    f"{r['dps'] / 1e6:.1f}M dec/s, round mean "
+                    f"{r.get('round_ms_mean', 0):.1f}ms, interval p99 "
+                    f"{r.get('round_ms_p99', 0):.1f}ms")
+    pick = frontier_pick(rows, target_latency_ms) if target_latency_ms \
+        else None
+    return pick, rows
 
 
 # ----------------------------------------------------------------------
@@ -1960,8 +2481,8 @@ def cluster_outage(n_servers: int = 8, n_clients: int = 10_000, *,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
-                                           "cfg4", "queue", "churn",
-                                           "mesh", "multichip"),
+                                           "cfg4", "frontier", "queue",
+                                           "churn", "mesh", "multichip"),
                     default="serve")
     ap.add_argument("--clients", type=int, default=None,
                     help="mesh: clients over all shards (100000); "
@@ -1992,7 +2513,31 @@ def main(argv=None) -> int:
                     choices=("flash_crowd", "diurnal", "churn_storm",
                              "limit_thrash", "shard_skew"),
                     help="churn: the lifecycle scenario")
-    ap.add_argument("--rounds", type=int, default=3, help="cfg3, cfg4")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="cfg3, cfg4, frontier: rounds of a long timed "
+                    "chain (bench's 60; cfg4 40; frontier 24)")
+    ap.add_argument("--rounds-lo", type=int, default=None,
+                    help="cfg3, cfg4, frontier: rounds of a short chain, "
+                    "0 for one chain (20; cfg4 12; frontier 8)")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="cfg3, cfg4, frontier: pairs of timed chains "
+                    "(3; cfg4 4; frontier 2)")
+    ap.add_argument("--latency-rounds", type=int, default=None,
+                    help="cfg3, cfg4, frontier: windowed latency rounds "
+                    "(0; cfg4 100; frontier 60)")
+    ap.add_argument("--conformance-rounds", type=int, default=2,
+                    help="cfg3, cfg4: untimed conformance rounds")
+    ap.add_argument("--conformance-out", metavar="FILE", default=None,
+                    help="cfg3, cfg4: the per-client conformance table "
+                    "as JSONL")
+    ap.add_argument("--target-latency", type=float, default=0.0,
+                    metavar="MS",
+                    help="pick the frontier point with the most "
+                    "decisions/s whose mean round fits this budget; "
+                    "implies --workload frontier")
+    ap.add_argument("--spans", action="store_true",
+                    help="cfg3, cfg4, frontier: host spans and the "
+                    "watchdog; its warnings (the last 8) join the line")
     ap.add_argument("--engine-loop", choices=("round", "stream"),
                     default="round",
                     help="cfg3, cfg4: one call per round, or stream "
@@ -2016,6 +2561,8 @@ def main(argv=None) -> int:
                     help="serve: batches per ring-window prefetch")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     a = ap.parse_args(argv)
+    if a.target_latency:
+        a.workload = "frontier"
     if a.workload == "queue":
         r = serve_queue(10_000 if a.n is None else a.n, device=a.device)
         sec = r.seconds
@@ -2028,7 +2575,7 @@ def main(argv=None) -> int:
             "pull_request_per_s": QUEUE["pulls"] / sec["pull_request"],
             "seconds": sec}))
         return 0
-    if a.workload in ("cfg3", "cfg4"):
+    if a.workload in ("cfg3", "cfg4", "frontier"):
         return _main_sustained(a)
     if a.workload == "mesh":
         from .robust.faults import parse_fault_spec
@@ -2084,39 +2631,68 @@ def main(argv=None) -> int:
 
 
 def _main_sustained(a) -> int:
-    """The cfg3 and cfg4 rows: decisions, the guards, bench's derived
-    scalars and the metrics vector as one JSON line."""
+    """The cfg3 and cfg4 rows and the frontier as one JSON line: bench's
+    keys beside the port's.  With ``--spans`` a span tracer and a
+    watchdog (bench's: 2 s polls, a 60 s stall, the default registry)
+    watch the run, and the line carries the watchdog's last 8 warnings
+    on every exit path."""
+    from .obs.registry import default_registry, publish_span_gauges
+    from .obs.watchdog import Watchdog
+
     flags = {name: getattr(a, name) == "on"
              for name in ("telemetry", "slo", "provenance")}
-    kw = dict(engine_loop=a.engine_loop, stream_chunk=a.stream_chunk,
-              device=a.device, **flags)
-    if a.workload == "cfg3":
-        n = 10_000 if a.n is None else a.n
-        prep, res = _sustained_run("cfg3", n, a.rounds, 11, **kw)
-        ok = {"guards_ok": bool(res.guards_ok.all())}
-        dt = CFG3["dt_round_ns"]
-        key = "cfg3"
-    else:
-        n = 100_000 if a.n is None else a.n
-        prep, res = _sustained_run("cfg4", n, a.rounds, 11,
-                                   calendar_impl=a.calendar_impl, **kw)
-        ok = {"progress_ok": bool(res.progress_ok.all()),
-              "calendar_impl": a.calendar_impl}
-        dt = CFG4["dt_round_ns"]
-        key = "cfg4" if a.calendar_impl == "minstop" \
-            else f"cfg4_{a.calendar_impl}"
-    if a.engine_loop == "stream":
+    tracer = watchdog = None
+    if a.spans:
+        tracer = obsspans.SpanTracer()
+        watchdog = Watchdog(tracer, interval_s=2.0, stall_after_s=60.0,
+                            registry=default_registry()).start()
+    depth = {k: getattr(a, k) for k in ("rounds", "rounds_lo", "reps",
+                                        "latency_rounds")}
+    key = a.workload
+    if a.workload == "cfg4" and a.calendar_impl != "minstop":
+        key = f"cfg4_{a.calendar_impl}"
+    if a.engine_loop == "stream" and a.workload != "frontier":
         key += "_stream"
-    met = obsdev.metrics_dict(res.metrics)
-    print(json.dumps({
-        "workload": key, "device": str(res.state.device), "n": n,
-        "rounds": a.rounds, "decisions": int(res.count.sum()), **ok,
-        **flags, "calibration_rounds": prep.cal_rounds,
-        "calibrated_lam_sum": float(prep.lam.sum()),
-        "reservation_share": met["decisions_reservation"]
-        / max(met["decisions_total"], 1),
-        **row_scalars(res.tele, res.state, prep.t0 + a.rounds * dt, dt),
-        "metrics": met}))
+    out = {"workload": key, "device": str(resolve_device(a.device))}
+    try:
+        if a.workload == "frontier":
+            pick, rows = frontier(
+                n=a.n or ROW_N["cfg4"],
+                target_latency_ms=a.target_latency, tracer=tracer,
+                watchdog=watchdog, device=a.device,
+                **{k: FRONTIER[k] if v is None else v
+                   for k, v in depth.items()})
+            out["rows"] = rows
+            if pick is not None:
+                out["picked"] = pick
+        else:
+            n = ROW_N[a.workload] if a.n is None else a.n
+            row = sustained_row(
+                a.workload, n, **depth,
+                conformance_rounds=a.conformance_rounds,
+                conformance_out=a.conformance_out,
+                calendar_impl=a.calendar_impl, engine_loop=a.engine_loop,
+                stream_chunk=a.stream_chunk, tracer=tracer,
+                watchdog=watchdog, device=a.device, **flags)
+            hb = row.pop("_hist_block", None)
+            if hb is not None:
+                obshist.publish_hists(default_registry(),
+                                      np.asarray(hb, dtype=np.int64),
+                                      labels={"workload": key})
+            if "spans" in row:
+                publish_span_gauges(default_registry(), row["spans"],
+                                    labels={"workload": key})
+            out.update(n=n, telemetry_on=flags["telemetry"],
+                       slo_on=flags["slo"], **row)
+    except BaseException as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        if watchdog is not None:
+            watchdog.close()
+            if watchdog.warnings:
+                out["watchdog_warnings"] = watchdog.warnings[-8:]
+        print(json.dumps(out))
     return 0
 
 

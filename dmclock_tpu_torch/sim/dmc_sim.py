@@ -9,6 +9,12 @@ on ``--device`` (default ``cuda``; asking for it without a card raises).
 
     python -m dmclock_tpu_torch.sim.dmc_sim -c configs/dmc_sim_example.conf
     python -m dmclock_tpu_torch.sim.dmc_sim -c conf --device cpu
+    python -m dmclock_tpu_torch.sim.dmc_sim -c conf --model dmclock-delayed \
+        --device cpu
+
+``dmclock``, ``dmclock-delayed`` and ``dmclock-native`` are the host
+reference models (``models``); ``--use-prop-heap`` applies to
+``dmclock-native``.
 """
 
 from __future__ import annotations
@@ -56,9 +62,7 @@ def main(argv=None) -> int:
                    "(reference sim/dmc_sim_example.conf format)")
     p.add_argument("--model", default=DEFAULT_MODEL,
                    help="scheduler model to simulate "
-                   f"({', '.join(models.names())}; the JAX package's "
-                   f"{', '.join(sorted(models.NOT_PORTED))} are not "
-                   "ported yet)")
+                   f"({', '.join(models.names())})")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="device of the queues' engine state (default "
                    "cuda; cpu runs the kernels' plain versions)")
@@ -109,17 +113,19 @@ def main(argv=None) -> int:
                    "for the duration of the run; 0 picks an "
                    "ephemeral port (printed)")
     p.add_argument("--use-prop-heap", action="store_true",
-                   help="refused: the option of the dmclock-native "
-                   "model, which is not ported yet")
+                   help="dmclock-native model: enable the O(1) "
+                   "idle-reactivation prop heap (reference "
+                   "USE_PROP_HEAP equivalent; same behavior, faster "
+                   "adds at scale)")
     args = p.parse_args(argv)
-    if args.use_prop_heap:
-        p.error("--use-prop-heap belongs to --model dmclock-native, "
-                "which is not ported to dmclock_tpu_torch yet: it "
-                f"{models.NOT_PORTED['dmclock-native']}")
+    if args.use_prop_heap and args.model != "dmclock-native":
+        p.error("--use-prop-heap applies to --model dmclock-native")
+    # unconditional: an in-process caller running main() again must not
+    # inherit a previous run's flag
+    models.USE_PROP_HEAP = bool(args.use_prop_heap)
     try:
         models.get(args.model)
     except KeyError as e:
-        # the models not ported yet are refused by name
         p.error(e.args[0])
 
     if args.server_mode == "push" and \

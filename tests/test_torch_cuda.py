@@ -805,3 +805,53 @@ def test_supervised_mesh_chaos_trip_on_the_card_equals_cpu(cuda):
             assert a.dtype == b.dtype and np.array_equal(a, b), f
         else:
             assert a == b, f
+
+
+# every key of a sustained row that reads the wall clock or the card's
+# events (serve.sustained_row)
+_ROW_WALL = ("dps", "round_ms_p50", "round_ms_p99", "round_ms_mean",
+             "chain_ms", "sync_latency_ms", "event_round_ms_median",
+             "event_round_ms_mean", "latency_window")
+
+
+@pytest.mark.cuda
+def test_sustained_row_on_the_card_equals_cpu(cuda, tmp_path):
+    """Bench's cfg3 row (calibration, two pairs of timed chains with the
+    SLO block rolled once a chain, two conformance rounds, the verdict
+    and the tails) at a small shape on the card equals the CPU run in
+    every key that does not read the wall clock, the conformance table
+    byte for byte; K1 launches once a round."""
+    from dmclock_tpu_torch import serve
+
+    kw = dict(rounds=4, rounds_lo=2, reps=2, latency_rounds=0)
+    _ext.reset_launches()
+    got = serve.sustained_row("cfg3", 512, **kw, device=cuda,
+                              conformance_out=str(tmp_path / "card.jsonl"))
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["ring_window"] == 3 + 2 * (2 + 4) + 2
+    assert _ext.LAUNCHES["wheel_scan"] == 0
+    want = serve.sustained_row("cfg3", 512, **kw, device="cpu",
+                               conformance_out=str(tmp_path / "cpu.jsonl"))
+    assert got.keys() - set(_ROW_WALL) == want.keys() - set(_ROW_WALL)
+    for key in want:
+        if key not in _ROW_WALL + ("spans",):
+            assert got[key] == want[key], key
+    assert got["slo"]["rolls"] == 4
+    assert (tmp_path / "card.jsonl").read_bytes() == \
+        (tmp_path / "cpu.jsonl").read_bytes()
+
+
+@pytest.mark.cuda
+def test_latency_rounds_event_window_on_the_card(cuda):
+    """The latency rounds on the card: a CUDA event a round, the oldest
+    of the window synchronised at each step, so every round gives one
+    sample (``latency_samples == latency_rounds``), with the window of
+    4 that fewer than 20 rounds force."""
+    from dmclock_tpu_torch import serve
+
+    row = serve.sustained_row("cfg4", 256, rounds=2, rounds_lo=0, reps=1,
+                              latency_rounds=12, conformance_rounds=0,
+                              device=cuda)
+    assert row["latency_samples"] == 12
+    assert row["latency_window"] == 4
+    assert row["round_ms_p99"] >= row["round_ms_p50"] > 0

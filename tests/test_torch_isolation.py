@@ -238,7 +238,11 @@ def _imported(stderr: str) -> set:
     ("dmclock_tpu_torch.sim.dmc_sim", ["--server-mode", "push"]),
     ("dmclock_tpu_torch.sim.ssched_sim", []),
     ("dmclock_tpu_torch.sim.device_sim", ["--slices-per-launch", "16"]),
-], ids=["dmc_sim", "dmc_sim_push", "ssched_sim", "device_sim"])
+    ("dmclock_tpu_torch.sim.dmc_sim", ["--model", "dmclock"]),
+    ("dmclock_tpu_torch.sim.dmc_sim", ["--model", "dmclock-delayed",
+                                       "--server-mode", "push"]),
+], ids=["dmc_sim", "dmc_sim_push", "ssched_sim", "device_sim",
+        "dmc_sim_oracle", "dmc_sim_oracle_push"])
 def test_sim_clis_leave_jax_unloaded(tmp_path, module, extra):
     """``python -m`` of each simulator CLI on the CPU runs to its report
     and imports no JAX and nothing of the JAX package (the interpreter's
@@ -347,5 +351,55 @@ def test_supervised_mesh_and_calibration_default_to_cuda(tmp_path):
                  lambda: tserve.sustained_prepare("cfg3", 64, 1),
                  lambda: tserve.cfg4_setup(64, 1),
                  lambda: tserve.sustained_start("cfg3", 64)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_sustained_row_watchdog_and_oracle_leave_jax_unloaded(tmp_path):
+    """The sustained row CLI with its watchdog, the frontier, the
+    publishers, the oracle queues and the native binding load no JAX."""
+    out = tmp_path / "conf.jsonl"
+    code = ("import sys, json, io, contextlib\n"
+            "from dmclock_tpu_torch import serve\n"
+            "buf = io.StringIO()\n"
+            "with contextlib.redirect_stdout(buf):\n"
+            "    rc = serve.main(['--workload', 'cfg4', '--n', '64',"
+            " '--rounds', '2', '--rounds-lo', '0', '--latency-rounds', '4',"
+            f" '--conformance-out', {str(out)!r}, '--spans',"
+            " '--device', 'cpu'])\n"
+            "row = json.loads(buf.getvalue().splitlines()[-1])\n"
+            "assert rc == 0 and row['decisions'] > 0, row\n"
+            "assert row['latency_samples'] == 4\n"
+            "pick, rows = serve.frontier(((2, 8),), n=64, rounds=2,"
+            " rounds_lo=0, reps=1, latency_rounds=4,"
+            " target_latency_ms=1e9, device='cpu')\n"
+            "assert pick['met_budget'] in (True, False)\n"
+            "from dmclock_tpu_torch.obs import watchdog, histograms\n"
+            "from dmclock_tpu_torch.core import PullPriorityQueue,"
+            " ClientInfo, ReqParams\n"
+            "q = PullPriorityQueue(lambda c: ClientInfo(1, 1, 0),"
+            " run_gc_thread=False)\n"
+            "q.add_request(0, 0, ReqParams(), time_ns=0)\n"
+            "assert q.pull_request(10**9).tag is not None\n"
+            "from dmclock_tpu_torch import native, models\n"
+            "native.load_library()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert len(out.read_text().splitlines()) == 64
+
+
+def test_sustained_row_and_frontier_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    for call in (lambda: tserve.sustained_row("cfg3", 64, rounds=1,
+                                              rounds_lo=0),
+                 lambda: tserve.frontier(((2, 8),), n=64, rounds=1,
+                                         rounds_lo=0, reps=1,
+                                         latency_rounds=0),
+                 lambda: tserve.scalar_latency()):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
