@@ -251,6 +251,28 @@ Phases (any failure raises and the exit code is not 0):
     The twins run in a child process on four threads, started as the
     phase begins; the SLO evaluator's alert lines go to a file.
 
+24. control and network (``phase_control``), each leg launch-counted
+    and held against a CPU twin in a child process (every key or field
+    but the walls and latencies): bench's ``controller`` rows at their
+    accelerator shape (192 ids, 48 epochs, three scenarios, both twins);
+    ``controller_churn``, the ``supervised_churn`` population with the
+    controller on, bare and then spawned and SIGKILLed at each of the
+    three controller stages of its first deciding boundary, crash-
+    equivalent; bench's ``rpc`` row on loopback sockets, clean and
+    under ``RPC_CHAOS`` (``digest_match`` and ``chaos_exact``); ``rpc_full``,
+    the serving loop at 100,000 clients (``RPC_FULL``) fed by 4 loadgen
+    processes of 16,384 requests: live, serving from the first admitted
+    op while the requests arrive, its journal's replay equal on the card
+    (``digest_match``); then, as the uninterrupted reference, the same
+    with every op admitted before the first take, and a serving child of
+    that config SIGKILLed between boundary 1's fsync and its apply and
+    resumed to the reference's digest and trace hash (each live leg's
+    wall and its serving wall from the first take, the fsync's share and
+    the journal's bytes a boundary printed); the CPU replays of the
+    card's four traces; bench's ``mesh_rebalance`` row,
+    then at the ``supervised_mesh_churn`` population (``REBAL_POP``); the
+    cold-pick twin gate on the wheel calendar mesh (K1 and K2).
+
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
 earlier phases' host-paced timings have no CPU load beside them; the
@@ -262,11 +284,11 @@ failure.
 
 K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8 and 14-16 with their calibration rounds, 10-13,
-both runs of 19, the in-process runs of 20 and 23, the device sim's four
-runs in 21 and the mesh runs of 22), each count read right after that
+both runs of 19, the in-process runs of 20, 23 and 24, the device sim's
+four runs in 21 and the mesh runs of 22), each count read right after that
 path's run; K2's is the ``cfg4_wheel`` path's (its calibration
-included), phase 20's wheel runs', the device sim's wheel run's and the
-mesh wheel chunk's; the queue paths (17, 18), ``dmc_sim`` and the
+included), phase 20's wheel runs', the device sim's wheel run's, the
+mesh wheel chunk's and phase 24's wheel gate's; the queue paths (17, 18), ``dmc_sim`` and the
 cluster runs of 22 add none, and the spawn children's launches are not counted
 (``LAUNCHES`` is per process). Each kernel's entry also carries
 ``launches_by_path``. Serve's and the rows' rates are printed both as
@@ -3346,6 +3368,516 @@ def phase_supervised_mesh(ext, card: str, tmp: str, twin_path: str,
     return by_path
 
 
+# ----------------------------------------------------------------------
+# phase 24: control and network
+# ----------------------------------------------------------------------
+
+# bench's controller row at its accelerator shape, all three scenarios
+CTL_ROW = dict(total_ids=192, epochs=48, sides="both")
+# the supervised_churn cell's population with the controller on
+CTL_CHURN = dict(SUP_CHURN, controller=True)
+# bench's rpc row at its accelerator shape; the chaos leg's spec
+RPC_ROW = dict(n=32, epochs=16, requests=64, workers=4)
+RPC_CHAOS = "seed=7,p_drop=0.1,p_dup=0.05,p_reorder=0.05"
+# rpc_full: the supervised_prefix cell's state (0.2195 GB) behind the
+# ingest server, fed by 4 loadgen workers of 16,384 requests over the
+# 100,000 ids; the live leg serves from the first admitted op on, while
+# the requests arrive; the kill leg and its uninterrupted reference wait
+# for every op before the first take (a trace fixed by the schedule)
+RPC_FULL = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=8,
+                m=8, k=65536, waves=8, ckpt_every=2)
+RPC_LOAD = dict(workers=4, requests=16384, n_clients=100_000, max_nops=3,
+                seed=7)
+# bench's mesh_rebalance row at its shape, then at the supervised mesh
+# churn cell's population (shard_skew, 4,096 ids over 4 shards, capacity
+# 1,024 a shard growing, 32 epochs of m=4, k=256, ring 32, 8 waves)
+REBAL_POP = dict(total_ids=4096, epochs=32, m=4, k=256, ring=32, waves=8,
+                 seed=11)
+# the cold-pick twin gate on the wheel calendar mesh
+# (tests/test_placement.py's skew_job at 2 levels, k=4)
+GATE_CTL = dict(sync_max=1, backlog_hi=10 ** 9, occ_lo=0.0, hysteresis=1,
+                cooldown=8, migrate_skew_hi=1.5, migrate_pick="cold",
+                migrate_max=4)
+GATE_JOB = dict(engine="calendar", k=4, calendar_impl="wheel",
+                ladder_levels=2, n=96, depth=6, ring=10, epochs=8, m=2,
+                seed=5, arrival_lam=1.0, waves=2, ckpt_every=2,
+                engine_loop="mesh", n_shards=4, placement="p2c",
+                controller=GATE_CTL)
+GATE_SPEC = dict(total_ids=64, seed=3, cold_frac=0.5, cold_until=10 ** 9)
+# row keys that hold wall clocks (and so differ from a CPU twin)
+_WALL_KEYS = ("dps", "dps_on", "dps_off", "wall_s", "wall_s_on",
+              "wall_s_off", "recovered_dps", "lat_p50_ms", "lat_p99_ms")
+
+
+def _gate_jobs(overrides=None):
+    from dmclock_tpu_torch.lifecycle import make_spec
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    spec = make_spec("shard_skew", **GATE_SPEC)
+    if overrides is None:
+        return TS.EpochJob(churn=spec, **GATE_JOB)
+    return TS.EpochJob(churn=spec, **dict(
+        GATE_JOB, placement={"mode": "p2c", "overrides": overrides},
+        controller=dict(GATE_CTL, migrate_skew_hi=0.0)))
+
+
+def control_twins(out: str) -> None:
+    """Phase 24's CPU runs that need nothing from the card (in a child
+    process): the controller rows, the controller churn job, both
+    mesh_rebalance rows and the wheel gate's run A; saved to ``out``."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.lifecycle import make_spec
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    torch.set_num_threads(4)
+    ctl = serve.controller_row(device="cpu", **CTL_ROW)
+    spec = make_spec(CHURN_SCENARIO, **SUP_CHURN_SPEC)
+    churn = TS.run_job(TS.EpochJob(churn=spec, **CTL_CHURN), device="cpu")
+    rebal = serve.mesh_rebalance_row(device="cpu")
+    pop = serve.mesh_rebalance_row(device="cpu", **REBAL_POP)
+    gate = TS.run_job(_gate_jobs(), device="cpu")
+    torch.save(dict(ctl=ctl, churn=churn._asdict(), rebal=rebal, pop=pop,
+                    gate=gate._asdict()), out)
+
+
+def start_control_twins(root: str, out: str) -> subprocess.Popen:
+    code = ("import sys\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.control_twins({out!r})\n")
+    return _cpu_child(code, out)
+
+
+def rpc_twins(out: str, traces: dict) -> None:
+    """The CPU replays of the card's journaled traces (in a child
+    process): each rpc leg's record as the port's ``run_serve`` gives it
+    on the CPU from the same admitted-counts trace."""
+    from dmclock_tpu_torch.net.serve import RpcServeConfig, run_serve
+
+    torch.set_num_threads(4)
+    res = {}
+    for name, (cfg, trace) in traces.items():
+        res[name] = run_serve(RpcServeConfig(**dict(
+            cfg, workdir=None, wait_ops=0, device="cpu")), trace=trace)
+    torch.save(res, out)
+
+
+def start_rpc_twins(root: str, out: str, traces: dict) -> subprocess.Popen:
+    with open(out + ".in.json", "w") as fh:
+        json.dump(traces, fh)
+    code = ("import sys, json\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "import chip_smoke\n"
+            f"with open({out + '.in.json'!r}) as fh:\n"
+            "    traces = json.load(fh)\n"
+            f"chip_smoke.rpc_twins({out!r}, traces)\n")
+    return _cpu_child(code, out)
+
+
+def _same_row(got: dict, want: dict, what: str) -> None:
+    """Two bench rows, every key but the wall clocks."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys differ: "
+                             f"{sorted(set(got) ^ set(want))}")
+    for key, value in want.items():
+        if key not in _WALL_KEYS and got[key] != value:
+            raise AssertionError(f"{what}: {key} differs: "
+                                 f"{str(got[key])[:200]} vs "
+                                 f"{str(value)[:200]}")
+
+
+def _counted(ext, what: str, fn, by_k1: dict, by_k2: dict,
+             k2: bool = False):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: K1 must launch, K2 exactly when ``k2``.  ``(result, wall)``."""
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = dict(ext.LAUNCHES)
+    if n["ring_window"] <= 0 or (n["wheel_scan"] > 0) != k2:
+        raise AssertionError(f"{what} launched {n}")
+    by_k1[what] = n["ring_window"]
+    if n["wheel_scan"]:
+        by_k2[what] = n["wheel_scan"]
+    log(f"[{what}] wall {wall:.3f} s, kernel launches {n}")
+    return res, wall
+
+
+class _TimedJournal:
+    """Times the arrival journal's appends (the fsync'd writes) of every
+    ``run_serve`` while it is installed in ``net.serve``."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.appends = 0
+        self.first = None        # perf_counter at the first append
+
+    @contextlib.contextmanager
+    def installed(self):
+        from dmclock_tpu_torch.net import journal as journal_mod
+        from dmclock_tpu_torch.net import serve as serve_mod
+
+        outer = self
+
+        class Timed(journal_mod.ArrivalJournal):
+            def append(self, entry):
+                t0 = time.perf_counter()
+                if outer.first is None:
+                    outer.first = t0
+                try:
+                    return super().append(entry)
+                finally:
+                    outer.seconds += time.perf_counter() - t0
+                    outer.appends += 1
+
+        saved = serve_mod.ArrivalJournal
+        serve_mod.ArrivalJournal = Timed
+        try:
+            yield self
+        finally:
+            serve_mod.ArrivalJournal = saved
+
+
+def _loadgen(root: str, port: int) -> subprocess.Popen:
+    """The module CLI's worker processes against ``port``."""
+    L = RPC_LOAD
+    return subprocess.Popen(
+        [sys.executable, "-m", "dmclock_tpu_torch.net.loadgen", "--port",
+         str(port), "--workers", str(L["workers"]), "--requests",
+         str(L["requests"]), "--n-clients", str(L["n_clients"]),
+         "--max-nops", str(L["max_nops"]), "--seed", str(L["seed"]),
+         "--timeout-s", "5.0"], cwd=root, stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def _loadgen_done(proc: subprocess.Popen, want_ok: int) -> dict:
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        _stop(proc)
+    merged = json.loads(out.strip().splitlines()[-1])
+    if proc.returncode != 0 or merged.get("ok", 0) + merged.get(
+            "dup", 0) != want_ok:
+        raise AssertionError(f"loadgen rc {proc.returncode}: {merged}")
+    return merged
+
+
+def phase_control(ext, card: str, root: str, tmp: str):
+    """Phase 24: the closed-loop controller, live migration and the RPC
+    ingest front end on the card, each leg equal to a CPU twin.  Returns
+    ``({path: K1 launches}, {path: K2 launches})`` over the in-process
+    runs."""
+    import dataclasses
+
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.lifecycle import make_spec
+    from dmclock_tpu_torch.net import loadgen
+    from dmclock_tpu_torch.net.journal import ArrivalJournal
+    from dmclock_tpu_torch.net.serve import (RpcServeConfig, make_server,
+                                             run_serve)
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    t_phase = time.perf_counter()
+    by_k1, by_k2 = {}, {}
+    twin_out = os.path.join(tmp, "control_twins.pt")
+    twin = start_control_twins(root, twin_out)
+    rpc_twin = None
+    try:
+        # (a) bench's controller rows, both twins of every scenario
+        ctl, _ = _counted(ext, "controller_rows", lambda: serve.controller_row(
+            device="cuda", **CTL_ROW), by_k1, by_k2)
+        for name, row in ctl.items():
+            log(f"[{name}] decisions off {row['decisions_off']} / on "
+                f"{row['decisions_on']}, dps off {row['dps_off']:.1f} / on "
+                f"{row['dps_on']:.1f}, burn epochs off "
+                f"{row['burn_epochs_off']} / on {row['burn_epochs_on']}, "
+                f"controller decisions {row['controller_decisions']}, "
+                f"knobs {row['controller_knobs']}, trajectory "
+                f"{row['controller_trajectory']}")
+
+        # (b) the controller on the supervised_churn population: bare,
+        # then spawned and SIGKILLed at every controller stage of the
+        # first boundary that decides anything
+        spec = make_spec(CHURN_SCENARIO, **SUP_CHURN_SPEC)
+        cjob = TS.EpochJob(churn=spec, **CTL_CHURN)
+        cref, _ = _counted(ext, "controller_churn", lambda: TS.run_job(
+            cjob, device="cuda"), by_k1, by_k2)
+        if not cref.controller_trajectory:
+            raise AssertionError("controller_churn decided nothing")
+        b0 = cref.controller_trajectory[0][1]
+        wd = os.path.join(tmp, "controller_churn_kills")
+        os.makedirs(wd)
+        plan = TH.HostFaultPlan(kill_at_controller=tuple(
+            (b0, stage) for stage in TH.CONTROLLER_STAGES))
+        t0 = time.perf_counter()
+        res = TS.run_supervised(cjob, wd, plan, mode="spawn", device="cuda")
+        wall = time.perf_counter() - t0
+        TS.assert_crash_equivalent(res, cref)
+        if res.restarts != 3 or res.controller_replays < 1:
+            raise AssertionError(f"controller_churn kills: restarts "
+                                 f"{res.restarts}, replays "
+                                 f"{res.controller_replays}")
+        log(f"[controller_churn] {cref.decisions} decisions, trajectory "
+            f"{cref.controller_trajectory}, knobs {cref.controller_knobs};"
+            f" spawned and SIGKILLed at {', '.join(TH.CONTROLLER_STAGES)} "
+            f"of boundary {b0}: 3 restarts, {res.controller_replays} "
+            f"journaled decisions replayed, crash-equivalent to the bare "
+            f"run (wall {wall:.3f} s with 4 children)")
+        shutil.rmtree(wd)
+
+        # (c) bench's rpc row, clean and under chaos
+        t_rpc = time.perf_counter()
+        traces, rows_rpc = {}, {}
+        for name, spec_s in (("rpc", None), ("rpc_chaos", RPC_CHAOS)):
+            grabbed = {}
+            real = ArrivalJournal.counts_trace
+
+            def keep(self, grabbed=grabbed, real=real):
+                tr = real(self)
+                if self.path is not None:
+                    grabbed["trace"] = tr
+                return tr
+
+            ArrivalJournal.counts_trace = keep
+            try:
+                row, _ = _counted(ext, name, lambda spec_s=spec_s:
+                                  serve.rpc_row(fault_spec=spec_s,
+                                                device="cuda", **RPC_ROW)
+                                  ["rpc"], by_k1, by_k2)
+            finally:
+                ArrivalJournal.counts_trace = real
+            if not row["digest_match"] or not row["chaos_exact"]:
+                raise AssertionError(f"{name}: {row}")
+            cfg = dict(engine="prefix", n=RPC_ROW["n"],
+                       epochs=RPC_ROW["epochs"], ckpt_every=2, m=2, k=32,
+                       ring=16, waves=6, seed=17)
+            traces[name] = (cfg, grabbed["trace"])
+            rows_rpc[name] = row
+            log(f"[{name}] {row['scenario']}: {row['decisions']} decisions,"
+                f" {row['admitted_ops']} ops traced + {row['carry_ops']} "
+                f"carried, digest_match {row['digest_match']}, chaos_exact "
+                f"{row['chaos_exact']} (drops {row['chaos_drops']}, dups "
+                f"{row['chaos_dups']}, reorders {row['chaos_reorders']} = "
+                f"oracle {row['oracle_drops']}/{row['oracle_dups']}/"
+                f"{row['oracle_reorders']}), wall {row['wall_s']:.3f} s, "
+                f"lat p50 {row['lat_p50_ms']:.3f} / p99 "
+                f"{row['lat_p99_ms']:.3f} ms")
+
+        # (d) rpc_full: the serving loop at 100,000 clients
+        scheds = loadgen.full_schedule(
+            RPC_LOAD["seed"], workers=RPC_LOAD["workers"],
+            requests=RPC_LOAD["requests"],
+            n_clients=RPC_LOAD["n_clients"],
+            max_nops=RPC_LOAD["max_nops"])
+        total = sum(n for sc in scheds for _, _, n in sc)
+        n_req = RPC_LOAD["workers"] * RPC_LOAD["requests"]
+
+        def serve_live(name, cfg):
+            """One live leg in process: the server, the loadgen
+            processes against it, ``run_serve``; the record and the
+            journal's trace."""
+            timer = _TimedJournal()
+            server = make_server(cfg).start()
+            lg = None
+            try:
+                lg = _loadgen(root, server.port)
+                with timer.installed():
+                    res, wall = _counted(ext, name, lambda: run_serve(
+                        cfg, server=server), by_k1, by_k2)
+                t_end = time.perf_counter()
+                merged = _loadgen_done(lg, n_req)
+                admitted = server.counters["admitted_ops"]
+            finally:
+                server.stop()
+                if lg is not None:
+                    _stop(lg)
+            if admitted != total or res["admitted_ops_traced"] + \
+                    res["carry_ops"] > total:
+                raise AssertionError(
+                    f"{name}: {admitted} ops admitted of {total}, "
+                    f"{res['admitted_ops_traced']} + {res['carry_ops']} "
+                    f"journaled")
+            journal = ArrivalJournal(cfg.workdir)
+            jbytes = os.path.getsize(journal.path)
+            lat = res["latency"]
+            serving = t_end - timer.first
+            log(f"[{name}] {RPC_FULL['n']} clients, {n_req} requests from "
+                f"{RPC_LOAD['workers']} loadgen processes ({total} ops; "
+                f"loadgen {merged}), first take after {cfg.wait_ops} "
+                f"admitted ops: {res['admitted_ops_traced']} ops journaled "
+                f"+ {res['carry_ops']} carried, {res['decisions']} "
+                f"decisions, {res['boundaries']} boundaries; wall "
+                f"{wall:.3f} s ({res['decisions'] / wall:.1f}/s), serving "
+                f"from the first take {serving:.3f} s "
+                f"({res['decisions'] / serving:.1f}/s); lat p50 "
+                f"{lat['p50_ms']:.3f} / p99 {lat['p99_ms']:.3f} ms over "
+                f"{lat['samples']} requests; {timer.appends} journal "
+                f"appends (fsync'd) took {timer.seconds:.3f} s, "
+                f"{timer.seconds / serving:.4f} of the serving wall; the "
+                f"journal {jbytes} bytes, "
+                f"{jbytes / max(len(journal), 1):.0f} a boundary")
+            return res, journal.counts_trace()
+
+        # the live leg: the loop serves while the requests arrive
+        cfg = RpcServeConfig(**RPC_FULL, workdir=os.path.join(
+            tmp, "rpc_full"), wait_ops=1, wait_timeout_s=300, device="cuda")
+        live, trace = serve_live("rpc_full", cfg)
+        replay, rwall = _counted(ext, "rpc_full_replay", lambda: run_serve(
+            dataclasses.replace(cfg, workdir=None, wait_ops=0),
+            trace=trace), by_k1, by_k2)
+        if (replay["digest"], replay["trace_sha"], replay["decisions"]) \
+                != (live["digest"], live["trace_sha"], live["decisions"]):
+            raise AssertionError("rpc_full: the replay twin differs")
+        log(f"[rpc_full] digest_match True: the journal's replay lands on "
+            f"digest {replay['digest'][:16]}, trace_sha "
+            f"{replay['trace_sha'][:16]} (replay {rwall:.3f} s)")
+        traces["rpc_full"] = (dict(RPC_FULL), trace)
+
+        # the kill between fsync and apply: a spawned serving child of the
+        # waited config (every op admitted before the first take, so the
+        # schedule fixes the trace), started now so that its CUDA start and
+        # state build ride the in-process waited leg, its uninterrupted
+        # reference; the child's load follows that leg
+        cfg = dataclasses.replace(cfg, workdir=os.path.join(
+            tmp, "rpc_full_waited"), wait_ops=total)
+        wd2 = os.path.join(tmp, "rpc_full_kill")
+        ccfg = dataclasses.replace(cfg, workdir=wd2)
+        os.makedirs(wd2)
+        cfg_json = os.path.join(tmp, "rpc_full_kill.json")
+        with open(cfg_json, "w") as fh:
+            json.dump(dataclasses.asdict(ccfg), fh)
+        port_file = os.path.join(tmp, "rpc_full_kill.port")
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "dmclock_tpu_torch.net.serve",
+             "--config", cfg_json, "--out",
+             os.path.join(tmp, "rpc_full_kill.out"), "--port-file",
+             port_file, "--crash-after-fsync", "1"], cwd=root)
+        lg = None
+        try:
+            ref, wtrace = serve_live("rpc_full_waited", cfg)
+            traces["rpc_full_waited"] = (dict(RPC_FULL), wtrace)
+            rpc_out = os.path.join(tmp, "rpc_twins.pt")
+            rpc_twin = start_rpc_twins(root, rpc_out, traces)
+            while not os.path.exists(port_file):
+                if child.poll() is not None or \
+                        time.perf_counter() - t0 > 300:
+                    raise AssertionError("rpc_full_kill: no port")
+                time.sleep(0.05)
+            with open(port_file) as fh:
+                lg = _loadgen(root, int(fh.read()))
+            _loadgen_done(lg, n_req)
+            rc = child.wait(timeout=600)
+        finally:
+            _stop(child)
+            if lg is not None:
+                _stop(lg)
+        if rc != -9 or len(ArrivalJournal(wd2)) != 2:
+            raise AssertionError(f"rpc_full_kill: rc {rc}, "
+                                 f"{len(ArrivalJournal(wd2))} records")
+        kwall = time.perf_counter() - t0
+        server = make_server(ccfg).start()
+        try:
+            resumed, _ = _counted(ext, "rpc_full_resumed", lambda: run_serve(
+                ccfg, server=server), by_k1, by_k2)
+        finally:
+            server.stop()
+        if not resumed["resumed"] or \
+                (resumed["digest"], resumed["trace_sha"]) != \
+                (ref["digest"], ref["trace_sha"]):
+            raise AssertionError("rpc_full_kill: the resumed run differs "
+                                 "from the uninterrupted one")
+        log(f"[rpc_full_kill] the serving child SIGKILLed between "
+            f"boundary 1's fsync and its apply ({kwall:.3f} s from its "
+            f"start, beside the waited leg), resumed in process: digest and"
+            f" trace_sha equal the uninterrupted waited run's")
+        shutil.rmtree(wd2)
+        t_mesh = time.perf_counter()
+        log(f"[time] rpc legs {t_mesh - t_rpc:.3f} s")
+
+        # (e) bench's mesh_rebalance row, then at the churn population
+        rebal, _ = _counted(ext, "mesh_rebalance", lambda: serve
+                            .mesh_rebalance_row(device="cuda"), by_k1, by_k2)
+        pop, _ = _counted(ext, "mesh_rebalance_pop", lambda: serve
+                          .mesh_rebalance_row(device="cuda", **REBAL_POP),
+                          by_k1, by_k2)
+        for name, row in (("mesh_rebalance", rebal),
+                          ("mesh_rebalance_pop", pop)):
+            if row["migrations"] <= 0:
+                raise AssertionError(f"{name}: no migration")
+            log(f"[{name}] {row['total_ids']} ids over {row['n_shards']} "
+                f"shards, {row['epochs']} epochs: decisions off "
+                f"{row['decisions_off']} / on {row['decisions_on']} "
+                f"(recovered {row['recovered_decisions']}), skew "
+                f"{row['shard_skew_before']:.4f} -> "
+                f"{row['shard_skew_after']:.4f}, per shard "
+                f"{row['shard_decisions_off']} -> "
+                f"{row['shard_decisions_on']}, {row['migrations']} "
+                f"migrations, dps off {row['dps_off']:.1f} / on "
+                f"{row['dps_on']:.1f}")
+        # the cold-pick twin gate on the wheel calendar mesh
+        a, _ = _counted(ext, "migration_wheel", lambda: TS.run_job(
+            _gate_jobs(), device="cuda"), by_k1, by_k2, k2=True)
+        ov = {str(cid): dst for _b, cid, _s, dst in a.migration_log}
+        bt, _ = _counted(ext, "migration_wheel_twin", lambda: TS.run_job(
+            _gate_jobs(ov), device="cuda"), by_k1, by_k2, k2=True)
+        if not a.migrations or bt.migrations or a.digest != bt.digest:
+            raise AssertionError(f"migration_wheel: {a.migrations} moves,"
+                                 f" twin {bt.migrations}, digests "
+                                 f"{a.digest[:16]} {bt.digest[:16]}")
+        log(f"[migration_wheel] {a.migrations} cold movers off shard 0 "
+            f"({a.migration_log}) on the wheel calendar mesh: the digest "
+            f"equals the twin that placed them there from epoch 0")
+
+        # the CPU twins
+        want = collect_cpu_twins(twin, twin_out)
+        for name, row in ctl.items():
+            _same_row(row, want["ctl"][name], f"{name} against the CPU twin")
+        log("[controller rows] equal to the CPU twin on every key but the "
+            "walls")
+        check_supervised(cref, card, want["churn"], "controller_churn")
+        _same_row(rebal, want["rebal"], "mesh_rebalance against the CPU "
+                  "twin")
+        _same_row(pop, want["pop"], "mesh_rebalance_pop against the CPU "
+                  "twin")
+        log("[mesh_rebalance rows] equal to the CPU twins on every key but "
+            "the walls (migration logs, per-shard decisions)")
+        check_supervised(a, card, want["gate"], "migration_wheel")
+        got = collect_cpu_twins(rpc_twin, rpc_out)
+        for name, row in rows_rpc.items():
+            if (got[name]["digest"], got[name]["decisions"]) != \
+                    (row["digest"], row["decisions"]):
+                raise AssertionError(f"{name}: the CPU replay differs "
+                                     "from the card's live run")
+        for key in replay:
+            if key not in ("latency", "mode") and \
+                    got["rpc_full"][key] != replay[key]:
+                raise AssertionError(f"rpc_full: {key} differs from the "
+                                     "CPU twin")
+        for key in ("digest", "trace_sha", "decisions", "boundaries",
+                    "admitted_ops_traced", "carry_ops", "ingest_drops"):
+            if got["rpc_full_waited"][key] != ref[key]:
+                raise AssertionError(f"rpc_full_waited: {key} differs from "
+                                     "the CPU twin")
+        log(f"[rpc twins] the CPU replays of the card's traces: rpc, "
+            f"rpc_chaos, rpc_full and rpc_full_waited land on the card's "
+            f"digests (rpc_full {replay['digest'][:16]}, trace_sha "
+            f"{replay['trace_sha'][:16]}, {replay['decisions']} decisions; "
+            f"waited {ref['digest'][:16]}, trace_sha "
+            f"{ref['trace_sha'][:16]}, {ref['decisions']})")
+    finally:
+        for proc in (twin, rpc_twin):
+            if proc is not None:
+                _stop(proc)
+    log(f"[time] control and network phase "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return by_k1, by_k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3468,6 +4000,16 @@ def main() -> int:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
                 raise
+            # phase 24: control and network; its CPU twins start inside
+            t_control = time.perf_counter()
+            err = os.path.join(tmp, "control.err")
+            try:
+                with _stderr_to(err):
+                    ctl_k1, ctl_k2 = phase_control(_ext, card, root, tmp)
+            except BaseException:
+                with open(err, errors="replace") as f:
+                    sys.stderr.write(f.read()[-6000:])
+                raise
             check_sustained_twins(sust_twin, sust_out,
                                   dict(cfg3=cfg3_np, cfg4=cfg4_np))
         finally:
@@ -3486,7 +4028,8 @@ def main() -> int:
         f"{t_sims - t_sup:.3f} s, the simulators' phase "
         f"{t_mesh - t_sims:.3f} s, the mesh phase "
         f"{t_sup_mesh - t_mesh:.3f} s, the supervised mesh phase "
-        f"{t_end - t_sup_mesh:.3f} s; the whole script "
+        f"{t_control - t_sup_mesh:.3f} s, the control and network phase "
+        f"{t_end - t_control:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -3500,7 +4043,7 @@ def main() -> int:
                    **sup_k1, **{p: n["ring_window"]
                                 for p, n in ds_by_path.items()},
                    **{p: n for p, n in mesh_k1.items() if n},
-                   **sup_mesh_k1)
+                   **sup_mesh_k1, **ctl_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     # minstop, cfg3, the stream chunks, the queue and churn, and the
@@ -3508,7 +4051,7 @@ def main() -> int:
     k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2,
                     device_sim_wheel=ds_by_path["device_sim_wheel"][
                         "wheel_scan"],
-                    **{p: n for p, n in mesh_k2.items() if n})
+                    **{p: n for p, n in mesh_k2.items() if n}, **ctl_k2)
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

@@ -21,9 +21,15 @@ Layers (each mirrors its counterpart in ``dmclock_tpu``):
   robust  -- the guarded epoch and stream chunk, the degradation
              ladder, host fault plans and the crash-equivalent
              supervisor (with ``utils.checkpoint``)
+  control -- the closed-loop controller the supervisor runs at its
+             checkpoint boundaries (and, on the mesh, live migration)
+  net     -- the RPC ingest front end: wire framing, the network fault
+             plane, the arrival journal, the ingest server and client,
+             the serving loop and the load generator
   serve   -- the serving entry points (``serve_only``, bench's
              sustained rows ``sustained_row`` and ``frontier``, the
-             queues, churn and the mesh)
+             queues, churn, the mesh, and the controller, rpc and
+             mesh_rebalance rows)
   native  -- the ctypes binding of the C++ runtime under ``native/``
   sim     -- the simulators: the discrete-event harness, ``dmc_sim`` /
              ``ssched_sim`` over the model registry (``models``), and

@@ -11,16 +11,19 @@ lifecycle planes (counterpart of ``dmclock_tpu/lifecycle/placement.py``).
   hot_shard`` -- on their scripted shards without consuming the RNG.
   Under a fault plan a registration whose sampled choices are down
   re-routes to the live one, or defers one boundary when both are down.
+- **Migration** (:meth:`PlacementMap.plan_moves` and the supervisor's
+  ``_mesh_migrate``, fired by the closed-loop controller's ``migrate``
+  rule): drained clients leave the hottest shard as the existing
+  digest-neutral ops -- EVICT on the source, REGISTER on the destination
+  with the carried counter views and provenance watermark.  A run that
+  migrates a quiet-since-start client at boundary B equals, in the
+  client-id-space digest, a run that placed it on the destination from
+  the start.
 - **Determinism**: the RNG is a PCG64 stream of its own (the job seed,
-  its own spawn key), checkpointed as the ``pm_*`` leaves; pinned ids
-  never draw, unpinned registrations always draw exactly two, so a
-  resumed incarnation and a twin given ``overrides`` replay the same
-  placement stream.
-
-Live migration (``plan_moves``, the move log and the supervisor's
-``_mesh_migrate``) is fired only by the closed-loop controller and is
-ROADMAP.md item 12: the ``pm_moves`` leaf stays ``(0, 4)`` here, and a
-snapshot that carries moves is refused on load.
+  its own spawn key), checkpointed as the ``pm_*`` leaves with the move
+  log; pinned ids never draw, unpinned registrations and migration
+  candidates always draw exactly two, so a resumed incarnation and a
+  twin given ``overrides`` replay the same placement stream.
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+# test seam: called between the stages of a live migration (``evicted``
+# -> ``handoff`` -> ``registered``), the kill points of the migration
+# crash-equivalence cases.  Signature: hook(stage: str).
+_migrate_hook = None
 
 PM_COUNTER_KEYS = ("placements", "p2c_draws", "migrations",
                    "reroutes", "defers", "overrides")
@@ -116,6 +124,7 @@ class PlacementMap:
         self.rng = np.random.Generator(np.random.PCG64(
             np.random.SeedSequence([int(seed), 0x706C6163])))
         self.counters = {k: 0 for k in PM_COUNTER_KEYS}
+        self.moves: List[Tuple[int, int, int, int]] = []
         self.deferred: List[int] = []
 
     # -- lookups -------------------------------------------------------
@@ -188,6 +197,40 @@ class PlacementMap:
         out, self.deferred = list(self.deferred), []
         return out
 
+    # -- migration planning --------------------------------------------
+    def plan_moves(self, b: int, *, src: int,
+                   candidates: Sequence[int], backlog,
+                   up: Optional[np.ndarray] = None,
+                   max_moves: int = 4) -> List[Tuple[int, int]]:
+        """Plan up to ``max_moves`` migrations off shard ``src`` at
+        boundary ``b``: each candidate (in the caller's pick order) draws
+        two destination shards and takes the lower-backlog live one;
+        draws that land on the source or on a down shard drop out, and a
+        candidate with no usable choice is skipped.  Records the move
+        log, updates the assignment and returns ``[(cid, dst)]`` in plan
+        order."""
+        backlog = np.asarray(backlog, dtype=np.int64)
+        out: List[Tuple[int, int]] = []
+        for cid in candidates:
+            if len(out) >= int(max_moves):
+                break
+            cid = int(cid)
+            a, c = self._draw2()
+            live = [s for s in (a, c)
+                    if s != int(src) and (up is None or bool(up[s]))]
+            if not live:
+                continue
+            dst = min(live, key=lambda s: (int(backlog[s]), s))
+            self.assign[cid] = dst
+            self.moves.append((int(b), cid, int(src), dst))
+            self.counters["migrations"] += 1
+            out.append((cid, dst))
+        return out
+
+    def move_log(self) -> List[List[int]]:
+        """``[[boundary, cid, src, dst]]`` in move order (JSON-able)."""
+        return [[int(x) for x in row] for row in self.moves]
+
     def snapshot(self) -> dict:
         return {"mode": self.mode, "n_shards": self.n_shards,
                 "deferred": len(self.deferred),
@@ -223,7 +266,8 @@ class PlacementMap:
         registry.gauge(
             "dmclock_migration_last_boundary",
             "epoch boundary of the most recent migration (-1 = "
-            "never)", labels=labels).set_function(lambda: -1.0)
+            "never)", labels=labels).set_function(
+                lambda: float(self.moves[-1][0] if self.moves else -1))
 
     # -- checkpoint round trip -----------------------------------------
     def encode(self) -> dict:
@@ -234,7 +278,8 @@ class PlacementMap:
                 "pm_counters": np.asarray(
                     [self.counters[k] for k in PM_COUNTER_KEYS],
                     dtype=np.int64),
-                "pm_moves": np.zeros((0, 4), dtype=np.int64),
+                "pm_moves": np.asarray(self.moves, dtype=np.int64)
+                .reshape(len(self.moves), 4),
                 "pm_deferred": np.asarray(self.deferred,
                                           dtype=np.int64)}
 
@@ -244,14 +289,13 @@ class PlacementMap:
         assign = np.asarray(payload["pm_assign"], dtype=np.int64)
         if assign.shape[0] == 0:
             return                       # a payload without a map
-        if np.asarray(payload["pm_moves"]).shape[0]:
-            raise NotImplementedError(
-                "the snapshot holds live migrations (pm_moves), which "
-                "the closed-loop controller fires: ROADMAP.md item 12")
         self.assign = assign.copy()
         self.rng = _rng_from_array(payload["pm_rng"])
         ctr = np.asarray(payload["pm_counters"], dtype=np.int64)
         self.counters = {k: int(v) for k, v in zip(PM_COUNTER_KEYS, ctr)}
+        self.moves = [tuple(int(x) for x in row)
+                      for row in np.asarray(payload["pm_moves"],
+                                            dtype=np.int64)]
         self.deferred = [int(x) for x in
                          np.asarray(payload["pm_deferred"],
                                     dtype=np.int64)]

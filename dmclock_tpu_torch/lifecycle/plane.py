@@ -36,10 +36,10 @@ Pieces:
   sees only the scripted events and control ops of the client ids its
   shard owns (the attached ``placement.PlacementMap``, else
   ``slots.owner_shard``) and refuses a control op for another shard's id.
-
-Not ported yet: the live-migration halves (``migrate_out`` /
-``migrate_in``), which only the closed-loop controller fires (ROADMAP.md
-item 12).
+- live-migration halves (:meth:`LifecyclePlane.migrate_out` /
+  :meth:`LifecyclePlane.migrate_in`): the EVICT and REGISTER ops folded
+  on the host, which the supervisor's ``_mesh_migrate`` drives as one
+  two-sided move when the closed-loop controller fires ``migrate``.
 """
 
 from __future__ import annotations
@@ -117,7 +117,8 @@ def _fold_ops(kind, slot, resv_inv, weight_inv, limit_inv, order):
 
 
 def apply_op_vector(state: EngineState, kind, slot, resv_inv,
-                    weight_inv, limit_inv, order) -> EngineState:
+                    weight_inv, limit_inv, order, *,
+                    inplace: bool = False) -> EngineState:
     """Apply an ordered batch of lifecycle ops; equal to the JAX
     package's ordered scan over the rows.
 
@@ -130,7 +131,9 @@ def apply_op_vector(state: EngineState, kind, slot, resv_inv,
     included, so the slot's next tenant equals a fresh one; IDLE sets
     the slot's idle flag and nothing else.  The rows are folded on the
     host (:func:`_fold_ops`), uploaded in one copy and applied as one
-    out-of-place scatter per touched field."""
+    out-of-place scatter per touched field; ``inplace=True`` scatters
+    into ``state``'s own tensors instead (a stacked mesh state's shard
+    views ``x[s]``, whose rows a live migration rewrites)."""
     reset, reg, qos, idle = _fold_ops(kind, slot, resv_inv, weight_inv,
                                       limit_inv, order)
     n = state.capacity
@@ -153,18 +156,27 @@ def apply_op_vector(state: EngineState, kind, slot, resv_inv,
         at += size
     r_idx, g_idx, g_ord, q_idx, q_r, q_w, q_l, i_idx = parts
     new = dict(state._asdict())
+
+    def fill(t, idx, v):
+        return t.index_fill_(0, idx, v) if inplace \
+            else t.index_fill(0, idx, v)
+
+    def copy(t, idx, v):
+        return t.index_copy_(0, idx, v) if inplace \
+            else t.index_copy(0, idx, v)
+
     if reset:
         for f in EngineState._fields:
-            new[f] = new[f].index_fill(0, r_idx, _FRESH_FILLS[f])
+            new[f] = fill(new[f], r_idx, _FRESH_FILLS[f])
     if reg:
-        new["active"] = new["active"].index_fill(0, g_idx, True)
-        new["order"] = new["order"].index_copy(0, g_idx, g_ord)
+        new["active"] = fill(new["active"], g_idx, True)
+        new["order"] = copy(new["order"], g_idx, g_ord)
     if qos:
         for f, v in (("resv_inv", q_r), ("weight_inv", q_w),
                      ("limit_inv", q_l)):
-            new[f] = new[f].index_copy(0, q_idx, v)
+            new[f] = copy(new[f], q_idx, v)
     if idle:
-        new["idle"] = new["idle"].index_fill(0, i_idx, True)
+        new["idle"] = fill(new["idle"], i_idx, True)
     return EngineState(**new)
 
 
@@ -698,6 +710,47 @@ class LifecyclePlane:
         self.counters["evictions"] += 1
         if self._slo is not None:
             self._slo.evict(cid)
+
+    # -- live migration halves: the supervisor's ``_mesh_migrate`` drives
+    # them as one move, EVICT on the source plane and REGISTER on the
+    # destination, and installs the carried per-slot riders (counter
+    # views, provenance watermark) itself
+    def migrate_out(self, cid: int, ledger):
+        """Source half of a live move: fold the client's final ledger row
+        into the departed report (as an idle eviction does), release its
+        slot and return ``(slot, qos_triple)`` for the destination's
+        REGISTER; None when the client is not resident here (a replayed
+        boundary).  Counted as ``migrations_out``, not an eviction."""
+        with self.lock:
+            slot = self.slots.slot_of.get(cid)
+            if slot is None:
+                return None
+            qos = self.qos.get(cid, (0.0, 1.0, 0.0))
+            row = self._ledger_rows(ledger, [slot])[0]
+            self.departed.append((cid, row))
+            self.slots.release(cid)
+            self.qos.pop(cid, None)
+            if cid < self.total:
+                self.streak[cid] = 0
+            self.counters["migrations_out"] += 1
+            if self._slo is not None:
+                self._slo.evict(cid)
+            return slot, qos
+
+    def migrate_in(self, cid: int, qos) -> list:
+        """Destination half: a plain registration (growth staged on
+        demand, the order rank the client id under a placement map, the
+        SLO contract epoch bumped) with the source's QoS triple.  Returns
+        the ``LC_REGISTER`` rows for the destination's
+        :func:`apply_op_vector`; counted as ``migrations_in`` besides
+        ``registrations``."""
+        with self.lock:
+            r, w, l = (float(qos[0]), float(qos[1]), float(qos[2]))
+            rows = self._register_row({"op": "register", "cid": cid,
+                                       "r": r, "w": w, "l": l})
+            if rows:
+                self.counters["migrations_in"] += 1
+            return rows
 
     def _maybe_compact(self, state, ledger, slo_block, extras,
                        b: int, every: int, _spans):

@@ -13,9 +13,9 @@ is the JAX package's, so a plan JSON loads in either).
   ``_post_commit_hook`` seam); a resume must fall back past it;
 - **scrape-port loss** (``drop_scrape_at``): the metrics endpoint
   vanishes at an epoch boundary and the runner rebinds it;
-- **kill inside a controller decision** (``kill_at_controller``): kept
-  because the JAX plans carry it; it fires only where a controller runs,
-  and the port has none yet (ROADMAP.md item 12).
+- **kill inside a controller decision** (``kill_at_controller``): die
+  at a ``CONTROLLER_STAGES`` point of a closed-loop controller decision
+  (before its journal write, after it, or after the knobs moved).
 
 Plans are host data sampled once from a seed (PCG64, the same draws as
 the JAX package) or built by hand; the empty plan

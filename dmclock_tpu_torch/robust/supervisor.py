@@ -48,9 +48,13 @@ the chunks; ``churn`` runs per-shard lifecycle planes, routed by
 for bit.  Unlike the JAX loop, which needs one device a shard, any
 ``n_shards`` runs on the one card.
 
-Refused rather than run another way: the closed-loop controller
-(``controller``) and the live migrations it fires are ROADMAP.md item
-12.
+``controller`` runs the closed-loop controller (``control``) on all
+three loops at the checkpoint boundaries: the admission clamp on the
+drawn counts, the conceded ladder rungs, the mesh's
+``counter_sync_every``, an out-of-band compaction, and on a p2c mesh
+live migration (``_mesh_migrate``), each decision journaled and fsynced
+before it applies.  ``controller=None`` (or ``False``) builds no
+controller state at all and is bit-identical to the bare runner.
 
 Kernel launches are counted per process (``engine._ext.LAUNCHES``), so a
 spawn child's launches are not visible to its parent.
@@ -71,6 +75,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..control import Controller, as_spec
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..obs import slo as obsslo
 from ..utils import checkpoint as ckpt_mod
@@ -158,7 +163,8 @@ class EpochJob:
     # a fault-plan spec (dict, or the "seed=..,p_dropout=.." string) of
     # a mesh job, sampled per incarnation and run inside the chunks
     fault_plan: object = None
-    # the closed-loop controller, ROADMAP.md item 12 (None/False = off)
+    # the closed-loop controller (control.as_spec: None/False = off, True,
+    # a spec dict or a ControllerConfig)
     controller: object = None
 
     def to_json(self) -> dict:
@@ -172,8 +178,8 @@ class EpochJob:
 
 class SupervisedResult(NamedTuple):
     """What a completed (bare or supervised) run reports: the JAX
-    package's fields.  The controller fields stay at their defaults
-    until ROADMAP.md item 12 lands, and ``migrations`` at 0."""
+    package's fields (the controller's with ``controller`` set, the
+    placement map's and the move log with ``placement="p2c"``)."""
 
     digest: str         # hex decision-stream chain digest
     state_digest: str   # sha256 over the final engine state leaves
@@ -261,8 +267,8 @@ def assert_crash_equivalent(interrupted: SupervisedResult,
 # ----------------------------------------------------------------------
 
 def _check_job(job: EpochJob) -> None:
-    """The JAX loop's composition checks, and a refusal by name of what
-    the port does not run yet.  Not checked: ``n_shards`` against the
+    """The JAX loop's composition checks (the controller spec included:
+    an unknown key fails here).  Not checked: ``n_shards`` against the
     device count (the shards share the one card)."""
     from ..lifecycle.placement import parse_placement
     from .faults import parse_fault_spec
@@ -315,10 +321,7 @@ def _check_job(job: EpochJob) -> None:
             raise ValueError(f"fault_plan spec did not parse: "
                              f"{job.fault_plan!r} (expected keys like "
                              f"seed=.., p_dropout=..)")
-    if job.controller not in (None, False):
-        raise NotImplementedError(
-            "EpochJob(controller=...) is the closed-loop controller, "
-            "ROADMAP.md item 12: not ported yet")
+    as_spec(job.controller)
     if job.wheel_kernel not in ("xla", "pallas"):
         raise ValueError(f"unknown wheel_kernel {job.wheel_kernel!r}")
 
@@ -402,23 +405,15 @@ def _host64(x) -> np.ndarray:
     return np.asarray(x, dtype=np.int64)
 
 
-# the mesh counter plane's leaves (zero-size off the mesh) and the
-# controller's zero-size leaves (ROADMAP.md item 12): every payload
+# the mesh counter plane's leaves (zero-size off the mesh): every payload
 # carries them, so its structure is the JAX package's whatever the job
 _MESH_KEYS = ("mesh_cd", "mesh_cr", "mesh_vd", "mesh_vr")
-_CTL_KNOBS, _CTL_RULES = 5, 8
-
-
-def _absent_ctl_leaves() -> dict:
-    return {"ctl_cursor": np.zeros((), dtype=np.int64),
-            "ctl_knobs": np.zeros((_CTL_KNOBS,), dtype=np.int64),
-            "ctl_policy": np.zeros((2 * _CTL_RULES,), dtype=np.int64)}
 
 
 def _payload(job: EpochJob, state, rng, met, digest: bytes,
              epoch: int, decisions: int, ladder_vec, hists=None,
              ledger=None, flight=None, plane=None, slo=None,
-             prov=None, mesh=None, pm=None) -> dict:
+             prov=None, mesh=None, pm=None, ctl=None) -> dict:
     """The snapshot: the JAX package's leaves, key for key.  Every leaf
     is present whatever the job (zero-size when off), so the restore
     template's structure depends on the config only.  ``rng`` is the
@@ -426,7 +421,8 @@ def _payload(job: EpochJob, state, rng, met, digest: bytes,
     loops, whose draws run ahead of the boundary).  A mesh churn job's
     ``plane`` is the list of per-shard planes, each encoded under
     ``lc_s{s}_*``; ``mesh`` is its ``(cd, cr, vd, vr)`` counter plane
-    and ``pm`` its placement map."""
+    and ``pm`` its placement map; ``ctl`` the controller (its
+    ``ctl_*`` leaves are zeros without one)."""
     from ..lifecycle import placement as placement_mod
     from ..lifecycle.plane import LifecyclePlane
     from ..obs import flight as obsflight
@@ -455,7 +451,8 @@ def _payload(job: EpochJob, state, rng, met, digest: bytes,
                                      dtype=np.int64),
               **obsslo.SloPlane.empty_leaves(),
               **SloEvaluator.empty_leaves()}
-    return {**lc, **sl, **mz, **_absent_ctl_leaves(), **pmz,
+    ct = ctl.encode() if ctl is not None else Controller.empty_leaves()
+    return {**lc, **sl, **mz, **ct, **pmz,
             "digest": np.frombuffer(digest, dtype=np.uint8).copy(),
             "decisions": np.int64(decisions),
             "engine": state,
@@ -688,6 +685,28 @@ def _boundary_with_prov(plane, state, b, every, ledger, slo_block,
     return state, ledger, slo_block, prov
 
 
+def _ctl_compact(plane, state, ledger, slo_block, prov, b: int):
+    """The controller's ``compact`` actuation: an out-of-band compaction
+    through the plane's own transform (digest-neutral: the chain digest
+    hashes client-id-space views), with the ledger, the SLO block and
+    the provenance watermark riding it.  Runs before the boundary's
+    checkpoint save, so the snapshot holds the compacted layout and a
+    replayed decision re-compacts the replayed layout."""
+    from ..obs.provenance import ProvBlock
+
+    extras = None if prov is None else [(prov.last_served, 0)]
+    out = plane.force_compact(state, ledger=ledger, slo_block=slo_block,
+                              extras=extras, b=b)
+    state, ledger = out[0], out[1]
+    i = 2
+    if slo_block is not None:
+        slo_block = out[i]
+        i += 1
+    if extras is not None:
+        prov = ProvBlock(prov.margin_hist, prov.scal, out[i][0][0])
+    return state, ledger, slo_block, prov
+
+
 def _crash_dump(job: EpochJob, flight) -> None:
     """The crash hook: dump the flight ring (a mesh job's per-shard
     rings with a shard column) before the incarnation dies (best effort:
@@ -736,6 +755,17 @@ class _Run:
         self.ckpt_dir = os.path.join(workdir, "ckpt") if workdir \
             else None
         self.stream_fallbacks = 0
+        # the controller is built before the restore, so load() finds
+        # the journal (read from the workdir here) to replay against
+        self.ctl = None
+        ctl_spec = as_spec(job.controller)
+        if ctl_spec is not None:
+            self.ctl = Controller(
+                ctl_spec, n=job.n, ring=job.ring,
+                counter_sync_every=job.counter_sync_every,
+                capacity0=int(job.churn["capacity0"])
+                if job.churn is not None else 0,
+                n_shards=job.n_shards, workdir=workdir)
         payload = self.resumed_from = None
         if self.ckpt_dir is not None and \
                 ckpt_mod.rotation_paths(self.ckpt_dir):
@@ -786,6 +816,15 @@ class _Run:
                 else LifecyclePlane(job.churn, workdir=workdir,
                                     tracer=self.tracer)
         self._slo_init(payload)
+        if self.ctl is not None:
+            # delta baselines pinned to the restored accumulators: the
+            # previous boundary's snapshot is what the killed
+            # incarnation's controller last observed
+            from ..control import publish_controller
+            from ..obs.registry import default_registry
+
+            self.ctl.observe_baseline(met=self.met, slo_eval=self.slo_eval)
+            publish_controller(default_registry(), self.ctl)
         self.scr = _ScrapeCtl(job.metrics_port, self.start_epoch,
                               self._on_bind())
         self.base_cfg = {"select_impl": job.select_impl,
@@ -809,6 +848,10 @@ class _Run:
         self.start_epoch = int(payload["epoch"])
         self.decisions = int(payload["decisions"])
         self.ladder.load(payload["ladder"])
+        if self.ctl is not None:
+            # the applied cursor can only trail the journal, so loading
+            # both re-arms the replay of journaled, unapplied decisions
+            self.ctl.load(payload)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -947,7 +990,9 @@ class _Run:
         from ..obs import device as obsdev
 
         while True:
-            cfg = self.ladder.apply(self.base_cfg)
+            cfg = self.ladder.apply(self.ctl.overlay(self.base_cfg)
+                                    if self.ctl is not None
+                                    else self.base_cfg)
             try:
                 return launch(cfg), cfg
             except RECOVERABLE_ERRORS:
@@ -968,6 +1013,31 @@ class _Run:
         self.slo_eval.observe_roll(closed)
         return closed
 
+    def clamp(self, counts):
+        """The controller's admission clamp on drawn counts (after the
+        draw, so the RNG's consumption never depends on the knob)."""
+        if self.ctl is None or counts is None:
+            return counts
+        return self.ctl.clamp_counts(counts, self.job.waves)
+
+    def control(self, b: int, press=None) -> list:
+        """The controller boundary at ``b``, before the snapshot: one
+        signal snapshot, the policy's decisions journaled (fsync before
+        apply; a resumed run replays them), then the ``compact``
+        actuation.  Returns the rules that fired."""
+        planes = self.planes if self.planes is not None \
+            else (None if self.plane is None else [self.plane])
+        sig = self.ctl.collect(b, state=self.state, met=self.met,
+                               slo_eval=self.slo_eval, prov=self.prov,
+                               planes=planes, press=press)
+        fired = self.ctl.step(b, sig, fault=None if self.injector is None
+                              else self.injector.controller_point)
+        if "compact" in fired and self.plane is not None:
+            self.state, self.ledger, self.slo_block, self.prov = \
+                _ctl_compact(self.plane, self.state, self.ledger,
+                             self.slo_block, self.prov, b)
+        return fired
+
     def save(self, epoch: int, plan_epoch: int, rng) -> None:
         """The checkpoint at boundary ``epoch`` (the plan's save points
         are keyed by ``plan_epoch``, the epoch that ends there)."""
@@ -984,7 +1054,7 @@ class _Run:
                 else self.plane,
                 slo=None if self.slo_plane is None
                 else (self.slo_block, self.slo_plane, self.slo_eval),
-                mesh=self.mesh_ctrs, pm=self.pm)
+                mesh=self.mesh_ctrs, pm=self.pm, ctl=self.ctl)
 
             def save():
                 return ckpt_mod.save_pytree_rotating(
@@ -1005,10 +1075,15 @@ class _Run:
             self.state, self.hists, self.ledger, self.prov, self.flight,
             self.slo_block)
         kw = {}
+        if self.ctl is not None:
+            kw.update(controller_decisions=int(self.ctl.applied),
+                      controller_replays=int(self.ctl.replays),
+                      controller_knobs=[int(k) for k in self.ctl.knobs],
+                      controller_trajectory=self.ctl.trajectory())
         if self.pm is not None:
             kw.update(placement=self.pm.mode,
                       migrations=int(self.pm.counters["migrations"]),
-                      migration_log=[],
+                      migration_log=self.pm.move_log(),
                       placement_counters={
                           k: int(v) for k, v in self.pm.counters.items()})
         if self.mesh_ctrs is not None and job.n_shards == 1:
@@ -1134,7 +1209,8 @@ def _round_epochs(run: _Run) -> None:
             with _spans.span(run.tracer, "supervisor.ingest", "ingest"):
                 raw = run.rng.poisson(churn_mod.lam_vector(
                     job.churn, epoch)).astype(np.int32)
-                counts = torch.from_numpy(plane.map_counts(raw)).to(dev)
+                counts = torch.from_numpy(
+                    run.clamp(plane.map_counts(raw))).to(dev)
                 run.state = stream_mod.ingest_step(
                     run.state, counts, t_base,
                     dt_epoch_ns=job.dt_epoch_ns, waves=job.waves)
@@ -1142,9 +1218,9 @@ def _round_epochs(run: _Run) -> None:
             with _spans.span(run.tracer, "supervisor.ingest", "ingest"):
                 headroom = job.ring - run.state.depth.cpu().numpy() \
                     .astype(np.int64)
-                counts = np.minimum(
+                counts = run.clamp(np.minimum(
                     run.rng.poisson(job.arrival_lam, job.n),
-                    np.minimum(headroom, job.waves)).astype(np.int32)
+                    np.minimum(headroom, job.waves)).astype(np.int32))
                 run.state = ingest_superwave(
                     run.state, torch.from_numpy(counts).to(dev),
                     wave_off + t_base, ones, ones, ones,
@@ -1173,6 +1249,8 @@ def _round_epochs(run: _Run) -> None:
         if run.slo_plane is not None and at_boundary:
             # before the snapshot: the saved block is a fresh window
             closed = run.slo_roll(epoch + 1)
+        if run.ctl is not None and at_boundary:
+            run.control(epoch + 1)
         if run.ckpt_dir is not None and at_boundary:
             run.save(epoch + 1, epoch, run.rng)
             ep_span.__exit__(None, None, None)
@@ -1228,6 +1306,10 @@ def _stream_epochs(run: _Run) -> None:
             counts_dev = plane.map_counts(counts)
         else:
             counts_dev = counts
+        # the whole chunk admits under the knob set at its starting
+        # boundary: the round loop's per-epoch clamp, since the knob
+        # moves only on the chunk grid
+        counts_dev = run.clamp(counts_dev)
         nxt: dict = {}
 
         def overlap(b=b):
@@ -1268,6 +1350,8 @@ def _stream_epochs(run: _Run) -> None:
         closed = None
         if run.slo_plane is not None:
             closed = run.slo_roll(b)   # b is on the window grid
+        if run.ctl is not None:
+            run.control(b)             # b is a controller boundary
         if run.ckpt_dir is not None:
             run.save(b, b - 1, rng_ckpt)
         # after the snapshot commits (or every chunk, bare)
@@ -1356,6 +1440,180 @@ def _mesh_boundary(job: EpochJob, planes, state, ledger, ctrs, b: int,
     return state, ledger, ctrs, prov
 
 
+def _mesh_migrate(run: _Run, b: int, up=None, press=None) -> None:
+    """The controller's ``migrate`` actuation: move up to
+    ``migrate_max`` drained clients off the hottest live shard as the
+    existing digest-neutral lifecycle ops -- EVICT on the source (its
+    final ledger row folded into the departed report first), REGISTER on
+    the destination with the carried counter views (``cd``/``cr``
+    completions, ``vd``/``vr`` held views) and the provenance
+    ``last_served`` watermark installed at the destination slot.
+
+    The trigger is journaled, the destinations draw from the
+    checkpointed placement RNG and the candidate order is a pure
+    function of the boundary's state, so a kill at any stage of evict
+    -> handoff -> register (the ``placement._migrate_hook`` seam)
+    replays the same moves from the previous checkpoint.  Runs after
+    the controller boundary and before the checkpoint save.
+
+    The JAX package unstacks the shards and restacks them; here the
+    moved rows are written in place on the shard views ``x[s]`` of the
+    stacked tensors, and only a destination's slot growth reallocates
+    the stack.  That is safe because each of them is a fresh stack made
+    by the chunk (fused or host-replayed), the boundary or the restore,
+    which nothing else holds (the last snapshot was copied to the host
+    when it was saved); the one value read before a reset, the carried
+    riders, is copied to the host first.  The boundary depth is the
+    host copy the controller's ``collect`` read at ``b`` (nothing has
+    moved since), so only ``cd`` is copied here."""
+    from ..lifecycle import placement as placement_mod
+    from ..lifecycle.plane import LC_EVICT, LC_NOP, _pad_len, \
+        apply_op_vector
+    from ..parallel.cluster import shard_view, stack_trees
+
+    job, pm, ctl, planes = run.job, run.pm, run.ctl, run.planes
+    S = job.n_shards
+    cd, cr, vd, vr = run.mesh_ctrs
+    read_at, depth = ctl.boundary_depth
+    if read_at != b or depth is None:
+        raise RuntimeError(f"migrate at boundary {b} without the "
+                           f"controller's depth read there ({read_at})")
+    depth = depth.reshape(S, -1)
+    cd_host = cd.reshape(S, -1).cpu().numpy()
+    backlog = depth.sum(axis=-1)
+    # source: the hottest live shard (a down shard has no pressure to
+    # shed; its rows stay put until it returns)
+    eligible = np.asarray(
+        [int(backlog[s]) if (up is None or bool(up[s])) else -1
+         for s in range(S)], dtype=np.int64)
+    src = int(np.argmax(eligible))
+    if eligible[src] <= 0:
+        # the boundary depth is zero on calendar engines (deadline
+        # commits drain within the epoch): fall back to the chunk's
+        # mid-epoch pressure peaks, the signal that armed the rule
+        if press is None:
+            return
+        from ..obs import provenance as obsprov
+
+        peaks = np.asarray(press, dtype=np.int64)[:, obsprov.PRESS_BACKLOG]
+        eligible = np.asarray(
+            [int(peaks[s]) if (up is None or bool(up[s])) else -1
+             for s in range(S)], dtype=np.int64)
+        src = int(np.argmax(eligible))
+        if eligible[src] <= 0:
+            return
+    plane_src = planes[src]
+    pick = ctl.migrate_pick()
+    keyed = []
+    for cid in sorted(plane_src.slots.slot_of):
+        slot = plane_src.slots.slot_of[cid]
+        # only drained clients move: no queued ops to carry, so the
+        # whole handoff is counter state and the contract
+        if depth[src, slot] != 0:
+            continue
+        served = int(cd_host[src, slot])
+        if pick == "cold" and served == 0:
+            keyed.append((0, cid))          # quiet since start
+        elif pick != "cold" and served > 0:
+            keyed.append((-served, cid))    # largest demand first
+    moves = pm.plan_moves(b, src=src,
+                          candidates=[cid for _k, cid in sorted(keyed)],
+                          backlog=backlog, up=up,
+                          max_moves=ctl.migrate_batch())
+    if not moves:
+        return
+
+    riders = [cd, cr, vd, vr] + (
+        [run.prov.last_served] if run.prov is not None else [])
+    fills = (0, 0, 1, 1, 0)
+    ledger = run.ledger
+    # source half: fold the final ledger rows and release the slots,
+    # read the carried riders, then EVICT on the device
+    handoff, slots_out = [], []
+    for cid, dst in moves:
+        out = plane_src.migrate_out(
+            cid, None if ledger is None else ledger[src])
+        if out is None:
+            continue
+        slot, qos = out
+        slots_out.append(slot)
+        handoff.append((cid, dst, qos))
+    carried = {}
+    if slots_out:
+        dev = run.state.device
+        idx = torch.as_tensor(slots_out, dtype=torch.int64, device=dev)
+        vals = torch.stack([r[src].index_select(0, idx) for r in riders]) \
+            .cpu().numpy()
+        for j, (cid, _dst, _qos) in enumerate(handoff):
+            carried[cid] = [int(v) for v in vals[:, j]]
+        pad = _pad_len(len(slots_out))
+        arr = np.asarray([(LC_EVICT, sl, 0, 0, 0, 0) for sl in slots_out]
+                         + [(LC_NOP, 0, 0, 0, 0, 0)]
+                         * (pad - len(slots_out)), dtype=np.int64)
+        apply_op_vector(shard_view(run.state, src), *arr.T, inplace=True)
+        if ledger is not None:
+            ledger[src].index_fill_(0, idx, 0)
+        for r, f in zip(riders, fills):
+            r[src].index_fill_(0, idx, f)
+    if placement_mod._migrate_hook is not None:
+        placement_mod._migrate_hook("evicted")
+
+    # destination half: REGISTER with the carried QoS contract
+    reg_rows: dict = {s: [] for s in range(S)}
+    for cid, dst, qos in handoff:
+        reg_rows[dst] += planes[dst].migrate_in(cid, qos)
+    if placement_mod._migrate_hook is not None:
+        placement_mod._migrate_hook("handoff")
+
+    cap = max(int(p.slots.capacity) for p in planes)
+    if cap > run.state.capacity:
+        # a destination grew: every shard grows to one rectangle, which
+        # reallocates the stack (the one restack this actuation makes)
+        sts, leds, exs = [], [], []
+        for s in range(S):
+            out = planes[s].ensure_capacity(
+                cap, shard_view(run.state, s),
+                ledger=None if ledger is None else ledger[s],
+                extras=[(r[s], f) for r, f in zip(riders, fills)])
+            sts.append(out[0])
+            leds.append(out[1])
+            exs.append(out[-1])
+        run.state = stack_trees(sts)
+        ledger = None if ledger is None else torch.stack(leds)
+        riders = [torch.stack([exs[s][j][0] for s in range(S)])
+                  for j in range(len(riders))]
+    for s in range(S):
+        rows = reg_rows[s]
+        if not rows:
+            continue
+        rows = list(rows) + [(LC_NOP, 0, 0, 0, 0, 0)] \
+            * (_pad_len(len(rows)) - len(rows))
+        arr = np.asarray(rows, dtype=np.int64)
+        apply_op_vector(shard_view(run.state, s), *arr.T, inplace=True)
+    # install the carried riders at the destination slots: the counter
+    # views arrive with the client, and the last_served watermark keeps
+    # its starvation clock across the move
+    if handoff:
+        dev = run.state.device
+        at = tuple(torch.as_tensor(col, dtype=torch.int64, device=dev)
+                   for col in zip(*[(dst, planes[dst].slots.slot_of[cid])
+                                    for cid, dst, _qos in handoff]))
+        vals = torch.as_tensor([carried[cid] for cid, _d, _q in handoff],
+                               dtype=torch.int64, device=dev)
+        for j, r in enumerate(riders):
+            r.index_put_(at, vals[:, j])
+    if placement_mod._migrate_hook is not None:
+        placement_mod._migrate_hook("registered")
+
+    run.ledger = ledger
+    run.mesh_ctrs = tuple(riders[:4])
+    if run.prov is not None:
+        from ..obs.provenance import ProvBlock
+
+        run.prov = ProvBlock(run.prov.margin_hist, run.prov.scal,
+                             riders[4])
+
+
 def _mesh_epochs(run: _Run) -> None:
     """The mesh loop: ``n_shards`` engines stacked on the card advance a
     whole checkpoint interval in one fused mesh chunk, the delta/rho
@@ -1409,6 +1667,7 @@ def _mesh_epochs(run: _Run) -> None:
                                        for pl in planes])
                 else:
                     counts = _draw_counts_mesh(run.rng, job, b - e0)
+                counts = run.clamp(counts)
         rng_ckpt = _rng_state_array(run.rng)
         faults = plan_chunk(plan, e0, b) if plan is not None else None
 
@@ -1423,7 +1682,9 @@ def _mesh_epochs(run: _Run) -> None:
                 tag_width=cfg["tag_width"],
                 calendar_impl=cfg["calendar_impl"],
                 ladder_levels=job.ladder_levels,
-                counter_sync_every=job.counter_sync_every,
+                counter_sync_every=run.ctl.knob_sync()
+                if run.ctl is not None else job.counter_sync_every,
+                with_pressure=run.ctl is not None,
                 hists=run.hists, ledger=run.ledger, slo=run.slo_block,
                 prov=run.prov, flight=run.flight, faults=faults,
                 tracer=tracer)
@@ -1459,6 +1720,26 @@ def _mesh_epochs(run: _Run) -> None:
             run.slo_w0 = b
             run.slo_eval.observe_roll(closed)
             run.slo_block = mesh_mod.stack_shards(merged, job.n_shards)
+        if run.ctl is not None:
+            # the cluster-level controller boundary: backlog is the
+            # cluster's depth, press_backlog the hottest shard's, and
+            # the chunk's mid-epoch pressure peaks arm the migrate rule
+            # on calendar engines; a fired migrate moves drained
+            # clients off the hottest shard before the snapshot
+            if g.press is not None and run.scr.scrape is not None:
+                try:
+                    from ..obs import provenance as obsprov
+                    obsprov.publish_shard_pressure(
+                        run.scr.scrape.registry, g.press)
+                except Exception:
+                    pass
+            fired = run.control(b, press=g.press)
+            if "migrate" in fired and run.pm is not None:
+                with _spans.span(tracer, "lifecycle.migrate", "host_prep",
+                                 epoch=b):
+                    up_b = None if plan is None \
+                        else plan.up[min(b, plan.up.shape[0] - 1)]
+                    _mesh_migrate(run, b, up=up_b, press=g.press)
         if run.ckpt_dir is not None:
             run.save(b, b - 1, rng_ckpt)
         run.flush_spans()
@@ -1565,7 +1846,9 @@ _JSON_ARRAYS = {"hists": None, "ledger": None, "flight_buf": None,
 # plain result fields that travel through result.json as they are
 _JSON_VALUES = ("flight_seq", "stream_fallbacks", "mesh_fallbacks",
                 "mesh_chaos_fallbacks", "placement", "migrations",
-                "migration_log", "placement_counters")
+                "migration_log", "placement_counters",
+                "controller_decisions", "controller_replays",
+                "controller_knobs", "controller_trajectory")
 
 
 def _spawn_once(job: EpochJob, workdir: str,

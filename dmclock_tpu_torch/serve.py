@@ -58,6 +58,13 @@ embedding, or the pull queue, behind a simulated server.
 guarded prefix epochs (m=4, k=256, ring 32) with the admin API on a
 live HTTP endpoint and a real ``PUT /clients/{id}/qos`` halfway.
 
+``controller_row``, ``rpc_row`` and ``mesh_rebalance_row`` are bench's
+control-plane rows: exact supervised twins with the closed-loop
+controller off and on over three churn scenarios; the RPC ingest front
+end on real loopback sockets with its live-versus-replay digest gate
+(and a chaos leg under a network fault spec); and the shard-rebalancing
+A/B, the static mesh against p2c placement with live migration.
+
 ``mesh_row`` is bench's ``mesh`` row: 100,000 clients over S shards
 stacked on one card (``parallel.mesh``), each a full prefix engine on
 its own partition, coordinated by the delta/rho counter sum at epoch
@@ -88,6 +95,13 @@ Run it (on the card; ``--device cpu`` for a small CPU run)::
     python -m dmclock_tpu_torch.serve --workload mesh --n-shards 4 \
         --clients 2048 --device cpu
     python -m dmclock_tpu_torch.serve --workload multichip
+    python -m dmclock_tpu_torch.serve --workload controller
+    python -m dmclock_tpu_torch.serve --workload controller --n 96 \
+        --epochs 32 --device cpu
+    python -m dmclock_tpu_torch.serve --workload rpc --rpc-fault-spec \
+        seed=7,p_drop=0.1,p_dup=0.05,p_reorder=0.05
+    python -m dmclock_tpu_torch.serve --workload mesh --rebalance on
+    python -m dmclock_tpu_torch.serve --workload mesh_rebalance --device cpu
 """
 
 from __future__ import annotations
@@ -2478,12 +2492,270 @@ def cluster_outage(n_servers: int = 8, n_clients: int = 10_000, *,
             "served": int(sum((d.type == 0).sum() for d in seq))}
 
 
+CONTROLLER = dict(scenarios=("shard_skew", "limit_thrash", "diurnal"),
+                  total_ids=192, epochs=48)   # bench's accelerator shape
+RPC = dict(n=32, epochs=16, requests=64, workers=4)
+REBALANCE = dict(n_shards=4, total_ids=64, epochs=24)
+
+
+def _timed_job(job, device):
+    """One supervised bare run and its wall (bench's ``one``)."""
+    from .robust.supervisor import run_job
+
+    t0 = time.perf_counter()
+    res = run_job(job, device=device)
+    return res, time.perf_counter() - t0
+
+
+def controller_row(scenarios=CONTROLLER["scenarios"], *,
+                   sides: str = "both",
+                   total_ids: int = CONTROLLER["total_ids"],
+                   epochs: int = CONTROLLER["epochs"],
+                   ckpt_every: int = 4, engine: str = "prefix",
+                   engine_loop: str = "stream", m: int = 2, k: int = 32,
+                   ring: int = 16, waves: int = 6, seed: int = 17,
+                   tracer=None,
+                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Bench's ``controller_<scenario>`` rows (``bench.py``
+    ``bench_controller``) on the port: each churn scenario runs as a
+    pair of exact-twin supervised jobs, identical but for
+    ``EpochJob(controller=...)``, so the recovered dec/s and burn-epoch
+    delta belong to the controller's actuations alone.  ``sides`` picks
+    the twins ("off", "on" or "both").  With both, an untimed warmup of
+    the off twin runs first, as in bench; the port compiles nothing per
+    shape, so it only keeps the twins' timing comparable.  Keys are
+    bench's; the defaults are bench's accelerator shape."""
+    import dataclasses
+
+    from .robust.supervisor import EpochJob, run_job
+
+    out = {}
+    for scenario in scenarios:
+        spec = make_spec(scenario, total_ids=total_ids,
+                         capacity0=max(16, total_ids // 4), seed=seed)
+        job = EpochJob(engine=engine, engine_loop=engine_loop,
+                       churn=spec, epochs=epochs, m=m, k=k, ring=ring,
+                       waves=waves, ckpt_every=ckpt_every, seed=seed,
+                       with_slo=True)
+        row = {"workload": "controller", "scenario": scenario,
+               "engine": engine, "engine_loop": engine_loop,
+               "epochs": epochs, "ckpt_every": ckpt_every,
+               "total_ids": total_ids, "controller": sides}
+        with obsspans.span(tracer, "controller.bench_ab", "dispatch",
+                           scenario=scenario, sides=sides):
+            if sides == "both":
+                run_job(job, device=device)      # the untimed warmup
+            if sides in ("off", "both"):
+                off, wall = _timed_job(job, device)
+                row.update(
+                    dps_off=off.decisions / wall,
+                    decisions_off=int(off.decisions), wall_s_off=wall,
+                    violations_off=int(off.slo["violations_total"]),
+                    burn_windows_off=int(off.slo.get("burn_windows", 0)),
+                    burn_epochs_off=int(off.slo.get("burn_epochs", 0)))
+                if sides == "off":
+                    row["slo"] = off.slo
+            if sides in ("on", "both"):
+                on, wall = _timed_job(
+                    dataclasses.replace(job, controller=True), device)
+                row.update(
+                    dps_on=on.decisions / wall,
+                    decisions_on=int(on.decisions), wall_s_on=wall,
+                    violations_on=int(on.slo["violations_total"]),
+                    burn_windows_on=int(on.slo.get("burn_windows", 0)),
+                    burn_epochs_on=int(on.slo.get("burn_epochs", 0)),
+                    controller_decisions=int(on.controller_decisions),
+                    controller_knobs=on.controller_knobs,
+                    controller_trajectory=on.controller_trajectory or [],
+                    slo=on.slo)
+        if sides == "both":
+            row["dps"] = row["dps_on"]
+            row["recovered_dps"] = row["dps_on"] - row["dps_off"]
+            row["burn_epochs_recovered"] = (row["burn_epochs_off"]
+                                            - row["burn_epochs_on"])
+            row["violations_recovered"] = (row["violations_off"]
+                                           - row["violations_on"])
+        else:
+            row["dps"] = row.get("dps_on", row.get("dps_off", 0.0))
+        out[f"controller_{scenario}"] = row
+    return out
+
+
+def rpc_row(*, workers: int = RPC["workers"],
+            requests: int = RPC["requests"], n: int = RPC["n"],
+            epochs: int = RPC["epochs"], ckpt_every: int = 2, m: int = 2,
+            k: int = 32, ring: int = 16, waves: int = 6, seed: int = 17,
+            engine: str = "prefix", fault_spec=None, tracer=None,
+            device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Bench's ``rpc`` row (``bench.py`` ``bench_rpc``) on the port: a
+    real loopback ``net.server.IngestServer``, ``workers`` concurrent
+    clients (threads through ``net.loadgen.run_worker``) on seeded
+    schedules, the serving loop admitting the coalesced superwaves on
+    the card, then the gate in process: a replay fed the journaled
+    trace lands on the same chain digest and trace hash
+    (``digest_match``).  ``fault_spec`` makes it a chaos leg whose
+    drop/dup/reorder counters must equal the host oracle's
+    (``chaos_exact``).  Keys are bench's; ``tracer`` is accepted for
+    bench's signature and records nothing here, as in bench."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    from .net import faults as net_faults
+    from .net.journal import ArrivalJournal
+    from .net.loadgen import full_schedule, run_worker
+    from .net.serve import RpcServeConfig, make_server, run_serve
+
+    del tracer
+    scheds = full_schedule(seed, workers=workers, requests=requests,
+                           n_clients=n, max_nops=3)
+    spec = net_faults.parse_net_fault_spec(fault_spec)
+    oracle = net_faults.plan_schedule_events(
+        spec, [[(c, q) for c, q, _ in sc] for sc in scheds])
+    with tempfile.TemporaryDirectory() as d:
+        cfg = RpcServeConfig(
+            engine=engine, n=n, epochs=epochs, ckpt_every=ckpt_every,
+            m=m, k=k, ring=ring, waves=waves, seed=seed, workdir=d,
+            fault_spec=fault_spec, high_watermark=10 ** 6, wait_ops=1,
+            wait_timeout_s=60, device=str(resolve_device(device)))
+        server = make_server(cfg).start()
+        threads = [threading.Thread(
+            target=run_worker, args=("127.0.0.1", server.port, scheds[w]),
+            kwargs=dict(timeout_s=0.5, max_attempts=10))
+            for w in range(workers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out = run_serve(cfg, server=server)
+        wall = time.perf_counter() - t0
+        server.stop()
+        trace = ArrivalJournal(d).counts_trace()
+        replay = run_serve(dataclasses.replace(cfg, workdir=None,
+                                               wait_ops=0), trace=trace)
+    ev = out["events"]
+    chaos_exact = (ev.get("drops_injected", 0) == oracle["drops"]
+                   and ev.get("dup_frames", 0) == oracle["dups"]
+                   and ev.get("reordered", 0) == oracle["reorders"])
+    return {"rpc": {
+        "workload": "rpc", "scenario": net_faults.describe(spec),
+        "workers": int(workers), "requests_per_worker": int(requests),
+        "engine": engine, "epochs": epochs,
+        "dps": out["decisions"] / max(wall, 1e-9),
+        "decisions": out["decisions"], "wall_s": wall,
+        "admitted_ops": out["admitted_ops_traced"],
+        "carry_ops": out["carry_ops"],
+        "ingest_drops": out["ingest_drops"], "digest": out["digest"],
+        "digest_match": bool(replay["digest"] == out["digest"]
+                             and replay["trace_sha"] == out["trace_sha"]),
+        "chaos_exact": bool(chaos_exact),
+        "oracle_drops": oracle["drops"], "oracle_dups": oracle["dups"],
+        "oracle_reorders": oracle["reorders"],
+        "chaos_drops": int(ev.get("drops_injected", 0)),
+        "chaos_dups": int(ev.get("dup_frames", 0)),
+        "chaos_reorders": int(ev.get("reordered", 0)),
+        "busy": int(ev.get("busy", 0)),
+        "deduped": int(ev.get("deduped", 0)),
+        "lat_p50_ms": out["latency"]["p50_ms"],
+        "lat_p99_ms": out["latency"]["p99_ms"],
+    }}
+
+
+# bench's rebalance controller: migrate is the only live rule (sync
+# pinned, clamp and compact parked), moving the largest-demand drained
+# clients off the hot shard
+REBALANCE_CTL = dict(sync_max=1, backlog_hi=10 ** 9, occ_lo=0.0,
+                     hysteresis=1, cooldown=2, migrate_skew_hi=1.5,
+                     migrate_pick="hot", migrate_max=4)
+
+
+def mesh_rebalance_row(*, n_shards: int = REBALANCE["n_shards"],
+                       total_ids: int = REBALANCE["total_ids"],
+                       epochs: int = REBALANCE["epochs"],
+                       ckpt_every: int = 4, engine: str = "prefix",
+                       m: int = 2, k: int = 32, ring: int = 16,
+                       waves: int = 6, seed: int = 17, tracer=None,
+                       device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Bench's ``mesh_rebalance`` row (``bench.py``
+    ``bench_mesh_rebalance``) on the port: two exact-twin supervised
+    mesh jobs on the ``shard_skew`` scenario, the static ``cid % S``
+    mesh against ``placement="p2c"`` with a controller whose only live
+    rule is ``migrate`` (:data:`REBALANCE_CTL`), so
+    the recovered decisions and shard-skew delta belong to the
+    migrations.  Skew is max/mean of the per-shard completion totals
+    (``mesh_counters[0]``).  An untimed warmup of the off twin runs
+    first, as in bench.  The JAX row caps ``n_shards`` at its device
+    count; every shard here is a slice of one card, so ``n_shards`` is
+    taken as given.  Keys are bench's."""
+    import dataclasses
+
+    from .robust.supervisor import EpochJob, run_job
+
+    S = int(n_shards)
+    spec = make_spec("shard_skew", total_ids=total_ids, n_shards=S,
+                      seed=seed)
+    job = EpochJob(engine=engine, engine_loop="mesh", n_shards=S,
+                   churn=spec, epochs=epochs, m=m, k=k, ring=ring,
+                   waves=waves, ckpt_every=ckpt_every, seed=seed)
+
+    def skew(res):
+        tot = np.asarray(res.mesh_counters[0],
+                         dtype=np.float64).sum(axis=1)
+        return float(tot.max() / max(tot.mean(), 1e-12)), \
+            [int(t) for t in tot]
+
+    row = {"workload": "mesh_rebalance", "scenario": "shard_skew",
+           "engine": engine, "engine_loop": "mesh", "n_shards": S,
+           "epochs": epochs, "ckpt_every": ckpt_every,
+           "total_ids": total_ids, "rebalance": "on",
+           "placement": "p2c"}
+    with obsspans.span(tracer, "mesh.bench_rebalance", "dispatch",
+                       n_shards=S, epochs=epochs):
+        run_job(job, device=device)          # the untimed warmup
+        off, wall_off = _timed_job(job, device)
+        on, wall_on = _timed_job(dataclasses.replace(
+            job, placement="p2c", controller=dict(REBALANCE_CTL)), device)
+    skew_off, shards_off = skew(off)
+    skew_on, shards_on = skew(on)
+    row.update(
+        dps_off=off.decisions / wall_off, dps_on=on.decisions / wall_on,
+        decisions_off=int(off.decisions), decisions_on=int(on.decisions),
+        wall_s_off=wall_off, wall_s_on=wall_on,
+        shard_skew_before=skew_off, shard_skew_after=skew_on,
+        shard_skew_final=skew_on,
+        shard_decisions_off=shards_off, shard_decisions_on=shards_on,
+        migrations=int(on.migrations), migration_log=on.migration_log,
+        placement_counters=on.placement_counters,
+        controller_knobs=on.controller_knobs)
+    row["dps"] = row["dps_on"]
+    row["recovered_dps"] = row["dps_on"] - row["dps_off"]
+    row["recovered_decisions"] = (row["decisions_on"]
+                                  - row["decisions_off"])
+    row["shard_skew_recovered"] = skew_off - skew_on
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
                                            "cfg4", "frontier", "queue",
-                                           "churn", "mesh", "multichip"),
+                                           "churn", "mesh", "multichip",
+                                           "controller", "rpc",
+                                           "mesh_rebalance"),
                     default="serve")
+    ap.add_argument("--controller", choices=("off", "on", "both"),
+                    default="both",
+                    help="controller: which twins run (recovered deltas "
+                    "need both)")
+    ap.add_argument("--rpc-workers", type=int, default=RPC["workers"],
+                    help="rpc: concurrent loadgen clients")
+    ap.add_argument("--rpc-fault-spec", default=None,
+                    help="rpc: a network chaos spec, e.g. 'seed=7,"
+                    "p_drop=0.1,p_dup=0.05,p_reorder=0.05'")
+    ap.add_argument("--rebalance", choices=("on", "off"), default="off",
+                    help="mesh: also run the shard-rebalancing A/B "
+                    "(the mesh_rebalance row)")
     ap.add_argument("--clients", type=int, default=None,
                     help="mesh: clients over all shards (100000); "
                     "multichip: clients per server (10000)")
@@ -2498,7 +2770,8 @@ def main(argv=None) -> int:
                     "or 'none' runs no faults)")
     ap.add_argument("--n", type=int, default=None,
                     help="clients (100000; cfg3 and queue 10000; churn: "
-                    "the id space, 4096)")
+                    "the id space, 4096; controller 192, mesh_rebalance "
+                    "64; rpc: clients and coalesce slots, 32)")
     ap.add_argument("--depth", type=int, default=320,
                     help="serve, chain: queue depth and ring size")
     ap.add_argument("--k", type=int, default=None,
@@ -2508,7 +2781,10 @@ def main(argv=None) -> int:
                     help="serve, chain, churn: batches per epoch (32; "
                     "chain 8; churn 4)")
     ap.add_argument("--epochs", type=int, default=None,
-                    help="serve, chain, churn (3; churn 64)")
+                    help="serve, chain, churn (3; churn 64), controller "
+                    "(48), rpc (16), mesh_rebalance (24)")
+    ap.add_argument("--requests", type=int, default=RPC["requests"],
+                    help="rpc: requests per loadgen worker")
     ap.add_argument("--churn-scenario", default="flash_crowd",
                     choices=("flash_crowd", "diurnal", "churn_storm",
                              "limit_thrash", "shard_skew"),
@@ -2586,6 +2862,29 @@ def main(argv=None) -> int:
                        device=a.device)
         print(json.dumps({"device": str(resolve_device(a.device)),
                           **row}))
+        if a.rebalance == "on":
+            _print_rows({"mesh_rebalance": mesh_rebalance_row(
+                n_shards=a.n_shards or REBALANCE["n_shards"],
+                device=a.device)}, a.device)
+        return 0
+    if a.workload == "controller":
+        _print_rows(controller_row(
+            sides=a.controller, total_ids=a.n or CONTROLLER["total_ids"],
+            epochs=a.epochs or CONTROLLER["epochs"], device=a.device),
+            a.device)
+        return 0
+    if a.workload == "rpc":
+        _print_rows(rpc_row(
+            workers=a.rpc_workers, requests=a.requests,
+            n=a.n or RPC["n"], epochs=a.epochs or RPC["epochs"],
+            fault_spec=a.rpc_fault_spec, device=a.device), a.device)
+        return 0
+    if a.workload == "mesh_rebalance":
+        _print_rows({"mesh_rebalance": mesh_rebalance_row(
+            n_shards=a.n_shards or REBALANCE["n_shards"],
+            total_ids=a.n or REBALANCE["total_ids"],
+            epochs=a.epochs or REBALANCE["epochs"], device=a.device)},
+            a.device)
         return 0
     if a.workload == "multichip":
         row = multichip_row(a.n_shards or 8, a.clients or 10_000,
@@ -2628,6 +2927,13 @@ def main(argv=None) -> int:
         / max(met["decisions_total"], 1),
         "metrics": met}))
     return 0
+
+
+def _print_rows(rows: dict, device) -> None:
+    """One JSON line a row, keyed by bench's row name."""
+    for key, row in rows.items():
+        print(json.dumps({"row": key,
+                          "device": str(resolve_device(device)), **row}))
 
 
 def _main_sustained(a) -> int:

@@ -14,6 +14,7 @@
         [--rounds 2] [--calendar-impl minstop]
     python3 scripts/torch_serve_profile.py --workload mesh [--n-shards 8]
         [--counter-sync-every 4]
+    python3 scripts/torch_serve_profile.py --workload rpc [--n 100000]
 
 Builds the workload's state (``dmclock_tpu_torch.serve``: the preloaded
 ``serve`` backlog, with ``--high-rate`` the same backlog at 1000x the
@@ -48,7 +49,17 @@ profiles one chunk of bench's mesh row (``serve.mesh_row``'s shape:
 100,000 clients over ``--n-shards`` shards on the card, 8 epochs) after
 one warm chunk, and prints launches per shard-epoch and the counter
 sum's share: its device time (CUDA events over repeated sums of the
-chunk's counters) and launches per epoch against the chunk's.  The full
+chunk's counters) and launches per epoch against the chunk's.  ``rpc``
+profiles the RPC serving loop at ``rpc_full``'s shape
+(``net.serve.run_serve``: 100,000 clients, ring 128 preloaded 64 deep,
+prefix m=8 batches of k=65,536, 8 waves, a boundary every 2 epochs, 6
+epochs) with the ingest server in process and 4 loadgen worker
+processes of 16,384 requests sending while the chunks run, and prints
+each chunk's wall, device busy time, idle share and launches (a
+``rpc.chunk`` profiler range around each guarded chunk call, the next
+boundary's take and fsync inside it) and each boundary's (chunk start
+to chunk start: the drain, the SLO roll, the NOTIFY and the
+checkpoint too).  The full
 table goes to
 ``chiprun_out/<workload>[_<knobs>]_profile.txt``.  Needs CUDA; exits non-zero
 without.
@@ -66,6 +77,8 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the profiler ranges this script opens (``record_function``)
+RANGES = ("churn.loop_end", "rpc.chunk")
 
 
 def _busy_us(intervals) -> float:
@@ -87,7 +100,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
                                            "cfg4", "queue", "churn",
-                                           "device_sim", "mesh"),
+                                           "device_sim", "mesh", "rpc"),
                     default="serve")
     ap.add_argument("--n", type=int, default=None,
                     help="clients (100000; cfg3 and queue 10000)")
@@ -161,6 +174,8 @@ def main(argv=None) -> int:
     if a.workload == "device_sim":
         return _profile_device_sim(a.n, a.rounds, a.calendar_impl, card,
                                    out)
+    if a.workload == "rpc":
+        return _profile_rpc(a.n, card, out)
     if a.workload == "mesh":
         return _profile_mesh(serve, a.n, a.n_shards, a.counter_sync_every,
                              card, out)
@@ -221,7 +236,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def _profiled(run, mark: str | None = None):
+def _profiled(run, mark: str | None = None, events_out=None):
     """``run()`` under ``torch.profiler`` (CPU and CUDA activities):
     ``(result, stats)``, stats with the host wall time, the device busy
     time (the union of kernel intervals), the idle share, the launches,
@@ -229,7 +244,9 @@ def _profiled(run, mark: str | None = None):
     and the operator table under ``"table"``.  With ``mark``, the name of
     a profiler range that ``run`` opens once after a synchronize, stats
     also split the launches into those that started on the card before
-    that range (``launches_before_mark``) and after it."""
+    that range (``launches_before_mark``) and after it.  With
+    ``events_out`` (a dict), its ``"events"`` gets the profiler's
+    events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -239,8 +256,11 @@ def _profiled(run, mark: str | None = None):
         res = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the profiler also puts a range opened with ``record_function`` on
+    # the device's timeline: such annotations are not kernels
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in RANGES]
     busy = _busy_us((e.time_range.start, e.time_range.end)
                     for e in kernels)
     port_us = {name: sum(e.time_range.end - e.time_range.start
@@ -251,14 +271,18 @@ def _profiled(run, mark: str | None = None):
     split = {}
     if mark is not None:
         marks = [e.time_range.start for e in prof.events()
-                 if e.name == mark]
+                 if e.name == mark
+                 and e.device_type == torch.autograd.DeviceType.CPU]
         if len(marks) != 1:
             raise RuntimeError(f"{len(marks)} {mark!r} ranges, want 1")
         before = sum(1 for e in kernels if e.time_range.start < marks[0])
         split = {"launches_before_mark": before,
                  "launches_after_mark": len(kernels) - before}
+    if events_out is not None:
+        events_out["events"] = prof.events()
     averages = prof.key_averages()
-    top = sorted(averages, key=lambda e: -e.self_device_time_total)[:12]
+    top = sorted((e for e in averages if e.key not in RANGES),
+                 key=lambda e: -e.self_device_time_total)[:12]
     return res, {**split,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
@@ -446,6 +470,81 @@ def _profile_mesh(serve, clients: int, n_shards: int, every: int,
         "counter_sum_share_of_wall": sum_ms * sums
         / max(prof["wall_ms"], 1e-9),
         **prof}))
+    return 0
+
+
+def _profile_rpc(n: int, card: str, out: str) -> int:
+    """Three boundaries of the RPC serving loop at ``rpc_full``'s shape
+    with live traffic, profiled; per-chunk and per-boundary idle shares
+    from ``rpc.chunk`` ranges."""
+    import tempfile
+
+    from torch.profiler import record_function
+
+    from dmclock_tpu_torch.net.serve import (RpcServeConfig, make_server,
+                                             run_serve)
+    from dmclock_tpu_torch.robust import guarded
+
+    real = guarded.run_stream_chunk_guarded
+
+    def ranged(*args, **kw):
+        with record_function("rpc.chunk"):
+            return real(*args, **kw)
+
+    with tempfile.TemporaryDirectory() as wd:
+        cfg = RpcServeConfig(engine="prefix", n=n, depth=64, ring=128,
+                             epochs=6, m=8, k=65536, waves=8, ckpt_every=2,
+                             wait_ops=1, wait_timeout_s=300, workdir=wd,
+                             device="cuda")
+        server = make_server(cfg).start()
+        lg = subprocess.Popen(
+            [sys.executable, "-m", "dmclock_tpu_torch.net.loadgen",
+             "--port", str(server.port), "--workers", "4", "--requests",
+             "16384", "--n-clients", str(n), "--seed", "7",
+             "--timeout-s", "5.0"], cwd=ROOT, stdout=subprocess.PIPE,
+            text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        guarded.run_stream_chunk_guarded = ranged
+        held = {}
+        try:
+            res, stats = _profiled(lambda: run_serve(cfg, server=server),
+                                   events_out=held)
+            # the workers finish against the live server (a client whose
+            # server is gone reconnects without end)
+            lg_out, _ = lg.communicate(timeout=300)
+        finally:
+            guarded.run_stream_chunk_guarded = real
+            if lg.poll() is None:
+                lg.kill()
+                lg.wait()
+            server.stop()
+    events = held["events"]
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in RANGES]
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in events if e.name == "rpc.chunk"
+                    and e.device_type == torch.autograd.DeviceType.CPU)
+
+    def window(t0, t1):
+        iv = [(max(e.time_range.start, t0), min(e.time_range.end, t1))
+              for e in kernels
+              if e.time_range.end > t0 and e.time_range.start < t1]
+        busy = _busy_us(iv)
+        return {"wall_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+                "device_idle_share": 1.0 - busy / max(t1 - t0, 1e-9),
+                "kernel_launches": sum(1 for e in kernels
+                                       if t0 <= e.time_range.start < t1)}
+
+    chunks = [window(a, b) for a, b in ranges]
+    bounds = [window(ranges[i][0], ranges[i + 1][0])
+              for i in range(len(ranges) - 1)]
+    with open(out, "w") as f:
+        f.write(f"{card}\n{stats.pop('table')}\n")
+    print(json.dumps({
+        "card": card, "workload": "rpc", "clients": n,
+        "decisions": res["decisions"], "latency": res["latency"],
+        "loadgen": json.loads(lg_out.strip().splitlines()[-1]),
+        "chunks": chunks, "boundaries": bounds, **stats}))
     return 0
 
 

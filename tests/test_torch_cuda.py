@@ -855,3 +855,88 @@ def test_latency_rounds_event_window_on_the_card(cuda):
     assert row["latency_samples"] == 12
     assert row["latency_window"] == 4
     assert row["round_ms_p99"] >= row["round_ms_p50"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["round", "stream", "mesh"])
+def test_controller_job_on_the_card_equals_cpu(cuda, tmp_path, loop):
+    """A controller-on job (the clamp forced every boundary) on the card
+    equals the CPU run on every result field, trajectory and knobs
+    included, and a kill after a journaled decision resumes to it."""
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    job = TS.EpochJob(engine="prefix", n=512, depth=6, ring=10, epochs=8,
+                      m=2, k=64, seed=5, arrival_lam=1.0, waves=2,
+                      ckpt_every=2, engine_loop=loop,
+                      n_shards=2 if loop == "mesh" else 1,
+                      controller={"backlog_hi": 1})
+    got = TS.run_job(job, device=cuda)
+    want = TS.run_job(job, device="cpu")
+    assert got.controller_decisions > 0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
+        else:
+            assert a == b, f
+    plan = TH.HostFaultPlan(kill_at_controller=((4, "after_journal"),))
+    sup = TS.run_supervised(job, tmp_path / "wd", plan, device=cuda)
+    assert sup.restarts == 1 and sup.controller_replays >= 1
+    TS.assert_crash_equivalent(sup, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["prefix", "wheel"])
+def test_migration_on_the_card_equals_cpu(cuda, engine):
+    """Live migration on the card's mesh (rows rewritten in place on the
+    shard views): the move log, counters and digest equal the CPU run's;
+    the wheel calendar launches K2."""
+    from dmclock_tpu_torch.lifecycle import make_spec
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    kw = dict(engine="calendar", k=4, calendar_impl="wheel",
+              ladder_levels=2) if engine == "wheel" else \
+        dict(engine="prefix", k=16)
+    job = TS.EpochJob(
+        n=96, depth=6, ring=10, epochs=8, m=2, seed=5, arrival_lam=1.0,
+        waves=2, ckpt_every=2, engine_loop="mesh", n_shards=4,
+        placement="p2c",
+        churn=make_spec("shard_skew", total_ids=64, seed=3, cold_frac=0.5,
+                        cold_until=10 ** 9),
+        controller=dict(sync_max=1, backlog_hi=10 ** 9, occ_lo=0.0,
+                        hysteresis=1, cooldown=8, migrate_skew_hi=1.5,
+                        migrate_pick="cold"), **kw)
+    before = _ext.LAUNCHES["wheel_scan"]
+    got = TS.run_job(job, device=cuda)
+    assert (_ext.LAUNCHES["wheel_scan"] > before) == (engine == "wheel")
+    want = TS.run_job(job, device="cpu")
+    assert got.migrations > 0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
+        else:
+            assert a == b, f
+
+
+@pytest.mark.cuda
+def test_run_serve_on_the_card_equals_cpu(cuda):
+    """One seeded admitted-counts trace through the serving loop on the
+    card and on the CPU: the same record but the latency, K1 once an
+    epoch on the card."""
+    from dmclock_tpu_torch.net.serve import RpcServeConfig, run_serve
+
+    rng = np.random.default_rng(21)
+    trace = [rng.integers(0, 5, (2, 2000)).astype(int).tolist()
+             for _ in range(4)]
+    cfg = dict(n=2000, depth=8, ring=16, epochs=8, m=4, k=512, waves=4,
+               ckpt_every=2)
+    before = _ext.LAUNCHES["ring_window"]
+    got = run_serve(RpcServeConfig(**cfg, device="cuda"), trace=trace)
+    assert _ext.LAUNCHES["ring_window"] - before == cfg["epochs"]
+    want = run_serve(RpcServeConfig(**cfg, device="cpu"), trace=trace)
+    assert got["decisions"] > 0
+    for key in want:
+        if key != "latency":
+            assert got[key] == want[key], key

@@ -403,3 +403,67 @@ def test_sustained_row_and_frontier_default_to_cuda():
                  lambda: tserve.scalar_latency()):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_control_and_net_are_in_the_source_scan():
+    """The controller and the RPC front end are among the scanned files
+    (the scan walks the whole package)."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("control/__init__.py", "control/policy.py",
+                 "control/journal.py", "control/signals.py",
+                 "net/framing.py", "net/faults.py", "net/journal.py",
+                 "net/client.py", "net/server.py", "net/serve.py",
+                 "net/loadgen.py", "obs/rpc.py"):
+        assert f"dmclock_tpu_torch/{name}" in scanned, name
+
+
+def test_run_serve_and_controller_leave_jax_unloaded():
+    """The RPC serving loop (live over loopback, then its replay) and a
+    controller-on mesh job with migration on the CPU load no JAX."""
+    code = ("import sys, threading, dataclasses\n"
+            "from dmclock_tpu_torch.net.serve import RpcServeConfig, "
+            "make_server, run_serve\n"
+            "from dmclock_tpu_torch.net import loadgen\n"
+            "cfg = RpcServeConfig(n=8, depth=2, ring=8, epochs=4, m=2, "
+            "k=8, waves=2, ckpt_every=2, wait_ops=1, device='cpu')\n"
+            "srv = make_server(cfg).start()\n"
+            "sc = loadgen.full_schedule(3, workers=1, requests=6, "
+            "n_clients=8, max_nops=2)[0]\n"
+            "t = threading.Thread(target=loadgen.run_worker, "
+            "args=('127.0.0.1', srv.port, sc))\n"
+            "t.start(); t.join()\n"
+            "live = run_serve(cfg, server=srv); srv.stop()\n"
+            "assert live['decisions'] > 0\n"
+            "from dmclock_tpu_torch.lifecycle import make_spec\n"
+            "from dmclock_tpu_torch.robust import supervisor as S\n"
+            "spec = make_spec('shard_skew', total_ids=64, seed=3, "
+            "cold_frac=0.5, cold_until=10**9)\n"
+            "r = S.run_job(S.EpochJob(engine_loop='mesh', n_shards=4, "
+            "n=96, depth=6, ring=10, epochs=8, m=2, k=16, seed=5, "
+            "arrival_lam=1.0, waves=2, churn=spec, placement='p2c', "
+            "controller=dict(sync_max=1, backlog_hi=10**9, occ_lo=0.0, "
+            "hysteresis=1, cooldown=8, migrate_skew_hi=1.5, "
+            "migrate_pick='cold')), device='cpu')\n"
+            "assert r.migrations > 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
+def test_run_serve_and_rows_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from dmclock_tpu_torch.net.serve import RpcServeConfig, run_serve
+
+    assert RpcServeConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_serve(RpcServeConfig(n=8, epochs=2), trace=[[[0] * 8] * 2])
+    for call in (lambda: tserve.controller_row(("diurnal",), total_ids=32,
+                                               epochs=4, sides="on"),
+                 lambda: tserve.mesh_rebalance_row(total_ids=16,
+                                                   epochs=4)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

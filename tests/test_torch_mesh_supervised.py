@@ -116,7 +116,8 @@ def test_mesh_composition_refusals():
             "shard_skew", total_ids=32, n_shards=4)), ValueError,
          "shard_skew"),
         (dict(n_shards=0), ValueError, "n_shards"),
-        (dict(controller=True), NotImplementedError, "item 12"),
+        (dict(controller={"no_such_knob": 1}), AssertionError,
+         "unknown controller spec keys"),
     ]
     for over, err, match in cases:
         with pytest.raises(err, match=match):

@@ -1,8 +1,8 @@
 """The port's placement map (``lifecycle/placement.py``) and the p2c
 mesh churn jobs of its supervisor against the JAX package's, exactly:
 the counterparts of ``tests/test_placement.py``'s unit and supervisor
-tests, migration left out (the controller fires it; ROADMAP.md item
-12).  Both maps get the same calls and must agree on every assignment,
+tests (its migration cases are in ``test_torch_migration.py``).  Both
+maps get the same calls and must agree on every assignment,
 counter and deferral, and their ``pm_*`` leaves load in either
 package."""
 
@@ -131,7 +131,7 @@ def test_rng_parity_reroute_vs_clean():
 def test_encode_load_round_trip_across_packages():
     """A map's ``pm_*`` leaves restore in either package and the
     restored RNG continues the original stream; a snapshot that carries
-    migrations is refused (item 12)."""
+    migrations restores its move log, in either package."""
     t, j = _pair(4, 32, mode="p2c", seed=7)
     zero = np.zeros(4, dtype=np.int64)
     t.place_batch(list(range(16)), backlog=zero,
@@ -151,8 +151,11 @@ def test_encode_load_round_trip_across_packages():
     t3.load(TP.empty_leaves())                # a payload without a map
     assert (t3.assign < 0).all()
     moved = dict(t.encode(), pm_moves=np.asarray([[1, 2, 0, 1]]))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t3.load(moved)
+    t3.load(moved)
+    j3 = JP.PlacementMap(4, 32, mode="p2c", seed=0)
+    j3.load(moved)
+    assert t3.move_log() == j3.move_log() == [[1, 2, 0, 1]]
+    _assert_maps_equal(t3, j3)
 
 
 def test_publish_gauges():

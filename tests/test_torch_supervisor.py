@@ -199,25 +199,26 @@ def test_port_resumes_a_jax_checkpoint(refs, tmp_path, loop):
     assert res.digest == jref.digest
 
 
-# the mesh loop, its fault plans and p2c placement run now: what still
-# refuses is the controller (ROADMAP.md item 12), on any loop, and a
-# fault plan or p2c placement off the mesh (the JAX loop's composition
-# checks).  The case ids are the ones these cases had when all four
-# were refusals of unported modes, and are kept so a run's history stays
-# comparable; what each checks now: "engine_loop-mesh-..." the
-# controller on the mesh loop, "fault_plan-value1-..." a fault plan off
-# the mesh, "placement-p2c-..." p2c placement off the mesh,
-# "controller-True-..." the controller on the round loop.
+# every mode runs now: what still refuses is what the JAX loop refuses,
+# a controller spec with an unknown key (on any loop) and a fault plan or
+# p2c placement off the mesh.  The case ids are the ones these cases had
+# when all four were refusals of unported modes, and are kept so a run's
+# history stays comparable; what each checks now: "engine_loop-mesh-..."
+# a bad controller spec on the mesh loop, "fault_plan-value1-..." a
+# fault plan off the mesh, "placement-p2c-..." p2c placement off the
+# mesh, "controller-True-..." a bad controller spec on the round loop.
 @pytest.mark.parametrize("over, err, match", [
-    pytest.param(dict(engine_loop="mesh", n_shards=2, controller=True),
-                 NotImplementedError, "item 12",
+    pytest.param(dict(engine_loop="mesh", n_shards=2,
+                      controller={"no_such_knob": 1}),
+                 AssertionError, "unknown controller spec keys",
                  id="engine_loop-mesh-NotImplementedError"),
     pytest.param(dict(fault_plan={"seed": 1, "p_dropout": 0.1}),
                  ValueError, "engine_loop='mesh'",
                  id="fault_plan-value1-ValueError"),
     pytest.param(dict(placement="p2c"), ValueError, "placement",
                  id="placement-p2c-ValueError"),
-    pytest.param(dict(controller=True), NotImplementedError, "item 12",
+    pytest.param(dict(controller={"no_such_knob": 1}), AssertionError,
+                 "unknown controller spec keys",
                  id="controller-True-NotImplementedError"),
 ])
 def test_unported_modes_refuse(tmp_path, over, err, match):
