@@ -272,6 +272,22 @@ Phases (any failure raises and the exit code is not 0):
     card's four traces; bench's ``mesh_rebalance`` row,
     then at the ``supervised_mesh_churn`` population (``REBAL_POP``); the
     cold-pick twin gate on the wheel calendar mesh (K1 and K2).
+25. The mesh across devices: layouts of device groups
+    (``make_mesh(S, devices=...)``, ``parallel/groups.py``), each leg held
+    bit for bit against its stacked one-group twin of phases 22 and 23
+    in this run: (a) bench's mesh row at full width over 8 and 4 groups
+    of ``cuda:0`` at K=1, K=4 and under ``MESH_FAULT_SPEC`` (decisions/s
+    beside the stacked row's, K1 256 each), the first chunk at 8 x 12,500
+    field by field, the wheel chunk over 2 groups (K1 32, K2 40), and one
+    epoch's counter sum over 1, 4 and 8 groups (CUDA events); (b) the
+    supervised mesh over 8 groups, bare, then a spawn child SIGKILLed at
+    half and resumed on one group in process, each crash-equivalent to
+    phase 23's bare run; (c) the cut dry run over 8 groups, both
+    trackers; (d) the device-sim headline's first 2 slices over 8 groups
+    against one; (e) where two or more cards are visible, (a) and (d)
+    over real cards (the largest of 2, 4 and 8 that fits) with K1 and K2
+    launched on the last card while ``cuda:0`` is current; with one card
+    it prints that (e) did not run.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -285,10 +301,11 @@ failure.
 K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8 and 14-16 with their calibration rounds, 10-13,
 both runs of 19, the in-process runs of 20, 23 and 24, the device sim's
-four runs in 21 and the mesh runs of 22), each count read right after that
-path's run; K2's is the ``cfg4_wheel`` path's (its calibration
-included), phase 20's wheel runs', the device sim's wheel run's, the
-mesh wheel chunk's and phase 24's wheel gate's; the queue paths (17, 18), ``dmc_sim`` and the
+four runs in 21, the mesh runs of 22 and the grouped runs of 25), each
+count read right after that path's run; K2's is the ``cfg4_wheel``
+path's (its calibration included), phase 20's wheel runs', the device
+sim's wheel run's, the mesh wheel chunks' of 22 and 25 and phase 24's
+wheel gate's; the queue paths (17, 18), ``dmc_sim`` and the
 cluster runs of 22 add none, and the spawn children's launches are not counted
 (``LAUNCHES`` is per process). Each kernel's entry also carries
 ``launches_by_path``. Serve's and the rows' rates are printed both as
@@ -2862,23 +2879,36 @@ def chunk_numpy(out) -> dict:
     return host
 
 
-def mesh_chunk_run(device, job, shards: int, epochs: int, **cfg):
+def mesh_chunk_run(device, job, shards: int, epochs: int, devices=None,
+                   **cfg):
     """One mesh chunk of ``shards`` copies of ``job``'s preloaded state
     from epoch 0 with the mesh row's draws (``serve.mesh_start``,
-    ``serve.mesh_draws`` from PCG64(29)); returns the MeshChunk."""
+    ``serve.mesh_draws`` from PCG64(29)); returns the MeshChunk.
+    ``devices`` lays the shards out in device groups (``device`` is then
+    the first group's)."""
     from dmclock_tpu_torch import serve
     from dmclock_tpu_torch.parallel import mesh as TM
 
+    mesh = TM.make_mesh(shards, device) if devices is None \
+        else TM.make_mesh(shards, devices=devices)
     fn = TM.build_mesh_chunk(
-        TM.make_mesh(shards, device), engine=job.engine, epochs=epochs,
+        mesh, engine=job.engine, epochs=epochs,
         m=job.m, k=job.k, dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
         calendar_impl=job.calendar_impl, ladder_levels=job.ladder_levels,
         **cfg)
     rng = np.random.Generator(np.random.PCG64(serve.MESH_SEED))
-    state, cd, cr, vd, vr, slo = serve.mesh_start(job, shards, device)
-    return fn(state, cd, cr, vd, vr, 0,
-              serve.mesh_draws(rng, shards, job.n, epochs,
-                               job.arrival_lam, device), slo=slo)
+    state, cd, cr, vd, vr, slo = serve.mesh_start(job, shards, mesh.device,
+                                                  mesh)
+    return fn(state, cd, cr, vd, vr, 0, TM.place_shards(serve.mesh_draws(
+        rng, shards, job.n, epochs, job.arrival_lam, mesh.device), mesh),
+        slo=slo)
+
+
+def groups_gather(tree):
+    """A grouped tree (a MeshChunk's fields) as single stacks."""
+    from dmclock_tpu_torch.parallel import groups
+
+    return groups.gather(tree)
 
 
 def mesh_wheel_job():
@@ -2984,7 +3014,8 @@ def capacity_probe() -> dict:
 
 def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
     """Phase 22 (a)-(f) on the card; returns ``(K1 launches by path, K2
-    launches by path)``."""
+    launches by path, the stacked runs phase 25 holds its grouped ones
+    to)``."""
     from dmclock_tpu_torch import serve
     from dmclock_tpu_torch.engine import stream as tstream
     from dmclock_tpu_torch.obs import capacity as obscap
@@ -3154,7 +3185,8 @@ def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
         f"resyncs {outage['metrics']['tracker_resyncs']}: equal to the CPU "
         f"twin (digest, metrics, views, clocks)")
     log(f"[time] mesh phase {time.perf_counter() - t_phase:.3f} s")
-    return k1, k2
+    return k1, k2, dict(rows=rows, chaos=chaos, first=first, wheel=wheel,
+                        multichip=mc)
 
 
 # ----------------------------------------------------------------------
@@ -3219,8 +3251,9 @@ def _mesh_line(what: str, res, wall: float, launches) -> None:
 def phase_supervised_mesh(ext, card: str, tmp: str, twin_path: str,
                           twin_proc: subprocess.Popen):
     """Phase 23: the supervised mesh (``EpochJob(engine_loop="mesh")``)
-    at the mesh row's width.  Returns ``{path: K1 launches}`` over the
-    in-process runs (no K2: the prefix engine)."""
+    at the mesh row's width.  Returns ``({path: K1 launches}, the bare
+    supervised_mesh result)`` over the in-process runs (no K2: the
+    prefix engine)."""
     from dmclock_tpu_torch.lifecycle import make_spec
     from dmclock_tpu_torch.obs import device as obsdev
     from dmclock_tpu_torch.robust import faults as TF
@@ -3365,7 +3398,7 @@ def phase_supervised_mesh(ext, card: str, tmp: str, twin_path: str,
     check_supervised(cref, card, want["churn"], "supervised_mesh_churn")
     log(f"[time] supervised mesh phase {time.perf_counter() - t_phase:.3f}"
         f" s")
-    return by_path
+    return by_path, ref
 
 
 # ----------------------------------------------------------------------
@@ -3878,6 +3911,258 @@ def phase_control(ext, card: str, root: str, tmp: str):
     return by_k1, by_k2
 
 
+# ----------------------------------------------------------------------
+# phase 25: the mesh across devices
+# ----------------------------------------------------------------------
+
+# the layouts on one card: JAX's one shard a device (8 groups of one
+# shard) and 4 groups of two, each naming cuda:0 -- the grouped code, its
+# per-group stacks and its reductions between groups on one device
+GROUP_LAYOUTS = (MESH_SHARDS, 4)
+
+
+def _row_same(got: dict, want: dict, what: str) -> None:
+    """Two mesh rows on every key but the wall clocks and the plan's
+    layout keys (a group plans against its share of its device)."""
+    skip = {"dps", "dps_per_shard", "dps_per_shard_mean",
+            "dps_per_shard_min", "dps_per_shard_max", "wall_s",
+            "devices", "n_groups", "hbm_budget_bytes",
+            "max_clients_per_shard", "shards_planned"}
+    for key in want:
+        if key not in skip and got.get(key) != want[key]:
+            raise AssertionError(f"{what}: {key} {got.get(key)} vs the "
+                                 f"stacked row's {want[key]}")
+
+
+def _reduction_ms(n: int, devices) -> tuple:
+    """One epoch's counter sum (the delta/rho ``global_counters_from``
+    over the per-shard counters restacked by the layout, the reduction
+    within and between the groups) on the first group's device:
+    ``(ms a sum back to back between CUDA events, device ms of one sum
+    in a CUDA graph)``, 200 sums each."""
+    from dmclock_tpu_torch.parallel import mesh as TM
+    from dmclock_tpu_torch.parallel.tracker import global_counters_from
+
+    mesh = TM.make_mesh(MESH_SHARDS, devices=devices)
+    gen = torch.Generator().manual_seed(3)
+    cd, cr = (TM.place_shards(torch.randint(
+        0, 1 << 40, (MESH_SHARDS, n), generator=gen,
+        dtype=torch.int64).to(mesh.device), mesh) for _ in range(2))
+    cds = [TM.shard_view(cd, s) for s in range(MESH_SHARDS)]
+    crs = [TM.shard_view(cr, s) for s in range(MESH_SHARDS)]
+
+    def once():
+        return global_counters_from(TM.restack_shards(cds, mesh),
+                                    TM.restack_shards(crs, mesh))
+
+    with torch.cuda.device(mesh.device):
+        return host_paced_ms(once, 200), cuda_ms(once, 200, replays=1)
+
+
+def _ds_slices(devices, slices: int) -> dict:
+    """The device-sim headline's first ``slices`` slices (100,000
+    clients x 8 servers) on a layout, as host numpy."""
+    from dmclock_tpu_torch.parallel import cluster as CL
+    from dmclock_tpu_torch.sim import device_sim as DS
+
+    _cfg, sim, spec = DS.headline_setup(DS_N, device=devices[0])
+    mesh = CL.make_mesh(spec.n_servers, devices=devices)
+    sim = DS.device_sim_step(sim, spec, slices, mesh=mesh)
+    return DS.device_sim_to_numpy(sim)
+
+
+def _same_tree_np(a: dict, b: dict, what: str, path: str = "") -> None:
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: fields differ at {path}")
+    for k in a:
+        if isinstance(a[k], dict):
+            _same_tree_np(a[k], b[k], what, f"{path}.{k}")
+        elif a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {path}.{k} differs")
+
+
+def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
+                      stacked: dict, sup_ref):
+    """Phase 25: the mesh across devices.  Every grouped leg is held bit
+    for bit against its stacked one-group twin in this run (phases 22
+    and 23 made most of them): (a) bench's mesh row over 8 and 4 groups
+    of ``cuda:0`` at K=1, K=4 and under the fault plan, the first chunk
+    field by field, the wheel chunk; (b) the supervised mesh over 8
+    groups, bare and SIGKILLed at half then resumed on one group; (c)
+    the cut dry run over 8 groups; (d) 2 device-sim headline slices on 8
+    groups and on 1; (e) on two or more cards, (a) and (d) over real
+    cards with K1 and K2 on the last one.  Returns ``(K1 by path, K2 by
+    path)``."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs.registry import MetricsRegistry
+    from dmclock_tpu_torch.robust import faults as TF
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    t_phase = time.perf_counter()
+    k1, k2 = {}, {}
+    c = serve.MESH
+    n_shard = c["clients"] // MESH_SHARDS
+    epochs_run = (c["warmup_epochs"] // c["chunk"]
+                  + c["epochs"] // c["chunk"]) * c["chunk"]
+    spec = TF.parse_fault_spec(MESH_FAULT_SPEC)
+
+    def counted(path, fn, want_k1, want_k2=0):
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        secs = time.perf_counter() - t0
+        got = dict(ext.LAUNCHES)
+        if want_k1 is not None and got != {"ring_window": want_k1,
+                                           "wheel_scan": want_k2}:
+            raise AssertionError(f"{path} launched {got}, want K1 "
+                                 f"{want_k1}, K2 {want_k2}")
+        k1[path], k2[path] = got["ring_window"], got["wheel_scan"]
+        log(f"[{path}] {secs:.3f} s; kernel launches {got}")
+        return res
+
+    def rows_over(devices, tag):
+        legs = (("", dict(counter_sync_every=1), stacked["rows"][1]),
+                ("_k4", dict(counter_sync_every=4), stacked["rows"][4]),
+                ("_chaos", dict(fault_spec=spec), stacked["chaos"]))
+        for suffix, kw, want in legs:
+            path = f"mesh_{tag}{suffix}"
+            row = counted(path, lambda: serve.mesh_row(
+                c["clients"], n_shards=MESH_SHARDS, devices=devices,
+                registry=MetricsRegistry(), **kw),
+                MESH_SHARDS * epochs_run)
+            _row_same(row, want, path)
+            log(f"[{path}] bench's mesh row over {row['n_groups']} groups "
+                f"({', '.join(row['devices'])}) on {card}: "
+                f"{_row_line(row)}; stacked {want['dps']:.1f} decisions/s "
+                f"in this run ({row['dps'] / want['dps']:.4f}x); every "
+                f"other key equal to the stacked row's")
+
+    # (a) the mesh row over groups on one card
+    for d in GROUP_LAYOUTS:
+        rows_over(("cuda:0",) * d, f"groups{d}")
+    first = counted("mesh_groups_first", lambda: chunk_numpy(
+        groups_gather(mesh_chunk_run(
+            None, serve.mesh_job(n_shard), MESH_SHARDS, c["chunk"],
+            devices=("cuda:0",) * MESH_SHARDS))),
+        MESH_SHARDS * c["chunk"])
+    _same_numpy(first, stacked["first"], "mesh_groups_first")
+    w = MESH_WHEEL
+    per = w["shards"] * w["epochs"] * w["m"]
+    wheel = counted("mesh_groups_wheel", lambda: chunk_numpy(groups_gather(
+        mesh_chunk_run(None, mesh_wheel_job(), w["shards"], w["epochs"],
+                       devices=("cuda:0",) * w["shards"]))),
+        per * w["levels"], per * (w["levels"] + 1))
+    _same_numpy(wheel, stacked["wheel"], "mesh_groups_wheel")
+    red = {d: _reduction_ms(n_shard, ("cuda:0",) * d)
+           for d in (1,) + GROUP_LAYOUTS}
+    log(f"[mesh_groups] the first chunk over {MESH_SHARDS} groups and the "
+        f"wheel chunk over {w['shards']} equal their stacked twins field "
+        f"by field; one epoch's counter sum over {n_shard} clients a shard"
+        f" on {card} (CUDA events, 200 sums): "
+        + ", ".join(f"{d} group{'s' if d > 1 else ''} {ms[0]:.6f} ms "
+                    f"back to back ({ms[1]:.6f} ms device time)"
+                    for d, ms in red.items()))
+
+    # (b) the supervised mesh over 8 groups, killed and resumed on one
+    groups8 = tuple(["cuda:0"] * MESH_SHARDS)
+    job8 = TS.EpochJob(**dict(SUP_MESH, devices=groups8))
+    res8, l8, wall8 = _sup_run(ext, "supervised_mesh_groups8",
+                               lambda: TS.run_job(job8, device="cuda"))
+    k1["supervised_mesh_groups8"] = l8["ring_window"]
+    TS.assert_crash_equivalent(res8, sup_ref)
+    wd = os.path.join(tmp, "groups_kill")
+    os.makedirs(wd)
+    t0 = time.perf_counter()
+    try:
+        TS.run_supervised(job8, wd, TH.HostFaultPlan(
+            kill_at_decisions=(sup_ref.decisions // 2,)), mode="spawn",
+            max_restarts=0, device="cuda")
+        raise AssertionError("supervised_mesh_groups_kill: no kill")
+    except TS.SupervisorGaveUp:
+        pass
+    killed_s = time.perf_counter() - t0
+    job1 = TS.EpochJob(**dict(SUP_MESH, devices=("cuda:0",)))
+    res1, l1, wall1 = _sup_run(
+        ext, "supervised_mesh_groups_resumed",
+        lambda: TS.run_supervised(job1, wd, device="cuda"))
+    k1["supervised_mesh_groups_resumed"] = l1["ring_window"]
+    TS.assert_crash_equivalent(res1, sup_ref)
+    if res1.resumed_from is None:
+        raise AssertionError("supervised_mesh_groups_resumed: no resume")
+    shutil.rmtree(wd)
+    log(f"[supervised_mesh_groups] {SUP_MESH['n_shards']} x "
+        f"{SUP_MESH['n']} over {MESH_SHARDS} groups on {card}: wall "
+        f"{wall8:.3f} s, crash-equivalent to the stacked bare run; a spawn"
+        f" child SIGKILLed at half ({killed_s:.3f} s), resumed on one group"
+        f" from {os.path.basename(res1.resumed_from)} in process ({wall1:.3f}"
+        f" s): crash-equivalent")
+
+    # (c) the cut dry run over 8 groups
+    mc = counted("multichip_groups8", lambda: serve.multichip_row(
+        **MULTICHIP_CUT, devices=groups8), 0)
+    for a, b in zip(mc["policies"], stacked["multichip"]["policies"]):
+        if a != b:
+            raise AssertionError(f"multichip_groups8 {a['tracker']}: "
+                                 f"{a} != {b}")
+    log(f"[multichip_groups8] the cut dry run over {MESH_SHARDS} groups: "
+        f"both trackers equal the stacked run (digests "
+        f"{[p['digest'][:16] for p in mc['policies']]})")
+
+    # (d) the device-sim headline's first slices on 8 groups and on 1
+    one = _ds_slices(("cuda:0",), DS_TWIN_SLICES)
+    ds8 = counted("device_sim_groups8", lambda: _ds_slices(
+        groups8, DS_TWIN_SLICES), None)
+    _same_tree_np(ds8, one, "device_sim_groups8")
+    log(f"[device_sim_groups8] {DS_N} clients x 8 servers, "
+        f"{DS_TWIN_SLICES} slices over 8 groups equal one group's on "
+        f"every field ({int(one['served_resv'].sum() + one['served_prop'].sum())}"
+        f" served)")
+
+    # (e) real cards
+    count = torch.cuda.device_count()
+    d_real = max(d for d in (1, 2, 4, 8) if d <= min(count, 8))
+    if d_real < 2:
+        log(f"[mesh_cards] not run: {count} CUDA device visible; the mesh "
+            f"over real cards needs two or more (the legs above ran the "
+            f"same grouped code over cuda:0)")
+    else:
+        cards = tuple(f"cuda:{i}" for i in range(d_real))
+        rows_over(cards, f"cards{d_real}")
+        dsc = counted(f"device_sim_cards{d_real}", lambda: _ds_slices(
+            cards, DS_TWIN_SLICES), None)
+        _same_tree_np(dsc, one, f"device_sim_cards{d_real}")
+        last = torch.device("cuda", count - 1)
+        with torch.cuda.device(0):
+            ring = torch.randint(-(1 << 50), 1 << 50, (n_shard, 16),
+                                 dtype=torch.int64).to(last)
+            q0 = torch.randint(0, 16, (n_shard,),
+                               dtype=torch.int32).to(last)
+            ga, _gc = fp.ring_window_rows(ring, ring, q0, 4)
+            keys = torch.randint(-(1 << 60), 1 << 60, (n_shard,),
+                                 dtype=torch.int64).to(last)
+            slot = torch.randint(0, 769, (n_shard,),
+                                 dtype=torch.int32).to(last)
+            got = kernels.wheel_scan(keys, slot, 768)
+            torch.cuda.synchronize(last)
+        if not torch.equal(ga, fp._ring_window_torch(ring, q0, 4)) or \
+                any(not torch.equal(a, b) for a, b in zip(
+                    got, kernels._wheel_scan_torch(keys, slot, 768))):
+            raise AssertionError(f"K1/K2 on {last} differ from the plain "
+                                 "versions")
+        log(f"[mesh_cards] {d_real} cards: the mesh row and the device "
+            f"sim over {', '.join(cards)} equal the stacked runs; K1 and "
+            f"K2 launched on {last} with cuda:0 current equal their plain "
+            f"versions")
+    log(f"[time] mesh across devices phase "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return {p: n for p, n in k1.items() if n}, \
+        {p: n for p, n in k2.items() if n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3986,7 +4271,8 @@ def main() -> int:
             t_mesh = time.perf_counter()
             mesh_out = os.path.join(tmp, "mesh_twins.pt")
             mesh_twin = start_mesh_twins(root, mesh_out)
-            mesh_k1, mesh_k2 = phase_mesh(_ext, card, mesh_out, mesh_twin)
+            mesh_k1, mesh_k2, mesh_stacked = phase_mesh(
+                _ext, card, mesh_out, mesh_twin)
             # phase 23: the supervised mesh; its CPU twins start first
             t_sup_mesh = time.perf_counter()
             sm_out = os.path.join(tmp, "sup_mesh_twins.pt")
@@ -3994,7 +4280,7 @@ def main() -> int:
             err = os.path.join(tmp, "supervised_mesh.err")
             try:
                 with _stderr_to(err):
-                    sup_mesh_k1 = phase_supervised_mesh(
+                    sup_mesh_k1, sup_mesh_ref = phase_supervised_mesh(
                         _ext, card, tmp, sm_out, sup_mesh_twin)
             except BaseException:
                 with open(err, errors="replace") as f:
@@ -4006,6 +4292,19 @@ def main() -> int:
             try:
                 with _stderr_to(err):
                     ctl_k1, ctl_k2 = phase_control(_ext, card, root, tmp)
+            except BaseException:
+                with open(err, errors="replace") as f:
+                    sys.stderr.write(f.read()[-6000:])
+                raise
+            # phase 25: the mesh across devices, held to the stacked
+            # runs of phases 22 and 23
+            t_groups = time.perf_counter()
+            err = os.path.join(tmp, "groups.err")
+            try:
+                with _stderr_to(err):
+                    grp_k1, grp_k2 = phase_mesh_groups(
+                        _ext, fastpath, kernels, card, tmp, mesh_stacked,
+                        sup_mesh_ref)
             except BaseException:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
@@ -4029,7 +4328,8 @@ def main() -> int:
         f"{t_mesh - t_sims:.3f} s, the mesh phase "
         f"{t_sup_mesh - t_mesh:.3f} s, the supervised mesh phase "
         f"{t_control - t_sup_mesh:.3f} s, the control and network phase "
-        f"{t_end - t_control:.3f} s; the whole script "
+        f"{t_groups - t_control:.3f} s, the mesh across devices "
+        f"{t_end - t_groups:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -4043,7 +4343,7 @@ def main() -> int:
                    **sup_k1, **{p: n["ring_window"]
                                 for p, n in ds_by_path.items()},
                    **{p: n for p, n in mesh_k1.items() if n},
-                   **sup_mesh_k1, **ctl_k1)
+                   **sup_mesh_k1, **ctl_k1, **grp_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     # minstop, cfg3, the stream chunks, the queue and churn, and the
@@ -4051,7 +4351,8 @@ def main() -> int:
     k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2,
                     device_sim_wheel=ds_by_path["device_sim_wheel"][
                         "wheel_scan"],
-                    **{p: n for p, n in mesh_k2.items() if n}, **ctl_k2)
+                    **{p: n for p, n in mesh_k2.items() if n}, **ctl_k2,
+                    **grp_k2)
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import groups as _groups
 
 # -- indices (meanings in dmclock_tpu/obs/device.py) ------------------
 MET_DECISIONS = 0
@@ -136,12 +137,14 @@ def metrics_combine_axis(mat: torch.Tensor) -> torch.Tensor:
                        mat.sum(dim=0))
 
 
-def metrics_mesh_reduce(mat: torch.Tensor) -> torch.Tensor:
+def metrics_mesh_reduce(mat) -> torch.Tensor:
     """The JAX package's mesh merge of per-shard metric vectors (counter
     rows ``psum``, high-water rows ``pmax`` over the servers axis).  On
-    one card the shards are the leading axis of one stacked tensor, so
-    the collective is :func:`metrics_combine_axis` over it."""
-    return metrics_combine_axis(mat)
+    one device the shards are the leading axis of one stacked tensor, so
+    the collective is :func:`metrics_combine_axis` over it; a grouped
+    matrix (``parallel.groups``) reduces each group on its device and
+    merges the partials on the first group's device."""
+    return _groups.reduce(mat, metrics_combine_axis, metrics_combine)
 
 
 def admission_clamp(counts: torch.Tensor, headroom: torch.Tensor):

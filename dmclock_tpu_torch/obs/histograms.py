@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import groups as _groups
 
 # -- histogram families ------------------------------------------------
 HIST_DECISION_LATENCY = 0   # weight-phase entry: now - effective prop tag
@@ -138,11 +139,12 @@ def hist_fold(h, delta, live):
     return h + torch.where(live, delta, 0)
 
 
-def hist_mesh_reduce(h: torch.Tensor) -> torch.Tensor:
+def hist_mesh_reduce(h) -> torch.Tensor:
     """The JAX package's mesh merge of per-shard histogram blocks (one
     ``psum``: every cell is a counter), over the leading shard axis of
-    a stacked ``[S, NUM_HISTS, NUM_BUCKETS + 1]`` block."""
-    return h.sum(dim=0)
+    a stacked ``[S, NUM_HISTS, NUM_BUCKETS + 1]`` block, or of a
+    grouped one (the sum on the first group's device)."""
+    return _groups.reduce(h, lambda a: a.sum(dim=0), hist_combine)
 
 
 def hist_dict(h) -> dict:
@@ -258,14 +260,18 @@ def ledger_fold(led, delta, live):
     return ledger_combine(led, delta)
 
 
-def ledger_mesh_reduce(led: torch.Tensor) -> torch.Tensor:
+def ledger_mesh_reduce(led) -> torch.Tensor:
     """The JAX package's mesh merge for replicated client sets (every
     shard holds rows for the same ``[N]`` clients): counter columns
     ``psum``, the max column ``pmax``, over the leading shard axis of a
-    stacked ``[S, N, LED_COLS]`` ledger.  Sharded-client layouts
-    concatenate instead."""
-    mask = col_mask(LED_COLS, (LED_TARD_MAX,), led.device)
-    return torch.where(mask, led.max(dim=0).values, led.sum(dim=0))
+    stacked ``[S, N, LED_COLS]`` ledger, or of a grouped one (merged on
+    the first group's device).  Sharded-client layouts concatenate
+    instead."""
+    def axis(a):
+        mask = col_mask(LED_COLS, (LED_TARD_MAX,), a.device)
+        return torch.where(mask, a.max(dim=0).values, a.sum(dim=0))
+
+    return _groups.reduce(led, axis, ledger_combine)
 
 
 def ledger_combine_np(acc, *ledgers):

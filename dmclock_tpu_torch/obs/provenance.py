@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import groups as _groups
 from . import histograms as obshist
 
 # -- scalar rows -------------------------------------------------------
@@ -141,16 +142,20 @@ def prov_combine(a: ProvBlock, b: ProvBlock) -> ProvBlock:
                                                b.last_served))
 
 
-def prov_mesh_reduce(p: ProvBlock) -> ProvBlock:
+def prov_mesh_reduce(p) -> ProvBlock:
     """The JAX package's mesh merge for replicated client sets over a
-    stacked block (every leaf with a leading shard axis): histogram and
-    counter rows sum, ``*_MAX`` rows and ``last_served`` max."""
-    mask = obshist.col_mask(PS_FIELDS, _PS_MAX_ROWS, p.scal.device)
-    return ProvBlock(
-        margin_hist=p.margin_hist.sum(dim=0),
-        scal=torch.where(mask, p.scal.max(dim=0).values,
-                         p.scal.sum(dim=0)),
-        last_served=p.last_served.max(dim=0).values)
+    stacked block (every leaf with a leading shard axis), or a grouped
+    one (merged on the first group's device): histogram and counter
+    rows sum, ``*_MAX`` rows and ``last_served`` max."""
+    def axis(b):
+        mask = obshist.col_mask(PS_FIELDS, _PS_MAX_ROWS, b.scal.device)
+        return ProvBlock(
+            margin_hist=b.margin_hist.sum(dim=0),
+            scal=torch.where(mask, b.scal.max(dim=0).values,
+                             b.scal.sum(dim=0)),
+            last_served=b.last_served.max(dim=0).values)
+
+    return _groups.reduce(p, axis, prov_combine)
 
 
 def prov_from_arrays(margin_hist, scal, last_served, *,
@@ -345,11 +350,17 @@ def pressure_combine_axis(mat: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, mat.max(dim=0).values, mat.sum(dim=0))
 
 
-def pressure_mesh_reduce(mat: torch.Tensor) -> torch.Tensor:
+def _pressure_combine(a, b):
+    mask = obshist.col_mask(PRESS_FIELDS, _PRESS_MAX_ROWS, a.device)
+    return torch.where(mask, torch.maximum(a, b), a + b)
+
+
+def pressure_mesh_reduce(mat) -> torch.Tensor:
     """The JAX package's mesh merge of per-shard pressure vectors
-    (counters ``psum``, peaks ``pmax``): on one card,
-    :func:`pressure_combine_axis` over the stacked shards."""
-    return pressure_combine_axis(mat)
+    (counters ``psum``, peaks ``pmax``): on one device,
+    :func:`pressure_combine_axis` over the stacked shards; a grouped
+    matrix merges its groups' partials on the first group's device."""
+    return _groups.reduce(mat, pressure_combine_axis, _pressure_combine)
 
 
 def pressure_dict(vec) -> dict:

@@ -34,6 +34,7 @@ import torch
 
 from ..core.timebase import NS_PER_SEC
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import groups as _groups
 from .histograms import _np64, col_mask
 
 # -- window block columns ----------------------------------------------
@@ -95,12 +96,14 @@ def window_combine_axis(mat: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, mat.max(dim=0).values, mat.sum(dim=0))
 
 
-def window_mesh_reduce(mat: torch.Tensor) -> torch.Tensor:
+def window_mesh_reduce(mat) -> torch.Tensor:
     """The JAX package's mesh merge of per-shard window blocks (counter
     columns ``psum``, the contract-epoch column ``pmax``; every shard
-    stamps the same epochs).  On one card the shards are the leading
-    axis of one stacked block, so it is :func:`window_combine_axis`."""
-    return window_combine_axis(mat)
+    stamps the same epochs).  On one device the shards are the leading
+    axis of one stacked block, so it is :func:`window_combine_axis`; a
+    grouped block merges its groups' partials on the first group's
+    device."""
+    return _groups.reduce(mat, window_combine_axis, window_combine)
 
 
 def window_combine_np(acc, *blocks):

@@ -1,4 +1,4 @@
-"""Distributed (multi-server) dmClock on one card.
+"""Distributed (multi-server) dmClock, on one card or across devices.
 
 The reference's entire inter-node mechanism is four piggybacked scalars:
 ``ReqParams{delta, rho}`` client->server and the phase + cost back
@@ -9,7 +9,9 @@ contract on tensors: per-(server, client) counters on a leading server
 axis, the global counters a sum over it (the JAX package's ``psum`` over
 its mesh).  ``parallel.cluster`` is the multi-server cluster on the
 serial engine and ``parallel.mesh`` the mesh serving plane's fused
-chunk, both with the servers stacked on one card.
+chunk, both with the servers stacked on one device or, laid out by
+``parallel.groups``, in contiguous groups stacked on several devices
+(the JAX package's single controller over a mesh of devices).
 """
 
 from .tracker import (BorrowTrackerState, TrackerState,

@@ -7,7 +7,7 @@ sit beside it in an ``[S, C]`` tracker, and one :func:`cluster_step`
 advances every server by ``k`` serial-engine decisions.  The dmClock
 wire protocol's global counters are the sum of the per-server counters
 over the server axis (``parallel.tracker.server_sum``): the JAX
-package's ``psum`` over its ``servers`` mesh axis, on one card.
+package's ``psum`` over its ``servers`` mesh axis.
 
 Where the JAX step ``vmap``s over the servers of a ``shard_map``, the
 port loops over ``s`` on contiguous views ``x[s]`` of the stacked
@@ -17,23 +17,30 @@ counters as they stood at the round's entry -- the values the JAX
 package's ``psum`` reads.
 
 :func:`make_mesh` returns a :class:`MeshLayout` (the shard count and
-the card), not a process group: one card holds every shard.  The JAX
-package's jit caches (``mesh_cache_key``, ``mesh_step_jit``,
-``jit_mesh_rounds``) have no counterpart: nothing is compiled per
-shape.
+the devices of its groups), not a process group.  With one device the
+stack lies whole on it; with D devices the shards go in D contiguous
+blocks, each stacked on its own device (``parallel.groups``), and the
+counter sum reduces within each group and then between the groups, as
+the JAX package's ``shard_map`` over a ``servers`` mesh of devices
+does.  The JAX package's jit caches (:func:`mesh_cache_key`,
+:func:`mesh_step_jit`, :func:`jit_mesh_rounds`) keep their names and
+cost nothing to build: nothing is compiled per shape.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device, resolve_devices
 from ..engine import kernels
 from ..engine.state import EngineState, init_state
 from ..obs import device as obsdev
+from . import groups
+from .groups import Grouped, stack_trees, tree_map  # noqa: F401
 from .tracker import (BorrowTrackerState,
                       borrow_tracker_prepare, borrow_tracker_track,
                       global_counters, global_counters_from,
@@ -44,11 +51,22 @@ SERVER_AXIS = "servers"
 
 
 class MeshLayout(NamedTuple):
-    """Where a cluster's shards live: ``n_shards`` servers stacked on a
-    leading axis, all on ``device``."""
+    """Where a cluster's shards live: ``n_shards`` servers in
+    ``len(devices)`` contiguous groups, group ``g`` stacked on
+    ``devices[g]``; ``device`` is ``devices[0]``."""
 
     n_shards: int
     device: torch.device
+    devices: tuple
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.devices)
+
+    @property
+    def grouped(self) -> bool:
+        """More than one group (a repeated device counts)."""
+        return len(self.devices) > 1
 
 
 class ClusterState(NamedTuple):
@@ -59,54 +77,61 @@ class ClusterState(NamedTuple):
     now: torch.Tensor         # int64[S] per-server virtual clock
 
 
-def make_mesh(n_shards: int = 1, device: str | torch.device =
-              DEFAULT_DEVICE) -> MeshLayout:
-    """The layout of an ``n_shards``-server cluster on one card."""
-    if int(n_shards) < 1:
+def make_mesh(n_shards: int = 1,
+              device: Optional[str | torch.device] = None,
+              devices: Optional[Sequence] = None) -> MeshLayout:
+    """The layout of an ``n_shards``-server cluster.
+
+    ``devices`` lays the shards out in ``len(devices)`` contiguous
+    groups, shard ``s`` on ``devices[s // (S // D)]``; ``S % D`` must be
+    0 unless there is one device, which takes any ``n_shards``.  A
+    device may repeat (several groups on one device).  ``device`` alone
+    is the one-group layout on it.  With neither, every visible CUDA
+    device by index (``cuda:0`` .. ``cuda:{D-1}``); that raises where
+    there is no CUDA device."""
+    n_shards = int(n_shards)
+    if n_shards < 1:
         raise ValueError(f"a mesh needs at least one shard, got "
                          f"{n_shards}")
-    return MeshLayout(int(n_shards), resolve_device(device))
+    if devices is None:
+        devs = (resolve_device(device),) if device is not None \
+            else resolve_devices(None)
+    else:
+        if device is not None:
+            raise ValueError("make_mesh takes device= or devices=, not "
+                             "both")
+        devs = resolve_devices(devices)
+    if len(devs) > 1:
+        groups.check_split(n_shards, len(devs))
+    return MeshLayout(n_shards, devs[0], devs)
 
 
 # ----------------------------------------------------------------------
 # stacked-tree helpers (NamedTuples of tensors, None leaves kept)
 # ----------------------------------------------------------------------
 
-def tree_map(fn, tree, *rest):
-    """``fn`` over the tensor leaves of a NamedTuple/tuple/dict tree
-    (and parallel trees of the same structure); None stays None."""
-    if tree is None:
-        return None
-    if torch.is_tensor(tree):
-        return fn(tree, *rest)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        items = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
-        return type(tree)(*items) if hasattr(tree, "_fields") \
-            else tuple(items)
-    raise TypeError(f"not a tensor tree leaf: {type(tree)!r}")
-
-
 def shard_view(tree, s: int):
-    """Shard ``s`` of a stacked tree: leading-index views (contiguous
-    for a contiguous stack)."""
-    return tree_map(lambda a: a[s], tree)
+    """Shard ``s`` of a stacked or grouped tree: leading-index views on
+    the shard's device (contiguous for a contiguous stack)."""
+    return groups.view(tree, s)
 
 
-def stack_trees(trees: list):
-    """Stack per-shard trees on a new leading axis (None stays None)."""
-    first = trees[0]
-    if first is None:
-        return None
-    if torch.is_tensor(first):
-        return torch.stack(trees)
-    if isinstance(first, dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in first}
-    items = [stack_trees(list(col)) for col in zip(*trees)]
-    return type(first)(*items) if hasattr(first, "_fields") \
-        else tuple(items)
+def place_shards(tree, mesh: MeshLayout):
+    """A stacked ``[S, ...]`` tree laid out on ``mesh``: the stack on
+    its one device, or one stack a group on each group's device."""
+    return groups.place(tree, mesh.devices)
+
+
+def gather_shards(tree, device=None):
+    """A grouped tree back as one ``[S, ...]`` stack on ``device``
+    (default the first group's device; ``"cpu"`` for the host)."""
+    return groups.gather(tree, device)
+
+
+def restack_shards(per_shard: list, mesh: MeshLayout):
+    """Per-shard trees, each on its group's device, stacked by
+    ``mesh``'s layout."""
+    return groups.restack(per_shard, mesh.devices)
 
 
 def broadcast_tree(tree, n: int):
@@ -116,9 +141,11 @@ def broadcast_tree(tree, n: int):
         (n,) + tuple(a.shape)).contiguous(), tree)
 
 
-def decisions_to_numpy(decs: kernels.Decision) -> kernels.Decision:
-    """A Decision of tensors as a Decision of host numpy arrays."""
-    return kernels.Decision(*(x.detach().cpu().numpy() for x in decs))
+def decisions_to_numpy(decs) -> kernels.Decision:
+    """A Decision of tensors (stacked or grouped) as a Decision of host
+    numpy arrays."""
+    return kernels.Decision(*(x.detach().cpu().numpy()
+                              for x in groups.gather(decs, "cpu")))
 
 
 # ----------------------------------------------------------------------
@@ -147,12 +174,14 @@ def init_cluster(n_servers: int, n_clients: int, ring_capacity: int = 64,
 
 
 def shard_cluster(cluster: ClusterState, mesh: MeshLayout) -> ClusterState:
-    """Place every leaf on the mesh's card (the JAX package splits the
-    leading axis over its devices; here one card holds the stack)."""
-    if cluster.now.shape[0] != mesh.n_shards:
-        raise ValueError(f"{cluster.now.shape[0]} servers on a "
+    """Lay every leaf out on the mesh: the leading server axis split
+    over its groups (the JAX package's ``NamedSharding(mesh,
+    P(SERVER_AXIS))``), or the whole stack on its one device.  Returns
+    a ClusterState whose leaves are grouped on a multi-group mesh."""
+    if groups.leading(cluster.now) != mesh.n_shards:
+        raise ValueError(f"{groups.leading(cluster.now)} servers on a "
                          f"{mesh.n_shards}-shard mesh")
-    return tree_map(lambda a: a.to(mesh.device), cluster)
+    return ClusterState(*(place_shards(x, mesh) for x in cluster))
 
 
 def device_tensor(x, dtype, dev) -> torch.Tensor:
@@ -168,7 +197,10 @@ def install_clients(cluster: ClusterState, resv_inv, weight_inv,
     inverses are ``[C]`` int64).  Creation order = client index, the
     cross-backend tie-break.  ``active_mask`` bool ``[C]`` restricts the
     initial population (the rest join later through
-    :func:`create_clients`); default: all C slots."""
+    :func:`create_clients`); default: all C slots.  A grouped cluster
+    keeps its layout."""
+    devs = groups.group_devices(cluster.now)
+    cluster = gather_shards(cluster)
     dev = cluster.now.device
     n_servers = cluster.now.shape[0]
     c = int(np.shape(resv_inv)[0])
@@ -185,7 +217,37 @@ def install_clients(cluster: ClusterState, resv_inv, weight_inv,
         resv_inv=bcast(resv_inv, torch.int64),
         weight_inv=bcast(weight_inv, torch.int64),
         limit_inv=bcast(limit_inv, torch.int64))
-    return cluster._replace(engine=eng)
+    return place_fields(cluster._replace(engine=eng), devs)
+
+
+def place_fields(cluster, devs):
+    """Every field of a stacked ClusterState-like container (a
+    RobustClusterState too) laid out over ``devs``, each its own grouped
+    tree; unchanged on one device."""
+    if len(devs) == 1:
+        return cluster
+    return type(cluster)(*(place_fields(x, devs)
+                           if isinstance(x, ClusterState)
+                           else groups.place(x, devs) for x in cluster))
+
+
+def on_mesh(tree, mesh: MeshLayout):
+    """``tree`` in ``mesh``'s layout: placed when either is grouped (a
+    ClusterState field by field), as it is otherwise (the one-device
+    path moves nothing)."""
+    if tree is None:
+        return None
+    if mesh.grouped and isinstance(tree, ClusterState):
+        return place_fields(tree, mesh.devices)
+    if mesh.grouped or isinstance(groups.first_node(tree), Grouped):
+        return groups.place(tree, mesh.devices)
+    return tree
+
+
+def shard_inputs(x, dtype, mesh: MeshLayout):
+    """A host or device ``[S, ...]`` input as a ``dtype`` stack laid out
+    on ``mesh`` (each shard's rows on its group's device)."""
+    return on_mesh(device_tensor(x, dtype, mesh.device), mesh)
 
 
 # ----------------------------------------------------------------------
@@ -269,32 +331,38 @@ def cluster_step(cluster: ClusterState, arrivals, cost,
     same with either flag on or off."""
     from ..obs import provenance as obsprov
 
-    n = cluster.now.shape[0]
+    n = groups.leading(cluster.now)
     if n != mesh.n_shards:
         raise ValueError(f"{n} servers on a {mesh.n_shards}-shard mesh")
-    dev = cluster.now.device
-    cost = device_tensor(cost, torch.int64, dev)
-    arrivals = device_tensor(arrivals, torch.int32, dev)
-    now0 = cluster.now + int(advance_ns)
+    devs = mesh.devices
+    owner = groups.group_of(n, len(devs))
+    cluster = on_mesh(cluster, mesh)
+    cost = groups.replicate(device_tensor(cost, torch.int64, devs[0]),
+                            devs)
+    arrivals = shard_inputs(arrivals, torch.int32, mesh)
+    now0 = tree_map(lambda a: a + int(advance_ns), cluster.now)
     # the round's counter sum, before any server runs (the psum)
     g_d, g_r = global_counters(cluster.tracker)
     outs = [server_round(
         shard_view(cluster.engine, s), shard_view(cluster.tracker, s),
-        now0[s], arrivals[s], cost, g_d, g_r,
+        shard_view(now0, s), shard_view(arrivals, s),
+        groups.pick(cost, owner[s]), groups.pick(g_d, owner[s]),
+        groups.pick(g_r, owner[s]),
         decisions_per_step=decisions_per_step,
         anticipation_ns=anticipation_ns,
         allow_limit_break=allow_limit_break, max_arrivals=max_arrivals,
         with_metrics=with_metrics) for s in range(n)]
-    engine, tracker, now, decs = (stack_trees([o[i] for o in outs])
+    engine, tracker, now, decs = (restack_shards([o[i] for o in outs],
+                                                 mesh)
                                   for i in range(4))
     res = (ClusterState(engine=engine, tracker=tracker, now=now), decs)
     if with_metrics:
-        met = torch.stack([o[4] for o in outs])
+        met = restack_shards([o[4] for o in outs], mesh)
         res = res + (met, obsdev.metrics_mesh_reduce(met))
     if with_pressure:
-        press = torch.stack([obsprov.pressure_vec(shard_view(engine, s),
-                                                  now[s])
-                             for s in range(n)])
+        press = restack_shards([obsprov.pressure_vec(
+            shard_view(engine, s), shard_view(now, s)) for s in range(n)],
+            mesh)
         res = res + (press, obsprov.pressure_mesh_reduce(press))
     return res
 
@@ -312,7 +380,7 @@ def run_cluster_rounds(cluster: ClusterState, arrivals_seq, cost,
     from ..obs import spans as _spans
 
     arrivals_seq = np.asarray(arrivals_seq)
-    n_servers = cluster.now.shape[0]
+    n_servers = groups.leading(cluster.now)
     decs_seq = []
     for t in range(arrivals_seq.shape[0]):
         with _spans.span(tracer, "cluster.round", "dispatch",
@@ -412,12 +480,16 @@ def run_mesh_rounds(cluster: ClusterState, arrivals_seq, cost,
     round's entry."""
     from ..obs import provenance as obsprov
 
-    dev = cluster.now.device
+    devs = mesh.devices
+    dev = devs[0]
     arrivals_seq = device_tensor(arrivals_seq, torch.int32, dev)
     epochs = int(arrivals_seq.shape[0])
-    n_servers = cluster.now.shape[0]
+    n_servers = groups.leading(cluster.now)
     n_clients = arrivals_seq.shape[2]
-    cost = device_tensor(cost, torch.int64, dev)
+    owner = groups.group_of(n_servers, len(devs))
+    # [S, E, C]: each shard's rounds on its group's device
+    arrivals_s = on_mesh(arrivals_seq.transpose(0, 1), mesh)
+    cost = groups.replicate(device_tensor(cost, torch.int64, dev), devs)
     sync_mask = round_sync_mask(epochs, counter_sync_every, round0)
     if view_delta is None or view_rho is None:
         view_delta, view_rho = init_mesh_views(n_servers, n_clients,
@@ -425,43 +497,46 @@ def run_mesh_rounds(cluster: ClusterState, arrivals_seq, cost,
     if metrics is None:
         metrics = torch.zeros((n_servers, obsdev.NUM_METRICS),
                               dtype=torch.int64, device=dev)
+    cluster, view_delta, view_rho, metrics = (
+        on_mesh(x, mesh) for x in (cluster, view_delta, view_rho, metrics))
     eng = [shard_view(cluster.engine, s) for s in range(n_servers)]
     trk = [shard_view(cluster.tracker, s) for s in range(n_servers)]
-    now = [cluster.now[s] for s in range(n_servers)]
-    vd = [view_delta[s] for s in range(n_servers)]
-    vr = [view_rho[s] for s in range(n_servers)]
-    met = [metrics[s] for s in range(n_servers)]
+    now = [shard_view(cluster.now, s) for s in range(n_servers)]
+    vd = [shard_view(view_delta, s) for s in range(n_servers)]
+    vr = [shard_view(view_rho, s) for s in range(n_servers)]
+    met = [shard_view(metrics, s) for s in range(n_servers)]
+    arr = [shard_view(arrivals_s, s) for s in range(n_servers)]
     decs = [[] for _ in range(n_servers)]
     for t in range(epochs):
         g_d, g_r = global_counters_from(
-            torch.stack([x.completed_delta for x in trk]),
-            torch.stack([x.completed_rho for x in trk]))
+            restack_shards([x.completed_delta for x in trk], mesh),
+            restack_shards([x.completed_rho for x in trk], mesh))
         for s in range(n_servers):
+            g = owner[s]
             if sync_mask[t]:
-                vd[s], vr[s] = g_d, g_r
+                vd[s], vr[s] = groups.pick(g_d, g), groups.pick(g_r, g)
             eng[s], trk[s], now[s], d = server_round(
                 eng[s], trk[s], now[s] + int(advance_ns),
-                arrivals_seq[t, s], cost, vd[s], vr[s],
+                arr[s][t], groups.pick(cost, g), vd[s], vr[s],
                 decisions_per_step=decisions_per_step,
                 anticipation_ns=anticipation_ns,
                 allow_limit_break=allow_limit_break,
                 max_arrivals=max_arrivals)
             met[s] = round_metrics(met[s], eng[s], d)
             decs[s].append(d)
-    engine = stack_trees(eng)
-    out_now = torch.stack(now)
-    met_s = torch.stack(met)
+    met_s = restack_shards(met, mesh)
     res = MeshRounds(
-        cluster=ClusterState(engine=engine, tracker=stack_trees(trk),
-                             now=out_now),
-        view_delta=torch.stack(vd), view_rho=torch.stack(vr),
-        metrics=met_s,
-        decs=stack_trees([stack_trees(ds) for ds in decs]))
+        cluster=ClusterState(engine=restack_shards(eng, mesh),
+                             tracker=restack_shards(trk, mesh),
+                             now=restack_shards(now, mesh)),
+        view_delta=restack_shards(vd, mesh),
+        view_rho=restack_shards(vr, mesh), metrics=met_s,
+        decs=restack_shards([stack_trees(ds) for ds in decs], mesh))
     if with_merged:
         res = res._replace(merged=obsdev.metrics_mesh_reduce(met_s))
     if with_pressure:
-        press = torch.stack([obsprov.pressure_vec(eng[s], now[s])
-                             for s in range(n_servers)])
+        press = restack_shards([obsprov.pressure_vec(eng[s], now[s])
+                                for s in range(n_servers)], mesh)
         res = res._replace(pressure=press,
                            pressure_merged=obsprov.pressure_mesh_reduce(
                                press))
@@ -469,9 +544,9 @@ def run_mesh_rounds(cluster: ClusterState, arrivals_seq, cost,
 
 
 def mesh_decs_seq(decs) -> list:
-    """Re-slice a fused launch's ``[S, E, k]`` decision leaves into the
-    per-round ``[S, k]`` stream of host numpy the host loops
-    produce (``robust.cluster.run_with_plan``)."""
+    """Re-slice a fused launch's ``[S, E, k]`` decision leaves (stacked
+    or grouped) into the per-round ``[S, k]`` stream of host numpy the
+    host loops produce (``robust.cluster.run_with_plan``)."""
     host = decisions_to_numpy(decs)
     epochs = host.type.shape[1]
     return [kernels.Decision(*(a[:, t] for a in host))
@@ -499,9 +574,77 @@ def create_clients(cluster: ClusterState, new_mask, resv_inv, weight_inv,
         rho=ones, delta=ones, resv_inv=host(resv_inv, np.int64),
         weight_inv=host(weight_inv, np.int64),
         limit_inv=host(limit_inv, np.int64), order=slots)
-    engine = stack_trees([
+    engine = restack_shards([
         kernels.ingest(shard_view(cluster.engine, s), ops,
                        anticipation_ns=0)
-        for s in range(mesh.n_shards)])
+        for s in range(mesh.n_shards)], mesh)
     return cluster._replace(engine=engine)
+
+
+# ----------------------------------------------------------------------
+# the JAX package's mesh-program caches, by name
+# ----------------------------------------------------------------------
+
+_ROUNDS_JIT_CACHE: dict = {}
+_MESH_ROUNDS_JIT_CACHE: dict = {}
+
+
+def mesh_cache_key(mesh: MeshLayout, cfg: tuple) -> tuple:
+    """The key of every mesh-program cache (:func:`mesh_step_jit`,
+    :func:`jit_mesh_rounds`): the layout (its shard count and group
+    devices) and the static configuration."""
+    return (int(mesh.n_shards), tuple(mesh.devices)) + tuple(cfg)
+
+
+def mesh_step_jit(cache: dict, step_fn, mesh: MeshLayout, cfg: tuple):
+    """``step_fn`` bound to ``mesh`` and the five-tuple ``cfg``
+    (decisions_per_step, max_arrivals, anticipation_ns,
+    allow_limit_break, advance_ns), cached in ``cache`` per
+    :func:`mesh_cache_key`.  The JAX package compiles a program here;
+    the port binds the arguments (nothing is compiled per shape)."""
+    key = mesh_cache_key(mesh, cfg)
+    if key not in cache:
+        (decisions_per_step, max_arrivals, anticipation_ns,
+         allow_limit_break, advance_ns) = cfg
+        cache[key] = functools.partial(
+            step_fn, mesh=mesh, decisions_per_step=decisions_per_step,
+            max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
+            allow_limit_break=allow_limit_break, advance_ns=advance_ns)
+    return cache[key]
+
+
+def jit_mesh_rounds(mesh: MeshLayout, *, epochs: int,
+                    decisions_per_step: int, max_arrivals: int = 1,
+                    anticipation_ns: int = 0,
+                    allow_limit_break: bool = False,
+                    advance_ns: int = 0, counter_sync_every: int = 1,
+                    round0: int = 0, with_merged: bool = False,
+                    with_pressure: bool = False):
+    """:func:`run_mesh_rounds` bound to one (mesh, static-config) pair:
+    ``(cluster, arrivals_seq, cost, view_d, view_r, metrics) ->
+    MeshRounds``, cached per :func:`mesh_cache_key` as the JAX package
+    caches its compiled program (``epochs`` must match the arrivals'
+    rounds)."""
+    cfg = (epochs, decisions_per_step, max_arrivals, anticipation_ns,
+           allow_limit_break, advance_ns, counter_sync_every, int(round0),
+           with_merged, with_pressure)
+    key = mesh_cache_key(mesh, cfg)
+    if key not in _MESH_ROUNDS_JIT_CACHE:
+        def run(cluster, arrivals_seq, cost, view_d, view_r, met):
+            if int(np.shape(arrivals_seq)[0]) != epochs:
+                raise ValueError(f"{np.shape(arrivals_seq)[0]} rounds of "
+                                 f"arrivals for a {epochs}-round program")
+            return run_mesh_rounds(
+                cluster, arrivals_seq, cost, mesh,
+                decisions_per_step=decisions_per_step,
+                max_arrivals=max_arrivals,
+                anticipation_ns=anticipation_ns,
+                allow_limit_break=allow_limit_break,
+                advance_ns=advance_ns,
+                counter_sync_every=counter_sync_every, round0=round0,
+                view_delta=view_d, view_rho=view_r, metrics=met,
+                with_merged=with_merged, with_pressure=with_pressure)
+
+        _MESH_ROUNDS_JIT_CACHE[key] = run
+    return _MESH_ROUNDS_JIT_CACHE[key]
 

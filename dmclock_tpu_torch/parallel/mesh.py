@@ -21,14 +21,21 @@ throughput is the sum of the shards' decision streams.  Counters count
 unit-cost completions, folded per epoch from the SLO window block's
 delivered columns, so the fold cannot move a decision.
 
-On one card the JAX package's ``psum`` over the ``servers`` axis is a
-sum over dim 0, and its ``vmap`` over a shard's servers is a loop over
-``s`` on contiguous views ``x[s]``.  Epochs are the outer loop and
-shards the inner one: the counter sum of an epoch (or of a group head
-under ``collective_skipping``) is taken from every shard's counters as
-they stood before any shard ran it.  Every shard runs on the current
-stream: kernel K2 merges through one workspace per device
-(``engine/kernels.py``), so shards on separate streams would race.
+On one device the JAX package's ``psum`` over the ``servers`` axis is
+a sum over dim 0, and its ``vmap`` over a shard's servers is a loop
+over ``s`` on contiguous views ``x[s]``.  On a layout of D groups
+(``make_mesh(S, devices=...)``, ``parallel.groups``) every stacked
+input and output is grouped: shard ``s`` runs on its group's device,
+so the D devices run concurrently behind the one launching thread, and
+the counter sum reduces within each group and then between the groups
+(``parallel.tracker.global_counters_from``), each group reading its
+own copy.  Epochs are the outer loop and shards the inner one: the
+counter sum of an epoch (or of a group head under
+``collective_skipping``) is taken from every shard's counters as they
+stood before any shard ran it.  Every shard runs on its device's
+current stream: kernel K2 merges through one workspace per device
+(``engine/kernels.py``), so shards on separate streams of one device
+would race.
 
 S=1 is bit-identical to the stream chunk by construction: both run
 ``engine.stream.make_epoch_step``.  The guarded chunk and its host
@@ -50,8 +57,11 @@ from ..engine import stream as stream_mod
 from ..engine.kernels import as_scalar
 from ..obs import device as obsdev
 from ..obs import slo as obsslo
+from . import groups
 from .cluster import (SERVER_AXIS, MeshLayout, broadcast_tree,  # noqa: F401
-                      make_mesh, shard_view, stack_trees, tree_map)
+                      gather_shards, make_mesh, on_mesh,
+                      place_shards, restack_shards, shard_view,
+                      stack_trees, tree_map)
 from .tracker import global_counters_from
 
 
@@ -63,7 +73,10 @@ class MeshChunk(NamedTuple):
     counters (``int64[S, N]``, the sum's source), ``view_d``/``view_r``
     the held views after the chunk.  ``slo_merged`` is the cluster-wide
     window block (``obs.slo.window_mesh_reduce``; ``int64[N,
-    W_FIELDS]``).  ``flight`` is the stacked per-shard flight ring."""
+    W_FIELDS]``).  ``flight`` is the stacked per-shard flight ring.
+    On a layout of several groups every ``[S, ...]`` field is grouped
+    (``parallel.groups.Grouped``) and ``slo_merged`` lies on the first
+    group's device."""
 
     state: object             # stacked EngineState, [S, ...] leaves
     outs: dict                # [S, E, ...] stacked engine fields
@@ -82,10 +95,11 @@ class MeshChunk(NamedTuple):
 def stack_shards(tree, n_shards: int, mesh: Optional[MeshLayout] = None):
     """Broadcast a single-engine tree to the stacked ``[S, ...]``
     layout (every shard's partition starts from the same state), as a
-    contiguous copy; with ``mesh``, on its card."""
+    contiguous copy; with ``mesh``, laid out on it (one stack a group on
+    each group's device)."""
     stacked = broadcast_tree(tree, n_shards)
     if mesh is not None:
-        stacked = tree_map(lambda a: a.to(mesh.device), stacked)
+        stacked = place_shards(stacked, mesh)
     return stacked
 
 
@@ -95,13 +109,16 @@ def unstack_shard(tree, s: int = 0):
 
 
 def counter_init(n_shards: int, n: int, *,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 mesh: Optional[MeshLayout] = None):
     """A fresh counter plane: zero per-shard completions, views at the
-    protocol's counters-start-at-1 origin."""
-    dev = resolve_device(device)
+    protocol's counters-start-at-1 origin; with ``mesh``, laid out on
+    it (``device`` is then ignored)."""
+    dev = resolve_device(device) if mesh is None else mesh.device
 
     def fill(v):
-        return torch.full((n_shards, n), v, dtype=torch.int64, device=dev)
+        x = torch.full((n_shards, n), v, dtype=torch.int64, device=dev)
+        return x if mesh is None else place_shards(x, mesh)
 
     return fill(0), fill(0), fill(1), fill(1)
 
@@ -123,6 +140,15 @@ def mask_epoch_outs(outs: dict, up, fault_vec) -> dict:
         else:
             masked[name] = torch.where(up, arr, torch.zeros_like(arr))
     return masked
+
+
+def _fault_leaf(a, dtype, dev):
+    """One FaultChunk array (numpy, a tensor, or grouped) as ``dtype``;
+    host arrays go to ``dev``."""
+    if groups.is_grouped(a):
+        return tree_map(lambda x: x.to(dtype=dtype), a)
+    a = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+    return a.to(device=dev, dtype=dtype)
 
 
 def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
@@ -198,10 +224,12 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
         engine=engine, m=m, kw=kw, dt_epoch_ns=dt, waves=waves,
         ingest=ingest, with_pressure=with_pressure)
 
+    devs = mesh.devices
+
     def chunk(state, cd, cr, vd, vr, epoch0, counts=None, hists=None,
               ledger=None, slo=None, prov=None, flight=None,
               faults=None) -> MeshChunk:
-        n_shards = cd.shape[0]
+        n_shards = groups.leading(cd)
         if n_shards != mesh.n_shards:
             raise ValueError(f"{n_shards} shards on a {mesh.n_shards}-"
                              "shard mesh")
@@ -210,55 +238,68 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
                              "(the counter plane folds its columns)")
         if ingest and counts is None:
             raise ValueError("ingest=True needs raw counts")
-        dev = cd.device
-        e0 = as_scalar(epoch0, dev)
+        owner = groups.group_of(n_shards, len(devs))
+        state, cd, cr, vd, vr, hists, ledger, slo, prov, flight = (
+            on_mesh(x, mesh) for x in (state, cd, cr, vd, vr, hists,
+                                       ledger, slo, prov, flight))
+        # each group's epoch0 on its device
+        e0s = [as_scalar(epoch0, d) for d in devs]
         if with_faults:
             if faults is None:
                 raise ValueError("with_faults=True needs the FaultChunk "
                                  "arrays")
             f_up, f_skew, f_delay, f_dup, f_prev = (
-                torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
-                                else a).to(device=dev, dtype=dt_)
+                on_mesh(_fault_leaf(a, dt_, devs[0]), mesh)
                 for a, dt_ in zip(faults, (torch.bool, torch.int64,
                                            torch.bool, torch.bool,
                                            torch.bool)))
-            up_prev = [f_prev[s] for s in range(n_shards)]
+            f_up, f_skew, f_delay, f_dup = (
+                [shard_view(a, s) for s in range(n_shards)]
+                for a in (f_up, f_skew, f_delay, f_dup))
+            up_prev = [shard_view(f_prev, s) for s in range(n_shards)]
         if ingest:
-            counts = torch.as_tensor(counts).to(dev)
+            counts = on_mesh(torch.as_tensor(counts).to(devs[0])
+                             if not groups.is_grouped(counts) else counts,
+                             mesh)
+            counts = [shard_view(counts, s) for s in range(n_shards)]
         st = [shard_view(state, s) for s in range(n_shards)]
         acc = [[shard_view(x, s) for x in (hists, ledger, flight, slo,
                                            prov)]
                for s in range(n_shards)]
-        cds = [cd[s] for s in range(n_shards)]
-        crs = [cr[s] for s in range(n_shards)]
-        vds = [vd[s] for s in range(n_shards)]
-        vrs = [vr[s] for s in range(n_shards)]
+        cds = [shard_view(cd, s) for s in range(n_shards)]
+        crs = [shard_view(cr, s) for s in range(n_shards)]
+        vds = [shard_view(vd, s) for s in range(n_shards)]
+        vrs = [shard_view(vr, s) for s in range(n_shards)]
         per_epoch = [[] for _ in range(n_shards)]
         for i in range(epochs):
             if not collective_skipping or i % every == 0:
                 # the batched delta/rho exchange: every shard's counters
                 # as they stood before any shard ran this epoch (under
-                # collective skipping, once per group head)
-                g_d, g_r = global_counters_from(torch.stack(cds),
-                                                torch.stack(crs))
-            sync = torch.remainder(e0 + i, every) == 0
+                # collective skipping, once per group head); on a
+                # grouped layout each group gets its own copy
+                g_d, g_r = global_counters_from(
+                    restack_shards(cds, mesh), restack_shards(crs, mesh))
+            syncs = [torch.remainder(e + i, every) == 0 for e in e0s]
             for s in range(n_shards):
+                g = owner[s]
+                dev = devs[g]
+                sync = syncs[g]
                 h, l, f, w, p = acc[s]
                 if with_faults:
-                    up, skew = f_up[s, i], f_skew[s, i]
-                    delay, dup = f_delay[s, i], f_dup[s, i]
+                    up, skew = f_up[s][i], f_skew[s][i]
+                    delay, dup = f_delay[s][i], f_dup[s][i]
                     restart = up & ~up_prev[s]
                     dropout = ~up & up_prev[s]
                     refresh = (sync & up & ~delay) | restart
                 else:
                     refresh = sync
-                vds[s] = torch.where(refresh, g_d, vds[s])
-                vrs[s] = torch.where(refresh, g_r, vrs[s])
-                t_base = (e0 + i) * dt
+                vds[s] = torch.where(refresh, groups.pick(g_d, g), vds[s])
+                vrs[s] = torch.where(refresh, groups.pick(g_r, g), vrs[s])
+                t_base = (e0s[g] + i) * dt
                 if with_faults:
                     t_base = t_base + skew
                 (st2, h2, l2, f2, w2, p2), outs = epoch_step(
-                    st[s], t_base, counts[s, i] if ingest else None,
+                    st[s], t_base, counts[s][i] if ingest else None,
                     h, l, f, w, p)
                 if with_faults:
                     # commit gate: a down shard keeps last-good state
@@ -293,14 +334,16 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
                 st[s] = st2
                 acc[s] = [h2, l2, f2, w2, p2]
                 per_epoch[s].append(outs)
-        outs = {name: torch.stack([torch.stack([o[name] for o in po])
-                                   for po in per_epoch])
+        outs = {name: restack_shards([torch.stack([o[name] for o in po])
+                                      for po in per_epoch], mesh)
                 for name in per_epoch[0][0]}
-        h, l, f, w, p = (stack_trees([a[j] for a in acc])
+        h, l, f, w, p = (restack_shards([a[j] for a in acc], mesh)
                          for j in range(5))
-        return MeshChunk(state=stack_trees(st), outs=outs,
-                         cd=torch.stack(cds), cr=torch.stack(crs),
-                         view_d=torch.stack(vds), view_r=torch.stack(vrs),
+        return MeshChunk(state=restack_shards(st, mesh), outs=outs,
+                         cd=restack_shards(cds, mesh),
+                         cr=restack_shards(crs, mesh),
+                         view_d=restack_shards(vds, mesh),
+                         view_r=restack_shards(vrs, mesh),
                          hists=h, ledger=l, slo=w, prov=p,
                          slo_merged=obsslo.window_mesh_reduce(w),
                          flight=f)
@@ -314,17 +357,18 @@ jit_mesh_chunk = build_mesh_chunk
 
 
 def shard_epoch_view(engine: str, outs: dict, s: int, i: int):
-    """Shard ``s``'s epoch ``i`` result object from the stacked ``[S,
-    E, ...]`` outputs (the stream loop's ``epoch_view`` over one
-    shard's slice)."""
+    """Shard ``s``'s epoch ``i`` result object from the stacked (or
+    grouped) ``[S, E, ...]`` outputs (the stream loop's ``epoch_view``
+    over one shard's slice)."""
     return stream_mod.epoch_view(
-        engine, {name: arr[s] for name, arr in outs.items()}, i)
+        engine, {name: shard_view(arr, s) for name, arr in outs.items()},
+        i)
 
 
 def mesh_epoch_results(engine: str, outs: dict, i: int) -> tuple:
     """Epoch ``i``'s result rows: one per-shard tuple of result views in
     shard order; at S=1 the flattened row is the stream loop's."""
-    n_shards = next(iter(outs.values())).shape[0]
+    n_shards = groups.leading(next(iter(outs.values())))
     return tuple((shard_epoch_view(engine, outs, s, i),)
                  for s in range(n_shards))
 
@@ -333,4 +377,7 @@ def mesh_epoch_decisions(engine: str, outs: dict, i: int) -> int:
     """Decisions epoch ``i`` committed across all shards (reads the
     device back)."""
     del engine
-    return int(outs["count"][:, i].sum())
+    count = outs["count"]
+    if groups.is_grouped(count):
+        return sum(int(p[:, i].sum()) for p in count.parts)
+    return int(count[:, i].sum())

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from . import groups
 
 
 class TrackerState(NamedTuple):
@@ -73,19 +74,50 @@ def init_tracker(n_clients: int, *, n_servers: Optional[int] = None,
     )
 
 
-def server_sum(x: torch.Tensor) -> torch.Tensor:
+def server_sum(x):
     """The reduction over the server axis of an ``[S, C]`` stack (the
-    JAX package's ``psum`` over ``servers``, on one card)."""
-    return x.sum(dim=0)
+    JAX package's ``psum`` over ``servers``).  A grouped ``[S, C]``
+    (``parallel.groups``) sums within each group on its device,
+    combines the partials on the first group's device in group order,
+    and hands every group the same result on its own device (a
+    ``groups.Replicated``); int64 addition is exact in any order, so
+    that equals ``x.sum(0)`` over the stack bit for bit."""
+    if not groups.is_grouped(x):
+        return x.sum(dim=0)
+    return groups.replicate(
+        groups.reduce(x, lambda a: a.sum(dim=0), torch.add), x.devices)
+
+
+def server_max(x, mask=None):
+    """The maximum over the server axis (the JAX package's ``pmax``);
+    with a bool ``mask`` over the trailing axis, the maximum in masked
+    columns and the sum elsewhere (the telemetry merges' psum/pmax by a
+    row mask).  A grouped input reduces as :func:`server_sum` does and
+    gives one result on the first group's device."""
+    if mask is None:
+        def axis(a):
+            return a.max(dim=0).values
+
+        combine = torch.maximum
+    else:
+        def axis(a):
+            m = mask.to(a.device)
+            return torch.where(m, a.max(dim=0).values, a.sum(dim=0))
+
+        def combine(a, b):
+            return torch.where(mask.to(a.device), torch.maximum(a, b),
+                               a + b)
+    return groups.reduce(x, axis, combine)
 
 
 def global_counters(tracker: TrackerState, psum=server_sum):
     """The client-global counters: the sum of per-server completions
     over the server axis, plus the reference's start-at-1 offset.
     ``psum`` is the reduction to use (the sum over dim 0 of an
-    ``[S, C]`` stack by default)."""
-    return 1 + psum(tracker.completed_delta), \
-        1 + psum(tracker.completed_rho)
+    ``[S, C]`` stack by default).  A grouped tracker gives each group
+    its copy (a ``groups.Replicated``)."""
+    return global_counters_from(tracker.completed_delta,
+                                tracker.completed_rho, psum)
 
 
 def tracker_track(tracker: TrackerState, slots: torch.Tensor,
@@ -162,11 +194,17 @@ def tracker_prepare(tracker: TrackerState, requesting: torch.Tensor,
     return tracker, delta_out, rho_out
 
 
-def global_counters_from(completed_delta: torch.Tensor,
-                         completed_rho: torch.Tensor, psum=server_sum):
+def global_counters_from(completed_delta, completed_rho, psum=server_sum):
     """:func:`global_counters` over raw per-client completion-count
     tensors (a serving plane that keeps only the completions half of
-    the protocol).  Same start-at-1 origin, same reduction."""
+    the protocol).  Same start-at-1 origin, same reduction; grouped
+    counts give a ``groups.Replicated`` pair, the origin added once on
+    the first group's device before the copies go out."""
+    if groups.is_grouped(completed_delta):
+        devs = completed_delta.devices
+        return tuple(groups.replicate(1 + groups.reduce(
+            x, lambda a: a.sum(dim=0), torch.add), devs)
+            for x in (completed_delta, completed_rho))
     return 1 + psum(completed_delta), 1 + psum(completed_rho)
 
 

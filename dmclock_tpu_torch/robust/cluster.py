@@ -34,6 +34,7 @@ import torch
 from ..engine import kernels
 from ..obs import device as obsdev
 from ..parallel import cluster as CL
+from ..parallel import groups
 from ..parallel.cluster import (ClusterState, decisions_to_numpy,
                                 round_metrics, server_round, shard_view,
                                 stack_trees)
@@ -57,7 +58,11 @@ class RobustClusterState(NamedTuple):
 
 def init_robust(cluster: ClusterState) -> RobustClusterState:
     """Views at the protocol's counters-start-at-1 origin, every server
-    up, metrics zero."""
+    up, metrics zero; a grouped cluster gives grouped leaves in its
+    layout."""
+    devs = groups.group_devices(cluster.now)
+    if len(devs) > 1:
+        return CL.place_fields(init_robust(groups.gather(cluster)), devs)
     s, c = cluster.tracker.completed_delta.shape
     dev = cluster.now.device
     return RobustClusterState(
@@ -70,8 +75,13 @@ def init_robust(cluster: ClusterState) -> RobustClusterState:
 
 
 def shard_robust(rc: RobustClusterState, mesh) -> RobustClusterState:
-    """Place every leaf on the mesh's card."""
-    return CL.tree_map(lambda a: a.to(mesh.device), rc)
+    """Lay every leaf out on the mesh (the JAX package's
+    ``NamedSharding(mesh, P(SERVER_AXIS))`` over each leaf's leading
+    server axis)."""
+    return RobustClusterState(
+        cluster=CL.shard_cluster(rc.cluster, mesh),
+        **{f: CL.place_shards(getattr(rc, f), mesh)
+           for f in RobustClusterState._fields[1:]})
 
 
 def resync_tracker(tracker, g_delta, g_rho):
@@ -154,15 +164,22 @@ def _merge_held_metrics(metrics: torch.Tensor) -> torch.Tensor:
     return obsdev.metrics_mesh_reduce(metrics)
 
 
-def _round_sums(trackers):
-    """The counter sum over per-server trackers (the psum)."""
+def _round_sums(trackers, mesh):
+    """The counter sum over per-server trackers (the psum): a
+    ``groups.Replicated`` pair on a grouped mesh."""
     return global_counters_from(
-        torch.stack([t.completed_delta for t in trackers]),
-        torch.stack([t.completed_rho for t in trackers]))
+        CL.restack_shards([t.completed_delta for t in trackers], mesh),
+        CL.restack_shards([t.completed_rho for t in trackers], mesh))
 
 
-def _host_bools(t: torch.Tensor) -> list:
-    return [bool(x) for x in t.detach().cpu().numpy()]
+def _on_mesh_robust(rc: RobustClusterState, mesh) -> RobustClusterState:
+    if mesh.grouped:
+        return shard_robust(rc, mesh)
+    return CL.on_mesh(rc, mesh)
+
+
+def _host_bools(t) -> list:
+    return [bool(x) for x in groups.gather(t, "cpu").numpy()]
 
 
 def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
@@ -195,39 +212,46 @@ def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
             res = res + (_merge_held_metrics(rc.metrics),)
         return res + tuple(out[2:])
 
-    n = rc.cluster.now.shape[0]
-    dev = rc.cluster.now.device
-    cost = CL.device_tensor(cost, torch.int64, dev)
-    arrivals = CL.device_tensor(arrivals, torch.int32, dev)
-    now0 = rc.cluster.now + int(advance_ns)
+    n = groups.leading(rc.cluster.now)
+    devs = mesh.devices
+    owner = groups.group_of(n, len(devs))
+    rc = _on_mesh_robust(rc, mesh)
+    cost = groups.replicate(CL.device_tensor(cost, torch.int64, devs[0]),
+                            devs)
+    arrivals = CL.shard_inputs(arrivals, torch.int32, mesh)
+    now0 = CL.tree_map(lambda a: a + int(advance_ns), rc.cluster.now)
     g_d, g_r = _round_sums([shard_view(rc.cluster.tracker, s)
-                            for s in range(n)])
+                            for s in range(n)], mesh)
     up_prev = _host_bools(rc.up_prev)
     outs = [_one_server_step_faulty(
         shard_view(rc.cluster.engine, s), shard_view(rc.cluster.tracker, s),
-        now0[s], arrivals[s], rc.view_delta[s], rc.view_rho[s],
-        rc.metrics[s], g_d, g_r, up_prev=up_prev[s],
+        shard_view(now0, s), shard_view(arrivals, s),
+        shard_view(rc.view_delta, s), shard_view(rc.view_rho, s),
+        shard_view(rc.metrics, s), groups.pick(g_d, owner[s]),
+        groups.pick(g_r, owner[s]), up_prev=up_prev[s],
         up=bool(fault.up[s]), skew=int(fault.skew_ns[s]),
         delay=bool(fault.delay_counters[s]),
-        dup=bool(fault.dup_completions[s]), cost=cost,
+        dup=bool(fault.dup_completions[s]),
+        cost=groups.pick(cost, owner[s]),
         decisions_per_step=decisions_per_step,
         anticipation_ns=anticipation_ns,
         allow_limit_break=allow_limit_break, max_arrivals=max_arrivals)
         for s in range(n)]
     engine, tracker, now, vd, vr, met, decs = (
-        stack_trees([o[i] for o in outs]) for i in range(7))
+        CL.restack_shards([o[i] for o in outs], mesh) for i in range(7))
     rc = RobustClusterState(
         cluster=ClusterState(engine=engine, tracker=tracker, now=now),
         view_delta=vd, view_rho=vr,
-        up_prev=torch.as_tensor(np.asarray(fault.up, dtype=bool)).to(dev),
+        up_prev=CL.shard_inputs(np.asarray(fault.up, dtype=bool),
+                                torch.bool, mesh),
         metrics=met)
     res = (rc, decs)
     if with_merged:
         res = res + (_merge_held_metrics(met),)
     if with_pressure:
-        press = torch.stack([obsprov.pressure_vec(shard_view(engine, s),
-                                                  now[s])
-                             for s in range(n)])
+        press = CL.restack_shards(
+            [obsprov.pressure_vec(shard_view(engine, s), shard_view(now, s))
+             for s in range(n)], mesh)
         res = res + (press, obsprov.pressure_mesh_reduce(press))
     return res
 
@@ -294,48 +318,59 @@ def run_mesh_rounds_with_plan(rc: RobustClusterState, arrivals_seq, cost,
     == run_with_plan(effective_plan(plan, K))`` in decisions, views,
     tracker state and metrics.  Returns ``(rc, decs)`` with ``decs``
     leaves ``[S, E, k]`` (re-slice with ``mesh_decs_seq``)."""
-    dev = rc.cluster.now.device
-    arrivals_seq = CL.device_tensor(arrivals_seq, torch.int32, dev)
+    devs = mesh.devices
+    arrivals_seq = CL.device_tensor(arrivals_seq, torch.int32, devs[0])
     epochs = int(arrivals_seq.shape[0])
-    n = rc.cluster.now.shape[0]
-    cost = CL.device_tensor(cost, torch.int64, dev)
+    n = groups.leading(rc.cluster.now)
+    owner = groups.group_of(n, len(devs))
+    rc = _on_mesh_robust(rc, mesh)
+    arr = CL.on_mesh(arrivals_seq.transpose(0, 1), mesh)
+    cost = groups.replicate(CL.device_tensor(cost, torch.int64, devs[0]),
+                            devs)
     eff = effective_plan(plan, counter_sync_every, round0)
     if eff.steps != epochs:
         raise ValueError(f"plan of {eff.steps} steps for {epochs} rounds")
     eng = [shard_view(rc.cluster.engine, s) for s in range(n)]
     trk = [shard_view(rc.cluster.tracker, s) for s in range(n)]
-    now = [rc.cluster.now[s] for s in range(n)]
-    vd = [rc.view_delta[s] for s in range(n)]
-    vr = [rc.view_rho[s] for s in range(n)]
-    met = [rc.metrics[s] for s in range(n)]
+    now = [shard_view(rc.cluster.now, s) for s in range(n)]
+    vd = [shard_view(rc.view_delta, s) for s in range(n)]
+    vr = [shard_view(rc.view_rho, s) for s in range(n)]
+    met = [shard_view(rc.metrics, s) for s in range(n)]
+    arr = [shard_view(arr, s) for s in range(n)]
     up_prev = _host_bools(rc.up_prev)
     decs = [[] for _ in range(n)]
     for t in range(epochs):
-        g_d, g_r = _round_sums(trk)
+        g_d, g_r = _round_sums(trk, mesh)
         for s in range(n):
             up = bool(eff.up[t, s])
+            g = owner[s]
             eng[s], trk[s], now[s], vd[s], vr[s], met[s], d = \
                 _one_server_step_faulty(
                     eng[s], trk[s], now[s] + int(advance_ns),
-                    arrivals_seq[t, s], vd[s], vr[s], met[s], g_d, g_r,
+                    arr[s][t], vd[s], vr[s], met[s],
+                    groups.pick(g_d, g), groups.pick(g_r, g),
                     up_prev=up_prev[s], up=up,
                     skew=int(eff.skew_ns[t, s]),
                     delay=bool(eff.delay_counters[t, s]),
-                    dup=bool(eff.dup_completions[t, s]), cost=cost,
+                    dup=bool(eff.dup_completions[t, s]),
+                    cost=groups.pick(cost, g),
                     decisions_per_step=decisions_per_step,
                     anticipation_ns=anticipation_ns,
                     allow_limit_break=allow_limit_break,
                     max_arrivals=max_arrivals)
             up_prev[s] = up
             decs[s].append(d)
+    def restack(xs):
+        return CL.restack_shards(xs, mesh)
+
     rc = RobustClusterState(
-        cluster=ClusterState(engine=stack_trees(eng),
-                             tracker=stack_trees(trk),
-                             now=torch.stack(now)),
-        view_delta=torch.stack(vd), view_rho=torch.stack(vr),
-        up_prev=torch.as_tensor(np.asarray(up_prev, dtype=bool)).to(dev),
-        metrics=torch.stack(met))
-    return rc, stack_trees([stack_trees(ds) for ds in decs])
+        cluster=ClusterState(engine=restack(eng), tracker=restack(trk),
+                             now=restack(now)),
+        view_delta=restack(vd), view_rho=restack(vr),
+        up_prev=CL.shard_inputs(np.asarray(up_prev, dtype=bool),
+                                torch.bool, mesh),
+        metrics=restack(met))
+    return rc, restack([stack_trees(ds) for ds in decs])
 
 
 def decision_digest(decs_seq) -> str:
@@ -353,7 +388,7 @@ def decision_digest(decs_seq) -> str:
 def metrics_totals(rc: RobustClusterState) -> dict:
     """Merge the per-shard metrics vectors (counters add, high-water
     rows max) and name the rows -- one read back."""
-    vecs = rc.metrics.detach().cpu().numpy()
+    vecs = groups.gather(rc.metrics, "cpu").numpy()
     acc = np.zeros((obsdev.NUM_METRICS,), dtype=np.int64)
     return obsdev.metrics_dict(obsdev.metrics_combine_np(acc, *vecs))
 

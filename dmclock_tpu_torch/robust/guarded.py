@@ -111,9 +111,13 @@ class GuardedEpoch(NamedTuple):
 
 
 def _device_wait(state) -> None:
-    """Wait for the state's device (the JAX ``block_until_ready``)."""
-    if state.device.type == "cuda":
-        torch.cuda.synchronize(state.device)
+    """Wait for the state's device, or every group's device of a
+    grouped tensor (the JAX ``block_until_ready``)."""
+    from ..parallel import groups
+
+    for dev in dict.fromkeys(groups.group_devices(state)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def _count_and_guards(engine: str, result):
@@ -668,14 +672,32 @@ def _fault_met_vec(dropout: bool, restart: bool, perturb: int):
 
 
 def _zero_window_stack(cd):
-    """A throwaway stacked zero window block for a caller whose SLO plane
-    is off: the counter plane diffs the block's delivered columns, and
-    only ``cd``/``cr`` persist."""
+    """A throwaway stacked zero window block, in ``cd``'s layout, for a
+    caller whose SLO plane is off: the counter plane diffs the block's
+    delivered columns, and only ``cd``/``cr`` persist."""
     from ..obs import slo as obsslo
+    from ..parallel import groups
     from ..parallel import mesh as mesh_mod
 
-    return mesh_mod.stack_shards(
-        obsslo.window_zero(int(cd.shape[1]), cd.device), int(cd.shape[0]))
+    devs = groups.group_devices(cd)
+    n = int(groups.first_leaf(cd).shape[1])
+    return groups.place(mesh_mod.stack_shards(
+        obsslo.window_zero(n, devs[0]), groups.leading(cd)), devs)
+
+
+def _shard_counts(counts, devs):
+    """Raw ``[S, E, N]`` draws (numpy or a tensor) as int32 in the
+    layout of ``devs``."""
+    import numpy as np
+
+    from ..parallel import groups
+
+    if groups.is_grouped(counts):
+        return groups.place(counts, devs)
+    if not torch.is_tensor(counts):
+        counts = torch.from_numpy(np.ascontiguousarray(counts,
+                                                       dtype=np.int32))
+    return groups.place(counts.to(devs[0], torch.int32), devs)
 
 
 def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
@@ -713,7 +735,9 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
     None for serve-only chunks; ``slo`` a stacked window block or None
     (a throwaway zero block rides then).  ``faults`` (a
     ``robust.faults.FaultChunk`` or None) runs the fault model inside
-    the chunk, and the replay carries the same schedule.
+    the chunk, and the replay carries the same schedule.  On a grouped
+    ``mesh`` every ``[S, ...]`` input and output is grouped
+    (``parallel.groups``), and ``counts`` is laid out on it.
 
     ``collective_skipping=None`` resolves per chunk from the host-side
     ``epoch0``: the grouped program only for a fault-free chunk whose
@@ -728,8 +752,15 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
     from ..obs import spans as _spans
     from ..parallel import mesh as mesh_mod
 
+    from ..parallel import cluster as CL
+    from ..parallel import groups
+
     epochs = int(epochs)
-    n_shards = int(cd.shape[0])
+    n_shards = groups.leading(cd)
+    devs = mesh.devices
+    state, cd, cr, view_d, view_r, hists, ledger, slo, prov, flight = (
+        CL.on_mesh(x, mesh) for x in (state, cd, cr, view_d, view_r, hists,
+                                      ledger, slo, prov, flight))
     if slo is None:
         slo = _zero_window_stack(cd)
     every = max(int(counter_sync_every), 1)
@@ -759,9 +790,7 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
 
     counts_dev = None
     if counts is not None:
-        counts_dev = counts.to(cd.device, torch.int32) \
-            if torch.is_tensor(counts) else torch.from_numpy(
-                np.ascontiguousarray(counts, dtype=np.int32)).to(cd.device)
+        counts_dev = _shard_counts(counts, devs)
 
     def one():
         with _spans.span(tracer, "mesh.dispatch", "dispatch",
@@ -777,7 +806,8 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
                              sleep=sleep, on_retry=count_retry)
     # the chunk's one read back: every stacked output, the guard rows
     # among them
-    fetched = {name: v.cpu() for name, v in out.outs.items()}
+    fetched = {name: groups.gather(v, "cpu")
+               for name, v in out.outs.items()}
     if bool(fetched[stream_mod.STREAM_GUARD_FIELD[engine]].all()):
         press = None
         if with_pressure:
@@ -852,23 +882,26 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
     the current stream on the card the state lies on, as the fused chunk
     does, and launches the same kernels.  The views ``x[s]`` are read,
     never written: every step returns new tensors, and the restack at
-    the end copies."""
+    the end copies.  A grouped layout (``parallel.groups``) replays each
+    shard on its own group's device and restacks by group; the counter
+    sum is a host sum, as on one device."""
     import numpy as np
 
     from ..engine import fastpath
     from ..engine import stream as stream_mod
     from ..obs import slo as obsslo
-    from ..parallel.cluster import shard_view, stack_trees
+    from ..parallel import groups
+    from ..parallel.cluster import shard_view
     from ..parallel.tracker import global_counters_from
 
     epochs = int(epochs)
-    n_shards = int(cd.shape[0])
-    dev = cd.device
+    n_shards = groups.leading(cd)
+    devs = groups.group_devices(cd)
     if slo is None:
         slo = _zero_window_stack(cd)
-    if counts is not None and not torch.is_tensor(counts):
-        counts = torch.from_numpy(
-            np.ascontiguousarray(counts, dtype=np.int32)).to(dev)
+    if counts is not None:
+        counts = _shard_counts(counts, devs)
+        counts = [shard_view(counts, s) for s in range(n_shards)]
     every = max(int(counter_sync_every), 1)
     retry_count = [_retries_so_far]
     sts = [shard_view(state, s) for s in range(n_shards)]
@@ -876,10 +909,9 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
            for name, acc in (("hists", hists), ("ledger", ledger),
                              ("slo", slo), ("prov", prov),
                              ("flight", flight))}
-    cd_np = cd.cpu().numpy().astype(np.int64)
-    cr_np = cr.cpu().numpy().astype(np.int64)
-    vd_np = view_d.cpu().numpy().astype(np.int64)
-    vr_np = view_r.cpu().numpy().astype(np.int64)
+    cd_np, cr_np, vd_np, vr_np = (
+        groups.gather(x, "cpu").numpy().astype(np.int64)
+        for x in (cd, cr, view_d, view_r))
     if faults is not None:
         f_up, f_skew, f_delay, f_dup, up_prev = (
             (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a))
@@ -938,7 +970,7 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
                 continue
             if counts is not None:
                 sts[s] = stream_mod.ingest_step(
-                    sts[s], counts[s, i], t_base + skew, dt_epoch_ns=dt,
+                    sts[s], counts[s][i], t_base + skew, dt_epoch_ns=dt,
                     waves=waves)
             if press_np is not None:
                 # the fused chunk's probe: post-ingest, pre-serve, at
@@ -990,12 +1022,13 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
 
     def restack(parts):
         return None if any(p is None for p in parts) \
-            else stack_trees(parts)
+            else groups.restack(parts, devs)
 
     def put(a):
-        return torch.from_numpy(a).to(dev)
+        return groups.place(torch.from_numpy(a), devs)
 
     slo_stacked = restack(cur["slo"])
+    slo_np = groups.gather(slo_stacked, "cpu").numpy()
     return MeshGuarded(
         state=restack(sts), cd=put(cd_np), cr=put(cr_np),
         view_d=put(vd_np), view_r=put(vr_np), epochs=tuple(ep_rows),
@@ -1004,7 +1037,7 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
         hists=restack(cur["hists"]), ledger=restack(cur["ledger"]),
         slo=slo_stacked, prov=restack(cur["prov"]),
         flight=restack(cur["flight"]),
-        slo_merged=put(obsslo.window_combine_np(
-            np.zeros(tuple(slo_stacked.shape[1:]), dtype=np.int64),
-            *slo_stacked.cpu().numpy())),
+        slo_merged=torch.from_numpy(obsslo.window_combine_np(
+            np.zeros(tuple(slo_np.shape[1:]), dtype=np.int64),
+            *slo_np)).to(devs[0]),
         press=press_np)

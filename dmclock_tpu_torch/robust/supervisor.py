@@ -166,9 +166,20 @@ class EpochJob:
     # the closed-loop controller (control.as_spec: None/False = off, True,
     # a spec dict or a ControllerConfig)
     controller: object = None
+    # a mesh job's layout: device names, one a group of contiguous
+    # shards (parallel.groups; a name may repeat).  None = every shard
+    # on the run's one device.  Snapshots are the same bytes whatever
+    # the layout, so a job resumes on any layout whose length divides
+    # n_shards
+    devices: object = None
 
     def to_json(self) -> dict:
-        return dataclasses.asdict(self)
+        """The job as JSON; ``devices`` only when set, so a job on the
+        default layout is the JAX package's ``EpochJob`` key for key."""
+        out = dataclasses.asdict(self)
+        if out["devices"] is None:
+            del out["devices"]
+        return out
 
     @classmethod
     def from_json(cls, obj: dict) -> "EpochJob":
@@ -303,6 +314,11 @@ def _check_job(job: EpochJob) -> None:
         if job.n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, "
                              f"got {job.n_shards}")
+        if job.devices is not None and len(job.devices) > 1 and \
+                job.n_shards % len(job.devices):
+            raise ValueError(f"{job.n_shards} shards do not split over "
+                             f"{len(job.devices)} devices (S % D must "
+                             f"be 0)")
         if job.churn is not None and \
                 job.churn.get("scenario") == "shard_skew" and \
                 int(job.churn.get("n_shards", 0)) != job.n_shards:
@@ -311,6 +327,9 @@ def _check_job(job: EpochJob) -> None:
                 f"n_shards={job.churn.get('n_shards')} but the job "
                 f"runs {job.n_shards} shards -- pass "
                 f"make_spec('shard_skew', n_shards={job.n_shards})")
+    if job.devices is not None and job.engine_loop != "mesh":
+        raise ValueError("EpochJob(devices=...) lays out a mesh job's "
+                         "shards (engine_loop='mesh')")
     if job.fault_plan is not None:
         if job.engine_loop != "mesh":
             raise ValueError(
@@ -399,7 +418,12 @@ def _rng_from_array(a) -> np.random.Generator:
 
 
 def _host64(x) -> np.ndarray:
-    """A tensor or array read to the host as int64 (blocking)."""
+    """A tensor (stacked or grouped) or array read to the host as int64
+    (blocking)."""
+    from ..parallel import groups
+
+    if groups.is_grouped(x):
+        x = groups.gather(x, "cpu")
     if torch.is_tensor(x):
         x = x.detach().cpu().numpy()
     return np.asarray(x, dtype=np.int64)
@@ -1046,15 +1070,18 @@ class _Run:
         job = self.job
         with _spans.span(self.tracer, "supervisor.checkpoint_save",
                          "checkpoint", epoch=epoch):
+            # a grouped mesh saves its stacks gathered: the same
+            # [S, ...] leaves, byte for byte, whatever the layout
+            g = _gathered(self)
             payload = _payload(
-                job, self.state, rng, self.met, self.digest, epoch,
-                self.decisions, self.ladder.encode(), hists=self.hists,
-                ledger=self.ledger, flight=self.flight, prov=self.prov,
+                job, g["state"], rng, self.met, self.digest, epoch,
+                self.decisions, self.ladder.encode(), hists=g["hists"],
+                ledger=g["ledger"], flight=g["flight"], prov=g["prov"],
                 plane=self.planes if self.planes is not None
                 else self.plane,
                 slo=None if self.slo_plane is None
-                else (self.slo_block, self.slo_plane, self.slo_eval),
-                mesh=self.mesh_ctrs, pm=self.pm, ctl=self.ctl)
+                else (g["slo_block"], self.slo_plane, self.slo_eval),
+                mesh=g["mesh_ctrs"], pm=self.pm, ctl=self.ctl)
 
             def save():
                 return ckpt_mod.save_pytree_rotating(
@@ -1071,9 +1098,10 @@ class _Run:
 
     def result(self) -> SupervisedResult:
         job = self.job
+        g = _gathered(self)
         state, hists, ledger, prov, flight, slo_block = (
-            self.state, self.hists, self.ledger, self.prov, self.flight,
-            self.slo_block)
+            g["state"], g["hists"], g["ledger"], g["prov"], g["flight"],
+            g["slo_block"])
         kw = {}
         if self.ctl is not None:
             kw.update(controller_decisions=int(self.ctl.applied),
@@ -1107,7 +1135,7 @@ class _Run:
             flight = obsflight.FlightState(
                 buf=buf, seq=seq, batch=int(_host64(flight.batch).sum()))
         if self.mesh_ctrs is not None:
-            cd, cr, vd, vr = (_host64(x) for x in self.mesh_ctrs)
+            cd, cr, vd, vr = (_host64(x) for x in g["mesh_ctrs"])
             kw.update(mesh_counters=np.stack([cd, cr]),
                       mesh_views=np.stack([vd, vr]),
                       mesh_fallbacks=self.mesh_fallbacks,
@@ -1152,6 +1180,32 @@ class _Run:
             flight_buf=None if flight is None else _host64(flight.buf),
             flight_seq=0 if flight is None else int(flight.seq),
             stream_fallbacks=self.stream_fallbacks)
+
+
+# the run's per-shard stacks, which a grouped mesh lays out by group
+_RUN_STACKS = ("state", "hists", "ledger", "flight", "prov", "slo_block",
+               "mesh_ctrs")
+
+
+def _gathered(run: "_Run") -> dict:
+    """The run's stacks as single ``[S, ...]`` stacks (gathered onto the
+    first group's device where grouped; as they are otherwise)."""
+    from ..parallel import groups
+
+    return {k: groups.gather(getattr(run, k, None)) for k in _RUN_STACKS}
+
+
+def _regroup(run: "_Run", devices) -> None:
+    """Lay the run's stacks out over ``devices`` (one device gathers
+    them)."""
+    from ..parallel import groups
+
+    for k in _RUN_STACKS:
+        v = getattr(run, k)
+        if k == "mesh_ctrs" and v is not None:
+            setattr(run, k, tuple(groups.place(x, devices) for x in v))
+        else:
+            setattr(run, k, groups.place(v, devices))
 
 
 def _job_loop(job: EpochJob, workdir: Optional[str],
@@ -1374,7 +1428,7 @@ def _draw_counts_mesh(rng: np.random.Generator, job: EpochJob,
 
 
 def _mesh_boundary(job: EpochJob, planes, state, ledger, ctrs, b: int,
-                   prov=None, pm=None, up=None):
+                   mesh, prov=None, pm=None, up=None):
     """One mesh churn job's lifecycle boundary: every shard's plane
     applies its own due ops to its own slice, the counter plane's
     ``cd``/``cr`` (fill 0) and held views (fill 1) and the provenance
@@ -1389,9 +1443,11 @@ def _mesh_boundary(job: EpochJob, planes, state, ledger, ctrs, b: int,
     per-shard backlog and the boundary's liveness row ``up`` before any
     plane filters its due ops.  A deferral placed now re-enters as a
     pending op of its shard's plane (its scripted event fired at the
-    earlier boundary).  Returns ``(state, ledger, ctrs, prov)``."""
+    earlier boundary).  Each shard's boundary runs on its group's device
+    of ``mesh`` and the slices restack by its layout.
+    Returns ``(state, ledger, ctrs, prov)``."""
     from ..lifecycle import churn as churn_mod
-    from ..parallel.cluster import shard_view, stack_trees
+    from ..parallel.cluster import restack_shards, shard_view
 
     S = job.n_shards
     if pm is not None:
@@ -1414,12 +1470,13 @@ def _mesh_boundary(job: EpochJob, planes, state, ledger, ctrs, b: int,
                          "l": l, "apply_at": b})
     sts, leds, exs = [], [], []
     for s in range(S):
-        extras = [(c[s], fill) for c, fill in zip(ctrs, (0, 0, 1, 1))]
+        extras = [(shard_view(c, s), fill)
+                  for c, fill in zip(ctrs, (0, 0, 1, 1))]
         if prov is not None:
-            extras.append((prov.last_served[s], 0))
+            extras.append((shard_view(prov.last_served, s), 0))
         st_s, led_s, extras = planes[s].boundary(
             shard_view(state, s), b, job.ckpt_every,
-            ledger=None if ledger is None else ledger[s], extras=extras)
+            ledger=shard_view(ledger, s), extras=extras)
         sts.append(st_s)
         leds.append(led_s)
         exs.append(extras)
@@ -1428,15 +1485,13 @@ def _mesh_boundary(job: EpochJob, planes, state, ledger, ctrs, b: int,
         out = planes[s].ensure_capacity(cap, sts[s], ledger=leds[s],
                                         extras=exs[s])
         sts[s], leds[s], exs[s] = out[0], out[1], out[-1]
-    state = stack_trees(sts)
-    ledger = None if ledger is None else torch.stack(leds)
-    ctrs = tuple(torch.stack([exs[s][j][0] for s in range(S)])
+    state = restack_shards(sts, mesh)
+    ledger = None if ledger is None else restack_shards(leds, mesh)
+    ctrs = tuple(restack_shards([exs[s][j][0] for s in range(S)], mesh)
                  for j in range(4))
     if prov is not None:
-        from ..obs.provenance import ProvBlock
-
-        prov = ProvBlock(prov.margin_hist, prov.scal,
-                         torch.stack([exs[s][4][0] for s in range(S)]))
+        prov = prov._replace(last_served=restack_shards(
+            [exs[s][4][0] for s in range(S)], mesh))
     return state, ledger, ctrs, prov
 
 
@@ -1640,7 +1695,18 @@ def _mesh_epochs(run: _Run) -> None:
     from .guarded import run_mesh_chunk_guarded
 
     job, planes, tracer = run.job, run.planes, run.tracer
-    mesh = mesh_mod.make_mesh(job.n_shards, run.dev)
+    if job.devices is None:
+        mesh = mesh_mod.make_mesh(job.n_shards, run.dev)
+    else:
+        mesh = mesh_mod.make_mesh(job.n_shards, devices=job.devices)
+    if run.ctl is not None and len(set(mesh.devices)) > 1:
+        raise ValueError(
+            "the controller and live migration on a mesh over several "
+            "devices are ROADMAP item 11b (not ported): run the "
+            "controller with devices=None or one device repeated")
+    if mesh.grouped:
+        # the build or the restore made single stacks: one a group now
+        _regroup(run, mesh.devices)
     plan = None
     if job.fault_plan is not None:
         plan = plan_from_spec(parse_fault_spec(job.fault_plan),
@@ -1656,7 +1722,7 @@ def _mesh_epochs(run: _Run) -> None:
                              epoch=e0):
                 run.state, run.ledger, run.mesh_ctrs, run.prov = \
                     _mesh_boundary(job, planes, run.state, run.ledger,
-                                   run.mesh_ctrs, e0, run.prov,
+                                   run.mesh_ctrs, e0, mesh, run.prov,
                                    pm=run.pm, up=up_row)
         counts = None
         if do_ingest:
@@ -1714,18 +1780,28 @@ def _mesh_epochs(run: _Run) -> None:
             # roll the cluster-wide merged table; the fresh stamped
             # block goes back to every shard.  The starvation backlog is
             # the cluster total (at S=1 the stream loop's depth)
+            from ..parallel import groups
+
             merged, closed = run.slo_plane.roll(
                 g.slo_merged, run.slo_w0, b,
-                depth=run.state.depth.to(torch.int64).sum(dim=0))
+                depth=groups.reduce(
+                    run.state.depth, lambda a: a.to(torch.int64).sum(dim=0),
+                    torch.add))
             run.slo_w0 = b
             run.slo_eval.observe_roll(closed)
-            run.slo_block = mesh_mod.stack_shards(merged, job.n_shards)
+            run.slo_block = mesh_mod.stack_shards(merged, job.n_shards,
+                                                  mesh)
         if run.ctl is not None:
             # the cluster-level controller boundary: backlog is the
             # cluster's depth, press_backlog the hottest shard's, and
             # the chunk's mid-epoch pressure peaks arm the migrate rule
             # on calendar engines; a fired migrate moves drained
             # clients off the hottest shard before the snapshot
+            if mesh.grouped:
+                # a layout that repeats one device (others raised
+                # above): the controller reads and migration writes the
+                # single stacks, as on one device
+                _regroup(run, (mesh.device,))
             if g.press is not None and run.scr.scrape is not None:
                 try:
                     from ..obs import provenance as obsprov
@@ -1740,6 +1816,8 @@ def _mesh_epochs(run: _Run) -> None:
                     up_b = None if plan is None \
                         else plan.up[min(b, plan.up.shape[0] - 1)]
                     _mesh_migrate(run, b, up=up_b, press=g.press)
+            if mesh.grouped:
+                _regroup(run, mesh.devices)
         if run.ckpt_dir is not None:
             run.save(b, b - 1, rng_ckpt)
         run.flush_spans()

@@ -122,7 +122,8 @@ import torch
 from .core.qos import ClientInfo
 from .core.recs import ReqParams
 from .core.timebase import MAX_TAG, rate_to_inv_ns
-from .device import DEFAULT_DEVICE, resolve_device
+from .device import (DEFAULT_DEVICE, parse_devices, resolve_device,
+                     resolve_devices)
 from .engine.bridge import state_from_numpy
 from .engine.fastpath import (CalendarEpoch, PrefixEpoch,
                               scan_calendar_epoch, scan_chain_epoch,
@@ -2026,32 +2027,37 @@ MESH = dict(clients=100_000, engine="prefix", epochs=24, warmup_epochs=8,
 MESH_SEED = 29       # bench_mesh's arrival RNG (PCG64)
 
 
-def mesh_job(n: int, **over):
+def mesh_job(n: int, devices=None, **over):
     """The mesh row's per-shard job (bench_mesh's ``EpochJob``): the
     ``MESH`` shape at ``n`` clients a shard, ``over`` replacing fields.
-    Its ``_job_state`` is every shard's starting state."""
+    Its ``_job_state`` is every shard's starting state.  ``devices``
+    lays a supervised run of it (``engine_loop="mesh"``) out in groups
+    (``EpochJob.devices``)."""
     from .robust.supervisor import EpochJob
 
     kw = dict(engine=MESH["engine"], n=n, depth=MESH["depth"],
               ring=MESH["ring"], m=MESH["m"], k=MESH["k"],
               arrival_lam=MESH["arrival_lam"], waves=MESH["waves"],
               dt_epoch_ns=MESH["dt_epoch_ns"])
+    if devices is not None:
+        kw["devices"] = tuple(str(d) for d in devices)
     kw.update(over)
     return EpochJob(**kw)
 
 
-def mesh_start(job, n_shards: int, device):
+def mesh_start(job, n_shards: int, device, mesh=None):
     """``(state, cd, cr, view_d, view_r, slo)``: ``job``'s preloaded
     state stacked ``n_shards`` times, the counter plane at the protocol
-    origin and a zero SLO window block, on ``device``."""
+    origin and a zero SLO window block, on ``device`` (laid out on
+    ``mesh`` by group when one is given)."""
     from .parallel import mesh as mesh_mod
     from .robust.supervisor import _job_state
 
-    state = mesh_mod.stack_shards(_job_state(job, device), n_shards)
+    state = mesh_mod.stack_shards(_job_state(job, device), n_shards, mesh)
     return (state,) + mesh_mod.counter_init(n_shards, job.n,
-                                            device=device) \
+                                            device=device, mesh=mesh) \
         + (mesh_mod.stack_shards(obsslo.window_zero(job.n, device),
-                                 n_shards),)
+                                 n_shards, mesh),)
 
 
 def mesh_draws(rng: np.random.Generator, n_shards: int, n: int,
@@ -2068,7 +2074,8 @@ def plan_mesh_shards(clients: int, n_shards=None, *, ring: int = 16,
                      engine: str = "prefix", m: int = 4, k: int = 256,
                      telemetry: bool = True, slo: bool = True,
                      stream_chunk: int = 8,
-                     device: str | torch.device = DEFAULT_DEVICE) -> dict:
+                     device: str | torch.device = DEFAULT_DEVICE,
+                     devices=None) -> dict:
     """Shard planning for the mesh row (bench.py ``plan_mesh_shards``):
     without ``n_shards`` the count comes from the client target by
     inverting the capacity ledger against the card's budget
@@ -2076,10 +2083,21 @@ def plan_mesh_shards(clients: int, n_shards=None, *, ring: int = 16,
     shards share one card, so an explicit ``n_shards`` is not capped at
     a device count; ``over_budget`` is set as bench sets it, when a
     shard's partition exceeds the planned per-shard maximum.  Without a
-    budget (the CPU) and without ``n_shards``, one shard."""
+    budget (the CPU) and without ``n_shards``, one shard.
+
+    ``devices`` plans a layout of ``D = len(devices)`` groups: each
+    group's budget is its device's (``device_hbm_budget``) split evenly
+    among the groups that share the device, the smallest share plans
+    the per-group maximum (a group holds ``clients / D``; at one shard
+    a device that is bench's per-shard maximum), the shard count is
+    rounded up to a multiple of D, and the record adds ``devices`` and
+    ``n_groups``."""
     cap_cfg = dict(ring=ring, engine=engine, m=m, k=k,
                    telemetry=telemetry, slo=slo,
                    stream_chunk=stream_chunk)
+    if devices is not None:
+        return _plan_mesh_groups(clients, n_shards, resolve_devices(
+            devices), cap_cfg)
     budget = obscap.device_hbm_budget(resolve_device(device))
     shards_planned = max_per_shard = None
     if budget is not None:
@@ -2103,6 +2121,44 @@ def plan_mesh_shards(clients: int, n_shards=None, *, ring: int = 16,
     return plan
 
 
+def _plan_mesh_groups(clients: int, n_shards, devs: tuple,
+                      cap_cfg: dict) -> dict:
+    """:func:`plan_mesh_shards` over a layout of groups."""
+    n_groups = len(devs)
+    shares = []
+    for d in devs:
+        b = obscap.device_hbm_budget(d)
+        shares.append(None if b is None else b // devs.count(d))
+    budget = None if None in shares else min(shares)
+    shards_planned = max_per_group = None
+    if budget is not None:
+        cap = obscap.plan_capacity(budget, **cap_cfg)
+        max_per_group = max(int(cap["max_clients"]), 1)
+        shards_planned = max(1, -(-int(clients) // max_per_group))
+    eff = int(n_shards) if n_shards else \
+        n_groups * -(-(shards_planned or n_groups) // n_groups)
+    if eff % n_groups:
+        raise ValueError(f"{eff} shards do not split over {n_groups} "
+                         "devices (S % D must be 0)")
+    per_shard = -(-int(clients) // eff)
+    plan = {
+        "clients_total": int(clients),
+        "n_shards": eff,
+        "clients_per_shard": per_shard,
+        "shards_planned": shards_planned,
+        "max_clients_per_shard": max_per_group,
+        "hbm_budget_bytes": budget,
+        "projected_hbm_bytes_per_shard":
+            int(obscap.projected_hbm(per_shard, **cap_cfg)),
+        "devices": [str(d) for d in devs],
+        "n_groups": n_groups,
+    }
+    if max_per_group is not None and \
+            per_shard * (eff // n_groups) > max_per_group:
+        plan["over_budget"] = True
+    return plan
+
+
 def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
              counter_sync_every: int = 1, engine: str = MESH["engine"],
              epochs: int = MESH["epochs"],
@@ -2115,7 +2171,8 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
              dt_epoch_ns: int = MESH["dt_epoch_ns"],
              with_metrics: bool = True, slo: bool = True, tracer=None,
              fault_spec=None, registry=None,
-             device: str | torch.device = DEFAULT_DEVICE) -> dict:
+             device: str | torch.device = DEFAULT_DEVICE,
+             devices=None) -> dict:
     """Bench's mesh row (bench.py ``bench_mesh``): S full per-shard
     engines, each one server owning a distinct ``clients / S``
     partition with its own queue state and Poisson arrival stream,
@@ -2133,16 +2190,23 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
     per-shard dropout and resync counts read off the device metric rows
     (their totals equal ``plan_events``).  The row's keys are bench's;
     ``registry`` (default: the process registry) gets the per-shard
-    window and fault gauges."""
+    window and fault gauges.
+
+    ``devices`` lays the shards out over a layout of devices
+    (``make_mesh(S, devices=...)``; a name may repeat), every input
+    placed by group before the clock starts; the row adds ``devices``
+    and ``n_groups``.  Without it every shard stacks on ``device``."""
     from .obs.registry import default_registry
+    from .parallel import groups
     from .parallel import mesh as mesh_mod
     from .parallel import tracker as trk
     from .robust import faults as faults_mod
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if devices is None \
+        else resolve_devices(devices)[0]
     plan = plan_mesh_shards(clients, n_shards, ring=ring, engine=engine,
                             m=m, k=k, slo=slo, stream_chunk=chunk,
-                            device=dev)
+                            device=dev, devices=devices)
     S = plan["n_shards"]
     n = plan["clients_per_shard"]
     every = int(max(counter_sync_every, 1))
@@ -2158,8 +2222,9 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
     job = mesh_job(n, engine=engine, depth=depth, ring=ring, m=m, k=k,
                    arrival_lam=arrival_lam, waves=waves,
                    dt_epoch_ns=dt_epoch_ns)
-    mesh = mesh_mod.make_mesh(S, dev)
-    state, cd, cr, vd, vr, wblock = mesh_start(job, S, dev)
+    mesh = mesh_mod.make_mesh(S, dev) if devices is None \
+        else mesh_mod.make_mesh(S, devices=devices)
+    state, cd, cr, vd, vr, wblock = mesh_start(job, S, dev, mesh)
     warm_chunks = max(1, warmup_epochs // chunk)
     n_chunks = max(1, epochs // chunk)
     fplan = None
@@ -2177,13 +2242,15 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
     rng = np.random.Generator(np.random.PCG64(MESH_SEED))
 
     def draw(e):
-        return mesh_draws(rng, S, n, e, arrival_lam, dev)
+        return mesh_mod.place_shards(
+            mesh_draws(rng, S, n, e, arrival_lam, dev), mesh)
 
     def fault_chunk(e0):
         if fplan is None:
             return None
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in faults_mod.plan_chunk(fplan, e0, e0 + chunk))
+        return tuple(mesh_mod.place_shards(
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev), mesh)
+            for a in faults_mod.plan_chunk(fplan, e0, e0 + chunk))
 
     fault_mets = []
 
@@ -2204,19 +2271,22 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
         e0 += chunk
     pregen = [(draw(chunk), fault_chunk(e0 + i * chunk))
               for i in range(n_chunks)]
-    _sync(dev)
+    for d in set(mesh.devices):
+        _sync(d)
     timed = []
     t0 = time.perf_counter()
     for counts_c, fc in pregen:
         out = launch(out, e0, counts_c, fc)
         timed.append(out.outs["count"])
         e0 += chunk
-    _sync(dev)
+    for d in set(mesh.devices):
+        _sync(d)
     wall = time.perf_counter() - t0
 
     per_shard = np.zeros(S, dtype=np.int64)
     for counts_arr in timed:
-        per_shard += counts_arr.cpu().numpy().reshape(S, -1).sum(axis=1)
+        per_shard += groups.gather(counts_arr, "cpu").numpy() \
+            .reshape(S, -1).sum(axis=1)
     total = int(per_shard.sum())
     shard_dps = per_shard / wall
     sched = trk.exchange_schedule(n_chunks * chunk, counter_sync_every,
@@ -2247,7 +2317,7 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
     if fplan is not None:
         mets = np.zeros((S, obsdev.NUM_METRICS), dtype=np.int64)
         for mchunk in fault_mets:
-            a = mchunk.cpu().numpy()
+            a = groups.gather(mchunk, "cpu").numpy()
             for s in range(S):
                 mets[s] = obsdev.metrics_combine_np(mets[s], *a[s])
         row["fault_dropouts_per_shard"] = [
@@ -2258,7 +2328,8 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
             mets[:, obsdev.MET_FAULTS_INJECTED].sum())
         obsdev.publish_shard_faults(reg, mets,
                                     labels={"workload": "mesh"})
-    obsslo.publish_shard_windows(reg, out.slo.cpu().numpy(),
+    obsslo.publish_shard_windows(reg, groups.gather(out.slo, "cpu")
+                                 .numpy(),
                                  merged=out.slo_merged.cpu().numpy(),
                                  workload="mesh")
     return row
@@ -2278,15 +2349,20 @@ def _multichip_qos(n_clients: int, n_servers: int):
 
 
 def multichip_cluster(n_servers: int, n_clients: int, tracker_kind: str,
-                      device: str | torch.device = DEFAULT_DEVICE):
+                      device: str | torch.device = DEFAULT_DEVICE,
+                      devices=None):
     """The dry run's cluster (``__graft_entry__._dryrun_policy``): every
     server installs the same population, the clock starts at 1 s, and
     every client's previous tags are staggered across its own serve
-    period.  Returns ``(mesh, cluster, costs)``."""
+    period.  ``devices`` lays the servers out in groups
+    (``make_mesh(S, devices=...)``), as the dry run's mesh of devices
+    does.  Returns ``(mesh, cluster, costs)``."""
     from .parallel import cluster as CL
 
-    dev = resolve_device(device)
-    mesh = CL.make_mesh(n_servers, dev)
+    dev = resolve_device(device) if devices is None \
+        else resolve_devices(devices)[0]
+    mesh = CL.make_mesh(n_servers, dev) if devices is None \
+        else CL.make_mesh(n_servers, devices=devices)
     cl = CL.init_cluster(n_servers, n_clients, tracker_kind=tracker_kind,
                          device=dev)
     rinv, winv, costs, phase = _multichip_qos(n_clients, n_servers)
@@ -2314,7 +2390,8 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
                      rounds: int = 6, decisions_per_step: int = 1024,
                      max_arrivals: int = 3, drain_rounds: int = 4,
                      check_qos: bool = True,
-                     device: str | torch.device = DEFAULT_DEVICE) -> dict:
+                     device: str | torch.device = DEFAULT_DEVICE,
+                     devices=None) -> dict:
     """One accounting policy of the cluster dry run
     (``__graft_entry__._dryrun_policy``) on ``cluster_step``: a closed
     loop of ``warmup + rounds`` rounds (every completion triggers the
@@ -2325,13 +2402,15 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
     cost-weighted drain shares within 10% of 1:2:3 (they need the dry
     run's depth).  Returns the served totals, the class service, the
     shares and ``digest``, the ``robust.cluster.decision_digest`` of
-    every round's decisions."""
+    every round's decisions.  ``devices`` runs it over a layout of
+    device groups (:func:`multichip_cluster`)."""
     from .parallel import cluster as CL
+    from .parallel import groups
     from .robust.cluster import decision_digest
 
     mesh, cl, costs = multichip_cluster(n_servers, n_clients,
-                                        tracker_kind, device)
-    dev = cl.now.device
+                                        tracker_kind, device, devices)
+    dev = mesh.device
     k = decisions_per_step
     dt_round = 50_000_000
     _, winv, _, phase = _multichip_qos(n_clients, n_servers)
@@ -2372,7 +2451,7 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
         ph = decs.phase[mask]
         np.add.at(resv_by_class, cls[ph == 0], 1)
         np.add.at(prio_by_class, cls[ph == 1], 1)
-    backlog = int(cl.engine.depth.sum())
+    backlog = int(groups.gather(cl.engine.depth).sum())
     t_virtual = rounds * dt_round / 1e9
     floor_per_class = (n_clients / 3) * 1.0 * t_virtual
     total_by_class = resv_by_class + prio_by_class
@@ -2391,16 +2470,16 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
     # the contended backlog: uniform deltas, staggered tag phases, no
     # arrivals; cost-weighted service per class must split 1:2:3
     depth0 = 16
-    ring = cl.engine.q_arrival.shape[-1]
+    ring = groups.first_leaf(cl.engine.q_arrival).shape[-1]
     q_arr = np.zeros((n_clients, ring), dtype=np.int64)
     q_arr[:, :depth0 - 1] = np.tile(np.arange(1, depth0), (n_clients, 1))
     adv = winv * (1 + costs)
     stag = (phase * 2.0 * adv).astype(np.int64)
-    t1 = int(cl.now.max()) + 10 ** 9
+    t1 = int(groups.gather(cl.now).max()) + 10 ** 9
 
     def bcast(a):
-        return torch.from_numpy(np.ascontiguousarray(
-            np.broadcast_to(a, (n_servers,) + np.shape(a)))).to(dev)
+        return CL.place_shards(torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(a, (n_servers,) + np.shape(a)))).to(dev), mesh)
 
     i64 = np.int64
     eng = cl.engine._replace(
@@ -2418,8 +2497,8 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
         q_head=bcast(np.zeros(n_clients, dtype=np.int32)),
         q_arrival=bcast(q_arr),
         q_cost=bcast(np.tile(costs[:, None], (1, ring))))
-    cl = cl._replace(engine=eng, now=torch.full(
-        (n_servers,), t1, dtype=torch.int64, device=dev))
+    cl = cl._replace(engine=eng, now=CL.place_shards(torch.full(
+        (n_servers,), t1, dtype=torch.int64, device=dev), mesh))
     cost_units = np.zeros(3, dtype=np.int64)
     zero_arr = np.zeros((n_servers, n_clients), dtype=np.int32)
     for _ in range(drain_rounds):
@@ -2452,7 +2531,8 @@ def multichip_row(n_servers: int = 8, n_clients: int = 10_000, *,
                   tracker_kinds=("orig", "borrowing"), **kw) -> dict:
     """The cluster dry run (``__graft_entry__.dryrun_multichip``) under
     both accounting policies, OrigTracker and BorrowingTracker: one
-    :func:`multichip_policy` record per policy."""
+    :func:`multichip_policy` record per policy (``devices=`` passes
+    through: the dry run over a layout of device groups)."""
     return {"workload": "multichip", "servers": n_servers,
             "clients": n_clients,
             "policies": [multichip_policy(n_servers, n_clients, kind,
@@ -2464,17 +2544,19 @@ def cluster_outage(n_servers: int = 8, n_clients: int = 10_000, *,
                    steps: int = 3, decisions_per_step: int = 64,
                    server: int = 1, down_from: int = 1,
                    down_until: int = 2,
-                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
+                   device: str | torch.device = DEFAULT_DEVICE,
+                   devices=None) -> dict:
     """``robust_cluster_step`` on the dry run's cluster under a
     ``single_outage_plan`` (``server`` down for ``[down_from,
     down_until)``), each server sent a window of 4 a step: the decision
     digest, the merged metrics, and the final held views and clocks as
     host numpy."""
+    from .parallel import groups
     from .robust import cluster as RC
     from .robust import faults as faults_mod
 
     mesh, cl, costs = multichip_cluster(n_servers, n_clients, "orig",
-                                        device)
+                                        device, devices)
     plan = faults_mod.single_outage_plan(
         steps, n_servers, server=server, down_from=down_from,
         down_until=down_until)
@@ -2486,9 +2568,9 @@ def cluster_outage(n_servers: int = 8, n_clients: int = 10_000, *,
     return {"digest": RC.decision_digest(seq),
             "metrics": RC.metrics_totals(rc),
             "events": faults_mod.plan_events(plan),
-            "view_delta": rc.view_delta.cpu().numpy(),
-            "view_rho": rc.view_rho.cpu().numpy(),
-            "now": rc.cluster.now.cpu().numpy(),
+            "view_delta": groups.gather(rc.view_delta, "cpu").numpy(),
+            "view_rho": groups.gather(rc.view_rho, "cpu").numpy(),
+            "now": groups.gather(rc.cluster.now, "cpu").numpy(),
             "served": int(sum((d.type == 0).sum() for d in seq))}
 
 
@@ -2836,7 +2918,12 @@ def main(argv=None) -> int:
     ap.add_argument("--window-m", type=int, default=None,
                     help="serve: batches per ring-window prefetch")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--devices", default=None,
+                    help="mesh/multichip: lay the shards out over devices"
+                         ", a list (cuda:0,cuda:1; a name may repeat) or "
+                         "a count of cards (4 = the first four)")
     a = ap.parse_args(argv)
+    devices = None if a.devices is None else parse_devices(a.devices)
     if a.target_latency:
         a.workload = "frontier"
     if a.workload == "queue":
@@ -2859,8 +2946,10 @@ def main(argv=None) -> int:
         row = mesh_row(a.clients or MESH["clients"], n_shards=a.n_shards,
                        counter_sync_every=a.counter_sync_every,
                        fault_spec=parse_fault_spec(a.fault_plan),
-                       device=a.device)
-        print(json.dumps({"device": str(resolve_device(a.device)),
+                       device=a.device, devices=devices)
+        print(json.dumps({"device": str(resolve_device(a.device)
+                                        if devices is None else
+                                        resolve_devices(devices)[0]),
                           **row}))
         if a.rebalance == "on":
             _print_rows({"mesh_rebalance": mesh_rebalance_row(
@@ -2889,8 +2978,12 @@ def main(argv=None) -> int:
     if a.workload == "multichip":
         row = multichip_row(a.n_shards or 8, a.clients or 10_000,
                             decisions_per_step=a.k or 1024,
-                            device=a.device)
-        print(json.dumps({"device": str(resolve_device(a.device)),
+                            device=a.device, devices=devices)
+        if devices is not None:
+            row["devices"] = [str(d) for d in resolve_devices(devices)]
+        print(json.dumps({"device": str(resolve_device(a.device)
+                                        if devices is None else
+                                        resolve_devices(devices)[0]),
                           **row}))
         return 0
     if a.workload == "churn":

@@ -41,6 +41,15 @@ call over ``[S, C]``.  The JAX ``lax.while_loop`` over serve batches is
 a host loop that reads each batch's count back; the ring window of each
 prefix batch and of each calendar batch is kernel K1 on the card, and
 the wheel's scans kernel K2.
+
+Across devices (:func:`shard_device_sim`, ``device_sim_step(mesh=)``,
+``run_device_sim(devices=)``), the servers go in contiguous groups, one
+stack a group on its device (``parallel.groups``), as the JAX package's
+``shard_map`` over its ``servers`` mesh places them; the client load,
+the clock and the guard-trip count are replicated, one copy a group.
+Each slice takes the JAX step's three reductions between groups: the
+tracker's counter sum, the guard trips and the completions, each an
+exact int sum that hands every group the same value.
 """
 
 from __future__ import annotations
@@ -54,7 +63,8 @@ import torch
 
 from ..core.qos import ClientInfo
 from ..core.timebase import NS_PER_SEC
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import (DEFAULT_DEVICE, parse_devices, resolve_device,
+                      resolve_devices)
 from ..engine import kernels
 from ..engine.bridge import _check_fields, _tensor_from_numpy
 from ..engine.fastpath import (_window_heads, calendar_batch,
@@ -62,6 +72,8 @@ from ..engine.fastpath import (_window_heads, calendar_batch,
                                calendar_batch_wheel, ring_window,
                                speculate_prefix_batch)
 from ..engine.state import FIELD_DTYPES, EngineState, init_state
+from ..parallel import groups
+from ..parallel.cluster import MeshLayout, make_mesh
 from ..parallel.tracker import (TRACKER_DTYPES, TrackerState,
                                 global_counters, init_tracker,
                                 tracker_prepare, tracker_track,
@@ -440,15 +452,72 @@ def _prefix_serve(eng: EngineState, t_end, spec: DeviceSimSpec,
     return eng, dbuf, gt
 
 
+# the fields a server group holds a block of; the rest are replicated
+SERVER_FIELDS = ("engine", "tracker", "served_resv", "served_prop",
+                 "last_served")
+
+
+def shard_device_sim(sim: DeviceSim, mesh: MeshLayout) -> DeviceSim:
+    """Lay a sim out on ``mesh`` (the JAX package's
+    ``shard_device_sim``): the servers' leaves go by group, one stack a
+    group on its device, and the replicated ``load``, ``t`` and
+    ``guard_trips`` get one copy on every group's device.  A one-device
+    mesh moves the sim to its device."""
+    sim = gather_device_sim(sim)
+    if groups.leading(sim.engine) != mesh.n_shards:
+        raise ValueError(f"{groups.leading(sim.engine)} servers on a "
+                         f"{mesh.n_shards}-shard mesh")
+    devs = mesh.devices
+    if len(devs) == 1:
+        return groups.tree_map(lambda a: a.to(devs[0]), sim)
+    return DeviceSim(**{
+        f: groups.place(v, devs) if f in SERVER_FIELDS
+        else groups.replicate(v, devs)
+        for f, v in zip(sim._fields, sim)})
+
+
+def gather_device_sim(sim: DeviceSim, device=None) -> DeviceSim:
+    """A grouped sim as one stacked sim on ``device`` (default the first
+    group's); the replicated leaves are every group's same value, so the
+    first group's copy stands for them."""
+    if not groups.is_grouped(sim.engine):
+        return sim if device is None else groups.tree_map(
+            lambda a: a.to(torch.device(device)), sim)
+    dev = sim.engine.devices[0] if device is None else torch.device(device)
+    return DeviceSim(**{
+        f: groups.gather(v, dev) if f in SERVER_FIELDS
+        else groups.tree_map(lambda a: a.to(dev), v[0])
+        for f, v in zip(sim._fields, sim)})
+
+
 def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
-                    counts: Optional[StepCounts] = None) -> DeviceSim:
+                    counts: Optional[StepCounts] = None,
+                    mesh: Optional[MeshLayout] = None) -> DeviceSim:
     """Advance ``slices`` time slices.  Pass a :class:`StepCounts` to
-    have the host loop's batches and read backs counted into it."""
+    have the host loop's batches and read backs counted into it.
+
+    ``mesh`` lays the sim out first (:func:`shard_device_sim`); a sim
+    already grouped keeps its layout.  On a grouped sim every group
+    runs its own servers on its device, and the counter sum, the guard
+    trips and the completions reduce between the groups each slice, as
+    the JAX step's three ``psum``s do."""
     counts = counts if counts is not None else StepCounts()
+    if mesh is not None and (mesh.grouped
+                             or groups.is_grouped(sim.engine)):
+        sim = shard_device_sim(sim, mesh)
+    grouped = groups.is_grouped(sim.engine)
     s_total = spec.n_servers
     c = spec.n_clients
-    dev = sim.t.device
-    server_ids = torch.arange(s_total, dtype=torch.int32, device=dev)
+    if grouped:
+        devs = sim.engine.devices
+        per = sim.engine.per_group
+        # every group's block of the stacks, and its copy of the rest
+        parts = [DeviceSim(*(v.parts[g] if f in SERVER_FIELDS else v[g]
+                             for f, v in zip(sim._fields, sim)))
+                 for g in range(len(devs))]
+    else:
+        devs, per, parts = (sim.t.device,), s_total, [sim]
+    n_groups = len(devs)
     # opting into the calendar serve path implies the budgeted batch
     # loop (it is exact at any q; the q >= 256 heuristic only picks the
     # default).  AtLimit::Allow rides the prefix path too (limit-break
@@ -473,96 +542,141 @@ def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
             "allow_limit_break unless every client weight "
             "is positive")
 
-    engines = [server_view(sim.engine, s) for s in range(s_total)]
-    tracker, load = sim.tracker, sim.load
-    sresv, sprop, slast = sim.served_resv, sim.served_prop, \
-        sim.last_served
-    t, trips = sim.t, sim.guard_trips
+    def reduced(xs: list):
+        """Per-group partials ``xs`` summed over the groups, each group
+        handed its copy (the psum); one group keeps its own."""
+        if not grouped:
+            return xs
+        return list(groups.replicate(
+            groups.reduce(groups.Grouped(xs, devs), lambda a: a,
+                          torch.add), devs))
+
+    # each group's server ids: the global ids of its block
+    server_ids = [torch.arange(g * per, (g + 1) * per, dtype=torch.int32,
+                               device=devs[g]) for g in range(n_groups)]
+    engines = [[server_view(p.engine, j) for j in range(per)]
+               for p in parts]
+    tracker = [p.tracker for p in parts]
+    load = [p.load for p in parts]
+    sresv = [p.served_resv for p in parts]
+    sprop = [p.served_prop for p in parts]
+    slast = [p.last_served for p in parts]
+    t = [p.t for p in parts]
+    trips = [p.guard_trips for p in parts]
     for _ in range(slices):
-        # the client-global counters: a sum over the server axis
-        g_delta, g_rho = global_counters(tracker)
-        n = _slice_sends(load, t, spec.slice_ns, spec.max_sends)
+        # the client-global counters: a sum over the server axis, within
+        # each group and then between the groups
+        if grouped:
+            g_delta, g_rho = global_counters(
+                groups.Grouped(tracker, devs))
+        else:
+            g_delta, g_rho = global_counters(tracker[0])
+        n = [_slice_sends(load[g], t[g], spec.slice_ns, spec.max_sends)
+             for g in range(n_groups)]
 
         # the ingest waves (max_sends is static and small): one request
-        # per client per wave, slots distinct; the tracker once over
-        # [S, C], the engines server by server
+        # per client per wave, slots distinct; the tracker once over a
+        # group's [S, C], the engines server by server
         for wave in range(spec.max_sends):
-            mine = _sends_to_server(load, n, wave, server_ids, s_total,
-                                    spec.random_select)
-            tracker, d_out, r_out = tracker_prepare(tracker, mine,
-                                                    g_delta, g_rho)
-            rho = torch.where(mine, r_out, 1)
-            delta = torch.where(mine, d_out, 1)
-            engines = [kernels.ingest_wave(
-                engines[s], mine[s], t, load.cost, rho[s], delta[s],
-                anticipation_ns=0) for s in range(s_total)]
+            for g in range(n_groups):
+                mine = _sends_to_server(load[g], n[g], wave,
+                                        server_ids[g], s_total,
+                                        spec.random_select)
+                tracker[g], d_out, r_out = tracker_prepare(
+                    tracker[g], mine, groups.pick(g_delta, g),
+                    groups.pick(g_rho, g))
+                rho = torch.where(mine, r_out, 1)
+                delta = torch.where(mine, d_out, 1)
+                engines[g] = [kernels.ingest_wave(
+                    engines[g][j], mine[j], t[g], load[g].cost, rho[j],
+                    delta[j], anticipation_ns=0) for j in range(per)]
 
         # serve q decisions per server at the slice boundary
-        t_end = t + spec.slice_ns
-        decs, cal_srv, cal_rsv = [], [], []
-        for s in range(s_total):
-            eng = engines[s]
-            if use_prefix:
-                cal_total = 0
-                if use_cal:
-                    eng, srv_c, rsv_c, cal_total = _calendar_front(
-                        eng, t_end, spec, counts)
-                    cal_srv.append(srv_c)
-                    cal_rsv.append(rsv_c)
-                eng, d, gt = _prefix_serve(eng, t_end, spec, cal_total,
-                                           counts)
-                trips = (trips + gt).to(torch.int32)
-            else:
-                eng, _, d = kernels.engine_run(
-                    eng, t_end, spec.q_per_slice,
-                    allow_limit_break=spec.allow_limit_break,
-                    anticipation_ns=0, advance_now=False)
-            engines[s] = eng
-            decs.append(d)
-        decs = kernels.Decision(*(torch.stack(col) for col in zip(*decs)))
-        served = decs.type == kernels.RETURNING
+        gts, dones = [], []
+        for g in range(n_groups):
+            t_end = t[g] + spec.slice_ns
+            decs, cal_srv, cal_rsv = [], [], []
+            gt_g = None
+            for j in range(per):
+                eng = engines[g][j]
+                if use_prefix:
+                    cal_total = 0
+                    if use_cal:
+                        eng, srv_c, rsv_c, cal_total = _calendar_front(
+                            eng, t_end, spec, counts)
+                        cal_srv.append(srv_c)
+                        cal_rsv.append(rsv_c)
+                    eng, d, gt = _prefix_serve(eng, t_end, spec,
+                                               cal_total, counts)
+                    gt_g = gt if gt_g is None else gt_g + gt
+                else:
+                    eng, _, d = kernels.engine_run(
+                        eng, t_end, spec.q_per_slice,
+                        allow_limit_break=spec.allow_limit_break,
+                        anticipation_ns=0, advance_now=False)
+                engines[g][j] = eng
+                decs.append(d)
+            gts.append(gt_g)
+            decs = kernels.Decision(*(torch.stack(col)
+                                      for col in zip(*decs)))
+            served = decs.type == kernels.RETURNING
 
-        tracker = tracker_track(tracker, decs.slot, decs.cost,
-                                decs.phase, served)
-        if use_cal:
-            cal_srv = torch.stack(cal_srv)
-            cal_rsv = torch.stack(cal_rsv)
-            # calendar serves arrive as per-client totals; the counts
-            # fold computes the same sums as the decision-stream fold
-            # (per-client cost is constant here)
-            tracker = tracker_track_counts(tracker, cal_srv, cal_rsv,
-                                           load.cost)
+            tracker[g] = tracker_track(tracker[g], decs.slot, decs.cost,
+                                       decs.phase, served)
+            if use_cal:
+                cal_srv = torch.stack(cal_srv)
+                cal_rsv = torch.stack(cal_rsv)
+                # calendar serves arrive as per-client totals; the
+                # counts fold computes the same sums as the decision-
+                # stream fold (per-client cost is constant here)
+                tracker[g] = tracker_track_counts(tracker[g], cal_srv,
+                                                  cal_rsv, load[g].cost)
 
-        # stats + completion feedback (one [S, q] scatter-add per phase)
-        one = served.to(torch.int64)
-        idx = torch.where(served, decs.slot, 0).to(torch.int64)
-        sresv = sresv.scatter_add(1, idx, one * (decs.phase == 0))
-        sprop = sprop.scatter_add(1, idx, one * (decs.phase == 1))
-        slast = slast.scatter_reduce(1, idx,
-                                     torch.where(served, t_end, 0),
-                                     "amax", include_self=True)
-        done_here = torch.zeros((s_total, c), dtype=torch.int32,
-                                device=dev).scatter_add(
-            1, idx, one.to(torch.int32))
-        if use_cal:
-            sresv = sresv + cal_rsv.to(torch.int64)
-            sprop = sprop + (cal_srv - cal_rsv).to(torch.int64)
-            slast = torch.maximum(slast, torch.where(cal_srv > 0, t_end,
-                                                     0))
-            done_here = done_here + cal_srv
-        completions = done_here.sum(dim=0)
+            # stats + completion feedback (one [S, q] scatter-add per
+            # phase)
+            one = served.to(torch.int64)
+            idx = torch.where(served, decs.slot, 0).to(torch.int64)
+            sresv[g] = sresv[g].scatter_add(1, idx, one * (decs.phase == 0))
+            sprop[g] = sprop[g].scatter_add(1, idx, one * (decs.phase == 1))
+            slast[g] = slast[g].scatter_reduce(
+                1, idx, torch.where(served, t_end, 0), "amax",
+                include_self=True)
+            done_here = torch.zeros((per, c), dtype=torch.int32,
+                                    device=devs[g]).scatter_add(
+                1, idx, one.to(torch.int32))
+            if use_cal:
+                sresv[g] = sresv[g] + cal_rsv.to(torch.int64)
+                sprop[g] = sprop[g] + (cal_srv - cal_rsv).to(torch.int64)
+                slast[g] = torch.maximum(
+                    slast[g], torch.where(cal_srv > 0, t_end, 0))
+                done_here = done_here + cal_srv
+            dones.append(done_here.sum(dim=0))
+        if use_prefix:
+            trips = [(trips[g] + tg).to(torch.int32)
+                     for g, tg in enumerate(reduced(gts))]
+        completions = reduced(dones)
 
-        load = load._replace(
-            sent=(load.sent + n).to(torch.int32),
-            outstanding=(load.outstanding + n
-                         - completions).to(torch.int32),
-            next_send=load.next_send + n.to(torch.int64) * load.gap_ns,
-        )
-        t = t_end
+        for g in range(n_groups):
+            load[g] = load[g]._replace(
+                sent=(load[g].sent + n[g]).to(torch.int32),
+                outstanding=(load[g].outstanding + n[g]
+                             - completions[g]).to(torch.int32),
+                next_send=load[g].next_send
+                + n[g].to(torch.int64) * load[g].gap_ns,
+            )
+        t = [x + spec.slice_ns for x in t]
         counts.slices += 1
-    return DeviceSim(engine=_restack(engines), tracker=tracker, load=load,
-                     served_resv=sresv, served_prop=sprop,
-                     last_served=slast, t=t, guard_trips=trips)
+    out = [DeviceSim(engine=_restack(engines[g]), tracker=tracker[g],
+                     load=load[g], served_resv=sresv[g],
+                     served_prop=sprop[g], last_served=slast[g], t=t[g],
+                     guard_trips=trips[g]) for g in range(n_groups)]
+    if not grouped:
+        return out[0]
+    return DeviceSim(**{
+        f: groups.Grouped([getattr(o, f) for o in out], devs)
+        if f in SERVER_FIELDS
+        else groups.Replicated([getattr(o, f) for o in out])
+        for f in DeviceSim._fields})
 
 
 def check_guard_trips(sim: DeviceSim) -> None:
@@ -571,7 +685,7 @@ def check_guard_trips(sim: DeviceSim) -> None:
     validated statically by init_device_sim, so a trip means that
     validation no longer covers the workload and committed counts are
     untrustworthy."""
-    trips = int(sim.guard_trips)
+    trips = int(groups.pick(sim.guard_trips, 0))
     if trips:
         raise RuntimeError(
             f"device_sim: {trips} prefix rebase-guard trip(s) -- "
@@ -581,7 +695,11 @@ def check_guard_trips(sim: DeviceSim) -> None:
 
 
 def served_total(sim: DeviceSim) -> int:
-    """Completions so far over every server and client (one read back)."""
+    """Completions so far over every server and client (one read back
+    a group)."""
+    if groups.is_grouped(sim.served_resv):
+        return sum(int(a.sum() + b.sum()) for a, b in
+                   zip(sim.served_resv.parts, sim.served_prop.parts))
     return int(sim.served_resv.sum() + sim.served_prop.sum())
 
 
@@ -594,7 +712,8 @@ def run_device_sim(cfg: SimConfig, *, ring_capacity: int = 256,
                    calendar_steps: int = 8,
                    ladder_levels: int = 4,
                    device: str | torch.device = DEFAULT_DEVICE,
-                   counts: Optional[StepCounts] = None):
+                   counts: Optional[StepCounts] = None,
+                   mesh: Optional[MeshLayout] = None, devices=None):
     """Run to completion (all clients' ops served) or the launch cap.
     A "launch" is one :func:`device_sim_step` of ``slices_per_launch``
     slices; the served totals are read back after each (counted in
@@ -610,15 +729,32 @@ def run_device_sim(cfg: SimConfig, *, ring_capacity: int = 256,
     (DeviceSimSpec.calendar_impl) -- service stays exactly the q-step
     serial stream.
 
+    ``devices`` spreads the servers over a layout of devices in
+    contiguous groups (``parallel.groups``; a name may repeat), and
+    falls back to one group on its first device when the server count
+    does not divide, as the JAX package's ``run_device_sim`` does with
+    its device mesh; ``mesh`` is such a layout already made (its shard
+    count must be the server count).  Without either, one stack on
+    ``device``.
+
     Returns (sim, spec, report_str)."""
     counts = counts if counts is not None else StepCounts()
+    total = sum(g.server_count for g in cfg.srv_group)
+    if mesh is None and devices is not None:
+        devs = resolve_devices(devices)
+        mesh = make_mesh(total, devices=devs if total % len(devs) == 0
+                         else devs[:1])
+    if mesh is not None:
+        device = mesh.device
     sim, spec = init_device_sim(cfg, ring_capacity=ring_capacity,
                                 select_impl=select_impl,
                                 calendar_impl=calendar_impl,
                                 calendar_steps=calendar_steps,
                                 ladder_levels=ladder_levels,
                                 device=device)
-    total_ops = int(sim.load.total_ops.sum())
+    if mesh is not None:
+        sim = shard_device_sim(sim, mesh)
+    total_ops = int(groups.pick(sim.load, 0).total_ops.sum())
     launches = 0
     completed = 0
     for launches in range(1, max_launches + 1):
@@ -638,6 +774,7 @@ def run_device_sim(cfg: SimConfig, *, ring_capacity: int = 256,
 def format_report(cfg: SimConfig, sim: DeviceSim, spec: DeviceSimSpec,
                   launches: int, *, completed: Optional[int] = None,
                   total_ops: Optional[int] = None) -> str:
+    sim = gather_device_sim(sim)
     sresv = sim.served_resv.cpu().numpy().sum(axis=0)   # [C]
     sprop = sim.served_prop.cpu().numpy().sum(axis=0)
     t_s = int(sim.t) / NS_PER_SEC
@@ -704,8 +841,10 @@ def device_sim_from_numpy(arrays, device: str | torch.device =
 
 
 def device_sim_to_numpy(sim: DeviceSim) -> dict:
-    """Every field of a ``DeviceSim`` as host numpy arrays in the nested
-    layout :func:`device_sim_from_numpy` takes, dtypes kept."""
+    """Every field of a ``DeviceSim`` (stacked or grouped) as host numpy
+    arrays in the nested layout :func:`device_sim_from_numpy` takes,
+    dtypes kept."""
+    sim = gather_device_sim(sim)
     out = {}
     for f, v in zip(sim._fields, sim):
         if isinstance(v, tuple):
@@ -828,6 +967,10 @@ def main(argv=None) -> int:
     p.add_argument("--max-launches", type=int, default=200)
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="device of the sim state (default cuda)")
+    p.add_argument("--devices", default=None,
+                   help="spread the servers over devices: a list "
+                        "(cuda:0,cuda:1; a name may repeat) or a count "
+                        "of cards (4 = the first four)")
     args = p.parse_args(argv)
     cfg = parse_config_file(args.conf)
     counts = StepCounts()
@@ -835,7 +978,8 @@ def main(argv=None) -> int:
         cfg, ring_capacity=args.ring_capacity,
         slices_per_launch=args.slices_per_launch,
         max_launches=args.max_launches, device=args.device,
-        counts=counts)
+        counts=counts, devices=None if args.devices is None
+        else parse_devices(args.devices))
     print(report)
     print(f"# host loop: {counts.slices} slices, {counts.prefix_batches} "
           f"prefix and {counts.calendar_batches} calendar batches, "

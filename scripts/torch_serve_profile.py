@@ -12,7 +12,8 @@
     python3 scripts/torch_serve_profile.py --workload churn [--epochs 64]
     python3 scripts/torch_serve_profile.py --workload device_sim
         [--rounds 2] [--calendar-impl minstop]
-    python3 scripts/torch_serve_profile.py --workload mesh [--n-shards 8]
+    python3 scripts/torch_serve_profile.py --workload mesh [--n-shards 8] \
+        [--devices cuda:0,cuda:0 | --devices 4]
         [--counter-sync-every 4]
     python3 scripts/torch_serve_profile.py --workload rpc [--n 100000]
 
@@ -49,7 +50,11 @@ profiles one chunk of bench's mesh row (``serve.mesh_row``'s shape:
 100,000 clients over ``--n-shards`` shards on the card, 8 epochs) after
 one warm chunk, and prints launches per shard-epoch and the counter
 sum's share: its device time (CUDA events over repeated sums of the
-chunk's counters) and launches per epoch against the chunk's.  ``rpc``
+chunk's counters) and launches per epoch against the chunk's.
+``--devices`` lays the shards out in device groups
+(``make_mesh(S, devices=...)``; a name may repeat, a count names the
+first cards) and runs the grouped chunk the same way; the counter sum
+is then the reduction within and between the groups.  ``rpc``
 profiles the RPC serving loop at ``rpc_full``'s shape
 (``net.serve.run_serve``: 100,000 clients, ring 128 preloaded 64 deep,
 prefix m=8 batches of k=65,536, 8 waves, a boundary every 2 epochs, 6
@@ -133,6 +138,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n-shards", type=int, default=8, help="mesh")
     ap.add_argument("--counter-sync-every", type=int, default=1,
                     help="mesh")
+    ap.add_argument("--devices", default=None,
+                    help="mesh: the layout's devices (cuda:0,cuda:1; a "
+                         "name may repeat) or a count of cards")
     ap.add_argument("--out", default=None,
                     help="table file (chiprun_out/<workload>[_<knobs>]"
                     "_profile.txt)")
@@ -177,8 +185,11 @@ def main(argv=None) -> int:
     if a.workload == "rpc":
         return _profile_rpc(a.n, card, out)
     if a.workload == "mesh":
+        from dmclock_tpu_torch.device import parse_devices
+
         return _profile_mesh(serve, a.n, a.n_shards, a.counter_sync_every,
-                             card, out)
+                             card, out, None if a.devices is None
+                             else parse_devices(a.devices))
     a.epochs = a.epochs or 1
     if a.workload == "serve":
         m = 32 if a.m is None else a.m
@@ -409,51 +420,62 @@ def _profile_queue(serve, n: int, card: str, out: str) -> int:
 
 
 def _profile_mesh(serve, clients: int, n_shards: int, every: int,
-                  card: str, out: str) -> int:
+                  card: str, out: str, devices=None) -> int:
     """One chunk of the mesh row's shape after one warm chunk, profiled;
     the counter sum (``parallel.tracker.global_counters_from`` over the
-    stacked per-shard counters, once an epoch) timed apart."""
+    per-shard counters restacked by the layout, once an epoch) timed
+    apart with CUDA events on the first group's device."""
     import numpy as np
 
+    from dmclock_tpu_torch.parallel import groups
     from dmclock_tpu_torch.parallel import mesh as TM
     from dmclock_tpu_torch.parallel.tracker import global_counters_from
 
     c = serve.MESH
     n, chunk = clients // n_shards, c["chunk"]
     job = serve.mesh_job(n)
+    mesh = TM.make_mesh(n_shards, "cuda") if devices is None \
+        else TM.make_mesh(n_shards, devices=devices)
     fn = TM.build_mesh_chunk(
-        TM.make_mesh(n_shards, "cuda"), engine=job.engine, epochs=chunk,
+        mesh, engine=job.engine, epochs=chunk,
         m=job.m, k=job.k, dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
         with_metrics=True, counter_sync_every=every, ingest=True)
     rng = np.random.Generator(np.random.PCG64(serve.MESH_SEED))
 
     def draw():
-        return serve.mesh_draws(rng, n_shards, n, chunk, job.arrival_lam,
-                                "cuda")
+        return TM.place_shards(serve.mesh_draws(
+            rng, n_shards, n, chunk, job.arrival_lam, mesh.device), mesh)
 
-    state, cd, cr, vd, vr, slo = serve.mesh_start(job, n_shards, "cuda")
+    def sync():
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+
+    state, cd, cr, vd, vr, slo = serve.mesh_start(job, n_shards,
+                                                  mesh.device, mesh)
     warm = fn(state, cd, cr, vd, vr, 0, draw(), slo=slo)
     counts = draw()
     res, prof = _profiled(lambda: fn(
         warm.state, warm.cd, warm.cr, warm.view_d, warm.view_r, chunk,
         counts, slo=warm.slo))
-    cds = [res.cd[s] for s in range(n_shards)]
-    crs = [res.cr[s] for s in range(n_shards)]
+    cds = [TM.shard_view(res.cd, s) for s in range(n_shards)]
+    crs = [TM.shard_view(res.cr, s) for s in range(n_shards)]
 
     def counter_sum():
-        return global_counters_from(torch.stack(cds), torch.stack(crs))
+        return global_counters_from(TM.restack_shards(cds, mesh),
+                                    TM.restack_shards(crs, mesh))
 
     for _ in range(3):
         counter_sum()
     reps = 200
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        counter_sum()
-    end.record()
-    torch.cuda.synchronize()
+    sync()
+    with torch.cuda.device(mesh.device):
+        start.record()
+        for _ in range(reps):
+            counter_sum()
+        end.record()
+    sync()
     sum_ms = start.elapsed_time(end) / reps
     sums = chunk if every == 1 else chunk // every
     shard_epochs = n_shards * chunk
@@ -462,7 +484,8 @@ def _profile_mesh(serve, clients: int, n_shards: int, every: int,
     print(json.dumps({
         "card": card, "workload": "mesh", "clients": clients,
         "n_shards": n_shards, "counter_sync_every": every, "epochs": chunk,
-        "decisions": int(res.outs["count"].sum()),
+        "devices": [str(d) for d in mesh.devices],
+        "decisions": int(groups.gather(res.outs["count"]).sum()),
         "launches_per_shard_epoch": prof["kernel_launches"] / shard_epochs,
         "counter_sum_ms": sum_ms, "counter_sums": sums,
         "counter_sum_share_of_busy": sum_ms * sums

@@ -940,3 +940,128 @@ def test_run_serve_on_the_card_equals_cpu(cuda):
     for key in want:
         if key != "latency":
             assert got[key] == want[key], key
+
+
+# ----------------------------------------------------------------------
+# the mesh across devices: launches on the tensors' device, and the
+# grouped layout on one card
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_last_card_while_cuda0_is_current(cuda):
+    """K1 and K2 on the last visible card while ``cuda:0`` is the current
+    device: each wrapper launches on its tensors' device, equal to the
+    plain version."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two CUDA devices to put a kernel's tensors "
+                    f"off the current one; {count} visible")
+    last = torch.device("cuda", count - 1)
+    with torch.cuda.device(0):
+        ring, q0 = ring_case(4096, 16, 7)
+        ta, tc, tq = (torch.from_numpy(x).to(last)
+                      for x in (ring, np.roll(ring, 1, axis=1), q0))
+        before = dict(_ext.LAUNCHES)
+        ga, gc = tfp.ring_window_rows(ta, tc, tq, 4)
+        keys, slot = wheel_case("random", 4096, 768)
+        cnt, bmin, val, found = tk.wheel_scan(
+            torch.from_numpy(keys).to(last),
+            torch.from_numpy(slot).to(last), 768)
+        torch.cuda.synchronize(last)
+        assert torch.cuda.current_device() == 0
+    assert _ext.LAUNCHES["ring_window"] == before["ring_window"] + 1
+    assert _ext.LAUNCHES["wheel_scan"] == before["wheel_scan"] + 1
+    assert ga.device == last and cnt.device == last
+    assert torch.equal(ga, tfp._ring_window_torch(ta, tq, 4))
+    assert torch.equal(gc, tfp._ring_window_torch(tc, tq, 4))
+    want = plain_wheel_scan(keys, slot, 768)
+    got = (cnt.cpu().numpy(), bmin.cpu().numpy(), int(val), bool(found))
+    for a, b in zip(got, want):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["prefix", "wheel"])
+def test_grouped_mesh_chunk_on_one_card_equals_stacked(cuda, engine):
+    """The mesh chunk over ``("cuda:0",) * 4`` groups equals the one
+    stacked group on the card, field by field."""
+    from dmclock_tpu_torch.obs import slo as TSLO
+    from dmclock_tpu_torch.parallel import groups
+    from dmclock_tpu_torch.parallel import mesh as TM
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    s, n, epochs = 8, 2000, 2
+    kw = dict(calendar_impl="wheel", ladder_levels=2) \
+        if engine == "wheel" else {}
+    job = TS.EpochJob(engine="prefix" if engine == "prefix" else
+                      "calendar", n=n, depth=12, ring=16, m=2,
+                      k=64 if engine == "prefix" else 4, waves=4, **kw)
+    counts = torch.from_numpy(np.random.default_rng(3).poisson(
+        2.0, (s, epochs, n)).astype(np.int32))
+    outs = []
+    for devices in (("cuda:0",), ("cuda:0",) * 4):
+        mesh = TM.make_mesh(s, devices=devices)
+        fn = TM.build_mesh_chunk(
+            mesh, engine=job.engine, epochs=epochs, m=job.m, k=job.k,
+            dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
+            calendar_impl=job.calendar_impl,
+            ladder_levels=job.ladder_levels)
+        state = TM.stack_shards(TS._job_state(job, "cuda:0"), s, mesh)
+        out = fn(state, *TM.counter_init(s, n, mesh=mesh), 0,
+                 TM.place_shards(counts.to("cuda:0"), mesh),
+                 slo=TM.stack_shards(TSLO.window_zero(n, "cuda:0"), s,
+                                     mesh))
+        outs.append(groups.gather(out, "cpu"))
+    assert groups.is_grouped(out.cd)
+    for f in TM.MeshChunk._fields:
+        a, b = getattr(outs[0], f), getattr(outs[1], f)
+        for x, y in zip(_leaves(a), _leaves(b)):
+            assert torch.equal(x, y), f
+    assert int(outs[0].outs["count"].sum()) > 0
+
+
+def _leaves(tree):
+    if tree is None:
+        return []
+    if torch.is_tensor(tree):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [x for v in vals for x in _leaves(v)]
+
+
+@pytest.mark.cuda
+def test_grouped_reducers_on_one_card_equal_stacked(cuda):
+    """``server_sum``, ``server_max`` and the six telemetry reducers over
+    ``("cuda:0",) * 4`` groups equal the stacked reductions."""
+    from dmclock_tpu_torch.obs import device as TOD
+    from dmclock_tpu_torch.obs import histograms as TH
+    from dmclock_tpu_torch.obs import provenance as TP
+    from dmclock_tpu_torch.obs import slo as TSLO
+    from dmclock_tpu_torch.parallel import groups
+    from dmclock_tpu_torch.parallel import tracker as TT
+
+    gen = torch.Generator().manual_seed(5)
+    big = 1 << 61
+
+    def rnd(*shape):
+        return torch.randint(-big, big, shape, generator=gen,
+                             dtype=torch.int64).to(cuda)
+
+    devs = ("cuda:0",) * 4
+    x = rnd(8, 1000)
+    for got, want in ((TT.server_sum(groups.place(x, devs))[3], x.sum(0)),
+                      (TT.server_max(groups.place(x, devs)),
+                       x.max(0).values)):
+        assert torch.equal(got, want)
+    prov = TP.ProvBlock(margin_hist=rnd(8, TH.NUM_BUCKETS + 1),
+                        scal=rnd(8, TP.PS_FIELDS), last_served=rnd(8, 100))
+    for fn, v in ((TOD.metrics_mesh_reduce, rnd(8, TOD.NUM_METRICS)),
+                  (TH.hist_mesh_reduce, rnd(8, TH.NUM_HISTS,
+                                            TH.NUM_BUCKETS + 1)),
+                  (TH.ledger_mesh_reduce, rnd(8, 100, TH.LED_COLS)),
+                  (TSLO.window_mesh_reduce, rnd(8, 100, TSLO.W_FIELDS)),
+                  (TP.pressure_mesh_reduce, rnd(8, TP.PRESS_FIELDS)),
+                  (TP.prov_mesh_reduce, prov)):
+        for a, b in zip(_leaves(fn(groups.place(v, devs))),
+                        _leaves(fn(v))):
+            assert torch.equal(a, b), fn.__name__

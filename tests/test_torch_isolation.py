@@ -467,3 +467,73 @@ def test_run_serve_and_rows_default_to_cuda():
                                                    epochs=4)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_the_mesh_across_devices_leaves_jax_unloaded(tmp_path):
+    """The grouped entry points (a layout of device groups on the CPU)
+    and both module CLIs' ``--devices`` import no JAX."""
+    code = ("import sys\n"
+            "from dmclock_tpu_torch import serve\n"
+            "from dmclock_tpu_torch.parallel import cluster, groups, mesh\n"
+            "from dmclock_tpu_torch.robust import supervisor as TS\n"
+            "from dmclock_tpu_torch.sim import device_sim as DS\n"
+            "m = cluster.make_mesh(4, devices=('cpu',) * 2)\n"
+            "assert m.grouped\n"
+            "r = serve.mesh_row(256, n_shards=4, epochs=2, warmup_epochs=2,"
+            " chunk=2, devices=('cpu',) * 4)\n"
+            "assert r['decisions'] > 0 and r['n_groups'] == 4\n"
+            "p = serve.multichip_policy(2, 12, decisions_per_step=4, "
+            "rounds=1, drain_rounds=1, check_qos=False, "
+            "devices=('cpu', 'cpu'))\n"
+            "assert p['served'] > 0\n"
+            "j = TS.run_job(TS.EpochJob(engine_loop='mesh', n_shards=2, n=32,"
+            " epochs=2, devices=('cpu', 'cpu')), device='cpu')\n"
+            "assert j.decisions > 0\n"
+            "_, sim, spec = DS.headline_setup(16, device='cpu')\n"
+            "sim = DS.device_sim_step(sim, spec, 1, mesh=cluster.make_mesh("
+            "spec.n_servers, devices=('cpu',) * 2))\n"
+            "assert groups.is_grouped(sim.engine)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    for args in (["-m", "dmclock_tpu_torch.serve", "--workload", "mesh",
+                  "--n-shards", "2", "--clients", "128", "--devices",
+                  "cpu,cpu"],
+                 ["-m", "dmclock_tpu_torch.sim.device_sim", "-c",
+                  "configs/dmc_sim_example.conf", "--max-launches", "1",
+                  "--slices-per-launch", "2", "--devices", "cpu"]):
+        out = subprocess.run([sys.executable, *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+
+
+def test_the_mesh_across_devices_defaults_to_the_cards():
+    """``devices=None`` means every visible card and raises without
+    one; a named card past the visible count raises; nothing falls back
+    to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from dmclock_tpu_torch.device import resolve_devices
+    from dmclock_tpu_torch.parallel import cluster as TCL
+    from dmclock_tpu_torch.robust import supervisor as TS
+    from dmclock_tpu_torch.sim import device_sim as TDS
+
+    for call in (lambda: TCL.make_mesh(4),
+                 lambda: resolve_devices(None),
+                 lambda: resolve_devices(4),
+                 lambda: resolve_devices(("cuda:3",)),
+                 lambda: tserve.mesh_row(64, n_shards=2,
+                                         devices=("cuda:0", "cuda:1")),
+                 lambda: tserve.multichip_policy(2, 6, devices=2),
+                 lambda: tserve.plan_mesh_shards(64, devices=None,
+                                                 device="cuda"),
+                 lambda: TDS.run_device_sim(TDS.headline_config(16),
+                                            devices=2),
+                 lambda: TS.run_job(TS.EpochJob(
+                     engine_loop="mesh", n_shards=2, n=16, epochs=2,
+                     devices=("cuda:0", "cuda:1")), device="cpu")):
+        with pytest.raises(RuntimeError, match="cuda|CUDA"):
+            call()

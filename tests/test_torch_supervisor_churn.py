@@ -160,5 +160,5 @@ def test_spawn_child_sigkilled_and_resumed(refs, tmp_path, loop):
         0 < r["args"]["start_s"] < 600 for r in starts)
     assert rows.index(starts[1]) < [r["name"] for r in rows].index(
         "supervisor.resume")
-    assert dataclasses.asdict(job) == TS.EpochJob.from_json(
-        job.to_json()).to_json()
+    assert dataclasses.asdict(job) == dataclasses.asdict(
+        TS.EpochJob.from_json(job.to_json()))
