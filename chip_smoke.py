@@ -192,7 +192,7 @@ Phases (any failure raises and the exit code is not 0):
     2 slices, ms and read backs a slice, the weight 3:1 ratio, the
     virtual seconds, 0 guard trips).  Then ``dmc_sim`` on the card:
     ``configs/dmc_sim_example.conf`` in pull mode and
-    ``configs/dmc_sim_8_6.conf`` in push mode, each cut to 500
+    ``configs/dmc_sim_8_6.conf`` in push mode, each cut to 125
     ``client_total_ops`` (nothing else changed: whole, they took 165
     and 65 s on the card), with ``--model dmclock-torch --ledger-check
     --slo-check`` (exit 0), each decision trace equal byte for byte to a
@@ -232,8 +232,9 @@ Phases (any failure raises and the exit code is not 0):
     preloaded 12 deep, prefix m=4, k=256, Poisson(2) in 4 waves, 100 ms
     epochs, 16 epochs, a checkpoint every 4, histograms, ledger and SLO
     on), each in-process run launch-counted (K1 once a shard-epoch on
-    the fused chunk): (a) ``supervised_mesh`` bare, then in spawn mode
-    SIGKILLed at 0.35 and at 0.75 of its decisions, each crash-equivalent
+    the fused chunk): (a) ``supervised_mesh`` bare, then killed in
+    process at 0.35 and at 0.75 of its decisions (phase 26 SIGKILLs a
+    spawn child of a mesh job), each crash-equivalent
     to the bare run, and its first chunk (4 epochs) equal to a CPU twin;
     (b) ``supervised_mesh_chaos``, (a) under ``MESH_FAULT_SPEC``, killed
     once and crash-equivalent, its dropout, resync and fault rows equal
@@ -256,8 +257,9 @@ Phases (any failure raises and the exit code is not 0):
     but the walls and latencies): bench's ``controller`` rows at their
     accelerator shape (192 ids, 48 epochs, three scenarios, both twins);
     ``controller_churn``, the ``supervised_churn`` population with the
-    controller on, bare and then spawned and SIGKILLed at each of the
-    three controller stages of its first deciding boundary, crash-
+    controller on, bare, then killed in process at each of the three
+    controller stages of its first deciding boundary and a spawn child
+    SIGKILLed after that boundary's journal append, each crash-
     equivalent; bench's ``rpc`` row on loopback sockets, clean and
     under ``RPC_CHAOS`` (``digest_match`` and ``chaos_exact``); ``rpc_full``,
     the serving loop at 100,000 clients (``RPC_FULL``) fed by 4 loadgen
@@ -280,14 +282,40 @@ Phases (any failure raises and the exit code is not 0):
     beside the stacked row's, K1 256 each), the first chunk at 8 x 12,500
     field by field, the wheel chunk over 2 groups (K1 32, K2 40), and one
     epoch's counter sum over 1, 4 and 8 groups (CUDA events); (b) the
-    supervised mesh over 8 groups, bare, then a spawn child SIGKILLed at
-    half and resumed on one group in process, each crash-equivalent to
+    supervised mesh over 8 groups, bare, then killed in process at half
+    and resumed on one group, each crash-equivalent to
     phase 23's bare run; (c) the cut dry run over 8 groups, both
     trackers; (d) the device-sim headline's first 2 slices over 8 groups
     against one; (e) where two or more cards are visible, (a) and (d)
     over real cards (the largest of 2, 4 and 8 that fits) with K1 and K2
     launched on the last card while ``cuda:0`` is current; with one card
     it prints that (e) did not run.
+26. Migration and the controller over groups, then bench's session and
+    the port's two entry scripts: (a) bench's ``mesh_rebalance`` row over
+    4 and 2 groups of ``cuda:0`` against phase 24's stacked row; the
+    supervised p2c job with the migrate rule at 8 shards (``MIG_JOB``)
+    on the prefix engine, where a destination grows every group's stacks
+    to one capacity, and on the wheel calendar, each over 8 and 4 groups
+    equal to its stacked run on every result field; a spawn child over 8
+    groups SIGKILLed at its
+    second migration's handoff, resumed on one group from a snapshot,
+    crash-equivalent; over real cards where two or more are visible
+    (with one card it prints that this leg did not run); (b) ``python -m
+    dmclock_tpu_torch.bench --mode all --cut-depth --spans`` at bench's
+    card shapes (the rows cut in depth to ``ROW_CUT``): rc 0, one line,
+    ``vs_baseline == round(value / 1e7, 4)``, the line's and the rows'
+    keys against bench's lists (``SESSION_LINE_KEYS`` and the rest), the
+    churn, cfg3 and cfg4 rows equal to this run's rows of phases 19, 14
+    and 16 on every key but the walls (cfg4's conformance table byte for
+    byte), serve's against a ``serve_row`` in process; ``--mode mesh
+    --n-shards 4 --rebalance on`` over 4 groups of ``cuda:0`` against a
+    stacked mesh row in process and phase 24's row; ``--device cuda:99``
+    exits non-zero after its error line; (c) ``scripts/torch_silicon_parity.py
+    --out``, ``match: true``; (d) ``scripts/torch_run_fullscale.py
+    --record`` on ``dmc_sim_example.conf`` cut to ``FULLSCALE_OPS`` a
+    client, the record read by its ``load_multichip`` with ``ok``.  The
+    sessions, (c) and (d) run as children beside (a): their rates are not
+    judged.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -301,13 +329,15 @@ failure.
 K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8 and 14-16 with their calibration rounds, 10-13,
 both runs of 19, the in-process runs of 20, 23 and 24, the device sim's
-four runs in 21, the mesh runs of 22 and the grouped runs of 25), each
-count read right after that path's run; K2's is the ``cfg4_wheel``
-path's (its calibration included), phase 20's wheel runs', the device
-sim's wheel run's, the mesh wheel chunks' of 22 and 25 and phase 24's
-wheel gate's; the queue paths (17, 18), ``dmc_sim`` and the
-cluster runs of 22 add none, and the spawn children's launches are not counted
-(``LAUNCHES`` is per process). Each kernel's entry also carries
+four runs in 21, the mesh runs of 22, the grouped runs of 25 and the
+in-process runs of 26), each count read right after that path's run;
+K2's is the ``cfg4_wheel`` path's (its calibration included), phase
+20's wheel runs', the device sim's wheel run's, the mesh wheel chunks'
+of 22 and 25, phase 24's wheel gate's and phase 26's wheel migration
+jobs'; the queue paths (17, 18), ``dmc_sim`` and the
+cluster runs of 22 add none, and the launches of the spawn children and
+of phase 26's subprocesses are not counted (``LAUNCHES`` is per
+process). Each kernel's entry also carries
 ``launches_by_path``. Serve's and the rows' rates are printed both as
 the mean (summed decisions over summed event ms) and median-based (one
 epoch's or round's decisions over the median ms). Prints the kernel
@@ -1700,7 +1730,7 @@ def phase_row(serve, ext, card: str, workload: str, n: int, tmp: str) -> int:
         f"registry's counter {counted}; the last: "
         f"{json.dumps(watchdog.warnings[-3:])}")
     log(f"[time] {workload} row {time.perf_counter() - t_phase:.3f} s")
-    return launches["ring_window"]
+    return launches["ring_window"], row
 
 
 def phase_frontier(serve, ext, card: str) -> int:
@@ -2553,8 +2583,8 @@ DS_TWIN_SLICES = 2       # slices held against the CPU twin, and per
 # (mode, config, client_total_ops): each config cut in client_total_ops
 # alone (2,000 and 1,000 in the files) to fit the phase's time: the
 # card's serial engine takes 10-21 ms a decision here (PERF.md section 5)
-SIM_RUNS = (("pull", "configs/dmc_sim_example.conf", 500),
-            ("push", "configs/dmc_sim_8_6.conf", 500))
+SIM_RUNS = (("pull", "configs/dmc_sim_example.conf", 125),
+            ("push", "configs/dmc_sim_8_6.conf", 125))
 
 
 def _cut_conf(root: str, conf: str, total_ops: int, tmp: str) -> str:
@@ -3278,23 +3308,6 @@ def phase_supervised_mesh(ext, card: str, tmp: str, twin_path: str,
         _mesh_line(path, res, wall, launches)
         return res
 
-    def spawn_killed(path, job, ref, frac):
-        w = wd(path)
-        kill = int(ref.decisions * frac)
-        t0 = time.perf_counter()
-        res = TS.run_supervised(job, w, TH.HostFaultPlan(
-            kill_at_decisions=(kill,)), mode="spawn", device="cuda")
-        wall = time.perf_counter() - t0
-        TS.assert_crash_equivalent(res, ref)
-        if res.restarts != 1:
-            raise AssertionError(f"{path}: {res.restarts} restarts")
-        _mesh_line(path, res, wall, None)
-        log(f"[{path}] SIGKILLed at {kill} of {ref.decisions} decisions "
-            f"({frac}), resumed from "
-            f"{os.path.basename(res.resumed_from or '-')}: "
-            f"crash-equivalent to the bare run")
-        shutil.rmtree(w)
-
     def killed(path, job, ref, frac):
         w = wd(path)
         res = run(path, lambda: TS.run_supervised(
@@ -3309,7 +3322,7 @@ def phase_supervised_mesh(ext, card: str, tmp: str, twin_path: str,
         shutil.rmtree(w)
         return res
 
-    # (a) supervised_mesh: bare, SIGKILLed at 0.35 and 0.75, first chunk
+    # (a) supervised_mesh: bare, killed at 0.35 and 0.75, first chunk
     job = TS.EpochJob(**SUP_MESH)
     ref = run("supervised_mesh", lambda: TS.run_job(job, device="cuda"),
               shard_epochs)
@@ -3317,8 +3330,7 @@ def phase_supervised_mesh(ext, card: str, tmp: str, twin_path: str,
         raise AssertionError(f"supervised_mesh: {ref.decisions} decisions,"
                              f" {ref.mesh_fallbacks} fallbacks")
     for frac in (0.35, 0.75):
-        spawn_killed(f"supervised_mesh_kill{int(frac * 100)}", job, ref,
-                     frac)
+        killed(f"supervised_mesh_kill{int(frac * 100)}", job, ref, frac)
     first = run("supervised_mesh_first", lambda: TS.run_job(
         TS.EpochJob(**SUP_MESH_FIRST), device="cuda"),
         SUP_MESH_FIRST["epochs"] * SUP_MESH["n_shards"])
@@ -3633,8 +3645,9 @@ def phase_control(ext, card: str, root: str, tmp: str):
                 f"{row['controller_trajectory']}")
 
         # (b) the controller on the supervised_churn population: bare,
-        # then spawned and SIGKILLed at every controller stage of the
-        # first boundary that decides anything
+        # then killed at every controller stage of the first boundary
+        # that decides anything, in process; then a spawn child
+        # SIGKILLed after that boundary's journal append
         spec = make_spec(CHURN_SCENARIO, **SUP_CHURN_SPEC)
         cjob = TS.EpochJob(churn=spec, **CTL_CHURN)
         cref, _ = _counted(ext, "controller_churn", lambda: TS.run_job(
@@ -3642,25 +3655,29 @@ def phase_control(ext, card: str, root: str, tmp: str):
         if not cref.controller_trajectory:
             raise AssertionError("controller_churn decided nothing")
         b0 = cref.controller_trajectory[0][1]
-        wd = os.path.join(tmp, "controller_churn_kills")
-        os.makedirs(wd)
-        plan = TH.HostFaultPlan(kill_at_controller=tuple(
-            (b0, stage) for stage in TH.CONTROLLER_STAGES))
-        t0 = time.perf_counter()
-        res = TS.run_supervised(cjob, wd, plan, mode="spawn", device="cuda")
-        wall = time.perf_counter() - t0
-        TS.assert_crash_equivalent(res, cref)
-        if res.restarts != 3 or res.controller_replays < 1:
-            raise AssertionError(f"controller_churn kills: restarts "
-                                 f"{res.restarts}, replays "
-                                 f"{res.controller_replays}")
-        log(f"[controller_churn] {cref.decisions} decisions, trajectory "
-            f"{cref.controller_trajectory}, knobs {cref.controller_knobs};"
-            f" spawned and SIGKILLed at {', '.join(TH.CONTROLLER_STAGES)} "
-            f"of boundary {b0}: 3 restarts, {res.controller_replays} "
-            f"journaled decisions replayed, crash-equivalent to the bare "
-            f"run (wall {wall:.3f} s with 4 children)")
-        shutil.rmtree(wd)
+        for mode, stages in (("trampoline", TH.CONTROLLER_STAGES),
+                             ("spawn", ("after_journal",))):
+            wd = os.path.join(tmp, f"controller_churn_kills_{mode}")
+            os.makedirs(wd)
+            plan = TH.HostFaultPlan(kill_at_controller=tuple(
+                (b0, stage) for stage in stages))
+            t0 = time.perf_counter()
+            res = TS.run_supervised(cjob, wd, plan, mode=mode,
+                                    device="cuda")
+            wall = time.perf_counter() - t0
+            TS.assert_crash_equivalent(res, cref)
+            if res.restarts != len(stages) or res.controller_replays < 1:
+                raise AssertionError(f"controller_churn {mode} kills: "
+                                     f"restarts {res.restarts}, replays "
+                                     f"{res.controller_replays}")
+            log(f"[controller_churn] {cref.decisions} decisions, "
+                f"trajectory {cref.controller_trajectory}, knobs "
+                f"{cref.controller_knobs}; killed ({mode}) at "
+                f"{', '.join(stages)} of boundary {b0}: {res.restarts} "
+                f"restarts, {res.controller_replays} journaled decisions "
+                f"replayed, crash-equivalent to the bare run (wall "
+                f"{wall:.3f} s)")
+            shutil.rmtree(wd)
 
         # (c) bench's rpc row, clean and under chaos
         t_rpc = time.perf_counter()
@@ -3908,7 +3925,7 @@ def phase_control(ext, card: str, root: str, tmp: str):
                 _stop(proc)
     log(f"[time] control and network phase "
         f"{time.perf_counter() - t_phase:.3f} s")
-    return by_k1, by_k2
+    return by_k1, by_k2, rebal
 
 
 # ----------------------------------------------------------------------
@@ -3988,7 +4005,7 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
     and 23 made most of them): (a) bench's mesh row over 8 and 4 groups
     of ``cuda:0`` at K=1, K=4 and under the fault plan, the first chunk
     field by field, the wheel chunk; (b) the supervised mesh over 8
-    groups, bare and SIGKILLed at half then resumed on one group; (c)
+    groups, bare and killed in process at half then resumed on one group; (c)
     the cut dry run over 8 groups; (d) 2 device-sim headline slices on 8
     groups and on 1; (e) on two or more cards, (a) and (d) over real
     cards with K1 and K2 on the last one.  Returns ``(K1 by path, K2 by
@@ -4079,7 +4096,7 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
     t0 = time.perf_counter()
     try:
         TS.run_supervised(job8, wd, TH.HostFaultPlan(
-            kill_at_decisions=(sup_ref.decisions // 2,)), mode="spawn",
+            kill_at_decisions=(sup_ref.decisions // 2,)),
             max_restarts=0, device="cuda")
         raise AssertionError("supervised_mesh_groups_kill: no kill")
     except TS.SupervisorGaveUp:
@@ -4096,8 +4113,8 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
     shutil.rmtree(wd)
     log(f"[supervised_mesh_groups] {SUP_MESH['n_shards']} x "
         f"{SUP_MESH['n']} over {MESH_SHARDS} groups on {card}: wall "
-        f"{wall8:.3f} s, crash-equivalent to the stacked bare run; a spawn"
-        f" child SIGKILLed at half ({killed_s:.3f} s), resumed on one group"
+        f"{wall8:.3f} s, crash-equivalent to the stacked bare run; killed"
+        f" in process at half ({killed_s:.3f} s), resumed on one group"
         f" from {os.path.basename(res1.resumed_from)} in process ({wall1:.3f}"
         f" s): crash-equivalent")
 
@@ -4163,6 +4180,507 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
         {p: n for p, n in k2.items() if n}
 
 
+# ----------------------------------------------------------------------
+# phase 26: migration and the controller over groups, bench's session,
+# the silicon gate and the full-scale record
+# ----------------------------------------------------------------------
+
+# the migrate rule alone over 8 shards (JAX tests/test_placement.py's
+# gate at 8 shards): 64 ids, shard_skew, half of the hot shard's ids
+# quiet; at 8 slots a shard a destination grows its capacity
+MIG_CTL = dict(sync_max=1, backlog_hi=10 ** 9, occ_lo=0.0, hysteresis=1,
+               cooldown=8, migrate_skew_hi=1.5, migrate_pick="cold",
+               migrate_max=4)
+MIG_JOB = dict(engine="prefix", k=16, select_impl="sort", n=96, depth=6,
+               ring=10, epochs=8, m=2, seed=5, arrival_lam=1.0, waves=2,
+               ckpt_every=2, engine_loop="mesh", n_shards=8,
+               placement="p2c", controller=MIG_CTL)
+MIG_SPEC = dict(total_ids=64, seed=3, capacity0=8, n_shards=8,
+                cold_frac=0.5, cold_until=10 ** 9)
+MIG_WHEEL = dict(engine="calendar", k=4, calendar_impl="wheel",
+                 ladder_levels=2)
+# bench's pick, firing every other boundary (moves at boundaries 2 and
+# 8), 32 slots a shard so nothing grows: the kill at the second firing's
+# handoff resumes from the snapshot of boundary 6
+MIG_KILL = dict(controller=dict(MIG_CTL, migrate_pick="hot", cooldown=2))
+MIG_KILL_CAP0 = 32
+# the session's line at --mode all --spans on the card, and its rows'
+# keys: bench's lists (bench.py main, bench_churn, bench_mesh,
+# bench_mesh_rebalance) without the JAX-only compile and cost_analysis
+# blocks (nothing is compiled per shape), with the port's device name
+SESSION_LINE_KEYS = {"metric", "value", "unit", "vs_baseline",
+                     "conformance", "churn", "device_metrics",
+                     "bounded_by", "spans", "slo", "provenance",
+                     "tardiness_ns", "capacity", "backend", "device",
+                     "fault_plan"}
+SESSION_OPTIONAL = {"watchdog_warnings"}
+SESSION_BLOCKS = {"bounded_by": {"cfg3", "cfg4"},
+                  "spans": {"serve", "cfg3", "cfg4"},
+                  "slo": {"cfg3", "cfg4", "churn_flash_crowd"},
+                  "provenance": {"cfg3", "cfg4"},
+                  "tardiness_ns": {"cfg3", "cfg4", "churn_flash_crowd"},
+                  "churn": {"churn_flash_crowd"}}
+CHURN_ROW_KEYS = {"boost", "boundary_every", "capacity", "compactions",
+                  "conformance", "decisions", "digest", "dps", "engine",
+                  "epochs", "evictions", "grows", "live_clients",
+                  "peak_clients", "projected_hbm_bytes", "qos_updates",
+                  "registrations", "scenario", "slo", "slo_boost_windows",
+                  "slo_violations_total", "slo_window_tardiness_p99_ns",
+                  "slo_windows_closed", "slo_worst_share_err",
+                  "slot_recycles", "tardiness_max_ns", "tardiness_mean_ns",
+                  "tardiness_p50_ns", "tardiness_p90_ns",
+                  "tardiness_p99_ns", "total_ids", "wall_s"}
+MESH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "mesh",
+                  "mesh_rebalance", "capacity", "backend", "device",
+                  "fault_plan"}
+MESH_ROW_KEYS = {"clients_per_shard", "clients_total",
+                 "collective_skipping", "counter_bytes_per_epoch",
+                 "counter_bytes_per_sync", "counter_sync_every",
+                 "counter_syncs", "counter_view_bytes_per_epoch",
+                 "decisions", "dps", "dps_per_shard", "dps_per_shard_max",
+                 "dps_per_shard_mean", "dps_per_shard_min", "engine",
+                 "engine_loop", "epochs", "fault_plan", "n_shards",
+                 "projected_hbm_bytes_per_shard", "stream_chunk", "wall_s",
+                 "workload"}
+# the planner's budget keys, which a mesh row carries where the card
+# reports its memory (``plan_mesh_shards``), and the layout's
+MESH_PLAN_KEYS = {"shards_planned", "max_clients_per_shard",
+                  "hbm_budget_bytes"}
+MESH_LAYOUT_KEYS = {"devices", "n_groups"}
+REBAL_ROW_KEYS = {"ckpt_every", "controller_knobs", "decisions_off",
+                  "decisions_on", "dps", "dps_off", "dps_on", "engine",
+                  "engine_loop", "epochs", "migration_log", "migrations",
+                  "n_shards", "placement", "placement_counters",
+                  "rebalance", "recovered_decisions", "recovered_dps",
+                  "scenario", "shard_decisions_off", "shard_decisions_on",
+                  "shard_skew_after", "shard_skew_before",
+                  "shard_skew_final", "shard_skew_recovered", "total_ids",
+                  "wall_s_off", "wall_s_on", "workload"}
+# the session's mesh: bench's rebalance shape (4 shards), one shard a
+# group of cuda:0
+SESSION_MESH_SHARDS = 4
+# the full-scale record's acceptance config, cut in depth: 100 ops a
+# client of 2,000 (400 decisions), and the dry run at the CPU tests'
+# width (8 servers x 60 clients, 64 decisions a step)
+FULLSCALE_OPS = 100
+FULLSCALE_DRYRUN = dict(clients=60, k=64)
+
+
+def _session(root: str, args: list, out: str) -> subprocess.Popen:
+    """``python -m dmclock_tpu_torch.bench`` with ``args``, its stdout to
+    ``out`` and its stderr to ``out.err``."""
+    with open(out, "w") as fo, open(out + ".err", "w") as fe:
+        return subprocess.Popen(
+            [sys.executable, "-m", "dmclock_tpu_torch.bench", *args],
+            cwd=root, stdout=fo, stderr=fe)
+
+
+def _script_proc(root: str, script: str, args: list,
+                 out: str) -> subprocess.Popen:
+    with open(out, "w") as fo, open(out + ".err", "w") as fe:
+        return subprocess.Popen(
+            [sys.executable, os.path.join(root, "scripts", script), *args],
+            cwd=root, stdout=fo, stderr=fe)
+
+
+def _finished(proc: subprocess.Popen, out: str, what: str, t0: float,
+              rc: int = 0) -> list:
+    """Wait for ``proc``; its stdout lines.  Raises with its stderr's
+    tail unless it exited with ``rc`` (any non-zero when ``rc`` is
+    None)."""
+    got = proc.wait(timeout=900)
+    with open(out) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    ok = got != 0 if rc is None else got == rc
+    if not ok:
+        with open(out + ".err", errors="replace") as f:
+            raise AssertionError(f"{what}: rc {got}, want "
+                                 f"{'non-zero' if rc is None else rc}:\n"
+                                 f"{f.read()[-4000:]}")
+    log(f"[{what}] rc {got} after {time.perf_counter() - t0:.3f} s")
+    return lines
+
+
+def _migration_groups(ext, card: str, tmp: str, root: str, rebal4,
+                      k1: dict, k2: dict):
+    """Phase 26 (a): live migration and the controller over groups of
+    ``cuda:0``, each leg held to its stacked twin."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.lifecycle import make_spec
+    from dmclock_tpu_torch.parallel import groups
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    def job(over=None, devices=None, cap0=MIG_SPEC["capacity0"]):
+        spec = make_spec("shard_skew", **dict(MIG_SPEC, capacity0=cap0))
+        kw = dict(MIG_JOB, **(over or {}))
+        if devices is not None:
+            kw["devices"] = devices
+        return TS.EpochJob(churn=spec, **kw)
+
+    # bench's mesh_rebalance row (4 shards) over 4 and 2 groups against
+    # phase 24's stacked row
+    for d in (4, 2):
+        row, _ = _counted(ext, f"mesh_rebalance_groups{d}", lambda: serve
+                          .mesh_rebalance_row(device="cuda",
+                                              devices=("cuda:0",) * d),
+                          k1, k2)
+        _same_row(row, rebal4, f"mesh_rebalance over {d} groups")
+        log(f"[mesh_rebalance_groups{d}] {row['migrations']} migrations, "
+            f"skew {row['shard_skew_before']:.4f} -> "
+            f"{row['shard_skew_after']:.4f}: every key but the walls equal "
+            f"to the stacked row")
+
+    # the supervised p2c job, prefix (a destination grows) and wheel
+    rebuild = groups.rebuild
+    grows = []
+
+    def spy(*a, **kw):
+        grows.append(1)
+        return rebuild(*a, **kw)
+
+    for eng, over, wheel in (("prefix", None, False),
+                             ("wheel", MIG_WHEEL, True)):
+        ref, _ = _counted(ext, f"migration_{eng}8", lambda: TS.run_job(
+            job(over), device="cuda"), k1, k2, k2=wheel)
+        if ref.migrations <= 0:
+            raise AssertionError(f"migration_{eng}8: no migration")
+        for d in GROUP_LAYOUTS:
+            grows.clear()
+            groups.rebuild = spy
+            try:
+                got, _ = _counted(
+                    ext, f"migration_{eng}8_groups{d}", lambda: TS.run_job(
+                        job(over, devices=("cuda:0",) * d), device="cuda"),
+                    k1, k2, k2=wheel)
+            finally:
+                groups.rebuild = rebuild
+            _same_result(got, ref, f"migration_{eng}8 over {d} groups")
+            if eng == "prefix" and not grows:
+                raise AssertionError(f"migration_{eng}8 over {d} groups: "
+                                     f"no destination grew")
+        log(f"[migration_{eng}8] {ref.migrations} moves "
+            f"{ref.migration_log} over 8 shards: over 8 and 4 groups of "
+            f"cuda:0 every result field equal to the stacked run (digest "
+            f"{ref.digest[:16]}, state {ref.state_digest[:16]}, "
+            f"placement counters {ref.placement_counters})"
+            + ("; a destination grew every shard of every group to one "
+               "capacity" if eng == "prefix" else ""))
+
+    # a spawn child over 8 groups SIGKILLed at the second firing's
+    # handoff, resumed on one group in process
+    kref, _ = _counted(ext, "migration_kill_ref", lambda: TS.run_job(
+        job(MIG_KILL, cap0=MIG_KILL_CAP0), device="cuda"), k1, k2)
+    wd = os.path.join(tmp, "migration_kill")
+    os.makedirs(wd)
+    job8 = job(MIG_KILL, devices=("cuda:0",) * 8, cap0=MIG_KILL_CAP0)
+    with open(os.path.join(wd, TS.JOB_FILE), "w") as fh:
+        json.dump({"job": job8.to_json(), "plan": TH.plan_to_json(None),
+                   "device": "cuda", "spawned_ns": time.time_ns()}, fh)
+    code = ("import os, signal, sys\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "from dmclock_tpu_torch.lifecycle import placement as P\n"
+            "from dmclock_tpu_torch.robust import supervisor as S\n"
+            "seen = []\n"
+            "def hook(stage):\n"
+            "    if stage == 'handoff':\n"
+            "        seen.append(stage)\n"
+            "        if len(seen) == 2:\n"
+            "            os.kill(os.getpid(), signal.SIGKILL)\n"
+            "P._migrate_hook = hook\n"
+            f"sys.exit(S._child_main({wd!r}))\n")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", code], cwd=root,
+                           capture_output=True, text=True, timeout=300)
+    killed_s = time.perf_counter() - t0
+    if child.returncode != -9:
+        raise AssertionError(f"migration_kill: the child exited "
+                             f"{child.returncode}, not SIGKILLed:\n"
+                             f"{child.stderr[-3000:]}")
+    res, _ = _counted(ext, "migration_kill_resumed", lambda: TS
+                      .run_supervised(job(MIG_KILL, devices=("cuda:0",),
+                                          cap0=MIG_KILL_CAP0), wd,
+                                      device="cuda"), k1, k2)
+    TS.assert_crash_equivalent(res, kref)
+    if res.resumed_from is None or res.migration_log != kref.migration_log:
+        raise AssertionError(f"migration_kill: resumed from "
+                             f"{res.resumed_from}, log {res.migration_log}")
+    shutil.rmtree(wd)
+    log(f"[migration_kill] a spawn child over 8 groups SIGKILLed at its "
+        f"second handoff ({killed_s:.3f} s), resumed on one group from "
+        f"{os.path.basename(res.resumed_from)}: crash-equivalent to the "
+        f"bare run ({kref.migrations} moves, {kref.migration_log})")
+
+    count = torch.cuda.device_count()
+    d_real = max(d for d in (1, 2, 4, 8) if d <= min(count, 8))
+    if d_real < 2:
+        log(f"[migration_cards] not run: {count} CUDA device visible; the "
+            f"legs over real cards need two or more (the legs above ran "
+            f"the same grouped code over cuda:0)")
+    else:
+        cards = tuple(f"cuda:{i}" for i in range(d_real))
+        d4 = min(d_real, 4)
+        row, _ = _counted(ext, f"mesh_rebalance_cards{d4}", lambda:
+                          serve.mesh_rebalance_row(device="cuda",
+                                                   devices=cards[:d4]),
+                          k1, k2)
+        _same_row(row, rebal4, f"mesh_rebalance over {d4} cards")
+        for eng, over, wheel in (("prefix", None, False),
+                                 ("wheel", MIG_WHEEL, True)):
+            ref = TS.run_job(job(over), device="cuda")
+            got, _ = _counted(ext, f"migration_{eng}8_cards{d_real}",
+                              lambda: TS.run_job(job(over, devices=cards),
+                                                 device="cuda"),
+                              k1, k2, k2=wheel)
+            _same_result(got, ref, f"migration_{eng}8 over {d_real} cards")
+        log(f"[migration_cards] over {', '.join(cards)}: mesh_rebalance "
+            f"and both migration jobs equal the stacked runs")
+
+
+def _check_session_line(line: dict, refs: dict, srow: dict, table: str,
+                        ref_table: str) -> None:
+    """Phase 26 (b): the ``--mode all`` line against bench's key lists,
+    and its rows' exact fields against this run's rows in process
+    (``refs``: churn, cfg3, cfg4; ``srow`` a ``serve_row``); ``table``
+    is the session's cfg4 conformance table, ``ref_table`` the row's."""
+    keys = set(line) - SESSION_OPTIONAL
+    if keys != SESSION_LINE_KEYS:
+        raise AssertionError(f"session_all: keys differ from bench's: "
+                             f"{sorted(keys ^ SESSION_LINE_KEYS)}")
+    for block, want in SESSION_BLOCKS.items():
+        if set(line[block]) != want:
+            raise AssertionError(f"session_all: {block} has "
+                                 f"{sorted(line[block])}")
+    if set(line["capacity"]["projected_hbm_bytes"]) != \
+            {"serve", "cfg3", "cfg4", "churn_flash_crowd"}:
+        raise AssertionError(f"session_all: capacity {line['capacity']}")
+    churn = line["churn"]["churn_flash_crowd"]
+    if set(churn) != CHURN_ROW_KEYS:
+        raise AssertionError(f"session_all: churn row keys "
+                             f"{sorted(set(churn) ^ CHURN_ROW_KEYS)}")
+    if line["backend"] != "gpu" or \
+            line["device"] != torch.cuda.get_device_name(0) or \
+            line["vs_baseline"] != round(line["value"] / 1e7, 4) or \
+            f"cfg4 100k-client Zipf resv-constrained " \
+            f"{line['value'] / 1e6:.1f}M" not in line["metric"]:
+        raise AssertionError(f"session_all: backend {line['backend']}, "
+                             f"device {line['device']}, value "
+                             f"{line['value']}, vs_baseline "
+                             f"{line['vs_baseline']}")
+    _same_row(churn, {k: v for k, v in refs["churn"].items()
+                      if k != "_hist_block"}, "session churn row")
+    for wl in ("cfg3", "cfg4"):
+        row = refs[wl]
+        got = {"slo": line["slo"][wl],
+               "provenance": line["provenance"][wl],
+               "bounded_by": line["bounded_by"][wl],
+               "projected_hbm_bytes":
+                   line["capacity"]["projected_hbm_bytes"][wl],
+               **{f"tardiness_{q}_ns": line["tardiness_ns"][wl][q]
+                  for q in ("p50", "p90", "p99", "mean", "max")}}
+        for key, value in got.items():
+            if row[key] != value:
+                raise AssertionError(f"session {wl}: {key} "
+                                     f"{str(value)[:200]} vs the row in "
+                                     f"process {str(row[key])[:200]}")
+    if line["conformance"] != refs["cfg4"]["conformance"] or \
+            line["device_metrics"] != refs["cfg4"]["device_metrics"]:
+        raise AssertionError("session cfg4: conformance or device_metrics "
+                             "differ from the row in process")
+    with open(table, "rb") as f1, open(ref_table, "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("session cfg4: the conformance table "
+                                 "differs from the row in process")
+    serve_clause = line["metric"].split("serve-only ")[1].split(";")[0]
+    if f"(fill {srow['fill']:.2f})" not in serve_clause or \
+            line["capacity"]["projected_hbm_bytes"]["serve"] != \
+            srow["projected_hbm_bytes"]:
+        raise AssertionError(f"session serve: fill {srow['fill']} or its "
+                             f"projected bytes differ")
+
+
+def phase_session(ext, card: str, root: str, tmp: str, refs: dict):
+    """Phase 26: (a) migration and the controller over groups
+    (:func:`_migration_groups`); (b) bench's session, ``python -m
+    dmclock_tpu_torch.bench --mode all --cut-depth --spans`` at bench's
+    card shapes, its line's keys against bench's lists and its rows'
+    exact fields against the same rows run in this process; then
+    ``--mode mesh --rebalance on`` over 4 groups of ``cuda:0`` and
+    ``--device cuda:99``, which must fail; (c) the silicon gate
+    (``scripts/torch_silicon_parity.py``); (d) the full-scale record
+    (``scripts/torch_run_fullscale.py --record``) on
+    ``dmc_sim_example.conf`` cut in depth.  The sessions, (c) and (d)
+    run as children beside (a), so their rates are not judged here.
+    ``refs`` holds this run's rows of phases 14, 16,
+    19 and 24 where they ran; a missing one is run here.  Returns
+    ``({path: K1}, {path: K2})``."""
+    import importlib.util
+
+    from dmclock_tpu_torch import bench as tbench
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs.spans import SpanTracer
+
+    if tbench.CUT_DEPTH["cfg3"] != {k: v for k, v in ROW_CUT["cfg3"]
+                                    .items() if v} or \
+            tbench.CUT_DEPTH["cfg4"] != ROW_CUT["cfg4"]:
+        raise AssertionError("the session's --cut-depth is not ROW_CUT")
+    t_phase = time.perf_counter()
+    k1, k2 = {}, {}
+    if refs.get("rebal") is None:
+        refs["rebal"], _ = _counted(ext, "mesh_rebalance", lambda: serve
+                                    .mesh_rebalance_row(device="cuda"),
+                                    k1, k2)
+    conf = os.path.join(tmp, "dmc_sim_example_cut.conf")
+    with open(os.path.join(root, "configs", "dmc_sim_example.conf")) as f:
+        text = f.read()
+    with open(conf, "w") as f:
+        f.write(text.replace("client_total_ops = 2000",
+                             f"client_total_ops = {FULLSCALE_OPS}"))
+    paths = {k: os.path.join(tmp, f"session_{k}.out")
+             for k in ("parity", "fullscale", "mesh", "bad", "all")}
+    parity_json = os.path.join(tmp, "silicon_parity.json")
+    record = os.path.join(tmp, "multichip.json")
+    c4_table = os.path.join(tmp, "session_cfg4_conformance.jsonl")
+    t_bg = time.perf_counter()
+    procs = {
+        "all": _session(root, ["--mode", "all", "--cut-depth", "--spans",
+                               "--conformance-out", c4_table],
+                        paths["all"]),
+        "parity": _script_proc(root, "torch_silicon_parity.py",
+                               ["--out", parity_json], paths["parity"]),
+        "fullscale": _script_proc(
+            root, "torch_run_fullscale.py",
+            ["--record", record, "--configs", conf, "--cluster", "off",
+             "--n-devices", str(SESSION_MESH_SHARDS), "--rebalance", "on",
+             "--dryrun-clients", str(FULLSCALE_DRYRUN["clients"]),
+             "--dryrun-k", str(FULLSCALE_DRYRUN["k"])], paths["fullscale"]),
+        "mesh": _session(root, ["--mode", "mesh", "--n-shards",
+                                str(SESSION_MESH_SHARDS), "--rebalance",
+                                "on", "--devices", ",".join(
+                                    ["cuda:0"] * SESSION_MESH_SHARDS)],
+                         paths["mesh"]),
+        "bad": _session(root, ["--mode", "serve", "--device", "cuda:99"],
+                        paths["bad"])}
+    try:
+        # (a) in this process, beside the children
+        t_a = time.perf_counter()
+        _migration_groups(ext, card, tmp, root, refs["rebal"], k1, k2)
+        log(f"[time] phase 26 (a) {time.perf_counter() - t_a:.3f} s")
+
+        # (c) the silicon gate
+        lines = _finished(procs["parity"], paths["parity"],
+                          "torch_silicon_parity", t_bg)
+        rep = json.loads(lines[-1])
+        with open(parity_json) as f:
+            if json.load(f) != rep or rep["match"] is not True:
+                raise AssertionError(f"silicon parity: {rep}")
+        log(f"[silicon_parity] on {rep['device']}: {rep['shapes']}, "
+            f"{rep['total_decisions']} decisions bit-exact, "
+            f"{rep['wall_s']} s")
+        # (d) the full-scale record
+        lines = _finished(procs["fullscale"], paths["fullscale"],
+                          "torch_run_fullscale", t_bg)
+        summary = json.loads(lines[-1])
+        spec = importlib.util.spec_from_file_location(
+            "torch_run_fullscale",
+            os.path.join(root, "scripts", "torch_run_fullscale.py"))
+        fs = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(fs)
+        rec = fs.load_multichip(record)
+        if not (summary["ok"] and rec["ok"] and rec["schema"] == 3
+                and rec["mesh"] is not None
+                and rec["rebalance"] is not None
+                and rec["rebalance"]["migrations"] > 0):
+            raise AssertionError(f"run_fullscale: {summary}, record "
+                                 f"{ {k: rec[k] for k in ('ok', 'rc')} }")
+        log(f"[run_fullscale] {summary['checks']}; the schema-v3 record "
+            f"reads: mesh {rec['mesh']['n_shards']} shards "
+            f"{rec['mesh']['dps']:.1f} decisions/s, rebalance "
+            f"{rec['rebalance']['migrations']} migrations, the dry run "
+            f"{len(rec['tail'])} characters")
+        # (b) the mesh session over 4 groups, and the failing one
+        lines = _finished(procs["mesh"], paths["mesh"], "session_mesh",
+                          t_bg)
+        if len(lines) != 1:
+            raise AssertionError(f"session_mesh: {len(lines)} lines")
+        line = json.loads(lines[0])
+        mesh_keys = set(line["mesh"]) - MESH_PLAN_KEYS
+        if set(line) != MESH_LINE_KEYS or \
+                mesh_keys != MESH_ROW_KEYS | MESH_LAYOUT_KEYS or \
+                set(line["mesh_rebalance"]) != REBAL_ROW_KEYS:
+            raise AssertionError(
+                f"session_mesh: keys {sorted(set(line) ^ MESH_LINE_KEYS)}, "
+                f"mesh row "
+                f"{sorted(mesh_keys ^ (MESH_ROW_KEYS | MESH_LAYOUT_KEYS))}, "
+                f"rebalance row "
+                f"{sorted(set(line['mesh_rebalance']) ^ REBAL_ROW_KEYS)}")
+        from dmclock_tpu_torch.obs.registry import MetricsRegistry
+        mesh4, _ = _counted(ext, "mesh_session_twin", lambda: serve.mesh_row(
+            serve.MESH["clients"], n_shards=SESSION_MESH_SHARDS,
+            registry=MetricsRegistry(), device="cuda"), k1, k2)
+        _row_same(line["mesh"], mesh4, "session mesh row")
+        _same_row(line["mesh_rebalance"], refs["rebal"],
+                  "session mesh_rebalance")
+        if line["value"] != round(line["mesh"]["dps"], 1) or \
+                line["vs_baseline"] != round(line["mesh"]["dps"] / 1e7, 4):
+            raise AssertionError(f"session_mesh: value {line['value']}")
+        log(f"[session_mesh] --mode mesh --n-shards {SESSION_MESH_SHARDS} "
+            f"--rebalance on over {line['mesh']['n_groups']} groups of "
+            f"cuda:0: value {line['value']} (the stacked twin "
+            f"{mesh4['dps']:.1f}), the mesh row and mesh_rebalance equal "
+            f"to the stacked rows in process on every key but the walls")
+        lines = _finished(procs["bad"], paths["bad"], "session_cuda99",
+                          t_bg, rc=None)
+        bad = json.loads(lines[-1])
+        if bad["value"] != 0.0 or "error" not in bad:
+            raise AssertionError(f"session --device cuda:99: {bad}")
+        log(f"[session_cuda99] exits non-zero after its line: "
+            f"{bad['error'][:120]}")
+
+        # (b) the whole session
+        lines = _finished(procs["all"], paths["all"], "session_all", t_bg)
+        all_s = time.perf_counter() - t_bg
+        if len(lines) != 1:
+            raise AssertionError(f"session_all: {len(lines)} stdout lines")
+        line = json.loads(lines[0])
+        # the rows in this process the line is held to
+        if refs.get("churn") is None:
+            refs["churn"], _ = _counted(ext, "churn_session_twin", lambda:
+                                        serve.churn_row(CHURN_SCENARIO,
+                                                        tracer=SpanTracer(),
+                                                        device="cuda"),
+                                        k1, k2)
+        for wl in ("cfg3", "cfg4"):
+            if refs.get(wl) is None:
+                _, refs[wl] = phase_row(serve, ext, card, wl,
+                                        N_CFG3 if wl == "cfg3" else N_CFG4,
+                                        tmp)
+        srow, _ = _counted(ext, "serve_row_session_twin", lambda: serve
+                           .serve_row(**tbench.CUT_DEPTH["serve"],
+                                      device="cuda"), k1, k2)
+        _check_session_line(line, refs, srow, c4_table,
+                            os.path.join(tmp, "cfg4_conformance.jsonl"))
+        log(f"[session_all] python -m dmclock_tpu_torch.bench --mode all "
+            f"--cut-depth --spans on {card} in {all_s:.3f} s beside the "
+            f"other legs (its rates are not judged): value "
+            f"{line['value']} (cfg4), vs_baseline {line['vs_baseline']}; "
+            f"{line['metric'].split(' -- ')[1]}")
+        log(f"[session_all] the line's keys and every block's rows are "
+            f"bench's; churn, cfg3 and cfg4 equal this run's rows in "
+            f"process on every key but the walls (cfg4's conformance table "
+            f"byte for byte), serve's fill and bytes equal a serve_row in "
+            f"process (its dps {srow['dps']:.1f}, reps {srow['reps']}); "
+            f"watchdog warnings {len(line.get('watchdog_warnings', []))}")
+        log(f"[time] phase 26: (a) with (b), (c) and (d) beside it, the "
+            f"--mode all session {all_s:.3f} s")
+    finally:
+        for p in procs.values():
+            _stop(p)
+    log(f"[time] session phase {time.perf_counter() - t_phase:.3f} s")
+    return {p: n for p, n in k1.items() if n}, \
+        {p: n for p, n in k2.items() if n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4221,8 +4739,10 @@ def main() -> int:
             cfg4_k1, cfg4_stream_k1, _, cfg4_np = phase_cfg4(
                 serve, _ext, obsdev, card)
             t_row = time.perf_counter()
-            cfg3_row_k1 = phase_row(serve, _ext, card, "cfg3", N_CFG3, tmp)
-            cfg4_row_k1 = phase_row(serve, _ext, card, "cfg4", N_CFG4, tmp)
+            cfg3_row_k1, cfg3_row = phase_row(serve, _ext, card, "cfg3",
+                                              N_CFG3, tmp)
+            cfg4_row_k1, cfg4_row = phase_row(serve, _ext, card, "cfg4",
+                                              N_CFG4, tmp)
             frontier_k1 = phase_frontier(serve, _ext, card)
             t_queue = time.perf_counter()
             out = os.path.join(tmp, "twins.pt")
@@ -4291,7 +4811,8 @@ def main() -> int:
             err = os.path.join(tmp, "control.err")
             try:
                 with _stderr_to(err):
-                    ctl_k1, ctl_k2 = phase_control(_ext, card, root, tmp)
+                    ctl_k1, ctl_k2, rebal = phase_control(_ext, card,
+                                                          root, tmp)
             except BaseException:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
@@ -4305,6 +4826,20 @@ def main() -> int:
                     grp_k1, grp_k2 = phase_mesh_groups(
                         _ext, fastpath, kernels, card, tmp, mesh_stacked,
                         sup_mesh_ref)
+            except BaseException:
+                with open(err, errors="replace") as f:
+                    sys.stderr.write(f.read()[-6000:])
+                raise
+            # phase 26: migration over groups, then bench's session and
+            # the two entry scripts, held to this run's rows
+            t_session = time.perf_counter()
+            err = os.path.join(tmp, "session.err")
+            try:
+                with _stderr_to(err):
+                    ses_k1, ses_k2 = phase_session(
+                        _ext, card, root, tmp, dict(
+                            churn=churn, cfg3=cfg3_row, cfg4=cfg4_row,
+                            rebal=rebal))
             except BaseException:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
@@ -4329,7 +4864,8 @@ def main() -> int:
         f"{t_sup_mesh - t_mesh:.3f} s, the supervised mesh phase "
         f"{t_control - t_sup_mesh:.3f} s, the control and network phase "
         f"{t_groups - t_control:.3f} s, the mesh across devices "
-        f"{t_end - t_groups:.3f} s; the whole script "
+        f"{t_session - t_groups:.3f} s, the session phase "
+        f"{t_end - t_session:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -4343,7 +4879,7 @@ def main() -> int:
                    **sup_k1, **{p: n["ring_window"]
                                 for p, n in ds_by_path.items()},
                    **{p: n for p, n in mesh_k1.items() if n},
-                   **sup_mesh_k1, **ctl_k1, **grp_k1)
+                   **sup_mesh_k1, **ctl_k1, **grp_k1, **ses_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     # minstop, cfg3, the stream chunks, the queue and churn, and the
@@ -4352,7 +4888,7 @@ def main() -> int:
                     device_sim_wheel=ds_by_path["device_sim_wheel"][
                         "wheel_scan"],
                     **{p: n for p, n in mesh_k2.items() if n}, **ctl_k2,
-                    **grp_k2)
+                    **grp_k2, **ses_k2)
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

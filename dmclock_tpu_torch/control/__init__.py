@@ -46,9 +46,20 @@ def _boundary_read(state, prov):
     """The boundary's device reads in one copy to the host: the engine's
     ``depth`` (``[N]`` or stacked ``[S, N]``) and, with provenance, the
     ``PS_STARVE_MAX`` column of ``prov.scal``.  Returns ``(depth,
-    starve)`` as int64 arrays (None where absent)."""
+    starve)`` as int64 arrays (None where absent).  A mesh laid out over
+    device groups reads one copy a group, joined in shard order: the
+    same ``[S, N]`` host array as the one stack gives."""
     from ..obs import provenance as obs_prov
+    from ..parallel import groups
 
+    node = state if state is not None else prov
+    if groups.is_grouped(node):
+        reads = [_boundary_read(None if state is None else state.parts[g],
+                                None if prov is None else prov.parts[g])
+                 for g in range(node.n_groups)]
+        return tuple(None if reads[0][j] is None
+                     else np.concatenate([r[j] for r in reads])
+                     for j in range(2))
     parts = []
     if state is not None:
         parts.append(state.depth.reshape(-1).to(torch.int64))

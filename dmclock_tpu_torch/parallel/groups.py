@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 
@@ -262,6 +263,53 @@ def view(tree, s: int):
     if isinstance(tree, (tuple, dict)):
         return _rebuild(tree, [view(v, s) for v in _children(tree)])
     return tree[s]
+
+
+def host(x) -> np.ndarray:
+    """A stacked or grouped tensor as one ``[S, ...]`` host array: one
+    copy to the host a group, joined in shard order (no stack is
+    gathered on a device)."""
+    if isinstance(x, Grouped):
+        return np.concatenate([p.cpu().numpy() for p in x.parts])
+    return x.cpu().numpy()
+
+
+def read_rows(x, s: int, rows) -> torch.Tensor:
+    """Rows ``rows`` of shard ``s`` of a stacked or grouped tensor, on
+    the shard's device."""
+    v = view(x, s)
+    return v.index_select(0, torch.as_tensor(rows, dtype=torch.int64,
+                                             device=v.device))
+
+
+def fill_rows(x, s: int, rows, value) -> None:
+    """Fill rows ``rows`` of shard ``s`` with ``value``, in place on the
+    shard's device."""
+    v = view(x, s)
+    v.index_fill_(0, torch.as_tensor(rows, dtype=torch.int64,
+                                     device=v.device), value)
+
+
+def write_rows(x, s: int, rows, values) -> None:
+    """Write ``values`` (host or device, one a row) at rows ``rows`` of
+    shard ``s``, in place on the shard's device."""
+    v = view(x, s)
+    v.index_put_((torch.as_tensor(rows, dtype=torch.int64,
+                                  device=v.device),),
+                 torch.as_tensor(values, dtype=v.dtype, device=v.device))
+
+
+def rebuild(fn: Callable, trees: Sequence) -> tuple:
+    """Every shard of ``trees`` (stacked or grouped alike, None entries
+    kept) through ``fn(s, *views) -> tuple of per-shard trees``, the
+    results stacked again by the layout of ``trees[0]``.  A grow of
+    every shard to one capacity this way keeps one rectangle across all
+    groups, as the JAX package's unstack and restack does."""
+    devices = group_devices(trees[0])
+    outs = [fn(s, *(view(t, s) for t in trees))
+            for s in range(leading(trees[0]))]
+    return tuple(restack([o[j] for o in outs], devices)
+                 for j in range(len(outs[0])))
 
 
 def restack(per_shard: list, devices: Sequence):

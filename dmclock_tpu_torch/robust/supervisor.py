@@ -1512,19 +1512,21 @@ def _mesh_migrate(run: _Run, b: int, up=None, press=None) -> None:
     the controller boundary and before the checkpoint save.
 
     The JAX package unstacks the shards and restacks them; here the
-    moved rows are written in place on the shard views ``x[s]`` of the
-    stacked tensors, and only a destination's slot growth reallocates
-    the stack.  That is safe because each of them is a fresh stack made
-    by the chunk (fused or host-replayed), the boundary or the restore,
-    which nothing else holds (the last snapshot was copied to the host
-    when it was saved); the one value read before a reset, the carried
-    riders, is copied to the host first.  The boundary depth is the
-    host copy the controller's ``collect`` read at ``b`` (nothing has
-    moved since), so only ``cd`` is copied here."""
+    moved rows are written in place on the shard views of the stacked
+    tensors (one stack, or one a device group), each on its shard's own
+    device, and only a destination's slot growth reallocates the stacks:
+    every shard of every group grows to one capacity together.  That is
+    safe because each stack is a fresh one made by the chunk (fused or
+    host-replayed), the boundary or the restore, which nothing else
+    holds (the last snapshot was copied to the host when it was saved);
+    the one value read before a reset, the carried riders, is copied to
+    the host first and written at the destination shard's device.  The
+    boundary depth is the host copy the controller's ``collect`` read at
+    ``b`` (nothing has moved since), so only ``cd`` is copied here."""
     from ..lifecycle import placement as placement_mod
     from ..lifecycle.plane import LC_EVICT, LC_NOP, _pad_len, \
         apply_op_vector
-    from ..parallel.cluster import shard_view, stack_trees
+    from ..parallel import groups
 
     job, pm, ctl, planes = run.job, run.pm, run.ctl, run.planes
     S = job.n_shards
@@ -1534,7 +1536,7 @@ def _mesh_migrate(run: _Run, b: int, up=None, press=None) -> None:
         raise RuntimeError(f"migrate at boundary {b} without the "
                            f"controller's depth read there ({read_at})")
     depth = depth.reshape(S, -1)
-    cd_host = cd.reshape(S, -1).cpu().numpy()
+    cd_host = groups.host(cd).reshape(S, -1)
     backlog = depth.sum(axis=-1)
     # source: the hottest live shard (a down shard has no pressure to
     # shed; its rows stay put until it returns)
@@ -1583,11 +1585,10 @@ def _mesh_migrate(run: _Run, b: int, up=None, press=None) -> None:
     fills = (0, 0, 1, 1, 0)
     ledger = run.ledger
     # source half: fold the final ledger rows and release the slots,
-    # read the carried riders, then EVICT on the device
+    # read the carried riders, then EVICT on the source shard's device
     handoff, slots_out = [], []
     for cid, dst in moves:
-        out = plane_src.migrate_out(
-            cid, None if ledger is None else ledger[src])
+        out = plane_src.migrate_out(cid, groups.view(ledger, src))
         if out is None:
             continue
         slot, qos = out
@@ -1595,21 +1596,19 @@ def _mesh_migrate(run: _Run, b: int, up=None, press=None) -> None:
         handoff.append((cid, dst, qos))
     carried = {}
     if slots_out:
-        dev = run.state.device
-        idx = torch.as_tensor(slots_out, dtype=torch.int64, device=dev)
-        vals = torch.stack([r[src].index_select(0, idx) for r in riders]) \
-            .cpu().numpy()
+        vals = torch.stack([groups.read_rows(r, src, slots_out)
+                            for r in riders]).cpu().numpy()
         for j, (cid, _dst, _qos) in enumerate(handoff):
             carried[cid] = [int(v) for v in vals[:, j]]
         pad = _pad_len(len(slots_out))
         arr = np.asarray([(LC_EVICT, sl, 0, 0, 0, 0) for sl in slots_out]
                          + [(LC_NOP, 0, 0, 0, 0, 0)]
                          * (pad - len(slots_out)), dtype=np.int64)
-        apply_op_vector(shard_view(run.state, src), *arr.T, inplace=True)
+        apply_op_vector(groups.view(run.state, src), *arr.T, inplace=True)
         if ledger is not None:
-            ledger[src].index_fill_(0, idx, 0)
+            groups.fill_rows(ledger, src, slots_out, 0)
         for r, f in zip(riders, fills):
-            r[src].index_fill_(0, idx, f)
+            groups.fill_rows(r, src, slots_out, f)
     if placement_mod._migrate_hook is not None:
         placement_mod._migrate_hook("evicted")
 
@@ -1621,22 +1620,18 @@ def _mesh_migrate(run: _Run, b: int, up=None, press=None) -> None:
         placement_mod._migrate_hook("handoff")
 
     cap = max(int(p.slots.capacity) for p in planes)
-    if cap > run.state.capacity:
-        # a destination grew: every shard grows to one rectangle, which
-        # reallocates the stack (the one restack this actuation makes)
-        sts, leds, exs = [], [], []
-        for s in range(S):
+    if cap > groups.view(run.state, 0).capacity:
+        # a destination grew: every shard of every group grows to one
+        # rectangle, which reallocates the stacks (the one restack this
+        # actuation makes)
+        def grow(s, st, led, *rs):
             out = planes[s].ensure_capacity(
-                cap, shard_view(run.state, s),
-                ledger=None if ledger is None else ledger[s],
-                extras=[(r[s], f) for r, f in zip(riders, fills)])
-            sts.append(out[0])
-            leds.append(out[1])
-            exs.append(out[-1])
-        run.state = stack_trees(sts)
-        ledger = None if ledger is None else torch.stack(leds)
-        riders = [torch.stack([exs[s][j][0] for s in range(S)])
-                  for j in range(len(riders))]
+                cap, st, ledger=led,
+                extras=[(r, f) for r, f in zip(rs, fills)])
+            return (out[0], out[1]) + tuple(x for x, _f in out[-1])
+
+        run.state, ledger, *riders = groups.rebuild(
+            grow, [run.state, ledger] + riders)
     for s in range(S):
         rows = reg_rows[s]
         if not rows:
@@ -1644,29 +1639,26 @@ def _mesh_migrate(run: _Run, b: int, up=None, press=None) -> None:
         rows = list(rows) + [(LC_NOP, 0, 0, 0, 0, 0)] \
             * (_pad_len(len(rows)) - len(rows))
         arr = np.asarray(rows, dtype=np.int64)
-        apply_op_vector(shard_view(run.state, s), *arr.T, inplace=True)
-    # install the carried riders at the destination slots: the counter
-    # views arrive with the client, and the last_served watermark keeps
-    # its starvation clock across the move
-    if handoff:
-        dev = run.state.device
-        at = tuple(torch.as_tensor(col, dtype=torch.int64, device=dev)
-                   for col in zip(*[(dst, planes[dst].slots.slot_of[cid])
-                                    for cid, dst, _qos in handoff]))
-        vals = torch.as_tensor([carried[cid] for cid, _d, _q in handoff],
-                               dtype=torch.int64, device=dev)
+        apply_op_vector(groups.view(run.state, s), *arr.T, inplace=True)
+    # install the carried riders at the destination slots, a shard at a
+    # time on its device: the counter views arrive with the client, and
+    # the last_served watermark keeps its starvation clock across the
+    # move
+    by_dst: dict = {}
+    for cid, dst, _qos in handoff:
+        by_dst.setdefault(dst, []).append(cid)
+    for dst, cids in sorted(by_dst.items()):
+        at = [planes[dst].slots.slot_of[cid] for cid in cids]
+        vals = np.asarray([carried[cid] for cid in cids], dtype=np.int64)
         for j, r in enumerate(riders):
-            r.index_put_(at, vals[:, j])
+            groups.write_rows(r, dst, at, vals[:, j])
     if placement_mod._migrate_hook is not None:
         placement_mod._migrate_hook("registered")
 
     run.ledger = ledger
     run.mesh_ctrs = tuple(riders[:4])
     if run.prov is not None:
-        from ..obs.provenance import ProvBlock
-
-        run.prov = ProvBlock(run.prov.margin_hist, run.prov.scal,
-                             riders[4])
+        run.prov = run.prov._replace(last_served=riders[4])
 
 
 def _mesh_epochs(run: _Run) -> None:
@@ -1699,11 +1691,6 @@ def _mesh_epochs(run: _Run) -> None:
         mesh = mesh_mod.make_mesh(job.n_shards, run.dev)
     else:
         mesh = mesh_mod.make_mesh(job.n_shards, devices=job.devices)
-    if run.ctl is not None and len(set(mesh.devices)) > 1:
-        raise ValueError(
-            "the controller and live migration on a mesh over several "
-            "devices are ROADMAP item 11b (not ported): run the "
-            "controller with devices=None or one device repeated")
     if mesh.grouped:
         # the build or the restore made single stacks: one a group now
         _regroup(run, mesh.devices)
@@ -1796,12 +1783,8 @@ def _mesh_epochs(run: _Run) -> None:
             # cluster's depth, press_backlog the hottest shard's, and
             # the chunk's mid-epoch pressure peaks arm the migrate rule
             # on calendar engines; a fired migrate moves drained
-            # clients off the hottest shard before the snapshot
-            if mesh.grouped:
-                # a layout that repeats one device (others raised
-                # above): the controller reads and migration writes the
-                # single stacks, as on one device
-                _regroup(run, (mesh.device,))
+            # clients off the hottest shard before the snapshot; on a
+            # grouped layout both work group by group on the stacks
             if g.press is not None and run.scr.scrape is not None:
                 try:
                     from ..obs import provenance as obsprov
@@ -1816,8 +1799,6 @@ def _mesh_epochs(run: _Run) -> None:
                     up_b = None if plan is None \
                         else plan.up[min(b, plan.up.shape[0] - 1)]
                     _mesh_migrate(run, b, up=up_b, press=g.press)
-            if mesh.grouped:
-                _regroup(run, mesh.devices)
         if run.ckpt_dir is not None:
             run.save(b, b - 1, rng_ckpt)
         run.flush_spans()

@@ -288,6 +288,108 @@ def serve_only(n: int = 100_000, depth: int = 320, k: int = 65536,
                         tag_width=tag_width, window_m=window_m)
 
 
+def _timed_serve_chain(state: EngineState, epochs: int, knobs: dict,
+                       tracer=None):
+    """Bench's ``_timed_chain``: ``epochs`` prefix epochs launched back
+    to back and one synchronisation at the end; returns ``(state,
+    decisions, wall_s, guards_ok, metrics)``.  Every epoch's guards are
+    read (a trip mid-chain zeroes that epoch's counts), and the counts
+    and metrics are read back after the clock stops."""
+    t0 = time.perf_counter()
+    counts, guards, mets = [], [], []
+    for _ in range(epochs):
+        with obsspans.span(tracer, "bench.epoch", "dispatch"):
+            ep = scan_prefix_epoch(state, 0, anticipation_ns=0, **knobs)
+            state = ep.state
+            counts.append(ep.count)
+            guards.append(ep.guards_ok)
+            mets.append(ep.metrics)
+    with obsspans.span(tracer, "bench.digest_sync", "device_compute"):
+        _sync(state.device)
+    wall = time.perf_counter() - t0
+    g_ok = all(bool(g.all()) for g in guards)
+    total = int(sum(int(c.sum()) for c in counts))
+    met = obsdev.metrics_combine_np(
+        np.zeros(obsdev.NUM_METRICS, dtype=np.int64),
+        *[m.cpu().numpy() for m in mets])
+    return state, total, wall, g_ok, met
+
+
+def serve_row(k: int = 65536, m: int = 32, *, epochs_lo: int = 3,
+              epochs_hi: int = 6, depth: int = 320, reps: int = 5,
+              n: int = 100_000, with_metrics: bool = True,
+              select_impl: str = "sort", tag_width: int = 64,
+              window_m: int | None = None, tracer=None,
+              device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """Bench's ``serve`` row (``bench_serve_only``, line for line): the
+    preloaded weight steady state, serving only.
+
+    Each of ``reps`` fresh preloaded states runs a warm chain of one
+    epoch, then a chain of ``epochs_lo`` and one of ``epochs_hi``
+    epochs, each timed from its first launch to one synchronisation.
+    The difference of the pair cancels the fixed cost of a chain; a
+    pair is dropped when ``t_hi <= t_lo`` or the short chain sits under
+    ``1.2 *`` :func:`scalar_latency`, and ``dps`` is the median of the
+    valid pairs (none valid raises).  A guard trip in a timed chain
+    raises, as bench's assert does.  Keys are bench's: ``dps``,
+    ``decisions``, ``reps`` (each pair's rate in millions), ``fill``,
+    ``select_impl``, ``tag_width``, ``spans`` with a tracer,
+    ``device_metrics`` and the capacity record (``projected_hbm_bytes``).
+    Nothing is compiled, so the row has no ``cost_analysis`` and no
+    compile-plane fields."""
+    dev = resolve_device(device)
+    state = _preloaded_state(n, depth, ring=depth, device=dev)
+    need = (epochs_lo + epochs_hi + 1) * m * k
+    # bench's margin: weights are 1..4, so the heaviest class is served
+    # ~1.6x the mean; a backlog sized to the mean drains mid-chain
+    assert need * 1.5 <= n * depth, \
+        f"backlog {n * depth} cannot feed {need} decisions " \
+        "with heavy-class margin"
+    knobs = dict(m=m, k=k, with_metrics=with_metrics,
+                 select_impl=select_impl, tag_width=tag_width,
+                 window_m=window_m)
+    lat = scalar_latency(dev)
+    rates, total_d, total_pot = [], 0, 0
+    met = np.zeros(obsdev.NUM_METRICS, dtype=np.int64)
+    win = None if tracer is None else tracer.category_totals()
+    wall_total = 0.0
+    launches = 0
+    for rep in range(max(reps, 1)):
+        if rep:
+            state = _preloaded_state(n, depth, ring=depth, device=dev)
+        state, _, w0, _, _ = _timed_serve_chain(state, 1, knobs, tracer)
+        state, d_lo, t_lo, g1, m1 = _timed_serve_chain(
+            state, epochs_lo, knobs, tracer)
+        state, d_hi, t_hi, g2, m2 = _timed_serve_chain(
+            state, epochs_hi, knobs, tracer)
+        assert g1 and g2, "rebase guards tripped -- untrustworthy"
+        met = obsdev.metrics_combine_np(met, m1, m2)
+        wall_total += w0 + t_lo + t_hi
+        launches += 1 + epochs_lo + epochs_hi
+        if t_hi <= t_lo or t_lo < 1.2 * lat:
+            continue    # inverted by jitter, or the short chain at the
+            #             synchronisation floor
+        rates.append((d_hi - d_lo) / (t_hi - t_lo))
+        total_d += d_hi + d_lo
+        total_pot += (epochs_hi + epochs_lo) * m * k
+    assert rates, \
+        "no valid pair: chains too short for the synchronisation floor"
+    out = {"dps": float(np.median(rates)), "decisions": total_d,
+           "reps": [round(r / 1e6, 1) for r in rates],
+           "fill": total_d / total_pot,
+           "select_impl": select_impl, "tag_width": tag_width}
+    sp = _span_summary(tracer, win, wall_total, launches)
+    if sp is not None:
+        out["spans"] = sp
+        out["dispatch_ms_per_launch"] = sp["dispatch_ms_per_launch"]
+        out["host_overhead_frac"] = sp["host_overhead_frac"]
+    if with_metrics:
+        out["device_metrics"] = obsdev.metrics_dict(met)
+    return obscap.capacity_row(out, dict(
+        n=n, ring=depth, engine="prefix", m=m, k=k,
+        select_impl=select_impl, tag_width=tag_width, window_m=window_m))
+
+
 class ChainResult(NamedTuple):
     """``epochs`` chained epochs' output (stacked on the device)."""
 
@@ -412,20 +514,23 @@ def _sustained_setup(n: int, ring: int, depth0: int,
 
 
 def _row_cfg(workload: str, m: int | None = None,
-             steps: int | None = None) -> dict:
-    """The row's shape; ``m`` and ``steps`` override its batches a round
-    and calendar steps (the frontier's points)."""
+             steps: int | None = None, shape: dict | None = None) -> dict:
+    """The row's shape; ``shape`` replaces fields of :data:`CFG3` or
+    :data:`CFG4` (bench's CPU shape of cfg3, a selection or ladder knob),
+    and ``m`` and ``steps`` its batches a round and calendar steps (the
+    frontier's points)."""
     if workload not in ("cfg3", "cfg4"):
         raise ValueError(f"unknown sustained workload {workload!r}")
     c = CFG3 if workload == "cfg3" else CFG4
-    over = {k: v for k, v in (("m", m), ("steps", steps)) if v is not None}
+    over = dict(shape or {}, **{k: v for k, v in (("m", m), ("steps", steps))
+                                if v is not None})
     return dict(c, **over) if over else c
 
 
-def sustained_qos(workload: str, n: int):
+def sustained_qos(workload: str, n: int, shape: dict | None = None):
     """``(reservation rates, weights)`` of ``workload`` ("cfg3" or
     "cfg4") at ``n`` clients, as bench configures them."""
-    c = _row_cfg(workload)
+    c = _row_cfg(workload, shape=shape)
     weights = _zipf_weights(n) if c["zipf"] \
         else np.asarray([1.0 + (i % 4) for i in range(n)])
     return np.full(n, c["resv_rate"]), weights
@@ -443,14 +548,15 @@ def sustained_start(workload: str, n: int, *,
 
 
 def sustained_lam0(workload: str, n: int, *, m: int | None = None,
-                   steps: int | None = None) -> np.ndarray:
+                   steps: int | None = None,
+                   shape: dict | None = None) -> np.ndarray:
     """Bench's starting guess of the per-client arrival rate a round:
     the reservation floor plus the weight share of the surplus (the
     calendar's serve budget is ``m * n * steps``, the prefix engine's
     ``m * k``), clipped to ``waves - 1``.  The warm round draws from
     it."""
-    c = _row_cfg(workload, m, steps)
-    resv_rates, weights = sustained_qos(workload, n)
+    c = _row_cfg(workload, m, steps, shape)
+    resv_rates, weights = sustained_qos(workload, n, shape)
     serve_per_round = c["m"] * (n * c["steps"] if workload == "cfg4"
                                 else c["k"])
     round_s = c["dt_round_ns"] / 1e9
@@ -479,7 +585,7 @@ class Sustained(NamedTuple):
 def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
                       *, calendar_impl: str = "minstop",
                       m: int | None = None, steps: int | None = None,
-                      tracer=None,
+                      shape: dict | None = None, tracer=None,
                       device: str | torch.device = DEFAULT_DEVICE
                       ) -> Sustained:
     """Bench's calibration (``bench_sustained``, in its order), then every
@@ -500,20 +606,21 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
     into the state.  The timed rounds' draws come next on the same
     stream, from the calibrated ``lam``.  The calibration rounds read
     their decisions back (untimed); no telemetry rides them, as bench
-    discards it.  ``calendar_impl`` picks cfg4's scheme; ``m`` and
-    ``steps`` override the row's shape (:func:`_row_cfg`).  With a span
-    ``tracer`` every round is a ``serve.round`` dispatch span.  Later
-    draws (the conformance and latency rounds) continue on ``rng``."""
+    discards it.  ``calendar_impl`` picks cfg4's scheme; ``shape``,
+    ``m`` and ``steps`` override the row's shape (:func:`_row_cfg`).
+    With a span ``tracer`` every round is a ``serve.round`` dispatch
+    span.  Later draws (the conformance and latency rounds) continue on
+    ``rng``."""
     from .core.timebase import MAX_INV_NS, NS_PER_SEC
 
     dev = resolve_device(device)
-    c = _row_cfg(workload, m, steps)
-    resv_rates, weights = sustained_qos(workload, n)
+    c = _row_cfg(workload, m, steps, shape)
+    resv_rates, weights = sustained_qos(workload, n, shape)
     state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
                              weights, device=dev)
     calendar = workload == "cfg4"
     dt, waves = c["dt_round_ns"], c["waves"]
-    lam = sustained_lam0(workload, n, m=m, steps=steps)
+    lam = sustained_lam0(workload, n, m=m, steps=steps, shape=shape)
     rng = np.random.default_rng(seed)
 
     def draw():
@@ -616,15 +723,15 @@ class Tele(NamedTuple):
     prov: object = None
 
 
-def slo_plane(workload: str, n: int,
-              state: EngineState | None = None) -> SloPlane:
+def slo_plane(workload: str, n: int, state: EngineState | None = None,
+              shape: dict | None = None) -> SloPlane:
     """The row's SLO plane (host data): every client registered from the
     configured rates (no limit), ring depth 32, as ``bench_sustained``
     builds it; given the calibrated ``state``, every contract is then
     re-registered from its inverse-rate arrays, as bench does before the
     timed rounds."""
-    cfg = _row_cfg(workload)
-    resv_rates, weights = sustained_qos(workload, n)
+    cfg = _row_cfg(workload, shape=shape)
+    resv_rates, weights = sustained_qos(workload, n, shape)
     plane = SloPlane(n, dt_epoch_ns=cfg["dt_round_ns"],
                      ring_depth=SLO_RING_DEPTH)
     for c in range(n):
@@ -1051,7 +1158,7 @@ def sustained_row(workload: str, n: int | None = None, *,
                   slo: bool = True, provenance: bool = True,
                   engine_loop: str = "round",
                   stream_chunk: int = STREAM_CHUNK, seed: int = 11,
-                  tracer=None, watchdog=None,
+                  shape: dict | None = None, tracer=None, watchdog=None,
                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
     """Bench's sustained row whole (``bench_sustained``, in its order):
     the row's keys as one dict.
@@ -1081,11 +1188,11 @@ def sustained_row(workload: str, n: int | None = None, *,
     ``engine_loop="stream"`` runs the chains as stream chunks of
     ``stream_chunk`` rounds.  Depth defaults to bench's accelerator
     depth (:data:`ROW_DEPTH`); ``m``/``steps`` override the shape (the
-    frontier)."""
+    frontier), ``shape`` its other fields (:func:`_row_cfg`)."""
     if engine_loop not in ("round", "stream"):
         raise ValueError(f"engine_loop {engine_loop!r} is not round or "
                          f"stream")
-    c = _row_cfg(workload, m, steps)
+    c = _row_cfg(workload, m, steps, shape)
     depth = ROW_DEPTH[workload]
     rounds = depth["rounds"] if rounds is None else rounds
     rounds_lo = depth["rounds_lo"] if rounds_lo is None else rounds_lo
@@ -1104,16 +1211,18 @@ def sustained_row(workload: str, n: int | None = None, *,
 
     prep = sustained_prepare(workload, n, n_pre, seed,
                              calendar_impl=calendar_impl, m=m, steps=steps,
-                             tracer=tracer, device=dev)
+                             shape=shape, tracer=tracer, device=dev)
     state, draws, t_base = prep.state, prep.draws, prep.t0
-    resv_rates, weights = prep.resv_rates, sustained_qos(workload, n)[1]
+    resv_rates = prep.resv_rates
+    weights = sustained_qos(workload, n, shape)[1]
     round_fn, eng_kw = _round_body(workload, c, calendar_impl)
 
     def draw():
         return np.minimum(prep.rng.poisson(prep.lam), waves) \
             .astype(np.int32)
 
-    plane = slo_plane(workload, n, state=state) if slo else None
+    plane = slo_plane(workload, n, state=state, shape=shape) if slo \
+        else None
     slo_eval = SloEvaluator(plane, log=lambda _line: None) if slo else None
     tele = tele_zero(n, telemetry=telemetry, provenance=provenance,
                      plane=plane, t0=t_base, device=dev)
@@ -1335,7 +1444,36 @@ def sustained_row(workload: str, n: int | None = None, *,
 
     if slo:
         _slo_result_block(out, slo_eval)
-    return row_tail(out, tele, state, t_base, dt, watchdog=watchdog)
+    row_tail(out, tele, state, t_base, dt, watchdog=watchdog)
+    # bench's capacity record: the knob setting's resident bytes
+    return obscap.capacity_row(out, sustained_capacity_cfg(
+        workload, n, calendar_impl=calendar_impl, telemetry=telemetry,
+        slo=slo, engine_loop=engine_loop, stream_chunk=stream_chunk, m=m,
+        steps=steps, shape=shape))
+
+
+def sustained_capacity_cfg(workload: str, n: int, *,
+                           calendar_impl: str = "minstop",
+                           telemetry: bool = True, slo: bool = True,
+                           engine_loop: str = "round",
+                           stream_chunk: int = STREAM_CHUNK,
+                           m: int | None = None,
+                           steps: int | None = None,
+                           shape: dict | None = None) -> dict:
+    """The sustained row's knob setting as ``obs.capacity`` reads it
+    (bench's ``cap_cfg``): the projected resident bytes of the row and
+    the pre-launch check of the session's ``--capacity``."""
+    c = _row_cfg(workload, m, steps, shape)
+    calendar = workload == "cfg4"
+    return dict(n=n, ring=c["ring"],
+                engine="calendar" if calendar else "prefix", m=c["m"],
+                k=c["steps"] if calendar else c["k"], chain_depth=1,
+                select_impl=c.get("select_impl", "sort"),
+                calendar_impl=calendar_impl,
+                ladder_levels=c.get("ladder_levels", 8),
+                telemetry=telemetry, slo=slo,
+                stream_chunk=stream_chunk if engine_loop == "stream"
+                else 0)
 
 
 def conformance_block(served: np.ndarray, window_s: float,
@@ -2758,7 +2896,8 @@ def mesh_rebalance_row(*, n_shards: int = REBALANCE["n_shards"],
                        ckpt_every: int = 4, engine: str = "prefix",
                        m: int = 2, k: int = 32, ring: int = 16,
                        waves: int = 6, seed: int = 17, tracer=None,
-                       device: str | torch.device = DEFAULT_DEVICE) -> dict:
+                       device: str | torch.device = DEFAULT_DEVICE,
+                       devices=None) -> dict:
     """Bench's ``mesh_rebalance`` row (``bench.py``
     ``bench_mesh_rebalance``) on the port: two exact-twin supervised
     mesh jobs on the ``shard_skew`` scenario, the static ``cid % S``
@@ -2769,7 +2908,10 @@ def mesh_rebalance_row(*, n_shards: int = REBALANCE["n_shards"],
     (``mesh_counters[0]``).  An untimed warmup of the off twin runs
     first, as in bench.  The JAX row caps ``n_shards`` at its device
     count; every shard here is a slice of one card, so ``n_shards`` is
-    taken as given.  Keys are bench's."""
+    taken as given.  ``devices`` lays both twins out over device groups
+    (``EpochJob.devices``; ``S % D == 0``), bench's one shard a device
+    where ``D == S``: the controller reads and migration writes group by
+    group.  Keys are bench's."""
     import dataclasses
 
     from .robust.supervisor import EpochJob, run_job
@@ -2779,7 +2921,9 @@ def mesh_rebalance_row(*, n_shards: int = REBALANCE["n_shards"],
                       seed=seed)
     job = EpochJob(engine=engine, engine_loop="mesh", n_shards=S,
                    churn=spec, epochs=epochs, m=m, k=k, ring=ring,
-                   waves=waves, ckpt_every=ckpt_every, seed=seed)
+                   waves=waves, ckpt_every=ckpt_every, seed=seed,
+                   devices=None if devices is None else tuple(
+                       str(d) for d in resolve_devices(devices)))
 
     def skew(res):
         tot = np.asarray(res.mesh_counters[0],
@@ -2820,7 +2964,8 @@ def mesh_rebalance_row(*, n_shards: int = REBALANCE["n_shards"],
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("serve", "chain", "cfg3",
+    ap.add_argument("--workload", choices=("serve", "serve_row", "chain",
+                                           "cfg3",
                                            "cfg4", "frontier", "queue",
                                            "churn", "mesh", "multichip",
                                            "controller", "rpc",
@@ -2855,7 +3000,8 @@ def main(argv=None) -> int:
                     "the id space, 4096; controller 192, mesh_rebalance "
                     "64; rpc: clients and coalesce slots, 32)")
     ap.add_argument("--depth", type=int, default=320,
-                    help="serve, chain: queue depth and ring size")
+                    help="serve, serve_row, chain: queue depth and ring "
+                    "size")
     ap.add_argument("--k", type=int, default=None,
                     help="serve, chain, churn: decisions (units) per "
                     "batch (65536; churn 256)")
@@ -2865,6 +3011,10 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=None,
                     help="serve, chain, churn (3; churn 64), controller "
                     "(48), rpc (16), mesh_rebalance (24)")
+    ap.add_argument("--epochs-lo", type=int, default=3,
+                    help="serve_row: epochs of a short timed chain")
+    ap.add_argument("--epochs-hi", type=int, default=6,
+                    help="serve_row: epochs of a long timed chain")
     ap.add_argument("--requests", type=int, default=RPC["requests"],
                     help="rpc: requests per loadgen worker")
     ap.add_argument("--churn-scenario", default="flash_crowd",
@@ -2879,7 +3029,8 @@ def main(argv=None) -> int:
                     "0 for one chain (20; cfg4 12; frontier 8)")
     ap.add_argument("--reps", type=int, default=None,
                     help="cfg3, cfg4, frontier: pairs of timed chains "
-                    "(3; cfg4 4; frontier 2)")
+                    "(3; cfg4 4; frontier 2); serve_row: fresh states, "
+                    "a pair each (5)")
     ap.add_argument("--latency-rounds", type=int, default=None,
                     help="cfg3, cfg4, frontier: windowed latency rounds "
                     "(0; cfg4 100; frontier 60)")
@@ -2919,7 +3070,8 @@ def main(argv=None) -> int:
                     help="serve: batches per ring-window prefetch")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     ap.add_argument("--devices", default=None,
-                    help="mesh/multichip: lay the shards out over devices"
+                    help="mesh, mesh_rebalance, multichip: lay the "
+                         "shards out over devices"
                          ", a list (cuda:0,cuda:1; a name may repeat) or "
                          "a count of cards (4 = the first four)")
     a = ap.parse_args(argv)
@@ -2940,6 +3092,16 @@ def main(argv=None) -> int:
         return 0
     if a.workload in ("cfg3", "cfg4", "frontier"):
         return _main_sustained(a)
+    if a.workload == "serve_row":
+        row = serve_row(a.k or 65536, a.m or 32, epochs_lo=a.epochs_lo,
+                        epochs_hi=a.epochs_hi, depth=a.depth,
+                        reps=5 if a.reps is None else a.reps,
+                        n=a.n or 100_000, select_impl=a.select_impl,
+                        tag_width=a.tag_width, window_m=a.window_m,
+                        device=a.device)
+        _print_rows({"serve" if a.select_impl == "sort"
+                     else "serve_radix": row}, a.device)
+        return 0
     if a.workload == "mesh":
         from .robust.faults import parse_fault_spec
 
@@ -2954,7 +3116,7 @@ def main(argv=None) -> int:
         if a.rebalance == "on":
             _print_rows({"mesh_rebalance": mesh_rebalance_row(
                 n_shards=a.n_shards or REBALANCE["n_shards"],
-                device=a.device)}, a.device)
+                device=a.device, devices=devices)}, a.device)
         return 0
     if a.workload == "controller":
         _print_rows(controller_row(
@@ -2972,8 +3134,8 @@ def main(argv=None) -> int:
         _print_rows({"mesh_rebalance": mesh_rebalance_row(
             n_shards=a.n_shards or REBALANCE["n_shards"],
             total_ids=a.n or REBALANCE["total_ids"],
-            epochs=a.epochs or REBALANCE["epochs"], device=a.device)},
-            a.device)
+            epochs=a.epochs or REBALANCE["epochs"], device=a.device,
+            devices=devices)}, a.device)
         return 0
     if a.workload == "multichip":
         row = multichip_row(a.n_shards or 8, a.clients or 10_000,

@@ -14,12 +14,15 @@ from dmclock_tpu_torch.engine import state as tstate
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "dmclock_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_serve_profile.py"]
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_serve_profile.py",
+     ROOT / "scripts" / "torch_run_fullscale.py",
+     ROOT / "scripts" / "torch_silicon_parity.py"]
 
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "dmclock_tpu")
+    return top in ("jax", "jaxlib", "dmclock_tpu", "bench",
+                   "__graft_entry__", "profile_util")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -53,6 +56,25 @@ def test_serve_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_bench_session_leaves_jax_unloaded():
+    """``python -m dmclock_tpu_torch.bench`` on the CPU ends with no JAX,
+    no JAX package and no JAX repo ``bench`` module loaded."""
+    code = ("import sys, runpy\n"
+            "sys.argv = ['bench', '--mode', 'serve', '--device', 'cpu']\n"
+            "try:\n"
+            "    runpy.run_module('dmclock_tpu_torch.bench',\n"
+            "                     run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu', 'bench'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert '"vs_baseline"' in out.stdout
 
 
 def test_default_device_is_cuda_and_never_falls_back():

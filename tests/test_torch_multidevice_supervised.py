@@ -5,8 +5,8 @@ Every group names the CPU (``("cpu",) * D``), which runs the grouped
 code the way several cards do.  Held: a job over D = 2 and 4 groups
 equals the one-group run and the JAX supervisor's run on its forced CPU
 devices, bare with every telemetry plane and under the chaos plan; the
-churn population with p2c placement under faults, and the controller on
-a layout that repeats one device; a job killed on one layout and
+churn population with p2c placement under faults, and the controller
+with migration over groups; a job killed on one layout and
 resumed on another equals the uninterrupted run, both ways; the
 snapshot files are the same bytes on every layout; and the refusals
 (``S % D``, ``devices`` off the mesh loop)."""
@@ -66,9 +66,9 @@ def test_churn_p2c_chaos_over_groups():
 
 
 def test_controller_on_a_repeated_device_layout():
-    """The controller and migration run on a layout that repeats one
-    device, as on one device; a layout over distinct devices refuses
-    them (ROADMAP item 11b)."""
+    """The controller and migration on a layout of two groups equal the
+    one-device run (tests/test_torch_multidevice_migration.py holds
+    more layouts against the JAX package)."""
     ctl = dict(sync_max=1, backlog_hi=10 ** 9, occ_lo=0.0, hysteresis=1,
                cooldown=8, migrate_skew_hi=1.5, migrate_pick="cold")
     spec = tchurn.make_spec("shard_skew", total_ids=64, seed=3,
