@@ -316,6 +316,20 @@ Phases (any failure raises and the exit code is not 0):
     client, the record read by its ``load_multichip`` with ``ok``.  The
     sessions, (c) and (d) run as children beside (a): their rates are not
     judged.
+27. The sweeps (``scripts/torch_run_sweeps.py``, the device half of the
+    JAX repo's ``benchmark/run_sweeps.py``) at full width: (a) K1 bit for
+    bit against its plain version at each shape the sweeps give it
+    (``RING_SWEEP_SHAPES``) and timed there; (b) the first epoch of each
+    AtLimit Allow row (sorted m=21, k=49,152 and calendar m=8, steps 8
+    over ``limited_state``, 100,000 clients, ring 256) and the calendar
+    grid's first point ((m, steps) = (4, 8), ring 320) against a CPU twin
+    started as the phase begins (``start_sweep_twins``), every output and
+    state field but the rings (which no epoch writes) equal; (c) the
+    rows through the script's functions, launch-counted each: the Allow
+    rows whole (a limit-break asserted on both), the calendar grid whole,
+    the regime rows with the serial floor cut from 4,096 steps to
+    ``SWEEP_SERIAL_STEPS``, and the k/m grid's largest point (98,304 x
+    64 on a 384-slot ring) with one rep.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -496,79 +510,93 @@ def phase_build(ext) -> None:
         f"{time.perf_counter() - t0:.3f} s")
 
 
+def _k1_check(fp, gen, n: int, q: int, w: int) -> int:
+    """K1 at ``(n, q, w)`` against its plain version, ``q_head`` in [0, Q)
+    and in [-2Q, 2Q); returns the max abs error (0) or raises."""
+    dev = torch.device("cuda")
+    arr = torch.randint(-(1 << 50), 1 << 50, (n, q), generator=gen,
+                        device=dev, dtype=torch.int64)
+    cost = torch.randint(1, 1 << 20, (n, q), generator=gen, device=dev,
+                         dtype=torch.int64)
+    max_err = 0
+    for lo, hi in ((0, q), (-2 * q, 2 * q)):
+        q0 = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        q0[: min(n, 3)] = q - 1                  # the wrap edge
+        ka, kc = fp.ring_window_rows(arr, cost, q0, w)
+        pa = fp._ring_window_torch(arr, q0, w)
+        pc = fp._ring_window_torch(cost, q0, w)
+        torch.cuda.synchronize()
+        err = max(int((ka - pa).abs().max()), int((kc - pc).abs().max()))
+        if ka.shape != (w, n) or not (torch.equal(ka, pa)
+                                      and torch.equal(kc, pc)):
+            raise AssertionError(f"K1 differs from its plain version at "
+                                 f"N={n} Q={q} w={w}, q_head in [{lo}, "
+                                 f"{hi}): max err {err}")
+        max_err = max(max_err, err)
+    log(f"[k1] N={n} Q={q} w={w}: bit-identical to the plain version "
+        f"(q_head in [0, Q) and in [-2Q, 2Q))")
+    return max_err
+
+
+def _k1_time(fp, gen, n: int, q: int, w: int, card: str) -> dict:
+    """K1's device time at ``(n, q, w)`` beside its byte bound, a
+    ``copy_`` of its window bytes, its plain version and ``torch.gather``
+    x2, and back-to-back wrapper calls; the numbers as a dict."""
+    dev = torch.device("cuda")
+    arr = torch.randint(0, 1 << 40, (n, q), generator=gen, device=dev,
+                        dtype=torch.int64)
+    cost = torch.randint(1, 4, (n, q), generator=gen, device=dev,
+                         dtype=torch.int64)
+    q0 = torch.randint(0, q, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    idx_t = torch.remainder(
+        q0.to(torch.int64)[None, :]
+        + torch.arange(w, device=dev, dtype=torch.int64)[:, None], q)
+    # the streaming yardstick: one device copy that reads and writes
+    # as many window bytes as K1 does
+    src = torch.ones((2 * n * w,), dtype=torch.int64, device=dev)
+    dst = torch.empty_like(src)
+    k_ms = cuda_ms(lambda: fp.ring_window_rows(arr, cost, q0, w), 50)
+    c_ms = cuda_ms(lambda: dst.copy_(src), 50)
+    p_ms = cuda_ms(lambda: (fp._ring_window_torch(arr, q0, w),
+                            fp._ring_window_torch(cost, q0, w)), 20)
+    # the library yardstick: torch.gather on the transposed ring
+    # views with a precomputed [w, N] index, once per ring
+    l_ms = cuda_ms(lambda: (torch.gather(arr.T, 0, idx_t),
+                            torch.gather(cost.T, 0, idx_t)), 20)
+    del src, dst
+    nbytes = 2 * (2 * n * w * 8) + 4 * n
+    bound_ms = nbytes / MEM_RATE * 1e3
+    h_ms = host_paced_ms(lambda: fp.ring_window_rows(arr, cost, q0, w), 50)
+    log(f"[k1] N={n} Q={q} w={w} on {card}: device time per call "
+        f"(CUDA graph replay): kernel {k_ms:.6f} ms = "
+        f"{k_ms / bound_ms:.3f}x its bound {bound_ms:.6f} ms "
+        f"({nbytes} bytes); copy_ of the same window bytes "
+        f"{c_ms:.6f} ms = {c_ms / bound_ms:.3f}x the bound (kernel "
+        f"{k_ms / c_ms:.3f}x the copy); plain {p_ms:.6f} ms, "
+        f"torch.gather x2 {l_ms:.6f} ms; back-to-back wrapper calls "
+        f"{h_ms:.6f} ms each (host-paced)")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                library_ms=l_ms, copy_ms=c_ms)
+
+
 def phase_k1(fp, cases, card: str) -> dict:
     """K1 against its plain version; time at each main-path shape."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    max_err = 0
-    for n, q, w in cases.RING_SHAPES + cases.RING_MAIN_SHAPES:
-        arr = torch.randint(-(1 << 50), 1 << 50, (n, q), generator=gen,
-                            device=dev, dtype=torch.int64)
-        cost = torch.randint(1, 1 << 20, (n, q), generator=gen,
-                             device=dev, dtype=torch.int64)
-        for lo, hi in ((0, q), (-2 * q, 2 * q)):
-            q0 = torch.randint(lo, hi, (n,), generator=gen, device=dev,
-                               dtype=torch.int32)
-            q0[: min(n, 3)] = q - 1                  # the wrap edge
-            ka, kc = fp.ring_window_rows(arr, cost, q0, w)
-            pa = fp._ring_window_torch(arr, q0, w)
-            pc = fp._ring_window_torch(cost, q0, w)
-            torch.cuda.synchronize()
-            err = max(int((ka - pa).abs().max()),
-                      int((kc - pc).abs().max()))
-            if ka.shape != (w, n) or not (torch.equal(ka, pa)
-                                          and torch.equal(kc, pc)):
-                raise AssertionError(f"K1 differs from its plain version "
-                                     f"at N={n} Q={q} w={w}, q_head in "
-                                     f"[{lo}, {hi}): max err {err}")
-            max_err = max(max_err, err)
-        log(f"[k1] N={n} Q={q} w={w}: bit-identical to the plain version "
-            f"(q_head in [0, Q) and in [-2Q, 2Q))")
-
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    max_err = max(_k1_check(fp, gen, n, q, w)
+                  for n, q, w in cases.RING_SHAPES + cases.RING_MAIN_SHAPES)
     # time at each main-path shape; the kernel table reports the first,
     # serve's
     out = None
     for n, q, w in cases.RING_MAIN_SHAPES:
-        arr = torch.randint(0, 1 << 40, (n, q), generator=gen, device=dev,
-                            dtype=torch.int64)
-        cost = torch.randint(1, 4, (n, q), generator=gen, device=dev,
-                             dtype=torch.int64)
-        q0 = torch.randint(0, q, (n,), generator=gen, device=dev,
-                           dtype=torch.int32)
-        idx_t = torch.remainder(
-            q0.to(torch.int64)[None, :]
-            + torch.arange(w, device=dev, dtype=torch.int64)[:, None], q)
-        # the streaming yardstick: one device copy that reads and writes
-        # as many window bytes as K1 does
-        src = torch.ones((2 * n * w,), dtype=torch.int64, device=dev)
-        dst = torch.empty_like(src)
-        k_ms = cuda_ms(lambda: fp.ring_window_rows(arr, cost, q0, w), 50)
-        c_ms = cuda_ms(lambda: dst.copy_(src), 50)
-        p_ms = cuda_ms(lambda: (fp._ring_window_torch(arr, q0, w),
-                                fp._ring_window_torch(cost, q0, w)), 20)
-        # the library yardstick: torch.gather on the transposed ring
-        # views with a precomputed [w, N] index, once per ring
-        l_ms = cuda_ms(lambda: (torch.gather(arr.T, 0, idx_t),
-                                torch.gather(cost.T, 0, idx_t)), 20)
-        del src, dst
-        nbytes = 2 * (2 * n * w * 8) + 4 * n
-        bound_ms = nbytes / MEM_RATE * 1e3
-        h_ms = host_paced_ms(lambda: fp.ring_window_rows(arr, cost, q0, w),
-                             50)
-        log(f"[k1] N={n} Q={q} w={w} on {card}: device time per call "
-            f"(CUDA graph replay): kernel {k_ms:.6f} ms = "
-            f"{k_ms / bound_ms:.3f}x its bound {bound_ms:.6f} ms "
-            f"({nbytes} bytes); copy_ of the same window bytes "
-            f"{c_ms:.6f} ms = {c_ms / bound_ms:.3f}x the bound (kernel "
-            f"{k_ms / c_ms:.3f}x the copy); plain {p_ms:.6f} ms, "
-            f"torch.gather x2 {l_ms:.6f} ms; back-to-back wrapper calls "
-            f"{h_ms:.6f} ms each (host-paced)")
+        t = _k1_time(fp, gen, n, q, w, card)
         if out is None:
             out = dict(name="ring_window", route="cuda", source=K1_SOURCE,
                        replaces=K1_REPLACES, launches=None,
-                       max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-                       bound_ms=bound_ms, bound_by="bytes",
-                       library_ms=l_ms)
+                       max_abs_err=max_err, ms=t["ms"],
+                       plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                       bound_by="bytes", library_ms=t["library_ms"])
     return out
 
 
@@ -4681,6 +4709,189 @@ def phase_session(ext, card: str, root: str, tmp: str, refs: dict):
         {p: n for p, n in k2.items() if n}
 
 
+# ----------------------------------------------------------------------
+# phase 27: the sweeps at full width
+# ----------------------------------------------------------------------
+
+SWEEP_SERIAL_STEPS = 256       # the regime rows' serial floor (4,096 cut)
+SWEEP_KM_POINT = ((98304, 64, 384),)   # the k/m grid's largest point
+SWEEP_KM_REPS = 1
+# fields no epoch writes (fastpath._EPOCH_INVARIANT's rings): left out of
+# the twin comparison, which would otherwise ship 0.4 GB a state
+SWEEP_SKIP = ("q_arrival", "q_cost")
+
+
+def _sweeps_module(root: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_run_sweeps", os.path.join(root, "scripts",
+                                         "torch_run_sweeps.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _epoch_numpy(ep) -> dict:
+    """A prefix or calendar epoch's outputs and state as host numpy, the
+    rings left out (``SWEEP_SKIP``)."""
+    out = {}
+    for f in ep._fields:
+        v = getattr(ep, f)
+        if torch.is_tensor(v):
+            out[f] = v.cpu().numpy()
+        elif f == "state":
+            out.update({f"state.{g}": getattr(v, g).cpu().numpy()
+                        for g in v._fields if g not in SWEEP_SKIP})
+    return out
+
+
+def sweep_first_epochs(sw, device) -> dict:
+    """The first epoch of each Allow row and of the calendar grid's
+    first point, at the script's full shapes, as host numpy."""
+    al, cal = sw.FULL["allow"], sw.FULL["calendar"]
+    out = {}
+    ep = sw.scan_prefix_epoch(sw.limited_state(al["n"], al["depth"], device),
+                              0, al["m"], al["k"], anticipation_ns=0,
+                              allow_limit_break=True)
+    out["allow_sorted"] = _epoch_numpy(ep)
+    del ep
+    ep = sw.scan_calendar_epoch(
+        sw.limited_state(al["n"], al["depth"], device), 0, al["cal_m"],
+        steps=al["cal_steps"], anticipation_ns=0, allow_limit_break=True)
+    out["allow_calendar"] = _epoch_numpy(ep)
+    del ep
+    m, steps, _ = cal["points"][0]
+    ep = sw.scan_calendar_epoch(
+        sw._preloaded_state(cal["n"], cal["depth"], ring=cal["depth"],
+                            device=device), 0, m, steps=steps,
+        anticipation_ns=0)
+    out["calendar"] = _epoch_numpy(ep)
+    return out
+
+
+def sweep_twins(root: str, out: str) -> None:
+    """Phase 27's CPU runs (in a child process): the first epochs of
+    :func:`sweep_first_epochs` on the CPU; saved to ``out``."""
+    torch.set_num_threads(4)
+    torch.save(sweep_first_epochs(_sweeps_module(root), "cpu"), out)
+
+
+def start_sweep_twins(root: str, out: str) -> subprocess.Popen:
+    code = ("import sys\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.sweep_twins({root!r}, {out!r})\n")
+    return _cpu_child(code, out)
+
+
+def phase_sweeps(ext, fp, cases, card: str, root: str, tmp: str):
+    """Phase 27 (the module docstring).  Returns ``(K1 launches by path,
+    K1's max abs error at the sweep shapes, the sweep shapes' timings)``."""
+    t_phase = time.perf_counter()
+    twin_out = os.path.join(tmp, "sweep_twins.pt")
+    twin = start_sweep_twins(root, twin_out)
+    try:
+        sw = _sweeps_module(root)
+        full = sw.FULL
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        first = sweep_first_epochs(sw, "cuda")
+        torch.cuda.synchronize()
+        by_path = {"sweep_twin_epochs": ext.LAUNCHES["ring_window"]}
+        want = 1 + full["allow"]["cal_m"] + full["calendar"]["points"][0][0]
+        if dict(ext.LAUNCHES) != {"ring_window": want, "wheel_scan": 0}:
+            raise AssertionError(f"the sweeps' first epochs launched "
+                                 f"{dict(ext.LAUNCHES)}, want K1 {want}")
+        lb = int(first["allow_sorted"]["lb"].sum())
+        log(f"[sweeps] first epochs on {card}: Allow sorted "
+            f"{int(first['allow_sorted']['count'].sum())} decisions "
+            f"({lb} limit-breaks), Allow calendar "
+            f"{int(first['allow_calendar']['count'].sum())}, calendar "
+            f"(4, 8) {int(first['calendar']['count'].sum())}; K1 {want}")
+        if not lb:
+            raise AssertionError("the sorted Allow epoch broke no limit")
+
+        gen = torch.Generator(device="cuda").manual_seed(27)
+        max_err = max(_k1_check(fp, gen, n, q, w)
+                      for n, q, w in cases.RING_SWEEP_SHAPES)
+        timings = {(n, q, w): _k1_time(fp, gen, n, q, w, card)
+                   for n, q, w in cases.RING_SWEEP_SHAPES}
+        torch.cuda.empty_cache()
+
+        def counted(what: str, want: int, fn):
+            torch.cuda.synchronize()
+            ext.reset_launches()
+            t0 = time.perf_counter()
+            rows = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = dict(ext.LAUNCHES)
+            log(f"[{what}] {secs:.3f} s, kernel launches {got}")
+            if got != {"ring_window": want, "wheel_scan": 0}:
+                raise AssertionError(f"{what} launched {got}, want K1 "
+                                     f"{want} and no K2")
+            by_path[what] = want
+            torch.cuda.empty_cache()
+            return rows
+
+        al = full["allow"]
+        rows = counted(
+            "sweep_allow", 1 + al["sorted_epochs"] + 1
+            + al["cal_m"] * (1 + al["cal_epochs"]),
+            lambda: sw.tpu_allow_regime_row(**al, device="cuda"))
+        for name, dps, fired, total in rows:
+            log(f"[sweep_allow] {name} on {card}: {dps:.1f} decisions/s, "
+                f"{total} decisions, limit-breaks fired {fired}")
+            if not fired or not total:
+                raise AssertionError(f"{name}: no limit-break fired")
+        cal = full["calendar"]
+        rows = counted(
+            "sweep_calendar",
+            sum(m * (1 + e) for m, _, e in cal["points"]),
+            lambda: sw.tpu_calendar_sweep(**cal, device="cuda"))
+        for m, steps, dps, total in rows:
+            log(f"[sweep_calendar] m={m} steps={steps} on {card}: "
+                f"{dps:.1f} decisions/s, {total} decisions")
+        rg = dict(full["regime"], serial_steps=SWEEP_SERIAL_STEPS)
+        lo = sw.lo_epochs(rg["epochs"], rg["k"], rg["m"],
+                          rg["lo_decisions"])
+        rows = counted(
+            "sweep_regime", 2 * rg["reps"] * (1 + lo + max(rg["epochs"],
+                                                           lo + 1))
+            + 1 + rg["epochs"],
+            lambda: sw.tpu_regime_sweep(**rg, device="cuda"))
+        for name, dps, fill in rows:
+            log(f"[sweep_regime] {name} on {card}: {dps:.1f} decisions/s, "
+                f"fill {fill:.6f}")
+        log(f"[sweep_regime] the serial floor ran {SWEEP_SERIAL_STEPS} "
+            f"steps twice (cut from the script's 4,096)")
+        km = dict(full["km"], grid=SWEEP_KM_POINT, reps=SWEEP_KM_REPS)
+        want_km = 0
+        for k, m, _ in km["grid"]:
+            hi = max(2, km["chain_decisions"] // (m * k))
+            lo = sw.lo_epochs(hi, k, m, km["lo_decisions"])
+            want_km += km["reps"] * (1 + lo + max(hi, lo + 1))
+        rows = counted("sweep_km", want_km,
+                       lambda: sw.tpu_km_sweep(**km, device="cuda"))
+        for k, m, dps, fill in rows:
+            log(f"[sweep_km] k={k} m={m} ring {km['grid'][0][2]} on "
+                f"{card}: {dps:.1f} decisions/s, fill {fill:.6f} "
+                f"({km['reps']} rep)")
+
+        want = collect_cpu_twins(twin, twin_out)
+        for key, got in first.items():
+            _same_numpy(got, want[key], f"sweep {key} vs its CPU twin")
+        log("[sweeps] the first epochs of both Allow rows and of the "
+            "calendar grid's first point equal the CPU twin's on every "
+            "output and state field (the rings, which no epoch writes, "
+            "left out)")
+    finally:
+        _stop(twin)
+    log(f"[time] sweeps phase {time.perf_counter() - t_phase:.3f} s")
+    return by_path, max_err, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4846,6 +5057,10 @@ def main() -> int:
                 raise
             check_sustained_twins(sust_twin, sust_out,
                                   dict(cfg3=cfg3_np, cfg4=cfg4_np))
+            # phase 27: the sweeps; their CPU twin starts first
+            t_sweeps = time.perf_counter()
+            sweep_k1, sweep_err, sweep_ms = phase_sweeps(
+                _ext, fastpath, cases, card, root, tmp)
         finally:
             for proc in (sust_twin, twins, sup_twin, mesh_twin,
                          sup_mesh_twin):
@@ -4865,7 +5080,8 @@ def main() -> int:
         f"{t_control - t_sup_mesh:.3f} s, the control and network phase "
         f"{t_groups - t_control:.3f} s, the mesh across devices "
         f"{t_session - t_groups:.3f} s, the session phase "
-        f"{t_end - t_session:.3f} s; the whole script "
+        f"{t_sweeps - t_session:.3f} s, the sweeps phase "
+        f"{t_end - t_sweeps:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -4879,9 +5095,16 @@ def main() -> int:
                    **sup_k1, **{p: n["ring_window"]
                                 for p, n in ds_by_path.items()},
                    **{p: n for p, n in mesh_k1.items() if n},
-                   **sup_mesh_k1, **ctl_k1, **grp_k1, **ses_k1)
+                   **sup_mesh_k1, **ctl_k1, **grp_k1, **ses_k1,
+                   **sweep_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
+    k1["max_abs_err"] = max(k1["max_abs_err"], sweep_err)
+    log("[k1] at the sweeps' shapes on " + card + ": " + "; ".join(
+        f"N={n} Q={q} w={w} {t['ms']:.6f} ms = "
+        f"{t['ms'] / t['bound_ms']:.3f}x its bound {t['bound_ms']:.6f} ms, "
+        f"plain {t['plain_ms']:.6f}, torch.gather x2 {t['library_ms']:.6f}"
+        for (n, q, w), t in sweep_ms.items()))
     # minstop, cfg3, the stream chunks, the queue and churn, and the
     # device sim but for its wheel run launch no K2
     k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2,

@@ -25,8 +25,12 @@ Differences from bench, by design:
 - nothing is compiled per shape, so the line has no ``compile`` or
   ``cost_analysis`` block and the rows no compile-plane fields or
   roofline verdict;
-- no history record is written (``benchmark/history/`` belongs to the
-  JAX benchmark);
+- the history record (bench's ``_record_history`` layout) goes to the
+  port's own :data:`HISTORY`, ``dmclock_tpu_torch/_history/``, which
+  ``scripts/torch_bench_guard.py`` reads; ``benchmark/history/`` belongs
+  to the JAX benchmark.  A record has no ``fallback`` key (the port never
+  falls back), and its ``platform`` is ``cuda``, or ``cpu`` when the
+  caller named the CPU;
 - ``--wheel-kernel`` selects nothing: the wheel runs K2 on the card
   (and its plain version on the CPU) whichever is named;
 - the ladder steps on bench's guard trips (an ``AssertionError``) and
@@ -42,6 +46,7 @@ import contextlib
 import json
 import os
 import sys
+import time
 import traceback
 from pathlib import Path
 
@@ -59,6 +64,8 @@ from .robust.guarded import DegradationLadder
 
 UNIT = "decisions/sec/chip"
 BASELINE_DPS = 10_000_000
+# the sessions' history records, one JSON a session (git-ignored)
+HISTORY = Path(__file__).resolve().parent / "_history"
 
 # bench's CPU shapes (bench.py main, the cpu backend's branch of each
 # mode) and its accelerator shapes (the other branch)
@@ -589,6 +596,45 @@ def _profiled(out_dir, dev: torch.device):
     print(f"# profile: {path}", file=sys.stderr)
 
 
+def _record_history(results: dict, dev: torch.device, device_name: str,
+                    fault_plan: str = "none", supervised: bool = False,
+                    restarts: int = 0, ladder_steps=None,
+                    controller: str = "off") -> None:
+    """Append this session's rates to :data:`HISTORY` for the drift-aware
+    regression guard (``scripts/torch_bench_guard.py``), in bench's record
+    layout (``bench._record_history``): ``platform``, ``device``,
+    ``fault_plan``, each row's scalar and string fields under
+    ``workloads``, and, when set, ``supervised``/``restarts`` (a
+    restart-bearing run's wall includes recovery), ``controller`` (an
+    actuating controller's wall includes actuation) and
+    ``degradation_ladder``.  Chaos, restarted and controller sessions are
+    recorded for the trajectory; the guard keeps them out of its clean
+    medians, and CPU sessions out of the card's."""
+    if not results:
+        return
+    HISTORY.mkdir(parents=True, exist_ok=True)
+    rec = {
+        "platform": dev.type,
+        "device": device_name,
+        "fault_plan": fault_plan,
+        "workloads": {
+            wl: {k: v for k, v in row.items()
+                 if isinstance(v, (int, float, str, bool))}
+            for wl, row in results.items()},
+    }
+    if supervised:
+        rec["supervised"] = True
+        rec["restarts"] = int(restarts)
+    if controller != "off":
+        rec["controller"] = controller
+    if ladder_steps:
+        rec["degradation_ladder"] = ladder_steps
+    out = HISTORY / f"bench_{int(time.time())}.json"
+    out.write_text(json.dumps(rec, indent=1))
+    print(f"# recorded {out.relative_to(HISTORY.parent.parent)}",
+          file=sys.stderr)
+
+
 def main(argv=None) -> int:
     a = parser().parse_args(argv)
     restarts = int(os.environ.get("DMCLOCK_RESTARTS", "0") or 0)
@@ -673,6 +719,15 @@ def main(argv=None) -> int:
                         + ("" if pick["met_budget"] else
                            " (budget NOT met; closest point)"))
                 emit(out)
+                try:
+                    _record_history({"frontier_" + str(r["m"]): r
+                                     for r in rows}, dev,
+                                    session["device"],
+                                    fault_plan=a.fault_plan,
+                                    supervised=a.supervised,
+                                    restarts=restarts)
+                except OSError:
+                    pass
                 return 0
             results = run_rows(a, dev, devices, ladder, tracer, watchdog)
         if not results:
@@ -681,6 +736,15 @@ def main(argv=None) -> int:
                             "accelerator)",
                   "value": 0.0, "unit": UNIT, "vs_baseline": 0.0})
             return 0
+        try:
+            _record_history(results, dev, session["device"],
+                            fault_plan=a.fault_plan,
+                            supervised=a.supervised, restarts=restarts,
+                            ladder_steps=ladder.describe(),
+                            controller=a.controller
+                            if a.mode == "controller" else "off")
+        except OSError as e:      # telemetry must never eat the results
+            print(f"# history record failed: {e}", file=sys.stderr)
         final = final_line(results, dev, a.device_metrics == "on")
     except Exception as e:
         traceback.print_exc()

@@ -341,7 +341,7 @@ class SpanTracer:
     # -- export --------------------------------------------------------
     def export_jsonl(self, path: str) -> int:
         """Write every ring row as JSONL (the raw-span interchange
-        format ``scripts/trace_report.py`` and ``trace_export``
+        format ``scripts/torch_trace_report.py`` and ``trace_export``
         consume).  Returns the row count."""
         rows = self.rows()
         with open(path, "w") as fh:

@@ -23,7 +23,7 @@ SELF-time sums so CI can gate "category sums ~= wall time"
 (``scripts/ci.sh`` tracing smoke).
 
 :func:`load_rows` reads either format (Chrome JSON or the tracer's
-JSONL) back into span rows for ``scripts/trace_report.py``.
+JSONL) back into span rows for ``scripts/torch_trace_report.py``.
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ def rows_self_times(rows: List[dict]) -> List[int]:
     loaded back) a per-tid nesting sweep over (ts, -dur)-ordered rows
     subtracts each span's direct children from it.  This is THE
     canonical sweep -- ``validate_chrome_trace`` and
-    ``scripts/trace_report.py`` both use it, so the CI self-time gate
+    ``scripts/torch_trace_report.py`` both use it, so the CI self-time gate
     and the attribution table can never disagree on the same file."""
     if rows and all("self" in r for r in rows):
         return [int(r["self"]) for r in rows]

@@ -484,13 +484,16 @@ def _zipf_weights(n: int, s: float = 1.1, lo: float = 0.5,
 
 def _sustained_setup(n: int, ring: int, depth0: int,
                      resv_rates: np.ndarray, weights: np.ndarray, *,
+                     resv_aligned: bool = False,
                      device: str | torch.device = DEFAULT_DEVICE
                      ) -> EngineState:
     """Preload ``depth0``-deep queues for a mixed-QoS population (the
     port's copy of ``bench._sustained_setup``, with its per-client
-    reservation-phase stagger).  A zero rate or weight disables that
-    axis for the client (ClientInfo 0 -> 0) and pins its head tag to
-    MAX_TAG.  Built in numpy, copied to ``device`` once."""
+    reservation-phase stagger, which ``resv_aligned`` drops so that
+    reservation tags advance in lock-stepped cohorts).  A zero rate or
+    weight disables that axis for the client (ClientInfo 0 -> 0) and
+    pins its head tag to MAX_TAG.  Built in numpy, copied to ``device``
+    once."""
     c = np.arange(n)
     rinv = np.asarray([rate_to_inv_ns(r) for r in resv_rates],
                       dtype=np.int64)
@@ -498,7 +501,8 @@ def _sustained_setup(n: int, ring: int, depth0: int,
                       dtype=np.int64)
     phase = ((c * 2654435761) & 0xFFFFF) / float(1 << 20)
     jitter = (phase * 2.0 * winv).astype(np.int64)
-    rjit = (phase * 2.0 * rinv).astype(np.int64)
+    rjit = np.zeros(n, dtype=np.int64) if resv_aligned else \
+        (phase * 2.0 * rinv).astype(np.int64)
     q_arr = np.zeros((n, ring), dtype=np.int64)
     q_arr[:, :depth0 - 1] = np.arange(1, depth0, dtype=np.int64)
     arrays = _fresh_arrays(n, ring)
@@ -529,11 +533,23 @@ def _row_cfg(workload: str, m: int | None = None,
 
 def sustained_qos(workload: str, n: int, shape: dict | None = None):
     """``(reservation rates, weights)`` of ``workload`` ("cfg3" or
-    "cfg4") at ``n`` clients, as bench configures them."""
+    "cfg4") at ``n`` clients, as bench configures them.  A ``split_resv``
+    share > 0 in the shape makes that share of the clients reservation
+    only (weight 0) and the rest weight only (reservation 0), bench's
+    split population."""
     c = _row_cfg(workload, shape=shape)
-    weights = _zipf_weights(n) if c["zipf"] \
-        else np.asarray([1.0 + (i % 4) for i in range(n)])
-    return np.full(n, c["resv_rate"]), weights
+
+    def weights_of(count):
+        return _zipf_weights(count) if c["zipf"] \
+            else np.asarray([1.0 + (i % 4) for i in range(count)])
+
+    split = c.get("split_resv", 0.0)
+    if split > 0:
+        n_resv = int(n * split)
+        return (np.concatenate([np.full(n_resv, c["resv_rate"]),
+                                np.zeros(n - n_resv)]),
+                np.concatenate([np.zeros(n_resv), weights_of(n - n_resv)]))
+    return np.full(n, c["resv_rate"]), weights_of(n)
 
 
 def sustained_start(workload: str, n: int, *,
@@ -617,7 +633,9 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
     c = _row_cfg(workload, m, steps, shape)
     resv_rates, weights = sustained_qos(workload, n, shape)
     state = _sustained_setup(n, c["ring"], c["depth0"], resv_rates,
-                             weights, device=dev)
+                             weights, resv_aligned=c.get("resv_aligned",
+                                                         False),
+                             device=dev)
     calendar = workload == "cfg4"
     dt, waves = c["dt_round_ns"], c["waves"]
     lam = sustained_lam0(workload, n, m=m, steps=steps, shape=shape)
@@ -1104,6 +1122,15 @@ def scalar_latency(device: str | torch.device = DEFAULT_DEVICE,
         v = v * 2 + 1
         int(v)
     return (time.perf_counter() - t0) / reps
+
+
+def state_digest(state: EngineState) -> torch.Tensor:
+    """A 0-d int64 tensor that depends on every batch an epoch chain
+    commits (each commit changes ``depth``, ``head_prop`` or
+    ``prev_resv``): the port's ``profile_util.state_digest``.  Reading it
+    back waits for the whole chain."""
+    return state.depth.sum(dtype=torch.int64) + state.head_prop.sum() + \
+        state.prev_resv.sum()
 
 
 def _per_pass_cap(n: int, k: int, calendar_steps: int, calendar_impl: str,

@@ -50,6 +50,13 @@ MODES = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _port_history(monkeypatch, tmp_path):
+    """The port's session writes its history record into the test's
+    directory, not into the checkout."""
+    monkeypatch.setattr(tbench, "HISTORY", tmp_path / "port_history")
+
+
 def jax_line(monkeypatch, capsys, argv) -> dict:
     monkeypatch.setattr(bench, "_record_history", lambda *a, **k: None)
     monkeypatch.setattr("sys.argv", ["bench.py"] + list(argv))

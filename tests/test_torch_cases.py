@@ -45,6 +45,17 @@ RING_MAIN_SHAPES = [(100_000, 320, 32), (100_000, 128, 64),
                     (1024, 32, 4)]
 
 
+# K1 at the shapes the sweeps (scripts/torch_run_sweeps.py) give it, at
+# 100,000 clients: the k/m grid (w = m = 8, 21, 32 on the 320-slot ring;
+# w = 64 on the 384- and 256-slot rings), the regime rows and the sorted
+# Allow row (Q=256, w=m=21), the calendar grid (Q=320, w=steps=8, 16) and
+# the calendar Allow row (Q=256, w=steps=8)
+RING_SWEEP_SHAPES = [(100_000, 384, 64), (100_000, 320, 8),
+                     (100_000, 320, 21), (100_000, 320, 16),
+                     (100_000, 256, 21), (100_000, 256, 64),
+                     (100_000, 256, 8)]
+
+
 def ring_case(n: int, q: int, seed: int, lo: int = 0, hi=None):
     """``(ring int64[n, q], q_head int32[n])`` with ``q_head`` in
     ``[lo, hi)`` (default ``[0, q)``, whose wrap edges 0 and q - 1 lead

@@ -17,7 +17,8 @@ from dmclock_tpu_torch.engine import fastpath as tfp
 from dmclock_tpu_torch.engine import kernels as tk
 from dmclock_tpu_torch.obs.device import MET_REBASE_FALLBACKS
 
-from test_torch_cases import (RING_MAIN_SHAPES, RING_SHAPES, WHEEL_CASES,
+from test_torch_cases import (RING_MAIN_SHAPES, RING_SHAPES,
+                              RING_SWEEP_SHAPES, WHEEL_CASES,
                               plain_wheel_scan, ring_case, wheel_case)
 
 
@@ -41,7 +42,8 @@ def _ring_window_matches_plain(cuda, n, q, w, ring, q0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, q, w", RING_SHAPES + RING_MAIN_SHAPES)
+@pytest.mark.parametrize("n, q, w",
+                         RING_SHAPES + RING_MAIN_SHAPES + RING_SWEEP_SHAPES)
 def test_ring_window_kernel_matches_plain(cuda, n, q, w):
     _ring_window_matches_plain(cuda, n, q, w, *ring_case(n, q, n + q + w))
 

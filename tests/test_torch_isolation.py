@@ -2,6 +2,7 @@
 silent fallback from CUDA to the CPU."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +17,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "dmclock_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_serve_profile.py",
      ROOT / "scripts" / "torch_run_fullscale.py",
-     ROOT / "scripts" / "torch_silicon_parity.py"]
+     ROOT / "scripts" / "torch_silicon_parity.py"] + \
+    [ROOT / "scripts" / f"torch_{name}.py"
+     for name in ("run_sweeps", "trace_report", "slo_report", "explain",
+                  "bench_guard")]
 
 
 def _forbidden(module: str) -> bool:
@@ -73,8 +77,85 @@ def test_bench_session_leaves_jax_unloaded():
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    # the session's history record: checked, then taken out of the tree
+    recorded = re.findall(r"^# recorded (\S+)$", out.stderr, re.M)
+    for rel in recorded:
+        (ROOT / rel).unlink()
     assert out.returncode == 0, out.stderr
     assert '"vs_baseline"' in out.stdout
+    assert len(recorded) == 1 and \
+        recorded[0].startswith("dmclock_tpu_torch/_history/bench_")
+
+
+def _script_inputs(tmp: Path) -> dict:
+    """Small inputs for the report tools and the guard, made by the port:
+    a span trace, an SLO log, a decision trace and a history record."""
+    import json
+
+    from dmclock_tpu_torch.obs import slo as tslo
+    from dmclock_tpu_torch.obs import spans as tspans
+    from dmclock_tpu_torch.obs import trace as ttrace
+    from dmclock_tpu_torch.obs import trace_export as texport
+
+    tr = tspans.SpanTracer()
+    for _ in range(3):
+        with tspans.span(tr, "bench.round", "dispatch"):
+            with tspans.span(tr, "epoch.batch", "device_compute"):
+                pass
+    texport.export_chrome_trace(tr, str(tmp / "trace.json"))
+    plane = tslo.SloPlane(2, dt_epoch_ns=10**8, ring_depth=4)
+    plane.register(0, 5.0, 1.0, 0.0)
+    block = plane.stamp(tslo.window_zero(2, "cpu"))
+    block[0, tslo.W_OPS] += 3
+    _, closed = plane.roll(block, 0, 4,
+                           depth=torch.zeros(2, dtype=torch.int32))
+    plane.export_jsonl(str(tmp / "slo.jsonl"), closed)
+    with ttrace.DecisionTrace(str(tmp / "decisions.jsonl")) as dt:
+        dt.record(10, 0, 0, 0, 1)
+    (tmp / "history").mkdir()
+    (tmp / "history" / "bench_1000.json").write_text(json.dumps(
+        {"platform": "cuda", "device": "card", "fault_plan": "none",
+         "workloads": {"serve": {"dps": 1e7}}}))
+    return {"trace": tmp / "trace.json", "slo": tmp / "slo.jsonl",
+            "decisions": tmp / "decisions.jsonl",
+            "history": tmp / "history"}
+
+
+SCRIPT_RUNS = {
+    "run_sweeps": ["--cut", "--skip-km", "--calendar", "--device", "cpu"],
+    "trace_report": ["{trace}", "--diff", "{trace}"],
+    "slo_report": ["{slo}", "--diff", "{slo}"],
+    "explain": ["--slo", "{slo}", "--client", "0", "--trace",
+                "{decisions}"],
+    "bench_guard": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPT_RUNS))
+def test_new_scripts_leave_jax_unloaded(tmp_path, name):
+    """Each of the port's scripts run as ``python scripts/torch_<name>.py``
+    on the CPU exits 0 with no JAX, no JAX package and no ``bench`` or
+    ``profile_util`` module loaded (the guard over a history directory
+    of one record)."""
+    paths = _script_inputs(tmp_path)
+    argv = [a.format(**paths) for a in SCRIPT_RUNS[name]]
+    script = ROOT / "scripts" / f"torch_{name}.py"
+    # the guard parses sys.argv itself and reads its module's HISTORY
+    call = ("main.__globals__['HISTORY'] = pathlib.Path("
+            f"{str(paths['history'])!r})\nrc = main()\n"
+            if name == "bench_guard" else "rc = main(sys.argv[1:])\n")
+    code = ("import pathlib, runpy, sys\n"
+            f"sys.argv = [{str(script)!r}] + {argv!r}\n"
+            "main = runpy.run_path(sys.argv[0])['main']\n"
+            + call +
+            "assert rc == 0, rc\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'dmclock_tpu', 'bench', 'profile_util'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip()
 
 
 def test_default_device_is_cuda_and_never_falls_back():
