@@ -106,7 +106,8 @@ Phases (any failure raises and the exit code is not 0):
     2 pairs and 16 latency rounds; 2 conformance rounds each), with host
     spans and a watchdog (bench's: 2 s polls, a 60 s stall):
     launch-counted (K1 once a prefix round or a calendar batch, the
-    calibration, conformance and latency rounds included; no K2); the
+    calibration, conformance and latency rounds and the round the cost
+    counter counts included; no K2); the
     SLO block rolled once a chain (``2 * reps`` rolls),
     ``latency_samples == latency_rounds``, a conformance-table line a
     client whose ops sum to the conformance rounds' decisions, the
@@ -330,6 +331,23 @@ Phases (any failure raises and the exit code is not 0):
     the regime rows with the serial floor cut from 4,096 steps to
     ``SWEEP_SERIAL_STEPS``, and the k/m grid's largest point (98,304 x
     64 on a 384-slot ring) with one rep.
+28. The capacity plane's time axis (``obs/compile_plane.py``): (a) this
+    process's build record (whether ``nvcc`` ran or a current library
+    was found, the compile wall); (b) one serve epoch at ``COST_SHAPE``
+    (N=4,096, ring 320, m=4, k=1,024) counted by the cost counter on the
+    card and on the CPU, every total equal (the ops that differ printed
+    on a failure), K1's recorded bytes equal to the formula its bound
+    reads (``fastpath.ring_window_cost``; K2's bound reads
+    ``kernels.wheel_scan_cost``); (c) the full-width counts, each with
+    its ``cost_analysis``, ``roofline``, ``bound_class`` and bytes a
+    launch over device ms a launch (the spans' and CUDA events') against
+    ``MEM_RATE``: a ``serve_row`` with spans, phase 16's cfg3 and cfg4
+    rows, and the cfg4_wheel round counted at the end of phase 8 beside
+    its timed rounds' spans; phase 26's session line carries
+    ``cost_analysis``, ``compile`` and ``capacity.bound_class``, its
+    cfg3, cfg4 and serve counts equal to the rows in process; (d) the
+    component profile's five rows (``scripts/torch_profile_fastpath.py``)
+    at N=100,000, k=49,152, one differenced pair each (K1 642).
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -344,11 +362,13 @@ K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8 and 14-16 with their calibration rounds, 10-13,
 both runs of 19, the in-process runs of 20, 23 and 24, the device sim's
 four runs in 21, the mesh runs of 22, the grouped runs of 25 and the
-in-process runs of 26), each count read right after that path's run;
+in-process runs of 26, the sweeps of 27 and the counts and component
+rows of 28), each count read right after that path's run;
 K2's is the ``cfg4_wheel`` path's (its calibration included), phase
 20's wheel runs', the device sim's wheel run's, the mesh wheel chunks'
-of 22 and 25, phase 24's wheel gate's and phase 26's wheel migration
-jobs'; the queue paths (17, 18), ``dmc_sim`` and the
+of 22 and 25, phase 24's wheel gate's, phase 26's wheel migration
+jobs' and phase 28's counted wheel round's; the queue paths (17, 18),
+``dmc_sim`` and the
 cluster runs of 22 add none, and the launches of the spawn children and
 of phase 26's subprocesses are not counted (``LAUNCHES`` is per
 process). Each kernel's entry also carries
@@ -566,7 +586,8 @@ def _k1_time(fp, gen, n: int, q: int, w: int, card: str) -> dict:
     l_ms = cuda_ms(lambda: (torch.gather(arr.T, 0, idx_t),
                             torch.gather(cost.T, 0, idx_t)), 20)
     del src, dst
-    nbytes = 2 * (2 * n * w * 8) + 4 * n
+    # the formula the cost counter records for a K1 launch
+    nbytes = fp.ring_window_cost(n, w)["bytes_accessed"]
     bound_ms = nbytes / MEM_RATE * 1e3
     h_ms = host_paced_ms(lambda: fp.ring_window_rows(arr, cost, q0, w), 50)
     log(f"[k1] N={n} Q={q} w={w} on {card}: device time per call "
@@ -721,8 +742,9 @@ def phase_k2(serve, fp, kernels, card: str) -> dict:
             torch.min(torch.where(slot < nb, keys, KEY_INF))
         l_ms = cuda_ms(library, 20)
         # each input read once (8 + 4 bytes a lane), each output written
-        # once: counts, minima, the value and the flag
-        nbytes = n * 12 + nb * 12 + 9
+        # once: counts, minima, the value and the flag; the formula the
+        # cost counter records for a K2 launch
+        nbytes = kernels.wheel_scan_cost(n, nb)["bytes_accessed"]
         bound_ms = nbytes / MEM_RATE * 1e3
         h_ms = host_paced_ms(lambda: kernels.wheel_scan(keys, slot, nb), 50)
         log(f"[k2] {label} N={n} nb={nb} on {card}: device time per call "
@@ -1418,7 +1440,12 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
         f"decisions equal the telemetry-off round's")
     del rw, rb, state0
 
-    # timed rounds: CUDA events around each round, ingest inside
+    # timed rounds: CUDA events around each round, ingest inside; the
+    # rows' spans (a launch, then its synchronisation) beside them
+    from dmclock_tpu_torch.obs.spans import SpanTracer, span
+
+    tracer = SpanTracer()
+    win = tracer.category_totals()
     ms, decisions, host = [], [], []
     met_t = obsdev.metrics_zero("cuda")
     for r in range(CFG4_ROUNDS, CFG4_ROUNDS + CFG4_TIMED):
@@ -1426,10 +1453,13 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = serve.cfg4_rounds(st, draws[r:r + 1], calendar_impl="wheel",
-                                t0=base + r * c["dt_round_ns"])
-        end.record()
-        torch.cuda.synchronize()
+        with span(tracer, "serve.round", "dispatch"):
+            out = serve.cfg4_rounds(st, draws[r:r + 1],
+                                    calendar_impl="wheel",
+                                    t0=base + r * c["dt_round_ns"])
+            end.record()
+        with span(tracer, "serve.sync", "device_compute"):
+            torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         st = out.state
         ms.append(start.elapsed_time(end))
@@ -1451,7 +1481,28 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
         f"{_rates(decisions, ms)}; ingest_drops {mt['ingest_drops']}, "
         f"reservation share "
         f"{mt['decisions_reservation'] / mt['decisions_total']:.6f}")
-    return launches
+    # phase 28 (c): the cost counter's count of one round from the
+    # calibrated state, telemetry, SLO and provenance on and zero
+    # arrivals (what the cfg4_wheel row counts), beside the timed rounds'
+    # spans; its launches are a path of their own
+    row_cfg = serve._row_cfg("cfg4")
+    round_fn, eng_kw = serve._round_body("cfg4", row_cfg, "wheel")
+    t_end = base + (CFG4_ROUNDS + CFG4_TIMED) * c["dt_round_ns"]
+    tele = serve.tele_zero(N_CFG4, plane=plane, t0=t_end, device="cuda")
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    cost = serve.count_round(round_fn, eng_kw, st, tele, t_end)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    if "error" in cost:
+        raise AssertionError(f"cfg4_wheel: the cost count failed: {cost}")
+    row = {"cost_analysis": cost,
+           "spans": serve._span_summary(tracer, win, sum(host) / 1e3,
+                                        CFG4_TIMED),
+           "event_ms": statistics.median(ms),
+           "count_launches": dict(ext.LAUNCHES), "count_s": count_s}
+    return launches, row
 
 
 # ----------------------------------------------------------------------
@@ -1667,11 +1718,12 @@ def _resv_share(obsdev, results) -> float:
 def _row_k1(workload: str, cut: dict, window: int, m: int) -> int:
     """K1 launches of a sustained row: once a calendar batch (m a round)
     or once a prefix round, over the calibration, the timed chains, the
-    conformance rounds and the latency rounds with their window."""
+    conformance rounds, the latency rounds with their window and the one
+    round the cost counter counts."""
     n_pre = cut["reps"] * (cut["rounds_lo"] + cut["rounds"]) \
         if cut["rounds_lo"] else cut["rounds"]
     rounds = ROW_CAL[workload] + n_pre + 2 + (
-        cut["latency_rounds"] + window if cut["latency_rounds"] else 0)
+        cut["latency_rounds"] + window if cut["latency_rounds"] else 0) + 1
     return rounds * m
 
 
@@ -2287,17 +2339,20 @@ def check_churn(row: dict, card: str, twin, key: str = "churn") -> None:
     """The card's churn row against the CPU twin's (``twin()[key]``):
     every key but the wall clock (decisions, snapshot counters, the boost
     record, the conformance table, tardiness, the SLO block, the
-    histogram block, the digest, the capacity record)."""
+    histogram block, the digest, the capacity record but for the
+    roofline's peaks, which are the card's here and nominal in the twin,
+    whose process sees no card; its ``bound_class`` is compared)."""
     want = twin()[key]
     for k in sorted(set(want) | set(row)):
-        if k in ("wall_s", "dps"):
+        if k in ("wall_s", "dps", "roofline"):
             continue
         if row.get(k) != want.get(k):
             raise AssertionError(f"{key}: {k} on the card differs from "
                                  f"the CPU: {str(row.get(k))[:300]} vs "
                                  f"{str(want.get(k))[:300]}")
     log(f"[{key}] equal to the CPU twin on every output but the wall "
-        f"clock ({len(want) - 2} keys; CPU wall {want['wall_s']:.3f} s, "
+        f"clock and the roofline's peaks ({len(want) - 3} keys; CPU wall "
+        f"{want['wall_s']:.3f} s, "
         f"card {row['wall_s']:.3f} s on {card})")
 
 
@@ -4234,31 +4289,33 @@ MIG_KILL = dict(controller=dict(MIG_CTL, migrate_pick="hot", cooldown=2))
 MIG_KILL_CAP0 = 32
 # the session's line at --mode all --spans on the card, and its rows'
 # keys: bench's lists (bench.py main, bench_churn, bench_mesh,
-# bench_mesh_rebalance) without the JAX-only compile and cost_analysis
-# blocks (nothing is compiled per shape), with the port's device name
+# bench_mesh_rebalance), with the port's device name
 SESSION_LINE_KEYS = {"metric", "value", "unit", "vs_baseline",
                      "conformance", "churn", "device_metrics",
-                     "bounded_by", "spans", "slo", "provenance",
-                     "tardiness_ns", "capacity", "backend", "device",
-                     "fault_plan"}
+                     "cost_analysis", "bounded_by", "spans", "slo",
+                     "provenance", "tardiness_ns", "compile", "capacity",
+                     "backend", "device", "fault_plan"}
 SESSION_OPTIONAL = {"watchdog_warnings"}
-SESSION_BLOCKS = {"bounded_by": {"cfg3", "cfg4"},
+SESSION_BLOCKS = {"cost_analysis": {"serve", "cfg3", "cfg4"},
+                  "bounded_by": {"cfg3", "cfg4"},
                   "spans": {"serve", "cfg3", "cfg4"},
                   "slo": {"cfg3", "cfg4", "churn_flash_crowd"},
                   "provenance": {"cfg3", "cfg4"},
                   "tardiness_ns": {"cfg3", "cfg4", "churn_flash_crowd"},
                   "churn": {"churn_flash_crowd"}}
-CHURN_ROW_KEYS = {"boost", "boundary_every", "capacity", "compactions",
-                  "conformance", "decisions", "digest", "dps", "engine",
+CHURN_ROW_KEYS = {"boost", "bound_class", "boundary_every", "capacity",
+                  "compactions", "compile_ms_total", "conformance",
+                  "decisions", "digest", "dps", "engine",
                   "epochs", "evictions", "grows", "live_clients",
                   "peak_clients", "projected_hbm_bytes", "qos_updates",
-                  "registrations", "scenario", "slo", "slo_boost_windows",
+                  "registrations", "retraces", "roofline", "scenario",
+                  "slo", "slo_boost_windows",
                   "slo_violations_total", "slo_window_tardiness_p99_ns",
                   "slo_windows_closed", "slo_worst_share_err",
                   "slot_recycles", "tardiness_max_ns", "tardiness_mean_ns",
                   "tardiness_p50_ns", "tardiness_p90_ns",
                   "tardiness_p99_ns", "total_ids", "wall_s"}
-MESH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "mesh",
+MESH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "mesh", "compile",
                   "mesh_rebalance", "capacity", "backend", "device",
                   "fault_plan"}
 MESH_ROW_KEYS = {"clients_per_shard", "clients_total",
@@ -4284,6 +4341,13 @@ REBAL_ROW_KEYS = {"ckpt_every", "controller_knobs", "decisions_off",
                   "shard_skew_after", "shard_skew_before",
                   "shard_skew_final", "shard_skew_recovered", "total_ids",
                   "wall_s_off", "wall_s_on", "workload"}
+# the compile plane's totals (bench's ``compile`` block), the cost
+# counter's keys and the roofline's verdicts
+COMPILE_TOTALS = {"entries", "compiles", "retraces", "lower_ms_total",
+                  "compile_ms_total", "dispatch_fallbacks"}
+COST_KEYS = {"flops", "bytes_accessed", "transcendentals"}
+BOUND_CLASSES = {"compute_bound", "memory_bound", "dispatch_bound",
+                 "unknown"}
 # the session's mesh: bench's rebalance shape (4 shards), one shard a
 # group of cuda:0
 SESSION_MESH_SHARDS = 4
@@ -4479,9 +4543,19 @@ def _check_session_line(line: dict, refs: dict, srow: dict, table: str,
         if set(line[block]) != want:
             raise AssertionError(f"session_all: {block} has "
                                  f"{sorted(line[block])}")
-    if set(line["capacity"]["projected_hbm_bytes"]) != \
-            {"serve", "cfg3", "cfg4", "churn_flash_crowd"}:
-        raise AssertionError(f"session_all: capacity {line['capacity']}")
+    rows = {"serve", "cfg3", "cfg4", "churn_flash_crowd"}
+    cap = line["capacity"]
+    if any(set(cap.get(f, {})) != rows for f in (
+            "projected_hbm_bytes", "bound_class", "compile_ms_total",
+            "retraces")) or not set(cap["bound_class"].values()) <= \
+            BOUND_CLASSES or set(cap["retraces"].values()) != {0}:
+        raise AssertionError(f"session_all: capacity {cap}")
+    if set(line["compile"]) != COMPILE_TOTALS or \
+            line["compile"]["retraces"] != 0:
+        raise AssertionError(f"session_all: compile {line['compile']}")
+    for wl, ca in line["cost_analysis"].items():
+        if set(ca) != COST_KEYS or ca["bytes_accessed"] <= 0:
+            raise AssertionError(f"session_all: cost_analysis {wl} {ca}")
     churn = line["churn"]["churn_flash_crowd"]
     if set(churn) != CHURN_ROW_KEYS:
         raise AssertionError(f"session_all: churn row keys "
@@ -4500,6 +4574,7 @@ def _check_session_line(line: dict, refs: dict, srow: dict, table: str,
     for wl in ("cfg3", "cfg4"):
         row = refs[wl]
         got = {"slo": line["slo"][wl],
+               "cost_analysis": line["cost_analysis"][wl],
                "provenance": line["provenance"][wl],
                "bounded_by": line["bounded_by"][wl],
                "projected_hbm_bytes":
@@ -4522,9 +4597,11 @@ def _check_session_line(line: dict, refs: dict, srow: dict, table: str,
     serve_clause = line["metric"].split("serve-only ")[1].split(";")[0]
     if f"(fill {srow['fill']:.2f})" not in serve_clause or \
             line["capacity"]["projected_hbm_bytes"]["serve"] != \
-            srow["projected_hbm_bytes"]:
-        raise AssertionError(f"session serve: fill {srow['fill']} or its "
-                             f"projected bytes differ")
+            srow["projected_hbm_bytes"] or \
+            line["cost_analysis"]["serve"] != srow["cost_analysis"]:
+        raise AssertionError(f"session serve: fill {srow['fill']}, its "
+                             f"projected bytes or its cost_analysis "
+                             f"differ")
 
 
 def phase_session(ext, card: str, root: str, tmp: str, refs: dict):
@@ -4693,6 +4770,9 @@ def phase_session(ext, card: str, root: str, tmp: str, refs: dict):
             f"other legs (its rates are not judged): value "
             f"{line['value']} (cfg4), vs_baseline {line['vs_baseline']}; "
             f"{line['metric'].split(' -- ')[1]}")
+        log(f"[session_all] cost_analysis {json.dumps(line['cost_analysis'])}"
+            f"; compile {json.dumps(line['compile'])}; capacity "
+            f"{json.dumps(line['capacity'])}")
         log(f"[session_all] the line's keys and every block's rows are "
             f"bench's; churn, cfg3 and cfg4 equal this run's rows in "
             f"process on every key but the walls (cfg4's conformance table "
@@ -4892,6 +4972,183 @@ def phase_sweeps(ext, fp, cases, card: str, root: str, tmp: str):
     return by_path, max_err, timings
 
 
+# ----------------------------------------------------------------------
+# phase 28: the capacity plane's time axis (build records, cost counts)
+# ----------------------------------------------------------------------
+
+# (b): one serve epoch counted on the card and on the CPU
+COST_SHAPE = dict(n=4096, ring=320, m=4, k=1024)
+PROFILE_K = 49152              # the component profile's k
+
+
+def _module(root: str, name: str):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _count_epoch(fp, serve, device: str) -> tuple:
+    """Phase 28 (b): one serve epoch at ``COST_SHAPE`` under the cost
+    counter: ``(totals, ops, decisions)``."""
+    from dmclock_tpu_torch.obs.compile_plane import CostCounter
+
+    c = COST_SHAPE
+    st = serve._preloaded_state(c["n"], c["ring"], ring=c["ring"],
+                                device=device)
+    with CostCounter() as counter:
+        ep = fp.scan_prefix_epoch(st, 0, c["m"], c["k"], anticipation_ns=0,
+                                  with_metrics=True)
+    return counter.cost_analysis(), counter.ops(), int(ep.count.sum())
+
+
+def _event_ms(fn, reps: int = 2) -> float:
+    """Median CUDA-event ms of ``fn()`` (a launch of a row's program)."""
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def phase_costs(ext, fp, card: str, root: str, rows: dict,
+                wheel_row: dict):
+    """Phase 28: (a) this process's build record from the compile plane;
+    (b) one serve epoch at ``COST_SHAPE`` counted on the card and on the
+    CPU, every total equal (the ops that differ printed on a failure),
+    and K1's recorded bytes equal to the formula its bound reads; (c) the
+    full-width counts: a ``serve_row`` with spans, phase 16's cfg3 and
+    cfg4 rows and phase 8's cfg4_wheel round, each row's
+    ``cost_analysis``, ``roofline`` and ``bound_class``, and its bytes a
+    launch over its device ms a launch (the spans' and CUDA events')
+    against ``MEM_RATE``; (d) the component profile's five rows
+    (``scripts/torch_profile_fastpath.py``) at full width, one
+    differenced pair each.  Returns ``({path: K1}, {path: K2})``."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs import capacity as obscap
+    from dmclock_tpu_torch.obs import compile_plane
+    from dmclock_tpu_torch.obs.spans import SpanTracer
+
+    t_phase = time.perf_counter()
+    k1, k2 = {}, {}
+    # (a) the build record
+    pl = compile_plane.plane()
+    tot = pl.totals()
+    if tot["entries"] < 1 or tot["retraces"] != 0:
+        raise AssertionError(f"compile plane: {tot}")
+    log(f"[costs] (a) the compile plane in this process: {json.dumps(tot)}"
+        + "".join(f"; {e['entry']}: nvcc ran {e['compiles']} time(s), a "
+                  f"current library was found {e['found']} time(s), "
+                  f"compile {e['compile_ms']:.3f} ms, source hash and "
+                  f"lookup {e['lower_ms']:.3f} ms" for e in pl.entries()))
+
+    # (b) the card's count of a serve epoch against the CPU's
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    card_tot, card_ops, card_dec = _count_epoch(fp, serve, "cuda")
+    torch.cuda.synchronize()
+    n_k1 = ext.LAUNCHES["ring_window"]
+    k1["cost_serve_4096"] = n_k1
+    cpu_tot, cpu_ops, cpu_dec = _count_epoch(fp, serve, "cpu")
+    diff = {op: (card_ops.get(op), cpu_ops.get(op))
+            for op in sorted(set(card_ops) | set(cpu_ops))
+            if card_ops.get(op) != cpu_ops.get(op)}
+    if card_tot != cpu_tot or card_dec != cpu_dec:
+        raise AssertionError(
+            f"phase 28 (b): the card's count {card_tot} ({card_dec} "
+            f"decisions) differs from the CPU's {cpu_tot} ({cpu_dec}); "
+            f"the ops that differ (card, cpu): {json.dumps(diff)[:6000]}")
+    rec = card_ops["kernel:ring_window"]
+    w = min(COST_SHAPE["m"], COST_SHAPE["ring"])
+    formula = fp.ring_window_cost(COST_SHAPE["n"], w)
+    if rec["calls"] != n_k1 or n_k1 < 1 or rec["bytes_accessed"] != \
+            n_k1 * formula["bytes_accessed"] or formula["bytes_accessed"] \
+            != 2 * (2 * COST_SHAPE["n"] * w * 8) + 4 * COST_SHAPE["n"]:
+        raise AssertionError(f"phase 28 (b): K1 recorded {rec} over "
+                             f"{n_k1} launches; its bound's formula "
+                             f"{formula}")
+    log(f"[costs] (b) one serve epoch at {json.dumps(COST_SHAPE)}: the "
+        f"card's count equals the CPU's, {json.dumps(card_tot)} "
+        f"({card_dec} decisions, {len(card_ops)} ops"
+        + (f"; the op tables differ in {json.dumps(diff)[:2000]}"
+           if diff else ", the op tables equal") + f"); K1 recorded "
+        f"{rec['bytes_accessed']} bytes over {n_k1} launch(es), "
+        f"{formula['bytes_accessed']} a launch, the bytes of its bound "
+        f"(fastpath.ring_window_cost, which phase 3 reads)")
+
+    # (c) the full-width counts
+    def serve_path():
+        row = serve.serve_row(reps=1, tracer=SpanTracer(), device="cuda")
+        st = serve._preloaded_state(N_SERVE, DEPTH, ring=DEPTH,
+                                    device="cuda")
+        row["event_ms"] = _event_ms(lambda: fp.scan_prefix_epoch(
+            st, 0, M_SERVE, K_SERVE, anticipation_ns=0, with_metrics=True))
+        return row
+
+    srow, _ = _counted(ext, "cost_serve_row", serve_path, k1, k2)
+    wheel = dict(wheel_row)
+    wheel["roofline"] = obscap.classify_bench_row(wheel)
+    wheel["bound_class"] = wheel["roofline"]["bound_class"]
+    table = {"serve": srow, "cfg3": rows["cfg3"], "cfg4": rows["cfg4"],
+             "cfg4_wheel": wheel}
+    for wl, row in table.items():
+        ca = row["cost_analysis"]
+        if "error" in ca or set(ca) != COST_KEYS or \
+                ca["bytes_accessed"] <= 0 or \
+                row["bound_class"] not in BOUND_CLASSES:
+            raise AssertionError(f"phase 28 (c) {wl}: cost_analysis {ca}, "
+                                 f"bound_class {row.get('bound_class')}")
+        sp_ms = row["spans"]["device_ms_per_launch"]
+        ev_ms = row.get("event_ms") or row.get("event_round_ms_median")
+        rates = "; ".join(
+            f"over {what} {ms:.6f} ms a launch "
+            f"{ca['bytes_accessed'] / (ms / 1e3):.6g} B/s = "
+            f"{ca['bytes_accessed'] / (ms / 1e3) / MEM_RATE:.6f} of "
+            f"{MEM_RATE:.3g} B/s"
+            for what, ms in (("the spans' device", sp_ms),
+                             ("CUDA events'", ev_ms)) if ms)
+        log(f"[costs] (c) {wl} on {card}: cost_analysis {json.dumps(ca)}, "
+            f"bound_class {row['bound_class']}, roofline "
+            f"{json.dumps(row['roofline'])}; "
+            f"{ca['bytes_accessed']:.0f} bytes a launch {rates}")
+    log(f"[costs] (c) the cfg4_wheel round's count took "
+        f"{wheel_row['count_s']:.3f} s (launches {wheel_row['count_launches']})")
+    k1["cost_cfg4_wheel"] = wheel_row["count_launches"]["ring_window"]
+    k2["cost_cfg4_wheel"] = wheel_row["count_launches"]["wheel_scan"]
+
+    # (d) the component profile, cut to one differenced pair a row
+    pf = _module(root, "torch_profile_fastpath")
+    peaks = obscap.device_peaks("cuda")
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    comp = pf.component_rows(N_SERVE, PROFILE_K, torch.device("cuda"), peaks,
+                             reps=1)
+    torch.cuda.synchronize()
+    n = dict(ext.LAUNCHES)
+    # the prefetch row: 2 x (64 + 256) steps and its counted step, and
+    # the head select's window
+    want = {"ring_window": 2 * (pf.IT_LO + pf.IT_HI) + 1 + 1,
+            "wheel_scan": 0}
+    if n != want or len(comp) != 5:
+        raise AssertionError(f"phase 28 (d): launches {n}, want {want}; "
+                             f"{len(comp)} rows")
+    k1["profile_components"] = n["ring_window"]
+    log(f"[costs] (d) the component profile at N={N_SERVE}, k={PROFILE_K} "
+        f"on {card} (one pair of {pf.IT_LO} and {pf.IT_HI} steps each): "
+        + json.dumps(comp))
+    log(f"[time] costs phase {time.perf_counter() - t_phase:.3f} s")
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4935,7 +5192,7 @@ def main() -> int:
         now=0, chains=True)
     phase_calendar_exact(serve, fastpath, kernels)
     ladder_k1 = phase_stop_ladder(serve, fastpath, kernels, _ext, card)
-    wheel = phase_cfg4_wheel(serve, _ext, obsdev, card)
+    wheel, wheel_row = phase_cfg4_wheel(serve, _ext, obsdev, card)
     t_rows = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         sust_out = os.path.join(tmp, "sustained_twins.pt")
@@ -5061,6 +5318,11 @@ def main() -> int:
             t_sweeps = time.perf_counter()
             sweep_k1, sweep_err, sweep_ms = phase_sweeps(
                 _ext, fastpath, cases, card, root, tmp)
+            # phase 28: the compile plane and the cost counts
+            t_costs = time.perf_counter()
+            cost_k1, cost_k2 = phase_costs(
+                _ext, fastpath, card, root,
+                dict(cfg3=cfg3_row, cfg4=cfg4_row), wheel_row)
         finally:
             for proc in (sust_twin, twins, sup_twin, mesh_twin,
                          sup_mesh_twin):
@@ -5081,7 +5343,8 @@ def main() -> int:
         f"{t_groups - t_control:.3f} s, the mesh across devices "
         f"{t_session - t_groups:.3f} s, the session phase "
         f"{t_sweeps - t_session:.3f} s, the sweeps phase "
-        f"{t_end - t_sweeps:.3f} s; the whole script "
+        f"{t_costs - t_sweeps:.3f} s, the costs phase "
+        f"{t_end - t_costs:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -5096,7 +5359,7 @@ def main() -> int:
                                 for p, n in ds_by_path.items()},
                    **{p: n for p, n in mesh_k1.items() if n},
                    **sup_mesh_k1, **ctl_k1, **grp_k1, **ses_k1,
-                   **sweep_k1)
+                   **sweep_k1, **cost_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     k1["max_abs_err"] = max(k1["max_abs_err"], sweep_err)
@@ -5111,7 +5374,7 @@ def main() -> int:
                     device_sim_wheel=ds_by_path["device_sim_wheel"][
                         "wheel_scan"],
                     **{p: n for p, n in mesh_k2.items() if n}, **ctl_k2,
-                    **grp_k2, **ses_k2)
+                    **grp_k2, **ses_k2, **cost_k2)
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

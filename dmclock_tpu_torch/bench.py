@@ -12,9 +12,15 @@ under the degradation ladder, and
 prints ONE JSON line: ``metric``, ``value``, ``unit`` and ``vs_baseline``
 (``value / 1e7``) of the primary row (cfg4, else cfg3, else serve, else
 the first), the rows' blocks (conformance, churn, controller, mesh,
-mesh_rebalance, device_metrics, bounded_by, spans, slo, provenance,
-tardiness_ns, capacity), ``backend`` (``"gpu"``, or ``"cpu"`` when named)
-and ``device`` (the card's name).
+mesh_rebalance, device_metrics, cost_analysis, bounded_by, spans, slo,
+provenance, tardiness_ns, compile, capacity), ``backend`` (``"gpu"``, or
+``"cpu"`` when named) and ``device`` (the card's name).  ``cost_analysis``
+holds each row's count of one launch by the cost counter
+(``obs/compile_plane.py``), also fed to the registry as
+``dmclock_epoch_cost_{key}{workload=...}``; ``compile`` the compile
+plane's totals (the kernel library's build); ``capacity`` each row's
+``bound_class``, ``compile_ms_total`` and ``retraces`` beside the
+projected bytes (``python scripts/capacity_report.py`` renders them).
 
 Differences from bench, by design:
 
@@ -22,9 +28,6 @@ Differences from bench, by design:
   asking for a card where there is none fails.  Any failure prints
   bench's error line and exits non-zero (bench's exit-0 contract kept
   a line for a run that fell back; there is nothing to fall back to);
-- nothing is compiled per shape, so the line has no ``compile`` or
-  ``cost_analysis`` block and the rows no compile-plane fields or
-  roofline verdict;
 - the history record (bench's ``_record_history`` layout) goes to the
   port's own :data:`HISTORY`, ``dmclock_tpu_torch/_history/``, which
   ``scripts/torch_bench_guard.py`` reads; ``benchmark/history/`` belongs
@@ -56,6 +59,7 @@ import torch
 from . import serve
 from .device import parse_devices, resolve_device, resolve_devices
 from .obs import capacity as obscap
+from .obs import compile_plane
 from .obs import histograms as obshist
 from .obs import spans as obsspans
 from .obs.registry import (default_registry, publish_span_gauges,
@@ -89,19 +93,9 @@ CUT_DEPTH = {"serve": dict(reps=2),
              "cfg3": dict(rounds=12, rounds_lo=4, reps=2),
              "cfg4": dict(rounds=6, rounds_lo=2, reps=2, latency_rounds=16)}
 
-# errors no fast-path concession can clear
-_NO_LADDER = ("cuda", "nvcc", "kernel build failed",
-              "kernel launch failed")
-
-
-def _ladder_blind(e: BaseException) -> bool:
-    """A CUDA error or a kernel of the port that failed to build or
-    launch: the ladder must not step for it."""
-    if isinstance(e, torch.cuda.OutOfMemoryError) or \
-            type(e).__name__ == "AcceleratorError":
-        return True
-    msg = str(e).lower()
-    return any(s in msg for s in _NO_LADDER)
+# a CUDA error or a kernel of the port that failed to build or launch:
+# no fast-path concession can clear it, so the ladder must not step
+_ladder_blind = compile_plane.device_failure
 
 
 def with_ladder(ladder: DegradationLadder, cfg: dict, fn):
@@ -168,7 +162,7 @@ def capacity_gate(cap_cfg: dict, device, *, select_impl: str = "sort",
             "calendar_impl": calendar_impl, "engine_loop": engine_loop,
             "capacity_skipped": True,
             "projected_hbm_bytes": int(projected),
-            "hbm_budget_bytes": int(budget)}
+            "hbm_budget_bytes": int(budget), "cost_analysis": {}}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -534,6 +528,12 @@ def final_line(results: dict, dev: torch.device, wm: bool) -> dict:
             final[key] = dict(results[key])
     if wm and "device_metrics" in primary:
         final["device_metrics"] = primary["device_metrics"]
+    cost_all = {wl: row["cost_analysis"] for wl, row in results.items()
+                if isinstance(row.get("cost_analysis"), dict)}
+    if cost_all:
+        final["cost_analysis"] = cost_all
+        for wl, ca in cost_all.items():
+            _feed_cost_registry(wl, ca)
     for key, block in (("bounded_by", "bounded_by"), ("spans", "spans"),
                        ("slo", "slo"), ("provenance", "provenance")):
         rows = {wl: row[key] for wl, row in results.items() if key in row}
@@ -549,6 +549,8 @@ def final_line(results: dict, dev: torch.device, wm: bool) -> dict:
         final["tardiness_ns"] = tard
     try:
         reg = default_registry()
+        final["compile"] = compile_plane.plane().totals()
+        compile_plane.publish_compile_metrics(reg)
         budget = obscap.device_hbm_budget(dev)
         cap_block: dict = {}
         if budget is not None:
@@ -560,11 +562,31 @@ def final_line(results: dict, dev: torch.device, wm: bool) -> dict:
                 obscap.publish_capacity_metrics(
                     reg, projected_bytes=row["projected_hbm_bytes"],
                     budget_bytes=budget, workload=wl)
+            if "bound_class" in row:
+                cap_block.setdefault("bound_class", {})[wl] = \
+                    row["bound_class"]
+            if "compile_ms_total" in row:
+                cap_block.setdefault("compile_ms_total", {})[wl] = \
+                    row["compile_ms_total"]
+                cap_block.setdefault("retraces", {})[wl] = \
+                    row.get("retraces", 0)
         if cap_block:
             final["capacity"] = cap_block
     except (ValueError, RuntimeError) as e:
         final["capacity_error"] = f"{type(e).__name__}: {e}"
     return final
+
+
+def _feed_cost_registry(workload: str, cost: dict) -> None:
+    """A row's ``cost_analysis`` on the process registry as
+    ``dmclock_epoch_cost_{key}{workload=...}`` (bench's
+    ``_feed_cost_registry``)."""
+    reg = default_registry()
+    for key, v in cost.items():
+        if isinstance(v, (int, float)):
+            reg.gauge(f"dmclock_epoch_cost_{key}",
+                      "cost counter attribution of one launch of the "
+                      "row's program", labels={"workload": workload}).set(v)
 
 
 @contextlib.contextmanager

@@ -12,6 +12,11 @@ place, so concurrent builders never load a half-written file.
 where it launches its kernel, and nowhere else, so a run can show that
 its path went through the kernels.
 
+Every ``build()`` call is recorded in the compile plane
+(``obs/compile_plane.py``) under the cache ``kernels``: an ``nvcc`` run
+with its wall (and a ``compile`` span when a tracer is attached), or a
+current library found.
+
 Nothing here runs at import time: the CPU tests import every module on
 a machine with no ``nvcc``.
 """
@@ -24,6 +29,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ..obs import compile_plane
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -49,6 +56,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {name: 0 for name in ENTRIES}
+# the compile plane's cache name for the kernel library
+CACHE = "kernels"
 
 _loaded: dict = {}
 
@@ -78,20 +87,27 @@ def _lib_path() -> Path:
 
 def build() -> Path:
     """Compile the kernel library unless a current build exists; returns
-    its path.  Raises with the compiler's output if the build fails."""
+    its path.  Raises with the compiler's output if the build fails.
+    The call is recorded in the compile plane (module docstring)."""
+    clock = compile_plane.plane().clock_ns
+    t0 = clock()
     out = _lib_path()
+    lookup_ns = clock() - t0
     if out.exists():
+        compile_plane.record_found(CACHE, out.name, lookup_ns)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, SOURCES)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with compile_plane.timed_build(CACHE, out.name, lookup_ns):
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               *map(str, SOURCES)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"kernel build failed: nvcc exit "
+                               f"{proc.returncode}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.timebase import MAX_TAG, MIN_TAG
+from ..obs import compile_plane
 from ..obs import device as obsdev
 from ..obs import flight as obsflight
 from ..obs import histograms as obshist
@@ -87,13 +88,25 @@ def _ring_window_torch(ring, q0, wsize: int):
     return torch.gather(ring, 1, idx).T.contiguous()
 
 
+def ring_window_cost(n: int, wsize: int) -> dict:
+    """K1's cost at ``n`` clients and a ``wsize``-row window: each
+    window element of both rings read once and written once (int64),
+    ``q_head`` read once (int32); one op an output element.  The bound in
+    ``chip_smoke.py`` and the cost counter (``obs/compile_plane.py``)
+    both read it."""
+    return {"flops": 2 * n * wsize,
+            "bytes_accessed": 2 * (2 * n * wsize * 8) + 4 * n,
+            "transcendentals": 0}
+
+
 def ring_window_rows(q_arrival, q_cost, q0, wsize: int):
     """K1's wrapper: the [wsize, N] windows of both tail rings.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (building it at first use) or raises -- there is no
     fallback.  Checks dtypes (int64 rings, int32 ``q0``), shapes,
-    contiguity and device."""
+    contiguity and device.  Under a cost counter the call counts as
+    :func:`ring_window_cost`, on either device."""
     if q_arrival.dtype != torch.int64 or q_cost.dtype != torch.int64:
         raise TypeError("ring_window: rings must be int64, got "
                         f"{q_arrival.dtype}/{q_cost.dtype}")
@@ -112,6 +125,13 @@ def ring_window_rows(q_arrival, q_cost, q0, wsize: int):
     dev = q_arrival.device
     if q_cost.device != dev or q0.device != dev:
         raise ValueError("ring_window: tensors on different devices")
+    with compile_plane.kernel_region(
+            "ring_window", lambda: ring_window_cost(n, wsize)):
+        return _ring_window_launch(q_arrival, q_cost, q0, wsize, dev)
+
+
+def _ring_window_launch(q_arrival, q_cost, q0, wsize: int, dev):
+    n, q = q_arrival.shape
     if dev.type == "cpu":
         return (_ring_window_torch(q_arrival, q0, wsize),
                 _ring_window_torch(q_cost, q0, wsize))

@@ -39,6 +39,7 @@ import torch
 
 from ..core.timebase import (LOWEST_PROP_TAG_TRIGGER, MAX_CHARGE_UNITS,
                              MAX_TAG, MIN_TAG, ORGANIC_TAG_CAP, TIME_MAX)
+from ..obs import compile_plane
 from ..obs import device as obsdev
 from . import _ext
 from .state import EngineState
@@ -273,6 +274,16 @@ def _wheel_workspace(dev: torch.device):
     return ws
 
 
+def wheel_scan_cost(n: int, nb: int) -> dict:
+    """K2's cost at ``n`` lanes and ``nb`` buckets: each key (int64) and
+    slot (int32) read once, the counts (int32) and minima (int64) written
+    once, with the value (8 bytes) and the flag (1); one op a lane and
+    one a bucket.  The bound in ``chip_smoke.py`` and the cost counter
+    (``obs/compile_plane.py``) both read it."""
+    return {"flops": n + nb, "bytes_accessed": 12 * n + 12 * nb + 9,
+            "transcendentals": 0}
+
+
 def wheel_scan(keys, slot, nb: int):
     """K2's wrapper: scatter int64 ``keys[N]`` by int32 ``slot[N]`` into
     ``nb`` buckets (``slot == nb`` masks a lane out) and find the first
@@ -288,7 +299,9 @@ def wheel_scan(keys, slot, nb: int):
     into a per-device workspace that it leaves clean, so calls on one
     device must be ordered on one stream, as the whole port's are.  The
     first call on a device allocates the workspace and must not be
-    inside a CUDA-graph capture; later calls may be captured."""
+    inside a CUDA-graph capture; later calls may be captured.  Under a
+    cost counter the call counts as :func:`wheel_scan_cost`, on either
+    device."""
     if keys.dtype != torch.int64 or slot.dtype != torch.int32:
         raise TypeError(f"wheel_scan: keys must be int64 and slot int32, "
                         f"got {keys.dtype}/{slot.dtype}")
@@ -301,6 +314,12 @@ def wheel_scan(keys, slot, nb: int):
     dev = keys.device
     if slot.device != dev:
         raise ValueError("wheel_scan: tensors on different devices")
+    with compile_plane.kernel_region(
+            "wheel_scan", lambda: wheel_scan_cost(keys.shape[0], nb)):
+        return _wheel_scan_launch(keys, slot, nb, dev)
+
+
+def _wheel_scan_launch(keys, slot, nb: int, dev):
     if dev.type == "cpu":
         return _wheel_scan_torch(keys, slot, nb)
     if dev.type != "cuda":

@@ -22,10 +22,12 @@ Counterpart of ``dmclock_tpu/obs/capacity.py``.  Three questions:
    dispatch and device times against the card's peaks
    (:func:`device_peaks`, an H100 entry only).
 
-The JAX bench row's compile-plane fields (``compile_ms_total``,
-``retraces``) have no counterpart: the port compiles nothing per shape.
-Everything here is host arithmetic over shapes and cannot move a
-decision.
+:func:`capacity_row` joins them on a bench row, as bench's
+``_capacity_row``: the compile plane's build wall and retraces over the
+row (``obs/compile_plane.py``), the projected bytes, and the verdict
+from the row's ``cost_analysis`` (the cost counter's count of one
+launch) and its ``spans`` block.  Everything here is host arithmetic
+over shapes and counts and cannot move a decision.
 """
 
 from __future__ import annotations
@@ -386,15 +388,31 @@ def publish_capacity_metrics(registry, *, projected_bytes=None,
             "and knob setting", labels=lbl).set(float(max_clients))
 
 
-def capacity_row(out: dict, cap_cfg: dict) -> dict:
-    """Fold the capacity record into a result row: the projected
-    resident bytes for its knob setting (a failure degrades to a note,
-    never eats the row).  The JAX row's roofline verdict is left out:
-    it joins the row's ``cost_analysis`` and span times, which no row
-    of the port records, so it could only say ``unknown``."""
+def capacity_row(out: dict, cap_cfg: dict, cp0: Optional[dict] = None
+                 ) -> dict:
+    """Fold the capacity record into a result row (bench's
+    ``_capacity_row``): ``compile_ms_total`` and ``retraces``, what the
+    compile plane's totals grew by since ``cp0`` (its totals at the row's
+    start; None counts from zero); the projected resident bytes for the
+    row's knob setting; and ``roofline`` with its ``bound_class`` from
+    :func:`classify_bench_row`, ``"unknown"`` when no verdict can be
+    formed.  A failing leg degrades to a note, never eats the row."""
+    from .compile_plane import plane
+
+    cp0 = cp0 or {}
+    t1 = plane().totals()
+    out["compile_ms_total"] = round(
+        t1["compile_ms_total"] - cp0.get("compile_ms_total", 0.0), 3)
+    out["retraces"] = int(t1["retraces"] - cp0.get("retraces", 0))
     try:
         cfg = dict(cap_cfg)
         out["projected_hbm_bytes"] = projected_hbm(cfg.pop("n"), **cfg)
     except (ValueError, RuntimeError) as e:
         out["projected_hbm_error"] = f"{type(e).__name__}: {e}"
+    try:
+        rl = classify_bench_row(out)
+        out["roofline"] = rl
+        out["bound_class"] = rl["bound_class"]
+    except (TypeError, ValueError, KeyError, ZeroDivisionError):
+        out["bound_class"] = "unknown"
     return out

@@ -28,9 +28,9 @@ import time as _walltime
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
-# The fixed category taxonomy, the JAX package's (its "compile" category
-# has no user in the port, which compiles nothing per shape).  Every
-# span carries exactly one; an unknown category raises.
+# The fixed category taxonomy, the JAX package's ("compile" holds the
+# kernel library's build, ``obs/compile_plane.py``).  Every span carries
+# exactly one; an unknown category raises.
 CATEGORIES = ("ingest", "host_prep", "dispatch", "device_compute",
               "fetch", "drain", "checkpoint", "retry", "compile")
 

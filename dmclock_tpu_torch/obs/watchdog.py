@@ -18,9 +18,12 @@ still going:
   than to do it.
 
 The JAX package's third rule, the retrace storm, reads its compile
-plane (``obs/compile_plane.py``); the port compiles nothing per shape
-and has no such plane, so the rule is absent here and ``compile_plane``
-accepts only ``None`` (anything else raises ``ValueError``).
+plane's retrace events.  The port has a compile plane too
+(``obs/compile_plane.py``), but it records only the kernel library's
+build, one entry that is never rebuilt: nothing is specialised per
+shape, so its ``retraces`` is 0 by construction and a storm cannot
+happen.  The rule is absent here and ``compile_plane`` accepts only
+``None`` (anything else raises ``ValueError``).
 
 Warnings are structured: one JSON line on ``log`` (default stderr,
 prefixed ``# watchdog:``), a bump of the
@@ -58,8 +61,8 @@ class Watchdog:
     injectable for deterministic tests (must be the same clock domain
     as the tracer's).  ``compile_plane``, ``retrace_storm_k`` and
     ``retrace_window_s`` keep the JAX package's signature; the plane
-    must be ``None`` (the retrace-storm rule has no counterpart, ROADMAP
-    item 7)."""
+    must be ``None`` (the port never retraces, so the retrace-storm
+    rule has nothing to watch)."""
 
     def __init__(self, tracer: SpanTracer, *,
                  interval_s: float = 1.0,
@@ -77,8 +80,8 @@ class Watchdog:
         if compile_plane is not None:
             raise ValueError(
                 "compile_plane must be None: the port compiles nothing "
-                "per shape, so the retrace-storm rule of the JAX "
-                "watchdog has no counterpart (ROADMAP item 7)")
+                "per shape and never retraces, so the retrace-storm rule "
+                "of the JAX watchdog has nothing to watch")
         self.tracer = tracer
         self.interval_s = float(interval_s)
         self.stall_after_ns = int(stall_after_s * 1e9)

@@ -138,6 +138,7 @@ from .lifecycle import (LifecyclePlane, SlotMap, lam_vector, make_spec,
                         mount_admin_api, static_variant)
 from .lifecycle.plane import canon_results
 from .obs import capacity as obscap
+from .obs import compile_plane
 from .obs import device as obsdev
 from .obs import histograms as obshist
 from .obs import provenance as obsprov
@@ -146,6 +147,7 @@ from .obs import spans as obsspans
 from .obs.alerts import SloEvaluator
 from .obs.registry import MetricsHTTPServer, MetricsRegistry
 from .obs.slo import SloPlane
+from .parallel.groups import tree_map
 from .robust.digest import DIGEST_FIELDS, digest_update
 from .robust.guarded import run_epoch_guarded
 
@@ -334,10 +336,13 @@ def serve_row(k: int = 65536, m: int = 32, *, epochs_lo: int = 3,
     raises, as bench's assert does.  Keys are bench's: ``dps``,
     ``decisions``, ``reps`` (each pair's rate in millions), ``fill``,
     ``select_impl``, ``tag_width``, ``spans`` with a tracer,
-    ``device_metrics`` and the capacity record (``projected_hbm_bytes``).
-    Nothing is compiled, so the row has no ``cost_analysis`` and no
-    compile-plane fields."""
+    ``device_metrics``, ``cost_analysis`` (the cost counter's count of
+    one epoch on the preloaded state, after the timed chains) and the
+    capacity record (``projected_hbm_bytes``, the compile plane's
+    ``compile_ms_total`` and ``retraces`` over the row, ``roofline`` and
+    ``bound_class``)."""
     dev = resolve_device(device)
+    cp0 = compile_plane.plane().totals()
     state = _preloaded_state(n, depth, ring=depth, device=dev)
     need = (epochs_lo + epochs_hi + 1) * m * k
     # bench's margin: weights are 1..4, so the heaviest class is served
@@ -385,9 +390,16 @@ def serve_row(k: int = 65536, m: int = 32, *, epochs_lo: int = 3,
         out["host_overhead_frac"] = sp["host_overhead_frac"]
     if with_metrics:
         out["device_metrics"] = obsdev.metrics_dict(met)
+    # one launch counted on the preloaded state, outside every timed
+    # chain and span
+    fresh = _preloaded_state(n, depth, ring=depth, device=dev)
+    out["cost_analysis"] = compile_plane.count_launch(
+        lambda: scan_prefix_epoch(fresh, 0, anticipation_ns=0, **knobs))
+    del fresh
     return obscap.capacity_row(out, dict(
         n=n, ring=depth, engine="prefix", m=m, k=k,
-        select_impl=select_impl, tag_width=tag_width, window_m=window_m))
+        select_impl=select_impl, tag_width=tag_width, window_m=window_m),
+        cp0)
 
 
 class ChainResult(NamedTuple):
@@ -1210,7 +1222,11 @@ def sustained_row(workload: str, n: int | None = None, *,
     synchronised, so a sample waits for that round only); then the
     verdict (``slo``, ``slo_*``) and :func:`row_tail`.  Every round
     after calibration carries the accumulators.  On the card the chains'
-    rounds are also timed by CUDA events (``event_round_ms_*``).
+    rounds are also timed by CUDA events (``event_round_ms_*``).  Last,
+    ``cost_analysis``: the cost counter's count of one round on a copy
+    of the calibrated state and fresh accumulators, with zero arrivals
+    (bench counts its round on a zero-arrivals sample), and the capacity
+    record with the compile plane's fields and the roofline verdict.
 
     ``engine_loop="stream"`` runs the chains as stream chunks of
     ``stream_chunk`` rounds.  Depth defaults to bench's accelerator
@@ -1219,6 +1235,7 @@ def sustained_row(workload: str, n: int | None = None, *,
     if engine_loop not in ("round", "stream"):
         raise ValueError(f"engine_loop {engine_loop!r} is not round or "
                          f"stream")
+    cp0 = compile_plane.plane().totals()
     c = _row_cfg(workload, m, steps, shape)
     depth = ROW_DEPTH[workload]
     rounds = depth["rounds"] if rounds is None else rounds
@@ -1253,6 +1270,11 @@ def sustained_row(workload: str, n: int | None = None, *,
     slo_eval = SloEvaluator(plane, log=lambda _line: None) if slo else None
     tele = tele_zero(n, telemetry=telemetry, provenance=provenance,
                      plane=plane, t0=t_base, device=dev)
+    # what the cost count runs on, after the timed section: the
+    # calibrated state and fresh accumulators, copied to the host before
+    # any round, so the timed section holds no second copy on the device
+    count_from = (tree_map(_host_copy, state), tree_map(_host_copy, tele),
+                  t_base)
 
     chunks = {}
 
@@ -1472,11 +1494,31 @@ def sustained_row(workload: str, n: int | None = None, *,
     if slo:
         _slo_result_block(out, slo_eval)
     row_tail(out, tele, state, t_base, dt, watchdog=watchdog)
+    out["cost_analysis"] = count_round(
+        round_fn, eng_kw, tree_map(lambda t: t.to(dev), count_from[0]),
+        tree_map(lambda t: t.to(dev), count_from[1]), count_from[2])
+    del count_from
     # bench's capacity record: the knob setting's resident bytes
     return obscap.capacity_row(out, sustained_capacity_cfg(
         workload, n, calendar_impl=calendar_impl, telemetry=telemetry,
         slo=slo, engine_loop=engine_loop, stream_chunk=stream_chunk, m=m,
-        steps=steps, shape=shape))
+        steps=steps, shape=shape), cp0)
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.to("cpu", copy=True)
+
+
+def count_round(round_fn, eng_kw: dict, state: EngineState, tele: Tele,
+                t_base: int) -> dict:
+    """The cost counter's ``cost_analysis`` of one sustained round
+    (``round_fn``, as :func:`_round_body` gives it) from ``state`` and
+    ``tele`` at ``t_base`` with zero arrivals; the inputs are not
+    changed."""
+    zeros = torch.zeros((state.capacity,), dtype=torch.int32,
+                        device=state.device)
+    return compile_plane.count_launch(
+        lambda: round_fn(state, zeros, t_base, tele=tele, **eng_kw))
 
 
 def sustained_capacity_cfg(workload: str, n: int, *,
@@ -1974,9 +2016,10 @@ def churn_row(scenario: str = "flash_crowd", *,
 
     The loop is bench's, line for line, and so are the output keys;
     the capacity record (``obs.capacity.capacity_row``) has bench's
-    ``projected_hbm_bytes`` but not its compile-plane fields (nothing
-    is compiled per shape) or its roofline verdict (no row of the port
-    records operation counts).  ``slo`` (bench's default ``--slo on``) rolls the SLO
+    ``projected_hbm_bytes``, compile-plane fields and roofline verdict
+    (``unknown``: the churn row, as bench's, counts no
+    ``cost_analysis`` and has no ``spans`` block).  ``slo`` (bench's
+    default ``--slo on``) rolls the SLO
     windows on the boundary grid and judges them with the burn-rate
     evaluator.  Added: ``digest``, the canonical client-id-space chain
     digest of the decisions (taken after the timed loop, from the
@@ -1985,6 +2028,7 @@ def churn_row(scenario: str = "flash_crowd", *,
     import urllib.request
 
     dev = resolve_device(device)
+    cp0 = compile_plane.plane().totals()
     spec = make_spec(scenario, total_ids=total_ids, seed=seed,
                      base_lam=base_lam, compact_every=2)
     if static:
@@ -2174,7 +2218,7 @@ def churn_row(scenario: str = "flash_crowd", *,
     # space landing at once, lifecycle slot map included
     obscap.capacity_row(out, dict(n=total_ids, ring=ring, engine=engine,
                                   m=m, k=k, telemetry=True, slo=slo,
-                                  lifecycle=True))
+                                  lifecycle=True), cp0)
     return out
 
 

@@ -26,8 +26,9 @@ enter the clean medians.
 
 Warn-only series, each per workload: p99 reservation tardiness,
 ``dispatch_ms_per_launch`` (under ``--spans``), ``compile_ms_total`` and
-``retraces`` (absent from the port's records: nothing is compiled per
-shape), ``margin_p99_ns`` and ``starvation_max_ns``, each with the JAX
+``retraces`` (the compile plane's growth over a row: the kernel
+library's build where ``nvcc`` ran in it, else 0; never a retrace),
+``margin_p99_ns`` and ``starvation_max_ns``, each with the JAX
 guard's floors.  Churn workloads form their own series keyed by scenario
 and ``total_ids``; provenance-off and controller sessions are their own
 series identities; capacity-skipped rows are never judged."""

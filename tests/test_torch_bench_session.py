@@ -4,9 +4,9 @@ its ``serve`` row (``serve.serve_row``) against the JAX repo's
 
 Both sessions run the same mode at bench's CPU shapes (the JAX one on
 its CPU backend, the port with ``--device cpu``; the mesh over four CPU
-groups in the port).  Held: the line's key set (the JAX-only
-``compile``/``cost_analysis`` blocks out, the port's ``device`` in),
-every field that does not read the wall clock, the metric text with its
+groups in the port).  Held: the line's key set (the port's ``device``
+in), every field that does not read the wall clock or is measured
+differently, the metric text with its
 rates masked, ``vs_baseline == round(value / 1e7, 4)``, and the
 "skipped" lines.  Then the session's own contract: a failing row prints
 bench's error line and exits non-zero; a guard trip steps radix to sort
@@ -26,18 +26,25 @@ from dmclock_tpu_torch import serve as tserve
 # keys that read the wall clock (rates, walls, latencies), and the
 # capacity fields the two packages measure differently (PERF.md: the
 # port measures the epoch blocks that the JAX ledger's closed form
-# estimates with accumulators on)
+# estimates with accumulators on).  The compile plane's and the cost
+# counter's fields are measured differently too: XLA compiles each
+# program and counts it statically, the port builds one kernel library
+# and counts the ops one launch ran, so ``compile``, ``cost_analysis``,
+# the rows' ``compile_ms_total``/``retraces`` and the ``roofline``
+# verdict built on them (``bound_class``) are held by key, not value
 CLOCK = {"metric", "value", "vs_baseline", "dps", "dps_off", "dps_on",
          "recovered_dps", "wall_s", "wall_s_off", "wall_s_on",
          "dps_per_shard", "dps_per_shard_max", "dps_per_shard_mean",
          "dps_per_shard_min", "capacity", "projected_hbm_bytes",
-         "projected_hbm_bytes_per_shard"}
-# what only one package's line or rows carry: nothing is compiled per
-# shape in the port; it names its card, and its grouped mesh row names
-# its layout; its churn row adds the canonical chain digest
-JAX_ONLY = {"compile", "cost_analysis", "bound_class",
-            "compile_ms_total", "retraces", "roofline"}
+         "projected_hbm_bytes_per_shard", "compile", "cost_analysis",
+         "bound_class", "compile_ms_total", "retraces", "roofline"}
+# what only one package's line or rows carry: the port names its card,
+# and its grouped mesh row names its layout; its churn row adds the
+# canonical chain digest
+JAX_ONLY = set()
 PORT_ONLY = {"device", "devices", "n_groups", "digest"}
+BOUND_CLASSES = {"compute_bound", "memory_bound", "dispatch_bound",
+                 "unknown"}
 MODES = {
     "all": ["--mode", "all"],          # on the CPU: bench's serve row alone
     "serve": ["--mode", "serve"],
@@ -107,6 +114,15 @@ def test_session_line_equals_bench(monkeypatch, capsys, mode):
         assert got["mesh_rebalance"]["migrations"] > 0
     if mode in ("all", "serve"):
         assert set(got["capacity"]["projected_hbm_bytes"]) == {"serve"}
+    # the capacity block's verdicts: the same rows on both sides, each
+    # one of the four classes
+    for line in (want, got):
+        verdicts = line.get("capacity", {}).get("bound_class", {})
+        assert set(verdicts) == \
+            set(want.get("capacity", {}).get("bound_class", {}))
+        assert set(verdicts.values()) <= BOUND_CLASSES
+    assert set(got.get("cost_analysis", {})) == \
+        set(want.get("cost_analysis", {}))
 
 
 @pytest.mark.parametrize("argv", [["--mode", "cfg4"],

@@ -5,8 +5,9 @@ the telemetry accumulators, the SLO block, a flight ring and the
 lifecycle slot map; the fitted model, ``projected_hbm``, the
 ``plan_capacity`` / ``fits`` round trip, ``classify``, the budget
 override, the planner outputs that differ from bench's and by how much,
-the published gauges, and the capacity record of bench's churn row (the
-mesh row's is held in ``tests/test_torch_mesh.py``).
+the published gauges, and the capacity record of bench's churn row with
+its compile fields and roofline verdict (the mesh row's is held in
+``tests/test_torch_mesh.py``).
 
 One difference is deliberate.  The JAX ledger takes the epoch output
 blocks from ``jax.eval_shape`` of the epoch scan; with an accumulator
@@ -178,4 +179,10 @@ def test_publish_and_row_records():
     assert row["projected_hbm_bytes"] == T.projected_hbm(
         32, ring=32, engine="prefix", m=4, k=16, telemetry=True,
         slo=True, lifecycle=True)
-    assert "roofline" not in row and "bound_class" not in row
+    # and, as bench's ``_capacity_row`` gives it, the compile plane's
+    # fields over the row and the roofline verdict: a churn row counts no
+    # cost_analysis and, without spans, neither package forms a verdict
+    assert row["retraces"] == 0 and row["compile_ms_total"] >= 0
+    assert row["roofline"] == T.classify_bench_row(row)
+    assert row["bound_class"] == J.classify_bench_row(row)["bound_class"] \
+        == "unknown"

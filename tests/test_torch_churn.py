@@ -2,8 +2,8 @@
 against ``bench.bench_churn`` itself, at reduced shapes on the CPU.
 
 Every output key is compared except the wall-clock ones (``wall_s``,
-``dps``) and the capacity record bench adds and the port does not have
-(``_capacity_row``): decisions, the lifecycle snapshot counters, the
+``dps``) and the capacity record (``_capacity_row``), which the two
+packages measure differently: decisions, the lifecycle snapshot counters, the
 live PUT's boost record, the conformance table, the tardiness scalars,
 the SLO block, ``slo_boost_windows`` and the histogram block.  The
 row's own digest of a dynamic run equals its static variant's.
@@ -23,8 +23,9 @@ from dmclock_tpu_torch.obs import spans as TS
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# bench's keys with no counterpart in the port's row (the capacity
-# record) or that measure wall time
+# bench's keys the two packages measure differently (the capacity
+# record: XLA's compiles and the port's kernel build, projected bytes,
+# the verdict on them) or that measure wall time
 NOT_COMPARED = {"wall_s", "dps", "compile_ms_total", "retraces",
                 "projected_hbm_bytes", "projected_hbm_error", "roofline",
                 "bound_class"}

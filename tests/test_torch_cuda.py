@@ -810,10 +810,11 @@ def test_supervised_mesh_chaos_trip_on_the_card_equals_cpu(cuda):
 
 
 # every key of a sustained row that reads the wall clock or the card's
-# events (serve.sustained_row)
+# events (serve.sustained_row); ``compile_ms_total`` is the kernel
+# build's wall where the row's first launch built the library
 _ROW_WALL = ("dps", "round_ms_p50", "round_ms_p99", "round_ms_mean",
              "chain_ms", "sync_latency_ms", "event_round_ms_median",
-             "event_round_ms_mean", "latency_window")
+             "event_round_ms_mean", "latency_window", "compile_ms_total")
 
 
 @pytest.mark.cuda
@@ -822,7 +823,8 @@ def test_sustained_row_on_the_card_equals_cpu(cuda, tmp_path):
     SLO block rolled once a chain, two conformance rounds, the verdict
     and the tails) at a small shape on the card equals the CPU run in
     every key that does not read the wall clock, the conformance table
-    byte for byte; K1 launches once a round."""
+    byte for byte (the cost counter's ``cost_analysis`` among them); K1
+    launches once a round, the round the counter counts included."""
     from dmclock_tpu_torch import serve
 
     kw = dict(rounds=4, rounds_lo=2, reps=2, latency_rounds=0)
@@ -830,7 +832,7 @@ def test_sustained_row_on_the_card_equals_cpu(cuda, tmp_path):
     got = serve.sustained_row("cfg3", 512, **kw, device=cuda,
                               conformance_out=str(tmp_path / "card.jsonl"))
     torch.cuda.synchronize()
-    assert _ext.LAUNCHES["ring_window"] == 3 + 2 * (2 + 4) + 2
+    assert _ext.LAUNCHES["ring_window"] == 3 + 2 * (2 + 4) + 2 + 1
     assert _ext.LAUNCHES["wheel_scan"] == 0
     want = serve.sustained_row("cfg3", 512, **kw, device="cpu",
                                conformance_out=str(tmp_path / "cpu.jsonl"))
@@ -1067,3 +1069,53 @@ def test_grouped_reducers_on_one_card_equal_stacked(cuda):
         for a, b in zip(_leaves(fn(groups.place(v, devs))),
                         _leaves(fn(v))):
             assert torch.equal(a, b), fn.__name__
+
+
+@pytest.mark.cuda
+def test_cost_count_of_a_serve_epoch_on_the_card_equals_the_cpu(cuda):
+    """The cost counter's count of one serve epoch (N=4,096, ring 320,
+    m=4, k=1,024) is the same on the card as on the CPU, op for op: K1's
+    launch counts its formula on both, and host-device copies nothing."""
+    from dmclock_tpu_torch import serve as tserve
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = tserve._preloaded_state(4096, 320, ring=320, device=dev)
+        with tcp.CostCounter() as c:
+            ep = tfp.scan_prefix_epoch(st, 0, 4, 1024, anticipation_ns=0,
+                                       with_metrics=True)
+        got[dev.type] = (c.cost_analysis(), c.ops(), int(ep.count.sum()))
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][1]["kernel:ring_window"]["bytes_accessed"] == \
+        tfp.ring_window_cost(4096, 4)["bytes_accessed"]
+
+
+@pytest.mark.cuda
+def test_kernel_launches_under_the_counter_record_their_formula(cuda):
+    """A K1 and a K2 launch under the cost counter record their formula
+    and nothing else (the outputs' allocations are hidden), and each
+    still launches once."""
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+
+    n, q, w, nb = 10_000, 256, 32, 768
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ring = torch.randint(0, 1 << 40, (n, q), generator=gen, device=cuda,
+                         dtype=torch.int64)
+    cost = ring + 1
+    q0 = torch.randint(0, q, (n,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    keys = torch.randint(-(1 << 40), 1 << 40, (n,), generator=gen,
+                         device=cuda, dtype=torch.int64)
+    slot = torch.randint(0, nb + 1, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    before = dict(_ext.LAUNCHES)
+    with tcp.CostCounter() as c:
+        tfp.ring_window_rows(ring, cost, q0, w)
+        tk.wheel_scan(keys, slot, nb)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["ring_window"] == before["ring_window"] + 1
+    assert _ext.LAUNCHES["wheel_scan"] == before["wheel_scan"] + 1
+    assert c.ops() == {
+        "kernel:ring_window": dict(calls=1, **tfp.ring_window_cost(n, w)),
+        "kernel:wheel_scan": dict(calls=1, **tk.wheel_scan_cost(n, nb))}

@@ -20,7 +20,7 @@ PORT_FILES = sorted((ROOT / "dmclock_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_silicon_parity.py"] + \
     [ROOT / "scripts" / f"torch_{name}.py"
      for name in ("run_sweeps", "trace_report", "slo_report", "explain",
-                  "bench_guard")]
+                  "bench_guard", "profile_fastpath")]
 
 
 def _forbidden(module: str) -> bool:
@@ -128,6 +128,8 @@ SCRIPT_RUNS = {
     "explain": ["--slo", "{slo}", "--client", "0", "--trace",
                 "{decisions}"],
     "bench_guard": [],
+    "profile_fastpath": ["--n", "128", "--k", "32", "--reps", "1",
+                         "--rows", "component", "--device", "cpu"],
 }
 
 

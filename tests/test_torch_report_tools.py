@@ -218,13 +218,17 @@ def test_capacity_report_and_trace_diff_read_the_port(monkeypatch, capsys,
                                                       tmp_path, inputs):
     """The JAX repo's two package-free tools on the port's outputs: the
     session line and history record of ``python -m
-    dmclock_tpu_torch.bench --mode serve --device cpu``, and the port's
-    decision traces."""
+    dmclock_tpu_torch.bench --mode serve --spans --device cpu``, and the
+    port's decision traces.  The line's serve row fills every column of
+    the capacity report: the compile wall and retraces, the projected
+    bytes, the cost counter's flops and bytes, the intensity, the
+    dispatch share and the verdict."""
     from dmclock_tpu_torch import bench as tbench
 
     cap, diff = _script("capacity_report"), _script("trace_diff")
     monkeypatch.setattr(tbench, "HISTORY", tmp_path / "history")
-    assert tbench.main(["--mode", "serve", "--device", "cpu"]) == 0
+    assert tbench.main(["--mode", "serve", "--spans", "--device",
+                        "cpu"]) == 0
     line = tmp_path / "line.json"
     line.write_text(capsys.readouterr().out)
     assert "serve" in json.loads(line.read_text().splitlines()[-1])[
@@ -234,6 +238,13 @@ def test_capacity_report_and_trace_diff_read_the_port(monkeypatch, capsys,
         assert cap.main([str(src)]) == 0
         out = capsys.readouterr().out
         assert "serve" in out, out
+        if src == line:
+            row, = [ln for ln in out.splitlines()
+                    if ln.startswith("serve ")]
+            cols = row.split()
+            assert len(cols) == 9 and "-" not in cols, row
+            assert cols[-1] in ("dispatch_bound", "memory_bound",
+                                "compute_bound")
     assert cap.main([str(line), "--diff", str(record)]) == 0
     assert "serve" in capsys.readouterr().out
 

@@ -10,8 +10,9 @@ not judged mid-chain, skipped windows accumulating into the judged one,
 one stall an episode, no stall before the first launch, none while a
 stream launch is in flight (and a wedged one still warning), none with a
 drain heartbeat; and ``tests/test_capacity.py``'s watchdog without a
-compile plane.  The port has no compile plane: a non-``None``
-``compile_plane`` raises."""
+compile plane.  The port's compile plane records one kernel library
+build and never a retrace, so the watchdog has no retrace-storm rule: a
+non-``None`` ``compile_plane`` raises."""
 
 import pytest
 
