@@ -37,7 +37,8 @@ Phases (any failure raises and the exit code is not 0):
    ``serve.cfg4_rounds(calendar_impl="wheel")`` at full width (100,000
    clients, ring 128, 64 waves, m=3 batches, 64 steps, 8 levels), launch
    counts reset just before the calibration and read after the rounds
-   (K1 24 and K2 27 per round, the 11 calibration rounds included); the
+   (K1 24 and K2 27 per round, the captured round's warm-up and the 11
+   calibration rounds included); the
    calibrated rates' sum, the ``resv_inv`` digest and the measured
    reservation share printed; one full-width round with telemetry, SLO
    and provenance on,
@@ -193,7 +194,7 @@ Phases (any failure raises and the exit code is not 0):
     2 slices, ms and read backs a slice, the weight 3:1 ratio, the
     virtual seconds, 0 guard trips).  Then ``dmc_sim`` on the card:
     ``configs/dmc_sim_example.conf`` in pull mode and
-    ``configs/dmc_sim_8_6.conf`` in push mode, each cut to 125
+    ``configs/dmc_sim_8_6.conf`` in push mode, each cut to 50
     ``client_total_ops`` (nothing else changed: whole, they took 165
     and 65 s on the card), with ``--model dmclock-torch --ledger-check
     --slo-check`` (exit 0), each decision trace equal byte for byte to a
@@ -348,6 +349,28 @@ Phases (any failure raises and the exit code is not 0):
     cfg3, cfg4 and serve counts equal to the rows in process; (d) the
     component profile's five rows (``scripts/torch_profile_fastpath.py``)
     at N=100,000, k=49,152, one differenced pair each (K1 642).
+29. Captured programs (``obs/compile_plane.py``; the counterpart of the
+    JAX package's jit caches): at full width ``bench.serve`` (a serve
+    epoch, the state donated), ``bench.round`` (``serve.round_program``
+    on cfg3, cfg4 minstop and cfg4_wheel, state and accumulators
+    donated), ``stream.chunk`` (cfg3 8 rounds, cfg4 2, donated, as
+    ``cfg3_stream``/``cfg4_stream`` capture them) and the ingest step,
+    each captured (its warm-up under the sync debug mode's errors) and
+    then replayed 3 times with changed inputs (a fresh state, then the
+    chained one; new ``now``, ``t_base``, ``epoch0`` and draws), every
+    replay under the sync debug mode's errors and held bit for bit
+    against the eager body on the same inputs (the first replay against
+    the first call's warm-up, the others against a run on a clone of
+    their inputs), its K1 and K2
+    launches equal to the eager body's and to the capture's record, a
+    donated chain handed its static buffers; the capture record (graph
+    nodes, warm-up and capture ms, the pool's bytes) and replay against
+    eager ms (CUDA events) printed; a body that reads the card back
+    fails to capture, naming its cache and entry.  Every phase that
+    captured ends with ``release_programs()`` (``clear_compiled`` and
+    ``empty_cache``).  Every sustained row, calibration and stream
+    chunk of the earlier phases runs through these programs: their K1
+    counts include the capture's warm-up round.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
@@ -362,12 +385,14 @@ K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8 and 14-16 with their calibration rounds, 10-13,
 both runs of 19, the in-process runs of 20, 23 and 24, the device sim's
 four runs in 21, the mesh runs of 22, the grouped runs of 25 and the
-in-process runs of 26, the sweeps of 27 and the counts and component
-rows of 28), each count read right after that path's run;
+in-process runs of 26, the sweeps of 27, the counts and component
+rows of 28 and the programs of 29), each count read right after that
+path's run;
 K2's is the ``cfg4_wheel`` path's (its calibration included), phase
 20's wheel runs', the device sim's wheel run's, the mesh wheel chunks'
 of 22 and 25, phase 24's wheel gate's, phase 26's wheel migration
-jobs' and phase 28's counted wheel round's; the queue paths (17, 18),
+jobs', phase 28's counted wheel round's and phase 29's wheel round;
+the queue paths (17, 18),
 ``dmc_sim`` and the
 cluster runs of 22 add none, and the launches of the spawn children and
 of phase 26's subprocesses are not counted (``LAUNCHES`` is per
@@ -405,8 +430,8 @@ K1_REPLACES = "dmclock_tpu/engine/fastpath.py:156"
 K2_SOURCE = "dmclock_tpu_torch/engine/csrc/wheel_scan.cu"
 K2_REPLACES = "dmclock_tpu/engine/kernels_pallas.py:59"
 N_CFG4 = 100_000
-CFG4_ROUNDS = 2          # main-path rounds, launch-counted
-CFG4_TIMED = 3           # timed rounds after them
+CFG4_ROUNDS = 1          # main-path rounds, launch-counted
+CFG4_TIMED = 1           # timed rounds after them
 KEY_INF = (1 << 63) - 1
 RING_HIGH = 128          # the high-rate state's ring, preloaded full
 TIMED_WIDTHS = 3         # timed epochs of each tag width
@@ -1386,10 +1411,10 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
                             calendar_impl="wheel", t0=base)
     torch.cuda.synchronize()
     launches = dict(ext.LAUNCHES)
-    rounds = prep.cal_rounds + CFG4_ROUNDS
-    log(f"[cfg4_wheel] kernel launches on the main path over "
-        f"{prep.cal_rounds} calibration and {CFG4_ROUNDS} rounds: "
-        f"{launches}")
+    rounds = 1 + prep.cal_rounds + CFG4_ROUNDS
+    log(f"[cfg4_wheel] kernel launches on the main path over the "
+        f"capture's warm-up round, {prep.cal_rounds} calibration and "
+        f"{CFG4_ROUNDS} rounds: {launches}")
     log(_calibration_line("cfg4_wheel", prep, t_cal))
     want = {"ring_window": rounds * c["m"] * levels,
             "wheel_scan": rounds * c["m"] * (1 + levels)}
@@ -1717,12 +1742,13 @@ def _resv_share(obsdev, results) -> float:
 
 def _row_k1(workload: str, cut: dict, window: int, m: int) -> int:
     """K1 launches of a sustained row: once a calendar batch (m a round)
-    or once a prefix round, over the calibration, the timed chains, the
-    conformance rounds, the latency rounds with their window and the one
-    round the cost counter counts."""
+    or once a prefix round, over the capture's warm-up round, the
+    calibration, the timed chains, the conformance rounds, the latency
+    rounds with their window and the one round the cost counter
+    counts."""
     n_pre = cut["reps"] * (cut["rounds_lo"] + cut["rounds"]) \
         if cut["rounds_lo"] else cut["rounds"]
-    rounds = ROW_CAL[workload] + n_pre + 2 + (
+    rounds = 1 + ROW_CAL[workload] + n_pre + 2 + (
         cut["latency_rounds"] + window if cut["latency_rounds"] else 0) + 1
     return rounds * m
 
@@ -1860,7 +1886,7 @@ def phase_cfg3(serve, ext, obsdev, card: str):
     (prep, tele0, t_cal, (results, st, tele)), launches = _launch_counted(
         ext, lambda: _prepared_rounds(serve, "cfg3", N_CFG3, n_draws,
                                       CFG3_ROUNDS),
-        {"ring_window": 3 + CFG3_ROUNDS, "wheel_scan": 0}, "cfg3")
+        {"ring_window": 4 + CFG3_ROUNDS, "wheel_scan": 0}, "cfg3")
     log(_calibration_line("cfg3", prep, t_cal))
     base, draws = prep.t0, prep.draws
     twin = _sustained_numpy(prep, results[0])
@@ -1881,7 +1907,8 @@ def phase_cfg3(serve, ext, obsdev, card: str):
     log(f"[cfg3] on {card}: median round {statistics.median(ms):.3f} ms "
         f"over {CFG3_TIMED} (telemetry, SLO and provenance on); "
         f"{_rates(dec, ms)}; K1 once a round "
-        f"({launches['ring_window']} over {3 + CFG3_ROUNDS})")
+        f"({launches['ring_window']} over {4 + CFG3_ROUNDS}: the "
+        f"capture's warm-up, 3 calibration rounds and {CFG3_ROUNDS})")
     log(f"[cfg3] bench's derived scalars after {r} timed rounds: "
         + _scalars_line(serve, tele, st, base + r * c["dt_round_ns"],
                         c["dt_round_ns"]))
@@ -1991,7 +2018,7 @@ def phase_cfg4(serve, ext, obsdev, card: str):
     (prep, tele0, t_cal, (results, st, tele)), launches = _launch_counted(
         ext, lambda: _prepared_rounds(serve, "cfg4", N_CFG4, n_draws,
                                       CFG4M_ROUNDS, **kw),
-        {"ring_window": (11 + CFG4M_ROUNDS) * c["m"], "wheel_scan": 0},
+        {"ring_window": (12 + CFG4M_ROUNDS) * c["m"], "wheel_scan": 0},
         "cfg4")
     log(_calibration_line("cfg4", prep, t_cal))
     state0, draws, base = prep.state, prep.draws, prep.t0
@@ -2337,21 +2364,22 @@ def phase_churn_storm(serve, ext, card: str):
 
 def check_churn(row: dict, card: str, twin, key: str = "churn") -> None:
     """The card's churn row against the CPU twin's (``twin()[key]``):
-    every key but the wall clock (decisions, snapshot counters, the boost
-    record, the conformance table, tardiness, the SLO block, the
+    every key but the wall clocks (decisions, snapshot counters, the
+    boost record, the conformance table, tardiness, the SLO block, the
     histogram block, the digest, the capacity record but for the
     roofline's peaks, which are the card's here and nominal in the twin,
-    whose process sees no card; its ``bound_class`` is compared)."""
+    whose process sees no card, and the captures' wall; its
+    ``bound_class`` and ``retraces`` are compared)."""
     want = twin()[key]
     for k in sorted(set(want) | set(row)):
-        if k in ("wall_s", "dps", "roofline"):
+        if k in ("wall_s", "dps", "roofline", "compile_ms_total"):
             continue
         if row.get(k) != want.get(k):
             raise AssertionError(f"{key}: {k} on the card differs from "
                                  f"the CPU: {str(row.get(k))[:300]} vs "
                                  f"{str(want.get(k))[:300]}")
     log(f"[{key}] equal to the CPU twin on every output but the wall "
-        f"clock and the roofline's peaks ({len(want) - 3} keys; CPU wall "
+        f"clocks and the roofline's peaks ({len(want) - 4} keys; CPU wall "
         f"{want['wall_s']:.3f} s, "
         f"card {row['wall_s']:.3f} s on {card})")
 
@@ -2664,10 +2692,10 @@ DS_N = 100_000           # the device sim headline's clients (8 servers)
 DS_TWIN_SLICES = 2       # slices held against the CPU twin, and per
 #                          calendar run
 # (mode, config, client_total_ops): each config cut in client_total_ops
-# alone (2,000 and 1,000 in the files) to fit the phase's time: the
-# card's serial engine takes 10-21 ms a decision here (PERF.md section 5)
-SIM_RUNS = (("pull", "configs/dmc_sim_example.conf", 125),
-            ("push", "configs/dmc_sim_8_6.conf", 125))
+# alone (2,000 and 1,000 in the files) to fit the script's time: the
+# card's serial engine takes 10-35 ms a decision here (PERF.md section 5)
+SIM_RUNS = (("pull", "configs/dmc_sim_example.conf", 50),
+            ("push", "configs/dmc_sim_8_6.conf", 50))
 
 
 def _cut_conf(root: str, conf: str, total_ops: int, tmp: str) -> str:
@@ -3532,9 +3560,11 @@ GATE_JOB = dict(engine="calendar", k=4, calendar_impl="wheel",
                 engine_loop="mesh", n_shards=4, placement="p2c",
                 controller=GATE_CTL)
 GATE_SPEC = dict(total_ids=64, seed=3, cold_frac=0.5, cold_until=10 ** 9)
-# row keys that hold wall clocks (and so differ from a CPU twin)
+# row keys that hold wall clocks (and so differ from a CPU twin); a
+# row's ``compile_ms_total`` is its captures' wall (0 on the CPU)
 _WALL_KEYS = ("dps", "dps_on", "dps_off", "wall_s", "wall_s_on",
-              "wall_s_off", "recovered_dps", "lat_p50_ms", "lat_p99_ms")
+              "wall_s_off", "recovered_dps", "lat_p50_ms", "lat_p99_ms",
+              "compile_ms_total")
 
 
 def _gate_jobs(overrides=None):
@@ -4545,14 +4575,24 @@ def _check_session_line(line: dict, refs: dict, srow: dict, table: str,
                                  f"{sorted(line[block])}")
     rows = {"serve", "cfg3", "cfg4", "churn_flash_crowd"}
     cap = line["capacity"]
+    # the rows' programs are captured once at their full shapes; the
+    # churn row's ingest step is captured again when its capacity moves
+    # (a new N, a retrace as in the JAX package), no more often than it
+    # grows or compacts
+    churn_row = line["churn"]["churn_flash_crowd"]
+    moves = churn_row["grows"] + churn_row["compactions"]
     if any(set(cap.get(f, {})) != rows for f in (
             "projected_hbm_bytes", "bound_class", "compile_ms_total",
             "retraces")) or not set(cap["bound_class"].values()) <= \
-            BOUND_CLASSES or set(cap["retraces"].values()) != {0}:
+            BOUND_CLASSES or any(cap["retraces"][r] != 0 for r in (
+                "serve", "cfg3", "cfg4")) or \
+            not 0 <= cap["retraces"]["churn_flash_crowd"] <= moves:
         raise AssertionError(f"session_all: capacity {cap}")
-    if set(line["compile"]) != COMPILE_TOTALS or \
-            line["compile"]["retraces"] != 0:
-        raise AssertionError(f"session_all: compile {line['compile']}")
+    comp = line["compile"]
+    if set(comp) != COMPILE_TOTALS or comp["compiles"] <= 0 or \
+            comp["dispatch_fallbacks"] != 0 or \
+            comp["retraces"] != cap["retraces"]["churn_flash_crowd"]:
+        raise AssertionError(f"session_all: compile {comp}")
     for wl, ca in line["cost_analysis"].items():
         if set(ca) != COST_KEYS or ca["bytes_accessed"] <= 0:
             raise AssertionError(f"session_all: cost_analysis {wl} {ca}")
@@ -5043,13 +5083,24 @@ def phase_costs(ext, fp, card: str, root: str, rows: dict,
     # (a) the build record
     pl = compile_plane.plane()
     tot = pl.totals()
-    if tot["entries"] < 1 or tot["retraces"] != 0:
+    builds = [e for e in pl.entries() if e["cache"] == ext.CACHE]
+    if not builds or any(e["retraces"] for e in builds) or \
+            tot["dispatch_fallbacks"] != 0:
         raise AssertionError(f"compile plane: {tot}")
+    by_cache = {}
+    for e in pl.entries():
+        if e["cache"] != ext.CACHE:
+            c = by_cache.setdefault(e["cache"], [0, 0, 0])
+            c[0] += 1
+            c[1] += e["compiles"]
+            c[2] += e["retraces"]
     log(f"[costs] (a) the compile plane in this process: {json.dumps(tot)}"
         + "".join(f"; {e['entry']}: nvcc ran {e['compiles']} time(s), a "
                   f"current library was found {e['found']} time(s), "
                   f"compile {e['compile_ms']:.3f} ms, source hash and "
-                  f"lookup {e['lower_ms']:.3f} ms" for e in pl.entries()))
+                  f"lookup {e['lower_ms']:.3f} ms" for e in builds)
+        + "; captured programs (entries, captures, retraces) by cache: "
+        + json.dumps(by_cache))
 
     # (b) the card's count of a serve epoch against the CPU's
     torch.cuda.synchronize()
@@ -5149,6 +5200,292 @@ def phase_costs(ext, fp, card: str, root: str, rows: dict,
     return k1, k2
 
 
+# ----------------------------------------------------------------------
+# phase 29: captured programs (obs/compile_plane.py)
+# ----------------------------------------------------------------------
+
+def _leaves(tree) -> list:
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_leaves(tree)
+
+
+def _clone_tree(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(
+        lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+
+
+def _same_leaves(got, want, what: str) -> None:
+    """Every leaf of two pytrees: tensors equal in dtype, shape and
+    value, anything else equal."""
+    a, b = _leaves(got), _leaves(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} leaves against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if torch.is_tensor(x) != torch.is_tensor(y):
+            raise AssertionError(f"{what}: leaf {i} differs in kind")
+        if torch.is_tensor(x):
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    not torch.equal(x, y):
+                raise AssertionError(f"{what}: leaf {i} differs")
+        elif x != y:
+            raise AssertionError(f"{what}: leaf {i} {x!r} != {y!r}")
+
+
+def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
+    """``prog`` replayed on ``calls`` (its first call's arguments) and
+    then on each call's successor (``next_args(args, out, i)``: the
+    chained state, a new ``now``, ``epoch0`` or draws), each replay held
+    bit for bit against the eager body on the same inputs, the kernel
+    launches of the replay and of the eager run counted and held equal.
+    The first replay's eager run is the first call's warm-up (``first``:
+    its result and launches); the others run the body on a clone of
+    their inputs, both timed by CUDA events.  Every replay runs under
+    ``set_sync_debug_mode("error")``: a synchronising operation raises.
+    Returns the program's capture record and timings."""
+    cap = prog.captures()
+    if len(cap) != 1:
+        raise AssertionError(f"{name}: {len(cap)} captures, want 1")
+    cap = cap[0]
+    args = calls
+    replay_ms, eager_ms = [], []
+    chained = []
+    for i in range(3):
+        if prog.donate_argnums:
+            chained.append([t.data_ptr() for j in prog.donate_argnums
+                            for t in _leaves(args[j]) if torch.is_tensor(t)])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        if i == 0:
+            want, eager_n = first
+        else:
+            ref_in = _clone_tree(args)
+            torch.cuda.synchronize()
+            ext.reset_launches()
+            ev[0].record()
+            want = prog.fn(*ref_in)
+            ev[1].record()
+            torch.cuda.synchronize()
+            eager_n = dict(ext.LAUNCHES)
+            del ref_in
+        ext.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ev[2].record()
+            got = prog(*args)
+            ev[3].record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        replay_n = dict(ext.LAUNCHES)
+        want_n = {k: cap["launches"].get(k, 0) for k in replay_n}
+        if replay_n != eager_n or replay_n != want_n:
+            raise AssertionError(f"{name} replay {i}: launches {replay_n}, "
+                                 f"the eager body {eager_n}, the capture "
+                                 f"{cap['launches']}")
+        _same_leaves(got, want, f"{name} replay {i} against its eager body")
+        if i:
+            eager_ms.append(ev[0].elapsed_time(ev[1]))
+        replay_ms.append(ev[2].elapsed_time(ev[3]))
+        args = next_args(args, got, i)
+        del want
+    # a donated chain: replays 2 and 3 were handed the buffers replay 1
+    # returned, the program's static inputs, so nothing was copied in
+    if prog.donate_argnums and chained[1] != chained[2]:
+        raise AssertionError(f"{name}: a chained replay's donated inputs "
+                             f"are not the program's static buffers")
+    ents = [e for e in _plane().entries() if e["cache"] == prog.cache and
+            e["entry"] == prog.entry]
+    rec = dict(graph_nodes=cap["graph_nodes"], launches=cap["launches"],
+               lower_ms=cap["lower_ms"], compile_ms=cap["compile_ms"],
+               memory_analysis=cap["memory_analysis"],
+               compiles=ents[0]["compiles"] if ents else None,
+               retraces=ents[0]["retraces"] if ents else None,
+               replay_ms=replay_ms, eager_ms=eager_ms)
+    log(f"[programs] {name} ({prog.cache} {prog.entry}): "
+        + json.dumps(rec))
+    return rec
+
+
+def _plane():
+    from dmclock_tpu_torch.obs import compile_plane
+
+    return compile_plane.plane()
+
+
+def release_programs() -> None:
+    """Every captured program's graphs and static buffers dropped and
+    the pools returned to the card (the end of a phase that captured)."""
+    import gc
+
+    from dmclock_tpu_torch.obs import compile_plane
+
+    compile_plane.clear_compiled()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_programs(serve, ext, card: str) -> tuple:
+    """Phase 29: the captured programs at full width, each held bit for
+    bit against its eager body over 3 replays with changed inputs (a
+    fresh then a chained state, new ``now``/``t_base``/``epoch0``, new
+    draws), K1 and K2 counted a replay, 0 synchronising operations (the
+    warm-up and every replay under the sync debug mode's errors), the
+    capture record, the pool's bytes and replay against eager ms printed:
+    ``bench.serve`` (the serve epoch), ``bench.round`` (cfg3, cfg4
+    minstop, cfg4_wheel), ``stream.chunk`` (cfg3 8 rounds, cfg4 2) and
+    the ingest step; then a body that reads the card back must fail to
+    capture, naming its cache and entry.  Returns ``(K1 by path, K2 by
+    path, records)``."""
+    from dmclock_tpu_torch.engine import fastpath
+    from dmclock_tpu_torch.engine import stream as tstream
+    from dmclock_tpu_torch.obs import compile_plane
+
+    t_phase = time.perf_counter()
+    k1, k2, recs = {}, {}, {}
+    rng = np.random.default_rng(29)
+
+    def first_call(prog, calls):
+        """The program's first call (the warm-up, whose result it
+        returns, and the capture), launch-counted; its result cloned,
+        since a donated output is a static buffer the replays rewrite."""
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        out = _clone_tree(prog(*calls))
+        torch.cuda.synchronize()
+        return out, dict(ext.LAUNCHES)
+
+    def finish(path, name, prog, calls, nxt):
+        first = first_call(prog, calls)
+        warm = first[1]
+        rec = _held_program(ext, name, prog, calls, first, nxt)
+        n1 = warm["ring_window"] + 3 * rec["launches"].get("ring_window", 0)
+        n2 = warm["wheel_scan"] + 3 * rec["launches"].get("wheel_scan", 0)
+        if n1:
+            k1[path] = n1
+        if n2:
+            k2[path] = n2
+        recs[name] = rec
+
+    # bench.serve: the serve epoch, the state donated
+    knobs = dict(m=M_SERVE, k=K_SERVE, with_metrics=True,
+                 select_impl="sort", tag_width=64, window_m=None)
+    st = serve._preloaded_state(N_SERVE, DEPTH, ring=DEPTH, device="cuda")
+    prog = compile_plane.InstrumentedJit(
+        functools.partial(fastpath.scan_prefix_epoch, anticipation_ns=0,
+                          **knobs),
+        cache="bench.serve", entry=(N_SERVE, K_SERVE, M_SERVE, DEPTH,
+                                    "sort", 64, None, True),
+        donate_argnums=(0,))
+    nows = [0, 0, 5_000_000]
+    finish("programs_serve", "bench.serve", prog, (st, nows[0]),
+           lambda a, out, i: (out.state, nows[min(i + 1, 2)]))
+    del st, prog
+    release_programs()
+
+    # bench.round: cfg3, cfg4 minstop, cfg4_wheel, state and tele donated
+    for name, workload, n, impl in (
+            ("bench.round cfg3", "cfg3", N_CFG3, "minstop"),
+            ("bench.round cfg4", "cfg4", N_CFG4, "minstop"),
+            ("bench.round cfg4_wheel", "cfg4", N_CFG4, "wheel")):
+        c = serve.CFG3 if workload == "cfg3" else serve.CFG4
+        st = serve.sustained_start(workload, n, device="cuda")
+        tele = serve.Tele(
+            hists=serve.obshist.hist_zero("cuda"),
+            ledger=serve.obshist.ledger_zero(n, "cuda"),
+            slo=serve.obsslo.window_zero(n, "cuda"),
+            prov=serve.obsprov.prov_init(n, 0, "cuda"))
+        lam = serve.sustained_lam0(workload, n)
+        draws = [torch.from_numpy(np.minimum(rng.poisson(lam), c["waves"])
+                                  .astype(np.int32)).to("cuda")
+                 for _ in range(3)]
+        dt = c["dt_round_ns"]
+        path = "programs_" + name.split()[1]
+        entry, body = serve.round_entry(workload, n, c, impl,
+                                        telemetry=True, slo=True)
+        prog = compile_plane.InstrumentedJit(
+            body, cache="bench.round", entry=entry, donate_argnums=(0, 3))
+        finish(path, name, prog, (st, draws[0], 0, tele),
+               lambda a, out, i: (out.state, draws[min(i + 1, 2)],
+                                  (i + 1) * dt, serve._tele_of(out)))
+        del st, tele, prog, body, draws
+        release_programs()
+
+    # stream.chunk: cfg3 8 rounds and cfg4 2 rounds, donated, as
+    # serve.cfg3_stream / cfg4_stream capture them
+    for name, workload, n, epochs in (("stream.chunk cfg3", "cfg3", N_CFG3,
+                                       serve.STREAM_CHUNK),
+                                      ("stream.chunk cfg4", "cfg4", N_CFG4,
+                                       2)):
+        c = serve.CFG3 if workload == "cfg3" else serve.CFG4
+        kw = dict(k=c["k"], select_impl=c["select_impl"]) \
+            if workload == "cfg3" else dict(
+                k=c["steps"], calendar_impl="minstop",
+                ladder_levels=c["ladder_levels"])
+        st = serve.sustained_start(workload, n, device="cuda")
+        lam = serve.sustained_lam0(workload, n)
+        draws = [torch.from_numpy(np.minimum(
+            rng.poisson(lam, (epochs, n)), c["waves"]).astype(np.int32))
+            .to("cuda") for _ in range(3)]
+        h, l = serve.obshist.hist_zero("cuda"), \
+            serve.obshist.ledger_zero(n, "cuda")
+        sl = serve.obsslo.window_zero(n, "cuda")
+        pv = serve.obsprov.prov_init(n, 0, "cuda")
+        path = "programs_chunk_" + workload
+        fn = tstream.jit_stream_chunk(
+            engine="prefix" if workload == "cfg3" else "calendar",
+            epochs=epochs, m=c["m"], dt_epoch_ns=c["dt_round_ns"],
+            waves=c["waves"], with_metrics=True, donate=True, **kw)
+        fn.clear_compiled()
+        finish(path, name, fn, (st, 0, draws[0], h, l, None, sl, pv),
+               lambda a, out, i: (out.state, (i + 1) * epochs,
+                                  draws[min(i + 1, 2)], out.hists,
+                                  out.ledger, None, out.slo, out.prov))
+        del st, draws, fn
+        release_programs()
+
+    # the ingest step (not donated) on cfg4's state
+    c = serve.CFG4
+    st = serve.sustained_start("cfg4", N_CFG4, device="cuda")
+    lam = serve.sustained_lam0("cfg4", N_CFG4)
+    draws = [torch.from_numpy(np.minimum(rng.poisson(lam), c["waves"])
+                              .astype(np.int32)).to("cuda")
+             for _ in range(3)]
+    ing = tstream.jit_ingest_step(dt_epoch_ns=c["dt_round_ns"],
+                                  waves=c["waves"])
+    ing.clear_compiled()
+    finish("programs_ingest", "stream.ingest", ing, (st, draws[0], 0),
+           lambda a, out, i: (out, draws[min(i + 1, 2)],
+                              (i + 1) * c["dt_round_ns"]))
+    del st, draws, ing
+    release_programs()
+
+    # a body that reads the card back cannot be captured
+    def reads_back(x):
+        return x + int(x.sum())
+
+    bad = compile_plane.instrumented_jit(reads_back, cache="programs.probe",
+                                         entry=("reads_back",))
+    try:
+        bad(torch.ones(8, dtype=torch.int64, device="cuda"))
+    except compile_plane.CaptureError as e:
+        if "programs.probe" not in str(e) or "reads_back" not in str(e):
+            raise AssertionError(f"a capture failure names neither its "
+                                 f"cache nor its entry: {e}")
+        log(f"[programs] a body that reads the card back raises at its "
+            f"capture: {str(e).splitlines()[0][:200]}")
+    else:
+        raise AssertionError("a body that reads the card back was "
+                             "captured")
+    release_programs()
+    log(f"[programs] on {card}: K1 by path {json.dumps(k1)}, K2 by path "
+        f"{json.dumps(k2)}")
+    log(f"[time] programs phase {time.perf_counter() - t_phase:.3f} s")
+    return k1, k2, recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -5193,6 +5530,7 @@ def main() -> int:
     phase_calendar_exact(serve, fastpath, kernels)
     ladder_k1 = phase_stop_ladder(serve, fastpath, kernels, _ext, card)
     wheel, wheel_row = phase_cfg4_wheel(serve, _ext, obsdev, card)
+    release_programs()
     t_rows = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         sust_out = os.path.join(tmp, "sustained_twins.pt")
@@ -5204,14 +5542,19 @@ def main() -> int:
             stream_k1 = phase_cfg3_stream(serve, _ext, obsdev, card, st3,
                                           tele3, draws3, r3, base3)
             del st3, tele3, draws3
+            release_programs()
             cfg4_k1, cfg4_stream_k1, _, cfg4_np = phase_cfg4(
                 serve, _ext, obsdev, card)
+            release_programs()
             t_row = time.perf_counter()
             cfg3_row_k1, cfg3_row = phase_row(serve, _ext, card, "cfg3",
                                               N_CFG3, tmp)
+            release_programs()
             cfg4_row_k1, cfg4_row = phase_row(serve, _ext, card, "cfg4",
                                               N_CFG4, tmp)
+            release_programs()
             frontier_k1 = phase_frontier(serve, _ext, card)
+            release_programs()
             t_queue = time.perf_counter()
             out = os.path.join(tmp, "twins.pt")
             twins = start_cpu_twins(root, out)
@@ -5226,6 +5569,7 @@ def main() -> int:
             storm, storm_k1 = phase_churn_storm(serve, _ext, card)
             check_churn(churn, card, twin)
             check_churn(storm, card, twin, "storm")
+            release_programs()
             t_sup = time.perf_counter()
             out2 = os.path.join(tmp, "sup_twin.pt")
             sup_twin = start_cpu_sup_twin(root, out2)
@@ -5247,6 +5591,7 @@ def main() -> int:
             check_supervised(sup_short, card,
                              collect_cpu_twins(sup_twin, out2),
                              "supervised_prefix_short")
+            release_programs()
             # phase 21: the simulators; their CPU twins start first
             t_sims = time.perf_counter()
             sim_twins = start_cpu_sim_twins(root, tmp)
@@ -5255,12 +5600,14 @@ def main() -> int:
             dmc = phase_dmc_sim(_ext, card, tmp)
             phase_oracle_trace(dmc, card, tmp)
             check_sim_twins(sim_twins, ds_prefix, dmc, card)
+            release_programs()
             # phase 22: the multi-server mesh; its CPU twins start first
             t_mesh = time.perf_counter()
             mesh_out = os.path.join(tmp, "mesh_twins.pt")
             mesh_twin = start_mesh_twins(root, mesh_out)
             mesh_k1, mesh_k2, mesh_stacked = phase_mesh(
                 _ext, card, mesh_out, mesh_twin)
+            release_programs()
             # phase 23: the supervised mesh; its CPU twins start first
             t_sup_mesh = time.perf_counter()
             sm_out = os.path.join(tmp, "sup_mesh_twins.pt")
@@ -5274,6 +5621,7 @@ def main() -> int:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
                 raise
+            release_programs()
             # phase 24: control and network; its CPU twins start inside
             t_control = time.perf_counter()
             err = os.path.join(tmp, "control.err")
@@ -5285,6 +5633,7 @@ def main() -> int:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
                 raise
+            release_programs()
             # phase 25: the mesh across devices, held to the stacked
             # runs of phases 22 and 23
             t_groups = time.perf_counter()
@@ -5298,6 +5647,7 @@ def main() -> int:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
                 raise
+            release_programs()
             # phase 26: migration over groups, then bench's session and
             # the two entry scripts, held to this run's rows
             t_session = time.perf_counter()
@@ -5312,17 +5662,23 @@ def main() -> int:
                 with open(err, errors="replace") as f:
                     sys.stderr.write(f.read()[-6000:])
                 raise
+            release_programs()
             check_sustained_twins(sust_twin, sust_out,
                                   dict(cfg3=cfg3_np, cfg4=cfg4_np))
             # phase 27: the sweeps; their CPU twin starts first
             t_sweeps = time.perf_counter()
             sweep_k1, sweep_err, sweep_ms = phase_sweeps(
                 _ext, fastpath, cases, card, root, tmp)
+            release_programs()
             # phase 28: the compile plane and the cost counts
             t_costs = time.perf_counter()
             cost_k1, cost_k2 = phase_costs(
                 _ext, fastpath, card, root,
                 dict(cfg3=cfg3_row, cfg4=cfg4_row), wheel_row)
+            release_programs()
+            # phase 29: the captured programs
+            t_programs = time.perf_counter()
+            prog_k1, prog_k2, _ = phase_programs(serve, _ext, card)
         finally:
             for proc in (sust_twin, twins, sup_twin, mesh_twin,
                          sup_mesh_twin):
@@ -5344,7 +5700,8 @@ def main() -> int:
         f"{t_session - t_groups:.3f} s, the session phase "
         f"{t_sweeps - t_session:.3f} s, the sweeps phase "
         f"{t_costs - t_sweeps:.3f} s, the costs phase "
-        f"{t_end - t_costs:.3f} s; the whole script "
+        f"{t_programs - t_costs:.3f} s, the programs phase "
+        f"{t_end - t_programs:.3f} s; the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -5359,7 +5716,7 @@ def main() -> int:
                                 for p, n in ds_by_path.items()},
                    **{p: n for p, n in mesh_k1.items() if n},
                    **sup_mesh_k1, **ctl_k1, **grp_k1, **ses_k1,
-                   **sweep_k1, **cost_k1)
+                   **sweep_k1, **cost_k1, **prog_k1)
     k1["launches"] = sum(by_path.values())
     k1["launches_by_path"] = by_path
     k1["max_abs_err"] = max(k1["max_abs_err"], sweep_err)
@@ -5374,7 +5731,7 @@ def main() -> int:
                     device_sim_wheel=ds_by_path["device_sim_wheel"][
                         "wheel_scan"],
                     **{p: n for p, n in mesh_k2.items() if n}, **ctl_k2,
-                    **grp_k2, **ses_k2, **cost_k2)
+                    **grp_k2, **ses_k2, **cost_k2, **prog_k2)
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

@@ -18,7 +18,9 @@ provenance, tardiness_ns, compile, capacity), ``backend`` (``"gpu"``, or
 holds each row's count of one launch by the cost counter
 (``obs/compile_plane.py``), also fed to the registry as
 ``dmclock_epoch_cost_{key}{workload=...}``; ``compile`` the compile
-plane's totals (the kernel library's build); ``capacity`` each row's
+plane's totals (the kernel library's build and the captures of the rows'
+programs, ``bench.serve``, ``bench.round`` and ``bench.chunk``, each a
+CUDA graph captured once a row and replayed); ``capacity`` each row's
 ``bound_class``, ``compile_ms_total`` and ``retraces`` beside the
 projected bytes (``python scripts/capacity_report.py`` renders them).
 
@@ -676,9 +678,12 @@ def main(argv=None) -> int:
     if tracer is not None:
         from .obs.watchdog import Watchdog
 
+        # the captures ride the span stream as ``compile`` spans, and the
+        # watchdog reads the plane's retraces, as bench attaches them
+        compile_plane.plane().set_tracer(tracer)
         watchdog = Watchdog(tracer, interval_s=2.0, stall_after_s=60.0,
                             registry=default_registry(),
-                            compile_plane=None).start()
+                            compile_plane=compile_plane.plane()).start()
     ladder = DegradationLadder(enabled=not a.no_ladder, threshold=1,
                                tracer=tracer)
     session = {"backend": None, "device": None}

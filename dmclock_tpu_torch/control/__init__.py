@@ -16,8 +16,8 @@ digest-explainable.  docs/CONTROLLER.md is the full contract.
 On the card the signals come from one boundary read: ``state.depth``
 and, with provenance, the starvation watermark of ``prov.scal`` cross to
 the host in one ``.cpu()`` of a packed tensor, after the drain has
-already waited for the device.  The advisory tier has no source in the
-port (nothing compiles per shape), so ``retraces`` and ``compile_ms``
+already waited for the device.  No caller passes the advisory tier,
+in the port as in the JAX package, so ``retraces`` and ``compile_ms``
 stay 0; the digest reads only the deterministic tier, so trajectories
 equal the JAX package's.
 """

@@ -22,8 +22,9 @@ tiers, and the split is the whole determinism story:
   carried for observability but are EXCLUDED from both the rule table
   and the digest: retrace counts and wall-clock shares restart at zero
   in a resumed process, and a signal that differs across a resume
-  would break crash equivalence.  The port compiles nothing per shape,
-  so its ``retraces`` and ``compile_ms`` stay 0.
+  would break crash equivalence.  The port's ``retraces`` and
+  ``compile_ms`` count the captures of its programs
+  (``obs/compile_plane.py``).
 """
 
 from __future__ import annotations

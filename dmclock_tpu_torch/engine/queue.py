@@ -23,8 +23,8 @@ Restrictions (as in the JAX package):
 Device discipline: every state update is out of place (the speculative
 buffer keeps the pre-batch state by reference and replays from it), and
 each launch copies its decisions to the host once, as one int64 array.
-The JAX package's per-shape jit caches have no counterpart: nothing is
-compiled per shape here.
+The JAX package's per-shape jit caches (``_jit_cached``) are not yet
+captured: the queue runs op by op (ROADMAP.md section 1).
 """
 
 from __future__ import annotations

@@ -17,16 +17,22 @@ be captured as one CUDA graph (ROADMAP.md item 5).  Decisions are
 integer ops in the same order as the round loop's, so a chunk equals
 the rounds it fuses bit for bit.
 
-The JAX package's ``jit_stream_chunk`` compile cache and its ``donate``
-switch have no counterpart (nothing is compiled per shape), and neither
-has ``wheel_kernel``: the device picks kernel K2's route.  The guarded
-chunk runner is ``robust.guarded.run_stream_chunk_guarded``; the
-supervisor's stream loop (``robust.supervisor``) runs one chunk per
-checkpoint interval through it.
+The JAX package's compile caches have their counterparts:
+:func:`jit_stream_chunk` (cache ``stream.chunk``, with its ``donate``
+switch) and :func:`jit_ingest_step` (cache ``stream.ingest``), each a
+module cache of captured programs (``obs/compile_plane.py``
+``instrumented_jit``) under the JAX package's keys.  On the card a
+chunk is captured once a signature as one CUDA graph and replayed.
+``wheel_kernel`` stays in the chunk's key, as in JAX, but picks
+nothing: the device picks kernel K2's route.  The guarded chunk runner
+is ``robust.guarded.run_stream_chunk_guarded``; the supervisor's stream
+loop (``robust.supervisor``) runs one chunk per checkpoint interval
+through it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -208,6 +214,48 @@ def build_stream_chunk(*, engine: str, epochs: int, m: int, k: int = 0,
                            flight=f, slo=s, prov=p)
 
     return chunk
+
+
+# module caches of captured programs keyed by the full static
+# configuration, as the JAX package's (``_STREAM_JIT_CACHE``,
+# ``_INGEST_STEP_CACHE``)
+_STREAM_JIT_CACHE: dict = {}
+_INGEST_STEP_CACHE: dict = {}
+
+
+def jit_stream_chunk(*, donate: bool = False, **cfg):
+    """The captured :func:`build_stream_chunk` of ``cfg`` (``wheel_kernel``
+    is kept in the key and dropped from the build).  ``donate=True``
+    donates the state and the telemetry accumulators (arguments 0 and
+    3-7, the bench discipline): the chunk writes them back into its
+    static inputs and returns those.  The guarded runner keeps them
+    alive instead, so that a tripped chunk can be re-run from its entry
+    state."""
+    from ..obs import compile_plane
+
+    key = (donate,) + tuple(sorted(cfg.items()))
+    if key not in _STREAM_JIT_CACHE:
+        build = {k: v for k, v in cfg.items() if k != "wheel_kernel"}
+        _STREAM_JIT_CACHE[key] = compile_plane.instrumented_jit(
+            build_stream_chunk(**build), cache="stream.chunk", entry=key,
+            donate_argnums=(0, 3, 4, 5, 6, 7) if donate else ())
+    return _STREAM_JIT_CACHE[key]
+
+
+def jit_ingest_step(*, dt_epoch_ns: int, waves: int):
+    """The captured ingest leg ``(state, raw_counts, t_base) -> state``
+    (:func:`ingest_step`), for the guarded runner's round-path fallback
+    and the churn rows' ingest: the chunk's clamp, so it ingests exactly
+    what the chunk would have."""
+    from ..obs import compile_plane
+
+    key = (int(dt_epoch_ns), int(waves))
+    if key not in _INGEST_STEP_CACHE:
+        _INGEST_STEP_CACHE[key] = compile_plane.instrumented_jit(
+            functools.partial(ingest_step, dt_epoch_ns=key[0],
+                              waves=key[1]),
+            cache="stream.ingest", entry=key)
+    return _INGEST_STEP_CACHE[key]
 
 
 def epoch_view(engine: str, outs: dict, i: int):

@@ -5,7 +5,10 @@ on the exact serial engine (``kernels.engine_run``, the oracle every
 epoch engine is held to), with the boundary grid, the RNG consumption
 and the canonical client-id-space chain digest of the JAX package's
 runner, so the digest of a port run equals the JAX digest of the same
-run, and a dynamic spec's digest equals its static variant's.
+run, and a dynamic spec's digest equals its static variant's.  The
+ingest leg is the captured ``stream.jit_ingest_step``, as in the JAX
+runner; the serial engine's ``_jit_run`` is not yet captured (ROADMAP.md
+section 1).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..engine import kernels
 from ..engine.state import init_state
-from ..engine.stream import ingest_step
+from ..engine.stream import jit_ingest_step
 from ..robust.digest import digest_update
 from . import churn as churn_mod
 from .plane import LifecyclePlane
@@ -41,6 +44,7 @@ def run_serial_churn(spec: dict, *, epochs: int, every: int = 2,
         plane = LifecyclePlane(spec)
     state = init_state(spec["capacity0"], ring, device=dev)
     rng = np.random.Generator(np.random.PCG64(seed))
+    ingest = jit_ingest_step(dt_epoch_ns=dt_epoch_ns, waves=waves)
     digest = b"\x00" * 32
     decisions = 0
     for e in range(epochs):
@@ -50,8 +54,7 @@ def run_serial_churn(spec: dict, *, epochs: int, every: int = 2,
         raw = rng.poisson(lam).astype(np.int32)
         t_base = e * dt_epoch_ns
         counts = torch.from_numpy(plane.map_counts(raw)).to(dev)
-        state = ingest_step(state, counts, t_base,
-                            dt_epoch_ns=dt_epoch_ns, waves=waves)
+        state = ingest(state, counts, t_base)
         state, _, d = kernels.engine_run(
             state, t_base + dt_epoch_ns, steps, allow_limit_break=False,
             anticipation_ns=0)

@@ -1,22 +1,42 @@
-"""Compile records and the cost counter: the capacity plane's time axis.
+"""Compile records, captured programs and the cost counter: the capacity
+plane's time axis.
 
 Counterpart of ``dmclock_tpu/obs/compile_plane.py``.  The JAX plane
 records every lower+compile of the package's jitted programs and each
-program's ``cost_analysis()``.  The port has one compile, the ``nvcc``
-build of its kernel library (``engine/_ext.py`` ``build``), and runs its
-programs op by op, so the two halves become:
+program's ``cost_analysis()``.  The port has two kinds of compile, the
+``nvcc`` build of its kernel library (``engine/_ext.py`` ``build``) and
+the capture of a device program as a CUDA graph, so the plane has three
+parts:
 
 - **Build records.**  Each ``build()`` call is one record of the cache
   ``kernels`` under the library's file name: ``compiles`` counts the
-  ``nvcc`` runs (0 when a current library was found), ``compile_ms`` is
-  the compiler's wall and ``lower_ms`` the hashing of the sources and
-  the look for a current library (the leg before the compiler, as
-  lowering is in JAX).  With a tracer attached (:func:`set_tracer`) a
-  compiler run is one ``compile``-category span, ``compile.kernels``,
-  and a ``compile.kernels.record`` instant carrying the record, as the
-  JAX plane's ``_timed_compile`` emits.  ``retraces`` stays in the
-  totals and is 0 by construction: nothing is specialised per shape, so
-  no entry is ever built twice.
+  ``nvcc`` runs (``found`` the calls that found a current library),
+  ``compile_ms`` is the compiler's wall and ``lower_ms`` the hashing of
+  the sources and the look for a current library (the leg before the
+  compiler, as lowering is in JAX).  With a tracer attached
+  (:func:`set_tracer`) a compiler run is one ``compile``-category span,
+  ``compile.kernels``, and a ``compile.kernels.record`` instant carrying
+  the record, as the JAX plane's ``_timed_compile`` emits.
+- **Captured programs** (:class:`InstrumentedJit`, the counterpart of
+  ``jax.jit`` plus the JAX plane's wrapper).  A program is one body (an
+  epoch, a round, a stream chunk) and a cache entry (its static
+  configuration).  Its first call for an argument signature (the tensor
+  leaves' shapes, dtypes, devices and strides, the Python scalars'
+  types, the pytree structure, ``None`` leaves included) copies the
+  inputs into static buffers, runs the body once on a side stream with
+  synchronising operations made errors (the warm-up, ``lower_ms``; its
+  result is the call's result), then captures the body as one
+  ``torch.cuda.CUDAGraph`` with a private memory pool and instantiates
+  it (``compile_ms``).  Later calls copy each tensor into its static
+  buffer (no copy when it is that buffer) and replay the graph.  A
+  Python int, bool or float argument is an input, as JAX traces it
+  weakly: it is lifted to a 0-d device tensor, filled on every call.
+  A second signature on one entry is a new capture and a **retrace**,
+  recorded with the leaf-level diff that caused it.  A capture that
+  fails raises, naming the cache and the entry; nothing runs eagerly on
+  the card in its place.  On CPU tensors (the caller's explicit choice)
+  the program is the body run eagerly, with the same signatures and
+  records (``compile_ms`` 0).
 - **The cost counter** (:class:`CostCounter`), the port's
   ``cost_analysis``: a ``TorchDispatchMode`` that counts every aten op
   run inside one launch of a row's program, by XLA's rules: a view op
@@ -32,67 +52,119 @@ programs op by op, so the two halves become:
   wrapper opens a :func:`kernel_region` that records the kernel's cost
   by formula (``fastpath.ring_window_cost``, ``kernels.wheel_scan_cost``)
   and hides the ops inside it, the plain version's on the CPU, so the
-  CPU and the card count the same work.
+  CPU and the card count the same work.  It counts a program's eager
+  body (``InstrumentedJit.fn``).
 
 The counter counts the launch that actually ran, loops broken early
 included, where XLA counts the static program once; the two packages'
 whole-program totals are therefore not held equal, only the convention
 op for op.  :func:`normalize_cost_analysis` turns either into the row's
-``{"flops", "bytes_accessed", "transcendentals"}``.
+``{"flops", "bytes_accessed", "transcendentals"}``.  A capture record's
+``cost_analysis`` stays ``{}``; its ``memory_analysis`` reads the
+program's bytes: ``argument_bytes`` (the static inputs), ``output_bytes``,
+``alias_bytes`` (the donated inputs the outputs are written back into),
+``pool_bytes`` (the graph's private pool) and ``total_bytes`` (static
+inputs plus pool: what the program keeps on the card).
 
 Records export as the JAX plane's: :meth:`CompilePlane.snapshot`,
-:func:`publish_compile_metrics` (the ``dmclock_compile_*`` families)
+:func:`publish_compile_metrics` (the ``dmclock_compile_*`` families),
+:meth:`CompilePlane.retrace_events` (the watchdog's retrace-storm feed)
 and the spans.  ``enable(False)`` or ``DMCLOCK_COMPILE_PLANE=0`` stops
-the build records; nothing here changes a decision, and the counter runs
-a launch that the caller has set aside (a clone of the row's state).
+the records; programs are captured and replayed either way, nothing
+here changes a decision, and the counter runs a launch that the caller
+has set aside (a clone of the row's state).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import inspect
 import math
 import os
 import threading
 import time as _walltime
 import weakref
-from typing import Callable, Dict, List, Optional, Tuple
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from .spans import span as _span
 
 
 # ----------------------------------------------------------------------
-# build records
+# the plane: build and capture records
 # ----------------------------------------------------------------------
 
-class _EntryStats:
-    """The record of one cache entry (one kernel library)."""
+# one retrace event ring entry per retrace, what the watchdog's
+# retrace-storm check windows over
+_RETRACE_RING = 1024
+# how many leaf-level diffs a retrace record keeps
+_DIFF_LIMIT = 8
+_ENTRY_STR_LIMIT = 160
 
-    __slots__ = ("cache", "entry", "compiles", "found", "lower_ns",
-                 "compile_ns")
+
+def _entry_str(entry: Any) -> str:
+    s = repr(entry)
+    return s if len(s) <= _ENTRY_STR_LIMIT else \
+        s[:_ENTRY_STR_LIMIT - 3] + "..."
+
+
+def _sig_diff(old: Dict[str, tuple], new: Dict[str, tuple]) -> List[str]:
+    """Human-readable leaf diffs between two path-spec maps: what changed
+    shape, dtype, device, strides or type to cause the retrace."""
+    diffs = []
+    for path in new:
+        if path not in old:
+            diffs.append(f"{path}: added {new[path]}")
+        elif old[path] != new[path]:
+            diffs.append(f"{path}: {old[path]} -> {new[path]}")
+    for path in old:
+        if path not in new:
+            diffs.append(f"{path}: removed (was {old[path]})")
+    return diffs[:_DIFF_LIMIT]
+
+
+class _EntryStats:
+    """The record of one cache entry: a kernel library, or one static
+    configuration of a captured program."""
+
+    __slots__ = ("cache", "entry", "compiles", "found", "retraces",
+                 "lower_ns", "compile_ns", "cost", "hbm", "path_specs",
+                 "last_diff")
 
     def __init__(self, cache: str, entry: str):
         self.cache = cache
         self.entry = entry
         self.compiles = 0
         self.found = 0
+        self.retraces = 0
         self.lower_ns = 0
         self.compile_ns = 0
+        self.cost: Dict[str, float] = {}
+        self.hbm: Dict[str, int] = {}
+        self.path_specs: Optional[Dict[str, tuple]] = None
+        self.last_diff: List[str] = []
 
     def to_dict(self) -> dict:
         return {"cache": self.cache, "entry": self.entry,
                 "compiles": self.compiles, "found": self.found,
-                "retraces": 0, "lower_ms": self.lower_ns / 1e6,
+                "retraces": self.retraces, "lower_ms": self.lower_ns / 1e6,
                 "compile_ms": self.compile_ns / 1e6,
-                "cost_analysis": {}, "memory_analysis": {},
-                "last_retrace_diff": [], "dispatch_fallbacks": 0}
+                "cost_analysis": dict(self.cost),
+                "memory_analysis": dict(self.hbm),
+                "last_retrace_diff": list(self.last_diff),
+                "dispatch_fallbacks": 0}
 
 
 class CompilePlane:
-    """Process-wide build ledger.  ``clock_ns`` is injectable for
-    deterministic tests."""
+    """Process-wide compile ledger: kernel builds and program captures.
+    ``clock_ns`` is injectable for deterministic tests (the watchdog's
+    clock domain)."""
 
     def __init__(self, clock_ns: Callable[[], int] =
                  _walltime.perf_counter_ns):
@@ -103,16 +175,16 @@ class CompilePlane:
                 "0", "off", "false")
         self._tracer_ref = None     # weakref to a SpanTracer, or None
         self._entries: Dict[Tuple[str, str], _EntryStats] = {}
+        self._retraces: deque = deque(maxlen=_RETRACE_RING)
 
     def enable(self, on: bool) -> "CompilePlane":
         self.enabled = bool(on)
         return self
 
     def set_tracer(self, tracer) -> None:
-        """Route future compiler runs into ``tracer`` as
-        ``compile``-category spans (None detaches).  Held weakly, as the
-        JAX plane holds it: the plane is process-wide, tracers are per
-        run."""
+        """Route future compiles into ``tracer`` as ``compile``-category
+        spans (None detaches).  Held weakly, as the JAX plane holds it:
+        the plane is process-wide, tracers are per run."""
         self._tracer_ref = None if tracer is None \
             else weakref.ref(tracer)
 
@@ -123,6 +195,14 @@ class CompilePlane:
     def reset(self) -> None:
         with self._mtx:
             self._entries.clear()
+            self._retraces.clear()
+
+    def _entry(self, cache: str, entry: str) -> _EntryStats:
+        key = (cache, entry)
+        e = self._entries.get(key)
+        if e is None:
+            e = self._entries[key] = _EntryStats(cache, entry)
+        return e
 
     def record_build(self, cache: str, entry: str, *, compiled: bool,
                      lower_ns: int, compile_ns: int = 0) -> dict:
@@ -130,10 +210,7 @@ class CompilePlane:
         run (``compiled``) or a current library found.  Returns the
         record's span-args payload."""
         with self._mtx:
-            key = (cache, entry)
-            e = self._entries.get(key)
-            if e is None:
-                e = self._entries[key] = _EntryStats(cache, entry)
+            e = self._entry(cache, entry)
             if compiled:
                 e.compiles += 1
             else:
@@ -143,6 +220,43 @@ class CompilePlane:
         return {"cache": cache, "entry": entry, "retrace": False,
                 "compiled": bool(compiled), "lower_ms": lower_ns / 1e6,
                 "compile_ms": compile_ns / 1e6}
+
+    def record_compile(self, cache: str, entry: str, *, lower_ns: int,
+                       compile_ns: int, cost: Dict[str, float],
+                       hbm: Dict[str, int],
+                       path_specs: Optional[Dict[str, tuple]] = None
+                       ) -> dict:
+        """Fold one capture into the entry's record (the JAX plane's
+        ``record_compile``, key for key): a second one on an entry is a
+        retrace, with the diff of its leaf specs.  Returns the span-args
+        payload."""
+        with self._mtx:
+            e = self._entry(cache, entry)
+            retrace = e.compiles > 0
+            diff: List[str] = []
+            if retrace:
+                e.retraces += 1
+                if e.path_specs is not None and path_specs is not None:
+                    diff = _sig_diff(e.path_specs, path_specs)
+                e.last_diff = diff
+                self._retraces.append((self.clock_ns(),
+                                       f"{cache}:{entry}"))
+            e.compiles += 1
+            e.lower_ns += int(lower_ns)
+            e.compile_ns += int(compile_ns)
+            if cost:
+                e.cost = dict(cost)
+            if hbm:
+                e.hbm = dict(hbm)
+            if path_specs is not None:
+                e.path_specs = path_specs
+        out = {"cache": cache, "entry": entry, "retrace": retrace,
+               "lower_ms": lower_ns / 1e6, "compile_ms": compile_ns / 1e6}
+        if hbm.get("total_bytes") is not None:
+            out["hbm_total_bytes"] = hbm["total_bytes"]
+        if diff:
+            out["sig_diff"] = diff
+        return out
 
     def entries(self) -> List[dict]:
         with self._mtx:
@@ -155,7 +269,7 @@ class CompilePlane:
             return {
                 "entries": len(es),
                 "compiles": sum(e.compiles for e in es),
-                "retraces": 0,
+                "retraces": sum(e.retraces for e in es),
                 "lower_ms_total": sum(e.lower_ns for e in es) / 1e6,
                 "compile_ms_total": sum(e.compile_ns for e in es) / 1e6,
                 "dispatch_fallbacks": 0,
@@ -163,6 +277,12 @@ class CompilePlane:
 
     def snapshot(self) -> dict:
         return {"totals": self.totals(), "entries": self.entries()}
+
+    def retrace_events(self) -> List[Tuple[int, str]]:
+        """``(clock_ns, "cache:entry")`` per retrace, newest-bounded: the
+        watchdog's retrace-storm feed."""
+        with self._mtx:
+            return list(self._retraces)
 
 
 _PLANE = CompilePlane()
@@ -224,23 +344,23 @@ def publish_compile_metrics(registry, pl: Optional[CompilePlane] = None
                             ) -> None:
     """The plane into a registry as the JAX plane's ``dmclock_compile_*``
     families: the process totals, then a rollup a cache family
-    (``{cache=...}``).  A build has no cost or memory analysis, so the
-    per-family ``flops``, ``bytes_accessed`` and ``hbm_bytes`` gauges
-    read 0."""
+    (``{cache=...}``).  No record carries a cost analysis, so the
+    per-family ``flops`` and ``bytes_accessed`` gauges read 0; the
+    ``hbm_bytes`` gauge sums the captured programs' ``total_bytes``."""
     pl = pl or _PLANE
     t = pl.totals()
     rows = (
-        ("dmclock_compile_events_total", "compiler runs recorded by the "
-         "compile plane (kernel library builds)", t["compiles"]),
-        ("dmclock_compile_retraces_total", "cache entries rebuilt for a "
-         "changed signature (0: nothing is specialised per shape)",
-         t["retraces"]),
-        ("dmclock_compile_ms_total", "total compiler wall (ms)",
-         t["compile_ms_total"]),
-        ("dmclock_compile_lower_ms_total", "total source hashing and "
-         "library lookup wall (ms)", t["lower_ms_total"]),
-        ("dmclock_compile_cache_entries", "kernel library entries",
-         t["entries"]),
+        ("dmclock_compile_events_total", "compiles recorded by the "
+         "compile plane (kernel library builds and program captures)",
+         t["compiles"]),
+        ("dmclock_compile_retraces_total", "cache entries captured again "
+         "for a changed argument signature", t["retraces"]),
+        ("dmclock_compile_ms_total", "total compiler and capture wall "
+         "(ms)", t["compile_ms_total"]),
+        ("dmclock_compile_lower_ms_total", "total library lookup and "
+         "warm-up wall (ms)", t["lower_ms_total"]),
+        ("dmclock_compile_cache_entries", "kernel library and program "
+         "entries", t["entries"]),
     )
     for name, help_text, v in rows:
         registry.gauge(name, help_text).set(float(v))
@@ -251,6 +371,8 @@ def publish_compile_metrics(registry, pl: Optional[CompilePlane] = None
             "bytes_accessed": 0.0, "hbm_total_bytes": 0})
         acc["compile_ms"] += e["compile_ms"]
         acc["retraces"] += e["retraces"]
+        acc["hbm_total_bytes"] += \
+            e["memory_analysis"].get("total_bytes", 0)
     for cache, acc in by_cache.items():
         lbl = {"cache": cache}
         registry.gauge("dmclock_compile_ms_total", "", labels=lbl) \
@@ -258,15 +380,14 @@ def publish_compile_metrics(registry, pl: Optional[CompilePlane] = None
         registry.gauge("dmclock_compile_retraces_total", "",
                        labels=lbl).set(acc["retraces"])
         registry.gauge("dmclock_compile_flops", "cost_analysis flops of "
-                       "the cache family's builds (none)",
+                       "the cache family's records (none)",
                        labels=lbl).set(acc["flops"])
         registry.gauge("dmclock_compile_bytes_accessed", "cost_analysis "
-                       "bytes accessed of the cache family's builds "
+                       "bytes accessed of the cache family's records "
                        "(none)", labels=lbl).set(acc["bytes_accessed"])
-        registry.gauge("dmclock_compile_hbm_bytes", "memory analysis of "
-                       "the cache family's builds (none)",
-                       labels=lbl).set(acc["hbm_total_bytes"])
-
+        registry.gauge("dmclock_compile_hbm_bytes", "static inputs and "
+                       "private pools of the cache family's captured "
+                       "programs", labels=lbl).set(acc["hbm_total_bytes"])
 
 # ----------------------------------------------------------------------
 # the cost counter
@@ -522,9 +643,9 @@ _DEVICE_FAILURES = ("cuda", "nvcc", "kernel build failed",
 
 
 def device_failure(e: BaseException) -> bool:
-    """A CUDA error, or a kernel of the port that failed to build or
-    launch: what no telemetry may catch."""
-    if isinstance(e, torch.cuda.OutOfMemoryError) or \
+    """A CUDA error, a kernel of the port that failed to build or launch,
+    or a program that failed to capture: what no telemetry may catch."""
+    if isinstance(e, (torch.cuda.OutOfMemoryError, CaptureError)) or \
             type(e).__name__ == "AcceleratorError":
         return True
     return isinstance(e, RuntimeError) and any(
@@ -545,3 +666,495 @@ def count_launch(fn: Callable[[], object]) -> dict:
             raise
         return {"error": f"{type(e).__name__}: {e}"}
     return normalize_cost_analysis(counter.cost_analysis())
+
+
+# ----------------------------------------------------------------------
+# captured programs
+# ----------------------------------------------------------------------
+
+# every live InstrumentedJit, so clear_compiled() reaches them all
+_ALL_PROGRAMS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def clear_compiled() -> None:
+    """Drop every program's captured graphs and static buffers (records
+    are kept): the next call of a signature captures it again, recorded
+    as a retrace.  ``torch.cuda.empty_cache()`` afterwards returns the
+    pools to the card."""
+    for w in list(_ALL_PROGRAMS):
+        w.clear_compiled()
+
+
+class CaptureError(RuntimeError):
+    """A program that cannot be captured on the card: its body
+    synchronises with the host, uses an operation a CUDA graph cannot
+    hold, or its graph fails to instantiate.  The message names the
+    cache and the entry."""
+
+
+_SCALARS = (bool, int, float, np.bool_, np.integer, np.floating)
+
+
+def _scalar_dtype(x) -> torch.dtype:
+    if isinstance(x, (bool, np.bool_)):
+        return torch.bool
+    if isinstance(x, (int, np.integer)):
+        return torch.int64
+    return torch.float64
+
+
+def _leaf_spec(x):
+    """The hashable signature of one leaf: a tensor by shape, dtype,
+    device and strides (values never retrace); a Python or numpy scalar
+    by its type only (it is an input, lifted to a 0-d tensor); ``None``
+    as itself; anything else by its repr (a constant of the program)."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device, x.stride())
+    if isinstance(x, _SCALARS):
+        return type(x)
+    if x is None:
+        return None
+    return ("obj", repr(x))
+
+
+def _leaf_spec_readable(x) -> tuple:
+    """The human-facing form of :func:`_leaf_spec`, for retrace diffs."""
+    if isinstance(x, torch.Tensor):
+        return ("arr", tuple(x.shape), str(x.dtype).replace("torch.", ""),
+                str(x.device), tuple(x.stride()))
+    if isinstance(x, _SCALARS):
+        return ("py", type(x).__name__)
+    if x is None:
+        return ("none",)
+    return ("obj", repr(x))
+
+
+def _path_name(path, argnames) -> Optional[str]:
+    """The field or argument name a leaf path ends in (None for a list
+    position): a bare positional argument takes its parameter's name."""
+    if len(path) == 2 and getattr(path[0], "idx", None) == 0 and \
+            getattr(path[1], "idx", None) is not None and \
+            path[1].idx < len(argnames):
+        return argnames[path[1].idx]
+    if not path:
+        return None
+    name = getattr(path[-1], "name", None)
+    if name is None:
+        name = getattr(path[-1], "key", None)
+    return name if isinstance(name, str) else None
+
+
+def _argnames(fn) -> tuple:
+    try:
+        return tuple(p.name for p in inspect.signature(fn).parameters
+                     .values() if p.kind in (p.POSITIONAL_ONLY,
+                                             p.POSITIONAL_OR_KEYWORD))
+    except (TypeError, ValueError):
+        return ()
+
+
+def _program_device(leaves) -> torch.device:
+    """The one device of a call's tensor leaves (the CPU when it has
+    none)."""
+    devs = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(f"a program's tensor inputs must be on one "
+                         f"device, got {sorted(map(str, devs))}")
+    return devs.pop() if devs else torch.device("cpu")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _lift(x, dev: torch.device):
+    return torch.full((), x, dtype=_scalar_dtype(x), device=dev) \
+        if isinstance(x, _SCALARS) else x
+
+
+_DRIVER: list = []      # [the CUDA driver's two entry points, or None]
+
+
+def _driver():
+    """``(cuStreamGetCaptureInfo_v2, cuGraphGetNodes)`` of the CUDA
+    driver, typed, or None where it has not got them."""
+    if not _DRIVER:
+        try:
+            lib = ctypes.CDLL("libcuda.so.1")
+            info, nodes = lib.cuStreamGetCaptureInfo_v2, lib.cuGraphGetNodes
+        except (OSError, AttributeError):
+            _DRIVER.append(None)
+        else:
+            P = ctypes.POINTER
+            info.argtypes = [ctypes.c_void_p, P(ctypes.c_int),
+                             P(ctypes.c_uint64), P(ctypes.c_void_p),
+                             P(ctypes.c_void_p), P(ctypes.c_size_t)]
+            nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                              P(ctypes.c_size_t)]
+            info.restype = nodes.restype = ctypes.c_int
+            _DRIVER.append((info, nodes))
+    return _DRIVER[0]
+
+
+def _capture_nodes(stream) -> Optional[int]:
+    """Nodes in the graph being captured on ``stream`` (the CUDA
+    driver's ``cuStreamGetCaptureInfo_v2`` and ``cuGraphGetNodes``);
+    None where libcuda does not say."""
+    fns = _driver()
+    if fns is None:
+        return None
+    status, cid = ctypes.c_int(), ctypes.c_uint64()
+    graph, deps, ndeps = ctypes.c_void_p(), ctypes.c_void_p(), \
+        ctypes.c_size_t()
+    if fns[0](stream.cuda_stream, ctypes.byref(status), ctypes.byref(cid),
+              ctypes.byref(graph), ctypes.byref(deps),
+              ctypes.byref(ndeps)) != 0 or not graph.value:
+        return None
+    n = ctypes.c_size_t()
+    if fns[1](graph, None, ctypes.byref(n)) != 0:
+        return None
+    return int(n.value)
+
+
+_T, _S, _C = range(3)   # a leaf's kind: tensor, lifted scalar, constant
+
+
+class _Eager:
+    """A program on the CPU: the body run eagerly, scalars lifted as on
+    the card."""
+
+    __slots__ = ("fn", "spec", "dev", "info")
+
+    def __init__(self, fn, spec, dev):
+        self.fn, self.spec, self.dev = fn, spec, dev
+        self.info: dict = {}
+
+    def run(self, leaves):
+        args, kwargs = pytree.tree_unflatten(
+            [_lift(x, self.dev) for x in leaves], self.spec)
+        return self.fn(*args, **kwargs)
+
+
+class _Graph:
+    """One signature of a program on the card: static inputs, the
+    captured graph and its outputs."""
+
+    def __init__(self, fn, what: str, leaves, spec, dev, donated: set,
+                 names: list):
+        self.fn, self.what, self.spec, self.dev = fn, what, spec, dev
+        self.kinds, self.static = [], []
+        for x in leaves:
+            if isinstance(x, torch.Tensor):
+                self.kinds.append(_T)
+                self.static.append(x.clone())
+            elif isinstance(x, _SCALARS):
+                self.kinds.append(_S)
+                self.static.append(_lift(x, dev))
+            else:
+                self.kinds.append(_C)
+                self.static.append(x)
+        self.donated = [i for i in sorted(donated) if self.kinds[i] == _T]
+        self.names = names
+        self.alias: Optional[List[Tuple[int, int]]] = None
+        self.out_spec = None
+        self.graph = None
+        self.out_leaves: list = []
+        self.fresh: set = set()
+        self.launches: Dict[str, int] = {}
+        self.info: dict = {}
+
+    # -- the body with donation ---------------------------------------
+    def _match(self, out_leaves, out_names) -> List[Tuple[int, int]]:
+        """Pair output leaves with the donated inputs they are written
+        back into, as XLA pairs donated buffers: by shape and dtype, an
+        output that is its input first, then by field name, then in
+        order."""
+        free = list(self.donated)
+        pairs: List[Tuple[int, int]] = []
+        taken = set()
+
+        def spec(t):
+            return (tuple(t.shape), t.dtype)
+
+        for oi, o in enumerate(out_leaves):
+            for di in free:
+                if o is self.static[di]:
+                    pairs.append((oi, di))
+                    taken.add(oi)
+                    free.remove(di)
+                    break
+        for by_name in (True, False):
+            for oi, o in enumerate(out_leaves):
+                if oi in taken or not isinstance(o, torch.Tensor):
+                    continue
+                for di in free:
+                    if spec(o) == spec(self.static[di]) and (
+                            not by_name or (out_names[oi] is not None and
+                                            out_names[oi] ==
+                                            self.names[di])):
+                        pairs.append((oi, di))
+                        taken.add(oi)
+                        free.remove(di)
+                        break
+        return pairs
+
+    def body(self):
+        args, kwargs = pytree.tree_unflatten(self.static, self.spec)
+        out = self.fn(*args, **kwargs)
+        if self.alias is None:
+            flat = pytree.tree_flatten_with_path(out)[0]
+            out_names = [_path_name(p, ()) for p, _ in flat]
+            out_leaves, out_spec = pytree.tree_flatten(out)
+            self.alias = self._match(out_leaves, out_names)
+            self.out_spec = out_spec
+        else:
+            out_leaves, out_spec = pytree.tree_flatten(out)
+            if out_spec != self.out_spec:
+                raise CaptureError(f"{self.what}: the body's output "
+                                   f"structure changed between runs")
+        # write the carried tensors back into the donated inputs; a
+        # source that is (a view of) a donated input is copied first,
+        # so no write-back reads a buffer another one has overwritten
+        held = {self.static[di].untyped_storage().data_ptr()
+                for di in self.donated}
+        srcs = {}
+        for oi, di in self.alias:
+            o = out_leaves[oi]
+            if o is self.static[di]:
+                continue
+            srcs[oi] = o.clone() if o.untyped_storage().data_ptr() in held \
+                else o
+        for oi, di in self.alias:
+            if oi in srcs:
+                self.static[di].copy_(srcs[oi])
+            out_leaves[oi] = self.static[di]
+        return out_leaves
+
+    def _own(self, out_leaves) -> list:
+        """Outputs the caller may keep: a clone of any that is a static
+        input not written back (the next call overwrites it)."""
+        mine = {t.untyped_storage().data_ptr()
+                for t, k in zip(self.static, self.kinds) if k != _C}
+        aliased = {oi for oi, _ in self.alias}
+        return [o.clone() if i not in aliased and
+                isinstance(o, torch.Tensor) and
+                o.untyped_storage().data_ptr() in mine else o
+                for i, o in enumerate(out_leaves)]
+
+    # -- the first call: warm-up, then capture ------------------------
+    def warm_up(self):
+        """The body once, eagerly, on a side stream with synchronising
+        operations made errors; its outputs are the first call's."""
+        cur = torch.cuda.current_stream(self.dev)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(cur)
+        prev = torch.cuda.get_sync_debug_mode()
+        try:
+            with torch.cuda.device(self.dev), torch.cuda.stream(side):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out_leaves = self.body()
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+        except RuntimeError as e:
+            if "synchronizing" in str(e):
+                raise CaptureError(f"{self.what}: the body synchronises "
+                                   f"with the host, which a CUDA graph "
+                                   f"cannot hold: {e}") from e
+            e.add_note(f"in the warm-up of {self.what}")
+            raise
+        cur.wait_stream(side)
+        return self._own(out_leaves)
+
+    def capture(self) -> None:
+        from ..engine import _ext
+
+        torch.cuda.synchronize(self.dev)
+        n0 = dict(_ext.LAUNCHES)
+        r0 = torch.cuda.memory_reserved(self.dev)
+        cur = torch.cuda.current_stream(self.dev)
+        cs = torch.cuda.Stream(self.dev)
+        cs.wait_stream(cur)
+        g = torch.cuda.CUDAGraph()
+        nodes = None
+        try:
+            with torch.cuda.device(self.dev), torch.cuda.stream(cs):
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out_leaves = self.body()
+                    nodes = _capture_nodes(cs)
+                except BaseException as e:
+                    try:
+                        g.capture_end()
+                    except Exception:
+                        pass
+                    raise CaptureError(f"{self.what}: the capture "
+                                       f"failed: {e}") from e
+                try:
+                    g.capture_end()
+                except Exception as e:
+                    raise CaptureError(f"{self.what}: the graph did not "
+                                       f"instantiate: {e}") from e
+        finally:
+            self.launches = {k: v - n0[k] for k, v in _ext.LAUNCHES.items()
+                             if v != n0[k]}
+            _ext.LAUNCHES.update(n0)    # captured, not launched
+        cur.wait_stream(cs)
+        self.graph = g
+        self.out_leaves = out_leaves
+        aliased = {oi for oi, _ in self.alias}
+        self.fresh = {i for i, o in enumerate(out_leaves)
+                      if i not in aliased and isinstance(o, torch.Tensor)}
+        arg = sum(_nbytes(t) for t, k in zip(self.static, self.kinds)
+                  if k != _C)
+        pool = torch.cuda.memory_reserved(self.dev) - r0
+        self.info = {
+            "graph_nodes": nodes, "launches": dict(self.launches),
+            "memory_analysis": {
+                "argument_bytes": arg,
+                "output_bytes": sum(_nbytes(o) for o in out_leaves
+                                    if isinstance(o, torch.Tensor)),
+                "alias_bytes": sum(_nbytes(self.static[di])
+                                   for _, di in self.alias),
+                "pool_bytes": pool, "total_bytes": arg + pool}}
+
+    # -- later calls ----------------------------------------------------
+    def run(self, leaves):
+        st, kinds = self.static, self.kinds
+        for i, x in enumerate(leaves):
+            k = kinds[i]
+            if k == _T:
+                if x.data_ptr() != st[i].data_ptr():
+                    st[i].copy_(x)
+            elif k == _S:
+                st[i].fill_(x)
+        self.graph.replay()
+        if self.launches:
+            from ..engine import _ext
+
+            for name, d in self.launches.items():
+                _ext.LAUNCHES[name] += d
+        fresh = self.fresh
+        return pytree.tree_unflatten(
+            [o.clone() if i in fresh else o
+             for i, o in enumerate(self.out_leaves)], self.out_spec)
+
+
+class InstrumentedJit:
+    """A captured program: ``fn`` (the body) under one cache entry.  On
+    the card, the first call of an argument signature runs the body once
+    (the warm-up, whose result it returns) and captures it as a CUDA
+    graph; every later call of that signature replays the graph.  A new
+    signature on the entry is a new capture, recorded as a retrace with
+    its diff.  ``donate_argnums`` is JAX's: the body ends by writing the
+    carried tensors of those arguments back into their static inputs and
+    returns those, so a chain of donated calls copies nothing in and a
+    returned tensor stays valid until the next call; any other output is
+    the caller's own (a clone of the graph's).  Kernel launch counts
+    (``engine/_ext.py`` ``LAUNCHES``) taken at capture are added on
+    every replay.  On CPU tensors the program is the body run eagerly.
+    ``fn`` is the eager body (the JAX wrapper's ``jitted``)."""
+
+    __slots__ = ("fn", "cache", "entry", "donate_argnums", "_argnames",
+                 "_programs", "_mtx", "__weakref__")
+
+    def __init__(self, fn, *, cache: str, entry: Any,
+                 donate_argnums=()):
+        self.fn = fn
+        self.cache = cache
+        self.entry = _entry_str(entry)
+        self.donate_argnums = tuple(sorted({int(i) for i in
+                                            donate_argnums}))
+        self._argnames = _argnames(fn)
+        self._programs: Dict[tuple, Any] = {}
+        self._mtx = threading.RLock()
+        _ALL_PROGRAMS.add(self)
+
+    def clear_compiled(self) -> None:
+        with self._mtx:
+            self._programs.clear()
+
+    def captures(self) -> List[dict]:
+        """One dict a captured signature: its graph's node count, the
+        kernel launches replayed a call, and its memory analysis."""
+        with self._mtx:
+            return [dict(p.info) for p in self._programs.values()]
+
+    def __call__(self, *args, **kwargs):
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        sig = (spec, tuple(map(_leaf_spec, leaves)))
+        prog = self._programs.get(sig)
+        if prog is None:
+            with self._mtx:
+                prog = self._programs.get(sig)
+                if prog is None:
+                    prog, out = self._first_call(leaves, spec, args, kwargs)
+                    self._programs[sig] = prog
+                    return out
+        return prog.run(leaves)
+
+    def _donated_leaves(self, args) -> set:
+        out, off = set(), 0
+        for i, a in enumerate(args):
+            n = len(pytree.tree_leaves(a))
+            if i in self.donate_argnums:
+                out.update(range(off, off + n))
+            off += n
+        return out
+
+    def _first_call(self, leaves, spec, args, kwargs):
+        pl = _PLANE
+        dev = _program_device(leaves)
+        paths = pytree.tree_flatten_with_path((args, kwargs))[0]
+        tracer = pl.tracer if pl.enabled else None
+        with _span(tracer, f"compile.{self.cache}", "compile"):
+            t0 = pl.clock_ns()
+            if dev.type != "cuda":
+                prog = _Eager(self.fn, spec, dev)
+                out = prog.run(leaves)
+                t1 = t2 = pl.clock_ns()
+            else:
+                prog = _Graph(self.fn, f"program {self.cache} {self.entry}",
+                              leaves, spec, dev, self._donated_leaves(args),
+                              [_path_name(p, self._argnames)
+                               for p, _ in paths])
+                out_leaves = prog.warm_up()
+                t1 = pl.clock_ns()
+                prog.capture()
+                t2 = pl.clock_ns()
+                out = pytree.tree_unflatten(out_leaves, prog.out_spec)
+        prog.info.update(lower_ms=(t1 - t0) / 1e6, compile_ms=(t2 - t1) / 1e6)
+        if pl.enabled:
+            rec = pl.record_compile(
+                self.cache, self.entry, lower_ns=t1 - t0,
+                compile_ns=t2 - t1, cost={},
+                hbm=prog.info.get("memory_analysis", {}),
+                path_specs={pytree.keystr(p): _leaf_spec_readable(x)
+                            for p, x in paths})
+            if tracer is not None:
+                tracer.instant(f"compile.{self.cache}.record", "compile",
+                               **rec)
+        return prog, out
+
+
+def instrumented_jit(fn, *, cache: str, entry: Any,
+                     donate_argnums=()) -> InstrumentedJit:
+    """The module-cache building block:
+    ``_CACHE[key] = instrumented_jit(fn, cache="stream.chunk",
+    entry=key)``, the JAX package's ``instrumented_jit`` for a captured
+    program."""
+    return InstrumentedJit(fn, cache=cache, entry=entry,
+                           donate_argnums=donate_argnums)
+
+
+def aot_record(cache: str, entry: Any, fn, *args, donate_argnums=(),
+               **kwargs) -> InstrumentedJit:
+    """Bench's ahead-of-time discipline: a fresh program of ``fn`` under
+    ``(cache, entry)``, captured now on ``args`` (and ``kwargs``) as its
+    first call would capture it, that call's result dropped, so the
+    first call the caller times is a replay.  The warm-up runs the body
+    once on copies of the arguments, which it does not change."""
+    prog = InstrumentedJit(fn, cache=cache, entry=entry,
+                           donate_argnums=donate_argnums)
+    prog(*args, **kwargs)
+    return prog

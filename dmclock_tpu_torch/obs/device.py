@@ -83,8 +83,12 @@ _HWM_MASK[list(_HWM_ROWS)] = True
 
 @functools.lru_cache(maxsize=8)
 def _hwm_mask(device: torch.device) -> torch.Tensor:
-    """The max-rows mask on ``device``, copied there once."""
-    return torch.from_numpy(_HWM_MASK).to(device)
+    """The max-rows mask on ``device``, made there once
+    (:func:`obs.histograms.col_mask`: no copy from the host, so a
+    program's warm-up may be its first use)."""
+    from .histograms import col_mask
+
+    return col_mask(NUM_METRICS, _HWM_ROWS, device)
 
 
 def metrics_zero(device: str | torch.device = DEFAULT_DEVICE

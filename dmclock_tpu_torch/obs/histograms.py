@@ -232,10 +232,12 @@ _LED_MAX_MASK[LED_TARD_MAX] = True
 @functools.lru_cache(maxsize=32)
 def col_mask(width: int, cols: tuple, device: torch.device) -> torch.Tensor:
     """A bool ``[width]`` mask with ``cols`` set, made on ``device`` by
-    fills (no copy from the host); cached per device."""
+    comparisons with Python ints (no copy from the host, so a program's
+    warm-up may be its first use); cached per device."""
+    iota = torch.arange(width, device=device)
     m = torch.zeros((width,), dtype=torch.bool, device=device)
     for c in cols:
-        m[c] = True
+        m |= iota == c
     return m
 
 

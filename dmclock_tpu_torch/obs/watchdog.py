@@ -15,15 +15,14 @@ still going:
 - **dispatch share**: over the last judged window, host ``dispatch``
   self-time exceeds ``dispatch_share_warn`` of the
   dispatch+device_compute total -- the run pays more to launch work
-  than to do it.
-
-The JAX package's third rule, the retrace storm, reads its compile
-plane's retrace events.  The port has a compile plane too
-(``obs/compile_plane.py``), but it records only the kernel library's
-build, one entry that is never rebuilt: nothing is specialised per
-shape, so its ``retraces`` is 0 by construction and a storm cannot
-happen.  The rule is absent here and ``compile_plane`` accepts only
-``None`` (anything else raises ``ValueError``).
+  than to do it;
+- **retrace storm** (when a ``compile_plane`` is attached,
+  ``obs/compile_plane.py``): one program's cache entry captured again
+  >= ``retrace_storm_k`` times inside ``retrace_window_s`` -- an
+  argument signature is churning (a shape bug, an un-padded dynamic
+  dimension) and every churn pays a warm-up and a capture.  First
+  captures are not retraces, so capturing each chunk length ahead of
+  the timed chains can never fire this.
 
 Warnings are structured: one JSON line on ``log`` (default stderr,
 prefixed ``# watchdog:``), a bump of the
@@ -59,10 +58,7 @@ class Watchdog:
     run is dispatch-tax-bound.  ``min_window_ns`` gates the share
     check on enough observed time to be meaningful.  ``clock_ns`` is
     injectable for deterministic tests (must be the same clock domain
-    as the tracer's).  ``compile_plane``, ``retrace_storm_k`` and
-    ``retrace_window_s`` keep the JAX package's signature; the plane
-    must be ``None`` (the port never retraces, so the retrace-storm
-    rule has nothing to watch)."""
+    as the tracer's, and the attached ``compile_plane``'s)."""
 
     def __init__(self, tracer: SpanTracer, *,
                  interval_s: float = 1.0,
@@ -77,11 +73,6 @@ class Watchdog:
                  log: Callable[[str], None] = _stderr_log,
                  clock_ns: Callable[[], int] =
                  _walltime.perf_counter_ns):
-        if compile_plane is not None:
-            raise ValueError(
-                "compile_plane must be None: the port compiles nothing "
-                "per shape and never retraces, so the retrace-storm rule "
-                "of the JAX watchdog has nothing to watch")
         self.tracer = tracer
         self.interval_s = float(interval_s)
         self.stall_after_ns = int(stall_after_s * 1e9)
@@ -114,10 +105,15 @@ class Watchdog:
         # not vanish from it
         self._share_prev = tracer.category_totals()
         self._share_prev_count = dict(self._prev_count)
+        # retrace-storm check: the plane's event clock must share this
+        # watchdog's clock domain (both default perf_counter_ns; tests
+        # inject one fake into both)
+        self._cplane = compile_plane
         self.retrace_storm_k = int(retrace_storm_k)
         self.retrace_window_ns = int(retrace_window_s * 1e9)
         self._stall_warned = False
         self._share_warned = False
+        self._retrace_warned = False
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -197,6 +193,30 @@ class Watchdog:
             self._share_prev = totals
             self._share_prev_count = counts
         self._prev_count = counts
+
+        # retrace storm: the SAME cache entry captured again >= K times
+        # in the window.  First captures never count (a retrace is the
+        # second and later signature on one entry), so capturing each
+        # chunk length ahead of the chains is invisible here.  Once per
+        # episode; a window with no entry at storm level re-arms.
+        if self._cplane is not None and self.retrace_storm_k > 0:
+            lo = now_ns - self.retrace_window_ns
+            per: dict = {}
+            for t_ns, entry in self._cplane.retrace_events():
+                if t_ns >= lo:
+                    per[entry] = per.get(entry, 0) + 1
+            worst = max(per.items(), key=lambda kv: kv[1],
+                        default=(None, 0))
+            if worst[1] >= self.retrace_storm_k:
+                if not self._retrace_warned:
+                    out.append({"kind": "retrace_storm",
+                                "entry": worst[0],
+                                "retraces": worst[1],
+                                "window_s":
+                                    self.retrace_window_ns / 1e9})
+                self._retrace_warned = True
+            else:
+                self._retrace_warned = False
 
         for w in out:
             self.warnings.append(w)

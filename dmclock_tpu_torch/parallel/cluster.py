@@ -24,7 +24,7 @@ counter sum reduces within each group and then between the groups, as
 the JAX package's ``shard_map`` over a ``servers`` mesh of devices
 does.  The JAX package's jit caches (:func:`mesh_cache_key`,
 :func:`mesh_step_jit`, :func:`jit_mesh_rounds`) keep their names and
-cost nothing to build: nothing is compiled per shape.
+are not yet captured: the steps run op by op (ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -601,7 +601,8 @@ def mesh_step_jit(cache: dict, step_fn, mesh: MeshLayout, cfg: tuple):
     (decisions_per_step, max_arrivals, anticipation_ns,
     allow_limit_break, advance_ns), cached in ``cache`` per
     :func:`mesh_cache_key`.  The JAX package compiles a program here;
-    the port binds the arguments (nothing is compiled per shape)."""
+    the port binds the arguments: the step is not yet captured
+    (ROADMAP.md section 1)."""
     key = mesh_cache_key(mesh, cfg)
     if key not in cache:
         (decisions_per_step, max_arrivals, anticipation_ns,

@@ -351,8 +351,8 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
     return chunk
 
 
-# The JAX package's jit cache of mesh chunks; nothing is compiled here
-# and a closure costs nothing to build, so the name is the builder.
+# The JAX package's jit cache of mesh chunks; the mesh chunk is not yet
+# captured (ROADMAP.md section 1), so the name is the build function.
 jit_mesh_chunk = build_mesh_chunk
 
 

@@ -30,8 +30,11 @@ minstop, radix -> sort, tag32 -> tag64).  The ladder never sees a CUDA
 error: those are not in :data:`RECOVERABLE_ERRORS`, so they propagate
 out of the job and nothing steps down for them.
 
-The JAX package's per-configuration jit caches (``_jit_epoch``,
-``_jit_serial``) have no counterpart: nothing is compiled per shape.
+The stream chunk and its ingest leg run as captured programs
+(``engine.stream`` ``jit_stream_chunk``, ``jit_ingest_step``).  The JAX
+package's per-configuration jit caches of the epoch paths
+(``_jit_epoch``, ``_jit_serial``, ``_PRESSURE_PROBE_JIT``) are not yet
+captured: those paths run op by op (ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -329,7 +332,7 @@ def run_stream_chunk_guarded(state, epoch0: int, counts, *,
       chunk T.
     - A guard trip anywhere in the chunk (tag32 window, order/cost
       rebase, calendar no-progress) discards the whole chunk and re-runs
-      its epochs one by one through ``stream.ingest_step`` and
+      its epochs one by one through ``stream.jit_ingest_step`` and
       :func:`run_epoch_guarded`, from the entry state and the entry
       telemetry, which the chunk never writes in place.
       ``stream_fallback`` reports it.
@@ -346,14 +349,14 @@ def run_stream_chunk_guarded(state, epoch0: int, counts, *,
 
     epochs = int(epochs)
     do_ingest = counts is not None
-    fn = stream_mod.build_stream_chunk(
+    fn = stream_mod.jit_stream_chunk(
         engine=engine, epochs=epochs, m=m, k=k, chain_depth=chain_depth,
         dt_epoch_ns=dt_epoch_ns, waves=waves,
         anticipation_ns=anticipation_ns,
         allow_limit_break=allow_limit_break, with_metrics=with_metrics,
         select_impl=select_impl, tag_width=tag_width, window_m=window_m,
         calendar_impl=calendar_impl, ladder_levels=ladder_levels,
-        ingest=do_ingest)
+        ingest=do_ingest, donate=False)
     retry_count = [0]
 
     def count_retry(attempt, exc):
@@ -405,16 +408,16 @@ def run_stream_chunk_guarded(state, epoch0: int, counts, *,
     # for bit, the tripped one resumes as the round loop would
     _spans.instant(tracer, "stream.fallback", "retry", engine=engine,
                    epochs=epochs)
+    ingest_step = stream_mod.jit_ingest_step(
+        dt_epoch_ns=dt_epoch_ns, waves=waves) if do_ingest else None
     st = state
     cur = {"hists": hists, "ledger": ledger, "flight": flight,
            "slo": slo, "prov": prov}
     ep_rows, count_rows, trip_rows = [], [], []
     for i in range(epochs):
         t_base = (int(epoch0) + i) * int(dt_epoch_ns)
-        if do_ingest:
-            st = stream_mod.ingest_step(st, counts_dev[i], t_base,
-                                        dt_epoch_ns=dt_epoch_ns,
-                                        waves=waves)
+        if ingest_step is not None:
+            st = ingest_step(st, counts_dev[i], t_base)
         ep = run_epoch_guarded(
             st, t_base + int(dt_epoch_ns), engine=engine, m=m, k=k,
             chain_depth=chain_depth, anticipation_ns=anticipation_ns,
@@ -867,7 +870,7 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
                            on_retry=None, tracer=None,
                            _retries_so_far: int = 0) -> MeshGuarded:
     """The host loop: one mesh chunk's epochs epoch-major and shard-minor
-    on the per-epoch path (``stream.ingest_step`` and
+    on the per-epoch path (``stream.jit_ingest_step`` and
     :func:`run_epoch_guarded` on each shard's view ``x[s]``), with the
     counter-view sum taken on the host on the same global sync grid and,
     with ``faults``, the in-chunk fault semantics of
@@ -930,6 +933,8 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
         press_np = np.zeros((n_shards, obsprov.PRESS_FIELDS),
                             dtype=np.int64)
     dt = int(dt_epoch_ns)
+    ingest_step = stream_mod.jit_ingest_step(
+        dt_epoch_ns=dt, waves=waves) if counts is not None else None
     ep_rows, count_rows, trip_rows = [], [], []
     for i in range(epochs):
         t_base = (int(epoch0) + i) * dt
@@ -968,10 +973,8 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
                     engine, sts[s], m, neutral_kw,
                     _fault_met_vec(dropout, restart, perturb)),))
                 continue
-            if counts is not None:
-                sts[s] = stream_mod.ingest_step(
-                    sts[s], counts[s][i], t_base + skew, dt_epoch_ns=dt,
-                    waves=waves)
+            if ingest_step is not None:
+                sts[s] = ingest_step(sts[s], counts[s][i], t_base + skew)
             if press_np is not None:
                 # the fused chunk's probe: post-ingest, pre-serve, at
                 # the shard's (skewed) serve time

@@ -1265,10 +1265,12 @@ def _round_epochs(run: _Run) -> None:
                     job.churn, epoch)).astype(np.int32)
                 counts = torch.from_numpy(
                     run.clamp(plane.map_counts(raw))).to(dev)
-                run.state = stream_mod.ingest_step(
-                    run.state, counts, t_base,
-                    dt_epoch_ns=job.dt_epoch_ns, waves=job.waves)
+                run.state = stream_mod.jit_ingest_step(
+                    dt_epoch_ns=job.dt_epoch_ns, waves=job.waves)(
+                        run.state, counts, t_base)
         elif job.arrival_lam > 0:
+            # the JAX package's ``_jit_ingest``: not yet captured, this
+            # leg runs op by op (ROADMAP.md section 1)
             with _spans.span(run.tracer, "supervisor.ingest", "ingest"):
                 headroom = job.ring - run.state.depth.cpu().numpy() \
                     .astype(np.int64)

@@ -46,7 +46,13 @@ SLO block rolled once a chain into the burn-rate verdict, the derived
 scalars, the conformance rounds and table, the windowed latency rounds
 and the telemetry and provenance tails; ``frontier`` sweeps cfg4 over
 its batch count with bench's ``--target-latency`` pick
-(``frontier_pick``).
+(``frontier_pick``).  Bench's rows run as bench compiles them: each
+captures its program once (``obs/compile_plane.py`` ``aot_record``, a
+CUDA graph on the card) and replays it, ``serve_row`` its epoch
+(``bench.serve``), ``sustained_row`` its round (``bench.round``,
+:func:`round_program`, calibration included) and stream chunks
+(``bench.chunk``); ``cfg3_stream``/``cfg4_stream`` replay
+``engine.stream.jit_stream_chunk`` with the state donated.
 
 ``serve_queue`` drives the pull queue API (``engine.queue``) at cfg3's
 population, 10,000 clients, through the exact serial engine (no K1 or
@@ -133,7 +139,8 @@ from .engine.push_queue import TpuPushPriorityQueue
 from .engine.queue import TpuPullPriorityQueue
 from .engine.state import FIELD_DTYPES, EngineState, _FRESH_FILLS, init_state
 from .engine.stream import (STREAM_GUARD_FIELD, STREAM_OUT_FIELDS,
-                            build_stream_chunk, ingest_step)
+                            build_stream_chunk, jit_ingest_step,
+                            jit_stream_chunk)
 from .lifecycle import (LifecyclePlane, SlotMap, lam_vector, make_spec,
                         mount_admin_api, static_variant)
 from .lifecycle.plane import canon_results
@@ -290,10 +297,11 @@ def serve_only(n: int = 100_000, depth: int = 320, k: int = 65536,
                         tag_width=tag_width, window_m=window_m)
 
 
-def _timed_serve_chain(state: EngineState, epochs: int, knobs: dict,
+def _timed_serve_chain(state: EngineState, epochs: int, run,
                        tracer=None):
-    """Bench's ``_timed_chain``: ``epochs`` prefix epochs launched back
-    to back and one synchronisation at the end; returns ``(state,
+    """Bench's ``_timed_chain``: ``epochs`` replays of the captured epoch
+    ``run`` (``(state, now) -> PrefixEpoch``, the state donated) launched
+    back to back and one synchronisation at the end; returns ``(state,
     decisions, wall_s, guards_ok, metrics)``.  Every epoch's guards are
     read (a trip mid-chain zeroes that epoch's counts), and the counts
     and metrics are read back after the clock stops."""
@@ -301,7 +309,7 @@ def _timed_serve_chain(state: EngineState, epochs: int, knobs: dict,
     counts, guards, mets = [], [], []
     for _ in range(epochs):
         with obsspans.span(tracer, "bench.epoch", "dispatch"):
-            ep = scan_prefix_epoch(state, 0, anticipation_ns=0, **knobs)
+            ep = run(state, 0)
             state = ep.state
             counts.append(ep.count)
             guards.append(ep.guards_ok)
@@ -340,7 +348,9 @@ def serve_row(k: int = 65536, m: int = 32, *, epochs_lo: int = 3,
     one epoch on the preloaded state, after the timed chains) and the
     capacity record (``projected_hbm_bytes``, the compile plane's
     ``compile_ms_total`` and ``retraces`` over the row, ``roofline`` and
-    ``bound_class``)."""
+    ``bound_class``).  Every epoch is a replay of bench's ``bench.serve``
+    program, ``scan_prefix_epoch`` with the state donated, captured once
+    for the row (``compile_plane.aot_record``) before the first chain."""
     dev = resolve_device(device)
     cp0 = compile_plane.plane().totals()
     state = _preloaded_state(n, depth, ring=depth, device=dev)
@@ -353,6 +363,11 @@ def serve_row(k: int = 65536, m: int = 32, *, epochs_lo: int = 3,
     knobs = dict(m=m, k=k, with_metrics=with_metrics,
                  select_impl=select_impl, tag_width=tag_width,
                  window_m=window_m)
+    run = compile_plane.aot_record(
+        "bench.serve", (n, k, m, depth, select_impl, tag_width, window_m,
+                        with_metrics),
+        functools.partial(scan_prefix_epoch, anticipation_ns=0, **knobs),
+        state, 0, donate_argnums=(0,))
     lat = scalar_latency(dev)
     rates, total_d, total_pot = [], 0, 0
     met = np.zeros(obsdev.NUM_METRICS, dtype=np.int64)
@@ -362,11 +377,11 @@ def serve_row(k: int = 65536, m: int = 32, *, epochs_lo: int = 3,
     for rep in range(max(reps, 1)):
         if rep:
             state = _preloaded_state(n, depth, ring=depth, device=dev)
-        state, _, w0, _, _ = _timed_serve_chain(state, 1, knobs, tracer)
+        state, _, w0, _, _ = _timed_serve_chain(state, 1, run, tracer)
         state, d_lo, t_lo, g1, m1 = _timed_serve_chain(
-            state, epochs_lo, knobs, tracer)
+            state, epochs_lo, run, tracer)
         state, d_hi, t_hi, g2, m2 = _timed_serve_chain(
-            state, epochs_hi, knobs, tracer)
+            state, epochs_hi, run, tracer)
         assert g1 and g2, "rebase guards tripped -- untrustworthy"
         met = obsdev.metrics_combine_np(met, m1, m2)
         wall_total += w0 + t_lo + t_hi
@@ -392,6 +407,7 @@ def serve_row(k: int = 65536, m: int = 32, *, epochs_lo: int = 3,
         out["device_metrics"] = obsdev.metrics_dict(met)
     # one launch counted on the preloaded state, outside every timed
     # chain and span
+    del state, run
     fresh = _preloaded_state(n, depth, ring=depth, device=dev)
     out["cost_analysis"] = compile_plane.count_launch(
         lambda: scan_prefix_epoch(fresh, 0, anticipation_ns=0, **knobs))
@@ -608,12 +624,15 @@ class Sustained(NamedTuple):
     cal_rounds: int         # warm + calibration rounds run
     resv_rates: np.ndarray  # float64[n] calibrated reservation rates
     rng: np.random.Generator  # the arrival stream after the timed draws
+    program: object = None  # the row's captured round (round_program)
 
 
 def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
                       *, calendar_impl: str = "minstop",
                       m: int | None = None, steps: int | None = None,
-                      shape: dict | None = None, tracer=None,
+                      shape: dict | None = None, telemetry: bool = True,
+                      slo: bool = True, provenance: bool = True,
+                      tracer=None,
                       device: str | torch.device = DEFAULT_DEVICE
                       ) -> Sustained:
     """Bench's calibration (``bench_sustained``, in its order), then every
@@ -624,8 +643,12 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
     reservation floor plus the weight share of the surplus); then
     ``cal_iters`` iterations (1, or 5 with a calendar or a reservation-
     share target) of two rounds each, ``t_base`` advancing a round at a
-    time.  Each iteration gathers per-client service (the calendar's
-    ``served`` vector; the prefix rounds' committed slots) and sets
+    time.  Every round is a replay of the row's captured round
+    (:func:`round_program`, captured before the warm round), with zeroed
+    accumulators of the row's ``telemetry``, ``slo`` and ``provenance``
+    riding it as bench's do, their counts then dropped.  Each iteration
+    gathers per-client service (the calendar's ``served`` vector; the
+    prefix rounds' committed slots) and sets
     ``lam = min(served / 2, waves - 1)``, raised by the load probe when
     the queues drained below 0.75 ``depth0`` and cut by the overload
     back-off above 1.5 ``depth0`` (neither in the last iteration); a
@@ -633,8 +656,8 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
     ``clip((target / share) ** 0.6, 0.33, 3)`` and writes their inverses
     into the state.  The timed rounds' draws come next on the same
     stream, from the calibrated ``lam``.  The calibration rounds read
-    their decisions back (untimed); no telemetry rides them, as bench
-    discards it.  ``calendar_impl`` picks cfg4's scheme; ``shape``,
+    their decisions back (untimed).  ``calendar_impl`` picks cfg4's
+    scheme; ``shape``,
     ``m`` and ``steps`` override the row's shape (:func:`_row_cfg`).
     With a span ``tracer`` every round is a ``serve.round`` dispatch
     span.  Later draws (the conformance and latency rounds) continue on
@@ -656,12 +679,21 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
     def draw():
         return np.minimum(rng.poisson(lam), waves).astype(np.int32)
 
-    round_fn, eng_kw = _round_body(workload, c, calendar_impl)
+    cal_tele = Tele(
+        hists=obshist.hist_zero(dev) if telemetry else None,
+        ledger=obshist.ledger_zero(n, dev) if telemetry else None,
+        slo=obsslo.window_zero(n, dev) if slo else None,
+        prov=obsprov.prov_init(n, 0, dev) if provenance else None)
+    program = round_program(workload, n, c, calendar_impl, state, cal_tele,
+                            telemetry=telemetry, slo=slo)
 
     def one_round(st, t_base):
+        nonlocal cal_tele
         counts = torch.from_numpy(draw()).to(dev)
         with obsspans.span(tracer, "serve.round", "dispatch"):
-            return round_fn(st, counts, t_base, **eng_kw)
+            ep = program(st, counts, t_base, cal_tele)
+        cal_tele = _tele_of(ep)
+        return ep
 
     state = one_round(state, 0).state
     t_base = dt
@@ -708,7 +740,7 @@ def sustained_prepare(workload: str, n: int, rounds: int, seed: int = 11,
         .to(dev)
     return Sustained(state=state, draws=draws, t0=int(t_base), lam=lam,
                      resv_share=share, cal_rounds=1 + 2 * cal_iters,
-                     resv_rates=resv_rates, rng=rng)
+                     resv_rates=resv_rates, rng=rng, program=program)
 
 
 def _round_body(workload: str, c: dict, calendar_impl: str):
@@ -721,6 +753,38 @@ def _round_body(workload: str, c: dict, calendar_impl: str):
                                     ladder_levels=c["ladder_levels"],
                                     calendar_impl=calendar_impl)
     return prefix_round, dict(base, k=c["k"], select_impl=c["select_impl"])
+
+
+def round_entry(workload: str, n: int, c: dict, calendar_impl: str, *,
+                telemetry: bool, slo: bool):
+    """``(entry, body)`` of bench's ``bench.round`` program for the row's
+    shape ``c``: bench's entry tuple (its ``wheel_kernel`` slot reads
+    ``"cuda"``: K2 has one route here) and the round body of
+    :func:`_round_body` as ``(state, counts, t_base, tele) -> epoch``."""
+    round_fn, eng_kw = _round_body(workload, c, calendar_impl)
+    calendar = workload == "cfg4"
+    entry = (n, c.get("k", 0), c["m"], c["ring"],
+             "calendar" if calendar else "prefix",
+             c.get("select_impl", "sort"), calendar_impl,
+             c["steps"] if calendar else 0, c.get("ladder_levels", 8),
+             "cuda", 1, telemetry, slo, True)
+
+    def round_body(state, counts, t_base, tele):
+        return round_fn(state, counts, t_base, tele=tele, **eng_kw)
+
+    return entry, round_body
+
+
+def round_program(workload: str, n: int, c: dict, calendar_impl: str,
+                  state: EngineState, tele, *, telemetry: bool, slo: bool):
+    """Bench's ``bench.round`` program (:func:`round_entry`), captured
+    now (``compile_plane.aot_record``) on ``state``, zero arrivals and
+    ``tele``, with the state and the accumulators donated."""
+    entry, body = round_entry(workload, n, c, calendar_impl,
+                              telemetry=telemetry, slo=slo)
+    zeros = torch.zeros((n,), dtype=torch.int32, device=state.device)
+    return compile_plane.aot_record("bench.round", entry, body, state,
+                                    zeros, 0, tele, donate_argnums=(0, 3))
 
 
 def cfg3_setup(n: int = 10_000, rounds: int = 3, seed: int = 11, *,
@@ -946,9 +1010,9 @@ def _stream_rounds(state, draws, *, cfg: dict, engine: str, t0: int,
     while r < rounds:
         c = min(chunk, rounds - r)
         if c not in chunks:
-            chunks[c] = build_stream_chunk(
+            chunks[c] = jit_stream_chunk(
                 engine=engine, epochs=c, m=cfg["m"], dt_epoch_ns=dt,
-                waves=cfg["waves"], with_metrics=True, **kw)
+                waves=cfg["waves"], with_metrics=True, donate=True, **kw)
         ch = chunks[c](state, t0 // dt + r, draws[r:r + c], tele.hists,
                        tele.ledger, None, tele.slo, tele.prov)
         state = ch.state
@@ -1001,7 +1065,8 @@ def _sustained_run(workload: str, n: int, rounds: int, seed: int, *,
     dev = resolve_device(device)
     prep = sustained_prepare(workload, n, rounds, seed,
                              calendar_impl=kw.get("calendar_impl", "minstop"),
-                             device=dev)
+                             telemetry=telemetry, slo=slo,
+                             provenance=provenance, device=dev)
     plane = slo_plane(workload, n, state=prep.state) if slo else None
     tele = tele_zero(n, telemetry=telemetry, provenance=provenance,
                      plane=plane, t0=prep.t0, device=dev)
@@ -1255,11 +1320,14 @@ def sustained_row(workload: str, n: int | None = None, *,
 
     prep = sustained_prepare(workload, n, n_pre, seed,
                              calendar_impl=calendar_impl, m=m, steps=steps,
-                             shape=shape, tracer=tracer, device=dev)
+                             shape=shape, telemetry=telemetry, slo=slo,
+                             provenance=provenance, tracer=tracer,
+                             device=dev)
     state, draws, t_base = prep.state, prep.draws, prep.t0
     resv_rates = prep.resv_rates
     weights = sustained_qos(workload, n, shape)[1]
     round_fn, eng_kw = _round_body(workload, c, calendar_impl)
+    program = prep.program
 
     def draw():
         return np.minimum(prep.rng.poisson(prep.lam), waves) \
@@ -1276,17 +1344,33 @@ def sustained_row(workload: str, n: int | None = None, *,
     count_from = (tree_map(_host_copy, state), tree_map(_host_copy, tele),
                   t_base)
 
+    # bench's ``bench.chunk`` programs, one a chunk length the chains
+    # use, each captured here on the calibrated state, zero arrivals and
+    # the accumulators (donated), so no capture lands in a timed chain
     chunks = {}
-
-    def chunk_fn(length):
-        if length not in chunks:
-            chunks[length] = build_stream_chunk(
-                engine=engine, epochs=length, m=mb, dt_epoch_ns=dt,
-                waves=waves, with_metrics=True, count_drops=True,
-                **({"k": c["steps"], "calendar_impl": calendar_impl,
-                    "ladder_levels": c["ladder_levels"]} if calendar
-                   else {"k": c["k"], "select_impl": c["select_impl"]}))
-        return chunks[length]
+    if stream_on:
+        for span_len in ((rlo, rounds) if rlo else (rounds,)):
+            for length in {min(stream_chunk, span_len - p)
+                           for p in range(0, span_len, stream_chunk)}:
+                if length in chunks:
+                    continue
+                chunks[length] = compile_plane.aot_record(
+                    "bench.chunk",
+                    (n, c.get("k", 0), mb, c["ring"], engine,
+                     c.get("select_impl", "sort"), calendar_impl,
+                     c["steps"] if calendar else 0, "cuda", telemetry,
+                     slo, True, length),
+                    build_stream_chunk(
+                        engine=engine, epochs=length, m=mb, dt_epoch_ns=dt,
+                        waves=waves, with_metrics=True, count_drops=True,
+                        **({"k": c["steps"], "calendar_impl": calendar_impl,
+                            "ladder_levels": c["ladder_levels"]}
+                           if calendar else
+                           {"k": c["k"], "select_impl": c["select_impl"]})),
+                    state, t_base // dt,
+                    torch.zeros((length, n), dtype=torch.int32,
+                                device=dev), tele.hists, tele.ledger, None,
+                    tele.slo, tele.prov, donate_argnums=(0, 3, 4, 5, 6, 7))
 
     def resv_of(slot, phase):
         return torch.sum((slot >= 0) & (phase == 0), dim=-1)
@@ -1311,10 +1395,10 @@ def sustained_row(workload: str, n: int | None = None, *,
                 cl = min(stream_chunk, hi - pos)
                 with obsspans.span(tracer, "serve.chunk", "dispatch",
                                    rounds=cl):
-                    ch = chunk_fn(cl)(state, t_base // dt,
-                                      draws[pos:pos + cl], tele.hists,
-                                      tele.ledger, None, tele.slo,
-                                      tele.prov)
+                    ch = chunks[cl](state, t_base // dt,
+                                    draws[pos:pos + cl], tele.hists,
+                                    tele.ledger, None, tele.slo,
+                                    tele.prov)
                     state = ch.state
                     tele = Tele(hists=ch.hists, ledger=ch.ledger,
                                 slo=ch.slo, prov=ch.prov)
@@ -1327,8 +1411,7 @@ def sustained_row(workload: str, n: int | None = None, *,
             else:
                 cl = 1
                 with obsspans.span(tracer, "serve.round", "dispatch"):
-                    ep = round_fn(state, draws[pos], t_base, tele=tele,
-                                  **eng_kw)
+                    ep = program(state, draws[pos], t_base, tele)
                     state, tele = ep.state, _tele_of(ep)
                     cnts.append(ep.count)
                     rss.append(ep.resv_count if calendar
@@ -1440,7 +1523,7 @@ def sustained_row(workload: str, n: int | None = None, *,
     def untimed_round(counts):
         nonlocal state, t_base, tele
         with obsspans.span(tracer, "serve.round", "dispatch"):
-            ep = round_fn(state, counts, t_base, tele=tele, **eng_kw)
+            ep = program(state, counts, t_base, tele)
             state, tele = ep.state, _tele_of(ep)
         t_base += dt
         return ep
@@ -2045,6 +2128,7 @@ def churn_row(scenario: str = "flash_crowd", *,
         slo_eval = SloEvaluator(slo_plane, log=lambda _line: None)
         slo_block = obsslo.window_zero(spec["capacity0"], dev)
         plane.attach_slo(slo_plane)
+    ingest = jit_ingest_step(dt_epoch_ns=dt_epoch_ns, waves=waves)
     rng = np.random.Generator(np.random.PCG64(seed))
     boost_at = max((epochs // 2 // every) * every, every)
 
@@ -2124,8 +2208,7 @@ def churn_row(scenario: str = "flash_crowd", *,
             raw = rng.poisson(lam_vector(spec, e)).astype(np.int32)
             with obsspans.span(tracer, "bench.round", "dispatch"):
                 counts = torch.from_numpy(plane.map_counts(raw)).to(dev)
-                state = ingest_step(state, counts, t_base,
-                                    dt_epoch_ns=dt_epoch_ns, waves=waves)
+                state = ingest(state, counts, t_base)
                 ep = run_epoch_guarded(
                     state, t_base + dt_epoch_ns, engine=engine, m=m,
                     k=k, with_metrics=True, hists=hists,

@@ -6,7 +6,9 @@ Both sessions run the same mode at bench's CPU shapes (the JAX one on
 its CPU backend, the port with ``--device cpu``; the mesh over four CPU
 groups in the port).  Held: the line's key set (the port's ``device``
 in), every field that does not read the wall clock or is measured
-differently, the metric text with its
+differently, bench's programs in the compile planes (``bench.serve``,
+``bench.round`` and ``bench.chunk``: equal compiles and retraces, no
+dispatch fallback), the metric text with its
 rates masked, ``vs_baseline == round(value / 1e7, 4)``, and the
 "skipped" lines.  Then the session's own contract: a failing row prints
 bench's error line and exits non-zero; a guard trip steps radix to sort
@@ -20,8 +22,10 @@ import re
 import pytest
 
 import bench
+from dmclock_tpu.obs import compile_plane as jcp
 from dmclock_tpu_torch import bench as tbench
 from dmclock_tpu_torch import serve as tserve
+from dmclock_tpu_torch.obs import compile_plane as tcp
 
 # keys that read the wall clock (rates, walls, latencies), and the
 # capacity fields the two packages measure differently (PERF.md: the
@@ -45,6 +49,8 @@ JAX_ONLY = set()
 PORT_ONLY = {"device", "devices", "n_groups", "digest"}
 BOUND_CLASSES = {"compute_bound", "memory_bound", "dispatch_bound",
                  "unknown"}
+# the programs bench captures for its rows (``aot_record``)
+BENCH_CACHES = ("bench.serve", "bench.round", "bench.chunk")
 MODES = {
     "all": ["--mode", "all"],          # on the CPU: bench's serve row alone
     "serve": ["--mode", "serve"],
@@ -97,12 +103,28 @@ def assert_same(want, got, path="line"):
         assert got == want, path
 
 
+def bench_programs(pl) -> list:
+    """``(cache, compiles, retraces)`` of bench's own programs in a
+    compile plane."""
+    return sorted((e["cache"], e["compiles"], e["retraces"])
+                  for e in pl.entries() if e["cache"] in BENCH_CACHES)
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_session_line_equals_bench(monkeypatch, capsys, mode):
     argv = MODES[mode]
+    # fresh compile planes: the session's records alone
+    monkeypatch.setattr(jcp, "_PLANE", jcp.CompilePlane())
+    monkeypatch.setattr(tcp, "_PLANE", tcp.CompilePlane())
     want = jax_line(monkeypatch, capsys, argv)
     got = port_line(capsys, argv + (["--devices", "cpu,cpu,cpu,cpu"]
                                     if mode == "mesh" else []))
+    # bench's programs: one capture a row where bench compiles one
+    assert bench_programs(tcp.plane()) == bench_programs(jcp.plane())
+    if mode in ("all", "serve", "cfg3"):
+        assert bench_programs(tcp.plane()), mode
+        assert got["compile"]["compiles"] >= 1
+    assert got["compile"]["dispatch_fallbacks"] == 0
     assert want["backend"] == got["backend"] == "cpu"
     assert got["device"] == "cpu"
     assert_same(want, got)

@@ -194,12 +194,13 @@ def test_counted_launch_changes_nothing():
 
 
 @pytest.fixture
-def plane_state():
-    """The process plane's switch, restored after the test."""
-    pl = tcp.plane()
-    on = pl.enabled
-    yield pl
-    pl.enable(on)
+def plane_state(monkeypatch):
+    """A fresh process plane for the test (a row's programs are captured
+    once a row, so a second row at one shape in the same process records
+    a retrace: the records must not depend on which tests ran before)."""
+    pl = tcp.CompilePlane()
+    monkeypatch.setattr(tcp, "_PLANE", pl)
+    return pl
 
 
 def _non_clock(row: dict) -> dict:
@@ -229,9 +230,13 @@ def test_serve_equal_with_plane_on_and_off(monkeypatch, plane_state):
             rc = tserve.serve_only(512, 24, 128, 3, 2, device="cpu")
         row = tserve.serve_row(k=512, m=2, depth=24, n=1024, epochs_lo=1,
                                epochs_hi=2, reps=2, device="cpu")
+        # a serve row's ``decisions`` sums its valid pairs, and which
+        # pairs are valid reads the clock: every pair serves the same
+        # decisions, so the row is held by its decisions a pair
         res[on] = (int(r.count.sum()), int(tserve.state_digest(r.state)),
                    int(rc.count.sum()), int(tserve.state_digest(rc.state)),
-                   _non_clock(row))
+                   dict(_non_clock(row),
+                        decisions=row["decisions"] // len(row["reps"])))
         assert res[on][:2] == res[on][2:4]
         if on:
             assert set(row["cost_analysis"]) == set(KEYS)

@@ -424,22 +424,30 @@ def test_queue_on_the_card_equals_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scenario, total_ids", [("flash_crowd", 200),
                                                  ("churn_storm", 96)])
-def test_churn_row_on_the_card_equals_the_cpu(cuda, scenario, total_ids):
+def test_churn_row_on_the_card_equals_the_cpu(cuda, monkeypatch, scenario,
+                                              total_ids):
     """Bench's churn row at a small shape whose capacities (50 or 24
     doubling) are not multiples of K1's tile: K1 launches once per
     epoch, and every output but the wall clock equals the CPU run's;
     the static variant gives the same digest."""
     from dmclock_tpu_torch import serve
 
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+
     kw = dict(total_ids=total_ids, epochs=16, k=32)
     _ext.reset_launches()
+    # each run on a fresh compile plane: its ingest program's captures
+    # (a retrace a capacity move) are then its own
+    monkeypatch.setattr(tcp, "_PLANE", tcp.CompilePlane())
     got = serve.churn_row(scenario, device=cuda, **kw)
     torch.cuda.synchronize()
     assert _ext.LAUNCHES["ring_window"] == kw["epochs"]
     assert _ext.LAUNCHES["wheel_scan"] == 0
+    monkeypatch.setattr(tcp, "_PLANE", tcp.CompilePlane())
     want = serve.churn_row(scenario, device="cpu", **kw)
     for key in want:
-        if key not in ("wall_s", "dps"):
+        # the captures' wall is a wall clock (0 on the CPU)
+        if key not in ("wall_s", "dps", "compile_ms_total"):
             assert got[key] == want[key], key
     assert got.keys() == want.keys()
     static = serve.churn_row(scenario, device=cuda, static=True, **kw)
@@ -818,22 +826,27 @@ _ROW_WALL = ("dps", "round_ms_p50", "round_ms_p99", "round_ms_mean",
 
 
 @pytest.mark.cuda
-def test_sustained_row_on_the_card_equals_cpu(cuda, tmp_path):
+def test_sustained_row_on_the_card_equals_cpu(cuda, monkeypatch, tmp_path):
     """Bench's cfg3 row (calibration, two pairs of timed chains with the
     SLO block rolled once a chain, two conformance rounds, the verdict
     and the tails) at a small shape on the card equals the CPU run in
     every key that does not read the wall clock, the conformance table
     byte for byte (the cost counter's ``cost_analysis`` among them); K1
-    launches once a round, the round the counter counts included."""
+    launches once a round, the captured round's warm-up and the round
+    the counter counts included.  Each run records on a fresh compile
+    plane (a second capture of one entry in a process is a retrace)."""
     from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs import compile_plane as tcp
 
     kw = dict(rounds=4, rounds_lo=2, reps=2, latency_rounds=0)
     _ext.reset_launches()
+    monkeypatch.setattr(tcp, "_PLANE", tcp.CompilePlane())
     got = serve.sustained_row("cfg3", 512, **kw, device=cuda,
                               conformance_out=str(tmp_path / "card.jsonl"))
     torch.cuda.synchronize()
-    assert _ext.LAUNCHES["ring_window"] == 3 + 2 * (2 + 4) + 2 + 1
+    assert _ext.LAUNCHES["ring_window"] == 1 + 3 + 2 * (2 + 4) + 2 + 1
     assert _ext.LAUNCHES["wheel_scan"] == 0
+    monkeypatch.setattr(tcp, "_PLANE", tcp.CompilePlane())
     want = serve.sustained_row("cfg3", 512, **kw, device="cpu",
                                conformance_out=str(tmp_path / "cpu.jsonl"))
     assert got.keys() - set(_ROW_WALL) == want.keys() - set(_ROW_WALL)
@@ -1119,3 +1132,131 @@ def test_kernel_launches_under_the_counter_record_their_formula(cuda):
     assert c.ops() == {
         "kernel:ring_window": dict(calls=1, **tfp.ring_window_cost(n, w)),
         "kernel:wheel_scan": dict(calls=1, **tk.wheel_scan_cost(n, nb))}
+
+
+# ----------------------------------------------------------------------
+# captured programs (obs/compile_plane.py)
+# ----------------------------------------------------------------------
+
+def _tree_equal(got, want):
+    from torch.utils import _pytree as pytree
+
+    a, b = pytree.tree_leaves(got), pytree.tree_leaves(want)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if torch.is_tensor(x):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        else:
+            assert x == y
+
+
+def _clone(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(
+        lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+
+
+def _replays_equal_eager(prog, args, step):
+    """``prog`` on ``args`` and then on ``step(args, out, i)`` three times,
+    each replay equal to the eager body on a clone of its inputs and
+    launching the kernels the eager body launches, as the capture
+    recorded.  Returns the last arguments and the launches a replay."""
+    prog(*args)                          # the warm-up and the capture
+    (cap,) = prog.captures()
+    assert cap["memory_analysis"]["pool_bytes"] >= 0
+    names = list(_ext.LAUNCHES)
+    for i in range(3):
+        before = dict(_ext.LAUNCHES)
+        want = prog.fn(*_clone(args))
+        torch.cuda.synchronize()
+        eager = {k: _ext.LAUNCHES[k] - before[k] for k in names}
+        before = dict(_ext.LAUNCHES)
+        got = prog(*args)
+        torch.cuda.synchronize()
+        replay = {k: _ext.LAUNCHES[k] - before[k] for k in names}
+        assert replay == eager == {k: cap["launches"].get(k, 0)
+                                   for k in names}
+        _tree_equal(got, want)
+        args = step(args, got, i)
+    return args, replay
+
+
+@pytest.mark.cuda
+def test_captured_serve_epoch_equals_its_eager_body(cuda):
+    """A captured serve epoch at N=4,096 (the state donated), replayed
+    with a fresh state, then chained with two ``now`` values; a donated
+    chain copies nothing in: its state keeps its buffers."""
+    import functools
+
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+
+    st = serve._preloaded_state(4096, 64, ring=64, device="cuda")
+    prog = tcp.instrumented_jit(
+        functools.partial(tfp.scan_prefix_epoch, m=4, k=1024,
+                          anticipation_ns=0, with_metrics=True),
+        cache="bench.serve", entry=("test", 4096), donate_argnums=(0,))
+    nows = (0, 3_000_000, 9_000_000)
+    out, launches = _replays_equal_eager(
+        prog, (st, 0), lambda a, out, i: (out.state, nows[i]))
+    assert launches == {"ring_window": 1, "wheel_scan": 0}
+    ptrs = [t.data_ptr() for t in out[0]]
+    again = prog(out[0], 0)
+    assert [t.data_ptr() for t in again.state] == ptrs
+    tcp.clear_compiled()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload, impl, launches", [
+    ("cfg3", "minstop", {"ring_window": 1, "wheel_scan": 0}),
+    ("cfg4", "wheel", {"ring_window": 2 * 2, "wheel_scan": 2 * 3})])
+def test_captured_round_equals_its_eager_body(cuda, workload, impl,
+                                              launches):
+    """Bench's captured round (``serve.round_program``) at a cut width,
+    state and accumulators donated, over 3 replays with new draws,
+    ``t_base`` and the chained state: each equals the eager round, with
+    K1 once a prefix round or once a calendar batch and level (K2 once a
+    batch and level plus once a batch on the wheel: m (1 + levels))."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+    from dmclock_tpu_torch.obs import histograms as thist
+    from dmclock_tpu_torch.obs import provenance as tprov
+    from dmclock_tpu_torch.obs import slo as tslo
+
+    n = 2048
+    c = dict(serve.CFG3, k=512, m=4) if workload == "cfg3" else \
+        dict(serve.CFG4, m=2, steps=8, ladder_levels=2)
+    rates, weights = serve.sustained_qos(workload, n)
+    st = serve._sustained_setup(n, c["ring"], c["depth0"], rates, weights,
+                                device="cuda")
+    tele = serve.Tele(hists=thist.hist_zero("cuda"),
+                      ledger=thist.ledger_zero(n, "cuda"),
+                      slo=tslo.window_zero(n, "cuda"),
+                      prov=tprov.prov_init(n, 0, "cuda"))
+    rng = np.random.default_rng(3)
+    draws = [torch.from_numpy(np.minimum(rng.poisson(3.0, n), c["waves"])
+                              .astype(np.int32)).to(cuda) for _ in range(4)]
+    prog = serve.round_program(workload, n, c, impl, st, tele,
+                               telemetry=True, slo=True)
+    dt = c["dt_round_ns"]
+    _, got = _replays_equal_eager(
+        prog, (st, draws[0], 0, tele),
+        lambda a, out, i: (out.state, draws[i + 1], (i + 1) * dt,
+                           serve._tele_of(out)))
+    assert got == launches
+    tcp.clear_compiled()
+
+
+@pytest.mark.cuda
+def test_a_body_that_reads_the_card_back_fails_to_capture(cuda):
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+
+    def reads_back(x):
+        return x * int(x.sum())
+
+    prog = tcp.instrumented_jit(reads_back, cache="probe",
+                                entry=("reads", "back"))
+    with pytest.raises(tcp.CaptureError, match=r"probe \('reads', 'back'\)"):
+        prog(torch.ones(4, dtype=torch.int64, device=cuda))
+    assert tcp.device_failure(tcp.CaptureError("x"))

@@ -264,6 +264,9 @@ def test_transient_error_is_retried_and_counted(monkeypatch):
         return chunk
 
     monkeypatch.setattr(tstream, "build_stream_chunk", flaky)
+    # the chunk programs are cached by configuration: start empty, so the
+    # flaky chunk is the one the guarded runner captures
+    monkeypatch.setattr(tstream, "_STREAM_JIT_CACHE", {})
     seen = []
     got = TG.run_stream_chunk_guarded(
         st, 0, counts, **_chunk_kw(cfg), sleep=seen.append,
@@ -285,6 +288,7 @@ def test_runtime_error_is_not_retried(monkeypatch):
         return chunk
 
     monkeypatch.setattr(tstream, "build_stream_chunk", broken)
+    monkeypatch.setattr(tstream, "_STREAM_JIT_CACHE", {})
     st, _ = _states()
     with pytest.raises(RuntimeError, match="CUDA error"):
         TG.run_stream_chunk_guarded(st, 0, _counts(1),

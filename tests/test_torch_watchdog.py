@@ -10,15 +10,16 @@ not judged mid-chain, skipped windows accumulating into the judged one,
 one stall an episode, no stall before the first launch, none while a
 stream launch is in flight (and a wedged one still warning), none with a
 drain heartbeat; and ``tests/test_capacity.py``'s watchdog without a
-compile plane.  The port's compile plane records one kernel library
-build and never a retrace, so the watchdog has no retrace-storm rule: a
-non-``None`` ``compile_plane`` raises."""
+compile plane, and with one that holds no retrace.  The retrace-storm
+rule is held against JAX's in ``tests/test_torch_programs.py``."""
 
 import pytest
 
+from dmclock_tpu.obs import compile_plane as jcp
 from dmclock_tpu.obs import spans as jspans
 from dmclock_tpu.obs.registry import MetricsRegistry as JRegistry
 from dmclock_tpu.obs.watchdog import Watchdog as JWatchdog
+from dmclock_tpu_torch.obs import compile_plane as tcp
 from dmclock_tpu_torch.obs import spans as tspans
 from dmclock_tpu_torch.obs.registry import MetricsRegistry as TRegistry
 from dmclock_tpu_torch.obs.watchdog import Watchdog as TWatchdog
@@ -184,8 +185,12 @@ def test_watchdog_without_plane_unaffected():
     jw = JWatchdog(jt, log=lambda _l: None)
     tw = TWatchdog(tt, log=lambda _l: None)
     assert tw.poll_once() == jw.poll_once() == []
-    with pytest.raises(ValueError, match="compile_plane"):
-        TWatchdog(tt, compile_plane=object())
+    # a plane without retraces attached: nothing to warn about either
+    jw = JWatchdog(jt, compile_plane=jcp.CompilePlane(),
+                   log=lambda _l: None)
+    tw = TWatchdog(tt, compile_plane=tcp.CompilePlane(),
+                   log=lambda _l: None)
+    assert tw.poll_once() == jw.poll_once() == []
 
 
 def test_thread_polls_and_closes():
