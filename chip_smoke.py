@@ -264,15 +264,16 @@ Phases (any failure raises and the exit code is not 0):
     SIGKILLed after that boundary's journal append, each crash-
     equivalent; bench's ``rpc`` row on loopback sockets, clean and
     under ``RPC_CHAOS`` (``digest_match`` and ``chaos_exact``); ``rpc_full``,
-    the serving loop at 100,000 clients (``RPC_FULL``) fed by 4 loadgen
-    processes of 16,384 requests: live, serving from the first admitted
-    op while the requests arrive, its journal's replay equal on the card
-    (``digest_match``); then, as the uninterrupted reference, the same
-    with every op admitted before the first take, and a serving child of
-    that config SIGKILLed between boundary 1's fsync and its apply and
-    resumed to the reference's digest and trace hash (each live leg's
-    wall and its serving wall from the first take, the fsync's share and
-    the journal's bytes a boundary printed); the CPU replays of the
+    the serving loop at 100,000 clients (``RPC_FULL``, 4 epochs) fed by
+    4 loadgen processes of 8,192 requests: live, serving from the first
+    admitted op while the requests arrive, its journal's replay equal on
+    the card (``digest_match``); then, as the uninterrupted reference,
+    the same with every op admitted before the first take, and a serving
+    child of that config SIGKILLed between boundary 1's fsync and its
+    apply and resumed to the reference's digest and trace hash (each
+    live leg's wall and its serving wall from the first take, the
+    fsync's share and the journal's bytes a boundary printed); the CPU
+    replays of the
     card's four traces; bench's ``mesh_rebalance`` row,
     then at the ``supervised_mesh_churn`` population (``REBAL_POP``); the
     cold-pick twin gate on the wheel calendar mesh (K1 and K2).
@@ -366,7 +367,17 @@ Phases (any failure raises and the exit code is not 0):
     donated chain handed its static buffers; the capture record (graph
     nodes, warm-up and capture ms, the pool's bytes) and replay against
     eager ms (CUDA events) printed; a body that reads the card back
-    fails to capture, naming its cache and entry.  Every phase that
+    fails to capture, naming its cache and entry.  (b) The guarded-run
+    programs the same way (``phase_guarded_programs``): ``guarded.epoch``
+    at the ``supervised_prefix`` shape with the five accumulators,
+    ``guarded.serial`` (two blocks of ``kernels.SERIAL_BLOCK`` steps and
+    a remainder at N=100,000), ``supervisor.ingest``, the host replay's
+    pressure probe and the prefix runner's "attempt" at the serve shape;
+    and, held at the start of the phase that then runs them so its jobs
+    replay the capture, ``guarded.epoch`` at the ``supervised_wheel``
+    shape (phase 20) and ``mesh.chunk`` at bench's mesh row at K=1, K=4
+    and under ``MESH_FAULT_SPEC``, stacked (phase 22) and over 8 groups
+    of ``cuda:0`` (phase 25).  Every phase that
     captured ends with ``release_programs()`` (``clear_compiled`` and
     ``empty_cache``).  Every sustained row, calibration and stream
     chunk of the earlier phases runs through these programs: their K1
@@ -2625,6 +2636,11 @@ def phase_supervised(ext, card: str, tmp: str):
                    supervised_ladder=l_lad["ring_window"],
                    supervised_ladder_killed=l_lad2["ring_window"])
 
+    # phase 29 (b)'s guarded.epoch at the wheel jobs' shape, held first:
+    # the jobs below replay its capture
+    gk1, gk2, _ = held_guarded_epoch(ext, "wheel")
+    by_path.update(gk1)
+
     # supervised_wheel: K2 carried through a resume
     wref, l_wh, _ = _sup_run(
         ext, "supervised_wheel bare", lambda: TS.run_job(
@@ -2646,7 +2662,7 @@ def phase_supervised(ext, card: str, tmp: str):
     by_path.update(supervised_wheel=l_wh["ring_window"],
                    supervised_wheel_killed=l_wh2["ring_window"])
     k2 = dict(supervised_wheel=l_wh["wheel_scan"],
-              supervised_wheel_killed=l_wh2["wheel_scan"])
+              supervised_wheel_killed=l_wh2["wheel_scan"], **gk2)
 
     # supervised_churn: the churn row's shape as a stream job
     from dmclock_tpu_torch.lifecycle import make_spec
@@ -2997,12 +3013,12 @@ MESH_S1_EPOCHS = 2       # the S=1 identity chunk at 100,000 clients
 # calendar batches of 4 steps on 4 ladder levels
 MESH_WHEEL = dict(n=10_000, shards=2, epochs=2, m=2, k=4, levels=4)
 # the cluster dry run at its width (8 servers x 10,000 clients), cut in
-# depth: 64 decisions a step (1024), 2 closed-loop rounds (2 + 6) and 1
-# drain round (4); its QoS assertions need the full depth and run in the
-# CPU tests
-MULTICHIP_CUT = dict(n_servers=8, n_clients=10_000, decisions_per_step=64,
+# depth: 32 decisions a step (of 1,024), 2 closed-loop rounds (2 + 6)
+# and 1 drain round (4); its QoS assertions need the full depth and run
+# in the CPU tests
+MULTICHIP_CUT = dict(n_servers=8, n_clients=10_000, decisions_per_step=32,
                      warmup=1, rounds=1, drain_rounds=1, check_qos=False)
-OUTAGE = dict(n_servers=8, n_clients=10_000, steps=3, decisions_per_step=64)
+OUTAGE = dict(n_servers=8, n_clients=10_000, steps=3, decisions_per_step=32)
 
 
 def chunk_numpy(out) -> dict:
@@ -3186,6 +3202,12 @@ def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
         k1[path], k2[path] = want_k1, want_k2
         log(f"[{path}] {secs:.3f} s; kernel launches {got}")
         return res
+
+    # phase 29 (b)'s mesh chunks at the row's shape, held first: the
+    # rows below replay their captures
+    hk1, hk2, _ = held_mesh_chunks(ext, serve, "stacked")
+    k1.update(hk1)
+    k2.update(hk2)
 
     # (a) the mesh row at bench's shape, counter_sync_every 1 then 4
     rows = {}
@@ -3536,13 +3558,15 @@ CTL_CHURN = dict(SUP_CHURN, controller=True)
 RPC_ROW = dict(n=32, epochs=16, requests=64, workers=4)
 RPC_CHAOS = "seed=7,p_drop=0.1,p_dup=0.05,p_reorder=0.05"
 # rpc_full: the supervised_prefix cell's state (0.2195 GB) behind the
-# ingest server, fed by 4 loadgen workers of 16,384 requests over the
+# ingest server, fed by 4 loadgen workers of 8,192 requests over the
 # 100,000 ids; the live leg serves from the first admitted op on, while
 # the requests arrive; the kill leg and its uninterrupted reference wait
-# for every op before the first take (a trace fixed by the schedule)
-RPC_FULL = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=8,
+# for every op before the first take (a trace fixed by the schedule).
+# Cut in depth to 4 epochs (2 boundaries) and 8,192 requests a worker
+# to keep the script inside its time
+RPC_FULL = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=4,
                 m=8, k=65536, waves=8, ckpt_every=2)
-RPC_LOAD = dict(workers=4, requests=16384, n_clients=100_000, max_nops=3,
+RPC_LOAD = dict(workers=4, requests=8192, n_clients=100_000, max_nops=3,
                 seed=7)
 # bench's mesh_rebalance row at its shape, then at the supervised mesh
 # churn cell's population (shard_skew, 4,096 ids over 4 shards, capacity
@@ -4171,7 +4195,11 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
                 f"in this run ({row['dps'] / want['dps']:.4f}x); every "
                 f"other key equal to the stacked row's")
 
-    # (a) the mesh row over groups on one card
+    # (a) the mesh row over groups on one card; phase 29 (b)'s mesh
+    # chunks over 8 groups held first, so the 8-group rows replay them
+    hk1, hk2, _ = held_mesh_chunks(ext, serve, "groups")
+    k1.update(hk1)
+    k2.update(hk2)
     for d in GROUP_LAYOUTS:
         rows_over(("cuda:0",) * d, f"groups{d}")
     first = counted("mesh_groups_first", lambda: chunk_numpy(
@@ -4576,9 +4604,10 @@ def _check_session_line(line: dict, refs: dict, srow: dict, table: str,
     rows = {"serve", "cfg3", "cfg4", "churn_flash_crowd"}
     cap = line["capacity"]
     # the rows' programs are captured once at their full shapes; the
-    # churn row's ingest step is captured again when its capacity moves
-    # (a new N, a retrace as in the JAX package), no more often than it
-    # grows or compacts
+    # churn row's two programs, the ingest step and the guarded epoch,
+    # are each captured again when its capacity moves (a new N, a
+    # retrace as in the JAX package), no more often than it grows or
+    # compacts
     churn_row = line["churn"]["churn_flash_crowd"]
     moves = churn_row["grows"] + churn_row["compactions"]
     if any(set(cap.get(f, {})) != rows for f in (
@@ -4586,7 +4615,7 @@ def _check_session_line(line: dict, refs: dict, srow: dict, table: str,
             "retraces")) or not set(cap["bound_class"].values()) <= \
             BOUND_CLASSES or any(cap["retraces"][r] != 0 for r in (
                 "serve", "cfg3", "cfg4")) or \
-            not 0 <= cap["retraces"]["churn_flash_crowd"] <= moves:
+            not 0 <= cap["retraces"]["churn_flash_crowd"] <= 2 * moves:
         raise AssertionError(f"session_all: capacity {cap}")
     comp = line["compile"]
     if set(comp) != COMPILE_TOTALS or comp["compiles"] <= 0 or \
@@ -5234,6 +5263,29 @@ def _same_leaves(got, want, what: str) -> None:
             raise AssertionError(f"{what}: leaf {i} {x!r} != {y!r}")
 
 
+def _capture_of(name: str, prog) -> dict:
+    """A program's one capture record; a serial program's blocks (each
+    replayed ``replays`` times a call) as one record: nodes a block,
+    launches, times and bytes summed."""
+    caps = prog.captures()
+    want = len(getattr(prog, "_parts", ())) or 1
+    if len(caps) != want:
+        raise AssertionError(f"{name}: {len(caps)} captures, want {want}")
+    if len(caps) == 1 and "replays" not in caps[0]:
+        return caps[0]
+    launches, mem = {}, {}
+    for c in caps:
+        for k, v in c["launches"].items():
+            launches[k] = launches.get(k, 0) + c["replays"] * v
+        for k, v in c["memory_analysis"].items():
+            mem[k] = mem.get(k, 0) + v
+    return dict(graph_nodes=[c["graph_nodes"] for c in caps],
+                replays=[c["replays"] for c in caps], launches=launches,
+                lower_ms=sum(c["lower_ms"] for c in caps),
+                compile_ms=sum(c["compile_ms"] for c in caps),
+                memory_analysis=mem)
+
+
 def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
     """``prog`` replayed on ``calls`` (its first call's arguments) and
     then on each call's successor (``next_args(args, out, i)``: the
@@ -5245,16 +5297,14 @@ def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
     their inputs, both timed by CUDA events.  Every replay runs under
     ``set_sync_debug_mode("error")``: a synchronising operation raises.
     Returns the program's capture record and timings."""
-    cap = prog.captures()
-    if len(cap) != 1:
-        raise AssertionError(f"{name}: {len(cap)} captures, want 1")
-    cap = cap[0]
+    cap = _capture_of(name, prog)
+    donated = getattr(prog, "donate_argnums", ())
     args = calls
     replay_ms, eager_ms = [], []
     chained = []
     for i in range(3):
-        if prog.donate_argnums:
-            chained.append([t.data_ptr() for j in prog.donate_argnums
+        if donated:
+            chained.append([t.data_ptr() for j in donated
                             for t in _leaves(args[j]) if torch.is_tensor(t)])
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         if i == 0:
@@ -5290,18 +5340,22 @@ def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
         replay_ms.append(ev[2].elapsed_time(ev[3]))
         args = next_args(args, got, i)
         del want
+    # every call after the first was a replay of the one capture
+    _capture_of(name, prog)
     # a donated chain: replays 2 and 3 were handed the buffers replay 1
     # returned, the program's static inputs, so nothing was copied in
-    if prog.donate_argnums and chained[1] != chained[2]:
+    if donated and chained[1] != chained[2]:
         raise AssertionError(f"{name}: a chained replay's donated inputs "
                              f"are not the program's static buffers")
     ents = [e for e in _plane().entries() if e["cache"] == prog.cache and
             e["entry"] == prog.entry]
     rec = dict(graph_nodes=cap["graph_nodes"], launches=cap["launches"],
+               **({"replays": cap["replays"]} if "replays" in cap else {}),
                lower_ms=cap["lower_ms"], compile_ms=cap["compile_ms"],
                memory_analysis=cap["memory_analysis"],
                compiles=ents[0]["compiles"] if ents else None,
                retraces=ents[0]["retraces"] if ents else None,
+               retrace_diff=ents[0]["last_retrace_diff"] if ents else None,
                replay_ms=replay_ms, eager_ms=eager_ms)
     log(f"[programs] {name} ({prog.cache} {prog.entry}): "
         + json.dumps(rec))
@@ -5327,6 +5381,35 @@ def release_programs() -> None:
     torch.cuda.empty_cache()
 
 
+def _program_finisher(ext, k1: dict, k2: dict, recs: dict):
+    """``finish(path, name, prog, calls, next_args)``: the program's
+    first call (the warm-up, whose result it returns, and the capture),
+    launch-counted, its result cloned (a donated output is a static
+    buffer the replays rewrite); then :func:`_held_program`; K1 and K2
+    of the first call and the 3 replays into ``k1``/``k2`` by path, the
+    record into ``recs``."""
+    def first_call(prog, calls):
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        out = _clone_tree(prog(*calls))
+        torch.cuda.synchronize()
+        return out, dict(ext.LAUNCHES)
+
+    def finish(path, name, prog, calls, nxt):
+        first = first_call(prog, calls)
+        warm = first[1]
+        rec = _held_program(ext, name, prog, calls, first, nxt)
+        n1 = warm["ring_window"] + 3 * rec["launches"].get("ring_window", 0)
+        n2 = warm["wheel_scan"] + 3 * rec["launches"].get("wheel_scan", 0)
+        if n1:
+            k1[path] = n1
+        if n2:
+            k2[path] = n2
+        recs[name] = rec
+
+    return finish
+
+
 def phase_programs(serve, ext, card: str) -> tuple:
     """Phase 29: the captured programs at full width, each held bit for
     bit against its eager body over 3 replays with changed inputs (a
@@ -5346,28 +5429,7 @@ def phase_programs(serve, ext, card: str) -> tuple:
     t_phase = time.perf_counter()
     k1, k2, recs = {}, {}, {}
     rng = np.random.default_rng(29)
-
-    def first_call(prog, calls):
-        """The program's first call (the warm-up, whose result it
-        returns, and the capture), launch-counted; its result cloned,
-        since a donated output is a static buffer the replays rewrite."""
-        torch.cuda.synchronize()
-        ext.reset_launches()
-        out = _clone_tree(prog(*calls))
-        torch.cuda.synchronize()
-        return out, dict(ext.LAUNCHES)
-
-    def finish(path, name, prog, calls, nxt):
-        first = first_call(prog, calls)
-        warm = first[1]
-        rec = _held_program(ext, name, prog, calls, first, nxt)
-        n1 = warm["ring_window"] + 3 * rec["launches"].get("ring_window", 0)
-        n2 = warm["wheel_scan"] + 3 * rec["launches"].get("wheel_scan", 0)
-        if n1:
-            k1[path] = n1
-        if n2:
-            k2[path] = n2
-        recs[name] = rec
+    finish = _program_finisher(ext, k1, k2, recs)
 
     # bench.serve: the serve epoch, the state donated
     knobs = dict(m=M_SERVE, k=K_SERVE, with_metrics=True,
@@ -5483,6 +5545,184 @@ def phase_programs(serve, ext, card: str) -> tuple:
     log(f"[programs] on {card}: K1 by path {json.dumps(k1)}, K2 by path "
         f"{json.dumps(k2)}")
     log(f"[time] programs phase {time.perf_counter() - t_phase:.3f} s")
+    return k1, k2, recs
+
+
+# the serial resume at full width: two blocks and a remainder
+SERIAL_STEPS_EXTRA = 17
+
+
+def held_guarded_epoch(ext, which: str) -> tuple:
+    """Phase 29 (b)'s ``guarded.epoch`` at the ``supervised_prefix``
+    shape with the five accumulators (``which="prefix"``) or at the
+    ``supervised_wheel`` shape (``"wheel"``), held as phase 29 (a) holds
+    bench's programs; ``t`` a 0-d tensor as ``run_epoch_guarded`` passes
+    it, so a job of that shape run after this replays the capture.
+    Returns ``(K1 by path, K2 by path, records)``."""
+    from dmclock_tpu_torch.engine import fastpath
+    from dmclock_tpu_torch.obs import flight as obsflight
+    from dmclock_tpu_torch.obs import histograms as obshist
+    from dmclock_tpu_torch.obs import provenance as obsprov
+    from dmclock_tpu_torch.obs import slo as obsslo
+    from dmclock_tpu_torch.robust import guarded as TG
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    k1, k2, recs = {}, {}, {}
+    finish = _program_finisher(ext, k1, k2, recs)
+    job = TS.EpochJob(**(SUP_PREFIX if which == "prefix" else SUP_WHEEL))
+    st = TS._job_state(job, "cuda")
+    kw = fastpath.epoch_scan_kwargs(
+        job.engine, k=job.k, calendar_impl=job.calendar_impl,
+        ladder_levels=job.ladder_levels, with_metrics=True)
+    tele = dict(hists=obshist.hist_zero("cuda"),
+                ledger=obshist.ledger_zero(job.n, "cuda"),
+                flight=obsflight.flight_init(job.flight_records, "cuda"),
+                slo=obsslo.window_zero(job.n, "cuda"),
+                prov=obsprov.prov_init(job.n, device="cuda")) \
+        if which == "prefix" else {}
+    prog = TG._jit_epoch(job.engine, job.m, kw, tuple(sorted(tele)))
+    prog.clear_compiled()
+    ts = [torch.full((), (i + 1) * job.dt_epoch_ns, dtype=torch.int64,
+                     device="cuda") for i in range(3)]
+    if tele:
+        # the accumulators in the input dict's order, as run_epoch_guarded
+        # passes them (a dict's key order is part of a signature)
+        calls = (st, ts[0], tele)
+
+        def nxt(a, out, i):
+            return (out.state, ts[min(i + 1, 2)],
+                    {f: getattr(out, f) for f in tele})
+    else:
+        calls = (st, ts[0])
+
+        def nxt(a, out, i):
+            return (out.state, ts[min(i + 1, 2)])
+    finish("programs_guarded_" + which, "guarded.epoch " + which, prog,
+           calls, nxt)
+    return k1, k2, recs
+
+
+def held_mesh_chunks(ext, serve, layout: str) -> tuple:
+    """Phase 29 (b)'s ``mesh.chunk`` at bench's mesh row (8 x 12,500, a
+    chunk of 8) at K=1, K=4 and under ``MESH_FAULT_SPEC``, stacked
+    (``layout="stacked"``) or over 8 groups of ``cuda:0``, each held as
+    phase 29 (a) holds bench's programs, with the arguments
+    ``serve.mesh_row`` passes, so the rows run after this replay these
+    captures.  Returns ``(K1 by path, K2 by path, records)``."""
+    from dmclock_tpu_torch.parallel import mesh as TM
+    from dmclock_tpu_torch.robust import faults as TF
+
+    k1, k2, recs = {}, {}, {}
+    finish = _program_finisher(ext, k1, k2, recs)
+    rng = np.random.default_rng(292)
+    M = serve.MESH
+    n = M["clients"] // MESH_SHARDS
+    job = serve.mesh_job(n)
+    chunk = M["chunk"]
+    mesh = TM.make_mesh(MESH_SHARDS, "cuda") if layout == "stacked" \
+        else TM.make_mesh(MESH_SHARDS, devices=("cuda:0",) * MESH_SHARDS)
+    for tag, every, chaos in (("k1", 1, False), ("k4", 4, False),
+                              ("chaos", 1, True)):
+        fn = TM.jit_mesh_chunk(
+            mesh, engine=M["engine"], epochs=chunk, m=M["m"], k=M["k"],
+            dt_epoch_ns=M["dt_epoch_ns"], waves=M["waves"],
+            with_metrics=True, counter_sync_every=every, ingest=True,
+            with_faults=chaos, collective_skipping=not chaos and every > 1)
+        fn.clear_compiled()
+        state, cd, cr, vd, vr, w = serve.mesh_start(job, MESH_SHARDS, "cuda",
+                                                    mesh)
+        draws = [TM.place_shards(serve.mesh_draws(
+            rng, MESH_SHARDS, n, chunk, M["arrival_lam"], "cuda"), mesh)
+            for _ in range(3)]
+        fcs = [None] * 3
+        if chaos:
+            plan = TF.plan_from_spec(TF.parse_fault_spec(MESH_FAULT_SPEC),
+                                     3 * chunk, MESH_SHARDS)
+            fcs = [TM.fault_inputs(TF.plan_chunk(plan, e0, e0 + chunk), mesh)
+                   for e0 in range(0, 3 * chunk, chunk)]
+
+        def nxt(a, out, i, draws=draws, fcs=fcs):
+            j = min(i + 1, 2)
+            return (out.state, out.cd, out.cr, out.view_d, out.view_r,
+                    (i + 1) * chunk, draws[j], None, None, out.slo, None,
+                    None, fcs[j])
+
+        finish(f"programs_mesh_{layout}_{tag}", f"mesh.chunk {layout} {tag}",
+               fn, (state, cd, cr, vd, vr, 0, draws[0], None, None, w, None,
+                    None, fcs[0]), nxt)
+    return k1, k2, recs
+
+
+def phase_guarded_programs(serve, ext, card: str) -> tuple:
+    """Phase 29 (b): the guarded-run programs at full width, each held
+    as phase 29 (a) holds bench's programs (3 replays with changed inputs
+    against the eager body, 0 synchronising operations, K1 and K2
+    counted, the capture record printed): ``guarded.epoch`` at the
+    ``supervised_prefix`` shape with the five accumulators;
+    ``guarded.serial`` at N=100,000, two blocks of
+    ``kernels.SERIAL_BLOCK`` steps and a remainder; ``supervisor.ingest``
+    at N=100,000; the host replay's pressure probe; the prefix runner's
+    "attempt" at the serve shape.  Three more are held where a phase
+    then runs them, so its jobs replay the capture instead of making
+    their own: ``guarded.epoch`` at the ``supervised_wheel`` shape at
+    the start of phase 20's wheel jobs (:func:`held_guarded_epoch`), and
+    ``mesh.chunk`` at bench's mesh row stacked at the start of phase 22
+    and over 8 groups at the start of phase 25
+    (:func:`held_mesh_chunks`).  Returns ``(K1 by path, K2 by path,
+    records)``."""
+    from dmclock_tpu_torch.engine import fastpath, kernels
+    from dmclock_tpu_torch.robust import guarded as TG
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    t_phase = time.perf_counter()
+    k1, k2, recs = held_guarded_epoch(ext, "prefix")
+    release_programs()
+    finish = _program_finisher(ext, k1, k2, recs)
+    rng = np.random.default_rng(291)
+
+    # guarded.serial: two blocks and a remainder at N=100,000
+    job = TS.EpochJob(**SUP_PREFIX)
+    st = TS._job_state(job, "cuda")
+    steps = 2 * kernels.SERIAL_BLOCK + SERIAL_STEPS_EXTRA
+    prog = TG._jit_serial(steps, False, 0)
+    prog.clear_compiled()
+    finish("programs_guarded_serial", "guarded.serial", prog,
+           (st, job.dt_epoch_ns),
+           lambda a, out, i: (out[0], (i + 2) * job.dt_epoch_ns))
+    del prog
+
+    # supervisor.ingest on the same state, draws clamped to the waves
+    draws = [torch.from_numpy(np.minimum(
+        rng.poisson(job.arrival_lam, job.n), job.waves).astype(np.int32))
+        .to("cuda") for _ in range(3)]
+    ing = TS._jit_ingest(job)
+    ing.clear_compiled()
+    finish("programs_supervisor_ingest", "supervisor.ingest", ing,
+           (st, draws[0], 0),
+           lambda a, out, i: (out, draws[min(i + 1, 2)],
+                              (i + 1) * job.dt_epoch_ns))
+
+    # the host replay's pressure probe on that state
+    probe = TG._pressure_probe()
+    probe.clear_compiled()
+    finish("programs_pressure_probe", "guarded.pressure_probe", probe,
+           (st, job.dt_epoch_ns),
+           lambda a, out, i: (a[0], (i + 2) * job.dt_epoch_ns))
+    del st, draws, ing, probe
+    release_programs()
+
+    # fastpath.runner "attempt" at the serve shape
+    st = serve._preloaded_state(N_SERVE, DEPTH, ring=DEPTH, device="cuda")
+    fastpath.make_prefix_runner(K_SERVE)
+    prog = fastpath._RUNNER_JIT_CACHE[("attempt", K_SERVE, 0, False, "sort")]
+    prog.clear_compiled()
+    finish("programs_runner", "fastpath.runner attempt", prog, (st, 0),
+           lambda a, out, i: (out.state, (i + 1) * 5_000_000))
+    del st, prog
+    release_programs()
+    log(f"[programs] guarded-run programs on {card}: K1 by path "
+        f"{json.dumps(k1)}, K2 by path {json.dumps(k2)}")
+    log(f"[time] guarded-run programs {time.perf_counter() - t_phase:.3f} s")
     return k1, k2, recs
 
 
@@ -5679,6 +5919,9 @@ def main() -> int:
             # phase 29: the captured programs
             t_programs = time.perf_counter()
             prog_k1, prog_k2, _ = phase_programs(serve, _ext, card)
+            gp_k1, gp_k2, _ = phase_guarded_programs(serve, _ext, card)
+            prog_k1.update(gp_k1)
+            prog_k2.update(gp_k2)
         finally:
             for proc in (sust_twin, twins, sup_twin, mesh_twin,
                          sup_mesh_twin):

@@ -25,6 +25,7 @@ metrics stay on the device and are stacked once at the end.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -37,9 +38,9 @@ from ..obs import flight as obsflight
 from ..obs import histograms as obshist
 from ..obs import provenance as obsprov
 from ..obs import slo as obsslo
-from . import _ext
+from . import _ext, kernels
 from .kernels import (KEY_INF, NONE, RETURNING, Decision, _fold_prev,
-                      _make_tag, as_scalar, engine_run,
+                      _make_tag, as_scalar,
                       radix_quantile_ladder, rebase32, restore64,
                       wheel_nearest, wheel_scan, wheel_slot)
 from .state import TAG_I64_FIELDS, EngineState
@@ -1260,26 +1261,53 @@ def scan_chain_epoch(state: EngineState, now, m: int, k: int, *,
                       metrics=met, **_tele_result(tele))
 
 
+# module cache of the prefix runner's captured programs, as the JAX
+# package's ``_RUNNER_JIT_CACHE``: runners of one static configuration
+# share one attempt and one exact program
+_RUNNER_JIT_CACHE: dict = {}
+
+
+def _runner_jit(key: tuple, make):
+    """The cached program of ``key``: ``make(cache, entry)`` builds it
+    under cache ``fastpath.runner`` on its first use."""
+    if key not in _RUNNER_JIT_CACHE:
+        _RUNNER_JIT_CACHE[key] = make("fastpath.runner", key)
+    return _RUNNER_JIT_CACHE[key]
+
+
 def make_prefix_runner(k: int, *, anticipation_ns: int = 0,
                        allow_limit_break: bool = False,
                        select_impl: str = "sort"):
     """Host-orchestrated prefix runner: ``(state, now) -> (state,
     decisions, n_committed)``.  One host read of ``guards_ok`` per call
-    is its contract: when the global rebase guards fail
-    (creation-order spread or a served cost past 2^31) the batch is
-    rerun by the serial engine (``engine_run``, k steps at ``now``);
-    a zero count with the guards intact means nothing is eligible at
-    ``now``.  Both paths run on the state's device: the serial path is
-    the JAX package's semantics, not a device fallback."""
+    is its contract, outside the programs: when the global rebase guards
+    fail (creation-order spread or a served cost past 2^31) the batch is
+    rerun by the serial engine (``engine_run``, k steps at ``now``); a
+    zero count with the guards intact means nothing is eligible at
+    ``now``.  Both are captured programs of cache ``fastpath.runner``
+    under the JAX package's keys: ``"attempt"``
+    (``speculate_prefix_batch``) and ``"exact"`` (the serial engine in
+    ``engine.kernels.serial_program``'s blocks).  Both run on the
+    state's device: the serial path is the JAX package's semantics, not
+    a device fallback."""
+    attempt = _runner_jit(
+        ("attempt", k, anticipation_ns, allow_limit_break, select_impl),
+        lambda cache, entry: compile_plane.instrumented_jit(
+            functools.partial(speculate_prefix_batch, k=k,
+                              anticipation_ns=anticipation_ns,
+                              allow_limit_break=allow_limit_break,
+                              select_impl=select_impl),
+            cache=cache, entry=entry))
+    exact = _runner_jit(
+        ("exact", k, anticipation_ns, allow_limit_break),
+        lambda cache, entry: kernels.serial_program(
+            k, allow_limit_break=allow_limit_break,
+            anticipation_ns=anticipation_ns, cache=cache, entry=entry))
 
     def run(state: EngineState, now):
-        batch = speculate_prefix_batch(
-            state, now, k, anticipation_ns=anticipation_ns,
-            allow_limit_break=allow_limit_break, select_impl=select_impl)
+        batch = attempt(state, now)
         if not bool(batch.guards_ok):
-            st, _, decs = engine_run(
-                state, now, k, allow_limit_break=allow_limit_break,
-                anticipation_ns=anticipation_ns, advance_now=False)
+            st, _, decs = exact(state, now)
             return st, decs, int((decs.type == RETURNING).sum())
         return batch.state, batch.decisions, int(batch.count)
 

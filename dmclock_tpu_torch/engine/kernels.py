@@ -32,6 +32,7 @@ reference the prefix-commit fast path is held against.  Scalars stay
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -598,6 +599,31 @@ def engine_run(state: EngineState, now, steps: int, *,
     if with_metrics:
         out = out + (met,)
     return out
+
+
+# serial steps a captured block holds (``serial_program``): one
+# ``engine_step`` is about 240 launches, so a block stays near 15,000
+# graph nodes
+SERIAL_BLOCK = 64
+
+
+def serial_program(steps: int, *, allow_limit_break: bool,
+                   anticipation_ns: int, cache: str, entry):
+    """``engine_run(state, now, steps, advance_now=False)`` as a captured
+    program (``obs/compile_plane.py`` ``SerialJit``): blocks of
+    :data:`SERIAL_BLOCK` steps and a remainder, the decision stream
+    equal to ``engine_run``'s.  The JAX package's serial programs run
+    the step under ``lax.scan``, one small program; here it is a loop,
+    so one graph of every step would grow with ``steps``."""
+
+    def body(n: int):
+        return functools.partial(engine_run, steps=n,
+                                 allow_limit_break=allow_limit_break,
+                                 anticipation_ns=anticipation_ns,
+                                 advance_now=False)
+
+    return compile_plane.SerialJit(body, steps=steps, block=SERIAL_BLOCK,
+                                   cache=cache, entry=entry)
 
 
 # ----------------------------------------------------------------------

@@ -31,12 +31,15 @@ parts:
   buffer (no copy when it is that buffer) and replay the graph.  A
   Python int, bool or float argument is an input, as JAX traces it
   weakly: it is lifted to a 0-d device tensor, filled on every call.
+  A string, a dtype or a device is a constant of the program; any other
+  leaf (a numpy array above all) raises ``TypeError`` naming its path.
   A second signature on one entry is a new capture and a **retrace**,
   recorded with the leaf-level diff that caused it.  A capture that
   fails raises, naming the cache and the entry; nothing runs eagerly on
   the card in its place.  On CPU tensors (the caller's explicit choice)
   the program is the body run eagerly, with the same signatures and
-  records (``compile_ms`` 0).
+  records (``compile_ms`` 0).  A program of many serial steps
+  (:class:`SerialJit`) captures a block of them and replays it.
 - **The cost counter** (:class:`CostCounter`), the port's
   ``cost_analysis``: a ``TorchDispatchMode`` that counts every aten op
   run inside one launch of a row's program, by XLA's rules: a view op
@@ -693,6 +696,13 @@ class CaptureError(RuntimeError):
 
 
 _SCALARS = (bool, int, float, np.bool_, np.integer, np.floating)
+# the leaves a program may hold as constants: values whose repr is an
+# exact image of the value, so equal signatures mean equal constants
+_CONSTANTS = (str, bytes, torch.dtype, torch.device)
+
+
+class _NotAConstant(Exception):
+    """A leaf no signature can hold (raised inside :func:`_leaf_spec`)."""
 
 
 def _scalar_dtype(x) -> torch.dtype:
@@ -707,14 +717,38 @@ def _leaf_spec(x):
     """The hashable signature of one leaf: a tensor by shape, dtype,
     device and strides (values never retrace); a Python or numpy scalar
     by its type only (it is an input, lifted to a 0-d tensor); ``None``
-    as itself; anything else by its repr (a constant of the program)."""
+    as itself; a string, a dtype or a device by its repr (a constant of
+    the program).  Any other leaf raises :class:`_NotAConstant`: a numpy
+    array's repr elides a large array's middle, so two different arrays
+    could share a signature and the graph would replay the first one's
+    values."""
     if isinstance(x, torch.Tensor):
         return (tuple(x.shape), x.dtype, x.device, x.stride())
     if isinstance(x, _SCALARS):
         return type(x)
     if x is None:
         return None
-    return ("obj", repr(x))
+    if isinstance(x, _CONSTANTS):
+        return ("obj", repr(x))
+    raise _NotAConstant
+
+
+def _signature(what: str, leaves, spec, args, kwargs) -> tuple:
+    """A call's signature; a leaf that can be neither an input nor a
+    constant raises ``TypeError`` naming its path."""
+    try:
+        return spec, tuple(map(_leaf_spec, leaves))
+    except _NotAConstant:
+        for path, x in pytree.tree_flatten_with_path((args, kwargs))[0]:
+            try:
+                _leaf_spec(x)
+            except _NotAConstant:
+                raise TypeError(
+                    f"{what}: argument leaf {pytree.keystr(path)} is a "
+                    f"{type(x).__module__}.{type(x).__qualname__}, which "
+                    f"a program can neither take as an input nor hold as "
+                    f"a constant: pass a tensor") from None
+        raise
 
 
 def _leaf_spec_readable(x) -> tuple:
@@ -1053,18 +1087,27 @@ class InstrumentedJit:
     the caller's own (a clone of the graph's).  Kernel launch counts
     (``engine/_ext.py`` ``LAUNCHES``) taken at capture are added on
     every replay.  On CPU tensors the program is the body run eagerly.
-    ``fn`` is the eager body (the JAX wrapper's ``jitted``)."""
+    ``fn`` is the eager body (the JAX wrapper's ``jitted``).
 
-    __slots__ = ("fn", "cache", "entry", "donate_argnums", "_argnames",
-                 "_programs", "_mtx", "__weakref__")
+    ``capture=False`` runs the body eagerly on every device, with the
+    same signatures and records: the caller's choice for a body whose
+    tensors lie on several cards (one CUDA graph holds one device).
+    ``record=False`` keeps the program out of the plane's records and
+    spans, as a bare ``jax.jit`` is."""
+
+    __slots__ = ("fn", "cache", "entry", "donate_argnums", "capture",
+                 "record", "_argnames", "_programs", "_mtx", "__weakref__")
 
     def __init__(self, fn, *, cache: str, entry: Any,
-                 donate_argnums=()):
+                 donate_argnums=(), capture: bool = True,
+                 record: bool = True):
         self.fn = fn
         self.cache = cache
         self.entry = _entry_str(entry)
         self.donate_argnums = tuple(sorted({int(i) for i in
                                             donate_argnums}))
+        self.capture = bool(capture)
+        self.record = bool(record)
         self._argnames = _argnames(fn)
         self._programs: Dict[tuple, Any] = {}
         self._mtx = threading.RLock()
@@ -1082,7 +1125,8 @@ class InstrumentedJit:
 
     def __call__(self, *args, **kwargs):
         leaves, spec = pytree.tree_flatten((args, kwargs))
-        sig = (spec, tuple(map(_leaf_spec, leaves)))
+        sig = _signature(f"program {self.cache} {self.entry}", leaves,
+                         spec, args, kwargs)
         prog = self._programs.get(sig)
         if prog is None:
             with self._mtx:
@@ -1104,12 +1148,17 @@ class InstrumentedJit:
 
     def _first_call(self, leaves, spec, args, kwargs):
         pl = _PLANE
-        dev = _program_device(leaves)
+        recorded = pl.enabled and self.record
+        if self.capture:
+            dev = _program_device(leaves)
+        else:
+            dev = next((x.device for x in leaves
+                        if isinstance(x, torch.Tensor)), torch.device("cpu"))
         paths = pytree.tree_flatten_with_path((args, kwargs))[0]
-        tracer = pl.tracer if pl.enabled else None
+        tracer = pl.tracer if recorded else None
         with _span(tracer, f"compile.{self.cache}", "compile"):
             t0 = pl.clock_ns()
-            if dev.type != "cuda":
+            if dev.type != "cuda" or not self.capture:
                 prog = _Eager(self.fn, spec, dev)
                 out = prog.run(leaves)
                 t1 = t2 = pl.clock_ns()
@@ -1124,7 +1173,7 @@ class InstrumentedJit:
                 t2 = pl.clock_ns()
                 out = pytree.tree_unflatten(out_leaves, prog.out_spec)
         prog.info.update(lower_ms=(t1 - t0) / 1e6, compile_ms=(t2 - t1) / 1e6)
-        if pl.enabled:
+        if recorded:
             rec = pl.record_compile(
                 self.cache, self.entry, lower_ns=t1 - t0,
                 compile_ns=t2 - t1, cost={},
@@ -1137,14 +1186,116 @@ class InstrumentedJit:
         return prog, out
 
 
-def instrumented_jit(fn, *, cache: str, entry: Any,
-                     donate_argnums=()) -> InstrumentedJit:
+def instrumented_jit(fn, *, cache: str, entry: Any, donate_argnums=(),
+                     capture: bool = True) -> InstrumentedJit:
     """The module-cache building block:
     ``_CACHE[key] = instrumented_jit(fn, cache="stream.chunk",
     entry=key)``, the JAX package's ``instrumented_jit`` for a captured
     program."""
     return InstrumentedJit(fn, cache=cache, entry=entry,
-                           donate_argnums=donate_argnums)
+                           donate_argnums=donate_argnums, capture=capture)
+
+
+class SerialJit:
+    """A captured program of ``steps`` serial steps, the counterpart of
+    a JAX program that runs a step under ``lax.scan``.  ``make_body(n)``
+    is the body of ``n`` steps, ``(carry, t) -> (carry, t, outs)`` with
+    ``outs`` a tree of tensors on a leading ``[n]`` axis.  A CUDA graph
+    of every step would hold ``steps`` times a step's launches, so the
+    program captures a block of ``block`` steps, the carry donated
+    (written back into its static inputs), replays it ``steps // block``
+    times, then runs a remainder block of ``steps % block`` steps (a
+    second graph of the same entry), and joins ``outs`` in step order:
+    the same stream as the body of ``steps`` steps, for any ``steps``
+    and ``block``.  It is one cache entry: a signature's first call is
+    one compile record (the blocks' warm-ups and captures, summed), a
+    new signature a retrace, and the blocks' replays are replays.  The
+    carry it returns is the caller's own (a copy of the static
+    buffers).  On the CPU each block is its body run eagerly.  ``fn``
+    is the eager body of all ``steps``."""
+
+    __slots__ = ("fn", "cache", "entry", "steps", "block", "_parts",
+                 "_seen", "_mtx", "__weakref__")
+
+    def __init__(self, make_body, *, steps: int, block: int, cache: str,
+                 entry: Any):
+        self.steps = int(steps)
+        if self.steps < 1:
+            raise ValueError(f"a serial program needs a step, got "
+                             f"{self.steps}")
+        self.block = max(1, min(int(block), self.steps))
+        self.fn = make_body(self.steps)
+        self.cache = cache
+        self.entry = _entry_str(entry)
+        reps, rem = divmod(self.steps, self.block)
+        self._parts = [(n, InstrumentedJit(
+            make_body(size), cache=cache, entry=entry, donate_argnums=(0,),
+            record=False)) for n, size in ((reps, self.block), (1, rem))
+            if n and size]
+        self._seen: set = set()
+        self._mtx = threading.RLock()
+        _ALL_PROGRAMS.add(self)
+
+    def clear_compiled(self) -> None:
+        with self._mtx:
+            self._seen.clear()
+            for _, prog in self._parts:
+                prog.clear_compiled()
+
+    def captures(self) -> List[dict]:
+        """The blocks' captures, the full block first, each with the
+        times a call replays it (``replays``)."""
+        return [dict(c, replays=n) for n, prog in self._parts
+                for c in prog.captures()]
+
+    def __call__(self, carry, t):
+        leaves, spec = pytree.tree_flatten(((carry, t), {}))
+        sig = _signature(f"program {self.cache} {self.entry}", leaves,
+                         spec, (carry, t), {})
+        dev = _program_device(leaves)
+        args = (carry, t)
+        # a Python ``t`` is lifted once, so every block sees one signature
+        t = _lift(t, dev)
+        with self._mtx:
+            first = sig not in self._seen
+            held = [len(prog._programs) for _, prog in self._parts]
+            outs = []
+            for n, prog in self._parts:
+                for _ in range(n):
+                    carry, t, out = prog(carry, t)
+                    outs.append(out)
+            if first:
+                self._seen.add(sig)
+                self._record(held, args)
+        if dev.type == "cuda":
+            carry = pytree.tree_map(torch.clone, carry)
+        joined = outs[0] if len(outs) == 1 else pytree.tree_map(
+            lambda *xs: torch.cat(xs), *outs)
+        return carry, t, joined
+
+    def _record(self, held, args) -> None:
+        """One compile record of the programs the blocks made in this
+        call (``held``: each block's count of programs before it)."""
+        pl = _PLANE
+        if not pl.enabled:
+            return
+        infos = [p.info for (_, prog), n in zip(self._parts, held)
+                 for p in list(prog._programs.values())[n:]]
+        hbm: Dict[str, int] = {}
+        for info in infos:
+            for key, v in info.get("memory_analysis", {}).items():
+                hbm[key] = hbm.get(key, 0) + v
+        paths = pytree.tree_flatten_with_path((args, {}))[0]
+        rec = pl.record_compile(
+            self.cache, self.entry,
+            lower_ns=int(sum(i["lower_ms"] for i in infos) * 1e6),
+            compile_ns=int(sum(i["compile_ms"] for i in infos) * 1e6),
+            cost={}, hbm=hbm,
+            path_specs={pytree.keystr(p): _leaf_spec_readable(x)
+                        for p, x in paths})
+        tracer = pl.tracer
+        if tracer is not None:
+            tracer.instant(f"compile.{self.cache}.record", "compile", **rec)
 
 
 def aot_record(cache: str, entry: Any, fn, *args, donate_argnums=(),

@@ -30,13 +30,17 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 
 class Grouped:
     """A stacked ``[S, ...]`` tree cut into ``len(devices)`` contiguous
     blocks of shards: ``parts[g]`` is the stacked tree of group ``g``'s
     shards, on ``devices[g]``.  Not a tuple, so tree walkers never take
-    it for a node of the tree it holds."""
+    it for a node of the tree it holds.  It is a ``torch.utils._pytree``
+    node (its parts the children, its devices the context), so a
+    captured program (``obs/compile_plane.py``) takes a grouped argument
+    as its tensors, never as a constant."""
 
     __slots__ = ("parts", "devices")
 
@@ -81,6 +85,14 @@ class Grouped:
     def __repr__(self) -> str:
         return (f"Grouped({self.n_shards} shards over "
                 f"{[str(d) for d in self.devices]})")
+
+
+pytree.register_pytree_node(
+    Grouped, lambda g: (list(g.parts), g.devices),
+    lambda parts, devices: Grouped(parts, devices),
+    flatten_with_keys_fn=lambda g: (
+        [(pytree.SequenceKey(i), p) for i, p in enumerate(g.parts)],
+        g.devices))
 
 
 def is_grouped(tree) -> bool:

@@ -42,6 +42,12 @@ S=1 is bit-identical to the stream chunk by construction: both run
 replay are ``robust.guarded.run_mesh_chunk_guarded`` and
 ``mesh_chunk_host_replay``; the supervisor's mesh loop runs one chunk per
 checkpoint interval through them (``EpochJob(engine_loop="mesh")``).
+
+A chunk runs as a captured program of the module cache
+:func:`jit_mesh_chunk` (cache ``mesh.chunk``, the JAX package's key):
+one CUDA graph on a layout whose groups all lie on one card.  A layout
+over several distinct cards runs the chunk eagerly on them (one graph
+holds one device; ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -151,6 +157,23 @@ def _fault_leaf(a, dtype, dev):
     return a.to(device=dev, dtype=dtype)
 
 
+_FAULT_DTYPES = (torch.bool, torch.int64, torch.bool, torch.bool,
+                 torch.bool)
+
+
+def fault_inputs(faults, mesh: MeshLayout):
+    """A ``robust.faults.FaultChunk`` (numpy arrays, tensors or grouped)
+    as tensors of the chunk's dtypes laid out on ``mesh``: what a
+    captured chunk takes, since a numpy array cannot be a program's
+    input.  Tensors already so laid out pass through uncopied."""
+    if faults is None:
+        return None
+    vals = [on_mesh(_fault_leaf(a, dt, mesh.device), mesh)
+            for a, dt in zip(faults, _FAULT_DTYPES)]
+    return type(faults)(*vals) if hasattr(faults, "_fields") \
+        else tuple(vals)
+
+
 def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
                      m: int, k: int = 0, chain_depth: int = 4,
                      dt_epoch_ns: int, waves: int,
@@ -248,11 +271,8 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
             if faults is None:
                 raise ValueError("with_faults=True needs the FaultChunk "
                                  "arrays")
-            f_up, f_skew, f_delay, f_dup, f_prev = (
-                on_mesh(_fault_leaf(a, dt_, devs[0]), mesh)
-                for a, dt_ in zip(faults, (torch.bool, torch.int64,
-                                           torch.bool, torch.bool,
-                                           torch.bool)))
+            f_up, f_skew, f_delay, f_dup, f_prev = fault_inputs(faults,
+                                                                mesh)
             f_up, f_skew, f_delay, f_dup = (
                 [shard_view(a, s) for s in range(n_shards)]
                 for a in (f_up, f_skew, f_delay, f_dup))
@@ -351,9 +371,42 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
     return chunk
 
 
-# The JAX package's jit cache of mesh chunks; the mesh chunk is not yet
-# captured (ROADMAP.md section 1), so the name is the build function.
-jit_mesh_chunk = build_mesh_chunk
+# module cache of captured mesh chunks keyed by the layout and the full
+# static configuration, as the JAX package's ``_MESH_CHUNK_JIT_CACHE``
+_MESH_CHUNK_JIT_CACHE: dict = {}
+
+# the JAX chunk's knobs the port keeps in the key but does not build on
+_KEY_ONLY = ("wheel_kernel", "with_flight")
+
+
+def mesh_shape(mesh: MeshLayout) -> tuple:
+    """The JAX key's mesh shape of a layout: JAX places one shard a
+    device, so its mesh of ``S`` shards is ``(S,)``."""
+    return (mesh.n_shards,)
+
+
+def jit_mesh_chunk(mesh: MeshLayout, **cfg):
+    """The captured :func:`build_mesh_chunk` of ``mesh`` and ``cfg``
+    (cache ``mesh.chunk``, entry ``(mesh_shape,) + sorted(cfg.items())``
+    as in JAX; ``wheel_kernel`` and ``with_flight`` are kept in the key
+    and not built on: the device picks K2's route, and a flight ring
+    rides whenever one is passed).  Not donated, as in JAX.
+
+    On the stacked layout, and on groups that all lie on one card, the
+    chunk is one CUDA graph.  A layout over two or more distinct cards
+    cannot be (one graph, one device): its program runs the body
+    eagerly on those cards, with the same records.  That is read from
+    the layout before any capture, never from a failed one."""
+    from ..obs import compile_plane
+
+    key = (mesh_shape(mesh),) + tuple(sorted(cfg.items()))
+    full_key = (mesh,) + key
+    if full_key not in _MESH_CHUNK_JIT_CACHE:
+        build = {k: v for k, v in cfg.items() if k not in _KEY_ONLY}
+        _MESH_CHUNK_JIT_CACHE[full_key] = compile_plane.instrumented_jit(
+            build_mesh_chunk(mesh, **build), cache="mesh.chunk", entry=key,
+            capture=len(set(mesh.devices)) == 1)
+    return _MESH_CHUNK_JIT_CACHE[full_key]
 
 
 def shard_epoch_view(engine: str, outs: dict, s: int, i: int):

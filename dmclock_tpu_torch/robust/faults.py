@@ -124,8 +124,9 @@ class FaultChunk(NamedTuple):
     mask/value arrays plus the
     liveness entering the window (``up_prev``, [S] -- derived from the
     plan's previous step, so dropout/restart transitions land on the
-    same epochs the host loop sees).  Host numpy data; the chunk
-    copies them to its device."""
+    same epochs the host loop sees).  Host numpy data; a captured chunk
+    takes them as tensors on its layout
+    (``parallel.mesh.fault_inputs``)."""
 
     up: np.ndarray               # bool[S, E]
     skew_ns: np.ndarray          # int64[S, E]

@@ -30,11 +30,20 @@ minstop, radix -> sort, tag32 -> tag64).  The ladder never sees a CUDA
 error: those are not in :data:`RECOVERABLE_ERRORS`, so they propagate
 out of the job and nothing steps down for them.
 
-The stream chunk and its ingest leg run as captured programs
-(``engine.stream`` ``jit_stream_chunk``, ``jit_ingest_step``).  The JAX
-package's per-configuration jit caches of the epoch paths
-(``_jit_epoch``, ``_jit_serial``, ``_PRESSURE_PROBE_JIT``) are not yet
-captured: those paths run op by op (ROADMAP.md section 1).
+Every launch here is a captured program (``obs/compile_plane.py``) of
+a module cache under the JAX package's cache name and key: the epoch
+(:func:`_jit_epoch`, ``guarded.epoch``), its serial resume
+(:func:`_jit_serial`, ``guarded.serial``), the stream chunk and its
+ingest leg (``engine.stream``) and the mesh chunk (``parallel.mesh``
+``jit_mesh_chunk``).  Where the port differs from JAX: the JAX key of an
+epoch carries ``('wheel_kernel', ...)``, a knob the port has not got, so
+the port's key lacks that one item; the serial resume replays a captured
+block of ``engine.kernels.SERIAL_BLOCK`` steps and a remainder where JAX
+scans one step; and the host replay's pressure probe
+(:func:`_pressure_probe`) is a captured program kept out of the plane's
+records, as JAX's bare ``jax.jit`` is.  The count and guard read of an
+epoch (:func:`_count_and_guards`) and the wait for its device stay
+outside every program: they are an epoch's one read back.
 """
 
 from __future__ import annotations
@@ -113,6 +122,72 @@ class GuardedEpoch(NamedTuple):
     prov: object = None
 
 
+# module caches of captured programs keyed by the static epoch
+# configuration, as the JAX package's ``_EPOCH_JIT_CACHE``: the epoch
+# programs and the serial resumes share it
+_EPOCH_JIT_CACHE: dict = {}
+
+# the host replay's pressure probe: one captured program, outside the
+# plane's records
+_PRESSURE_PROBE_JIT: list = []
+
+
+def _jit_epoch(engine: str, m_run: int, kw: dict, tele_sig=()):
+    """The captured epoch of ``engine`` at ``m_run`` batches and the scan
+    kwargs ``kw`` (cache ``guarded.epoch``).  ``tele_sig`` names the
+    telemetry accumulators the program takes as its third argument, a
+    dict: inputs, never closed over, so one capture serves every call.
+    Not donated, as in JAX: a tripped epoch resumes from its input.  The
+    scan is looked up from ``fastpath.epoch_scan_fn`` each time the body
+    runs (each call on the CPU, the warm-up and the capture on the
+    card)."""
+    key = (engine, m_run, tuple(sorted(kw.items())), tele_sig)
+    if key not in _EPOCH_JIT_CACHE:
+        from ..engine import fastpath
+        from ..obs import compile_plane
+
+        if tele_sig:
+            def run(st, t, tele):
+                return fastpath.epoch_scan_fn(engine)(st, t, m=m_run, **kw,
+                                                      **tele)
+        else:
+            def run(st, t):
+                return fastpath.epoch_scan_fn(engine)(st, t, m=m_run, **kw)
+        _EPOCH_JIT_CACHE[key] = compile_plane.instrumented_jit(
+            run, cache="guarded.epoch", entry=key)
+    return _EPOCH_JIT_CACHE[key]
+
+
+def _jit_serial(steps: int, allow_limit_break: bool,
+                anticipation_ns: int):
+    """The captured serial resume ``(state, t) -> (state, t, decisions)``,
+    ``engine_run`` for ``steps`` steps at a fixed ``t`` (cache
+    ``guarded.serial``): ``engine.kernels.serial_program``'s blocks."""
+    key = ("serial", steps, allow_limit_break, anticipation_ns)
+    if key not in _EPOCH_JIT_CACHE:
+        from ..engine import kernels
+
+        _EPOCH_JIT_CACHE[key] = kernels.serial_program(
+            steps, allow_limit_break=allow_limit_break,
+            anticipation_ns=anticipation_ns, cache="guarded.serial",
+            entry=key)
+    return _EPOCH_JIT_CACHE[key]
+
+
+def _pressure_probe():
+    """``obs.provenance.pressure_vec`` captured for the host replay: the
+    integer-only reads of the fused chunk's in-epoch probe, so it equals
+    that probe bit for bit."""
+    if not _PRESSURE_PROBE_JIT:
+        from ..obs import compile_plane
+        from ..obs import provenance as obsprov
+
+        _PRESSURE_PROBE_JIT.append(compile_plane.InstrumentedJit(
+            obsprov.pressure_vec, cache="guarded.pressure_probe",
+            entry=(), record=False))
+    return _PRESSURE_PROBE_JIT[0]
+
+
 def _device_wait(state) -> None:
     """Wait for the state's device, or every group's device of a
     grouped tensor (the JAX ``block_until_ready``)."""
@@ -172,8 +247,10 @@ def run_epoch_guarded(state, now, *, engine: str = "prefix",
     ``guarded.dispatch`` around each call and ``guarded.device_wait``
     around the wait for the state's device, plus ``guarded.retry``,
     ``guarded.rebase_resume`` and ``guarded.serial_resume`` instants.
-    The JAX package's ``wheel_kernel`` knob has no counterpart: the
-    device picks kernel K2's route."""
+    Each call is a captured program (:func:`_jit_epoch`,
+    :func:`_jit_serial`); a new ``m`` of the int64 resume is a new entry,
+    as in JAX.  The JAX package's ``wheel_kernel`` knob has no
+    counterpart: the device picks kernel K2's route."""
     from ..engine import fastpath, kernels
     from ..engine.kernels import as_scalar
     from ..obs import spans as _spans
@@ -187,7 +264,6 @@ def run_epoch_guarded(state, now, *, engine: str = "prefix",
         anticipation_ns=anticipation_ns,
         allow_limit_break=allow_limit_break,
         with_metrics=with_metrics)
-    fn = fastpath.epoch_scan_fn(engine)
     retry_count = [0]
 
     def count_retry(attempt, exc):
@@ -207,11 +283,12 @@ def run_epoch_guarded(state, now, *, engine: str = "prefix",
                                   sleep=sleep, on_retry=count_retry)
 
     def attempt(st, t, m_run, width):
+        fn = _jit_epoch(engine, m_run, {**kw, "tag_width": width}, tele_sig)
+
         def one():
             with _spans.span(tracer, "guarded.dispatch", "dispatch",
                              engine=engine, m=m_run):
-                out = fn(st, t, m=m_run, **{**kw, "tag_width": width},
-                         **tele)
+                out = fn(st, t, tele) if tele_sig else fn(st, t)
             with _spans.span(tracer, "guarded.device_wait",
                              "device_compute"):
                 _device_wait(out.state)
@@ -252,15 +329,14 @@ def run_epoch_guarded(state, now, *, engine: str = "prefix",
             serial_fb = 1
             _spans.instant(tracer, "guarded.serial_resume", "retry",
                            remaining=remaining)
-            steps = max(remaining, 1) * max(k, 1)
+            run = _jit_serial(max(remaining, 1) * max(k, 1),
+                              allow_limit_break, anticipation_ns)
             st0 = state
 
             def serial_one():
                 with _spans.span(tracer, "guarded.dispatch", "dispatch",
                                  engine="serial"):
-                    out = kernels.engine_run(
-                        st0, t, steps, allow_limit_break=allow_limit_break,
-                        anticipation_ns=anticipation_ns, advance_now=False)
+                    out = run(st0, t)
                 with _spans.span(tracer, "guarded.device_wait",
                                  "device_compute"):
                     _device_wait(out[0])
@@ -746,6 +822,9 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
     ``epoch0``: the grouped program only for a fault-free chunk whose
     ``epochs`` divides by ``counter_sync_every`` > 1 and whose
     ``epoch0`` lies on the sync grid (the bit-identity condition).  The
+    chunk is a captured program (``parallel.mesh.jit_mesh_chunk``; the
+    draws and the fault arrays become tensors on the layout before the
+    call), run eagerly on a layout over several distinct cards.  The
     JAX package's ``wheel_kernel`` knob has no counterpart: the device
     picks kernel K2's route, and every shard runs on the current
     stream."""
@@ -771,7 +850,7 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
         collective_skipping = (faults is None and every > 1
                                and epochs % every == 0
                                and int(epoch0) % every == 0)
-    fn = mesh_mod.build_mesh_chunk(
+    fn = mesh_mod.jit_mesh_chunk(
         mesh, engine=engine, epochs=epochs, m=m, k=k,
         chain_depth=chain_depth, dt_epoch_ns=dt_epoch_ns, waves=waves,
         anticipation_ns=anticipation_ns,
@@ -781,7 +860,7 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
         counter_sync_every=counter_sync_every,
         collective_skipping=collective_skipping,
         ingest=counts is not None, with_faults=faults is not None,
-        with_pressure=with_pressure)
+        with_flight=flight is not None, with_pressure=with_pressure)
     retry_count = [0]
 
     def count_retry(attempt, exc):
@@ -794,13 +873,15 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
     counts_dev = None
     if counts is not None:
         counts_dev = _shard_counts(counts, devs)
+    faults_dev = mesh_mod.fault_inputs(faults, mesh)
 
     def one():
         with _spans.span(tracer, "mesh.dispatch", "dispatch",
                          engine=engine, epochs=epochs, shards=n_shards,
                          chaos=faults is not None):
             out = fn(state, cd, cr, view_d, view_r, int(epoch0),
-                     counts_dev, hists, ledger, slo, prov, flight, faults)
+                     counts_dev, hists, ledger, slo, prov, flight,
+                     faults_dev)
         with _spans.span(tracer, "mesh.device_wait", "device_compute"):
             _device_wait(out.cd)
         return out
@@ -885,9 +966,12 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
     the current stream on the card the state lies on, as the fused chunk
     does, and launches the same kernels.  The views ``x[s]`` are read,
     never written: every step returns new tensors, and the restack at
-    the end copies.  A grouped layout (``parallel.groups``) replays each
-    shard on its own group's device and restacks by group; the counter
-    sum is a host sum, as on one device."""
+    the end copies.  Each shard's epoch is a ``guarded.epoch`` program
+    and the probe :func:`_pressure_probe`: the views of one stack share
+    one signature, so one capture serves every shard.  A grouped layout
+    (``parallel.groups``) replays each shard on its own group's device
+    and restacks by group; the counter sum is a host sum, as on one
+    device."""
     import numpy as np
 
     from ..engine import fastpath
@@ -978,7 +1062,7 @@ def mesh_chunk_host_replay(state, cd, cr, view_d, view_r,
             if press_np is not None:
                 # the fused chunk's probe: post-ingest, pre-serve, at
                 # the shard's (skewed) serve time
-                press_np[s] = np.maximum(press_np[s], obsprov.pressure_vec(
+                press_np[s] = np.maximum(press_np[s], _pressure_probe()(
                     sts[s], t_base + skew + dt).cpu().numpy())
             w_prev = cur["slo"][s]
             ep = run_epoch_guarded(

@@ -5,7 +5,9 @@ The epoch loop is a resumable job under a supervisor:
 
 - the job runs epochs of any of the three epoch engines through the
   guarded-commit contract (``robust.guarded.run_epoch_guarded``),
-  ingesting Poisson arrivals drawn from a checkpointed host RNG;
+  ingesting Poisson arrivals drawn from a checkpointed host RNG (the
+  round loop's ingest is the captured program :func:`_jit_ingest`, the
+  JAX package's ``supervisor.ingest`` cache);
 - at checkpoint boundaries it writes rotating crash-safe snapshots
   (``utils.checkpoint.save_pytree_rotating``) of the full run state: the
   engine state, the metrics vector, the RNG state, the decision-stream
@@ -678,6 +680,37 @@ def _draw_counts(rng: np.random.Generator, job: EpochJob,
                      .astype(np.int32) for _ in range(epochs)])
 
 
+# module cache of the round loop's captured ingest, as the JAX
+# package's ``_INGEST_JIT_CACHE``
+_INGEST_JIT_CACHE: dict = {}
+
+
+def _jit_ingest(job: EpochJob):
+    """The captured superwave ingest ``(state, counts, t_base) -> state``
+    of the job's static shape (cache ``supervisor.ingest``): waves
+    ``dt_epoch_ns // waves`` apart from ``t_base``, unit costs.  The
+    counts come clamped to the ring's headroom by the host, which reads
+    the depth as the JAX loop does."""
+    key = (job.n, job.ring, job.waves, job.dt_epoch_ns)
+    if key not in _INGEST_JIT_CACHE:
+        from ..engine.kernels import ingest_superwave
+        from ..obs import compile_plane
+
+        n, waves, dt_wave = job.n, job.waves, job.dt_epoch_ns // job.waves
+
+        def ingest(st, counts, t_base):
+            dev = st.device
+            wave_times = t_base + torch.arange(
+                waves, dtype=torch.int64, device=dev) * dt_wave
+            cost = torch.ones((n,), dtype=torch.int64, device=dev)
+            return ingest_superwave(st, counts, wave_times, cost, cost,
+                                    cost, anticipation_ns=0)
+
+        _INGEST_JIT_CACHE[key] = compile_plane.instrumented_jit(
+            ingest, cache="supervisor.ingest", entry=key)
+    return _INGEST_JIT_CACHE[key]
+
+
 def _draw_counts_churn(rng: np.random.Generator, spec: dict,
                        e0: int, e1: int) -> np.ndarray:
     """Raw per-epoch draws of a churn spec, ``int32[e1 - e0,
@@ -1240,15 +1273,12 @@ def _round_epochs(run: _Run) -> None:
     the host-clamped superwave ingest, one guarded epoch, the drain; an
     SLO roll and a checkpoint at each boundary."""
     from ..engine import stream as stream_mod
-    from ..engine.kernels import ingest_superwave
     from ..lifecycle import churn as churn_mod
     from ..obs import spans as _spans
 
     job, dev, plane = run.job, run.dev, run.plane
-    dt_wave = job.dt_epoch_ns // job.waves
-    ones = torch.ones((job.n,), dtype=torch.int64, device=dev)
-    wave_off = torch.arange(job.waves, dtype=torch.int64,
-                            device=dev) * dt_wave
+    ingest = _jit_ingest(job) if plane is None and job.arrival_lam > 0 \
+        else None
     for epoch in range(run.start_epoch, job.epochs):
         # the epoch span stays open across a crash: the tracer dies with
         # the incarnation and the flushed stream keeps completed epochs
@@ -1268,19 +1298,17 @@ def _round_epochs(run: _Run) -> None:
                 run.state = stream_mod.jit_ingest_step(
                     dt_epoch_ns=job.dt_epoch_ns, waves=job.waves)(
                         run.state, counts, t_base)
-        elif job.arrival_lam > 0:
-            # the JAX package's ``_jit_ingest``: not yet captured, this
-            # leg runs op by op (ROADMAP.md section 1)
+        elif ingest is not None:
+            # the host clamps to the headroom (one read of the depth, as
+            # in the JAX loop); the ingest is a captured program
             with _spans.span(run.tracer, "supervisor.ingest", "ingest"):
                 headroom = job.ring - run.state.depth.cpu().numpy() \
                     .astype(np.int64)
                 counts = run.clamp(np.minimum(
                     run.rng.poisson(job.arrival_lam, job.n),
                     np.minimum(headroom, job.waves)).astype(np.int32))
-                run.state = ingest_superwave(
-                    run.state, torch.from_numpy(counts).to(dev),
-                    wave_off + t_base, ones, ones, ones,
-                    anticipation_ns=0)
+                run.state = ingest(run.state,
+                                   torch.from_numpy(counts).to(dev), t_base)
 
         def launch(cfg, t=t_base + job.dt_epoch_ns):
             return run_epoch_guarded(

@@ -2526,7 +2526,7 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
     # chunks start at multiples of chunk, so chunk % K == 0 keeps every
     # group head on the sync grid
     skipping = fplan is None and every > 1 and chunk % every == 0
-    fn = mesh_mod.build_mesh_chunk(
+    fn = mesh_mod.jit_mesh_chunk(
         mesh, engine=engine, epochs=chunk, m=m, k=k,
         dt_epoch_ns=dt_epoch_ns, waves=waves, with_metrics=with_metrics,
         counter_sync_every=counter_sync_every, ingest=True,
@@ -2540,9 +2540,8 @@ def mesh_row(clients: int = MESH["clients"], *, n_shards=None,
     def fault_chunk(e0):
         if fplan is None:
             return None
-        return tuple(mesh_mod.place_shards(
-            torch.from_numpy(np.ascontiguousarray(a)).to(dev), mesh)
-            for a in faults_mod.plan_chunk(fplan, e0, e0 + chunk))
+        return mesh_mod.fault_inputs(
+            faults_mod.plan_chunk(fplan, e0, e0 + chunk), mesh)
 
     fault_mets = []
 

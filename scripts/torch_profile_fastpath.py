@@ -199,9 +199,11 @@ def _row(name: str, seconds: float, cost: dict, peaks: dict,
                peak_bytes_per_s=peaks["peak_bytes_per_s"],
                peak_share=None if bps is None
                else bps / peaks["peak_bytes_per_s"], **extra)
+    dps = extra.get("decisions_per_s")
+    # a differenced pair that is not positive (host jitter) has no rate
     rate = "" if "decisions_per_s" not in extra else \
         (f"  ({extra['decisions_per_batch']:9.1f} dec/batch, "
-         f"{extra['decisions_per_s'] / 1e6:7.2f} M dec/s)")
+         + ("-" if dps is None else f"{dps / 1e6:7.2f}") + " M dec/s)")
     share = "-" if row["peak_share"] is None else \
         f"{row['peak_share']:.4f}"
     print(f"{name:58s} {seconds * 1e6:11.1f} us/{unit}{rate}  "

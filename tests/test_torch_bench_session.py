@@ -8,11 +8,13 @@ groups in the port).  Held: the line's key set (the port's ``device``
 in), every field that does not read the wall clock or is measured
 differently, bench's programs in the compile planes (``bench.serve``,
 ``bench.round`` and ``bench.chunk``: equal compiles and retraces, no
-dispatch fallback), the metric text with its
-rates masked, ``vs_baseline == round(value / 1e7, 4)``, and the
-"skipped" lines.  Then the session's own contract: a failing row prints
-bench's error line and exits non-zero; a guard trip steps radix to sort
-and the row is keyed ``serve``; a CUDA error re-raises without a step;
+dispatch fallback) and the module caches its rows run through
+(``guarded.epoch``, ``mesh.chunk`` and the others of
+``SESSION_CACHES``), the metric text with its rates masked,
+``vs_baseline == round(value / 1e7, 4)``, and the "skipped" lines.
+Then the session's own contract: a failing row prints bench's error
+line and exits non-zero; a guard trip steps radix to sort and the row
+is keyed ``serve``; a CUDA error re-raises without a step;
 ``--trace-out``, ``--metrics-port 0`` and ``--profile`` each leave their
 output."""
 
@@ -49,8 +51,13 @@ JAX_ONLY = set()
 PORT_ONLY = {"device", "devices", "n_groups", "digest"}
 BOUND_CLASSES = {"compute_bound", "memory_bound", "dispatch_bound",
                  "unknown"}
-# the programs bench captures for its rows (``aot_record``)
+# the programs bench captures for its rows (``aot_record``), and the
+# module caches its rows run through: the guarded epochs of the churn
+# row, the mesh chunks of the mesh rows
 BENCH_CACHES = ("bench.serve", "bench.round", "bench.chunk")
+SESSION_CACHES = BENCH_CACHES + ("guarded.epoch", "guarded.serial",
+                                 "mesh.chunk", "supervisor.ingest",
+                                 "fastpath.runner")
 MODES = {
     "all": ["--mode", "all"],          # on the CPU: bench's serve row alone
     "serve": ["--mode", "serve"],
@@ -103,11 +110,11 @@ def assert_same(want, got, path="line"):
         assert got == want, path
 
 
-def bench_programs(pl) -> list:
-    """``(cache, compiles, retraces)`` of bench's own programs in a
-    compile plane."""
+def bench_programs(pl, caches=BENCH_CACHES) -> list:
+    """``(cache, compiles, retraces)`` of bench's own programs (or of
+    ``caches``) in a compile plane."""
     return sorted((e["cache"], e["compiles"], e["retraces"])
-                  for e in pl.entries() if e["cache"] in BENCH_CACHES)
+                  for e in pl.entries() if e["cache"] in caches)
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -119,8 +126,12 @@ def test_session_line_equals_bench(monkeypatch, capsys, mode):
     want = jax_line(monkeypatch, capsys, argv)
     got = port_line(capsys, argv + (["--devices", "cpu,cpu,cpu,cpu"]
                                     if mode == "mesh" else []))
-    # bench's programs: one capture a row where bench compiles one
+    # bench's programs: one capture a row where bench compiles one; the
+    # guarded epochs and mesh chunks its rows run: the same entries,
+    # compiles and retraces
     assert bench_programs(tcp.plane()) == bench_programs(jcp.plane())
+    assert bench_programs(tcp.plane(), SESSION_CACHES) == \
+        bench_programs(jcp.plane(), SESSION_CACHES)
     if mode in ("all", "serve", "cfg3"):
         assert bench_programs(tcp.plane()), mode
         assert got["compile"]["compiles"] >= 1

@@ -502,11 +502,15 @@ def test_cuda_error_is_not_retried_or_restarted(cuda, tmp_path,
     RuntimeError) leaves the trampoline at once: no retry, no ladder
     step, no restart.  The error is raised by hand: a real one would
     poison this process's context for the tests after it."""
+    from dmclock_tpu_torch.robust import guarded as TG
     from dmclock_tpu_torch.robust import host_faults as TH
     from dmclock_tpu_torch.robust import supervisor as TS
 
     err = getattr(torch, "AcceleratorError", RuntimeError)
     calls = [0]
+    # a fresh epoch cache: a program an earlier test captured would
+    # replay its graph without calling the scan
+    monkeypatch.setattr(TG, "_EPOCH_JIT_CACHE", {})
 
     def broken(engine):
         def scan(*a, **k):
