@@ -127,7 +127,9 @@ Phases (any failure raises and the exit code is not 0):
     reset just before and read just after (it launches neither K1 nor
     K2), held against the same sequence on the CPU: every ``PullReq``,
     counter, ledger, SLO and departed row and the final state field by
-    field must be equal;
+    field must be equal.  Every launch runs a program of the ``queue``
+    cache (captured serial blocks, eager ingest); the phase prints the
+    cache's compile records and the blocks' nodes, capture ms and pools;
 18. the ``push`` path: ``serve.virtual_server`` (1,000 clients, 32
     service slots, the virtual-time embedding): the push queue on the
     card dispatches in the order the pull queue does on the CPU on the
@@ -154,15 +156,15 @@ Phases (any failure raises and the exit code is not 0):
 
 20. supervised epoch jobs (``robust.supervisor``) at full width, each
     in-process run launch-counted: ``supervised_prefix`` (N=100,000,
-    ring 128 preloaded 64 deep, 4 epochs of m=8 prefix batches of
-    k=65,536, 8 waves, a checkpoint every 2 epochs, histograms, ledger,
+    ring 128 preloaded 64 deep, 2 epochs of m=8 prefix batches of
+    k=65,536, 8 waves, a checkpoint every epoch, histograms, ledger,
     a 1,024-row flight ring, provenance and SLO on; about 0.22 GB of
     state and a snapshot as large, up to 4 kept): the bare run, the
     empty plan bit-identical to it, a sampled plan (two kills, a torn
     save, a rotted snapshot) crash-equivalent, and the stream loop's
     digest equal to the round loop's; ``supervised_prefix_short``, the
-    same job cut to 2 epochs with a snapshot after each, held against
-    its CPU twin on every field; ``supervised_spawn``, that short job in
+    same job (its bare run), held against its CPU twin on every field;
+    ``supervised_spawn``, that short job in
     spawn mode with its child SIGKILLed just past half its decisions and
     resumed from a rotation snapshot, the resumed child's start (the
     parent's spawn to its initial state, its ``supervisor.child_start``
@@ -172,7 +174,8 @@ Phases (any failure raises and the exit code is not 0):
     ``supervised_wheel`` (the wheel calendar at N=100,000, ring 128, m=3,
     k=64, 8 levels, 2 epochs) killed after epoch 1's snapshot, so K2 runs
     after a resume; ``supervised_churn`` (the churn row's shape as a
-    stream job, a checkpoint every 4 epochs) killed at half and equal to
+    stream job of 32 epochs, a checkpoint every 4) killed at half and
+    equal to
     its CPU twin.  The checkpoint saves' wall share and the replay come
     from the supervisor's span log.  The SLO evaluator logs one line per
     alert to stderr, some 10^5 a roll at this width: the phase sends
@@ -265,7 +268,7 @@ Phases (any failure raises and the exit code is not 0):
     equivalent; bench's ``rpc`` row on loopback sockets, clean and
     under ``RPC_CHAOS`` (``digest_match`` and ``chaos_exact``); ``rpc_full``,
     the serving loop at 100,000 clients (``RPC_FULL``, 4 epochs) fed by
-    4 loadgen processes of 8,192 requests: live, serving from the first
+    4 loadgen processes of 4,096 requests: live, serving from the first
     admitted op while the requests arrive, its journal's replay equal on
     the card (``digest_match``); then, as the uninterrupted reference,
     the same with every op admitted before the first take, and a serving
@@ -381,13 +384,28 @@ Phases (any failure raises and the exit code is not 0):
     captured ends with ``release_programs()`` (``clear_compiled`` and
     ``empty_cache``).  Every sustained row, calibration and stream
     chunk of the earlier phases runs through these programs: their K1
-    counts include the capture's warm-up round.
+    counts include the capture's warm-up round.  (c) The serial-engine programs (``phase_serial_programs``:
+    ``compile_plane.StagedJit``, captured ``kernels.serial_leg`` blocks
+    and eager ingest legs), each call held against its body run under
+    ``compile_plane.eager``: the ``queue`` cache's ``run`` (a
+    ``pull_batch`` of two blocks and a remainder), ``run_h`` and
+    ``run_stream`` on phase 17's final state, 0 syncs a call; the dry
+    run's ``cluster.cluster_step`` (8 x 10,000, 32 decisions a step),
+    ``cluster.robust_cluster_step`` under a single outage and
+    ``cluster.mesh_rounds`` at K=1, each call the eager body's syncs
+    (the waves' reads), the captured legs none; one server's leg alone
+    under the sync debug mode's errors; then ``release_programs`` leaves
+    no capture in these caches.  Phases 17-18, 21 and 22 (e) (and the
+    dry run over groups in 25 (c)) run these programs: the queue's, the
+    simulators' queues' and the dry run's (an unrecorded
+    ``bare_step_jit``), each still held against its CPU twin or the
+    host oracle.
 
 The CPU runs of phases 17-20 run beside the card's, in a child process
 on four CPU threads (``start_cpu_twins``) started only then, so the
 earlier phases' host-paced timings have no CPU load beside them; the
-card runs phases 17 and 18 before either is held against its twin, so
-the twins have that time to finish.  The CPU twin of
+card runs phases 17-19 before any is held against its twin, so the
+twins have that time to finish.  The CPU twin of
 ``supervised_prefix_short`` runs in a second child, started as phase 20
 begins (``start_cpu_sup_twin``).  The script stops the children on any
 failure.
@@ -470,19 +488,19 @@ FRONTIER_CUT = dict(points=((2, 64), (3, 64)), rounds_lo=2, rounds=4,
                     reps=1, latency_rounds=8)
 FRONTIER_TARGET_MS = 400.0
 # phase 20: supervised epoch jobs (robust.supervisor.EpochJob kwargs)
-SUP_PREFIX = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=4,
-                  m=8, k=65536, waves=8, arrival_lam=2.0, ckpt_every=2,
+SUP_PREFIX = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=2,
+                  m=8, k=65536, waves=8, arrival_lam=2.0, ckpt_every=1,
                   with_hists=True, with_ledger=True, flight_records=1024,
                   with_prov=True, with_slo=True)
-# the spawn job and the twin of a CPU run: supervised_prefix cut to 2
-# epochs with a snapshot after each
-SUP_SHORT = dict(SUP_PREFIX, epochs=2, ckpt_every=1)
+# the spawn job and the twin of a CPU run: 2 epochs with a snapshot
+# after each, since the depth cut supervised_prefix itself
+SUP_SHORT = SUP_PREFIX
 SUP_LADDER = dict(SUP_SHORT, tag_width=32, tag_spread_ns=2 ** 31 + 1,
                   ladder=True, ladder_threshold=1)
 SUP_WHEEL = dict(engine="calendar", calendar_impl="wheel", n=100_000,
                  ring=128, depth=64, m=3, k=64, ladder_levels=8, epochs=2,
                  ckpt_every=1)
-SUP_CHURN = dict(engine="prefix", n=4096, ring=32, epochs=64, m=4, k=256,
+SUP_CHURN = dict(engine="prefix", n=4096, ring=32, epochs=32, m=4, k=256,
                  waves=8, dt_epoch_ns=50_000_000, seed=11, ckpt_every=4,
                  with_slo=True, engine_loop="stream")
 SUP_CHURN_SPEC = dict(total_ids=4096, seed=11, base_lam=2.0,
@@ -2563,14 +2581,10 @@ def phase_supervised(ext, card: str, tmp: str):
                    supervised_prefix_plan=l_plan["ring_window"],
                    supervised_prefix_stream=l_stream["ring_window"])
 
-    # supervised_prefix_short (held against its CPU twin after the
-    # phase), then supervised_spawn: its child SIGKILLed at half
-    short, l_short, w_short = _sup_run(
-        ext, "supervised_prefix_short bare", lambda: TS.run_job(
-            job(SUP_SHORT), device="cuda"))
-    if short.decisions != SUP_SHORT["epochs"] * per:
-        raise AssertionError(f"supervised_prefix_short: {short.decisions} "
-                             f"decisions, want {per} an epoch")
+    # supervised_prefix_short, the bare run above (held against its CPU
+    # twin after the phase), then supervised_spawn: its child SIGKILLed
+    # at half
+    short, w_short = ref, w_ref
     spans1 = os.path.join(tmp, "spans_spawn.jsonl")
     w2 = wd("spawn")
     # just past half: the child dies after epoch 1, before its snapshot,
@@ -2632,8 +2646,7 @@ def phase_supervised(ext, card: str, tmp: str):
         f"({lref.ladder_steps[0]['reason']}); the killed run resumed at "
         f"tag64 and is crash-equivalent")
     shutil.rmtree(w3)
-    by_path.update(supervised_prefix_short=l_short["ring_window"],
-                   supervised_ladder=l_lad["ring_window"],
+    by_path.update(supervised_ladder=l_lad["ring_window"],
                    supervised_ladder_killed=l_lad2["ring_window"])
 
     # phase 29 (b)'s guarded.epoch at the wheel jobs' shape, held first:
@@ -3558,15 +3571,15 @@ CTL_CHURN = dict(SUP_CHURN, controller=True)
 RPC_ROW = dict(n=32, epochs=16, requests=64, workers=4)
 RPC_CHAOS = "seed=7,p_drop=0.1,p_dup=0.05,p_reorder=0.05"
 # rpc_full: the supervised_prefix cell's state (0.2195 GB) behind the
-# ingest server, fed by 4 loadgen workers of 8,192 requests over the
+# ingest server, fed by 4 loadgen workers of 4,096 requests over the
 # 100,000 ids; the live leg serves from the first admitted op on, while
 # the requests arrive; the kill leg and its uninterrupted reference wait
 # for every op before the first take (a trace fixed by the schedule).
-# Cut in depth to 4 epochs (2 boundaries) and 8,192 requests a worker
+# Cut in depth to 4 epochs (2 boundaries) and 4,096 requests a worker
 # to keep the script inside its time
 RPC_FULL = dict(engine="prefix", n=100_000, depth=64, ring=128, epochs=4,
                 m=8, k=65536, waves=8, ckpt_every=2)
-RPC_LOAD = dict(workers=4, requests=8192, n_clients=100_000, max_nops=3,
+RPC_LOAD = dict(workers=4, requests=4096, n_clients=100_000, max_nops=3,
                 seed=7)
 # bench's mesh_rebalance row at its shape, then at the supervised mesh
 # churn cell's population (shard_skew, 4,096 ids over 4 shards, capacity
@@ -5726,6 +5739,266 @@ def phase_guarded_programs(serve, ext, card: str) -> tuple:
     return k1, k2, recs
 
 
+def _staged_record(prog, legs) -> dict:
+    """A staged program's capture record: the blocks of its serial legs
+    (``legs``, shared with other entries, so captured by whichever
+    entry ran them first) with nodes a block, warm-up and capture ms,
+    pool and static bytes summed."""
+    caps = [dict(c) for leg in legs for c in leg.captures()]
+    mem = {}
+    for c in caps:
+        for k, v in c.get("memory_analysis", {}).items():
+            mem[k] = mem.get(k, 0) + v
+    return dict(graph_nodes=[c.get("graph_nodes") for c in caps],
+                replays=[c["replays"] for c in caps],
+                lower_ms=sum(c["lower_ms"] for c in caps),
+                compile_ms=sum(c["compile_ms"] for c in caps),
+                pool_bytes=mem.get("pool_bytes", 0),
+                static_bytes=mem.get("argument_bytes", 0),
+                captured_here=len(prog.captures()))
+
+
+def _held_staged(ext, name: str, prog, legs, calls, nxt,
+                 host_reads: bool) -> dict:
+    """A staged program (``compile_plane.StagedJit``) on the card: its
+    first call (its legs' warm-ups and captures), then 3 calls of the
+    same signature with changed inputs (``nxt(args, out, i)``), each
+    held bit for bit against the body run eagerly
+    (``compile_plane.eager``) on a clone of its inputs, both timed by
+    CUDA events, no K1 or K2.  The synchronising operations of each
+    call are counted (the sync debug mode): with no host leg
+    (``host_reads`` False) the calls run under its errors, so 0; with
+    one, a call makes exactly the eager body's (the ingest legs'
+    reads), the captured legs none.  ``calls``/``nxt`` give ``(args,
+    kwargs)``.  Returns the record, printed."""
+    from dmclock_tpu_torch.obs import compile_plane
+
+    from torch.utils import _pytree as pytree
+
+    def clone(tree):
+        return pytree.tree_map(
+            lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    prog(*calls[0], **calls[1])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    plane0 = [e for e in _plane().entries() if e["cache"] == prog.cache
+              and e["entry"] == prog.entry]
+    args = calls
+    replay_ms, eager_ms, syncs = [], [], []
+    for i in range(3):
+        ref = clone(args)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+        def eager_run():
+            ev[0].record()
+            with compile_plane.eager():
+                out = prog.fn(*ref[0], **ref[1])
+            ev[1].record()
+            return out
+
+        want, want_syncs = _capture_syncs(eager_run)
+
+        def replay():
+            ev[2].record()
+            out = prog(*args[0], **args[1])
+            ev[3].record()
+            return out
+
+        if host_reads:
+            got, got_syncs = _capture_syncs(replay)
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = replay()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            got_syncs = []
+        _same_leaves(got, want, f"{name} call {i + 1} against its eager "
+                     f"body")
+        if len(got_syncs) != len(want_syncs) or \
+                (not host_reads and want_syncs):
+            raise AssertionError(f"{name} call {i + 1}: "
+                                 f"{len(got_syncs)} syncs, the eager body "
+                                 f"{len(want_syncs)}")
+        syncs.append(len(got_syncs))
+        eager_ms.append(ev[0].elapsed_time(ev[1]))
+        replay_ms.append(ev[2].elapsed_time(ev[3]))
+        args = nxt(args, got, i)
+        del want, got, ref
+    if any(ext.LAUNCHES.values()):
+        raise AssertionError(f"{name}: launched {dict(ext.LAUNCHES)}")
+    ents = [e for e in _plane().entries() if e["cache"] == prog.cache and
+            e["entry"] == prog.entry]
+    if ents and plane0 and ents[0]["compiles"] != plane0[0]["compiles"]:
+        raise AssertionError(f"{name}: a later call of the signature "
+                             f"compiled again")
+    rec = dict(_staged_record(prog, legs), first_call_s=first_s,
+               syncs_a_call=syncs, replay_ms=replay_ms, eager_ms=eager_ms,
+               compiles=ents[0]["compiles"] if ents else None,
+               retraces=ents[0]["retraces"] if ents else None)
+    log(f"[programs] {name} ({prog.cache} {prog.entry}): "
+        + json.dumps(rec))
+    return rec
+
+
+def _queue_programs_line(what: str, before: dict) -> None:
+    """The ``queue`` cache's records since ``before`` (the plane's
+    compiles and retraces then) and the captures its programs' legs
+    hold: what a queue phase captured, and its pools."""
+    from dmclock_tpu_torch.engine import kernels
+    from dmclock_tpu_torch.engine import queue as TQ
+
+    ents = [e for e in _plane().entries() if e["cache"] == "queue"]
+    comp = sum(e["compiles"] for e in ents) - before.get("compiles", 0)
+    retr = sum(e["retraces"] for e in ents) - before.get("retraces", 0)
+    caps = [c for leg in kernels._SERIAL_LEGS.values()
+            if hasattr(leg, "captures") for c in leg.captures()]
+    mems = [c.get("memory_analysis", {}) for c in caps]
+    log(f"[programs] {what}: the queue cache's {len(TQ._JIT_CACHE)} "
+        f"programs, {comp} compile records ({retr} retraces) in this "
+        f"phase; {len(caps)} serial blocks captured, "
+        f"{sum(c.get('graph_nodes') or 0 for c in caps)} graph nodes, "
+        f"{sum(c['compile_ms'] for c in caps):.1f} ms of capture, "
+        f"{sum(c['lower_ms'] for c in caps):.1f} ms of warm-up, pools "
+        f"{sum(m.get('pool_bytes', 0) for m in mems)} bytes, static "
+        f"inputs {sum(m.get('argument_bytes', 0) for m in mems)} bytes")
+
+
+def _queue_plane_mark() -> dict:
+    ents = [e for e in _plane().entries() if e["cache"] == "queue"]
+    return dict(compiles=sum(e["compiles"] for e in ents),
+                retraces=sum(e["retraces"] for e in ents))
+
+
+def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
+    """Phase 29 (c): the serial-engine programs (``compile_plane.
+    StagedJit``: captured ``kernels.serial_leg`` blocks, eager ingest
+    legs) on the card, each held by :func:`_held_staged`: the ``queue``
+    cache's ``run`` (a ``pull_batch`` of two blocks and a remainder),
+    ``run_h`` (a prefetch of a block) and ``run_stream`` (2 windows of a
+    block and a remainder) on the ``queue`` cell's state (phase 17's
+    final state, capacity 16,384, ring 32), 0 syncs a call; the dry
+    run's ``cluster.cluster_step`` (8 x 10,000, 32 decisions a step) and
+    ``cluster.robust_cluster_step`` under the dry run's single outage,
+    and ``cluster.mesh_rounds`` at K=1 (1 round), each call's syncs the
+    eager body's (the waves' reads).  Then one server's serial leg at
+    the dry-run shape, 3 calls under the sync debug mode's errors
+    against ``engine_run``; last, ``release_programs`` drops every
+    capture of these caches.  Returns the records."""
+    from dmclock_tpu_torch.engine import kernels
+    from dmclock_tpu_torch.engine import queue as TQ
+    from dmclock_tpu_torch.obs import device as obsdev
+    from dmclock_tpu_torch.parallel import cluster as CL
+    from dmclock_tpu_torch.robust import cluster as RC
+    from dmclock_tpu_torch.robust import faults as TF
+
+    t_phase = time.perf_counter()
+    recs = {}
+    steps = 2 * kernels.SERIAL_BLOCK + SERIAL_STEPS_EXTRA
+    block = kernels.SERIAL_BLOCK
+    t0 = serve.QUEUE["dt_round_ns"] + 7 * serve.QUEUE["stream_dt_ns"]
+
+    def leg(n, **kw):
+        return kernels.serial_leg(n, allow_limit_break=False,
+                                  anticipation_ns=0, **kw)
+
+    prog = TQ._shared_jit_run(steps, False, False, 0)
+    recs["queue run"] = _held_staged(
+        ext, "queue run", prog, [leg(steps)],
+        ((queue_state, t0), {}),
+        lambda a, out, i: ((out[0], t0 + (i + 1) * 1_000), {}), False)
+    prog = TQ._shared_jit_run_horizon(block, False, 0)
+    recs["queue run_h"] = _held_staged(
+        ext, "queue run_h", prog, [leg(block, with_horizon=True)],
+        ((queue_state, t0), {}),
+        lambda a, out, i: ((out[0], t0 + (i + 1) * 1_000), {}), False)
+    prog = TQ._shared_jit_run_stream(block + SERIAL_STEPS_EXTRA, 2, False,
+                                     0)
+    recs["queue run_stream"] = _held_staged(
+        ext, "queue run_stream", prog,
+        [leg(block + SERIAL_STEPS_EXTRA)],
+        ((queue_state, t0, 1_000_000), {}),
+        lambda a, out, i: ((out[0], t0 + (i + 1) * 2_000_000, 1_000_000),
+                           {}), False)
+    release_programs()
+
+    # the dry run's cluster: a window of 3 a client a step
+    o = OUTAGE
+    mesh, cl, costs = serve.multichip_cluster(o["n_servers"],
+                                              o["n_clients"], "orig",
+                                              "cuda")
+    k, adv = o["decisions_per_step"], 50_000_000
+    costs = torch.from_numpy(costs).to("cuda")
+    arr = torch.full((o["n_servers"], o["n_clients"]), 3,
+                     dtype=torch.int32, device="cuda")
+    cfg = (k, 3, 0, False, adv)
+    server_leg = leg(k, advance_now=True)
+    prog = CL.mesh_step_jit(CL._ROUNDS_JIT_CACHE, CL.cluster_step, mesh, cfg)
+    recs["cluster_step"] = _held_staged(
+        ext, "cluster.cluster_step", prog, [server_leg],
+        ((cl, arr, costs), {}),
+        lambda a, out, i: ((out[0], arr, costs), {}), True)
+    plan = TF.single_outage_plan(4, o["n_servers"], server=1, down_from=1,
+                                 down_until=3)
+    faults = [RC.fault_step_inputs(TF.plan_step(plan, t), mesh)
+              for t in range(4)]
+    prog = RC._jit_step(mesh, cfg)
+    recs["robust_cluster_step"] = _held_staged(
+        ext, "cluster.robust_cluster_step", prog, [server_leg],
+        ((RC.init_robust(cl), arr, costs), {"fault": faults[0]}),
+        lambda a, out, i: ((out[0], arr, costs), {"fault": faults[i + 1]}),
+        True)
+    views = CL.init_mesh_views(o["n_servers"], o["n_clients"],
+                               device="cuda")
+    met = torch.zeros((o["n_servers"], obsdev.NUM_METRICS),
+                      dtype=torch.int64, device="cuda")
+    rounds = CL.jit_mesh_rounds(mesh, epochs=1, decisions_per_step=k,
+                                max_arrivals=3, advance_ns=adv)
+    arr2 = arr.unsqueeze(0).contiguous()
+    recs["mesh_rounds"] = _held_staged(
+        ext, "cluster.mesh_rounds K=1", rounds.program, [server_leg],
+        ((cl, arr2, costs) + views + (met,), {}),
+        lambda a, out, i: ((out.cluster, arr2, costs, out.view_delta,
+                            out.view_rho, out.metrics), {}), True)
+
+    # one server's leg alone: 0 syncs, equal to engine_run
+    st = CL.shard_view(cl.engine, 0)
+    now = CL.shard_view(cl.now, 0) + adv
+    for i in range(3):
+        want = kernels.engine_run(st, now, k, allow_limit_break=False,
+                                  anticipation_ns=0, advance_now=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = server_leg(st, now)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _same_leaves(got, want, f"the server leg call {i}")
+        st, now = got[0], got[1] + adv
+    del cl, st, want, got
+    release_programs()
+    left = [p for p in list(kernels._SERIAL_LEGS.values()) +
+            list(TQ._JIT_CACHE.values()) +
+            list(CL._ROUNDS_JIT_CACHE.values()) +
+            list(RC._STEP_JIT_CACHE.values())
+            if hasattr(p, "captures") and p.captures()]
+    if left:
+        raise AssertionError(f"release_programs left {len(left)} "
+                             f"programs' captures")
+    log(f"[programs] serial-engine programs on {card}: every call equal "
+        f"to its eager body; release_programs reached the queue, cluster "
+        f"and serial-leg caches")
+    log(f"[time] serial-engine programs {time.perf_counter() - t_phase:.3f}"
+        f" s")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -5800,13 +6073,18 @@ def main() -> int:
             twins = start_cpu_twins(root, out)
             twin = functools.cache(lambda: collect_cpu_twins(twins, out))
             # both card runs first, so the twins have their time to finish
+            qmark = _queue_plane_mark()
             run = phase_queue(serve, _ext)
             push = phase_push(serve, _ext)
-            check_queue(serve, run, card, twin)
-            check_push(*push, card, twin)
+            _queue_programs_line("the queue and push phases", qmark)
             t_churn = time.perf_counter()
             churn, churn_k1 = phase_churn(serve, _ext, card)
             storm, storm_k1 = phase_churn_storm(serve, _ext, card)
+            # the four card runs first, so the twins have their time
+            check_queue(serve, run, card, twin)
+            check_push(*push, card, twin)
+            queue_state = run.state
+            del run, push
             check_churn(churn, card, twin)
             check_churn(storm, card, twin, "storm")
             release_programs()
@@ -5837,7 +6115,9 @@ def main() -> int:
             sim_twins = start_cpu_sim_twins(root, tmp)
             ds_prefix, ds_by_path, _ = phase_device_sim(_ext, fastpath,
                                                         card)
+            qmark = _queue_plane_mark()
             dmc = phase_dmc_sim(_ext, card, tmp)
+            _queue_programs_line("dmc_sim, both runs", qmark)
             phase_oracle_trace(dmc, card, tmp)
             check_sim_twins(sim_twins, ds_prefix, dmc, card)
             release_programs()
@@ -5922,6 +6202,8 @@ def main() -> int:
             gp_k1, gp_k2, _ = phase_guarded_programs(serve, _ext, card)
             prog_k1.update(gp_k1)
             prog_k2.update(gp_k2)
+            t_serial = time.perf_counter()
+            phase_serial_programs(serve, _ext, card, queue_state)
         finally:
             for proc in (sust_twin, twins, sup_twin, mesh_twin,
                          sup_mesh_twin):
@@ -5944,7 +6226,8 @@ def main() -> int:
         f"{t_sweeps - t_session:.3f} s, the sweeps phase "
         f"{t_costs - t_sweeps:.3f} s, the costs phase "
         f"{t_programs - t_costs:.3f} s, the programs phase "
-        f"{t_end - t_programs:.3f} s; the whole script "
+        f"{t_end - t_programs:.3f} s (the serial-engine programs "
+        f"{t_end - t_serial:.3f} s of it); the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,

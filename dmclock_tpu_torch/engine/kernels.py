@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core.timebase import (LOWEST_PROP_TAG_TRIGGER, MAX_CHARGE_UNITS,
                              MAX_TAG, MIN_TAG, ORGANIC_TAG_CAP, TIME_MAX)
@@ -607,23 +608,99 @@ def engine_run(state: EngineState, now, steps: int, *,
 SERIAL_BLOCK = 64
 
 
+def _serial_block(carry, t, *, steps: int, allow_limit_break: bool,
+                  anticipation_ns: int, advance_now: bool,
+                  with_horizon: bool, with_metrics: bool):
+    """``engine_run`` of ``steps`` on the carry ``(state, horizon,
+    metrics)``: the block's horizon folds into the carried minimum and
+    its metrics vector into the carried one (counters add, high-water
+    rows max), so a chain of blocks gives one run's.  The horizon
+    composes because every tag past ``t`` in a block's first state was
+    already folded by the block before it."""
+    st, h, met = carry
+    out = engine_run(st, t, steps, allow_limit_break=allow_limit_break,
+                     anticipation_ns=anticipation_ns,
+                     advance_now=advance_now, with_horizon=with_horizon,
+                     with_metrics=with_metrics)
+    st, t, dec = out[:3]
+    rest = list(out[3:])
+    if with_horizon:
+        h = torch.minimum(h, rest.pop(0))
+    if with_metrics:
+        met = obsdev.metrics_combine(met, rest.pop(0))
+    return (st, h, met), t, dec
+
+
 def serial_program(steps: int, *, allow_limit_break: bool,
-                   anticipation_ns: int, cache: str, entry):
-    """``engine_run(state, now, steps, advance_now=False)`` as a captured
-    program (``obs/compile_plane.py`` ``SerialJit``): blocks of
-    :data:`SERIAL_BLOCK` steps and a remainder, the decision stream
-    equal to ``engine_run``'s.  The JAX package's serial programs run
-    the step under ``lax.scan``, one small program; here it is a loop,
-    so one graph of every step would grow with ``steps``."""
+                   anticipation_ns: int, cache: str, entry,
+                   advance_now: bool = False, with_horizon: bool = False,
+                   with_metrics: bool = False, record: bool = True):
+    """``engine_run(state, now, steps, ...)`` as a captured program
+    (``obs/compile_plane.py`` ``SerialJit``): blocks of
+    :data:`SERIAL_BLOCK` steps and a remainder, ``(state, now) ->``
+    ``engine_run``'s tuple, the decision stream, the clock, the horizon
+    and the metrics equal to one ``engine_run``'s for any ``steps``.
+    With ``advance_now`` the clock each block returns starts the next;
+    the horizon is carried as a minimum and the metrics vector as a
+    running merge from one block to the next.  The JAX package's serial
+    programs run the step under ``lax.scan``, one small program; here it
+    is a loop, so one graph of every step would grow with ``steps``."""
+    kw = dict(allow_limit_break=allow_limit_break,
+              anticipation_ns=anticipation_ns, advance_now=advance_now)
+    if not (with_horizon or with_metrics):
+        def body(n: int):
+            return functools.partial(engine_run, steps=n, **kw)
+
+        return compile_plane.SerialJit(body, steps=steps,
+                                       block=SERIAL_BLOCK, cache=cache,
+                                       entry=entry, record=record)
 
     def body(n: int):
-        return functools.partial(engine_run, steps=n,
-                                 allow_limit_break=allow_limit_break,
-                                 anticipation_ns=anticipation_ns,
-                                 advance_now=False)
+        return functools.partial(_serial_block, steps=n,
+                                 with_horizon=with_horizon,
+                                 with_metrics=with_metrics, **kw)
+
+    def start(st, t):
+        dev = st.device
+        return (st, torch.full((), TIME_MAX, dtype=torch.int64, device=dev)
+                if with_horizon else None,
+                obsdev.metrics_zero(dev) if with_metrics else None)
+
+    def finish(carry, t, dec):
+        st, h, met = carry
+        return (st, t, dec) + ((h,) if with_horizon else ()) + \
+            ((met,) if with_metrics else ())
 
     return compile_plane.SerialJit(body, steps=steps, block=SERIAL_BLOCK,
-                                   cache=cache, entry=entry)
+                                   cache=cache, entry=entry, record=record,
+                                   start=start, finish=finish)
+
+
+# the serial legs of the staged programs (``serial_leg``), by
+# configuration
+_SERIAL_LEGS: dict = {}
+
+
+def serial_leg(steps: int, *, allow_limit_break: bool, anticipation_ns: int,
+               advance_now: bool = False, with_horizon: bool = False,
+               with_metrics: bool = False):
+    """The serial program a staged program (``compile_plane.StagedJit``)
+    runs ``engine_run`` through: one ``serial_program`` of each
+    configuration outside the plane's records (cache ``serial.leg``),
+    shared by every entry, queue and server that runs it, so the 8 or
+    100 queues of a simulation and the servers of a cluster replay one
+    capture a shape.  ``steps=0`` is ``engine_run`` itself (nothing to
+    capture)."""
+    key = (int(steps), bool(allow_limit_break), int(anticipation_ns),
+           bool(advance_now), bool(with_horizon), bool(with_metrics))
+    if key not in _SERIAL_LEGS:
+        kw = dict(allow_limit_break=key[1], anticipation_ns=key[2],
+                  advance_now=key[3], with_horizon=key[4],
+                  with_metrics=key[5])
+        _SERIAL_LEGS[key] = serial_program(
+            key[0], cache="serial.leg", entry=key, record=False, **kw) \
+            if key[0] else functools.partial(engine_run, steps=0, **kw)
+    return _SERIAL_LEGS[key]
 
 
 # ----------------------------------------------------------------------
@@ -770,7 +847,25 @@ def ingest_segments(kind: np.ndarray, slot: np.ndarray) -> list:
     return segs
 
 
-def ingest(state: EngineState, ops: IngestOps, *, anticipation_ns: int,
+# host images of op batches uploaded by ``upload_ops``, so ``ingest``
+# segments a device batch without reading it back
+_HOST_ROWS = WeakIdKeyDictionary()
+
+
+def upload_ops(rows: np.ndarray, device, idle=None) -> torch.Tensor:
+    """A packed int64 ``[10, B]`` op batch (``IngestOps`` rows in field
+    order) as one device tensor, copied once: a program's input, as the
+    JAX package's packed upload is.  Its host image, and the caller's
+    host mirror of ``state.idle`` if given, stay with the tensor for
+    :func:`ingest`, which segments the batch from them and so never
+    reads the device copy back."""
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    packed = torch.from_numpy(rows).to(device)
+    _HOST_ROWS[packed] = (rows, idle)
+    return packed
+
+
+def ingest(state: EngineState, ops, *, anticipation_ns: int,
            idle=None) -> EngineState:
     """Apply a batch of creates and adds in row order, equal to the JAX
     package's ``ingest`` scan (the oracle's ``_do_add_request`` per row,
@@ -794,15 +889,26 @@ def ingest(state: EngineState, ops: IngestOps, *, anticipation_ns: int,
     ``[5, reactivations]`` int64 -- and the shifts scatter back.  A
     segment without a reactivation reads nothing back.
 
-    ``ops``: numpy arrays are uploaded in one copy per segment; tensors
-    are read to the host first.  ``idle``: an optional host bool[N]
-    equal to ``state.idle`` (the caller's mirror); without it ``idle``
-    is read back once.  Caller contract, as for the other ingest paths:
-    no queue grows past the ring capacity.  Out of place: ``state`` is
-    never written."""
-    rows = np.stack([(c.detach().cpu().numpy() if torch.is_tensor(c)
-                      else np.asarray(c)).astype(np.int64).reshape(-1)
-                     for c in ops])
+    ``ops``: an ``IngestOps`` of numpy arrays (uploaded in one copy per
+    segment) or tensors (read to the host first), or a packed ``[10,
+    B]`` tensor: one from :func:`upload_ops` is segmented from its host
+    image (with the ``idle`` mirror it carries), any other is read
+    back.  ``idle``: an optional host bool[N] equal to ``state.idle``
+    (the caller's mirror); without it ``idle`` is read back once.
+    Caller contract, as for the other ingest paths: no queue grows past
+    the ring capacity.  Out of place: ``state`` is never written."""
+    if torch.is_tensor(ops):
+        image = _HOST_ROWS.get(ops)
+        if image is None:
+            rows = ops.detach().cpu().numpy().astype(np.int64)
+        else:
+            rows, mirror = image
+            if idle is None:
+                idle = mirror
+    else:
+        rows = np.stack([(c.detach().cpu().numpy() if torch.is_tensor(c)
+                          else np.asarray(c)).astype(np.int64).reshape(-1)
+                         for c in ops])
     segs = ingest_segments(rows[0], rows[1])
     if not segs:
         return state

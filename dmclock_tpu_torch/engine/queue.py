@@ -23,8 +23,19 @@ Restrictions (as in the JAX package):
 Device discipline: every state update is out of place (the speculative
 buffer keeps the pre-batch state by reference and replays from it), and
 each launch copies its decisions to the host once, as one int64 array.
-The JAX package's per-shape jit caches (``_jit_cached``) are not yet
-captured: the queue runs op by op (ROADMAP.md section 1).
+
+Every launch is a program of the module cache ``queue`` (``_JIT_CACHE``,
+``_jit_cached``), under the JAX package's six keys and factories, shared
+by every queue of the process: ``ingest``, ``run``, ``run_h``,
+``run_stream``, ``ingest_run_stream`` and ``ingest_run``.  Each is a
+``compile_plane.StagedJit``: its serial legs are captured
+``kernels.serial_leg`` blocks, its ingest leg (segmented on the host
+from the packed ops' host image, ``kernels.upload_ops``) and the
+decisions' packing run eagerly around them.  The ops enter a program as
+one int64 ``[10, B]`` tensor, ``B`` padded to a power of two as in JAX;
+a capacity or ring growth changes the state's shapes, so the next call
+of an entry is a retrace.  Nothing is donated: the speculative buffer
+and a retried launch read the caller's state after the call.
 """
 
 from __future__ import annotations
@@ -44,15 +55,27 @@ from ..core.scheduler import AtLimit, NextReqType, PullReq
 from ..core.tags import tag_calc
 from ..core.timebase import MAX_TAG, MIN_TAG, sec_to_ns
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..obs import compile_plane
 from ..obs import histograms as _led
 from ..obs import slo as _W
 from ..obs import spans as _spans
 from ..robust.guarded import RECOVERABLE_ERRORS, retry_with_backoff
 from . import kernels
-from .kernels import (FUTURE, OP_ADD, OP_CREATE, RETURNING, IngestOps)
+from .kernels import FUTURE, OP_ADD, OP_CREATE, RETURNING
 from .state import EngineState, grow_state, init_state
 
 ClientInfoFunc = Callable[[Any], Optional[ClientInfo]]
+
+
+# the programs of every queue in the process, by the JAX package's keys
+_JIT_CACHE: Dict[Tuple, Any] = {}
+
+
+def _jit_cached(key: Tuple, fn):
+    if key not in _JIT_CACHE:
+        _JIT_CACHE[key] = compile_plane.StagedJit(fn, cache="queue",
+                                                  entry=key)
+    return _JIT_CACHE[key]
 
 
 def _pack_decisions(dec) -> torch.Tensor:
@@ -62,6 +85,90 @@ def _pack_decisions(dec) -> torch.Tensor:
         dec.type.to(torch.int64), dec.slot.to(torch.int64),
         dec.phase.to(torch.int64), dec.cost, dec.when,
         dec.limit_break.to(torch.int64)])
+
+
+def _leg(steps: int, allow: bool, anticipation_ns: int, **kw):
+    return kernels.serial_leg(steps, allow_limit_break=allow,
+                              anticipation_ns=anticipation_ns, **kw)
+
+
+def _shared_jit_ingest(anticipation_ns: int):
+    def ingest_packed(s, packed):
+        return kernels.ingest(s, packed, anticipation_ns=anticipation_ns)
+    return _jit_cached(("ingest", anticipation_ns), ingest_packed)
+
+
+def _shared_jit_run(steps: int, advance_now: bool, allow: bool,
+                    anticipation_ns: int):
+    leg = _leg(steps, allow, anticipation_ns, advance_now=advance_now)
+
+    def run(s, t):
+        s, _, dec = leg(s, t)
+        return s, _pack_decisions(dec)
+    return _jit_cached(("run", steps, advance_now, allow,
+                        anticipation_ns), run)
+
+
+def _shared_jit_run_horizon(steps: int, allow: bool,
+                            anticipation_ns: int):
+    leg = _leg(steps, allow, anticipation_ns, with_horizon=True)
+
+    def run(s, t):
+        s, _, dec, hz = leg(s, t)
+        return s, _pack_decisions(dec), hz
+    return _jit_cached(("run_h", steps, allow, anticipation_ns), run)
+
+
+def _stream_windows(s, t0, dt, *, steps: int, chunks: int, allow: bool,
+                    anticipation_ns: int):
+    """``chunks`` consecutive serial windows: window ``c`` serves up to
+    ``steps`` decisions at ``t0 + c * dt``, each on the state the
+    previous one left -- what ``chunks`` sequential ``pull_batch``
+    launches compute.  The one window body of both streaming programs.
+    Returns the state and the ``[chunks, 6, steps]`` packed
+    decisions."""
+    leg = _leg(steps, allow, anticipation_ns)
+    packs = []
+    for c in range(chunks):
+        s, _, dec = leg(s, t0 + c * dt)
+        packs.append(_pack_decisions(dec))
+    return s, torch.stack(packs)
+
+
+def _shared_jit_run_stream(steps: int, chunks: int, allow: bool,
+                           anticipation_ns: int):
+    def run(s, t0, dt):
+        return _stream_windows(
+            s, t0, dt, steps=steps, chunks=chunks, allow=allow,
+            anticipation_ns=anticipation_ns)
+    return _jit_cached(("run_stream", steps, chunks, allow,
+                        anticipation_ns), run)
+
+
+def _shared_jit_ingest_run_stream(steps: int, chunks: int, allow: bool,
+                                  anticipation_ns: int):
+    """The pending op rows ingested once before window 0, then the
+    windows: one program where the sequential form pays ``1 +
+    chunks``."""
+    def fused(s, packed, t0, dt):
+        s = kernels.ingest(s, packed, anticipation_ns=anticipation_ns)
+        return _stream_windows(
+            s, t0, dt, steps=steps, chunks=chunks, allow=allow,
+            anticipation_ns=anticipation_ns)
+    return _jit_cached(("ingest_run_stream", steps, chunks, allow,
+                        anticipation_ns), fused)
+
+
+def _shared_jit_ingest_run(steps: int, advance_now: bool, allow: bool,
+                           anticipation_ns: int):
+    leg = _leg(steps, allow, anticipation_ns, advance_now=advance_now)
+
+    def fused(s, packed, t):
+        s = kernels.ingest(s, packed, anticipation_ns=anticipation_ns)
+        s, _, dec = leg(s, t)
+        return s, _pack_decisions(dec)
+    return _jit_cached(("ingest_run", steps, advance_now, allow,
+                        anticipation_ns), fused)
 
 
 class TpuPullPriorityQueue:
@@ -195,17 +302,20 @@ class TpuPullPriorityQueue:
         self._host_idle: set = set()
 
     # ------------------------------------------------------------------
-    # device launches
+    # device launches: the module cache's programs
     # ------------------------------------------------------------------
-    def _run(self, st: EngineState, now, steps: int,
-             advance_now: bool = False) -> Tuple[EngineState,
-                                                 torch.Tensor]:
-        """``steps`` serial decisions; the packed [6, steps] decisions."""
-        st, _, dec = kernels.engine_run(
-            st, now, steps, allow_limit_break=self._allow,
-            anticipation_ns=self.anticipation_timeout_ns,
-            advance_now=advance_now)
-        return st, _pack_decisions(dec)
+    def _jit_ingest(self):
+        return _shared_jit_ingest(self.anticipation_timeout_ns)
+
+    def _jit_run(self, steps: int, advance_now: bool):
+        return _shared_jit_run(steps, advance_now, self._allow,
+                               self.anticipation_timeout_ns)
+
+    def _jit_ingest_run(self, steps: int, advance_now: bool):
+        """Ingest and serve in one program (one launch a pull where the
+        sequential form pays two)."""
+        return _shared_jit_ingest_run(steps, advance_now, self._allow,
+                                      self.anticipation_timeout_ns)
 
     def _launch(self, fn, *args):
         """One device launch under the guarded-commit contract:
@@ -232,36 +342,27 @@ class TpuPullPriorityQueue:
             self.launch_failures += 1
             raise
 
-    def _drain_and_launch(self, serve_fn, *args):
-        """Drain the pending op rows, ingest them, then run
-        ``serve_fn(state, *args)`` (``None``: ingest only; with nothing
-        pending either, no launch).  A failed launch restores the
-        drained rows, so a later attempt still applies them."""
+    def _drain_and_launch(self, fused_fn, plain_fn, *args):
+        """Drain the pending op rows and run ``fused_fn(state, ops,
+        *args)``, or ``plain_fn(state, *args)`` when nothing is pending
+        (``None``: no launch).  A failed launch restores the drained
+        rows, so a later attempt still applies them."""
         rows = self._pending
         with _spans.span(self.tracer, "queue.pack_ops", "host_prep"):
             ops = self._build_ops()
-        if ops is None and serve_fn is None:
-            return None
-
-        def attempt():
-            st = self.state
-            if ops is not None:
-                st = kernels.ingest(
-                    st, IngestOps(*ops),
-                    anticipation_ns=self.anticipation_timeout_ns,
-                    idle=self._idle)
-            return st if serve_fn is None else serve_fn(st, *args)
-
+        if ops is None:
+            if plain_fn is None:
+                return None
+            return self._launch(plain_fn, self.state, *args)
+        packed = kernels.upload_ops(ops, self.device, idle=self._idle)
         try:
-            res = self._launch(attempt)
+            res = self._launch(fused_fn, self.state, packed, *args)
         except Exception:
             self._pending = rows + self._pending
             raise
-        if ops is not None:
-            self.ingest_segments += len(kernels.ingest_segments(ops[0],
-                                                                ops[1]))
-            self._idle[ops[1][ops[0] == OP_CREATE]] = True
-            self._idle[ops[1][ops[0] == OP_ADD]] = False
+        self.ingest_segments += len(kernels.ingest_segments(ops[0], ops[1]))
+        self._idle[ops[1][ops[0] == OP_CREATE]] = True
+        self._idle[ops[1][ops[0] == OP_ADD]] = False
         return res
 
     # ------------------------------------------------------------------
@@ -310,15 +411,22 @@ class TpuPullPriorityQueue:
     # ------------------------------------------------------------------
     def _build_ops(self) -> Optional[np.ndarray]:
         """Drain buffered rows into one int64 [10, B] array (None if
-        empty); ``kernels.ingest`` uploads it in one copy."""
+        empty), ``B`` padded with NOP rows to a power of two to bound
+        the programs' shapes, as in JAX; it is uploaded in one copy."""
         if not self._pending:
             return None
         rows = self._pending
         self._pending = []
-        return np.asarray(rows, dtype=np.int64).T.copy()
+        n = len(rows)
+        padded = 1
+        while padded < n:
+            padded *= 2
+        packed = np.zeros((10, padded), dtype=np.int64)
+        packed[:, :n] = np.asarray(rows, dtype=np.int64).T
+        return packed
 
     def _flush(self) -> None:
-        res = self._drain_and_launch(None)
+        res = self._drain_and_launch(self._jit_ingest(), None)
         if res is not None:
             self.state = res
 
@@ -460,7 +568,9 @@ class TpuPullPriorityQueue:
         with self.data_mtx:
             if self._spec:
                 return self._pull_spec(now_ns)
-            self.state, dec = self._drain_and_launch(self._run, now_ns, 1)
+            self.state, dec = self._drain_and_launch(
+                self._jit_ingest_run(1, False), self._jit_run(1, False),
+                now_ns)
             d = self._fetch(dec)[0]
             with _spans.span(self.tracer, "queue.fold", "drain"):
                 return self._decision_to_pullreq(*d)
@@ -511,19 +621,12 @@ class TpuPullPriorityQueue:
         self._flush()
         pre = self.state
         size = self._spec_size
-
-        def run_h(st):
-            st, _, dec, hz = kernels.engine_run(
-                st, now_ns, size, allow_limit_break=self._allow,
-                anticipation_ns=self.anticipation_timeout_ns,
-                with_horizon=True)
-            # decisions and horizon in one copy
-            return st, torch.cat([_pack_decisions(dec).reshape(-1),
-                                  hz.reshape(1)])
-
-        st, packed = self._launch(run_h, pre)
+        st, dec, hz = self._launch(_shared_jit_run_horizon(
+            size, self._allow, self.anticipation_timeout_ns), pre, now_ns)
         self.state = st
-        flat = self._traced_copy(packed)
+        # decisions and horizon in one copy
+        flat = self._traced_copy(torch.cat([dec.reshape(-1),
+                                            hz.reshape(1)]))
         horizon = flat.pop()
         d = list(zip(*(flat[i * size:(i + 1) * size] for i in range(6))))
         first = d[0]
@@ -547,8 +650,8 @@ class TpuPullPriorityQueue:
 
     def _settle_spec(self) -> None:
         """Restore `self.state` to the logical state: the pre-batch
-        state advanced by exactly the handed-out decisions (one replay
-        at t0; engine_run at a fixed now composes exactly)."""
+        state advanced by exactly the handed-out decisions (replayed at
+        t0; engine_run at a fixed now composes exactly)."""
         if self._spec_pre is not None:
             if self._buf:
                 # early invalidation with an unconsumed tail: reset the
@@ -557,10 +660,15 @@ class TpuPullPriorityQueue:
                 self._spec_size = 1
             if self._buf or not self._spec_exact:
                 self.spec_replays += 1
+                # power-of-two chunks, as in JAX: at most
+                # log2(speculative_batch) replay programs
                 st = self._spec_pre
-                if self._spec_consumed:
-                    st, _ = self._launch(self._run, st, self._spec_t0,
-                                         self._spec_consumed)
+                n = self._spec_consumed
+                while n:
+                    p = 1 << (n.bit_length() - 1)
+                    st, _ = self._launch(self._jit_run(p, False), st,
+                                         self._spec_t0)
+                    n -= p
                 self.state = st
         self._spec_pre = None
         self._spec_consumed = 0
@@ -602,7 +710,8 @@ class TpuPullPriorityQueue:
             max_decisions -= len(out)
             self._settle_spec()
             self.state, dec = self._drain_and_launch(
-                self._run, now_ns, max_decisions, advance_now)
+                self._jit_ingest_run(max_decisions, advance_now),
+                self._jit_run(max_decisions, advance_now), now_ns)
             for d in self._fetch(dec):
                 pr = self._decision_to_pullreq(*d)
                 if pr.is_retn():
@@ -624,17 +733,15 @@ class TpuPullPriorityQueue:
         window, each ended like ``pull_batch``'s."""
         if chunks < 1 or max_decisions < 1:
             raise ValueError("chunks and max_decisions must be >= 1")
-
-        def windows(st):
-            packs = []
-            for c in range(chunks):
-                st, dec = self._run(st, t0_ns + c * dt_ns, max_decisions)
-                packs.append(dec)
-            return st, torch.stack(packs)
-
+        ant = self.anticipation_timeout_ns
         with self.data_mtx:
             self._settle_spec()
-            self.state, packs = self._drain_and_launch(windows)
+            self.state, packs = self._drain_and_launch(
+                _shared_jit_ingest_run_stream(max_decisions, chunks,
+                                              self._allow, ant),
+                _shared_jit_run_stream(max_decisions, chunks, self._allow,
+                                       ant),
+                t0_ns, dt_ns)
             out: List[List[PullReq]] = []
             for win in self._traced_copy(packs):  # [chunks][6][steps]
                 rows: List[PullReq] = []

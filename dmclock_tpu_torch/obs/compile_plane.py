@@ -39,7 +39,12 @@ parts:
   the card in its place.  On CPU tensors (the caller's explicit choice)
   the program is the body run eagerly, with the same signatures and
   records (``compile_ms`` 0).  A program of many serial steps
-  (:class:`SerialJit`) captures a block of them and replays it.
+  (:class:`SerialJit`) captures a block of them and replays it.  A
+  program whose body holds legs no graph can (an ingest segmented on
+  the host, a host read) is a :class:`StagedJit`: one entry whose body
+  runs on the host around captured serial legs.  Inside :func:`eager`
+  every program runs its body eagerly with no record: the reference a
+  check holds a program against.
 - **The cost counter** (:class:`CostCounter`), the port's
   ``cost_analysis``: a ``TorchDispatchMode`` that counts every aten op
   run inside one launch of a row's program, by XLA's rules: a view op
@@ -688,6 +693,36 @@ def clear_compiled() -> None:
         w.clear_compiled()
 
 
+# per thread: ``eager`` (programs run their bodies eagerly) and
+# ``collect``, the lists the captures of a staged program's first call
+# are appended to
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside it, on this thread, every program runs its body eagerly on
+    its device, with no capture and no record: the reference a check
+    holds a program's replays against (a serial program runs its
+    ``steps`` in one body, a staged one its legs op by op)."""
+    prev = getattr(_LOCAL, "eager", False)
+    _LOCAL.eager = True
+    try:
+        yield
+    finally:
+        _LOCAL.eager = prev
+
+
+def _eager_on() -> bool:
+    return getattr(_LOCAL, "eager", False)
+
+
+def _collectors() -> list:
+    if not hasattr(_LOCAL, "collect"):
+        _LOCAL.collect = []
+    return _LOCAL.collect
+
+
 class CaptureError(RuntimeError):
     """A program that cannot be captured on the card: its body
     synchronises with the host, uses an operation a CUDA graph cannot
@@ -1124,6 +1159,8 @@ class InstrumentedJit:
             return [dict(p.info) for p in self._programs.values()]
 
     def __call__(self, *args, **kwargs):
+        if _eager_on():
+            return self.fn(*args, **kwargs)
         leaves, spec = pytree.tree_flatten((args, kwargs))
         sig = _signature(f"program {self.cache} {self.entry}", leaves,
                          spec, args, kwargs)
@@ -1173,6 +1210,8 @@ class InstrumentedJit:
                 t2 = pl.clock_ns()
                 out = pytree.tree_unflatten(out_leaves, prog.out_spec)
         prog.info.update(lower_ms=(t1 - t0) / 1e6, compile_ms=(t2 - t1) / 1e6)
+        for infos in _collectors():
+            infos.append(prog.info)
         if recorded:
             rec = pl.record_compile(
                 self.cache, self.entry, lower_ns=t1 - t0,
@@ -1209,16 +1248,26 @@ class SerialJit:
     the same stream as the body of ``steps`` steps, for any ``steps``
     and ``block``.  It is one cache entry: a signature's first call is
     one compile record (the blocks' warm-ups and captures, summed), a
-    new signature a retrace, and the blocks' replays are replays.  The
-    carry it returns is the caller's own (a copy of the static
-    buffers).  On the CPU each block is its body run eagerly.  ``fn``
-    is the eager body of all ``steps``."""
+    new signature a retrace, and the blocks' replays are replays;
+    ``record=False`` keeps it out of the records (a leg of a
+    :class:`StagedJit`, whose entry records it).  The carry it returns
+    is the caller's own (a copy of the static buffers).  On the CPU each
+    block is its body run eagerly.  ``fn`` is the eager body of all
+    ``steps``.
 
-    __slots__ = ("fn", "cache", "entry", "steps", "block", "_parts",
-                 "_seen", "_mtx", "__weakref__")
+    ``start(carry, t)`` and ``finish(carry, t, outs)`` wrap the blocks:
+    the caller's arguments (the signature's) become the blocks' carry,
+    and the last block's carry the call's result; a carry may hold
+    accumulators each block folds into (a minimum, a metrics vector).
+    By default the carry is the caller's and the result ``(carry, t,
+    outs)``."""
+
+    __slots__ = ("fn", "cache", "entry", "steps", "block", "record",
+                 "start", "finish", "_parts", "_seen", "_mtx",
+                 "__weakref__")
 
     def __init__(self, make_body, *, steps: int, block: int, cache: str,
-                 entry: Any):
+                 entry: Any, record: bool = True, start=None, finish=None):
         self.steps = int(steps)
         if self.steps < 1:
             raise ValueError(f"a serial program needs a step, got "
@@ -1227,6 +1276,9 @@ class SerialJit:
         self.fn = make_body(self.steps)
         self.cache = cache
         self.entry = _entry_str(entry)
+        self.record = bool(record)
+        self.start = start or (lambda carry, t: carry)
+        self.finish = finish or (lambda carry, t, outs: (carry, t, outs))
         reps, rem = divmod(self.steps, self.block)
         self._parts = [(n, InstrumentedJit(
             make_body(size), cache=cache, entry=entry, donate_argnums=(0,),
@@ -1249,6 +1301,8 @@ class SerialJit:
                 for c in prog.captures()]
 
     def __call__(self, carry, t):
+        if _eager_on():
+            return self.finish(*self.fn(self.start(carry, t), t))
         leaves, spec = pytree.tree_flatten(((carry, t), {}))
         sig = _signature(f"program {self.cache} {self.entry}", leaves,
                          spec, (carry, t), {})
@@ -1259,6 +1313,7 @@ class SerialJit:
         with self._mtx:
             first = sig not in self._seen
             held = [len(prog._programs) for _, prog in self._parts]
+            carry = self.start(carry, t)
             outs = []
             for n, prog in self._parts:
                 for _ in range(n):
@@ -1267,35 +1322,131 @@ class SerialJit:
             if first:
                 self._seen.add(sig)
                 self._record(held, args)
-        if dev.type == "cuda":
-            carry = pytree.tree_map(torch.clone, carry)
+            # the blocks' carry is their static buffers, which the next
+            # call (from any thread) rewrites: the copy is taken here
+            if dev.type == "cuda":
+                carry = pytree.tree_map(
+                    lambda x: x.clone() if torch.is_tensor(x) else x, carry)
         joined = outs[0] if len(outs) == 1 else pytree.tree_map(
             lambda *xs: torch.cat(xs), *outs)
-        return carry, t, joined
+        return self.finish(carry, t, joined)
 
     def _record(self, held, args) -> None:
         """One compile record of the programs the blocks made in this
         call (``held``: each block's count of programs before it)."""
         pl = _PLANE
-        if not pl.enabled:
+        if not (pl.enabled and self.record):
             return
         infos = [p.info for (_, prog), n in zip(self._parts, held)
                  for p in list(prog._programs.values())[n:]]
-        hbm: Dict[str, int] = {}
-        for info in infos:
-            for key, v in info.get("memory_analysis", {}).items():
-                hbm[key] = hbm.get(key, 0) + v
+        compile_ns, hbm = _sum_infos(infos)
         paths = pytree.tree_flatten_with_path((args, {}))[0]
         rec = pl.record_compile(
             self.cache, self.entry,
             lower_ns=int(sum(i["lower_ms"] for i in infos) * 1e6),
-            compile_ns=int(sum(i["compile_ms"] for i in infos) * 1e6),
-            cost={}, hbm=hbm,
+            compile_ns=compile_ns, cost={}, hbm=hbm,
             path_specs={pytree.keystr(p): _leaf_spec_readable(x)
                         for p, x in paths})
         tracer = pl.tracer
         if tracer is not None:
             tracer.instant(f"compile.{self.cache}.record", "compile", **rec)
+
+
+def _sum_infos(infos: List[dict]) -> Tuple[int, Dict[str, int]]:
+    """The captures' ``compile_ms`` (in ns) and ``memory_analysis``
+    summed."""
+    hbm: Dict[str, int] = {}
+    for info in infos:
+        for key, v in info.get("memory_analysis", {}).items():
+            hbm[key] = hbm.get(key, 0) + v
+    return int(sum(i["compile_ms"] for i in infos) * 1e6), hbm
+
+
+class StagedJit:
+    """A program whose body runs on the host on every call, around legs
+    that are captured programs of their own: the counterpart of a JAX
+    program whose body holds what a CUDA graph cannot (an ingest that
+    segments its ops on the host, a host read of a device value).
+    ``fn`` is the body; its serial legs are
+    :class:`SerialJit` programs outside the records (``record=False``),
+    shared by every entry that runs the same steps.  Which legs run
+    eagerly is the body's own structure, fixed before any capture; a
+    leg that fails to capture raises :class:`CaptureError`.
+
+    It is one cache entry with JAX's records: the first call of an
+    argument signature (:class:`InstrumentedJit`'s rules: a numpy leaf
+    raises ``TypeError``) is one compile record, whose ``compile_ms``
+    and ``memory_analysis`` are the captures that call made, summed,
+    and ``lower_ms`` the rest of its wall; a new signature on the entry
+    is a retrace with its diff.  ``record=False`` keeps the program out
+    of the records and spans, as a bare ``jax.jit`` is.  On the CPU the
+    legs run their bodies eagerly, block by block."""
+
+    __slots__ = ("fn", "cache", "entry", "record", "_seen", "_mtx",
+                 "__weakref__")
+
+    def __init__(self, fn, *, cache: str, entry: Any, record: bool = True):
+        self.fn = fn
+        self.cache = cache
+        self.entry = _entry_str(entry)
+        self.record = bool(record)
+        self._seen: Dict[tuple, List[dict]] = {}
+        self._mtx = threading.RLock()
+        _ALL_PROGRAMS.add(self)
+
+    def clear_compiled(self) -> None:
+        with self._mtx:
+            self._seen.clear()
+
+    def captures(self) -> List[dict]:
+        """The captures each signature's first call made (its legs'
+        blocks not captured before by another entry)."""
+        with self._mtx:
+            return [dict(i) for infos in self._seen.values()
+                    for i in infos]
+
+    def __call__(self, *args, **kwargs):
+        if _eager_on():
+            return self.fn(*args, **kwargs)
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        sig = _signature(f"program {self.cache} {self.entry}", leaves,
+                         spec, args, kwargs)
+        if sig in self._seen:
+            return self.fn(*args, **kwargs)
+        with self._mtx:
+            if sig in self._seen:
+                return self.fn(*args, **kwargs)
+            return self._first_call(sig, args, kwargs)
+
+    def _first_call(self, sig, args, kwargs):
+        pl = _PLANE
+        recorded = pl.enabled and self.record
+        tracer = pl.tracer if recorded else None
+        infos: List[dict] = []
+        stack = _collectors()
+        stack.append(infos)
+        try:
+            with _span(tracer, f"compile.{self.cache}", "compile"):
+                t0 = pl.clock_ns()
+                out = self.fn(*args, **kwargs)
+                t1 = pl.clock_ns()
+        finally:
+            stack.remove(infos)
+        self._seen[sig] = infos
+        if recorded:
+            compile_ns, hbm = _sum_infos(infos)
+            rec = pl.record_compile(
+                self.cache, self.entry,
+                lower_ns=max(t1 - t0 - compile_ns, 0),
+                compile_ns=compile_ns, cost={}, hbm=hbm,
+                path_specs={pytree.keystr(p): _leaf_spec_readable(x)
+                            for p, x in
+                            pytree.tree_flatten_with_path((args,
+                                                           kwargs))[0]})
+            if tracer is not None:
+                tracer.instant(f"compile.{self.cache}.record", "compile",
+                               **rec)
+        return out
 
 
 def aot_record(cache: str, entry: Any, fn, *args, donate_argnums=(),

@@ -22,9 +22,15 @@ stack lies whole on it; with D devices the shards go in D contiguous
 blocks, each stacked on its own device (``parallel.groups``), and the
 counter sum reduces within each group and then between the groups, as
 the JAX package's ``shard_map`` over a ``servers`` mesh of devices
-does.  The JAX package's jit caches (:func:`mesh_cache_key`,
-:func:`mesh_step_jit`, :func:`jit_mesh_rounds`) keep their names and
-are not yet captured: the steps run op by op (ROADMAP.md section 1).
+does.
+
+The JAX package's jit caches keep their names, keys and records:
+:func:`mesh_step_jit` (cache ``cluster.<step>``, the healthy and the
+robust step) and :func:`jit_mesh_rounds` (``cluster.mesh_rounds``) are
+``compile_plane.StagedJit`` programs, each server's serial leg a
+captured ``kernels.serial_leg`` (one capture serves every server: the
+views ``x[s]`` share their strides) and each wave's ingest eager around
+it (it reads the wave's columns and segments them on the host).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device, resolve_devices
 from ..engine import kernels
 from ..engine.state import EngineState, init_state
+from ..obs import compile_plane
 from ..obs import device as obsdev
 from . import groups
 from .groups import Grouped, stack_trees, tree_map  # noqa: F401
@@ -268,7 +275,8 @@ def server_round(engine: EngineState, tracker, now, arrivals_per_client,
     arrivals interleave wave-major (every client's j-th request before
     any client's j+1-th, clients in slot order within a wave), each
     wave one ``kernels.ingest`` batch.
-    Phase B: the serial engine makes ``decisions_per_step`` decisions.
+    Phase B: the serial engine makes ``decisions_per_step`` decisions
+    with the clock jumping over FUTUREs (``kernels.serial_leg``).
     Phase C: completions fold into the tracker counters.
 
     ``engine`` and ``tracker`` are one server's (``[C]`` leaves),
@@ -286,21 +294,23 @@ def server_round(engine: EngineState, tracker, now, arrivals_per_client,
         # Orig, floored at (1, 1) for Borrowing
         tracker, delta_out, rho_out = prepare(tracker, requesting,
                                               g_delta, g_rho)
+        # the wave's columns and the idle mirror in one read back
         cols = torch.stack([
             requesting.to(torch.int64), now.expand(c), cost_c,
             torch.where(requesting, rho_out, 1),
-            torch.where(requesting, delta_out, 1)]).cpu().numpy()
+            torch.where(requesting, delta_out, 1),
+            engine.idle.to(torch.int64)]).cpu().numpy()
         ops = kernels.IngestOps(
             kind=np.where(cols[0] > 0, kernels.OP_ADD, kernels.OP_NOP),
             slot=slots, time=cols[1], cost=cols[2], rho=cols[3],
             delta=cols[4], resv_inv=zeros, weight_inv=zeros,
             limit_inv=zeros, order=zeros)
-        engine = kernels.ingest(engine, ops,
-                                anticipation_ns=anticipation_ns)
-    out = kernels.engine_run(engine, now, decisions_per_step,
-                             allow_limit_break=allow_limit_break,
-                             anticipation_ns=anticipation_ns,
-                             advance_now=True, with_metrics=with_metrics)
+        engine = kernels.ingest(engine, ops, anticipation_ns=anticipation_ns,
+                                idle=cols[5] > 0)
+    out = kernels.serial_leg(
+        decisions_per_step, allow_limit_break=allow_limit_break,
+        anticipation_ns=anticipation_ns, advance_now=True,
+        with_metrics=with_metrics)(engine, now)
     engine, now, decs = out[:3]
     served = decs.type == kernels.RETURNING
     track = borrow_tracker_track if borrowing else tracker_track
@@ -379,19 +389,17 @@ def run_cluster_rounds(cluster: ClusterState, arrivals_seq, cost,
     each step's decisions as host numpy."""
     from ..obs import spans as _spans
 
-    arrivals_seq = np.asarray(arrivals_seq)
+    step = mesh_step_jit(_ROUNDS_JIT_CACHE, cluster_step, mesh,
+                         (decisions_per_step, max_arrivals,
+                          anticipation_ns, allow_limit_break, advance_ns))
+    arrivals_seq = program_input(arrivals_seq)
+    cost = program_input(cost)
     n_servers = groups.leading(cluster.now)
     decs_seq = []
     for t in range(arrivals_seq.shape[0]):
         with _spans.span(tracer, "cluster.round", "dispatch",
                          step=t, servers=n_servers):
-            cluster, decs = cluster_step(
-                cluster, arrivals_seq[t], cost, mesh,
-                decisions_per_step=decisions_per_step,
-                max_arrivals=max_arrivals,
-                anticipation_ns=anticipation_ns,
-                allow_limit_break=allow_limit_break,
-                advance_ns=advance_ns)
+            cluster, decs = step(cluster, arrivals_seq[t], cost)
         with _spans.span(tracer, "cluster.fetch", "fetch", step=t):
             decs_seq.append(decisions_to_numpy(decs))
     return cluster, decs_seq
@@ -587,6 +595,22 @@ def create_clients(cluster: ClusterState, new_mask, resv_inv, weight_inv,
 
 _ROUNDS_JIT_CACHE: dict = {}
 _MESH_ROUNDS_JIT_CACHE: dict = {}
+# the cluster step outside the plane's records (the dry run and the
+# full-scale check, as their bare ``jax.jit`` in JAX)
+_BARE_STEP_JIT_CACHE: dict = {}
+
+
+def mesh_shape(mesh: MeshLayout) -> tuple:
+    """The JAX key's mesh shape of a layout: JAX places one shard a
+    device, so its mesh of ``S`` shards is ``(S,)``."""
+    return (mesh.n_shards,)
+
+
+def program_input(x):
+    """A numpy argument as the tensor a program takes (a numpy array can
+    be neither a program's input nor its constant); anything else as it
+    is."""
+    return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
 
 
 def mesh_cache_key(mesh: MeshLayout, cfg: tuple) -> tuple:
@@ -596,22 +620,35 @@ def mesh_cache_key(mesh: MeshLayout, cfg: tuple) -> tuple:
     return (int(mesh.n_shards), tuple(mesh.devices)) + tuple(cfg)
 
 
-def mesh_step_jit(cache: dict, step_fn, mesh: MeshLayout, cfg: tuple):
-    """``step_fn`` bound to ``mesh`` and the five-tuple ``cfg``
-    (decisions_per_step, max_arrivals, anticipation_ns,
+def mesh_step_jit(cache: dict, step_fn, mesh: MeshLayout, cfg: tuple,
+                  record: bool = True):
+    """The program of ``step_fn`` bound to ``mesh`` and the five-tuple
+    ``cfg`` (decisions_per_step, max_arrivals, anticipation_ns,
     allow_limit_break, advance_ns), cached in ``cache`` per
-    :func:`mesh_cache_key`.  The JAX package compiles a program here;
-    the port binds the arguments: the step is not yet captured
-    (ROADMAP.md section 1)."""
+    :func:`mesh_cache_key`: cache ``cluster.<step_fn.__name__>``, entry
+    ``cfg + (mesh_shape,)`` as in JAX.  ``record=False`` keeps it out of
+    the plane's records (a bare ``jax.jit``)."""
     key = mesh_cache_key(mesh, cfg)
     if key not in cache:
         (decisions_per_step, max_arrivals, anticipation_ns,
          allow_limit_break, advance_ns) = cfg
-        cache[key] = functools.partial(
-            step_fn, mesh=mesh, decisions_per_step=decisions_per_step,
-            max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
-            allow_limit_break=allow_limit_break, advance_ns=advance_ns)
+        cache[key] = compile_plane.StagedJit(
+            functools.partial(
+                step_fn, mesh=mesh, decisions_per_step=decisions_per_step,
+                max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
+                allow_limit_break=allow_limit_break, advance_ns=advance_ns),
+            cache=f"cluster.{getattr(step_fn, '__name__', 'step')}",
+            entry=tuple(cfg) + (mesh_shape(mesh),), record=record)
     return cache[key]
+
+
+def bare_step_jit(mesh: MeshLayout, cfg: tuple):
+    """:func:`cluster_step` as a program outside the plane's records
+    (the cluster dry run's and the full-scale check's step, a bare
+    ``jax.jit`` in JAX): ``(cluster, arrivals, cost) -> (cluster,
+    decisions)``."""
+    return mesh_step_jit(_BARE_STEP_JIT_CACHE, cluster_step, mesh, cfg,
+                         record=False)
 
 
 def jit_mesh_rounds(mesh: MeshLayout, *, epochs: int,
@@ -621,14 +658,18 @@ def jit_mesh_rounds(mesh: MeshLayout, *, epochs: int,
                     advance_ns: int = 0, counter_sync_every: int = 1,
                     round0: int = 0, with_merged: bool = False,
                     with_pressure: bool = False):
-    """:func:`run_mesh_rounds` bound to one (mesh, static-config) pair:
-    ``(cluster, arrivals_seq, cost, view_d, view_r, metrics) ->
-    MeshRounds``, cached per :func:`mesh_cache_key` as the JAX package
-    caches its compiled program (``epochs`` must match the arrivals'
+    """:func:`run_mesh_rounds` as the program of one (mesh,
+    static-config) pair: ``(cluster, arrivals_seq, cost, view_d,
+    view_r, metrics) -> MeshRounds`` (cache ``cluster.mesh_rounds``,
+    entry ``cfg + (mesh_shape,)``), host arrays taken as tensors.  The
+    key holds ``round0 % counter_sync_every``, as JAX's: the sync grid
+    depends on ``round0`` only through it, so at K=1 every chunk
+    position shares one program (``epochs`` must match the arrivals'
     rounds)."""
+    every = max(int(counter_sync_every), 1)
     cfg = (epochs, decisions_per_step, max_arrivals, anticipation_ns,
-           allow_limit_break, advance_ns, counter_sync_every, int(round0),
-           with_merged, with_pressure)
+           allow_limit_break, advance_ns, counter_sync_every,
+           int(round0) % every, with_merged, with_pressure)
     key = mesh_cache_key(mesh, cfg)
     if key not in _MESH_ROUNDS_JIT_CACHE:
         def run(cluster, arrivals_seq, cost, view_d, view_r, met):
@@ -646,6 +687,13 @@ def jit_mesh_rounds(mesh: MeshLayout, *, epochs: int,
                 view_delta=view_d, view_rho=view_r, metrics=met,
                 with_merged=with_merged, with_pressure=with_pressure)
 
-        _MESH_ROUNDS_JIT_CACHE[key] = run
-    return _MESH_ROUNDS_JIT_CACHE[key]
+        prog = compile_plane.StagedJit(run, cache="cluster.mesh_rounds",
+                                       entry=cfg + (mesh_shape(mesh),))
 
+        def call(cluster, arrivals_seq, cost, view_d, view_r, met):
+            return prog(cluster, program_input(arrivals_seq),
+                        program_input(cost), view_d, view_r, met)
+
+        call.program = prog
+        _MESH_ROUNDS_JIT_CACHE[key] = call
+    return _MESH_ROUNDS_JIT_CACHE[key]

@@ -65,7 +65,7 @@ from ..obs import device as obsdev
 from ..obs import slo as obsslo
 from . import groups
 from .cluster import (SERVER_AXIS, MeshLayout, broadcast_tree,  # noqa: F401
-                      gather_shards, make_mesh, on_mesh,
+                      gather_shards, make_mesh, mesh_shape, on_mesh,
                       place_shards, restack_shards, shard_view,
                       stack_trees, tree_map)
 from .tracker import global_counters_from
@@ -377,12 +377,6 @@ _MESH_CHUNK_JIT_CACHE: dict = {}
 
 # the JAX chunk's knobs the port keeps in the key but does not build on
 _KEY_ONLY = ("wheel_kernel", "with_flight")
-
-
-def mesh_shape(mesh: MeshLayout) -> tuple:
-    """The JAX key's mesh shape of a layout: JAX places one shard a
-    device, so its mesh of ``S`` shards is ``(S,)``."""
-    return (mesh.n_shards,)
 
 
 def jit_mesh_chunk(mesh: MeshLayout, **cfg):

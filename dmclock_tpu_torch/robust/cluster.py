@@ -16,11 +16,15 @@ with the graceful-degradation semantics of the reference protocol.
   and :func:`cluster_conformance` gives the per-(server, client) QoS
   table.
 
-Plans are host numpy (``robust.faults``), so each step's faults are
-host values here: a down server's round is not run at all, which gives
-the values the JAX package's compute-then-mask program gives.
-``fault=None`` takes the plain ``cluster_step`` path; an all-benign
-plan (``faults.zero_plan``) equals it bit for bit.
+Plans are host numpy (``robust.faults``); a step's faults enter as
+tensors (:func:`fault_step_inputs`), and each server's round is computed
+whole and then masked by them, as the JAX package's program computes
+and masks, so no fault value is read on the host.  ``fault=None`` takes
+the plain ``cluster_step`` path; an all-benign plan
+(``faults.zero_plan``) equals it bit for bit.  :func:`run_with_plan`
+runs every step through the program of the module cache
+``cluster.robust_cluster_step`` (``_STEP_JIT_CACHE``, ``_jit_step``),
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from ..parallel import cluster as CL
 from ..parallel import groups
 from ..parallel.cluster import (ClusterState, decisions_to_numpy,
                                 round_metrics, server_round, shard_view,
-                                stack_trees)
+                                stack_trees, tree_map)
 from ..parallel.tracker import (BorrowTrackerState, borrow_tracker_track,
                                 global_counters_from, tracker_track)
 from .faults import FaultPlan, FaultStep, plan_step
@@ -105,57 +109,70 @@ def resync_tracker(tracker, g_delta, g_rho):
             seen, g_rho - tracker.completed_rho, tracker.last_mark_rho))
 
 
-def _neutral_decisions(k: int, dev) -> kernels.Decision:
-    """A down server's decision slots: NONE, slot -1, nothing served."""
-    def fill(v, dtype):
-        return torch.full((k,), v, dtype=dtype, device=dev)
+_FAULT_DTYPES = (torch.bool, torch.int64, torch.bool, torch.bool)
 
-    return kernels.Decision(
-        type=fill(kernels.NONE, torch.int32), slot=fill(-1, torch.int32),
-        phase=fill(0, torch.int32), cost=fill(0, torch.int64),
-        when=fill(0, torch.int64), limit_break=fill(False, torch.bool))
+
+def fault_step_inputs(fault: FaultStep, mesh) -> FaultStep:
+    """A :class:`FaultStep` (numpy arrays or tensors, ``[S]`` each) as
+    tensors of its dtypes laid out on ``mesh``: a program's inputs,
+    never its constants, so every fault step shares one signature."""
+    return FaultStep(*(CL.on_mesh(CL.device_tensor(a, dt, mesh.device),
+                                  mesh)
+                       for a, dt in zip(fault, _FAULT_DTYPES)))
 
 
 def _one_server_step_faulty(engine, tracker, now, arr, view_d, view_r,
-                            met, g_d, g_r, *, up_prev: bool, up: bool,
-                            skew: int, delay: bool, dup: bool, cost,
-                            decisions_per_step, anticipation_ns,
+                            met, g_d, g_r, *, up_prev, up, skew, delay,
+                            dup, cost, decisions_per_step, anticipation_ns,
                             allow_limit_break, max_arrivals):
     """One server's degraded-mode round against the round's counter sum
-    ``g_d``/``g_r``; the fault values are this server's host scalars.
-    Returns ``(engine, tracker, now, view_d, view_r, met, decs)``."""
-    restart = up and not up_prev
-    dropout = up_prev and not up
-    fault_rows = dict(server_dropouts=int(dropout),
-                      tracker_resyncs=int(restart),
-                      faults_injected=int(dropout) + int(restart)
-                      + (int(dup) + int(delay) + int(skew != 0)
-                         if up else 0))
-    if not up:
-        # commit gate: a down server keeps last-good state and hands
-        # out nothing; its view and tracker are not re-synced
-        decs = _neutral_decisions(decisions_per_step, now.device)
-        return (engine, tracker, now, view_d, view_r,
-                round_metrics(met, engine, decs, **fault_rows), decs)
-    # live servers pull the fresh sum unless the plan delays their
-    # piggyback updates; a restart always re-syncs and re-marks
-    if not delay or restart:
-        view_d, view_r = g_d, g_r
-    if restart:
-        tracker = resync_tracker(tracker, view_d, view_r)
-    engine, new_tracker, new_now, decs = server_round(
+    ``g_d``/``g_r``, computed whole and then masked by this server's
+    fault values (0-d tensors: ``up_prev``, ``up``, ``delay``, ``dup``
+    bool, ``skew`` int64), as the JAX package's step is.  A down server
+    keeps its last-good state and hands out NONE; a live one serves from
+    the fresh sum unless its piggyback updates are delayed; a restart
+    re-syncs its view and re-marks its tracker.  Returns ``(engine,
+    tracker, now, view_d, view_r, met, decs)``."""
+    restart = up & ~up_prev
+    dropout = ~up & up_prev
+    sync = (up & ~delay) | restart
+    view_d = torch.where(sync, g_d, view_d)
+    view_r = torch.where(sync, g_r, view_r)
+    tracker = tree_map(lambda a, b: torch.where(restart, a, b),
+                       resync_tracker(tracker, view_d, view_r), tracker)
+    new_engine, new_tracker, new_now, decs = server_round(
         engine, tracker, now + skew, arr, cost, view_d, view_r,
         decisions_per_step=decisions_per_step,
         anticipation_ns=anticipation_ns,
         allow_limit_break=allow_limit_break, max_arrivals=max_arrivals)
-    if dup:
-        # duplicated completions: this step's batch folds twice
-        track = borrow_tracker_track \
-            if isinstance(tracker, BorrowTrackerState) else tracker_track
-        new_tracker = track(new_tracker, decs.slot, decs.cost, decs.phase,
-                            decs.type == kernels.RETURNING)
-    return (engine, new_tracker, new_now - skew, view_d, view_r,
-            round_metrics(met, engine, decs, **fault_rows), decs)
+    # duplicated completions: this step's batch folds a second time
+    # (masked: a scatter-add of 0 is exact)
+    track = borrow_tracker_track \
+        if isinstance(tracker, BorrowTrackerState) else tracker_track
+    new_tracker = track(new_tracker, decs.slot, decs.cost, decs.phase,
+                        (decs.type == kernels.RETURNING) & dup)
+
+    def keep(new, old):
+        return torch.where(up, new, old)
+
+    engine = tree_map(keep, new_engine, engine)
+    tracker = tree_map(keep, new_tracker, tracker)
+    now = torch.where(up, new_now - skew, now)
+    decs = kernels.Decision(
+        type=torch.where(up, decs.type, kernels.NONE),
+        slot=torch.where(up, decs.slot, -1),
+        phase=torch.where(up, decs.phase, 0),
+        cost=torch.where(up, decs.cost, 0),
+        when=torch.where(up, decs.when, 0),
+        limit_break=decs.limit_break & up)
+    perturb = (dup & up).to(torch.int64) + (delay & up).to(torch.int64) \
+        + ((skew != 0) & up).to(torch.int64)
+    events = dropout.to(torch.int64) + restart.to(torch.int64)
+    met = round_metrics(met, engine, decs,
+                        server_dropouts=dropout.to(torch.int64),
+                        tracker_resyncs=restart.to(torch.int64),
+                        faults_injected=events + perturb)
+    return engine, tracker, now, view_d, view_r, met, decs
 
 
 def _merge_held_metrics(metrics: torch.Tensor) -> torch.Tensor:
@@ -176,10 +193,6 @@ def _on_mesh_robust(rc: RobustClusterState, mesh) -> RobustClusterState:
     if mesh.grouped:
         return shard_robust(rc, mesh)
     return CL.on_mesh(rc, mesh)
-
-
-def _host_bools(t) -> list:
-    return [bool(x) for x in groups.gather(t, "cpu").numpy()]
 
 
 def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
@@ -219,19 +232,19 @@ def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
     cost = groups.replicate(CL.device_tensor(cost, torch.int64, devs[0]),
                             devs)
     arrivals = CL.shard_inputs(arrivals, torch.int32, mesh)
+    fault = fault_step_inputs(fault, mesh)
     now0 = CL.tree_map(lambda a: a + int(advance_ns), rc.cluster.now)
     g_d, g_r = _round_sums([shard_view(rc.cluster.tracker, s)
                             for s in range(n)], mesh)
-    up_prev = _host_bools(rc.up_prev)
     outs = [_one_server_step_faulty(
         shard_view(rc.cluster.engine, s), shard_view(rc.cluster.tracker, s),
         shard_view(now0, s), shard_view(arrivals, s),
         shard_view(rc.view_delta, s), shard_view(rc.view_rho, s),
         shard_view(rc.metrics, s), groups.pick(g_d, owner[s]),
-        groups.pick(g_r, owner[s]), up_prev=up_prev[s],
-        up=bool(fault.up[s]), skew=int(fault.skew_ns[s]),
-        delay=bool(fault.delay_counters[s]),
-        dup=bool(fault.dup_completions[s]),
+        groups.pick(g_r, owner[s]), up_prev=shard_view(rc.up_prev, s),
+        up=shard_view(fault.up, s), skew=shard_view(fault.skew_ns, s),
+        delay=shard_view(fault.delay_counters, s),
+        dup=shard_view(fault.dup_completions, s),
         cost=groups.pick(cost, owner[s]),
         decisions_per_step=decisions_per_step,
         anticipation_ns=anticipation_ns,
@@ -241,10 +254,7 @@ def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
         CL.restack_shards([o[i] for o in outs], mesh) for i in range(7))
     rc = RobustClusterState(
         cluster=ClusterState(engine=engine, tracker=tracker, now=now),
-        view_delta=vd, view_rho=vr,
-        up_prev=CL.shard_inputs(np.asarray(fault.up, dtype=bool),
-                                torch.bool, mesh),
-        metrics=met)
+        view_delta=vd, view_rho=vr, up_prev=fault.up, metrics=met)
     res = (rc, decs)
     if with_merged:
         res = res + (_merge_held_metrics(met),)
@@ -256,6 +266,18 @@ def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
     return res
 
 
+# the JAX package's module cache of the robust step's programs, keyed
+# as ``parallel.cluster.mesh_step_jit`` keys them
+_STEP_JIT_CACHE: dict = {}
+
+
+def _jit_step(mesh, cfg: tuple):
+    """The ``cluster.robust_cluster_step`` program of ``mesh`` and the
+    five-tuple ``cfg``: ``(rc, arrivals, cost, fault=None)``."""
+    return CL.mesh_step_jit(_STEP_JIT_CACHE, robust_cluster_step, mesh,
+                            cfg)
+
+
 def run_with_plan(rc: RobustClusterState, arrivals, cost, mesh,
                   plan: Optional[FaultPlan] = None, *,
                   decisions_per_step: int, max_arrivals: int = 1,
@@ -263,25 +285,28 @@ def run_with_plan(rc: RobustClusterState, arrivals, cost, mesh,
                   allow_limit_break: bool = False, advance_ns: int = 0,
                   tracer=None):
     """Drive ``arrivals.shape[0]`` cluster steps under ``plan`` (None =
-    no fault plumbing).  Returns ``(rc, decs_seq)`` with each step's
-    decisions as host numpy.  ``tracer`` records a ``cluster.round``
-    dispatch span per step and a ``cluster.fetch`` span per read
-    back."""
+    no fault plumbing), each through the ``cluster.robust_cluster_step``
+    program (:func:`_jit_step`), a step's faults as its tensor inputs.
+    Returns ``(rc, decs_seq)`` with each step's decisions as host numpy.
+    ``tracer`` records a ``cluster.round`` dispatch span per step and a
+    ``cluster.fetch`` span per read back."""
     from ..obs import spans as _spans
 
-    arrivals = np.asarray(arrivals)
+    step = _jit_step(mesh, (decisions_per_step, max_arrivals,
+                            anticipation_ns, allow_limit_break,
+                            advance_ns))
+    arrivals = CL.program_input(arrivals)
+    cost = CL.program_input(cost)
     decs_seq = []
     for t in range(arrivals.shape[0]):
         fault = plan_step(plan, t) if plan is not None else None
         with _spans.span(tracer, "cluster.round", "dispatch",
                          step=t, faulty=fault is not None):
-            rc, decs = robust_cluster_step(
-                rc, arrivals[t], cost, mesh, fault=fault,
-                decisions_per_step=decisions_per_step,
-                max_arrivals=max_arrivals,
-                anticipation_ns=anticipation_ns,
-                allow_limit_break=allow_limit_break,
-                advance_ns=advance_ns)
+            if fault is None:
+                rc, decs = step(rc, arrivals[t], cost)
+            else:
+                rc, decs = step(rc, arrivals[t], cost,
+                                fault=fault_step_inputs(fault, mesh))
         with _spans.span(tracer, "cluster.fetch", "fetch", step=t):
             decs_seq.append(decisions_to_numpy(decs))
     return rc, decs_seq
@@ -330,6 +355,11 @@ def run_mesh_rounds_with_plan(rc: RobustClusterState, arrivals_seq, cost,
     eff = effective_plan(plan, counter_sync_every, round0)
     if eff.steps != epochs:
         raise ValueError(f"plan of {eff.steps} steps for {epochs} rounds")
+    # the effective plan's [S, E] fault values, laid out on the mesh
+    faults = FaultStep(*(CL.on_mesh(CL.device_tensor(
+        np.ascontiguousarray(np.asarray(a).T), dt, devs[0]), mesh)
+        for a, dt in zip((eff.up, eff.skew_ns, eff.delay_counters,
+                          eff.dup_completions), _FAULT_DTYPES)))
     eng = [shard_view(rc.cluster.engine, s) for s in range(n)]
     trk = [shard_view(rc.cluster.tracker, s) for s in range(n)]
     now = [shard_view(rc.cluster.now, s) for s in range(n)]
@@ -337,22 +367,22 @@ def run_mesh_rounds_with_plan(rc: RobustClusterState, arrivals_seq, cost,
     vr = [shard_view(rc.view_rho, s) for s in range(n)]
     met = [shard_view(rc.metrics, s) for s in range(n)]
     arr = [shard_view(arr, s) for s in range(n)]
-    up_prev = _host_bools(rc.up_prev)
+    up_prev = [shard_view(rc.up_prev, s) for s in range(n)]
+    fs = [FaultStep(*(shard_view(x, s) for x in faults)) for s in range(n)]
     decs = [[] for _ in range(n)]
     for t in range(epochs):
         g_d, g_r = _round_sums(trk, mesh)
         for s in range(n):
-            up = bool(eff.up[t, s])
             g = owner[s]
+            up = fs[s].up[t]
             eng[s], trk[s], now[s], vd[s], vr[s], met[s], d = \
                 _one_server_step_faulty(
                     eng[s], trk[s], now[s] + int(advance_ns),
                     arr[s][t], vd[s], vr[s], met[s],
                     groups.pick(g_d, g), groups.pick(g_r, g),
-                    up_prev=up_prev[s], up=up,
-                    skew=int(eff.skew_ns[t, s]),
-                    delay=bool(eff.delay_counters[t, s]),
-                    dup=bool(eff.dup_completions[t, s]),
+                    up_prev=up_prev[s], up=up, skew=fs[s].skew_ns[t],
+                    delay=fs[s].delay_counters[t],
+                    dup=fs[s].dup_completions[t],
                     cost=groups.pick(cost, g),
                     decisions_per_step=decisions_per_step,
                     anticipation_ns=anticipation_ns,
@@ -360,6 +390,7 @@ def run_mesh_rounds_with_plan(rc: RobustClusterState, arrivals_seq, cost,
                     max_arrivals=max_arrivals)
             up_prev[s] = up
             decs[s].append(d)
+
     def restack(xs):
         return CL.restack_shards(xs, mesh)
 
@@ -367,9 +398,7 @@ def run_mesh_rounds_with_plan(rc: RobustClusterState, arrivals_seq, cost,
         cluster=ClusterState(engine=restack(eng), tracker=restack(trk),
                              now=restack(now)),
         view_delta=restack(vd), view_rho=restack(vr),
-        up_prev=CL.shard_inputs(np.asarray(up_prev, dtype=bool),
-                                torch.bool, mesh),
-        metrics=restack(met))
+        up_prev=restack(up_prev), metrics=restack(met))
     return rc, restack([stack_trees(ds) for ds in decs])
 
 

@@ -2684,7 +2684,8 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
                      device: str | torch.device = DEFAULT_DEVICE,
                      devices=None) -> dict:
     """One accounting policy of the cluster dry run
-    (``__graft_entry__._dryrun_policy``) on ``cluster_step``: a closed
+    (``__graft_entry__._dryrun_policy``) on ``cluster_step``, run as an
+    unrecorded program (``parallel.cluster.bare_step_jit``): a closed
     loop of ``warmup + rounds`` rounds (every completion triggers the
     client's next request to that server, windows of 4), then a deep
     preloaded backlog drained with no arrivals.  ``check_qos`` runs the
@@ -2706,10 +2707,13 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
     dt_round = 50_000_000
     _, winv, _, phase = _multichip_qos(n_clients, n_servers)
 
+    # the step as a program outside the plane's records (the dry run's
+    # bare jax.jit in JAX): each server's serial leg captured
+    prog = CL.bare_step_jit(mesh, (k, max_arrivals, 0, False, dt_round))
+    costs_in = CL.program_input(costs)
+
     def step(cl, arr):
-        cl, decs = CL.cluster_step(
-            cl, arr, costs, mesh, decisions_per_step=k,
-            max_arrivals=max_arrivals, advance_ns=dt_round)
+        cl, decs = prog(cl, torch.from_numpy(arr), costs_in)
         return cl, CL.decisions_to_numpy(decs)
 
     total = 0

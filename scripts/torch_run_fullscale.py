@@ -123,7 +123,8 @@ def sim_parity(conf: str, device, seed: int = 12345) -> int:
 def cluster_parity(tracker_kind: str, device, *, n_servers: int,
                    n_clients: int, rounds: int, k: int, max_arr: int,
                    seed: int) -> int:
-    """``cluster_step`` on ``device`` against a host loop of oracle
+    """``cluster_step`` on ``device`` (an unrecorded program,
+    ``parallel.cluster.bare_step_jit``) against a host loop of oracle
     queues (one a server, delayed tags) and service trackers (one a
     client), decision for decision: type, slot, phase, cost, the FUTURE
     wake-ups and each server's clock.  Costs are ``1 + c % 3``.
@@ -145,6 +146,9 @@ def cluster_parity(tracker_kind: str, device, *, n_servers: int,
                             dtype=torch.int64, device=device)
 
     mesh = CL.make_mesh(n_servers, device)
+    # the step as a program outside the plane's records, as the JAX
+    # check's bare jax.jit
+    step = CL.bare_step_jit(mesh, (k, max_arr, 0, False, 0))
     cl = CL.init_cluster(n_servers, n_clients, tracker_kind=tracker_kind,
                          device=device)
     cl = CL.install_clients(cl, inv("reservation_inv_ns"),
@@ -167,9 +171,7 @@ def cluster_parity(tracker_kind: str, device, *, n_servers: int,
             arrivals = np.asarray(
                 [[rng.randint(0, max_arr) for _c in range(n_clients)]
                  for _s in range(n_servers)], dtype=np.int32)
-        cl, decs = CL.cluster_step(
-            cl, torch.from_numpy(arrivals).to(device), cost_t, mesh,
-            decisions_per_step=k, max_arrivals=max_arr)
+        cl, decs = step(cl, torch.from_numpy(arrivals).to(device), cost_t)
         d = {f: getattr(decs, f).cpu().numpy()
              for f in ("type", "slot", "phase", "cost", "when")}
         d_now = cl.now.cpu().numpy()

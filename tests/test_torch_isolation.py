@@ -20,7 +20,7 @@ PORT_FILES = sorted((ROOT / "dmclock_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_silicon_parity.py"] + \
     [ROOT / "scripts" / f"torch_{name}.py"
      for name in ("run_sweeps", "trace_report", "slo_report", "explain",
-                  "bench_guard", "profile_fastpath")]
+                  "bench_guard", "profile_fastpath", "serial_walls")]
 
 
 def _forbidden(module: str) -> bool:
@@ -130,6 +130,9 @@ SCRIPT_RUNS = {
     "bench_guard": [],
     "profile_fastpath": ["--n", "128", "--k", "32", "--reps", "1",
                          "--rows", "component", "--device", "cpu"],
+    "serial_walls": ["--device", "cpu", "--rows", "queue,dmc_sim,dryrun",
+                     "--queue-n", "200", "--sim-ops", "5",
+                     "--dryrun-clients", "30"],
 }
 
 
