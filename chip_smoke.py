@@ -190,12 +190,15 @@ Phases (any failure raises and the exit code is not 0):
     serve, sort): its first 2 slices launch-counted (K1 once a prefix
     batch at w=1, no K2) and held against a CPU twin on every
     ``DeviceSim`` field; K1 at w=1 and w=8 on that state against its
-    plain version; 2 slices with ``calendar_impl="minstop"`` (K1 at w=8)
-    and 2 with ``"wheel"`` (4 levels; K1 and K2), launch-counted and
-    equal to the prefix run on every field; then the headline timed
-    (ops per wall second differenced over chains of 4 and 10 launches of
-    2 slices, ms and read backs a slice, the weight 3:1 ratio, the
-    virtual seconds, 0 guard trips).  Then ``dmc_sim`` on the card:
+    plain version (phase 29 (d) holds 2 slices with
+    ``calendar_impl="minstop"`` (K1 at w=8) and 2 with ``"wheel"`` (4
+    levels; K1 and K2) to this run); then the headline timed op
+    by op (``device_sim_step``) and through the program the entry points
+    run (``jit_device_sim_step``) in one call (ops per wall second
+    differenced over chains of 4 and 10 launches of 2 slices, ms and
+    read backs a slice, prefix batches launched and in a server's loop,
+    the weight 3:1 ratio, the virtual seconds, 0 guard trips; K1 once a
+    launched prefix batch).  Then ``dmc_sim`` on the card:
     ``configs/dmc_sim_example.conf`` in pull mode and
     ``configs/dmc_sim_8_6.conf`` in push mode, each cut to 50
     ``client_total_ops`` (nothing else changed: whole, they took 165
@@ -395,7 +398,18 @@ Phases (any failure raises and the exit code is not 0):
     ``cluster.mesh_rounds`` at K=1, each call the eager body's syncs
     (the waves' reads), the captured legs none; one server's leg alone
     under the sync debug mode's errors; then ``release_programs`` leaves
-    no capture in these caches.  Phases 17-18, 21 and 22 (e) (and the
+    no capture in these caches.  (d) The device sim's program
+    (``phase_device_sim_programs``) at the headline's full width, 2
+    slices each on the prefix, minstop and wheel paths: the first call
+    equal to the op-by-op step, a replay on a fresh sim and one chained
+    on its result held on every ``DeviceSim`` field against the body
+    run under ``compile_plane.eager``, with its K1/K2 launches, batches
+    and read backs, one synchronising operation a read back.  (e) The
+    lifecycle programs (``phase_lifecycle_programs``) at the churn
+    cells' shape against their eager bodies, 0 syncs: ``lifecycle.ops``,
+    ``lifecycle.compact`` and the churn runner's serial leg; then
+    ``run_serial_churn`` on ``churn_storm`` through them against the
+    same run eagerly.  Phases 17-18, 21 and 22 (e) (and the
     dry run over groups in 25 (c)) run these programs: the queue's, the
     simulators' queues' and the dry run's (an unrecorded
     ``bare_step_jit``), each still held against its CPU twin or the
@@ -413,14 +427,15 @@ failure.
 K1's ``launches`` in the kernel table is the sum over the paths that
 launch it (phases 6, 8 and 14-16 with their calibration rounds, 10-13,
 both runs of 19, the in-process runs of 20, 23 and 24, the device sim's
-four runs in 21, the mesh runs of 22, the grouped runs of 25 and the
+three runs in 21, the mesh runs of 22, the grouped runs of 25 and the
 in-process runs of 26, the sweeps of 27, the counts and component
 rows of 28 and the programs of 29), each count read right after that
 path's run;
 K2's is the ``cfg4_wheel`` path's (its calibration included), phase
-20's wheel runs', the device sim's wheel run's, the mesh wheel chunks'
-of 22 and 25, phase 24's wheel gate's, phase 26's wheel migration
-jobs', phase 28's counted wheel round's and phase 29's wheel round;
+20's wheel runs', the device sim's wheel runs (29 (d)), the mesh
+wheel chunks' of 22 and 25, phase 24's wheel gate's, phase 26's wheel
+migration jobs', phase 28's counted wheel round's and phase 29's wheel
+round;
 the queue paths (17, 18),
 ``dmc_sim`` and the
 cluster runs of 22 add none, and the launches of the spawn children and
@@ -437,6 +452,7 @@ the package is missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -2805,42 +2821,32 @@ def _nbytes(sim) -> int:
 def phase_device_sim(ext, fp, card: str):
     """The device sim at the headline's full width on the card: the
     prefix run's first slices launch-counted (K1 once a prefix batch at
-    w=1, no K2) and kept for the twin; K1 at w=1 and w=8 on that state
-    against its plain version; minstop and wheel runs, launch-counted,
-    equal to the prefix run on every field; then the headline timed.
-    Returns ``(prefix fields, launches by path, headline row)``."""
+    w=1, no K2) and kept for the twin and for phase 29 (d), which holds
+    the minstop and wheel runs to it; K1 at w=1 and w=8 on that state
+    against its plain version; then the headline timed op by op and
+    through the program.  Returns ``(prefix fields, launches by path,
+    headline rows)``."""
     from dmclock_tpu_torch.sim import device_sim as DS
 
     t_phase = time.perf_counter()
     by_path = {}
 
-    def counted(impl):
-        _, sim, spec = DS.headline_setup(DS_N, calendar_impl=impl,
-                                         device="cuda")
-        counts = DS.StepCounts()
-        torch.cuda.synchronize()
-        ext.reset_launches()
-        t0 = time.perf_counter()
-        sim = DS.device_sim_step(sim, spec, DS_TWIN_SLICES, counts=counts)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = dict(ext.LAUNCHES)
-        levels = spec.ladder_levels if impl == "wheel" else 1
-        want_k1 = counts.prefix_batches + counts.calendar_batches * levels
-        want_k2 = counts.calendar_batches * (levels + 1) \
-            if impl == "wheel" else 0
-        what = f"device_sim{'_' + impl if impl else ''}"
-        log(f"[{what}] {DS_TWIN_SLICES} slices in {secs:.3f} s: "
-            f"{counts.prefix_batches} prefix and "
-            f"{counts.calendar_batches} calendar batches, "
-            f"{counts.read_backs} read backs; kernel launches {launches}")
-        if launches != {"ring_window": want_k1, "wheel_scan": want_k2}:
-            raise AssertionError(f"{what} launched {launches}, want K1 "
-                                 f"{want_k1}, K2 {want_k2}")
-        by_path[what] = launches
-        return sim, spec, counts
-
-    sim, spec, counts = counted(None)
+    _, sim, spec = DS.headline_setup(DS_N, device="cuda")
+    counts = DS.StepCounts()
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    t0 = time.perf_counter()
+    sim = DS.device_sim_step(sim, spec, DS_TWIN_SLICES, counts=counts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ext.LAUNCHES)
+    log(f"[device_sim] {DS_TWIN_SLICES} slices in {secs:.3f} s: "
+        f"{counts.prefix_batches} prefix batches, {counts.read_backs} read "
+        f"backs; kernel launches {launches}")
+    if launches != {"ring_window": counts.prefix_batches, "wheel_scan": 0}:
+        raise AssertionError(f"device_sim launched {launches}, want K1 "
+                             f"{counts.prefix_batches}, no K2")
+    by_path["device_sim"] = launches
     DS.check_guard_trips(sim)
     prefix = DS.device_sim_to_numpy(sim)
     ops = int(prefix["served_resv"].sum() + prefix["served_prop"].sum())
@@ -2864,34 +2870,51 @@ def phase_device_sim(ext, fp, card: str):
         "server 0's state after the slices: bit-identical to its plain "
         "version")
     del sim, eng, ka, kc, pa, pc
-    for impl in ("minstop", "wheel"):
-        cal, _, _ = counted(impl)
-        _sim_numpy_equal(DS.device_sim_to_numpy(cal), prefix,
-                         f"device_sim {impl} vs the prefix run")
-        log(f"[device_sim_{impl}] equal to the prefix run on every "
-            f"DeviceSim field")
-        del cal
-    torch.cuda.synchronize()
-    ext.reset_launches()
-    row = DS.device_sim_headline(DS_N, device="cuda")
-    torch.cuda.synchronize()
-    by_path["device_sim_headline"] = dict(ext.LAUNCHES)
-    if row["guard_trips"] != 0:
-        raise AssertionError(f"device_sim_headline: {row['guard_trips']} "
-                             "guard trips")
-    log(f"[device_sim_headline] on {card}: {row['ops_per_sec']:.1f} ops "
-        f"per wall second (differenced over chains of {DS.HEADLINE_LO} "
-        f"and {DS.HEADLINE_HI} launches of {DS.HEADLINE_SLICES} slices), "
-        f"{row['ms_per_slice']:.3f} ms a slice, "
-        f"{row['ops_per_slice']:.1f} ops a slice, "
-        f"{row['read_backs_per_slice']:.3f} read backs a slice, K1 "
-        f"{by_path['device_sim_headline']['ring_window'] / row['slices']:.3f}"
-        f" launches a slice; weight 3:1 ratio "
-        f"{row['weight_ratio_3_1']:.6f}; {row['total_ops']} ops in "
-        f"{row['virtual_s']:.6f} virtual s; guard trips "
-        f"{row['guard_trips']}")
+    # the headline op by op, then through the program, in one call
+    rows = {}
+    for what, program in (("device_sim_headline_eager", False),
+                          ("device_sim_headline", True)):
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        row = DS.device_sim_headline(DS_N, device="cuda", program=program)
+        torch.cuda.synchronize()
+        by_path[what] = dict(ext.LAUNCHES)
+        if row["guard_trips"] != 0:
+            raise AssertionError(f"{what}: {row['guard_trips']} guard "
+                                 "trips")
+        if by_path[what] != {"ring_window": row["counts"]["prefix_batches"],
+                             "wheel_scan": 0}:
+            raise AssertionError(f"{what}: launched {by_path[what]}, "
+                                 f"{row['counts']}")
+        how = f"the program, prefix block {row['block']}" if program \
+            else "op by op"
+        log(f"[{what}] on {card} ({how}): "
+            f"{row['ops_per_sec']:.1f} ops per wall second (differenced "
+            f"over chains of {DS.HEADLINE_LO} and {DS.HEADLINE_HI} "
+            f"launches of {DS.HEADLINE_SLICES} slices), "
+            f"{row['ms_per_slice']:.3f} ms a slice, "
+            f"{row['ops_per_slice']:.1f} ops a slice, "
+            f"{row['read_backs_per_slice']:.3f} read backs a slice, "
+            f"{row['prefix_batches_per_slice']:.3f} prefix batches "
+            f"launched and {row['prefix_live_per_slice']:.3f} in a "
+            f"server's loop a slice, K1 "
+            f"{by_path[what]['ring_window'] / row['slices']:.3f} launches "
+            f"a slice; weight 3:1 ratio {row['weight_ratio_3_1']:.6f}; "
+            f"{row['total_ops']} ops in {row['virtual_s']:.6f} virtual s; "
+            f"guard trips {row['guard_trips']}")
+        rows[what] = row
+        release_programs()
+    a, b = rows["device_sim_headline_eager"], rows["device_sim_headline"]
+    log(f"[device_sim_headline] on {card}: the program over op by op in "
+        f"one call: ms a slice {b['ms_per_slice']:.3f} / "
+        f"{a['ms_per_slice']:.3f} = "
+        f"{b['ms_per_slice'] / a['ms_per_slice']:.4f}, ops per wall "
+        f"second {b['ops_per_sec']:.1f} / {a['ops_per_sec']:.1f} = "
+        f"{b['ops_per_sec'] / a['ops_per_sec']:.4f}, read backs a slice "
+        f"{b['read_backs_per_slice']:.3f} / "
+        f"{a['read_backs_per_slice']:.3f}")
     log(f"[time] device_sim phase {time.perf_counter() - t_phase:.3f} s")
-    return prefix, by_path, row
+    return prefix, by_path, rows
 
 
 def phase_dmc_sim(ext, card: str, tmp: str) -> dict:
@@ -5999,6 +6022,271 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
     return recs
 
 
+def _leg_captures(legs) -> dict:
+    """The captures of a device-sim program's legs (``call.legs``): the
+    nodes of the head, the tail and two servers' blocks, the warm-up and
+    capture ms and the pools summed, and the static bytes of one graph
+    (the legs share one set of donated buffers)."""
+    by = {}
+    for leg in legs:
+        for c in leg.captures():
+            name = getattr(leg.fn, "func", leg.fn).__name__.strip("_")
+            by.setdefault(name, []).append(c)
+    every = [c for caps in by.values() for c in caps]
+    mems = [c.get("memory_analysis", {}) for c in every]
+    return dict(graphs=len(every),
+                graph_nodes={k: [c.get("graph_nodes") for c in caps][:2]
+                             for k, caps in by.items()},
+                lower_ms=sum(c["lower_ms"] for c in every),
+                compile_ms=sum(c["compile_ms"] for c in every),
+                pool_bytes=sum(m.get("pool_bytes", 0) for m in mems),
+                static_bytes=max(m.get("argument_bytes", 0) for m in mems))
+
+
+def phase_device_sim_programs(ext, card: str, prefix: dict) -> tuple:
+    """Phase 29 (d): the device sim's step as a program
+    (``sim.device_sim.jit_device_sim_step``) at the headline's full
+    width, 2 slices on each of the prefix, minstop and wheel paths: the
+    op-by-op step (``device_sim_step``) on each path equal to phase
+    21's prefix run (``prefix``, its fields) on every field, the
+    calendar schemes being exact; the program's first call (warm-up and
+    capture) equal to it; then a replay on a fresh sim and one chained
+    on its result (the donated buffers, nothing copied in), each held on
+    every ``DeviceSim`` field against the program's body run eagerly
+    (``compile_plane.eager()``) on the same inputs, with the same K1 and
+    K2 launches, the same batches and read backs, and exactly one
+    synchronising operation a read back (the block statuses); K1 =
+    prefix batches + calendar batches x levels and K2 = calendar batches
+    x (levels + 1) on every run.  Returns ``(K1 by path, K2 by path,
+    records)``."""
+    from dmclock_tpu_torch.obs import compile_plane
+    from dmclock_tpu_torch.sim import device_sim as DS
+
+    t_phase = time.perf_counter()
+    k1, k2, recs = {}, {}, {}
+    for impl in (None, "minstop", "wheel"):
+        what = f"device_sim_program{'_' + impl if impl else ''}"
+        _, sim0, spec = DS.headline_setup(DS_N, calendar_impl=impl,
+                                          device="cuda")
+        levels = spec.ladder_levels if impl == "wheel" else 1
+        step = DS.jit_device_sim_step(spec, DS_TWIN_SLICES,
+                                      devices=DS.sim_devices(sim0))
+        n1 = n2 = 0
+
+        def run(fn, sim, eager=False):
+            nonlocal n1, n2
+            counts = DS.StepCounts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ext.reset_launches()
+
+            def go():
+                ev[0].record()
+                if eager:
+                    with compile_plane.eager():
+                        out = fn(sim, counts=counts)
+                else:
+                    out = fn(sim, counts=counts)
+                ev[1].record()
+                return out
+
+            out, syncs = _capture_syncs(go)
+            launches = dict(ext.LAUNCHES)
+            n1 += launches["ring_window"]
+            n2 += launches["wheel_scan"]
+            want = {"ring_window": counts.prefix_batches
+                    + counts.calendar_batches * levels,
+                    "wheel_scan": counts.calendar_batches * (levels + 1)
+                    if impl == "wheel" else 0}
+            if launches != want:
+                raise AssertionError(f"{what}: launched {launches}, its "
+                                     f"batches say {want} ({counts})")
+            return out, counts, launches, len(syncs), \
+                ev[0].elapsed_time(ev[1])
+
+        def op_by_op(sim, counts):
+            return DS.device_sim_step(sim, spec, DS_TWIN_SLICES,
+                                      counts=counts)
+
+        ref, c_ref, l_ref, _, ms_ref = run(op_by_op, _clone_tree(sim0))
+        ref = DS.device_sim_to_numpy(ref)
+        _sim_numpy_equal(ref, prefix, f"{what}: the op-by-op step against "
+                         f"phase 21's prefix run")
+        first, c_first, _, _, ms_first = run(step, _clone_tree(sim0))
+        _sim_numpy_equal(DS.device_sim_to_numpy(first), ref,
+                         f"{what} first call against the op-by-op step")
+        del first
+        # the eager body: a fresh sim, then chained on its own result
+        e1, c_e, l_e, s_e, ms_e = run(step, _clone_tree(sim0), eager=True)
+        e1_np = DS.device_sim_to_numpy(e1)
+        _sim_numpy_equal(e1_np, ref, f"{what} eager body against the "
+                         f"op-by-op step")
+        e2, c_e2, l_e2, s_e2, ms_e2 = run(step, e1, eager=True)
+        e2_np = DS.device_sim_to_numpy(e2)
+        del e1, e2
+        r1, c_r, l_r, s_r, ms_r = run(step, _clone_tree(sim0))
+        _sim_numpy_equal(DS.device_sim_to_numpy(r1), e1_np,
+                         f"{what} replay 1 against its eager body")
+        ptrs = [t.data_ptr() for t in _leaves(r1)]
+        r2, c_r2, l_r2, s_r2, ms_r2 = run(step, r1)
+        if [t.data_ptr() for t in _leaves(r2)] != ptrs:
+            raise AssertionError(f"{what}: the chained replay's sim is not "
+                                 f"the program's buffers")
+        _sim_numpy_equal(DS.device_sim_to_numpy(r2), e2_np,
+                         f"{what} replay 2 (chained) against its eager body")
+        del r1, r2, sim0
+        for got, want, lg, lw, sg, tag in (
+                (c_r, c_e, l_r, l_e, s_r, "replay 1"),
+                (c_r2, c_e2, l_r2, l_e2, s_r2, "replay 2")):
+            if got != want or lg != lw:
+                raise AssertionError(f"{what} {tag}: {got} and {lg} "
+                                     f"against the eager body's {want} "
+                                     f"and {lw}")
+            if sg != got.read_backs:
+                raise AssertionError(f"{what} {tag}: {sg} synchronising "
+                                     f"operations for {got.read_backs} "
+                                     f"read backs")
+        if (c_r.prefix_live, c_r.calendar_live) != \
+                (c_ref.prefix_batches, c_ref.calendar_batches):
+            raise AssertionError(f"{what}: {c_r} in the loop against the "
+                                 f"op-by-op step's {c_ref}")
+        rec = dict(_leg_captures(step.legs), op_by_op=dataclasses.asdict(
+            c_ref), replay=dataclasses.asdict(c_r),
+            replay_chained=dataclasses.asdict(c_r2),
+            syncs_a_call=[s_r, s_r2], launches_op_by_op=l_ref,
+            launches_replay=[l_r, l_r2], ms_op_by_op=ms_ref,
+            ms_first_call=ms_first, ms_eager_body=[ms_e, ms_e2],
+            ms_replay=[ms_r, ms_r2])
+        log(f"[programs] {what} ({DS_N} clients x {spec.n_servers} "
+            f"servers, {DS_TWIN_SLICES} slices, prefix block "
+            f"{DS.PREFIX_BLOCK}, calendar block {DS.CALENDAR_BLOCK}) on "
+            f"{card}: " + json.dumps(rec))
+        k1[what] = n1
+        if n2:
+            k2[what] = n2
+        recs[what] = rec
+        release_programs()
+    log(f"[programs] device-sim program on {card}: every call equal to "
+        f"the op-by-op step and to its eager body on every DeviceSim "
+        f"field; K1 {k1}, K2 {k2}")
+    log(f"[time] device-sim programs {time.perf_counter() - t_phase:.3f} s")
+    return k1, k2, recs
+
+
+LC_N, LC_RING, LC_ROWS = 4096, 32, 1024   # the churn cells' shape
+
+
+def _lc_rows(rng, n: int, b: int) -> tuple:
+    """``b`` op rows over ``n`` slots: registers, updates, evicts and
+    idle marks in random order, the last quarter NOP padding."""
+    live = b - b // 4
+    kind = np.concatenate([rng.integers(1, 5, live),
+                           np.zeros(b - live, dtype=np.int64)]) \
+        .astype(np.int32)
+    slot = rng.integers(0, n, b).astype(np.int32)
+    vals = rng.integers(1, 10 ** 9, (4, b)).astype(np.int64)
+    return kind, slot, vals[0], vals[1], vals[2], vals[3]
+
+
+def phase_lifecycle_programs(ext, card: str) -> dict:
+    """Phase 29 (e): the lifecycle plane's three programs at the churn
+    cells' shape (4,096 slots, ring 32), each held by
+    :func:`_held_program` against its eager body over 3 replays, 0
+    synchronising operations: ``lifecycle.ops`` (``_OPS_JIT``, 1,024
+    rows of registers, updates, evicts and idle marks with padding,
+    chained), ``lifecycle.compact`` (``_COMPACT_JIT["take"]``: the
+    state, a ledger and an SLO-sized block by a new permutation each
+    call) and the churn runner's 16-step serial leg (``_RUN_JIT``).
+    Then ``run_serial_churn`` on the ``churn_storm`` population (4,096
+    ids, 8 epochs) through the programs against the same run eagerly:
+    digest, decisions and counters equal, both timed.  Returns the
+    records."""
+    import dmclock_tpu_torch.lifecycle as L
+    from dmclock_tpu_torch.engine import kernels
+    from dmclock_tpu_torch.engine.state import init_state
+    from dmclock_tpu_torch.lifecycle import plane as LP
+    from dmclock_tpu_torch.lifecycle import slots as LS
+    from dmclock_tpu_torch.obs import compile_plane
+
+    t_phase = time.perf_counter()
+    k1, k2, recs = {}, {}, {}
+    finish = _program_finisher(ext, k1, k2, recs)
+    rng = np.random.default_rng(29)
+    state = init_state(LC_N, LC_RING, device="cuda")
+    state = LP.apply_op_vector(
+        state, np.full(LC_N, LP.LC_REGISTER, np.int32),
+        np.arange(LC_N, dtype=np.int32), *rng.integers(
+            1, 10 ** 9, (3, LC_N)), np.arange(LC_N))
+    inputs = [LP.op_vector_inputs(state, *_lc_rows(rng, LC_N, LC_ROWS))
+              for _ in range(4)]
+    finish("lifecycle_ops", "lifecycle.ops", LP.ops_program(
+        LC_N, LC_RING, LC_ROWS), (state,) + tuple(inputs[0]),
+        lambda a, out, i: (out,) + tuple(inputs[i + 1]))
+    led = torch.randint(0, 1 << 40, (LC_N, 5), dtype=torch.int64,
+                        device="cuda")
+    blk = torch.randint(0, 1 << 30, (LC_N, 32), dtype=torch.int32,
+                        device="cuda")
+    perms = [torch.from_numpy(rng.permutation(LC_N)).to("cuda")
+             for _ in range(4)]
+    finish("lifecycle_compact", "lifecycle.compact", LS.compact_program(),
+           ((state, led, blk), perms[0]),
+           lambda a, out, i: (out, perms[i + 1]))
+    leg = kernels.serial_leg(16, allow_limit_break=False,
+                             anticipation_ns=0)
+    now = 10 ** 9
+    _same_leaves(leg(state, now), kernels.engine_run(
+        state, now, 16, allow_limit_break=False, anticipation_ns=0),
+        "the churn runner's leg, first call")
+    st = state
+    for i in range(3):
+        want = kernels.engine_run(st, now, 16, allow_limit_break=False,
+                                  anticipation_ns=0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = leg(st, now)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _same_leaves(got, want, f"the churn runner's leg call {i}")
+        st, now = got[0], now + 10 ** 8
+    recs["lifecycle.run"] = dict(captures=[
+        {k: c.get(k) for k in ("graph_nodes", "lower_ms", "compile_ms")}
+        for c in leg.captures()])
+    log(f"[programs] the churn runner's 16-step leg ({LC_N} slots): 3 "
+        f"calls equal to engine_run, 0 syncs; "
+        + json.dumps(recs["lifecycle.run"]))
+    del state, st, want, got, led, blk
+    spec = L.make_spec("churn_storm", total_ids=LC_N)
+    walls = {}
+    for tag in ("eager", "programs"):
+        t0 = time.perf_counter()
+        if tag == "eager":
+            with compile_plane.eager():
+                res = L.run_serial_churn(spec, epochs=8, every=2,
+                                         device="cuda")
+        else:
+            res = L.run_serial_churn(spec, epochs=8, every=2,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        walls[tag] = (time.perf_counter() - t0, res[0], res[2],
+                      dict(res[1].counters))
+    if walls["eager"][1:] != walls["programs"][1:]:
+        raise AssertionError(f"run_serial_churn through the programs "
+                             f"{walls['programs'][1:]} against eagerly "
+                             f"{walls['eager'][1:]}")
+    log(f"[programs] run_serial_churn churn_storm ({LC_N} ids, 8 epochs) "
+        f"on {card}: digest {walls['eager'][1][:16]}..., "
+        f"{walls['eager'][2]} decisions, counters {walls['eager'][3]}, "
+        f"equal through the programs; wall {walls['programs'][0]:.3f} s "
+        f"(eagerly {walls['eager'][0]:.3f} s, the first run's captures "
+        f"included)")
+    release_programs()
+    if k1 or k2:
+        raise AssertionError(f"the lifecycle programs launched K1 {k1}, "
+                             f"K2 {k2}")
+    log(f"[time] lifecycle programs {time.perf_counter() - t_phase:.3f} s")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6204,6 +6492,12 @@ def main() -> int:
             prog_k2.update(gp_k2)
             t_serial = time.perf_counter()
             phase_serial_programs(serve, _ext, card, queue_state)
+            t_dsp = time.perf_counter()
+            dsp_k1, dsp_k2, _ = phase_device_sim_programs(_ext, card,
+                                                          ds_prefix)
+            prog_k1.update(dsp_k1)
+            prog_k2.update(dsp_k2)
+            phase_lifecycle_programs(_ext, card)
         finally:
             for proc in (sust_twin, twins, sup_twin, mesh_twin,
                          sup_mesh_twin):
@@ -6227,7 +6521,8 @@ def main() -> int:
         f"{t_costs - t_sweeps:.3f} s, the costs phase "
         f"{t_programs - t_costs:.3f} s, the programs phase "
         f"{t_end - t_programs:.3f} s (the serial-engine programs "
-        f"{t_end - t_serial:.3f} s of it); the whole script "
+        f"{t_dsp - t_serial:.3f} s of it, the device-sim and lifecycle "
+        f"programs {t_end - t_dsp:.3f} s); the whole script "
         f"{t_end - t_start:.3f} s after its imports")
     # launches: each path's count, read right after that path's run
     by_path = dict(serve=serve_k1, serve_radix=radix_k1,
@@ -6254,8 +6549,6 @@ def main() -> int:
     # minstop, cfg3, the stream chunks, the queue and churn, and the
     # device sim but for its wheel run launch no K2
     k2_paths = dict(cfg4_wheel=wheel["wheel_scan"], **sup_k2,
-                    device_sim_wheel=ds_by_path["device_sim_wheel"][
-                        "wheel_scan"],
                     **{p: n for p, n in mesh_k2.items() if n}, **ctl_k2,
                     **grp_k2, **ses_k2, **cost_k2, **prog_k2)
     k2["launches"] = sum(k2_paths.values())

@@ -19,7 +19,9 @@ Pieces:
   (register | qos-update | evict | idle) rows.  The JAX package runs it
   as a ``lax.scan`` over rows; here the rows are folded on the host
   into one final record per slot (the last reset, then the QoS and idle
-  writes after it) and applied as one scatter per field.  Register and
+  writes after it) and applied by one captured program of masked
+  writes under the JAX key (every index list padded to the rows with a
+  dropped row).  Register and
   evict both reset the row to ``engine.state._FRESH_FILLS``, so a
   recycled slot equals a fresh one.
 - an admin **WAL** (``admin.wal`` in ``workdir``): every op accepted
@@ -116,6 +118,100 @@ def _fold_ops(kind, slot, resv_inv, weight_inv, limit_inv, order):
     return reset, reg, qos, idle
 
 
+def _ops_body(state: EngineState, r_idx, g_idx, g_ord, q_idx, q_r, q_w,
+              q_l, i_idx) -> EngineState:
+    """The folded rows applied to ``state`` out of place, as masks: the
+    resets to the fills first, then the registers' active flag and
+    order, the QoS inverses and the idle marks.  Every index list is
+    padded to the op vector's length with the dropped row
+    ``capacity``, so one shape serves every boundary."""
+    n, dev = state.capacity, state.device
+
+    def rows(idx):
+        return torch.zeros((n + 1,), dtype=torch.bool, device=dev) \
+            .index_fill_(0, idx, True)[:n]
+
+    def values(idx, v):
+        return torch.zeros((n + 1,), dtype=torch.int64, device=dev) \
+            .index_copy_(0, idx, v)[:n]
+
+    reset, reg, qos, idle = rows(r_idx), rows(g_idx), rows(q_idx), \
+        rows(i_idx)
+    new = {}
+    for f in EngineState._fields:
+        t = getattr(state, f)
+        new[f] = t.masked_fill(reset.view((n,) + (1,) * (t.dim() - 1)),
+                               _FRESH_FILLS[f])
+    new["active"] = new["active"].masked_fill(reg, True)
+    new["order"] = torch.where(reg, values(g_idx, g_ord), new["order"])
+    for f, idx, v in (("resv_inv", q_idx, q_r), ("weight_inv", q_idx, q_w),
+                      ("limit_inv", q_idx, q_l)):
+        new[f] = torch.where(qos, values(idx, v), new[f])
+    new["idle"] = new["idle"].masked_fill(idle, True)
+    return EngineState(**new)
+
+
+# the JAX package's ``_OPS_JIT``: one program outside the compile
+# plane's records a ``(capacity, ring capacity, rows)``
+_OPS_JIT: dict = {}
+
+
+def ops_program(capacity: int, ring_capacity: int, rows: int):
+    """The program of :func:`_ops_body` under the JAX key ``(capacity,
+    ring_capacity, rows)`` (cache ``lifecycle.ops``, unrecorded, as the
+    JAX package's bare ``jax.jit`` is)."""
+    key = (int(capacity), int(ring_capacity), int(rows))
+    if key not in _OPS_JIT:
+        from ..obs import compile_plane
+
+        _OPS_JIT[key] = compile_plane.InstrumentedJit(
+            _ops_body, cache="lifecycle.ops", entry=key, record=False)
+    return _OPS_JIT[key]
+
+
+def _fold_checked(state: EngineState, kind, slot, resv_inv, weight_inv,
+                  limit_inv, order):
+    """:func:`_fold_ops`'s lists, or None when the rows touch nothing;
+    raises on a slot outside the state."""
+    reset, reg, qos, idle = _fold_ops(kind, slot, resv_inv, weight_inv,
+                                      limit_inv, order)
+    n = state.capacity
+    for s in set(reset) | {s for s, _ in reg} | {q[0] for q in qos} \
+            | set(idle):
+        if not 0 <= s < n:
+            raise ValueError(f"op slot {s} outside [0, {n})")
+    if not (reset or qos or idle):
+        return None
+    return reset, reg, qos, idle
+
+
+def op_vector_inputs(state: EngineState, kind, slot, resv_inv,
+                     weight_inv, limit_inv, order):
+    """An op vector's rows folded on the host (:func:`_fold_ops`) and
+    uploaded in one copy as :func:`_ops_body`'s eight index and value
+    tensors, each padded to the rows with the dropped row; None when the
+    rows touch nothing.  Raises on a slot outside the state."""
+    folded = _fold_checked(state, kind, slot, resv_inv, weight_inv,
+                           limit_inv, order)
+    if folded is None:
+        return None
+    reset, reg, qos, idle = folded
+    n = state.capacity
+    b = int(np.asarray(kind).shape[0])
+
+    def pad(xs, fill):
+        return np.concatenate([np.asarray(xs, dtype=np.int64),
+                               np.full((b - len(xs),), fill, np.int64)])
+
+    reg_a = np.asarray(reg, dtype=np.int64).reshape(-1, 2)
+    qos_a = np.asarray(qos, dtype=np.int64).reshape(-1, 4)
+    flat = np.concatenate(
+        [pad(reset, n), pad(reg_a[:, 0], n), pad(reg_a[:, 1], 0)]
+        + [pad(qos_a[:, 0], n)] + [pad(qos_a[:, i], 0) for i in (1, 2, 3)]
+        + [pad(idle, n)])
+    return torch.from_numpy(flat).to(state.device).view(8, b).unbind(0)
+
+
 def apply_op_vector(state: EngineState, kind, slot, resv_inv,
                     weight_inv, limit_inv, order, *,
                     inplace: bool = False) -> EngineState:
@@ -130,19 +226,32 @@ def apply_op_vector(state: EngineState, kind, slot, resv_inv,
     EVICT resets the row to the fills (active False), tail-ring rows
     included, so the slot's next tenant equals a fresh one; IDLE sets
     the slot's idle flag and nothing else.  The rows are folded on the
-    host (:func:`_fold_ops`), uploaded in one copy and applied as one
-    out-of-place scatter per touched field; ``inplace=True`` scatters
-    into ``state``'s own tensors instead (a stacked mesh state's shard
-    views ``x[s]``, whose rows a live migration rewrites)."""
-    reset, reg, qos, idle = _fold_ops(kind, slot, resv_inv, weight_inv,
-                                      limit_inv, order)
-    n = state.capacity
-    for s in set(reset) | {s for s, _ in reg} | {q[0] for q in qos} \
-            | set(idle):
-        if not 0 <= s < n:
-            raise ValueError(f"op slot {s} outside [0, {n})")
-    if not (reset or qos or idle):
+    host (:func:`_fold_ops`), each index list padded to ``B`` with a
+    dropped row and uploaded in one copy, and applied by the program
+    ``_OPS_JIT[(capacity, ring_capacity, B)]`` (:func:`_ops_body`, the
+    JAX key).  ``inplace=True`` scatters into ``state``'s own tensors
+    instead, eagerly (a stacked mesh state's shard views ``x[s]``,
+    whose rows a live migration rewrites; JAX has no such write)."""
+    if inplace:
+        return _apply_inplace(state, kind, slot, resv_inv, weight_inv,
+                              limit_inv, order)
+    inputs = op_vector_inputs(state, kind, slot, resv_inv, weight_inv,
+                              limit_inv, order)
+    if inputs is None:
         return state
+    return ops_program(state.capacity, state.ring_capacity,
+                       inputs[0].shape[0])(state, *inputs)
+
+
+def _apply_inplace(state: EngineState, kind, slot, resv_inv, weight_inv,
+                   limit_inv, order) -> EngineState:
+    """The folded rows scattered into ``state``'s own tensors, one
+    in-place scatter per touched field."""
+    folded = _fold_checked(state, kind, slot, resv_inv, weight_inv,
+                           limit_inv, order)
+    if folded is None:
+        return state
+    reset, reg, qos, idle = folded
     flat = np.concatenate([
         np.asarray(reset, dtype=np.int64),
         np.asarray(reg, dtype=np.int64).reshape(-1, 2).T.reshape(-1),
@@ -155,29 +264,19 @@ def apply_op_vector(state: EngineState, kind, slot, resv_inv,
         parts.append(dev[at:at + size])
         at += size
     r_idx, g_idx, g_ord, q_idx, q_r, q_w, q_l, i_idx = parts
-    new = dict(state._asdict())
-
-    def fill(t, idx, v):
-        return t.index_fill_(0, idx, v) if inplace \
-            else t.index_fill(0, idx, v)
-
-    def copy(t, idx, v):
-        return t.index_copy_(0, idx, v) if inplace \
-            else t.index_copy(0, idx, v)
-
     if reset:
         for f in EngineState._fields:
-            new[f] = fill(new[f], r_idx, _FRESH_FILLS[f])
+            getattr(state, f).index_fill_(0, r_idx, _FRESH_FILLS[f])
     if reg:
-        new["active"] = fill(new["active"], g_idx, True)
-        new["order"] = copy(new["order"], g_idx, g_ord)
+        state.active.index_fill_(0, g_idx, True)
+        state.order.index_copy_(0, g_idx, g_ord)
     if qos:
         for f, v in (("resv_inv", q_r), ("weight_inv", q_w),
                      ("limit_inv", q_l)):
-            new[f] = copy(new[f], q_idx, v)
+            getattr(state, f).index_copy_(0, q_idx, v)
     if idle:
-        new["idle"] = fill(new["idle"], i_idx, True)
-    return EngineState(**new)
+        state.idle.index_fill_(0, i_idx, True)
+    return state
 
 
 # ----------------------------------------------------------------------

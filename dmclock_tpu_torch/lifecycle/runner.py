@@ -7,8 +7,9 @@ and the canonical client-id-space chain digest of the JAX package's
 runner, so the digest of a port run equals the JAX digest of the same
 run, and a dynamic spec's digest equals its static variant's.  The
 ingest leg is the captured ``stream.jit_ingest_step``, as in the JAX
-runner; the serial engine's ``_jit_run`` is not yet captured (ROADMAP.md
-section 1).
+runner, and the serial leg the JAX runner's ``_RUN_JIT[steps]`` (a bare
+``jax.jit`` of ``engine_run``): ``kernels.serial_leg``, captured blocks
+outside the compile plane's records.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ def run_serial_churn(spec: dict, *, epochs: int, every: int = 2,
     state = init_state(spec["capacity0"], ring, device=dev)
     rng = np.random.Generator(np.random.PCG64(seed))
     ingest = jit_ingest_step(dt_epoch_ns=dt_epoch_ns, waves=waves)
+    run = kernels.serial_leg(steps, allow_limit_break=False,
+                             anticipation_ns=0)
     digest = b"\x00" * 32
     decisions = 0
     for e in range(epochs):
@@ -55,9 +58,7 @@ def run_serial_churn(spec: dict, *, epochs: int, every: int = 2,
         t_base = e * dt_epoch_ns
         counts = torch.from_numpy(plane.map_counts(raw)).to(dev)
         state = ingest(state, counts, t_base)
-        state, _, d = kernels.engine_run(
-            state, t_base + dt_epoch_ns, steps, allow_limit_break=False,
-            anticipation_ns=0)
+        state, _, d = run(state, t_base + dt_epoch_ns)
         dtype = d.type.cpu().numpy()
         dec = SimpleNamespace(type=dtype, phase=d.phase.cpu().numpy(),
                               cost=d.cost.cpu().numpy())

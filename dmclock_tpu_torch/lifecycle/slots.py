@@ -191,13 +191,54 @@ def _gather_tree(tree, idx_of):
     raise TypeError(f"compact_tree: unsupported leaf {type(tree)!r}")
 
 
+def _devices(tree, out: set) -> set:
+    """The devices of a tree's tensors (raises on any other leaf)."""
+    if isinstance(tree, torch.Tensor):
+        out.add(tree.device)
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            _devices(x, out)
+    else:
+        raise TypeError(f"compact_tree: unsupported leaf {type(tree)!r}")
+    return out
+
+
+def _take(tree, perm):
+    """Every tensor of ``tree`` gathered by ``perm`` along axis 0."""
+    return _gather_tree(tree, lambda dev: perm)
+
+
+# the JAX package's ``_COMPACT_JIT["take"]``: one program outside the
+# compile plane's records, a capture for each tree structure and shape
+_COMPACT_JIT: dict = {}
+
+
+def compact_program():
+    """The program of :func:`_take`: ``(tree, perm int64) -> tree``
+    (cache ``lifecycle.compact``, entry ``take``, unrecorded)."""
+    if "take" not in _COMPACT_JIT:
+        from ..obs import compile_plane
+
+        _COMPACT_JIT["take"] = compile_plane.InstrumentedJit(
+            _take, cache="lifecycle.compact", entry="take", record=False)
+    return _COMPACT_JIT["take"]
+
+
 def compact_tree(tree, perm):
     """Gather every leaf of a tree (tensors, tuples, lists and
     NamedTuples such as ``EngineState``) of ``[capacity, ...]`` tensors
-    by ``perm`` along axis 0: one ``index_select`` per leaf, with the
-    int64 index uploaded once per device.  Covers the state's ``[N, Q]``
-    rings, the ledger, the SLO block and any extras alike."""
+    by ``perm`` along axis 0: one ``index_select`` per leaf.  Covers the
+    state's ``[N, Q]`` rings, the ledger, the SLO block and any extras
+    alike.  A tree on one device runs as the program
+    ``_COMPACT_JIT["take"]`` (``perm`` an int64 tensor input, a capture
+    for each tree structure and shape, as JAX retraces for each); a tree
+    over several devices (one CUDA graph holds one device) gathers on
+    each with the index uploaded once per device."""
     perm = np.asarray(perm, dtype=np.int64)
+    devs = _devices(tree, set())
+    if len(devs) == 1:
+        return compact_program()(tree,
+                                 torch.from_numpy(perm).to(devs.pop()))
     idx: Dict[torch.device, torch.Tensor] = {}
 
     def idx_of(dev):

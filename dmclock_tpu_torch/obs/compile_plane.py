@@ -904,18 +904,34 @@ class _Eager:
         return self.fn(*args, **kwargs)
 
 
+# the donated static buffers of the programs that share them
+# (``InstrumentedJit(share_donated=True)``), by ``id``: a sharing
+# program's donated input found here is taken over, not cloned
+_SHARED: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
 class _Graph:
     """One signature of a program on the card: static inputs, the
-    captured graph and its outputs."""
+    captured graph and its outputs.  With ``share`` a donated input that
+    is another sharing program's donated static buffer becomes this
+    graph's static buffer too (once a graph: a buffer passed twice is
+    cloned the second time), and this graph's donated buffers are
+    offered to the next."""
 
     def __init__(self, fn, what: str, leaves, spec, dev, donated: set,
-                 names: list):
+                 names: list, share: bool = False):
         self.fn, self.what, self.spec, self.dev = fn, what, spec, dev
         self.kinds, self.static = [], []
-        for x in leaves:
+        taken = set()
+        for i, x in enumerate(leaves):
             if isinstance(x, torch.Tensor):
                 self.kinds.append(_T)
-                self.static.append(x.clone())
+                if share and i in donated and id(x) not in taken and \
+                        _SHARED.get(id(x)) is x:
+                    taken.add(id(x))
+                    self.static.append(x)
+                else:
+                    self.static.append(x.clone())
             elif isinstance(x, _SCALARS):
                 self.kinds.append(_S)
                 self.static.append(_lift(x, dev))
@@ -923,6 +939,9 @@ class _Graph:
                 self.kinds.append(_C)
                 self.static.append(x)
         self.donated = [i for i in sorted(donated) if self.kinds[i] == _T]
+        if share:
+            for i in self.donated:
+                _SHARED[id(self.static[i])] = self.static[i]
         self.names = names
         self.alias: Optional[List[Tuple[int, int]]] = None
         self.out_spec = None
@@ -1128,14 +1147,20 @@ class InstrumentedJit:
     same signatures and records: the caller's choice for a body whose
     tensors lie on several cards (one CUDA graph holds one device).
     ``record=False`` keeps the program out of the plane's records and
-    spans, as a bare ``jax.jit`` is."""
+    spans, as a bare ``jax.jit`` is.  ``share_donated=True`` lets a
+    chain of such programs (the legs of a staged program) carry one set
+    of donated buffers, as XLA hands a donated buffer from one program
+    to the next: a donated input that is another sharing program's
+    donated static buffer is taken over at capture, not cloned, so
+    passing one leg's result to the next copies nothing."""
 
     __slots__ = ("fn", "cache", "entry", "donate_argnums", "capture",
-                 "record", "_argnames", "_programs", "_mtx", "__weakref__")
+                 "record", "share_donated", "_argnames", "_programs",
+                 "_mtx", "__weakref__")
 
     def __init__(self, fn, *, cache: str, entry: Any,
                  donate_argnums=(), capture: bool = True,
-                 record: bool = True):
+                 record: bool = True, share_donated: bool = False):
         self.fn = fn
         self.cache = cache
         self.entry = _entry_str(entry)
@@ -1143,6 +1168,7 @@ class InstrumentedJit:
                                             donate_argnums}))
         self.capture = bool(capture)
         self.record = bool(record)
+        self.share_donated = bool(share_donated)
         self._argnames = _argnames(fn)
         self._programs: Dict[tuple, Any] = {}
         self._mtx = threading.RLock()
@@ -1203,7 +1229,7 @@ class InstrumentedJit:
                 prog = _Graph(self.fn, f"program {self.cache} {self.entry}",
                               leaves, spec, dev, self._donated_leaves(args),
                               [_path_name(p, self._argnames)
-                               for p, _ in paths])
+                               for p, _ in paths], self.share_donated)
                 out_leaves = prog.warm_up()
                 t1 = pl.clock_ns()
                 prog.capture()

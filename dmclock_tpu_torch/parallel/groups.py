@@ -359,7 +359,16 @@ def reduce(x, axis_fn: Callable, combine_fn: Callable) -> torch.Tensor:
 
 class Replicated(tuple):
     """One copy of a value a group, copy ``g`` on group ``g``'s device:
-    what a collective (the JAX package's ``psum``) hands every shard."""
+    what a collective (the JAX package's ``psum``) hands every shard.
+    A ``torch.utils._pytree`` node (its copies the children), so a
+    captured program takes a replicated argument as its tensors."""
+
+
+pytree.register_pytree_node(
+    Replicated, lambda r: (list(r), None),
+    lambda copies, _: Replicated(copies),
+    flatten_with_keys_fn=lambda r: (
+        [(pytree.SequenceKey(i), x) for i, x in enumerate(r)], None))
 
 
 def replicate(value, devices: Sequence) -> Replicated:

@@ -4,8 +4,9 @@ Counterpart of ``dmclock_tpu/sim/device_sim.py``: the whole closed loop
 -- client load generation, the delta/rho piggyback protocol, dmClock
 scheduling and service completion -- lives on the card, with the
 servers as a leading axis S of every ``[S, C]`` and ``[S, C, Q]``
-tensor.  The host drives the slices and reads back one count per serve
-batch per server.
+tensor.  The host drives the slices; the program the entry points run
+(:func:`jit_device_sim_step`) reads back one loop status a block of
+serve batches, the op-by-op step one count a batch.
 
 This is deliberately a DIFFERENT model from the discrete-event host
 harness (``sim.harness``), trading event-exact timing for throughput:
@@ -37,10 +38,14 @@ views ``x[s]`` of the stacked tensors (a leading-index view is
 contiguous, as kernel K1 requires): the ingest waves (``ingest_wave``'s
 idle-reactivation minimum runs over one server's clients), the serve
 batches and ``engine_run``.  The tracker and the stats folds are one
-call over ``[S, C]``.  The JAX ``lax.while_loop`` over serve batches is
-a host loop that reads each batch's count back; the ring window of each
-prefix batch and of each calendar batch is kernel K1 on the card, and
-the wheel's scans kernel K2.
+call over ``[S, C]``.  In :func:`device_sim_step` (the op-by-op body,
+the reference) the JAX ``lax.while_loop`` over serve batches is a host
+loop that reads each batch's count back.  :func:`jit_device_sim_step`
+is the JAX ``jax.jit`` of the step: captured legs (the head's ingest,
+a block of masked batches a server, the tail) that replay until one
+read back of the loop state says every server left its loop.  The ring
+window of each prefix batch and of each calendar batch is kernel K1 on
+the card, and the wheel's scans kernel K2.
 
 Across devices (:func:`shard_device_sim`, ``device_sim_step(mesh=)``,
 ``run_device_sim(devices=)``), the servers go in contiguous groups, one
@@ -54,12 +59,15 @@ exact int sum that hands every group the same value.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core.qos import ClientInfo
 from ..core.timebase import NS_PER_SEC
@@ -72,6 +80,7 @@ from ..engine.fastpath import (_window_heads, calendar_batch,
                                calendar_batch_wheel, ring_window,
                                speculate_prefix_batch)
 from ..engine.state import FIELD_DTYPES, EngineState, init_state
+from ..obs import compile_plane
 from ..parallel import groups
 from ..parallel.cluster import MeshLayout, make_mesh
 from ..parallel.tracker import (TRACKER_DTYPES, TrackerState,
@@ -154,14 +163,20 @@ class DeviceSimSpec:
 
 @dataclass
 class StepCounts:
-    """What the host loop of :func:`device_sim_step` did, for the
-    caller that passes one in: slices run, serve batches launched, and
-    the values read back from the card (one count per batch)."""
+    """What the host loop of :func:`device_sim_step` (or the program of
+    :func:`jit_device_sim_step`) did, for the caller that passes one in:
+    slices run, serve batches launched, the batches of a server still
+    in its loop (``*_live``: the eager loop's batches; the program's
+    blocks also launch masked ones), and the values read back from the
+    card (the eager loop one count a batch, the program one status a
+    block replay)."""
 
     slices: int = 0
     prefix_batches: int = 0
     calendar_batches: int = 0
     read_backs: int = 0
+    prefix_live: int = 0
+    calendar_live: int = 0
 
 
 def _make_spec(cfg: SimConfig, q_per_slice: int = 4) -> DeviceSimSpec:
@@ -364,14 +379,17 @@ def _restack(engines) -> EngineState:
     return EngineState(*(torch.stack(fs) for fs in zip(*engines)))
 
 
-def _empty_decisions(q: int, dev: torch.device) -> kernels.Decision:
+def _empty_decisions(shape, dev: torch.device) -> kernels.Decision:
+    """The no-decision fill (type NONE, slot -1, zeros) of ``shape`` (an
+    int or a tuple)."""
+    shape = tuple(shape) if isinstance(shape, tuple) else (shape,)
     return kernels.Decision(
-        type=torch.full((q,), kernels.NONE, dtype=torch.int32, device=dev),
-        slot=torch.full((q,), -1, dtype=torch.int32, device=dev),
-        phase=torch.zeros((q,), dtype=torch.int32, device=dev),
-        cost=torch.zeros((q,), dtype=torch.int64, device=dev),
-        when=torch.zeros((q,), dtype=torch.int64, device=dev),
-        limit_break=torch.zeros((q,), dtype=torch.bool, device=dev))
+        type=torch.full(shape, kernels.NONE, dtype=torch.int32, device=dev),
+        slot=torch.full(shape, -1, dtype=torch.int32, device=dev),
+        phase=torch.zeros(shape, dtype=torch.int32, device=dev),
+        cost=torch.zeros(shape, dtype=torch.int64, device=dev),
+        when=torch.zeros(shape, dtype=torch.int64, device=dev),
+        limit_break=torch.zeros(shape, dtype=torch.bool, device=dev))
 
 
 def _calendar_front(eng: EngineState, t_end, spec: DeviceSimSpec,
@@ -401,6 +419,7 @@ def _calendar_front(eng: EngineState, t_end, spec: DeviceSimSpec,
             b = calendar_batch(eng, t_end, steps=steps, anticipation_ns=0,
                                allow_limit_break=spec.allow_limit_break)
         counts.calendar_batches += 1
+        counts.calendar_live += 1
         counts.read_backs += 1
         count = int(b.count)
         if count <= 0 or total + count > q:
@@ -439,6 +458,7 @@ def _prefix_serve(eng: EngineState, t_end, spec: DeviceSimSpec,
             select_impl=spec.select_impl)
         gt = gt + (~batch.guards_ok).to(torch.int32)
         counts.prefix_batches += 1
+        counts.prefix_live += 1
         counts.read_backs += 1
         count = int(batch.count)
         off = total - cal_total
@@ -490,6 +510,54 @@ def gather_device_sim(sim: DeviceSim, device=None) -> DeviceSim:
         for f, v in zip(sim._fields, sim)})
 
 
+def _serve_paths(spec: DeviceSimSpec) -> tuple:
+    """``(use_prefix, use_cal)``: the budgeted batch loop, and its
+    calendar front-load.  Opting into the calendar serve path implies
+    the batch loop (it is exact at any q; the q >= 256 heuristic only
+    picks the default).  AtLimit::Allow rides the prefix path too
+    (limit-break candidates are a third unified class), PROVIDED every
+    client has weight > 0: a ready weight-0 client switches the
+    reference's Allow fallback to reservation order globally, which
+    per-client classification cannot express (fastpath module
+    docstring) -- that shape keeps the scan."""
+    use_prefix = ((spec.q_per_slice >= 256
+                   or spec.calendar_impl is not None)
+                  and (not spec.allow_limit_break
+                       or spec.all_weights_positive)
+                  and not spec.force_scan)
+    use_cal = use_prefix and spec.calendar_impl is not None
+    if spec.calendar_impl is not None and not use_cal:
+        # refuse rather than silently A/B two identical scan-path runs:
+        # the Allow-with-weight-0 shape (and the force_scan test hook)
+        # cannot serve through the batch loop at all
+        raise ValueError(
+            "calendar_impl requires the batch serve loop: "
+            "incompatible with force_scan, and with "
+            "allow_limit_break unless every client weight "
+            "is positive")
+    return use_prefix, use_cal
+
+
+def _group_parts(sim: DeviceSim) -> list:
+    """Every group's block of the stacks and its copy of the replicated
+    leaves, one ``DeviceSim`` a group (a stacked sim is one group)."""
+    if not groups.is_grouped(sim.engine):
+        return [sim]
+    return [DeviceSim(*(v.parts[g] if f in SERVER_FIELDS else v[g]
+                        for f, v in zip(sim._fields, sim)))
+            for g in range(len(sim.engine.devices))]
+
+
+def _reduced(xs: list, devs) -> list:
+    """Per-group partials ``xs`` summed over the groups, each group
+    handed its copy (the psum); one group keeps its own."""
+    if len(xs) == 1:
+        return xs
+    return list(groups.replicate(
+        groups.reduce(groups.Grouped(xs, devs), lambda a: a, torch.add),
+        devs))
+
+
 def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
                     counts: Optional[StepCounts] = None,
                     mesh: Optional[MeshLayout] = None) -> DeviceSim:
@@ -508,48 +576,15 @@ def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
     grouped = groups.is_grouped(sim.engine)
     s_total = spec.n_servers
     c = spec.n_clients
-    if grouped:
-        devs = sim.engine.devices
-        per = sim.engine.per_group
-        # every group's block of the stacks, and its copy of the rest
-        parts = [DeviceSim(*(v.parts[g] if f in SERVER_FIELDS else v[g]
-                             for f, v in zip(sim._fields, sim)))
-                 for g in range(len(devs))]
-    else:
-        devs, per, parts = (sim.t.device,), s_total, [sim]
+    # every group's block of the stacks, and its copy of the rest
+    parts = _group_parts(sim)
+    devs = sim.engine.devices if grouped else (sim.t.device,)
+    per = s_total // len(parts)
     n_groups = len(devs)
-    # opting into the calendar serve path implies the budgeted batch
-    # loop (it is exact at any q; the q >= 256 heuristic only picks the
-    # default).  AtLimit::Allow rides the prefix path too (limit-break
-    # candidates are a third unified class), PROVIDED every client has
-    # weight > 0: a ready weight-0 client switches the reference's
-    # Allow fallback to reservation order globally, which per-client
-    # classification cannot express (fastpath module docstring) --
-    # that shape keeps the scan.
-    use_prefix = ((spec.q_per_slice >= 256
-                   or spec.calendar_impl is not None)
-                  and (not spec.allow_limit_break
-                       or spec.all_weights_positive)
-                  and not spec.force_scan)
-    use_cal = use_prefix and spec.calendar_impl is not None
-    if spec.calendar_impl is not None and not use_cal:
-        # refuse rather than silently A/B two identical scan-path runs:
-        # the Allow-with-weight-0 shape (and the force_scan test hook)
-        # cannot serve through the batch loop at all
-        raise ValueError(
-            "calendar_impl requires the batch serve loop: "
-            "incompatible with force_scan, and with "
-            "allow_limit_break unless every client weight "
-            "is positive")
+    use_prefix, use_cal = _serve_paths(spec)
 
     def reduced(xs: list):
-        """Per-group partials ``xs`` summed over the groups, each group
-        handed its copy (the psum); one group keeps its own."""
-        if not grouped:
-            return xs
-        return list(groups.replicate(
-            groups.reduce(groups.Grouped(xs, devs), lambda a: a,
-                          torch.add), devs))
+        return _reduced(xs, devs)
 
     # each group's server ids: the global ids of its block
     server_ids = [torch.arange(g * per, (g + 1) * per, dtype=torch.int32,
@@ -703,6 +738,421 @@ def served_total(sim: DeviceSim) -> int:
     return int(sim.served_resv.sum() + sim.served_prop.sum())
 
 
+# ----------------------------------------------------------------------
+# the step as a captured program (the JAX package's jitted step)
+# ----------------------------------------------------------------------
+
+# prefix batches a server's captured block holds.  The headline takes
+# about 3.4 prefix batches a server a slice: a block of 4 ends most
+# slices' loops after one round, but its masked batches cost the card
+# more than the extra read backs of smaller blocks do, and the headline
+# runs fastest at one batch a block (PERF.md, the device sim's rows)
+PREFIX_BLOCK = 1
+# calendar batches a server's captured block holds: the headline's
+# front-load ends after its first batch (which does not fit the slice
+# budget), and one batch of the wheel's ladder is a large graph
+CALENDAR_BLOCK = 1
+
+
+def _write_back(dst, new, old) -> None:
+    """Copy every field of the tuple ``new`` that is not ``old``'s own
+    tensor into ``dst``'s (views of the stacked buffers), in place."""
+    for d, n, o in zip(dst, new, old):
+        if n is not o:
+            d.copy_(n)
+
+
+def _loop_state(parts: list, spec: DeviceSimSpec, use_cal: bool) -> list:
+    """The program's loop state, one dict a group on its device (the
+    JAX step's ``while_loop`` carries beside the engine): the slice's
+    sends ``n``; per server the slice's budget used ``total``, the loop
+    flag ``live``, the last batch's count ``last``, the guard trips
+    ``gt``, the prefix decisions so far ``off``, the batches taken in
+    the loop (calendar, prefix) ``taken``; the calendar's per-client
+    counts ``srv``/``rsv``; and the decision buffer ``dbuf`` of ``q +
+    1`` rows, the last one the dropped row of the JAX scatter."""
+    out = []
+    c, q = spec.n_clients, spec.q_per_slice
+    for p in parts:
+        dev, per = p.t.device, p.served_resv.shape[0]
+
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        st = dict(n=z(c), total=z(per), live=z(per, dtype=torch.bool),
+                  last=z(per), gt=z(per), off=z(per), taken=z(per, 2),
+                  dbuf=_empty_decisions((per, q + 1), dev))
+        if use_cal:
+            st.update(srv=z(per, c), rsv=z(per, c))
+        out.append(st)
+    return out
+
+
+def _head_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec):
+    """A slice's head, one graph: the loop state reset, the client-global
+    counters, the sends and every ingest wave of every server, written
+    into the sim's tensors in place."""
+    parts = _group_parts(sim)
+    g_delta, g_rho = global_counters(sim.tracker)
+    for g, p in enumerate(parts):
+        c = ctl[g]
+        for k in ("total", "gt", "off", "taken", "srv", "rsv"):
+            if k in c:
+                c[k].zero_()
+        c["last"].fill_(1)
+        c["live"].fill_(True)
+        for buf, fill in zip(c["dbuf"], (kernels.NONE, -1, 0, 0, 0, False)):
+            buf.fill_(fill)
+        per = p.served_resv.shape[0]
+        n = _slice_sends(p.load, p.t, spec.slice_ns, spec.max_sends)
+        c["n"].copy_(n)
+        ids = torch.arange(g * per, (g + 1) * per, dtype=torch.int32,
+                           device=p.t.device)
+        base = [server_view(p.engine, j) for j in range(per)]
+        engs = list(base)
+        tracker = p.tracker
+        for wave in range(spec.max_sends):
+            mine = _sends_to_server(p.load, n, wave, ids, spec.n_servers,
+                                    spec.random_select)
+            tracker, d_out, r_out = tracker_prepare(
+                tracker, mine, groups.pick(g_delta, g),
+                groups.pick(g_rho, g))
+            rho = torch.where(mine, r_out, 1)
+            delta = torch.where(mine, d_out, 1)
+            engs = [kernels.ingest_wave(
+                engs[j], mine[j], p.t, p.load.cost, rho[j], delta[j],
+                anticipation_ns=0) for j in range(per)]
+        for j in range(per):
+            _write_back(base[j], engs[j], base[j])
+        _write_back(p.tracker, tracker, p.tracker)
+    return sim, ctl
+
+
+def _calendar_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec,
+                  g: int, j: int, block: int):
+    """``block`` calendar batches of server ``j`` of group ``g``, each
+    taken where the JAX loop's ``ok`` holds (the server still in its
+    loop, a nonzero count that fits the budget) and merged by
+    ``torch.where``, as the JAX ``tree.map(where)`` is; the first batch
+    that fails takes the server out of its loop.  Only the fields a
+    batch returns as new tensors merge (the rings stay the sim's)."""
+    p, c = _group_parts(sim)[g], ctl[g]
+    q = spec.q_per_slice
+    base = server_view(p.engine, j)
+    eng = base
+    steps = min(spec.calendar_steps, eng.ring_capacity)
+    t_end = p.t + spec.slice_ns
+    live, total = c["live"][j], c["total"][j]
+    srv, rsv, taken = c["srv"][j], c["rsv"][j], c["taken"][j, 0]
+    for _ in range(block):
+        if spec.calendar_impl == "wheel":
+            b = calendar_batch_wheel(
+                eng, t_end, steps=steps, levels=spec.ladder_levels,
+                anticipation_ns=0,
+                allow_limit_break=spec.allow_limit_break)
+        elif spec.calendar_impl == "bucketed":
+            b = calendar_batch_bucketed(
+                eng, t_end, steps=steps, levels=spec.ladder_levels,
+                anticipation_ns=0,
+                allow_limit_break=spec.allow_limit_break)
+        else:
+            b = calendar_batch(eng, t_end, steps=steps, anticipation_ns=0,
+                               allow_limit_break=spec.allow_limit_break)
+        ok = live & (b.count > 0) & (total + b.count <= q)
+        eng = EngineState(*(old if new is old else torch.where(ok, new, old)
+                            for new, old in zip(b.state, eng)))
+        srv = srv + torch.where(ok, b.served, 0)
+        rsv = rsv + torch.where(ok, b.served_resv, 0)
+        total = (total + torch.where(ok, b.count, 0)).to(torch.int32)
+        taken = taken + live.to(torch.int32)
+        live = ok
+    _write_back(server_view(p.engine, j), eng, base)
+    for dst, v in ((c["live"][j], live), (c["total"][j], total),
+                   (c["srv"][j], srv), (c["rsv"][j], rsv),
+                   (c["taken"][j, 0], taken)):
+        dst.copy_(v)
+    return sim, ctl
+
+
+def _prefix_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec,
+                g: int, j: int, block: int):
+    """``block`` prefix batches of server ``j`` of group ``g``.  A batch
+    is active while the JAX loop's condition holds (``total < q`` and
+    the last batch committed); an inactive one is capped at 0 decisions,
+    which leaves the state bit for bit as it was.  Committed rows
+    scatter into the decision buffer at the JAX ``pos`` (the rest into
+    its dropped row ``q``); guard trips add up on the device."""
+    p, c = _group_parts(sim)[g], ctl[g]
+    q = spec.q_per_slice
+    kb = min(q, spec.n_clients)
+    base = server_view(p.engine, j)
+    eng = base
+    t_end = p.t + spec.slice_ns
+    total, last, gt = c["total"][j], c["last"][j], c["gt"][j]
+    off, taken = c["off"][j], c["taken"][j, 1]
+    rows = [buf[j] for buf in c["dbuf"]]
+    lane = torch.arange(kb, dtype=torch.int64, device=p.t.device)
+    for _ in range(block):
+        active = (total < q) & (last > 0)
+        heads = _window_heads(eng, ring_window(eng, 1))
+        batch = speculate_prefix_batch(
+            eng, t_end, kb, anticipation_ns=0,
+            max_count=torch.where(active, q - total, 0), heads=heads,
+            allow_limit_break=spec.allow_limit_break,
+            select_impl=spec.select_impl)
+        gt = gt + (active & ~batch.guards_ok).to(torch.int32)
+        pos = torch.where(lane < batch.count, off.to(torch.int64) + lane, q)
+        for buf, vals in zip(rows, batch.decisions):
+            buf.index_put_((pos,), vals)
+        eng = batch.state
+        total = (total + batch.count).to(torch.int32)
+        off = (off + batch.count).to(torch.int32)
+        last = torch.where(active, batch.count, last)
+        taken = taken + active.to(torch.int32)
+    _write_back(server_view(p.engine, j), eng, base)
+    for dst, v in ((c["total"][j], total), (c["last"][j], last),
+                   (c["gt"][j], gt), (c["off"][j], off),
+                   (c["taken"][j, 1], taken),
+                   (c["live"][j], (total < q) & (last > 0))):
+        dst.copy_(v)
+    return sim, ctl
+
+
+def _tail_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec):
+    """A slice's tail, one graph: the tracker folds, the stats scatters
+    and the completions, the three reductions between groups, the load
+    update and the clock, written into the sim's tensors in place."""
+    parts = _group_parts(sim)
+    devs = sim_devices(sim)
+    use_prefix, use_cal = _serve_paths(spec)
+    q = spec.q_per_slice
+    gts, dones = [], []
+    for g, p in enumerate(parts):
+        c = ctl[g]
+        per = p.served_resv.shape[0]
+        t_end = p.t + spec.slice_ns
+        decs = kernels.Decision(*(buf[:, :q] for buf in c["dbuf"]))
+        served = decs.type == kernels.RETURNING
+        tracker = tracker_track(p.tracker, decs.slot, decs.cost,
+                                decs.phase, served)
+        if use_cal:
+            tracker = tracker_track_counts(tracker, c["srv"], c["rsv"],
+                                           p.load.cost)
+        _write_back(p.tracker, tracker, p.tracker)
+        one = served.to(torch.int64)
+        idx = torch.where(served, decs.slot, 0).to(torch.int64)
+        sresv = p.served_resv.scatter_add(1, idx, one * (decs.phase == 0))
+        sprop = p.served_prop.scatter_add(1, idx, one * (decs.phase == 1))
+        slast = p.last_served.scatter_reduce(
+            1, idx, torch.where(served, t_end, 0), "amax",
+            include_self=True)
+        done_here = torch.zeros((per, spec.n_clients), dtype=torch.int32,
+                                device=p.t.device).scatter_add(
+            1, idx, one.to(torch.int32))
+        if use_cal:
+            sresv = sresv + c["rsv"].to(torch.int64)
+            sprop = sprop + (c["srv"] - c["rsv"]).to(torch.int64)
+            slast = torch.maximum(slast, torch.where(c["srv"] > 0, t_end, 0))
+            done_here = done_here + c["srv"]
+        for dst, v in ((p.served_resv, sresv), (p.served_prop, sprop),
+                       (p.last_served, slast)):
+            dst.copy_(v)
+        dones.append(done_here.sum(dim=0))
+        gts.append(c["gt"].sum())
+    trips = _reduced(gts, devs)
+    completions = _reduced(dones, devs)
+    for g, p in enumerate(parts):
+        n = ctl[g]["n"]
+        if use_prefix:
+            p.guard_trips.copy_((p.guard_trips + trips[g]).to(torch.int32))
+        load = p.load
+        load.outstanding.copy_((load.outstanding + n - completions[g])
+                               .to(torch.int32))
+        load.next_send.add_(n.to(torch.int64) * load.gap_ns)
+        load.sent.add_(n)
+        p.t.add_(spec.slice_ns)
+    return sim, ctl
+
+
+def _distinct(sim: DeviceSim) -> DeviceSim:
+    """``sim`` with no tensor in two places: a value the layout
+    replicates onto one device is one tensor for every group, and the
+    program's legs write each group's copy in place."""
+    leaves, spec = pytree.tree_flatten(sim)
+    seen: set = set()
+    out = []
+    for x in leaves:
+        out.append(x.clone() if id(x) in seen else x)
+        seen.add(id(x))
+    return pytree.tree_unflatten(out, spec)
+
+
+def _read_status(ctl: list, counts: StepCounts) -> list:
+    """Every server's ``(live, total, taken calendar, taken prefix)``,
+    in group order: one read back a device."""
+    by_dev: dict = {}
+    for g, c in enumerate(ctl):
+        by_dev.setdefault(c["total"].device, []).append(g)
+    rows: dict = {}
+    for gs in by_dev.values():
+        host = torch.cat([torch.stack(
+            [ctl[g]["live"].to(torch.int32), ctl[g]["total"],
+             ctl[g]["taken"][:, 0], ctl[g]["taken"][:, 1]], dim=1)
+            for g in gs]).cpu()
+        counts.read_backs += 1
+        at = 0
+        for g in gs:
+            per = ctl[g]["total"].shape[0]
+            rows[g] = host[at:at + per].tolist()
+            at += per
+    return [r for g in range(len(ctl)) for r in rows[g]]
+
+
+def sim_devices(sim: DeviceSim) -> tuple:
+    """A sim's layout: its groups' devices, or a stacked sim's one."""
+    return tuple(sim.engine.devices) if groups.is_grouped(sim.engine) \
+        else (sim.t.device,)
+
+
+# the device-sim programs, by spec, slices, blocks and layout
+_STEP_JIT_CACHE: dict = {}
+
+
+def jit_device_sim_step(spec: DeviceSimSpec, slices: int, *, devices,
+                        block: int = PREFIX_BLOCK,
+                        cal_block: int = CALENDAR_BLOCK):
+    """:func:`device_sim_step` of ``slices`` slices as a program, the
+    counterpart of the JAX package's ``jax.jit(partial(device_sim_step,
+    ...), donate_argnums=(0,))``: a ``compile_plane.StagedJit`` outside
+    the plane's records (cache ``device_sim.step``), whose body runs a
+    slice on the host around captured legs
+    (``compile_plane.InstrumentedJit``, cache ``device_sim.leg``, that
+    share one set of donated buffers): the head (counters, sends,
+    ingest waves), per server a block of ``cal_block`` masked calendar
+    batches and a block of ``block`` masked prefix batches, and the
+    tail (tracker folds, stats, reductions, load, clock).  A block
+    replays, for the servers still in their loop, until one read back
+    of the loop state says none is: one read back a block replay, not
+    one a batch.  The scan path's serve is ``kernels.serial_leg`` once
+    a server, read back nothing.  Every field equals
+    :func:`device_sim_step`'s.
+
+    ``devices`` is the sim's layout (:func:`sim_devices`); a layout over
+    two or more distinct cards runs the legs eagerly (one CUDA graph
+    holds one device), read from the layout before any capture.  The
+    program donates the sim: its result is the legs' buffers (a first
+    call copies the sim in once), and a chain that passes it back
+    copies nothing; on the CPU the legs write into the sim passed in (a
+    caller that keeps its sim passes a copy).  Returns ``call(sim, *,
+    counts=None) -> sim`` with ``call.program`` the ``StagedJit`` and
+    ``call.legs`` its legs; inside ``compile_plane.eager()`` it runs the
+    same body with every leg op by op."""
+    devices = tuple(torch.device(d) for d in devices)
+    key = (tuple(vars(spec).items()), int(slices), int(block),
+           int(cal_block), devices)
+    if key in _STEP_JIT_CACHE:
+        return _STEP_JIT_CACHE[key]
+    if block < 1 or cal_block < 1:
+        raise ValueError(f"blocks of {block} and {cal_block} batches")
+    use_prefix, use_cal = _serve_paths(spec)
+    n_groups = len(devices)
+    per = groups.check_split(spec.n_servers, n_groups)
+    entry = (spec.n_servers, spec.n_clients, spec.q_per_slice,
+             spec.calendar_impl, int(slices), int(block), int(cal_block),
+             tuple(str(d) for d in devices))
+    capture = len(set(devices)) == 1
+
+    def leg(fn, name, **kw):
+        return compile_plane.InstrumentedJit(
+            functools.partial(fn, spec=spec, **kw), cache="device_sim.leg",
+            entry=(name,) + entry + tuple(kw.items()), donate_argnums=(0, 1),
+            capture=capture, record=False, share_donated=True)
+
+    head = leg(_head_leg, "head")
+    tail = leg(_tail_leg, "tail")
+    servers = [(g, j) for g in range(n_groups) for j in range(per)]
+    cal = {s: leg(_calendar_leg, "calendar", g=s[0], j=s[1],
+                  block=int(cal_block)) for s in servers} if use_cal else {}
+    prefix = {s: leg(_prefix_leg, "prefix", g=s[0], j=s[1],
+                     block=int(block)) for s in servers} if use_prefix \
+        else {}
+    scan = None if use_prefix else kernels.serial_leg(
+        spec.q_per_slice, allow_limit_break=spec.allow_limit_break,
+        anticipation_ns=0)
+    held: dict = {}         # the loop state, kept from call to call
+    box: dict = {}
+
+    def rounds(sim, ctl, legs, todo, size, counts, kind):
+        """Replay each server's block of ``legs`` for the servers in
+        ``todo`` until a read back says none is still in its loop."""
+        rows = None
+        while todo:
+            for s in todo:
+                sim, ctl = legs[s](sim, ctl)
+            setattr(counts, f"{kind}_batches",
+                    getattr(counts, f"{kind}_batches") + size * len(todo))
+            rows = _read_status(ctl, counts)
+            todo = [s for s in todo if rows[s[0] * per + s[1]][0]]
+        if rows is not None:
+            col = 2 if kind == "calendar" else 3
+            setattr(counts, f"{kind}_live", getattr(counts, f"{kind}_live")
+                    + sum(r[col] for r in rows))
+        return sim, ctl, rows
+
+    def serial_serve(sim, ctl):
+        """The scan path: ``engine_run`` of ``q`` steps a server
+        (``kernels.serial_leg``, captured blocks), written back."""
+        q = spec.q_per_slice
+        for g, p in enumerate(_group_parts(sim)):
+            for j in range(per):
+                base = server_view(p.engine, j)
+                eng, _, d = scan(base, p.t + spec.slice_ns)
+                _write_back(server_view(p.engine, j), eng, base)
+                for buf, v in zip(ctl[g]["dbuf"], d):
+                    buf[j, :q].copy_(v)
+
+    def body(sim: DeviceSim) -> DeviceSim:
+        counts = box.get("counts") or StepCounts()
+        sim = _distinct(sim)
+        ctl = held.get("ctl")
+        if ctl is None:
+            ctl = _loop_state(_group_parts(sim), spec, use_cal)
+        q = spec.q_per_slice
+        for _ in range(slices):
+            sim, ctl = head(sim, ctl)
+            if use_prefix:
+                todo = servers
+                if use_cal:
+                    sim, ctl, rows = rounds(sim, ctl, cal, servers,
+                                            int(cal_block), counts,
+                                            "calendar")
+                    todo = [s for s in servers
+                            if rows[s[0] * per + s[1]][1] < q]
+                sim, ctl, _ = rounds(sim, ctl, prefix, todo, int(block),
+                                     counts, "prefix")
+            else:
+                serial_serve(sim, ctl)
+            sim, ctl = tail(sim, ctl)
+            counts.slices += 1
+        held["ctl"] = ctl
+        return sim
+
+    program = compile_plane.StagedJit(body, cache="device_sim.step",
+                                      entry=entry, record=False)
+
+    def call(sim: DeviceSim, *, counts: Optional[StepCounts] = None):
+        box["counts"] = counts
+        try:
+            return program(sim)
+        finally:
+            box.clear()
+
+    call.program = program
+    call.legs = [head, tail] + list(cal.values()) + list(prefix.values())
+    _STEP_JIT_CACHE[key] = call
+    return call
+
+
 def run_device_sim(cfg: SimConfig, *, ring_capacity: int = 256,
                    slices_per_launch: int = 64,
                    max_launches: int = 200,
@@ -715,9 +1165,10 @@ def run_device_sim(cfg: SimConfig, *, ring_capacity: int = 256,
                    counts: Optional[StepCounts] = None,
                    mesh: Optional[MeshLayout] = None, devices=None):
     """Run to completion (all clients' ops served) or the launch cap.
-    A "launch" is one :func:`device_sim_step` of ``slices_per_launch``
-    slices; the served totals are read back after each (counted in
-    ``counts.read_backs`` with the serve batches' counts).
+    A "launch" is one call of the program of ``slices_per_launch``
+    slices (:func:`jit_device_sim_step`, donated: each launch passes the
+    last one's sim back); the served totals are read back after each
+    (counted in ``counts.read_backs`` with the blocks' reads).
 
     ``check_guards`` (default on) raises after any launch whose prefix
     batches tripped a rebase guard -- the invariant init_device_sim
@@ -755,10 +1206,12 @@ def run_device_sim(cfg: SimConfig, *, ring_capacity: int = 256,
     if mesh is not None:
         sim = shard_device_sim(sim, mesh)
     total_ops = int(groups.pick(sim.load, 0).total_ops.sum())
+    step = jit_device_sim_step(spec, slices_per_launch,
+                               devices=sim_devices(sim))
     launches = 0
     completed = 0
     for launches in range(1, max_launches + 1):
-        sim = device_sim_step(sim, spec, slices_per_launch, counts=counts)
+        sim = step(sim, counts=counts)
         if check_guards:
             check_guard_trips(sim)
             counts.read_backs += 1
@@ -910,17 +1363,27 @@ def headline_setup(n: int = HEADLINE_CLIENTS, *,
 def device_sim_headline(n: int = HEADLINE_CLIENTS, *,
                         device: str | torch.device = DEFAULT_DEVICE,
                         lo: int = HEADLINE_LO,
-                        hi: int = HEADLINE_HI) -> dict:
+                        hi: int = HEADLINE_HI,
+                        program: bool = True,
+                        block: int = PREFIX_BLOCK) -> dict:
     """Closed-loop ops per wall second of the device sim:
     ``HEADLINE_WARM`` launches of ``HEADLINE_SLICES`` slices, then a
     chain of ``lo`` and one of ``hi`` launches, each synchronized; the
     rate is differenced over the two chains ((hi ops - lo ops) / (hi s -
-    lo s)), which cancels a chain's fixed cost.  Also the weight 3:1
-    served ratio and the virtual seconds, the slices' ms and the read
-    backs per slice."""
+    lo s)), which cancels a chain's fixed cost.  A launch is a call of
+    the program (:func:`jit_device_sim_step` with ``block``, donated;
+    its capture falls in the warm-up), or with ``program=False`` the
+    op-by-op :func:`device_sim_step`.  Also the weight 3:1 served ratio
+    and the virtual seconds, the slices' ms, the read backs per slice,
+    and the long chain's prefix batches a slice, launched and live
+    (``StepCounts``)."""
     dev = resolve_device(device)
     _cfg, sim, spec = headline_setup(n, device=dev)
     counts = StepCounts()
+    step = jit_device_sim_step(spec, HEADLINE_SLICES,
+                               devices=sim_devices(sim), block=block) \
+        if program else functools.partial(device_sim_step, spec=spec,
+                                          slices=HEADLINE_SLICES)
 
     def sync():
         if dev.type == "cuda":
@@ -928,18 +1391,18 @@ def device_sim_headline(n: int = HEADLINE_CLIENTS, *,
 
     def chain(launches, s):
         before = served_total(s)          # syncs the previous chain
-        rb0 = counts.read_backs
+        c0 = dataclasses.replace(counts)
         t0 = time.perf_counter()
         for _ in range(launches):
-            s = device_sim_step(s, spec, HEADLINE_SLICES,
-                                counts=counts)
+            s = step(s, counts=counts)
             sync()
         secs = time.perf_counter() - t0
-        return s, served_total(s) - before, secs, counts.read_backs - rb0
+        return s, served_total(s) - before, secs, c0
 
     sim, _, _, _ = chain(HEADLINE_WARM, sim)
     sim, d_lo, t_lo, _ = chain(lo, sim)
-    sim, d_hi, t_hi, rb_hi = chain(hi, sim)
+    sim, d_hi, t_hi, c_hi = chain(hi, sim)
+    slices_hi = hi * HEADLINE_SLICES
     check_guard_trips(sim)
     per_client = (sim.served_resv + sim.served_prop).sum(dim=0).cpu() \
         .numpy()
@@ -948,11 +1411,18 @@ def device_sim_headline(n: int = HEADLINE_CLIENTS, *,
             "total_ops": served_total(sim),
             "virtual_s": int(sim.t) / 1e9,
             "weight_ratio_3_1": float(g2),
-            "ms_per_slice": t_hi * 1e3 / (hi * HEADLINE_SLICES),
-            "read_backs_per_slice": rb_hi / (hi * HEADLINE_SLICES),
-            "ops_per_slice": d_hi / (hi * HEADLINE_SLICES),
+            "ms_per_slice": t_hi * 1e3 / slices_hi,
+            "read_backs_per_slice": (counts.read_backs - c_hi.read_backs)
+            / slices_hi,
+            "prefix_batches_per_slice":
+                (counts.prefix_batches - c_hi.prefix_batches) / slices_hi,
+            "prefix_live_per_slice":
+                (counts.prefix_live - c_hi.prefix_live) / slices_hi,
+            "ops_per_slice": d_hi / slices_hi,
             "guard_trips": int(sim.guard_trips),
-            "slices": counts.slices, "device": str(dev)}
+            "slices": counts.slices, "counts": dataclasses.asdict(counts),
+            "program": bool(program),
+            "block": int(block) if program else None, "device": str(dev)}
 
 
 def main(argv=None) -> int:
@@ -982,8 +1452,9 @@ def main(argv=None) -> int:
         else parse_devices(args.devices))
     print(report)
     print(f"# host loop: {counts.slices} slices, {counts.prefix_batches} "
-          f"prefix and {counts.calendar_batches} calendar batches, "
-          f"{counts.read_backs} read backs")
+          f"prefix and {counts.calendar_batches} calendar batches "
+          f"({counts.prefix_live} and {counts.calendar_live} in a "
+          f"server's loop), {counts.read_backs} read backs")
     return 0
 
 

@@ -43,8 +43,10 @@ last round, so the final SLO roll, the read-backs and the digest's
 copies that follow are counted apart).  ``device_sim`` profiles the
 device sim's closed-loop headline (``sim.device_sim.headline_setup``:
 100,000 clients on 8 servers, ring 64, 8,192 serves a server a slice)
-over ``--rounds`` slices after one warm-up launch of 2 slices, and
-prints launches, read backs and serve batches per slice (with
+op by op and through the program (``jit_device_sim_step``) in one
+call, each over ``--rounds`` slices after one warm-up launch of 2
+slices (the program's captures), and prints launches, read backs and
+serve batches (launched and in a server's loop) per slice (with
 ``--calendar-impl`` the slices front-load calendar batches).  ``mesh``
 profiles one chunk of bench's mesh row (``serve.mesh_row``'s shape:
 100,000 clients over ``--n-shards`` shards on the card, 8 epochs) after
@@ -356,36 +358,62 @@ def _profile_churn(serve, epochs: int, card: str, out: str) -> int:
 
 def _profile_device_sim(n: int, slices: int, calendar_impl, card: str,
                         out: str) -> int:
-    """The device sim's headline shape: one warm-up launch of 2 slices,
-    then ``slices`` slices profiled, with the host loop's serve batches
-    and read backs counted (``StepCounts``)."""
+    """The device sim's headline shape, op by op (``device_sim_step``)
+    and through the program (``jit_device_sim_step``, the entry points'
+    path) in one call: each after one warm-up launch of 2 slices (the
+    program's captures), then ``slices`` slices profiled, with the
+    serve batches launched and in a server's loop and the read backs
+    counted (``StepCounts``)."""
     from dmclock_tpu_torch.engine import _ext
     from dmclock_tpu_torch.sim import device_sim as DS
 
-    _, sim, spec = DS.headline_setup(n, calendar_impl=calendar_impl,
-                                     device="cuda")
-    sim = DS.device_sim_step(sim, spec, 2)                  # warm
-    counts = DS.StepCounts()
-    k0 = dict(_ext.LAUNCHES)
-    before = DS.served_total(sim)
-    res, prof = _profiled(lambda: DS.device_sim_step(sim, spec, slices,
-                                                     counts=counts))
-    ops = DS.served_total(res) - before
-    DS.check_guard_trips(res)
+    rows, tables = {}, []
+    for how in ("op_by_op", "program"):
+        _, sim, spec = DS.headline_setup(n, calendar_impl=calendar_impl,
+                                         device="cuda")
+        if how == "program":
+            devs = DS.sim_devices(sim)
+            warm = DS.jit_device_sim_step(spec, 2, devices=devs)
+            run = DS.jit_device_sim_step(spec, slices, devices=devs)
+        else:
+            warm = run = None
+
+        def step(s, k, counts=None, fn=None):
+            if fn is not None:
+                return fn(s, counts=counts)
+            return DS.device_sim_step(s, spec, k, counts=counts)
+
+        sim = step(sim, 2, fn=warm)
+        if run is not None and slices != 2:
+            sim = step(sim, slices, fn=run)     # its captures, unprofiled
+        counts = DS.StepCounts()
+        k0 = dict(_ext.LAUNCHES)
+        before = DS.served_total(sim)
+        res, prof = _profiled(lambda: step(sim, slices, counts, run))
+        ops = DS.served_total(res) - before
+        DS.check_guard_trips(res)
+        tables.append(f"{how}:\n{prof.pop('table')}")
+        rows[how] = {
+            "ops": ops, "ops_per_slice": ops / slices,
+            "launches_per_slice": prof["kernel_launches"] / slices,
+            "read_backs_per_slice": counts.read_backs / slices,
+            "prefix_batches_per_slice": counts.prefix_batches / slices,
+            "prefix_live_per_slice": counts.prefix_live / slices,
+            "calendar_batches_per_slice": counts.calendar_batches / slices,
+            "calendar_live_per_slice": counts.calendar_live / slices,
+            "k1_k2_launches": {k: _ext.LAUNCHES[k] - k0[k] for k in k0},
+            **prof}
+        del sim, res
+        DS._STEP_JIT_CACHE.clear()
+        torch.cuda.empty_cache()
     with open(out, "w") as f:
-        f.write(f"{card}\n{prof.pop('table')}\n")
+        f.write(card + "\n" + "\n".join(tables) + "\n")
     print(json.dumps({
         "card": card, "workload": "device_sim", "n": n,
         "servers": spec.n_servers, "q_per_slice": spec.q_per_slice,
-        "ring": sim.engine.ring_capacity, "slices": slices,
-        "calendar_impl": calendar_impl, "ops": ops,
-        "ops_per_slice": ops / slices,
-        "launches_per_slice": prof["kernel_launches"] / slices,
-        "read_backs_per_slice": counts.read_backs / slices,
-        "prefix_batches_per_slice": counts.prefix_batches / slices,
-        "calendar_batches_per_slice": counts.calendar_batches / slices,
-        "k1_k2_launches": {k: _ext.LAUNCHES[k] - k0[k] for k in k0},
-        **prof}))
+        "ring": DS.HEADLINE_RING, "slices": slices,
+        "calendar_impl": calendar_impl, "prefix_block": DS.PREFIX_BLOCK,
+        **rows}))
     return 0
 
 
