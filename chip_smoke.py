@@ -5,7 +5,7 @@
 Phases (any failure raises and the exit code is not 0):
 
 1. the card: name and power limit (``nvidia-smi``), device name;
-2. build the port's CUDA kernels (K1, K2) from the sources in this
+2. build the port's CUDA kernels (K1, K2, K3) from the sources in this
    checkout, with one ``nvcc`` call;
 3. hold kernel K1 (the ring window) bit for bit against its plain
    PyTorch version at every shape of ``RING_SHAPES`` and every shape the
@@ -21,6 +21,14 @@ Phases (any failure raises and the exit code is not 0):
    that shows its workspace is left clean (build, every lane masked,
    stop wheel, build); time it beside its bound, the launch floor (a
    one-element ``fill_``), the plain version and the library calls;
+4b. hold kernel K3 (the ingest's reactivation recurrence) bit for bit
+   against its plain version on the inputs two real ingests on the card
+   hand it (a 1,024-row queue flush on 16,384 slots, and a cluster
+   server's first wave, 10,000 rows that all reactivate; each ingest
+   held whole against the CPU's) and on synthetic rows at the int64
+   edges, joined tags leaving the set among them; time it at both real
+   shapes beside its byte bound, the launch floor, its plain version
+   and the host recurrence it replaced (no library call computes it);
 5. exactness: at a small shape the prefix-commit epochs' decision
    stream and final state equal the port's own serial engine;
 6. the ``serve`` path: ``serve_only`` at the workload's full width
@@ -387,18 +395,20 @@ Phases (any failure raises and the exit code is not 0):
     captured ends with ``release_programs()`` (``clear_compiled`` and
     ``empty_cache``).  Every sustained row, calibration and stream
     chunk of the earlier phases runs through these programs: their K1
-    counts include the capture's warm-up round.  (c) The serial-engine programs (``phase_serial_programs``:
-    ``compile_plane.StagedJit``, captured ``kernels.serial_leg`` blocks
-    and eager ingest legs), each call held against its body run under
-    ``compile_plane.eager``: the ``queue`` cache's ``run`` (a
-    ``pull_batch`` of two blocks and a remainder), ``run_h`` and
-    ``run_stream`` on phase 17's final state, 0 syncs a call; the dry
-    run's ``cluster.cluster_step`` (8 x 10,000, 32 decisions a step),
-    ``cluster.robust_cluster_step`` under a single outage and
-    ``cluster.mesh_rounds`` at K=1, each call the eager body's syncs
-    (the waves' reads), the captured legs none; one server's leg alone
-    under the sync debug mode's errors; then ``release_programs`` leaves
-    no capture in these caches.  (d) The device sim's program
+    counts include the capture's warm-up round.  (c) The serial-engine
+    programs (``phase_serial_programs``), each a
+    ``compile_plane.InstrumentedJit`` captured whole (the device ingest
+    with K3, the serial legs' blocks as child graphs or replayed between
+    graph segments, the packing or the tracker folds), each call held
+    against its body run under ``compile_plane.eager`` with 0 syncs: the
+    ``queue`` cache's ``run`` (a ``pull_batch`` of two blocks and a
+    remainder), ``run_h``, ``run_stream``, ``ingest``, ``ingest_run`` and
+    ``ingest_run_stream`` on phase 17's final state (a 512-row batch of
+    creates and reactivations); the dry run's ``cluster.cluster_step``
+    (8 x 10,000, 32 decisions a step), ``cluster.robust_cluster_step``
+    under a single outage and ``cluster.mesh_rounds`` at K=1; one
+    server's leg alone under the sync debug mode's errors; then
+    ``release_programs`` leaves no capture in these caches.  (d) The device sim's program
     (``phase_device_sim_programs``) at the headline's full width, 2
     slices each on the prefix, minstop and wheel paths: the first call
     equal to the op-by-op step, a replay on a fresh sim and one chained
@@ -438,8 +448,13 @@ migration jobs', phase 28's counted wheel round's and phase 29's wheel
 round;
 the queue paths (17, 18),
 ``dmc_sim`` and the
-cluster runs of 22 add none, and the launches of the spawn children and
-of phase 26's subprocesses are not counted (``LAUNCHES`` is per
+cluster runs of 22 add none.  K3's (phase 4b holds it against its plain
+version on a real queue flush's and a 10,000-client cluster wave's
+inputs and times it) is every path that ingests an op batch: the queue
+and push phases (17, 18), ``dmc_sim`` (21), the dry run and the outage
+(22 (e)), the dry run over groups (25 (c)) and the ingesting programs of
+29 (c); no other path launches it.  The launches of the spawn children
+and of phase 26's subprocesses are not counted (``LAUNCHES`` is per
 process). Each kernel's entry also carries
 ``launches_by_path``. Serve's and the rows' rates are printed both as
 the mean (summed decisions over summed event ms) and median-based (one
@@ -474,6 +489,12 @@ K1_SOURCE = "dmclock_tpu_torch/engine/csrc/ring_window.cu"
 K1_REPLACES = "dmclock_tpu/engine/fastpath.py:156"
 K2_SOURCE = "dmclock_tpu_torch/engine/csrc/wheel_scan.cu"
 K2_REPLACES = "dmclock_tpu/engine/kernels_pallas.py:59"
+K3_SOURCE = "dmclock_tpu_torch/engine/csrc/ingest_scan.cu"
+# K3 replaces no Pallas kernel: it is the recurrence of the JAX ingest's
+# lax.scan over an op batch's rows
+K3_REPLACES = "dmclock_tpu/engine/kernels.py:571 (ingest's lax.scan, no Pallas kernel)"
+# K3's launches by path, each read right after its path's run
+K3_PATHS: dict = {}
 N_CFG4 = 100_000
 CFG4_ROUNDS = 1          # main-path rounds, launch-counted
 CFG4_TIMED = 1           # timed rounds after them
@@ -526,6 +547,33 @@ MET_LADDER_STEPS, MET_SUPERVISOR_RESUMES = 15, 16
 # device-memory rate of the H100 SXM (bytes/s, NVIDIA's data sheet),
 # for the bound of a data-movement kernel
 MEM_RATE = 3.35e12
+# K3's serial walk, a row's least time: its loop-carried chain is 6
+# dependent int64 operations (the minimum with the running minimum, the
+# compare with the trigger, low - t, the select, base + pd, the minimum
+# it joins), each 2 dependent 32-bit instructions on sm_90, at an
+# integer instruction's 4-cycle latency and the H100 SXM's 1.98 GHz
+# boost clock (ns a row)
+K3_CHAIN_NS = 6 * 2 * 4 / 1.98
+
+
+def launched(ext) -> dict:
+    """The kernels' launches since the last reset.  K3 (the ingest's
+    reactivation recurrence) is in it only where it launched: the paths
+    that ingest an op batch (the pull queue, the simulators' queues, the
+    cluster), so a K1/K2 path's count compares as it did before K3."""
+    return {k: v for k, v in ext.LAUNCHES.items() if v or k != "ingest_scan"}
+
+
+def k3_taken(launches: dict, path: str) -> dict:
+    """``launches`` without K3, whose count on an ingesting ``path`` must
+    be positive and is recorded in :data:`K3_PATHS`."""
+    out = dict(launches)
+    n = out.pop("ingest_scan", 0)
+    if n <= 0:
+        raise AssertionError(f"{path}: K3 was launched no time "
+                             f"({launches})")
+    K3_PATHS[path] = K3_PATHS.get(path, 0) + n
+    return out
 
 
 def log(msg: str) -> None:
@@ -832,6 +880,228 @@ def phase_k2(serve, fp, kernels, card: str) -> dict:
     return out
 
 
+def _k3_state(n: int, q: int, live: int, rng, p_idle: float, max_depth: int):
+    """A state of ``n`` slots on the card, ``live`` clients active (a
+    ``p_idle`` share idle) with tags around 50 s and queues up to
+    ``max_depth`` deep."""
+    from dmclock_tpu_torch.engine import bridge
+    from dmclock_tpu_torch.engine.state import init_state
+
+    a = bridge.state_to_numpy(init_state(n, q, device="cpu"))
+    t = 50 * 10 ** 9
+    a["active"][:live] = True
+    a["idle"][:live] = rng.random(live) < p_idle
+    a["order"][:] = np.arange(n)
+    a["weight_inv"][:live] = rng.integers(10 ** 6, 10 ** 9, live)
+    a["resv_inv"][:live] = np.where(rng.random(live) < 0.3, 0, 10 ** 7)
+    a["depth"][:live] = rng.integers(0, max_depth + 1, live)
+    a["q_head"][:live] = rng.integers(0, q, live)
+    for f in ("prev_resv", "prev_prop", "prev_limit", "prev_arrival",
+              "head_resv", "head_prop", "head_arrival"):
+        a[f][:live] = t + rng.integers(-10 ** 9, 10 ** 9, live)
+    a["prop_delta"][:live] = rng.integers(0, 10 ** 8, live)
+    return a
+
+
+def _k3_queue_batch(rng, a, b: int, t: int) -> np.ndarray:
+    """A queue flush of ``b`` rows against state arrays ``a``: creates
+    of free slots with their first adds (reactivations), adds to active
+    clients (the idle ones reactivate), a few slots created again after
+    rows of their own, NOP padding; no queue past its ring."""
+    add, create = 1, 2                 # kernels.OP_ADD, OP_CREATE
+    q = a["q_arrival"].shape[1]
+    depth = a["depth"].astype(np.int64).copy()
+    free = list(np.flatnonzero(~a["active"])[:64])
+    live = np.flatnonzero(a["active"])
+    rows, made = [], []
+    while len(rows) < b - b // 8:
+        u = rng.random()
+        if u < 0.1 and free:
+            s = int(free.pop())
+            made.append(s)
+        elif u < 0.13 and made:
+            s = int(rng.choice(made))
+        else:
+            s = int(rng.choice(made + list(rng.choice(live, 4))))
+            if depth[s] < q - 1:
+                rows.append((add, s, t + len(rows), 1 + s % 2, 1, 2, 0,
+                             0, 0, 0))
+                depth[s] += 1
+            continue
+        rows.append((create, s, 0, 0, 0, 0, 10 ** 7, 10 ** 8 + s, 0,
+                     1_000_000 + len(rows)))
+        depth[s] = 0
+    rows += [(0,) * 10] * (b - len(rows))
+    return np.asarray(rows, dtype=np.int64).T.copy()
+
+
+def _k3_inputs(kernels):
+    """K3's inputs as two real ingests on the card hand them to it,
+    taken at the wrapper: a queue flush (1,024 rows on the ``queue``
+    cell's 16,384 slots and ring 32: creates, adds, reactivations, slots
+    created twice) and a cluster server's first wave (10,000 idle
+    clients, one add each, every row a reactivation).  Each ingest is
+    also held whole against the same ingest on the CPU.  Returns
+    ``[(label, rows, count)]``."""
+    from dmclock_tpu_torch.engine import bridge
+
+    rng = np.random.default_rng(3)
+    qa = _k3_state(16_384, 32, 10_000, rng, 0.3, 8)
+    qrows = _k3_queue_batch(rng, qa, 1024, 60 * 10 ** 9)
+    wa = _k3_state(10_000, 4, 10_000, rng, 1.0, 0)
+    wrows = np.zeros((10, 10_000), dtype=np.int64)
+    wrows[0], wrows[1], wrows[2] = kernels.OP_ADD, np.arange(10_000), \
+        60 * 10 ** 9
+    wrows[3], wrows[4], wrows[5] = 1 + np.arange(10_000) % 2, 1, \
+        1 + np.arange(10_000) % 3
+    seen, real = [], kernels.ingest_scan
+
+    def record(rows, count):
+        seen.append((rows.clone(), count.clone()))
+        return real(rows, count)
+
+    out = []
+    for label, arrays, rows in (("queue flush", qa, qrows),
+                                ("cluster wave", wa, wrows)):
+        kernels.ingest_scan = record
+        try:
+            got = kernels.ingest(bridge.state_from_numpy(arrays, "cuda"),
+                                 torch.from_numpy(rows).cuda(),
+                                 anticipation_ns=0)
+        finally:
+            kernels.ingest_scan = real
+        want = kernels.ingest(bridge.state_from_numpy(arrays, "cpu"),
+                              torch.from_numpy(rows), anticipation_ns=0)
+        for f, g, w in zip(got._fields, got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"the ingest of the {label} on the "
+                                     f"card differs from the CPU's: {f}")
+        rows_k3, count = seen.pop()
+        log(f"[k3] {label}: the ingest of {rows.shape[1]} rows on the card "
+            f"equals the CPU's on every field; {int(count)} reactivating "
+            f"rows reach K3")
+        out.append((label, rows_k3, count))
+    return out
+
+
+def _k3_check(kernels, rows, count, label: str) -> int:
+    """One K3 call against its plain version on the first ``count``
+    columns, exactly; returns the max abs error (0) or raises."""
+    r = int(count)
+    got = kernels.ingest_scan(rows, count)
+    want = kernels._ingest_scan_torch(rows.cpu(), count.cpu())
+    torch.cuda.synchronize()
+    g, w = got.cpu()[:r].tolist(), want[:r].tolist()
+    err = max((abs(a - b) for a, b in zip(g, w) if a != b), default=0)
+    if err:
+        raise AssertionError(f"K3 differs from its plain version: {label},"
+                             f" {r} rows: max err {err}")
+    log(f"[k3] {label} ({r} of {rows.shape[1]} columns): bit-identical to "
+        f"the plain version")
+    return err
+
+
+def _k3_synthetic(gen, r: int, b: int, leaving: bool):
+    """Random K3 rows on the card: tags near the int64 edges (wrapping
+    ``low - t`` and ``base + pd``), both sides of the trigger, and with
+    ``leaving`` joined tags that leave the set again."""
+    dev = torch.device("cuda")
+
+    def rand(lo, hi, n=r):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    m = torch.where(rand(0, 4) == 0, KEY_INF, rand(-(1 << 62), 1 << 62))
+    m = torch.where(rand(0, 9) == 0, -(1 << 63) + rand(0, 1000), m)
+    base = rand(-(1 << 62), 1 << 62)
+    end = torch.where(rand(0, 2) == 0, r, torch.arange(r, device=dev)
+                      + rand(0, 7)) if leaving else torch.full_like(m, r)
+    rows = torch.zeros((7, b), dtype=torch.int64, device=dev)
+    rows[:, :r] = torch.stack([m, rand(0, 2), base, rand(0, 1 << 40),
+                               rand(0, 5).clamp(max=1), rand(0, 1 << 62),
+                               torch.clamp(end, max=r)])
+    return rows, torch.tensor(r, device=dev)
+
+
+def _old_host_recurrence(kernels, rows, count):
+    """The recurrence as the ingest ran it before K3: ``[6, r]`` read back
+    to the host, the Python loop, the shifts copied back."""
+    r = int(count)
+    vals = rows[:6, :r].cpu()
+    low_p, any_r, out = KEY_INF, False, []
+    for mk, a0, b, pd, act, t in vals.T.tolist():
+        low = min(mk, low_p)
+        if (a0 or any_r) and low < kernels.LOWEST_PROP_TAG_TRIGGER:
+            pd = kernels._wrap64(low - t)
+        out.append(pd)
+        if act:
+            low_p = min(low_p, kernels._wrap64(b + pd))
+            any_r = True
+    return torch.tensor(out, dtype=torch.int64).to(rows.device)
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Mean host wall of ``fn()`` with the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_k3(kernels, card: str) -> dict:
+    """K3 against its plain version on two real ingests' inputs and on
+    synthetic rows at the int64 edges (joined tags leaving the set among
+    them); its time at both real shapes beside its byte bound, the
+    launch floor, its plain version and the host recurrence it replaced
+    (each call of those two a host loop, timed by the host's clock)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = _k3_inputs(kernels)
+    max_err = max(_k3_check(kernels, rows, count, label)
+                  for label, rows, count in cases)
+    for r, b, leaving in ((0, 64, False), (1, 1, False), (700, 1024, True),
+                          (5000, 5000, False), (3000, 4096, True)):
+        rows, count = _k3_synthetic(gen, r, b, leaving)
+        max_err = max(max_err, _k3_check(
+            kernels, rows, count, f"synthetic, edges"
+            f"{', tags leaving the set' if leaving else ''}"))
+    one = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    floor_ms = cuda_ms(lambda: one.fill_(1), 50)
+    times = {}
+    for label, rows, count in cases:
+        r = int(count)
+        k_ms = cuda_ms(lambda: kernels.ingest_scan(rows, count), 20)
+        rc, cc = rows.cpu(), count.cpu()
+        p_ms = _wall_ms(lambda: kernels._ingest_scan_torch(rc, cc))
+        o_ms = _wall_ms(lambda: _old_host_recurrence(kernels, rows, count))
+        bound_ms = kernels.ingest_scan_cost(r)["bytes_accessed"] \
+            / MEM_RATE * 1e3
+        times[label] = dict(rows=r, ms=k_ms, plain_ms=p_ms, old_ms=o_ms,
+                            bound_ms=bound_ms)
+        log(f"[k3] {label} ({r} reactivating rows) on {card}: device time "
+            f"per call (CUDA graph replay) {k_ms:.6f} ms = "
+            f"{k_ms / bound_ms:.3f}x its byte bound {bound_ms:.6f} ms, "
+            f"{k_ms / floor_ms:.3f}x the launch floor {floor_ms:.6f} ms; "
+            f"plain (a host loop) {p_ms:.6f} ms; the host recurrence it "
+            f"replaced (read back, loop, copy back) {o_ms:.6f} ms")
+    q, w = times["queue flush"], times["cluster wave"]
+    per_row = (w["ms"] - q["ms"]) / max(w["rows"] - q["rows"], 1)
+    chain = {k: floor_ms + v["rows"] * K3_CHAIN_NS * 1e-6
+             for k, v in times.items()}
+    log(f"[k3] on {card}: {per_row * 1e6:.3f} ns a row of the serial walk "
+        f"between the two shapes, {per_row * 1e6 / K3_CHAIN_NS:.3f}x the "
+        f"chain's latency ({K3_CHAIN_NS:.3f} ns a row); the launch floor "
+        f"plus the chain: " + ", ".join(
+            f"{k} {v:.6f} ms ({times[k]['ms'] / v:.3f}x)"
+            for k, v in chain.items()))
+    return dict(name="ingest_scan", route="cuda", source=K3_SOURCE,
+                replaces=K3_REPLACES, launches=None, max_abs_err=max_err,
+                ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+                bound_by="bytes", library_ms=None,
+                chain_bound_ms=chain["cluster wave"])
+
+
 def _serial_matches(kernels, st0, now, slots, phases, costs, what: str,
                     final_state=None) -> None:
     """``slots``/``phases``/``costs``: the prefix path's committed stream
@@ -996,7 +1266,7 @@ def phase_serve(serve, kernels, ext, obsdev, card: str):
     res = serve.serve_only(N_SERVE, DEPTH, K_SERVE, M_SERVE, EPOCHS,
                            device="cuda")
     torch.cuda.synchronize()
-    launches = dict(ext.LAUNCHES)
+    launches = launched(ext)
     log(f"[serve] kernel launches on the main path: {launches}")
     if launches != {"ring_window": EPOCHS, "wheel_scan": 0}:
         raise AssertionError(f"serve launched {launches} over {EPOCHS} "
@@ -1089,16 +1359,20 @@ def _timed_epoch(run, st):
     return r, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
-def _launch_counted(ext, run, want: dict, what: str):
+def _launch_counted(ext, run, want: dict, what: str,
+                    ingests: bool = False):
     """``run()`` with the launch counts set to 0 just before and read
-    just after; raises unless they equal ``want``."""
+    just after; raises unless they equal ``want``.  An ``ingests`` path
+    (one that ingests op batches) must also have launched K3, whose
+    count goes to :data:`K3_PATHS`."""
     torch.cuda.synchronize()
     ext.reset_launches()
     res = run()
     torch.cuda.synchronize()
-    launches = dict(ext.LAUNCHES)
+    launches = launched(ext)
     log(f"[{what}] kernel launches on the path: {launches}")
-    if launches != want:
+    got = k3_taken(launches, what) if ingests else launches
+    if got != want:
         raise AssertionError(f"{what} launched {launches}, want {want}")
     return res, launches
 
@@ -1455,7 +1729,7 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
     res = serve.cfg4_rounds(state0, draws[:CFG4_ROUNDS],
                             calendar_impl="wheel", t0=base)
     torch.cuda.synchronize()
-    launches = dict(ext.LAUNCHES)
+    launches = launched(ext)
     rounds = 1 + prep.cal_rounds + CFG4_ROUNDS
     log(f"[cfg4_wheel] kernel launches on the main path over the "
         f"capture's warm-up round, {prep.cal_rounds} calibration and "
@@ -1571,7 +1845,7 @@ def phase_cfg4_wheel(serve, ext, obsdev, card: str) -> dict:
            "spans": serve._span_summary(tracer, win, sum(host) / 1e3,
                                         CFG4_TIMED),
            "event_ms": statistics.median(ms),
-           "count_launches": dict(ext.LAUNCHES), "count_s": count_s}
+           "count_launches": launched(ext), "count_s": count_s}
     return launches, row
 
 
@@ -1832,7 +2106,7 @@ def phase_row(serve, ext, card: str, workload: str, n: int, tmp: str) -> int:
     finally:
         watchdog.close()
     torch.cuda.synchronize()
-    launches = dict(ext.LAUNCHES)
+    launches = launched(ext)
     want = {"ring_window": _row_k1(workload, cut,
                                    row.get("latency_window", 0), m),
             "wheel_scan": 0}
@@ -1898,7 +2172,7 @@ def phase_frontier(serve, ext, card: str) -> int:
                                 target_latency_ms=FRONTIER_TARGET_MS,
                                 device="cuda")
     torch.cuda.synchronize()
-    launches = dict(ext.LAUNCHES)
+    launches = launched(ext)
     window = 4     # latency_rounds 8 < 20: the window is 4
     want = {"ring_window": sum(_row_k1("cfg4", cut, window, m)
                                for m, _ in points), "wheel_scan": 0}
@@ -2190,7 +2464,7 @@ def phase_queue(serve, ext):
     against its CPU twin by ``check_queue``."""
     run, _ = _launch_counted(
         ext, lambda: serve.serve_queue(N_QUEUE, device="cuda"),
-        {"ring_window": 0, "wheel_scan": 0}, "queue")
+        {"ring_window": 0, "wheel_scan": 0}, "queue", ingests=True)
     return run
 
 
@@ -2257,7 +2531,7 @@ def phase_push(serve, ext):
     t0 = time.perf_counter()
     (push, woke), _ = _launch_counted(
         ext, lambda: serve.virtual_server("push", N_PUSH, device="cuda"),
-        {"ring_window": 0, "wheel_scan": 0}, "push")
+        {"ring_window": 0, "wheel_scan": 0}, "push", ingests=True)
     secs = time.perf_counter() - t0
     handled = []
     q = TpuPushPriorityQueue(
@@ -2458,7 +2732,7 @@ def _sup_run(ext, what: str, fn, k2: bool = False):
     res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ext.LAUNCHES)
+    launches = launched(ext)
     if launches["ring_window"] <= 0 or \
             (launches["wheel_scan"] > 0) != k2:
         raise AssertionError(f"{what} launched {launches}")
@@ -2839,7 +3113,7 @@ def phase_device_sim(ext, fp, card: str):
     sim = DS.device_sim_step(sim, spec, DS_TWIN_SLICES, counts=counts)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(ext.LAUNCHES)
+    launches = launched(ext)
     log(f"[device_sim] {DS_TWIN_SLICES} slices in {secs:.3f} s: "
         f"{counts.prefix_batches} prefix batches, {counts.read_backs} read "
         f"backs; kernel launches {launches}")
@@ -2878,7 +3152,7 @@ def phase_device_sim(ext, fp, card: str):
         ext.reset_launches()
         row = DS.device_sim_headline(DS_N, device="cuda", program=program)
         torch.cuda.synchronize()
-        by_path[what] = dict(ext.LAUNCHES)
+        by_path[what] = launched(ext)
         if row["guard_trips"] != 0:
             raise AssertionError(f"{what}: {row['guard_trips']} guard "
                                  "trips")
@@ -2952,12 +3226,13 @@ def phase_dmc_sim(ext, card: str, tmp: str) -> dict:
             raise AssertionError(f"dmc_sim {mode} on {conf}: rc {rc}")
         with open(trace) as f:
             rows = sum(1 for _ in f)
-        launches = dict(ext.LAUNCHES)
+        launches = launched(ext)
         log(f"[dmc_sim {mode}] {conf} (client_total_ops {total_ops}) on "
             f"{card}: {rows} decisions in "
             f"{secs:.3f} s wall, {rows / secs:.3f} decisions/s; kernel "
-            f"launches {launches} (the serial engine: no K1 or K2)")
-        if any(launches.values()):
+            f"launches {launches} (the serial engine and the ingest: no "
+            f"K1 or K2, K3 each flush)")
+        if any(k3_taken(launches, f"dmc_sim_{mode}").values()):
             raise AssertionError(f"dmc_sim {mode} launched {launches}")
         out[mode] = (trace, launches)
     return out
@@ -3224,14 +3499,16 @@ def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
     epochs_run = (c["warmup_epochs"] // c["chunk"]
                   + c["epochs"] // c["chunk"]) * c["chunk"]
 
-    def counted(path, fn, want_k1, want_k2=0):
+    def counted(path, fn, want_k1, want_k2=0, ingests=False):
         torch.cuda.synchronize()
         ext.reset_launches()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = dict(ext.LAUNCHES)
+        got = launched(ext)
+        if ingests:
+            got = k3_taken(got, path)
         if got != {"ring_window": want_k1, "wheel_scan": want_k2}:
             raise AssertionError(f"{path} launched {got}, want K1 "
                                  f"{want_k1}, K2 {want_k2}")
@@ -3325,9 +3602,9 @@ def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
 
     # (e) the cluster dry run (cut) and the outage, on cluster_step
     mc = counted("multichip", lambda: serve.multichip_row(
-        **MULTICHIP_CUT, device="cuda"), 0)
+        **MULTICHIP_CUT, device="cuda"), 0, ingests=True)
     outage = counted("cluster_outage", lambda: serve.cluster_outage(
-        **OUTAGE, device="cuda"), 0)
+        **OUTAGE, device="cuda"), 0, ingests=True)
 
     # (f) capacity
     budget = obscap.device_hbm_budget()
@@ -3714,7 +3991,7 @@ def _counted(ext, what: str, fn, by_k1: dict, by_k2: dict,
     res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = dict(ext.LAUNCHES)
+    n = launched(ext)
     if n["ring_window"] <= 0 or (n["wheel_scan"] > 0) != k2:
         raise AssertionError(f"{what} launched {n}")
     by_k1[what] = n["ring_window"]
@@ -4197,7 +4474,7 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
                   + c["epochs"] // c["chunk"]) * c["chunk"]
     spec = TF.parse_fault_spec(MESH_FAULT_SPEC)
 
-    def counted(path, fn, want_k1, want_k2=0):
+    def counted(path, fn, want_k1, want_k2=0, ingests=False):
         torch.cuda.synchronize()
         ext.reset_launches()
         t0 = time.perf_counter()
@@ -4205,7 +4482,9 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
         secs = time.perf_counter() - t0
-        got = dict(ext.LAUNCHES)
+        got = launched(ext)
+        if ingests:
+            got = k3_taken(got, path)
         if want_k1 is not None and got != {"ring_window": want_k1,
                                            "wheel_scan": want_k2}:
             raise AssertionError(f"{path} launched {got}, want K1 "
@@ -4297,7 +4576,7 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
 
     # (c) the cut dry run over 8 groups
     mc = counted("multichip_groups8", lambda: serve.multichip_row(
-        **MULTICHIP_CUT, devices=groups8), 0)
+        **MULTICHIP_CUT, devices=groups8), 0, ingests=True)
     for a, b in zip(mc["policies"], stacked["multichip"]["policies"]):
         if a != b:
             raise AssertionError(f"multichip_groups8 {a['tracker']}: "
@@ -4985,9 +5264,9 @@ def phase_sweeps(ext, fp, cases, card: str, root: str, tmp: str):
         torch.cuda.synchronize()
         by_path = {"sweep_twin_epochs": ext.LAUNCHES["ring_window"]}
         want = 1 + full["allow"]["cal_m"] + full["calendar"]["points"][0][0]
-        if dict(ext.LAUNCHES) != {"ring_window": want, "wheel_scan": 0}:
+        if launched(ext) != {"ring_window": want, "wheel_scan": 0}:
             raise AssertionError(f"the sweeps' first epochs launched "
-                                 f"{dict(ext.LAUNCHES)}, want K1 {want}")
+                                 f"{launched(ext)}, want K1 {want}")
         lb = int(first["allow_sorted"]["lb"].sum())
         log(f"[sweeps] first epochs on {card}: Allow sorted "
             f"{int(first['allow_sorted']['count'].sum())} decisions "
@@ -5011,7 +5290,7 @@ def phase_sweeps(ext, fp, cases, card: str, root: str, tmp: str):
             rows = fn()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            got = dict(ext.LAUNCHES)
+            got = launched(ext)
             log(f"[{what}] {secs:.3f} s, kernel launches {got}")
             if got != {"ring_window": want, "wheel_scan": 0}:
                 raise AssertionError(f"{what} launched {got}, want K1 "
@@ -5249,7 +5528,7 @@ def phase_costs(ext, fp, card: str, root: str, rows: dict,
     comp = pf.component_rows(N_SERVE, PROFILE_K, torch.device("cuda"), peaks,
                              reps=1)
     torch.cuda.synchronize()
-    n = dict(ext.LAUNCHES)
+    n = launched(ext)
     # the prefetch row: 2 x (64 + 256) steps and its counted step, and
     # the head select's window
     want = {"ring_window": 2 * (pf.IT_LO + pf.IT_HI) + 1 + 1,
@@ -5353,7 +5632,7 @@ def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
             want = prog.fn(*ref_in)
             ev[1].record()
             torch.cuda.synchronize()
-            eager_n = dict(ext.LAUNCHES)
+            eager_n = launched(ext)
             del ref_in
         ext.reset_launches()
         torch.cuda.set_sync_debug_mode("error")
@@ -5364,7 +5643,7 @@ def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        replay_n = dict(ext.LAUNCHES)
+        replay_n = launched(ext)
         want_n = {k: cap["launches"].get(k, 0) for k in replay_n}
         if replay_n != eager_n or replay_n != want_n:
             raise AssertionError(f"{name} replay {i}: launches {replay_n}, "
@@ -5429,7 +5708,7 @@ def _program_finisher(ext, k1: dict, k2: dict, recs: dict):
         ext.reset_launches()
         out = _clone_tree(prog(*calls))
         torch.cuda.synchronize()
-        return out, dict(ext.LAUNCHES)
+        return out, launched(ext)
 
     def finish(path, name, prog, calls, nxt):
         first = first_call(prog, calls)
@@ -5762,38 +6041,20 @@ def phase_guarded_programs(serve, ext, card: str) -> tuple:
     return k1, k2, recs
 
 
-def _staged_record(prog, legs) -> dict:
-    """A staged program's capture record: the blocks of its serial legs
-    (``legs``, shared with other entries, so captured by whichever
-    entry ran them first) with nodes a block, warm-up and capture ms,
-    pool and static bytes summed."""
-    caps = [dict(c) for leg in legs for c in leg.captures()]
-    mem = {}
-    for c in caps:
-        for k, v in c.get("memory_analysis", {}).items():
-            mem[k] = mem.get(k, 0) + v
-    return dict(graph_nodes=[c.get("graph_nodes") for c in caps],
-                replays=[c["replays"] for c in caps],
-                lower_ms=sum(c["lower_ms"] for c in caps),
-                compile_ms=sum(c["compile_ms"] for c in caps),
-                pool_bytes=mem.get("pool_bytes", 0),
-                static_bytes=mem.get("argument_bytes", 0),
-                captured_here=len(prog.captures()))
-
-
-def _held_staged(ext, name: str, prog, legs, calls, nxt,
-                 host_reads: bool) -> dict:
-    """A staged program (``compile_plane.StagedJit``) on the card: its
-    first call (its legs' warm-ups and captures), then 3 calls of the
-    same signature with changed inputs (``nxt(args, out, i)``), each
-    held bit for bit against the body run eagerly
-    (``compile_plane.eager``) on a clone of its inputs, both timed by
-    CUDA events, no K1 or K2.  The synchronising operations of each
-    call are counted (the sync debug mode): with no host leg
-    (``host_reads`` False) the calls run under its errors, so 0; with
-    one, a call makes exactly the eager body's (the ingest legs'
-    reads), the captured legs none.  ``calls``/``nxt`` give ``(args,
-    kwargs)``.  Returns the record, printed."""
+def _held_whole(ext, name: str, prog, calls, nxt) -> dict:
+    """A program captured whole (``compile_plane.InstrumentedJit``) on
+    the card: its first call (warm-up and capture; its serial legs'
+    blocks child graphs of its graph, or, for a longer leg, replayed
+    between its graph's segments), then 3 calls of the same
+    signature with changed inputs (``nxt(args, out, i)``), each under
+    the sync debug mode's errors (0 syncs a call) and held bit for bit
+    against the body run eagerly (``compile_plane.eager``) on a clone of
+    its inputs, both timed by CUDA events.  As in :func:`_held_program`,
+    the launches of each replay and of its eager run are counted apart
+    and held equal to each other and to the capture's; there is no K1 or
+    K2, and K3 as often as the body ingests.  Only the first call's and
+    the replays' K3 go to :data:`K3_PATHS`.  ``calls``/``nxt`` give
+    ``(args, kwargs)``.  Returns the record, printed."""
     from dmclock_tpu_torch.obs import compile_plane
 
     from torch.utils import _pytree as pytree
@@ -5802,69 +6063,80 @@ def _held_staged(ext, name: str, prog, legs, calls, nxt,
         return pytree.tree_map(
             lambda x: x.clone() if torch.is_tensor(x) else x, tree)
 
+    def no_k12(n, what):
+        if n["ring_window"] or n["wheel_scan"]:
+            raise AssertionError(f"{name} {what}: launched {n}")
+
     torch.cuda.synchronize()
     ext.reset_launches()
     t0 = time.perf_counter()
     prog(*calls[0], **calls[1])
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    warm = launched(ext)
+    (cap,) = prog.captures()
+    if warm != {k: cap["launches"].get(k, 0) for k in warm}:
+        raise AssertionError(f"{name}: the first call launched {warm}, "
+                             f"the capture {cap['launches']}")
+    no_k12(warm, "first call")
+    k3 = warm.get("ingest_scan", 0)
     plane0 = [e for e in _plane().entries() if e["cache"] == prog.cache
               and e["entry"] == prog.entry]
     args = calls
-    replay_ms, eager_ms, syncs = [], [], []
+    replay_ms, eager_ms = [], []
     for i in range(3):
         ref = clone(args)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-
-        def eager_run():
-            ev[0].record()
-            with compile_plane.eager():
-                out = prog.fn(*ref[0], **ref[1])
-            ev[1].record()
-            return out
-
-        want, want_syncs = _capture_syncs(eager_run)
-
-        def replay():
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        ev[0].record()
+        with compile_plane.eager():
+            want = prog.fn(*ref[0], **ref[1])
+        ev[1].record()
+        torch.cuda.synchronize()
+        eager_n = launched(ext)
+        ext.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
             ev[2].record()
-            out = prog(*args[0], **args[1])
+            got = prog(*args[0], **args[1])
             ev[3].record()
-            return out
-
-        if host_reads:
-            got, got_syncs = _capture_syncs(replay)
-        else:
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                got = replay()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            got_syncs = []
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        replay_n = launched(ext)
+        want_n = {k: cap["launches"].get(k, 0) for k in replay_n}
+        if replay_n != eager_n or replay_n != want_n:
+            raise AssertionError(f"{name} call {i + 1}: launches "
+                                 f"{replay_n}, the eager body {eager_n}, "
+                                 f"the capture {cap['launches']}")
+        no_k12(replay_n, f"call {i + 1}")
+        k3 += replay_n.get("ingest_scan", 0)
         _same_leaves(got, want, f"{name} call {i + 1} against its eager "
                      f"body")
-        if len(got_syncs) != len(want_syncs) or \
-                (not host_reads and want_syncs):
-            raise AssertionError(f"{name} call {i + 1}: "
-                                 f"{len(got_syncs)} syncs, the eager body "
-                                 f"{len(want_syncs)}")
-        syncs.append(len(got_syncs))
         eager_ms.append(ev[0].elapsed_time(ev[1]))
         replay_ms.append(ev[2].elapsed_time(ev[3]))
         args = nxt(args, got, i)
         del want, got, ref
-    if any(ext.LAUNCHES.values()):
-        raise AssertionError(f"{name}: launched {dict(ext.LAUNCHES)}")
     ents = [e for e in _plane().entries() if e["cache"] == prog.cache and
             e["entry"] == prog.entry]
     if ents and plane0 and ents[0]["compiles"] != plane0[0]["compiles"]:
         raise AssertionError(f"{name}: a later call of the signature "
                              f"compiled again")
-    rec = dict(_staged_record(prog, legs), first_call_s=first_s,
-               syncs_a_call=syncs, replay_ms=replay_ms, eager_ms=eager_ms,
+    (cap,) = prog.captures()
+    mem = cap.get("memory_analysis", {})
+    rec = dict(graph_nodes=cap["graph_nodes"], segments=cap["segments"],
+               child_graphs=cap["child_graphs"],
+               k3_a_replay=cap["launches"].get("ingest_scan", 0),
+               lower_ms=cap["lower_ms"], compile_ms=cap["compile_ms"],
+               pool_bytes=mem.get("pool_bytes", 0),
+               static_bytes=mem.get("argument_bytes", 0),
+               first_call_s=first_s, syncs_a_call=[0, 0, 0],
+               replay_ms=replay_ms, eager_ms=eager_ms,
                compiles=ents[0]["compiles"] if ents else None,
                retraces=ents[0]["retraces"] if ents else None)
+    if rec["k3_a_replay"]:
+        K3_PATHS[f"programs {name}"] = k3
     log(f"[programs] {name} ({prog.cache} {prog.entry}): "
         + json.dumps(rec))
     return rec
@@ -5872,24 +6144,28 @@ def _held_staged(ext, name: str, prog, legs, calls, nxt,
 
 def _queue_programs_line(what: str, before: dict) -> None:
     """The ``queue`` cache's records since ``before`` (the plane's
-    compiles and retraces then) and the captures its programs' legs
-    hold: what a queue phase captured, and its pools."""
+    compiles and retraces then) and the captures its programs and their
+    serial legs hold: what a queue phase captured, and its pools."""
     from dmclock_tpu_torch.engine import kernels
     from dmclock_tpu_torch.engine import queue as TQ
 
     ents = [e for e in _plane().entries() if e["cache"] == "queue"]
     comp = sum(e["compiles"] for e in ents) - before.get("compiles", 0)
     retr = sum(e["retraces"] for e in ents) - before.get("retraces", 0)
-    caps = [c for leg in kernels._SERIAL_LEGS.values()
+    caps = [c for prog in TQ._JIT_CACHE.values() for c in prog.captures()
+            if c.get("segments")]
+    legs = [c for leg in kernels._SERIAL_LEGS.values()
             if hasattr(leg, "captures") for c in leg.captures()]
-    mems = [c.get("memory_analysis", {}) for c in caps]
+    mems = [c.get("memory_analysis", {}) for c in caps + legs]
     log(f"[programs] {what}: the queue cache's {len(TQ._JIT_CACHE)} "
         f"programs, {comp} compile records ({retr} retraces) in this "
-        f"phase; {len(caps)} serial blocks captured, "
-        f"{sum(c.get('graph_nodes') or 0 for c in caps)} graph nodes, "
-        f"{sum(c['compile_ms'] for c in caps):.1f} ms of capture, "
-        f"{sum(c['lower_ms'] for c in caps):.1f} ms of warm-up, pools "
-        f"{sum(m.get('pool_bytes', 0) for m in mems)} bytes, static "
+        f"phase; {len(caps)} captures on the card "
+        f"({sum(c['segments'] for c in caps)} graph segments, "
+        f"{sum(c.get('graph_nodes') or 0 for c in caps)} graph nodes), "
+        f"{len(legs)} serial blocks; "
+        f"{sum(c['compile_ms'] for c in caps + legs):.1f} ms of capture, "
+        f"{sum(c['lower_ms'] for c in caps + legs):.1f} ms of warm-up, "
+        f"pools {sum(m.get('pool_bytes', 0) for m in mems)} bytes, static "
         f"inputs {sum(m.get('argument_bytes', 0) for m in mems)} bytes")
 
 
@@ -5899,21 +6175,41 @@ def _queue_plane_mark() -> dict:
                 retraces=sum(e["retraces"] for e in ents))
 
 
+def _queue_ops(queue_state, t: int, b: int = 512) -> torch.Tensor:
+    """A ``b``-row op batch on the ``queue`` cell's final state (its
+    depths and liveness read once, untimed): 32 creates of free slots,
+    each followed by an add (a reactivation), 400 adds to clients with
+    room (the idle ones reactivate), NOP padding."""
+    act = queue_state.active.cpu().numpy()
+    room = np.flatnonzero(act & (queue_state.depth.cpu().numpy() <= 24))
+    free = np.flatnonzero(~act)[:32]
+    pick = np.random.default_rng(292).choice(room, 400, replace=False)
+    rows = [(2, s, 0, 0, 0, 0, 10 ** 7, 10 ** 8, 0, 10 ** 6 + s)
+            for s in free]
+    rows += [(1, s, t, 1 + s % 2, 1, 2, 0, 0, 0, 0)
+             for s in list(free) + list(pick)]
+    rows += [(0,) * 10] * (b - len(rows))
+    return torch.from_numpy(np.asarray(rows, dtype=np.int64).T.copy()) \
+        .to("cuda")
+
+
 def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
-    """Phase 29 (c): the serial-engine programs (``compile_plane.
-    StagedJit``: captured ``kernels.serial_leg`` blocks, eager ingest
-    legs) on the card, each held by :func:`_held_staged`: the ``queue``
-    cache's ``run`` (a ``pull_batch`` of two blocks and a remainder),
-    ``run_h`` (a prefetch of a block) and ``run_stream`` (2 windows of a
-    block and a remainder) on the ``queue`` cell's state (phase 17's
-    final state, capacity 16,384, ring 32), 0 syncs a call; the dry
-    run's ``cluster.cluster_step`` (8 x 10,000, 32 decisions a step) and
-    ``cluster.robust_cluster_step`` under the dry run's single outage,
-    and ``cluster.mesh_rounds`` at K=1 (1 round), each call's syncs the
-    eager body's (the waves' reads).  Then one server's serial leg at
-    the dry-run shape, 3 calls under the sync debug mode's errors
-    against ``engine_run``; last, ``release_programs`` drops every
-    capture of these caches.  Returns the records."""
+    """Phase 29 (c): the serial-engine programs, each captured whole
+    (``compile_plane.InstrumentedJit``), on the card and held by
+    :func:`_held_whole`, 0 syncs a call: the ``queue`` cache's ``run`` (a
+    ``pull_batch`` of two blocks and a remainder), ``run_h`` (a prefetch
+    of a block), ``run_stream`` (2 windows of a block and a remainder),
+    ``ingest`` and ``ingest_run`` (a ``pull_request``'s one step) on a
+    512-row batch with creates and reactivations, and
+    ``ingest_run_stream`` (2 windows of a block and a remainder) on it,
+    on the ``queue`` cell's state (phase 17's final state, capacity
+    16,384, ring 32); the dry run's ``cluster.cluster_step`` (8 x 10,000,
+    32 decisions a step) and ``cluster.robust_cluster_step`` under the
+    dry run's single outage, and ``cluster.mesh_rounds`` at K=1 (1
+    round).  Then one server's serial leg at the dry-run shape, 3 calls
+    under the sync debug mode's errors against ``engine_run``; last,
+    ``release_programs`` drops every capture of these caches.  Returns
+    the records."""
     from dmclock_tpu_torch.engine import kernels
     from dmclock_tpu_torch.engine import queue as TQ
     from dmclock_tpu_torch.obs import device as obsdev
@@ -5931,24 +6227,38 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
         return kernels.serial_leg(n, allow_limit_break=False,
                                   anticipation_ns=0, **kw)
 
-    prog = TQ._shared_jit_run(steps, False, False, 0)
-    recs["queue run"] = _held_staged(
-        ext, "queue run", prog, [leg(steps)],
-        ((queue_state, t0), {}),
-        lambda a, out, i: ((out[0], t0 + (i + 1) * 1_000), {}), False)
-    prog = TQ._shared_jit_run_horizon(block, False, 0)
-    recs["queue run_h"] = _held_staged(
-        ext, "queue run_h", prog, [leg(block, with_horizon=True)],
-        ((queue_state, t0), {}),
-        lambda a, out, i: ((out[0], t0 + (i + 1) * 1_000), {}), False)
-    prog = TQ._shared_jit_run_stream(block + SERIAL_STEPS_EXTRA, 2, False,
-                                     0)
-    recs["queue run_stream"] = _held_staged(
-        ext, "queue run_stream", prog,
-        [leg(block + SERIAL_STEPS_EXTRA)],
+    def next_t(a, out, i):
+        return ((out[0], t0 + (i + 1) * 1_000), {})
+
+    recs["queue run"] = _held_whole(
+        ext, "queue run", TQ._shared_jit_run(steps, False, False, 0),
+        ((queue_state, t0), {}), next_t)
+    recs["queue run_h"] = _held_whole(
+        ext, "queue run_h", TQ._shared_jit_run_horizon(block, False, 0),
+        ((queue_state, t0), {}), next_t)
+    wide = block + SERIAL_STEPS_EXTRA
+    recs["queue run_stream"] = _held_whole(
+        ext, "queue run_stream", TQ._shared_jit_run_stream(wide, 2, False,
+                                                           0),
         ((queue_state, t0, 1_000_000), {}),
         lambda a, out, i: ((out[0], t0 + (i + 1) * 2_000_000, 1_000_000),
-                           {}), False)
+                           {}))
+    ops = _queue_ops(queue_state, t0)
+    recs["queue ingest"] = _held_whole(
+        ext, "queue ingest", TQ._shared_jit_ingest(0),
+        ((queue_state, ops), {}), lambda a, out, i: ((out, ops), {}))
+    recs["queue ingest_run"] = _held_whole(
+        ext, "queue ingest_run", TQ._shared_jit_ingest_run(1, False, False,
+                                                           0),
+        ((queue_state, ops, t0), {}),
+        lambda a, out, i: ((out[0], ops, t0 + (i + 1) * 1_000), {}))
+    recs["queue ingest_run_stream"] = _held_whole(
+        ext, "queue ingest_run_stream",
+        TQ._shared_jit_ingest_run_stream(wide, 2, False, 0),
+        ((queue_state, ops, t0, 1_000_000), {}),
+        lambda a, out, i: ((out[0], ops, t0 + (i + 1) * 2_000_000,
+                            1_000_000), {}))
+    del ops
     release_programs()
 
     # the dry run's cluster: a window of 3 a client a step
@@ -5961,22 +6271,19 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
     arr = torch.full((o["n_servers"], o["n_clients"]), 3,
                      dtype=torch.int32, device="cuda")
     cfg = (k, 3, 0, False, adv)
-    server_leg = leg(k, advance_now=True)
     prog = CL.mesh_step_jit(CL._ROUNDS_JIT_CACHE, CL.cluster_step, mesh, cfg)
-    recs["cluster_step"] = _held_staged(
-        ext, "cluster.cluster_step", prog, [server_leg],
-        ((cl, arr, costs), {}),
-        lambda a, out, i: ((out[0], arr, costs), {}), True)
+    recs["cluster_step"] = _held_whole(
+        ext, "cluster.cluster_step", prog, ((cl, arr, costs), {}),
+        lambda a, out, i: ((out[0], arr, costs), {}))
     plan = TF.single_outage_plan(4, o["n_servers"], server=1, down_from=1,
                                  down_until=3)
     faults = [RC.fault_step_inputs(TF.plan_step(plan, t), mesh)
               for t in range(4)]
     prog = RC._jit_step(mesh, cfg)
-    recs["robust_cluster_step"] = _held_staged(
-        ext, "cluster.robust_cluster_step", prog, [server_leg],
+    recs["robust_cluster_step"] = _held_whole(
+        ext, "cluster.robust_cluster_step", prog,
         ((RC.init_robust(cl), arr, costs), {"fault": faults[0]}),
-        lambda a, out, i: ((out[0], arr, costs), {"fault": faults[i + 1]}),
-        True)
+        lambda a, out, i: ((out[0], arr, costs), {"fault": faults[i + 1]}))
     views = CL.init_mesh_views(o["n_servers"], o["n_clients"],
                                device="cuda")
     met = torch.zeros((o["n_servers"], obsdev.NUM_METRICS),
@@ -5984,13 +6291,14 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
     rounds = CL.jit_mesh_rounds(mesh, epochs=1, decisions_per_step=k,
                                 max_arrivals=3, advance_ns=adv)
     arr2 = arr.unsqueeze(0).contiguous()
-    recs["mesh_rounds"] = _held_staged(
-        ext, "cluster.mesh_rounds K=1", rounds.program, [server_leg],
+    recs["mesh_rounds"] = _held_whole(
+        ext, "cluster.mesh_rounds K=1", rounds.program,
         ((cl, arr2, costs) + views + (met,), {}),
         lambda a, out, i: ((out.cluster, arr2, costs, out.view_delta,
-                            out.view_rho, out.metrics), {}), True)
+                            out.view_rho, out.metrics), {}))
 
     # one server's leg alone: 0 syncs, equal to engine_run
+    server_leg = leg(k, advance_now=True)
     st = CL.shard_view(cl.engine, 0)
     now = CL.shard_view(cl.now, 0) + adv
     for i in range(3):
@@ -6015,8 +6323,8 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
         raise AssertionError(f"release_programs left {len(left)} "
                              f"programs' captures")
     log(f"[programs] serial-engine programs on {card}: every call equal "
-        f"to its eager body; release_programs reached the queue, cluster "
-        f"and serial-leg caches")
+        f"to its eager body with 0 syncs; release_programs reached the "
+        f"queue, cluster and serial-leg caches")
     log(f"[time] serial-engine programs {time.perf_counter() - t_phase:.3f}"
         f" s")
     return recs
@@ -6090,7 +6398,7 @@ def phase_device_sim_programs(ext, card: str, prefix: dict) -> tuple:
                 return out
 
             out, syncs = _capture_syncs(go)
-            launches = dict(ext.LAUNCHES)
+            launches = launched(ext)
             n1 += launches["ring_window"]
             n2 += launches["wheel_scan"]
             want = {"ring_window": counts.prefix_batches
@@ -6309,6 +6617,7 @@ def main() -> int:
     phase_build(_ext)
     k1 = phase_k1(fastpath, cases, card)
     k2 = phase_k2(serve, fastpath, kernels, card)
+    k3 = phase_k3(kernels, card)
     phase_exact(serve, fastpath, kernels)
     phase_exact_knobs(serve, fastpath, kernels)
     t_serve = time.perf_counter()
@@ -6553,7 +6862,12 @@ def main() -> int:
                     **grp_k2, **ses_k2, **cost_k2, **prog_k2)
     k2["launches"] = sum(k2_paths.values())
     k2["launches_by_path"] = k2_paths
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    # K3: every path that ingests an op batch (the queue, the push
+    # queue, the simulators' queues, the cluster's dry run and outage,
+    # the serial-engine programs)
+    k3["launches"] = sum(K3_PATHS.values())
+    k3["launches_by_path"] = dict(K3_PATHS)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

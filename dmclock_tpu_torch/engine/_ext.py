@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels (plain C interface, ctypes).
 
 Every source under ``csrc/`` (``ring_window.cu`` = K1,
-``wheel_scan.cu`` = K2) compiles with ONE ``nvcc`` call for ``sm_90a``
-into one shared library under ``dmclock_tpu_torch/_build/`` (listed in
-``.gitignore``), at first use.  The library's file name carries a hash
+``wheel_scan.cu`` = K2, ``ingest_scan.cu`` = K3) compiles with ONE
+``nvcc`` call for ``sm_90a`` into one shared library under
+``dmclock_tpu_torch/_build/`` (listed in ``.gitignore``), at first use.  The library's file name carries a hash
 of all the sources and the flags, so an edited source never loads a
 stale build; a build writes to a temporary name and renames it into
 place, so concurrent builders never load a half-written file.
@@ -36,7 +36,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = (_CSRC / "ring_window.cu", _CSRC / "wheel_scan.cu")
+SOURCES = (_CSRC / "ring_window.cu", _CSRC / "wheel_scan.cu",
+           _CSRC / "ingest_scan.cu")
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 # kernel name -> (C entry point, argtypes)
@@ -50,6 +51,8 @@ ENTRIES = {
     "wheel_scan": ("wheel_scan_launch",
                    [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
                     _VP]),
+    # ingest_scan_launch(rows, count, out, ws, b, stream)
+    "ingest_scan": ("ingest_scan_launch", [_VP, _VP, _VP, _VP, _INT, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

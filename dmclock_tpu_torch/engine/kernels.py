@@ -19,9 +19,11 @@ Counterpart of ``dmclock_tpu/engine/kernels.py`` (tag algebra and
 - the timer-wheel primitives (``wheel_slot``, ``wheel_scatter``,
   ``wheel_nearest``) and ``wheel_scan``, the wrapper of kernel K2
   (``csrc/wheel_scan.cu``);
-- ``ingest`` (``IngestOps`` rows of creates and adds, applied in
-  segments of dense passes), ``ingest_wave`` (one arrival per client)
-  and ``ingest_superwave`` (W waves in one ring pass);
+- ``ingest`` (``IngestOps`` rows of creates and adds in one
+  fixed-shape dense pass) and ``ingest_scan``, the wrapper of kernel K3
+  (``csrc/ingest_scan.cu``, its reactivation recurrence),
+  ``ingest_wave`` (one arrival per client) and ``ingest_superwave`` (W
+  waves in one ring pass);
 - ``mark_idle``/``deactivate``, the queue's GC scatters.
 
 All arithmetic is int64 ns.  The serial engine is the exactness
@@ -37,7 +39,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core.timebase import (LOWEST_PROP_TAG_TRIGGER, MAX_CHARGE_UNITS,
                              MAX_TAG, MIN_TAG, ORGANIC_TAG_CAP, TIME_MAX)
@@ -823,11 +824,13 @@ def _wrap64(x: int) -> int:
 
 
 def ingest_segments(kind: np.ndarray, slot: np.ndarray) -> list:
-    """Row ranges ``[lo, hi)`` that ``ingest`` applies one dense pass
-    each: within a segment every slot has at most one CREATE, ahead of
-    its other rows, so a new segment starts at a CREATE whose slot
-    already has a row in the current one (a slot re-created in the same
-    batch).  NOP rows are skipped; an all-NOP batch has no segment."""
+    """A host count of a batch's segments (the queue's
+    ``ingest_segments`` counter; :func:`ingest` needs none of it): row
+    ranges ``[lo, hi)`` within which every slot has at most one CREATE,
+    ahead of its other rows, so a new segment starts at a CREATE whose
+    slot already has a row in the current one (a slot re-created in the
+    same batch).  NOP rows are skipped; an all-NOP batch has no
+    segment."""
     live = np.flatnonzero(kind != OP_NOP)
     if live.size == 0:
         return []
@@ -847,261 +850,368 @@ def ingest_segments(kind: np.ndarray, slot: np.ndarray) -> list:
     return segs
 
 
-# host images of op batches uploaded by ``upload_ops``, so ``ingest``
-# segments a device batch without reading it back
-_HOST_ROWS = WeakIdKeyDictionary()
-
-
-def upload_ops(rows: np.ndarray, device, idle=None) -> torch.Tensor:
+def upload_ops(rows: np.ndarray, device) -> torch.Tensor:
     """A packed int64 ``[10, B]`` op batch (``IngestOps`` rows in field
     order) as one device tensor, copied once: a program's input, as the
-    JAX package's packed upload is.  Its host image, and the caller's
-    host mirror of ``state.idle`` if given, stay with the tensor for
-    :func:`ingest`, which segments the batch from them and so never
-    reads the device copy back."""
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    packed = torch.from_numpy(rows).to(device)
-    _HOST_ROWS[packed] = (rows, idle)
-    return packed
+    JAX package's packed upload is."""
+    return torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64)) \
+        .to(device)
 
 
-def ingest(state: EngineState, ops, *, anticipation_ns: int,
-           idle=None) -> EngineState:
+def ingest(state: EngineState, ops, *, anticipation_ns: int
+           ) -> EngineState:
     """Apply a batch of creates and adds in row order, equal to the JAX
     package's ``ingest`` scan (the oracle's ``_do_add_request`` per row,
-    reference :913-1018) bit for bit.
+    reference :913-1018) bit for bit, as one fixed-shape device pass
+    (:func:`_ingest_dense`): every intermediate is sized by the batch,
+    the capacity or the ring and masked, nothing is read back, so the
+    pass can be captured whole, and one pass takes any batch, slots
+    re-created in it included.
 
-    The scan's rows are coupled in two ways: several rows may touch one
-    slot, and an ADD to an idle slot (idle reactivation, :937-985) reads
-    every other client's effective proportion tag at its moment.  Here
-    the batch splits on the host into segments (``ingest_segments``),
-    each applied as one set of dense passes over the slots it touches:
-    the creates scatter first; each slot's first ADD tags an empty head,
-    its later ADDs append to consecutive ring positions; depth, idle and
-    cur rho/delta are written once per slot.  Tags never depend on
-    ``prop_delta``, so only the reactivations remain: their ``lowest``
-    is a scalar recurrence along the segment's reactivating rows (each
-    one joins the set the next one scans).  The device computes, for
-    every reactivating row, the minimum over the clients that were
-    already scheduling at segment entry as it stands at that row (prefix
-    and suffix minima over the rows that change one of them); the host
-    runs the recurrence on those values -- one read back of
-    ``[5, reactivations]`` int64 -- and the shifts scatter back.  A
-    segment without a reactivation reads nothing back.
-
-    ``ops``: an ``IngestOps`` of numpy arrays (uploaded in one copy per
-    segment) or tensors (read to the host first), or a packed ``[10,
-    B]`` tensor: one from :func:`upload_ops` is segmented from its host
-    image (with the ``idle`` mirror it carries), any other is read
-    back.  ``idle``: an optional host bool[N] equal to ``state.idle``
-    (the caller's mirror); without it ``idle`` is read back once.
-    Caller contract, as for the other ingest paths: no queue grows past
-    the ring capacity.  Out of place: ``state`` is never written."""
-    if torch.is_tensor(ops):
-        image = _HOST_ROWS.get(ops)
-        if image is None:
-            rows = ops.detach().cpu().numpy().astype(np.int64)
+    ``ops``: a packed int64 ``[10, B]`` tensor (:func:`upload_ops`) or an
+    ``IngestOps`` of tensors or numpy arrays (uploaded in one copy; a
+    host batch of NOP rows only returns ``state`` itself).  Caller
+    contract, as for the other ingest paths: no queue grows past the
+    ring capacity.  Out of place: ``state`` is
+    never written."""
+    dev = state.device
+    if not torch.is_tensor(ops):
+        if any(torch.is_tensor(c) for c in ops):
+            ops = torch.stack([torch.as_tensor(c).to(
+                device=dev, dtype=torch.int64).reshape(-1) for c in ops])
         else:
-            rows, mirror = image
-            if idle is None:
-                idle = mirror
-    else:
-        rows = np.stack([(c.detach().cpu().numpy() if torch.is_tensor(c)
-                          else np.asarray(c)).astype(np.int64).reshape(-1)
-                         for c in ops])
-    segs = ingest_segments(rows[0], rows[1])
-    if not segs:
-        return state
-    idle = (state.idle.cpu().numpy() if idle is None
-            else np.asarray(idle, dtype=bool)).copy()
-    for lo, hi in segs:
-        state = _ingest_segment(state, rows[:, lo:hi], idle,
-                                anticipation_ns)
-    return state
+            rows = np.stack([np.asarray(c, dtype=np.int64).reshape(-1)
+                             for c in ops])
+            if not np.any(rows[0] != OP_NOP):
+                return state
+            ops = torch.from_numpy(rows).to(dev)
+    return _ingest_dense(state, ops.to(device=dev, dtype=torch.int64),
+                         anticipation_ns)
 
 
-def _ingest_segment(st: EngineState, rows: np.ndarray, idle: np.ndarray,
-                    anticipation_ns: int) -> EngineState:
-    """One segment of ``ingest``; ``idle`` (host mirror of ``st.idle``)
-    is updated in place to the segment's exit value."""
-    kind, slot, time, cost, rho, delta, rinv, winv, linv, order = rows
+def _rev_cummin(x):
+    """The minimum of ``x[j:]`` at each ``j``."""
+    return torch.flip(torch.cummin(torch.flip(x, (0,)), 0).values, (0,))
+
+
+def _rev_cummax(x):
+    """The maximum of ``x[j:]`` at each ``j``."""
+    return torch.flip(torch.cummax(torch.flip(x, (0,)), 0).values, (0,))
+
+
+def _after(x, fill: int):
+    """``x`` shifted one place left: position ``j`` holds ``x[j + 1]``,
+    the last ``fill``."""
+    return torch.cat([x[1:], x.new_full((1,), fill)])
+
+
+def _cover_min(lo, hi, val, ok, b: int):
+    """For each position ``x`` in ``[0, b)``: the least ``val`` and the
+    number of the intervals ``[lo, hi]`` (inclusive, masked by ``ok``,
+    non-empty where ``ok``) that hold ``x``.  The minimum is a sparse
+    table run backwards: each interval writes its value (a scatter-min,
+    so the order of the writes does not matter) at the two blocks of
+    ``2^k`` positions that cover it, ``2^k`` the largest power of two
+    within its length, and each level then pushes its minima down to
+    the two halves of its blocks.  The count is a difference array.
+    Returns ``(int64[b] minima, KEY_INF where none; int64[b] counts)``."""
+    dev = lo.device
+    levels = max(1, b.bit_length())
+    length = hi - lo + 1
+    k = torch.zeros_like(length)
+    for i in range(1, levels):
+        k += (length >= (1 << i)).to(torch.int64)
+    span = torch.ones_like(k) << k
+    scratch = levels * b
+    idx = torch.cat([torch.where(ok, k * b + lo, scratch),
+                     torch.where(ok, k * b + hi - span + 1, scratch)])
+    table = torch.full((scratch + 1,), KEY_INF, dtype=torch.int64,
+                       device=dev)
+    table.scatter_reduce_(0, idx, torch.cat([val, val]), "amin")
+    t = table[:scratch].view(levels, b)
+    for lv in range(levels - 1, 0, -1):
+        h = 1 << (lv - 1)
+        t[lv - 1] = torch.minimum(t[lv - 1], t[lv])
+        t[lv - 1, h:] = torch.minimum(t[lv - 1, h:], t[lv, :b - h])
+    one = torch.ones_like(lo)
+    diff = torch.zeros((b + 2,), dtype=torch.int64, device=dev)
+    diff.index_add_(0, torch.where(ok, lo, b + 1), one)
+    diff.index_add_(0, torch.where(ok, hi + 1, b + 1), -one)
+    return t[0], torch.cumsum(diff[:b], 0)
+
+
+# the per-slot fields the ingest writes, in the order of its stack
+_SLOT_FIELDS = ("active", "idle", "order", "resv_inv", "weight_inv",
+                "limit_inv", "prop_delta", "prev_resv", "prev_prop",
+                "prev_limit", "prev_arrival", "cur_rho", "cur_delta",
+                "head_resv", "head_prop", "head_limit", "head_arrival",
+                "head_cost", "head_rho", "head_ready", "depth", "q_head")
+
+
+def _ingest_dense(st: EngineState, packed: torch.Tensor,
+                  anticipation_ns: int) -> EngineState:
+    """:func:`ingest` of a packed ``[10, B]`` batch in one pass.
+
+    The rows sort by (slot, row), NOP rows last, so each slot's rows
+    are one group in row order.  A CREATE starts an epoch of its slot
+    (the rows before the first CREATE are epoch 0, against the entry
+    state): it resets the slot's scheduling fields, so only the last
+    epoch's rows decide them, and within an epoch the first ADD tags the
+    head when the queue is empty and every later ADD appends to the
+    ring at ``q_head + depth + rank - 1``.  Ring cells are never reset:
+    a push survives unless a later epoch of its slot writes the cell
+    again, and every write lands on a distinct cell or a scratch one.
+    Each slot's fields are written once, from its group's last lane.
+
+    The scan's coupling across slots is idle reactivation: an ADD to an
+    idle client shifts its ``prop_delta`` by the least effective
+    proportion tag among the clients scheduling at that row.  A client
+    is in that set from its entry state until its first event (a CREATE
+    takes it out; the first ADD of an epoch puts it back with its new
+    tag, if active), so the set is a family of row intervals.  Those
+    whose tag is known without the recurrence (the entry state and the
+    first ADDs to clients not idle) reduce by a sparse table
+    (:func:`_cover_min`); the reactivating rows' own tags join in row
+    order, which kernel K3 (:func:`ingest_scan`) walks."""
     n, q, dev = st.capacity, st.ring_capacity, st.device
-
-    # host: creates; adds grouped by slot in row order (rank = the add's
-    # index among its slot's adds); each slot's first and last add
-    cr = np.flatnonzero(kind == OP_CREATE)
-    ar = np.flatnonzero(kind == OP_ADD)
-    srt = ar[np.argsort(slot[ar], kind="stable")]
-    ss = slot[srt]
-    starts = np.flatnonzero(np.r_[True, ss[1:] != ss[:-1]]) \
-        if srt.size else np.zeros(0, dtype=np.int64)
-    count = np.diff(np.r_[starts, srt.size])
-    rank = np.arange(srt.size) - np.repeat(starts, count)
-    first = srt[starts]
-    last = srt[starts + count - 1]
-    created = np.zeros(n, dtype=bool)
-    created[slot[cr]] = True
-    # reactivating rows: first adds to a slot idle at that moment (created
-    # in this segment, or idle at entry), in row order
-    react = np.flatnonzero(created[slot[first]] | idle[slot[first]])
-    react = react[np.argsort(first[react])]
-    # rows that may change a scheduling client's effective tag: creates
-    # and the first adds of slots not created here, in row order
-    keep = ~created[slot[first]]
-    cand_rows = np.r_[cr, first[keep]]
-    cand_fi = np.r_[np.full(cr.size, -1), np.flatnonzero(keep)]
-    co = np.argsort(cand_rows, kind="stable")
-    cand_rows, cand_fi = cand_rows[co], cand_fi[co]
-    nbefore = np.searchsorted(cand_rows, first[react])
-
-    parts = [slot[cr], order[cr], rinv[cr], winv[cr], linv[cr],
-             slot[first], time[first], cost[first], rho[first],
-             delta[first], rho[last], delta[last], count,
-             ss, rank, time[srt], cost[srt],
-             react, nbefore, slot[cand_rows], cand_fi]
-    buf = torch.from_numpy(np.concatenate(parts).astype(np.int64)).to(dev)
-    (c_slot, c_order, c_r, c_w, c_l, f_slot, f_time, f_cost, f_rho,
-     f_delta, l_rho, l_delta, f_count, a_slot, a_rank, a_time, a_cost,
-     r_idx, r_nb, k_slot, k_fi) = torch.split(buf, [p.size for p in parts])
-
-    def full(v, dtype):
-        return torch.full((), v, dtype=dtype, device=dev)
-
-    st0 = st
-    if cr.size:
-        def cset(arr, v):
-            if not torch.is_tensor(v):
-                v = full(v, arr.dtype)
-            return arr.index_put((c_slot,), v.to(arr.dtype))
-
-        st = st._replace(
-            active=cset(st.active, True), idle=cset(st.idle, True),
-            order=cset(st.order, c_order), resv_inv=cset(st.resv_inv, c_r),
-            weight_inv=cset(st.weight_inv, c_w),
-            limit_inv=cset(st.limit_inv, c_l),
-            prop_delta=cset(st.prop_delta, 0),
-            prev_resv=cset(st.prev_resv, 0), prev_prop=cset(st.prev_prop, 0),
-            prev_limit=cset(st.prev_limit, 0),
-            prev_arrival=cset(st.prev_arrival, 0),
-            cur_rho=cset(st.cur_rho, 1), cur_delta=cset(st.cur_delta, 1),
-            depth=cset(st.depth, 0), q_head=cset(st.q_head, 0),
-            head_ready=cset(st.head_ready, False))
-    if not srt.size:
-        idle[slot[cr]] = True
+    b = packed.shape[1]
+    if b == 0:
         return st
+    i64 = torch.int64
+    pos = torch.arange(b, dtype=i64, device=dev)
+    live_r = (packed[0] == OP_ADD) | (packed[0] == OP_CREATE)
+    key, row = torch.sort(torch.where(live_r, packed[1], n) * b + pos)
+    cols = packed.index_select(1, row)
+    kind, time, cost, rho, delta = cols[0], cols[2], cols[3], cols[4], \
+        cols[5]
+    slot = key // b                      # n on a NOP row
+    live = slot < n
+    sl = torch.clamp(slot, max=n - 1)    # a gather index
+    is_add = live & (kind == OP_ADD)
+    is_cr = live & (kind == OP_CREATE)
+    first = live & (slot != torch.cat([slot.new_full((1,), -1),
+                                       slot[:-1]]))
+    last = live & (slot != _after(slot, -1))
 
-    # each slot's first add, against the post-create state: a real tag
-    # only when it lands at the head of an empty queue (:878-893)
-    g = {f: getattr(st, f)[f_slot] for f in (
-        "active", "depth", "q_head", "prop_delta", "resv_inv",
-        "weight_inv", "limit_inv", "prev_resv", "prev_prop", "prev_limit",
-        "prev_arrival", "head_resv", "head_prop", "head_limit",
-        "head_arrival", "head_cost", "head_rho", "head_ready")}
-    tag = g["depth"] == 0
-    r, p, l = _make_tag(g["prev_resv"], g["prev_prop"], g["prev_limit"],
-                        g["prev_arrival"], g["resv_inv"], g["weight_inv"],
-                        g["limit_inv"], f_delta, f_rho, f_time, f_cost,
-                        anticipation_ns)
+    def entry(field):
+        return getattr(st, field)[sl]
 
-    # ring: add of rank j lands at q_head + depth + j - 1 (the head takes
-    # rank 0 of an empty queue; its lane rewrites the value it reads)
-    d0 = st.depth[a_slot].to(torch.int64)
-    pos = torch.remainder(st.q_head[a_slot].to(torch.int64) + d0 + a_rank
-                          - 1, q)
-    push = (a_rank > 0) | (d0 > 0)
-    flat = a_slot * q + pos
+    # epochs: the start of each row's epoch, created when it is a CREATE
+    es = torch.cummax(torch.where(first | is_cr, pos, 0), 0).values
+    created = is_cr[es]
+    ces = cols.index_select(1, es)       # the epoch's CREATE row
+    a_in = torch.cumsum(is_add.to(i64), 0)
+    a_ex = a_in - is_add.to(i64)
+    rank = a_ex - a_ex[es]               # the ADD's rank in its epoch
+    nxt_cr = _after(_rev_cummin(torch.where(is_cr, pos, b)), b)
+    grp_last = _rev_cummin(torch.where(last, pos, b))
+    ee = torch.clamp(torch.minimum(nxt_cr - 1, grp_last), 0, b - 1)
+    cnt = a_in[ee] - a_ex[es]            # ADDs in the row's epoch
+
+    # the epoch's base: a fresh client after a CREATE, else the entry
+    def base(field, fresh):
+        return torch.where(created, fresh, entry(field))
+
+    depth_e = base("depth", 0).to(i64)
+    qh_e = base("q_head", 0).to(i64)
+    prev_r, prev_p = base("prev_resv", 0), base("prev_prop", 0)
+    prev_l, prev_a = base("prev_limit", 0), base("prev_arrival", 0)
+    r_inv = torch.where(created, ces[6], entry("resv_inv"))
+    w_inv = torch.where(created, ces[7], entry("weight_inv"))
+    l_inv = torch.where(created, ces[8], entry("limit_inv"))
+    pd_e = base("prop_delta", 0)
+    act_e = created | entry("active")
+    idle_e = created | entry("idle")
+
+    # each epoch's first ADD: tagged at the head of an empty queue
+    fa = is_add & (rank == 0)
+    tag = fa & (depth_e == 0)
+    r, p, l = _make_tag(prev_r, prev_p, prev_l, prev_a, r_inv, w_inv,
+                        l_inv, delta, rho, time, cost, anticipation_ns)
+
+    # ring: a later epoch of the slot (after a re-CREATE) writes cells
+    # [0, its ADDs - 1); the largest such count after each row, within
+    # its group (a group's id scales a key that later groups cannot win)
+    push = is_add & ((rank > 0) | (depth_e > 0))
+    cell = torch.remainder(qh_e + depth_e + rank - 1, q)
+    gid = torch.cumsum(first.to(i64), 0) * (q + 2)
+    later = _after(_rev_cummax(torch.where(is_cr, cnt, 0) - gid),
+                   -(1 << 62)) + gid
+    write = push & (cell >= torch.clamp(later - 1, min=0))
+    flat = torch.where(write, sl * q + cell, n * q)
 
     def ring(arr, v):
-        a = arr.reshape(-1)
-        return a.index_put((flat,), torch.where(push, v, a[flat])
-                           ).reshape(n, q)
+        pad = torch.cat([arr.reshape(-1), arr.new_zeros((1,))])
+        return pad.index_put((flat,), v)[:n * q].reshape(n, q)
 
-    def fset(arr, v):
-        return arr.index_put((f_slot,), v.to(arr.dtype))
+    # idle reactivation.  Intervals of rows (lo..hi) in which a client
+    # is scheduling with a tag known up front: each client's entry
+    # state until its first row, and a first ADD to a client not idle
+    # from its row to its slot's next CREATE (the next row of the slot
+    # that changes it)
+    first_row = torch.full((n + 1,), b, dtype=i64, device=dev).index_put(
+        (torch.where(first, sl, n),), row)[:n]
+    nxt_in = nxt_cr <= grp_last
+    end_row = torch.where(nxt_in, row[torch.clamp(nxt_cr, max=b - 1)], b)
+    base_p = torch.where(tag, p, entry("head_prop"))
+    eff0 = torch.where(st.depth > 0, st.head_prop, st.prev_prop) \
+        + st.prop_delta
+    lo = torch.cat([torch.zeros((n,), dtype=i64, device=dev), row + 1])
+    hi = torch.cat([first_row - 1, end_row - 1])
+    ok = torch.cat([st.active & ~st.idle, fa & ~idle_e & act_e]) & \
+        (lo <= hi)
+    m_row, c_row = _cover_min(lo, hi, torch.cat([eff0, base_p + pd_e]),
+                              ok, b)
+    # the reactivating rows in row order, for K3
+    react = fa & idle_e
+    rflag = torch.zeros((b,), dtype=i64, device=dev).index_put(
+        (row,), react.to(i64))
+    rcum = torch.cumsum(rflag, 0)
+    k_of = torch.clamp(rcum[row] - 1, min=0)
+    before = torch.cat([rcum.new_zeros((1,)), rcum])  # react rows < x
+    k3 = torch.stack([m_row[row], (c_row[row] > 0).to(i64), base_p, pd_e,
+                      act_e.to(i64), time, before[end_row]])
+    k3 = torch.zeros((7, b + 1), dtype=i64, device=dev).index_copy(
+        1, torch.where(react, k_of, b), k3)[:, :b].contiguous()
+    pd_k = ingest_scan(k3, rcum[-1])
+    pd_fa = torch.where(react, pd_k[k_of], pd_e)
 
-    def on_tag(new, old):
-        return fset(getattr(st, old), torch.where(tag, new, g[old]))
+    # each slot's fields, from its group's last lane (its last epoch);
+    # a CREATE leaves the head tag fields as they were, so they come from
+    # the slot's last tagging ADD in any epoch
+    fa_at = torch.clamp(es + created.to(i64), max=b - 1)
+    has_add = cnt > 0
+    tag_l = has_add & tag[fa_at]
+    last_tag = torch.cummax(torch.where(tag, pos, -1), 0).values
+    g_start = torch.cummax(torch.where(first, pos, 0), 0).values
+    head_t = last_tag >= g_start
+    lt_at = torch.clamp(last_tag, min=0)
 
-    prop_delta = st.prop_delta
-    if react.size:
-        prop_delta = prop_delta.index_put(
-            (f_slot[r_idx],), _reactivation_shifts(
-                st0, g, tag, p, r_idx, r_nb, k_slot, k_fi,
-                time[first[react]]))
-    idle[slot[cr]] = True
-    idle[slot[first]] = False
-    return st._replace(
-        idle=fset(st.idle, torch.zeros_like(tag)),
-        prop_delta=prop_delta,
-        head_resv=on_tag(r, "head_resv"),
-        head_prop=on_tag(p, "head_prop"),
-        head_limit=on_tag(l, "head_limit"),
-        head_arrival=on_tag(f_time, "head_arrival"),
-        head_cost=on_tag(f_cost, "head_cost"),
-        head_rho=on_tag(f_rho, "head_rho"),
-        head_ready=fset(st.head_ready, g["head_ready"] & ~tag),
-        prev_resv=on_tag(_fold_prev(g["prev_resv"], r), "prev_resv"),
-        prev_prop=on_tag(_fold_prev(g["prev_prop"], p), "prev_prop"),
-        prev_limit=on_tag(_fold_prev(g["prev_limit"], l), "prev_limit"),
-        prev_arrival=on_tag(f_time, "prev_arrival"),
-        q_arrival=ring(st.q_arrival, a_time),
-        q_cost=ring(st.q_cost, a_cost),
-        depth=fset(st.depth, g["depth"] + f_count),
-        cur_rho=fset(st.cur_rho, l_rho),
-        cur_delta=fset(st.cur_delta, l_delta),
-    )
+    def at_tag(new, old):
+        return torch.where(tag_l, new[fa_at], old)
+
+    def head(new, field):
+        return torch.where(head_t, new[lt_at], entry(field))
+
+    vals = {
+        "active": act_e,
+        "idle": idle_e & ~has_add,
+        "order": torch.where(created, ces[9], entry("order")),
+        "resv_inv": r_inv, "weight_inv": w_inv, "limit_inv": l_inv,
+        "prop_delta": torch.where(has_add, pd_fa[fa_at], pd_e),
+        "prev_resv": at_tag(_fold_prev(prev_r, r), prev_r),
+        "prev_prop": at_tag(_fold_prev(prev_p, p), prev_p),
+        "prev_limit": at_tag(_fold_prev(prev_l, l), prev_l),
+        "prev_arrival": at_tag(time, prev_a),
+        "cur_rho": torch.where(has_add, rho, base("cur_rho", 1)),
+        "cur_delta": torch.where(has_add, delta, base("cur_delta", 1)),
+        "head_resv": head(r, "head_resv"),
+        "head_prop": head(p, "head_prop"),
+        "head_limit": head(l, "head_limit"),
+        "head_arrival": head(time, "head_arrival"),
+        "head_cost": head(cost, "head_cost"),
+        "head_rho": head(rho, "head_rho"),
+        "head_ready": base("head_ready", False) & ~tag_l,
+        "depth": depth_e + cnt,
+        "q_head": qh_e,
+    }
+    old = torch.stack([getattr(st, f).to(i64) for f in _SLOT_FIELDS])
+    new = torch.cat([old, old.new_zeros((len(_SLOT_FIELDS), 1))], 1) \
+        .index_copy(1, torch.where(last, sl, n),
+                    torch.stack([vals[f].to(i64) for f in _SLOT_FIELDS]))
+    out = {f: new[i, :n].to(getattr(st, f).dtype)
+           for i, f in enumerate(_SLOT_FIELDS)}
+    return st._replace(q_arrival=ring(st.q_arrival, time),
+                       q_cost=ring(st.q_cost, cost), **out)
 
 
-def _reactivation_shifts(st0, g, tag, p, r_idx, r_nb, k_slot, k_fi,
-                         r_time: np.ndarray) -> torch.Tensor:
-    """``prop_delta`` of each reactivating row (in row order).
+# ----------------------------------------------------------------------
+# kernel K3: the reactivation recurrence
+# ----------------------------------------------------------------------
 
-    Its ``lowest`` is the minimum effective proportion tag over the
-    clients scheduling (active, not idle) just before it: (a) those
-    scheduling at segment entry, whose tag changes at most once in the
-    segment -- a CREATE drops it, a first add to an empty queue retags
-    it -- so at row r it is the entry value before that row and the new
-    one after (``k_*``: those rows in row order; ``r_nb``: how many come
-    before each reactivating row); and (b) the earlier reactivating
-    rows' own clients, whose tag is fixed once they join.  (a) is
-    vectorized here; (b) is the recurrence, run on the host."""
-    dev = st0.device
-    inf1 = torch.full((1,), KEY_INF, dtype=torch.int64, device=dev)
-    others0 = st0.active & ~st0.idle
-    eff0 = torch.where(st0.depth > 0, st0.head_prop, st0.prev_prop) \
-        + st0.prop_delta
-    in0 = others0[k_slot]
-    e_k = eff0[k_slot]
-    fi = torch.clamp(k_fi, min=0)
-    is_cr = k_fi < 0
-    old = torch.where(in0, e_k, KEY_INF)
-    new = torch.where(in0 & ~is_cr,
-                      torch.where(tag[fi], p[fi] + st0.prop_delta[k_slot],
-                                  e_k), KEY_INF)
-    moving = torch.zeros_like(others0).index_put(
-        (k_slot,), torch.ones((), dtype=torch.bool, device=dev))
-    still = torch.min(torch.where(others0 & ~moving, eff0, KEY_INF))
-    after = torch.cat([torch.flip(torch.cummin(torch.flip(old, (0,)), 0)
-                                  .values, (0,)), inf1])
-    before = torch.cat([inf1, torch.cummin(new, 0).values])
-    gone = torch.cat([torch.zeros_like(inf1), torch.cumsum(
-        (is_cr & in0).to(torch.int64), 0)])
-    m = torch.minimum(still, torch.minimum(after[r_nb], before[r_nb]))
-    any0 = others0.sum() - gone[r_nb] > 0
-    base = torch.where(tag[r_idx], p[r_idx], g["head_prop"][r_idx])
-    vals = torch.stack([m, any0.to(torch.int64), base,
-                        g["prop_delta"][r_idx],
-                        g["active"][r_idx].to(torch.int64)]).cpu()
-    low_p, any_r, out = KEY_INF, False, []
-    for (mk, a0, b, pd, act), t in zip(vals.T.tolist(), r_time.tolist()):
-        low = min(mk, low_p)
-        if (a0 or any_r) and low < LOWEST_PROP_TAG_TRIGGER:
+# K3's rows: the fields of ``ingest_scan``'s input, in order
+SCAN_FIELDS = ("m", "any0", "base", "pd0", "act", "t", "end")
+
+
+def ingest_scan_cost(n: int) -> dict:
+    """K3's cost at ``n`` rows: the seven int64 inputs read once and the
+    output written once (64 bytes a row), with the count; about six
+    integer ops a row.  The bound in ``chip_smoke.py`` and the cost
+    counter both read it."""
+    return {"flops": 6 * n, "bytes_accessed": 64 * n + 8,
+            "transcendentals": 0}
+
+
+def _ingest_scan_torch(rows, count):
+    """Plain version of K3: the same walk in Python over CPU tensors."""
+    b = rows.shape[1]
+    n = max(0, min(int(count), b))
+    out = torch.zeros((b,), dtype=torch.int64)
+    low_p, any_p, leaving, res = KEY_INF, False, [], []
+    for k, (m, a0, base_p, pd, act, t, end) in enumerate(
+            zip(*rows[:, :n].tolist())):
+        leaving = [(v, e) for v, e in leaving if e > k]
+        low = min([m, low_p] + [v for v, _ in leaving])
+        if (a0 or any_p or leaving) and low < LOWEST_PROP_TAG_TRIGGER:
             pd = _wrap64(low - t)
-        out.append(pd)
+        res.append(pd)
         if act:
-            low_p = min(low_p, _wrap64(b + pd))
-            any_r = True
-    return torch.tensor(out, dtype=torch.int64).to(dev)
+            v = _wrap64(base_p + pd)
+            if end >= n:
+                low_p, any_p = min(low_p, v), True
+            elif end > k + 1:
+                leaving.append((v, end))
+    out[:n] = torch.tensor(res, dtype=torch.int64)
+    return out
+
+
+def ingest_scan(rows, count):
+    """K3's wrapper: the idle-reactivation recurrence of
+    :func:`_ingest_dense` over ``rows`` (int64 ``[7, B]``, fields
+    :data:`SCAN_FIELDS`, one column a reactivating row in row order) for
+    the first ``count`` columns (a 0-d int64 tensor on the same device,
+    read there).  Returns the int64 ``[B]`` prop_delta of each row
+    (those past ``count`` unspecified).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (building it at first use) or raises -- there is no fallback.
+    One launch, no read back: the count stays on the device.  Under a
+    cost counter the call counts as :func:`ingest_scan_cost` of ``B``."""
+    if rows.dtype != torch.int64 or count.dtype != torch.int64:
+        raise TypeError(f"ingest_scan: rows and count must be int64, got "
+                        f"{rows.dtype}/{count.dtype}")
+    if rows.dim() != 2 or rows.shape[0] != len(SCAN_FIELDS) or \
+            count.dim() != 0:
+        raise ValueError(f"ingest_scan: shapes {tuple(rows.shape)}, "
+                         f"{tuple(count.shape)} are not [7, B], []")
+    dev = rows.device
+    if count.device != dev:
+        raise ValueError("ingest_scan: tensors on different devices")
+    with compile_plane.kernel_region(
+            "ingest_scan", lambda: ingest_scan_cost(rows.shape[1])):
+        return _ingest_scan_launch(rows, count, dev)
+
+
+def _ingest_scan_launch(rows, count, dev):
+    if dev.type == "cpu":
+        return _ingest_scan_torch(rows, count)
+    if dev.type != "cuda":
+        raise ValueError(f"ingest_scan: unsupported device {dev}")
+    if not rows.is_contiguous():
+        raise ValueError("ingest_scan: rows must be contiguous")
+    launch = _ext.kernel("ingest_scan")
+    b = rows.shape[1]
+    out = torch.empty((b,), dtype=torch.int64, device=dev)
+    ws = torch.empty((2, max(b, 1)), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(rows.data_ptr(), count.data_ptr(), out.data_ptr(),
+                     ws.data_ptr(), b, stream)
+    if err != 0:
+        raise RuntimeError(f"ingest_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    _ext.LAUNCHES["ingest_scan"] += 1
+    return out
 
 
 def ingest_wave(state: EngineState, requesting, time_ns, cost, rho,

@@ -6,9 +6,9 @@ speaks the interface of the reference ``PullPriorityQueue``
 it like any other backend.  The host owns what a dense device pass
 cannot: client-id <-> slot mapping, the request payload FIFOs, op
 batching, capacity growth and GC bookkeeping.  Everything
-per-request-hot runs on the device: ingest (``kernels.ingest``) and the
-exact serial engine (``kernels.engine_run``); neither launches the
-port's CUDA kernels K1 or K2.
+per-request-hot runs on the device: ingest (``kernels.ingest``, kernel
+K3 its reactivation recurrence) and the exact serial engine
+(``kernels.engine_run``); neither launches K1 or K2.
 
 Restrictions (as in the JAX package):
 - DelayedTagCalc only: the head-only device representation *is* the
@@ -28,14 +28,18 @@ Every launch is a program of the module cache ``queue`` (``_JIT_CACHE``,
 ``_jit_cached``), under the JAX package's six keys and factories, shared
 by every queue of the process: ``ingest``, ``run``, ``run_h``,
 ``run_stream``, ``ingest_run_stream`` and ``ingest_run``.  Each is a
-``compile_plane.StagedJit``: its serial legs are captured
-``kernels.serial_leg`` blocks, its ingest leg (segmented on the host
-from the packed ops' host image, ``kernels.upload_ops``) and the
-decisions' packing run eagerly around them.  The ops enter a program as
-one int64 ``[10, B]`` tensor, ``B`` padded to a power of two as in JAX;
-a capacity or ring growth changes the state's shapes, so the next call
-of an entry is a retrace.  Nothing is donated: the speculative buffer
-and a retried launch read the caller's state after the call.
+``compile_plane.InstrumentedJit`` captured whole: the fixed-shape
+device ingest (``kernels.ingest``, kernel K3 inside), the serial steps
+and the decisions' packing, one CUDA graph a signature with no read
+back.  The serial steps are ``kernels.serial_leg`` programs: blocks of
+``kernels.SERIAL_BLOCK`` steps, each block's graph a child node of the
+program's graph as many times as it runs, so a long ``pull_batch``
+holds one block's capture, not one capture of every step.  The ops enter
+a program as one int64 ``[10, B]`` tensor, ``B`` padded to a power of
+two as in JAX; a capacity or ring growth changes the state's shapes, so
+the next call of an entry is a retrace.  Nothing is donated: the
+speculative buffer and a retried launch read the caller's state after
+the call.
 """
 
 from __future__ import annotations
@@ -73,8 +77,8 @@ _JIT_CACHE: Dict[Tuple, Any] = {}
 
 def _jit_cached(key: Tuple, fn):
     if key not in _JIT_CACHE:
-        _JIT_CACHE[key] = compile_plane.StagedJit(fn, cache="queue",
-                                                  entry=key)
+        _JIT_CACHE[key] = compile_plane.instrumented_jit(
+            fn, cache="queue", entry=key)
     return _JIT_CACHE[key]
 
 
@@ -227,10 +231,6 @@ class TpuPullPriorityQueue:
         self.device = resolve_device(device)
         self.state: EngineState = init_state(capacity, ring_capacity,
                                              device=self.device)
-        # host mirror of state.idle (every write to it goes through this
-        # queue), so ingest needs no read back to find reactivations
-        self._idle = np.ones(capacity, dtype=bool)
-
         # host bookkeeping
         self._slot_of: Dict[Any, int] = {}
         self._client_of: Dict[int, Any] = {}
@@ -354,15 +354,13 @@ class TpuPullPriorityQueue:
             if plain_fn is None:
                 return None
             return self._launch(plain_fn, self.state, *args)
-        packed = kernels.upload_ops(ops, self.device, idle=self._idle)
+        packed = kernels.upload_ops(ops, self.device)
         try:
             res = self._launch(fused_fn, self.state, packed, *args)
         except Exception:
             self._pending = rows + self._pending
             raise
         self.ingest_segments += len(kernels.ingest_segments(ops[0], ops[1]))
-        self._idle[ops[1][ops[0] == OP_CREATE]] = True
-        self._idle[ops[1][ops[0] == OP_ADD]] = False
         return res
 
     # ------------------------------------------------------------------
@@ -374,8 +372,6 @@ class TpuPullPriorityQueue:
         new_n = old_n * 2
         # new slots equal freshly initialized ones (state.grow_state)
         self.state = grow_state(self.state, new_n)
-        self._idle = np.concatenate([self._idle,
-                                     np.ones(new_n - old_n, dtype=bool)])
         self._ledger = np.vstack(
             [self._ledger,
              np.zeros((new_n - old_n, _led.LED_COLS), dtype=np.int64)])
@@ -1071,7 +1067,6 @@ class TpuPullPriorityQueue:
                     idle_slots.append(slot)
             if idle_slots:
                 self.state = kernels.mark_idle(self.state, idle_slots)
-                self._idle[idle_slots] = True
                 # a later add to an idle client reactivates (prop_delta
                 # shift): the speculative buffer must not survive it
                 self._host_idle.update(idle_slots)

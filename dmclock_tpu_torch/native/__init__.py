@@ -12,15 +12,21 @@ no tensor, no device.
 
 The library is found via ``$DMCLOCK_NATIVE_LIB``, the in-repo
 ``native/build/libdmclock_c.so`` (git-ignored), or a cmake build from
-``native/src``, in that order; a library of a stale ABI is rebuilt
-once.  ``load_library`` returns None when the library cannot be had
-(no cmake, a failed build); callers (tests, the sim models) degrade
-gracefully.
+``native/src``, in that order; a library of a stale ABI, or one that
+does not load, is rebuilt once.  A build holds an exclusive lock
+(``native/build/.build.lock``), looks for the library again once it
+holds it (another process may have built it meanwhile), builds in a
+cmake tree of its own, copies the library to a temporary name beside
+its place and renames it there, so no process loads a half-written
+file, and retries a failed build once.  ``load_library`` returns None
+when the library cannot be had (no cmake, a failed build); callers
+(tests, the sim models) degrade gracefully.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -47,22 +53,46 @@ def _so_path() -> Path:
 _CAPI_VERSION = 2
 
 
-def _rebuild() -> Optional[Path]:
-    """A cmake build of the C library (the missing and the stale-ABI
-    paths); None without cmake or on a failed build."""
+def _cmake_build() -> Optional[Path]:
+    """One cmake build of the C library in a tree of this process's own,
+    renamed into place; None on a failed build."""
+    tree = _BUILD_DIR / f".tree-{os.getpid()}"
+    tmp = _BUILD_DIR / f"libdmclock_c.so.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["cmake", "-S", str(_NATIVE_DIR), "-B", str(tree)],
+                       check=True, capture_output=True, timeout=300)
+        subprocess.run(["cmake", "--build", str(tree), "-j", "--target",
+                        "dmclock_c"], check=True, capture_output=True,
+                       timeout=600)
+        shutil.copy2(tree / "libdmclock_c.so", tmp)
+        os.replace(tmp, _so_path())
+    except (subprocess.CalledProcessError, subprocess.TimeoutExpired,
+            OSError):
+        tmp.unlink(missing_ok=True)
+        return None
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+    return _so_path()
+
+
+def _rebuild(stale: bool = False) -> Optional[Path]:
+    """A cmake build of the C library under the build lock (the missing,
+    the unloadable and the stale-ABI paths), tried twice; None without
+    cmake or when both builds fail.  Unless ``stale``, a library another
+    process put in place while this one waited for the lock is taken as
+    it is."""
     if not shutil.which("cmake"):
         return None
-    try:
-        subprocess.run(["cmake", "-S", str(_NATIVE_DIR), "-B",
-                        str(_BUILD_DIR)], check=True,
-                       capture_output=True, timeout=300)
-        subprocess.run(["cmake", "--build", str(_BUILD_DIR), "-j",
-                        "--target", "dmclock_c"], check=True,
-                       capture_output=True, timeout=600)
-    except (subprocess.CalledProcessError, subprocess.TimeoutExpired):
-        return None
-    so = _so_path()
-    return so if so.exists() else None
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not stale and _so_path().exists():
+            return _so_path()
+        for _attempt in range(2):
+            so = _cmake_build()
+            if so is not None:
+                return so
+    return None
 
 
 def ensure_built() -> Optional[Path]:
@@ -91,7 +121,17 @@ def load_library() -> Optional[ctypes.CDLL]:
     if so is None:
         _lib_err = "no compiler/cmake or build failed"
         return None
-    lib = ctypes.CDLL(str(so))
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError:
+        # a library another process was still writing, or a broken one
+        if os.environ.get("DMCLOCK_NATIVE_LIB"):
+            raise
+        so = _rebuild(stale=True)
+        if so is None:
+            _lib_err = "the library did not load and rebuild failed"
+            return None
+        lib = ctypes.CDLL(str(so))
 
     # ABI version gate: a stale prebuilt .so would silently ignore
     # newer trailing arguments (C calling convention), turning e.g.
@@ -100,7 +140,7 @@ def load_library() -> Optional[ctypes.CDLL]:
     if not hasattr(lib, "dmc_capi_version") or \
             lib.dmc_capi_version() != _CAPI_VERSION:
         del lib
-        so = _rebuild()
+        so = _rebuild(stale=True)
         if so is None:
             _lib_err = "stale native ABI and rebuild failed"
             raise RuntimeError(

@@ -39,10 +39,13 @@ parts:
   the card in its place.  On CPU tensors (the caller's explicit choice)
   the program is the body run eagerly, with the same signatures and
   records (``compile_ms`` 0).  A program of many serial steps
-  (:class:`SerialJit`) captures a block of them and replays it.  A
-  program whose body holds legs no graph can (an ingest segmented on
-  the host, a host read) is a :class:`StagedJit`: one entry whose body
-  runs on the host around captured serial legs.  Inside :func:`eager`
+  (:class:`SerialJit`) captures a block of them and replays it; called
+  in another program's body, its block is a child graph of that
+  program's graph, or, for a leg of several blocks, its replays run
+  between two graph segments of that program (no read back either
+  way).  A program whose body holds what no graph can (a host read of
+  a device value) is a :class:`StagedJit`: one entry whose body runs on
+  the host around captured legs (the device sim's step).  Inside :func:`eager`
   every program runs its body eagerly with no record: the reference a
   check holds a program against.
 - **The cost counter** (:class:`CostCounter`), the port's
@@ -92,6 +95,7 @@ import math
 import os
 import threading
 import time as _walltime
+import warnings
 import weakref
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -723,6 +727,22 @@ def _collectors() -> list:
     return _LOCAL.collect
 
 
+def _capturing() -> list:
+    """Per thread, the programs whose capture is under way (innermost
+    last)."""
+    if not hasattr(_LOCAL, "capturing"):
+        _LOCAL.capturing = []
+    return _LOCAL.capturing
+
+
+def _embedded() -> list:
+    """Per thread, one list a capture under way: the nested programs'
+    graphs it holds as child nodes."""
+    if not hasattr(_LOCAL, "embedded"):
+        _LOCAL.embedded = []
+    return _LOCAL.embedded
+
+
 class CaptureError(RuntimeError):
     """A program that cannot be captured on the card: its body
     synchronises with the host, uses an operation a CUDA graph cannot
@@ -841,34 +861,37 @@ def _lift(x, dev: torch.device):
         if isinstance(x, _SCALARS) else x
 
 
-_DRIVER: list = []      # [the CUDA driver's two entry points, or None]
+_DRIVER: list = []      # [the CUDA driver's entry points, or None]
 
 
 def _driver():
-    """``(cuStreamGetCaptureInfo_v2, cuGraphGetNodes)`` of the CUDA
-    driver, typed, or None where it has not got them."""
+    """``(cuStreamGetCaptureInfo_v2, cuGraphGetNodes,
+    cuGraphAddChildGraphNode, cuStreamUpdateCaptureDependencies)`` of
+    the CUDA driver, typed, or None where it has not got them."""
     if not _DRIVER:
         try:
             lib = ctypes.CDLL("libcuda.so.1")
-            info, nodes = lib.cuStreamGetCaptureInfo_v2, lib.cuGraphGetNodes
+            fns = (lib.cuStreamGetCaptureInfo_v2, lib.cuGraphGetNodes,
+                   lib.cuGraphAddChildGraphNode,
+                   lib.cuStreamUpdateCaptureDependencies)
         except (OSError, AttributeError):
             _DRIVER.append(None)
         else:
-            P = ctypes.POINTER
-            info.argtypes = [ctypes.c_void_p, P(ctypes.c_int),
-                             P(ctypes.c_uint64), P(ctypes.c_void_p),
-                             P(ctypes.c_void_p), P(ctypes.c_size_t)]
-            nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                              P(ctypes.c_size_t)]
-            info.restype = nodes.restype = ctypes.c_int
-            _DRIVER.append((info, nodes))
+            P, VP = ctypes.POINTER, ctypes.c_void_p
+            fns[0].argtypes = [VP, P(ctypes.c_int), P(ctypes.c_uint64),
+                               P(VP), P(VP), P(ctypes.c_size_t)]
+            fns[1].argtypes = [VP, VP, P(ctypes.c_size_t)]
+            fns[2].argtypes = [P(VP), VP, VP, ctypes.c_size_t, VP]
+            fns[3].argtypes = [VP, P(VP), ctypes.c_size_t, ctypes.c_uint]
+            for fn in fns:
+                fn.restype = ctypes.c_int
+            _DRIVER.append(fns)
     return _DRIVER[0]
 
 
-def _capture_nodes(stream) -> Optional[int]:
-    """Nodes in the graph being captured on ``stream`` (the CUDA
-    driver's ``cuStreamGetCaptureInfo_v2`` and ``cuGraphGetNodes``);
-    None where libcuda does not say."""
+def _capture_info(stream):
+    """``(graph, dependencies, count)`` of the capture under way on
+    ``stream`` (the driver's ``cuStreamGetCaptureInfo_v2``), or None."""
     fns = _driver()
     if fns is None:
         return None
@@ -879,10 +902,47 @@ def _capture_nodes(stream) -> Optional[int]:
               ctypes.byref(graph), ctypes.byref(deps),
               ctypes.byref(ndeps)) != 0 or not graph.value:
         return None
+    return graph, deps, ndeps
+
+
+def _capture_nodes(stream) -> Optional[int]:
+    """Nodes in the graph being captured on ``stream`` (the CUDA
+    driver's ``cuStreamGetCaptureInfo_v2`` and ``cuGraphGetNodes``);
+    None where libcuda does not say."""
+    info = _capture_info(stream)
+    if info is None:
+        return None
     n = ctypes.c_size_t()
-    if fns[1](graph, None, ctypes.byref(n)) != 0:
+    if _driver()[1](info[0], None, ctypes.byref(n)) != 0:
         return None
     return int(n.value)
+
+
+# CU_STREAM_SET_CAPTURE_DEPENDENCIES
+_SET_DEPENDENCIES = 1
+
+
+def _embed_child(stream, raw_graph: int) -> None:
+    """Add the CUDA graph ``raw_graph`` (a ``cudaGraph_t``) as one child
+    graph node to the capture under way on ``stream``, after everything
+    captured so far, and make it the capture's only dependency: what the
+    stream captures next runs after it.  A replay of the program being
+    captured replays the child's nodes there, on the child's memory."""
+    info = _capture_info(stream)
+    if info is None:
+        raise CaptureError("a nested program needs the CUDA driver's "
+                           "capture entry points (libcuda)")
+    graph, deps, ndeps = info
+    node = ctypes.c_void_p()
+    fns = _driver()
+    err = fns[2](ctypes.byref(node), graph, deps, ndeps,
+                 ctypes.c_void_p(raw_graph))
+    if err == 0:
+        err = fns[3](stream.cuda_stream, ctypes.byref(node), 1,
+                     _SET_DEPENDENCIES)
+    if err != 0:
+        raise CaptureError(f"embedding a nested program's graph failed: "
+                           f"CUDA driver error {err}")
 
 
 _T, _S, _C = range(3)   # a leaf's kind: tensor, lifted scalar, constant
@@ -916,11 +976,17 @@ class _Graph:
     is another sharing program's donated static buffer becomes this
     graph's static buffer too (once a graph: a buffer passed twice is
     cloned the second time), and this graph's donated buffers are
-    offered to the next."""
+    offered to the next.  A ``nestable`` graph keeps its CUDA graph
+    after instantiation, so a call of it inside another program's
+    capture adds it there as a child graph node (:func:`_embed_child`)
+    instead of replaying it; the outer graph keeps every graph it holds
+    (``children``) and their memory alive."""
 
     def __init__(self, fn, what: str, leaves, spec, dev, donated: set,
-                 names: list, share: bool = False):
+                 names: list, share: bool = False, nestable: bool = False):
         self.fn, self.what, self.spec, self.dev = fn, what, spec, dev
+        self.nestable = nestable
+        self.children: list = []
         self.kinds, self.static = [], []
         taken = set()
         for i, x in enumerate(leaves):
@@ -945,7 +1011,13 @@ class _Graph:
         self.names = names
         self.alias: Optional[List[Tuple[int, int]]] = None
         self.out_spec = None
-        self.graph = None
+        # [graph, host step or None] in replay order (one graph unless
+        # the body holds a serial leg of several blocks, :meth:`split`)
+        self.segments: list = []
+        self._open = None
+        self._cs = None
+        self._nodes = 0
+        self._pool = None
         self.out_leaves: list = []
         self.fresh: set = set()
         self.launches: Dict[str, int] = {}
@@ -1032,11 +1104,14 @@ class _Graph:
     # -- the first call: warm-up, then capture ------------------------
     def warm_up(self):
         """The body once, eagerly, on a side stream with synchronising
-        operations made errors; its outputs are the first call's."""
+        operations made errors; its outputs are the first call's.  A
+        nested program called for the first time here is captured here
+        (its own first call), so this program's capture finds it."""
         cur = torch.cuda.current_stream(self.dev)
         side = torch.cuda.Stream(self.dev)
         side.wait_stream(cur)
         prev = torch.cuda.get_sync_debug_mode()
+        _LOCAL.warming = getattr(_LOCAL, "warming", 0) + 1
         try:
             with torch.cuda.device(self.dev), torch.cuda.stream(side):
                 torch.cuda.set_sync_debug_mode("error")
@@ -1044,6 +1119,7 @@ class _Graph:
                     out_leaves = self.body()
                 finally:
                     torch.cuda.set_sync_debug_mode(prev)
+                    _LOCAL.warming -= 1
         except RuntimeError as e:
             if "synchronizing" in str(e):
                 raise CaptureError(f"{self.what}: the body synchronises "
@@ -1057,38 +1133,43 @@ class _Graph:
     def capture(self) -> None:
         from ..engine import _ext
 
-        torch.cuda.synchronize(self.dev)
+        if not getattr(_LOCAL, "warming", 0):
+            # (inside another program's warm-up, whose syncs are errors,
+            # the streams' order is enough)
+            torch.cuda.synchronize(self.dev)
         n0 = dict(_ext.LAUNCHES)
         r0 = torch.cuda.memory_reserved(self.dev)
         cur = torch.cuda.current_stream(self.dev)
         cs = torch.cuda.Stream(self.dev)
         cs.wait_stream(cur)
-        g = torch.cuda.CUDAGraph()
-        nodes = None
+        self._cs, self._nodes, self.segments, self._pool = cs, 0, [], None
+        held, capturing = _embedded(), _capturing()
+        held.append(self.children)
+        capturing.append(self)
         try:
             with torch.cuda.device(self.dev), torch.cuda.stream(cs):
-                g.capture_begin(capture_error_mode="thread_local")
+                self._begin(None)
                 try:
                     out_leaves = self.body()
-                    nodes = _capture_nodes(cs)
+                    self._end()
                 except BaseException as e:
-                    try:
-                        g.capture_end()
-                    except Exception:
-                        pass
+                    if self._open is not None:
+                        try:
+                            self._open.capture_end()
+                        except Exception:
+                            pass
+                    if isinstance(e, CaptureError):
+                        raise
                     raise CaptureError(f"{self.what}: the capture "
                                        f"failed: {e}") from e
-                try:
-                    g.capture_end()
-                except Exception as e:
-                    raise CaptureError(f"{self.what}: the graph did not "
-                                       f"instantiate: {e}") from e
         finally:
+            held.pop()
+            capturing.remove(self)
             self.launches = {k: v - n0[k] for k, v in _ext.LAUNCHES.items()
                              if v != n0[k]}
             _ext.LAUNCHES.update(n0)    # captured, not launched
         cur.wait_stream(cs)
-        self.graph = g
+        self._cs = None
         self.out_leaves = out_leaves
         aliased = {oi for oi, _ in self.alias}
         self.fresh = {i for i, o in enumerate(out_leaves)
@@ -1096,8 +1177,15 @@ class _Graph:
         arg = sum(_nbytes(t) for t, k in zip(self.static, self.kinds)
                   if k != _C)
         pool = torch.cuda.memory_reserved(self.dev) - r0
+        nodes = self._nodes
+        if nodes is not None and self.children:
+            # a child graph node stands for the nodes of its graph
+            nodes += sum(c.info.get("graph_nodes") or 0
+                         for c in self.children) - len(self.children)
         self.info = {
             "graph_nodes": nodes, "launches": dict(self.launches),
+            "child_graphs": len(self.children),
+            "segments": len(self.segments),
             "memory_analysis": {
                 "argument_bytes": arg,
                 "output_bytes": sum(_nbytes(o) for o in out_leaves
@@ -1106,8 +1194,70 @@ class _Graph:
                                    for _, di in self.alias),
                 "pool_bytes": pool, "total_bytes": arg + pool}}
 
+    def _begin(self, pool) -> None:
+        g = torch.cuda.CUDAGraph(keep_graph=self.nestable)
+        g.capture_begin(pool=pool, capture_error_mode="thread_local")
+        self._open = g
+
+    def _end(self) -> None:
+        g, self._open = self._open, None
+        n = _capture_nodes(self._cs)
+        self._nodes = None if n is None or self._nodes is None \
+            else self._nodes + n
+        try:
+            with warnings.catch_warnings():
+                # a segment may be empty (the body opens with a leg)
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                g.capture_end()
+            if self.nestable:
+                g.instantiate()
+        except Exception as e:
+            raise CaptureError(f"{self.what}: the graph did not "
+                               f"instantiate: {e}") from e
+        if n == 0 and not self.nestable:
+            g = None                    # nothing to replay
+        else:
+            self._pool = g.pool()       # the next segment's pool
+        self.segments.append([g, None])
+
+    def split(self, fn, args):
+        """Inside this program's capture: end the graph segment under
+        way, run ``fn(*args)`` now, outside any capture (a program of its
+        own: a serial leg of several blocks), and capture the rest of the
+        body as the next segment, in the same pool.  ``fn``'s result (its
+        tensors read by the next segment) is kept: a replay runs the
+        segments in order and, after this one, ``fn`` on the same
+        ``args``, copying its result into those tensors.  Here ``fn``
+        runs dry: its programs hand back their output buffers without
+        replaying (during a capture only the shapes matter).  Returns
+        the result."""
+        from ..engine import _ext
+
+        if self.nestable:
+            raise CaptureError(f"{self.what}: a nestable program holds one "
+                               f"graph, no host step")
+        self._end()
+        capturing = _capturing()
+        capturing.remove(self)
+        n0 = dict(_ext.LAUNCHES)
+        _LOCAL.dry = True
+        try:
+            out = fn(*args)
+        finally:
+            _LOCAL.dry = False
+            _ext.LAUNCHES.update(n0)    # run at capture, not a replay's
+            capturing.append(self)
+        self.segments[-1][1] = (fn, args, pytree.tree_leaves(out))
+        self._begin(self._pool)
+        return out
+
     # -- later calls ----------------------------------------------------
     def run(self, leaves):
+        if getattr(_LOCAL, "dry", False):
+            # a host step at its program's capture: the buffers, no run
+            return pytree.tree_unflatten(
+                [o.clone() if i in self.fresh else o
+                 for i, o in enumerate(self.out_leaves)], self.out_spec)
         st, kinds = self.static, self.kinds
         for i, x in enumerate(leaves):
             k = kinds[i]
@@ -1116,7 +1266,25 @@ class _Graph:
                     st[i].copy_(x)
             elif k == _S:
                 st[i].fill_(x)
-        self.graph.replay()
+        if torch.cuda.is_current_stream_capturing():
+            # a call inside another program's capture
+            if not self.nestable:
+                raise CaptureError(f"{self.what}: called inside another "
+                                   f"program's capture, and not nestable")
+            _embed_child(torch.cuda.current_stream(self.dev),
+                         self.segments[0][0].raw_cuda_graph())
+            stack = _embedded()
+            if stack:
+                stack[-1].append(self)
+        else:
+            for g, step in self.segments:
+                if g is not None:
+                    g.replay()
+                if step is not None:
+                    fn, args, held = step
+                    for h, x in zip(held, pytree.tree_leaves(fn(*args))):
+                        if isinstance(h, torch.Tensor):
+                            h.copy_(x)
         if self.launches:
             from ..engine import _ext
 
@@ -1146,6 +1314,11 @@ class InstrumentedJit:
     ``capture=False`` runs the body eagerly on every device, with the
     same signatures and records: the caller's choice for a body whose
     tensors lie on several cards (one CUDA graph holds one device).
+    ``nestable=True`` lets another program's body call this one: the
+    first such call (in that program's warm-up) captures it, and inside
+    that program's capture a call adds its graph as a child node, so
+    the outer graph replays it whole with no host step between
+    (:class:`SerialJit`'s blocks are nestable).
     ``record=False`` keeps the program out of the plane's records and
     spans, as a bare ``jax.jit`` is.  ``share_donated=True`` lets a
     chain of such programs (the legs of a staged program) carry one set
@@ -1155,12 +1328,13 @@ class InstrumentedJit:
     passing one leg's result to the next copies nothing."""
 
     __slots__ = ("fn", "cache", "entry", "donate_argnums", "capture",
-                 "record", "share_donated", "_argnames", "_programs",
-                 "_mtx", "__weakref__")
+                 "record", "share_donated", "nestable", "_argnames",
+                 "_programs", "_mtx", "__weakref__")
 
     def __init__(self, fn, *, cache: str, entry: Any,
                  donate_argnums=(), capture: bool = True,
-                 record: bool = True, share_donated: bool = False):
+                 record: bool = True, share_donated: bool = False,
+                 nestable: bool = False):
         self.fn = fn
         self.cache = cache
         self.entry = _entry_str(entry)
@@ -1169,6 +1343,7 @@ class InstrumentedJit:
         self.capture = bool(capture)
         self.record = bool(record)
         self.share_donated = bool(share_donated)
+        self.nestable = bool(nestable)
         self._argnames = _argnames(fn)
         self._programs: Dict[tuple, Any] = {}
         self._mtx = threading.RLock()
@@ -1226,10 +1401,16 @@ class InstrumentedJit:
                 out = prog.run(leaves)
                 t1 = t2 = pl.clock_ns()
             else:
+                if torch.cuda.is_current_stream_capturing():
+                    raise CaptureError(
+                        f"program {self.cache} {self.entry}: first called "
+                        f"inside another program's capture (a signature "
+                        f"its warm-up did not call)")
                 prog = _Graph(self.fn, f"program {self.cache} {self.entry}",
                               leaves, spec, dev, self._donated_leaves(args),
                               [_path_name(p, self._argnames)
-                               for p, _ in paths], self.share_donated)
+                               for p, _ in paths], self.share_donated,
+                              self.nestable)
                 out_leaves = prog.warm_up()
                 t1 = pl.clock_ns()
                 prog.capture()
@@ -1261,6 +1442,12 @@ def instrumented_jit(fn, *, cache: str, entry: Any, donate_argnums=(),
                            donate_argnums=donate_argnums, capture=capture)
 
 
+# the most graph replays of a serial program that another program's
+# capture holds as child nodes (a block and a remainder); a longer leg
+# runs between that program's graph segments
+EMBED_REPLAYS = 2
+
+
 class SerialJit:
     """A captured program of ``steps`` serial steps, the counterpart of
     a JAX program that runs a step under ``lax.scan``.  ``make_body(n)``
@@ -1281,6 +1468,15 @@ class SerialJit:
     block is its body run eagerly.  ``fn`` is the eager body of all
     ``steps``.
 
+    Called inside another program's capture (a queue or cluster program
+    whose body runs a serial leg), a program of at most
+    :data:`EMBED_REPLAYS` graph replays (a block and a remainder) adds
+    its graphs to that capture as child nodes; a longer one splits that
+    program's graph (:meth:`_Graph.split`): its blocks are replayed from
+    the host between the program's segments, as one graph holding every
+    replay's copy of the block's nodes would take seconds to instantiate
+    at a long ``pull_batch``.
+
     ``start(carry, t)`` and ``finish(carry, t, outs)`` wrap the blocks:
     the caller's arguments (the signature's) become the blocks' carry,
     and the last block's carry the call's result; a carry may hold
@@ -1289,7 +1485,7 @@ class SerialJit:
     outs)``."""
 
     __slots__ = ("fn", "cache", "entry", "steps", "block", "record",
-                 "start", "finish", "_parts", "_seen", "_mtx",
+                 "start", "finish", "replays", "_parts", "_seen", "_mtx",
                  "__weakref__")
 
     def __init__(self, make_body, *, steps: int, block: int, cache: str,
@@ -1308,8 +1504,9 @@ class SerialJit:
         reps, rem = divmod(self.steps, self.block)
         self._parts = [(n, InstrumentedJit(
             make_body(size), cache=cache, entry=entry, donate_argnums=(0,),
-            record=False)) for n, size in ((reps, self.block), (1, rem))
-            if n and size]
+            record=False, nestable=True))
+            for n, size in ((reps, self.block), (1, rem)) if n and size]
+        self.replays = sum(n for n, _ in self._parts)
         self._seen: set = set()
         self._mtx = threading.RLock()
         _ALL_PROGRAMS.add(self)
@@ -1329,6 +1526,11 @@ class SerialJit:
     def __call__(self, carry, t):
         if _eager_on():
             return self.finish(*self.fn(self.start(carry, t), t))
+        outer = _capturing()
+        if outer and self.replays > EMBED_REPLAYS:
+            # inside another program's capture, a longer leg's replays
+            # run between that program's graph segments
+            return outer[-1].split(self, (carry, t))
         leaves, spec = pytree.tree_flatten(((carry, t), {}))
         sig = _signature(f"program {self.cache} {self.entry}", leaves,
                          spec, (carry, t), {})
@@ -1391,11 +1593,11 @@ def _sum_infos(infos: List[dict]) -> Tuple[int, Dict[str, int]]:
 class StagedJit:
     """A program whose body runs on the host on every call, around legs
     that are captured programs of their own: the counterpart of a JAX
-    program whose body holds what a CUDA graph cannot (an ingest that
-    segments its ops on the host, a host read of a device value).
-    ``fn`` is the body; its serial legs are
-    :class:`SerialJit` programs outside the records (``record=False``),
-    shared by every entry that runs the same steps.  Which legs run
+    program whose body holds what a CUDA graph cannot (a host read of a
+    device value: the device sim's step, ``sim/device_sim.py``
+    ``jit_device_sim_step``, reads its loop's status between blocks; it
+    is this class's one user).  ``fn`` is the body; its legs are
+    programs outside the records (``record=False``).  Which legs run
     eagerly is the body's own structure, fixed before any capture; a
     leg that fails to capture raises :class:`CaptureError`.
 

@@ -27,10 +27,15 @@ does.
 The JAX package's jit caches keep their names, keys and records:
 :func:`mesh_step_jit` (cache ``cluster.<step>``, the healthy and the
 robust step) and :func:`jit_mesh_rounds` (``cluster.mesh_rounds``) are
-``compile_plane.StagedJit`` programs, each server's serial leg a
-captured ``kernels.serial_leg`` (one capture serves every server: the
-views ``x[s]`` share their strides) and each wave's ingest eager around
-it (it reads the wave's columns and segments them on the host).
+``compile_plane.InstrumentedJit`` programs captured whole: each wave's
+op batch is built on the device and ingested in one fixed-shape pass
+(``kernels.ingest``), each server's serial leg is a
+``kernels.serial_leg`` program whose block graph the step's graph holds
+as a child node (one block capture serves every server: the views
+``x[s]`` share their strides), and the tracker folds and the decisions
+follow inside the graph, with no read back.  On a layout over several
+distinct cards the programs run their bodies eagerly (one CUDA graph
+holds one device).
 """
 
 from __future__ import annotations
@@ -285,28 +290,24 @@ def server_round(engine: EngineState, tracker, now, arrivals_per_client,
     borrowing = isinstance(tracker, BorrowTrackerState)
     prepare = borrow_tracker_prepare if borrowing else tracker_prepare
     c = arrivals_per_client.shape[0]
-    slots = np.arange(c, dtype=np.int64)
-    zeros = np.zeros((c,), dtype=np.int64)
-    cost_c = torch.broadcast_to(cost, (c,))
+    dev = now.device
+    slots = torch.arange(c, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((c,), dtype=torch.int64, device=dev)
+    cost_c = torch.broadcast_to(cost, (c,)).to(torch.int64)
     for wave in range(max_arrivals):
         requesting = arrivals_per_client > wave
         # later waves re-mark an unchanged global counter: (0, 0) for
         # Orig, floored at (1, 1) for Borrowing
         tracker, delta_out, rho_out = prepare(tracker, requesting,
                                               g_delta, g_rho)
-        # the wave's columns and the idle mirror in one read back
-        cols = torch.stack([
-            requesting.to(torch.int64), now.expand(c), cost_c,
+        # the wave's [10, C] op batch, built on the device (no CREATE)
+        ops = torch.stack([
+            torch.where(requesting, kernels.OP_ADD, kernels.OP_NOP),
+            slots, now.expand(c), cost_c,
             torch.where(requesting, rho_out, 1),
-            torch.where(requesting, delta_out, 1),
-            engine.idle.to(torch.int64)]).cpu().numpy()
-        ops = kernels.IngestOps(
-            kind=np.where(cols[0] > 0, kernels.OP_ADD, kernels.OP_NOP),
-            slot=slots, time=cols[1], cost=cols[2], rho=cols[3],
-            delta=cols[4], resv_inv=zeros, weight_inv=zeros,
-            limit_inv=zeros, order=zeros)
-        engine = kernels.ingest(engine, ops, anticipation_ns=anticipation_ns,
-                                idle=cols[5] > 0)
+            torch.where(requesting, delta_out, 1), zeros, zeros, zeros,
+            zeros])
+        engine = kernels.ingest(engine, ops, anticipation_ns=anticipation_ns)
     out = kernels.serial_leg(
         decisions_per_step, allow_limit_break=allow_limit_break,
         anticipation_ns=anticipation_ns, advance_now=True,
@@ -392,8 +393,8 @@ def run_cluster_rounds(cluster: ClusterState, arrivals_seq, cost,
     step = mesh_step_jit(_ROUNDS_JIT_CACHE, cluster_step, mesh,
                          (decisions_per_step, max_arrivals,
                           anticipation_ns, allow_limit_break, advance_ns))
-    arrivals_seq = program_input(arrivals_seq)
-    cost = program_input(cost)
+    arrivals_seq = program_input(arrivals_seq, mesh)
+    cost = program_input(cost, mesh)
     n_servers = groups.leading(cluster.now)
     decs_seq = []
     for t in range(arrivals_seq.shape[0]):
@@ -606,11 +607,20 @@ def mesh_shape(mesh: MeshLayout) -> tuple:
     return (mesh.n_shards,)
 
 
-def program_input(x):
-    """A numpy argument as the tensor a program takes (a numpy array can
-    be neither a program's input nor its constant); anything else as it
-    is."""
-    return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+def program_input(x, mesh: MeshLayout):
+    """A host argument (a numpy array or a tensor on the CPU) as the
+    tensor a program takes, on the mesh's first device (a numpy array
+    can be neither a program's input nor its constant, and a captured
+    program's inputs lie on its card); anything else as it is."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return x.to(mesh.device) if torch.is_tensor(x) else x
+
+
+def captured(mesh: MeshLayout) -> bool:
+    """Whether a program over ``mesh`` is captured: one CUDA graph holds
+    one device, so a layout over several distinct cards runs eagerly."""
+    return len(set(mesh.devices)) == 1
 
 
 def mesh_cache_key(mesh: MeshLayout, cfg: tuple) -> tuple:
@@ -632,13 +642,14 @@ def mesh_step_jit(cache: dict, step_fn, mesh: MeshLayout, cfg: tuple,
     if key not in cache:
         (decisions_per_step, max_arrivals, anticipation_ns,
          allow_limit_break, advance_ns) = cfg
-        cache[key] = compile_plane.StagedJit(
+        cache[key] = compile_plane.InstrumentedJit(
             functools.partial(
                 step_fn, mesh=mesh, decisions_per_step=decisions_per_step,
                 max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
                 allow_limit_break=allow_limit_break, advance_ns=advance_ns),
             cache=f"cluster.{getattr(step_fn, '__name__', 'step')}",
-            entry=tuple(cfg) + (mesh_shape(mesh),), record=record)
+            entry=tuple(cfg) + (mesh_shape(mesh),), record=record,
+            capture=captured(mesh))
     return cache[key]
 
 
@@ -687,12 +698,13 @@ def jit_mesh_rounds(mesh: MeshLayout, *, epochs: int,
                 view_delta=view_d, view_rho=view_r, metrics=met,
                 with_merged=with_merged, with_pressure=with_pressure)
 
-        prog = compile_plane.StagedJit(run, cache="cluster.mesh_rounds",
-                                       entry=cfg + (mesh_shape(mesh),))
+        prog = compile_plane.InstrumentedJit(
+            run, cache="cluster.mesh_rounds",
+            entry=cfg + (mesh_shape(mesh),), capture=captured(mesh))
 
         def call(cluster, arrivals_seq, cost, view_d, view_r, met):
-            return prog(cluster, program_input(arrivals_seq),
-                        program_input(cost), view_d, view_r, met)
+            return prog(cluster, program_input(arrivals_seq, mesh),
+                        program_input(cost, mesh), view_d, view_r, met)
 
         call.program = prog
         _MESH_ROUNDS_JIT_CACHE[key] = call

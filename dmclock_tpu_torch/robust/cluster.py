@@ -295,8 +295,8 @@ def run_with_plan(rc: RobustClusterState, arrivals, cost, mesh,
     step = _jit_step(mesh, (decisions_per_step, max_arrivals,
                             anticipation_ns, allow_limit_break,
                             advance_ns))
-    arrivals = CL.program_input(arrivals)
-    cost = CL.program_input(cost)
+    arrivals = CL.program_input(arrivals, mesh)
+    cost = CL.program_input(cost, mesh)
     decs_seq = []
     for t in range(arrivals.shape[0]):
         fault = plan_step(plan, t) if plan is not None else None

@@ -2708,12 +2708,12 @@ def multichip_policy(n_servers: int = 8, n_clients: int = 10_000,
     _, winv, _, phase = _multichip_qos(n_clients, n_servers)
 
     # the step as a program outside the plane's records (the dry run's
-    # bare jax.jit in JAX): each server's serial leg captured
+    # bare jax.jit in JAX), captured whole
     prog = CL.bare_step_jit(mesh, (k, max_arrivals, 0, False, dt_round))
-    costs_in = CL.program_input(costs)
+    costs_in = CL.program_input(costs, mesh)
 
     def step(cl, arr):
-        cl, decs = prog(cl, torch.from_numpy(arr), costs_in)
+        cl, decs = prog(cl, CL.program_input(arr, mesh), costs_in)
         return cl, CL.decisions_to_numpy(decs)
 
     total = 0

@@ -446,7 +446,6 @@ def restore_queue_state(q, st: dict) -> None:
         q._host_idle.clear()
         if q._spec:
             q._spec_size = 1
-        q._idle = q.state.idle.cpu().numpy().copy()
         q._clean_mark_points.clear()
         q._last_erase_point = 0
         q._slot_of = dict(st["slot_of"])

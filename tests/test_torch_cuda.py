@@ -378,7 +378,8 @@ def test_queue_on_the_card_equals_cpu(cuda):
     """The pull queue's API at 300 clients (bulk load with growth,
     pull_batch, a stream, buffered pulls with adds between, do_clean with
     erases), and the push queue behind the virtual server at 100: on the
-    card equal to the CPU, and no K1 or K2 launch."""
+    card equal to the CPU, no K1 or K2 launch, and K3 (the ingest's
+    recurrence) launched by the queue's ingests."""
     from dmclock_tpu_torch import serve
     from dmclock_tpu_torch.core.recs import ReqParams
     from dmclock_tpu_torch.engine.queue import TpuPullPriorityQueue
@@ -407,7 +408,9 @@ def test_queue_on_the_card_equals_cpu(cuda):
 
     before = dict(_ext.LAUNCHES)
     got = run(cuda)
-    assert dict(_ext.LAUNCHES) == before
+    after = dict(_ext.LAUNCHES)
+    assert after["ingest_scan"] > before.pop("ingest_scan")
+    assert {k: after[k] for k in before} == before
     want = run("cpu")
     assert got[0] == want[0]
     assert {k: v.tolist() for k, v in got[1].items()} == \
@@ -1204,7 +1207,7 @@ def test_captured_serve_epoch_equals_its_eager_body(cuda):
     nows = (0, 3_000_000, 9_000_000)
     out, launches = _replays_equal_eager(
         prog, (st, 0), lambda a, out, i: (out.state, nows[i]))
-    assert launches == {"ring_window": 1, "wheel_scan": 0}
+    assert launches == {"ring_window": 1, "wheel_scan": 0, "ingest_scan": 0}
     ptrs = [t.data_ptr() for t in out[0]]
     again = prog(out[0], 0)
     assert [t.data_ptr() for t in again.state] == ptrs
@@ -1213,8 +1216,10 @@ def test_captured_serve_epoch_equals_its_eager_body(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload, impl, launches", [
-    ("cfg3", "minstop", {"ring_window": 1, "wheel_scan": 0}),
-    ("cfg4", "wheel", {"ring_window": 2 * 2, "wheel_scan": 2 * 3})])
+    ("cfg3", "minstop", {"ring_window": 1, "wheel_scan": 0,
+                         "ingest_scan": 0}),
+    ("cfg4", "wheel", {"ring_window": 2 * 2, "wheel_scan": 2 * 3,
+                       "ingest_scan": 0})])
 def test_captured_round_equals_its_eager_body(cuda, workload, impl,
                                               launches):
     """Bench's captured round (``serve.round_program``) at a cut width,
@@ -1264,3 +1269,133 @@ def test_a_body_that_reads_the_card_back_fails_to_capture(cuda):
     with pytest.raises(tcp.CaptureError, match=r"probe \('reads', 'back'\)"):
         prog(torch.ones(4, dtype=torch.int64, device=cuda))
     assert tcp.device_failure(tcp.CaptureError("x"))
+
+
+def _scan_rows(rng, r: int, b: int, leaving: bool):
+    """K3 rows: tags near the int64 edges, both sides of the trigger,
+    with ``leaving`` joined tags that leave the set again."""
+    m = np.where(rng.random(r) < 0.25, tk.KEY_INF,
+                 rng.integers(-(1 << 62), 1 << 62, r))
+    m = np.where(rng.random(r) < 0.1, -(1 << 63) + 7, m)
+    end = np.where(rng.random(r) < 0.5, r, np.arange(r)
+                   + rng.integers(0, 7, r)) if leaving else np.full(r, r)
+    rows = np.zeros((7, b), dtype=np.int64)
+    rows[:, :r] = np.stack([m, rng.random(r) < 0.5,
+                            rng.integers(-(1 << 62), 1 << 62, r),
+                            rng.integers(0, 1 << 40, r),
+                            rng.random(r) < 0.8,
+                            rng.integers(0, 1 << 62, r),
+                            np.minimum(end, r)])
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r, b, leaving", [(0, 8, False), (1, 1, False),
+                                           (700, 1024, True),
+                                           (10_000, 10_000, False)])
+def test_ingest_scan_kernel_matches_plain(cuda, r, b, leaving):
+    """K3 (one launch) against its plain version on the first ``r``
+    columns, exactly."""
+    rows = _scan_rows(np.random.default_rng(r), r, b, leaving)
+    before = _ext.LAUNCHES["ingest_scan"]
+    got = tk.ingest_scan(torch.from_numpy(rows).to(cuda),
+                         torch.tensor(r, device=cuda))
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["ingest_scan"] == before + 1
+    want = tk._ingest_scan_torch(torch.from_numpy(rows), torch.tensor(r))
+    assert torch.equal(got.cpu()[:r], want[:r])
+
+
+def _ingest_case(seed: int, n: int = 64, q: int = 8, b: int = 256):
+    """A state of ``n`` slots (a third idle, queues up to 3 deep) and a
+    ``b``-row batch of adds and creates, slots created twice among them,
+    as numpy."""
+    from dmclock_tpu_torch.engine import bridge
+    from dmclock_tpu_torch.engine.state import init_state
+
+    rng = np.random.default_rng(seed)
+    a = bridge.state_to_numpy(init_state(n, q, device="cpu"))
+    a["active"][: n - 8] = True
+    a["idle"][rng.random(n) < 0.33] = True
+    a["weight_inv"][:] = rng.integers(10 ** 6, 10 ** 9, n)
+    a["order"][:] = np.arange(n)
+    a["depth"][: n - 8] = rng.integers(0, 4, n - 8)
+    a["head_prop"][:] = rng.integers(10 ** 10, 10 ** 11, n)
+    depth = a["depth"].astype(np.int64).copy()
+    rows = []
+    for i in range(b):
+        s = int(rng.integers(0, n))
+        if rng.random() < 0.15 or depth[s] >= q:
+            rows.append((tk.OP_CREATE, s, 0, 0, 0, 0, 10 ** 7, 10 ** 8, 0,
+                         1000 + i))
+            depth[s] = 0
+        else:
+            rows.append((tk.OP_ADD, s, 10 ** 11 + i, 1, 1, 2, 0, 0, 0, 0))
+            depth[s] += 1
+    return a, np.asarray(rows, dtype=np.int64).T.copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_ingest_on_the_card_equals_the_cpu(cuda, seed):
+    """The fixed-shape ingest (K3 inside) on the card equals the same
+    pass on the CPU on every field, and reads nothing back."""
+    from dmclock_tpu_torch.engine import bridge
+
+    a, rows = _ingest_case(seed)
+    want = tk.ingest(bridge.state_from_numpy(a, "cpu"),
+                     torch.from_numpy(rows), anticipation_ns=0)
+    st, ops = bridge.state_from_numpy(a, cuda), \
+        torch.from_numpy(rows).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tk.ingest(st, ops, anticipation_ns=0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for f, g, w in zip(got._fields, got, want):
+        assert torch.equal(g.cpu(), w), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps, segments", [(1, 1), (145, 2)])
+def test_queue_ingest_run_is_captured_whole(cuda, steps, segments):
+    """The queue's ``ingest_run`` on the card: one graph holding the
+    ingest, the serial leg's blocks (child graphs) and the packing, or,
+    for a leg of more than a block and a remainder, two segments with
+    the blocks replayed between them; each replay equal to the eager
+    body, with no synchronising operation.  Then ``run`` of 145 steps,
+    whose body opens with the leg (an empty first segment)."""
+    from dmclock_tpu_torch.engine import bridge
+    from dmclock_tpu_torch.engine import queue as TQ
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+
+    a, rows = _ingest_case(4)
+    prog = TQ._shared_jit_ingest_run(steps, False, False, 0)
+    prog.clear_compiled()
+    st, ops = bridge.state_from_numpy(a, cuda), \
+        torch.from_numpy(rows).to(cuda)
+    prog(st, ops, 2 * 10 ** 11)
+    (cap,) = prog.captures()
+    assert cap["segments"] == segments and cap["launches"] == \
+        {"ingest_scan": 1}
+    for i in range(3):
+        with tcp.eager():
+            want = prog.fn(*_clone((st, ops, 2 * 10 ** 11 + i)))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = prog(st, ops, 2 * 10 ** 11 + i)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        _tree_equal(got, want)
+    run = TQ._shared_jit_run(145, False, False, 0)
+    run.clear_compiled()
+    first = run(st, 2 * 10 ** 11)
+    with tcp.eager():
+        want = run.fn(*_clone((st, 2 * 10 ** 11)))
+    _tree_equal(first, want)
+    _tree_equal(run(st, 2 * 10 ** 11), want)
+    assert run.captures()[0]["segments"] == 2
+    tcp.clear_compiled()

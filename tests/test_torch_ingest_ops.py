@@ -1,4 +1,4 @@
-"""The port's ``ingest`` (segmented dense passes), ``ingest_wave``,
+"""The port's ``ingest`` (one fixed-shape dense pass), ``ingest_wave``,
 ``mark_idle`` and ``deactivate`` against the JAX package's, exactly:
 the same numpy state and op rows go to both, and the whole
 ``EngineState`` is compared field by field through the bridge."""
@@ -71,11 +71,10 @@ def _jax_ops(rows):
             jk.IngestOps._fields[2:], start=2)})
 
 
-def _both_ingest(arrays, rows, ant, *, idle_hint=False):
+def _both_ingest(arrays, rows, ant):
     want = jk.ingest(to_jax(arrays), _jax_ops(rows), anticipation_ns=ant)
     got = tk.ingest(to_torch(arrays), tk.IngestOps(*rows),
-                    anticipation_ns=ant,
-                    idle=arrays["idle"] if idle_hint else None)
+                    anticipation_ns=ant)
     return got, want
 
 
@@ -92,14 +91,15 @@ def test_ingest_matches_jax(seed, n, q, b, ant):
     assert (kinds == tk.OP_CREATE).any() and (kinds == tk.OP_NOP).any()
     adds = rows[1][kinds == tk.OP_ADD]
     assert len(set(adds.tolist())) < adds.size, "no repeated slot"
-    got, want = _both_ingest(arrays, rows, ant, idle_hint=seed % 2 == 0)
+    got, want = _both_ingest(arrays, rows, ant)
     assert_state_matches(got, want)
 
 
 @pytest.mark.parametrize("seed", [11, 12, 13])
 def test_ingest_recreated_slots_split_segments(seed):
     """A slot re-created after rows of its own in the same batch starts a
-    new segment; the result still equals the scan."""
+    new segment of the host's count (``ingest_segments``); the one
+    device pass still equals the scan."""
     rng = np.random.default_rng(seed)
     arrays = random_state(seed, 20, 8, max_depth=3)
     rows = _batch(rng, arrays, 120, p_create=0.2, recreate=True)
@@ -138,7 +138,7 @@ def test_ingest_bulk_load_of_new_clients(seed, weightless):
         rows.append((tk.OP_ADD, s, t, 1, 1, 1, 0, 0, 0, 0))
     rows = np.asarray(rows, dtype=np.int64).T
     assert tk.ingest_segments(rows[0], rows[1]) == [(0, rows.shape[1])]
-    got, want = _both_ingest(arrays, rows, 0, idle_hint=True)
+    got, want = _both_ingest(arrays, rows, 0)
     assert_state_matches(got, want)
 
 

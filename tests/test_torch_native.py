@@ -13,6 +13,7 @@ the JAX package's and the port's ``dmclock-delayed`` op for op
 
 import os
 import random
+import time
 
 import pytest
 
@@ -24,7 +25,27 @@ from dmclock_tpu_torch import native as tnative
 from dmclock_tpu_torch.sim import dmc_sim as tdmc
 from dmclock_tpu_torch.sim.config import parse_config_file as tparse
 
-if tnative.load_library() is None or jnative.load_library() is None:
+def _libraries_loaded() -> bool:
+    """Both bindings' libraries.  The port's loader builds under a lock
+    and renames the library into place; the JAX binding's unlocked build
+    may have failed in this process, or its load have met a library
+    another process's build was still writing in place, so once the
+    port's library is in place the JAX binding looks for it again (its
+    kept failure cleared), up to three times two seconds apart."""
+    if tnative.load_library() is None:
+        return False
+    for attempt in range(3):
+        try:
+            if jnative.load_library() is not None:
+                return True
+        except OSError:
+            pass
+        jnative._lib_err = None
+        time.sleep(2)
+    return False
+
+
+if not _libraries_loaded():
     pytest.skip("native dmclock library unavailable (no toolchain)",
                 allow_module_level=True)
 

@@ -5,9 +5,10 @@ caches on the CPU: the pull queue's six (``engine/queue.py`` cache
 ``cluster.mesh_rounds``) and the robust cluster step
 (``robust/cluster.py`` ``cluster.robust_cluster_step``).
 
-Each is a ``compile_plane.StagedJit``: its serial legs are captured
-``kernels.serial_leg`` blocks, its ingest legs run eagerly around them.
-On CPU tensors the legs run their blocks eagerly with the card's
+Each is a ``compile_plane.InstrumentedJit`` captured whole on the card:
+the fixed-shape device ingest, the serial steps (``kernels.serial_leg``
+blocks, nested as child graphs) and the packing or the tracker folds.
+On CPU tensors a program runs its body eagerly with the card's
 signatures and records, so what is held here is what the card must
 keep: every ``PullReq``, decision, state field, view, metric row and
 digest equals the JAX package's exactly, through the programs; the
@@ -254,15 +255,14 @@ def test_queue_sequence_equals_jax(fresh, spec):
     kinds = {k[0] for k in TQ._JIT_CACHE}
     assert kinds == ({"ingest", "run", "ingest_run", "run_stream",
                       "ingest_run_stream"} | ({"run_h"} if spec else set()))
-    assert all(isinstance(p, tcp.StagedJit) and p.cache == "queue"
+    assert all(isinstance(p, tcp.InstrumentedJit) and p.cache == "queue"
                for p in TQ._JIT_CACHE.values())
 
 
 def test_queue_ops_enter_as_one_tensor():
     """The pending rows reach the program as one int64 ``[10, B]``
-    tensor, ``B`` a power of two; the ingest segments the host image
-    that tensor carries (with the idle mirror), equal to the ingest of
-    the rows; a numpy batch cannot enter a program."""
+    tensor, ``B`` a power of two; its ingest equals the ingest of the
+    rows; a numpy batch cannot enter a program."""
     infos = {c: PORT.ClientInfo(0, 1, 0) for c in range(3)}
     q = PORT.make(lambda c: infos[c], capacity=8, ring_capacity=8)
     for c in range(3):
@@ -270,9 +270,8 @@ def test_queue_ops_enter_as_one_tensor():
     rows = q._build_ops()
     assert rows.shape == (10, 8) and rows.dtype == np.int64   # 3 + 3 rows
     assert (rows[0, 6:] == tk.OP_NOP).all()
-    packed = tk.upload_ops(rows, "cpu", idle=q._idle)
-    image, idle = tk._HOST_ROWS.get(packed)
-    assert image is not None and idle is q._idle
+    packed = tk.upload_ops(rows, "cpu")
+    assert packed.dtype == torch.int64 and packed.shape == (10, 8)
     a = tk.ingest(q.state, packed, anticipation_ns=0)
     b = tk.ingest(q.state, tk.IngestOps(*rows), anticipation_ns=0)
     for f in a._fields:
@@ -324,7 +323,7 @@ def test_run_cluster_rounds_equals_jax(port_fresh, kind):
         assert_tree_equal(f"round {t}", a, b)
     _digest_equal(tseq, jseq)
     (prog,) = TCL._ROUNDS_JIT_CACHE.values()
-    assert isinstance(prog, tcp.StagedJit)
+    assert isinstance(prog, tcp.InstrumentedJit) and prog.capture
     assert prog.cache == "cluster.cluster_step"
     assert prog.entry == repr((K, MAX_ARR, 0, False, ADV, (NS,)))
     assert list(_records(port_fresh).values()) == [(1, 0, [])]
@@ -524,3 +523,86 @@ def test_queue_state_never_becomes_a_constant():
     assert sorted(p[2] for p in a[:3]) == [("a", 0), ("a", 1), ("a", 2)]
     assert a[3][0] == "NONE"
     assert b[0][2] == ("b", 2) and b[1][0] == "NONE"
+
+
+# ----------------------------------------------------------------------
+# the queue's ingest programs, captured whole
+# ----------------------------------------------------------------------
+
+INGEST_PROGRAMS = {
+    "ingest": (lambda m: m._shared_jit_ingest(0), ()),
+    "ingest_run": (lambda m: m._shared_jit_ingest_run(5, True, False, 0),
+                   (60 * S,)),
+    "ingest_run_stream": (
+        lambda m: m._shared_jit_ingest_run_stream(3, 2, False, 0),
+        (60 * S, S // 10)),
+}
+
+
+@pytest.mark.parametrize("name", list(INGEST_PROGRAMS))
+def test_queue_ingest_programs_equal_jax(fresh, name):
+    """The queue's three ingest programs (the device ingest, then the
+    serial steps and the packing, one body) on a batch with re-created
+    slots, reactivations and NOP rows, then on a batch twice as wide (a
+    retrace): the state and the packed decisions equal the JAX
+    programs', and so do the records."""
+    from test_torch_ingest_dense import _rows, _state
+
+    make, extra = INGEST_PROGRAMS[name]
+    rng = np.random.default_rng(17)
+    arrays = _state(17, 24, 8, max_depth=3)
+    for b in (32, 64):
+        rows = _rows(rng, arrays, b, p_create=0.2)
+        want = make(JQ)(to_jax(arrays), jnp.asarray(rows), *extra)
+        got = make(TQ)(to_torch(arrays), torch.from_numpy(rows), *extra)
+        if name == "ingest":
+            want, got = (want,), (got,)
+        for f in got[0]._fields:
+            assert_np_equal(f, _np(getattr(got[0], f)),
+                            np.asarray(getattr(want[0], f)))
+        for i in range(1, len(got)):
+            assert_np_equal(f"out {i}", _np(got[i]), np.asarray(want[i]))
+    rec = _records(fresh[1], ("queue",))
+    assert rec == _records(fresh[0], ("queue",))
+    assert [v[:2] for v in rec.values()] == [(2, 1)]
+    (prog,) = TQ._JIT_CACHE.values()
+    assert isinstance(prog, tcp.InstrumentedJit) and prog.capture
+
+
+def test_server_round_reads_nothing_back(monkeypatch):
+    """A cluster server's round builds each wave's op batch on the
+    device and ingests it in one fixed-shape pass: no op that reads a
+    value to the host or sizes a tensor by the data runs in it (K3's
+    plain version, the CPU's stand-in for the kernel, set aside)."""
+    from test_torch_ingest_dense import _Ops
+
+    _, _, _, tc = _clusters("orig")
+    arrivals = torch.from_numpy(_arrivals(3, 1)[0])
+    g_d, g_r = TCL.global_counters(tc.tracker)
+    monkeypatch.setattr(tk, "ingest_scan",
+                        lambda r, c: torch.zeros_like(r[0]))
+    seen = _Ops()
+    with seen:
+        out = TCL.server_round(
+            TCL.shard_view(tc.engine, 1), TCL.shard_view(tc.tracker, 1),
+            TCL.shard_view(tc.now, 1), arrivals[1], torch.from_numpy(COSTS),
+            g_d, g_r, decisions_per_step=K, anticipation_ns=0,
+            allow_limit_break=False, max_arrivals=MAX_ARR)
+    assert int((out[3].type == tk.RETURNING).sum()) > 0
+    banned = {"nonzero", "unique", "_unique2", "masked_select",
+              "_local_scalar_dense", "item", "copy_between_devices"}
+    assert not seen.names & banned, seen.names & banned
+
+
+def test_cluster_programs_capture_on_one_device():
+    """The cluster programs are captured wherever the layout holds one
+    device (several groups on it included) and run eagerly only over
+    several distinct cards (one CUDA graph holds one device)."""
+    cfg = (K, MAX_ARR, 0, False, ADV)
+    for mesh in (TCL.make_mesh(NS, "cpu"),
+                 TCL.make_mesh(NS, devices=("cpu", "cpu"))):
+        assert TCL.captured(mesh)
+        prog = TCL.mesh_step_jit({}, TCL.cluster_step, mesh, cfg)
+        assert isinstance(prog, tcp.InstrumentedJit) and prog.capture
+        rounds = TCL.jit_mesh_rounds(mesh, epochs=1, decisions_per_step=K)
+        assert rounds.program.capture
