@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-cards   # phase 25 (e) alone, several cards
 
 Phases (any failure raises and the exit code is not 0):
 
@@ -303,10 +304,15 @@ Phases (any failure raises and the exit code is not 0):
     and resumed on one group, each crash-equivalent to
     phase 23's bare run; (c) the cut dry run over 8 groups, both
     trackers; (d) the device-sim headline's first 2 slices over 8 groups
-    against one; (e) where two or more cards are visible, (a) and (d)
-    over real cards (the largest of 2, 4 and 8 that fits) with K1 and K2
+    against one; (e) where two or more cards are visible, one group a
+    card (the largest of 2, 4 and 8 that fits): (a)'s rows, their
+    ``mesh.chunk`` legs each a captured graph, ``cluster.cluster_step``
+    against the stacked program call by call (0 syncs a call, walls of
+    both) and (d) op by op and through the program, with K1 and K2
     launched on the last card while ``cuda:0`` is current; with one card
-    it prints that (e) did not run.
+    it prints that (e) did not run.  ``python3 chip_smoke.py
+    --mesh-cards`` runs (e) alone after the build and its stacked
+    references (with one card, a rehearsal over 4 groups of ``cuda:0``).
 26. Migration and the controller over groups, then bench's session and
     the port's two entry scripts: (a) bench's ``mesh_rebalance`` row over
     4 and 2 groups of ``cuda:0`` against phase 24's stacked row; the
@@ -3518,7 +3524,7 @@ def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
 
     # phase 29 (b)'s mesh chunks at the row's shape, held first: the
     # rows below replay their captures
-    hk1, hk2, _ = held_mesh_chunks(ext, serve, "stacked")
+    hk1, hk2, held = held_mesh_chunks(ext, serve, "stacked")
     k1.update(hk1)
     k2.update(hk2)
 
@@ -3662,7 +3668,7 @@ def phase_mesh(ext, card: str, twin_path: str, twins: subprocess.Popen):
         f"twin (digest, metrics, views, clocks)")
     log(f"[time] mesh phase {time.perf_counter() - t_phase:.3f} s")
     return k1, k2, dict(rows=rows, chaos=chaos, first=first, wheel=wheel,
-                        multichip=mc)
+                        multichip=mc, held=held)
 
 
 # ----------------------------------------------------------------------
@@ -4438,6 +4444,61 @@ def _ds_slices(devices, slices: int) -> dict:
     return DS.device_sim_to_numpy(sim)
 
 
+def _ds_program(devices, slices: int, one: dict) -> dict:
+    """The device-sim headline's first ``slices`` slices through the
+    program (``jit_device_sim_step``) over a layout: its first call
+    (the legs' captures) and a replay on a fresh sim, each equal to
+    ``one`` (the one-group op-by-op run) on every field, the replay's
+    synchronising operations exactly its read backs.  Returns the
+    record."""
+    from dmclock_tpu_torch.parallel import cluster as CL
+    from dmclock_tpu_torch.sim import device_sim as DS
+
+    _cfg, sim, spec = DS.headline_setup(DS_N, device=devices[0])
+    mesh = CL.make_mesh(spec.n_servers, devices=devices)
+    sim = DS.shard_device_sim(sim, mesh)
+    step = DS.jit_device_sim_step(spec, slices, devices=mesh.devices)
+    step.program.clear_compiled()
+    what = f"device_sim_program over {len(devices)} groups"
+    ms, syncs, reads = [], [], []
+    for i in range(2):
+        counts = DS.StepCounts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def go():
+            ev[0].record()
+            out = step(_clone_tree(sim), counts=counts)
+            ev[1].record()
+            return out
+
+        if i:
+            out, s = _capture_syncs(go)
+            syncs.append(len(s))
+            if len(s) != counts.read_backs:
+                raise AssertionError(f"{what}: {len(s)} synchronising "
+                                     f"operations for {counts.read_backs} "
+                                     f"read backs")
+        else:
+            out = go()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        reads.append(counts.read_backs)
+        _same_tree_np(DS.device_sim_to_numpy(out), one,
+                      f"{what} call {i + 1}")
+        del out
+    caps = step.program.captures()
+    if len(caps) != len(step.program.legs):
+        raise AssertionError(f"{what}: {len(caps)} captures for "
+                             f"{len(step.program.legs)} legs")
+    return dict(legs=len(caps), graph_nodes={
+        leg.name: caps[j]["graph_nodes"]
+        for j, leg in enumerate(step.program.legs) if leg.group == 0},
+        devices=sorted({c["device"] for c in caps}),
+        compile_ms=sum(c["compile_ms"] for c in caps),
+        ms_first_call=ms[0], ms_replay=ms[1], read_backs=reads,
+        syncs_a_replay=syncs)
+
+
 def _same_tree_np(a: dict, b: dict, what: str, path: str = "") -> None:
     if a.keys() != b.keys():
         raise AssertionError(f"{what}: fields differ at {path}")
@@ -4448,31 +4509,12 @@ def _same_tree_np(a: dict, b: dict, what: str, path: str = "") -> None:
             raise AssertionError(f"{what}: {path}.{k} differs")
 
 
-def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
-                      stacked: dict, sup_ref):
-    """Phase 25: the mesh across devices.  Every grouped leg is held bit
-    for bit against its stacked one-group twin in this run (phases 22
-    and 23 made most of them): (a) bench's mesh row over 8 and 4 groups
-    of ``cuda:0`` at K=1, K=4 and under the fault plan, the first chunk
-    field by field, the wheel chunk; (b) the supervised mesh over 8
-    groups, bare and killed in process at half then resumed on one group; (c)
-    the cut dry run over 8 groups; (d) 2 device-sim headline slices on 8
-    groups and on 1; (e) on two or more cards, (a) and (d) over real
-    cards with K1 and K2 on the last one.  Returns ``(K1 by path, K2 by
-    path)``."""
-    from dmclock_tpu_torch import serve
-    from dmclock_tpu_torch.obs.registry import MetricsRegistry
-    from dmclock_tpu_torch.robust import faults as TF
-    from dmclock_tpu_torch.robust import host_faults as TH
-    from dmclock_tpu_torch.robust import supervisor as TS
-
-    t_phase = time.perf_counter()
-    k1, k2 = {}, {}
-    c = serve.MESH
-    n_shard = c["clients"] // MESH_SHARDS
-    epochs_run = (c["warmup_epochs"] // c["chunk"]
-                  + c["epochs"] // c["chunk"]) * c["chunk"]
-    spec = TF.parse_fault_spec(MESH_FAULT_SPEC)
+def _path_counter(ext, k1: dict, k2: dict):
+    """``counted(path, fn, want_k1, want_k2=0, ingests=False)``: run
+    ``fn`` with the launch counts set to 0 just before and read just
+    after (every card synchronised), hold K1 and K2 to the wants (none
+    with ``want_k1=None``), keep them in ``k1``/``k2`` under ``path``
+    and return ``fn``'s result."""
 
     def counted(path, fn, want_k1, want_k2=0, ingests=False):
         torch.cuda.synchronize()
@@ -4493,30 +4535,211 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
         log(f"[{path}] {secs:.3f} s; kernel launches {got}")
         return res
 
-    def rows_over(devices, tag):
-        legs = (("", dict(counter_sync_every=1), stacked["rows"][1]),
-                ("_k4", dict(counter_sync_every=4), stacked["rows"][4]),
-                ("_chaos", dict(fault_spec=spec), stacked["chaos"]))
-        for suffix, kw, want in legs:
-            path = f"mesh_{tag}{suffix}"
-            row = counted(path, lambda: serve.mesh_row(
-                c["clients"], n_shards=MESH_SHARDS, devices=devices,
-                registry=MetricsRegistry(), **kw),
-                MESH_SHARDS * epochs_run)
-            _row_same(row, want, path)
-            log(f"[{path}] bench's mesh row over {row['n_groups']} groups "
-                f"({', '.join(row['devices'])}) on {card}: "
-                f"{_row_line(row)}; stacked {want['dps']:.1f} decisions/s "
-                f"in this run ({row['dps'] / want['dps']:.4f}x); every "
-                f"other key equal to the stacked row's")
+    return counted
+
+
+def _mesh_rows_over(counted, devices, tag: str, stacked: dict,
+                    card: str) -> None:
+    """Bench's mesh row over the layout ``devices`` at K=1, K=4 and
+    under ``MESH_FAULT_SPEC``, each held to its stacked row in
+    ``stacked`` on every key but the walls and the layout's, with its
+    decisions/s beside the stacked row's."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs.registry import MetricsRegistry
+    from dmclock_tpu_torch.robust import faults as TF
+
+    c = serve.MESH
+    epochs_run = (c["warmup_epochs"] // c["chunk"]
+                  + c["epochs"] // c["chunk"]) * c["chunk"]
+    spec = TF.parse_fault_spec(MESH_FAULT_SPEC)
+    for suffix, kw, want in (
+            ("", dict(counter_sync_every=1), stacked["rows"][1]),
+            ("_k4", dict(counter_sync_every=4), stacked["rows"][4]),
+            ("_chaos", dict(fault_spec=spec), stacked["chaos"])):
+        path = f"mesh_{tag}{suffix}"
+        row = counted(path, lambda: serve.mesh_row(
+            c["clients"], n_shards=MESH_SHARDS, devices=devices,
+            registry=MetricsRegistry(), **kw), MESH_SHARDS * epochs_run)
+        _row_same(row, want, path)
+        log(f"[{path}] bench's mesh row over {row['n_groups']} groups "
+            f"({', '.join(row['devices'])}) on {card}: {_row_line(row)}; "
+            f"stacked {want['dps']:.1f} decisions/s in this run "
+            f"({row['dps'] / want['dps']:.4f}x); every other key equal to "
+            f"the stacked row's")
+
+
+def _cluster_cards(cards) -> dict:
+    """``cluster.cluster_step`` at the cut dry run's shape (``OUTAGE``:
+    8 servers, 32 decisions a step) over ``cards`` and stacked on
+    ``cuda:0``: the first call and 3 chained calls each, every call
+    after the first under the sync debug mode's errors (0 syncs a
+    call), each grouped call equal to the stacked one.  Host walls
+    around work that ends in a synchronisation of every card."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.parallel import cluster as CL
+    from dmclock_tpu_torch.parallel import groups
+
+    o = OUTAGE
+    cfg = (o["decisions_per_step"], 3, 0, False, 50_000_000)
+    rec, outs = {}, {}
+    for name, devs in (("stacked", None), ("cards", cards)):
+        mesh, cl, costs = serve.multichip_cluster(
+            o["n_servers"], o["n_clients"], "orig", "cuda:0", devices=devs)
+        costs = torch.from_numpy(costs).to("cuda:0")
+        arr = torch.full((o["n_servers"], o["n_clients"]), 3,
+                         dtype=torch.int32, device="cuda:0")
+        prog = CL.mesh_step_jit({}, CL.cluster_step, mesh, cfg)
+        walls, outs[name] = [], []
+        for i in range(4):
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            if i:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = prog(cl, arr, costs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            outs[name].append(groups.gather(got, "cpu"))
+            cl = got[0]
+        rec[name] = dict(first_call_ms=walls[0], call_ms=walls[1:])
+        if name == "cards":
+            rec["legs"] = _legs_of(prog, cards, "cluster.cluster_step")
+    for i, (a, b) in enumerate(zip(outs["cards"], outs["stacked"])):
+        _same_leaves(a, b, f"cluster.cluster_step over cards, call {i}")
+    return rec
+
+
+def _legs_of(prog, devices, what: str) -> dict:
+    """A grouped program over ``devices``: one leg a group on the
+    group's device, each leg's every signature a captured graph (none
+    run eagerly).  Returns the legs' count and their captures' nodes."""
+    from dmclock_tpu_torch.obs import compile_plane
+
+    devs = [torch.device(d) for d in devices]
+    if not isinstance(prog, compile_plane.StagedJit) or \
+            [leg.device for leg in prog.legs][:len(devs)] != devs:
+        raise AssertionError(f"{what} over {devices}: not one leg a card")
+    for leg in prog.legs:
+        graphs = list(leg.program._programs.values())
+        if not graphs or any(not hasattr(g, "segments") for g in graphs):
+            raise AssertionError(f"{what} over {devices}: leg "
+                                 f"{leg.name} {leg.group} did not run "
+                                 f"captured")
+    return dict(legs=len(prog.legs), graph_nodes=[
+        c["graph_nodes"] for c in prog.captures()])
+
+
+def phase_mesh_cards(counted, fp, kernels, card: str, stacked: dict,
+                     one: dict, cards, tag: str = "cards") -> None:
+    """Phase 25 (e): the grouped programs over real cards, one group a
+    card.  Bench's mesh row at K=1, K=4 and under the fault plan, each
+    equal to its stacked row with both rates side by side, its
+    ``mesh.chunk`` programs one captured leg a card; the cluster step
+    over the cards against the stacked one (walls of both); the
+    device-sim headline's first slices op by op and through the program
+    over the cards, equal to one group's (``one``); K1 and K2 launched on
+    the last card with ``cuda:0`` current, equal to their plain
+    versions.  ``tag`` names the paths (``<tag><D>``)."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.parallel import mesh as TM
+
+    d = len(cards)
+    tag = f"{tag}{d}"
+    _mesh_rows_over(counted, cards, tag, stacked, card)
+    chunks = [_legs_of(p, cards, "mesh.chunk")
+              for key, p in TM._MESH_CHUNK_JIT_CACHE.items()
+              if key[0].devices == tuple(torch.device(c) for c in cards)]
+    if not chunks:
+        raise AssertionError(f"no mesh.chunk program over {cards}")
+    log(f"[mesh_{tag}] the rows' {len(chunks)} mesh.chunk programs over "
+        f"{', '.join(cards)} ran captured, one leg a group: nodes a leg "
+        f"{[c['graph_nodes'] for c in chunks]}")
+    rec = counted(f"cluster_step_{tag}", lambda: _cluster_cards(cards),
+                  None)
+    log(f"[cluster_step_{tag}] cluster.cluster_step over "
+        f"{', '.join(cards)} on {card}, equal to the stacked program call by call, 0 syncs a "
+        f"call: " + json.dumps(rec))
+    dsc = counted(f"device_sim_{tag}", lambda: _ds_slices(
+        cards, DS_TWIN_SLICES), None)
+    _same_tree_np(dsc, one, f"device_sim_{tag}")
+    rec = counted(f"device_sim_program_{tag}",
+                  lambda: _ds_program(cards, DS_TWIN_SLICES, one), None)
+    ref = _ds_program(("cuda:0",), DS_TWIN_SLICES, one)
+    log(f"[device_sim_program_{tag}] " + json.dumps(rec) + "; one group "
+        f"in this call: first call {ref['ms_first_call']:.3f} ms, a replay "
+        f"{ref['ms_replay']:.3f} ms")
+    n_shard = serve.MESH["clients"] // MESH_SHARDS
+    last = torch.device(cards[-1])
+    with torch.cuda.device(0):
+        ring = torch.randint(-(1 << 50), 1 << 50, (n_shard, 16),
+                             dtype=torch.int64).to(last)
+        q0 = torch.randint(0, 16, (n_shard,), dtype=torch.int32).to(last)
+        ga, _gc = fp.ring_window_rows(ring, ring, q0, 4)
+        keys = torch.randint(-(1 << 60), 1 << 60, (n_shard,),
+                             dtype=torch.int64).to(last)
+        slot = torch.randint(0, 769, (n_shard,), dtype=torch.int32).to(last)
+        got = kernels.wheel_scan(keys, slot, 768)
+        torch.cuda.synchronize(last)
+    if not torch.equal(ga, fp._ring_window_torch(ring, q0, 4)) or \
+            any(not torch.equal(a, b) for a, b in zip(
+                got, kernels._wheel_scan_torch(keys, slot, 768))):
+        raise AssertionError(f"K1/K2 on {last} differ from the plain "
+                             "versions")
+    log(f"[mesh_{tag}] the mesh row, the cluster step and the device sim "
+        f"over {', '.join(cards)} equal the stacked runs, every mesh.chunk "
+        f"and cluster-step leg ran captured, one graph a group a segment, "
+        f"and the device sim's program too; K1 and K2 "
+        f"launched on {last} with cuda:0 current equal their plain "
+        f"versions")
+
+
+def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
+                      stacked: dict, sup_ref):
+    """Phase 25: the mesh across devices.  Every grouped leg is held bit
+    for bit against its stacked one-group twin in this run (phases 22
+    and 23 made most of them): (a) bench's mesh row over 8 and 4 groups
+    of ``cuda:0`` at K=1, K=4 and under the fault plan, the first chunk
+    field by field, the wheel chunk; (b) the supervised mesh over 8
+    groups, bare and killed in process at half then resumed on one group; (c)
+    the cut dry run over 8 groups; (d) 2 device-sim headline slices on 8
+    groups and on 1; (e) on two or more cards, :func:`phase_mesh_cards`.
+    Returns ``(K1 by path, K2 by path)``."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.robust import host_faults as TH
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    t_phase = time.perf_counter()
+    k1, k2 = {}, {}
+    c = serve.MESH
+    n_shard = c["clients"] // MESH_SHARDS
+    counted = _path_counter(ext, k1, k2)
 
     # (a) the mesh row over groups on one card; phase 29 (b)'s mesh
     # chunks over 8 groups held first, so the 8-group rows replay them
-    hk1, hk2, _ = held_mesh_chunks(ext, serve, "groups")
+    hk1, hk2, grecs = held_mesh_chunks(ext, serve, "groups")
     k1.update(hk1)
     k2.update(hk2)
+    for tag, rec in grecs.items():
+        want = stacked["held"][tag.replace("groups", "stacked")]
+        log(f"[mesh_groups_program] {tag} on {card}: {rec['legs']} legs "
+            f"({', '.join(rec['devices'])}), {rec['legs_a_call']} leg "
+            f"replays a call, nodes a leg {rec['graph_nodes'][:2]}, 0 "
+            f"syncs a call; replay "
+            f"{', '.join(f'{x:.3f}' for x in rec['replay_ms'])} ms, its "
+            f"eager body {', '.join(f'{x:.3f}' for x in rec['eager_ms'])}"
+            f" ms, the stacked graph "
+            f"{', '.join(f'{x:.3f}' for x in want['replay_ms'])} ms "
+            f"(nodes {want['graph_nodes']}); first call "
+            f"{rec['lower_ms']:.1f} ms warm-up + {rec['compile_ms']:.1f} ms"
+            f" capture against {want['lower_ms']:.1f} + "
+            f"{want['compile_ms']:.1f} ms")
     for d in GROUP_LAYOUTS:
-        rows_over(("cuda:0",) * d, f"groups{d}")
+        _mesh_rows_over(counted, ("cuda:0",) * d, f"groups{d}", stacked,
+                        card)
     first = counted("mesh_groups_first", lambda: chunk_numpy(
         groups_gather(mesh_chunk_run(
             None, serve.mesh_job(n_shard), MESH_SHARDS, c["chunk"],
@@ -4585,7 +4808,8 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
         f"both trackers equal the stacked run (digests "
         f"{[p['digest'][:16] for p in mc['policies']]})")
 
-    # (d) the device-sim headline's first slices on 8 groups and on 1
+    # (d) the device-sim headline's first slices on 8 groups and on 1,
+    # op by op and through the program
     one = _ds_slices(("cuda:0",), DS_TWIN_SLICES)
     ds8 = counted("device_sim_groups8", lambda: _ds_slices(
         groups8, DS_TWIN_SLICES), None)
@@ -4594,6 +4818,10 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
         f"{DS_TWIN_SLICES} slices over 8 groups equal one group's on "
         f"every field ({int(one['served_resv'].sum() + one['served_prop'].sum())}"
         f" served)")
+    rec = counted("device_sim_program_groups8", lambda: _ds_program(
+        groups8, DS_TWIN_SLICES, one), None)
+    log(f"[device_sim_program_groups8] the program over 8 groups on "
+        f"{card}: " + json.dumps(rec))
 
     # (e) real cards
     count = torch.cuda.device_count()
@@ -4603,33 +4831,8 @@ def phase_mesh_groups(ext, fp, kernels, card: str, tmp: str,
             f"over real cards needs two or more (the legs above ran the "
             f"same grouped code over cuda:0)")
     else:
-        cards = tuple(f"cuda:{i}" for i in range(d_real))
-        rows_over(cards, f"cards{d_real}")
-        dsc = counted(f"device_sim_cards{d_real}", lambda: _ds_slices(
-            cards, DS_TWIN_SLICES), None)
-        _same_tree_np(dsc, one, f"device_sim_cards{d_real}")
-        last = torch.device("cuda", count - 1)
-        with torch.cuda.device(0):
-            ring = torch.randint(-(1 << 50), 1 << 50, (n_shard, 16),
-                                 dtype=torch.int64).to(last)
-            q0 = torch.randint(0, 16, (n_shard,),
-                               dtype=torch.int32).to(last)
-            ga, _gc = fp.ring_window_rows(ring, ring, q0, 4)
-            keys = torch.randint(-(1 << 60), 1 << 60, (n_shard,),
-                                 dtype=torch.int64).to(last)
-            slot = torch.randint(0, 769, (n_shard,),
-                                 dtype=torch.int32).to(last)
-            got = kernels.wheel_scan(keys, slot, 768)
-            torch.cuda.synchronize(last)
-        if not torch.equal(ga, fp._ring_window_torch(ring, q0, 4)) or \
-                any(not torch.equal(a, b) for a, b in zip(
-                    got, kernels._wheel_scan_torch(keys, slot, 768))):
-            raise AssertionError(f"K1/K2 on {last} differ from the plain "
-                                 "versions")
-        log(f"[mesh_cards] {d_real} cards: the mesh row and the device "
-            f"sim over {', '.join(cards)} equal the stacked runs; K1 and "
-            f"K2 launched on {last} with cuda:0 current equal their plain "
-            f"versions")
+        phase_mesh_cards(counted, fp, kernels, card, stacked, one,
+                         tuple(f"cuda:{i}" for i in range(d_real)))
     log(f"[time] mesh across devices phase "
         f"{time.perf_counter() - t_phase:.3f} s")
     return {p: n for p, n in k1.items() if n}, \
@@ -5578,10 +5781,38 @@ def _same_leaves(got, want, what: str) -> None:
             raise AssertionError(f"{what}: leaf {i} {x!r} != {y!r}")
 
 
-def _capture_of(name: str, prog) -> dict:
+def _legs_capture(name: str, prog, replays: int) -> dict:
+    """A grouped program's captures (``compile_plane.StagedJit`` with
+    one leg a group, one capture a leg) as one record: the nodes of
+    each leg, the legs a call (each replayed ``replays`` times), the
+    kernel launches a call, times, segments and bytes summed."""
+    caps = prog.captures()
+    if len(caps) != len(prog.legs):
+        raise AssertionError(f"{name}: {len(caps)} captures for "
+                             f"{len(prog.legs)} legs")
+    launches, mem = {}, {}
+    for c in caps:
+        for k, v in c["launches"].items():
+            launches[k] = launches.get(k, 0) + replays * v
+        for k, v in c["memory_analysis"].items():
+            mem[k] = mem.get(k, 0) + v
+    return dict(graph_nodes=[c["graph_nodes"] for c in caps],
+                legs=len(caps), legs_a_call=replays * len(caps),
+                devices=sorted({c["device"] for c in caps}),
+                launches=launches, segments=sum(c["segments"] for c in caps),
+                child_graphs=sum(c["child_graphs"] for c in caps),
+                lower_ms=sum(c["lower_ms"] for c in caps),
+                compile_ms=sum(c["compile_ms"] for c in caps),
+                memory_analysis=mem)
+
+
+def _capture_of(name: str, prog, replays: int = 1) -> dict:
     """A program's one capture record; a serial program's blocks (each
     replayed ``replays`` times a call) as one record: nodes a block,
-    launches, times and bytes summed."""
+    launches, times and bytes summed; a grouped program's legs
+    (:func:`_legs_capture`, each leg ``replays`` times a call)."""
+    if getattr(prog, "legs", None):
+        return _legs_capture(name, prog, replays)
     caps = prog.captures()
     want = len(getattr(prog, "_parts", ())) or 1
     if len(caps) != want:
@@ -5601,18 +5832,24 @@ def _capture_of(name: str, prog) -> dict:
                 memory_analysis=mem)
 
 
-def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
+def _held_program(ext, name: str, prog, calls, first, next_args,
+                  replays: int = 1) -> dict:
     """``prog`` replayed on ``calls`` (its first call's arguments) and
     then on each call's successor (``next_args(args, out, i)``: the
     chained state, a new ``now``, ``epoch0`` or draws), each replay held
-    bit for bit against the eager body on the same inputs, the kernel
-    launches of the replay and of the eager run counted and held equal.
+    bit for bit against the eager body on the same inputs (a grouped
+    program's body with its legs run eagerly, ``compile_plane.eager``),
+    the kernel launches of the replay and of the eager run counted and
+    held equal.
     The first replay's eager run is the first call's warm-up (``first``:
     its result and launches); the others run the body on a clone of
     their inputs, both timed by CUDA events.  Every replay runs under
     ``set_sync_debug_mode("error")``: a synchronising operation raises.
     Returns the program's capture record and timings."""
-    cap = _capture_of(name, prog)
+    from dmclock_tpu_torch.obs import compile_plane
+
+    cap = _capture_of(name, prog, replays)
+    grouped = bool(getattr(prog, "legs", None))
     donated = getattr(prog, "donate_argnums", ())
     args = calls
     replay_ms, eager_ms = [], []
@@ -5629,7 +5866,11 @@ def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
             torch.cuda.synchronize()
             ext.reset_launches()
             ev[0].record()
-            want = prog.fn(*ref_in)
+            if grouped:
+                with compile_plane.eager():
+                    want = prog.fn(*ref_in)
+            else:
+                want = prog.fn(*ref_in)
             ev[1].record()
             torch.cuda.synchronize()
             eager_n = launched(ext)
@@ -5656,7 +5897,7 @@ def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
         args = next_args(args, got, i)
         del want
     # every call after the first was a replay of the one capture
-    _capture_of(name, prog)
+    _capture_of(name, prog, replays)
     # a donated chain: replays 2 and 3 were handed the buffers replay 1
     # returned, the program's static inputs, so nothing was copied in
     if donated and chained[1] != chained[2]:
@@ -5666,6 +5907,8 @@ def _held_program(ext, name: str, prog, calls, first, next_args) -> dict:
             e["entry"] == prog.entry]
     rec = dict(graph_nodes=cap["graph_nodes"], launches=cap["launches"],
                **({"replays": cap["replays"]} if "replays" in cap else {}),
+               **({k: cap[k] for k in ("legs", "legs_a_call", "devices")}
+                  if grouped else {}),
                lower_ms=cap["lower_ms"], compile_ms=cap["compile_ms"],
                memory_analysis=cap["memory_analysis"],
                compiles=ents[0]["compiles"] if ents else None,
@@ -5710,10 +5953,10 @@ def _program_finisher(ext, k1: dict, k2: dict, recs: dict):
         torch.cuda.synchronize()
         return out, launched(ext)
 
-    def finish(path, name, prog, calls, nxt):
+    def finish(path, name, prog, calls, nxt, replays=1):
         first = first_call(prog, calls)
         warm = first[1]
-        rec = _held_program(ext, name, prog, calls, first, nxt)
+        rec = _held_program(ext, name, prog, calls, first, nxt, replays)
         n1 = warm["ring_window"] + 3 * rec["launches"].get("ring_window", 0)
         n2 = warm["wheel_scan"] + 3 * rec["launches"].get("wheel_scan", 0)
         if n1:
@@ -5923,7 +6166,9 @@ def held_mesh_chunks(ext, serve, layout: str) -> tuple:
     (``layout="stacked"``) or over 8 groups of ``cuda:0``, each held as
     phase 29 (a) holds bench's programs, with the arguments
     ``serve.mesh_row`` passes, so the rows run after this replay these
-    captures.  Returns ``(K1 by path, K2 by path, records)``."""
+    captures.  Over groups the chunk is one leg a group, replayed once a
+    segment (the epochs between two counter sums).  Returns ``(K1 by
+    path, K2 by path, records)``."""
     from dmclock_tpu_torch.parallel import mesh as TM
     from dmclock_tpu_torch.robust import faults as TF
 
@@ -5962,9 +6207,11 @@ def held_mesh_chunks(ext, serve, layout: str) -> tuple:
                     (i + 1) * chunk, draws[j], None, None, out.slo, None,
                     None, fcs[j])
 
+        # a grouped chunk replays each group's leg once a segment
+        segments = chunk // every if not chaos and every > 1 else chunk
         finish(f"programs_mesh_{layout}_{tag}", f"mesh.chunk {layout} {tag}",
                fn, (state, cd, cr, vd, vr, 0, draws[0], None, None, w, None,
-                    None, fcs[0]), nxt)
+                    None, fcs[0]), nxt, segments)
     return k1, k2, recs
 
 
@@ -6041,7 +6288,17 @@ def phase_guarded_programs(serve, ext, card: str) -> tuple:
     return k1, k2, recs
 
 
-def _held_whole(ext, name: str, prog, calls, nxt) -> dict:
+def _whole_capture(name: str, prog, replays: int) -> dict:
+    """The one capture of a program captured whole, or a grouped
+    program's legs as one record (:func:`_legs_capture`)."""
+    if getattr(prog, "legs", None):
+        return _legs_capture(name, prog, replays)
+    (cap,) = prog.captures()
+    return cap
+
+
+def _held_whole(ext, name: str, prog, calls, nxt,
+                replays: int = 1) -> dict:
     """A program captured whole (``compile_plane.InstrumentedJit``) on
     the card: its first call (warm-up and capture; its serial legs'
     blocks child graphs of its graph, or, for a longer leg, replayed
@@ -6054,7 +6311,9 @@ def _held_whole(ext, name: str, prog, calls, nxt) -> dict:
     and held equal to each other and to the capture's; there is no K1 or
     K2, and K3 as often as the body ingests.  Only the first call's and
     the replays' K3 go to :data:`K3_PATHS`.  ``calls``/``nxt`` give
-    ``(args, kwargs)``.  Returns the record, printed."""
+    ``(args, kwargs)``.  A grouped program (one leg a group, each
+    replayed ``replays`` times a call) is held the same way, its legs'
+    captures as one record.  Returns the record, printed."""
     from dmclock_tpu_torch.obs import compile_plane
 
     from torch.utils import _pytree as pytree
@@ -6074,7 +6333,7 @@ def _held_whole(ext, name: str, prog, calls, nxt) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     warm = launched(ext)
-    (cap,) = prog.captures()
+    cap = _whole_capture(name, prog, replays)
     if warm != {k: cap["launches"].get(k, 0) for k in warm}:
         raise AssertionError(f"{name}: the first call launched {warm}, "
                              f"the capture {cap['launches']}")
@@ -6123,9 +6382,11 @@ def _held_whole(ext, name: str, prog, calls, nxt) -> dict:
     if ents and plane0 and ents[0]["compiles"] != plane0[0]["compiles"]:
         raise AssertionError(f"{name}: a later call of the signature "
                              f"compiled again")
-    (cap,) = prog.captures()
+    cap = _whole_capture(name, prog, replays)
     mem = cap.get("memory_analysis", {})
-    rec = dict(graph_nodes=cap["graph_nodes"], segments=cap["segments"],
+    rec = dict(**({k: cap[k] for k in ("legs", "legs_a_call", "devices")}
+                  if "legs" in cap else {}),
+               graph_nodes=cap["graph_nodes"], segments=cap["segments"],
                child_graphs=cap["child_graphs"],
                k3_a_replay=cap["launches"].get("ingest_scan", 0),
                lower_ms=cap["lower_ms"], compile_ms=cap["compile_ms"],
@@ -6204,7 +6465,9 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
     ``ingest_run_stream`` (2 windows of a block and a remainder) on it,
     on the ``queue`` cell's state (phase 17's final state, capacity
     16,384, ring 32); the dry run's ``cluster.cluster_step`` (8 x 10,000,
-    32 decisions a step) and ``cluster.robust_cluster_step`` under the
+    32 decisions a step), stacked and over 8 groups of ``cuda:0`` (one
+    leg a group, equal to the stacked program), and
+    ``cluster.robust_cluster_step`` under the
     dry run's single outage, and ``cluster.mesh_rounds`` at K=1 (1
     round).  Then one server's serial leg at the dry-run shape, 3 calls
     under the sync debug mode's errors against ``engine_run``; last,
@@ -6214,6 +6477,7 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
     from dmclock_tpu_torch.engine import queue as TQ
     from dmclock_tpu_torch.obs import device as obsdev
     from dmclock_tpu_torch.parallel import cluster as CL
+    from dmclock_tpu_torch.parallel import groups
     from dmclock_tpu_torch.robust import cluster as RC
     from dmclock_tpu_torch.robust import faults as TF
 
@@ -6275,6 +6539,29 @@ def phase_serial_programs(serve, ext, card: str, queue_state) -> dict:
     recs["cluster_step"] = _held_whole(
         ext, "cluster.cluster_step", prog, ((cl, arr, costs), {}),
         lambda a, out, i: ((out[0], arr, costs), {}))
+    # the same step over 8 groups of cuda:0: one leg a group, held the
+    # same way, and equal to the stacked program on the same cluster
+    gmesh, gcl, _ = serve.multichip_cluster(
+        o["n_servers"], o["n_clients"], "orig", "cuda",
+        devices=("cuda:0",) * o["n_servers"])
+    gprog = CL.mesh_step_jit(CL._ROUNDS_JIT_CACHE, CL.cluster_step, gmesh,
+                             cfg)
+    grec = recs["cluster_step groups8"] = _held_whole(
+        ext, "cluster.cluster_step groups8", gprog,
+        ((gcl, arr, costs), {}),
+        lambda a, out, i: ((out[0], arr, costs), {}))
+    _same_leaves(groups.gather(gprog(gcl, arr, costs)),
+                 prog(cl, arr, costs), "cluster.cluster_step over 8 "
+                 "groups against the stacked program")
+    srec = recs["cluster_step"]
+    log(f"[programs] cluster.cluster_step over 8 groups on {card}: "
+        f"{grec['legs']} legs, nodes a leg {grec['graph_nodes'][:2]} "
+        f"against {srec['graph_nodes']} in the stacked graph; replay "
+        f"{', '.join(f'{x:.3f}' for x in grec['replay_ms'])} ms against "
+        f"the stacked graph's "
+        f"{', '.join(f'{x:.3f}' for x in srec['replay_ms'])} ms in this "
+        f"call; equal to the stacked program")
+    del gcl, gprog
     plan = TF.single_outage_plan(4, o["n_servers"], server=1, down_from=1,
                                  down_until=3)
     faults = [RC.fault_step_inputs(TF.plan_step(plan, t), mesh)
@@ -6595,6 +6882,60 @@ def phase_lifecycle_programs(ext, card: str) -> dict:
     return recs
 
 
+def main_mesh_cards() -> int:
+    """``chip_smoke.py --mesh-cards``: phase 25 (e) alone, for a machine
+    with several cards: the build, the stacked references on ``cuda:0``
+    (bench's mesh row at K=1, K=4 and under the fault plan, the
+    device-sim headline's first slices), then
+    :func:`phase_mesh_cards` over every visible card (2, 4 or 8 of
+    them).  With one card it rehearses the same code over 4 groups of
+    ``cuda:0``.  Prints the launches by path, the card line and a last
+    line of its own."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.engine import _ext, fastpath, kernels
+    from dmclock_tpu_torch.obs.registry import MetricsRegistry
+    from dmclock_tpu_torch.robust import faults as TF
+
+    t0 = time.perf_counter()
+    card = phase_card()
+    phase_build(_ext)
+    k1, k2 = {}, {}
+    counted = _path_counter(_ext, k1, k2)
+    c = serve.MESH
+    epochs_run = (c["warmup_epochs"] // c["chunk"]
+                  + c["epochs"] // c["chunk"]) * c["chunk"]
+
+    def row(path, **kw):
+        return counted(path, lambda: serve.mesh_row(
+            c["clients"], n_shards=MESH_SHARDS, devices=("cuda:0",),
+            registry=MetricsRegistry(), **kw), MESH_SHARDS * epochs_run)
+
+    stacked = dict(rows={1: row("mesh", counter_sync_every=1),
+                         4: row("mesh_k4", counter_sync_every=4)},
+                   chaos=row("mesh_chaos", fault_spec=TF.parse_fault_spec(
+                       MESH_FAULT_SPEC)))
+    one = _ds_slices(("cuda:0",), DS_TWIN_SLICES)
+    count = torch.cuda.device_count()
+    d = max(x for x in (1, 2, 4, 8) if x <= min(count, 8))
+    if d < 2:
+        log(f"[mesh_cards] {count} CUDA device visible: a rehearsal over 4 "
+            f"groups of cuda:0")
+        phase_mesh_cards(counted, fastpath, kernels, card, stacked, one,
+                         ("cuda:0",) * 4, "rehearsal")
+    else:
+        phase_mesh_cards(counted, fastpath, kernels, card, stacked, one,
+                         tuple(f"cuda:{i}" for i in range(d)))
+    log(f"[time] mesh_cards {time.perf_counter() - t0:.3f} s after its "
+        f"imports")
+    print(json.dumps({"launches_by_path": {"ring_window": k1,
+                                           "wheel_scan": k2}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "mode": "mesh_cards", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": count}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6602,6 +6943,8 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    if sys.argv[1:] == ["--mesh-cards"]:
+        return main_mesh_cards()
     from dmclock_tpu_torch import serve
     from dmclock_tpu_torch.engine import _ext, fastpath, kernels
     from dmclock_tpu_torch.obs import device as obsdev

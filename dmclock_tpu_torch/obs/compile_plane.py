@@ -44,10 +44,12 @@ parts:
   program's graph, or, for a leg of several blocks, its replays run
   between two graph segments of that program (no read back either
   way).  A program whose body holds what no graph can (a host read of
-  a device value) is a :class:`StagedJit`: one entry whose body runs on
-  the host around captured legs (the device sim's step).  Inside :func:`eager`
-  every program runs its body eagerly with no record: the reference a
-  check holds a program against.
+  a device value), or that spans a layout of several groups, is a
+  :class:`StagedJit`: one entry whose body runs on the host around
+  captured legs (the device sim's step; one leg a group of a grouped
+  program, :func:`group_legs`, the steps across groups between them).
+  Inside :func:`eager` every program runs its body eagerly with no
+  record: the reference a check holds a program against.
 - **The cost counter** (:class:`CostCounter`), the port's
   ``cost_analysis``: a ``TorchDispatchMode`` that counts every aten op
   run inside one launch of a row's program, by XLA's rules: a view op
@@ -98,7 +100,8 @@ import time as _walltime
 import warnings
 import weakref
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -1311,9 +1314,8 @@ class InstrumentedJit:
     every replay.  On CPU tensors the program is the body run eagerly.
     ``fn`` is the eager body (the JAX wrapper's ``jitted``).
 
-    ``capture=False`` runs the body eagerly on every device, with the
-    same signatures and records: the caller's choice for a body whose
-    tensors lie on several cards (one CUDA graph holds one device).
+    ``device`` pins the device its tensors lie on (a leg of a grouped
+    program, :func:`group_legs`): a signature on another device raises.
     ``nestable=True`` lets another program's body call this one: the
     first such call (in that program's warm-up) captures it, and inside
     that program's capture a call adds its graph as a child node, so
@@ -1327,12 +1329,12 @@ class InstrumentedJit:
     donated static buffer is taken over at capture, not cloned, so
     passing one leg's result to the next copies nothing."""
 
-    __slots__ = ("fn", "cache", "entry", "donate_argnums", "capture",
+    __slots__ = ("fn", "cache", "entry", "donate_argnums", "device",
                  "record", "share_donated", "nestable", "_argnames",
                  "_programs", "_mtx", "__weakref__")
 
     def __init__(self, fn, *, cache: str, entry: Any,
-                 donate_argnums=(), capture: bool = True,
+                 donate_argnums=(), device=None,
                  record: bool = True, share_donated: bool = False,
                  nestable: bool = False):
         self.fn = fn
@@ -1340,7 +1342,7 @@ class InstrumentedJit:
         self.entry = _entry_str(entry)
         self.donate_argnums = tuple(sorted({int(i) for i in
                                             donate_argnums}))
-        self.capture = bool(capture)
+        self.device = None if device is None else torch.device(device)
         self.record = bool(record)
         self.share_donated = bool(share_donated)
         self.nestable = bool(nestable)
@@ -1387,16 +1389,16 @@ class InstrumentedJit:
     def _first_call(self, leaves, spec, args, kwargs):
         pl = _PLANE
         recorded = pl.enabled and self.record
-        if self.capture:
-            dev = _program_device(leaves)
-        else:
-            dev = next((x.device for x in leaves
-                        if isinstance(x, torch.Tensor)), torch.device("cpu"))
+        dev = _program_device(leaves)
+        if self.device is not None and dev != self.device:
+            raise ValueError(f"program {self.cache} {self.entry}: its "
+                             f"tensors lie on {dev}, its leg on "
+                             f"{self.device}")
         paths = pytree.tree_flatten_with_path((args, kwargs))[0]
         tracer = pl.tracer if recorded else None
         with _span(tracer, f"compile.{self.cache}", "compile"):
             t0 = pl.clock_ns()
-            if dev.type != "cuda" or not self.capture:
+            if dev.type != "cuda":
                 prog = _Eager(self.fn, spec, dev)
                 out = prog.run(leaves)
                 t1 = t2 = pl.clock_ns()
@@ -1432,14 +1434,14 @@ class InstrumentedJit:
         return prog, out
 
 
-def instrumented_jit(fn, *, cache: str, entry: Any, donate_argnums=(),
-                     capture: bool = True) -> InstrumentedJit:
+def instrumented_jit(fn, *, cache: str, entry: Any, donate_argnums=()
+                     ) -> InstrumentedJit:
     """The module-cache building block:
     ``_CACHE[key] = instrumented_jit(fn, cache="stream.chunk",
     entry=key)``, the JAX package's ``instrumented_jit`` for a captured
     program."""
     return InstrumentedJit(fn, cache=cache, entry=entry,
-                           donate_argnums=donate_argnums, capture=capture)
+                           donate_argnums=donate_argnums)
 
 
 # the most graph replays of a serial program that another program's
@@ -1590,16 +1592,68 @@ def _sum_infos(infos: List[dict]) -> Tuple[int, Dict[str, int]]:
     return int(sum(i["compile_ms"] for i in infos) * 1e6), hbm
 
 
+class Leg(NamedTuple):
+    """One leg of a grouped program (:func:`group_legs`): a captured
+    program whose tensors all lie on its group's device.  A call runs
+    with that device current, so its graph captures and replays on the
+    device's current stream (groups that share a device share that
+    stream)."""
+
+    name: str
+    group: int
+    device: torch.device
+    program: "InstrumentedJit"
+
+    def __call__(self, *args, **kwargs):
+        if self.device.type != "cuda":
+            return self.program(*args, **kwargs)
+        with torch.cuda.device(self.device):
+            return self.program(*args, **kwargs)
+
+
+def group_legs(make_body: Callable[[int], Callable], devices, *, name: str,
+               cache: str, entry: Any, donate_argnums=()) -> Tuple[Leg, ...]:
+    """The legs of a program over a layout of ``len(devices)`` groups,
+    one a group: group ``g``'s is ``make_body(g)`` as an
+    :class:`InstrumentedJit` outside the records (its entry
+    ``(name, g) + entry``), pinned to ``devices[g]``, whose donated
+    arguments share buffers with the other legs' (``share_donated``), so
+    a group's carry passes from one leg to the next with no copy.  A
+    bare ``cuda`` is the current card.  Nothing is captured here: the
+    plan is read from the layout alone."""
+    devs = [_indexed(torch.device(d)) for d in devices]
+    return tuple(
+        Leg(name, g, d, InstrumentedJit(
+            make_body(g), cache=cache, entry=(name, g) + tuple(entry),
+            donate_argnums=donate_argnums, device=d, record=False,
+            share_donated=True))
+        for g, d in enumerate(devs))
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its card's index: a bare ``cuda`` is the current
+    card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class StagedJit:
     """A program whose body runs on the host on every call, around legs
-    that are captured programs of their own: the counterpart of a JAX
-    program whose body holds what a CUDA graph cannot (a host read of a
-    device value: the device sim's step, ``sim/device_sim.py``
-    ``jit_device_sim_step``, reads its loop's status between blocks; it
-    is this class's one user).  ``fn`` is the body; its legs are
-    programs outside the records (``record=False``).  Which legs run
-    eagerly is the body's own structure, fixed before any capture; a
-    leg that fails to capture raises :class:`CaptureError`.
+    that are captured programs of their own.  Two kinds of body need it:
+    one that holds what a CUDA graph cannot (a host read of a device
+    value: the device sim's step, ``sim/device_sim.py``
+    ``jit_device_sim_step``, reads its loop's status between blocks),
+    and a program over a layout of several groups (``parallel/mesh.py``
+    ``jit_mesh_chunk``, the three cluster programs of
+    ``parallel/cluster.py``), whose ``legs`` are one
+    :func:`group_legs` program a group: between the legs the body runs
+    the steps that cross groups (the counter sums and the merges) as
+    plain operations and copies, with no read back.  ``fn`` is the body;
+    its legs are programs outside the records (``record=False``).  Which
+    legs there are is fixed before any capture, from the layout and the
+    body's own structure; a leg that fails to capture raises
+    :class:`CaptureError`, and nothing runs eagerly in its place.
 
     It is one cache entry with JAX's records: the first call of an
     argument signature (:class:`InstrumentedJit`'s rules: a numpy leaf
@@ -1608,16 +1662,18 @@ class StagedJit:
     and ``lower_ms`` the rest of its wall; a new signature on the entry
     is a retrace with its diff.  ``record=False`` keeps the program out
     of the records and spans, as a bare ``jax.jit`` is.  On the CPU the
-    legs run their bodies eagerly, block by block."""
+    legs run their bodies eagerly."""
 
-    __slots__ = ("fn", "cache", "entry", "record", "_seen", "_mtx",
+    __slots__ = ("fn", "cache", "entry", "record", "legs", "_seen", "_mtx",
                  "__weakref__")
 
-    def __init__(self, fn, *, cache: str, entry: Any, record: bool = True):
+    def __init__(self, fn, *, cache: str, entry: Any, record: bool = True,
+                 legs=()):
         self.fn = fn
         self.cache = cache
         self.entry = _entry_str(entry)
         self.record = bool(record)
+        self.legs: Tuple[Leg, ...] = tuple(legs)
         self._seen: Dict[tuple, List[dict]] = {}
         self._mtx = threading.RLock()
         _ALL_PROGRAMS.add(self)
@@ -1625,10 +1681,18 @@ class StagedJit:
     def clear_compiled(self) -> None:
         with self._mtx:
             self._seen.clear()
+            for leg in self.legs:
+                leg.program.clear_compiled()
 
     def captures(self) -> List[dict]:
-        """The captures each signature's first call made (its legs'
-        blocks not captured before by another entry)."""
+        """With ``legs``, every leg's captures, each marked with the
+        leg's name, group and device; else the captures each
+        signature's first call made (its legs' blocks not captured
+        before by another entry)."""
+        if self.legs:
+            return [dict(c, leg=leg.name, group=leg.group,
+                         device=str(leg.device))
+                    for leg in self.legs for c in leg.program.captures()]
         with self._mtx:
             return [dict(i) for infos in self._seen.values()
                     for i in infos]

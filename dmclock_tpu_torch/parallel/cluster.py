@@ -33,9 +33,11 @@ op batch is built on the device and ingested in one fixed-shape pass
 ``kernels.serial_leg`` program whose block graph the step's graph holds
 as a child node (one block capture serves every server: the views
 ``x[s]`` share their strides), and the tracker folds and the decisions
-follow inside the graph, with no read back.  On a layout over several
-distinct cards the programs run their bodies eagerly (one CUDA graph
-holds one device).
+follow inside the graph, with no read back.  On a layout of several
+groups (a repeated card included) each program runs one graph a group
+a round (``compile_plane.StagedJit`` over ``compile_plane.group_legs``:
+:func:`group_round`, :func:`round_leg`), with the round's counter sum
+and the merges between the graphs.
 """
 
 from __future__ import annotations
@@ -55,9 +57,8 @@ from . import groups
 from .groups import Grouped, stack_trees, tree_map  # noqa: F401
 from .tracker import (BorrowTrackerState,
                       borrow_tracker_prepare, borrow_tracker_track,
-                      global_counters, global_counters_from,
-                      init_borrow_tracker, init_tracker, tracker_prepare,
-                      tracker_track)
+                      global_counters, init_borrow_tracker,
+                      init_tracker, tracker_prepare, tracker_track)
 
 SERVER_AXIS = "servers"
 
@@ -321,6 +322,40 @@ def server_round(engine: EngineState, tracker, now, arrivals_per_client,
     return engine, tracker, now, decs
 
 
+def group_round(engine: EngineState, tracker, now, arrivals, cost,
+                g_d, g_r, *, decisions_per_step: int, max_arrivals: int,
+                anticipation_ns: int, allow_limit_break: bool,
+                advance_ns: int, with_metrics: bool = False,
+                with_pressure: bool = False) -> tuple:
+    """One group's servers' rounds (stacked ``[per, ...]`` trees on the
+    group's device, ``g_d``/``g_r`` its copy of the round's counter
+    sum): every server's :func:`server_round` from its clock moved by
+    ``advance_ns``, stacked again.  Returns ``(engine, tracker, now,
+    decs)``, then the per-server metrics with ``with_metrics`` and the
+    post-round pressure vectors with ``with_pressure``: a grouped
+    program's leg."""
+    now0 = now + int(advance_ns)
+    outs = [server_round(
+        shard_view(engine, j), shard_view(tracker, j), now0[j],
+        arrivals[j], cost, g_d, g_r, decisions_per_step=decisions_per_step,
+        anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, max_arrivals=max_arrivals,
+        with_metrics=with_metrics) for j in range(groups.leading(now))]
+    res = tuple(stack_trees([o[i] for o in outs])
+                for i in range(5 if with_metrics else 4))
+    if with_pressure:
+        res = res + (group_pressure(res[0], res[2]),)
+    return res
+
+
+def join_groups(parts: list, mesh: MeshLayout):
+    """Per-group results, stacked by ``mesh``'s layout: the one group's
+    own, or a :class:`Grouped` of them."""
+    if parts[0] is None:
+        return None
+    return parts[0] if len(parts) == 1 else Grouped(parts, mesh.devices)
+
+
 def cluster_step(cluster: ClusterState, arrivals, cost,
                  mesh: MeshLayout, *, decisions_per_step: int,
                  max_arrivals: int = 1, anticipation_ns: int = 0,
@@ -339,43 +374,56 @@ def cluster_step(cluster: ClusterState, arrivals, cost,
     ``with_pressure`` adds ``(per_shard int64[S, PRESS_FIELDS],
     merged)``: each server's post-round pressure vector and the cluster
     total (``obs.provenance.pressure_mesh_reduce``).  Decisions are the
-    same with either flag on or off."""
+    same with either flag on or off.
+
+    The round's counter sum is taken before any server runs (the
+    psum); then each group runs its servers (:func:`group_round`), and
+    the merges cross the groups."""
+    body = functools.partial(
+        group_round, decisions_per_step=decisions_per_step,
+        max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, advance_ns=advance_ns,
+        with_metrics=with_metrics, with_pressure=with_pressure)
+    return _cluster_step_over(cluster, arrivals, cost, mesh,
+                              legs=[body] * len(mesh.devices),
+                              with_metrics=with_metrics,
+                              with_pressure=with_pressure)
+
+
+def _cluster_step_over(cluster: ClusterState, arrivals, cost,
+                       mesh: MeshLayout, *, legs, with_metrics: bool = False,
+                       with_pressure: bool = False):
+    """:func:`cluster_step` with ``legs[g]`` running group ``g``'s
+    servers: :func:`group_round` bound to the step's settings and flags,
+    or a grouped program's captured leg (:func:`mesh_step_jit`, no
+    flags)."""
     from ..obs import provenance as obsprov
 
     n = groups.leading(cluster.now)
     if n != mesh.n_shards:
         raise ValueError(f"{n} servers on a {mesh.n_shards}-shard mesh")
     devs = mesh.devices
-    owner = groups.group_of(n, len(devs))
     cluster = on_mesh(cluster, mesh)
     cost = groups.replicate(device_tensor(cost, torch.int64, devs[0]),
                             devs)
     arrivals = shard_inputs(arrivals, torch.int32, mesh)
-    now0 = tree_map(lambda a: a + int(advance_ns), cluster.now)
     # the round's counter sum, before any server runs (the psum)
     g_d, g_r = global_counters(cluster.tracker)
-    outs = [server_round(
-        shard_view(cluster.engine, s), shard_view(cluster.tracker, s),
-        shard_view(now0, s), shard_view(arrivals, s),
-        groups.pick(cost, owner[s]), groups.pick(g_d, owner[s]),
-        groups.pick(g_r, owner[s]),
-        decisions_per_step=decisions_per_step,
-        anticipation_ns=anticipation_ns,
-        allow_limit_break=allow_limit_break, max_arrivals=max_arrivals,
-        with_metrics=with_metrics) for s in range(n)]
-    engine, tracker, now, decs = (restack_shards([o[i] for o in outs],
-                                                 mesh)
-                                  for i in range(4))
-    res = (ClusterState(engine=engine, tracker=tracker, now=now), decs)
+    outs = [leg(*(groups.pick(x, g) for x in (
+        cluster.engine, cluster.tracker, cluster.now, arrivals, cost, g_d,
+        g_r))) for g, leg in enumerate(legs)]
+    res = tuple(join_groups([o[i] for o in outs], mesh)
+                for i in range(len(outs[0])))
+    engine, tracker, now, decs = res[:4]
+    out = (ClusterState(engine=engine, tracker=tracker, now=now), decs)
+    rest = list(res[4:])
     if with_metrics:
-        met = restack_shards([o[4] for o in outs], mesh)
-        res = res + (met, obsdev.metrics_mesh_reduce(met))
+        met = rest.pop(0)
+        out = out + (met, obsdev.metrics_mesh_reduce(met))
     if with_pressure:
-        press = restack_shards([obsprov.pressure_vec(
-            shard_view(engine, s), shard_view(now, s)) for s in range(n)],
-            mesh)
-        res = res + (press, obsprov.pressure_mesh_reduce(press))
-    return res
+        press = rest.pop(0)
+        out = out + (press, obsprov.pressure_mesh_reduce(press))
+    return out
 
 
 def run_cluster_rounds(cluster: ClusterState, arrivals_seq, cost,
@@ -460,6 +508,59 @@ def round_metrics(met, engine: EngineState, decs, **fault_rows):
         ring_hwm=torch.max(engine.depth).to(torch.int64), **fault_rows))
 
 
+def _synced(sync, fresh, held):
+    """The view a round serves from: ``fresh`` on a sync round; ``sync``
+    a Python bool, or a 0-d bool tensor in a captured leg."""
+    if torch.is_tensor(sync):
+        return torch.where(sync, fresh, held)
+    return fresh if sync else held
+
+
+def round_leg(carry, arrivals, cost, glob, sync, *, decisions_per_step: int,
+              max_arrivals: int, anticipation_ns: int,
+              allow_limit_break: bool, advance_ns: int):
+    """One round of one group's servers in a :func:`run_mesh_rounds`
+    launch: ``carry`` a list, one ``(engine, tracker, now, view_d,
+    view_r, metrics)`` a server; ``arrivals`` the group's ``[per, C]``;
+    ``glob`` the sum of every server's completions ``int64[2, C]``
+    (delta, rho) at the round's entry, on the group's device; ``sync``
+    whether the round refreshes the held views.  Returns ``(carry,
+    decs, part)``: the round's decision fields stacked ``[per, k]`` (a
+    plain tuple) and the group's completion partial ``int64[2, C]``
+    after the round.  A grouped program's leg."""
+    # the protocol's counters start at 1
+    g_d, g_r = glob[0] + 1, glob[1] + 1
+    out, decs = [], []
+    for j, (eng, trk, now, vd, vr, met) in enumerate(carry):
+        vd, vr = _synced(sync, g_d, vd), _synced(sync, g_r, vr)
+        eng, trk, now, d = server_round(
+            eng, trk, now + int(advance_ns), arrivals[j], cost, vd, vr,
+            decisions_per_step=decisions_per_step,
+            anticipation_ns=anticipation_ns,
+            allow_limit_break=allow_limit_break, max_arrivals=max_arrivals)
+        out.append((eng, trk, now, vd, vr, round_metrics(met, eng, d)))
+        decs.append(d)
+    return out, tuple(stack_trees(decs)), _completions(
+        [c[1] for c in out])
+
+
+def _completions(trackers: list) -> torch.Tensor:
+    """The summed completion counters ``int64[2, C]`` (delta, rho) of a
+    group's per-server trackers."""
+    return torch.stack([
+        torch.stack([t.completed_delta for t in trackers]).sum(dim=0),
+        torch.stack([t.completed_rho for t in trackers]).sum(dim=0)])
+
+
+def group_pressure(engine: EngineState, now) -> torch.Tensor:
+    """The pressure vectors ``int64[per, PRESS_FIELDS]`` of one group's
+    servers (stacked ``engine`` and ``now``)."""
+    from ..obs import provenance as obsprov
+
+    return torch.stack([obsprov.pressure_vec(shard_view(engine, j), now[j])
+                        for j in range(groups.leading(now))])
+
+
 def run_mesh_rounds(cluster: ClusterState, arrivals_seq, cost,
                     mesh: MeshLayout, *, decisions_per_step: int,
                     max_arrivals: int = 1, anticipation_ns: int = 0,
@@ -484,9 +585,31 @@ def run_mesh_rounds(cluster: ClusterState, arrivals_seq, cost,
     adds the merged metrics vector; ``with_pressure`` the post-run
     per-shard pressure vectors and their merged total.
 
-    Rounds are the outer loop and servers the inner one: the counter
-    sum of round t is taken from every server's counters at the
-    round's entry."""
+    Rounds are the outer loop: the counter sum of round t is taken from
+    every server's counters at the round's entry, within each group and
+    then between the groups; then each group runs its servers' round
+    (:func:`round_leg`)."""
+    body = functools.partial(
+        round_leg, decisions_per_step=decisions_per_step,
+        max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, advance_ns=advance_ns)
+    return _mesh_rounds_over(
+        cluster, arrivals_seq, cost, mesh, legs=[body] * len(mesh.devices),
+        pressure_legs=[group_pressure] * len(mesh.devices),
+        counter_sync_every=counter_sync_every, round0=round0,
+        view_delta=view_delta, view_rho=view_rho, metrics=metrics,
+        with_merged=with_merged, with_pressure=with_pressure)
+
+
+def _mesh_rounds_over(cluster: ClusterState, arrivals_seq, cost,
+                      mesh: MeshLayout, *, legs, pressure_legs,
+                      counter_sync_every: int, round0: int, view_delta,
+                      view_rho, metrics, with_merged: bool,
+                      with_pressure: bool) -> MeshRounds:
+    """:func:`run_mesh_rounds` with ``legs[g]`` running group ``g``'s
+    round (:func:`round_leg` bound to the settings, or a grouped
+    program's captured leg) and ``pressure_legs[g]`` its
+    :func:`group_pressure`."""
     from ..obs import provenance as obsprov
 
     devs = mesh.devices
@@ -495,7 +618,7 @@ def run_mesh_rounds(cluster: ClusterState, arrivals_seq, cost,
     epochs = int(arrivals_seq.shape[0])
     n_servers = groups.leading(cluster.now)
     n_clients = arrivals_seq.shape[2]
-    owner = groups.group_of(n_servers, len(devs))
+    per = groups.check_split(n_servers, len(devs))
     # [S, E, C]: each shard's rounds on its group's device
     arrivals_s = on_mesh(arrivals_seq.transpose(0, 1), mesh)
     cost = groups.replicate(device_tensor(cost, torch.int64, dev), devs)
@@ -508,44 +631,38 @@ def run_mesh_rounds(cluster: ClusterState, arrivals_seq, cost,
                               dtype=torch.int64, device=dev)
     cluster, view_delta, view_rho, metrics = (
         on_mesh(x, mesh) for x in (cluster, view_delta, view_rho, metrics))
-    eng = [shard_view(cluster.engine, s) for s in range(n_servers)]
-    trk = [shard_view(cluster.tracker, s) for s in range(n_servers)]
-    now = [shard_view(cluster.now, s) for s in range(n_servers)]
-    vd = [shard_view(view_delta, s) for s in range(n_servers)]
-    vr = [shard_view(view_rho, s) for s in range(n_servers)]
-    met = [shard_view(metrics, s) for s in range(n_servers)]
-    arr = [shard_view(arrivals_s, s) for s in range(n_servers)]
-    decs = [[] for _ in range(n_servers)]
+    carries, parts = [], []
+    for g in range(len(devs)):
+        mine = [groups.pick(x, g) for x in (
+            cluster.engine, cluster.tracker, cluster.now, view_delta,
+            view_rho, metrics)]
+        carries.append([tuple(groups.view(x, j) for x in mine)
+                        for j in range(per)])
+        parts.append(torch.stack([mine[1].completed_delta.sum(dim=0),
+                                  mine[1].completed_rho.sum(dim=0)]))
+    decs = [[] for _ in devs]
     for t in range(epochs):
-        g_d, g_r = global_counters_from(
-            restack_shards([x.completed_delta for x in trk], mesh),
-            restack_shards([x.completed_rho for x in trk], mesh))
-        for s in range(n_servers):
-            g = owner[s]
-            if sync_mask[t]:
-                vd[s], vr[s] = groups.pick(g_d, g), groups.pick(g_r, g)
-            eng[s], trk[s], now[s], d = server_round(
-                eng[s], trk[s], now[s] + int(advance_ns),
-                arr[s][t], groups.pick(cost, g), vd[s], vr[s],
-                decisions_per_step=decisions_per_step,
-                anticipation_ns=anticipation_ns,
-                allow_limit_break=allow_limit_break,
-                max_arrivals=max_arrivals)
-            met[s] = round_metrics(met[s], eng[s], d)
-            decs[s].append(d)
-    met_s = restack_shards(met, mesh)
+        glob = groups.sum_parts(parts, devs)
+        for g, leg in enumerate(legs):
+            carries[g], d, parts[g] = leg(
+                carries[g], groups.pick(arrivals_s, g)[:, t],
+                groups.pick(cost, g), glob[g], bool(sync_mask[t]))
+            decs[g].append(d)
+    eng, trk, now, vd, vr, met_s = (
+        join_groups([stack_trees([c[i] for c in carry])
+                     for carry in carries], mesh) for i in range(6))
     res = MeshRounds(
-        cluster=ClusterState(engine=restack_shards(eng, mesh),
-                             tracker=restack_shards(trk, mesh),
-                             now=restack_shards(now, mesh)),
-        view_delta=restack_shards(vd, mesh),
-        view_rho=restack_shards(vr, mesh), metrics=met_s,
-        decs=restack_shards([stack_trees(ds) for ds in decs], mesh))
+        cluster=ClusterState(engine=eng, tracker=trk, now=now),
+        view_delta=vd, view_rho=vr, metrics=met_s,
+        decs=join_groups([kernels.Decision(*(
+            torch.stack(col, dim=1) for col in zip(*ds))) for ds in decs],
+            mesh))
     if with_merged:
         res = res._replace(merged=obsdev.metrics_mesh_reduce(met_s))
     if with_pressure:
-        press = restack_shards([obsprov.pressure_vec(eng[s], now[s])
-                                for s in range(n_servers)], mesh)
+        press = join_groups([pressure_legs[g](groups.pick(eng, g),
+                                              groups.pick(now, g))
+                             for g in range(len(devs))], mesh)
         res = res._replace(pressure=press,
                            pressure_merged=obsprov.pressure_mesh_reduce(
                                press))
@@ -617,12 +734,6 @@ def program_input(x, mesh: MeshLayout):
     return x.to(mesh.device) if torch.is_tensor(x) else x
 
 
-def captured(mesh: MeshLayout) -> bool:
-    """Whether a program over ``mesh`` is captured: one CUDA graph holds
-    one device, so a layout over several distinct cards runs eagerly."""
-    return len(set(mesh.devices)) == 1
-
-
 def mesh_cache_key(mesh: MeshLayout, cfg: tuple) -> tuple:
     """The key of every mesh-program cache (:func:`mesh_step_jit`,
     :func:`jit_mesh_rounds`): the layout (its shard count and group
@@ -637,20 +748,49 @@ def mesh_step_jit(cache: dict, step_fn, mesh: MeshLayout, cfg: tuple,
     allow_limit_break, advance_ns), cached in ``cache`` per
     :func:`mesh_cache_key`: cache ``cluster.<step_fn.__name__>``, entry
     ``cfg + (mesh_shape,)`` as in JAX.  ``record=False`` keeps it out of
-    the plane's records (a bare ``jax.jit``)."""
+    the plane's records (a bare ``jax.jit``).
+
+    On a one-group layout the step is one CUDA graph
+    (``compile_plane.InstrumentedJit``).  On D >= 2 groups it is a
+    ``compile_plane.StagedJit`` whose body is the step's grouped form
+    (:data:`GROUPED_STEPS`): for each ``(kwarg, body)`` of its leg
+    bodies one leg a group (``compile_plane.group_legs``, cache
+    ``<cache>.leg``) of ``body`` bound to ``cfg``, passed as ``kwarg``;
+    the step's counter sum and merges run between the legs.  Read from
+    the layout before any capture."""
     key = mesh_cache_key(mesh, cfg)
     if key not in cache:
         (decisions_per_step, max_arrivals, anticipation_ns,
          allow_limit_break, advance_ns) = cfg
-        cache[key] = compile_plane.InstrumentedJit(
-            functools.partial(
-                step_fn, mesh=mesh, decisions_per_step=decisions_per_step,
-                max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
-                allow_limit_break=allow_limit_break, advance_ns=advance_ns),
-            cache=f"cluster.{getattr(step_fn, '__name__', 'step')}",
-            entry=tuple(cfg) + (mesh_shape(mesh),), record=record,
-            capture=captured(mesh))
+        static = dict(decisions_per_step=decisions_per_step,
+                      max_arrivals=max_arrivals,
+                      anticipation_ns=anticipation_ns,
+                      allow_limit_break=allow_limit_break,
+                      advance_ns=advance_ns)
+        name = f"cluster.{getattr(step_fn, '__name__', 'step')}"
+        entry = tuple(cfg) + (mesh_shape(mesh),)
+        if not mesh.grouped:
+            cache[key] = compile_plane.InstrumentedJit(
+                functools.partial(step_fn, mesh=mesh, **static),
+                cache=name, entry=entry, record=record)
+        else:
+            over, leg_bodies = GROUPED_STEPS[step_fn]
+            legs = {kw: compile_plane.group_legs(
+                lambda g, fn=fn: functools.partial(fn, **static),
+                mesh.devices, name=kw, cache=f"{name}.leg", entry=entry)
+                for kw, fn in leg_bodies}
+            cache[key] = compile_plane.StagedJit(
+                functools.partial(over, mesh=mesh, **legs), cache=name,
+                entry=entry, record=record,
+                legs=[leg for kw in legs for leg in legs[kw]])
     return cache[key]
+
+
+# each step function's grouped form for mesh_step_jit: the body that
+# runs the step over per-group legs, and the leg bodies it takes, by
+# keyword (``robust.cluster`` adds ``robust_cluster_step``'s)
+GROUPED_STEPS: dict = {
+    cluster_step: (_cluster_step_over, (("legs", group_round),))}
 
 
 def bare_step_jit(mesh: MeshLayout, cfg: tuple):
@@ -683,24 +823,43 @@ def jit_mesh_rounds(mesh: MeshLayout, *, epochs: int,
            int(round0) % every, with_merged, with_pressure)
     key = mesh_cache_key(mesh, cfg)
     if key not in _MESH_ROUNDS_JIT_CACHE:
-        def run(cluster, arrivals_seq, cost, view_d, view_r, met):
+        static = dict(decisions_per_step=decisions_per_step,
+                      max_arrivals=max_arrivals,
+                      anticipation_ns=anticipation_ns,
+                      allow_limit_break=allow_limit_break,
+                      advance_ns=advance_ns)
+
+        def run(legs, pressure_legs, cluster, arrivals_seq, cost, view_d,
+                view_r, met):
             if int(np.shape(arrivals_seq)[0]) != epochs:
                 raise ValueError(f"{np.shape(arrivals_seq)[0]} rounds of "
                                  f"arrivals for a {epochs}-round program")
-            return run_mesh_rounds(
-                cluster, arrivals_seq, cost, mesh,
-                decisions_per_step=decisions_per_step,
-                max_arrivals=max_arrivals,
-                anticipation_ns=anticipation_ns,
-                allow_limit_break=allow_limit_break,
-                advance_ns=advance_ns,
+            return _mesh_rounds_over(
+                cluster, arrivals_seq, cost, mesh, legs=legs,
+                pressure_legs=pressure_legs,
                 counter_sync_every=counter_sync_every, round0=round0,
                 view_delta=view_d, view_rho=view_r, metrics=met,
                 with_merged=with_merged, with_pressure=with_pressure)
 
-        prog = compile_plane.InstrumentedJit(
-            run, cache="cluster.mesh_rounds",
-            entry=cfg + (mesh_shape(mesh),), capture=captured(mesh))
+        entry = cfg + (mesh_shape(mesh),)
+        if not mesh.grouped:
+            prog = compile_plane.InstrumentedJit(
+                functools.partial(run, [functools.partial(round_leg,
+                                                          **static)],
+                                  [group_pressure]),
+                cache="cluster.mesh_rounds", entry=entry)
+        else:
+            legs = compile_plane.group_legs(
+                lambda g: functools.partial(round_leg, **static),
+                mesh.devices, name="round", cache="cluster.mesh_rounds.leg",
+                entry=entry, donate_argnums=(0,))
+            plegs = compile_plane.group_legs(
+                lambda g: group_pressure, mesh.devices, name="pressure",
+                cache="cluster.mesh_rounds.leg", entry=entry) \
+                if with_pressure else ()
+            prog = compile_plane.StagedJit(
+                functools.partial(run, legs, plegs),
+                cache="cluster.mesh_rounds", entry=entry, legs=legs + plegs)
 
         def call(cluster, arrivals_seq, cost, view_d, view_r, met):
             return prog(cluster, program_input(arrivals_seq, mesh),

@@ -357,6 +357,18 @@ def reduce(x, axis_fn: Callable, combine_fn: Callable) -> torch.Tensor:
     return acc
 
 
+def sum_parts(partials: list, devices: Sequence) -> list:
+    """Per-group partials (group ``g``'s a tensor tree on ``devices[g]``)
+    summed over the groups on the first device in group order, and one
+    copy of the sum handed to each group on its device: the ``psum``
+    between the legs of a grouped program.  One group keeps its own."""
+    if len(partials) == 1:
+        return list(partials)
+    return list(replicate(reduce(Grouped(partials, devices), lambda a: a,
+                                 lambda a, b: tree_map(torch.add, a, b)),
+                          devices))
+
+
 class Replicated(tuple):
     """One copy of a value a group, copy ``g`` on group ``g``'s device:
     what a collective (the JAX package's ``psum``) hands every shard.
@@ -384,6 +396,9 @@ def replicate(value, devices: Sequence) -> Replicated:
 
 
 def pick(value, g: int):
-    """Group ``g``'s copy of a :class:`Replicated` value; any other
-    value is the same for every group."""
-    return value[g] if isinstance(value, Replicated) else value
+    """Group ``g``'s share of a value: its copy of a :class:`Replicated`
+    value, its block of a :class:`Grouped` tree; any other value (a
+    stacked tree among them) is the same for every group."""
+    if isinstance(value, Replicated):
+        return value[g]
+    return value.parts[g] if isinstance(value, Grouped) else value

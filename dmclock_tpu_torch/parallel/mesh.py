@@ -28,8 +28,7 @@ over ``s`` on contiguous views ``x[s]``.  On a layout of D groups
 input and output is grouped: shard ``s`` runs on its group's device,
 so the D devices run concurrently behind the one launching thread, and
 the counter sum reduces within each group and then between the groups
-(``parallel.tracker.global_counters_from``), each group reading its
-own copy.  Epochs are the outer loop and shards the inner one: the
+(``parallel.groups.sum_parts``), each group reading its own copy.  The
 counter sum of an epoch (or of a group head under
 ``collective_skipping``) is taken from every shard's counters as they
 stood before any shard ran it.  Every shard runs on its device's
@@ -45,13 +44,14 @@ checkpoint interval through them (``EpochJob(engine_loop="mesh")``).
 
 A chunk runs as a captured program of the module cache
 :func:`jit_mesh_chunk` (cache ``mesh.chunk``, the JAX package's key):
-one CUDA graph on a layout whose groups all lie on one card.  A layout
-over several distinct cards runs the chunk eagerly on them (one graph
-holds one device; ROADMAP.md section 3).
+one CUDA graph on a one-group layout; on a layout of several groups,
+one graph a group a segment (the epochs between two counter sums), the
+sums between the graphs (ROADMAP.md section 3).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -65,10 +65,9 @@ from ..obs import device as obsdev
 from ..obs import slo as obsslo
 from . import groups
 from .cluster import (SERVER_AXIS, MeshLayout, broadcast_tree,  # noqa: F401
-                      gather_shards, make_mesh, mesh_shape, on_mesh,
-                      place_shards, restack_shards, shard_view,
+                      gather_shards, join_groups, make_mesh, mesh_shape,
+                      on_mesh, place_shards, restack_shards, shard_view,
                       stack_trees, tree_map)
-from .tracker import global_counters_from
 
 
 class MeshChunk(NamedTuple):
@@ -219,107 +218,127 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
     probe (``outs["pressure"]``).  As in the stream chunk, the JAX
     package's ``wheel_kernel`` and ``with_flight`` knobs have no
     counterpart: the device picks kernel K2's route, and a flight ring
-    rides along whenever one is passed."""
-    if engine not in fastpath.EPOCH_ENGINES:
-        raise ValueError(f"unknown epoch engine {engine!r}")
-    epochs = int(epochs)
-    if epochs < 1:
-        raise ValueError("a mesh chunk needs at least one epoch")
-    kw = fastpath.epoch_scan_kwargs(
-        engine, k=k, chain_depth=chain_depth, select_impl=select_impl,
-        tag_width=tag_width, window_m=window_m,
-        calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+    rides along whenever one is passed.  The chunk's ``plan`` (its
+    segments and its legs' body) is an attribute of the function."""
+    plan = _ChunkPlan(
+        mesh, engine=engine, epochs=epochs, m=m, k=k,
+        chain_depth=chain_depth, dt_epoch_ns=dt_epoch_ns, waves=waves,
         anticipation_ns=anticipation_ns,
-        allow_limit_break=allow_limit_break, with_metrics=with_metrics)
-    dt = int(dt_epoch_ns)
-    every = max(int(counter_sync_every), 1)
-    if collective_skipping is None:
-        collective_skipping = (not with_faults and every > 1
-                               and epochs % every == 0)
-    if collective_skipping and with_faults:
-        raise ValueError("collective skipping needs the fault-free chunk "
-                         "(a mid-group restart must re-sync from a fresh "
-                         "sum)")
-    if collective_skipping and epochs % every:
-        raise ValueError(f"collective skipping needs epochs ({epochs}) "
-                         f"divisible by counter_sync_every ({every})")
-    epoch_step = stream_mod.make_epoch_step(
-        engine=engine, m=m, kw=kw, dt_epoch_ns=dt, waves=waves,
-        ingest=ingest, with_pressure=with_pressure)
+        allow_limit_break=allow_limit_break, with_metrics=with_metrics,
+        select_impl=select_impl, tag_width=tag_width, window_m=window_m,
+        calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+        counter_sync_every=counter_sync_every,
+        collective_skipping=collective_skipping, ingest=ingest,
+        with_faults=with_faults, with_pressure=with_pressure)
+    chunk = functools.partial(plan.run, [plan.leg] * mesh.n_groups)
+    chunk.plan = plan
+    return chunk
 
-    devs = mesh.devices
 
-    def chunk(state, cd, cr, vd, vr, epoch0, counts=None, hists=None,
-              ledger=None, slo=None, prov=None, flight=None,
-              faults=None) -> MeshChunk:
-        n_shards = groups.leading(cd)
-        if n_shards != mesh.n_shards:
-            raise ValueError(f"{n_shards} shards on a {mesh.n_shards}-"
-                             "shard mesh")
-        if slo is None:
-            raise ValueError("a mesh chunk needs the SLO window block "
-                             "(the counter plane folds its columns)")
-        if ingest and counts is None:
-            raise ValueError("ingest=True needs raw counts")
-        owner = groups.group_of(n_shards, len(devs))
-        state, cd, cr, vd, vr, hists, ledger, slo, prov, flight = (
-            on_mesh(x, mesh) for x in (state, cd, cr, vd, vr, hists,
-                                       ledger, slo, prov, flight))
-        # each group's epoch0 on its device
-        e0s = [as_scalar(epoch0, d) for d in devs]
-        if with_faults:
-            if faults is None:
-                raise ValueError("with_faults=True needs the FaultChunk "
-                                 "arrays")
-            f_up, f_skew, f_delay, f_dup, f_prev = fault_inputs(faults,
-                                                                mesh)
-            f_up, f_skew, f_delay, f_dup = (
-                [shard_view(a, s) for s in range(n_shards)]
-                for a in (f_up, f_skew, f_delay, f_dup))
-            up_prev = [shard_view(f_prev, s) for s in range(n_shards)]
-        if ingest:
-            counts = on_mesh(torch.as_tensor(counts).to(devs[0])
-                             if not groups.is_grouped(counts) else counts,
-                             mesh)
-            counts = [shard_view(counts, s) for s in range(n_shards)]
-        st = [shard_view(state, s) for s in range(n_shards)]
-        acc = [[shard_view(x, s) for x in (hists, ledger, flight, slo,
-                                           prov)]
-               for s in range(n_shards)]
-        cds = [shard_view(cd, s) for s in range(n_shards)]
-        crs = [shard_view(cr, s) for s in range(n_shards)]
-        vds = [shard_view(vd, s) for s in range(n_shards)]
-        vrs = [shard_view(vr, s) for s in range(n_shards)]
-        per_epoch = [[] for _ in range(n_shards)]
-        for i in range(epochs):
-            if not collective_skipping or i % every == 0:
-                # the batched delta/rho exchange: every shard's counters
-                # as they stood before any shard ran this epoch (under
-                # collective skipping, once per group head); on a
-                # grouped layout each group gets its own copy
-                g_d, g_r = global_counters_from(
-                    restack_shards(cds, mesh), restack_shards(crs, mesh))
-            syncs = [torch.remainder(e + i, every) == 0 for e in e0s]
-            for s in range(n_shards):
-                g = owner[s]
-                dev = devs[g]
-                sync = syncs[g]
-                h, l, f, w, p = acc[s]
+class _ChunkPlan:
+    """One configuration of the mesh chunk, cut into segments: the
+    epochs between two counter sums (every epoch of the flat chunk and
+    of the chaos chunk, whose restarts re-sync from a fresh sum; each
+    sync group of K epochs under collective skipping).  :meth:`leg` runs
+    one group's shards through one segment; :meth:`run` takes the sums
+    between the segments and runs every group's leg in each.  Within a
+    segment the shards are independent, so running them group by group
+    equals the epochs-outer, shards-inner order bit for bit.
+
+    Epochs are the outer loop of a segment and shards the inner one: the
+    counter sum of a segment is taken from every shard's counters as
+    they stood before any shard ran it, within each group and then
+    between the groups (``parallel.groups.sum_parts``), each group
+    reading its own copy.  Every shard runs on its device's current
+    stream: kernel K2 merges through one workspace per device
+    (``engine/kernels.py``), so shards on separate streams of one device
+    would race."""
+
+    def __init__(self, mesh: MeshLayout, *, engine: str, epochs: int,
+                 m: int, k: int, chain_depth: int, dt_epoch_ns: int,
+                 waves: int, anticipation_ns: int, allow_limit_break: bool,
+                 with_metrics: bool, select_impl: str, tag_width: int,
+                 window_m: Optional[int], calendar_impl: str,
+                 ladder_levels: int, counter_sync_every: int,
+                 collective_skipping: Optional[bool], ingest: bool,
+                 with_faults: bool, with_pressure: bool):
+        if engine not in fastpath.EPOCH_ENGINES:
+            raise ValueError(f"unknown epoch engine {engine!r}")
+        epochs = int(epochs)
+        if epochs < 1:
+            raise ValueError("a mesh chunk needs at least one epoch")
+        kw = fastpath.epoch_scan_kwargs(
+            engine, k=k, chain_depth=chain_depth, select_impl=select_impl,
+            tag_width=tag_width, window_m=window_m,
+            calendar_impl=calendar_impl, ladder_levels=ladder_levels,
+            anticipation_ns=anticipation_ns,
+            allow_limit_break=allow_limit_break, with_metrics=with_metrics)
+        every = max(int(counter_sync_every), 1)
+        if collective_skipping is None:
+            collective_skipping = (not with_faults and every > 1
+                                   and epochs % every == 0)
+        if collective_skipping and with_faults:
+            raise ValueError("collective skipping needs the fault-free "
+                             "chunk (a mid-group restart must re-sync from "
+                             "a fresh sum)")
+        if collective_skipping and epochs % every:
+            raise ValueError(f"collective skipping needs epochs ({epochs}) "
+                             f"divisible by counter_sync_every ({every})")
+        self.mesh = mesh
+        self.epochs = epochs
+        self.every = every
+        # epochs a segment: the sync group, or one
+        self.span = every if collective_skipping else 1
+        self.dt = int(dt_epoch_ns)
+        self.ingest = bool(ingest)
+        self.with_faults = bool(with_faults)
+        self.epoch_step = stream_mod.make_epoch_step(
+            engine=engine, m=m, kw=kw, dt_epoch_ns=self.dt, waves=waves,
+            ingest=ingest, with_pressure=with_pressure)
+        # the order of the per-epoch output fields (a leg returns their
+        # values, so no output is taken for a donated input by its name)
+        self.out_names: list = []
+
+    def leg(self, carry, counts, faults, e0, i, glob):
+        """One group's shards through the segment of ``span`` epochs
+        starting at chunk epoch ``i`` (an int, or a 0-d tensor in a
+        captured leg).  ``carry`` is a list, one tuple a shard: ``(state,
+        cd, cr, view_d, view_r, hists, ledger, flight, slo, prov,
+        up_prev)`` (``up_prev`` None without faults); ``counts`` the
+        group's ``[per, span, N]`` draws (or None), ``faults`` its
+        ``(up, skew_ns, delay_counters, dup_completions)`` ``[per,
+        span]`` (or None), ``e0`` the chunk's first epoch, ``glob`` the
+        sum of every shard's counters ``int64[2, N]`` (delta, rho) at
+        the segment's start, on the group's device.  Returns ``(carry,
+        outs, part)``: ``outs`` the per-epoch fields' values stacked
+        ``[per, span, ...]`` in :attr:`out_names` order, ``part`` the
+        group's counter partial ``int64[2, N]`` after the segment."""
+        every, dt = self.every, self.dt
+        with_faults = self.with_faults
+        # the protocol's counters start at 1
+        g_d, g_r = glob[0] + 1, glob[1] + 1
+        e0 = as_scalar(e0, glob.device)
+        carry = [list(c) for c in carry]
+        per_epoch = [[] for _ in carry]
+        for kk in range(self.span):
+            e = e0 + i + kk
+            sync = torch.remainder(e, every) == 0
+            for j, c in enumerate(carry):
+                st, cd, cr, vd, vr, h, l, f, w, p, up_prev = c
                 if with_faults:
-                    up, skew = f_up[s][i], f_skew[s][i]
-                    delay, dup = f_delay[s][i], f_dup[s][i]
-                    restart = up & ~up_prev[s]
-                    dropout = ~up & up_prev[s]
+                    up, skew, delay, dup = (a[j, kk] for a in faults)
+                    restart = up & ~up_prev
+                    dropout = ~up & up_prev
                     refresh = (sync & up & ~delay) | restart
                 else:
                     refresh = sync
-                vds[s] = torch.where(refresh, groups.pick(g_d, g), vds[s])
-                vrs[s] = torch.where(refresh, groups.pick(g_r, g), vrs[s])
-                t_base = (e0s[g] + i) * dt
+                vd = torch.where(refresh, g_d, vd)
+                vr = torch.where(refresh, g_r, vr)
+                t_base = e * dt
                 if with_faults:
                     t_base = t_base + skew
-                (st2, h2, l2, f2, w2, p2), outs = epoch_step(
-                    st[s], t_base, counts[s][i] if ingest else None,
+                (st2, h2, l2, f2, w2, p2), outs = self.epoch_step(
+                    st, t_base, counts[j, kk] if self.ingest else None,
                     h, l, f, w, p)
                 if with_faults:
                     # commit gate: a down shard keeps last-good state
@@ -328,7 +347,7 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
                             lambda a, b: torch.where(up, a, b), new, old)
 
                     st2, h2, l2, f2, p2, w2 = (
-                        keep(st2, st[s]), keep(h2, h), keep(l2, l),
+                        keep(st2, st), keep(h2, h), keep(l2, l),
                         keep(f2, f), keep(p2, p), keep(w2, w))
                     perturb = ((dup & up).to(torch.int64)
                                + (delay & up).to(torch.int64)
@@ -336,7 +355,7 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
                     events = dropout.to(torch.int64) \
                         + restart.to(torch.int64)
                     outs = mask_epoch_outs(outs, up, obsdev.metrics_delta(
-                        device=dev,
+                        device=cd.device,
                         server_dropouts=dropout.to(torch.int64),
                         tracker_resyncs=restart.to(torch.int64),
                         faults_injected=events + perturb))
@@ -348,27 +367,86 @@ def build_mesh_chunk(mesh: MeshLayout, *, engine: str, epochs: int,
                 if with_faults:
                     mult = 1 + (dup & up).to(torch.int64)
                     d_ops, d_resv = d_ops * mult, d_resv * mult
-                    up_prev[s] = up
-                cds[s] = cds[s] + d_ops
-                crs[s] = crs[s] + d_resv
-                st[s] = st2
-                acc[s] = [h2, l2, f2, w2, p2]
-                per_epoch[s].append(outs)
-        outs = {name: restack_shards([torch.stack([o[name] for o in po])
-                                      for po in per_epoch], mesh)
-                for name in per_epoch[0][0]}
-        h, l, f, w, p = (restack_shards([a[j] for a in acc], mesh)
-                         for j in range(5))
-        return MeshChunk(state=restack_shards(st, mesh), outs=outs,
-                         cd=restack_shards(cds, mesh),
-                         cr=restack_shards(crs, mesh),
-                         view_d=restack_shards(vds, mesh),
-                         view_r=restack_shards(vrs, mesh),
-                         hists=h, ledger=l, slo=w, prov=p,
+                    up_prev = up
+                carry[j] = [st2, cd + d_ops, cr + d_resv, vd, vr, h2, l2,
+                            f2, w2, p2, up_prev]
+                per_epoch[j].append(outs)
+        if not self.out_names:
+            self.out_names = list(per_epoch[0][0])
+        outs = [torch.stack([torch.stack([o[name] for o in po])
+                             for po in per_epoch])
+                for name in self.out_names]
+        part = torch.stack([torch.stack([c[1] for c in carry]).sum(dim=0),
+                            torch.stack([c[2] for c in carry]).sum(dim=0)])
+        return [tuple(c) for c in carry], outs, part
+
+    def run(self, legs, state, cd, cr, vd, vr, epoch0, counts=None,
+            hists=None, ledger=None, slo=None, prov=None, flight=None,
+            faults=None) -> MeshChunk:
+        """The chunk over ``legs`` (one a group: :meth:`leg` itself, or
+        its captured program), the counter sums between the segments."""
+        mesh = self.mesh
+        devs = mesh.devices
+        n_groups = len(devs)
+        n_shards = groups.leading(cd)
+        if n_shards != mesh.n_shards:
+            raise ValueError(f"{n_shards} shards on a {mesh.n_shards}-"
+                             "shard mesh")
+        if slo is None:
+            raise ValueError("a mesh chunk needs the SLO window block "
+                             "(the counter plane folds its columns)")
+        if self.ingest and counts is None:
+            raise ValueError("ingest=True needs raw counts")
+        if self.with_faults and faults is None:
+            raise ValueError("with_faults=True needs the FaultChunk arrays")
+        per = groups.check_split(n_shards, n_groups)
+        trees = [on_mesh(x, mesh) for x in (state, cd, cr, vd, vr, hists,
+                                             ledger, flight, slo, prov)]
+        f_prev = None
+        if self.with_faults:
+            *flt, f_prev = fault_inputs(faults, mesh)
+        if self.ingest:
+            counts = on_mesh(torch.as_tensor(counts).to(devs[0])
+                             if not groups.is_grouped(counts) else counts,
+                             mesh)
+
+        carries, cnts, flts, e0s, parts = [], [], [], [], []
+        for g, dev in enumerate(devs):
+            mine = [groups.pick(x, g) for x in trees + [f_prev]]
+            carries.append([tuple(groups.view(x, j) for x in mine)
+                            for j in range(per)])
+            cnts.append(groups.pick(counts, g))
+            flts.append([groups.pick(a, g) for a in flt] if self.with_faults
+                        else None)
+            # a Python epoch0 stays one (a captured leg lifts it)
+            e0s.append(epoch0.to(dev) if torch.is_tensor(epoch0)
+                       else epoch0)
+            parts.append(torch.stack([mine[1].sum(dim=0),
+                                      mine[2].sum(dim=0)]))
+        seg_outs = [[] for _ in devs]
+        span = self.span
+        for i in range(0, self.epochs, span):
+            glob = groups.sum_parts(parts, devs)
+            for g in range(n_groups):
+                carries[g], outs, parts[g] = legs[g](
+                    carries[g],
+                    cnts[g][:, i:i + span] if self.ingest else None,
+                    [a[:, i:i + span] for a in flts[g]]
+                    if self.with_faults else None,
+                    e0s[g], i, glob[g])
+                seg_outs[g].append(outs)
+
+        outs = {name: join_groups([torch.cat([o[f] for o in so], dim=1)
+                                   if len(so) > 1 else so[0][f]
+                                   for so in seg_outs], mesh)
+                for f, name in enumerate(self.out_names)}
+        st, cd, cr, vd, vr, h, l, f, w, p = (
+            join_groups([stack_trees([c[idx] for c in carry])
+                         for carry in carries], mesh) for idx in range(10))
+        return MeshChunk(state=st, outs=outs, cd=cd, cr=cr, view_d=vd,
+                         view_r=vr, hists=h, ledger=l, slo=w, prov=p,
                          slo_merged=obsslo.window_mesh_reduce(w),
                          flight=f)
-
-    return chunk
 
 
 # module cache of captured mesh chunks keyed by the layout and the full
@@ -386,20 +464,39 @@ def jit_mesh_chunk(mesh: MeshLayout, **cfg):
     and not built on: the device picks K2's route, and a flight ring
     rides whenever one is passed).  Not donated, as in JAX.
 
-    On the stacked layout, and on groups that all lie on one card, the
-    chunk is one CUDA graph.  A layout over two or more distinct cards
-    cannot be (one graph, one device): its program runs the body
-    eagerly on those cards, with the same records.  That is read from
-    the layout before any capture, never from a failed one."""
+    A one-group layout's chunk is one CUDA graph
+    (``compile_plane.InstrumentedJit``).  A layout of D >= 2 groups,
+    whether its groups share a card or not, is a
+    ``compile_plane.StagedJit`` with one leg a group
+    (``compile_plane.group_legs``, cache ``mesh.leg``): each segment
+    (the epochs between two counter sums) replays every group's leg on
+    its device, and the sum between the segments runs as plain
+    operations and copies, with no read back.  The segment's draws, its
+    fault values, ``epoch0`` and the segment's first epoch are the
+    leg's inputs, so one capture a group serves every segment, and a
+    group's carry passes from segment to segment in the leg's donated
+    buffers, restacked into the caller's own outputs after the last.
+    The plan is read from the layout before any capture, never from a
+    failed one."""
     from ..obs import compile_plane
 
     key = (mesh_shape(mesh),) + tuple(sorted(cfg.items()))
     full_key = (mesh,) + key
     if full_key not in _MESH_CHUNK_JIT_CACHE:
         build = {k: v for k, v in cfg.items() if k not in _KEY_ONLY}
-        _MESH_CHUNK_JIT_CACHE[full_key] = compile_plane.instrumented_jit(
-            build_mesh_chunk(mesh, **build), cache="mesh.chunk", entry=key,
-            capture=len(set(mesh.devices)) == 1)
+        if not mesh.grouped:
+            prog = compile_plane.instrumented_jit(
+                build_mesh_chunk(mesh, **build), cache="mesh.chunk",
+                entry=key)
+        else:
+            plan = build_mesh_chunk(mesh, **build).plan
+            legs = compile_plane.group_legs(
+                lambda g: plan.leg, mesh.devices, name="segment",
+                cache="mesh.leg", entry=key, donate_argnums=(0,))
+            prog = compile_plane.StagedJit(
+                functools.partial(plan.run, legs), cache="mesh.chunk",
+                entry=key, legs=legs)
+        _MESH_CHUNK_JIT_CACHE[full_key] = prog
     return _MESH_CHUNK_JIT_CACHE[full_key]
 
 

@@ -29,6 +29,7 @@ the JAX package's.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from typing import List, NamedTuple, Optional
 
@@ -43,7 +44,8 @@ from ..parallel.cluster import (ClusterState, decisions_to_numpy,
                                 round_metrics, server_round, shard_view,
                                 stack_trees, tree_map)
 from ..parallel.tracker import (BorrowTrackerState, borrow_tracker_track,
-                                global_counters_from, tracker_track)
+                                global_counters, global_counters_from,
+                                tracker_track)
 from .faults import FaultPlan, FaultStep, plan_step
 
 
@@ -115,10 +117,11 @@ _FAULT_DTYPES = (torch.bool, torch.int64, torch.bool, torch.bool)
 def fault_step_inputs(fault: FaultStep, mesh) -> FaultStep:
     """A :class:`FaultStep` (numpy arrays or tensors, ``[S]`` each) as
     tensors of its dtypes laid out on ``mesh``: a program's inputs,
-    never its constants, so every fault step shares one signature."""
-    return FaultStep(*(CL.on_mesh(CL.device_tensor(a, dt, mesh.device),
-                                  mesh)
-                       for a, dt in zip(fault, _FAULT_DTYPES)))
+    never its constants, so every fault step shares one signature.
+    Values already so laid out pass through."""
+    return FaultStep(*(CL.on_mesh(
+        a if groups.is_grouped(a) else CL.device_tensor(a, dt, mesh.device),
+        mesh) for a, dt in zip(fault, _FAULT_DTYPES)))
 
 
 def _one_server_step_faulty(engine, tracker, now, arr, view_d, view_r,
@@ -195,6 +198,29 @@ def _on_mesh_robust(rc: RobustClusterState, mesh) -> RobustClusterState:
     return CL.on_mesh(rc, mesh)
 
 
+def faulty_group_round(engine, tracker, now, arrivals, view_d, view_r,
+                       met, up_prev, up, skew, delay, dup, cost, g_d, g_r,
+                       *, decisions_per_step: int, max_arrivals: int,
+                       anticipation_ns: int, allow_limit_break: bool,
+                       advance_ns: int) -> tuple:
+    """One group's servers' degraded-mode rounds (stacked ``[per, ...]``
+    trees and fault values on the group's device, ``g_d``/``g_r`` its
+    copy of the round's counter sum): :func:`_one_server_step_faulty`
+    for each from its clock moved by ``advance_ns``, stacked again.
+    Returns ``(engine, tracker, now, view_d, view_r, met, decs)``: a
+    grouped program's leg."""
+    now0 = now + int(advance_ns)
+    outs = [_one_server_step_faulty(
+        shard_view(engine, j), shard_view(tracker, j), now0[j],
+        arrivals[j], view_d[j], view_r[j], met[j], g_d, g_r,
+        up_prev=up_prev[j], up=up[j], skew=skew[j], delay=delay[j],
+        dup=dup[j], cost=cost, decisions_per_step=decisions_per_step,
+        anticipation_ns=anticipation_ns,
+        allow_limit_break=allow_limit_break, max_arrivals=max_arrivals)
+        for j in range(groups.leading(now))]
+    return tuple(stack_trees([o[i] for o in outs]) for i in range(7))
+
+
 def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
                         fault: Optional[FaultStep] = None,
                         decisions_per_step: int, max_arrivals: int = 1,
@@ -210,48 +236,54 @@ def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
     add, high-water rows max); ``with_pressure`` adds the post-round
     per-shard pressure vectors and their merged total (a down server
     reports its frozen state against the cluster clock)."""
+    static = dict(decisions_per_step=decisions_per_step,
+                  max_arrivals=max_arrivals,
+                  anticipation_ns=anticipation_ns,
+                  allow_limit_break=allow_limit_break, advance_ns=advance_ns)
+    d = len(mesh.devices)
+    return _robust_step_over(
+        rc, arrivals, cost, mesh, fault=fault,
+        legs=[functools.partial(CL.group_round, **static,
+                                with_pressure=with_pressure)] * d,
+        faulty_legs=[functools.partial(faulty_group_round, **static)] * d,
+        with_merged=with_merged, with_pressure=with_pressure)
+
+
+def _robust_step_over(rc: RobustClusterState, arrivals, cost, mesh, *,
+                      legs, faulty_legs, fault: Optional[FaultStep] = None,
+                      with_merged: bool = False,
+                      with_pressure: bool = False):
+    """:func:`robust_cluster_step` with ``legs[g]`` and
+    ``faulty_legs[g]`` running group ``g``'s healthy and degraded rounds:
+    ``parallel.cluster.group_round`` and :func:`faulty_group_round`
+    bound to the step's settings, or a grouped program's captured legs
+    (``parallel.cluster.mesh_step_jit``, no flags)."""
     from ..obs import provenance as obsprov
 
     if fault is None:
-        out = CL.cluster_step(
-            rc.cluster, arrivals, cost, mesh,
-            decisions_per_step=decisions_per_step,
-            max_arrivals=max_arrivals, anticipation_ns=anticipation_ns,
-            allow_limit_break=allow_limit_break, advance_ns=advance_ns,
-            with_pressure=with_pressure)
+        out = CL._cluster_step_over(rc.cluster, arrivals, cost, mesh,
+                                    legs=legs, with_pressure=with_pressure)
         rc = rc._replace(cluster=out[0])
         res = (rc, out[1])
         if with_merged:
             res = res + (_merge_held_metrics(rc.metrics),)
         return res + tuple(out[2:])
 
-    n = groups.leading(rc.cluster.now)
     devs = mesh.devices
-    owner = groups.group_of(n, len(devs))
     rc = _on_mesh_robust(rc, mesh)
     cost = groups.replicate(CL.device_tensor(cost, torch.int64, devs[0]),
                             devs)
     arrivals = CL.shard_inputs(arrivals, torch.int32, mesh)
     fault = fault_step_inputs(fault, mesh)
-    now0 = CL.tree_map(lambda a: a + int(advance_ns), rc.cluster.now)
-    g_d, g_r = _round_sums([shard_view(rc.cluster.tracker, s)
-                            for s in range(n)], mesh)
-    outs = [_one_server_step_faulty(
-        shard_view(rc.cluster.engine, s), shard_view(rc.cluster.tracker, s),
-        shard_view(now0, s), shard_view(arrivals, s),
-        shard_view(rc.view_delta, s), shard_view(rc.view_rho, s),
-        shard_view(rc.metrics, s), groups.pick(g_d, owner[s]),
-        groups.pick(g_r, owner[s]), up_prev=shard_view(rc.up_prev, s),
-        up=shard_view(fault.up, s), skew=shard_view(fault.skew_ns, s),
-        delay=shard_view(fault.delay_counters, s),
-        dup=shard_view(fault.dup_completions, s),
-        cost=groups.pick(cost, owner[s]),
-        decisions_per_step=decisions_per_step,
-        anticipation_ns=anticipation_ns,
-        allow_limit_break=allow_limit_break, max_arrivals=max_arrivals)
-        for s in range(n)]
+    # the round's counter sum, before any server runs (the psum)
+    g_d, g_r = global_counters(rc.cluster.tracker)
+    outs = [leg(*(groups.pick(x, g) for x in (
+        rc.cluster.engine, rc.cluster.tracker, rc.cluster.now, arrivals,
+        rc.view_delta, rc.view_rho, rc.metrics, rc.up_prev, fault.up,
+        fault.skew_ns, fault.delay_counters, fault.dup_completions, cost,
+        g_d, g_r))) for g, leg in enumerate(faulty_legs)]
     engine, tracker, now, vd, vr, met, decs = (
-        CL.restack_shards([o[i] for o in outs], mesh) for i in range(7))
+        CL.join_groups([o[i] for o in outs], mesh) for i in range(7))
     rc = RobustClusterState(
         cluster=ClusterState(engine=engine, tracker=tracker, now=now),
         view_delta=vd, view_rho=vr, up_prev=fault.up, metrics=met)
@@ -259,11 +291,16 @@ def robust_cluster_step(rc: RobustClusterState, arrivals, cost, mesh, *,
     if with_merged:
         res = res + (_merge_held_metrics(met),)
     if with_pressure:
-        press = CL.restack_shards(
-            [obsprov.pressure_vec(shard_view(engine, s), shard_view(now, s))
-             for s in range(n)], mesh)
+        press = CL.join_groups([CL.group_pressure(
+            groups.pick(engine, g), groups.pick(now, g))
+            for g in range(len(devs))], mesh)
         res = res + (press, obsprov.pressure_mesh_reduce(press))
     return res
+
+
+CL.GROUPED_STEPS[robust_cluster_step] = (
+    _robust_step_over, (("legs", CL.group_round),
+                        ("faulty_legs", faulty_group_round)))
 
 
 # the JAX package's module cache of the robust step's programs, keyed
@@ -273,7 +310,8 @@ _STEP_JIT_CACHE: dict = {}
 
 def _jit_step(mesh, cfg: tuple):
     """The ``cluster.robust_cluster_step`` program of ``mesh`` and the
-    five-tuple ``cfg``: ``(rc, arrivals, cost, fault=None)``."""
+    five-tuple ``cfg``: ``(rc, arrivals, cost, fault=None)``; on a
+    grouped layout, legs of both the healthy and the degraded round."""
     return CL.mesh_step_jit(_STEP_JIT_CACHE, robust_cluster_step, mesh,
                             cfg)
 

@@ -824,7 +824,7 @@ def run_mesh_chunk_guarded(state, cd, cr, view_d, view_r,
     ``epoch0`` lies on the sync grid (the bit-identity condition).  The
     chunk is a captured program (``parallel.mesh.jit_mesh_chunk``; the
     draws and the fault arrays become tensors on the layout before the
-    call), run eagerly on a layout over several distinct cards.  The
+    call), one graph a group a segment on a layout of several groups.  The
     JAX package's ``wheel_kernel`` knob has no counterpart: the device
     picks kernel K2's route, and every shard runs on the current
     stream."""

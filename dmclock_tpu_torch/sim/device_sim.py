@@ -543,19 +543,8 @@ def _group_parts(sim: DeviceSim) -> list:
     leaves, one ``DeviceSim`` a group (a stacked sim is one group)."""
     if not groups.is_grouped(sim.engine):
         return [sim]
-    return [DeviceSim(*(v.parts[g] if f in SERVER_FIELDS else v[g]
-                        for f, v in zip(sim._fields, sim)))
+    return [DeviceSim(*(groups.pick(v, g) for v in sim))
             for g in range(len(sim.engine.devices))]
-
-
-def _reduced(xs: list, devs) -> list:
-    """Per-group partials ``xs`` summed over the groups, each group
-    handed its copy (the psum); one group keeps its own."""
-    if len(xs) == 1:
-        return xs
-    return list(groups.replicate(
-        groups.reduce(groups.Grouped(xs, devs), lambda a: a, torch.add),
-        devs))
 
 
 def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
@@ -582,9 +571,6 @@ def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
     per = s_total // len(parts)
     n_groups = len(devs)
     use_prefix, use_cal = _serve_paths(spec)
-
-    def reduced(xs: list):
-        return _reduced(xs, devs)
 
     # each group's server ids: the global ids of its block
     server_ids = [torch.arange(g * per, (g + 1) * per, dtype=torch.int32,
@@ -688,8 +674,8 @@ def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
             dones.append(done_here.sum(dim=0))
         if use_prefix:
             trips = [(trips[g] + tg).to(torch.int32)
-                     for g, tg in enumerate(reduced(gts))]
-        completions = reduced(dones)
+                     for g, tg in enumerate(groups.sum_parts(gts, devs))]
+        completions = groups.sum_parts(dones, devs)
 
         for g in range(n_groups):
             load[g] = load[g]._replace(
@@ -705,13 +691,7 @@ def device_sim_step(sim: DeviceSim, spec: DeviceSimSpec, slices: int, *,
                      load=load[g], served_resv=sresv[g],
                      served_prop=sprop[g], last_served=slast[g], t=t[g],
                      guard_trips=trips[g]) for g in range(n_groups)]
-    if not grouped:
-        return out[0]
-    return DeviceSim(**{
-        f: groups.Grouped([getattr(o, f) for o in out], devs)
-        if f in SERVER_FIELDS
-        else groups.Replicated([getattr(o, f) for o in out])
-        for f in DeviceSim._fields})
+    return _join_parts(out, devs)
 
 
 def check_guard_trips(sim: DeviceSim) -> None:
@@ -788,55 +768,65 @@ def _loop_state(parts: list, spec: DeviceSimSpec, use_cal: bool) -> list:
     return out
 
 
-def _head_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec):
-    """A slice's head, one graph: the loop state reset, the client-global
-    counters, the sends and every ingest wave of every server, written
-    into the sim's tensors in place."""
-    parts = _group_parts(sim)
-    g_delta, g_rho = global_counters(sim.tracker)
-    for g, p in enumerate(parts):
-        c = ctl[g]
-        for k in ("total", "gt", "off", "taken", "srv", "rsv"):
-            if k in c:
-                c[k].zero_()
-        c["last"].fill_(1)
-        c["live"].fill_(True)
-        for buf, fill in zip(c["dbuf"], (kernels.NONE, -1, 0, 0, 0, False)):
-            buf.fill_(fill)
-        per = p.served_resv.shape[0]
-        n = _slice_sends(p.load, p.t, spec.slice_ns, spec.max_sends)
-        c["n"].copy_(n)
-        ids = torch.arange(g * per, (g + 1) * per, dtype=torch.int32,
-                           device=p.t.device)
-        base = [server_view(p.engine, j) for j in range(per)]
-        engs = list(base)
-        tracker = p.tracker
-        for wave in range(spec.max_sends):
-            mine = _sends_to_server(p.load, n, wave, ids, spec.n_servers,
-                                    spec.random_select)
-            tracker, d_out, r_out = tracker_prepare(
-                tracker, mine, groups.pick(g_delta, g),
-                groups.pick(g_rho, g))
-            rho = torch.where(mine, r_out, 1)
-            delta = torch.where(mine, d_out, 1)
-            engs = [kernels.ingest_wave(
-                engs[j], mine[j], p.t, p.load.cost, rho[j], delta[j],
-                anticipation_ns=0) for j in range(per)]
-        for j in range(per):
-            _write_back(base[j], engs[j], base[j])
-        _write_back(p.tracker, tracker, p.tracker)
-    return sim, ctl
+def _head_leg(p: DeviceSim, c: dict, glob, *, spec: DeviceSimSpec,
+              g: int):
+    """A slice's head for group ``g`` (``p`` its part of the sim, ``c``
+    its loop state), one graph: the loop state reset, the sends and
+    every ingest wave of the group's servers, written into its tensors
+    in place.  ``glob`` is the sum of every server's completion counters
+    ``int64[2, C]`` (delta, rho) on the group's device, taken between
+    the legs; None takes the one group's own sum in the graph."""
+    if glob is None:
+        g_delta, g_rho = global_counters(p.tracker)
+    else:
+        # the protocol's counters start at 1
+        g_delta, g_rho = glob[0] + 1, glob[1] + 1
+    for k in ("total", "gt", "off", "taken", "srv", "rsv"):
+        if k in c:
+            c[k].zero_()
+    c["last"].fill_(1)
+    c["live"].fill_(True)
+    for buf, fill in zip(c["dbuf"], (kernels.NONE, -1, 0, 0, 0, False)):
+        buf.fill_(fill)
+    per = p.served_resv.shape[0]
+    n = _slice_sends(p.load, p.t, spec.slice_ns, spec.max_sends)
+    c["n"].copy_(n)
+    ids = torch.arange(g * per, (g + 1) * per, dtype=torch.int32,
+                       device=p.t.device)
+    base = [server_view(p.engine, j) for j in range(per)]
+    engs = list(base)
+    tracker = p.tracker
+    for wave in range(spec.max_sends):
+        mine = _sends_to_server(p.load, n, wave, ids, spec.n_servers,
+                                spec.random_select)
+        tracker, d_out, r_out = tracker_prepare(tracker, mine, g_delta,
+                                                g_rho)
+        rho = torch.where(mine, r_out, 1)
+        delta = torch.where(mine, d_out, 1)
+        engs = [kernels.ingest_wave(
+            engs[j], mine[j], p.t, p.load.cost, rho[j], delta[j],
+            anticipation_ns=0) for j in range(per)]
+    for j in range(per):
+        _write_back(base[j], engs[j], base[j])
+    _write_back(p.tracker, tracker, p.tracker)
+    return p, c
 
 
-def _calendar_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec,
-                  g: int, j: int, block: int):
-    """``block`` calendar batches of server ``j`` of group ``g``, each
+def _completions(p: DeviceSim) -> torch.Tensor:
+    """The group's completion counters summed over its servers,
+    ``int64[2, C]`` (delta, rho): its partial of the head's sum."""
+    return torch.stack([p.tracker.completed_delta.sum(dim=0),
+                        p.tracker.completed_rho.sum(dim=0)])
+
+
+def _calendar_leg(p: DeviceSim, c: dict, *, spec: DeviceSimSpec, j: int,
+                  block: int):
+    """``block`` calendar batches of server ``j`` of a group, each
     taken where the JAX loop's ``ok`` holds (the server still in its
     loop, a nonzero count that fits the budget) and merged by
     ``torch.where``, as the JAX ``tree.map(where)`` is; the first batch
     that fails takes the server out of its loop.  Only the fields a
     batch returns as new tensors merge (the rings stay the sim's)."""
-    p, c = _group_parts(sim)[g], ctl[g]
     q = spec.q_per_slice
     base = server_view(p.engine, j)
     eng = base
@@ -871,18 +861,17 @@ def _calendar_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec,
                    (c["srv"][j], srv), (c["rsv"][j], rsv),
                    (c["taken"][j, 0], taken)):
         dst.copy_(v)
-    return sim, ctl
+    return p, c
 
 
-def _prefix_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec,
-                g: int, j: int, block: int):
-    """``block`` prefix batches of server ``j`` of group ``g``.  A batch
+def _prefix_leg(p: DeviceSim, c: dict, *, spec: DeviceSimSpec, j: int,
+                block: int):
+    """``block`` prefix batches of server ``j`` of a group.  A batch
     is active while the JAX loop's condition holds (``total < q`` and
     the last batch committed); an inactive one is capped at 0 decisions,
     which leaves the state bit for bit as it was.  Committed rows
     scatter into the decision buffer at the JAX ``pos`` (the rest into
     its dropped row ``q``); guard trips add up on the device."""
-    p, c = _group_parts(sim)[g], ctl[g]
     q = spec.q_per_slice
     kb = min(q, spec.n_clients)
     base = server_view(p.engine, j)
@@ -915,63 +904,69 @@ def _prefix_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec,
                    (c["taken"][j, 1], taken),
                    (c["live"][j], (total < q) & (last > 0))):
         dst.copy_(v)
-    return sim, ctl
+    return p, c
 
 
-def _tail_leg(sim: DeviceSim, ctl: list, *, spec: DeviceSimSpec):
-    """A slice's tail, one graph: the tracker folds, the stats scatters
-    and the completions, the three reductions between groups, the load
-    update and the clock, written into the sim's tensors in place."""
-    parts = _group_parts(sim)
-    devs = sim_devices(sim)
-    use_prefix, use_cal = _serve_paths(spec)
+def _tail_fold(p: DeviceSim, c: dict, *, spec: DeviceSimSpec):
+    """The first half of a slice's tail for one group: the tracker folds
+    and the stats scatters, written into its tensors in place.  Returns
+    ``(p, c, (trips, done))``: the group's guard trips and per-client
+    completions, its partials of the slice's reductions between
+    groups."""
+    use_cal = _serve_paths(spec)[1]
     q = spec.q_per_slice
-    gts, dones = [], []
-    for g, p in enumerate(parts):
-        c = ctl[g]
-        per = p.served_resv.shape[0]
-        t_end = p.t + spec.slice_ns
-        decs = kernels.Decision(*(buf[:, :q] for buf in c["dbuf"]))
-        served = decs.type == kernels.RETURNING
-        tracker = tracker_track(p.tracker, decs.slot, decs.cost,
-                                decs.phase, served)
-        if use_cal:
-            tracker = tracker_track_counts(tracker, c["srv"], c["rsv"],
-                                           p.load.cost)
-        _write_back(p.tracker, tracker, p.tracker)
-        one = served.to(torch.int64)
-        idx = torch.where(served, decs.slot, 0).to(torch.int64)
-        sresv = p.served_resv.scatter_add(1, idx, one * (decs.phase == 0))
-        sprop = p.served_prop.scatter_add(1, idx, one * (decs.phase == 1))
-        slast = p.last_served.scatter_reduce(
-            1, idx, torch.where(served, t_end, 0), "amax",
-            include_self=True)
-        done_here = torch.zeros((per, spec.n_clients), dtype=torch.int32,
-                                device=p.t.device).scatter_add(
-            1, idx, one.to(torch.int32))
-        if use_cal:
-            sresv = sresv + c["rsv"].to(torch.int64)
-            sprop = sprop + (c["srv"] - c["rsv"]).to(torch.int64)
-            slast = torch.maximum(slast, torch.where(c["srv"] > 0, t_end, 0))
-            done_here = done_here + c["srv"]
-        for dst, v in ((p.served_resv, sresv), (p.served_prop, sprop),
-                       (p.last_served, slast)):
-            dst.copy_(v)
-        dones.append(done_here.sum(dim=0))
-        gts.append(c["gt"].sum())
-    trips = _reduced(gts, devs)
-    completions = _reduced(dones, devs)
-    for g, p in enumerate(parts):
-        n = ctl[g]["n"]
-        if use_prefix:
-            p.guard_trips.copy_((p.guard_trips + trips[g]).to(torch.int32))
-        load = p.load
-        load.outstanding.copy_((load.outstanding + n - completions[g])
-                               .to(torch.int32))
-        load.next_send.add_(n.to(torch.int64) * load.gap_ns)
-        load.sent.add_(n)
-        p.t.add_(spec.slice_ns)
-    return sim, ctl
+    per = p.served_resv.shape[0]
+    t_end = p.t + spec.slice_ns
+    decs = kernels.Decision(*(buf[:, :q] for buf in c["dbuf"]))
+    served = decs.type == kernels.RETURNING
+    tracker = tracker_track(p.tracker, decs.slot, decs.cost, decs.phase,
+                            served)
+    if use_cal:
+        tracker = tracker_track_counts(tracker, c["srv"], c["rsv"],
+                                       p.load.cost)
+    _write_back(p.tracker, tracker, p.tracker)
+    one = served.to(torch.int64)
+    idx = torch.where(served, decs.slot, 0).to(torch.int64)
+    sresv = p.served_resv.scatter_add(1, idx, one * (decs.phase == 0))
+    sprop = p.served_prop.scatter_add(1, idx, one * (decs.phase == 1))
+    slast = p.last_served.scatter_reduce(
+        1, idx, torch.where(served, t_end, 0), "amax", include_self=True)
+    done_here = torch.zeros((per, spec.n_clients), dtype=torch.int32,
+                            device=p.t.device).scatter_add(
+        1, idx, one.to(torch.int32))
+    if use_cal:
+        sresv = sresv + c["rsv"].to(torch.int64)
+        sprop = sprop + (c["srv"] - c["rsv"]).to(torch.int64)
+        slast = torch.maximum(slast, torch.where(c["srv"] > 0, t_end, 0))
+        done_here = done_here + c["srv"]
+    for dst, v in ((p.served_resv, sresv), (p.served_prop, sprop),
+                   (p.last_served, slast)):
+        dst.copy_(v)
+    return p, c, (c["gt"].sum(), done_here.sum(dim=0))
+
+
+def _tail_load(p: DeviceSim, c: dict, trips, completions, *,
+               spec: DeviceSimSpec):
+    """The second half of a slice's tail for one group, from the
+    slice's guard trips and completions summed over every group: the
+    trip count, the load update and the clock, in place."""
+    n = c["n"]
+    if _serve_paths(spec)[0]:
+        p.guard_trips.copy_((p.guard_trips + trips).to(torch.int32))
+    load = p.load
+    load.outstanding.copy_((load.outstanding + n - completions)
+                           .to(torch.int32))
+    load.next_send.add_(n.to(torch.int64) * load.gap_ns)
+    load.sent.add_(n)
+    p.t.add_(spec.slice_ns)
+    return p, c
+
+
+def _tail_leg(p: DeviceSim, c: dict, *, spec: DeviceSimSpec):
+    """A one-group slice's tail, one graph: :func:`_tail_fold` and
+    :func:`_tail_load` on the group's own sums."""
+    p, c, (trips, done) = _tail_fold(p, c, spec=spec)
+    return _tail_load(p, c, trips, done, spec=spec)
 
 
 def _distinct(sim: DeviceSim) -> DeviceSim:
@@ -1037,10 +1032,13 @@ def jit_device_sim_step(spec: DeviceSimSpec, slices: int, *, devices,
     a server, read back nothing.  Every field equals
     :func:`device_sim_step`'s.
 
-    ``devices`` is the sim's layout (:func:`sim_devices`); a layout over
-    two or more distinct cards runs the legs eagerly (one CUDA graph
-    holds one device), read from the layout before any capture.  The
-    program donates the sim: its result is the legs' buffers (a first
+    ``devices`` is the sim's layout (:func:`sim_devices`).  Every leg
+    is one a group (``compile_plane.group_legs``), on the group's part
+    of the sim: on a layout of several groups the head's counter sum,
+    and the guard trips and completions between the tail's two halves
+    (``_tail_fold``, ``_tail_load``), are summed between the legs, with
+    no read back; the plan is read from the layout before any capture.
+    The program donates the sim: its result is the legs' buffers (a first
     call copies the sim in once), and a chain that passes it back
     copies nothing; on the CPU the legs write into the sim passed in (a
     caller that keeps its sim passes a copy).  Returns ``call(sim, *,
@@ -1060,35 +1058,46 @@ def jit_device_sim_step(spec: DeviceSimSpec, slices: int, *, devices,
     entry = (spec.n_servers, spec.n_clients, spec.q_per_slice,
              spec.calendar_impl, int(slices), int(block), int(cal_block),
              tuple(str(d) for d in devices))
-    capture = len(set(devices)) == 1
+    grouped = n_groups > 1
 
-    def leg(fn, name, **kw):
-        return compile_plane.InstrumentedJit(
-            functools.partial(fn, spec=spec, **kw), cache="device_sim.leg",
-            entry=(name,) + entry + tuple(kw.items()), donate_argnums=(0, 1),
-            capture=capture, record=False, share_donated=True)
+    def legs(fn, name, **kw):
+        return compile_plane.group_legs(
+            lambda g: functools.partial(fn, spec=spec, **kw), devices,
+            name=name, cache="device_sim.leg", entry=entry,
+            donate_argnums=(0, 1))
 
-    head = leg(_head_leg, "head")
-    tail = leg(_tail_leg, "tail")
+    head = compile_plane.group_legs(
+        lambda g: functools.partial(_head_leg, spec=spec, g=g), devices,
+        name="head", cache="device_sim.leg", entry=entry,
+        donate_argnums=(0, 1))
+    if grouped:
+        fold, load = legs(_tail_fold, "fold"), legs(_tail_load, "load")
+        tails = fold + load
+    else:
+        tails = legs(_tail_leg, "tail")
     servers = [(g, j) for g in range(n_groups) for j in range(per)]
-    cal = {s: leg(_calendar_leg, "calendar", g=s[0], j=s[1],
-                  block=int(cal_block)) for s in servers} if use_cal else {}
-    prefix = {s: leg(_prefix_leg, "prefix", g=s[0], j=s[1],
-                     block=int(block)) for s in servers} if use_prefix \
-        else {}
+    cal = {s: leg for j in range(per) for s, leg in zip(
+        [(g, j) for g in range(n_groups)],
+        legs(_calendar_leg, f"calendar {j}", j=j, block=int(cal_block)))} \
+        if use_cal else {}
+    prefix = {s: leg for j in range(per) for s, leg in zip(
+        [(g, j) for g in range(n_groups)],
+        legs(_prefix_leg, f"prefix {j}", j=j, block=int(block)))} \
+        if use_prefix else {}
     scan = None if use_prefix else kernels.serial_leg(
         spec.q_per_slice, allow_limit_break=spec.allow_limit_break,
         anticipation_ns=0)
     held: dict = {}         # the loop state, kept from call to call
     box: dict = {}
 
-    def rounds(sim, ctl, legs, todo, size, counts, kind):
+    def rounds(parts, ctl, legs, todo, size, counts, kind):
         """Replay each server's block of ``legs`` for the servers in
         ``todo`` until a read back says none is still in its loop."""
         rows = None
         while todo:
             for s in todo:
-                sim, ctl = legs[s](sim, ctl)
+                g = s[0]
+                parts[g], ctl[g] = legs[s](parts[g], ctl[g])
             setattr(counts, f"{kind}_batches",
                     getattr(counts, f"{kind}_batches") + size * len(todo))
             rows = _read_status(ctl, counts)
@@ -1097,48 +1106,66 @@ def jit_device_sim_step(spec: DeviceSimSpec, slices: int, *, devices,
             col = 2 if kind == "calendar" else 3
             setattr(counts, f"{kind}_live", getattr(counts, f"{kind}_live")
                     + sum(r[col] for r in rows))
-        return sim, ctl, rows
+        return rows
 
-    def serial_serve(sim, ctl):
+    def serial_serve(parts, ctl):
         """The scan path: ``engine_run`` of ``q`` steps a server
         (``kernels.serial_leg``, captured blocks), written back."""
         q = spec.q_per_slice
-        for g, p in enumerate(_group_parts(sim)):
-            for j in range(per):
-                base = server_view(p.engine, j)
-                eng, _, d = scan(base, p.t + spec.slice_ns)
-                _write_back(server_view(p.engine, j), eng, base)
-                for buf, v in zip(ctl[g]["dbuf"], d):
-                    buf[j, :q].copy_(v)
+        for g, p in enumerate(parts):
+            with _on_device(devices[g]):
+                for j in range(per):
+                    base = server_view(p.engine, j)
+                    eng, _, d = scan(base, p.t + spec.slice_ns)
+                    _write_back(server_view(p.engine, j), eng, base)
+                    for buf, v in zip(ctl[g]["dbuf"], d):
+                        buf[j, :q].copy_(v)
 
     def body(sim: DeviceSim) -> DeviceSim:
         counts = box.get("counts") or StepCounts()
-        sim = _distinct(sim)
+        parts = _group_parts(_distinct(sim))
         ctl = held.get("ctl")
         if ctl is None:
-            ctl = _loop_state(_group_parts(sim), spec, use_cal)
+            ctl = _loop_state(parts, spec, use_cal)
         q = spec.q_per_slice
         for _ in range(slices):
-            sim, ctl = head(sim, ctl)
+            # the client-global counters: the sum over every server,
+            # within each group and then between the groups
+            glob = groups.sum_parts([_completions(p) for p in parts],
+                                    devices) if grouped else [None]
+            for g in range(n_groups):
+                parts[g], ctl[g] = head[g](parts[g], ctl[g], glob[g])
             if use_prefix:
                 todo = servers
                 if use_cal:
-                    sim, ctl, rows = rounds(sim, ctl, cal, servers,
-                                            int(cal_block), counts,
-                                            "calendar")
+                    rows = rounds(parts, ctl, cal, servers, int(cal_block),
+                                  counts, "calendar")
                     todo = [s for s in servers
                             if rows[s[0] * per + s[1]][1] < q]
-                sim, ctl, _ = rounds(sim, ctl, prefix, todo, int(block),
-                                     counts, "prefix")
+                rounds(parts, ctl, prefix, todo, int(block), counts,
+                       "prefix")
             else:
-                serial_serve(sim, ctl)
-            sim, ctl = tail(sim, ctl)
+                serial_serve(parts, ctl)
+            if grouped:
+                sums = []
+                for g in range(n_groups):
+                    parts[g], ctl[g], part = fold[g](parts[g], ctl[g])
+                    sums.append(part)
+                trips, done = (groups.sum_parts([x[i] for x in sums],
+                                                devices) for i in range(2))
+                for g in range(n_groups):
+                    parts[g], ctl[g] = load[g](parts[g], ctl[g], trips[g],
+                                               done[g])
+            else:
+                parts[0], ctl[0] = tails[0](parts[0], ctl[0])
             counts.slices += 1
         held["ctl"] = ctl
-        return sim
+        return _join_parts(parts, devices)
 
+    all_legs = head + tails + tuple(cal.values()) + tuple(prefix.values())
     program = compile_plane.StagedJit(body, cache="device_sim.step",
-                                      entry=entry, record=False)
+                                      entry=entry, record=False,
+                                      legs=all_legs)
 
     def call(sim: DeviceSim, *, counts: Optional[StepCounts] = None):
         box["counts"] = counts
@@ -1148,9 +1175,30 @@ def jit_device_sim_step(spec: DeviceSimSpec, slices: int, *, devices,
             box.clear()
 
     call.program = program
-    call.legs = [head, tail] + list(cal.values()) + list(prefix.values())
+    call.legs = [leg.program for leg in all_legs]
     _STEP_JIT_CACHE[key] = call
     return call
+
+
+def _on_device(dev: torch.device):
+    """``dev`` current where it is a card (its graphs replay on its
+    stream), nothing on the CPU."""
+    import contextlib
+
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _join_parts(parts: list, devs) -> DeviceSim:
+    """Per-group sims as one: the one group's, or the servers' leaves
+    grouped and the rest one copy a group."""
+    if len(parts) == 1:
+        return parts[0]
+    return DeviceSim(**{
+        f: groups.Grouped([getattr(p, f) for p in parts], devs)
+        if f in SERVER_FIELDS
+        else groups.Replicated([getattr(p, f) for p in parts])
+        for f in DeviceSim._fields})
 
 
 def run_device_sim(cfg: SimConfig, *, ring_capacity: int = 256,

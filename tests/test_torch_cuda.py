@@ -1399,3 +1399,218 @@ def test_queue_ingest_run_is_captured_whole(cuda, steps, segments):
     _tree_equal(run(st, 2 * 10 ** 11), want)
     assert run.captures()[0]["segments"] == 2
     tcp.clear_compiled()
+
+
+# ----------------------------------------------------------------------
+# the programs over several groups (one graph a group a segment)
+# ----------------------------------------------------------------------
+
+GROUPS8 = ("cuda:0",) * 8
+
+
+def _held_grouped(monkeypatch, prog, args, step, legs_a_call):
+    """A grouped program (``compile_plane.StagedJit`` with one leg a
+    group) on the card: its first call captures one graph a leg; then
+    three calls on ``step(args, out, i)``, each replaying
+    ``legs_a_call`` legs with the sync debug mode's errors on (0 syncs
+    a call), equal to its body run eagerly on a clone of its inputs and
+    capturing nothing new.  Returns the results of the three calls."""
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+
+    calls = []
+    real = tcp.Leg.__call__
+
+    def counted(self, *a, **k):
+        calls.append(self.group)
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(tcp.Leg, "__call__", counted)
+    prog(*args)
+    caps = prog.captures()
+    assert caps and all(c["graph_nodes"] for c in caps)
+    assert all(len(leg.program._programs) <= 1 for leg in prog.legs)
+    seen = len(caps)
+    outs = []
+    for i in range(3):
+        with tcp.eager():
+            want = prog.fn(*_clone(args))
+        torch.cuda.synchronize()
+        calls.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = prog(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert len(calls) == legs_a_call
+        _tree_equal(got, want)
+        assert len(prog.captures()) == seen
+        outs.append(got)
+        args = step(args, got, i)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every", [1, 2])
+def test_grouped_mesh_chunk_program_replays_one_leg_a_group(
+        cuda, monkeypatch, every):
+    """``mesh.chunk`` over 8 groups of ``cuda:0`` (8 x 256 clients, 4
+    epochs, K=1 flat or K=2 with collective skipping): one capture a
+    group, 8 legs a segment at 0 syncs, each call equal to its eager
+    body and to the one-group program on the same inputs."""
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+    from dmclock_tpu_torch.obs import slo as TSLO
+    from dmclock_tpu_torch.parallel import groups
+    from dmclock_tpu_torch.parallel import mesh as TM
+    from dmclock_tpu_torch.robust import supervisor as TS
+
+    s, n, epochs = 8, 256, 4
+    job = TS.EpochJob(engine="prefix", n=n, depth=12, ring=16, m=2, k=64,
+                      waves=4)
+    cfg = dict(engine="prefix", epochs=epochs, m=job.m, k=job.k,
+               dt_epoch_ns=job.dt_epoch_ns, waves=job.waves,
+               counter_sync_every=every,
+               collective_skipping=every > 1)
+    rng = np.random.default_rng(5)
+    draws = [torch.from_numpy(rng.poisson(2.0, (s, epochs, n))
+                              .astype(np.int32)).to(cuda)
+             for _ in range(4)]
+    one = TM.make_mesh(s, devices=("cuda:0",))
+    mesh = TM.make_mesh(s, devices=GROUPS8)
+    stacked = TM.jit_mesh_chunk(one, **cfg)
+    prog = TM.jit_mesh_chunk(mesh, **cfg)
+    prog.clear_compiled()
+    assert isinstance(prog, tcp.StagedJit) and len(prog.legs) == 8
+    state = TM.stack_shards(TS._job_state(job, cuda), s, mesh)
+    w = TM.stack_shards(TSLO.window_zero(n, cuda), s, mesh)
+    args = (state, *TM.counter_init(s, n, mesh=mesh), 0,
+            TM.place_shards(draws[0], mesh), None, None, w)
+
+    def nxt(a, out, i):
+        return (out.state, out.cd, out.cr, out.view_d, out.view_r,
+                (i + 1) * epochs, TM.place_shards(draws[i + 1], mesh),
+                None, None, out.slo)
+
+    outs = _held_grouped(monkeypatch, prog, args, nxt,
+                         8 * epochs // every)
+    # the one-group program on the first replay's inputs
+    ref = stacked(*(groups.gather(a) if groups.is_grouped(a) else a
+                    for a in args))
+    _tree_equal(groups.gather(outs[0]), ref)
+    assert int(ref.outs["count"].sum()) > 0
+    tcp.clear_compiled()
+
+
+@pytest.mark.cuda
+def test_grouped_cluster_programs_replay_one_leg_a_group(cuda,
+                                                         monkeypatch):
+    """``cluster.cluster_step``, ``cluster.robust_cluster_step`` under
+    an outage and ``cluster.mesh_rounds`` (2 rounds) over 8 groups of
+    ``cuda:0`` (8 servers x 512 clients, 32 decisions a step): one
+    capture a group, 8 legs a round at 0 syncs, each call equal to its
+    eager body and to the one-group program."""
+    from dmclock_tpu_torch import serve
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+    from dmclock_tpu_torch.obs import device as obsdev
+    from dmclock_tpu_torch.parallel import cluster as CL
+    from dmclock_tpu_torch.parallel import groups
+    from dmclock_tpu_torch.robust import cluster as RC
+    from dmclock_tpu_torch.robust import faults as TF
+
+    ns, nc, k, adv = 8, 512, 32, 50_000_000
+    cfg = (k, 3, 0, False, adv)
+    mesh, cl, costs = serve.multichip_cluster(ns, nc, "orig", cuda,
+                                              devices=GROUPS8)
+    one, cl1, _ = serve.multichip_cluster(ns, nc, "orig", cuda)
+    costs = torch.from_numpy(costs).to(cuda)
+    arr = torch.full((ns, nc), 3, dtype=torch.int32, device=cuda)
+    step = CL.mesh_step_jit({}, CL.cluster_step, mesh, cfg)
+    step.clear_compiled()
+    outs = _held_grouped(monkeypatch, step, (cl, arr, costs),
+                         lambda a, out, i: (out[0], arr, costs), 8)
+    _tree_equal(groups.gather(outs[0]),
+                CL.mesh_step_jit({}, CL.cluster_step, one, cfg)(
+                    groups.gather(cl), arr, costs))
+
+    plan = TF.single_outage_plan(4, ns, server=1, down_from=1,
+                                 down_until=3)
+    faults = [RC.fault_step_inputs(TF.plan_step(plan, t), mesh)
+              for t in range(4)]
+    rstep = RC._jit_step(mesh, cfg)
+    rstep.clear_compiled()
+    rc = RC.init_robust(cl)
+    rstep(rc, arr, costs, fault=faults[3])    # the captures
+    for t in range(3):
+        with tcp.eager():
+            want = rstep.fn(*_clone((rc, arr, costs)),
+                            fault=_clone(faults[t]))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rc, decs = rstep(rc, arr, costs, fault=faults[t])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        _tree_equal((rc, decs), want)
+    assert [leg.name for leg in rstep.legs] == ["legs"] * 8 + \
+        ["faulty_legs"] * 8
+    assert all(len(leg.program._programs) == 1
+               for leg in rstep.legs[8:])
+
+    views = CL.init_mesh_views(ns, nc, device=cuda)
+    met = torch.zeros((ns, obsdev.NUM_METRICS), dtype=torch.int64,
+                      device=cuda)
+    rounds = CL.jit_mesh_rounds(mesh, epochs=2, decisions_per_step=k,
+                                max_arrivals=3, advance_ns=adv)
+    rounds.program.clear_compiled()
+    arr2 = torch.stack([arr, arr])
+    args = (cl, arr2, costs) + tuple(CL.place_shards(x, mesh)
+                                     for x in views + (met,))
+    outs = _held_grouped(
+        monkeypatch, rounds.program, args,
+        lambda a, out, i: (out.cluster, arr2, costs, out.view_delta,
+                           out.view_rho, out.metrics), 16)
+    ref = CL.jit_mesh_rounds(one, epochs=2, decisions_per_step=k,
+                             max_arrivals=3, advance_ns=adv)(
+        groups.gather(cl), arr2, costs, *views, met)
+    _tree_equal(groups.gather(outs[0]), ref)
+    tcp.clear_compiled()
+
+
+@pytest.mark.cuda
+def test_grouped_device_sim_program_equals_one_group(cuda):
+    """The device sim's step over 8 groups of ``cuda:0`` (the headline's
+    prefix path at 4,096 clients, 2 slices): one leg a group and server,
+    equal to the one-group program and to its eager body."""
+    from dmclock_tpu_torch.obs import compile_plane as tcp
+    from dmclock_tpu_torch.parallel import cluster as CL
+    from dmclock_tpu_torch.parallel import groups
+    from dmclock_tpu_torch.sim import device_sim as DS
+
+    _, sim0, spec = DS.headline_setup(4096, device=cuda)
+    one = DS.jit_device_sim_step(spec, 2, devices=(cuda,))
+    want = DS.device_sim_to_numpy(one(_clone(sim0)))
+    mesh = CL.make_mesh(spec.n_servers, devices=GROUPS8)
+    step = DS.jit_device_sim_step(spec, 2, devices=mesh.devices)
+    step.program.clear_compiled()
+    grouped = DS.shard_device_sim(sim0, mesh)
+    with tcp.eager():
+        eager = DS.device_sim_to_numpy(step(_clone(grouped)))
+    first = DS.device_sim_to_numpy(step(_clone(grouped)))
+    again = DS.device_sim_to_numpy(step(_clone(grouped)))
+    for got in (eager, first, again):
+        _np_tree_equal(got, want)
+    assert len(step.program.captures()) == len(step.program.legs)
+    assert groups.is_grouped(grouped.engine)
+    tcp.clear_compiled()
+
+
+def _np_tree_equal(got: dict, want: dict) -> None:
+    """Two nested dicts of host arrays, equal in keys, dtypes and
+    values."""
+    assert got.keys() == want.keys()
+    for key in want:
+        if isinstance(want[key], dict):
+            _np_tree_equal(got[key], want[key])
+        else:
+            assert got[key].dtype == want[key].dtype, key
+            assert np.array_equal(got[key], want[key]), key

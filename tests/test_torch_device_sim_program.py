@@ -162,8 +162,8 @@ def test_masked_prefix_batch_leaves_the_state_bit_identical():
     commits nothing and returns every state field equal to its input,
     with candidates present."""
     _, _, tsim, tspec, _ = _setup("prefix")
-    ctl = TDS._loop_state([tsim], tspec, False)
-    tsim, ctl = TDS._head_leg(tsim, ctl, spec=tspec)      # the ingest
+    (ctl,) = TDS._loop_state([tsim], tspec, False)
+    tsim, ctl = TDS._head_leg(tsim, ctl, None, spec=tspec, g=0)  # ingest
     eng = TDS.server_view(tsim.engine, 0)
     now = tsim.t + tspec.slice_ns
     heads = TFP._window_heads(eng, TFP.ring_window(eng, 1))

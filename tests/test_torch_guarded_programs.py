@@ -380,11 +380,23 @@ def test_mesh_chunk_program_equals_jax(fresh, layout, faults, K):
     (full_key,) = TM._MESH_CHUNK_JIT_CACHE
     assert full_key[0] == mesh
     prog = TM._MESH_CHUNK_JIT_CACHE[full_key]
-    assert prog.capture and prog.cache == "mesh.chunk"
+    assert prog.cache == "mesh.chunk"
     assert [full_key[1:]] == [_without_wheel_kernel(k) for k in jkeys]
-    (sig,) = prog._programs
-    assert not any(s_ == ("obj",) or (isinstance(s_, tuple) and s_[:1] ==
-                                      ("obj",)) for s_ in sig[1])
+    if layout == "stacked":
+        assert isinstance(prog, tcp.InstrumentedJit)
+        sigs = list(prog._programs)
+    else:
+        # one leg a group, one signature each for every segment
+        assert isinstance(prog, tcp.StagedJit) and len(prog.legs) == 2
+        sigs = list(prog._seen)
+        for leg in prog.legs:
+            (leg_sig,) = leg.program._programs
+            sigs.append(leg_sig)
+    assert len(sigs) == (1 if layout == "stacked" else 3)
+    for sig in sigs:
+        assert not any(s_ == ("obj",) or (isinstance(s_, tuple) and
+                                          s_[:1] == ("obj",))
+                       for s_ in sig[1])
 
 
 def test_host_replay_with_its_pressure_probe_equals_jax(fresh):
@@ -413,19 +425,29 @@ def test_host_replay_with_its_pressure_probe_equals_jax(fresh):
     assert (e["compiles"], e["retraces"]) == (1, 0)
 
 
-def test_multi_card_layout_is_eager_by_its_layout():
-    """The choice between one graph and an eager chunk is read from the
-    layout before any capture: groups on one card are captured, groups
-    on two cards are not (nothing here touches a card)."""
+def test_grouped_layout_plans_one_leg_a_group_by_its_layout():
+    """The choice between one graph and one graph a group is read from
+    the layout's group count before any capture: one group is one
+    program, two groups (on one card or on two) a staged program with
+    one segment leg a group on the group's device, under the same entry
+    (nothing here touches a card)."""
     cfg = _mesh_kw(1)
-    one = TM.MeshLayout(4, torch.device("cuda:0"),
-                        (torch.device("cuda:0"),) * 2)
-    two = TM.MeshLayout(4, torch.device("cuda:0"),
-                        (torch.device("cuda:0"), torch.device("cuda:1")))
-    assert TM.jit_mesh_chunk(one, **cfg).capture
-    assert not TM.jit_mesh_chunk(two, **cfg).capture
+    c0, c1 = torch.device("cuda:0"), torch.device("cuda:1")
+    single = TM.MeshLayout(4, c0, (c0,))
+    one = TM.MeshLayout(4, c0, (c0,) * 2)
+    two = TM.MeshLayout(4, c0, (c0, c1))
+    assert isinstance(TM.jit_mesh_chunk(single, **cfg), tcp.InstrumentedJit)
+    for mesh in (one, two):
+        prog = TM.jit_mesh_chunk(mesh, **cfg)
+        assert isinstance(prog, tcp.StagedJit)
+        assert [(leg.name, leg.group, leg.device, leg.program.device)
+                for leg in prog.legs] == [("segment", g, d, d)
+                                          for g, d in enumerate(
+                                              mesh.devices)]
+        assert not prog.captures()
     assert TM.jit_mesh_chunk(one, **cfg).entry == \
-        TM.jit_mesh_chunk(two, **cfg).entry
+        TM.jit_mesh_chunk(two, **cfg).entry == \
+        TM.jit_mesh_chunk(single, **cfg).entry
     assert TM.mesh_shape(two) == (4,)
 
 

@@ -20,7 +20,8 @@ PORT_FILES = sorted((ROOT / "dmclock_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_silicon_parity.py"] + \
     [ROOT / "scripts" / f"torch_{name}.py"
      for name in ("run_sweeps", "trace_report", "slo_report", "explain",
-                  "bench_guard", "profile_fastpath", "serial_walls")]
+                  "bench_guard", "profile_fastpath", "serial_walls",
+                  "group_walls")]
 
 
 def _forbidden(module: str) -> bool:

@@ -323,7 +323,7 @@ def test_run_cluster_rounds_equals_jax(port_fresh, kind):
         assert_tree_equal(f"round {t}", a, b)
     _digest_equal(tseq, jseq)
     (prog,) = TCL._ROUNDS_JIT_CACHE.values()
-    assert isinstance(prog, tcp.InstrumentedJit) and prog.capture
+    assert isinstance(prog, tcp.InstrumentedJit) and prog.device is None
     assert prog.cache == "cluster.cluster_step"
     assert prog.entry == repr((K, MAX_ARR, 0, False, ADV, (NS,)))
     assert list(_records(port_fresh).values()) == [(1, 0, [])]
@@ -566,7 +566,7 @@ def test_queue_ingest_programs_equal_jax(fresh, name):
     assert rec == _records(fresh[0], ("queue",))
     assert [v[:2] for v in rec.values()] == [(2, 1)]
     (prog,) = TQ._JIT_CACHE.values()
-    assert isinstance(prog, tcp.InstrumentedJit) and prog.capture
+    assert isinstance(prog, tcp.InstrumentedJit) and prog.device is None
 
 
 def test_server_round_reads_nothing_back(monkeypatch):
@@ -594,15 +594,28 @@ def test_server_round_reads_nothing_back(monkeypatch):
     assert not seen.names & banned, seen.names & banned
 
 
-def test_cluster_programs_capture_on_one_device():
-    """The cluster programs are captured wherever the layout holds one
-    device (several groups on it included) and run eagerly only over
-    several distinct cards (one CUDA graph holds one device)."""
+def test_cluster_programs_plan_one_leg_a_group():
+    """The cluster programs' plan is read from the layout's group count:
+    one group is one program captured whole (an ``InstrumentedJit``);
+    two groups, on one device or not, are a ``StagedJit`` with one leg
+    a group on its device (the robust step a healthy and a degraded leg
+    a group, the mesh rounds a round leg a group), nothing captured."""
     cfg = (K, MAX_ARR, 0, False, ADV)
-    for mesh in (TCL.make_mesh(NS, "cpu"),
-                 TCL.make_mesh(NS, devices=("cpu", "cpu"))):
-        assert TCL.captured(mesh)
-        prog = TCL.mesh_step_jit({}, TCL.cluster_step, mesh, cfg)
-        assert isinstance(prog, tcp.InstrumentedJit) and prog.capture
-        rounds = TCL.jit_mesh_rounds(mesh, epochs=1, decisions_per_step=K)
-        assert rounds.program.capture
+    one = TCL.make_mesh(NS, "cpu")
+    prog = TCL.mesh_step_jit({}, TCL.cluster_step, one, cfg)
+    assert isinstance(prog, tcp.InstrumentedJit) and prog.device is None
+    rounds = TCL.jit_mesh_rounds(one, epochs=1, decisions_per_step=K)
+    assert isinstance(rounds.program, tcp.InstrumentedJit)
+    cpu = torch.device("cpu")
+    two = TCL.make_mesh(NS, devices=("cpu", "cpu"))
+    prog = TCL.mesh_step_jit({}, TCL.cluster_step, two, cfg)
+    assert isinstance(prog, tcp.StagedJit)
+    assert [(leg.name, leg.group, leg.device, leg.program.device)
+            for leg in prog.legs] == [("legs", g, cpu, cpu)
+                                      for g in range(2)]
+    assert TRC._jit_step(two, cfg).legs[2].name == "faulty_legs"
+    rounds = TCL.jit_mesh_rounds(two, epochs=1, decisions_per_step=K)
+    assert [(leg.name, leg.group) for leg in rounds.program.legs] == \
+        [("round", 0), ("round", 1)]
+    assert not [leg for p in (prog, rounds.program) for leg in p.legs
+                if leg.program._programs]
