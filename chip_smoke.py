@@ -27,9 +27,14 @@ Phases (any failure raises and the exit code is not 0):
    hand it (a 1,024-row queue flush on 16,384 slots, and a cluster
    server's first wave, 10,000 rows that all reactivate; each ingest
    held whole against the CPU's) and on synthetic rows at the int64
-   edges, joined tags leaving the set among them; time it at both real
-   shapes beside its byte bound, the launch floor, its plain version
-   and the host recurrence it replaced (no library call computes it);
+   edges, joined tags leaving the set among them, and on inputs that
+   leave its block-parallel scan by each door (none, a wrap caught by
+   the local check, a leaving tag, the running minimum crossing the
+   trigger in a later tile, more rows than a tile), each case's exit
+   row logged; time it at both real shapes beside its byte bound, the
+   launch floor, the serial chain over the rows it walks, its plain
+   version and the host recurrence it replaced (no library call
+   computes it);
 5. exactness: at a small shape the prefix-commit epochs' decision
    stream and final state equal the port's own serial engine;
 6. the ``serve`` path: ``serve_only`` at the workload's full width
@@ -553,10 +558,11 @@ MET_LADDER_STEPS, MET_SUPERVISOR_RESUMES = 15, 16
 # device-memory rate of the H100 SXM (bytes/s, NVIDIA's data sheet),
 # for the bound of a data-movement kernel
 MEM_RATE = 3.35e12
-# K3's serial walk, a row's least time: its loop-carried chain is 6
-# dependent int64 operations (the minimum with the running minimum, the
-# compare with the trigger, low - t, the select, base + pd, the minimum
-# it joins), each 2 dependent 32-bit instructions on sm_90, at an
+# K3's serial walk (the rows from min(F, L) on), a row's least time:
+# its loop-carried chain is 6 dependent int64 operations (the minimum
+# with the running minimum, the compare with the trigger, low - t, the
+# select, base + pd, the minimum it joins), each 2 dependent 32-bit
+# instructions on sm_90, at an
 # integer instruction's 4-cycle latency and the H100 SXM's 1.98 GHz
 # boost clock (ns a row)
 K3_CHAIN_NS = 6 * 2 * 4 / 1.98
@@ -941,25 +947,31 @@ def _k3_queue_batch(rng, a, b: int, t: int) -> np.ndarray:
     return np.asarray(rows, dtype=np.int64).T.copy()
 
 
-def _k3_inputs(kernels):
-    """K3's inputs as two real ingests on the card hand them to it,
-    taken at the wrapper: a queue flush (1,024 rows on the ``queue``
-    cell's 16,384 slots and ring 32: creates, adds, reactivations, slots
-    created twice) and a cluster server's first wave (10,000 idle
-    clients, one add each, every row a reactivation).  Each ingest is
-    also held whole against the same ingest on the CPU.  Returns
-    ``[(label, rows, count)]``."""
-    from dmclock_tpu_torch.engine import bridge
-
+def k3_real_batches() -> list:
+    """The two real ingests whose K3 input phase 4b takes, as numpy from
+    seed 3: ``[(label, state arrays, op rows)]`` -- a queue flush (1,024
+    rows on the ``queue`` cell's 16,384 slots and ring 32: creates, adds,
+    reactivations, slots created twice) and a cluster server's first
+    wave (10,000 idle clients, one add each, every row a
+    reactivation)."""
     rng = np.random.default_rng(3)
     qa = _k3_state(16_384, 32, 10_000, rng, 0.3, 8)
     qrows = _k3_queue_batch(rng, qa, 1024, 60 * 10 ** 9)
     wa = _k3_state(10_000, 4, 10_000, rng, 1.0, 0)
     wrows = np.zeros((10, 10_000), dtype=np.int64)
-    wrows[0], wrows[1], wrows[2] = kernels.OP_ADD, np.arange(10_000), \
-        60 * 10 ** 9
+    wrows[0], wrows[1], wrows[2] = 1, np.arange(10_000), 60 * 10 ** 9
     wrows[3], wrows[4], wrows[5] = 1 + np.arange(10_000) % 2, 1, \
         1 + np.arange(10_000) % 3
+    return [("queue flush", qa, qrows), ("cluster wave", wa, wrows)]
+
+
+def _k3_inputs(kernels):
+    """K3's inputs as the two ingests of :func:`k3_real_batches` on the
+    card hand them to it, taken at the wrapper.  Each ingest is also
+    held whole against the same ingest on the CPU.  Returns
+    ``[(label, rows, count)]``."""
+    from dmclock_tpu_torch.engine import bridge
+
     seen, real = [], kernels.ingest_scan
 
     def record(rows, count):
@@ -967,8 +979,7 @@ def _k3_inputs(kernels):
         return real(rows, count)
 
     out = []
-    for label, arrays, rows in (("queue flush", qa, qrows),
-                                ("cluster wave", wa, wrows)):
+    for label, arrays, rows in k3_real_batches():
         kernels.ingest_scan = record
         try:
             got = kernels.ingest(bridge.state_from_numpy(arrays, "cuda"),
@@ -990,11 +1001,14 @@ def _k3_inputs(kernels):
     return out
 
 
-def _k3_check(kernels, rows, count, label: str) -> int:
+def _k3_check(kernels, rows, count, label: str) -> tuple:
     """One K3 call against its plain version on the first ``count``
-    columns, exactly; returns the max abs error (0) or raises."""
+    columns, exactly; returns the max abs error (0) and the kernel's
+    exits ``(min(F, L), L, crossing row)`` (read back here only), or
+    raises."""
     r = int(count)
-    got = kernels.ingest_scan(rows, count)
+    info = torch.empty((3,), dtype=torch.int64, device=rows.device)
+    got = kernels._ingest_scan_launch(rows, count, rows.device, info)
     want = kernels._ingest_scan_torch(rows.cpu(), count.cpu())
     torch.cuda.synchronize()
     g, w = got.cpu()[:r].tolist(), want[:r].tolist()
@@ -1002,9 +1016,13 @@ def _k3_check(kernels, rows, count, label: str) -> int:
     if err:
         raise AssertionError(f"K3 differs from its plain version: {label},"
                              f" {r} rows: max err {err}")
+    exits = tuple(info.tolist())
     log(f"[k3] {label} ({r} of {rows.shape[1]} columns): bit-identical to "
-        f"the plain version")
-    return err
+        f"the plain version; leaves the scan at min(F, L) = {exits[0]} "
+        f"(L = {exits[1]}, the count unless the scan stopped at L), P "
+        f"crosses the trigger at row {exits[2]}, {r - exits[0]} rows "
+        f"walked")
+    return err, exits
 
 
 def _k3_synthetic(gen, r: int, b: int, leaving: bool):
@@ -1057,21 +1075,49 @@ def _wall_ms(fn, reps: int = 3) -> float:
 
 
 def phase_k3(kernels, card: str) -> dict:
-    """K3 against its plain version on two real ingests' inputs and on
+    """K3 against its plain version on two real ingests' inputs, on
     synthetic rows at the int64 edges (joined tags leaving the set among
-    them); its time at both real shapes beside its byte bound, the
-    launch floor, its plain version and the host recurrence it replaced
-    (each call of those two a host loop, timed by the host's clock)."""
+    them) and on the door cases of ``tests/test_torch_cases.py``
+    (``K3_DOOR_CASES``), each of which must leave the kernel's scan by
+    its own door, every door taken at least once: none, the local check
+    (a wrap), a leaving tag, the running minimum crossing the trigger in
+    a later tile, and more rows than one tile.  Its time at both real
+    shapes beside its byte bound, the launch floor, the latency of the
+    serial chain over the rows it walks, its plain version and the host
+    recurrence it replaced (each call of those two a host loop, timed by
+    the host's clock)."""
+    import test_torch_cases as tc
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = _k3_inputs(kernels)
-    max_err = max(_k3_check(kernels, rows, count, label)
-                  for label, rows, count in cases)
+    max_err, exits = 0, {}
+    for label, rows, count in cases:
+        err, exits[label] = _k3_check(kernels, rows, count, label)
+        max_err = max(max_err, err)
     for r, b, leaving in ((0, 64, False), (1, 1, False), (700, 1024, True),
                           (5000, 5000, False), (3000, 4096, True)):
         rows, count = _k3_synthetic(gen, r, b, leaving)
-        max_err = max(max_err, _k3_check(
-            kernels, rows, count, f"synthetic, edges"
-            f"{', tags leaving the set' if leaving else ''}"))
+        err, _ = _k3_check(kernels, rows, count, f"synthetic, edges"
+                           f"{', tags leaving the set' if leaving else ''}")
+        max_err = max(max_err, err)
+    taken = set()
+    for label, r, b, opts, door in tc.K3_DOOR_CASES:
+        rows = torch.from_numpy(tc.k3_rows(r, b, 24, **opts)).cuda()
+        err, (s, lim, kt) = _k3_check(kernels, rows,
+                                      torch.tensor(r, device="cuda"),
+                                      f"door case, {label}")
+        max_err = max(max_err, err)
+        got = "none" if s == lim == r else "leaving" if s == lim else \
+            "check"
+        if got != door or ("cross_at" in opts and
+                           kt != opts["cross_at"] + 1):
+            raise AssertionError(f"K3 door case {label}: exits {s}, {lim}, "
+                                 f"{kt}, not by its door ({door})")
+        taken |= {door} | ({"crossing"} if "cross_at" in opts else set()) \
+            | ({"tiles"} if s > tc.K3_TILE else set())
+    missing = {"none", "check", "leaving", "crossing", "tiles"} - taken
+    if missing:
+        raise AssertionError(f"K3: no case left the scan by {missing}")
     one = torch.zeros((1,), dtype=torch.int64, device="cuda")
     floor_ms = cuda_ms(lambda: one.fill_(1), 50)
     times = {}
@@ -1083,29 +1129,26 @@ def phase_k3(kernels, card: str) -> dict:
         o_ms = _wall_ms(lambda: _old_host_recurrence(kernels, rows, count))
         bound_ms = kernels.ingest_scan_cost(r)["bytes_accessed"] \
             / MEM_RATE * 1e3
+        walked = r - exits[label][0]
+        chain_ms = floor_ms + walked * K3_CHAIN_NS * 1e-6
         times[label] = dict(rows=r, ms=k_ms, plain_ms=p_ms, old_ms=o_ms,
-                            bound_ms=bound_ms)
-        log(f"[k3] {label} ({r} reactivating rows) on {card}: device time "
-            f"per call (CUDA graph replay) {k_ms:.6f} ms = "
-            f"{k_ms / bound_ms:.3f}x its byte bound {bound_ms:.6f} ms, "
-            f"{k_ms / floor_ms:.3f}x the launch floor {floor_ms:.6f} ms; "
-            f"plain (a host loop) {p_ms:.6f} ms; the host recurrence it "
-            f"replaced (read back, loop, copy back) {o_ms:.6f} ms")
-    q, w = times["queue flush"], times["cluster wave"]
-    per_row = (w["ms"] - q["ms"]) / max(w["rows"] - q["rows"], 1)
-    chain = {k: floor_ms + v["rows"] * K3_CHAIN_NS * 1e-6
-             for k, v in times.items()}
-    log(f"[k3] on {card}: {per_row * 1e6:.3f} ns a row of the serial walk "
-        f"between the two shapes, {per_row * 1e6 / K3_CHAIN_NS:.3f}x the "
-        f"chain's latency ({K3_CHAIN_NS:.3f} ns a row); the launch floor "
-        f"plus the chain: " + ", ".join(
-            f"{k} {v:.6f} ms ({times[k]['ms'] / v:.3f}x)"
-            for k, v in chain.items()))
+                            bound_ms=bound_ms, chain_ms=chain_ms)
+        log(f"[k3] {label} ({r} reactivating rows, {walked} walked) on "
+            f"{card}: device time per call (CUDA graph replay) "
+            f"{k_ms:.6f} ms = {k_ms / bound_ms:.3f}x its byte bound "
+            f"{bound_ms:.6f} ms, {k_ms / floor_ms:.3f}x the launch floor "
+            f"{floor_ms:.6f} ms, {k_ms / chain_ms:.3f}x the floor plus the "
+            f"chain of its walked rows ({K3_CHAIN_NS:.3f} ns a row) "
+            f"{chain_ms:.6f} ms; plain (a host loop) {p_ms:.6f} ms; the "
+            f"host recurrence it replaced (read back, loop, copy back) "
+            f"{o_ms:.6f} ms")
+    w = times["cluster wave"]
     return dict(name="ingest_scan", route="cuda", source=K3_SOURCE,
                 replaces=K3_REPLACES, launches=None, max_abs_err=max_err,
                 ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
                 bound_by="bytes", library_ms=None,
-                chain_bound_ms=chain["cluster wave"])
+                queue_flush_ms=times["queue flush"]["ms"],
+                chain_bound_ms=w["chain_ms"])
 
 
 def _serial_matches(kernels, st0, now, slots, phases, costs, what: str,

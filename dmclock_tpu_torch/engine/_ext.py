@@ -51,8 +51,9 @@ ENTRIES = {
     "wheel_scan": ("wheel_scan_launch",
                    [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
                     _VP]),
-    # ingest_scan_launch(rows, count, out, ws, b, stream)
-    "ingest_scan": ("ingest_scan_launch", [_VP, _VP, _VP, _VP, _INT, _VP]),
+    # ingest_scan_launch(rows, count, out, ws, info, b, stream)
+    "ingest_scan": ("ingest_scan_launch",
+                    [_VP, _VP, _VP, _VP, _VP, _INT, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

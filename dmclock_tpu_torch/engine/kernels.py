@@ -1192,13 +1192,24 @@ def ingest_scan(rows, count):
         return _ingest_scan_launch(rows, count, dev)
 
 
-def _ingest_scan_launch(rows, count, dev):
+def _ingest_scan_launch(rows, count, dev, info=None):
+    """K3 on ``dev``; ``info`` (CUDA only: an int64 ``[3]`` tensor on
+    the card, or None) receives the kernel's exits: ``min(F, L)`` (the
+    row from which it walked the rest serially, ``count`` if it did
+    not), ``L`` (the first row at which a tag that leaves the set again
+    is live) if the scan stopped there, and the row at which the running
+    minimum crossed ``LOWEST_PROP_TAG_TRIGGER`` if it did by ``min(F,
+    L)`` (each ``count`` otherwise)."""
     if dev.type == "cpu":
         return _ingest_scan_torch(rows, count)
     if dev.type != "cuda":
         raise ValueError(f"ingest_scan: unsupported device {dev}")
     if not rows.is_contiguous():
         raise ValueError("ingest_scan: rows must be contiguous")
+    if info is not None and (info.dtype != torch.int64 or
+                             info.shape != (3,) or info.device != dev):
+        raise ValueError("ingest_scan: info must be int64 [3] on the "
+                         "rows' device")
     launch = _ext.kernel("ingest_scan")
     b = rows.shape[1]
     out = torch.empty((b,), dtype=torch.int64, device=dev)
@@ -1206,7 +1217,8 @@ def _ingest_scan_launch(rows, count, dev):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(rows.data_ptr(), count.data_ptr(), out.data_ptr(),
-                     ws.data_ptr(), b, stream)
+                     ws.data_ptr(), None if info is None else info.data_ptr(),
+                     b, stream)
     if err != 0:
         raise RuntimeError(f"ingest_scan kernel launch failed: CUDA error "
                            f"{err}")

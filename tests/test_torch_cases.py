@@ -127,3 +127,58 @@ def plain_wheel_scan(keys, slot, nb):
     occ = np.flatnonzero(cnt)
     found = occ.size > 0
     return cnt, bmin, (bmin[occ[0]] if found else KEY_INF), found
+
+
+# kernel K3 (the ingest's reactivation recurrence): the trigger below
+# which a reactivating row's tags shift (LOWEST_PROP_TAG_TRIGGER =
+# MAX_TAG // 2) and the rows one tile of its scan covers (512 threads
+# of 4 rows each)
+K3_TRIGGER = 1 << 61
+K3_TILE = 2048
+_S = 10 ** 9
+
+
+def k3_rows(r: int, b: int, seed: int, *, cross_at=None, wrap_at=None,
+            leave_at=None) -> np.ndarray:
+    """K3's input (int64 ``[7, b]``, the first ``r`` columns set): tags
+    around 50 s, none wrapping, none leaving the set, so the scan covers
+    every row; unless asked for: ``cross_at``, every tag that joins
+    before that row at or above the trigger and that row's below it (the
+    running minimum crosses the trigger there); ``wrap_at``, that row
+    shifting by a ``low - t`` that wraps; ``leave_at``, that row's tag
+    leaving the set again 3 rows later."""
+    rng = np.random.default_rng(seed)
+    m = np.where(rng.random(r) < 0.3, KEY_INF,
+                 50 * _S + rng.integers(-_S, _S, r))
+    a0 = rng.random(r) < 0.5
+    base = 50 * _S + rng.integers(-_S, _S, r)
+    act = rng.random(r) < 0.8
+    end = np.full(r, r)
+    if cross_at is not None:
+        m[:cross_at + 1] = KEY_INF
+        base[:cross_at] += K3_TRIGGER
+        act[cross_at] = True
+    if wrap_at is not None:
+        m[wrap_at] = -(1 << 63) + 5
+        a0[wrap_at] = act[wrap_at] = True
+    if leave_at is not None:
+        act[leave_at] = True
+        end[leave_at] = leave_at + 3
+    rows = np.zeros((7, b), dtype=np.int64)
+    rows[:, :r] = np.stack([m, a0, base, rng.integers(0, _S, r), act,
+                            60 * _S + rng.integers(0, _S, r), end])
+    return rows
+
+
+# (label, r, b, k3_rows options, the door): K3's inputs that leave its
+# scan through each door -- none (the scan covers every row, over
+# several tiles), the running minimum crossing the trigger in a later
+# tile, a wrap in mid-batch, a leaving tag -- and a B past one tile
+K3_DOOR_CASES = [
+    ("no exit, 5 tiles", 10_000, 12_288, {}, "none"),
+    ("crossing in the third tile", 6000, 6000, {"cross_at": 5000},
+     "none"),
+    ("wrap in mid-batch", 5000, 5000, {"wrap_at": 4500}, "check"),
+    ("leaving tag", 3000, 4100, {"leave_at": 2500}, "leaving"),
+    ("16,384 rows, every slot of a queue", 16_384, 16_384, {}, "none"),
+]

@@ -17,8 +17,8 @@ from dmclock_tpu_torch.engine import fastpath as tfp
 from dmclock_tpu_torch.engine import kernels as tk
 from dmclock_tpu_torch.obs.device import MET_REBASE_FALLBACKS
 
-from test_torch_cases import (RING_MAIN_SHAPES, RING_SHAPES,
-                              RING_SWEEP_SHAPES, WHEEL_CASES,
+from test_torch_cases import (K3_DOOR_CASES, RING_MAIN_SHAPES, RING_SHAPES,
+                              RING_SWEEP_SHAPES, WHEEL_CASES, k3_rows,
                               plain_wheel_scan, ring_case, wheel_case)
 
 
@@ -1290,20 +1290,36 @@ def _scan_rows(rng, r: int, b: int, leaving: bool):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r, b, leaving", [(0, 8, False), (1, 1, False),
-                                           (700, 1024, True),
-                                           (10_000, 10_000, False)])
-def test_ingest_scan_kernel_matches_plain(cuda, r, b, leaving):
+@pytest.mark.parametrize(
+    "r, b, opts, door",
+    [(0, 8, {"leaving": False}, None), (1, 1, {"leaving": False}, None),
+     (700, 1024, {"leaving": True}, None),
+     (10_000, 10_000, {"leaving": False}, None)]
+    + [(r, b, opts, door) for _, r, b, opts, door in K3_DOOR_CASES])
+def test_ingest_scan_kernel_matches_plain(cuda, r, b, opts, door):
     """K3 (one launch) against its plain version on the first ``r``
-    columns, exactly."""
-    rows = _scan_rows(np.random.default_rng(r), r, b, leaving)
+    columns, exactly: random rows at the int64 edges (``leaving``: with
+    joined tags that leave the set), and the door cases of
+    ``test_torch_cases.K3_DOOR_CASES``, each of which leaves the kernel's
+    scan by its door (``info``: min(F, L), L, the crossing row)."""
+    rows = _scan_rows(np.random.default_rng(r), r, b, opts["leaving"]) \
+        if door is None else k3_rows(r, b, 24, **opts)
+    x, c = torch.from_numpy(rows).to(cuda), torch.tensor(r, device=cuda)
     before = _ext.LAUNCHES["ingest_scan"]
-    got = tk.ingest_scan(torch.from_numpy(rows).to(cuda),
-                         torch.tensor(r, device=cuda))
+    got = tk.ingest_scan(x, c)
     torch.cuda.synchronize()
     assert _ext.LAUNCHES["ingest_scan"] == before + 1
     want = tk._ingest_scan_torch(torch.from_numpy(rows), torch.tensor(r))
     assert torch.equal(got.cpu()[:r], want[:r])
+    if door is not None:
+        info = torch.empty((3,), dtype=torch.int64, device=cuda)
+        got = tk._ingest_scan_launch(x, c, x.device, info)
+        s, lim, kt = info.tolist()
+        assert door == ("none" if s == lim == r else
+                        "leaving" if s == lim else "check"), (s, lim)
+        if "cross_at" in opts:
+            assert kt == opts["cross_at"] + 1
+        assert torch.equal(got.cpu()[:r], want[:r])
 
 
 def _ingest_case(seed: int, n: int = 64, q: int = 8, b: int = 256):

@@ -21,7 +21,7 @@ PORT_FILES = sorted((ROOT / "dmclock_tpu_torch").rglob("*.py")) + \
     [ROOT / "scripts" / f"torch_{name}.py"
      for name in ("run_sweeps", "trace_report", "slo_report", "explain",
                   "bench_guard", "profile_fastpath", "serial_walls",
-                  "group_walls")]
+                  "group_walls", "k3_scaling")]
 
 
 def _forbidden(module: str) -> bool:
